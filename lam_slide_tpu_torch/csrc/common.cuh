@@ -20,3 +20,43 @@ inline cudaError_t lam_set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
+
+// Sum over the 32 lanes of a warp; every lane gets the total.
+__device__ __forceinline__ float lam_warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float lam_round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// Per-head QK RMS-norm then RoPE of one head's dh values x[0, dh), in place,
+// by the 32 lanes of one warp (all lanes must call it). Rounding points of
+// the plain headmajor_rope(headmajor_rmsnorm(x)): fp32 statistics,
+// rsqrt(mean(x^2) + eps), x * rr * scale rounded to bf16, the rotation of
+// adjacent (even, odd) pairs in fp32 by cos/sin[dh/2], rounded to bf16.
+// The _rn intrinsics keep the compiler from contracting products into
+// FMAs, so each product rounds as the separate PyTorch ops round it.
+__device__ __forceinline__ void lam_rmsnorm_rope(bf16* x, int dh, const float* scale,
+                                                 const float* cos, const float* sin,
+                                                 float eps) {
+  const int lane = threadIdx.x % 32;
+  float ss = 0.0f;
+  for (int p = lane; p < dh / 2; p += 32) {
+    const float a = __bfloat162float(x[2 * p]), b = __bfloat162float(x[2 * p + 1]);
+    ss = __fadd_rn(ss, __fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)));
+  }
+  ss = lam_warp_sum(ss);
+  const float rr = rsqrtf(__fadd_rn(__fdiv_rn(ss, static_cast<float>(dh)), eps));
+  for (int p = lane; p < dh / 2; p += 32) {
+    const float a = __bfloat162float(x[2 * p]), b = __bfloat162float(x[2 * p + 1]);
+    const float na = lam_round_bf16(__fmul_rn(__fmul_rn(a, rr), scale[2 * p]));
+    const float nb = lam_round_bf16(__fmul_rn(__fmul_rn(b, rr), scale[2 * p + 1]));
+    const float c = cos[p], s = sin[p];
+    x[2 * p] = __float2bfloat16(__fsub_rn(__fmul_rn(c, na), __fmul_rn(s, nb)));
+    x[2 * p + 1] = __float2bfloat16(__fadd_rn(__fmul_rn(s, na), __fmul_rn(c, nb)));
+  }
+  __syncwarp();
+}

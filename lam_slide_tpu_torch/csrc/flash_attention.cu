@@ -1,12 +1,19 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in / bf16 out.
+// Flash-attention forward for Hopper (sm_90a), bf16 in / bf16 out, and its
+// variant with per-head QK RMS-norm + RoPE applied inside the kernel.
 //
-// Replaces the Pallas TPU kernel lam_slide_tpu/ops/flash_attention.py
-// `_flash_kernel` (pallas_call in `_flash_forward`), which the DiT's temporal
-// axis reaches through `flash_attention_packed`'s head-major fallback at
-// dh=24. The same strided design covers the packed-layout kernel
-// (`_packed_manual_kernel`) later: q/k/v/o are read and written through
-// per-tensor (batch, head, seq) strides with unit stride on dh, so q/k/v can
-// be views of linear1's output and o a view of a packed [B, N, H*dh] buffer.
+// Replaces three Pallas TPU kernels:
+// - K1, lam_slide_tpu/ops/flash_attention.py `_flash_kernel` (pallas_call in
+//   `_flash_forward`), the head-major forward;
+// - K3, the same file's `_packed_manual_kernel` (`flash_attention_packed`):
+//   q/k/v/o are read and written through per-tensor (batch, head, seq)
+//   strides with unit stride on dh, so q/k/v can be views of linear1's
+//   output and o a view of a packed [B, N, H*dh] buffer; the packed entry is
+//   this kernel called with packed strides, no second binary;
+// - K5, lam_slide_tpu/ops/flash_normrope.py `_nr_flash_kernel`: the NR=true
+//   instantiation takes RAW q/k, normalizes and rotates the Q tile once after
+//   it lands in shared memory and each K tile as it lands, in place, and
+//   then runs the same recurrence (lam_rmsnorm_rope in common.cuh keeps the
+//   rounding points of headmajor_rope(headmajor_rmsnorm(x))).
 //
 // Design: one thread block = one (batch*head, 64-row query tile), 4 warps of
 // 16 query rows each. The block loops over 64-key K/V tiles staged in shared
@@ -16,14 +23,18 @@
 // (two lanes per row), P rounded to bf16, then acc += P V with the
 // accumulator kept in shared memory so that each row can be rescaled.
 // dh is zero-padded to DP (32, 64 or 128) in shared memory only; keys >= Nk
-// on the last tile get the -0.7*FLT_MAX logit the JAX kernel uses.
+// on the last tile get the -0.7*FLT_MAX logit the JAX kernel uses. At
+// DP=128 the tiles take ~113 KB of shared memory (Q, K, V and S at 17 KB,
+// P 9 KB, the fp32 accumulator 33 KB), so the K transform reuses the K tile.
 //
 // What bounds it on the H100: at the 4AA temporal shape (N=1000, dh=24) a
 // call is ~4*N^2*32 FLOPs per head with no score matrix in device memory,
 // so it is bound by the tensor-core and shared-memory work per tile, not
 // by HBM bytes (q/k/v are ~150 KB per head). This first version favours
 // clarity: WMMA through shared memory, scalar tile loads, no cp.async/TMA
-// pipelining and no wgmma; those are the levers for making it fast.
+// pipelining and no wgmma; those are the levers for making it fast. The
+// K5 transform is redone for every (query tile, key tile) pair, as in the
+// TPU kernel: 16x the minimal norm/rope work at N=1000, all on chip.
 //
 // Numerics (docs/PERF.md "Kernel numerics"): bf16 operands, fp32 logits
 // and statistics, P rounded to bf16 before the AV product, output in q's
@@ -42,6 +53,7 @@ constexpr int BK = 64;        // keys per K/V tile
 constexpr int NWARPS = 4;     // 16 query rows per warp
 constexpr int THREADS = NWARPS * 32;
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
+constexpr float NR_EPS = 1e-6f;  // QK RMS-norm eps (flash_normrope.py _EPS)
 
 template <int DP>
 struct Layout {
@@ -71,10 +83,28 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long 
   }
 }
 
+// RMS-norm + RoPE of the tile's rows at sequence positions n0 + r < n, in
+// place; warp w takes rows [16w, 16w + 16). Padding rows stay zero.
 template <int DP>
+__device__ __forceinline__ void normrope_tile(bf16* tile, int n0, int n, int dh,
+                                              const float* scale, const float* cos,
+                                              const float* sin) {
+  const int warp = threadIdx.x / 32;
+  for (int r = warp * 16; r < warp * 16 + 16 && n0 + r < n; ++r) {
+    const long long pos = n0 + r;
+    lam_rmsnorm_rope(tile + r * Layout<DP>::LDT, dh, scale, cos + pos * (dh / 2),
+                     sin + pos * (dh / 2), NR_EPS);
+  }
+}
+
+// NR: q/k are RAW and get the per-head RMS-norm (scales qs/ks [dh]) and
+// RoPE (cos/sin [>= max(Nq, Nk), dh/2], row-major) in shared memory.
+template <int DP, bool NR>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                 const float* __restrict__ qs, const float* __restrict__ ks,
+                 const float* __restrict__ cos, const float* __restrict__ sin,
                  int H, int Nq, int Nk, int dh,
                  long long q_sb, long long q_sh, long long q_sn,
                  long long k_sb, long long k_sh, long long k_sn,
@@ -98,6 +128,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vp = v + b * v_sb + h * v_sh;
 
   load_tile<DP>(Qs, qp, q_sn, q0, Nq, dh);
+  if constexpr (NR) {
+    __syncthreads();
+    normrope_tile<DP>(Qs, q0, Nq, dh, qs, cos, sin);
+  }
   for (int i = lane; i < 16 * LDA; i += 32) As[i] = 0.0f;
 
   // lane owns query row r of its warp's 16, and half of its columns
@@ -110,6 +144,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile<DP>(Ks, kp, k_sn, kt * BK, Nk, dh);
     load_tile<DP>(Vs, vp, v_sn, kt * BK, Nk, dh);
     __syncthreads();
+    if constexpr (NR) {
+      normrope_tile<DP>(Ks, kt * BK, Nk, dh, ks, cos, sin);
+      __syncthreads();
+    }
 
     // S = Q K^T for this warp's 16 rows x 64 keys, fp32 accumulation
 #pragma unroll
@@ -183,18 +221,42 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DP>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int H,
-                   int Nq, int Nk, int dh, const long long* s, float scale,
+struct NormRope {
+  const float *qs, *ks, *cos, *sin;
+};
+
+template <int DP, bool NR>
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, NormRope nr,
+                   int B, int H, int Nq, int Nk, int dh, const long long* s, float scale,
                    cudaStream_t stream) {
   constexpr size_t smem = Layout<DP>::bytes;
-  static cudaError_t attr = lam_set_smem(flash_fwd_kernel<DP>, smem);
+  static cudaError_t attr = lam_set_smem(flash_fwd_kernel<DP, NR>, smem);
   if (attr != cudaSuccess) return attr;
   dim3 grid((Nq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, H, Nq, Nk, dh, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
-      s[9], s[10], s[11], scale);
+  flash_fwd_kernel<DP, NR><<<grid, THREADS, smem, stream>>>(
+      q, k, v, o, nr.qs, nr.ks, nr.cos, nr.sin, H, Nq, Nk, dh, s[0], s[1], s[2], s[3],
+      s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], scale);
   return cudaGetLastError();
+}
+
+template <bool NR>
+int launch_dh(const void* q, const void* k, const void* v, void* o, NormRope nr, int B,
+              int H, int Nq, int Nk, int dh, const long long* s, float scale,
+              void* stream) {
+  auto qb = static_cast<const bf16*>(q);
+  auto kb = static_cast<const bf16*>(k);
+  auto vb = static_cast<const bf16*>(v);
+  auto ob = static_cast<bf16*>(o);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dh <= 0 || dh > 128 || (NR && dh % 2)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (dh <= 32)
+    err = launch<32, NR>(qb, kb, vb, ob, nr, B, H, Nq, Nk, dh, s, scale, st);
+  else if (dh <= 64)
+    err = launch<64, NR>(qb, kb, vb, ob, nr, B, H, Nq, Nk, dh, s, scale, st);
+  else
+    err = launch<128, NR>(qb, kb, vb, ob, nr, B, H, Nq, Nk, dh, s, scale, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -208,18 +270,21 @@ extern "C" int lam_flash_attention_fwd(
     long long o_sh, long long o_sn, float scale, void* stream) {
   const long long s[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
                            v_sb, v_sh, v_sn, o_sb, o_sh, o_sn};
-  auto qb = static_cast<const bf16*>(q);
-  auto kb = static_cast<const bf16*>(k);
-  auto vb = static_cast<const bf16*>(v);
-  auto ob = static_cast<bf16*>(o);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dh <= 0 || dh > 128) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  if (dh <= 32)
-    err = launch<32>(qb, kb, vb, ob, B, H, Nq, Nk, dh, s, scale, st);
-  else if (dh <= 64)
-    err = launch<64>(qb, kb, vb, ob, B, H, Nq, Nk, dh, s, scale, st);
-  else
-    err = launch<128>(qb, kb, vb, ob, B, H, Nq, Nk, dh, s, scale, st);
-  return static_cast<int>(err);
+  return launch_dh<false>(q, k, v, o, NormRope{}, B, H, Nq, Nk, dh, s, scale, stream);
+}
+
+// As lam_flash_attention_fwd on RAW q/k, plus fp32 qs/ks [dh] (the learned
+// RMS-norm scales) and fp32 cos/sin [>= max(Nq, Nk), dh/2] row-major RoPE
+// tables; dh must be even.
+extern "C" int lam_flash_attention_normrope_fwd(
+    const void* q, const void* k, const void* v, void* o, const void* qs, const void* ks,
+    const void* cos, const void* sin, int B, int H, int Nq, int Nk, int dh, long long q_sb,
+    long long q_sh, long long q_sn, long long k_sb, long long k_sh, long long k_sn,
+    long long v_sb, long long v_sh, long long v_sn, long long o_sb, long long o_sh,
+    long long o_sn, float scale, void* stream) {
+  const long long s[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
+                           v_sb, v_sh, v_sn, o_sb, o_sh, o_sn};
+  const NormRope nr{static_cast<const float*>(qs), static_cast<const float*>(ks),
+                    static_cast<const float*>(cos), static_cast<const float*>(sin)};
+  return launch_dh<true>(q, k, v, o, nr, B, H, Nq, Nk, dh, s, scale, stream);
 }

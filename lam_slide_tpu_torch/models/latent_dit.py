@@ -6,12 +6,21 @@ reference state_dict keys, so a reference ``state_dict`` (for example
 ``tests/golden/latent_dit_golden.npz``) loads with ``load_state_dict``.
 
 Parameters are fp32; activations run in ``dtype`` (bf16 for the stage-2
-configs), with weights cast at each use as the JAX package does. The
-temporal axis (n > ``packed_threshold``) runs QK RMS-norm and RoPE as
-elementwise ops, then the flash kernel (K1) for attention and the fused
-MLP kernel (K2) for the MLP branch; linear2 adds the two fp32 partials
-before a single rounding (latent_dit.py:287-296,415-434). The small spatial
-axis runs the plain composition (ops/fused_spatial_block.py).
+configs), with weights cast at each use as the JAX package does. This is
+the JAX package's fused configuration (``LAM_SLIDE_FUSED=1``) with its
+shipping defaults:
+
+* the temporal axis (n > ``packed_threshold``): at dh % 128 == 0 the flash
+  kernel with QK RMS-norm and RoPE inside (K5) on raw views of linear1's
+  output (latent_dit.py:336-361); otherwise QK RMS-norm and RoPE as
+  elementwise ops and the packed flash entry (K3, the K1 binary) on packed
+  views (latent_dit.py:390-404); the fused MLP kernel (K2) for the MLP
+  branch, and linear2 adds the two fp32 partials before a single rounding
+  (latent_dit.py:415-434);
+* the small spatial axis: the whole block in one kernel (K8,
+  latent_dit.py:220-231);
+* the residual + LayerNorm + modulate glue: K7, twice per layer and once
+  before the output layer (latent_dit.py:484-487,680).
 
 ``backend="auto"`` lets CUDA tensors launch the kernels; ``"plain"`` runs the
 plain PyTorch versions everywhere (for comparisons and timing).
@@ -26,10 +35,20 @@ from torch import nn
 from lam_slide_tpu_torch.nn import initializers as inits
 from lam_slide_tpu_torch.nn.embeddings import timestep_embedding
 from lam_slide_tpu_torch.nn.norms import QKNorm, layer_norm
-from lam_slide_tpu_torch.ops.attention import BACKENDS, attention
-from lam_slide_tpu_torch.ops.fused_adaln import residual_adaln_modulate
+from lam_slide_tpu_torch.ops.attention import BACKENDS, attention_packed
+from lam_slide_tpu_torch.ops.flash_normrope import (
+    flash_attention_normrope,
+    reference_attention_normrope,
+)
+from lam_slide_tpu_torch.ops.fused_adaln import (
+    reference_residual_adaln_modulate,
+    residual_adaln_modulate,
+)
 from lam_slide_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
-from lam_slide_tpu_torch.ops.fused_spatial_block import reference_spatial_block
+from lam_slide_tpu_torch.ops.fused_spatial_block import (
+    fused_spatial_block,
+    reference_spatial_block,
+)
 from lam_slide_tpu_torch.ops.packed_attention import headmajor_rmsnorm, headmajor_rope
 
 
@@ -122,28 +141,39 @@ class ParallelMLPAttention(nn.Module):
         xd = x.to(dt)
         q_scale = self.norm.query_norm.scale
         k_scale = self.norm.key_norm.scale
-        if n <= self.packed_threshold:
-            return reference_spatial_block(
-                xd, self.linear1.weight, self.linear1.bias, q_scale, k_scale,
-                self.linear2.weight, self.linear2.bias, cos, sin, h, float(scale))
-
+        plain = backend == "plain"
         w1 = self.linear1.weight.to(dt)
         b1 = self.linear1.bias.to(dt)
-        # linear1 computes only the q/k/v columns here; the MLP branch reads x.
-        qkv = (torch.matmul(xd, w1[:3 * d].t()) + b1[:3 * d]).view(b, n, 3, h, dh)
-        q, k, v = qkv.unbind(2)  # packed [B', n, H, dh] views
-        rope = (cos[:, None, :], sin[:, None, :])
-        q = headmajor_rope(headmajor_rmsnorm(q, q_scale), *rope)
-        k = headmajor_rope(headmajor_rmsnorm(k, k_scale), *rope)
-        ah = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                       scale=self.qk_scale, backend=backend)
-        attn = ah.transpose(1, 2).reshape(b, n, d)
-
         w2 = self.linear2.weight.to(dt)
-        mlp_fn = reference_mlp if backend == "plain" else fused_mlp
+        if n <= self.packed_threshold:
+            block = reference_spatial_block if plain else fused_spatial_block
+            return block(xd, w1, b1, q_scale, k_scale, w2, self.linear2.bias.to(dt), cos, sin,
+                         h, float(scale))
+
+        # linear1 computes only the q/k/v columns here; the MLP branch reads x.
+        qkv = torch.matmul(xd, w1[:3 * d].t()) + b1[:3 * d]
+        if dh % 128 == 0:
+            # raw head-major q/k/v views; the kernel norms and rotates q/k
+            q, k, v = (t.transpose(1, 2) for t in qkv.view(b, n, 3, h, dh).unbind(2))
+            attn_fn = reference_attention_normrope if plain else flash_attention_normrope
+            ah = attn_fn(q, k, v, q_scale, k_scale, cos, sin, scale=self.qk_scale)
+            attn = ah.transpose(1, 2).reshape(b, n, d)
+        else:
+            q, k, _ = qkv.view(b, n, 3, h, dh).unbind(2)  # packed [B', n, H, dh] views
+            rope = (cos[:, None, :], sin[:, None, :])
+            q = headmajor_rope(headmajor_rmsnorm(q, q_scale), *rope).reshape(b, n, d)
+            k = headmajor_rope(headmajor_rmsnorm(k, k_scale), *rope).reshape(b, n, d)
+            attn = attention_packed(q, k, qkv[..., 2 * d:], h, scale=self.qk_scale,
+                                    backend=backend)
+
+        mlp_fn = reference_mlp if plain else fused_mlp
         out32 = torch.matmul(attn.float(), w2[:, :d].float().t())
         out32 = out32 + mlp_fn(xd, w1[3 * d:].t(), b1[3 * d:], w2[:, d:].t())
         return out32.to(dt) + self.linear2.bias.to(dt)
+
+
+def _adaln_fn(backend: str):
+    return reference_residual_adaln_modulate if backend == "plain" else residual_adaln_modulate
 
 
 class LatentDiTLayer(nn.Module):
@@ -169,9 +199,10 @@ class LatentDiTLayer(nn.Module):
         """
         b, t, l, d = x.shape
         (shift1, scale1, gate1), (shift2, scale2, gate2) = self.modulation(vec, self.dtype)
-        x, h = residual_adaln_modulate(x, pend_h, pend_gate, shift1, scale1)
+        adaln = _adaln_fn(backend)
+        x, h = adaln(x, pend_h, pend_gate, shift1, scale1)
         h = self.spatial_block(h.reshape(b * t, l, d), sp_cos, sp_sin, backend).reshape(b, t, l, d)
-        x, h = residual_adaln_modulate(x, h, gate1, shift2, scale2)
+        x, h = adaln(x, h, gate1, shift2, scale2)
         h = h.transpose(1, 2).reshape(b * l, t, d)
         h = self.temporal_block(h, tm_cos, tm_sin, backend).reshape(b, l, t, d).transpose(1, 2)
         return x, h, gate2
@@ -189,6 +220,8 @@ class LatentDiT(nn.Module):
     reference does; ``reference_init=False`` draws them from the torch
     Linear default instead. ``generator`` seeds the fresh init (a CPU
     generator; the parameters are drawn on the CPU and moved to ``device``).
+    ``device`` defaults to the CUDA card, so a missing card raises; pass
+    ``device="cpu"`` to run on the CPU.
     """
 
     def __init__(self, depth: int, in_dim: int, hidden_size: int, num_heads: int,
@@ -196,7 +229,7 @@ class LatentDiT(nn.Module):
                  theta: float = 10_000.0, normalize: bool = False,
                  reference_init: bool = True, packed_threshold: int = 8,
                  backend: str = "auto", dtype: torch.dtype = torch.float32,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} not divisible by num_heads {num_heads}")
@@ -220,8 +253,7 @@ class LatentDiT(nn.Module):
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), _linear(d, 2 * d, kinit, gen))
         out_init = inits.zeros_ if reference_init else inits.torch_linear_init_
         self.linear = _linear(d, in_dim, out_init, gen)
-        if device is not None:
-            self.to(device)
+        self.to(device)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, x_cond: torch.Tensor,
                 x_cond_mask: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -249,5 +281,5 @@ class LatentDiT(nn.Module):
 
         mod = dense(F.silu(vec), self.adaLN_modulation[1], dt)
         shift, scale = mod[:, None, None, :].chunk(2, dim=-1)
-        _, h = residual_adaln_modulate(h, pend_h, pend_gate, shift, scale)
+        _, h = _adaln_fn(self.backend)(h, pend_h, pend_gate, shift, scale)
         return dense(h, self.linear, dt).float()

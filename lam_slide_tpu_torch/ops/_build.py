@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (no JAX counterpart).
 
-All ``csrc/*.cu`` files compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build lives in
+All ``csrc/*.cu`` files compile with ``nvcc`` for ``sm_90a``, one process
+per source started together, and link into one shared library with a plain
+C interface, loaded with ``ctypes``. The build lives in
 ``lam_slide_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and
 flags, so it reruns only when they change. A failed build raises; nothing
 falls back.
@@ -24,7 +25,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 LIB_NAME = "liblam_slide_kernels.so"
 
 # C signatures of the entry points (pointer and stream arguments are void*
@@ -33,7 +34,11 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "lam_flash_attention_fwd": (
         [_P, _P, _P, _P, _I, _I, _I, _I, _I] + [_L] * 12 + [_F, _P]),
+    "lam_flash_attention_normrope_fwd": (
+        [_P] * 8 + [_I] * 5 + [_L] * 12 + [_F, _P]),
     "lam_fused_mlp_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _L, _P],
+    "lam_adaln_fwd": [_P] * 7 + [_L, _L, _L, _I] + [_L] * 6 + [_F, _I, _P],
+    "lam_spatial_block_fwd": [_P] * 10 + [_L, _I, _I, _I, _I, _L, _L, _F, _P],
 }
 
 
@@ -59,6 +64,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _finish(cmd: list, output: str, returncode: int, verbose: bool) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{output}")
+    if verbose and output:
+        print(output)
+
+
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into the hashed build directory; return the .so path."""
     out_dir = BUILD_ROOT / source_hash()
@@ -66,18 +78,24 @@ def build(verbose: bool = False) -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), *cu]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    compiles = []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []), f"-I{CSRC}", "-c",
+               "-o", str(out_dir / f"{src.stem}.{os.getpid()}.o"), str(src)]
+        compiles.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+    done = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in compiles]
+    for cmd, output, returncode in done:
+        _finish(cmd, output, returncode, verbose)
+    objects = [cmd[-2] for cmd, _, _ in done]
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objects]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
+    _finish(cmd, proc.stdout + proc.stderr, proc.returncode, verbose)
+    for obj in objects:
+        os.remove(obj)
     os.replace(tmp, lib)
     (out_dir / "build_seconds.txt").write_text(f"{time.perf_counter() - t0:.3f}\n")
     return lib

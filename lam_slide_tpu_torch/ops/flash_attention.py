@@ -1,12 +1,17 @@
-"""Flash-attention forward: CUDA kernel K1 and its plain PyTorch version.
+"""Flash-attention forward: CUDA kernel K1, its packed entry K3, and their
+plain PyTorch versions.
 
-Counterpart of ``lam_slide_tpu/ops/flash_attention.py`` (``_flash_kernel``
-through ``flash_attention``). The kernel lives in ``csrc/flash_attention.cu``;
-it reads q/k/v through (batch, head, seq) strides, so head-major views of a
-packed ``[B, N, H*dh]`` buffer go in without a copy, and it writes its output
-into packed memory, so ``out.transpose(1, 2).reshape(B, N, H*dh)`` is a view.
+Counterpart of ``lam_slide_tpu/ops/flash_attention.py``: ``_flash_kernel``
+through ``flash_attention`` (K1) and ``_packed_manual_kernel`` through
+``flash_attention_packed`` (K3). The kernel lives in
+``csrc/flash_attention.cu``; it reads q/k/v through (batch, head, seq)
+strides, so head-major views of a packed ``[B, N, H*dh]`` buffer go in
+without a copy, and it writes its output into packed memory, so
+``out.transpose(1, 2).reshape(B, N, H*dh)`` is a view. K3 is that same
+binary called on packed views: no copy in and none out.
 
-``launches`` counts kernel launches; nothing else touches it.
+``launches`` counts kernel launches of both entries (one binary); nothing
+else touches it.
 """
 
 from typing import Optional
@@ -29,6 +34,18 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.matmul(weights, v)
+
+
+def reference_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               num_heads: int, scale: Optional[float] = None) -> torch.Tensor:
+    """``reference_attention`` on packed ``[B, N, H*dh]`` operands -> packed output."""
+    out = reference_attention(*(_heads(t, num_heads) for t in (q, k, v)), scale)
+    return out.transpose(1, 2).reshape(q.shape)
+
+
+def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Packed ``[B, N, H*dh]`` -> head-major ``[B, H, N, dh]`` view."""
+    return t.unflatten(-1, (num_heads, t.shape[-1] // num_heads)).transpose(1, 2)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -75,3 +92,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       out.data_ptr(), b, h, nq, nk, dh, *strides, float(scale), stream)
     launches += 1
     return out
+
+
+def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           num_heads: int, scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q kᵀ · scale) v per head over packed ``[B, N, H*dh]`` operands
+    (views with unit stride on the last axis) -> packed ``[B, N, H*dh]``.
+
+    CPU tensors take ``reference_attention_packed``. CUDA tensors launch K1
+    on head-major strided views of the same memory (no copy) or raise.
+    """
+    if q.device.type == "cpu":
+        return reference_attention_packed(q, k, v, num_heads, scale)
+    if q.dim() != 3 or q.shape[-1] % num_heads:
+        raise ValueError(f"flash_attention_packed: q must be [B, N, H*dh] with H={num_heads}, "
+                         f"got {tuple(q.shape)}")
+    out = flash_attention(*(_heads(t, num_heads) for t in (q, k, v)), scale=scale)
+    return out.transpose(1, 2).reshape(q.shape)

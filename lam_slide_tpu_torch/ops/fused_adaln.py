@@ -1,9 +1,19 @@
-"""Residual + LayerNorm + AdaLN modulate, as plain compositions.
+"""Residual + LayerNorm + AdaLN modulate: CUDA kernel K7 and its plain
+PyTorch versions.
 
-Counterpart of ``lam_slide_tpu/ops/fused_adaln.py``. Its Pallas kernels
-(``_adaln_kernel``, ``_residual_adaln_kernel``) are opt-in on the TPU, so
-the main path runs these compositions (fused_adaln.py:74-80); the kernels
-are still to be ported.
+Counterpart of ``lam_slide_tpu/ops/fused_adaln.py`` (``_adaln_kernel`` and
+``_residual_adaln_kernel``, public ``adaln_modulate`` and
+``residual_adaln_modulate``). One kernel with a compile-time residual flag
+(``csrc/fused_adaln.cu``) does each chain in one pass over the rows: one
+warp per row of D values, x and h read once, x_new and y written once. h
+may be a strided view (the DiT's transposed temporal output) and the
+modulation rows chunks of one tensor: neither is copied.
+
+Numerics (fused_adaln.py:83-105): the residual rounds per op in bf16, so
+``x_new`` is bit-identical to the plain version; LayerNorm statistics in
+fp32; the normalized value rounds to bf16 before the modulate.
+
+``launches`` counts kernel launches of both entries; nothing else touches it.
 """
 
 from typing import Tuple
@@ -11,6 +21,9 @@ from typing import Tuple
 import torch
 
 from lam_slide_tpu_torch.nn.norms import layer_norm
+from lam_slide_tpu_torch.ops import _build
+
+launches = 0
 
 
 def modulate(xn: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -18,15 +31,96 @@ def modulate(xn: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torc
     return xn * (1.0 + scale.to(xn.dtype)) + shift.to(xn.dtype)
 
 
-def adaln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
-                   eps: float = 1e-6) -> torch.Tensor:
+def reference_adaln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
+                             eps: float = 1e-6) -> torch.Tensor:
     """modulate(layer_norm(x), shift, scale)."""
     return modulate(layer_norm(x, eps=eps), shift, scale)
+
+
+def reference_residual_adaln_modulate(x: torch.Tensor, h: torch.Tensor, gate: torch.Tensor,
+                                      shift: torch.Tensor, scale: torch.Tensor,
+                                      eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + gate·h, modulate(layer_norm(x + gate·h)))."""
+    x_new = x + gate.to(x.dtype) * h
+    return x_new, modulate(layer_norm(x_new, eps=eps), shift, scale)
+
+
+def _mod_batch_stride(name: str, m: torch.Tensor, x: torch.Tensor) -> int:
+    """Batch stride of a ``[B, 1.., D]`` modulation row set; raise on what the
+    kernel cannot take."""
+    b, d = x.shape[0], x.shape[-1]
+    if m.device != x.device or m.dtype != x.dtype:
+        raise ValueError(f"adaln: {name} must be {x.dtype} on {x.device}, got {m.dtype} "
+                         f"on {m.device}")
+    if m.dim() != x.dim() or m.shape[0] != b or m.shape[-1] != d or m.numel() != b * d:
+        raise ValueError(f"adaln: {name} must be [B, 1.., D] for x {tuple(x.shape)}, "
+                         f"got {tuple(m.shape)}")
+    if m.stride(-1) != 1 or (b > 1 and m.stride(0) % 2) or m.data_ptr() % 4:
+        raise ValueError(f"adaln: {name} needs unit stride on D, an even batch stride and "
+                         f"4-byte alignment, got strides {m.stride()}")
+    return m.stride(0)
+
+
+def _as_4d(t: torch.Tensor) -> torch.Tensor:
+    """``[B, ..., D]`` with 2 to 4 axes -> a ``[B, R1, R2, D]`` view."""
+    while t.dim() < 4:
+        t = t.unsqueeze(1)
+    return t
+
+
+def _launch(x, h, gate, shift, scale, eps):
+    """Launch K7; residual when h is given. Returns (x_new or x, y)."""
+    residual = h is not None
+    for name, t in (("x", x), ("h", h)) if residual else (("x", x),):
+        if not t.is_cuda or t.device != x.device or t.dtype != torch.bfloat16:
+            raise ValueError(f"adaln: {name} must be bfloat16 on one CUDA device, got "
+                             f"{t.dtype} on {t.device}")
+    if not 2 <= x.dim() <= 4 or x.shape[-1] % 2 or x.shape[-1] > 1024 or not x.is_contiguous():
+        raise ValueError(f"adaln: x must be a contiguous [B, ..., D] with 2 to 4 axes and an "
+                         f"even D <= 1024, got {tuple(x.shape)} strides {x.stride()}")
+    x4 = _as_4d(x)
+    h4 = _as_4d(h) if residual else x4
+    if h4.shape != x4.shape or h4.stride(-1) != 1 or any(s % 2 for s in h4.stride()[:3]):
+        raise ValueError(f"adaln: h must be {tuple(x.shape)} with unit stride on D and even "
+                         f"strides, got {tuple(h.shape)} strides {h.stride()}")
+    mods = {"shift": shift, "scale": scale, **({"gate": gate} if residual else {})}
+    sb = {name: _mod_batch_stride(name, m, x) for name, m in mods.items()}
+    y = torch.empty_like(x)
+    x_new = torch.empty_like(x) if residual else x
+    global launches
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _build.launch("lam_adaln_fwd", x.data_ptr(), h4.data_ptr(),
+                      mods.get("gate", shift).data_ptr(), shift.data_ptr(), scale.data_ptr(),
+                      x_new.data_ptr(), y.data_ptr(), x.numel() // x.shape[-1], x4.shape[1],
+                      x4.shape[2], x.shape[-1], *h4.stride()[:3], sb.get("gate", 0),
+                      sb["shift"], sb["scale"], float(eps), int(residual), stream)
+    launches += 1
+    return x_new, y
+
+
+def adaln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """modulate(layer_norm(x), shift, scale); x ``[B, ..., D]``, shift/scale
+    ``[B, 1.., D]``.
+
+    CPU tensors take ``reference_adaln_modulate``; CUDA tensors launch the
+    kernel (bf16, contiguous x) or raise.
+    """
+    if x.device.type == "cpu":
+        return reference_adaln_modulate(x, shift, scale, eps)
+    return _launch(x, None, None, shift, scale, eps)[1]
 
 
 def residual_adaln_modulate(x: torch.Tensor, h: torch.Tensor, gate: torch.Tensor,
                             shift: torch.Tensor, scale: torch.Tensor,
                             eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(x + gate·h, modulate(layer_norm(x + gate·h)))."""
-    x_new = x + gate.to(x.dtype) * h
-    return x_new, modulate(layer_norm(x_new, eps=eps), shift, scale)
+    """(x + gate·h, modulate(layer_norm(x + gate·h))); x/h ``[B, ..., D]``,
+    gate/shift/scale ``[B, 1.., D]``.
+
+    CPU tensors take ``reference_residual_adaln_modulate``; CUDA tensors
+    launch the kernel (bf16, contiguous x, h with unit stride on D) or raise.
+    """
+    if x.device.type == "cpu":
+        return reference_residual_adaln_modulate(x, h, gate, shift, scale, eps)
+    return _launch(x, h, gate, shift, scale, eps)

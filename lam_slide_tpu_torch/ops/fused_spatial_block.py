@@ -1,22 +1,30 @@
-"""The DiT's small-L spatial block as a plain head-major composition.
+"""The DiT's small-L spatial block: CUDA kernel K8 and its plain PyTorch version.
 
-Counterpart of ``_reference_spatial_block`` in
-``lam_slide_tpu/ops/fused_spatial_block.py`` (:65-84). The Pallas kernel
-there (``_kernel``) is opt-in on the TPU, so this composition is what the
-main path runs at n <= 8 (latent_dit.py:220-231); the kernel is still to be
-ported.
+Counterpart of ``lam_slide_tpu/ops/fused_spatial_block.py`` (``_kernel``
+through ``fused_spatial_block``; plain version ``_reference_spatial_block``,
+:65-84). The kernel (``csrc/fused_spatial_block.cu``) runs the whole
+ParallelMLPAttention over L <= 8 positions for a block of frames with the
+``[rows, 3D+M]`` linear1 output kept in shared memory: linear1, per-head QK
+RMS-norm and RoPE, L×L softmax attention, exact GELU of the MLP slice, and
+``concat(attn, gelu) @ w2 + b2``. Any head split whose even dh divides D
+(16×24 and 3×128 at the 4AA width).
 
 Weights are in torch ``nn.Linear`` layout: ``w1 [3D+M, D]``, ``w2 [D, D+M]``.
+
+``launches`` counts kernel launches; nothing else touches it.
 """
 
 import torch
 
 from lam_slide_tpu_torch.nn.blocks import gelu_exact
+from lam_slide_tpu_torch.ops import _build
 from lam_slide_tpu_torch.ops.packed_attention import (
     headmajor_rmsnorm,
     headmajor_rope,
     small_attention,
 )
+
+launches = 0
 
 
 def reference_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -42,3 +50,62 @@ def reference_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     attn = small_attention(qh, kh, heads(v), scale=scale).transpose(1, 2).reshape(n, l, d)
     out = torch.cat([attn, gelu_exact(mlp)], dim=-1)
     return torch.matmul(out, w2.to(dtype).t()) + b2.to(dtype)
+
+
+def _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads) -> None:
+    for name, t, dtype in (("x", x, torch.bfloat16), ("w1", w1, torch.bfloat16),
+                           ("b1", b1, torch.bfloat16), ("w2", w2, torch.bfloat16),
+                           ("b2", b2, torch.bfloat16), ("q_scale", q_scale, torch.float32),
+                           ("k_scale", k_scale, torch.float32), ("cos", cos, torch.float32),
+                           ("sin", sin, torch.float32)):
+        if not t.is_cuda or t.device != x.device or t.dtype != dtype:
+            raise ValueError(f"fused_spatial_block: {name} must be {dtype} on x's CUDA device, "
+                             f"got {t.dtype} on {t.device}")
+        if name != "w1" and name != "w2" and not t.is_contiguous():
+            raise ValueError(f"fused_spatial_block: {name} must be contiguous")
+    if x.dim() != 3 or not 1 <= x.shape[1] <= 8:
+        raise ValueError(f"fused_spatial_block: x must be [N, L <= 8, D], got {tuple(x.shape)}")
+    _, l, d = x.shape
+    width = w1.shape[0]
+    dh = d // n_heads if d % n_heads == 0 else 0
+    if d % 16 or (width - 3 * d) % 16 or width <= 3 * d or dh % 2 or dh == 0:
+        raise ValueError(f"fused_spatial_block: needs D and M multiples of 16 and an even "
+                         f"head dim, got D={d}, w1 rows {width}, {n_heads} heads")
+    m = width - 3 * d
+    if (w1.shape != (width, d) or b1.shape != (width,) or w2.shape != (d, d + m)
+            or b2.shape != (d,) or q_scale.shape != (dh,) or k_scale.shape != (dh,)
+            or cos.shape != (l, dh // 2) or sin.shape != (l, dh // 2)):
+        raise ValueError("fused_spatial_block: parameter shapes do not match x and the heads")
+    for name, w in (("w1", w1), ("w2", w2)):
+        if w.stride(1) != 1 or w.stride(0) % 8 or w.data_ptr() % 32:
+            raise ValueError(f"fused_spatial_block: {name} must be in nn.Linear layout "
+                             f"(unit column stride, row stride % 8 == 0, 32-byte aligned), "
+                             f"got strides {w.stride()}")
+
+
+def fused_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                        q_scale: torch.Tensor, k_scale: torch.Tensor,
+                        w2: torch.Tensor, b2: torch.Tensor, cos: torch.Tensor,
+                        sin: torch.Tensor, n_heads: int, scale: float) -> torch.Tensor:
+    """The spatial block over x ``[N, L, D]`` -> ``[N, L, D]``.
+
+    CPU tensors take ``reference_spatial_block``. CUDA tensors launch the
+    kernel (bf16 x and weights, fp32 norm scales and ``[L, dh/2]`` tables) or
+    raise.
+    """
+    if x.device.type == "cpu":
+        return reference_spatial_block(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin,
+                                       n_heads, scale)
+    _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads)
+    n, l, d = x.shape
+    m = w1.shape[0] - 3 * d
+    out = torch.empty_like(x)
+    global launches
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        _build.launch("lam_spatial_block_fwd", x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                      q_scale.data_ptr(), k_scale.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                      cos.data_ptr(), sin.data_ptr(), out.data_ptr(), n, l, d, m, n_heads,
+                      w1.stride(0), w2.stride(0), float(scale), stream)
+    launches += 1
+    return out

@@ -1,8 +1,9 @@
-"""Fixed-grid ODE integrators (counterpart of ``lam_slide_tpu/transport/integrators.py``).
+"""ODE integrators (counterpart of ``lam_slide_tpu/transport/integrators.py``).
 
 ``drift_fn(x, t_vec)`` takes a [B] time vector like the reference model
-closures. The JAX package scans the steps with ``lax.scan``; here they are
-a Python loop. dopri5 and the SDE integrators are not ported yet.
+closures. The JAX package scans the fixed-grid steps with ``lax.scan`` and
+runs dopri5 under a bounded ``lax.while_loop``; here both are Python loops.
+The SDE integrators are not ported yet.
 """
 
 from typing import Callable
@@ -30,4 +31,83 @@ def ode_fixed(drift_fn: Callable, x0: torch.Tensor, t0: float, t1: float,
         t_next = (ts[i] + dts[i]).item()
         k2 = drift_fn(x + dt * k1, torch.full_like(tvec, t_next))
         x = x + 0.5 * dt * (k1 + k2)
+    return x
+
+
+# Dormand–Prince 5(4) Butcher tableau (integrators.py:103-121).
+_DP_C = (0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0)
+_DP_A = (
+    (),
+    (1 / 5,),
+    (3 / 40, 9 / 40),
+    (44 / 45, -56 / 15, 32 / 9),
+    (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+    (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+    (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
+)
+_DP_B5 = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0)
+_DP_B4 = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 2100, 1 / 40)
+# the error weights as the JAX package forms them: B5 - B4 in fp32
+_DP_E = tuple((torch.tensor(_DP_B5) - torch.tensor(_DP_B4)).tolist())
+
+
+def _combine(coeffs, ks):
+    """sum_j coeffs[j] * ks[j] over the non-zero coefficients."""
+    out = None
+    for c, k in zip(coeffs, ks):
+        if c != 0.0:
+            out = c * k if out is None else out + c * k
+    return out
+
+
+def ode_dopri5(drift_fn: Callable, x0: torch.Tensor, t0: float, t1: float,
+               rtol: float = 1e-3, atol: float = 1e-6, max_steps: int = 1000,
+               safety: float = 0.9, min_factor: float = 0.2, max_factor: float = 10.0,
+               return_stats: bool = False):
+    """Adaptive Dormand–Prince 5(4) with FSAL (integrators.py:124-206).
+
+    The step controller is the JAX one: the RMS error norm of
+    err / (atol + rtol * max(|y0|, |y1|)) over the whole state, a step factor
+    safety * ratio^-0.2 clipped to [min_factor, max_factor], dt0 = 0.02 (t1 - t0),
+    at most ``max_steps`` attempted steps. Accept and reject stay on the
+    device (``torch.where``); the one host read per attempted step is the
+    loop condition.
+
+    ``return_stats=True`` -> ``(x, (n_iters, n_accepted))``: attempted and
+    accepted steps as ints; NFE = 1 + 6 * n_iters by FSAL.
+    """
+    dev = x0.device
+    t0 = torch.tensor(t0, dtype=torch.float32, device=dev)
+    t1 = torch.tensor(t1, dtype=torch.float32, device=dev)
+    batch = x0.shape[0]
+
+    def tvec(t):
+        return t.expand(batch)
+
+    x, t = x0, t0
+    k1 = drift_fn(x0, tvec(t0))
+    dt = (t1 - t0) * 0.02
+    n = 0
+    n_acc = torch.zeros((), dtype=torch.int32, device=dev)
+    t_end = t1 - 1e-9
+    while n < max_steps and bool(t < t_end):
+        dt = torch.minimum(dt, t1 - t)
+        ks = [k1]
+        for a_row, c in zip(_DP_A[1:], _DP_C[1:]):
+            ks.append(drift_fn(x + dt * _combine(a_row, ks), tvec(t + dt * c)))
+        x5 = x + dt * _combine(_DP_B5, ks)
+        err = dt * _combine(_DP_E, ks)
+        scale = atol + rtol * torch.maximum(x.abs(), x5.abs())
+        ratio = (err / scale).float().square().mean().sqrt()
+        accept = ratio <= 1.0
+        factor = torch.clamp(safety * torch.clamp(ratio, min=1e-10) ** -0.2,
+                             min_factor, max_factor)
+        x = torch.where(accept, x5, x)
+        t = torch.where(accept, t + dt, t)
+        k1 = torch.where(accept, ks[6], k1)  # FSAL: k7 = f(t + dt, x5)
+        dt = dt * factor
+        n += 1
+        n_acc = n_acc + accept.int()
+    if return_stats:
+        return x, (n, int(n_acc.item()))
     return x

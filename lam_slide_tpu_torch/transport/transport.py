@@ -2,8 +2,9 @@
 
 Counterpart of ``lam_slide_tpu/transport/transport.py``: the four model
 parametrizations (NOISE/SCORE/VELOCITY/DATA), the integration interval and
-the probability-flow drift, with the fixed-grid euler/heun ODE sampler.
-Training losses, dopri5, the SDE and likelihood samplers are not ported yet.
+the probability-flow drift, with the ODE sampler (dopri5, the default, and
+fixed-grid euler/heun). Training losses, the SDE and likelihood samplers are
+not ported yet.
 """
 
 import enum
@@ -104,22 +105,25 @@ class Transport:
 
 
 class Sampler:
-    """Sampler factory over a Transport (transport.py:229-503); ODE euler/heun only."""
+    """Sampler factory over a Transport (transport.py:229-503); ODE only."""
 
     def __init__(self, transport: Transport):
         self.transport = transport
         self.drift = transport.get_drift()
 
-    def sample_ode(self, *, sampling_method: str = "euler", num_steps: int = 50,
-                   reverse: bool = False) -> Callable:
-        """ODE sample fn: (init, model_fn, **kwargs) -> final x (transport.py:365-411).
+    def sample_ode(self, *, sampling_method: str = "dopri5", num_steps: int = 50,
+                   atol: float = 1e-6, rtol: float = 1e-3, reverse: bool = False,
+                   return_stats: bool = False) -> Callable:
+        """ODE sample fn: (init, model_fn, **kwargs) -> final x (transport.py:270-312).
 
         The flow is deterministic given the init noise, so unlike the JAX
         version the returned function takes no RNG argument.
+        ``return_stats=True`` (dopri5 only) returns ``(x, (n_iters,
+        n_accepted))``: attempted and accepted steps, NFE = 1 + 6 * n_iters.
         """
         method = sampling_method.lower()
-        if method not in ("euler", "heun"):
-            raise NotImplementedError(f"ODE sampler {sampling_method!r} is not ported yet")
+        if method not in ("dopri5", "euler", "heun"):
+            raise NotImplementedError(f"ODE sampler {sampling_method!r}")
         if reverse:
             def drift(x, t, m, **kw):
                 return self.drift(x, torch.ones_like(t) * (1 - t), m, **kw)
@@ -130,8 +134,13 @@ class Sampler:
             reverse=reverse, last_step_size=0.0)
 
         def _sample(init, model_fn, **kw):
-            return integrators.ode_fixed(lambda x, t: drift(x, t, model_fn, **kw),
-                                         init, t0, t1, num_steps, method=method)
+            def f(x, t):
+                return drift(x, t, model_fn, **kw)
+
+            if method == "dopri5":
+                return integrators.ode_dopri5(f, init, t0, t1, rtol=rtol, atol=atol,
+                                              return_stats=return_stats)
+            return integrators.ode_fixed(f, init, t0, t1, num_steps, method=method)
 
         return _sample
 

@@ -13,8 +13,12 @@ import pytest
 import torch
 
 from lam_slide_tpu_torch.models import LatentDiT
+from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
 from lam_slide_tpu_torch.ops import flash_attention as fa
+from lam_slide_tpu_torch.ops import flash_normrope as fnr
+from lam_slide_tpu_torch.ops import fused_adaln as fad
 from lam_slide_tpu_torch.ops import fused_mlp as fm
+from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
 
 pytestmark = pytest.mark.cuda
 
@@ -27,6 +31,11 @@ K1_ULPS = 2
 K1_GAIN_TOL = 1e-3
 # one-ulp flips of the bf16 mid / gelu(mid) roundings, times |w2| ~ 0.05.
 K2_ATOL = 1e-2
+# K8 against its plain version, relative to max |out|: bf16 roundings of
+# linear1, the norm, the softmax weights and linear2 that land one ulp apart
+# when fp32 sums are taken in another order. The limit chip_smoke.py uses:
+# 3x the first reading on an H100 (4.348e-3).
+K8_REL_TOL = 1.3e-2
 
 
 @pytest.fixture
@@ -40,10 +49,13 @@ def _gen(seed=0):
     return torch.Generator().manual_seed(seed)
 
 
+def _ulp(want):
+    return 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
+
+
 def _assert_k1_close(got, want):
     got, want = got.double(), want.double()
-    ulp = 2.0 ** (math.floor(math.log2(want.abs().max().item())) - 7)
-    assert (got - want).abs().max().item() <= K1_ULPS * ulp
+    assert (got - want).abs().max().item() <= K1_ULPS * _ulp(want)
     assert abs((got * want).mean().item() / (want * want).mean().item() - 1) <= K1_GAIN_TOL
 
 
@@ -76,6 +88,105 @@ def test_flash_matches_plain_on_contiguous_headmajor(dev):
     got = fa.flash_attention(q, k, v)
     want = fa.reference_attention(q, k, v)
     _assert_k1_close(got, want)
+
+
+@pytest.mark.parametrize("n,heads,dh", [(1000, 16, 24), (300, 3, 128)])
+def test_flash_packed_entry_matches_plain(dev, n, heads, dh):
+    """K3: packed [B, N, H*dh] views of one qkv buffer in, packed out."""
+    g = _gen(5)
+    qkv = torch.randn(4, n, 3 * heads * dh, generator=g).to(dev, torch.bfloat16)
+    q, k, v = qkv.chunk(3, dim=-1)
+    before = fa.launches
+    got = fa.flash_attention_packed(q, k, v, heads)
+    assert fa.launches == before + 1
+    want = fa.reference_attention_packed(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.is_contiguous()
+    _assert_k1_close(got, want)
+
+
+def _normrope_inputs(g, dev, b, heads, n, dh):
+    qkv = torch.randn(b, n, 3, heads, dh, generator=g).to(dev, torch.bfloat16) * 2
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # raw strided views
+    qs, ks = ((1 + 0.2 * torch.randn(dh, generator=g)).to(dev) for _ in range(2))
+    cos, sin = rope_cos_sin(n, dh, device=dev)
+    return q, k, v, qs, ks, cos, sin
+
+
+@pytest.mark.parametrize("n,heads,dh", [(1000, 3, 128), (130, 4, 24), (70, 2, 64)])
+def test_flash_normrope_matches_plain(dev, n, heads, dh):
+    """K5 on raw strided views, with scales around 1; K1's limits."""
+    args = _normrope_inputs(_gen(6), dev, 2, heads, n, dh)
+    before = fnr.launches
+    got = fnr.flash_attention_normrope(*args)
+    assert fnr.launches == before + 1
+    want = fnr.reference_attention_normrope(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    _assert_k1_close(got, want)
+
+
+def test_flash_normrope_refuses_odd_dh_and_masks(dev):
+    q, k, v, qs, ks, cos, sin = _normrope_inputs(_gen(7), dev, 1, 2, 128, 24)
+    with pytest.raises(NotImplementedError):
+        fnr.flash_attention_normrope(q, k, v, qs, ks, cos, sin,
+                                     mask=torch.ones(1, 128, dtype=torch.bool, device=dev))
+    odd = torch.zeros(1, 2, 128, 23, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fnr.flash_attention_normrope(odd, odd, odd, qs[:23], ks[:23], cos, sin)
+
+
+@pytest.mark.parametrize("b,t,l,d", [(8, 1000, 2, 384), (3, 37, 4, 64)])
+def test_adaln_matches_plain(dev, b, t, l, d):
+    """K7: x_new bit-identical; y within 1 bf16 ulp at max |y|. h is the
+    transposed view the DiT's temporal block hands over, and the mods are
+    chunks of one [B, 1, 1, 6D] tensor."""
+    g = _gen(8)
+    x = torch.randn(b, t, l, d, generator=g).to(dev, torch.bfloat16) * 3
+    h = torch.randn(b, l, t, d, generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+    mods = (torch.randn(b, 1, 1, 6 * d, generator=g) * 0.5).to(dev, torch.bfloat16)
+    shift, scale, gate = mods.chunk(6, dim=-1)[:3]
+    before = fad.launches
+    x_new, y = fad.residual_adaln_modulate(x, h, gate, shift, scale)
+    y0 = fad.adaln_modulate(x, shift, scale)
+    assert fad.launches == before + 2
+    want_x, want_y = fad.reference_residual_adaln_modulate(x, h, gate, shift, scale)
+    want_y0 = fad.reference_adaln_modulate(x, shift, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(x_new, want_x)
+    for got, want in ((y, want_y), (y0, want_y0)):
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        assert (got.float() - want.float()).abs().max().item() <= _ulp(want.float())
+
+
+def _spatial_inputs(g, dev, n, l, d, m, heads):
+    dh = d // heads
+    x = torch.randn(n, l, d, generator=g).to(dev, torch.bfloat16)
+    w1 = (torch.randn(3 * d + m, d, generator=g) * d ** -0.5).to(dev, torch.bfloat16)
+    b1 = (torch.randn(3 * d + m, generator=g) * 0.1).to(dev, torch.bfloat16)
+    w2 = (torch.randn(d, d + m, generator=g) * (d + m) ** -0.5).to(dev, torch.bfloat16)
+    b2 = (torch.randn(d, generator=g) * 0.1).to(dev, torch.bfloat16)
+    qs, ks = ((1 + 0.2 * torch.randn(dh, generator=g)).to(dev) for _ in range(2))
+    cos, sin = rope_cos_sin(l, dh, device=dev)
+    return x, w1, b1, qs, ks, w2, b2, cos, sin, heads, dh ** -0.5
+
+
+@pytest.mark.parametrize("n,l,d,m,heads", [
+    (2000, 2, 384, 768, 16),  # the 4AA spatial axis, 16 x 24
+    (2000, 2, 384, 768, 3),   # 3 x 128
+    (37, 4, 32, 64, 4),       # ragged frame block, dh 8
+    (5, 3, 32, 64, 1),        # L that does not divide the block
+])
+def test_spatial_block_matches_plain(dev, n, l, d, m, heads):
+    args = _spatial_inputs(_gen(9), dev, n, l, d, m, heads)
+    before = fsb.launches
+    got = fsb.fused_spatial_block(*args)
+    assert fsb.launches == before + 1
+    want = fsb.reference_spatial_block(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= K8_REL_TOL * want.float().abs().max().item()
 
 
 def test_flash_refuses_what_it_cannot_take(dev):
@@ -115,19 +226,29 @@ def test_fused_mlp_refuses_row_major_weights(dev):
         fm.fused_mlp(x, w1, b1, w2)
 
 
-def test_dit_kernel_path_matches_plain_path(dev):
-    """A small bf16 DiT whose temporal axis (T=200) takes both kernels."""
-    model = LatentDiT(depth=2, in_dim=8, hidden_size=64, num_heads=4, reference_init=False,
-                      dtype=torch.bfloat16, device=dev, generator=_gen(3))
+_COUNTERS = {"K1": fa, "K5": fnr, "K2": fm, "K7": fad, "K8": fsb}
+
+
+@pytest.mark.parametrize("hidden,heads,expected", [
+    (64, 4, {"K1": 2, "K5": 0, "K2": 2, "K7": 5, "K8": 2}),    # dh 16: K3's entry
+    (256, 2, {"K1": 0, "K5": 2, "K2": 2, "K7": 5, "K8": 2}),   # dh 128: K5
+])
+def test_dit_kernel_path_matches_plain_path(dev, hidden, heads, expected):
+    """A small bf16 DiT (depth 2, T=200) on the kernel path against the plain
+    path, with the launches of each kernel per forward."""
+    model = LatentDiT(depth=2, in_dim=8, hidden_size=hidden, num_heads=heads,
+                      reference_init=False, dtype=torch.bfloat16, device=dev,
+                      generator=_gen(3))
     g = _gen(4)
     x = torch.randn(2, 200, 2, 8, generator=g).to(dev)
     t = torch.tensor([0.3, 0.7], device=dev)
     mask = torch.zeros(2, 200, 2, dtype=torch.long, device=dev)
     mask[:, :1] = 1
     with torch.no_grad():
-        fa_before, fm_before = fa.launches, fm.launches
+        before = {name: mod.launches for name, mod in _COUNTERS.items()}
         got = model(x, t, torch.zeros_like(x), mask)
-        assert fa.launches == fa_before + 2 and fm.launches == fm_before + 2
+        counts = {name: mod.launches - before[name] for name, mod in _COUNTERS.items()}
+        assert counts == expected
         model.backend = "plain"
         want = model(x, t, torch.zeros_like(x), mask)
     # two layers of bf16 activations rounded in another order; the same limit

@@ -37,7 +37,7 @@ def test_golden_loads_and_matches(packed_threshold):
     g = np.load(GOLDEN)
     sd = {k[len("dit."):]: torch.from_numpy(g[k]) for k in g.files if k.startswith("dit.")}
     model = LatentDiT(depth=2, in_dim=6, hidden_size=16, num_heads=4, mlp_ratio=2,
-                      packed_threshold=packed_threshold)
+                      packed_threshold=packed_threshold, device="cpu")
     model.load_state_dict(sd, strict=True)
     with torch.no_grad():
         out = model(torch.from_numpy(g["x"]), torch.from_numpy(g["t"]),
@@ -67,7 +67,7 @@ def jax_model():
 
 
 def _port_from(params):
-    model = LatentDiT(**CFG, reference_init=False)
+    model = LatentDiT(**CFG, reference_init=False, device="cpu")
     model.load_state_dict(latent_dit_state_dict_from_jax(params), strict=True)
     return model
 
@@ -96,7 +96,7 @@ def test_normalize_option_matches(jax_model):
     x, t, x_cond, mask = _inputs(seed=3)
     jmodel = JLatentDiT(**CFG, reference_init=False, normalize=True)
     want = jmodel.apply(variables, *(jnp.asarray(a) for a in (x, t, x_cond, mask)))
-    port = LatentDiT(**CFG, reference_init=False, normalize=True)
+    port = LatentDiT(**CFG, reference_init=False, normalize=True, device="cpu")
     port.load_state_dict(latent_dit_state_dict_from_jax(params), strict=True)
     with torch.no_grad():
         got = port(*(torch.from_numpy(a) for a in (x, t, x_cond, mask)))
@@ -111,7 +111,7 @@ def test_vector_conditioning_matches():
     args = [jnp.asarray(a) for a in (x, t, x_cond, mask)]
     variables = jmodel.init(jax.random.PRNGKey(1), *args, y=jnp.asarray(y))
     want = jmodel.apply(variables, *args, y=jnp.asarray(y))
-    port = LatentDiT(**CFG, vec_in_dim=5, reference_init=False)
+    port = LatentDiT(**CFG, vec_in_dim=5, reference_init=False, device="cpu")
     port.load_state_dict(latent_dit_state_dict_from_jax(
         jax.tree.map(np.asarray, variables["params"])), strict=True)
     with torch.no_grad():
@@ -133,8 +133,8 @@ def test_bf16_port_runs_close_to_fp32(jax_model):
     """The bf16 compute dtype on the CPU plain path stays near the fp32 forward."""
     _, _, params = jax_model
     sd = latent_dit_state_dict_from_jax(params)
-    fp32 = LatentDiT(**CFG, reference_init=False)
-    bf16 = LatentDiT(**CFG, reference_init=False, dtype=torch.bfloat16)
+    fp32 = LatentDiT(**CFG, reference_init=False, device="cpu")
+    bf16 = LatentDiT(**CFG, reference_init=False, dtype=torch.bfloat16, device="cpu")
     fp32.load_state_dict(sd)
     bf16.load_state_dict(sd)
     x, t, x_cond, mask = (torch.from_numpy(a) for a in _inputs(seed=2))

@@ -53,7 +53,7 @@ def models():
     jmodel = JLatentDiT(**CFG, reference_init=False)
     variables = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.zeros((B,)),
                             jnp.zeros_like(jnp.asarray(x)), jnp.asarray(mask))
-    port = LatentDiT(**CFG, reference_init=False)
+    port = LatentDiT(**CFG, reference_init=False, device="cpu")
     port.load_state_dict(latent_dit_state_dict_from_jax(
         jax.tree.map(np.asarray, variables["params"])))
     return jmodel, variables, port, x, mask
@@ -83,6 +83,8 @@ def test_ode_solve_matches_jax(models, method, num_steps):
 
 
 def test_sampler_refuses_unported_methods():
+    """dopri5, euler and heun are the JAX package's ODE methods; any other
+    name raises, as it does there."""
     sampler = Sampler(create_transport(path_type="GVP", prediction="data"))
     with pytest.raises(NotImplementedError):
-        sampler.sample_ode(sampling_method="dopri5")
+        sampler.sample_ode(sampling_method="midpoint")
