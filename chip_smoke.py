@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
-The main path is the 4AA stage-2 sampler: the full-width ``LatentDiT``
-(depth 7, hidden 384, mlp_ratio 2, T=1000 frames, L=2 latents, in_dim 96,
-bf16) under the GVP data-prediction probability-flow ODE, with random
-weights drawn from a seed, at both head splits (16 heads x dh 24 and
-3 heads x dh 128) and with both samplers (Euler, num_steps=10, and the eval
-protocol's dopri5 at atol 1e-6 / rtol 1e-3). Phases, each printed on its
-own line with its seconds:
+The main paths are the 4AA stage-2 sampler and the 4AA stage-2 train step
+on the full-width ``LatentDiT`` (depth 7, hidden 384, mlp_ratio 2, T=1000
+frames, L=2 latents, in_dim 96, bf16) with random weights drawn from a
+seed, at both head splits (16 heads x dh 24 and 3 heads x dh 128). The
+sampler is the GVP data-prediction probability-flow ODE with both samplers
+(Euler, num_steps=10, and the eval protocol's dopri5 at atol 1e-6 / rtol
+1e-3); the train step is the SI loss at the registry's B=16 with AdamW (lr
+1e-3, weight decay 0.01), global-norm clip 0.5 and EMA 0.999. Phases, each
+printed on its own line with its seconds:
 
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit from nvidia-smi;
@@ -15,7 +17,9 @@ own line with its seconds:
    one process per source;
 3. kernels: each kernel (K1 flash, K2 fused MLP, K3 packed flash, K5 flash
    with QKNorm + RoPE, K7 residual AdaLN, K8 spatial block) against its
-   plain PyTorch version at main-path shapes at B=2 and B=8 in bf16, with
+   plain PyTorch version at main-path shapes at B=2 and B=8 in bf16, then
+   the backward kernels K4 (flash) and K6 (flash with QKNorm + RoPE) and
+   the lse outputs of K1 and K5 at the train shapes and a ragged one, with
    the tolerance stated beside each check, its time, the plain version's
    time, its bound and, where one PyTorch call computes the same function,
    that call's time;
@@ -27,7 +31,15 @@ own line with its seconds:
 5. timing: solve times of the kernel path and the plain path, and the
    dopri5 drift evaluations per second;
 6. profile: one solve per path and batch under ``torch.profiler``: device
-   kernel time, the device's idle share, launches and the costliest kernels.
+   kernel time, the device's idle share, launches and the costliest kernels;
+7. train: one train step per split at B=16 through the kernels with the
+   launches of every kernel per step; every parameter's grad finite and
+   non-zero; at B=2 the kernel path's grads against the plain path's in
+   bf16 and a float32 plain copy; ten steps on one fixed batch, in which
+   the SI loss falls and the EMA moves;
+8. train timing: train-step time (median of 5 after warm-up), samples/s and
+   peak memory at B=16 of the kernel path and the plain path (at 16 x 24
+   also with per-layer checkpointing), and one profiled step per split.
 
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -97,6 +109,47 @@ MODEL_REL_TOL = 1e-2
 # measured 7.078e-3 on an H100, the limit is 3x that.
 MODEL_FP32_REL_TOL = 2e-2
 PROFILE_TOP = 12  # kernels listed per profiled solve
+# K4/K6 against their plain backwards, per grad, relative to its max |grad|:
+# both round the grads to bf16 and P and dS to bf16 at the same points, but
+# a differently summed fp32 value can land one bf16 ulp apart. First
+# readings on an H100 (this script, at the four shapes of backward_checks):
+# up to 1.479e-3 for K4 and 2.890e-3 for K6; each limit is 3x that. Each
+# grad's gain must also be within K1_GAIN_TOL of 1, which catches a uniform
+# shrink (an unmasked key or query tile) that stays inside the max-error
+# limit.
+K4_REL_TOL = 4.5e-3
+K6_REL_TOL = 8.7e-3
+# lse against the plain log-sum-exp, absolute, per kernel and head dim. K1:
+# fp32 sums in another order, a few fp32 ulps of lse ~ 8. K5: also the bf16
+# rounding of the transformed q/k, where the kernel's and PyTorch's fp32
+# norm statistics, summed in another order, put an element one bf16 ulp
+# apart; one such flip on a row's largest logit moves its lse by up to
+# ulp(|q_t|) * |k_t| * scale, a few 1e-2 here. How often that happens
+# depends on the data more than on the shape, so each limit is 3x the worst
+# reading at its head dim over every input read on an H100: this script's,
+# and six seeds per shape of python -m lam_slide_tpu_torch.tools.lse_readings
+# (the GPU test's shapes and the train shapes). Worst readings, K1: 1.907e-6
+# (dh 24), 2.861e-6 (dh 64), 7.629e-6 (dh 128); K5: 6.638e-3 (dh 24),
+# 7.629e-6 (dh 64), 8.698e-3 (dh 128). A K5 lse that is off by more than a
+# flip shows in K6 too, whose dq/dk/dv gains recompute P from it.
+LSE_ATOL = {"K1": {24: 6e-6, 64: 9e-6, 128: 2.3e-5},
+            "K5": {24: 2e-2, 64: 2.3e-5, 128: 2.6e-2}}
+# Train step (registry, peptide stage 2): B=16, AdamW lr 1e-3, weight decay
+# 0.01, clip 0.5, EMA 0.999, warmup-cosine over 1500 epochs; the schedule is
+# built with one step per epoch, so the ten steps here run at lr ~1e-3.
+TRAIN_BATCH, TRAIN_EPOCHS, CLIP, EMA_DECAY = 16, 1500, 0.5, 0.999
+TRAIN_STEPS = 10
+GRAD_BATCH = 2
+TIMED_STEPS = 5
+# Grads at B=2, kernel path against the plain path on the same weights and
+# batch (fixed t and x0): the relative error of the global grad norm and the
+# worst per-tensor ||g - g_ref|| / ||g_ref||, where bf16 activations rounded
+# in another order move the smallest grads most (the QK-norm scales). First
+# readings on an H100, worst of the two splits: against the plain bf16 path
+# 2.572e-5 and 5.259e-3, against a float32 plain copy 1.008e-3 and
+# 1.506e-2. Each limit is 3x that.
+GRAD_NORM_REL_TOL = {"bf16": 8e-5, "fp32": 3e-3}
+GRAD_TENSOR_REL_TOL = {"bf16": 1.6e-2, "fp32": 4.5e-2}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -124,12 +177,24 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def library_times(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> float:
+def library_times(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                  grad=None) -> float:
     """Time of PyTorch's own attention on K1's head-major inputs: the
-    library yardstick of the kernel table, used nowhere in the port."""
+    library yardstick of the kernel table, used nowhere in the port. With
+    ``grad``, the time of its backward: forward + backward less forward."""
     from torch.nn.functional import scaled_dot_product_attention
 
-    return time_ms(lambda: scaled_dot_product_attention(q, k, v, scale=scale))
+    if grad is None:
+        return time_ms(lambda: scaled_dot_product_attention(q, k, v, scale=scale))
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def fwd_bwd():
+        scaled_dot_product_attention(q, k, v, scale=scale).backward(grad)
+
+    with torch.enable_grad():
+        both = time_ms(fwd_bwd)
+        fwd = time_ms(lambda: scaled_dot_product_attention(q, k, v, scale=scale))
+    return both - fwd
 
 
 def bound(flops: float, nbytes: float):
@@ -321,6 +386,74 @@ def kernel_checks(dev, gen, table: KernelTable) -> None:
             check(rel_err <= K8_REL_TOL, f"K8 heads {heads} rel err {rel_err} > {K8_REL_TOL}")
 
 
+def _grad_errors(got, want):
+    """Max abs error, rel error (to max |want|) and gain of each grad."""
+    return [(*errors(a, w), gain(a, w)) for a, w in zip(got, want)]
+
+
+def backward_checks(dev, gen, table: KernelTable) -> None:
+    """K4 and K6 against their plain backwards, and K1's and K5's lse against
+    the plain log-sum-exp, at the train shapes (B*L = 32 sequences of 1000
+    frames, 16 x 24 and 3 x 128) and at a ragged one."""
+    from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
+    from lam_slide_tpu_torch.ops import flash_attention as fa
+    from lam_slide_tpu_torch.ops import flash_normrope as fnr
+
+    bf = torch.bfloat16
+    bp = TRAIN_BATCH * L
+    shapes = ((bp, HEADS, T, T, HIDDEN // HEADS, "K4"), (3, 3, 130, 257, 64, "K4 ragged"),
+              (bp, WIDE_HEADS, T, T, HIDDEN // WIDE_HEADS, "K6"),
+              (3, 2, 130, 257, 128, "K6 ragged"))
+    for b, h, nq, nk, dh, key in shapes:
+        nr = key.startswith("K6")
+        # q/k/v as head-major views of packed linear1-like buffers
+        qkv = _rand(gen, b, nq, 3 * h * dh, scale=2.0 if nr else 1.0).to(dev, bf)
+        kv = _rand(gen, b, nk, 3 * h * dh, scale=2.0 if nr else 1.0).to(dev, bf)
+        q = qkv[..., :h * dh].unflatten(-1, (h, dh)).transpose(1, 2)
+        k, v = (t.transpose(1, 2) for t in kv[..., h * dh:].unflatten(-1, (2, h, dh)).unbind(2))
+        g = _rand(gen, b, h, nq, dh).to(dev, bf)
+        scale = dh ** -0.5
+        if nr:
+            qs, ks = ((1 + 0.2 * _rand(gen, dh)).to(dev) for _ in range(2))
+            cos, sin = rope_cos_sin(max(nq, nk), dh, device=dev)
+            out, lse = fnr._forward(q, k, v, qs, ks, cos, sin, scale, with_lse=True)
+            _, want_lse = fa.reference_attention(*fnr.pre_transform(q, k, qs, ks, cos, sin), v,
+                                                 scale, return_lse=True)
+            args = (q, k, v, qs, ks, cos, sin, out, lse, g, scale)
+            kernel, plain = fnr.flash_attention_normrope_backward, fnr.reference_normrope_backward
+            lse_atol, rel_tol, lib = LSE_ATOL["K5"][dh], K6_REL_TOL, None
+        else:
+            out, lse = fa._forward(q, k, v, scale, with_lse=True)
+            _, want_lse = fa.reference_attention(q, k, v, scale, return_lse=True)
+            args = (q, k, v, out, lse, g, scale)
+            kernel, plain = fa.flash_attention_backward, fa.reference_flash_backward
+            lse_atol, rel_tol = LSE_ATOL["K1"][dh], K4_REL_TOL
+            lib = library_times(q, k, v, scale, grad=g) if key == "K4" else None
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        lse_err = (lse - want_lse).abs().max().item()
+        errs = _grad_errors(got, want)
+        detail = ", ".join(f"{n} rel {r:.3e} gain {gn:.7f}"
+                           for n, (_, r, gn) in zip(("dq", "dk", "dv"), errs))
+        lse_name = "K5" if nr else "K1"
+        print(f"kernel {key} [{b},{h},{nq},{nk},{dh}]: {detail}; {lse_name} lse max_abs_err "
+              f"{lse_err:.3e} (atol {lse_atol})")
+        check(lse_err <= lse_atol, f"{lse_name} lse err {lse_err} > {lse_atol} at {key}")
+        for name, (_, rel, gn) in zip(("dq", "dk", "dv"), errs):
+            check(rel <= rel_tol, f"{key} {name} rel err {rel} > {rel_tol}")
+            check(abs(gn - 1) <= K1_GAIN_TOL, f"{key} {name} gain {gn} off 1 by > {K1_GAIN_TOL}")
+        if key in ("K4", "K6"):
+            # five products, 2.5x the forward's FLOPs; q/k/v/out/dO read and
+            # dq/dk/dv written once in bf16, lse read once in fp32
+            d = h * dh
+            ms, plain_ms = time_ms(lambda: kernel(*args), reps=10), time_ms(lambda: plain(*args),
+                                                                            reps=3)
+            table.add(key, f"q/k/v/dO [{b},{h},{nq},{dh}] strided views", max(e[0] for e in errs),
+                      f"rel tol {rel_tol} per grad, gain tol {K1_GAIN_TOL}", ms, plain_ms,
+                      2.5 * 4 * b * nq * nk * d, 8 * b * nq * d * 2 + b * h * nq * 4, lib)
+        del got, want
+
+
 def make_inputs(batch: int, dev, gen):
     noise = torch.randn(batch, T, L, DIN, generator=gen).to(dev)
     x_cond = torch.zeros_like(noise)
@@ -347,27 +480,202 @@ def _device_time_us(evt) -> float:
     return 0.0
 
 
-def profile_solve(solve, noise, kw, label: str) -> None:
-    """One solve under torch.profiler: host wall time around the synchronized
-    solve (inflated by the profiler), summed device kernel time, the device's
-    idle share, kernel launches and the kernels with the most device time."""
+def profile_run(run, label: str) -> None:
+    """One run (a solve or a train step) under torch.profiler: host wall time
+    around the synchronized run (inflated by the profiler), summed device
+    kernel time, the device's idle share, kernel launches and the kernels
+    with the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    solve(noise, **kw)  # warm-up
+    run()  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve(noise, **kw)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     check(busy_us > 0, f"profile {label}: no device time traced")
-    print(f"profile {label}: solve wall {wall_us / 1e3:.3f} ms (profiled), device kernel "
+    print(f"profile {label}: wall {wall_us / 1e3:.3f} ms (profiled), device kernel "
           f"time {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}, "
           f"kernel launches {len(kernels)}")
     for evt in sorted(prof.key_averages(), key=_device_time_us, reverse=True)[:PROFILE_TOP]:
         print(f"  {_device_time_us(evt) / 1e3:9.3f} ms device {evt.count:6d} calls  {evt.key[:90]}")
+
+
+def si_loss_fn(transport):
+    """The 4AA stage-2 SI loss (tools/measure_train_loop.py "4aa"): the mean
+    of the GVP data-prediction interpolant loss; t and x0 are drawn from the
+    step's generator unless the batch fixes them."""
+
+    def loss_fn(model, batch, generator, train):
+        out = transport.training_losses(
+            model, batch["x1"], {"x_cond": batch["x_cond"], "x_cond_mask": batch["mask"]},
+            generator=generator, t=batch.get("t"), x0=batch.get("x0"))
+        loss = out["loss"].mean()
+        return loss, {"si_loss": loss}
+
+    return loss_fn
+
+
+def train_batch(batch: int, dev, transport, fixed_draws: bool, seed: int):
+    """Random latents from the seed, frame 0 conditioning (x_cond carries it,
+    so every parameter, cond_to_emb included, gets a grad); with
+    ``fixed_draws`` the batch also fixes the interpolant's t and x0."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x1 = torch.randn(batch, T, L, DIN, generator=gen, device=dev)
+    mask = torch.zeros(batch, T, L, dtype=torch.long, device=dev)
+    mask[:, :1] = 1
+    out = {"x1": x1, "x_cond": x1 * mask[..., None], "mask": mask}
+    if fixed_draws:
+        out["t"], out["x0"], _ = transport.sample(x1, gen)
+    return out
+
+
+def train_state(make_model, heads, backend="auto"):
+    from lam_slide_tpu_torch.train import create_train_state, make_train_step
+    from lam_slide_tpu_torch.train.trainer import TrainerConfig, make_optimizer
+    from lam_slide_tpu_torch.transport import create_transport
+
+    cfg = TrainerConfig(max_epochs=TRAIN_EPOCHS, lr=1e-3, grad_clip=CLIP, ema_decay=EMA_DECAY)
+    tx, _ = make_optimizer(cfg, 1)
+    model = make_model(heads, backend=backend)
+    transport = create_transport(path_type="GVP", prediction="data")
+    step = make_train_step(si_loss_fn(transport), tx, ema_decay=cfg.ema_decay)
+    return create_train_state(model, tx), step, transport
+
+
+def _global_norm(grads):
+    return math.sqrt(sum(g.double().square().sum().item() for g in grads.values()))
+
+
+def train_checks(dev, make_model, reset_counts, read_counts):
+    """Phase 7 at both splits; returns the launches of one step per split."""
+    counts_by_split = {}
+    for heads in (HEADS, WIDE_HEADS):
+        split = f"{heads}x{HIDDEN // heads}"
+        state, step, transport = train_state(make_model, heads)
+        model, loss_fn = state.model, si_loss_fn(transport)
+        batch = train_batch(TRAIN_BATCH, dev, transport, False, SEED)
+
+        # 1. launches of one train step at B=16
+        reset_counts()
+        state, metrics = step(state, batch, SEED)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        counts_by_split[heads] = counts
+        nr = HIDDEN // heads % 128 == 0
+        fwd, bwd = ("K5", "K6") if nr else ("K1", "K4")
+        want = {key: 0 for key in counts}
+        want.update({fwd: DEPTH, "K2": DEPTH, "K7": 2 * DEPTH + 1, "K8": DEPTH,
+                     f"{bwd} kv": DEPTH, f"{bwd} q": DEPTH})
+        print(f"train {split} B={TRAIN_BATCH}: one step, loss {metrics['loss'].item():.5f} "
+              f"grad_norm {metrics['grad_norm'].item():.4f}, launches {counts} (expected {want})")
+        check(counts == want, f"train step launches {counts} != {want}")
+        check(math.isfinite(metrics["loss"].item()), "non-finite train loss")
+
+        # 2. every parameter's grad finite and non-zero after a backward
+        model.zero_grad(set_to_none=True)
+        loss_fn(model, batch, torch.Generator(device=dev).manual_seed(SEED), True)[0].backward()
+        bad = [n for n, p in model.named_parameters() if p.grad is None
+               or not bool(torch.isfinite(p.grad).all()) or not p.grad.abs().max().item() > 0]
+        n_params = len(list(model.parameters()))
+        print(f"train {split} B={TRAIN_BATCH}: {n_params - len(bad)} of {n_params} parameters "
+              f"have a finite, non-zero grad")
+        check(not bad, f"parameters without a finite, non-zero grad: {bad}")
+        model.zero_grad(set_to_none=True)
+
+        # 3. grads at B=2: kernel path vs plain path, bf16 and a float32 copy
+        gb = train_batch(GRAD_BATCH, dev, transport, True, SEED + 1)
+
+        def grads_of(m):
+            m.zero_grad(set_to_none=True)
+            loss_fn(m, gb, None, True)[0].backward()
+            grads = {n: p.grad.detach().float().clone() for n, p in m.named_parameters()}
+            m.zero_grad(set_to_none=True)
+            return grads
+
+        got = grads_of(model)
+        model.backend = "plain"
+        refs = {"bf16": grads_of(model)}
+        model.backend = "auto"
+        ref32 = make_model(heads, torch.float32, "plain")
+        ref32.load_state_dict(model.state_dict())
+        refs["fp32"] = grads_of(ref32)
+        del ref32
+        for name, ref in refs.items():
+            norm_err = abs(_global_norm(got) - _global_norm(ref)) / _global_norm(ref)
+            worst, where = max(((got[n] - r).norm().item() / r.norm().item(), n)
+                               for n, r in ref.items())
+            print(f"train {split} B={GRAD_BATCH} grads, kernel path vs plain {name}: global norm "
+                  f"rel err {norm_err:.3e} (tol {GRAD_NORM_REL_TOL[name]}), worst tensor rel "
+                  f"err {worst:.3e} at {where} (tol {GRAD_TENSOR_REL_TOL[name]})")
+            check(norm_err <= GRAD_NORM_REL_TOL[name], f"{split} grad norm vs plain {name}")
+            check(worst <= GRAD_TENSOR_REL_TOL[name], f"{split} grad of {where} vs plain {name}")
+
+        # 4. ten steps on one fixed batch (t and x0 fixed too)
+        fixed = train_batch(TRAIN_BATCH, dev, transport, True, SEED + 2)
+        ema0 = {k: v.clone() for k, v in state.ema_params.items()}
+        losses = []
+        for _ in range(TRAIN_STEPS):
+            state, metrics = step(state, fixed, SEED)
+            losses.append(metrics["loss"].item())
+        ema_moved = math.sqrt(sum((state.ema_params[k] - v).double().square().sum().item()
+                                  for k, v in ema0.items()))
+        print(f"train {split} B={TRAIN_BATCH}: {TRAIN_STEPS} steps on one fixed batch, SI loss "
+              f"{[round(x, 5) for x in losses]}; EMA moved by {ema_moved:.4e} (L2)")
+        check(all(math.isfinite(x) for x in losses), "non-finite loss in ten steps")
+        check(losses[-1] < losses[0], f"{split}: the SI loss did not fall over ten steps")
+        check(ema_moved > 0, f"{split}: the EMA did not move")
+        del state, model
+        torch.cuda.empty_cache()
+    return counts_by_split
+
+
+def train_timing(dev, make_model, smi) -> None:
+    """Phase 8: train-step times at B=16 per split on the kernel path and the
+    plain path (at 16 x 24 also the kernel path with per-layer
+    checkpointing), then one profiled step per split on the kernel path."""
+    for heads in (HEADS, WIDE_HEADS):
+        split = f"{heads}x{HIDDEN // heads}"
+        arms = {"kernel path": ("auto", False), "plain path": ("plain", False)}
+        if heads == HEADS:
+            arms["kernel path, checkpointing"] = ("auto", True)
+        runs = {}
+        for label, (backend, checkpointing) in arms.items():
+            state, step, transport = train_state(make_model, heads, backend)
+            state.model.checkpointing = checkpointing
+            batch = train_batch(TRAIN_BATCH, dev, transport, False, SEED)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(2):  # warm-up, with the peak memory of a step
+                state, _ = step(state, batch, SEED)
+            torch.cuda.synchronize()
+            runs[label] = dict(state=state, step=step, batch=batch, times=[],
+                               peak=torch.cuda.max_memory_allocated() / 2 ** 30)
+        for i in range(TIMED_STEPS):  # the arms in turn, in reverse order every other round
+            for label in (list(runs) if i % 2 == 0 else list(reversed(runs))):
+                run = runs[label]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run["state"], _ = run["step"](run["state"], run["batch"], SEED)
+                torch.cuda.synchronize()
+                run["times"].append((time.perf_counter() - t0) * 1e3)
+        for label, run in runs.items():
+            med = float(np.median(run["times"]))
+            print(f"timing train {split} B={TRAIN_BATCH} {label}: step {med:.3f} ms median "
+                  f"({TRAIN_BATCH / med * 1e3:.2f} samples/s), runs "
+                  f"{[round(x, 3) for x in run['times']]} ms, peak memory {run['peak']:.2f} GiB "
+                  f"| {smi}")
+        run = runs["kernel path"]
+
+        def one_step():
+            run["state"], _ = run["step"](run["state"], run["batch"], SEED)
+
+        profile_run(one_step, f"train step {split} kernel path B={TRAIN_BATCH}")
+        del runs, run
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -384,14 +692,17 @@ def main() -> int:
     from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
     from lam_slide_tpu_torch.transport import Sampler, create_transport
 
-    counters = {"K1": fa, "K2": fm, "K5": fnr, "K7": fad, "K8": fsb}
+    counters = {"K1": (fa, "launches"), "K2": (fm, "launches"), "K5": (fnr, "launches"),
+                "K7": (fad, "launches"), "K8": (fsb, "launches"),
+                "K4 kv": (fa, "bwd_kv_launches"), "K4 q": (fa, "bwd_q_launches"),
+                "K6 kv": (fnr, "bwd_kv_launches"), "K6 q": (fnr, "bwd_q_launches")}
 
     def reset_counts():
-        for mod in counters.values():
-            mod.launches = 0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
 
     def read_counts():
-        return {key: mod.launches for key, mod in counters.items()}
+        return {key: getattr(mod, attr) for key, (mod, attr) in counters.items()}
 
     phase_t0 = time.perf_counter()
 
@@ -416,10 +727,13 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.2f} s")
     phase_done("build")
 
-    # 3. kernels vs plain at main-path shapes
+    # 3. kernels vs plain at main-path shapes; the backward checks draw from
+    # a generator of their own, so the sampling phases see the same noise
+    # as before them
     gen = torch.Generator().manual_seed(SEED)
     table = KernelTable()
     kernel_checks(dev, gen, table)
+    backward_checks(dev, torch.Generator().manual_seed(SEED + 1), table)
     phase_done("kernels")
 
     # 4. the slice
@@ -441,7 +755,8 @@ def main() -> int:
         dh % 128 == 0, else K1 through K3's entry), one K2, two K7 and one K8,
         and one more K7 for the output AdaLN of each forward."""
         attn = "K5" if HIDDEN // heads % 128 == 0 else "K1"
-        per_layer = {"K1": 0, "K5": 0, "K2": 1, "K7": 2, "K8": 1, attn: 1}
+        per_layer = {key: 0 for key in counters}
+        per_layer.update({"K2": 1, "K7": 2, "K8": 1, attn: 1})
         return {key: (DEPTH * n + (key == "K7")) * evals for key, n in per_layer.items()}
 
     launches = {}
@@ -539,10 +854,19 @@ def main() -> int:
             model = models[heads]
             for backend in backends:
                 model.backend = backend
-                profile_solve(lambda x, **kw: euler(x, model, **kw), *inputs[batch],
-                              f"{heads}x{HIDDEN // heads} backend={backend} B={batch}")
+                profile_run(lambda: euler(inputs[batch][0], model, **inputs[batch][1]),
+                            f"{heads}x{HIDDEN // heads} backend={backend} B={batch} Euler-10 solve")
             model.backend = "auto"
         phase_done("profile")
+
+    # 7. train
+    del models
+    train_counts = train_checks(dev, make_model, reset_counts, read_counts)
+    phase_done("train")
+
+    # 8. train timing and profile
+    train_timing(dev, make_model, smi)
+    phase_done("train timing")
 
     sources = {
         "K1": ("flash_attention_fwd", "flash_attention.cu", "flash_attention.py:37"),
@@ -551,10 +875,17 @@ def main() -> int:
         "K5": ("flash_attention_normrope", "flash_attention.cu", "flash_normrope.py:74"),
         "K7": ("residual_adaln_modulate", "fused_adaln.cu", "fused_adaln.py:98"),
         "K8": ("fused_spatial_block", "fused_spatial_block.cu", "fused_spatial_block.py:108"),
+        "K4": ("flash_attention_backward", "flash_attention_bwd.cu", "flash_attention.py:442"),
+        "K6": ("flash_attention_normrope_backward", "flash_attention_bwd.cu",
+               "flash_normrope.py:249"),
     }
-    # launches on the main path: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve,
-    # K3 under K1's counter (one binary), K5 from the 3 x 128 B=8 solve
-    main_counts = dict(launches[HEADS], K3=launches[HEADS]["K1"], K5=launches[WIDE_HEADS]["K5"])
+    # launches on the main paths: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve,
+    # K3 under K1's counter (one binary), K5 from the 3 x 128 B=8 solve; K4
+    # and K6 (the dK/dV and the dQ kernel together) from one train step at
+    # 16 x 24 and at 3 x 128
+    main_counts = dict(launches[HEADS], K3=launches[HEADS]["K1"], K5=launches[WIDE_HEADS]["K5"],
+                       K4=train_counts[HEADS]["K4 kv"] + train_counts[HEADS]["K4 q"],
+                       K6=train_counts[WIDE_HEADS]["K6 kv"] + train_counts[WIDE_HEADS]["K6 q"])
     kernels = [
         {"name": name, "route": "cuda", "source": f"lam_slide_tpu_torch/csrc/{src}",
          "replaces": f"lam_slide_tpu/ops/{tpu}", "launches": main_counts[key],

@@ -39,21 +39,20 @@
 // Numerics (docs/PERF.md "Kernel numerics"): bf16 operands, fp32 logits
 // and statistics, P rounded to bf16 before the AV product, output in q's
 // dtype (bf16), division by max(l, 1e-30) as in the JAX kernel.
+//
+// lse: when the caller passes an fp32 [B, H, Nq] buffer (training), each
+// query row also writes m + log(max(l, 1e-30)), the log-sum-exp the backward
+// kernels (flash_attention_bwd.cu) rebuild P from, as `_flash_forward(...,
+// with_lse=True)` does; a null pointer (sampling) writes nothing.
 
 #include <mma.h>
 
-#include "common.cuh"
+#include "flash_tiles.cuh"
 
 using namespace nvcuda;
+using namespace lam_flash;
 
 namespace {
-
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per K/V tile
-constexpr int NWARPS = 4;     // 16 query rows per warp
-constexpr int THREADS = NWARPS * 32;
-constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
-constexpr float NR_EPS = 1e-6f;  // QK RMS-norm eps (flash_normrope.py _EPS)
 
 template <int DP>
 struct Layout {
@@ -70,39 +69,12 @@ struct Layout {
   static constexpr size_t bytes = lam_align128(a_off + NWARPS * 16 * LDA * sizeof(float));
 };
 
-// rows [n0, n0 + 64) of one head, zero outside [0, n) x [0, dh)
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long sn,
-                                          int n0, int n, int dh) {
-  constexpr int LDT = Layout<DP>::LDT;
-  for (int idx = threadIdx.x; idx < BQ * DP; idx += THREADS) {
-    const int r = idx / DP, c = idx % DP;
-    bf16 val = __float2bfloat16(0.0f);
-    if (c < dh && n0 + r < n) val = src[static_cast<long long>(n0 + r) * sn + c];
-    dst[r * LDT + c] = val;
-  }
-}
-
-// RMS-norm + RoPE of the tile's rows at sequence positions n0 + r < n, in
-// place; warp w takes rows [16w, 16w + 16). Padding rows stay zero.
-template <int DP>
-__device__ __forceinline__ void normrope_tile(bf16* tile, int n0, int n, int dh,
-                                              const float* scale, const float* cos,
-                                              const float* sin) {
-  const int warp = threadIdx.x / 32;
-  for (int r = warp * 16; r < warp * 16 + 16 && n0 + r < n; ++r) {
-    const long long pos = n0 + r;
-    lam_rmsnorm_rope(tile + r * Layout<DP>::LDT, dh, scale, cos + pos * (dh / 2),
-                     sin + pos * (dh / 2), NR_EPS);
-  }
-}
-
 // NR: q/k are RAW and get the per-head RMS-norm (scales qs/ks [dh]) and
 // RoPE (cos/sin [>= max(Nq, Nk), dh/2], row-major) in shared memory.
 template <int DP, bool NR>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                  const float* __restrict__ qs, const float* __restrict__ ks,
                  const float* __restrict__ cos, const float* __restrict__ sin,
                  int H, int Nq, int Nk, int dh,
@@ -127,10 +99,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kp = k + b * k_sb + h * k_sh;
   const bf16* vp = v + b * v_sb + h * v_sh;
 
-  load_tile<DP>(Qs, qp, q_sn, q0, Nq, dh);
+  load_tile<DP>(Qs, LDT, qp, q_sn, q0, Nq, dh);
   if constexpr (NR) {
     __syncthreads();
-    normrope_tile<DP>(Qs, q0, Nq, dh, qs, cos, sin);
+    normrope_tile(Qs, LDT, q0, Nq, dh, qs, cos, sin);
   }
   for (int i = lane; i < 16 * LDA; i += 32) As[i] = 0.0f;
 
@@ -141,11 +113,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     __syncthreads();  // previous tile fully consumed
-    load_tile<DP>(Ks, kp, k_sn, kt * BK, Nk, dh);
-    load_tile<DP>(Vs, vp, v_sn, kt * BK, Nk, dh);
+    load_tile<DP>(Ks, LDT, kp, k_sn, kt * BK, Nk, dh);
+    load_tile<DP>(Vs, LDT, vp, v_sn, kt * BK, Nk, dh);
     __syncthreads();
     if constexpr (NR) {
-      normrope_tile<DP>(Ks, kt * BK, Nk, dh, ks, cos, sin);
+      normrope_tile(Ks, LDT, kt * BK, Nk, dh, ks, cos, sin);
       __syncthreads();
     }
 
@@ -218,6 +190,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* op = o + b * o_sb + h * o_sh + static_cast<long long>(qrow) * o_sn;
     for (int c = half * (DP / 2); c < (half + 1) * (DP / 2) && c < dh; ++c)
       op[c] = __float2bfloat16(As[r * LDA + c] / denom);
+    if (lse != nullptr && half == 0)
+      lse[static_cast<long long>(blockIdx.y) * Nq + qrow] = m + logf(denom);
   }
 }
 
@@ -226,65 +200,67 @@ struct NormRope {
 };
 
 template <int DP, bool NR>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, NormRope nr,
-                   int B, int H, int Nq, int Nk, int dh, const long long* s, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+                   NormRope nr, int B, int H, int Nq, int Nk, int dh, const long long* s,
+                   float scale, cudaStream_t stream) {
   constexpr size_t smem = Layout<DP>::bytes;
   static cudaError_t attr = lam_set_smem(flash_fwd_kernel<DP, NR>, smem);
   if (attr != cudaSuccess) return attr;
   dim3 grid((Nq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<DP, NR><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, nr.qs, nr.ks, nr.cos, nr.sin, H, Nq, Nk, dh, s[0], s[1], s[2], s[3],
+      q, k, v, o, lse, nr.qs, nr.ks, nr.cos, nr.sin, H, Nq, Nk, dh, s[0], s[1], s[2], s[3],
       s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], scale);
   return cudaGetLastError();
 }
 
 template <bool NR>
-int launch_dh(const void* q, const void* k, const void* v, void* o, NormRope nr, int B,
-              int H, int Nq, int Nk, int dh, const long long* s, float scale,
+int launch_dh(const void* q, const void* k, const void* v, void* o, void* lse, NormRope nr,
+              int B, int H, int Nq, int Nk, int dh, const long long* s, float scale,
               void* stream) {
   auto qb = static_cast<const bf16*>(q);
   auto kb = static_cast<const bf16*>(k);
   auto vb = static_cast<const bf16*>(v);
   auto ob = static_cast<bf16*>(o);
+  auto lf = static_cast<float*>(lse);
   auto st = static_cast<cudaStream_t>(stream);
   if (dh <= 0 || dh > 128 || (NR && dh % 2)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (dh <= 32)
-    err = launch<32, NR>(qb, kb, vb, ob, nr, B, H, Nq, Nk, dh, s, scale, st);
+    err = launch<32, NR>(qb, kb, vb, ob, lf, nr, B, H, Nq, Nk, dh, s, scale, st);
   else if (dh <= 64)
-    err = launch<64, NR>(qb, kb, vb, ob, nr, B, H, Nq, Nk, dh, s, scale, st);
+    err = launch<64, NR>(qb, kb, vb, ob, lf, nr, B, H, Nq, Nk, dh, s, scale, st);
   else
-    err = launch<128, NR>(qb, kb, vb, ob, nr, B, H, Nq, Nk, dh, s, scale, st);
+    err = launch<128, NR>(qb, kb, vb, ob, lf, nr, B, H, Nq, Nk, dh, s, scale, st);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
 // q/k/v/o: bf16 [B, H, N, dh] addressed through element strides
-// (batch, head, seq); dh has unit stride. Returns cudaGetLastError().
+// (batch, head, seq); dh has unit stride. lse: null, or fp32 [B, H, Nq]
+// contiguous. Returns cudaGetLastError().
 extern "C" int lam_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int B, int H, int Nq, int Nk,
-    int dh, long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq,
+    int Nk, int dh, long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
     long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
     long long o_sh, long long o_sn, float scale, void* stream) {
   const long long s[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
                            v_sb, v_sh, v_sn, o_sb, o_sh, o_sn};
-  return launch_dh<false>(q, k, v, o, NormRope{}, B, H, Nq, Nk, dh, s, scale, stream);
+  return launch_dh<false>(q, k, v, o, lse, NormRope{}, B, H, Nq, Nk, dh, s, scale, stream);
 }
 
 // As lam_flash_attention_fwd on RAW q/k, plus fp32 qs/ks [dh] (the learned
 // RMS-norm scales) and fp32 cos/sin [>= max(Nq, Nk), dh/2] row-major RoPE
 // tables; dh must be even.
 extern "C" int lam_flash_attention_normrope_fwd(
-    const void* q, const void* k, const void* v, void* o, const void* qs, const void* ks,
-    const void* cos, const void* sin, int B, int H, int Nq, int Nk, int dh, long long q_sb,
-    long long q_sh, long long q_sn, long long k_sb, long long k_sh, long long k_sn,
-    long long v_sb, long long v_sh, long long v_sn, long long o_sb, long long o_sh,
-    long long o_sn, float scale, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse, const void* qs,
+    const void* ks, const void* cos, const void* sin, int B, int H, int Nq, int Nk, int dh,
+    long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
+    long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
+    long long o_sh, long long o_sn, float scale, void* stream) {
   const long long s[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
                            v_sb, v_sh, v_sn, o_sb, o_sh, o_sn};
   const NormRope nr{static_cast<const float*>(qs), static_cast<const float*>(ks),
                     static_cast<const float*>(cos), static_cast<const float*>(sin)};
-  return launch_dh<true>(q, k, v, o, nr, B, H, Nq, Nk, dh, s, scale, stream);
+  return launch_dh<true>(q, k, v, o, lse, nr, B, H, Nq, Nk, dh, s, scale, stream);
 }

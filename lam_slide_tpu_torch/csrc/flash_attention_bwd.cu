@@ -1,0 +1,380 @@
+// FlashAttention-2 backward for Hopper (sm_90a), bf16 in / bf16 out, and its
+// variant with per-head QK RMS-norm + RoPE applied inside the kernel.
+//
+// Replaces four Pallas TPU kernels:
+// - K4, lam_slide_tpu/ops/flash_attention.py `_flash_bwd_kv_kernel` and
+//   `_flash_bwd_q_kernel` (pallas_calls in `_flash_backward`);
+// - K6, lam_slide_tpu/ops/flash_normrope.py `_nr_bwd_kv_kernel` and
+//   `_nr_bwd_q_kernel` (`_nr_backward`): the NR=true instantiation takes RAW
+//   q/k, normalizes and rotates every Q and K tile in shared memory as the
+//   forward K5 does (lam_rmsnorm_rope keeps its rounding points), and emits
+//   dq/dk with respect to the TRANSFORMED q/k; the caller chains them back to
+//   the raw q/k and the norm scales through autograd of the plain transform.
+//
+// Given the forward's lse [B, H, Nq] and delta = rowsum(dO * O) [B, H, Nq]
+// (fp32, computed outside the kernels as in JAX), each tile recomputes
+//   P = exp(Q K^T * scale - lse), keys >= Nk and queries >= Nq give P = 0,
+//   dV += bf16(P)^T dO,   dP = dO V^T,
+//   dS = bf16(P * (dP - delta) * scale),   dK += dS^T Q,   dQ += dS K,
+// with fp32 accumulation and the JAX kernels' rounding points; the grads are
+// written in bf16 through (batch, head, seq) strides, so packed [B, N, H*dh]
+// views of them need no copy. As in JAX the work is split so that no block
+// ever adds into another's output (no atomics): the kv kernel is one block
+// per (batch*head, 64-key tile) looping over the query tiles, the q kernel
+// one block per (batch*head, 64-query tile) looping over the key tiles.
+//
+// Design: 4 warps per block. Two 64-row tiles stay in shared memory for the
+// whole block (K, V in the kv kernel; Q, dO in the q kernel), two stream
+// through it. Each warp owns 16 rows of the stationary tiles: it computes
+// its 16 x 64 slices of S and dP with WMMA into warp-private fp32 scratch,
+// the lanes form P and dS there (two lanes per row), and the products with
+// the streamed tile accumulate into WMMA fragments held in registers (dK and
+// dV: 2 * DP/16 fragments, dQ: DP/16). dh is zero-padded to DP (32, 64 or
+// 128) in shared memory only. Shared memory at DP=128: four 17 KB tiles,
+// 34 KB of fp32 S/dP scratch and 18 KB of bf16 P/dS, ~121 KB.
+//
+// What bounds it on the H100: five products of 2*N^2*DP FLOPs per head (the
+// forward has two) with O(N*dh) bytes per head, so tensor-core and
+// shared-memory work per tile, as for K1. This first version favours
+// clarity: WMMA through shared memory, scalar tile loads, no cp.async/TMA
+// and no wgmma. The NR variant transforms every Q tile once per key tile in
+// the kv kernel and every K tile once per query tile in the q kernel, as the
+// TPU kernels do (16x the minimal transform work at N=1000).
+
+#include <mma.h>
+
+#include "flash_tiles.cuh"
+
+using namespace nvcuda;
+using namespace lam_flash;
+
+namespace {
+
+template <int DP>
+struct BwdLayout {
+  static constexpr int LDT = DP + 8;  // bf16 tile row stride
+  static constexpr int LDS = BK + 4;  // fp32 S / dP row stride
+  static constexpr int LDP = BK + 8;  // bf16 P / dS row stride
+  static constexpr size_t tile = BQ * LDT * sizeof(bf16);
+  static constexpr size_t t0 = 0;  // stationary tiles
+  static constexpr size_t t1 = lam_align128(t0 + tile);
+  static constexpr size_t t2 = lam_align128(t1 + tile);  // streamed tiles
+  static constexpr size_t t3 = lam_align128(t2 + tile);
+  static constexpr size_t s_off = lam_align128(t3 + tile);
+  static constexpr size_t dp_off = lam_align128(s_off + NWARPS * 16 * LDS * sizeof(float));
+  static constexpr size_t p_off = lam_align128(dp_off + NWARPS * 16 * LDS * sizeof(float));
+  static constexpr size_t ds_off = lam_align128(p_off + NWARPS * 16 * LDP * sizeof(bf16));
+  static constexpr size_t row_off = lam_align128(ds_off + NWARPS * 16 * LDP * sizeof(bf16));
+  static constexpr size_t bytes = lam_align128(row_off + 2 * BQ * sizeof(float));
+};
+
+// Strides are (batch, head, seq) element strides, in this order of tensors.
+enum Tensor { TQ = 0, TK = 3, TV = 6, TDO = 9, TDQ = 12, TDK = 15, TDV = 18 };
+
+struct BwdArgs {
+  const bf16 *q, *k, *v, *dout;
+  const float *lse, *delta;  // fp32 [B, H, Nq], contiguous
+  bf16 *dq, *dk, *dv;
+  const float *qs, *ks, *cos, *sin;  // NR only
+  int H, Nq, Nk, dh;
+  long long s[21];
+  float scale;
+};
+
+using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+using RowA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using RowB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+using ColB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+
+__device__ __forceinline__ const bf16* head(const bf16* base, const BwdArgs& a, Tensor t,
+                                            int b, int h) {
+  return base + b * a.s[t] + h * a.s[t + 1];
+}
+
+// The warp's 16 x 64 slices of X Y^T and Z W^T: X, Z are 16 rows of
+// stationary tiles, Y, W the 64 rows of streamed ones; fp32 into xy / zw.
+template <int DP, int LDT, int LDS>
+__device__ __forceinline__ void two_products_t(const bf16* X, const bf16* Y, const bf16* Z,
+                                               const bf16* W, float* xy, float* zw) {
+#pragma unroll
+  for (int jn = 0; jn < BK / 16; ++jn) {
+    Acc c, e;
+    wmma::fill_fragment(c, 0.0f);
+    wmma::fill_fragment(e, 0.0f);
+#pragma unroll
+    for (int kd = 0; kd < DP / 16; ++kd) {
+      RowA x, z;
+      ColB y, w;
+      wmma::load_matrix_sync(x, X + kd * 16, LDT);
+      wmma::load_matrix_sync(y, Y + jn * 16 * LDT + kd * 16, LDT);
+      wmma::mma_sync(c, x, y, c);
+      wmma::load_matrix_sync(z, Z + kd * 16, LDT);
+      wmma::load_matrix_sync(w, W + jn * 16 * LDT + kd * 16, LDT);
+      wmma::mma_sync(e, z, w, e);
+    }
+    wmma::store_matrix_sync(xy + jn * 16, c, LDS, wmma::mem_row_major);
+    wmma::store_matrix_sync(zw + jn * 16, e, LDS, wmma::mem_row_major);
+  }
+  __syncwarp();
+}
+
+// acc[dn] += A (16 x 64, bf16, row stride LDP) times columns [16dn, 16dn+16)
+// of the 64-row tile T.
+template <int DP, int LDT, int LDP>
+__device__ __forceinline__ void accumulate(Acc (&acc)[DP / 16], const bf16* A, const bf16* T) {
+#pragma unroll
+  for (int dn = 0; dn < DP / 16; ++dn) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      RowA x;
+      RowB y;
+      wmma::load_matrix_sync(x, A + kk * 16, LDP);
+      wmma::load_matrix_sync(y, T + kk * 16 * LDT + dn * 16, LDT);
+      wmma::mma_sync(acc[dn], x, y, acc[dn]);
+    }
+  }
+}
+
+// Write a warp's 16 x DP accumulator as bf16 rows [row0, row0 + 16) of one
+// head (rows < n, columns < dh), staged 16 x 16 at a time through the
+// warp's fp32 scratch.
+template <int DP, int LDS>
+__device__ __forceinline__ void store_rows(Acc (&acc)[DP / 16], float* scratch, bf16* out,
+                                           long long sn, int row0, int n, int dh) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int dn = 0; dn < DP / 16; ++dn) {
+    wmma::store_matrix_sync(scratch, acc[dn], LDS, wmma::mem_row_major);
+    __syncwarp();
+    for (int i = lane; i < 256; i += 32) {
+      const int r = i / 16, c = dn * 16 + i % 16;
+      if (row0 + r < n && c < dh)
+        out[static_cast<long long>(row0 + r) * sn + c] =
+            __float2bfloat16(scratch[r * LDS + i % 16]);
+    }
+    __syncwarp();
+  }
+}
+
+// P and dS of one score element; p = 0 outside the valid rows and keys.
+__device__ __forceinline__ void probs(float s, float dp, float lse, float delta, float scale,
+                                      bool valid, bf16* p_out, bf16* ds_out) {
+  const float p = valid ? expf(__fsub_rn(__fmul_rn(s, scale), lse)) : 0.0f;
+  if (p_out != nullptr) *p_out = __float2bfloat16(p);
+  *ds_out = __float2bfloat16(__fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale));
+}
+
+// One (batch*head, 64-key tile): dK, dV over all query tiles.
+template <int DP, bool NR>
+__global__ void __launch_bounds__(THREADS) flash_bwd_kv_kernel(const BwdArgs a) {
+  using Lay = BwdLayout<DP>;
+  constexpr int LDT = Lay::LDT, LDS = Lay::LDS, LDP = Lay::LDP;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem + Lay::t0);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + Lay::t1);
+  bf16* Qs = reinterpret_cast<bf16*>(smem + Lay::t2);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + Lay::t3);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* Ss = reinterpret_cast<float*>(smem + Lay::s_off) + warp * 16 * LDS;
+  float* DPs = reinterpret_cast<float*>(smem + Lay::dp_off) + warp * 16 * LDS;
+  bf16* Ps = reinterpret_cast<bf16*>(smem + Lay::p_off) + warp * 16 * LDP;
+  bf16* dSs = reinterpret_cast<bf16*>(smem + Lay::ds_off) + warp * 16 * LDP;
+  float* lse_s = reinterpret_cast<float*>(smem + Lay::row_off);
+  float* delta_s = lse_s + BQ;
+
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int k0 = blockIdx.x * BK;
+  const bf16* qp = head(a.q, a, TQ, b, h);
+  const bf16* dop = head(a.dout, a, TDO, b, h);
+  const float* lsep = a.lse + static_cast<long long>(blockIdx.y) * a.Nq;
+  const float* deltap = a.delta + static_cast<long long>(blockIdx.y) * a.Nq;
+
+  load_tile<DP>(Ks, LDT, head(a.k, a, TK, b, h), a.s[TK + 2], k0, a.Nk, a.dh);
+  load_tile<DP>(Vs, LDT, head(a.v, a, TV, b, h), a.s[TV + 2], k0, a.Nk, a.dh);
+  if constexpr (NR) {
+    __syncthreads();
+    normrope_tile(Ks, LDT, k0, a.Nk, a.dh, a.ks, a.cos, a.sin);
+  }
+
+  Acc dk[DP / 16], dv[DP / 16];
+#pragma unroll
+  for (int i = 0; i < DP / 16; ++i) {
+    wmma::fill_fragment(dk[i], 0.0f);
+    wmma::fill_fragment(dv[i], 0.0f);
+  }
+  // lane owns key row r of its warp's 16 and half of the 64 query columns
+  const int r = lane >> 1, half = lane & 1;
+  const bool key_ok = k0 + warp * 16 + r < a.Nk;
+  const int n_tiles = (a.Nq + BQ - 1) / BQ;
+
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    const int q0 = qt * BQ;
+    __syncthreads();  // previous Q/dO tiles consumed
+    load_tile<DP>(Qs, LDT, qp, a.s[TQ + 2], q0, a.Nq, a.dh);
+    load_tile<DP>(dOs, LDT, dop, a.s[TDO + 2], q0, a.Nq, a.dh);
+    for (int i = threadIdx.x; i < BQ; i += THREADS) {
+      const bool ok = q0 + i < a.Nq;
+      lse_s[i] = ok ? lsep[q0 + i] : 0.0f;
+      delta_s[i] = ok ? deltap[q0 + i] : 0.0f;
+    }
+    __syncthreads();
+    if constexpr (NR) {
+      normrope_tile(Qs, LDT, q0, a.Nq, a.dh, a.qs, a.cos, a.sin);
+      __syncthreads();
+    }
+
+    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x 64 queries
+    two_products_t<DP, LDT, LDS>(Ks + warp * 16 * LDT, Qs, Vs + warp * 16 * LDT, dOs, Ss, DPs);
+#pragma unroll 4
+    for (int j = 0; j < 32; ++j) {
+      const int c = half * 32 + j;
+      probs(Ss[r * LDS + c], DPs[r * LDS + c], lse_s[c], delta_s[c], a.scale,
+            key_ok && q0 + c < a.Nq, Ps + r * LDP + c, dSs + r * LDP + c);
+    }
+    __syncwarp();
+    accumulate<DP, LDT, LDP>(dv, Ps, dOs);   // dV += P^T dO
+    accumulate<DP, LDT, LDP>(dk, dSs, Qs);   // dK += dS^T Q
+  }
+
+  const int row0 = k0 + warp * 16;
+  store_rows<DP, LDS>(dk, Ss, a.dk + b * a.s[TDK] + h * a.s[TDK + 1], a.s[TDK + 2], row0,
+                      a.Nk, a.dh);
+  store_rows<DP, LDS>(dv, Ss, a.dv + b * a.s[TDV] + h * a.s[TDV + 1], a.s[TDV + 2], row0,
+                      a.Nk, a.dh);
+}
+
+// One (batch*head, 64-query tile): dQ over all key tiles.
+template <int DP, bool NR>
+__global__ void __launch_bounds__(THREADS) flash_bwd_q_kernel(const BwdArgs a) {
+  using Lay = BwdLayout<DP>;
+  constexpr int LDT = Lay::LDT, LDS = Lay::LDS, LDP = Lay::LDP;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem + Lay::t0);
+  bf16* dOs = reinterpret_cast<bf16*>(smem + Lay::t1);
+  bf16* Ks = reinterpret_cast<bf16*>(smem + Lay::t2);
+  bf16* Vs = reinterpret_cast<bf16*>(smem + Lay::t3);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* Ss = reinterpret_cast<float*>(smem + Lay::s_off) + warp * 16 * LDS;
+  float* DPs = reinterpret_cast<float*>(smem + Lay::dp_off) + warp * 16 * LDS;
+  bf16* dSs = reinterpret_cast<bf16*>(smem + Lay::ds_off) + warp * 16 * LDP;
+
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int q0 = blockIdx.x * BQ;
+  const bf16* kp = head(a.k, a, TK, b, h);
+  const bf16* vp = head(a.v, a, TV, b, h);
+
+  load_tile<DP>(Qs, LDT, head(a.q, a, TQ, b, h), a.s[TQ + 2], q0, a.Nq, a.dh);
+  load_tile<DP>(dOs, LDT, head(a.dout, a, TDO, b, h), a.s[TDO + 2], q0, a.Nq, a.dh);
+  if constexpr (NR) {
+    __syncthreads();
+    normrope_tile(Qs, LDT, q0, a.Nq, a.dh, a.qs, a.cos, a.sin);
+  }
+
+  Acc dq[DP / 16];
+#pragma unroll
+  for (int i = 0; i < DP / 16; ++i) wmma::fill_fragment(dq[i], 0.0f);
+  // lane owns query row r of its warp's 16 and half of the 64 key columns
+  const int r = lane >> 1, half = lane & 1;
+  const int qrow = q0 + warp * 16 + r;
+  const bool row_ok = qrow < a.Nq;
+  const long long row = static_cast<long long>(blockIdx.y) * a.Nq + qrow;
+  const float lse = row_ok ? a.lse[row] : 0.0f;
+  const float delta = row_ok ? a.delta[row] : 0.0f;
+  const int n_tiles = (a.Nk + BK - 1) / BK;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // previous K/V tiles consumed
+    load_tile<DP>(Ks, LDT, kp, a.s[TK + 2], k0, a.Nk, a.dh);
+    load_tile<DP>(Vs, LDT, vp, a.s[TV + 2], k0, a.Nk, a.dh);
+    __syncthreads();
+    if constexpr (NR) {
+      normrope_tile(Ks, LDT, k0, a.Nk, a.dh, a.ks, a.cos, a.sin);
+      __syncthreads();
+    }
+
+    // S = Q K^T and dP = dO V^T: the warp's 16 queries x 64 keys
+    two_products_t<DP, LDT, LDS>(Qs + warp * 16 * LDT, Ks, dOs + warp * 16 * LDT, Vs, Ss, DPs);
+#pragma unroll 4
+    for (int j = 0; j < 32; ++j) {
+      const int c = half * 32 + j;
+      probs(Ss[r * LDS + c], DPs[r * LDS + c], lse, delta, a.scale, row_ok && k0 + c < a.Nk,
+            nullptr, dSs + r * LDP + c);
+    }
+    __syncwarp();
+    accumulate<DP, LDT, LDP>(dq, dSs, Ks);  // dQ += dS K
+  }
+
+  store_rows<DP, LDS>(dq, Ss, a.dq + b * a.s[TDQ] + h * a.s[TDQ + 1], a.s[TDQ + 2],
+                      q0 + warp * 16, a.Nq, a.dh);
+}
+
+template <int DP, bool NR>
+cudaError_t launch(bool kv, const BwdArgs& a, int B, cudaStream_t stream) {
+  constexpr size_t smem = BwdLayout<DP>::bytes;
+  if (kv) {
+    static cudaError_t attr = lam_set_smem(flash_bwd_kv_kernel<DP, NR>, smem);
+    if (attr != cudaSuccess) return attr;
+    dim3 grid((a.Nk + BK - 1) / BK, B * a.H);
+    flash_bwd_kv_kernel<DP, NR><<<grid, THREADS, smem, stream>>>(a);
+  } else {
+    static cudaError_t attr = lam_set_smem(flash_bwd_q_kernel<DP, NR>, smem);
+    if (attr != cudaSuccess) return attr;
+    dim3 grid((a.Nq + BQ - 1) / BQ, B * a.H);
+    flash_bwd_q_kernel<DP, NR><<<grid, THREADS, smem, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+template <bool NR>
+cudaError_t launch_dp(bool kv, const BwdArgs& a, int B, cudaStream_t stream) {
+  if (a.dh <= 32) return launch<32, NR>(kv, a, B, stream);
+  if (a.dh <= 64) return launch<64, NR>(kv, a, B, stream);
+  return launch<128, NR>(kv, a, B, stream);
+}
+
+int launch_bwd(bool kv, const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dq, void* dk, void* dv,
+               const void* qs, const void* ks, const void* cos, const void* sin, int B, int H,
+               int Nq, int Nk, int dh, const long long* strides, float scale, void* stream) {
+  const bool nr = qs != nullptr;
+  if (dh <= 0 || dh > 128 || (nr && dh % 2) || Nq <= 0 || Nk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+            static_cast<const float*>(lse), static_cast<const float*>(delta),
+            static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+            static_cast<const float*>(qs), static_cast<const float*>(ks),
+            static_cast<const float*>(cos), static_cast<const float*>(sin),
+            H, Nq, Nk, dh, {}, scale};
+  for (int i = 0; i < 21; ++i) a.s[i] = strides[i];
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(nr ? launch_dp<true>(kv, a, B, st) : launch_dp<false>(kv, a, B, st));
+}
+
+}  // namespace
+
+// q/k/v/dout and dq/dk/dv: bf16 [B, H, N, dh] addressed through element
+// strides (batch, head, seq) given in `strides` in the order q, k, v, dout,
+// dq, dk, dv (21 values); dh has unit stride. lse/delta: fp32 [B, H, Nq]
+// contiguous. qs/ks/cos/sin: null for K4; for K6 the fp32 RMS-norm scales
+// [dh] and the row-major RoPE tables [>= max(Nq, Nk), dh/2], and dq/dk are
+// then gradients with respect to the transformed q/k. The kv entry writes
+// dk and dv, the q entry dq. Each returns cudaGetLastError().
+extern "C" int lam_flash_attention_bwd_kv(
+    const void* q, const void* k, const void* v, const void* dout, const void* lse,
+    const void* delta, void* dq, void* dk, void* dv, const void* qs, const void* ks,
+    const void* cos, const void* sin, int B, int H, int Nq, int Nk, int dh,
+    const long long* strides, float scale, void* stream) {
+  return launch_bwd(true, q, k, v, dout, lse, delta, dq, dk, dv, qs, ks, cos, sin, B, H, Nq,
+                    Nk, dh, strides, scale, stream);
+}
+
+extern "C" int lam_flash_attention_bwd_q(
+    const void* q, const void* k, const void* v, const void* dout, const void* lse,
+    const void* delta, void* dq, void* dk, void* dv, const void* qs, const void* ks,
+    const void* cos, const void* sin, int B, int H, int Nq, int Nk, int dh,
+    const long long* strides, float scale, void* stream) {
+  return launch_bwd(false, q, k, v, dout, lse, delta, dq, dk, dv, qs, ks, cos, sin, B, H, Nq,
+                    Nk, dh, strides, scale, stream);
+}

@@ -1,0 +1,45 @@
+// Tile shapes and shared-memory tile loaders of the flash-attention forward
+// (flash_attention.cu: K1, K3, K5) and backward (flash_attention_bwd.cu: K4,
+// K6) kernels.
+#pragma once
+
+#include "common.cuh"
+
+namespace lam_flash {
+
+constexpr int BQ = 64;        // query rows per tile
+constexpr int BK = 64;        // keys per tile
+constexpr int NWARPS = 4;     // 16 rows of a 64-row tile per warp
+constexpr int THREADS = NWARPS * 32;
+constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;  // the JAX kernels' mask fill
+constexpr float NR_EPS = 1e-6f;  // QK RMS-norm eps (flash_normrope.py _EPS)
+
+static_assert(BQ == BK, "the tile loaders serve Q, K, V and dO tiles alike");
+
+// Rows [n0, n0 + 64) of one head into a [64, DP] tile with row stride ld,
+// zero outside [0, n) x [0, dh).
+template <int DP>
+__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src, long long sn,
+                                          int n0, int n, int dh) {
+  for (int idx = threadIdx.x; idx < BQ * DP; idx += THREADS) {
+    const int r = idx / DP, c = idx % DP;
+    bf16 val = __float2bfloat16(0.0f);
+    if (c < dh && n0 + r < n) val = src[static_cast<long long>(n0 + r) * sn + c];
+    dst[r * ld + c] = val;
+  }
+}
+
+// RMS-norm + RoPE of a tile's rows at sequence positions n0 + r < n, in
+// place; warp w takes rows [16w, 16w + 16). Padding rows stay zero.
+__device__ __forceinline__ void normrope_tile(bf16* tile, int ld, int n0, int n, int dh,
+                                              const float* scale, const float* cos,
+                                              const float* sin) {
+  const int warp = threadIdx.x / 32;
+  for (int r = warp * 16; r < warp * 16 + 16 && n0 + r < n; ++r) {
+    const long long pos = n0 + r;
+    lam_rmsnorm_rope(tile + r * ld, dh, scale, cos + pos * (dh / 2), sin + pos * (dh / 2),
+                     NR_EPS);
+  }
+}
+
+}  // namespace lam_flash

@@ -23,7 +23,11 @@ shipping defaults:
   before the output layer (latent_dit.py:484-487,680).
 
 ``backend="auto"`` lets CUDA tensors launch the kernels; ``"plain"`` runs the
-plain PyTorch versions everywhere (for comparisons and timing).
+plain PyTorch versions everywhere (for comparisons and timing). Under
+autograd each kernel runs inside its ``torch.autograd.Function``.
+``checkpointing=True`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, the counterpart of ``nn.remat``,
+latent_dit.py:643).
 """
 
 from typing import Optional, Tuple
@@ -31,6 +35,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lam_slide_tpu_torch.nn import initializers as inits
 from lam_slide_tpu_torch.nn.embeddings import timestep_embedding
@@ -221,7 +226,8 @@ class LatentDiT(nn.Module):
     Linear default instead. ``generator`` seeds the fresh init (a CPU
     generator; the parameters are drawn on the CPU and moved to ``device``).
     ``device`` defaults to the CUDA card, so a missing card raises; pass
-    ``device="cpu"`` to run on the CPU.
+    ``device="cpu"`` to run on the CPU. ``checkpointing=True`` keeps only
+    each layer's inputs for the backward and recomputes the layer there.
     """
 
     def __init__(self, depth: int, in_dim: int, hidden_size: int, num_heads: int,
@@ -229,7 +235,8 @@ class LatentDiT(nn.Module):
                  theta: float = 10_000.0, normalize: bool = False,
                  reference_init: bool = True, packed_threshold: int = 8,
                  backend: str = "auto", dtype: torch.dtype = torch.float32,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+                 checkpointing: bool = False, device="cuda",
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         if hidden_size % num_heads:
             raise ValueError(f"hidden_size {hidden_size} not divisible by num_heads {num_heads}")
@@ -239,7 +246,7 @@ class LatentDiT(nn.Module):
         d = hidden_size
         self.depth, self.hidden_size, self.num_heads = depth, d, num_heads
         self.theta, self.normalize = theta, normalize
-        self.backend, self.dtype = backend, dtype
+        self.backend, self.dtype, self.checkpointing = backend, dtype, checkpointing
         kinit = inits.attn_kernel_init_ if reference_init else inits.torch_linear_init_
         self.x_in = _linear(in_dim, d, kinit, gen)
         self.cond_to_emb = _linear(in_dim, d, kinit, gen)
@@ -276,8 +283,11 @@ class LatentDiT(nn.Module):
         pend_h = torch.zeros_like(h)
         pend_gate = torch.zeros((b, 1, 1, self.hidden_size), dtype=dt, device=x.device)
         for block in self.blocks:
-            h, pend_h, pend_gate = block(h, pend_h, pend_gate, vec, sp_cos, sp_sin,
-                                         tm_cos, tm_sin, self.backend)
+            args = (h, pend_h, pend_gate, vec, sp_cos, sp_sin, tm_cos, tm_sin, self.backend)
+            if self.checkpointing:
+                h, pend_h, pend_gate = checkpoint(block, *args, use_reentrant=False)
+            else:
+                h, pend_h, pend_gate = block(*args)
 
         mod = dense(F.silu(vec), self.adaLN_modulation[1], dt)
         shift, scale = mod[:, None, None, :].chunk(2, dim=-1)

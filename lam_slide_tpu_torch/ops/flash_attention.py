@@ -1,39 +1,55 @@
-"""Flash-attention forward: CUDA kernel K1, its packed entry K3, and their
-plain PyTorch versions.
+"""Flash attention: CUDA kernels K1 (forward), its packed entry K3 and K4
+(the FlashAttention-2 backward), and their plain PyTorch versions.
 
 Counterpart of ``lam_slide_tpu/ops/flash_attention.py``: ``_flash_kernel``
-through ``flash_attention`` (K1) and ``_packed_manual_kernel`` through
-``flash_attention_packed`` (K3). The kernel lives in
-``csrc/flash_attention.cu``; it reads q/k/v through (batch, head, seq)
+through ``flash_attention`` (K1), ``_packed_manual_kernel`` through
+``flash_attention_packed`` (K3) and ``_flash_bwd_kv_kernel`` /
+``_flash_bwd_q_kernel`` through ``_flash_backward`` (K4). The forward lives
+in ``csrc/flash_attention.cu``; it reads q/k/v through (batch, head, seq)
 strides, so head-major views of a packed ``[B, N, H*dh]`` buffer go in
 without a copy, and it writes its output into packed memory, so
 ``out.transpose(1, 2).reshape(B, N, H*dh)`` is a view. K3 is that same
-binary called on packed views: no copy in and none out.
+binary called on packed views: no copy in and none out. The backward lives
+in ``csrc/flash_attention_bwd.cu`` and reads and writes the same way.
 
-``launches`` counts kernel launches of both entries (one binary); nothing
-else touches it.
+Gradients: on CUDA tensors that need one, the forward runs inside
+``_FlashAttention`` (the JAX ``custom_vjp``), which asks K1 for the per-row
+log-sum-exp and whose backward launches K4's two kernels. The packed entry
+differentiates through the same Function on its head-major views.
+
+Counters (plain integers, touched only where a kernel launches):
+``launches`` counts K1 launches of both entries (one binary),
+``bwd_kv_launches`` and ``bwd_q_launches`` K4's dK/dV and dQ kernels.
 """
 
-from typing import Optional
+import ctypes
+import sys
+from typing import Optional, Tuple
 
 import torch
 
 from lam_slide_tpu_torch.ops import _build
+from lam_slide_tpu_torch.ops._grad import needs_grad
 
 launches = 0
+bwd_kv_launches = 0
+bwd_q_launches = 0
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        scale: Optional[float] = None, return_lse: bool = False):
     """Plain attention, head-major ``[B, H, N, dh]`` (ops/attention.py:44-59).
 
     fp32 logits (bf16 products are exact in fp32) and fp32 softmax; the
-    weights are cast to ``v.dtype`` for the AV product.
+    weights are cast to ``v.dtype`` for the AV product. ``return_lse`` also
+    returns the fp32 per-row log-sum-exp of the scaled logits ``[B, H, Nq]``
+    (``_flash_forward(..., with_lse=True)``).
     """
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.matmul(weights, v)
+    out = torch.matmul(weights, v)
+    return (out, torch.logsumexp(logits, dim=-1)) if return_lse else out
 
 
 def reference_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,6 +57,29 @@ def reference_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """``reference_attention`` on packed ``[B, N, H*dh]`` operands -> packed output."""
     out = reference_attention(*(_heads(t, num_heads) for t in (q, k, v)), scale)
     return out.transpose(1, 2).reshape(q.shape)
+
+
+def reference_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                             scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4's formulas on whole head-major tensors -> (dq, dk, dv) in the input
+    dtypes (``_flash_backward`` and ``_bwd_probs``, flash_attention.py:411-621).
+
+    delta = rowsum(dO ⊙ O) in fp32; P = exp(q kᵀ · scale − lse) in fp32;
+    dV = bf16(P)ᵀ dO; dS = (P ⊙ (dO vᵀ − delta) · scale) rounded to the input
+    dtype; dQ = dS k; dK = dSᵀ q; fp32 accumulation throughout.
+    """
+    dtype = q.dtype
+    do = g.to(dtype).float()
+    delta = (g.float() * out.float()).sum(dim=-1, keepdim=True)
+    p = torch.exp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+                  - lse.unsqueeze(-1))
+    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).to(dtype).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -66,32 +105,119 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"flash_attention: head dim {dh} is not in (0, 128]")
 
 
+def _packed_like(t: torch.Tensor, n: int) -> torch.Tensor:
+    """An empty head-major ``[B, H, n, dh]`` tensor in packed ``[B, n, H, dh]``
+    memory, like ``t``."""
+    b, h, _, dh = t.shape
+    return torch.empty((b, n, h, dh), dtype=t.dtype, device=t.device).transpose(1, 2)
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _forward(q, k, v, scale: float, with_lse: bool):
+    """Launch K1 on checked head-major CUDA tensors -> (out, lse or None)."""
+    _check(q, k, v)
+    b, h, nq, dh = q.shape
+    out = _packed_like(q, nq)
+    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    global launches
+    with torch.cuda.device(q.device):
+        _build.launch("lam_flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, nq,
+                      k.shape[2], dh, *strides, float(scale), _stream(q))
+    launches += 1
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward (with lse) and K4 backward: ``_flash_attention_core``'s VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = _forward(q, k, v, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, out, lse, g, ctx.scale), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """softmax(q kᵀ · scale) v over head-major ``[B, H, N, dh]`` operands.
 
     CPU tensors take ``reference_attention``. CUDA tensors launch the kernel
-    (bf16 only, dh <= 128, unit stride on dh) or raise. Key-padding masks
-    are not ported yet and raise on every device.
+    (bf16 only, dh <= 128, unit stride on dh) or raise; when they need a
+    gradient, through ``_FlashAttention``, whose backward is K4. Key-padding
+    masks are not ported yet and raise on every device.
     """
     if mask is not None:
         raise NotImplementedError("flash_attention: key-padding masks are not ported yet")
     if q.device.type == "cpu":
         return reference_attention(q, k, v, scale)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, scale)
+    return _forward(q, k, v, scale, with_lse=False)[0]
+
+
+def _check_backward(q, k, v, out, lse, g) -> None:
     _check(q, k, v)
     b, h, nq, dh = q.shape
-    nk = k.shape[2]
-    scale = dh ** -0.5 if scale is None else scale
-    out = torch.empty((b, nq, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    global launches
+    for name, t in (("out", out), ("g", g)):
+        if t.shape != q.shape or t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_backward: {name} must be {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}, got {tuple(t.shape)} {t.dtype}")
+    if (lse.shape != (b, h, nq) or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_backward: lse must be contiguous fp32 "
+                         f"[{b}, {h}, {nq}] on {q.device}, got {tuple(lse.shape)} {lse.dtype}")
+
+
+def _launch_backward(q, k, v, out, lse, g, scale, counts, normrope=None):
+    """Launch K4 (or K6 with ``normrope = (q_scale, k_scale, cos, sin)``) on
+    checked CUDA tensors -> (dq, dk, dv) in packed memory. ``counts`` is the
+    module whose ``bwd_kv_launches`` / ``bwd_q_launches`` count the launches."""
+    g = g if g.stride(-1) == 1 else g.contiguous()
+    delta = (g.float() * out.float()).sum(dim=-1).contiguous()
+    nq, nk = q.shape[2], k.shape[2]
+    dq, dk, dv = _packed_like(q, nq), _packed_like(k, nk), _packed_like(v, nk)
+    strides = (ctypes.c_longlong * 21)(
+        *(s for t in (q, k, v, g, dq, dk, dv) for s in t.stride()[:3]))
+    nr = [t.data_ptr() for t in normrope] if normrope is not None else [None] * 4
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *nr, q.shape[0],
+            q.shape[1], nq, nk, q.shape[3], strides, float(scale), _stream(q))
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _build.launch("lam_flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), b, h, nq, nk, dh, *strides, float(scale), stream)
-    launches += 1
-    return out
+        _build.launch("lam_flash_attention_bwd_kv", *args)
+        counts.bwd_kv_launches += 1
+        _build.launch("lam_flash_attention_bwd_q", *args)
+        counts.bwd_q_launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+                             scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention`` from its output, lse and the output
+    gradient g, all head-major ``[B, H, N, dh]``.
+
+    CPU tensors take ``reference_flash_backward``. CUDA tensors launch K4's
+    dK/dV kernel and then its dQ kernel (bf16, dh <= 128) or raise; the
+    grads come back in packed ``[B, N, H, dh]`` memory, so their packed
+    ``[B, N, H*dh]`` form is a view.
+    """
+    if q.device.type == "cpu":
+        return reference_flash_backward(q, k, v, out, lse, g, scale)
+    _check_backward(q, k, v, out, lse, g)
+    return _launch_backward(q, k, v, out, lse, g, scale, sys.modules[__name__])
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -100,7 +226,8 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (views with unit stride on the last axis) -> packed ``[B, N, H*dh]``.
 
     CPU tensors take ``reference_attention_packed``. CUDA tensors launch K1
-    on head-major strided views of the same memory (no copy) or raise.
+    on head-major strided views of the same memory (no copy) or raise; the
+    gradient flows through the same views into K4.
     """
     if q.device.type == "cpu":
         return reference_attention_packed(q, k, v, num_heads, scale)

@@ -13,6 +13,11 @@ Numerics (fused_adaln.py:83-105): the residual rounds per op in bf16, so
 ``x_new`` is bit-identical to the plain version; LayerNorm statistics in
 fp32; the normalized value rounds to bf16 before the modulate.
 
+Gradients: on CUDA tensors that need one, the kernel runs inside
+``_AdaLN`` / ``_ResidualAdaLN``, whose backward is autograd of the plain
+version on the saved inputs (``_adaln_bwd`` and ``_residual_adaln_bwd``,
+fused_adaln.py:160-206); no backward kernel.
+
 ``launches`` counts kernel launches of both entries; nothing else touches it.
 """
 
@@ -22,6 +27,7 @@ import torch
 
 from lam_slide_tpu_torch.nn.norms import layer_norm
 from lam_slide_tpu_torch.ops import _build
+from lam_slide_tpu_torch.ops._grad import needs_grad, plain_vjp
 
 launches = 0
 
@@ -99,16 +105,49 @@ def _launch(x, h, gate, shift, scale, eps):
     return x_new, y
 
 
+class _AdaLN(torch.autograd.Function):
+    """K7 without residual forward, autograd of the plain version backward."""
+
+    @staticmethod
+    def forward(ctx, x, shift, scale, eps):
+        ctx.save_for_backward(x, shift, scale)
+        ctx.eps = eps
+        return _launch(x, None, None, shift, scale, eps)[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(lambda *a: reference_adaln_modulate(*a, ctx.eps), ctx.saved_tensors,
+                           ctx.needs_input_grad[:3], (g,)), None)
+
+
+class _ResidualAdaLN(torch.autograd.Function):
+    """K7 forward (two outputs), autograd of the plain version backward."""
+
+    @staticmethod
+    def forward(ctx, x, h, gate, shift, scale, eps):
+        ctx.save_for_backward(x, h, gate, shift, scale)
+        ctx.eps = eps
+        return _launch(x, h, gate, shift, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g_x, g_y):
+        return (*plain_vjp(lambda *a: reference_residual_adaln_modulate(*a, ctx.eps),
+                           ctx.saved_tensors, ctx.needs_input_grad[:5], (g_x, g_y)), None)
+
+
 def adaln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
     """modulate(layer_norm(x), shift, scale); x ``[B, ..., D]``, shift/scale
     ``[B, 1.., D]``.
 
     CPU tensors take ``reference_adaln_modulate``; CUDA tensors launch the
-    kernel (bf16, contiguous x) or raise.
+    kernel (bf16, contiguous x) or raise, through ``_AdaLN`` when they need
+    a gradient.
     """
     if x.device.type == "cpu":
         return reference_adaln_modulate(x, shift, scale, eps)
+    if needs_grad(x, shift, scale):
+        return _AdaLN.apply(x, shift, scale, eps)
     return _launch(x, None, None, shift, scale, eps)[1]
 
 
@@ -119,8 +158,11 @@ def residual_adaln_modulate(x: torch.Tensor, h: torch.Tensor, gate: torch.Tensor
     gate/shift/scale ``[B, 1.., D]``.
 
     CPU tensors take ``reference_residual_adaln_modulate``; CUDA tensors
-    launch the kernel (bf16, contiguous x, h with unit stride on D) or raise.
+    launch the kernel (bf16, contiguous x, h with unit stride on D) or raise,
+    through ``_ResidualAdaLN`` when they need a gradient.
     """
     if x.device.type == "cpu":
         return reference_residual_adaln_modulate(x, h, gate, shift, scale, eps)
+    if needs_grad(x, h, gate, shift, scale):
+        return _ResidualAdaLN.apply(x, h, gate, shift, scale, eps)
     return _launch(x, h, gate, shift, scale, eps)

@@ -10,6 +10,10 @@ CUDA the kernel takes them as transposed views of torch ``nn.Linear``
 weights (``weight[rows].t()``, so ``stride(0) == 1``), which is how the DiT
 holds them.
 
+Gradients: on CUDA tensors that need one, the kernel runs inside
+``_FusedMLP``, whose backward is autograd of ``reference_mlp`` on the saved
+inputs (``_fused_mlp_bwd``, fused_mlp.py:125-128); no backward kernel.
+
 ``launches`` counts kernel launches; nothing else touches it.
 """
 
@@ -17,6 +21,7 @@ import torch
 
 from lam_slide_tpu_torch.nn.blocks import gelu_exact
 from lam_slide_tpu_torch.ops import _build
+from lam_slide_tpu_torch.ops._grad import needs_grad, plain_vjp
 
 launches = 0
 
@@ -56,10 +61,31 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor) -> torch.Tensor:
     """gelu(x @ w1 + b1) @ w2 -> fp32 ``[..., d_out]``.
 
-    CPU tensors take ``reference_mlp``; CUDA tensors launch the kernel or raise.
+    CPU tensors take ``reference_mlp``; CUDA tensors launch the kernel or
+    raise, through ``_FusedMLP`` when they need a gradient.
     """
     if x.device.type == "cpu":
         return reference_mlp(x, w1, b1, w2)
+    if needs_grad(x, w1, b1, w2):
+        return _FusedMLP.apply(x, w1, b1, w2)
+    return _launch(x, w1, b1, w2)
+
+
+class _FusedMLP(torch.autograd.Function):
+    """K2 forward, autograd of ``reference_mlp`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2):
+        ctx.save_for_backward(x, w1, b1, w2)
+        return _launch(x, w1, b1, w2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return plain_vjp(reference_mlp, ctx.saved_tensors, ctx.needs_input_grad, (g,))
+
+
+def _launch(x, w1, b1, w2) -> torch.Tensor:
+    """Launch K2 on CUDA tensors (checked here) -> fp32 ``[..., d_out]``."""
     _check(x, w1, b1, w2)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])

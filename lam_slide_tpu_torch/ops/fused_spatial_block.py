@@ -11,6 +11,11 @@ RMS-norm and RoPE, L×L softmax attention, exact GELU of the MLP slice, and
 
 Weights are in torch ``nn.Linear`` layout: ``w1 [3D+M, D]``, ``w2 [D, D+M]``.
 
+Gradients: on CUDA tensors that need one, the kernel runs inside
+``_SpatialBlock``, whose backward is autograd of ``reference_spatial_block``
+on the saved inputs (``_fused_bwd``, fused_spatial_block.py:225-230); no
+backward kernel.
+
 ``launches`` counts kernel launches; nothing else touches it.
 """
 
@@ -18,6 +23,7 @@ import torch
 
 from lam_slide_tpu_torch.nn.blocks import gelu_exact
 from lam_slide_tpu_torch.ops import _build
+from lam_slide_tpu_torch.ops._grad import needs_grad, plain_vjp
 from lam_slide_tpu_torch.ops.packed_attention import (
     headmajor_rmsnorm,
     headmajor_rope,
@@ -91,11 +97,35 @@ def fused_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
     CPU tensors take ``reference_spatial_block``. CUDA tensors launch the
     kernel (bf16 x and weights, fp32 norm scales and ``[L, dh/2]`` tables) or
-    raise.
+    raise, through ``_SpatialBlock`` when they need a gradient.
     """
+    args = (x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale)
     if x.device.type == "cpu":
-        return reference_spatial_block(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin,
-                                       n_heads, scale)
+        return reference_spatial_block(*args)
+    if needs_grad(*args):
+        return _SpatialBlock.apply(*args)
+    return _launch(*args)
+
+
+class _SpatialBlock(torch.autograd.Function):
+    """K8 forward, autograd of ``reference_spatial_block`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale):
+        ctx.save_for_backward(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin)
+        ctx.n_heads, ctx.scale = n_heads, scale
+        return _launch(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = plain_vjp(
+            lambda *a: reference_spatial_block(*a, ctx.n_heads, ctx.scale),
+            ctx.saved_tensors, ctx.needs_input_grad[:9], (g,))
+        return (*grads, None, None)
+
+
+def _launch(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale) -> torch.Tensor:
+    """Launch K8 on CUDA tensors (checked here) -> ``[N, L, D]``."""
     _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads)
     n, l, d = x.shape
     m = w1.shape[0] - 3 * d

@@ -1,0 +1,6 @@
+"""Training (counterpart of ``lam_slide_tpu.train``): state, steps, optimizer."""
+
+from lam_slide_tpu_torch.train.state import TrainState, create_train_state
+from lam_slide_tpu_torch.train.steps import make_eval_step, make_train_step
+
+__all__ = ["TrainState", "create_train_state", "make_eval_step", "make_train_step"]

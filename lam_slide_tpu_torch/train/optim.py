@@ -1,0 +1,76 @@
+"""AdamW with optax's semantics, and optax's global-norm clipping.
+
+Counterpart of ``optax.chain(optax.clip_by_global_norm(clip),
+optax.adamw(schedule, weight_decay=wd))``, the optimizer the JAX trainer
+builds (train/trainer.py:57-68). Parameters and gradients are dicts keyed
+like ``named_parameters()``; ``AdamW.step`` updates the parameters and its
+state in place, where optax returns new trees. Per update:
+
+    g    <- g · max_norm / ‖g‖   when clipping is on and ‖g‖ >= max_norm
+    mu   <- b1 · mu + (1 − b1) · g;   nu <- b2 · nu + (1 − b2) · g²
+    p    <- p − lr(count) · (mu / (1 − b1^t) / (√(nu / (1 − b2^t)) + eps) + wd · p)
+
+with t = count + 1 and decoupled weight decay on every parameter.
+``torch.optim.AdamW`` applies the decay before the Adam step and
+``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm, so neither is
+used.
+"""
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Mapping, Optional
+
+import torch
+
+
+def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element (``optax.global_norm``),
+    an fp32 0-dim tensor on the tensors' device."""
+    return torch.stack([t.float().square().sum() for t in tensors.values()]).sum().sqrt()
+
+
+@dataclass
+class AdamWState:
+    count: int
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+# optax.adamw's defaults, which the JAX trainer keeps
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+class AdamW:
+    """optax.adamw(learning_rate, weight_decay=weight_decay), preceded by
+    optax.clip_by_global_norm(clip_norm) when ``clip_norm`` is set."""
+
+    def __init__(self, learning_rate: Callable[[int], float], weight_decay: float,
+                 clip_norm: Optional[float] = None):
+        self.learning_rate = learning_rate
+        self.weight_decay = weight_decay
+        self.clip_norm = clip_norm
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> AdamWState:
+        zeros = {name: torch.zeros_like(p, memory_format=torch.preserve_format)
+                 for name, p in params.items()}
+        return AdamWState(count=0, mu=zeros, nu={k: torch.zeros_like(v) for k, v in zeros.items()})
+
+    @torch.no_grad()
+    def step(self, params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
+             state: AdamWState, grad_norm: torch.Tensor) -> None:
+        """One update of ``params`` and ``state`` in place; ``grad_norm`` is
+        ``global_norm(grads)``, which the train step also reports."""
+        if self.clip_norm is not None:
+            keep = grad_norm < self.clip_norm
+            grads = {k: torch.where(keep, g, g / grad_norm * self.clip_norm)
+                     for k, g in grads.items()}
+        lr = self.learning_rate(state.count)
+        t = state.count + 1
+        # bias corrections in fp32, as optax takes decay ** count
+        bc1, bc2 = ((1.0 - torch.tensor(b, dtype=torch.float32) ** t).item() for b in (B1, B2))
+        for name, p in params.items():
+            g, mu, nu = grads[name], state.mu[name], state.nu[name]
+            mu.mul_(B1).add_(g, alpha=1.0 - B1)
+            nu.mul_(B2).addcmul_(g, g, value=1.0 - B2)
+            update = (mu / bc1) / ((nu / bc2).sqrt_() + EPS)
+            p.sub_(update.add_(p, alpha=self.weight_decay).mul_(lr))
+        state.count = t

@@ -1,18 +1,21 @@
-"""Stochastic-interpolant transport and its ODE sampler (PyTorch port).
+"""Stochastic-interpolant transport: training objective and ODE sampler
+(PyTorch port).
 
 Counterpart of ``lam_slide_tpu/transport/transport.py``: the four model
-parametrizations (NOISE/SCORE/VELOCITY/DATA), the integration interval and
-the probability-flow drift, with the ODE sampler (dopri5, the default, and
-fixed-grid euler/heun). Training losses, the SDE and likelihood samplers are
-not ported yet.
+parametrizations (NOISE/SCORE/VELOCITY/DATA), the three loss weightings,
+the integration interval, the interpolant draw and training loss, and the
+probability-flow drift with the ODE sampler (dopri5, the default, and
+fixed-grid euler/heun). Random draws come from an explicit
+``torch.Generator``. The SDE and likelihood samplers are not ported yet.
 """
 
 import enum
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from lam_slide_tpu_torch.nn.losses import mean_flat
 from lam_slide_tpu_torch.transport import integrators
 from lam_slide_tpu_torch.transport.path import GVPCPlan, ICPlan, VPCPlan, expand_t
 
@@ -70,6 +73,55 @@ class Transport:
         if reverse:
             t0, t1 = 1.0 - t0, 1.0 - t1
         return t0, t1
+
+    def sample(self, x1: torch.Tensor, generator: torch.Generator):
+        """Draw x0 ~ N(0, I), then t ~ U(t0, t1) per batch element
+        (transport.py:103-114) -> (t, x0, x1)."""
+        x0 = torch.randn(x1.shape, generator=generator, dtype=x1.dtype, device=x1.device)
+        t0, t1 = self.check_interval(self.train_eps, self.sample_eps)
+        t = torch.rand((x1.shape[0],), generator=generator, dtype=torch.float32,
+                       device=x1.device) * (t1 - t0) + t0
+        return t, x0, x1
+
+    def training_losses(self, model_fn: Callable, x1: torch.Tensor,
+                        model_kwargs: Optional[Dict[str, Any]] = None, *,
+                        generator: Optional[torch.Generator] = None,
+                        t: Optional[torch.Tensor] = None,
+                        x0: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """Interpolant loss (transport.py:116-156) -> {'loss': [B], 'pred': ...}.
+
+        t and x0 are drawn from ``generator`` unless both are given, which
+        replays given draws (those of the JAX package, in the parity tests).
+        """
+        model_kwargs = model_kwargs or {}
+        if t is None or x0 is None:
+            t, x0, x1 = self.sample(x1, generator)
+        path = self.path_sampler
+        t, xt, ut = path.plan(t, x0, x1)
+        model_output = model_fn(xt, t, **model_kwargs)
+        if model_output.shape != xt.shape:
+            raise ValueError(f"model output {tuple(model_output.shape)} != x_t "
+                             f"{tuple(xt.shape)}")
+
+        terms = {"pred": model_output}
+        if self.model_type == ModelType.VELOCITY:
+            terms["loss"] = mean_flat((model_output - ut) ** 2)
+        elif self.model_type == ModelType.DATA:
+            terms["loss"] = mean_flat((model_output - x1) ** 2)
+        else:
+            _, drift_var = path.compute_drift(xt, t)
+            sigma_t, _ = path.compute_sigma_t(expand_t(t, xt))
+            if self.loss_type == WeightType.VELOCITY:
+                weight = (drift_var / sigma_t) ** 2
+            elif self.loss_type == WeightType.LIKELIHOOD:
+                weight = drift_var / (sigma_t ** 2)
+            else:
+                weight = 1.0
+            if self.model_type == ModelType.NOISE:
+                terms["loss"] = mean_flat(weight * (model_output - x0) ** 2)
+            else:
+                terms["loss"] = mean_flat(weight * (model_output * sigma_t + x0) ** 2)
+        return terms
 
     def get_drift(self) -> Callable:
         """Probability-flow ODE drift (transport.py:158-202)."""
@@ -133,6 +185,7 @@ class Sampler:
             self.transport.train_eps, self.transport.sample_eps, sde=False, eval=True,
             reverse=reverse, last_step_size=0.0)
 
+        @torch.no_grad()  # the eval protocol never differentiates a solve
         def _sample(init, model_fn, **kw):
             def f(x, t):
                 return drift(x, t, model_fn, **kw)

@@ -36,6 +36,24 @@ K2_ATOL = 1e-2
 # when fp32 sums are taken in another order. The limit chip_smoke.py uses:
 # 3x the first reading on an H100 (4.348e-3).
 K8_REL_TOL = 1.3e-2
+# K4/K6 against their plain versions, relative to max |grad| per output: the
+# grads round to bf16 on both sides and P and dS round to bf16 at the same
+# points, but a differently summed fp32 value can land one bf16 ulp apart.
+# The limits chip_smoke.py uses (3x its first readings on an H100); the gain
+# of each grad must be within 1e-3 of 1, as for K1.
+K4_REL_TOL = 4.5e-3
+K6_REL_TOL = 8.7e-3
+# K1/K5 lse per head dim, the limits chip_smoke.py uses (its comment gives
+# the readings): fp32 sums in another order, and for K5 the bf16 rounding of
+# the transformed q/k, one ulp apart where the kernel's and PyTorch's fp32
+# statistics differ. Each is 3x the worst reading at its head dim over six
+# seeds per shape (python -m lam_slide_tpu_torch.tools.lse_readings).
+LSE_ATOL = {"K1": {24: 6e-6, 64: 9e-6, 128: 2.3e-5},
+            "K5": {24: 2e-2, 64: 2.3e-5, 128: 2.6e-2}}
+# A depth-2 DiT's parameter grads, kernel path vs plain path (bf16): worst
+# per-tensor relative error (norm of the difference over the norm); the
+# limit chip_smoke.py holds the full-width DiT to at B=2.
+DIT_GRAD_REL_TOL = 1.6e-2
 
 
 @pytest.fixture
@@ -189,6 +207,85 @@ def test_spatial_block_matches_plain(dev, n, l, d, m, heads):
     assert err <= K8_REL_TOL * want.float().abs().max().item()
 
 
+def _heads_views(g, dev, b, h, nq, nk, dh, scale=1.0):
+    """q, k, v as head-major strided views of packed buffers, and a
+    head-major output gradient."""
+    qbuf = (torch.randn(b, nq, h * dh, generator=g) * scale).to(dev, torch.bfloat16)
+    kvbuf = (torch.randn(b, nk, 2 * h * dh, generator=g) * scale).to(dev, torch.bfloat16)
+    q = qbuf.view(b, nq, h, dh).transpose(1, 2)
+    k, v = (t.transpose(1, 2) for t in kvbuf.view(b, nk, 2, h, dh).unbind(2))
+    grad = torch.randn(b, h, nq, dh, generator=g).to(dev, torch.bfloat16)
+    return q, k, v, grad
+
+
+def _assert_grads_close(got, want, tol):
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        a, w = a.double(), w.double()
+        assert (a - w).abs().max().item() <= tol * w.abs().max().item()
+        assert abs((a * w).mean().item() / (w * w).mean().item() - 1) <= K1_GAIN_TOL
+
+
+SHAPES_BWD = [
+    (2, 16, 1000, 1000, 24),  # the 4AA temporal axis, 16 x 24
+    (3, 3, 130, 257, 64),     # ragged query and key tiles
+    (2, 3, 300, 300, 128),    # 3 x 128
+]
+
+
+@pytest.mark.parametrize("b,h,nq,nk,dh", SHAPES_BWD)
+def test_flash_lse_matches_plain(dev, b, h, nq, nk, dh):
+    """K1's and K5's lse outputs, and that asking for lse leaves out unchanged."""
+    g = _gen(10)
+    q, k, v, _ = _heads_views(g, dev, b, h, nq, nk, dh)
+    out, lse = fa._forward(q, k, v, 0.3, with_lse=True)
+    want_out, want_lse = fa.reference_attention(q, k, v, 0.3, return_lse=True)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, h, nq) and lse.dtype == torch.float32
+    assert torch.equal(out, fa._forward(q, k, v, 0.3, with_lse=False)[0])
+    err = (lse - want_lse).abs().max().item()
+    assert err <= LSE_ATOL["K1"][dh], f"K1 lse err {err}"
+    if dh % 2 == 0:
+        qs, ks = ((1 + 0.2 * torch.randn(dh, generator=g)).to(dev) for _ in range(2))
+        cos, sin = rope_cos_sin(max(nq, nk), dh, device=dev)
+        _, lse5 = fnr._forward(q, k, v, qs, ks, cos, sin, 0.3, with_lse=True)
+        _, want5 = fa.reference_attention(*fnr.pre_transform(q, k, qs, ks, cos, sin), v, 0.3,
+                                          return_lse=True)
+        err = (lse5 - want5).abs().max().item()
+        assert err <= LSE_ATOL["K5"][dh], f"K5 lse err {err}"
+
+
+@pytest.mark.parametrize("b,h,nq,nk,dh", SHAPES_BWD)
+def test_flash_backward_matches_plain(dev, b, h, nq, nk, dh):
+    """K4 on strided views, from K1's out and lse; grads in packed memory."""
+    q, k, v, grad = _heads_views(_gen(11), dev, b, h, nq, nk, dh)
+    out, lse = fa._forward(q, k, v, dh ** -0.5, with_lse=True)
+    before = (fa.bwd_kv_launches, fa.bwd_q_launches)
+    got = fa.flash_attention_backward(q, k, v, out, lse, grad, dh ** -0.5)
+    assert (fa.bwd_kv_launches, fa.bwd_q_launches) == (before[0] + 1, before[1] + 1)
+    want = fa.reference_flash_backward(q, k, v, out, lse, grad, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert all(t.transpose(1, 2).is_contiguous() for t in got)
+    _assert_grads_close(got, want, K4_REL_TOL)
+
+
+@pytest.mark.parametrize("b,h,nq,nk,dh", SHAPES_BWD)
+def test_flash_normrope_backward_matches_plain(dev, b, h, nq, nk, dh):
+    """K6: grads with respect to the transformed q/k, and dv."""
+    g = _gen(12)
+    q, k, v, grad = _heads_views(g, dev, b, h, nq, nk, dh, scale=2.0)
+    qs, ks = ((1 + 0.2 * torch.randn(dh, generator=g)).to(dev) for _ in range(2))
+    cos, sin = rope_cos_sin(max(nq, nk), dh, device=dev)
+    out, lse = fnr._forward(q, k, v, qs, ks, cos, sin, dh ** -0.5, with_lse=True)
+    before = (fnr.bwd_kv_launches, fnr.bwd_q_launches)
+    args = (q, k, v, qs, ks, cos, sin, out, lse, grad, dh ** -0.5)
+    got = fnr.flash_attention_normrope_backward(*args)
+    assert (fnr.bwd_kv_launches, fnr.bwd_q_launches) == (before[0] + 1, before[1] + 1)
+    want = fnr.reference_normrope_backward(*args)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, K6_REL_TOL)
+
+
 def test_flash_refuses_what_it_cannot_take(dev):
     q = torch.zeros(1, 2, 128, 24, device=dev)
     with pytest.raises(ValueError):
@@ -254,3 +351,34 @@ def test_dit_kernel_path_matches_plain_path(dev, hidden, heads, expected):
     # two layers of bf16 activations rounded in another order; the same limit
     # as the full-width forward in chip_smoke.py (3x its measured 3.185e-3)
     assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("hidden,heads,attn", [(64, 4, fa), (256, 2, fnr)])
+def test_dit_kernel_path_grads_match_plain_path(dev, hidden, heads, attn):
+    """A small bf16 DiT (depth 2, T=200) under autograd: every parameter gets
+    a finite, non-zero grad through the kernels (K4 at dh 16, K6 at dh 128,
+    two launches of each of their kernels per backward), close to the plain
+    path's."""
+    model = LatentDiT(depth=2, in_dim=8, hidden_size=hidden, num_heads=heads,
+                      reference_init=False, dtype=torch.bfloat16, device=dev,
+                      generator=_gen(13))
+    g = _gen(14)
+    x = torch.randn(2, 200, 2, 8, generator=g).to(dev)
+    t = torch.tensor([0.3, 0.7], device=dev)
+    mask = torch.zeros(2, 200, 2, dtype=torch.long, device=dev)
+    mask[:, :1] = 1
+    x_cond = x * mask[..., None]  # the conditioning frame, so cond_to_emb gets a grad
+    grads = {}
+    for backend in ("auto", "plain"):
+        model.backend = backend
+        model.zero_grad(set_to_none=True)
+        before = (attn.bwd_kv_launches, attn.bwd_q_launches)
+        model(x, t, x_cond, mask).square().mean().backward()
+        launched = (attn.bwd_kv_launches - before[0], attn.bwd_q_launches - before[1])
+        assert launched == ((2, 2) if backend == "auto" else (0, 0))
+        grads[backend] = {n: p.grad for n, p in model.named_parameters()}
+    for name, got in grads["auto"].items():
+        want = grads["plain"][name]
+        assert got is not None and bool(torch.isfinite(got).all()), name
+        assert got.abs().max().item() > 0, name
+        assert (got - want).norm().item() <= DIT_GRAD_REL_TOL * want.norm().item(), name

@@ -3,7 +3,9 @@
 * The port and ``chip_smoke.py`` import neither JAX, flax nor the JAX package,
   and only ``chip_smoke.library_times`` calls PyTorch's own attention.
 * Kernel wrappers take their plain versions only on CPU tensors (counters
-  untouched); on any other device they launch or raise, with no fallback.
+  untouched); on any other device they launch or raise, with no fallback,
+  and inputs that need a gradient go through a ``torch.autograd.Function``
+  (the kernels write through raw pointers, which autograd cannot see).
 * A failed kernel build raises.
 * The DiT is built on the card unless the CPU is asked for, and the ODE
   sampler defaults to dopri5, as the JAX package's does.
@@ -68,6 +70,19 @@ def test_no_sdpa_in_port():
 
 
 WRAPPER_MODULES = [fa, fnr, fad, fm, fsb]
+COUNTERS = ("launches", "bwd_kv_launches", "bwd_q_launches")
+
+
+def _zero_counters(monkeypatch):
+    for mod in WRAPPER_MODULES:
+        for name in COUNTERS:
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, 0)
+
+
+def _counts():
+    return [getattr(mod, name) for mod in WRAPPER_MODULES for name in COUNTERS
+            if hasattr(mod, name)]
 
 
 @pytest.mark.parametrize("module", WRAPPER_MODULES, ids=lambda m: m.__name__.split(".")[-1])
@@ -92,6 +107,17 @@ def _normrope_inputs(device):
     q, k, v = _attn_inputs(device)
     cos, sin = rope_cos_sin(130, 24, device=device)
     return q, k, v, torch.ones(24, device=device), torch.ones(24, device=device), cos, sin
+
+
+def _backward_inputs(device):
+    q, k, v = _attn_inputs(device)
+    lse = torch.zeros(1, 2, 130, device=device)
+    return q, k, v, torch.zeros_like(q), lse, torch.zeros_like(q), 0.2
+
+
+def _normrope_backward_inputs(device):
+    q, k, v, out, lse, g, scale = _backward_inputs(device)
+    return (q, k, v, *_normrope_inputs(device)[3:], out, lse, g, scale)
 
 
 def _adaln_inputs(device):
@@ -122,28 +148,34 @@ WRAPPERS = [
      "reference_adaln_modulate", _adaln_inputs),
     ("K8", fsb.fused_spatial_block, fsb, "reference_spatial_block", _spatial_inputs),
 ]
+BACKWARD_WRAPPERS = [
+    ("K4", fa.flash_attention_backward, fa, "reference_flash_backward", _backward_inputs),
+    ("K6", fnr.flash_attention_normrope_backward, fnr, "reference_normrope_backward",
+     _normrope_backward_inputs),
+]
+ALL_WRAPPERS = WRAPPERS + BACKWARD_WRAPPERS
 
 
-@pytest.mark.parametrize("name,wrapper,module,plain,inputs", WRAPPERS, ids=[w[0] for w in WRAPPERS])
+@pytest.mark.parametrize("name,wrapper,module,plain,inputs", ALL_WRAPPERS,
+                         ids=[w[0] for w in ALL_WRAPPERS])
 def test_cpu_tensors_take_plain_versions_without_counting(monkeypatch, name, wrapper, module,
                                                           plain, inputs):
-    for mod in WRAPPER_MODULES:
-        monkeypatch.setattr(mod, "launches", 0)
+    _zero_counters(monkeypatch)
     calls = []
     real = getattr(module, plain)
     monkeypatch.setattr(module, plain, lambda *a, **k: calls.append(1) or real(*a, **k))
     wrapper(*inputs("cpu"))
     assert calls, f"{name}: the CPU call did not take {plain}"
-    assert all(mod.launches == 0 for mod in WRAPPER_MODULES)
+    assert not any(_counts())
 
 
-@pytest.mark.parametrize("name,wrapper,module,plain,inputs", WRAPPERS, ids=[w[0] for w in WRAPPERS])
+@pytest.mark.parametrize("name,wrapper,module,plain,inputs", ALL_WRAPPERS,
+                         ids=[w[0] for w in ALL_WRAPPERS])
 def test_non_cpu_tensors_raise_instead_of_falling_back(monkeypatch, name, wrapper, module,
                                                        plain, inputs):
     """A tensor that is not on the CPU never reaches a plain version: here
     (meta tensors, no card) the wrappers raise and count nothing."""
-    for mod in WRAPPER_MODULES:
-        monkeypatch.setattr(mod, "launches", 0)
+    _zero_counters(monkeypatch)
 
     def no_plain(*a, **k):
         raise AssertionError("plain version reached for a non-CPU tensor")
@@ -151,7 +183,40 @@ def test_non_cpu_tensors_raise_instead_of_falling_back(monkeypatch, name, wrappe
     monkeypatch.setattr(module, plain, no_plain)
     with pytest.raises(ValueError):
         wrapper(*inputs("meta"))
-    assert all(mod.launches == 0 for mod in WRAPPER_MODULES)
+    assert not any(_counts())
+
+
+class _ReachedFunction(Exception):
+    pass
+
+
+@pytest.mark.parametrize("grad", [True, False], ids=["needs_grad", "no_grad"])
+@pytest.mark.parametrize("name,wrapper,module,plain,inputs", WRAPPERS, ids=[w[0] for w in WRAPPERS])
+def test_non_cpu_tensors_that_need_a_grad_reach_an_autograd_function(
+        monkeypatch, name, wrapper, module, plain, inputs, grad):
+    """Fault repaired: every CUDA wrapper wrote its output through ctypes into
+    a fresh tensor with no ``grad_fn``, so a DiT on the card under autograd
+    trained silently wrong (no grad reached linear1's q/k/v columns, the
+    QK-norm scales, the MLP weights, the spatial blocks or the residual
+    stream through the kernels). Now a non-CPU input that needs a gradient
+    reaches a ``torch.autograd.Function`` of the wrapper's module; without a
+    gradient (the sampler, under no_grad) the wrapper launches directly."""
+    reached = []
+
+    def apply(cls, *args, **kwargs):
+        reached.append(cls)
+        raise _ReachedFunction
+
+    monkeypatch.setattr(torch.autograd.Function, "apply", classmethod(apply))
+    args = [t.requires_grad_() if isinstance(t, torch.Tensor) and t.is_floating_point() else t
+            for t in inputs("meta")]
+    with torch.set_grad_enabled(grad), pytest.raises(_ReachedFunction if grad else ValueError):
+        wrapper(*args)
+    if grad:
+        (cls,) = reached
+        assert issubclass(cls, torch.autograd.Function) and cls.__module__ == module.__name__
+    else:
+        assert not reached
 
 
 def test_dit_is_built_on_the_card_unless_the_cpu_is_asked_for():
@@ -181,6 +246,19 @@ def test_sample_ode_defaults_to_dopri5():
     assert not torch.allclose(default, sampler.sample_ode(sampling_method="euler")(x0, model))
 
 
+@pytest.mark.parametrize("method", ["dopri5", "euler", "heun"])
+def test_sampling_records_no_autograd_graph(method):
+    """A solve outside ``torch.no_grad()`` builds no graph through a model
+    whose parameters need grads: the eval protocol never differentiates a
+    solve, so on the card the kernels launch without their autograd
+    Functions (no lse, no saved inputs per drift evaluation)."""
+    w = torch.nn.Parameter(torch.tensor(0.5))
+    sampler = Sampler(create_transport(path_type="GVP", prediction="data"))
+    x0 = torch.randn(2, 3, generator=torch.Generator().manual_seed(0))
+    out = sampler.sample_ode(sampling_method=method, num_steps=5)(x0, lambda x, t: w * x)
+    assert out.grad_fn is None and not out.requires_grad
+
+
 def test_masks_are_refused():
     q, k, v = _attn_inputs("cpu")
     with pytest.raises(NotImplementedError):
@@ -200,8 +278,8 @@ def test_failed_build_raises(monkeypatch, tmp_path):
 
 def test_build_key_covers_every_source():
     names = {p.name for p in _build.sources()}
-    assert {"flash_attention.cu", "fused_mlp.cu", "fused_adaln.cu", "fused_spatial_block.cu",
-            "common.cu", "common.cuh"} <= names
+    assert {"flash_attention.cu", "flash_attention_bwd.cu", "flash_tiles.cuh", "fused_mlp.cu",
+            "fused_adaln.cu", "fused_spatial_block.cu", "common.cu", "common.cuh"} <= names
     assert _build.source_hash() == _build.source_hash()
 
 
