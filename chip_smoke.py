@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
-The main paths are the 4AA stage-2 sampler and the 4AA stage-2 train step
-on the full-width ``LatentDiT`` (depth 7, hidden 384, mlp_ratio 2, T=1000
-frames, L=2 latents, in_dim 96, bf16) with random weights drawn from a
-seed, at both head splits (16 heads x dh 24 and 3 heads x dh 128). The
-sampler is the GVP data-prediction probability-flow ODE with both samplers
-(Euler, num_steps=10, and the eval protocol's dopri5 at atol 1e-6 / rtol
-1e-3); the train step is the SI loss at the registry's B=16 with AdamW (lr
+The main paths are the 4AA stage-2 sampler, the 4AA stage-2 train step and
+the MD17 sampling protocol. The 4AA paths run the full-width ``LatentDiT``
+(depth 7, hidden 384, mlp_ratio 2, T=1000 frames, L=2 latents, in_dim 96,
+bf16) with random weights drawn from a seed, at both head splits (16
+heads x dh 24 and 3 heads x dh 128). The sampler is the GVP
+data-prediction probability-flow ODE with both samplers (Euler,
+num_steps=10, and the eval protocol's dopri5 at atol 1e-6 / rtol 1e-3);
+the train step is the SI loss at the registry's B=16 with AdamW (lr
 1e-3, weight decay 0.01), global-norm clip 0.5 and EMA 0.999. Phases, each
 printed on its own line with its seconds:
 
@@ -39,7 +40,21 @@ printed on its own line with its seconds:
    the SI loss falls and the EMA moves;
 8. train timing: train-step time (median of 5 after warm-up), samples/s and
    peak memory at B=16 of the kernel path and the plain path (at 16 x 24
-   also with per-layer checkpointing), and one profiled step per split.
+   also with per-layer checkpointing), and one profiled step per split;
+9. md17: the MD17 K-repeat protocol (``evaluate_md17``, K=5, Euler-10, at
+   the loaders' B=64) on both stages at the registry's full widths: the fp32
+   stage 1 (MD17FirstStageConfig(): 192 latents of 32, cross-attention 8 x
+   dh 16 over 50 padded atoms, latent attention 2 x dh 16) and the bf16
+   class-conditional DiT (depth 4, hidden 256, 16 x dh 16, T=30, L=192),
+   random weights from the seed and a batch of molecules of 9-21 atoms made
+   from it. It checks the launches of K1 (bias, fp32, bf16), K2, K3, K7 and
+   K9 per protocol batch, finite ADE/FDE, and the decoded positions of the
+   kernel path against the plain path on the same weights and noise; times
+   one protocol batch on both paths and profiles it. Its kernels are
+   checked against their plain versions in phase 3 at the protocol's
+   shapes: K1 with the key-padding bias and with fp32 operands and K9
+   forward and backward (also at ragged shapes), and K3, K2 and K7 at the
+   DiT's 1.84 M tokens.
 
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -69,6 +84,7 @@ DOPRI5_MAX_STEPS = 1000  # ode_dopri5's bound on attempted steps
 # take is the larger of its tensor-core FLOPs over the bf16 rate and its
 # bytes (each input read once, each output written once) over HBM's rate.
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
 
 # K1 against its plain version: both round the output to bf16, and P is
@@ -109,6 +125,7 @@ MODEL_REL_TOL = 1e-2
 # measured 7.078e-3 on an H100, the limit is 3x that.
 MODEL_FP32_REL_TOL = 2e-2
 PROFILE_TOP = 12  # kernels listed per profiled solve
+QUEUE_FULL = "Command Buffer Full"  # a profiler event of the host, not a kernel
 # K4/K6 against their plain backwards, per grad, relative to its max |grad|:
 # both round the grads to bf16 and P and dS to bf16 at the same points, but
 # a differently summed fp32 value can land one bf16 ulp apart. First
@@ -148,6 +165,29 @@ TIMED_STEPS = 5
 # readings on an H100, worst of the two splits: against the plain bf16 path
 # 2.572e-5 and 5.259e-3, against a float32 plain copy 1.008e-3 and
 # 1.506e-2. Each limit is 3x that.
+# MD17 protocol (experiments/registry.py:251-286): K=5 repeats, Euler-10,
+# B=64 trajectories of T=30 frames, molecules padded to 50 atoms.
+MD17_BATCH, MD17_K, MD17_T, MD17_ATOMS = 64, 5, 30, 50
+MD17_DRIFT_EVALS = DRIFT_EVALS
+MD17_DEPTH = 4
+# K1 with fp32 operands against its plain version, relative to max |out|:
+# both are exact fp32 up to the order of the sums and the kernel's online
+# rescale, a few fp32 ulps (~80 ulps allowed; first readings on an H100 at
+# the protocol shapes: 5.013e-7 with the bias, 9.065e-7 without).
+K1_F32_REL_TOL = 1e-5
+# K9 forward: K1's pair of limits (bf16 weights rounded at the same point
+# as the plain version, sums in another order). K9 backward per grad,
+# relative to max |grad|: P and dS round to bf16 at the same points, but a
+# weight summed in another order (the plain softmax's) can land one bf16
+# ulp apart and move dV by that ulp times |dO|. First reading on an H100 at
+# the protocol shape: 2.857e-3 (dv); the limit is 3x that. The gain of each
+# grad must be within K1_GAIN_TOL of 1.
+K9_GRAD_REL_TOL = 8.6e-3
+# Decoded positions of the MD17 protocol batch, kernel path vs plain path on
+# the same weights and noise, relative to max |pos|: nine Euler steps of a
+# bf16 DiT whose roundings differ in order, then the fp32 decoder. First
+# reading on an H100: 4.875e-4; the limit is 3x that.
+MD17_POS_REL_TOL = 1.5e-3
 GRAD_NORM_REL_TOL = {"bf16": 8e-5, "fp32": 3e-3}
 GRAD_TENSOR_REL_TOL = {"bf16": 1.6e-2, "fp32": 4.5e-2}
 
@@ -178,14 +218,17 @@ def time_ms(fn, reps: int = 20) -> float:
 
 
 def library_times(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                  grad=None) -> float:
+                  grad=None, mask=None) -> float:
     """Time of PyTorch's own attention on K1's head-major inputs: the
     library yardstick of the kernel table, used nowhere in the port. With
-    ``grad``, the time of its backward: forward + backward less forward."""
+    ``grad``, the time of its backward: forward + backward less forward;
+    with a ``[B, Nk]`` key-padding ``mask``, its boolean ``attn_mask``."""
     from torch.nn.functional import scaled_dot_product_attention
 
     if grad is None:
-        return time_ms(lambda: scaled_dot_product_attention(q, k, v, scale=scale))
+        attn_mask = None if mask is None else mask[:, None, None, :]
+        return time_ms(lambda: scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
+                                                            scale=scale))
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
 
     def fwd_bwd():
@@ -197,9 +240,10 @@ def library_times(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     return both - fwd
 
 
-def bound(flops: float, nbytes: float):
-    """(least ms, what bounds it) for FLOPs on the tensor cores and HBM bytes."""
-    ops_ms, bytes_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    """(least ms, what bounds it) for FLOPs at ``peak`` (the tensor cores' bf16
+    rate unless given) and HBM bytes."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -236,13 +280,15 @@ def _rand(gen, *shape, scale=1.0):
 
 
 class KernelTable:
-    """One row per kernel of the JSON summary, from the B=8 shapes."""
+    """One row per kernel of the JSON summary, from the B=8 shapes; rows
+    under other keys (a kernel at another path's shapes) are printed only."""
 
     def __init__(self):
         self.rows = {}
 
-    def add(self, key, shape, err, limit, ms, plain_ms, flops, nbytes, lib_ms=None):
-        bound_ms, bound_by = bound(flops, nbytes)
+    def add(self, key, shape, err, limit, ms, plain_ms, flops, nbytes, lib_ms=None,
+            peak=PEAK_BF16_FLOPS):
+        bound_ms, bound_by = bound(flops, nbytes, peak)
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"kernel {key} {shape}: max_abs_err {err:.3e} ({limit}) kernel {ms:.4f} ms "
               f"plain {plain_ms:.4f} ms library {lib} bound {bound_ms:.4f} ms ({bound_by}, "
@@ -251,12 +297,67 @@ class KernelTable:
                               bound_by=bound_by, library_ms=lib_ms)
 
 
+def k2_check(dev, gen, table: KernelTable, key: str, rows: int, d: int, m: int,
+             plain_reps: int = 20) -> None:
+    """K2 on x [rows, d] and the MLP slices of linear1's and linear2's
+    nn.Linear weights, against its plain version."""
+    from lam_slide_tpu_torch.ops import fused_mlp as fm
+
+    bf = torch.bfloat16
+    x = _rand(gen, rows, d).to(dev, bf)
+    w1_full = _rand(gen, 3 * d + m, d, scale=0.05).to(dev, bf)
+    w2_full = _rand(gen, d, d + m, scale=0.05).to(dev, bf)
+    b1 = _rand(gen, m, scale=0.1).to(dev, bf)
+    args = (x, w1_full[3 * d:].t(), b1, w2_full[:, d:].t())
+    got, want = fm.fused_mlp(*args), fm.reference_mlp(*args)
+    torch.cuda.synchronize()
+    check(got.shape == (rows, d) and got.dtype == torch.float32, f"{key} shape/dtype")
+    abs_err, _ = errors(got, want)
+    del got, want
+    table.add(key, f"x [{rows},{d}] w1 [{d},{m}] w2 [{m},{d}]", abs_err,
+              f"atol {K2_ATOL}", time_ms(lambda: fm.fused_mlp(*args)),
+              time_ms(lambda: fm.reference_mlp(*args), reps=plain_reps),
+              4 * rows * d * m, rows * d * (2 + 4) + 2 * d * m * 2 + m * 2)
+    check(abs_err <= K2_ATOL, f"{key} max abs err {abs_err} > {K2_ATOL}")
+
+
+def k7_check(dev, gen, table: KernelTable, key: str, batch: int, t: int, l: int, d: int,
+             plain_reps: int = 20) -> None:
+    """K7 on the DiT's [B, T, L, D] stream against its plain version: h the
+    transposed temporal output, gate/shift/scale chunks of one [B, 1, 1, 6D]
+    modulation; also the modulation without the residual."""
+    from lam_slide_tpu_torch.ops import fused_adaln as fad
+
+    bf = torch.bfloat16
+    x7 = _rand(gen, batch, t, l, d, scale=3.0).to(dev, bf)
+    h7 = _rand(gen, batch, l, t, d).to(dev, bf).transpose(1, 2)
+    shift, scale, gate = _rand(gen, batch, 1, 1, 6 * d, scale=0.5).to(dev, bf).chunk(6, -1)[:3]
+    args7 = (x7, h7, gate, shift, scale)
+    (x_new, y), (want_x, want_y) = (fad.residual_adaln_modulate(*args7),
+                                    fad.reference_residual_adaln_modulate(*args7))
+    torch.cuda.synchronize()
+    check(torch.equal(x_new, want_x), f"{key} x_new is not bit-identical to the plain version")
+    abs_err, _ = errors(y, want_y)
+    atol = K7_ULPS * bf16_ulp(want_y.float().abs().max().item())
+    del x_new, y, want_x, want_y
+    y0, want_y0 = fad.adaln_modulate(x7, shift, scale), fad.reference_adaln_modulate(
+        x7, shift, scale)
+    err0, _ = errors(y0, want_y0)
+    atol0 = K7_ULPS * bf16_ulp(want_y0.float().abs().max().item())
+    del y0, want_y0
+    table.add(key, f"x/h [{batch},{t},{l},{d}] (x_new bit-identical; y without residual "
+              f"{err0:.3e})", abs_err, f"atol {atol:.3e} = {K7_ULPS} bf16 ulp at max |y|",
+              time_ms(lambda: fad.residual_adaln_modulate(*args7)),
+              time_ms(lambda: fad.reference_residual_adaln_modulate(*args7), reps=plain_reps),
+              0, 4 * batch * t * l * d * 2 + 3 * batch * d * 2)
+    check(abs_err <= atol, f"{key} y max abs err {abs_err} > {atol}")
+    check(err0 <= atol0, f"{key} (no residual) y max abs err {err0} > {atol0}")
+
+
 def kernel_checks(dev, gen, table: KernelTable) -> None:
     from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
     from lam_slide_tpu_torch.ops import flash_attention as fa
     from lam_slide_tpu_torch.ops import flash_normrope as fnr
-    from lam_slide_tpu_torch.ops import fused_adaln as fad
-    from lam_slide_tpu_torch.ops import fused_mlp as fm
     from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
     from lam_slide_tpu_torch.ops.packed_attention import headmajor_rmsnorm, headmajor_rope
 
@@ -320,45 +421,8 @@ def kernel_checks(dev, gen, table: KernelTable) -> None:
         print(f"kernel K5 without its transform (K1 at the same shape): "
               f"{time_ms(lambda: fa.flash_attention(qt, kt, v5)):.4f} ms")
 
-        # K2 on the MLP slices of nn.Linear weights
-        x = _rand(gen, rows, d).to(dev, bf)
-        w1_full = _rand(gen, 3 * d + m, d, scale=0.05).to(dev, bf)
-        w2_full = _rand(gen, d, d + m, scale=0.05).to(dev, bf)
-        b1 = _rand(gen, m, scale=0.1).to(dev, bf)
-        w1, w2 = w1_full[3 * d:].t(), w2_full[:, d:].t()
-        got, want = fm.fused_mlp(x, w1, b1, w2), fm.reference_mlp(x, w1, b1, w2)
-        torch.cuda.synchronize()
-        check(got.shape == (rows, d) and got.dtype == torch.float32, "K2 shape/dtype")
-        abs_err, _ = errors(got, want)
-        table.add("K2", f"x [{rows},{d}] w1 [{d},{m}] w2 [{m},{d}]", abs_err,
-                  f"atol {K2_ATOL}", time_ms(lambda: fm.fused_mlp(x, w1, b1, w2)),
-                  time_ms(lambda: fm.reference_mlp(x, w1, b1, w2)),
-                  4 * rows * d * m, rows * d * (2 + 4) + 2 * d * m * 2 + m * 2)
-        check(abs_err <= K2_ATOL, f"K2 max abs err {abs_err} > {K2_ATOL}")
-
-        # K7 on the DiT's [B, T, L, D] stream: h the transposed temporal
-        # output, gate/shift/scale chunks of one [B, 1, 1, 6D] modulation
-        x7 = _rand(gen, batch, T, L, d, scale=3.0).to(dev, bf)
-        h7 = _rand(gen, batch, L, T, d).to(dev, bf).transpose(1, 2)
-        shift, scale, gate = _rand(gen, batch, 1, 1, 6 * d, scale=0.5).to(dev, bf).chunk(6, -1)[:3]
-        args7 = (x7, h7, gate, shift, scale)
-        (x_new, y), (want_x, want_y) = (fad.residual_adaln_modulate(*args7),
-                                        fad.reference_residual_adaln_modulate(*args7))
-        y0, want_y0 = fad.adaln_modulate(x7, shift, scale), fad.reference_adaln_modulate(
-            x7, shift, scale)
-        torch.cuda.synchronize()
-        check(torch.equal(x_new, want_x), "K7 x_new is not bit-identical to the plain version")
-        abs_err, _ = errors(y, want_y)
-        atol = K7_ULPS * bf16_ulp(want_y.float().abs().max().item())
-        err0, _ = errors(y0, want_y0)
-        table.add("K7", f"x/h [{batch},{T},{L},{d}] (x_new bit-identical; y without residual "
-                  f"{err0:.3e})", abs_err, f"atol {atol:.3e} = {K7_ULPS} bf16 ulp at max |y|",
-                  time_ms(lambda: fad.residual_adaln_modulate(*args7)),
-                  time_ms(lambda: fad.reference_residual_adaln_modulate(*args7)),
-                  0, 4 * rows * d * 2 + 3 * batch * d * 2)
-        check(abs_err <= atol, f"K7 y max abs err {abs_err} > {atol}")
-        check(err0 <= K7_ULPS * bf16_ulp(want_y0.float().abs().max().item()),
-              f"K7 (no residual) y max abs err {err0}")
+        k2_check(dev, gen, table, "K2", rows, d, m)
+        k7_check(dev, gen, table, "K7", batch, T, L, d)
 
         # K8 on [B*T, L, D] frames at both head splits
         frames = batch * T
@@ -454,6 +518,315 @@ def backward_checks(dev, gen, table: KernelTable) -> None:
         del got, want
 
 
+def _key_mask(gen, b: int, nk: int, dev, lo: int = 1):
+    """A ragged [B, Nk] key-padding mask (lengths lo..Nk); row 0 fully masked."""
+    lengths = torch.randint(lo, nk + 1, (b,), generator=gen)
+    mask = torch.arange(nk)[None, :] < lengths[:, None]
+    mask[0] = False
+    return mask.to(dev)
+
+
+def _check_f32(got, want, name):
+    err, rel = errors(got, want)
+    check(got.dtype == torch.float32 and got.shape == want.shape, f"{name} shape/dtype")
+    check(rel <= K1_F32_REL_TOL, f"{name} rel err {rel} > {K1_F32_REL_TOL}")
+    return err, rel
+
+
+def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
+    """K1 with the key-padding bias and with fp32 operands, and K9 forward
+    and backward, against their plain versions at the MD17 protocol's shapes
+    (stage 1 on B*T = 1920 frames to encode and K*B*T = 9600 to decode; the
+    DiT's temporal axis at K*B*L = 61440 sequences of 30 frames) and at
+    ragged shapes; the table rows for K1-bias, K1-fp32 and K9."""
+    from lam_slide_tpu_torch.ops import flash_attention as fa
+    from lam_slide_tpu_torch.ops import short_attention as tsa
+
+    bf, f32 = torch.bfloat16, torch.float32
+    frames = MD17_BATCH * MD17_T
+    dh = 16
+
+    # K1-bias: the encoder's cross-attention, 192 latent queries over 50
+    # padded atoms, 8 heads, fp32; molecules of 9..21 atoms
+    q = _rand(gen, frames, 192, 8 * dh).to(dev).unflatten(-1, (8, dh)).transpose(1, 2)
+    kv = _rand(gen, frames, MD17_ATOMS, 16 * dh).to(dev).unflatten(-1, (2, 8, dh))
+    k, v = (t.transpose(1, 2) for t in kv.unbind(2))
+    mask = _key_mask(gen, frames, MD17_ATOMS, dev, lo=9)
+    mask[1:] &= torch.arange(MD17_ATOMS, device=dev)[None, :] < 22
+    args = (q, k, v)
+    got, want = fa.flash_attention(*args, mask=mask), fa.reference_attention(*args, mask=mask)
+    torch.cuda.synchronize()
+    err, rel = _check_f32(got, want, "K1-bias fp32")
+    nbytes = (2 * q.numel() + 2 * k.numel()) * 4 + mask.numel() * 4
+    table.add("K1 bias", f"fp32 q [{frames},8,192,{dh}] k/v [{frames},8,{MD17_ATOMS},{dh}], "
+              f"mask [{frames},{MD17_ATOMS}] (rel {rel:.3e})", err, f"rel tol {K1_F32_REL_TOL}",
+              time_ms(lambda: fa.flash_attention(*args, mask=mask)),
+              time_ms(lambda: fa.reference_attention(*args, mask=mask)),
+              4 * q.numel() * MD17_ATOMS, nbytes,
+              library_times(*args, dh ** -0.5, mask=mask), peak=PEAK_FP32_FLOPS)
+
+    # K1-fp32: the latent self-attention, 2 heads over 192 latents, at the
+    # decode batch (the encoder's is 5x smaller)
+    n_dec = MD17_K * frames
+    qkv = _rand(gen, n_dec, 192, 3 * 2 * dh).to(dev).unflatten(-1, (3, 2, dh))
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    got, want = fa.flash_attention(q, k, v), fa.reference_attention(q, k, v)
+    torch.cuda.synchronize()
+    err, rel = _check_f32(got, want, "K1-fp32")
+    table.add("K1 fp32", f"fp32 q/k/v [{n_dec},2,192,{dh}] strided views (rel {rel:.3e})", err,
+              f"rel tol {K1_F32_REL_TOL}", time_ms(lambda: fa.flash_attention(q, k, v)),
+              time_ms(lambda: fa.reference_attention(q, k, v), reps=5),
+              4 * q.numel() * 192, 4 * q.numel() * 4, library_times(q, k, v, dh ** -0.5),
+              peak=PEAK_FP32_FLOPS)
+    del qkv, q, k, v, got, want
+
+    # K1-bias ragged: keys not a multiple of either kernel's key tile, an
+    # all-masked row (uniform weights over its keys), bf16 and fp32
+    for dtype in (bf, f32):
+        q = _rand(gen, 3, 3, 130, 24).to(dev, dtype)
+        k, v = (_rand(gen, 3, 3, 257, 24).to(dev, dtype) for _ in range(2))
+        mask = _key_mask(gen, 3, 257, dev)
+        got, want = fa.flash_attention(q, k, v, mask=mask), fa.reference_attention(q, k, v,
+                                                                                  mask=mask)
+        torch.cuda.synchronize()
+        uniform = v[0].float().mean(dim=1, keepdim=True).expand_as(got[0])
+        if dtype == bf:
+            abs_err, _, atol, k1_gain = k1_errors(got, want)
+            check_k1(abs_err, atol, k1_gain, "K1-bias bf16 ragged")
+            detail = f"max_abs_err {abs_err:.3e} (atol {atol:.3e}), gain {k1_gain:.7f}"
+        else:
+            abs_err, rel = _check_f32(got, want, "K1-bias fp32 ragged")
+            detail = f"max_abs_err {abs_err:.3e} rel {rel:.3e} (rel tol {K1_F32_REL_TOL})"
+        row_err = (got[0].float() - uniform).abs().max().item()
+        check(row_err <= 2 * bf16_ulp(uniform.abs().max().item()),
+              f"all-masked row is not the mean of v: {row_err}")
+        print(f"kernel K1-bias {str(dtype)[6:]} ragged [3,3,130,257,24]: {detail}; all-masked "
+              f"row vs the mean of v: {row_err:.3e}")
+
+    # K9 on the DiT's temporal axis: q/k contiguous [K*B*L, 30, 256], v a
+    # view of linear1's output, 16 heads of 16
+    seqs, d = MD17_K * MD17_BATCH * 192, 256
+    q, k = (_rand(gen, seqs, MD17_T, d).to(dev, bf) for _ in range(2))
+    v = _rand(gen, seqs, MD17_T, 3 * d).to(dev, bf)[..., 2 * d:]
+    args = (q, k, v, 16)
+    got, want = tsa.short_attention(*args), tsa.reference_short_attention(*args)
+    torch.cuda.synchronize()
+    check(got.shape == q.shape and got.dtype == bf, "K9 shape/dtype")
+    abs_err, _, atol, k1_gain = k1_errors(got, want)
+    check_k1(abs_err, atol, k1_gain, "K9")
+    heads = [t.unflatten(-1, (16, dh)).transpose(1, 2) for t in (q, k, v)]
+    table.add("K9", f"packed q/k/v [{seqs},{MD17_T},{d}] (v a strided view), 16 x {dh}, gain "
+              f"{k1_gain:.7f}", abs_err, f"atol {atol:.3e} = {K1_ULPS} bf16 ulps, gain tol "
+              f"{K1_GAIN_TOL}", time_ms(lambda: tsa.short_attention(*args)),
+              time_ms(lambda: tsa.reference_short_attention(*args), reps=5),
+              4 * seqs * MD17_T * MD17_T * d, 4 * seqs * MD17_T * d * 2,
+              library_times(*heads, dh ** -0.5))
+    del got, want
+
+    # K9 backward at the same shape, then ragged lengths and head dims
+    g = _rand(gen, seqs, MD17_T, d).to(dev, bf)
+    scale = dh ** -0.5
+    for b, n, h, hd, key in ((seqs, MD17_T, 16, dh, "K9 backward"), (7, 9, 3, 24, "ragged"),
+                             (5, 31, 2, 64, "ragged"), (3, 127, 4, 16, "ragged")):
+        if key == "ragged":
+            q, k, g = (_rand(gen, b, n, h * hd).to(dev, bf) for _ in range(3))
+            v = _rand(gen, b, n, 3 * h * hd).to(dev, bf)[..., -h * hd:]
+            got, want = tsa.short_attention(q, k, v, h), tsa.reference_short_attention(q, k, v, h)
+            abs_err, _, atol, k1_gain = k1_errors(got, want)
+            check_k1(abs_err, atol, k1_gain, f"K9 n={n}")
+            scale = hd ** -0.5
+        bargs = (q, k, v, g, h, scale)
+        got, want = tsa.short_attention_backward(*bargs), tsa.reference_short_backward(*bargs)
+        torch.cuda.synchronize()
+        errs = _grad_errors(got, want)
+        detail = ", ".join(f"{nm} rel {r:.3e} gain {gn:.7f}"
+                           for nm, (_, r, gn) in zip(("dq", "dk", "dv"), errs))
+        print(f"kernel {key} [{b},{n},{h}x{hd}]: {detail} (rel tol {K9_GRAD_REL_TOL}, gain tol "
+              f"{K1_GAIN_TOL})")
+        for nm, (_, rel, gn) in zip(("dq", "dk", "dv"), errs):
+            check(rel <= K9_GRAD_REL_TOL, f"K9 backward n={n} {nm} rel err {rel}")
+            check(abs(gn - 1) <= K1_GAIN_TOL, f"K9 backward n={n} {nm} gain {gn}")
+        if key == "K9 backward":
+            # five products (2.5x the forward's FLOPs); q/k/v/dO read and
+            # dq/dk/dv written once in bf16
+            ms = time_ms(lambda: tsa.short_attention_backward(*bargs), reps=10)
+            plain_ms = time_ms(lambda: tsa.reference_short_backward(*bargs), reps=3)
+            lib = library_times(*heads, scale, grad=g.unflatten(-1, (16, dh)).transpose(1, 2))
+            bound_ms, bound_by = bound(2.5 * 4 * seqs * n * n * d, 7 * seqs * n * d * 2)
+            print(f"kernel K9 backward [{seqs},{n},{d}]: kernel {ms:.4f} ms plain {plain_ms:.4f} "
+                  f"ms library {lib:.4f} ms (SDPA fwd+bwd - fwd) bound {bound_ms:.4f} ms "
+                  f"({bound_by})")
+        del got, want
+    torch.cuda.empty_cache()
+
+
+def md17_dit_kernel_checks(dev, gen, table: KernelTable) -> None:
+    """K3, K2 and K7 against their plain versions at the shapes the MD17
+    protocol's DiT gives them (K*B = 320 trajectories of T=30 frames of
+    L=192 latents, hidden 256, 16 heads of 16): K3 on the spatial axis,
+    9,600 sequences x 16 heads = 153,600 (batch, head) pairs, past
+    gridDim.y's 65,535, so this is the launch the flash kernels' linear grid
+    exists for; K2 and K7 over 1.84 M tokens. Printed rows only: the
+    ``kernels`` line keeps the 4AA shapes."""
+    from lam_slide_tpu_torch.ops import flash_attention as fa
+
+    bf, d, heads = torch.bfloat16, 256, 16
+    trajs = MD17_K * MD17_BATCH
+    seqs, tokens = trajs * MD17_T, trajs * MD17_T * 192
+    dh = d // heads
+
+    # K3: q/k contiguous (after the QK-norm and RoPE), v a view of linear1's
+    # output, as LatentDiT passes them
+    q, k = (_rand(gen, seqs, 192, d).to(dev, bf) for _ in range(2))
+    v = _rand(gen, seqs, 192, 3 * d).to(dev, bf)[..., 2 * d:]
+    args = (q, k, v, heads)
+    got, want = fa.flash_attention_packed(*args), fa.reference_attention_packed(*args)
+    torch.cuda.synchronize()
+    check(got.shape == q.shape and got.dtype == bf, "K3 MD17 shape/dtype")
+    abs_err, _, atol, k1_gain = k1_errors(got, want)
+    del got, want
+    torch.cuda.empty_cache()
+    check_k1(abs_err, atol, k1_gain, "K3 MD17")
+    head_major = [t.unflatten(-1, (heads, dh)).transpose(1, 2) for t in (q, k, v)]
+    table.add("K3 MD17", f"packed q/k/v [{seqs},192,{d}] (v a strided view), {heads} x {dh}, "
+              f"{seqs * heads} (batch, head) pairs, gain {k1_gain:.7f}", abs_err,
+              f"atol {atol:.3e} = {K1_ULPS} bf16 ulps, gain tol {K1_GAIN_TOL}",
+              time_ms(lambda: fa.flash_attention_packed(*args), reps=5),
+              time_ms(lambda: fa.reference_attention_packed(*args), reps=2),
+              4 * seqs * 192 * 192 * d, 4 * seqs * 192 * d * 2,
+              library_times(*head_major, dh ** -0.5))
+    del q, k, v, args, head_major
+    torch.cuda.empty_cache()
+
+    k2_check(dev, gen, table, "K2 MD17", tokens, d, 2 * d, plain_reps=3)
+    k7_check(dev, gen, table, "K7 MD17", trajs, MD17_T, 192, d, plain_reps=3)
+    torch.cuda.empty_cache()
+
+
+def md17_batch(dev):
+    """One MD17 stage-2 batch in the loaders' layout (data/md17.py:174-244),
+    from the seed: B=64 trajectories of 30 frames, molecules of 9..21 atoms
+    padded to 50 with ``attention_mask``, atom types, per-trajectory entity
+    permutations broadcast over the frames, a class id per trajectory, and
+    positions as frame-0-centered random walks."""
+    rng = np.random.default_rng(SEED)
+    b, t, n = MD17_BATCH, MD17_T, MD17_ATOMS
+    n_real = rng.integers(9, 22, size=b)
+    atom_mask = np.arange(n)[None, :] < n_real[:, None]
+    steps = rng.standard_normal((b, t, n, 3)).astype(np.float32) * 0.05
+    steps[:, 0] = rng.standard_normal((b, n, 3)) * 1.5
+    pos = np.cumsum(steps, axis=1) * atom_mask[:, None, :, None]
+    pos -= (pos[:, :1].sum(axis=2, keepdims=True)
+            / n_real[:, None, None, None]) * atom_mask[:, None, :, None]
+    perms = np.stack([rng.permutation(n) for _ in range(b)]) * atom_mask
+    batch = {"pos": pos.astype(np.float32),
+             "atom": np.broadcast_to((rng.integers(0, 10, (b, n)) * atom_mask)[:, None],
+                                     (b, t, n)),
+             "entities": np.broadcast_to(perms[:, None], (b, t, n)),
+             "attention_mask": np.broadcast_to(atom_mask[:, None], (b, t, n)),
+             "cond_molecule": rng.integers(0, 8, size=b)}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+
+
+def md17_phase(dev, smi, reset_counts, read_counts):
+    """Phase 9; returns the launches of one protocol batch."""
+    from lam_slide_tpu_torch.composites import md17
+    from lam_slide_tpu_torch.composites.evaluation import mean_over_k_ade_fde, zero_target_frames
+    from lam_slide_tpu_torch.composites.testing import evaluate_md17
+    from lam_slide_tpu_torch.nn.blocks import set_backend
+
+    cfg1 = md17.MD17FirstStageConfig()
+    fs = md17.build_md17_first_stage(cfg1, device=dev,
+                                     generator=torch.Generator().manual_seed(SEED)).eval()
+    cfg2 = md17.MD17SecondStageConfig(in_dim=cfg1.dim_latent, class_conditional=True)
+    ss = md17.build_md17_second_stage(cfg2, fs, dtype=torch.bfloat16, device=dev,
+                                      generator=torch.Generator().manual_seed(SEED + 1))
+    batch = md17_batch(dev)
+    cond_end = ss.cond_idx[1]
+    euler = {"sampling_method": "euler", "num_steps": NUM_STEPS}
+
+    def set_all(backend):
+        set_backend(ss.backbone, backend)
+        set_backend(ss.first_stage, backend)
+
+    # one protocol batch through evaluate_md17, the launches per kernel
+    with torch.no_grad():
+        reset_counts()
+        metrics = evaluate_md17(ss, {"md17": [batch]}, scale=1.0, k=MD17_K, sampling_kwargs=euler,
+                                generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+    counts = read_counts()
+    # per drift evaluation: each of the 4 layers runs K3 on the spatial axis
+    # (L=192 >= 128), K9 on the temporal axis (8 < T=30 < 128), K2 on both
+    # axes' MLP branch and K7 twice, plus one K7 before the output layer;
+    # stage 1 encodes the batch once (K1 with the bias on the masked cross-
+    # attention, then fp32 K1 on the latent self-attention) and decodes the
+    # K repeats in one call (fp32 K1 on the decoder's self-attention; its
+    # output block has 50 queries and stays plain)
+    e = MD17_DRIFT_EVALS
+    want = {key: 0 for key in counts}
+    want.update({"K1": MD17_DEPTH * e + 3, "K1 bias": 1, "K1 fp32": 3, "K2": 2 * MD17_DEPTH * e,
+                 "K7": (2 * MD17_DEPTH + 1) * e, "K9": MD17_DEPTH * e})
+    bf16_k1 = counts["K1"] - counts["K1 fp32"]  # the bf16 launches: K3 on the spatial axis
+    print(f"md17: evaluate_md17 K={MD17_K} Euler-{NUM_STEPS} B={MD17_BATCH}: {metrics}; launches "
+          f"{counts}, of which K1 bf16 {bf16_k1} (expected {want}, K1 bf16 {MD17_DEPTH * e})")
+    check(counts == want and bf16_k1 == MD17_DEPTH * e,
+          f"md17 protocol launches {counts} != {want}")
+    check(all(math.isfinite(x) for x in metrics.values()), "non-finite MD17 ADE/FDE")
+
+    # kernel path vs plain path on the same weights and noise
+    zeroed = zero_target_frames(batch, cond_end)
+    true_pos, mask = batch["pos"][:, cond_end:], batch["attention_mask"][:, cond_end:]
+    noise = torch.randn((MD17_K, MD17_BATCH, MD17_T, cfg1.num_latents, cfg1.dim_latent), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+    sample_k = ss.make_k_sample_fn(MD17_K, sampling_kwargs=euler)
+
+    def protocol_batch():
+        preds = sample_k(zeroed, noise=noise)
+        return preds, mean_over_k_ade_fde(preds["pos"][:, :, cond_end:], true_pos, mask)
+
+    with torch.no_grad():
+        got, (ade, fde) = protocol_batch()
+        set_all("plain")
+        want_out, (ade_p, fde_p) = protocol_batch()
+        set_all("auto")
+        torch.cuda.synchronize()
+        abs_err, rel_err = errors(got["pos"], want_out["pos"])
+        print(f"md17: decoded pos {list(got['pos'].shape)}, kernel vs plain path: max_abs_err "
+              f"{abs_err:.3e} rel {rel_err:.3e} (tol {MD17_POS_REL_TOL}); ADE/FDE kernel "
+              f"{ade.mean().item():.5f}/{fde.mean().item():.5f} plain "
+              f"{ade_p.mean().item():.5f}/{fde_p.mean().item():.5f}")
+        check(bool(torch.isfinite(got["pos"]).all()), "non-finite decoded positions")
+        check(bool(torch.isfinite(ade).all() & torch.isfinite(fde).all()), "non-finite ADE/FDE")
+        check(rel_err <= MD17_POS_REL_TOL, f"md17 kernel vs plain pos rel err {rel_err}")
+        del got, want_out
+
+        # timing: plain, kernel, kernel, plain (each path ran once above)
+        torch.cuda.reset_peak_memory_stats()
+        times = {"auto": [], "plain": []}
+        for backend in ("plain", "auto", "auto", "plain"):
+            set_all(backend)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            protocol_batch()
+            end.record()
+            torch.cuda.synchronize()
+            times[backend].append(start.elapsed_time(end))
+        set_all("auto")
+        kern, plain = np.mean(times["auto"]), np.mean(times["plain"])
+        n_traj = MD17_K * MD17_BATCH
+        print(f"timing md17 protocol batch K={MD17_K} B={MD17_BATCH}: kernel path {kern:.3f} ms "
+              f"({n_traj * MD17_DRIFT_EVALS / kern * 1e3:.2f} traj-ODE steps/s), plain path "
+              f"{plain:.3f} ms ({n_traj * MD17_DRIFT_EVALS / plain * 1e3:.2f} traj-ODE steps/s); "
+              f"runs kernel {[round(x, 3) for x in times['auto']]} plain "
+              f"{[round(x, 3) for x in times['plain']]} ms; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | {smi}")
+        profile_run(protocol_batch, f"md17 protocol batch K={MD17_K} B={MD17_BATCH} kernel path")
+    return counts
+
+
 def make_inputs(batch: int, dev, gen):
     noise = torch.randn(batch, T, L, DIN, generator=gen).to(dev)
     x_cond = torch.zeros_like(noise)
@@ -494,13 +867,17 @@ def profile_run(run, label: str) -> None:
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # "Command Buffer Full" marks the host waiting on a full launch queue: it
+    # overlaps the kernels and is no device work
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name != QUEUE_FULL]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     check(busy_us > 0, f"profile {label}: no device time traced")
     print(f"profile {label}: wall {wall_us / 1e3:.3f} ms (profiled), device kernel "
           f"time {busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}, "
           f"kernel launches {len(kernels)}")
-    for evt in sorted(prof.key_averages(), key=_device_time_us, reverse=True)[:PROFILE_TOP]:
+    top = [e for e in prof.key_averages() if e.key != QUEUE_FULL]
+    for evt in sorted(top, key=_device_time_us, reverse=True)[:PROFILE_TOP]:
         print(f"  {_device_time_us(evt) / 1e3:9.3f} ms device {evt.count:6d} calls  {evt.key[:90]}")
 
 
@@ -690,10 +1067,13 @@ def main() -> int:
     from lam_slide_tpu_torch.ops import fused_adaln as fad
     from lam_slide_tpu_torch.ops import fused_mlp as fm
     from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
+    from lam_slide_tpu_torch.ops import short_attention as tsa
     from lam_slide_tpu_torch.transport import Sampler, create_transport
 
-    counters = {"K1": (fa, "launches"), "K2": (fm, "launches"), "K5": (fnr, "launches"),
-                "K7": (fad, "launches"), "K8": (fsb, "launches"),
+    counters = {"K1": (fa, "launches"), "K1 bias": (fa, "bias_launches"),
+                "K1 fp32": (fa, "fp32_launches"), "K2": (fm, "launches"),
+                "K5": (fnr, "launches"), "K7": (fad, "launches"), "K8": (fsb, "launches"),
+                "K9": (tsa, "launches"), "K9 bwd": (tsa, "bwd_launches"),
                 "K4 kv": (fa, "bwd_kv_launches"), "K4 q": (fa, "bwd_q_launches"),
                 "K6 kv": (fnr, "bwd_kv_launches"), "K6 q": (fnr, "bwd_q_launches")}
 
@@ -734,6 +1114,8 @@ def main() -> int:
     table = KernelTable()
     kernel_checks(dev, gen, table)
     backward_checks(dev, torch.Generator().manual_seed(SEED + 1), table)
+    md17_kernel_checks(dev, torch.Generator().manual_seed(SEED + 3), table)
+    md17_dit_kernel_checks(dev, torch.Generator().manual_seed(SEED + 4), table)
     phase_done("kernels")
 
     # 4. the slice
@@ -868,6 +1250,10 @@ def main() -> int:
     train_timing(dev, make_model, smi)
     phase_done("train timing")
 
+    # 9. the MD17 protocol
+    md17_counts = md17_phase(dev, smi, reset_counts, read_counts)
+    phase_done("md17")
+
     sources = {
         "K1": ("flash_attention_fwd", "flash_attention.cu", "flash_attention.py:37"),
         "K2": ("fused_mlp", "fused_mlp.cu", "fused_mlp.py:68"),
@@ -878,14 +1264,22 @@ def main() -> int:
         "K4": ("flash_attention_backward", "flash_attention_bwd.cu", "flash_attention.py:442"),
         "K6": ("flash_attention_normrope_backward", "flash_attention_bwd.cu",
                "flash_normrope.py:249"),
+        "K1 bias": ("flash_attention_fwd (key-padding bias, fp32)", "flash_attention.cu",
+                    "flash_attention.py:37"),
+        "K1 fp32": ("flash_attention_fwd (fp32 operands)", "flash_attention.cu",
+                    "flash_attention.py:37"),
+        "K9": ("short_attention", "short_attention.cu", "short_attention.py:83"),
     }
     # launches on the main paths: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve,
     # K3 under K1's counter (one binary), K5 from the 3 x 128 B=8 solve; K4
     # and K6 (the dK/dV and the dQ kernel together) from one train step at
-    # 16 x 24 and at 3 x 128
+    # 16 x 24 and at 3 x 128; K1's bias and fp32 variants and K9 from one
+    # MD17 protocol batch
     main_counts = dict(launches[HEADS], K3=launches[HEADS]["K1"], K5=launches[WIDE_HEADS]["K5"],
                        K4=train_counts[HEADS]["K4 kv"] + train_counts[HEADS]["K4 q"],
-                       K6=train_counts[WIDE_HEADS]["K6 kv"] + train_counts[WIDE_HEADS]["K6 q"])
+                       K6=train_counts[WIDE_HEADS]["K6 kv"] + train_counts[WIDE_HEADS]["K6 q"],
+                       **{"K1 bias": md17_counts["K1 bias"], "K1 fp32": md17_counts["K1 fp32"],
+                          "K9": md17_counts["K9"]})
     kernels = [
         {"name": name, "route": "cuda", "source": f"lam_slide_tpu_torch/csrc/{src}",
          "replaces": f"lam_slide_tpu/ops/{tpu}", "launches": main_counts[key],

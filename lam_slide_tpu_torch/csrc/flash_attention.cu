@@ -1,5 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 in / bf16 out, and its
-// variant with per-head QK RMS-norm + RoPE applied inside the kernel.
+// Flash-attention forward for Hopper (sm_90a): bf16 in / bf16 out, its
+// variant with per-head QK RMS-norm + RoPE applied inside the kernel, and an
+// fp32 in / fp32 out instantiation; the bf16 and fp32 forwards take an
+// optional key-padding bias row.
 //
 // Replaces three Pallas TPU kernels:
 // - K1, lam_slide_tpu/ops/flash_attention.py `_flash_kernel` (pallas_call in
@@ -23,7 +25,7 @@
 // (two lanes per row), P rounded to bf16, then acc += P V with the
 // accumulator kept in shared memory so that each row can be rescaled.
 // dh is zero-padded to DP (32, 64 or 128) in shared memory only; keys >= Nk
-// on the last tile get the -0.7*FLT_MAX logit the JAX kernel uses. At
+// on the last tile get a -inf logit (weight exactly 0). At
 // DP=128 the tiles take ~113 KB of shared memory (Q, K, V and S at 17 KB,
 // P 9 KB, the fp32 accumulator 33 KB), so the K transform reuses the K tile.
 //
@@ -40,11 +42,30 @@
 // and statistics, P rounded to bf16 before the AV product, output in q's
 // dtype (bf16), division by max(l, 1e-30) as in the JAX kernel.
 //
+// Key-padding bias (`_mask_to_bias`, flash_attention.py:624-629): when the
+// caller passes an fp32 [B, Nk] row (0 on kept keys, -0.7*FLT_MAX on masked
+// ones), it is added to the scaled logits of every key tile before the
+// running max, broadcast over heads and queries, as `_flash_kernel` adds
+// `bias_ref` (flash_attention.py:90-91). A masked key's logit rounds to
+// exactly -0.7*FLT_MAX, so a row whose keys are all masked gets uniform
+// weights over its Nk keys, as in JAX; padded keys past Nk stay at -inf,
+// below any masked key, so they never share that weight.
+//
+// fp32 operands (stage 1 runs in fp32, composites/md17.py:93): a second
+// kernel, one thread per query row and 64 rows per block, 32-key K/V tiles
+// in shared memory read as broadcasts, FFMA on the CUDA cores (no TF32:
+// the JAX interpret path it is held to is exact fp32), the same online
+// softmax and bias. dh <= 64 (q and the accumulator live in registers).
+// Bound on the H100 at the stage-1 shapes (keys <= 192, dh 16): bytes
+// (~0.14 ms for the encoder's cross call), with the FFMA work of the
+// same order at fp32's 67 TFLOP/s.
+//
 // lse: when the caller passes an fp32 [B, H, Nq] buffer (training), each
 // query row also writes m + log(max(l, 1e-30)), the log-sum-exp the backward
 // kernels (flash_attention_bwd.cu) rebuild P from, as `_flash_forward(...,
 // with_lse=True)` does; a null pointer (sampling) writes nothing.
 
+#include <math_constants.h>
 #include <mma.h>
 
 #include "flash_tiles.cuh"
@@ -71,11 +92,14 @@ struct Layout {
 
 // NR: q/k are RAW and get the per-head RMS-norm (scales qs/ks [dh]) and
 // RoPE (cos/sin [>= max(Nq, Nk), dh/2], row-major) in shared memory.
-template <int DP, bool NR>
+// BIAS: add the key-padding bias row (a separate instantiation, so the
+// unmasked kernels keep their inner loop as it was).
+template <int DP, bool NR, bool BIAS>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
-                 const float* __restrict__ qs, const float* __restrict__ ks,
+                 const float* __restrict__ bias, const float* __restrict__ qs,
+                 const float* __restrict__ ks,
                  const float* __restrict__ cos, const float* __restrict__ sin,
                  int H, int Nq, int Nk, int dh,
                  long long q_sb, long long q_sh, long long q_sn,
@@ -93,8 +117,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Ps = reinterpret_cast<bf16*>(smem + Lay::p_off) + warp * 16 * LDP;
   float* As = reinterpret_cast<float*>(smem + Lay::a_off) + warp * 16 * LDA;
 
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * BQ;
+  const TileIdx ti = tile_index(Nq, BQ);
+  const int b = ti.bh / H, h = ti.bh % H;
+  const int q0 = ti.tile * BQ;
   const bf16* qp = q + b * q_sb + h * q_sh;
   const bf16* kp = k + b * k_sb + h * k_sh;
   const bf16* vp = v + b * v_sb + h * v_sh;
@@ -145,7 +170,10 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       float s = Ss[r * LDS + half * 32 + j] * scale;
-      if (key0 + j >= Nk) s = NEG_INF;
+      if (key0 + j >= Nk)
+        s = -CUDART_INF_F;
+      else if constexpr (BIAS)
+        s = __fadd_rn(s, bias[static_cast<long long>(b) * Nk + key0 + j]);
       sv[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -191,7 +219,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int c = half * (DP / 2); c < (half + 1) * (DP / 2) && c < dh; ++c)
       op[c] = __float2bfloat16(As[r * LDA + c] / denom);
     if (lse != nullptr && half == 0)
-      lse[static_cast<long long>(blockIdx.y) * Nq + qrow] = m + logf(denom);
+      lse[static_cast<long long>(ti.bh) * Nq + qrow] = m + logf(denom);
   }
 }
 
@@ -199,59 +227,191 @@ struct NormRope {
   const float *qs, *ks, *cos, *sin;
 };
 
-template <int DP, bool NR>
+template <int DP, bool NR, bool BIAS>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-                   NormRope nr, int B, int H, int Nq, int Nk, int dh, const long long* s,
-                   float scale, cudaStream_t stream) {
+                   const float* bias, NormRope nr, int B, int H, int Nq, int Nk, int dh,
+                   const long long* s, float scale, cudaStream_t stream) {
   constexpr size_t smem = Layout<DP>::bytes;
-  static cudaError_t attr = lam_set_smem(flash_fwd_kernel<DP, NR>, smem);
+  static cudaError_t attr = lam_set_smem(flash_fwd_kernel<DP, NR, BIAS>, smem);
   if (attr != cudaSuccess) return attr;
-  dim3 grid((Nq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<DP, NR><<<grid, THREADS, smem, stream>>>(
-      q, k, v, o, lse, nr.qs, nr.ks, nr.cos, nr.sin, H, Nq, Nk, dh, s[0], s[1], s[2], s[3],
-      s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], scale);
+  const dim3 grid(grid_blocks(B * H, Nq, BQ));
+  flash_fwd_kernel<DP, NR, BIAS><<<grid, THREADS, smem, stream>>>(
+      q, k, v, o, lse, bias, nr.qs, nr.ks, nr.cos, nr.sin, H, Nq, Nk, dh, s[0], s[1], s[2],
+      s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], scale);
   return cudaGetLastError();
 }
 
+template <bool NR, bool BIAS>
+cudaError_t launch_dp(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+                      const float* bias, NormRope nr, int B, int H, int Nq, int Nk, int dh,
+                      const long long* s, float scale, cudaStream_t st) {
+  if (dh <= 32)
+    return launch<32, NR, BIAS>(q, k, v, o, lse, bias, nr, B, H, Nq, Nk, dh, s, scale, st);
+  if (dh <= 64)
+    return launch<64, NR, BIAS>(q, k, v, o, lse, bias, nr, B, H, Nq, Nk, dh, s, scale, st);
+  return launch<128, NR, BIAS>(q, k, v, o, lse, bias, nr, B, H, Nq, Nk, dh, s, scale, st);
+}
+
 template <bool NR>
-int launch_dh(const void* q, const void* k, const void* v, void* o, void* lse, NormRope nr,
-              int B, int H, int Nq, int Nk, int dh, const long long* s, float scale,
-              void* stream) {
+int launch_dh(const void* q, const void* k, const void* v, void* o, void* lse,
+              const void* bias, NormRope nr, int B, int H, int Nq, int Nk, int dh,
+              const long long* s, float scale, void* stream) {
+  if (dh <= 0 || dh > 128 || (NR && (dh % 2 || bias != nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto qb = static_cast<const bf16*>(q);
   auto kb = static_cast<const bf16*>(k);
   auto vb = static_cast<const bf16*>(v);
   auto ob = static_cast<bf16*>(o);
   auto lf = static_cast<float*>(lse);
+  auto bf = static_cast<const float*>(bias);
   auto st = static_cast<cudaStream_t>(stream);
-  if (dh <= 0 || dh > 128 || (NR && dh % 2)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (dh <= 32)
-    err = launch<32, NR>(qb, kb, vb, ob, lf, nr, B, H, Nq, Nk, dh, s, scale, st);
-  else if (dh <= 64)
-    err = launch<64, NR>(qb, kb, vb, ob, lf, nr, B, H, Nq, Nk, dh, s, scale, st);
+  if (NR || bias == nullptr)
+    err = launch_dp<NR, false>(qb, kb, vb, ob, lf, bf, nr, B, H, Nq, Nk, dh, s, scale, st);
   else
-    err = launch<128, NR>(qb, kb, vb, ob, lf, nr, B, H, Nq, Nk, dh, s, scale, st);
+    err = launch_dp<false, true>(qb, kb, vb, ob, lf, bf, nr, B, H, Nq, Nk, dh, s, scale, st);
   return static_cast<int>(err);
+}
+
+// fp32 operands: 64 query rows per block, one thread per row; 32-key K/V
+// tiles (and the bias slice) staged in shared memory and read as
+// broadcasts; q and the accumulator in registers.
+constexpr int F32_ROWS = 64;
+constexpr int F32_KEYS = 32;
+
+template <int DP>
+__global__ void __launch_bounds__(F32_ROWS)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     const float* __restrict__ bias, int H, int Nq, int Nk, int dh,
+                     long long q_sb, long long q_sh, long long q_sn,
+                     long long k_sb, long long k_sh, long long k_sn,
+                     long long v_sb, long long v_sh, long long v_sn,
+                     long long o_sb, long long o_sh, long long o_sn, float scale) {
+  __shared__ float Ks[F32_KEYS][DP];
+  __shared__ float Vs[F32_KEYS][DP];
+  __shared__ float Bs[F32_KEYS];
+  const TileIdx ti = tile_index(Nq, F32_ROWS);
+  const int b = ti.bh / H, h = ti.bh % H;
+  const int qrow = ti.tile * F32_ROWS + threadIdx.x;
+  const bool row_ok = qrow < Nq;
+  const float* kp = k + b * k_sb + h * k_sh;
+  const float* vp = v + b * v_sb + h * v_sh;
+
+  float qr[DP], acc[DP];
+#pragma unroll
+  for (int c = 0; c < DP; ++c) {
+    qr[c] = (row_ok && c < dh) ? q[b * q_sb + h * q_sh + qrow * q_sn + c] : 0.0f;
+    acc[c] = 0.0f;
+  }
+  float m = NEG_INF, l = 0.0f;
+  for (int k0 = 0; k0 < Nk; k0 += F32_KEYS) {
+    __syncthreads();  // previous tile fully consumed
+    for (int idx = threadIdx.x; idx < F32_KEYS * DP; idx += F32_ROWS) {
+      const int r = idx / DP, c = idx % DP;
+      const bool ok = k0 + r < Nk && c < dh;
+      Ks[r][c] = ok ? kp[static_cast<long long>(k0 + r) * k_sn + c] : 0.0f;
+      Vs[r][c] = ok ? vp[static_cast<long long>(k0 + r) * v_sn + c] : 0.0f;
+    }
+    if (threadIdx.x < F32_KEYS) {
+      const int key = k0 + threadIdx.x;
+      Bs[threadIdx.x] = (bias != nullptr && key < Nk) ? bias[static_cast<long long>(b) * Nk + key]
+                                                      : 0.0f;
+    }
+    __syncthreads();
+
+    float sv[F32_KEYS];
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < F32_KEYS; ++j) {
+      float s = 0.0f;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) s = fmaf(qr[c], Ks[j][c], s);
+      // the scaled logit rounds before the bias add, as in JAX
+      s = k0 + j >= Nk ? -CUDART_INF_F : __fadd_rn(__fmul_rn(s, scale), Bs[j]);
+      sv[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int c = 0; c < DP; ++c) acc[c] *= alpha;
+#pragma unroll
+    for (int j = 0; j < F32_KEYS; ++j) {
+      const float p = expf(sv[j] - m_new);
+      l += p;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) acc[c] = fmaf(p, Vs[j][c], acc[c]);
+    }
+    m = m_new;
+  }
+  if (row_ok) {
+    const float denom = fmaxf(l, 1e-30f);
+    float* op = o + b * o_sb + h * o_sh + static_cast<long long>(qrow) * o_sn;
+#pragma unroll
+    for (int c = 0; c < DP; ++c)
+      if (c < dh) op[c] = acc[c] / denom;
+  }
+}
+
+template <int DP>
+cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
+                       const float* bias, int B, int H, int Nq, int Nk, int dh,
+                       const long long* s, float scale, cudaStream_t stream) {
+  const dim3 grid(grid_blocks(B * H, Nq, F32_ROWS));
+  flash_fwd_f32_kernel<DP><<<grid, F32_ROWS, 0, stream>>>(
+      q, k, v, o, bias, H, Nq, Nk, dh, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
+      s[9], s[10], s[11], scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // q/k/v/o: bf16 [B, H, N, dh] addressed through element strides
 // (batch, head, seq); dh has unit stride. lse: null, or fp32 [B, H, Nq]
-// contiguous. Returns cudaGetLastError().
+// contiguous. bias: null, or the fp32 key-padding bias [B, Nk] contiguous.
+// Returns cudaGetLastError().
 extern "C" int lam_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq,
-    int Nk, int dh, long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
-    long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
-    long long o_sh, long long o_sn, float scale, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse, const void* bias, int B,
+    int H, int Nq, int Nk, int dh, long long q_sb, long long q_sh, long long q_sn,
+    long long k_sb, long long k_sh, long long k_sn, long long v_sb, long long v_sh,
+    long long v_sn, long long o_sb, long long o_sh, long long o_sn, float scale,
+    void* stream) {
   const long long s[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
                            v_sb, v_sh, v_sn, o_sb, o_sh, o_sn};
-  return launch_dh<false>(q, k, v, o, lse, NormRope{}, B, H, Nq, Nk, dh, s, scale, stream);
+  return launch_dh<false>(q, k, v, o, lse, bias, NormRope{}, B, H, Nq, Nk, dh, s, scale,
+                          stream);
+}
+
+// As lam_flash_attention_fwd on fp32 q/k/v/o, with no lse; dh <= 64.
+extern "C" int lam_flash_attention_fwd_f32(
+    const void* q, const void* k, const void* v, void* o, const void* bias, int B, int H,
+    int Nq, int Nk, int dh, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
+    long long k_sh, long long k_sn, long long v_sb, long long v_sh, long long v_sn,
+    long long o_sb, long long o_sh, long long o_sn, float scale, void* stream) {
+  const long long s[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
+                           v_sb, v_sh, v_sn, o_sb, o_sh, o_sn};
+  auto qf = static_cast<const float*>(q);
+  auto kf = static_cast<const float*>(k);
+  auto vf = static_cast<const float*>(v);
+  auto of = static_cast<float*>(o);
+  auto bf = static_cast<const float*>(bias);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dh <= 0 || dh > 64) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (dh <= 16)
+    err = launch_f32<16>(qf, kf, vf, of, bf, B, H, Nq, Nk, dh, s, scale, st);
+  else if (dh <= 32)
+    err = launch_f32<32>(qf, kf, vf, of, bf, B, H, Nq, Nk, dh, s, scale, st);
+  else
+    err = launch_f32<64>(qf, kf, vf, of, bf, B, H, Nq, Nk, dh, s, scale, st);
+  return static_cast<int>(err);
 }
 
 // As lam_flash_attention_fwd on RAW q/k, plus fp32 qs/ks [dh] (the learned
 // RMS-norm scales) and fp32 cos/sin [>= max(Nq, Nk), dh/2] row-major RoPE
-// tables; dh must be even.
+// tables; dh must be even. No bias.
 extern "C" int lam_flash_attention_normrope_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, const void* qs,
     const void* ks, const void* cos, const void* sin, int B, int H, int Nq, int Nk, int dh,
@@ -262,5 +422,5 @@ extern "C" int lam_flash_attention_normrope_fwd(
                            v_sb, v_sh, v_sn, o_sb, o_sh, o_sn};
   const NormRope nr{static_cast<const float*>(qs), static_cast<const float*>(ks),
                     static_cast<const float*>(cos), static_cast<const float*>(sin)};
-  return launch_dh<true>(q, k, v, o, lse, nr, B, H, Nq, Nk, dh, s, scale, stream);
+  return launch_dh<true>(q, k, v, o, lse, nullptr, nr, B, H, Nq, Nk, dh, s, scale, stream);
 }

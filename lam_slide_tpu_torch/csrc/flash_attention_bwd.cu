@@ -182,12 +182,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_kv_kernel(const BwdArgs a) 
   float* lse_s = reinterpret_cast<float*>(smem + Lay::row_off);
   float* delta_s = lse_s + BQ;
 
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int k0 = blockIdx.x * BK;
+  const TileIdx ti = tile_index(a.Nk, BK);
+  const int b = ti.bh / a.H, h = ti.bh % a.H;
+  const int k0 = ti.tile * BK;
   const bf16* qp = head(a.q, a, TQ, b, h);
   const bf16* dop = head(a.dout, a, TDO, b, h);
-  const float* lsep = a.lse + static_cast<long long>(blockIdx.y) * a.Nq;
-  const float* deltap = a.delta + static_cast<long long>(blockIdx.y) * a.Nq;
+  const float* lsep = a.lse + static_cast<long long>(ti.bh) * a.Nq;
+  const float* deltap = a.delta + static_cast<long long>(ti.bh) * a.Nq;
 
   load_tile<DP>(Ks, LDT, head(a.k, a, TK, b, h), a.s[TK + 2], k0, a.Nk, a.dh);
   load_tile<DP>(Vs, LDT, head(a.v, a, TV, b, h), a.s[TV + 2], k0, a.Nk, a.dh);
@@ -258,8 +259,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_q_kernel(const BwdArgs a) {
   float* DPs = reinterpret_cast<float*>(smem + Lay::dp_off) + warp * 16 * LDS;
   bf16* dSs = reinterpret_cast<bf16*>(smem + Lay::ds_off) + warp * 16 * LDP;
 
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int q0 = blockIdx.x * BQ;
+  const TileIdx ti = tile_index(a.Nq, BQ);
+  const int b = ti.bh / a.H, h = ti.bh % a.H;
+  const int q0 = ti.tile * BQ;
   const bf16* kp = head(a.k, a, TK, b, h);
   const bf16* vp = head(a.v, a, TV, b, h);
 
@@ -277,7 +279,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_q_kernel(const BwdArgs a) {
   const int r = lane >> 1, half = lane & 1;
   const int qrow = q0 + warp * 16 + r;
   const bool row_ok = qrow < a.Nq;
-  const long long row = static_cast<long long>(blockIdx.y) * a.Nq + qrow;
+  const long long row = static_cast<long long>(ti.bh) * a.Nq + qrow;
   const float lse = row_ok ? a.lse[row] : 0.0f;
   const float delta = row_ok ? a.delta[row] : 0.0f;
   const int n_tiles = (a.Nk + BK - 1) / BK;
@@ -315,12 +317,12 @@ cudaError_t launch(bool kv, const BwdArgs& a, int B, cudaStream_t stream) {
   if (kv) {
     static cudaError_t attr = lam_set_smem(flash_bwd_kv_kernel<DP, NR>, smem);
     if (attr != cudaSuccess) return attr;
-    dim3 grid((a.Nk + BK - 1) / BK, B * a.H);
+    const dim3 grid(grid_blocks(B * a.H, a.Nk, BK));
     flash_bwd_kv_kernel<DP, NR><<<grid, THREADS, smem, stream>>>(a);
   } else {
     static cudaError_t attr = lam_set_smem(flash_bwd_q_kernel<DP, NR>, smem);
     if (attr != cudaSuccess) return attr;
-    dim3 grid((a.Nq + BQ - 1) / BQ, B * a.H);
+    const dim3 grid(grid_blocks(B * a.H, a.Nq, BQ));
     flash_bwd_q_kernel<DP, NR><<<grid, THREADS, smem, stream>>>(a);
   }
   return cudaGetLastError();

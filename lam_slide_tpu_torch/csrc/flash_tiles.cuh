@@ -16,6 +16,23 @@ constexpr float NR_EPS = 1e-6f;  // QK RMS-norm eps (flash_normrope.py _EPS)
 
 static_assert(BQ == BK, "the tile loaders serve Q, K, V and dO tiles alike");
 
+// The grid is one axis over (batch*head, tile) pairs with the tile index
+// fastest: the order in which a (tiles, batch*head) grid launches its
+// blocks, without gridDim.y's cap of 65,535 (the MD17 DiT's spatial axis
+// has 153,600 batch*head pairs).
+struct TileIdx {
+  int bh, tile;
+};
+
+__device__ __forceinline__ TileIdx tile_index(int n, int rows) {
+  const int tiles = (n + rows - 1) / rows;
+  return {static_cast<int>(blockIdx.x / tiles), static_cast<int>(blockIdx.x % tiles)};
+}
+
+inline unsigned grid_blocks(int bh, int n, int rows) {
+  return static_cast<unsigned>(bh) * static_cast<unsigned>((n + rows - 1) / rows);
+}
+
 // Rows [n0, n0 + 64) of one head into a [64, DP] tile with row stride ld,
 // zero outside [0, n) x [0, dh).
 template <int DP>

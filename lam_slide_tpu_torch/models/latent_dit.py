@@ -13,8 +13,10 @@ shipping defaults:
 * the temporal axis (n > ``packed_threshold``): at dh % 128 == 0 the flash
   kernel with QK RMS-norm and RoPE inside (K5) on raw views of linear1's
   output (latent_dit.py:336-361); otherwise QK RMS-norm and RoPE as
-  elementwise ops and the packed flash entry (K3, the K1 binary) on packed
-  views (latent_dit.py:390-404); the fused MLP kernel (K2) for the MLP
+  elementwise ops and ``attention_packed`` on packed views
+  (latent_dit.py:390-404): the packed flash entry (K3, the K1 binary) at
+  n >= 128, the short-axis kernel K9 at 8 < n < 128 (the MD17 temporal
+  axis, T=30); the fused MLP kernel (K2) for the MLP
   branch, and linear2 adds the two fp32 partials before a single rounding
   (latent_dit.py:415-434);
 * the small spatial axis: the whole block in one kernel (K8,
@@ -38,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from lam_slide_tpu_torch.nn import initializers as inits
+from lam_slide_tpu_torch.nn.dense import dense, linear
 from lam_slide_tpu_torch.nn.embeddings import timestep_embedding
 from lam_slide_tpu_torch.nn.norms import QKNorm, layer_norm
 from lam_slide_tpu_torch.ops.attention import BACKENDS, attention_packed
@@ -74,27 +77,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return headmajor_rope(x, cos, sin)
 
 
-def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=dtype)``: x @ W in dtype, then + bias in dtype."""
-    out = torch.matmul(x.to(dtype), lin.weight.to(dtype).t())
-    return out if lin.bias is None else out + lin.bias.to(dtype)
-
-
-def _linear(d_in: int, d_out: int, init, gen: torch.Generator) -> nn.Linear:
-    """nn.Linear with the given weight init and zero bias (flax Dense defaults)."""
-    lin = nn.utils.skip_init(nn.Linear, d_in, d_out)  # no draw from the global RNG
-    init(lin.weight, gen)
-    inits.zeros_(lin.bias)
-    return lin
-
-
 class Modulation(nn.Module):
     """vec [B, D] -> two (shift, scale, gate) triples, each [B, 1, 1, D]
     (mmdit.py:184-197)."""
 
     def __init__(self, dim: int, zero_init: bool, gen: torch.Generator):
         super().__init__()
-        self.lin = _linear(dim, 6 * dim, inits.zeros_ if zero_init else inits.torch_linear_init_, gen)
+        self.lin = linear(dim, 6 * dim, inits.zeros_ if zero_init else inits.torch_linear_init_, gen)
 
     def forward(self, vec: torch.Tensor, dtype: torch.dtype):
         out = dense(F.silu(vec), self.lin, dtype)[:, None, None, :]
@@ -107,8 +96,8 @@ class MLPEmbedder(nn.Module):
 
     def __init__(self, in_dim: int, hidden_dim: int, gen: torch.Generator):
         super().__init__()
-        self.in_layer = _linear(in_dim, hidden_dim, inits.normal_002_, gen)
-        self.out_layer = _linear(hidden_dim, hidden_dim, inits.normal_002_, gen)
+        self.in_layer = linear(in_dim, hidden_dim, inits.normal_002_, gen)
+        self.out_layer = linear(hidden_dim, hidden_dim, inits.normal_002_, gen)
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return dense(F.silu(dense(x, self.in_layer, dtype)), self.out_layer, dtype)
@@ -132,8 +121,8 @@ class ParallelMLPAttention(nn.Module):
         self.dtype = dtype
         self.qk_scale = qk_scale
         kinit = inits.attn_kernel_init_ if reference_init else inits.torch_linear_init_
-        self.linear1 = _linear(d, 3 * d + self.mlp_hidden, kinit, gen)
-        self.linear2 = _linear(d + self.mlp_hidden, d, kinit, gen)
+        self.linear1 = linear(d, 3 * d + self.mlp_hidden, kinit, gen)
+        self.linear2 = linear(d + self.mlp_hidden, d, kinit, gen)
         self.norm = QKNorm(d // num_heads)
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
@@ -248,8 +237,8 @@ class LatentDiT(nn.Module):
         self.theta, self.normalize = theta, normalize
         self.backend, self.dtype, self.checkpointing = backend, dtype, checkpointing
         kinit = inits.attn_kernel_init_ if reference_init else inits.torch_linear_init_
-        self.x_in = _linear(in_dim, d, kinit, gen)
-        self.cond_to_emb = _linear(in_dim, d, kinit, gen)
+        self.x_in = linear(in_dim, d, kinit, gen)
+        self.cond_to_emb = linear(in_dim, d, kinit, gen)
         self.mask_to_emb = nn.utils.skip_init(nn.Embedding, 2, d)
         inits.normal_(self.mask_to_emb.weight, gen, 1.0)
         self.time_in = MLPEmbedder(256, d, gen)
@@ -257,9 +246,9 @@ class LatentDiT(nn.Module):
         self.blocks = nn.ModuleList(
             LatentDiTLayer(d, num_heads, mlp_ratio, reference_init, packed_threshold, dtype, gen)
             for _ in range(depth))
-        self.adaLN_modulation = nn.Sequential(nn.SiLU(), _linear(d, 2 * d, kinit, gen))
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), linear(d, 2 * d, kinit, gen))
         out_init = inits.zeros_ if reference_init else inits.torch_linear_init_
-        self.linear = _linear(d, in_dim, out_init, gen)
+        self.linear = linear(d, in_dim, out_init, gen)
         self.to(device)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, x_cond: torch.Tensor,

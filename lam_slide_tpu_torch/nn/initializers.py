@@ -50,3 +50,33 @@ def zeros_(w: torch.Tensor, gen: torch.Generator = None) -> torch.Tensor:
     with torch.no_grad():
         w.zero_()
     return w
+
+
+def trunc_normal_(w: torch.Tensor, gen: torch.Generator, std: float = 0.02) -> torch.Tensor:
+    """flax ``truncated_normal(stddev=std)``: a normal cut at ±2 and rescaled
+    so that the cut distribution has standard deviation ``std``."""
+    lo, hi = (0.5 * (1 + math.erf(x / math.sqrt(2))) for x in (-2.0, 2.0))
+    with torch.no_grad():
+        u = torch.rand(w.shape, generator=gen, dtype=torch.float64) * (hi - lo) + lo
+        w.copy_(torch.special.ndtri(u) * (std / 0.87962566103423978))
+    return w
+
+
+def orthogonal_rows_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """Orthogonal init of a ``[rows, cols]`` table, rows orthonormal when
+    rows <= cols (``orthogonal_rows``, the frozen entity-code table): QR of
+    a standard normal draw with the signs of R's diagonal folded in, as
+    ``torch.nn.init.orthogonal_`` and flax's ``orthogonal`` do."""
+    rows, cols = w.shape
+    a = torch.randn(max(rows, cols), min(rows, cols), generator=gen, dtype=torch.float64)
+    qm, r = torch.linalg.qr(a)
+    qm = qm * torch.sign(torch.diagonal(r))
+    with torch.no_grad():
+        w.copy_(qm.t() if rows < cols else qm)
+    return w
+
+
+def lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dense``'s default kernel init: a normal truncated at ±2 with
+    variance 1 / fan_in."""
+    return trunc_normal_(w, gen, std=w.shape[1] ** -0.5)

@@ -41,3 +41,19 @@ class QKNorm(torch.nn.Module):
         super().__init__()
         self.query_norm = RMSNorm(dim)
         self.key_norm = RMSNorm(dim)
+
+
+class LayerNorm(torch.nn.Module):
+    """Affine LayerNorm (torch ``nn.LayerNorm`` keys ``weight``/``bias``):
+    fp32 statistics, normalized value rounded to x.dtype, then the affine in
+    x.dtype (JAX ``nn/norms.py:53``)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = torch.nn.Parameter(torch.ones(dim))
+        self.bias = torch.nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = layer_norm(x, self.eps)
+        return out * self.weight.to(out.dtype) + self.bias.to(out.dtype)

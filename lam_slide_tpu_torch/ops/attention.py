@@ -1,10 +1,20 @@
 """Attention dispatch (counterpart of ``lam_slide_tpu/ops/attention.py``).
 
-``attention(q, k, v, scale)`` takes head-major ``[B, H, N, dh]`` operands,
-``attention_packed(q, k, v, num_heads, scale)`` packed ``[B, N, H*dh]`` ones
-(``dot_product_attention_packed``). With ``backend="auto"`` a CUDA tensor
-with N >= 128 goes to the flash kernel (mirroring ``_pick_backend``,
-attention.py:157-172) and everything else to the plain version;
+``attention(q, k, v, mask, scale)`` takes head-major ``[B, H, N, dh]``
+operands and an optional ``[B, Nk]`` boolean key-padding mask;
+``attention_packed(q, k, v, num_heads, scale)`` takes packed ``[B, N, H*dh]``
+ones (``dot_product_attention_packed``, unmasked). With ``backend="auto"``:
+
+* a CUDA tensor with a query length >= 128 goes to the flash kernel K1,
+  masked or not, bf16 or fp32 (mirroring ``_pick_backend``,
+  attention.py:157-172), and a packed one to K1's packed entry K3;
+* a packed CUDA self-attention with 8 < N < 128 goes to the short-axis
+  kernel K9. JAX takes that kernel only on request
+  (``LAM_SLIDE_SHORT_ATTN=1``, ``_pick_backend_packed``) because Mosaic pads
+  such axes to 128 lanes; the card has no such padding, and both routes
+  compute the same function to the same rounding points;
+* everything else takes the plain version.
+
 ``backend="plain"`` always takes the plain version.
 """
 
@@ -18,25 +28,31 @@ from lam_slide_tpu_torch.ops.flash_attention import (
     reference_attention,
     reference_attention_packed,
 )
+from lam_slide_tpu_torch.ops.short_attention import short_attention
 
 BACKENDS = ("auto", "plain")
 
 
-def _use_flash(q: torch.Tensor, n: int, backend: str) -> bool:
+def _auto(q: torch.Tensor, backend: str) -> bool:
     if backend not in BACKENDS:
         raise ValueError(f"unknown attention backend {backend!r}; expected one of {BACKENDS}")
-    return backend == "auto" and q.is_cuda and n >= 128
+    return backend == "auto" and q.is_cuda
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              scale: Optional[float] = None, backend: str = "auto") -> torch.Tensor:
-    if _use_flash(q, q.shape[-2], backend):
-        return flash_attention(q, k, v, scale=scale)
-    return reference_attention(q, k, v, scale)
+              mask: Optional[torch.Tensor] = None, scale: Optional[float] = None,
+              backend: str = "auto") -> torch.Tensor:
+    if _auto(q, backend) and q.shape[-2] >= 128:
+        return flash_attention(q, k, v, mask=mask, scale=scale)
+    return reference_attention(q, k, v, scale, mask=mask)
 
 
 def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
                      scale: Optional[float] = None, backend: str = "auto") -> torch.Tensor:
-    if _use_flash(q, q.shape[1], backend):
-        return flash_attention_packed(q, k, v, num_heads, scale=scale)
+    if _auto(q, backend):
+        n = q.shape[1]
+        if n >= 128:
+            return flash_attention_packed(q, k, v, num_heads, scale=scale)
+        if 8 < n and q.shape == k.shape:
+            return short_attention(q, k, v, num_heads, scale=scale)
     return reference_attention_packed(q, k, v, num_heads, scale)

@@ -12,14 +12,23 @@ without a copy, and it writes its output into packed memory, so
 binary called on packed views: no copy in and none out. The backward lives
 in ``csrc/flash_attention_bwd.cu`` and reads and writes the same way.
 
+K1 also takes a ``[B, Nk]`` boolean key-padding mask (True = attend), which
+becomes the fp32 bias row of ``_mask_to_bias`` (0 or -0.7·finfo(fp32).max,
+flash_attention.py:624-629) added to the scaled logits in the kernel, and
+fp32 operands (stage 1 runs in fp32), through a second kernel with fp32 in
+and out. K4 has neither yet, so a masked or fp32 call that needs a gradient
+raises; the packed entry K3 stays unmasked, as in JAX.
+
 Gradients: on CUDA tensors that need one, the forward runs inside
 ``_FlashAttention`` (the JAX ``custom_vjp``), which asks K1 for the per-row
 log-sum-exp and whose backward launches K4's two kernels. The packed entry
 differentiates through the same Function on its head-major views.
 
 Counters (plain integers, touched only where a kernel launches):
-``launches`` counts K1 launches of both entries (one binary),
-``bwd_kv_launches`` and ``bwd_q_launches`` K4's dK/dV and dQ kernels.
+``launches`` counts K1 launches of both entries and both dtypes,
+``bias_launches`` those with a key-padding bias, ``fp32_launches`` those
+with fp32 operands, ``bwd_kv_launches`` and ``bwd_q_launches`` K4's dK/dV
+and dQ kernels.
 """
 
 import ctypes
@@ -32,24 +41,44 @@ from lam_slide_tpu_torch.ops import _build
 from lam_slide_tpu_torch.ops._grad import needs_grad
 
 launches = 0
+bias_launches = 0
+fp32_launches = 0
 bwd_kv_launches = 0
 bwd_q_launches = 0
 
+NEG_INF = -0.7 * torch.finfo(torch.float32).max  # the JAX kernels' mask fill
+F32_MAX_DH = 64  # the fp32 kernel keeps q and its accumulator in registers
+
+
+def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
+    """Boolean key-padding mask ``[B, Nk]`` (True = attend) -> the additive
+    fp32 bias row of ``_mask_to_bias`` (flash_attention.py:624-629)."""
+    return torch.where(mask, 0.0, NEG_INF).to(torch.float32)
+
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: Optional[float] = None, return_lse: bool = False):
+                        scale: Optional[float] = None, return_lse: bool = False,
+                        mask: Optional[torch.Tensor] = None):
     """Plain attention, head-major ``[B, H, N, dh]`` (ops/attention.py:44-59).
 
     fp32 logits (bf16 products are exact in fp32) and fp32 softmax; the
-    weights are cast to ``v.dtype`` for the AV product. ``return_lse`` also
-    returns the fp32 per-row log-sum-exp of the scaled logits ``[B, H, Nq]``
-    (``_flash_forward(..., with_lse=True)``).
+    weights are cast to ``v.dtype`` for the AV product. ``mask`` is a
+    ``[B, Nk]`` boolean key-padding mask whose bias row is added to the
+    scaled logits, as the kernel adds it. ``return_lse`` also returns the
+    fp32 per-row log-sum-exp of the scaled logits ``[B, H, Nq]``
+    (``_flash_forward(..., with_lse=True)``). The logits are scaled in place
+    and dropped after the softmax, so at most two fp32 ``[B, H, Nq, Nk]``
+    buffers are alive at once.
     """
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    weights = torch.softmax(logits, dim=-1).to(v.dtype)
-    out = torch.matmul(weights, v)
-    return (out, torch.logsumexp(logits, dim=-1)) if return_lse else out
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)).mul_(scale)
+    if mask is not None:
+        logits.add_(mask_to_bias(mask)[:, None, None, :])
+    lse = torch.logsumexp(logits, dim=-1) if return_lse else None
+    weights = torch.softmax(logits, dim=-1)
+    del logits
+    out = torch.matmul(weights.to(v.dtype), v)
+    return (out, lse) if return_lse else out
 
 
 def reference_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -87,12 +116,14 @@ def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
     return t.unflatten(-1, (num_heads, t.shape[-1] // num_heads)).transpose(1, 2)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           dtypes=(torch.bfloat16,)) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must be on q's CUDA device, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"flash_attention: {name} must be bfloat16, got {t.dtype}")
+        if t.dtype not in dtypes or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: {name} must be one of {dtypes} like q, "
+                             f"got {t.dtype}")
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be [B, H, N, dh], got {tuple(t.shape)}")
         if t.stride(-1) != 1:
@@ -101,8 +132,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.shape != v.shape or k.shape[0] != b or k.shape[1] != h or k.shape[3] != dh:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not match")
-    if not 0 < dh <= 128:
-        raise ValueError(f"flash_attention: head dim {dh} is not in (0, 128]")
+    max_dh = F32_MAX_DH if q.dtype == torch.float32 else 128
+    if not 0 < dh <= max_dh:
+        raise ValueError(f"flash_attention: head dim {dh} is not in (0, {max_dh}] for {q.dtype}")
 
 
 def _packed_like(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -116,19 +148,38 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _forward(q, k, v, scale: float, with_lse: bool):
-    """Launch K1 on checked head-major CUDA tensors -> (out, lse or None)."""
-    _check(q, k, v)
+def _bias(mask: torch.Tensor, q: torch.Tensor, nk: int) -> torch.Tensor:
+    if mask.dtype != torch.bool or mask.shape != (q.shape[0], nk) or mask.device != q.device:
+        raise ValueError(f"flash_attention: mask must be bool [{q.shape[0]}, {nk}] on "
+                         f"{q.device}, got {mask.dtype} {tuple(mask.shape)} on {mask.device}")
+    return mask_to_bias(mask).contiguous()
+
+
+def _forward(q, k, v, scale: float, with_lse: bool, mask: Optional[torch.Tensor] = None):
+    """Launch K1 on checked head-major CUDA tensors -> (out, lse or None).
+    bf16 operands take the tensor-core kernel (with lse when asked), fp32
+    operands the fp32 kernel (no lse); both take the mask's bias row."""
+    _check(q, k, v, (torch.bfloat16, torch.float32))
     b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    fp32 = q.dtype == torch.float32
+    if fp32 and with_lse:
+        raise ValueError("flash_attention: the fp32 kernel writes no lse")
+    bias = None if mask is None else _bias(mask, q, nk)
     out = _packed_like(q, nq)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    global launches
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if not fp32:
+        ptrs.append(None if lse is None else lse.data_ptr())
+    ptrs.append(None if bias is None else bias.data_ptr())
+    global launches, bias_launches, fp32_launches
     with torch.cuda.device(q.device):
-        _build.launch("lam_flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, nq,
-                      k.shape[2], dh, *strides, float(scale), _stream(q))
+        _build.launch("lam_flash_attention_fwd_f32" if fp32 else "lam_flash_attention_fwd",
+                      *ptrs, b, h, nq, nk, dh, *strides, float(scale), _stream(q))
     launches += 1
+    bias_launches += bias is not None
+    fp32_launches += fp32
     return out, lse
 
 
@@ -151,21 +202,25 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """softmax(q kᵀ · scale) v over head-major ``[B, H, N, dh]`` operands.
+    """softmax(q kᵀ · scale + bias(mask)) v over head-major ``[B, H, N, dh]``
+    operands; ``mask`` is a ``[B, Nk]`` boolean key-padding mask.
 
     CPU tensors take ``reference_attention``. CUDA tensors launch the kernel
-    (bf16 only, dh <= 128, unit stride on dh) or raise; when they need a
-    gradient, through ``_FlashAttention``, whose backward is K4. Key-padding
-    masks are not ported yet and raise on every device.
+    (bf16 with dh <= 128 or fp32 with dh <= 64, unit stride on dh) or raise;
+    when they need a gradient, through ``_FlashAttention``, whose backward is
+    K4. K4 has no bias and no fp32 kernel yet, so a masked or fp32 call that
+    needs a gradient raises rather than dropping the bias.
     """
-    if mask is not None:
-        raise NotImplementedError("flash_attention: key-padding masks are not ported yet")
     if q.device.type == "cpu":
-        return reference_attention(q, k, v, scale)
+        return reference_attention(q, k, v, scale, mask=mask)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if needs_grad(q, k, v):
+        if mask is not None or q.dtype == torch.float32:
+            raise NotImplementedError(
+                "flash_attention: the backward kernel (K4) has no key-padding bias and no fp32 "
+                "operands yet; run masked or fp32 attention on the card under torch.no_grad()")
         return _FlashAttention.apply(q, k, v, scale)
-    return _forward(q, k, v, scale, with_lse=False)[0]
+    return _forward(q, k, v, scale, with_lse=False, mask=mask)[0]
 
 
 def _check_backward(q, k, v, out, lse, g) -> None:

@@ -1,0 +1,162 @@
+"""Attention over short self-attention axes: CUDA kernel K9 (forward and
+backward) and its plain PyTorch versions.
+
+Counterpart of ``lam_slide_tpu/ops/short_attention.py`` (``_short_fwd_kernel``
+and ``_short_bwd_kernel`` through ``short_attention``): unmasked
+self-attention over packed ``[B, n, H*dh]`` operands with 8 < n < 128, the
+stage-2 DiT's temporal axis for MD17, pedestrian and NBA (T=20..30). The
+kernels live in ``csrc/short_attention.cu``: a warp per (batch, head) pair,
+q/k/v read through packed strides, the n x n scores kept on chip; the
+backward recomputes them and saves nothing O(n²).
+
+On CUDA tensors that need a gradient the forward runs inside
+``_ShortAttention`` (the JAX ``custom_vjp``), whose backward is the K9
+backward kernel.
+
+Counters (plain integers, touched only where a kernel launches):
+``launches`` the forward kernel, ``bwd_launches`` the backward kernel.
+"""
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from lam_slide_tpu_torch.ops import _build
+from lam_slide_tpu_torch.ops._grad import needs_grad
+from lam_slide_tpu_torch.ops.flash_attention import _heads, _stream, reference_attention_packed
+
+launches = 0
+bwd_launches = 0
+
+MAX_DH = 64  # the kernels keep a q row and its accumulator in registers
+
+
+def reference_short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              num_heads: int, scale: Optional[float] = None) -> torch.Tensor:
+    """Plain K9 forward, packed ``[B, n, H*dh]`` in and out: fp32 logits and
+    softmax, weights cast to ``v.dtype`` for the AV product (``_scores``,
+    short_attention.py:73-80) — the plain packed attention."""
+    return reference_attention_packed(q, k, v, num_heads, scale)
+
+
+def reference_short_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             g: torch.Tensor, num_heads: int,
+                             scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_short_bwd_kernel``'s formulas on packed ``[B, n, H*dh]`` tensors ->
+    (dq, dk, dv) in q's dtype (short_attention.py:96-126).
+
+    P = softmax(q kᵀ · scale) in fp32; dV = bf16(P)ᵀ dO; dP = dO vᵀ;
+    delta = rowsum(P ⊙ dP) with P in fp32; dS = (P ⊙ (dP − delta) · scale)
+    rounded to the input dtype; dQ = dS k; dK = dSᵀ q; fp32 accumulation.
+    """
+    dtype = q.dtype
+    qh, kh, vh = (_heads(t, num_heads).float() for t in (q, k, v))
+    do = _heads(g.to(dtype), num_heads).float()
+    w = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
+    dv = torch.matmul(w.to(dtype).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, vh.transpose(-1, -2))
+    delta = (w * dp).sum(dim=-1, keepdim=True)
+    ds = (w * (dp - delta) * scale).to(dtype).float()
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    return tuple(t.transpose(1, 2).reshape(q.shape).to(dtype) for t in (dq, dk, dv))
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"short_attention: {name} must be on q's CUDA device, got {t.device}")
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"short_attention: {name} must be bfloat16, got {t.dtype}")
+        if t.shape != q.shape or t.dim() != 3:
+            raise ValueError(f"short_attention: {name} must be [B, n, H*dh] like q "
+                             f"{tuple(q.shape)}, got {tuple(t.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"short_attention: {name} needs unit stride on the last axis, "
+                             f"got {t.stride()}")
+    n, d_all = q.shape[1], q.shape[2]
+    if not 8 < n < 128:
+        raise ValueError(f"short_attention: sequence length {n} is not in (8, 128)")
+    if d_all % num_heads or not 0 < d_all // num_heads <= MAX_DH:
+        raise ValueError(f"short_attention: width {d_all} does not split into {num_heads} heads "
+                         f"of dh <= {MAX_DH}")
+
+
+def _forward(q, k, v, num_heads: int, scale: float) -> torch.Tensor:
+    """Launch the K9 forward on checked CUDA tensors -> packed output."""
+    _check(q, k, v, num_heads)
+    b, n, d_all = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:2]]
+    global launches
+    with torch.cuda.device(q.device):
+        _build.launch("lam_short_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), b, num_heads, n, d_all // num_heads, *strides,
+                      float(scale), _stream(q))
+    launches += 1
+    return out
+
+
+class _ShortAttention(torch.autograd.Function):
+    """K9 forward and backward: ``_short_core``'s VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return _forward(q, k, v, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return (*short_attention_backward(q, k, v, g, ctx.num_heads, ctx.scale), None, None)
+
+
+def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """softmax(q kᵀ · scale) v per head over packed ``[B, n, H*dh]`` operands
+    of one shape, 8 < n < 128 -> packed ``[B, n, H*dh]``.
+
+    CPU tensors take ``reference_short_attention``. CUDA tensors launch K9
+    (bf16, dh <= 64, unit stride on the last axis) or raise; when they need a
+    gradient, through ``_ShortAttention``, whose backward is K9's backward.
+    """
+    scale = float((q.shape[-1] // num_heads) ** -0.5 if scale is None else scale)
+    if q.device.type == "cpu":
+        return reference_short_attention(q, k, v, num_heads, scale)
+    if needs_grad(q, k, v):
+        return _ShortAttention.apply(q, k, v, num_heads, scale)
+    return _forward(q, k, v, num_heads, scale)
+
+
+def short_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             g: torch.Tensor, num_heads: int,
+                             scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``short_attention`` from its inputs and the output
+    gradient g, all packed ``[B, n, H*dh]``.
+
+    CPU tensors take ``reference_short_backward``. CUDA tensors launch K9's
+    backward kernel (bf16, dh <= 64) or raise; g is cast to q's dtype first,
+    as ``_short_core_bwd`` does.
+    """
+    if q.device.type == "cpu":
+        return reference_short_backward(q, k, v, g, num_heads, scale)
+    _check(q, k, v, num_heads)
+    g = g.to(q.dtype)
+    if g.shape != q.shape or g.device != q.device:
+        raise ValueError(f"short_attention_backward: g must be {tuple(q.shape)} on {q.device}, "
+                         f"got {tuple(g.shape)} on {g.device}")
+    if g.stride(-1) != 1:
+        g = g.contiguous()
+    b, n, d_all = q.shape
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
+    strides = (ctypes.c_longlong * 8)(*(s for t in (q, k, v, g) for s in t.stride()[:2]))
+    global bwd_launches
+    with torch.cuda.device(q.device):
+        _build.launch("lam_short_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, num_heads, n,
+                      d_all // num_heads, strides, dq.stride(0), dq.stride(1), float(scale),
+                      _stream(q))
+    bwd_launches += 1
+    return dq, dk, dv

@@ -197,6 +197,17 @@ class Sampler:
 
         return _sample
 
+    def get_sample_fn(self, sampling_method: str = "ODE",
+                      sampling_kwargs: Optional[Dict[str, Any]] = None) -> Callable:
+        """Dispatch with the reference's default kwargs (transport.py:475-503);
+        ODE only."""
+        if sampling_method != "ODE":
+            raise NotImplementedError(f"sampler {sampling_method!r}")
+        kw = {"sampling_method": "dopri5", "num_steps": 50, "atol": 1e-6, "rtol": 1e-3,
+              "reverse": False}
+        kw.update(sampling_kwargs or {})
+        return self.sample_ode(**kw)
+
 
 def create_transport(path_type: str = "Linear", prediction: str = "velocity",
                      loss_weight: Optional[str] = None, train_eps: Optional[float] = None,

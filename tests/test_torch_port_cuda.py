@@ -19,6 +19,7 @@ from lam_slide_tpu_torch.ops import flash_normrope as fnr
 from lam_slide_tpu_torch.ops import fused_adaln as fad
 from lam_slide_tpu_torch.ops import fused_mlp as fm
 from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
+from lam_slide_tpu_torch.ops import short_attention as tsa
 
 pytestmark = pytest.mark.cuda
 
@@ -50,6 +51,16 @@ K6_REL_TOL = 8.7e-3
 # seeds per shape (python -m lam_slide_tpu_torch.tools.lse_readings).
 LSE_ATOL = {"K1": {24: 6e-6, 64: 9e-6, 128: 2.3e-5},
             "K5": {24: 2e-2, 64: 2.3e-5, 128: 2.6e-2}}
+# K1 with fp32 operands against its plain version (fp32 cuBLAS products and
+# softmax), relative to max |out|: both are exact fp32 up to the order of
+# the sums and the kernel's online rescaling, a few fp32 ulps; the limit is
+# chip_smoke.py's.
+K1_F32_REL_TOL = 1e-5
+# K9's grads against its plain backward, per grad relative to its max: both
+# round P and dS to bf16 at the same points, but a weight summed in another
+# order can land one bf16 ulp apart. The limit chip_smoke.py uses (3x its
+# first reading at the MD17 shape); the gain must be within 1e-3 of 1.
+K9_GRAD_REL_TOL = 8.6e-3
 # A depth-2 DiT's parameter grads, kernel path vs plain path (bf16): worst
 # per-tensor relative error (norm of the difference over the norm); the
 # limit chip_smoke.py holds the full-width DiT to at B=2.
@@ -269,6 +280,34 @@ def test_flash_backward_matches_plain(dev, b, h, nq, nk, dh):
     _assert_grads_close(got, want, K4_REL_TOL)
 
 
+@pytest.mark.parametrize("b,h,n,dh", [(4200, 16, 130, 24), (22000, 3, 20, 128)])
+def test_flash_grids_take_more_than_65535_batch_heads(dev, b, h, n, dh):
+    """The flash kernels launch on one grid axis of (batch·head, tile)
+    pairs. Past gridDim.y's cap of 65,535 pairs (the MD17 DiT's spatial axis
+    has 153,600), K1 and K4 at dh 24, and K5 and K6 at dh 128, still match
+    their plain versions."""
+    g = _gen(13)
+    q, k, v, grad = _heads_views(g, dev, b, h, n, n, dh, scale=1.0 if dh % 128 else 2.0)
+    scale = dh ** -0.5
+    if dh % 128:
+        out, lse = fa._forward(q, k, v, scale, with_lse=True)
+        _assert_k1_close(out, fa.reference_attention(q, k, v, scale))
+        args = (q, k, v, out, lse, grad, scale)
+        kernel, plain, tol = fa.flash_attention_backward, fa.reference_flash_backward, K4_REL_TOL
+    else:
+        qs, ks = ((1 + 0.2 * torch.randn(dh, generator=g)).to(dev) for _ in range(2))
+        cos, sin = rope_cos_sin(n, dh, device=dev)
+        out, lse = fnr._forward(q, k, v, qs, ks, cos, sin, scale, with_lse=True)
+        _assert_k1_close(out, fnr.reference_attention_normrope(q, k, v, qs, ks, cos, sin, scale))
+        args = (q, k, v, qs, ks, cos, sin, out, lse, grad, scale)
+        kernel, plain, tol = (fnr.flash_attention_normrope_backward,
+                              fnr.reference_normrope_backward, K6_REL_TOL)
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, tol)
+
+
 @pytest.mark.parametrize("b,h,nq,nk,dh", SHAPES_BWD)
 def test_flash_normrope_backward_matches_plain(dev, b, h, nq, nk, dh):
     """K6: grads with respect to the transformed q/k, and dv."""
@@ -287,12 +326,137 @@ def test_flash_normrope_backward_matches_plain(dev, b, h, nq, nk, dh):
 
 
 def test_flash_refuses_what_it_cannot_take(dev):
-    q = torch.zeros(1, 2, 128, 24, device=dev)
+    q = torch.zeros(1, 2, 128, 80, device=dev)
     with pytest.raises(ValueError):
-        fa.flash_attention(q, q, q)  # fp32
+        fa.flash_attention(q, q, q)  # fp32 with dh > 64
     wide = torch.zeros(1, 2, 128, 160, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention(wide, wide, wide)  # dh > 128
+    with pytest.raises(ValueError):
+        fa.flash_attention(wide[..., :16], wide[..., :16], wide[..., :16],
+                           mask=torch.ones(1, 64, dtype=torch.bool, device=dev))  # [B, 128]
+
+
+def _key_mask(g, dev, b, nk):
+    """Ragged key-padding mask; batch row 0 fully masked."""
+    lengths = torch.randint(1, nk + 1, (b,), generator=g)
+    mask = torch.arange(nk)[None, :] < lengths[:, None]
+    mask[0] = False
+    return mask.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,nq,nk,dh", [
+    (4, 8, 192, 50, 16),    # the MD17 encoder's cross-attention
+    (3, 2, 192, 192, 16),   # its self-attention
+    (3, 3, 130, 257, 24),   # ragged: keys not a multiple of either tile
+])
+def test_flash_with_mask_matches_plain(dev, dtype, b, h, nq, nk, dh):
+    """K1 with the key-padding bias row (an all-masked row gets uniform
+    weights over its keys on both sides), in bf16 and with fp32 operands;
+    counted under its variant counters."""
+    g = _gen(15)
+    q, k, v, _ = _heads_views(g, dev, b, h, nq, nk, dh)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    mask = _key_mask(g, dev, b, nk)
+    before = (fa.launches, fa.bias_launches, fa.fp32_launches)
+    got = fa.flash_attention(q, k, v, mask=mask)
+    fp32 = dtype == torch.float32
+    assert (fa.launches, fa.bias_launches, fa.fp32_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + fp32)
+    want = fa.reference_attention(q, k, v, mask=mask)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    if fp32:
+        err = (got - want).abs().max().item()
+        assert err <= K1_F32_REL_TOL * want.abs().max().item()
+        unmasked = fa.flash_attention(q, k, v)
+        assert not torch.allclose(unmasked[0], got[0])
+    else:
+        _assert_k1_close(got, want)
+    torch.testing.assert_close(got[0].float(), v[0].float().mean(dim=1, keepdim=True)
+                               .expand_as(got[0]), atol=2e-2 if not fp32 else 1e-5, rtol=0)
+
+
+def _short_views(g, dev, b, n, heads, dh):
+    """q/k as contiguous packed [B, n, H*dh] tensors and v a view of a
+    wider buffer, as the DiT's temporal block hands them over."""
+    q, k = (torch.randn(b, n, heads * dh, generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn(b, n, 3 * heads * dh, generator=g).to(dev, torch.bfloat16)[..., -heads * dh:]
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,n,heads,dh", [
+    (256, 30, 16, 16),   # the MD17 temporal axis
+    (7, 9, 3, 24),       # shortest axis, dh padded to 32
+    (5, 31, 2, 64),      # one past a warp of rows
+    (3, 127, 4, 16),     # longest axis
+])
+def test_short_attention_matches_plain(dev, b, n, heads, dh):
+    """K9 forward (K1's limits) and its backward kernel against the plain
+    backward, per grad (K4's limit and gain); the autograd Function routes a
+    backward through the kernel."""
+    g = _gen(16)
+    q, k, v = _short_views(g, dev, b, n, heads, dh)
+    before = tsa.launches
+    got = tsa.short_attention(q, k, v, heads)
+    assert tsa.launches == before + 1
+    want = tsa.reference_short_attention(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _assert_k1_close(got, want)
+
+    grad = torch.randn(b, n, heads * dh, generator=g).to(dev, torch.bfloat16)
+    scale = dh ** -0.5
+    before = tsa.bwd_launches
+    grads = tsa.short_attention_backward(q, k, v, grad, heads, scale)
+    assert tsa.bwd_launches == before + 1
+    _assert_grads_close(grads, tsa.reference_short_backward(q, k, v, grad, heads, scale),
+                        K9_GRAD_REL_TOL)
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = (tsa.launches, tsa.bwd_launches)
+    tsa.short_attention(*leaves, heads).backward(grad)
+    assert (tsa.launches, tsa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    for leaf, want_grad in zip(leaves, grads):
+        torch.testing.assert_close(leaf.grad, want_grad, atol=0, rtol=0)
+
+
+def test_md17_dit_kernel_path_matches_plain_path(dev):
+    """The MD17 stage-2 DiT's widths (hidden 256, 16 x dh 16, L=192, T=30)
+    at depth 1: K3 on the spatial axis and K9 on the temporal axis, one each
+    per forward, against the plain path; grads through K9's backward and K4."""
+    model = LatentDiT(depth=1, in_dim=32, hidden_size=256, num_heads=16, vec_in_dim=256,
+                      reference_init=False, dtype=torch.bfloat16, device=dev,
+                      generator=_gen(17))
+    g = _gen(18)
+    x = torch.randn(2, 30, 192, 32, generator=g).to(dev)
+    t = torch.tensor([0.3, 0.7], device=dev)
+    mask = torch.zeros(2, 30, 192, dtype=torch.long, device=dev)
+    mask[:, :10] = 1
+    x_cond, y = x * mask[..., None], torch.randn(2, 256, generator=g).to(dev)
+    with torch.no_grad():
+        before = (fa.launches, tsa.launches)
+        got = model(x, t, x_cond, mask, y)
+        assert (fa.launches - before[0], tsa.launches - before[1]) == (1, 1)
+        model.backend = "plain"
+        want = model(x, t, x_cond, mask, y)
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    grads = {}
+    for backend in ("auto", "plain"):
+        model.backend = backend
+        model.zero_grad(set_to_none=True)
+        before = (tsa.bwd_launches, fa.bwd_kv_launches)
+        model(x, t, x_cond, mask, y).square().mean().backward()
+        launched = (tsa.bwd_launches - before[0], fa.bwd_kv_launches - before[1])
+        assert launched == ((1, 1) if backend == "auto" else (0, 0))
+        grads[backend] = {n: p.grad for n, p in model.named_parameters()}
+    for name, got_grad in grads["auto"].items():
+        want_grad = grads["plain"][name]
+        assert bool(torch.isfinite(got_grad).all()), name
+        err = (got_grad - want_grad).norm().item()
+        assert err <= DIT_GRAD_REL_TOL * want_grad.norm().item(), name
 
 
 @pytest.mark.parametrize("rows,d_in,d_mid,d_out", [

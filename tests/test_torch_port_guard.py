@@ -6,15 +6,18 @@
   untouched); on any other device they launch or raise, with no fallback,
   and inputs that need a gradient go through a ``torch.autograd.Function``
   (the kernels write through raw pointers, which autograd cannot see).
+* A masked or fp32 flash call (K1) that needs a gradient raises, since the
+  backward kernel (K4) has neither the bias nor fp32 yet.
 * A failed kernel build raises.
-* The DiT is built on the card unless the CPU is asked for, and the ODE
-  sampler defaults to dopri5, as the JAX package's does.
+* The DiT and both MD17 stages are built on the card unless the CPU is asked
+  for, and the ODE sampler defaults to dopri5, as the JAX package's does.
 * ``chip_smoke.py`` fails without a GPU and prints no result, and its K1
   limits refuse a kernel that leaves the last key tile unmasked.
 """
 
 import ast
 import importlib.util
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -22,6 +25,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from lam_slide_tpu_torch.composites import md17 as tmd17
 from lam_slide_tpu_torch.models import LatentDiT
 from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
 from lam_slide_tpu_torch.ops import _build
@@ -30,6 +34,7 @@ from lam_slide_tpu_torch.ops import flash_normrope as fnr
 from lam_slide_tpu_torch.ops import fused_adaln as fad
 from lam_slide_tpu_torch.ops import fused_mlp as fm
 from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
+from lam_slide_tpu_torch.ops import short_attention as tsa
 from lam_slide_tpu_torch.transport import Sampler, create_transport
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -69,8 +74,9 @@ def test_no_sdpa_in_port():
     assert inside >= 1 and text.count("scaled_dot_product_attention") == inside
 
 
-WRAPPER_MODULES = [fa, fnr, fad, fm, fsb]
-COUNTERS = ("launches", "bwd_kv_launches", "bwd_q_launches")
+WRAPPER_MODULES = [fa, fnr, fad, fm, fsb, tsa]
+COUNTERS = ("launches", "bias_launches", "fp32_launches", "bwd_kv_launches", "bwd_q_launches",
+            "bwd_launches")
 
 
 def _zero_counters(monkeypatch):
@@ -93,6 +99,25 @@ def test_wrappers_have_no_try(module):
 
 def _attn_inputs(device):
     return [torch.zeros(1, 2, 130, 24, dtype=torch.bfloat16, device=device) for _ in range(3)]
+
+
+def _masked_attn_inputs(device):
+    mask = torch.ones(1, 130, dtype=torch.bool, device=device)
+    mask[:, 100:] = False
+    return (*_attn_inputs(device), mask)
+
+
+def _fp32_attn_inputs(device):
+    return [t.float() for t in _attn_inputs(device)]
+
+
+def _short_inputs(device):
+    return [torch.zeros(1, 30, 48, dtype=torch.bfloat16, device=device) for _ in range(3)]
+
+
+def _short_backward_inputs(device):
+    return (*_short_inputs(device), torch.zeros(1, 30, 48, dtype=torch.bfloat16, device=device),
+            2, 0.2)
 
 
 def _mlp_inputs(device):
@@ -147,13 +172,23 @@ WRAPPERS = [
     ("K7 no residual", lambda x, h, g, s, c: fad.adaln_modulate(x, s, c), fad,
      "reference_adaln_modulate", _adaln_inputs),
     ("K8", fsb.fused_spatial_block, fsb, "reference_spatial_block", _spatial_inputs),
+    ("K9", lambda q, k, v: tsa.short_attention(q, k, v, 2), tsa, "reference_short_attention",
+     _short_inputs),
+]
+# K1's masked and fp32 calls: forward only (K4 has neither, test below)
+FORWARD_ONLY_WRAPPERS = [
+    ("K1 masked", lambda q, k, v, m: fa.flash_attention(q, k, v, mask=m), fa,
+     "reference_attention", _masked_attn_inputs),
+    ("K1 fp32", fa.flash_attention, fa, "reference_attention", _fp32_attn_inputs),
 ]
 BACKWARD_WRAPPERS = [
     ("K4", fa.flash_attention_backward, fa, "reference_flash_backward", _backward_inputs),
     ("K6", fnr.flash_attention_normrope_backward, fnr, "reference_normrope_backward",
      _normrope_backward_inputs),
+    ("K9 backward", tsa.short_attention_backward, tsa, "reference_short_backward",
+     _short_backward_inputs),
 ]
-ALL_WRAPPERS = WRAPPERS + BACKWARD_WRAPPERS
+ALL_WRAPPERS = WRAPPERS + FORWARD_ONLY_WRAPPERS + BACKWARD_WRAPPERS
 
 
 @pytest.mark.parametrize("name,wrapper,module,plain,inputs", ALL_WRAPPERS,
@@ -219,6 +254,23 @@ def test_non_cpu_tensors_that_need_a_grad_reach_an_autograd_function(
         assert not reached
 
 
+@pytest.mark.parametrize("name,wrapper,module,plain,inputs", FORWARD_ONLY_WRAPPERS,
+                         ids=[w[0] for w in FORWARD_ONLY_WRAPPERS])
+def test_masked_or_fp32_flash_that_needs_a_grad_raises(monkeypatch, name, wrapper, module, plain,
+                                                        inputs):
+    """K4 has no key-padding bias and no fp32 kernel yet: a masked or fp32
+    K1 call on the card that needs a gradient raises instead of launching
+    K4 without the bias (or the Function at all), and counts nothing; under
+    no_grad it goes on to launch (here: meta tensors, refused by the check)."""
+    _zero_counters(monkeypatch)
+    args = [t.requires_grad_() if t.is_floating_point() else t for t in inputs("meta")]
+    with pytest.raises(NotImplementedError, match="K4"):
+        wrapper(*args)
+    with torch.no_grad(), pytest.raises(ValueError):
+        wrapper(*args)
+    assert not any(_counts())
+
+
 def test_dit_is_built_on_the_card_unless_the_cpu_is_asked_for():
     """Fault repaired: ``LatentDiT(device=None)`` used to build on the CPU, so
     a missing card ran the whole model there without a word."""
@@ -229,6 +281,25 @@ def test_dit_is_built_on_the_card_unless_the_cpu_is_asked_for():
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             LatentDiT(**kw)
+
+
+def test_md17_stages_are_built_on_the_card_unless_the_cpu_is_asked_for():
+    cfg1 = tmd17.MD17FirstStageConfig(num_entities=6, dim_input=8, dim_latent=4, dim_entity=8,
+                                      num_latents=3, dim_head_cross=2, dim_head_latent=2)
+    cfg2 = tmd17.MD17SecondStageConfig(depth=1, in_dim=4, hidden_size=8, num_heads=2,
+                                       class_conditional=True, vec_in_dim=8)
+    fs = tmd17.build_md17_first_stage(cfg1, device="cpu")
+    assert {p.device.type for p in [*fs.parameters(), *fs.buffers()]} == {"cpu"}
+    ss = tmd17.build_md17_second_stage(cfg2, fs, device="cpu")
+    assert {p.device.type for p in ss.backbone.parameters()} == {"cpu"}
+    if torch.cuda.is_available():
+        assert next(tmd17.build_md17_first_stage(cfg1).parameters()).is_cuda
+        assert next(tmd17.build_md17_second_stage(cfg2, fs).backbone.parameters()).is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            tmd17.build_md17_first_stage(cfg1)
+        with pytest.raises((AssertionError, RuntimeError)):
+            tmd17.build_md17_second_stage(cfg2, fs)
 
 
 def test_sample_ode_defaults_to_dopri5():
@@ -260,12 +331,13 @@ def test_sampling_records_no_autograd_graph(method):
 
 
 def test_masks_are_refused():
-    q, k, v = _attn_inputs("cpu")
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, k, v, mask=torch.ones(1, 130, dtype=torch.bool))
+    """K1 takes a key-padding mask now; K5 still refuses one on every
+    device, and the packed entries (K3, K9) take none, as in JAX."""
     with pytest.raises(NotImplementedError):
         fnr.flash_attention_normrope(*_normrope_inputs("cpu"),
                                      mask=torch.ones(1, 130, dtype=torch.bool))
+    for entry in (fa.flash_attention_packed, tsa.short_attention):
+        assert "mask" not in inspect.signature(entry).parameters
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -279,7 +351,8 @@ def test_failed_build_raises(monkeypatch, tmp_path):
 def test_build_key_covers_every_source():
     names = {p.name for p in _build.sources()}
     assert {"flash_attention.cu", "flash_attention_bwd.cu", "flash_tiles.cuh", "fused_mlp.cu",
-            "fused_adaln.cu", "fused_spatial_block.cu", "common.cu", "common.cuh"} <= names
+            "fused_adaln.cu", "fused_spatial_block.cu", "short_attention.cu", "common.cu",
+            "common.cuh"} <= names
     assert _build.source_hash() == _build.source_hash()
 
 
