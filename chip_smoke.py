@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
-The main paths are the 4AA stage-2 sampler, the 4AA stage-2 train step and
-the MD17 sampling protocol. The 4AA paths run the full-width ``LatentDiT``
+The main paths are the 4AA stage-2 sampler, the 4AA stage-2 train step, the
+MD17 sampling protocol and the MD17 training of both stages. The 4AA paths run the full-width ``LatentDiT``
 (depth 7, hidden 384, mlp_ratio 2, T=1000 frames, L=2 latents, in_dim 96,
 bf16) with random weights drawn from a seed, at both head splits (16
 heads x dh 24 and 3 heads x dh 128). The sampler is the GVP
@@ -20,10 +20,10 @@ printed on its own line with its seconds:
    with QKNorm + RoPE, K7 residual AdaLN, K8 spatial block) against its
    plain PyTorch version at main-path shapes at B=2 and B=8 in bf16, then
    the backward kernels K4 (flash) and K6 (flash with QKNorm + RoPE) and
-   the lse outputs of K1 and K5 at the train shapes and a ragged one, with
-   the tolerance stated beside each check, its time, the plain version's
-   time, its bound and, where one PyTorch call computes the same function,
-   that call's time;
+   the lse outputs of K1 and K5 at the train shapes and a ragged one, and
+   the MD17 kernels (below), with the tolerance stated beside each check,
+   its time, the plain version's time, its bound and, where one PyTorch
+   call computes the same function, that call's time;
 4. slice: Euler-10 solves at 16x24 (B=2, B=8) and 3x128 (B=8) and one
    dopri5 solve (16x24, B=8) through the kernels, checking shapes,
    finiteness and the launches of every kernel per solve, and one model
@@ -42,19 +42,35 @@ printed on its own line with its seconds:
    peak memory at B=16 of the kernel path and the plain path (at 16 x 24
    also with per-layer checkpointing), and one profiled step per split;
 9. md17: the MD17 K-repeat protocol (``evaluate_md17``, K=5, Euler-10, at
-   the loaders' B=64) on both stages at the registry's full widths: the fp32
-   stage 1 (MD17FirstStageConfig(): 192 latents of 32, cross-attention 8 x
-   dh 16 over 50 padded atoms, latent attention 2 x dh 16) and the bf16
+   the loaders' B=64) on both stages built by the port's registry at full
+   width: the fp32 stage 1 (192 latents of 32, cross-attention 8 x dh 16
+   over 32 padded atoms, latent attention 2 x dh 16) and the bf16
    class-conditional DiT (depth 4, hidden 256, 16 x dh 16, T=30, L=192),
-   random weights from the seed and a batch of molecules of 9-21 atoms made
-   from it. It checks the launches of K1 (bias, fp32, bf16), K2, K3, K7 and
-   K9 per protocol batch, finite ADE/FDE, and the decoded positions of the
-   kernel path against the plain path on the same weights and noise; times
-   one protocol batch on both paths and profiles it. Its kernels are
-   checked against their plain versions in phase 3 at the protocol's
-   shapes: K1 with the key-padding bias and with fp32 operands and K9
-   forward and backward (also at ragged shapes), and K3, K2 and K7 at the
-   DiT's 1.84 M tokens.
+   random weights from the seed and a batch from the ported loader
+   (synthetic trajectories). It checks the launches of K1 (bias, fp32,
+   bf16), K2, K3, K7 and K9 per protocol batch, finite ADE/FDE, and the
+   decoded positions of the kernel path against the plain path on the same
+   weights and noise; times one protocol batch on both paths and profiles
+   it;
+10. md17_train: both MD17 training experiments of the registry at full
+   width on batches of the ported loader: stage 1 (fp32, B=256, AdamW lr
+   4e-4, dropout from the step's generator), then stage 2 on it (the bf16
+   DiT, B=64, per-layer checkpointing, the SI loss plus the aux position
+   and inter-distance losses through the frozen stage 1, lr 1e-3, EMA
+   0.999). For each stage: the launches of every kernel per step (derived
+   from the code, checkpointed recompute included), every grad finite and
+   non-zero, grads of the kernel path against the plain path on the same
+   draws (stage 2 at B=2), ten steps on one batch in which the loss (and
+   stage 2's SI loss) falls and every metric stays finite, step times and
+   peak memory of both paths, a profiled step; then ten stage-2 steps on
+   the aux losses alone, in which their sum falls, and one call of the
+   sampled val hook on the EMA weights.
+
+The MD17 kernels are checked against their plain versions in phase 3: K1
+with the key-padding bias and with fp32 operands (and its lse), K9 forward
+and backward at the protocol's shapes, K3, K2 and K7 at the DiT's 1.84 M
+tokens, and K4 with the bias (fp32 and bf16) and with fp32 operands at the
+training shapes, each also at ragged shapes with an all-masked row.
 
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -165,11 +181,18 @@ TIMED_STEPS = 5
 # readings on an H100, worst of the two splits: against the plain bf16 path
 # 2.572e-5 and 5.259e-3, against a float32 plain copy 1.008e-3 and
 # 1.506e-2. Each limit is 3x that.
-# MD17 protocol (experiments/registry.py:251-286): K=5 repeats, Euler-10,
-# B=64 trajectories of T=30 frames, molecules padded to 50 atoms.
-MD17_BATCH, MD17_K, MD17_T, MD17_ATOMS = 64, 5, 30, 50
+# MD17 (experiments/registry.py:155-300): the protocol's K=5 repeats,
+# Euler-10, B=64 trajectories of T=30 frames, molecules padded to 32 atoms;
+# stage 1 trains on B=256 single frames.
+MD17_BATCH, MD17_K, MD17_T, MD17_ATOMS = 64, 5, 30, 32
+MD17_S1_BATCH = 256
 MD17_DRIFT_EVALS = DRIFT_EVALS
 MD17_DEPTH = 4
+# Synthetic trajectory frames per molecule (data/md17.py's fallback when no
+# raw MD17 file exists): after the 10x downsampling and the 0.6/0.2/0.2
+# split this fills the reference's 5000 train windows and the 256 val
+# windows the registry keeps, as the real trajectories do.
+MD17_FRAMES = 100_000
 # K1 with fp32 operands against its plain version, relative to max |out|:
 # both are exact fp32 up to the order of the sums and the kernel's online
 # rescale, a few fp32 ulps (~80 ulps allowed; first readings on an H100 at
@@ -183,6 +206,23 @@ K1_F32_REL_TOL = 1e-5
 # the protocol shape: 2.857e-3 (dv); the limit is 3x that. The gain of each
 # grad must be within K1_GAIN_TOL of 1.
 K9_GRAD_REL_TOL = 8.6e-3
+# K4 with fp32 operands (and K1-fp32's lse) against the plain versions, per
+# grad relative to its max |grad|: both are exact fp32 up to the order of the
+# sums, like K1-fp32, so the same limit. First readings on an H100 at the
+# MD17 training shapes and ragged ones: 0 (bit-identical) for every grad;
+# K1-fp32 lse within 1.431e-6 (the K1 lse limit at dh 24 covers it 4x).
+K4_F32_REL_TOL = 1e-5
+LSE_F32_ATOL = 6e-6
+# MD17 train steps, kernel path vs plain path on the same draws: (relative
+# error of the global grad norm, worst per-tensor ||g - g_ref|| / ||g_ref||).
+# Stage 1 at B=256 in fp32: exact fp32 on both sides up to the order of the
+# sums (K4-fp32 matches its plain version bit for bit, K1-fp32 to ~1e-7).
+# Stage 2 at B=2: the bf16 DiT (whose roundings differ in order, as at 4AA)
+# and the fp32 aux decode. First readings on an H100: stage 1 1.002e-8 and
+# 5.958e-7, stage 2 4.043e-6 and 3.393e-3 (vec_in_embedding); each limit is
+# 3x that.
+S1_GRAD_REL_TOL = (3e-8, 1.8e-6)
+MD17_GRAD_REL_TOL = (1.2e-5, 1.0e-2)
 # Decoded positions of the MD17 protocol batch, kernel path vs plain path on
 # the same weights and noise, relative to max |pos|: nine Euler steps of a
 # bf16 DiT whose roundings differ in order, then the fp32 decoder. First
@@ -225,19 +265,18 @@ def library_times(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     with a ``[B, Nk]`` key-padding ``mask``, its boolean ``attn_mask``."""
     from torch.nn.functional import scaled_dot_product_attention
 
+    attn_mask = None if mask is None else mask[:, None, None, :]
+
+    def fwd():
+        return scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=scale)
+
     if grad is None:
-        attn_mask = None if mask is None else mask[:, None, None, :]
-        return time_ms(lambda: scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
-                                                            scale=scale))
+        return time_ms(fwd)
     q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-
-    def fwd_bwd():
-        scaled_dot_product_attention(q, k, v, scale=scale).backward(grad)
-
     with torch.enable_grad():
-        both = time_ms(fwd_bwd)
-        fwd = time_ms(lambda: scaled_dot_product_attention(q, k, v, scale=scale))
-    return both - fwd
+        both = time_ms(lambda: fwd().backward(grad))
+        fwd_only = time_ms(fwd)
+    return both - fwd_only
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
@@ -526,6 +565,12 @@ def _key_mask(gen, b: int, nk: int, dev, lo: int = 1):
     return mask.to(dev)
 
 
+def _atom_mask(gen, b: int, dev):
+    """An MD17 key-padding mask [B, 32]: molecules of 9..21 atoms."""
+    lengths = torch.randint(9, 22, (b,), generator=gen)
+    return (torch.arange(MD17_ATOMS)[None, :] < lengths[:, None]).to(dev)
+
+
 def _check_f32(got, want, name):
     err, rel = errors(got, want)
     check(got.dtype == torch.float32 and got.shape == want.shape, f"{name} shape/dtype")
@@ -546,13 +591,12 @@ def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
     frames = MD17_BATCH * MD17_T
     dh = 16
 
-    # K1-bias: the encoder's cross-attention, 192 latent queries over 50
+    # K1-bias: the encoder's cross-attention, 192 latent queries over 32
     # padded atoms, 8 heads, fp32; molecules of 9..21 atoms
     q = _rand(gen, frames, 192, 8 * dh).to(dev).unflatten(-1, (8, dh)).transpose(1, 2)
     kv = _rand(gen, frames, MD17_ATOMS, 16 * dh).to(dev).unflatten(-1, (2, 8, dh))
     k, v = (t.transpose(1, 2) for t in kv.unbind(2))
-    mask = _key_mask(gen, frames, MD17_ATOMS, dev, lo=9)
-    mask[1:] &= torch.arange(MD17_ATOMS, device=dev)[None, :] < 22
+    mask = _atom_mask(gen, frames, dev)
     args = (q, k, v)
     got, want = fa.flash_attention(*args, mask=mask), fa.reference_attention(*args, mask=mask)
     torch.cuda.synchronize()
@@ -648,14 +692,14 @@ def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
             check(abs(gn - 1) <= K1_GAIN_TOL, f"K9 backward n={n} {nm} gain {gn}")
         if key == "K9 backward":
             # five products (2.5x the forward's FLOPs); q/k/v/dO read and
-            # dq/dk/dv written once in bf16
-            ms = time_ms(lambda: tsa.short_attention_backward(*bargs), reps=10)
-            plain_ms = time_ms(lambda: tsa.reference_short_backward(*bargs), reps=3)
-            lib = library_times(*heads, scale, grad=g.unflatten(-1, (16, dh)).transpose(1, 2))
-            bound_ms, bound_by = bound(2.5 * 4 * seqs * n * n * d, 7 * seqs * n * d * 2)
-            print(f"kernel K9 backward [{seqs},{n},{d}]: kernel {ms:.4f} ms plain {plain_ms:.4f} "
-                  f"ms library {lib:.4f} ms (SDPA fwd+bwd - fwd) bound {bound_ms:.4f} ms "
-                  f"({bound_by})")
+            # dq/dk/dv written once in bf16; library: SDPA fwd+bwd - fwd
+            table.add("K9 bwd", f"packed q/k/v/dO [{seqs},{n},{d}], 16 x {dh}",
+                      max(e[0] for e in errs), f"rel tol {K9_GRAD_REL_TOL} per grad, gain tol "
+                      f"{K1_GAIN_TOL}", time_ms(lambda: tsa.short_attention_backward(*bargs),
+                                                reps=10),
+                      time_ms(lambda: tsa.reference_short_backward(*bargs), reps=3),
+                      2.5 * 4 * seqs * n * n * d, 7 * seqs * n * d * 2,
+                      library_times(*heads, scale, grad=g.unflatten(-1, (16, dh)).transpose(1, 2)))
         del got, want
     torch.cuda.empty_cache()
 
@@ -703,45 +747,104 @@ def md17_dit_kernel_checks(dev, gen, table: KernelTable) -> None:
     torch.cuda.empty_cache()
 
 
-def md17_batch(dev):
-    """One MD17 stage-2 batch in the loaders' layout (data/md17.py:174-244),
-    from the seed: B=64 trajectories of 30 frames, molecules of 9..21 atoms
-    padded to 50 with ``attention_mask``, atom types, per-trajectory entity
-    permutations broadcast over the frames, a class id per trajectory, and
-    positions as frame-0-centered random walks."""
-    rng = np.random.default_rng(SEED)
-    b, t, n = MD17_BATCH, MD17_T, MD17_ATOMS
-    n_real = rng.integers(9, 22, size=b)
-    atom_mask = np.arange(n)[None, :] < n_real[:, None]
-    steps = rng.standard_normal((b, t, n, 3)).astype(np.float32) * 0.05
-    steps[:, 0] = rng.standard_normal((b, n, 3)) * 1.5
-    pos = np.cumsum(steps, axis=1) * atom_mask[:, None, :, None]
-    pos -= (pos[:, :1].sum(axis=2, keepdims=True)
-            / n_real[:, None, None, None]) * atom_mask[:, None, :, None]
-    perms = np.stack([rng.permutation(n) for _ in range(b)]) * atom_mask
-    batch = {"pos": pos.astype(np.float32),
-             "atom": np.broadcast_to((rng.integers(0, 10, (b, n)) * atom_mask)[:, None],
-                                     (b, t, n)),
-             "entities": np.broadcast_to(perms[:, None], (b, t, n)),
-             "attention_mask": np.broadcast_to(atom_mask[:, None], (b, t, n)),
-             "cond_molecule": rng.integers(0, 8, size=b)}
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in batch.items()}
+def md17_train_kernel_checks(dev, gen, table: KernelTable) -> None:
+    """K1-fp32's lse and K4 with the key-padding bias (fp32 and bf16) and with
+    fp32 operands against the plain versions at the MD17 training shapes:
+    stage 1's encoder cross-attention [256, 8, 192 -> 32, 16] with the bias
+    and its latent self-attention [256, 2, 192, 16], the stage-2 aux decode's
+    self-attention [1920, 2, 192, 16]; and ragged [3, 3, 130, 257, 24] with an
+    all-masked row. Table rows K4 bias (the encoder's, fp32) and K4 fp32 (the
+    aux decode's)."""
+    from lam_slide_tpu_torch.ops import flash_attention as fa
+
+    f32, bf, dh = torch.float32, torch.bfloat16, 16
+    cases = (("K4 bias", MD17_S1_BATCH, 8, 192, MD17_ATOMS, dh, f32),
+             ("K4 bias bf16", MD17_S1_BATCH, 8, 192, MD17_ATOMS, dh, bf),
+             ("K4 fp32 stage 1", MD17_S1_BATCH, 2, 192, 192, dh, f32),
+             ("K4 fp32", MD17_BATCH * MD17_T, 2, 192, 192, dh, f32),
+             ("K4 bias fp32 ragged", 3, 3, 130, 257, 24, f32),
+             ("K4 bias bf16 ragged", 3, 3, 130, 257, 24, bf))
+    for key, b, h, nq, nk, hd, dtype in cases:
+        # q a view of to_q's output, k/v views of to_kv's, as Attention makes them
+        q = _rand(gen, b, nq, h * hd).to(dev, dtype).unflatten(-1, (h, hd)).transpose(1, 2)
+        k, v = (t.transpose(1, 2) for t in _rand(gen, b, nk, 2 * h * hd).to(dev, dtype)
+                .unflatten(-1, (2, h, hd)).unbind(2))
+        g = _rand(gen, b, h, nq, hd).to(dev, dtype)
+        mask = (None if "bias" not in key else _key_mask(gen, b, nk, dev) if "ragged" in key
+                else _atom_mask(gen, b, dev))
+        bias = None if mask is None else fa.mask_to_bias(mask)
+        scale = hd ** -0.5
+        out, lse = fa._forward(q, k, v, scale, with_lse=True, mask=mask)
+        _, want_lse = fa.reference_attention(q, k, v, scale, return_lse=True, mask=mask)
+        args = (q, k, v, out, lse, g, scale)
+        got = fa.flash_attention_backward(*args, mask=mask)
+        want = fa.reference_flash_backward(*args, bias)
+        torch.cuda.synchronize()
+        fp32 = dtype == f32
+        lse_err = (lse - want_lse).abs().max().item()
+        lse_atol = LSE_F32_ATOL if fp32 else LSE_ATOL["K1"][24]
+        rel_tol = K4_F32_REL_TOL if fp32 else K4_REL_TOL
+        errs = _grad_errors(got, want)
+        detail = ", ".join(f"{n} rel {r:.3e} gain {gn:.7f}"
+                           for n, (_, r, gn) in zip(("dq", "dk", "dv"), errs))
+        print(f"kernel {key} [{b},{h},{nq},{nk},{hd}] {str(dtype)[6:]}: {detail} (rel tol "
+              f"{rel_tol}); K1 lse max_abs_err {lse_err:.3e} (atol {lse_atol})")
+        check(lse_err <= lse_atol, f"K1 lse err {lse_err} > {lse_atol} at {key}")
+        for name, (_, rel, gn) in zip(("dq", "dk", "dv"), errs):
+            check(rel <= rel_tol, f"{key} {name} rel err {rel} > {rel_tol}")
+            check(abs(gn - 1) <= K1_GAIN_TOL, f"{key} {name} gain {gn} off 1 by > {K1_GAIN_TOL}")
+        if key in ("K4 bias", "K4 fp32"):
+            # five products (2.5x the forward's FLOPs) at fp32's rate; q, out,
+            # dO, dq and k, v, dk, dv once in fp32, lse and the bias row once
+            nbytes = 4 * (4 * b * h * nq * hd + 4 * b * h * nk * hd + b * h * nq
+                          + (0 if mask is None else b * nk))
+            table.add(key, f"fp32 q/k/v/dO [{b},{h},{nq}->{nk},{hd}] strided views"
+                      f"{', bias' if mask is not None else ''}", max(e[0] for e in errs),
+                      f"rel tol {rel_tol} per grad, gain tol {K1_GAIN_TOL}",
+                      time_ms(lambda: fa.flash_attention_backward(*args, mask=mask), reps=10),
+                      time_ms(lambda: fa.reference_flash_backward(*args, bias), reps=3),
+                      2.5 * 4 * b * h * nq * nk * hd, nbytes,
+                      library_times(q, k, v, scale, grad=g, mask=mask), peak=PEAK_FP32_FLOPS)
+        del got, want
+    torch.cuda.empty_cache()
+
+
+def md17_first_run(dev):
+    """MD17 stage 1 through the port's registry (experiments/registry.py:
+    155-193): fp32, 32 padded atoms, B=256, AdamW lr 4e-4; random weights
+    from the seed, synthetic trajectories of MD17_FRAMES frames for each of
+    the 8 molecules."""
+    from lam_slide_tpu_torch.experiments import registry
+
+    return registry.md17_first_stage(seed=SEED, synthetic_frames=MD17_FRAMES, device=dev)
+
+
+def md17_second_run(run1, dev):
+    """MD17 stage 2 on ``run1``'s first stage, which it freezes
+    (registry.py:196-300): the bf16 class-conditional DiT (depth 4, hidden
+    256, 16 x dh 16), B=64, per-layer checkpointing, the aux losses on, lr
+    1e-3, EMA 0.999, the sampled val hook."""
+    from lam_slide_tpu_torch.experiments import registry
+
+    return registry.md17_second_stage(run1.model, run1.config, seed=SEED,
+                                      synthetic_frames=MD17_FRAMES, device=dev)
 
 
 def md17_phase(dev, smi, reset_counts, read_counts):
-    """Phase 9; returns the launches of one protocol batch."""
-    from lam_slide_tpu_torch.composites import md17
+    """Phase 9; returns the launches of one protocol batch. The stages come
+    from the registry and the batch from its aspirin val
+    loader: 64 windows of 30 frames, 21 atoms padded to 32."""
     from lam_slide_tpu_torch.composites.evaluation import mean_over_k_ade_fde, zero_target_frames
     from lam_slide_tpu_torch.composites.testing import evaluate_md17
+    from lam_slide_tpu_torch.data.loader import device_batch
     from lam_slide_tpu_torch.nn.blocks import set_backend
 
-    cfg1 = md17.MD17FirstStageConfig()
-    fs = md17.build_md17_first_stage(cfg1, device=dev,
-                                     generator=torch.Generator().manual_seed(SEED)).eval()
-    cfg2 = md17.MD17SecondStageConfig(in_dim=cfg1.dim_latent, class_conditional=True)
-    ss = md17.build_md17_second_stage(cfg2, fs, dtype=torch.bfloat16, device=dev,
-                                      generator=torch.Generator().manual_seed(SEED + 1))
-    batch = md17_batch(dev)
+    run1 = md17_first_run(dev)
+    run2 = md17_second_run(run1, dev)
+    cfg1, ss = run1.config, run2.second_stage
+    batch = device_batch(next(iter(run2.val_loaders["aspirin"])), dev)
+    check(batch["pos"].shape == (MD17_BATCH, MD17_T, MD17_ATOMS, 3),
+          f"MD17 val batch {tuple(batch['pos'].shape)}")
     cond_end = ss.cond_idx[1]
     euler = {"sampling_method": "euler", "num_steps": NUM_STEPS}
 
@@ -762,7 +865,7 @@ def md17_phase(dev, smi, reset_counts, read_counts):
     # stage 1 encodes the batch once (K1 with the bias on the masked cross-
     # attention, then fp32 K1 on the latent self-attention) and decodes the
     # K repeats in one call (fp32 K1 on the decoder's self-attention; its
-    # output block has 50 queries and stays plain)
+    # output block has 32 queries and stays plain)
     e = MD17_DRIFT_EVALS
     want = {key: 0 for key in counts}
     want.update({"K1": MD17_DEPTH * e + 3, "K1 bias": 1, "K1 fp32": 3, "K2": 2 * MD17_DEPTH * e,
@@ -825,6 +928,211 @@ def md17_phase(dev, smi, reset_counts, read_counts):
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | {smi}")
         profile_run(protocol_batch, f"md17 protocol batch K={MD17_K} B={MD17_BATCH} kernel path")
     return counts
+
+
+def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, smi,
+                      reset_counts, read_counts, grad_tol, falling):
+    """One MD17 stage's train-step checks (phase 10) through the run's loss,
+    optimizer and ``make_train_step``: the launches of one step against
+    ``want``; every grad finite and non-zero; the kernel path's grads on
+    ``grad_batch`` against the plain path (``plain_modules`` set to "plain")
+    on the same draws; ten steps on ``batch`` with one fixed draw (dropout,
+    t and x0), in which every metric stays finite and the ``falling`` ones
+    fall; step times of both paths (median of 5, in turns) with their peak
+    memory; one profiled step. Returns (the launches, the state)."""
+    from lam_slide_tpu_torch.nn.blocks import set_backend
+    from lam_slide_tpu_torch.train import create_train_state, make_train_step
+
+    model, loss_fn = run.model, run.loss_fn
+    state = create_train_state(model, run.tx)
+    step = make_train_step(loss_fn, run.tx, ema_decay=run.trainer_cfg.ema_decay)
+
+    def draws(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def set_all(backend):
+        for m in plain_modules:
+            set_backend(m, backend)
+
+    # 1. launches of one train step
+    reset_counts()
+    state, metrics = step(state, batch, SEED)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"md17_train {label}: one step, loss {metrics['loss'].item():.5f} grad_norm "
+          f"{metrics['grad_norm'].item():.4f}, launches {counts} (expected {want})")
+    check(counts == want, f"{label} train step launches {counts} != {want}")
+    check(math.isfinite(metrics["loss"].item()), f"{label}: non-finite train loss")
+
+    # 2. every parameter's grad finite and non-zero
+    model.zero_grad(set_to_none=True)
+    loss_fn(model, batch, draws(SEED), True)[0].backward()
+    bad = [n for n, p in model.named_parameters() if p.grad is None
+           or not bool(torch.isfinite(p.grad).all()) or not p.grad.abs().max().item() > 0]
+    n_params = len(list(model.parameters()))
+    print(f"md17_train {label}: {n_params - len(bad)} of {n_params} parameters have a finite, "
+          f"non-zero grad")
+    check(not bad, f"{label}: parameters without a finite, non-zero grad: {bad}")
+
+    # 3. grads, kernel path vs plain path, on the same draws
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss_fn(model, grad_batch, draws(SEED + 1), True)[0].backward()
+        out = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    got = grads()
+    set_all("plain")
+    ref = grads()
+    set_all("auto")
+    norm_err = abs(_global_norm(got) - _global_norm(ref)) / _global_norm(ref)
+    worst, where = max(((got[n] - r).norm().item() / r.norm().item(), n) for n, r in ref.items())
+    b = next(iter(grad_batch.values())).shape[0]
+    print(f"md17_train {label} B={b} grads, kernel path vs plain: global norm rel err "
+          f"{norm_err:.3e} (tol {grad_tol[0]}), worst tensor rel err {worst:.3e} at {where} "
+          f"(tol {grad_tol[1]})")
+    check(norm_err <= grad_tol[0], f"{label} grad norm vs plain")
+    check(worst <= grad_tol[1], f"{label} grad of {where} vs plain")
+
+    # 4. ten steps on one batch with one fixed draw
+    fixed = make_train_step(lambda m, bt, g, train: loss_fn(m, bt, draws(SEED + 2), train),
+                            run.tx, ema_decay=run.trainer_cfg.ema_decay)
+    history = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = fixed(state, batch, SEED)
+        history.append({k: v.item() for k, v in metrics.items()})
+    for k in history[0]:
+        seq = [h[k] for h in history]
+        print(f"md17_train {label}: {TRAIN_STEPS} steps on one batch, {k} "
+              f"{[round(x, 5) for x in seq]}")
+        check(all(math.isfinite(x) for x in seq), f"{label}: non-finite {k} in ten steps")
+        if k in falling:
+            check(seq[-1] < seq[0], f"{label}: {k} did not fall over ten steps")
+
+    # 5. step time and peak memory, kernel path vs plain path, in turns
+    times, peaks = {"auto": [], "plain": []}, {}
+    for backend in ("auto", "plain"):
+        set_all(backend)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = step(state, batch, SEED)  # warm-up, with the peak memory of a step
+        torch.cuda.synchronize()
+        peaks[backend] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i in range(TIMED_STEPS):
+        for backend in (("auto", "plain") if i % 2 == 0 else ("plain", "auto")):
+            set_all(backend)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, batch, SEED)
+            torch.cuda.synchronize()
+            times[backend].append((time.perf_counter() - t0) * 1e3)
+    set_all("auto")
+    bsz = next(iter(batch.values())).shape[0]
+    for backend, name in (("auto", "kernel path"), ("plain", "plain path")):
+        med = float(np.median(times[backend]))
+        print(f"timing md17_train {label} B={bsz} {name}: step {med:.3f} ms median "
+              f"({bsz / med * 1e3:.2f} samples/s), runs {[round(x, 3) for x in times[backend]]} "
+              f"ms, peak memory {peaks[backend]:.2f} GiB | {smi}")
+
+    # 6. one profiled step on the kernel path
+    def one_step():
+        nonlocal state
+        state, _ = step(state, batch, SEED)
+
+    profile_run(one_step, f"md17_train {label} step B={bsz} kernel path")
+    return counts, state
+
+
+def md17_train_phase(dev, smi, reset_counts, read_counts):
+    """Phase 10: both MD17 training experiments at full width through the
+    registry and the ported loader; returns the launches of one step of each
+    stage."""
+    from lam_slide_tpu_torch.data.loader import device_batch
+    from lam_slide_tpu_torch.train import create_train_state, make_train_step
+
+    run1 = md17_first_run(dev)
+
+    # stage 1: per step K1 on the encoder's masked cross-attention (fp32,
+    # the bias) and on the encoder's and the decoder's latent self-attention
+    # (fp32), each with lse; K4 (fp32) on the same three, the cross one with
+    # the bias (the bias and fp32 counters count each of K4's two kernels);
+    # the decoder's output block has 32 queries and stays plain
+    batch1 = device_batch(next(iter(run1.train_loader)), dev)
+    check(batch1["pos"].shape == (MD17_S1_BATCH, MD17_ATOMS, 3),
+          f"MD17 stage-1 batch {tuple(batch1['pos'].shape)}")
+    counts = read_counts()
+    want1 = {key: 0 for key in counts}
+    want1.update({"K1": 3, "K1 bias": 1, "K1 fp32": 3, "K4 kv": 3, "K4 q": 3, "K4 bias": 2,
+                  "K4 fp32": 6})
+    counts1, _ = md17_stage_checks(
+        "stage 1", run1, batch1, batch1, want1, [run1.model], dev, smi, reset_counts,
+        read_counts, S1_GRAD_REL_TOL, ("loss",))
+
+    # stage 2 (the stage-1 weights are frozen now): per step the encode of
+    # B*T frames under no_grad (K1 bias + K1 fp32), the DiT's forward and,
+    # with checkpointing, its recompute in the backward (per layer K3 on the
+    # spatial axis L=192 under K1's counter, K9 on the temporal axis T=30,
+    # K2 on both axes' MLP branch, K7 twice), one K7 before the output
+    # layer, then the aux decode of the prediction (fp32 K1 with lse on the
+    # decoder's self-attention); backward: K4 bf16 per layer (K3's), K9's
+    # backward per layer, K4 fp32 once (the decode)
+    run2 = md17_second_run(run1, dev)
+    ss = run2.second_stage
+    d = MD17_DEPTH
+    batch2 = device_batch(next(iter(run2.train_loader)), dev)
+    check(batch2["pos"].shape == (MD17_BATCH, MD17_T, MD17_ATOMS, 3),
+          f"MD17 stage-2 batch {tuple(batch2['pos'].shape)}")
+    want2 = {key: 0 for key in counts}
+    want2.update({"K1": 2 + 2 * d + 1, "K1 bias": 1, "K1 fp32": 3, "K2": 2 * 2 * d,
+                  "K7": 2 * 2 * d + 1, "K9": 2 * d, "K9 bwd": d, "K4 kv": d + 1,
+                  "K4 q": d + 1, "K4 fp32": 2})
+    grad_batch = {k: v[:GRAD_BATCH] for k, v in batch2.items()}
+    counts2, state2 = md17_stage_checks(
+        "stage 2", run2, batch2, grad_batch, want2, [ss.backbone, ss.first_stage], dev, smi,
+        reset_counts, read_counts, MD17_GRAD_REL_TOL, ("loss", "si_loss"))
+
+    # the aux losses alone (the SI weight 0) for ten steps on the same batch
+    # and draw, from a fresh optimizer state: their gradient through the
+    # frozen stage 1 lowers their weighted sum. In the whole loss the SI
+    # term dominates and pulls the prediction toward the encoded latents,
+    # whose decoding by a random stage 1 is farther from the positions than
+    # that of the initial prediction, so there pos_loss rises; alone, the
+    # two aux terms trade against each other at equal weights, so only
+    # their sum must fall (both seen on an H100).
+    cfg2 = run2.config
+    aux_loss = ss.make_loss(weight_si_loss=0.0, weight_pos_loss=cfg2.weight_pos_loss,
+                            weight_inter_dist_loss=cfg2.weight_inter_dist_loss,
+                            calc_additional_losses=True)
+    aux_step = make_train_step(
+        lambda m, bt, g, train: aux_loss(m, bt, torch.Generator(device=dev).manual_seed(SEED + 2),
+                                         train),
+        run2.tx, ema_decay=run2.trainer_cfg.ema_decay)
+    aux_state = create_train_state(run2.model, run2.tx)
+    history = []
+    for _ in range(TRAIN_STEPS):
+        aux_state, metrics = aux_step(aux_state, batch2, SEED)
+        history.append({k: metrics[k].item() for k in ("loss", "pos_loss", "inter_dist_loss")})
+    for k in history[0]:
+        seq = [h[k] for h in history]
+        print(f"md17_train stage 2: {TRAIN_STEPS} steps on the aux losses alone, {k} "
+              f"{[round(x, 5) for x in seq]}")
+        check(all(math.isfinite(x) for x in seq), f"stage 2 aux: non-finite {k}")
+    check(history[-1]["loss"] < history[0]["loss"],
+          "stage 2: the aux losses did not fall over ten steps")
+    del aux_state
+
+    # the sampled val hook on the EMA weights: K=5, Euler-10, one val batch
+    # of each molecule
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        val = run2.eval_fns["val_sample"](state2, 0)
+    torch.cuda.synchronize()
+    print(f"md17_train stage 2: val hook on the EMA weights ({len(run2.val_loaders)} molecules, "
+          f"K={MD17_K}): {val} in {time.perf_counter() - t0:.3f} s")
+    check(all(math.isfinite(x) for x in val.values()), "non-finite val ADE/FDE")
+    return counts1, counts2
 
 
 def make_inputs(batch: int, dev, gen):
@@ -1075,6 +1383,7 @@ def main() -> int:
                 "K5": (fnr, "launches"), "K7": (fad, "launches"), "K8": (fsb, "launches"),
                 "K9": (tsa, "launches"), "K9 bwd": (tsa, "bwd_launches"),
                 "K4 kv": (fa, "bwd_kv_launches"), "K4 q": (fa, "bwd_q_launches"),
+                "K4 bias": (fa, "bwd_bias_launches"), "K4 fp32": (fa, "bwd_fp32_launches"),
                 "K6 kv": (fnr, "bwd_kv_launches"), "K6 q": (fnr, "bwd_q_launches")}
 
     def reset_counts():
@@ -1116,6 +1425,7 @@ def main() -> int:
     backward_checks(dev, torch.Generator().manual_seed(SEED + 1), table)
     md17_kernel_checks(dev, torch.Generator().manual_seed(SEED + 3), table)
     md17_dit_kernel_checks(dev, torch.Generator().manual_seed(SEED + 4), table)
+    md17_train_kernel_checks(dev, torch.Generator().manual_seed(SEED + 5), table)
     phase_done("kernels")
 
     # 4. the slice
@@ -1254,6 +1564,10 @@ def main() -> int:
     md17_counts = md17_phase(dev, smi, reset_counts, read_counts)
     phase_done("md17")
 
+    # 10. MD17 training, both stages
+    s1_counts, s2_counts = md17_train_phase(dev, smi, reset_counts, read_counts)
+    phase_done("md17_train")
+
     sources = {
         "K1": ("flash_attention_fwd", "flash_attention.cu", "flash_attention.py:37"),
         "K2": ("fused_mlp", "fused_mlp.cu", "fused_mlp.py:68"),
@@ -1269,17 +1583,25 @@ def main() -> int:
         "K1 fp32": ("flash_attention_fwd (fp32 operands)", "flash_attention.cu",
                     "flash_attention.py:37"),
         "K9": ("short_attention", "short_attention.cu", "short_attention.py:83"),
+        "K4 bias": ("flash_attention_backward (key-padding bias, fp32)",
+                    "flash_attention_bwd.cu", "flash_attention.py:442"),
+        "K4 fp32": ("flash_attention_backward (fp32 operands)", "flash_attention_bwd.cu",
+                    "flash_attention.py:442"),
+        "K9 bwd": ("short_attention_backward", "short_attention.cu", "short_attention.py:96"),
     }
     # launches on the main paths: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve,
     # K3 under K1's counter (one binary), K5 from the 3 x 128 B=8 solve; K4
     # and K6 (the dK/dV and the dQ kernel together) from one train step at
     # 16 x 24 and at 3 x 128; K1's bias and fp32 variants and K9 from one
-    # MD17 protocol batch
+    # MD17 protocol batch; K4's bias and fp32 variants and K9's backward
+    # from one MD17 train step of each stage
+    md17_train = {key: s1_counts[key] + s2_counts[key] for key in s1_counts}
     main_counts = dict(launches[HEADS], K3=launches[HEADS]["K1"], K5=launches[WIDE_HEADS]["K5"],
                        K4=train_counts[HEADS]["K4 kv"] + train_counts[HEADS]["K4 q"],
                        K6=train_counts[WIDE_HEADS]["K6 kv"] + train_counts[WIDE_HEADS]["K6 q"],
                        **{"K1 bias": md17_counts["K1 bias"], "K1 fp32": md17_counts["K1 fp32"],
-                          "K9": md17_counts["K9"]})
+                          "K9": md17_counts["K9"], "K4 bias": md17_train["K4 bias"],
+                          "K4 fp32": md17_train["K4 fp32"], "K9 bwd": md17_train["K9 bwd"]})
     kernels = [
         {"name": name, "route": "cuda", "source": f"lam_slide_tpu_torch/csrc/{src}",
          "replaces": f"lam_slide_tpu/ops/{tpu}", "launches": main_counts[key],

@@ -61,17 +61,25 @@ class FirstStageBackbone(nn.Module):
                                         linear(dim_latent, dim_latent, inits.torch_linear_init_,
                                                gen))
 
-    def encode(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def encode(self, batch: Dict[str, torch.Tensor], deterministic: bool = True,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """batch -> latent z [B, L, dim_latent] (lightning_base.py:36-40)."""
         x = self._embed_inputs(batch)
         entity_emb = self.encoder.entity_embedding(batch["entities"])
-        latents = self.encoder(x, entity_emb, mask=batch.get("attention_mask"))
+        latents = self.encoder(x, entity_emb, batch.get("attention_mask"), deterministic,
+                               generator)
         return self.quant[1](dense(latents, self.quant[0], self.dtype))
 
-    def decode(self, z: torch.Tensor, entities: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def decode(self, z: torch.Tensor, entities: torch.Tensor, deterministic: bool = True,
+               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """z [B, L, dim_latent] -> named output heads (lightning_base.py:42-44)."""
         latents = dense(self.post_quant[0](z), self.post_quant[1], self.dtype)
-        return self.decoder(latents, self.decoder.entity_embedding(entities))
+        return self.decoder(latents, self.decoder.entity_embedding(entities), deterministic,
+                            generator)
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return self.decode(self.encode(batch), batch["entities"])
+    def forward(self, batch: Dict[str, torch.Tensor], deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """encode then decode (composites/first_stage.py:72); in train mode
+        (``deterministic=False``) the dropouts draw from ``generator``."""
+        z = self.encode(batch, deterministic, generator)
+        return self.decode(z, batch["entities"], deterministic, generator)

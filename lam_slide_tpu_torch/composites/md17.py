@@ -3,10 +3,14 @@ reference first_stage/md17.py and second_stage/md17.py).
 
 Stage 1: ``atom-type embedding ⊕ Fourier PointEmbed(pos)`` merged by a
 2-layer MLP into the per-atom features of the first-stage backbone, in fp32
-(``build_md17_first_stage``'s default dtype, composites/md17.py:93). Stage
-2: the class-conditional latent DiT over [B, T=30, L=192, 32] latents, in
-bf16 as the registry makes it (experiments/registry.py:251-262). The loss
-functions (``make_md17_first_stage_loss``) are not ported yet.
+(``build_md17_first_stage``'s default dtype, composites/md17.py:93), and its
+loss (``make_md17_first_stage_loss``): masked position MSE + pairwise
+distance MSE + atom-type CE (+ norm), with the ``dist`` metric in dataset
+units through the config's scale (first_stage/md17.py:158-194). Stage 2: the
+class-conditional latent DiT over [B, T=30, L=192, 32] latents, in bf16 as
+the registry makes it (experiments/registry.py:251-262), with per-layer
+checkpointing; its loss is ``SecondStage.make_loss`` with this config's
+weights.
 """
 
 from dataclasses import dataclass
@@ -20,6 +24,12 @@ from lam_slide_tpu_torch.models.decoder import Decoder
 from lam_slide_tpu_torch.models.encoder import Encoder
 from lam_slide_tpu_torch.nn.blocks import gelu_exact, mlp, run_mlp
 from lam_slide_tpu_torch.nn.embeddings import Embed, PointEmbed
+from lam_slide_tpu_torch.nn.losses import (
+    inter_distance,
+    masked_cross_entropy,
+    masked_mse,
+    masked_norm,
+)
 
 
 class MD17InputEmbedder(nn.Module):
@@ -45,9 +55,10 @@ class MD17InputEmbedder(nn.Module):
 
 @dataclass(frozen=True)
 class MD17FirstStageConfig:
-    """Mirrors configs/model/md17/first-stage.yaml keys (the architecture;
-    the loss section, its shift and scale included, waits for the stage-1
-    loss)."""
+    """Mirrors configs/model/md17/first-stage.yaml keys: the architecture and
+    the loss section the stage-1 loss reads (its weights, and ``scale``, the
+    dataset's normalization, which turns the ``dist`` metric back into
+    dataset units)."""
 
     n_atom_types: int = 10
     num_entities: int = 50
@@ -65,6 +76,12 @@ class MD17FirstStageConfig:
     dec_num_block_attn: int = 1
     dropout_query: float = 0.1
     qk_norm: bool = True
+    # loss weights (configs/model/md17/first-stage.yaml:10-24)
+    loss_pos_weight: float = 1.0
+    loss_inter_distance_weight: float = 1.0
+    loss_atom_type_weight: float = 0.1
+    loss_norm_weight: float = 0.0
+    scale: float = 1.0
 
 
 def build_md17_first_stage(cfg: MD17FirstStageConfig, dtype: torch.dtype = torch.float32,
@@ -95,10 +112,10 @@ def build_md17_first_stage(cfg: MD17FirstStageConfig, dtype: torch.dtype = torch
 
 @dataclass(frozen=True)
 class MD17SecondStageConfig:
-    """Mirrors configs/model/md17/second-stage.yaml keys (the model and
-    transport; the protocol's K and sampler settings are arguments of
-    ``make_k_sample_fn`` and ``evaluate_md17``, and the loss weights and the
-    layer scan/remat flags wait for the stage-2 loss and the trainer)."""
+    """Mirrors configs/model/md17/second-stage.yaml keys: the model, the
+    transport and the loss weights of ``SecondStage.make_loss``; the
+    protocol's K and sampler settings are arguments of ``make_k_sample_fn``
+    and ``evaluate_md17``."""
 
     depth: int = 4
     in_dim: int = 32
@@ -114,6 +131,14 @@ class MD17SecondStageConfig:
     n_classes: int = 8
     vec_in_dim: int = 256
     reference_init: bool = False  # md17 config sets reset_parameters: False
+    weight_si_loss: float = 1.0
+    weight_pos_loss: float = 0.25
+    weight_inter_dist_loss: float = 0.25
+    calc_additional_losses: bool = True
+    # recompute each DiT layer in the backward (composites/md17.py:157-160):
+    # with L=192 latent tokens the stored activations of the B=64 step are
+    # what checkpointing saves
+    checkpointing: bool = True
 
 
 def build_md17_second_stage(cfg: MD17SecondStageConfig, first_stage: FirstStageBackbone,
@@ -131,7 +156,8 @@ def build_md17_second_stage(cfg: MD17SecondStageConfig, first_stage: FirstStageB
     dit = LatentDiT(depth=cfg.depth, in_dim=cfg.in_dim, hidden_size=cfg.hidden_size,
                     num_heads=cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
                     vec_in_dim=cfg.vec_in_dim if cfg.class_conditional else None,
-                    reference_init=cfg.reference_init, dtype=dtype, device=device, generator=gen)
+                    reference_init=cfg.reference_init, dtype=dtype,
+                    checkpointing=cfg.checkpointing, device=device, generator=gen)
     backbone = (ClassCondDiT(dit, cfg.n_classes, cfg.vec_in_dim, generator=gen).to(device)
                 if cfg.class_conditional else dit)
     return SecondStage(
@@ -142,3 +168,29 @@ def build_md17_second_stage(cfg: MD17SecondStageConfig, first_stage: FirstStageB
         mask_cond_mean=cfg.mask_cond_mean,
         class_conditional=cfg.class_conditional,
     )
+
+
+def make_md17_first_stage_loss(cfg: MD17FirstStageConfig):
+    """loss_fn(model, batch, generator, train) for ``train.make_train_step``
+    (JAX ``make_md17_first_stage_loss``; reference Loss.forward,
+    first_stage/md17.py:158-194). ``model`` is the first stage (or a call of
+    it on other weights); in train mode its dropouts draw from
+    ``generator``."""
+
+    def loss_fn(model, batch, generator, train):
+        preds = model(batch, deterministic=not train, generator=generator)
+        mask = batch["attention_mask"]
+        pos_pred = preds["pos"].float()
+        atom_pred = preds["atom"].float()
+        loss_pos = masked_mse(pos_pred, batch["pos"], mask)
+        loss_inter = inter_distance(pos_pred, batch["pos"], mask)
+        loss_atom = masked_cross_entropy(atom_pred, batch["atom"], mask)
+        loss_norm = masked_norm(pos_pred, batch["pos"], mask)
+        total = (cfg.loss_pos_weight * loss_pos + cfg.loss_inter_distance_weight * loss_inter
+                 + cfg.loss_atom_type_weight * loss_atom + cfg.loss_norm_weight * loss_norm)
+        metrics = {"pos_loss": loss_pos, "inter_distance_loss": loss_inter,
+                   "atom_type_loss": loss_atom, "norm_loss": loss_norm,
+                   "dist": loss_norm * cfg.scale}
+        return total, metrics
+
+    return loss_fn

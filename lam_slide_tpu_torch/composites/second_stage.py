@@ -6,8 +6,11 @@ Frames are encoded by the frozen stage-1 encoder into ``[B, T, L, D]``
 latents; a LatentDiT generates the non-conditioning frames, conditioned
 inpainting-style on frames ``[cond_idx0, cond_idx1)`` through a
 conditioning tensor and a binary mask (``setup_conditioning``). The first
-stage runs under ``torch.no_grad()`` here (the JAX ``stop_gradient``).
-``make_loss`` is not ported yet.
+stage is frozen (``requires_grad_(False)``, the reference's ``freeze()``;
+JAX keeps it in the state's constants): the encoder runs under
+``torch.no_grad()`` (the JAX ``stop_gradient``), while the training loss's
+aux terms decode the DiT's data prediction through it with the gradient
+flowing back into that prediction (``make_loss``).
 
 K-repeat sampling (``make_k_sample_fn``) encodes each batch once and
 repeats the latents K times along the batch axis (encode draws nothing, so
@@ -24,6 +27,7 @@ from torch import nn
 
 from lam_slide_tpu_torch.composites.first_stage import FirstStageBackbone
 from lam_slide_tpu_torch.nn import initializers as inits
+from lam_slide_tpu_torch.nn.losses import inter_distance, masked_mse, masked_norm
 from lam_slide_tpu_torch.transport import Sampler, Transport
 
 
@@ -69,7 +73,8 @@ def setup_conditioning(latents: torch.Tensor, cond_idx: Tuple[int, int],
 class SecondStage:
     """Frozen stage 1 + DiT backbone + transport. ``backbone`` is a
     ``LatentDiT`` or a ``ClassCondDiT``; when ``class_conditional`` the batch
-    carries class indices under ``cond_key``."""
+    carries class indices under ``cond_key``. Construction freezes
+    ``first_stage`` in place."""
 
     backbone: nn.Module
     transport: Transport
@@ -79,6 +84,9 @@ class SecondStage:
     class_conditional: bool = False
     cond_key: str = "cond_molecule"
     frame_keys: Tuple[str, ...] = ("pos", "atom", "attention_mask", "entities")
+
+    def __post_init__(self):
+        self.first_stage.requires_grad_(False)
 
     # -- stage-1 passthroughs (frozen) --------------------------------------
 
@@ -90,9 +98,11 @@ class SecondStage:
         z = self.first_stage.encode(flat)
         return z.unflatten(0, (b, -1))
 
-    @torch.no_grad()
     def decode(self, latents: torch.Tensor, entities: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """latents [(B T), L, D] + entities [(B T), N] -> decoded heads."""
+        """latents [(B T), L, D] + entities [(B T), N] -> decoded heads. The
+        stage-1 weights are frozen, so a graph is recorded only when the
+        latents need a gradient (the aux losses); then the decoder's flash
+        attention runs K1 with lse and K4 in fp32."""
         return self.first_stage.decode(latents, entities)
 
     # -- batch preparation ---------------------------------------------------
@@ -108,6 +118,41 @@ class SecondStage:
 
     def model_fn(self) -> Callable:
         return self.backbone
+
+    # -- training loss ---------------------------------------------------------
+
+    def make_loss(self, weight_si_loss: float = 1.0, weight_pos_loss: float = 0.0,
+                  weight_inter_dist_loss: float = 0.0, calc_additional_losses: bool = False,
+                  scale: float = 1.0):
+        """loss_fn(model, batch, generator, train) for ``train.make_train_step``
+        (second_stage.py:138-184): the SI loss of ``model`` (the backbone, or
+        a call of it on other weights) on the encoded batch, t and x0 drawn
+        from ``generator``; with ``calc_additional_losses`` also the position
+        and inter-distance losses of the DATA-prediction latents decoded
+        through the frozen first stage (second_stage/md17.py:220-257)."""
+
+        def loss_fn(model, batch, generator, train):
+            x1, model_kwargs = self.prepare_batch(batch)
+            terms = self.transport.training_losses(model, x1, model_kwargs,
+                                                   generator=generator)
+            si_loss = terms["loss"].mean()
+            total = weight_si_loss * si_loss
+            metrics = {"si_loss": si_loss}
+            if calc_additional_losses:
+                pred = terms["pred"]
+                pos_pred = self.decode(pred.flatten(0, 1),
+                                       batch["entities"].flatten(0, 1))["pos"].float()
+                pos_true = batch["pos"].flatten(0, 1)
+                mask = batch["attention_mask"].flatten(0, 1)
+                pos_loss = masked_mse(pos_pred, pos_true, mask)
+                inter_loss = inter_distance(pos_pred, pos_true, mask)
+                dist = masked_norm(pos_pred, pos_true, mask)
+                total = total + weight_pos_loss * pos_loss + weight_inter_dist_loss * inter_loss
+                metrics.update({"pos_loss": pos_loss, "inter_dist_loss": inter_loss,
+                                "dist": dist * scale})
+            return total, metrics
+
+        return loss_fn
 
     # -- sampling --------------------------------------------------------------
 

@@ -4,12 +4,18 @@ the MD17 protocol, on one card with no mesh).
 MD17 (second_stage/md17.py:139-179): zero the target frames, sample K=5
 repeats with the Euler-10 probability-flow ODE, decode, and average the
 per-repeat ADE/FDE of the predicted frames, times the dataset scale, per
-molecule.
+molecule. ``make_protocol_val_hook`` runs that protocol on a train state's
+EMA weights as the stage-2 validation (the pedestrian and NBA protocols
+come with their slices).
 """
 
+import dataclasses
+import itertools
 from typing import Dict, Iterable, Mapping, Optional
 
+import numpy as np
 import torch
+from torch.func import functional_call
 
 from lam_slide_tpu_torch.composites.evaluation import mean_over_k_ade_fde, zero_target_frames
 
@@ -45,3 +51,33 @@ def evaluate_md17(ss, loaders: Mapping[str, Iterable], scale: float, k: int = 5,
         out[f"test/{name}/ade"] = float(torch.cat(ades).mean()) * scale
         out[f"test/{name}/fde"] = float(torch.cat(fdes).mean()) * scale
     return out
+
+
+def make_protocol_val_hook(ss, loaders: Mapping[str, Iterable], scale: float = 1.0, k: int = 5,
+                           limit_batches: int = 1, sampling_kwargs: Optional[dict] = None):
+    """Trainer eval hook (composites/testing.py:172-209): ``hook(state,
+    epoch)`` -> {"ade", "fde"}, the means over the loaders of the MD17
+    protocol (``evaluate_md17``) on ``state.ema_params`` over the first
+    ``limit_batches`` batches of each loader, the reference's stage-2
+    validation_step (second_stage/md17.py:75-113). ``state.model`` is
+    ``ss.backbone``; the noise of epoch e is drawn from seed 1234 + e on the
+    first stage's device. (JAX's ``interval`` of val epochs, which its
+    registry leaves at 1, waits for the port's ``Trainer``.)"""
+    device = next(ss.first_stage.parameters()).device
+
+    def hook(state, epoch: int):
+        backbone = ss.backbone
+
+        def on_ema(*args, **kwargs):
+            return functional_call(backbone, state.ema_params, args, kwargs)
+
+        limited = {name: itertools.islice(loader, limit_batches)
+                   for name, loader in loaders.items()}
+        out = evaluate_md17(dataclasses.replace(ss, backbone=on_ema), limited, scale=scale, k=k,
+                            generator=torch.Generator(device=device).manual_seed(1234 + epoch),
+                            sampling_kwargs=sampling_kwargs)
+        ades = [v for key, v in out.items() if key.endswith("/ade")]
+        fdes = [v for key, v in out.items() if key.endswith("/fde")]
+        return {"ade": float(np.mean(ades)), "fde": float(np.mean(fdes))}
+
+    return hook

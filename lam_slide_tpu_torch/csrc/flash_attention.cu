@@ -61,9 +61,11 @@
 // same order at fp32's 67 TFLOP/s.
 //
 // lse: when the caller passes an fp32 [B, H, Nq] buffer (training), each
-// query row also writes m + log(max(l, 1e-30)), the log-sum-exp the backward
-// kernels (flash_attention_bwd.cu) rebuild P from, as `_flash_forward(...,
-// with_lse=True)` does; a null pointer (sampling) writes nothing.
+// query row of either kernel also writes m + log(max(l, 1e-30)), the
+// log-sum-exp the backward kernels (flash_attention_bwd.cu) rebuild P from,
+// as `_flash_forward(..., with_lse=True)` does; a null pointer (sampling)
+// writes nothing. An all-masked row's lse rounds to the mask fill itself
+// (log(Nk) is far below its ulp), as in JAX.
 
 #include <math_constants.h>
 #include <mma.h>
@@ -283,7 +285,8 @@ template <int DP>
 __global__ void __launch_bounds__(F32_ROWS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     const float* __restrict__ bias, int H, int Nq, int Nk, int dh,
+                     float* __restrict__ lse, const float* __restrict__ bias, int H, int Nq,
+                     int Nk, int dh,
                      long long q_sb, long long q_sh, long long q_sn,
                      long long k_sb, long long k_sh, long long k_sn,
                      long long v_sb, long long v_sh, long long v_sn,
@@ -352,16 +355,17 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DP; ++c)
       if (c < dh) op[c] = acc[c] / denom;
+    if (lse != nullptr) lse[static_cast<long long>(ti.bh) * Nq + qrow] = m + logf(denom);
   }
 }
 
 template <int DP>
-cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
+cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o, float* lse,
                        const float* bias, int B, int H, int Nq, int Nk, int dh,
                        const long long* s, float scale, cudaStream_t stream) {
   const dim3 grid(grid_blocks(B * H, Nq, F32_ROWS));
   flash_fwd_f32_kernel<DP><<<grid, F32_ROWS, 0, stream>>>(
-      q, k, v, o, bias, H, Nq, Nk, dh, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
+      q, k, v, o, lse, bias, H, Nq, Nk, dh, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
       s[9], s[10], s[11], scale);
   return cudaGetLastError();
 }
@@ -384,10 +388,10 @@ extern "C" int lam_flash_attention_fwd(
                           stream);
 }
 
-// As lam_flash_attention_fwd on fp32 q/k/v/o, with no lse; dh <= 64.
+// As lam_flash_attention_fwd on fp32 q/k/v/o; dh <= 64.
 extern "C" int lam_flash_attention_fwd_f32(
-    const void* q, const void* k, const void* v, void* o, const void* bias, int B, int H,
-    int Nq, int Nk, int dh, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
+    const void* q, const void* k, const void* v, void* o, void* lse, const void* bias, int B,
+    int H, int Nq, int Nk, int dh, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
     long long k_sh, long long k_sn, long long v_sb, long long v_sh, long long v_sn,
     long long o_sb, long long o_sh, long long o_sn, float scale, void* stream) {
   const long long s[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
@@ -396,16 +400,17 @@ extern "C" int lam_flash_attention_fwd_f32(
   auto kf = static_cast<const float*>(k);
   auto vf = static_cast<const float*>(v);
   auto of = static_cast<float*>(o);
+  auto lf = static_cast<float*>(lse);
   auto bf = static_cast<const float*>(bias);
   auto st = static_cast<cudaStream_t>(stream);
   if (dh <= 0 || dh > 64) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (dh <= 16)
-    err = launch_f32<16>(qf, kf, vf, of, bf, B, H, Nq, Nk, dh, s, scale, st);
+    err = launch_f32<16>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, st);
   else if (dh <= 32)
-    err = launch_f32<32>(qf, kf, vf, of, bf, B, H, Nq, Nk, dh, s, scale, st);
+    err = launch_f32<32>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, st);
   else
-    err = launch_f32<64>(qf, kf, vf, of, bf, B, H, Nq, Nk, dh, s, scale, st);
+    err = launch_f32<64>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, st);
   return static_cast<int>(err);
 }
 

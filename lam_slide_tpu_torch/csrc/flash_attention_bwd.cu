@@ -1,5 +1,6 @@
-// FlashAttention-2 backward for Hopper (sm_90a), bf16 in / bf16 out, and its
-// variant with per-head QK RMS-norm + RoPE applied inside the kernel.
+// FlashAttention-2 backward for Hopper (sm_90a): bf16 in / bf16 out, with an
+// optional key-padding bias row, its variant with per-head QK RMS-norm + RoPE
+// applied inside the kernel, and an fp32 in / fp32 out pair of kernels.
 //
 // Replaces four Pallas TPU kernels:
 // - K4, lam_slide_tpu/ops/flash_attention.py `_flash_bwd_kv_kernel` and
@@ -13,7 +14,8 @@
 //
 // Given the forward's lse [B, H, Nq] and delta = rowsum(dO * O) [B, H, Nq]
 // (fp32, computed outside the kernels as in JAX), each tile recomputes
-//   P = exp(Q K^T * scale - lse), keys >= Nk and queries >= Nq give P = 0,
+//   P = exp(Q K^T * scale + bias - lse), keys >= Nk and queries >= Nq give
+//   P = 0,
 //   dV += bf16(P)^T dO,   dP = dO V^T,
 //   dS = bf16(P * (dP - delta) * scale),   dK += dS^T Q,   dQ += dS K,
 // with fp32 accumulation and the JAX kernels' rounding points; the grads are
@@ -40,6 +42,25 @@
 // and no wgmma. The NR variant transforms every Q tile once per key tile in
 // the kv kernel and every K tile once per query tile in the q kernel, as the
 // TPU kernels do (16x the minimal transform work at N=1000).
+//
+// Key-padding bias (`_bwd_probs`, flash_attention.py:411-440): the fp32
+// [B, Nk] row the forward added (0 or -0.7*FLT_MAX) is added to the scaled
+// logit before exp(s - lse), exactly where JAX adds it, in both kernels. It
+// is a template parameter of the bf16 pair (BIAS), so the unmasked K4 and K6
+// keep their inner loop. An all-masked row's lse is the mask fill itself
+// (log(Nk) rounds away), so each of its keys gets P = exp(0) = 1, as in JAX.
+//
+// fp32 operands (stage 1 trains in fp32; the stage-2 aux losses decode
+// through it): WMMA takes no fp32 operands and TF32 would not match the
+// exact-fp32 JAX path, so a second pair of kernels runs FFMA on the CUDA
+// cores in the style of the fp32 forward: one thread per owned row, 64 rows
+// per block, the other side streamed through shared memory in 32-row tiles
+// and read as broadcasts. The kv kernel owns key rows (k, v, dK, dV in
+// registers) and walks the query tiles; the q kernel owns query rows (q, dO,
+// dQ in registers) and walks the key tiles; P is rebuilt from the saved lse,
+// no atomics. dh <= 64; at dh 64 the kv kernel's four register rows spill to
+// local memory. Bound at the MD17 shapes (dh 16, <= 192 keys): the five
+// products' FFMA work at fp32's 67 TFLOP/s, of the order of the bytes.
 
 #include <mma.h>
 
@@ -74,6 +95,7 @@ enum Tensor { TQ = 0, TK = 3, TV = 6, TDO = 9, TDQ = 12, TDK = 15, TDV = 18 };
 struct BwdArgs {
   const bf16 *q, *k, *v, *dout;
   const float *lse, *delta;  // fp32 [B, H, Nq], contiguous
+  const float* bias;         // fp32 [B, Nk], contiguous; BIAS only
   bf16 *dq, *dk, *dv;
   const float *qs, *ks, *cos, *sin;  // NR only
   int H, Nq, Nk, dh;
@@ -156,16 +178,17 @@ __device__ __forceinline__ void store_rows(Acc (&acc)[DP / 16], float* scratch, 
   }
 }
 
-// P and dS of one score element; p = 0 outside the valid rows and keys.
-__device__ __forceinline__ void probs(float s, float dp, float lse, float delta, float scale,
+// P and dS of one score element from its scaled (and biased) logit sl;
+// p = 0 outside the valid rows and keys.
+__device__ __forceinline__ void probs(float sl, float dp, float lse, float delta, float scale,
                                       bool valid, bf16* p_out, bf16* ds_out) {
-  const float p = valid ? expf(__fsub_rn(__fmul_rn(s, scale), lse)) : 0.0f;
+  const float p = valid ? expf(__fsub_rn(sl, lse)) : 0.0f;
   if (p_out != nullptr) *p_out = __float2bfloat16(p);
   *ds_out = __float2bfloat16(__fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), scale));
 }
 
 // One (batch*head, 64-key tile): dK, dV over all query tiles.
-template <int DP, bool NR>
+template <int DP, bool NR, bool BIAS>
 __global__ void __launch_bounds__(THREADS) flash_bwd_kv_kernel(const BwdArgs a) {
   using Lay = BwdLayout<DP>;
   constexpr int LDT = Lay::LDT, LDS = Lay::LDS, LDP = Lay::LDP;
@@ -205,7 +228,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_kv_kernel(const BwdArgs a) 
   }
   // lane owns key row r of its warp's 16 and half of the 64 query columns
   const int r = lane >> 1, half = lane & 1;
-  const bool key_ok = k0 + warp * 16 + r < a.Nk;
+  const int key = k0 + warp * 16 + r;
+  const bool key_ok = key < a.Nk;
+  float key_bias = 0.0f;
+  if constexpr (BIAS) key_bias = key_ok ? a.bias[static_cast<long long>(b) * a.Nk + key] : 0.0f;
   const int n_tiles = (a.Nq + BQ - 1) / BQ;
 
   for (int qt = 0; qt < n_tiles; ++qt) {
@@ -229,8 +255,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_kv_kernel(const BwdArgs a) 
 #pragma unroll 4
     for (int j = 0; j < 32; ++j) {
       const int c = half * 32 + j;
-      probs(Ss[r * LDS + c], DPs[r * LDS + c], lse_s[c], delta_s[c], a.scale,
-            key_ok && q0 + c < a.Nq, Ps + r * LDP + c, dSs + r * LDP + c);
+      float sl = __fmul_rn(Ss[r * LDS + c], a.scale);
+      if constexpr (BIAS) sl = __fadd_rn(sl, key_bias);
+      probs(sl, DPs[r * LDS + c], lse_s[c], delta_s[c], a.scale, key_ok && q0 + c < a.Nq,
+            Ps + r * LDP + c, dSs + r * LDP + c);
     }
     __syncwarp();
     accumulate<DP, LDT, LDP>(dv, Ps, dOs);   // dV += P^T dO
@@ -245,7 +273,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_kv_kernel(const BwdArgs a) 
 }
 
 // One (batch*head, 64-query tile): dQ over all key tiles.
-template <int DP, bool NR>
+template <int DP, bool NR, bool BIAS>
 __global__ void __launch_bounds__(THREADS) flash_bwd_q_kernel(const BwdArgs a) {
   using Lay = BwdLayout<DP>;
   constexpr int LDT = Lay::LDT, LDS = Lay::LDS, LDP = Lay::LDP;
@@ -258,6 +286,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_q_kernel(const BwdArgs a) {
   float* Ss = reinterpret_cast<float*>(smem + Lay::s_off) + warp * 16 * LDS;
   float* DPs = reinterpret_cast<float*>(smem + Lay::dp_off) + warp * 16 * LDS;
   bf16* dSs = reinterpret_cast<bf16*>(smem + Lay::ds_off) + warp * 16 * LDP;
+  float* bias_s = reinterpret_cast<float*>(smem + Lay::row_off);  // the key tile's bias
 
   const TileIdx ti = tile_index(a.Nq, BQ);
   const int b = ti.bh / a.H, h = ti.bh % a.H;
@@ -289,6 +318,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_q_kernel(const BwdArgs a) {
     __syncthreads();  // previous K/V tiles consumed
     load_tile<DP>(Ks, LDT, kp, a.s[TK + 2], k0, a.Nk, a.dh);
     load_tile<DP>(Vs, LDT, vp, a.s[TV + 2], k0, a.Nk, a.dh);
+    if constexpr (BIAS) {
+      for (int i = threadIdx.x; i < BK; i += THREADS)
+        bias_s[i] = k0 + i < a.Nk ? a.bias[static_cast<long long>(b) * a.Nk + k0 + i] : 0.0f;
+    }
     __syncthreads();
     if constexpr (NR) {
       normrope_tile(Ks, LDT, k0, a.Nk, a.dh, a.ks, a.cos, a.sin);
@@ -300,8 +333,10 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_q_kernel(const BwdArgs a) {
 #pragma unroll 4
     for (int j = 0; j < 32; ++j) {
       const int c = half * 32 + j;
-      probs(Ss[r * LDS + c], DPs[r * LDS + c], lse, delta, a.scale, row_ok && k0 + c < a.Nk,
-            nullptr, dSs + r * LDP + c);
+      float sl = __fmul_rn(Ss[r * LDS + c], a.scale);
+      if constexpr (BIAS) sl = __fadd_rn(sl, bias_s[c]);
+      probs(sl, DPs[r * LDS + c], lse, delta, a.scale, row_ok && k0 + c < a.Nk, nullptr,
+            dSs + r * LDP + c);
     }
     __syncwarp();
     accumulate<DP, LDT, LDP>(dq, dSs, Ks);  // dQ += dS K
@@ -311,47 +346,237 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_q_kernel(const BwdArgs a) {
                       q0 + warp * 16, a.Nq, a.dh);
 }
 
-template <int DP, bool NR>
+template <int DP, bool NR, bool BIAS>
 cudaError_t launch(bool kv, const BwdArgs& a, int B, cudaStream_t stream) {
   constexpr size_t smem = BwdLayout<DP>::bytes;
   if (kv) {
-    static cudaError_t attr = lam_set_smem(flash_bwd_kv_kernel<DP, NR>, smem);
+    static cudaError_t attr = lam_set_smem(flash_bwd_kv_kernel<DP, NR, BIAS>, smem);
     if (attr != cudaSuccess) return attr;
     const dim3 grid(grid_blocks(B * a.H, a.Nk, BK));
-    flash_bwd_kv_kernel<DP, NR><<<grid, THREADS, smem, stream>>>(a);
+    flash_bwd_kv_kernel<DP, NR, BIAS><<<grid, THREADS, smem, stream>>>(a);
   } else {
-    static cudaError_t attr = lam_set_smem(flash_bwd_q_kernel<DP, NR>, smem);
+    static cudaError_t attr = lam_set_smem(flash_bwd_q_kernel<DP, NR, BIAS>, smem);
     if (attr != cudaSuccess) return attr;
     const dim3 grid(grid_blocks(B * a.H, a.Nq, BQ));
-    flash_bwd_q_kernel<DP, NR><<<grid, THREADS, smem, stream>>>(a);
+    flash_bwd_q_kernel<DP, NR, BIAS><<<grid, THREADS, smem, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
-template <bool NR>
+template <bool NR, bool BIAS>
 cudaError_t launch_dp(bool kv, const BwdArgs& a, int B, cudaStream_t stream) {
-  if (a.dh <= 32) return launch<32, NR>(kv, a, B, stream);
-  if (a.dh <= 64) return launch<64, NR>(kv, a, B, stream);
-  return launch<128, NR>(kv, a, B, stream);
+  if (a.dh <= 32) return launch<32, NR, BIAS>(kv, a, B, stream);
+  if (a.dh <= 64) return launch<64, NR, BIAS>(kv, a, B, stream);
+  return launch<128, NR, BIAS>(kv, a, B, stream);
 }
 
 int launch_bwd(bool kv, const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dq, void* dk, void* dv,
-               const void* qs, const void* ks, const void* cos, const void* sin, int B, int H,
-               int Nq, int Nk, int dh, const long long* strides, float scale, void* stream) {
+               const void* lse, const void* delta, const void* bias, void* dq, void* dk,
+               void* dv, const void* qs, const void* ks, const void* cos, const void* sin,
+               int B, int H, int Nq, int Nk, int dh, const long long* strides, float scale,
+               void* stream) {
   const bool nr = qs != nullptr;
-  if (dh <= 0 || dh > 128 || (nr && dh % 2) || Nq <= 0 || Nk <= 0)
+  if (dh <= 0 || dh > 128 || (nr && (dh % 2 || bias != nullptr)) || Nq <= 0 || Nk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
             static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
             static_cast<const float*>(lse), static_cast<const float*>(delta),
+            static_cast<const float*>(bias),
             static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
             static_cast<const float*>(qs), static_cast<const float*>(ks),
             static_cast<const float*>(cos), static_cast<const float*>(sin),
             H, Nq, Nk, dh, {}, scale};
   for (int i = 0; i < 21; ++i) a.s[i] = strides[i];
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(nr ? launch_dp<true>(kv, a, B, st) : launch_dp<false>(kv, a, B, st));
+  cudaError_t err;
+  if (nr)
+    err = launch_dp<true, false>(kv, a, B, st);
+  else if (bias != nullptr)
+    err = launch_dp<false, true>(kv, a, B, st);
+  else
+    err = launch_dp<false, false>(kv, a, B, st);
+  return static_cast<int>(err);
+}
+
+// fp32 operands: 64 owned rows per block, one thread per row; the other
+// side in 32-row shared-memory tiles read as broadcasts.
+constexpr int F32_ROWS = 64;
+constexpr int F32_TILE = 32;
+
+struct BwdF32Args {
+  const float *q, *k, *v, *dout;
+  const float *lse, *delta;  // fp32 [B, H, Nq], contiguous
+  const float* bias;         // fp32 [B, Nk] contiguous, or null
+  float *dq, *dk, *dv;
+  int H, Nq, Nk, dh;
+  long long s[21];
+  float scale;
+};
+
+__device__ __forceinline__ long long row_offset(const BwdF32Args& a, Tensor t, int b, int h,
+                                                int n) {
+  return b * a.s[t] + h * a.s[t + 1] + static_cast<long long>(n) * a.s[t + 2];
+}
+
+// One (batch*head, 64-key block): thread = key row; dK, dV over all queries.
+template <int DP>
+__global__ void __launch_bounds__(F32_ROWS) flash_bwd_kv_f32_kernel(const BwdF32Args a) {
+  __shared__ float Qs[F32_TILE][DP];
+  __shared__ float dOs[F32_TILE][DP];
+  __shared__ float lse_s[F32_TILE], delta_s[F32_TILE];
+  const TileIdx ti = tile_index(a.Nk, F32_ROWS);
+  const int b = ti.bh / a.H, h = ti.bh % a.H;
+  const int key = ti.tile * F32_ROWS + threadIdx.x;
+  const bool key_ok = key < a.Nk;
+
+  float kr[DP], vr[DP], dk[DP], dv[DP];
+#pragma unroll
+  for (int c = 0; c < DP; ++c) {
+    const bool ok = key_ok && c < a.dh;
+    kr[c] = ok ? a.k[row_offset(a, TK, b, h, key) + c] : 0.0f;
+    vr[c] = ok ? a.v[row_offset(a, TV, b, h, key) + c] : 0.0f;
+    dk[c] = dv[c] = 0.0f;
+  }
+  // bias of this key (adding 0.0 when there is none leaves the logit exact)
+  const float kb = (a.bias != nullptr && key_ok) ? a.bias[static_cast<long long>(b) * a.Nk + key]
+                                                 : 0.0f;
+  const float* lsep = a.lse + static_cast<long long>(ti.bh) * a.Nq;
+  const float* deltap = a.delta + static_cast<long long>(ti.bh) * a.Nq;
+
+  for (int q0 = 0; q0 < a.Nq; q0 += F32_TILE) {
+    __syncthreads();  // previous tile fully consumed
+    for (int idx = threadIdx.x; idx < F32_TILE * DP; idx += F32_ROWS) {
+      const int r = idx / DP, c = idx % DP;
+      const bool ok = q0 + r < a.Nq && c < a.dh;
+      Qs[r][c] = ok ? a.q[row_offset(a, TQ, b, h, q0 + r) + c] : 0.0f;
+      dOs[r][c] = ok ? a.dout[row_offset(a, TDO, b, h, q0 + r) + c] : 0.0f;
+    }
+    const int t = threadIdx.x;
+    if (t < F32_TILE) {
+      lse_s[t] = q0 + t < a.Nq ? lsep[q0 + t] : 0.0f;
+      delta_s[t] = q0 + t < a.Nq ? deltap[q0 + t] : 0.0f;
+    }
+    __syncthreads();
+    const int rows = min(F32_TILE, a.Nq - q0);
+    for (int j = 0; j < rows; ++j) {
+      float s = 0.0f, dp = 0.0f;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) {
+        s = fmaf(Qs[j][c], kr[c], s);
+        dp = fmaf(dOs[j][c], vr[c], dp);
+      }
+      const float sl = __fadd_rn(__fmul_rn(s, a.scale), kb);
+      const float p = key_ok ? expf(__fsub_rn(sl, lse_s[j])) : 0.0f;
+      const float ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta_s[j])), a.scale);
+#pragma unroll
+      for (int c = 0; c < DP; ++c) {
+        dv[c] = fmaf(p, dOs[j][c], dv[c]);
+        dk[c] = fmaf(ds, Qs[j][c], dk[c]);
+      }
+    }
+  }
+  if (key_ok) {
+    float* dkp = a.dk + row_offset(a, TDK, b, h, key);
+    float* dvp = a.dv + row_offset(a, TDV, b, h, key);
+#pragma unroll
+    for (int c = 0; c < DP; ++c) {
+      if (c < a.dh) {
+        dkp[c] = dk[c];
+        dvp[c] = dv[c];
+      }
+    }
+  }
+}
+
+// One (batch*head, 64-query block): thread = query row; dQ over all keys.
+template <int DP>
+__global__ void __launch_bounds__(F32_ROWS) flash_bwd_q_f32_kernel(const BwdF32Args a) {
+  __shared__ float Ks[F32_TILE][DP];
+  __shared__ float Vs[F32_TILE][DP];
+  __shared__ float Bs[F32_TILE];
+  const TileIdx ti = tile_index(a.Nq, F32_ROWS);
+  const int b = ti.bh / a.H, h = ti.bh % a.H;
+  const int qrow = ti.tile * F32_ROWS + threadIdx.x;
+  const bool row_ok = qrow < a.Nq;
+
+  float qr[DP], dor[DP], dq[DP];
+#pragma unroll
+  for (int c = 0; c < DP; ++c) {
+    const bool ok = row_ok && c < a.dh;
+    qr[c] = ok ? a.q[row_offset(a, TQ, b, h, qrow) + c] : 0.0f;
+    dor[c] = ok ? a.dout[row_offset(a, TDO, b, h, qrow) + c] : 0.0f;
+    dq[c] = 0.0f;
+  }
+  const long long row = static_cast<long long>(ti.bh) * a.Nq + qrow;
+  const float lse = row_ok ? a.lse[row] : 0.0f;
+  const float delta = row_ok ? a.delta[row] : 0.0f;
+
+  for (int k0 = 0; k0 < a.Nk; k0 += F32_TILE) {
+    __syncthreads();  // previous tile fully consumed
+    for (int idx = threadIdx.x; idx < F32_TILE * DP; idx += F32_ROWS) {
+      const int r = idx / DP, c = idx % DP;
+      const bool ok = k0 + r < a.Nk && c < a.dh;
+      Ks[r][c] = ok ? a.k[row_offset(a, TK, b, h, k0 + r) + c] : 0.0f;
+      Vs[r][c] = ok ? a.v[row_offset(a, TV, b, h, k0 + r) + c] : 0.0f;
+    }
+    const int t = threadIdx.x;
+    if (t < F32_TILE) {
+      Bs[t] = (a.bias != nullptr && k0 + t < a.Nk)
+                  ? a.bias[static_cast<long long>(b) * a.Nk + k0 + t] : 0.0f;
+    }
+    __syncthreads();
+    const int keys = min(F32_TILE, a.Nk - k0);
+    for (int j = 0; j < keys; ++j) {
+      float s = 0.0f, dp = 0.0f;
+#pragma unroll
+      for (int c = 0; c < DP; ++c) {
+        s = fmaf(qr[c], Ks[j][c], s);
+        dp = fmaf(dor[c], Vs[j][c], dp);
+      }
+      const float sl = __fadd_rn(__fmul_rn(s, a.scale), Bs[j]);
+      const float p = expf(__fsub_rn(sl, lse));
+      const float ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, delta)), a.scale);
+#pragma unroll
+      for (int c = 0; c < DP; ++c) dq[c] = fmaf(ds, Ks[j][c], dq[c]);
+    }
+  }
+  if (row_ok) {
+    float* dqp = a.dq + row_offset(a, TDQ, b, h, qrow);
+#pragma unroll
+    for (int c = 0; c < DP; ++c)
+      if (c < a.dh) dqp[c] = dq[c];
+  }
+}
+
+template <int DP>
+cudaError_t launch_f32(bool kv, const BwdF32Args& a, int B, cudaStream_t stream) {
+  if (kv)
+    flash_bwd_kv_f32_kernel<DP><<<grid_blocks(B * a.H, a.Nk, F32_ROWS), F32_ROWS, 0, stream>>>(a);
+  else
+    flash_bwd_q_f32_kernel<DP><<<grid_blocks(B * a.H, a.Nq, F32_ROWS), F32_ROWS, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+int launch_bwd_f32(bool kv, const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, const void* bias, void* dq, void* dk,
+                   void* dv, int B, int H, int Nq, int Nk, int dh, const long long* strides,
+                   float scale, void* stream) {
+  if (dh <= 0 || dh > 64 || Nq <= 0 || Nk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  BwdF32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+               static_cast<const float*>(v), static_cast<const float*>(dout),
+               static_cast<const float*>(lse), static_cast<const float*>(delta),
+               static_cast<const float*>(bias), static_cast<float*>(dq),
+               static_cast<float*>(dk), static_cast<float*>(dv), H, Nq, Nk, dh, {}, scale};
+  for (int i = 0; i < 21; ++i) a.s[i] = strides[i];
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dh <= 16)
+    err = launch_f32<16>(kv, a, B, st);
+  else if (dh <= 32)
+    err = launch_f32<32>(kv, a, B, st);
+  else
+    err = launch_f32<64>(kv, a, B, st);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -359,24 +584,43 @@ int launch_bwd(bool kv, const void* q, const void* k, const void* v, const void*
 // q/k/v/dout and dq/dk/dv: bf16 [B, H, N, dh] addressed through element
 // strides (batch, head, seq) given in `strides` in the order q, k, v, dout,
 // dq, dk, dv (21 values); dh has unit stride. lse/delta: fp32 [B, H, Nq]
-// contiguous. qs/ks/cos/sin: null for K4; for K6 the fp32 RMS-norm scales
+// contiguous. bias: null, or the fp32 key-padding bias [B, Nk] contiguous
+// (K4 only). qs/ks/cos/sin: null for K4; for K6 the fp32 RMS-norm scales
 // [dh] and the row-major RoPE tables [>= max(Nq, Nk), dh/2], and dq/dk are
 // then gradients with respect to the transformed q/k. The kv entry writes
 // dk and dv, the q entry dq. Each returns cudaGetLastError().
 extern "C" int lam_flash_attention_bwd_kv(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, void* dq, void* dk, void* dv, const void* qs, const void* ks,
-    const void* cos, const void* sin, int B, int H, int Nq, int Nk, int dh,
+    const void* delta, const void* bias, void* dq, void* dk, void* dv, const void* qs,
+    const void* ks, const void* cos, const void* sin, int B, int H, int Nq, int Nk, int dh,
     const long long* strides, float scale, void* stream) {
-  return launch_bwd(true, q, k, v, dout, lse, delta, dq, dk, dv, qs, ks, cos, sin, B, H, Nq,
-                    Nk, dh, strides, scale, stream);
+  return launch_bwd(true, q, k, v, dout, lse, delta, bias, dq, dk, dv, qs, ks, cos, sin, B, H,
+                    Nq, Nk, dh, strides, scale, stream);
 }
 
 extern "C" int lam_flash_attention_bwd_q(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, void* dq, void* dk, void* dv, const void* qs, const void* ks,
-    const void* cos, const void* sin, int B, int H, int Nq, int Nk, int dh,
+    const void* delta, const void* bias, void* dq, void* dk, void* dv, const void* qs,
+    const void* ks, const void* cos, const void* sin, int B, int H, int Nq, int Nk, int dh,
     const long long* strides, float scale, void* stream) {
-  return launch_bwd(false, q, k, v, dout, lse, delta, dq, dk, dv, qs, ks, cos, sin, B, H, Nq,
-                    Nk, dh, strides, scale, stream);
+  return launch_bwd(false, q, k, v, dout, lse, delta, bias, dq, dk, dv, qs, ks, cos, sin, B, H,
+                    Nq, Nk, dh, strides, scale, stream);
+}
+
+// As the two entries above on fp32 q/k/v/dout and dq/dk/dv (dh <= 64), with
+// the same strides, lse, delta and optional bias, and no QK transform.
+extern "C" int lam_flash_attention_bwd_f32_kv(
+    const void* q, const void* k, const void* v, const void* dout, const void* lse,
+    const void* delta, const void* bias, void* dq, void* dk, void* dv, int B, int H, int Nq,
+    int Nk, int dh, const long long* strides, float scale, void* stream) {
+  return launch_bwd_f32(true, q, k, v, dout, lse, delta, bias, dq, dk, dv, B, H, Nq, Nk, dh,
+                        strides, scale, stream);
+}
+
+extern "C" int lam_flash_attention_bwd_f32_q(
+    const void* q, const void* k, const void* v, const void* dout, const void* lse,
+    const void* delta, const void* bias, void* dq, void* dk, void* dv, int B, int H, int Nq,
+    int Nk, int dh, const long long* strides, float scale, void* stream) {
+  return launch_bwd_f32(false, q, k, v, dout, lse, delta, bias, dq, dk, dv, B, H, Nq, Nk, dh,
+                        strides, scale, stream);
 }

@@ -1,0 +1,43 @@
+"""Host-side geometric augmentations (numpy, explicit RNG): the rotations the
+MD17 train set uses, copied from ``lam_slide_tpu/data/augment.py`` (numpy
+port of the reference's src/utils/data_utils.py). The other domains'
+augmentations come with their slices.
+"""
+
+import numpy as np
+
+
+def random_rotation_matrix(rng: np.random.Generator) -> np.ndarray:
+    """Euler-angle 3D rotation (data_utils.py:11-31): Rz(θ)·Ry(φ)·Rx(ψ)."""
+    theta = 2 * np.pi * rng.random()
+    phi = np.arccos(2 * rng.random() - 1)
+    psi = 2 * np.pi * rng.random()
+    ct, st = np.cos(theta), np.sin(theta)
+    cp, sp = np.cos(phi), np.sin(phi)
+    cs, ss = np.cos(psi), np.sin(psi)
+    rz = np.array([[ct, -st, 0], [st, ct, 0], [0, 0, 1]])
+    ry = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]])
+    rx = np.array([[1, 0, 0], [0, cs, -ss], [0, ss, cs]])
+    return (rz @ ry @ rx).astype(np.float32)
+
+
+def random_rotation_matrices(rng: np.random.Generator, b: int) -> np.ndarray:
+    """[b, 3, 3] batch of Euler rotations Rz(θ)Ry(φ)Rx(ψ) — vectorized
+    random_rotation_matrix (same per-matrix distribution, batched draws)."""
+    theta = 2 * np.pi * rng.random(b)
+    phi = np.arccos(2 * rng.random(b) - 1)
+    psi = 2 * np.pi * rng.random(b)
+    ct, st = np.cos(theta), np.sin(theta)
+    cp, sp = np.cos(phi), np.sin(phi)
+    cs, ss = np.cos(psi), np.sin(psi)
+    z = np.zeros(b)
+    o = np.ones(b)
+    rz = np.stack([ct, -st, z, st, ct, z, z, z, o], -1).reshape(b, 3, 3)
+    ry = np.stack([cp, z, sp, z, o, z, -sp, z, cp], -1).reshape(b, 3, 3)
+    rx = np.stack([o, z, z, z, cs, -ss, z, ss, cs], -1).reshape(b, 3, 3)
+    return (rz @ ry @ rx).astype(np.float32)
+
+
+def rotate(points: np.ndarray, rot: np.ndarray) -> np.ndarray:
+    """points [..., D] @ R^T (data_utils.py rotate_point_cloud)."""
+    return points @ rot.T

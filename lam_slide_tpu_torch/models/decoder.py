@@ -8,12 +8,15 @@ entity table the backbone shares with the encoder sits in
 ``entity_embedding``, so the state_dict keys are the reference's
 (``query_mlp.1``, ``self_attn_blocks.{i}``, ``cross_attn_blocks.{i}``,
 ``output_block``, ``output_layers.<name>.{0,2}``, ``entity_embedding.*``).
-``DecoderQuerySplitter`` waits for the peptide slice, and the latent dropout
-(training only, 0 in the MD17 config) for stage-1 training.
+``DecoderQuerySplitter`` waits for the peptide slice. In train mode
+(``deterministic=False``) ``dropout_query`` (0.1 in MD17) and
+``dropout_latent`` (0) draw from the caller's generator (decoder.py:51-69);
+in eval nothing is dropped.
 
 With 192 latents on the card the self-attention reaches the flash kernel K1
-in fp32; the output block's queries (one per entity, 50 for MD17) stay on
-the plain path, as ``_pick_backend`` keeps them below 128.
+in fp32 (and K4 in its backward); the output block's queries (one per
+entity, 32 for MD17) stay on the plain path, as ``_pick_backend`` keeps them
+below 128.
 """
 
 from typing import Callable, Dict, Mapping, Optional
@@ -24,7 +27,9 @@ from torch import nn
 from lam_slide_tpu_torch.nn import initializers as inits
 from lam_slide_tpu_torch.nn.blocks import (
     CrossAttentionBlock,
+    Dropout,
     SelfAttentionBlock,
+    dropout,
     gelu_tanh,
     mlp,
     run_mlp,
@@ -39,16 +44,18 @@ class _DecoderCore(nn.Module):
     def __init__(self, outputs: Mapping[str, int], dim_latent: int, dim_entity: int,
                  dim_query: int, dim_head_cross: int = 64, dim_head_latent: int = 64,
                  num_head_cross: int = 1, num_head_latent: int = 4, num_block_cross: int = 2,
-                 num_block_attn: int = 4, dropout_query: float = 0.1, qk_norm: bool = False,
-                 act: Callable = gelu_tanh, backend: str = "auto",
-                 dtype: torch.dtype = torch.float32, gen: Optional[torch.Generator] = None):
+                 num_block_attn: int = 4, dropout_query: float = 0.1,
+                 dropout_latent: float = 0.0, qk_norm: bool = False, act: Callable = gelu_tanh,
+                 backend: str = "auto", dtype: torch.dtype = torch.float32,
+                 gen: Optional[torch.Generator] = None):
         super().__init__()
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
         self.act, self.dtype = act, dtype
         self.dim_query = dim_query
+        self.dropout_latent = dropout_latent
         self.entity_embedding: Optional[EntityEmbedding] = None  # set by the backbone
         self.query_mlp = nn.Sequential(
-            nn.Dropout(dropout_query),
+            Dropout(dropout_query),
             linear(dim_entity, dim_query, inits.torch_linear_init_, gen))
         cross = dict(heads=num_head_cross, dim_head=dim_head_cross, qk_norm=qk_norm, act=act,
                      backend=backend, dtype=dtype, gen=gen)
@@ -64,12 +71,15 @@ class _DecoderCore(nn.Module):
              for name, out_dim in outputs.items()})
         self._cross = cross  # the output block's settings, for the variants' extra blocks
 
-    def queries_from(self, entity_emb: torch.Tensor) -> torch.Tensor:
-        q = self.query_mlp[0](entity_emb.to(self.dtype))
+    def queries_from(self, entity_emb: torch.Tensor, deterministic: bool,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        q = self.query_mlp[0](entity_emb.to(self.dtype), generator, deterministic)
         return dense(q, self.query_mlp[1], self.dtype)
 
-    def trunk(self, latent: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    def trunk(self, latent: torch.Tensor, queries: torch.Tensor, deterministic: bool,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
         """Self-attention over the latents, then cross-attention latents <- queries."""
+        latent = dropout(latent, self.dropout_latent, generator, deterministic)
         for block in self.self_attn_blocks:
             latent = block(latent)
         for block in self.cross_attn_blocks:
@@ -83,10 +93,12 @@ class _DecoderCore(nn.Module):
 class Decoder(_DecoderCore):
     """Standard decoder (reference decoder.py:12-102)."""
 
-    def forward(self, latent: torch.Tensor, entity_emb: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """latent: [B, L, D]; entity_emb: [B, N, E] -> {name: [B, N, out_dim]}."""
-        queries = self.queries_from(entity_emb)
-        latent = self.trunk(latent, queries)
+    def forward(self, latent: torch.Tensor, entity_emb: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """latent: [B, L, D]; entity_emb: [B, N, E] -> {name: [B, N, out_dim]};
+        ``generator`` draws the train-mode dropouts."""
+        queries = self.queries_from(entity_emb, deterministic, generator)
+        latent = self.trunk(latent, queries, deterministic, generator)
         return self.heads(self.output_block(queries, latent))
 
 
@@ -103,9 +115,10 @@ class DecoderFE(_DecoderCore):
         self.energy_block = CrossAttentionBlock(dim_query, dim_latent, **self._cross)
         self.energy_mlp = mlp((dim_query, dim_query, 1), self.act, gen)
 
-    def forward(self, latent: torch.Tensor, entity_emb: torch.Tensor) -> Dict[str, torch.Tensor]:
-        queries = self.queries_from(entity_emb)
-        latent = self.trunk(latent, queries)
+    def forward(self, latent: torch.Tensor, entity_emb: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        queries = self.queries_from(entity_emb, deterministic, generator)
+        latent = self.trunk(latent, queries, deterministic, generator)
         out = self.heads(self.output_block(queries, latent))
         eq = self.energy_query.to(self.dtype).expand(latent.shape[0], 1, -1)
         e = run_mlp(self.energy_mlp, self.energy_block(eq, latent), self.dtype)
@@ -122,7 +135,9 @@ class Decoder2(_DecoderCore):
         super().__init__(outputs, dim_latent, dim_entity, dim_query, **kwargs)
         self.query = nn.Parameter(inits.normal_(torch.empty(dim_query), self._cross["gen"], 1.0))
 
-    def forward(self, latent: torch.Tensor, entity_emb: torch.Tensor) -> Dict[str, torch.Tensor]:
-        queries = self.queries_from(entity_emb) + self.query.to(self.dtype)
-        latent = self.trunk(latent, queries)
+    def forward(self, latent: torch.Tensor, entity_emb: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        queries = (self.queries_from(entity_emb, deterministic, generator)
+                   + self.query.to(self.dtype))
+        latent = self.trunk(latent, queries, deterministic, generator)
         return self.heads(self.output_block(queries, latent))

@@ -6,12 +6,13 @@ Attribute names follow the reference's state_dict keys
 (``attn.fn.to_q``, ``attn.norm``, ``ff.fn.net.0.0``, ...), so reference
 weights load with ``load_state_dict``. Dense layers compute in ``dtype``
 with the weights cast at each use, as flax ``nn.Dense(dtype=...)`` does;
-norm and softmax statistics stay fp32. ``dropout_seq`` is training only and
-is not ported yet.
+norm and softmax statistics stay fp32. The dropouts (``dropout``,
+``dropout_seq``) draw from a ``torch.Generator`` the caller passes, never
+from the global RNG.
 """
 
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -36,6 +37,56 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     x32 = x.float()
     inner = math.sqrt(2.0 / math.pi) * (x32 + 0.044715 * x32 * x32 * x32)
     return (0.5 * x32 * (1.0 + torch.tanh(inner))).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            deterministic: bool = True, broadcast_dims: Tuple[int, ...] = ()) -> torch.Tensor:
+    """flax ``nn.Dropout(rate, broadcast_dims)``: in train mode
+    (``deterministic=False``) keep each element with probability 1 - rate,
+    drawn from ``generator`` (on x's device), and scale the kept ones by
+    1 / (1 - rate); ``broadcast_dims`` share one draw along those axes (the
+    encoder's latent-token dropout drops whole rows). Identity when
+    deterministic or rate is 0. The draws are torch's, not JAX's."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    shape = [1 if i in broadcast_dims else n for i, n in enumerate(x.shape)]
+    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout(nn.Module):
+    """A parameter-free dropout slot in a ``Sequential`` (keeps the
+    reference's layer indices, e.g. ``query_mlp.1``); call it with the
+    generator: ``slot(x, generator, deterministic)``."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                deterministic: bool = True) -> torch.Tensor:
+        return dropout(x, self.rate, generator, deterministic)
+
+
+def dropout_seq(x: torch.Tensor, mask: Optional[torch.Tensor], rate: float,
+                generator: torch.Generator) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Random sequence-element dropout with compaction (``dropout_seq``,
+    nn/blocks.py:55-73; reference torch_modules.dropout_seq): keeps
+    max(1, int(n * (1 - rate))) elements of the sequence axis per batch row,
+    chosen by scores drawn from ``generator``, padding (``mask`` False)
+    dropped first. Returns (x, mask) gathered to that length."""
+    b, n = x.shape[:2]
+    keep = max(1, int(n * (1.0 - rate)))
+    scores = torch.rand((b, n), generator=generator, device=x.device)
+    if mask is not None:
+        scores = torch.where(mask, scores, -1.0)
+    idx = torch.argsort(-scores, dim=1)[:, :keep]
+    rows = torch.arange(b, device=x.device)[:, None]
+    return x[rows, idx], None if mask is None else mask[rows, idx]
 
 
 def set_backend(model: nn.Module, backend: str) -> None:

@@ -16,19 +16,22 @@ K1 also takes a ``[B, Nk]`` boolean key-padding mask (True = attend), which
 becomes the fp32 bias row of ``_mask_to_bias`` (0 or -0.7·finfo(fp32).max,
 flash_attention.py:624-629) added to the scaled logits in the kernel, and
 fp32 operands (stage 1 runs in fp32), through a second kernel with fp32 in
-and out. K4 has neither yet, so a masked or fp32 call that needs a gradient
-raises; the packed entry K3 stays unmasked, as in JAX.
+and out. K4 takes both too: the bias row in both of its kernels (JAX
+``_bwd_probs``), and fp32 operands through a second pair of kernels. The
+packed entry K3 stays unmasked, as in JAX.
 
 Gradients: on CUDA tensors that need one, the forward runs inside
 ``_FlashAttention`` (the JAX ``custom_vjp``), which asks K1 for the per-row
-log-sum-exp and whose backward launches K4's two kernels. The packed entry
-differentiates through the same Function on its head-major views.
+log-sum-exp, keeps the mask, and whose backward launches K4's two kernels.
+The packed entry differentiates through the same Function on its head-major
+views.
 
 Counters (plain integers, touched only where a kernel launches):
 ``launches`` counts K1 launches of both entries and both dtypes,
 ``bias_launches`` those with a key-padding bias, ``fp32_launches`` those
-with fp32 operands, ``bwd_kv_launches`` and ``bwd_q_launches`` K4's dK/dV
-and dQ kernels.
+with fp32 operands; ``bwd_kv_launches`` and ``bwd_q_launches`` count K4's
+dK/dV and dQ kernels, and ``bwd_bias_launches`` / ``bwd_fp32_launches``
+those of either kernel with the bias / with fp32 operands (two per call).
 """
 
 import ctypes
@@ -45,6 +48,8 @@ bias_launches = 0
 fp32_launches = 0
 bwd_kv_launches = 0
 bwd_q_launches = 0
+bwd_bias_launches = 0
+bwd_fp32_launches = 0
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max  # the JAX kernels' mask fill
 F32_MAX_DH = 64  # the fp32 kernel keeps q and its accumulator in registers
@@ -90,19 +95,24 @@ def reference_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def reference_flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
-                             scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                             scale: float, bias: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4's formulas on whole head-major tensors -> (dq, dk, dv) in the input
     dtypes (``_flash_backward`` and ``_bwd_probs``, flash_attention.py:411-621).
 
-    delta = rowsum(dO ⊙ O) in fp32; P = exp(q kᵀ · scale − lse) in fp32;
-    dV = bf16(P)ᵀ dO; dS = (P ⊙ (dO vᵀ − delta) · scale) rounded to the input
-    dtype; dQ = dS k; dK = dSᵀ q; fp32 accumulation throughout.
+    delta = rowsum(dO ⊙ O) in fp32; P = exp(q kᵀ · scale + bias − lse) in
+    fp32, with ``bias`` the forward's ``[B, Nk]`` key-padding bias row (or
+    none); dV = P rounded to the input dtype, transposed, times dO; dS = (P ⊙
+    (dO vᵀ − delta) · scale) rounded to the input dtype; dQ = dS k; dK = dSᵀ
+    q; fp32 accumulation throughout.
     """
     dtype = q.dtype
     do = g.to(dtype).float()
     delta = (g.float() * out.float()).sum(dim=-1, keepdim=True)
-    p = torch.exp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-                  - lse.unsqueeze(-1))
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)).mul_(scale)
+    if bias is not None:
+        s.add_(bias[:, None, None, :])
+    p = s.sub_(lse.unsqueeze(-1)).exp_()
     dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), do)
     dp = torch.matmul(do, v.float().transpose(-1, -2))
     ds = (p * (dp - delta) * scale).to(dtype).float()
@@ -157,22 +167,18 @@ def _bias(mask: torch.Tensor, q: torch.Tensor, nk: int) -> torch.Tensor:
 
 def _forward(q, k, v, scale: float, with_lse: bool, mask: Optional[torch.Tensor] = None):
     """Launch K1 on checked head-major CUDA tensors -> (out, lse or None).
-    bf16 operands take the tensor-core kernel (with lse when asked), fp32
-    operands the fp32 kernel (no lse); both take the mask's bias row."""
+    bf16 operands take the tensor-core kernel, fp32 operands the fp32
+    kernel; both write the lse when asked and take the mask's bias row."""
     _check(q, k, v, (torch.bfloat16, torch.float32))
     b, h, nq, dh = q.shape
     nk = k.shape[2]
     fp32 = q.dtype == torch.float32
-    if fp32 and with_lse:
-        raise ValueError("flash_attention: the fp32 kernel writes no lse")
     bias = None if mask is None else _bias(mask, q, nk)
     out = _packed_like(q, nq)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
-    if not fp32:
-        ptrs.append(None if lse is None else lse.data_ptr())
-    ptrs.append(None if bias is None else bias.data_ptr())
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), None if bias is None else bias.data_ptr()]
     global launches, bias_launches, fp32_launches
     with torch.cuda.device(q.device):
         _build.launch("lam_flash_attention_fwd_f32" if fp32 else "lam_flash_attention_fwd",
@@ -184,19 +190,21 @@ def _forward(q, k, v, scale: float, with_lse: bool, mask: Optional[torch.Tensor]
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K1 forward (with lse) and K4 backward: ``_flash_attention_core``'s VJP."""
+    """K1 forward (with lse) and K4 backward: ``_flash_attention_core``'s VJP.
+    The key-padding mask rides along (no grad), as JAX's bias does."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = _forward(q, k, v, scale, with_lse=True)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, mask, scale):
+        out, lse = _forward(q, k, v, scale, with_lse=True, mask=mask)
+        ctx.save_for_backward(q, k, v, out, lse, mask)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        return (*flash_attention_backward(q, k, v, out, lse, g, ctx.scale), None)
+        q, k, v, out, lse, mask = ctx.saved_tensors
+        return (*flash_attention_backward(q, k, v, out, lse, g, ctx.scale, mask=mask),
+                None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -208,23 +216,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take ``reference_attention``. CUDA tensors launch the kernel
     (bf16 with dh <= 128 or fp32 with dh <= 64, unit stride on dh) or raise;
     when they need a gradient, through ``_FlashAttention``, whose backward is
-    K4. K4 has no bias and no fp32 kernel yet, so a masked or fp32 call that
-    needs a gradient raises rather than dropping the bias.
+    K4 with the same bias row and dtype.
     """
     if q.device.type == "cpu":
         return reference_attention(q, k, v, scale, mask=mask)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if needs_grad(q, k, v):
-        if mask is not None or q.dtype == torch.float32:
-            raise NotImplementedError(
-                "flash_attention: the backward kernel (K4) has no key-padding bias and no fp32 "
-                "operands yet; run masked or fp32 attention on the card under torch.no_grad()")
-        return _FlashAttention.apply(q, k, v, scale)
+        return _FlashAttention.apply(q, k, v, mask, scale)
     return _forward(q, k, v, scale, with_lse=False, mask=mask)[0]
 
 
-def _check_backward(q, k, v, out, lse, g) -> None:
-    _check(q, k, v)
+def _check_backward(q, k, v, out, lse, g, dtypes=(torch.bfloat16,)) -> None:
+    _check(q, k, v, dtypes)
     b, h, nq, dh = q.shape
     for name, t in (("out", out), ("g", g)):
         if t.shape != q.shape or t.device != q.device or t.dtype != q.dtype:
@@ -236,43 +239,57 @@ def _check_backward(q, k, v, out, lse, g) -> None:
                          f"[{b}, {h}, {nq}] on {q.device}, got {tuple(lse.shape)} {lse.dtype}")
 
 
-def _launch_backward(q, k, v, out, lse, g, scale, counts, normrope=None):
+def _launch_backward(q, k, v, out, lse, g, scale, counts, normrope=None, bias=None):
     """Launch K4 (or K6 with ``normrope = (q_scale, k_scale, cos, sin)``) on
-    checked CUDA tensors -> (dq, dk, dv) in packed memory. ``counts`` is the
-    module whose ``bwd_kv_launches`` / ``bwd_q_launches`` count the launches."""
+    checked CUDA tensors -> (dq, dk, dv) in packed memory; fp32 operands take
+    K4's fp32 pair, and ``bias`` is the fp32 ``[B, Nk]`` key-padding row.
+    ``counts`` is the module whose ``bwd_kv_launches`` / ``bwd_q_launches``
+    (and K4's ``bwd_bias_launches`` / ``bwd_fp32_launches``) count them."""
     g = g if g.stride(-1) == 1 else g.contiguous()
     delta = (g.float() * out.float()).sum(dim=-1).contiguous()
     nq, nk = q.shape[2], k.shape[2]
     dq, dk, dv = _packed_like(q, nq), _packed_like(k, nk), _packed_like(v, nk)
     strides = (ctypes.c_longlong * 21)(
         *(s for t in (q, k, v, g, dq, dk, dv) for s in t.stride()[:3]))
-    nr = [t.data_ptr() for t in normrope] if normrope is not None else [None] * 4
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *nr, q.shape[0],
-            q.shape[1], nq, nk, q.shape[3], strides, float(scale), _stream(q))
+    fp32 = q.dtype == torch.float32
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), None if bias is None else bias.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr()]
+    if not fp32:
+        ptrs += [t.data_ptr() for t in normrope] if normrope is not None else [None] * 4
+    args = (*ptrs, q.shape[0], q.shape[1], nq, nk, q.shape[3], strides, float(scale),
+            _stream(q))
+    entry = "lam_flash_attention_bwd_f32" if fp32 else "lam_flash_attention_bwd"
     with torch.cuda.device(q.device):
-        _build.launch("lam_flash_attention_bwd_kv", *args)
-        counts.bwd_kv_launches += 1
-        _build.launch("lam_flash_attention_bwd_q", *args)
-        counts.bwd_q_launches += 1
+        for kernel, counter in (("kv", "bwd_kv_launches"), ("q", "bwd_q_launches")):
+            _build.launch(f"{entry}_{kernel}", *args)
+            setattr(counts, counter, getattr(counts, counter) + 1)
+            if bias is not None:
+                counts.bwd_bias_launches += 1
+            if fp32:
+                counts.bwd_fp32_launches += 1
     return dq, dk, dv
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
-                             scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                             scale: float, mask: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` from its output, lse and the output
-    gradient g, all head-major ``[B, H, N, dh]``.
+    gradient g, all head-major ``[B, H, N, dh]``, and the forward's
+    ``[B, Nk]`` boolean key-padding mask, if any.
 
     CPU tensors take ``reference_flash_backward``. CUDA tensors launch K4's
-    dK/dV kernel and then its dQ kernel (bf16, dh <= 128) or raise; the
-    grads come back in packed ``[B, N, H, dh]`` memory, so their packed
-    ``[B, N, H*dh]`` form is a view.
+    dK/dV kernel and then its dQ kernel (bf16 with dh <= 128 or fp32 with
+    dh <= 64) or raise; the grads come back in packed ``[B, N, H, dh]``
+    memory, so their packed ``[B, N, H*dh]`` form is a view.
     """
     if q.device.type == "cpu":
-        return reference_flash_backward(q, k, v, out, lse, g, scale)
-    _check_backward(q, k, v, out, lse, g)
-    return _launch_backward(q, k, v, out, lse, g, scale, sys.modules[__name__])
+        return reference_flash_backward(q, k, v, out, lse, g, scale,
+                                        None if mask is None else mask_to_bias(mask))
+    _check_backward(q, k, v, out, lse, g, (torch.bfloat16, torch.float32))
+    bias = None if mask is None else _bias(mask, q, k.shape[2])
+    return _launch_backward(q, k, v, out, lse, g, scale, sys.modules[__name__], bias=bias)
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

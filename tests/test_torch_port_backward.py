@@ -3,7 +3,9 @@ against the JAX package, on the CPU.
 
 * K1's lse and K4's formulas: ``reference_attention(return_lse=True)`` and
   ``reference_flash_backward`` against JAX ``_flash_forward(with_lse=True)``
-  and ``_flash_backward``, whose Pallas kernels run in interpret mode here.
+  and ``_flash_backward``, whose Pallas kernels run in interpret mode here,
+  also with the key-padding bias row in fp32 and bf16 (the MD17 encoder's
+  32 keys in one tile, and a ragged case with an all-masked row).
 * K6: ``reference_normrope_backward`` against JAX ``_nr_backward``, and the
   whole chain to the raw q/k and the norm scales against ``jax.grad``
   through ``_nr_core``, at dh 128.
@@ -65,8 +67,8 @@ def jax_kernels(monkeypatch):
 def plain_launches(monkeypatch):
     """Each wrapper's kernel launch replaced by its plain version, so that
     the autograd Functions run on CPU tensors."""
-    monkeypatch.setattr(tfa, "_forward", lambda q, k, v, scale, with_lse:
-                        tfa.reference_attention(q, k, v, scale, return_lse=True))
+    monkeypatch.setattr(tfa, "_forward", lambda q, k, v, scale, with_lse, mask=None:
+                        tfa.reference_attention(q, k, v, scale, return_lse=True, mask=mask))
     monkeypatch.setattr(tnr, "_forward", lambda q, k, v, qs, ks, cos, sin, scale, with_lse:
                         tfa.reference_attention(*tnr.pre_transform(q, k, qs, ks, cos, sin), v,
                                                 scale, return_lse=True))
@@ -137,6 +139,67 @@ def test_flash_backward_bf16_matches_jax_kernels():
         _close(a, w, tol=3e-2, err_msg=name)
 
 
+# (b, h, nq, nk, d, block): the MD17 encoder's cross-attention (32 keys, one
+# key tile: JAX's single_kb); ragged, padded q and key tiles
+BIAS_SHAPES = [(2, 8, 192, 32, 16, 512), (2, 2, 130, 257, 24, 128)]
+
+
+def _bias_row(seed, b, nk):
+    """A key-padding bias row [B, Nk]: ragged lengths, batch row 0 all masked."""
+    lengths = np.random.default_rng(seed).integers(1, nk + 1, size=b)
+    mask = np.arange(nk)[None, :] < lengths[:, None]
+    mask[0] = False
+    return mask, np.asarray(jfa._mask_to_bias(jnp.asarray(mask), b, nk))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,nq,nk,d,blk", BIAS_SHAPES)
+def test_flash_backward_with_bias_matches_jax_kernels(b, h, nq, nk, d, blk, dtype):
+    """K4's plain version with the bias row against the JAX kernel pair with
+    ``has_bias``, from the same out, lse and output gradient. An all-masked
+    row's lse is the mask fill itself, so each of its keys gets P = 1 on both
+    sides. fp32: sums in another order; bf16: P and dS one bf16 ulp apart
+    (as in test_flash_backward_bf16_matches_jax_kernels)."""
+    q, k, v, g = _attn_inputs(10, b, h, nq, nk, d)
+    mask, bias = _bias_row(11, b, nk)
+    scale = d ** -0.5
+    jdt = jnp.dtype(dtype)
+    jq, jk, jv, jg = (jnp.asarray(a, jdt) for a in (q, k, v, g))
+    out, lse = jfa._flash_forward(jq, jk, jv, jnp.asarray(bias), scale, block_q=blk,
+                                  block_k=blk, with_lse=True)
+    want = jfa._flash_backward(jq, jk, jv, jnp.asarray(bias), out, lse, jg, scale, block_q=blk,
+                               block_k=blk)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tout, tg = (torch.from_numpy(np.array(a, np.float32)).to(tdt)
+                            for a in (jq, jk, jv, out, jg))
+    got = tfa.reference_flash_backward(tq, tk, tv, tout, _t(lse), tg, scale, _t(bias))
+    assert bool(np.isclose(np.asarray(lse)[0], jfa._NEG_INF).all())  # the all-masked row
+    via_mask = tfa.flash_attention_backward(tq, tk, tv, tout, _t(lse), tg, scale,
+                                            mask=torch.from_numpy(mask))
+    for name, a, w, m in zip(("dq", "dk", "dv"), got, want, via_mask):
+        assert a.dtype == tdt and a.shape == w.shape
+        assert torch.equal(a, m)
+        _close(a, w, tol=TOL if dtype == "float32" else 3e-2, err_msg=name)
+
+
+def test_masked_fp32_flash_attention_function_matches_jax_grad(plain_launches):
+    """``_FlashAttention`` carries the mask: fp32 masked attention through it
+    (K1 with lse and the bias, then K4 with the bias) against jax.grad of the
+    JAX flash attention with the same mask."""
+    b, h, nq, nk, d = 2, 8, 192, 32, 16
+    q, k, v, g = _attn_inputs(12, b, h, nq, nk, d)
+    mask, _ = _bias_row(13, b, nk)
+    mask[0, :5] = True  # jax.grad's XLA backward: no all-masked row
+    want = jax.grad(lambda *a: jnp.sum(jfa.flash_attention(*a, mask=jnp.asarray(mask))
+                                       * jnp.asarray(g)), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (_t(a, True) for a in (q, k, v))
+    out = tfa._FlashAttention.apply(tq, tk, tv, torch.from_numpy(mask), d ** -0.5)
+    (out * _t(g)).sum().backward()
+    for name, t, w in zip(("dq", "dk", "dv"), (tq, tk, tv), want):
+        _close(t.grad, w, err_msg=name)
+
+
 def test_flash_attention_function_matches_jax_grad(plain_launches):
     """``_FlashAttention`` (K1 with lse + K4) and the packed entry through it,
     against jax.grad of the JAX flash attention."""
@@ -145,7 +208,7 @@ def test_flash_attention_function_matches_jax_grad(plain_launches):
     want = jax.grad(lambda *a: jnp.sum(jfa.flash_attention(*a) * jnp.asarray(g)),
                     argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
     tq, tk, tv = (_t(a, True) for a in (q, k, v))
-    (tfa._FlashAttention.apply(tq, tk, tv, d ** -0.5) * _t(g)).sum().backward()
+    (tfa._FlashAttention.apply(tq, tk, tv, None, d ** -0.5) * _t(g)).sum().backward()
     for name, t, w in zip(("dq", "dk", "dv"), (tq, tk, tv), want):
         _close(t.grad, w, err_msg=name)
 

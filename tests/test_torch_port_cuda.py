@@ -12,14 +12,18 @@ import math
 import pytest
 import torch
 
+from lam_slide_tpu_torch.experiments import registry
 from lam_slide_tpu_torch.models import LatentDiT
+from lam_slide_tpu_torch.data.loader import device_batch
 from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
+from lam_slide_tpu_torch.nn.blocks import set_backend
 from lam_slide_tpu_torch.ops import flash_attention as fa
 from lam_slide_tpu_torch.ops import flash_normrope as fnr
 from lam_slide_tpu_torch.ops import fused_adaln as fad
 from lam_slide_tpu_torch.ops import fused_mlp as fm
 from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
 from lam_slide_tpu_torch.ops import short_attention as tsa
+from lam_slide_tpu_torch.train import create_train_state, make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -61,6 +65,16 @@ K1_F32_REL_TOL = 1e-5
 # order can land one bf16 ulp apart. The limit chip_smoke.py uses (3x its
 # first reading at the MD17 shape); the gain must be within 1e-3 of 1.
 K9_GRAD_REL_TOL = 8.6e-3
+# K4 with fp32 operands and K1-fp32's lse against the plain versions: exact
+# fp32 up to the order of the sums; the limits chip_smoke.py uses.
+K4_F32_REL_TOL = 1e-5
+LSE_F32_ATOL = 6e-6
+# The MD17 stage-1 train step, kernel path vs plain path on the same dropout
+# draws, fp32: (relative error of the global grad norm, worst per-tensor
+# relative error). chip_smoke.py's limits (3x its readings at B=256) for the
+# norm; the per-tensor limit is 3x this test's reading at B=16 on an H100,
+# 2.361e-6 (decoder.output_layers.pos.2.bias, fewer rows averaged).
+S1_GRAD_REL_TOL = (3e-8, 7.1e-6)
 # A depth-2 DiT's parameter grads, kernel path vs plain path (bf16): worst
 # per-tensor relative error (norm of the difference over the norm); the
 # limit chip_smoke.py holds the full-width DiT to at B=2.
@@ -376,6 +390,83 @@ def test_flash_with_mask_matches_plain(dev, dtype, b, h, nq, nk, dh):
         _assert_k1_close(got, want)
     torch.testing.assert_close(got[0].float(), v[0].float().mean(dim=1, keepdim=True)
                                .expand_as(got[0]), atol=2e-2 if not fp32 else 1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,nq,nk,dh", [
+    (4, 8, 192, 32, 16),    # the MD17 encoder's cross-attention
+    (3, 3, 130, 257, 24),   # ragged: keys not a multiple of either tile
+])
+def test_flash_backward_with_mask_matches_plain(dev, dtype, b, h, nq, nk, dh):
+    """K4 with the key-padding bias row (batch row 0 all masked: each of its
+    keys gets P = 1, as in JAX), through the autograd path of a masked
+    flash call, against the plain backward on the same out and lse."""
+    g = _gen(19)
+    q, k, v, grad = _heads_views(g, dev, b, h, nq, nk, dh)
+    q, k, v, grad = (t.to(dtype) for t in (q, k, v, grad))
+    mask = _key_mask(g, dev, b, nk)
+    fp32 = dtype == torch.float32
+    out, lse = fa._forward(q, k, v, dh ** -0.5, with_lse=True, mask=mask)
+    want = fa.reference_flash_backward(q, k, v, out, lse, grad, dh ** -0.5, fa.mask_to_bias(mask))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (fa.bwd_kv_launches, fa.bwd_q_launches, fa.bwd_bias_launches, fa.bwd_fp32_launches)
+    fa.flash_attention(*leaves, mask=mask).backward(grad)
+    torch.cuda.synchronize()
+    assert (fa.bwd_kv_launches, fa.bwd_q_launches, fa.bwd_bias_launches,
+            fa.bwd_fp32_launches) == (before[0] + 1, before[1] + 1, before[2] + 2,
+                                      before[3] + 2 * fp32)
+    _assert_grads_close([t.grad for t in leaves], want, K4_F32_REL_TOL if fp32 else K4_REL_TOL)
+
+
+@pytest.mark.parametrize("b,h,nq,nk,dh", [(3, 2, 192, 192, 16), (2, 3, 130, 257, 64)])
+def test_flash_fp32_lse_and_backward_match_plain(dev, b, h, nq, nk, dh):
+    """K1-fp32's lse (and that asking for it leaves out unchanged), and K4's
+    fp32 pair on strided views, grads in packed memory."""
+    q, k, v, grad = (t.float() for t in _heads_views(_gen(20), dev, b, h, nq, nk, dh))
+    out, lse = fa._forward(q, k, v, 0.3, with_lse=True)
+    _, want_lse = fa.reference_attention(q, k, v, 0.3, return_lse=True)
+    assert torch.equal(out, fa._forward(q, k, v, 0.3, with_lse=False)[0])
+    assert (lse - want_lse).abs().max().item() <= LSE_F32_ATOL
+    before = fa.bwd_fp32_launches
+    got = fa.flash_attention_backward(q, k, v, out, lse, grad, 0.3)
+    assert fa.bwd_fp32_launches == before + 2
+    want = fa.reference_flash_backward(q, k, v, out, lse, grad, 0.3)
+    torch.cuda.synchronize()
+    assert all(t.dtype == torch.float32 and t.transpose(1, 2).is_contiguous() for t in got)
+    _assert_grads_close(got, want, K4_F32_REL_TOL)
+
+
+def test_md17_first_stage_step_on_the_card(dev):
+    """One MD17 stage-1 train step at full width (fp32, 192 latents, 32 padded
+    atoms) on 16 frames of the registry's loader: K1 three times (one with
+    the bias) and K4 three times, all fp32; every grad finite and non-zero
+    and within chip_smoke.py's limits of the plain path on the same dropout
+    draws."""
+    run = registry.md17_first_stage(device=dev)
+    batch = {k: v[:16] for k, v in device_batch(next(iter(run.train_loader)), dev).items()}
+    before = (fa.launches, fa.bias_launches, fa.fp32_launches, fa.bwd_kv_launches,
+              fa.bwd_q_launches, fa.bwd_bias_launches, fa.bwd_fp32_launches)
+    state = create_train_state(run.model, run.tx)
+    state, metrics = make_train_step(run.loss_fn, run.tx)(state, batch, 0)
+    after = (fa.launches, fa.bias_launches, fa.fp32_launches, fa.bwd_kv_launches,
+             fa.bwd_q_launches, fa.bwd_bias_launches, fa.bwd_fp32_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 1, 3, 3, 3, 2, 6)
+    assert torch.isfinite(metrics["loss"])
+
+    def grads():
+        run.model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        run.loss_fn(run.model, batch, gen, True)[0].backward()
+        return {n: p.grad.clone() for n, p in run.model.named_parameters()}
+
+    got = grads()
+    set_backend(run.model, "plain")
+    want = grads()
+    assert all(bool(torch.isfinite(gr).all()) and gr.abs().max() > 0 for gr in got.values())
+    norm = lambda gs: torch.stack([gr.norm() for gr in gs.values()]).norm().item()
+    assert abs(norm(got) - norm(want)) <= S1_GRAD_REL_TOL[0] * norm(want)
+    for name, gr in got.items():
+        assert (gr - want[name]).norm() <= S1_GRAD_REL_TOL[1] * want[name].norm(), name
 
 
 def _short_views(g, dev, b, n, heads, dh):

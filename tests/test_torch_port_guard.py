@@ -6,11 +6,12 @@
   untouched); on any other device they launch or raise, with no fallback,
   and inputs that need a gradient go through a ``torch.autograd.Function``
   (the kernels write through raw pointers, which autograd cannot see).
-* A masked or fp32 flash call (K1) that needs a gradient raises, since the
-  backward kernel (K4) has neither the bias nor fp32 yet.
+* A masked or fp32 flash call (K1) that needs a gradient reaches the
+  autograd Function whose backward is K4 with the bias and fp32 operands.
 * A failed kernel build raises.
-* The DiT and both MD17 stages are built on the card unless the CPU is asked
-  for, and the ODE sampler defaults to dopri5, as the JAX package's does.
+* The DiT, both MD17 stages and the registry's MD17 runs are built on the
+  card unless the CPU is asked for, and the ODE sampler defaults to dopri5,
+  as the JAX package's does.
 * ``chip_smoke.py`` fails without a GPU and prints no result, and its K1
   limits refuse a kernel that leaves the last key tile unmasked.
 """
@@ -26,6 +27,7 @@ import pytest
 import torch
 
 from lam_slide_tpu_torch.composites import md17 as tmd17
+from lam_slide_tpu_torch.experiments import registry as treg
 from lam_slide_tpu_torch.models import LatentDiT
 from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
 from lam_slide_tpu_torch.ops import _build
@@ -76,7 +78,7 @@ def test_no_sdpa_in_port():
 
 WRAPPER_MODULES = [fa, fnr, fad, fm, fsb, tsa]
 COUNTERS = ("launches", "bias_launches", "fp32_launches", "bwd_kv_launches", "bwd_q_launches",
-            "bwd_launches")
+            "bwd_bias_launches", "bwd_fp32_launches", "bwd_launches")
 
 
 def _zero_counters(monkeypatch):
@@ -140,6 +142,14 @@ def _backward_inputs(device):
     return q, k, v, torch.zeros_like(q), lse, torch.zeros_like(q), 0.2
 
 
+def _masked_backward_inputs(device):
+    return (*_backward_inputs(device), _masked_attn_inputs(device)[-1])
+
+
+def _fp32_backward_inputs(device):
+    return [t.float() if isinstance(t, torch.Tensor) else t for t in _backward_inputs(device)]
+
+
 def _normrope_backward_inputs(device):
     q, k, v, out, lse, g, scale = _backward_inputs(device)
     return (q, k, v, *_normrope_inputs(device)[3:], out, lse, g, scale)
@@ -174,21 +184,22 @@ WRAPPERS = [
     ("K8", fsb.fused_spatial_block, fsb, "reference_spatial_block", _spatial_inputs),
     ("K9", lambda q, k, v: tsa.short_attention(q, k, v, 2), tsa, "reference_short_attention",
      _short_inputs),
-]
-# K1's masked and fp32 calls: forward only (K4 has neither, test below)
-FORWARD_ONLY_WRAPPERS = [
     ("K1 masked", lambda q, k, v, m: fa.flash_attention(q, k, v, mask=m), fa,
      "reference_attention", _masked_attn_inputs),
     ("K1 fp32", fa.flash_attention, fa, "reference_attention", _fp32_attn_inputs),
 ]
 BACKWARD_WRAPPERS = [
     ("K4", fa.flash_attention_backward, fa, "reference_flash_backward", _backward_inputs),
+    ("K4 masked", lambda *a: fa.flash_attention_backward(*a[:-1], mask=a[-1]), fa,
+     "reference_flash_backward", _masked_backward_inputs),
+    ("K4 fp32", fa.flash_attention_backward, fa, "reference_flash_backward",
+     _fp32_backward_inputs),
     ("K6", fnr.flash_attention_normrope_backward, fnr, "reference_normrope_backward",
      _normrope_backward_inputs),
     ("K9 backward", tsa.short_attention_backward, tsa, "reference_short_backward",
      _short_backward_inputs),
 ]
-ALL_WRAPPERS = WRAPPERS + FORWARD_ONLY_WRAPPERS + BACKWARD_WRAPPERS
+ALL_WRAPPERS = WRAPPERS + BACKWARD_WRAPPERS
 
 
 @pytest.mark.parametrize("name,wrapper,module,plain,inputs", ALL_WRAPPERS,
@@ -254,23 +265,6 @@ def test_non_cpu_tensors_that_need_a_grad_reach_an_autograd_function(
         assert not reached
 
 
-@pytest.mark.parametrize("name,wrapper,module,plain,inputs", FORWARD_ONLY_WRAPPERS,
-                         ids=[w[0] for w in FORWARD_ONLY_WRAPPERS])
-def test_masked_or_fp32_flash_that_needs_a_grad_raises(monkeypatch, name, wrapper, module, plain,
-                                                        inputs):
-    """K4 has no key-padding bias and no fp32 kernel yet: a masked or fp32
-    K1 call on the card that needs a gradient raises instead of launching
-    K4 without the bias (or the Function at all), and counts nothing; under
-    no_grad it goes on to launch (here: meta tensors, refused by the check)."""
-    _zero_counters(monkeypatch)
-    args = [t.requires_grad_() if t.is_floating_point() else t for t in inputs("meta")]
-    with pytest.raises(NotImplementedError, match="K4"):
-        wrapper(*args)
-    with torch.no_grad(), pytest.raises(ValueError):
-        wrapper(*args)
-    assert not any(_counts())
-
-
 def test_dit_is_built_on_the_card_unless_the_cpu_is_asked_for():
     """Fault repaired: ``LatentDiT(device=None)`` used to build on the CPU, so
     a missing card ran the whole model there without a word."""
@@ -300,6 +294,20 @@ def test_md17_stages_are_built_on_the_card_unless_the_cpu_is_asked_for():
             tmd17.build_md17_first_stage(cfg1)
         with pytest.raises((AssertionError, RuntimeError)):
             tmd17.build_md17_second_stage(cfg2, fs)
+
+
+def test_md17_runs_are_built_on_the_card_unless_the_cpu_is_asked_for():
+    run = treg.md17_first_stage(smoke=True, device="cpu")
+    assert {p.device.type for p in run.model.parameters()} == {"cpu"}
+    if torch.cuda.is_available():
+        assert next(treg.md17_first_stage(smoke=True).model.parameters()).is_cuda
+        assert next(treg.md17_second_stage(run.model, run.config, smoke=True)
+                    .model.parameters()).is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            treg.md17_first_stage(smoke=True)
+        with pytest.raises((AssertionError, RuntimeError)):
+            treg.md17_second_stage(run.model, run.config, smoke=True)
 
 
 def test_sample_ode_defaults_to_dopri5():
