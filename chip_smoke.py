@@ -2,10 +2,12 @@
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
 The main paths are the 4AA stage-2 sampler, the 4AA stage-2 train step, the
-MD17 sampling protocol and the MD17 training of both stages. The 4AA paths run the full-width ``LatentDiT``
-(depth 7, hidden 384, mlp_ratio 2, T=1000 frames, L=2 latents, in_dim 96,
-bf16) with random weights drawn from a seed, at both head splits (16
-heads x dh 24 and 3 heads x dh 128). The sampler is the GVP
+MD17 sampling protocol, the MD17 training of both stages, the paths of the
+two ablation kernels (K10, K11), and the SDE and likelihood samplers. The
+4AA paths run the full-width ``LatentDiT`` (depth 7, hidden 384,
+mlp_ratio 2, T=1000 frames, L=2 latents, in_dim 96, bf16) with random
+weights drawn from a seed, at both head splits (16 heads x dh 24 and 3
+heads x dh 128). The sampler is the GVP
 data-prediction probability-flow ODE with both samplers (Euler,
 num_steps=10, and the eval protocol's dopri5 at atol 1e-6 / rtol 1e-3);
 the train step is the SI loss at the registry's B=16 with AdamW (lr
@@ -65,6 +67,26 @@ printed on its own line with its seconds:
    peak memory of both paths, a profiled step; then ten stage-2 steps on
    the aux losses alone, in which their sum falls, and one call of the
    sampled val hook on the EMA weights.
+
+11. ablation: the paths of the two kernels the JAX package keeps as opt-in
+   ablations, through their entry points: the 4AA temporal block
+   ``ParallelMLPAttention(hidden 384, 3 heads, fused_temporal=True)`` on x
+   [16, 1000, 384] bf16 (K10 1 and K2 1 a forward, no K5; forward and grads
+   against the plain path; its time against the same block on the K5
+   route), and ``flash_backward_short`` (K11) at the MD17 stage-2 spatial
+   axis [1920, 16, 192, 16] bf16;
+12. samplers: one ``get_sample_fn("SDE")`` solve (250 Euler-Maruyama steps,
+   the linear diffusion, the Mean last step) and one
+   ``sample_ode_likelihood`` solve (50 Euler steps, a drift VJP through K4
+   per step) on the 16 x 24 DiT at B=8: launches of every kernel per solve,
+   finite outputs, solve times; kernel path against plain at B=2;
+13. dit_variants: one forward each of the DiT with
+   ``attention_mode="linear"`` and with ``share_weights=True`` against the
+   plain path, with their launches.
+
+Phase 3 also holds K10 (at both head splits and a ragged T, and against
+the K5 and K3 routes) and K11 (against K4's grads, with its peak memory, and
+in fp32 at a JAX test shape) to their plain versions.
 
 The MD17 kernels are checked against their plain versions in phase 3: K1
 with the key-padding bias and with fp32 operands (and its lse), K9 forward
@@ -230,6 +252,33 @@ MD17_GRAD_REL_TOL = (1.2e-5, 1.0e-2)
 MD17_POS_REL_TOL = 1.5e-3
 GRAD_NORM_REL_TOL = {"bf16": 8e-5, "fp32": 3e-3}
 GRAD_TENSOR_REL_TOL = {"bf16": 1.6e-2, "fp32": 4.5e-2}
+# K10 against its plain version: K1's pair of limits (q/k round once, after
+# norm and RoPE, on both sides; P rounds at different points). Against the
+# K5 route and the K3 route on the same raw q/k/v, which round q/k twice
+# (after the norm and after the RoPE): relative to max |out|, and the gain.
+# A one-ulp difference of a transformed q/k element moves a logit by about
+# 2^-8 of its size, so outputs move by a few bf16 ulps. First readings on an
+# H100: 8.523e-3 (3 x 128) and 1.036e-2 (16 x 24); the limit is 3x that.
+K10_ROUTE_REL_TOL = 3e-2
+# K11 against its plain version: K4's formulas at K4's rounding points, so
+# K4's limits (K4_REL_TOL in bf16, K4_F32_REL_TOL in fp32); against K4's
+# grads on the same out/lse, twice that (each is held to the plain version;
+# the first reading on an H100 was bit-identical).
+# Phase 11, the fused temporal block at 3 x 128 against its plain path, the
+# output relative to max |out|: first reading on an H100 4.310e-3, the limit
+# is 3x that; its grads per tensor are held to GRAD_TENSOR_REL_TOL["bf16"]
+# (first reading 6.241e-3, the key-norm scale).
+BLOCK_REL_TOL = 1.3e-2
+# Phase 12, the samplers on the 4AA 16 x 24 DiT: the reference's default
+# steps at B=8, and at B=2 the kernel path against the plain path on the same
+# noise and eps with fewer steps, relative to the largest output. First
+# readings on an H100: SDE x 6.150e-3, likelihood logp 2.021e-6 and end
+# state 1.358e-3 (the data drift divides by sigma_t^2 near the end of the
+# interval, so random weights give |logp| ~ 1e11); the limit is 3x the worst.
+SDE_STEPS, LIKELIHOOD_STEPS = 250, 50
+SAMPLER_BATCH = 8
+SOLVE_CMP_STEPS = (5, 4)
+SOLVE_REL_TOL = 1.9e-2
 
 
 def check(ok: bool, msg: str) -> None:
@@ -809,6 +858,131 @@ def md17_train_kernel_checks(dev, gen, table: KernelTable) -> None:
     torch.cuda.empty_cache()
 
 
+def ablation_kernel_checks(dev, gen, table: KernelTable) -> None:
+    """K10 and K11 against their plain versions. K10 on packed q/k/v views
+    of a linear1-like buffer [B*L = 16, T = 1000, 384] bf16 with lane tables
+    and tiled lane scales, at 3 x 128 (its row) and 16 x 24, and at a ragged
+    T with a scale per lane; also against the K5 route and the K3 route on
+    the same raw q/k/v. K11 from the out/lse of a K1 forward at the MD17
+    stage-2 spatial axis [64*30 = 1920, 16, 192, 16] in bf16, against its
+    plain version and against K4's grads, with its peak memory; and in fp32
+    at one of the JAX package's test shapes."""
+    from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
+    from lam_slide_tpu_torch.ops import flash_attention as fa
+    from lam_slide_tpu_torch.ops import flash_normrope as fnr
+    from lam_slide_tpu_torch.ops.ablations import fused_temporal_attention as tft
+    from lam_slide_tpu_torch.ops.ablations import short_backward as tsb
+    from lam_slide_tpu_torch.ops.packed_attention import (
+        lane_rope_tables,
+        packed_rmsnorm,
+        packed_rope,
+    )
+
+    bf, d, bp = torch.bfloat16, HIDDEN, 8 * L
+    for key, n, t, heads, tiled in (("K10", bp, T, WIDE_HEADS, True),
+                                    ("K10 16x24", bp, T, HEADS, True),
+                                    ("K10 ragged", 3, 1001, HEADS, False)):
+        dh = d // heads
+        qkv = _rand(gen, n, t, 3 * d, scale=2.0).to(dev, bf)
+        q, k, v = qkv.split(d, dim=-1)
+        cos, sin = rope_cos_sin(t, dh, device=dev)
+        cos_l, sin_l = lane_rope_tables(cos, sin, heads)
+        if tiled:
+            qs, ks = (1 + 0.2 * _rand(gen, dh)).to(dev), (1 + 0.2 * _rand(gen, dh)).to(dev)
+            qs_l, ks_l = qs.repeat(heads)[None], ks.repeat(heads)[None]
+        else:
+            qs_l, ks_l = ((1 + 0.2 * _rand(gen, 1, d)).to(dev) for _ in range(2))
+        args = (q, k, v, cos_l, sin_l, qs_l, ks_l, heads, dh ** -0.5)
+        got, want = tft.fused_temporal_attention(*args), tft.reference_fused_temporal(*args)
+        torch.cuda.synchronize()
+        check(got.shape == q.shape and got.dtype == bf and got.is_contiguous(), f"{key} shape")
+        abs_err, _, atol, k1_gain = k1_errors(got, want)
+        detail = [f"gain {k1_gain:.7f}"]
+        if tiled:
+            # the K5 route (raw head-major views, [dh] scales and [T, dh/2]
+            # tables) and the K3 route (packed norm and RoPE, then K3)
+            heads_of = [t_.unflatten(-1, (heads, dh)).transpose(1, 2) for t_ in (q, k, v)]
+            via_k5 = fnr.flash_attention_normrope(*heads_of, qs, ks, cos, sin)
+            via_k5 = via_k5.transpose(1, 2).flatten(2)
+            qn, kn = (packed_rope(packed_rmsnorm(x, heads, s_), cos_l, sin_l)
+                      for x, s_ in ((q, qs), (k, ks)))
+            via_k3 = fa.flash_attention_packed(qn, kn, v, heads)
+            torch.cuda.synchronize()
+            for route, other in (("K5", via_k5), ("K3", via_k3)):
+                _, rel = errors(got, other)
+                g_ = gain(got, other)
+                detail.append(f"vs the {route} route rel {rel:.3e} gain {g_:.7f}")
+                check(rel <= K10_ROUTE_REL_TOL, f"{key} vs the {route} route rel err {rel}")
+                check(abs(g_ - 1) <= K1_GAIN_TOL, f"{key} vs the {route} route gain {g_}")
+            del via_k5, via_k3, qn, kn
+        table.add(key, f"packed q/k/v [{n},{t},{d}] views, {heads} x {dh}, "
+                  f"{'tiled' if tiled else 'per-lane'} scales; {'; '.join(detail)}", abs_err,
+                  f"atol {atol:.3e} = {K1_ULPS} bf16 ulps, gain tol {K1_GAIN_TOL}, routes rel "
+                  f"tol {K10_ROUTE_REL_TOL}",
+                  time_ms(lambda: tft.fused_temporal_attention(*args)),
+                  time_ms(lambda: tft.reference_fused_temporal(*args), reps=5),
+                  4 * n * t * t * d, 4 * n * t * d * 2 + 2 * t * d * 4 + 2 * d * 4)
+        check_k1(abs_err, atol, k1_gain, key)
+        del got, want
+    torch.cuda.empty_cache()
+
+    # K11 at the MD17 stage-2 spatial axis: q/k/v head-major views of packed
+    # buffers, out and lse from K1 (K3's binary)
+    for key, b, h, n, dh, dtype in (("K11", MD17_BATCH * MD17_T, 16, 192, 16, bf),
+                                    ("K11 fp32", 2, 8, 192, 24, torch.float32)):
+        qkv = _rand(gen, b, n, 3 * h * dh).to(dev, dtype)
+        q, k, v = (t_.transpose(1, 2) for t_ in qkv.unflatten(-1, (3, h, dh)).unbind(2))
+        g = _rand(gen, b, h, n, dh).to(dev, dtype)
+        scale = dh ** -0.5
+        out, lse = fa._forward(q, k, v, scale, with_lse=True)
+        args = (q, k, v, out, lse, g, scale)
+        torch.cuda.synchronize()
+        peaks = {}
+        for name, fn in (("K11", tsb.flash_backward_short), ("K4", fa.flash_attention_backward),
+                         ("plain", tsb.reference_flash_backward_short)):
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            res = fn(*args)
+            torch.cuda.synchronize()
+            peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            if name == "K11":
+                got = res
+            elif name == "K4":
+                k4 = res
+            else:
+                want = res
+            del res
+        fp32 = dtype == torch.float32
+        rel_tol = K4_F32_REL_TOL if fp32 else K4_REL_TOL
+        errs, errs4 = _grad_errors(got, want), _grad_errors(got, k4)
+        detail = ", ".join(f"{nm} rel {r:.3e} gain {gn:.7f} (vs K4 rel {r4:.3e})"
+                           for nm, (_, r, gn), (_, r4, _) in zip(("dq", "dk", "dv"), errs, errs4))
+        for nm, (_, rel, gn), (_, rel4, gn4) in zip(("dq", "dk", "dv"), errs, errs4):
+            check(rel <= rel_tol, f"{key} {nm} rel err {rel} > {rel_tol}")
+            check(abs(gn - 1) <= K1_GAIN_TOL, f"{key} {nm} gain {gn}")
+            check(rel4 <= 2 * rel_tol, f"{key} {nm} vs K4 rel err {rel4} > {2 * rel_tol}")
+            check(abs(gn4 - 1) <= 2 * K1_GAIN_TOL, f"{key} {nm} vs K4 gain {gn4}")
+        peak = (f"peak memory above the inputs: K11 {peaks['K11']:.1f} MiB, K4 "
+                f"{peaks['K4']:.1f} MiB, plain {peaks['plain']:.1f} MiB")
+        if fp32:
+            print(f"kernel {key} [{b},{h},{n},{dh}] fp32: {detail} (rel tol {rel_tol}); {peak}")
+        else:
+            # five products (2.5x the forward's FLOPs); q/k/v/out/dO read and
+            # dq/dk/dv written once in bf16, lse read once in fp32
+            d_all = h * dh
+            table.add(key, f"q/k/v/dO [{b},{h},{n},{dh}] strided views; {detail}; {peak}",
+                      max(e[0] for e in errs), f"rel tol {rel_tol} per grad, gain tol "
+                      f"{K1_GAIN_TOL}; vs K4 2x", time_ms(lambda: tsb.flash_backward_short(*args),
+                                                          reps=10),
+                      time_ms(lambda: tsb.reference_flash_backward_short(*args), reps=3),
+                      2.5 * 4 * b * n * n * d_all, 8 * b * n * d_all * 2 + b * h * n * 4,
+                      library_times(q, k, v, scale, grad=g))
+            k4_ms = time_ms(lambda: fa.flash_attention_backward(*args), reps=10)
+            print(f"kernel K4 at K11's shape: {k4_ms:.4f} ms")
+        del got, want, k4, args, out, lse, qkv, q, k, v, g
+        torch.cuda.empty_cache()
+
+
 def md17_first_run(dev):
     """MD17 stage 1 through the port's registry (experiments/registry.py:
     155-193): fp32, 32 padded atoms, B=256, AdamW lr 4e-4; random weights
@@ -1363,6 +1537,227 @@ def train_timing(dev, make_model, smi) -> None:
         torch.cuda.empty_cache()
 
 
+def ablation_phase(dev, smi, reset_counts, read_counts):
+    """Phase 11: the paths of K10 and K11, through the entry points the JAX
+    package gives them. K10: the 4AA temporal block
+    ``ParallelMLPAttention(hidden 384, 3 heads, mlp_ratio 2,
+    fused_temporal=True)`` on x [B*L = 16, T = 1000, 384] bf16: launches of one
+    forward and of one forward + backward, the forward and the grads against
+    the block's plain path on the same weights, and its time against the same
+    block on the K5 route. K11: ``flash_backward_short`` at the MD17 stage-2
+    spatial axis [1920, 16, 192, 16] bf16 from a K1 forward's out and lse.
+    Returns the launches of the K10 forward + backward and of the K11 call."""
+    from lam_slide_tpu_torch.models.latent_dit import ParallelMLPAttention, rope_cos_sin
+    from lam_slide_tpu_torch.ops import flash_attention as fa
+    from lam_slide_tpu_torch.ops.ablations import short_backward as tsb
+
+    bf, d, n = torch.bfloat16, HIDDEN, SAMPLER_BATCH * L
+    dh = d // WIDE_HEADS
+
+    def block(fused):
+        return ParallelMLPAttention(d, WIDE_HEADS, MLP_RATIO, False, 8, bf,
+                                    torch.Generator().manual_seed(SEED),
+                                    fused_temporal=fused).to(dev)
+
+    fused, k5_route = block(True), block(False)
+    k5_route.load_state_dict(fused.state_dict())
+    gen = torch.Generator().manual_seed(SEED + 6)
+    x = _rand(gen, n, T, d).to(dev, bf)
+    g = _rand(gen, n, T, d).to(dev, bf)
+    cos, sin = rope_cos_sin(T, dh, device=dev)
+
+    with torch.no_grad():
+        reset_counts()
+        got = fused(x, cos, sin)
+        torch.cuda.synchronize()
+        fwd_counts = read_counts()
+        want = fused(x, cos, sin, backend="plain")
+        via_k5 = k5_route(x, cos, sin)
+    want_counts = {key: 0 for key in fwd_counts}
+    want_counts.update({"K10": 1, "K2": 1})
+    _, rel = errors(got, want)
+    _, rel5 = errors(got, via_k5)
+    print(f"ablation: fused temporal block 3x128 x [{n},{T},{d}] forward: launches {fwd_counts} "
+          f"(expected {want_counts}); vs the plain path rel {rel:.3e}, vs the K5 route rel "
+          f"{rel5:.3e} (tol {BLOCK_REL_TOL})")
+    check(fwd_counts == want_counts, f"fused temporal block launches {fwd_counts}")
+    check(rel <= BLOCK_REL_TOL and rel5 <= BLOCK_REL_TOL, "fused temporal block output")
+
+    def grads(backend):
+        fused.zero_grad(set_to_none=True)
+        xg = x.detach().clone().requires_grad_()
+        (fused(xg, cos, sin, backend=backend).float() * g.float()).sum().backward()
+        out = {"x": xg.grad.float()}
+        out.update({nm: p_.grad.float().clone() for nm, p_ in fused.named_parameters()})
+        return out
+
+    reset_counts()
+    got_g = grads("auto")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want_g = grads("plain")
+    check(counts == want_counts, f"fused temporal block fwd+bwd launches {counts}")
+    worst, where = max(((got_g[nm] - w).norm().item() / w.norm().item(), nm)
+                       for nm, w in want_g.items())
+    bad = [nm for nm, gr in got_g.items() if not bool(torch.isfinite(gr).all())
+           or not gr.abs().max().item() > 0]
+    print(f"ablation: fused temporal block forward + backward: launches {counts}; grads (x and "
+          f"{len(want_g) - 1} parameters) vs the plain path: worst tensor rel err {worst:.3e} at "
+          f"{where} (tol {GRAD_TENSOR_REL_TOL['bf16']})")
+    check(not bad, f"fused temporal block grads not finite and non-zero: {bad}")
+    check(worst <= GRAD_TENSOR_REL_TOL["bf16"], f"fused temporal block grad of {where}")
+    fused.zero_grad(set_to_none=True)
+
+    def fwd_bwd(mod):
+        def run():
+            xg = x.detach().clone().requires_grad_()
+            (mod(xg, cos, sin).float() * g.float()).sum().backward()
+        return run
+
+    with torch.no_grad():
+        times = {"K10 route": time_ms(lambda: fused(x, cos, sin)),
+                 "K5 route": time_ms(lambda: k5_route(x, cos, sin))}
+    times.update({"K10 route fwd+bwd": time_ms(fwd_bwd(fused), reps=5),
+                  "K5 route fwd+bwd": time_ms(fwd_bwd(k5_route), reps=5)})
+    print("timing ablation: fused temporal block 3x128 B*L=16: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in times.items()) + f" | {smi}")
+    del fused, k5_route, got_g, want_g
+    torch.cuda.empty_cache()
+
+    # K11 at the MD17 stage-2 spatial axis through its entry point
+    b, h, nn_, hd = MD17_BATCH * MD17_T, 16, 192, 16
+    qkv = _rand(gen, b, nn_, 3 * h * hd).to(dev, bf)
+    q, k, v = (t_.transpose(1, 2) for t_ in qkv.unflatten(-1, (3, h, hd)).unbind(2))
+    gk = _rand(gen, b, h, nn_, hd).to(dev, bf)
+    out, lse = fa._forward(q, k, v, hd ** -0.5, with_lse=True)
+    torch.cuda.synchronize()
+    reset_counts()
+    dq, dk, dv = tsb.flash_backward_short(q, k, v, out, lse, gk, hd ** -0.5)
+    torch.cuda.synchronize()
+    k11_counts = read_counts()
+    finite = all(bool(torch.isfinite(t_).all()) for t_ in (dq, dk, dv))
+    print(f"ablation: flash_backward_short [{b},{h},{nn_},{hd}] bf16: launches {k11_counts}, "
+          f"finite={finite}")
+    check(finite and k11_counts["K11"] == 1 and sum(k11_counts.values()) == 1,
+          f"K11 path launches {k11_counts}")
+    del qkv, q, k, v, gk, out, lse, dq, dk, dv
+    torch.cuda.empty_cache()
+    return counts, k11_counts
+
+
+def sampler_phase(dev, make_model, smi, reset_counts, read_counts):
+    """Phase 12: the SDE sampler and the likelihood solve on the full-width
+    4AA 16 x 24 DiT: one ``get_sample_fn("SDE")`` solve (the reference's
+    defaults: Euler-Maruyama, the linear diffusion, the Mean last step, 250
+    steps) and one ``sample_ode_likelihood`` solve (Euler, 50 steps, one drift
+    VJP per step) at B=8 through the kernels, with the launches of every
+    kernel per solve, finite outputs and both solve times; then the kernel
+    path against the plain path on the same noise and eps at B=2 with fewer
+    steps. Returns the launches of both solves."""
+    from lam_slide_tpu_torch.transport import Sampler, create_transport
+
+    model = make_model(HEADS)
+    sampler = Sampler(create_transport(path_type="GVP", prediction="data"))
+    sde = sampler.get_sample_fn("SDE")
+    like = sampler.sample_ode_likelihood()
+    gen = torch.Generator().manual_seed(SEED + 7)
+    noise, x_cond, mask = make_inputs(SAMPLER_BATCH, dev, gen)
+    kw = dict(x_cond=x_cond, x_cond_mask=mask)
+
+    def cuda_gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    # per drift evaluation of a forward: K1 (via K3) 7, K2 7, K7 15, K8 7; the
+    # SDE drift evaluates the model twice (drift and score), over 249 grid
+    # steps and the Mean last step; the likelihood once per step with its VJP
+    # (K4's two kernels per layer)
+    fwd = {"K1": DEPTH, "K2": DEPTH, "K7": 2 * DEPTH + 1, "K8": DEPTH}
+    results = {}
+    for name, run, evals, vjp in (
+            ("SDE", lambda: sde(cuda_gen(SEED), noise, model, **kw), 2 * SDE_STEPS, False),
+            ("likelihood", lambda: like(cuda_gen(SEED + 1), noise, model, **kw),
+             LIKELIHOOD_STEPS - 1, True)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        want = {key: 0 for key in counts}
+        want.update({key: n_ * evals for key, n_ in fwd.items()})
+        if vjp:
+            want.update({"K4 kv": DEPTH * evals, "K4 q": DEPTH * evals})
+        outs = out if isinstance(out, tuple) else (out,)
+        finite = all(bool(torch.isfinite(t_).all()) for t_ in outs)
+        shapes = [list(t_.shape) for t_ in outs]
+        print(f"samplers: {name} solve 16x24 B={SAMPLER_BATCH}: outputs {shapes} finite={finite} "
+              f"in {secs:.3f} s ({SAMPLER_BATCH * evals / secs:.2f} traj-drift-evals/s); "
+              f"launches {counts} (expected {want}) | {smi}")
+        check(finite, f"{name}: non-finite output")
+        check(counts == want, f"{name} launches {counts} != {want}")
+        results[name] = counts
+        del out, outs
+
+    # kernel path vs plain path at B=2 on the same noise and eps
+    noise2, x_cond2, mask2 = make_inputs(2, dev, gen)
+    kw2 = dict(x_cond=x_cond2, x_cond_mask=mask2)
+    sde2 = sampler.get_sample_fn("SDE", {"num_steps": SOLVE_CMP_STEPS[0]})
+    like2 = sampler.sample_ode_likelihood(num_steps=SOLVE_CMP_STEPS[1])
+    paths = {}
+    for backend in ("auto", "plain"):
+        model.backend = backend
+        paths[backend] = (sde2(cuda_gen(SEED + 2), noise2, model, **kw2),
+                          *like2(cuda_gen(SEED + 3), noise2, model, **kw2))
+    model.backend = "auto"
+    for name, got, want in zip(("SDE x", "likelihood logp", "likelihood z"), paths["auto"],
+                               paths["plain"]):
+        abs_err, rel = errors(got, want)
+        print(f"samplers: {name} at B=2 ({SOLVE_CMP_STEPS} steps), kernel vs plain path: "
+              f"max_abs_err {abs_err:.3e} rel {rel:.3e} (tol {SOLVE_REL_TOL}); max|plain| "
+              f"{want.abs().max().item():.4f}")
+        check(rel <= SOLVE_REL_TOL, f"{name}: kernel vs plain rel err {rel}")
+    del model
+    torch.cuda.empty_cache()
+    return results
+
+
+def dit_variants_phase(dev, reset_counts, read_counts):
+    """Phase 13: one forward of the 4AA-width DiT (depth 7, hidden 384, 16 x
+    24, B=2) with ``attention_mode="linear"`` and one with
+    ``share_weights=True``, each against its plain path on the same weights,
+    with the launches of each kernel."""
+    from lam_slide_tpu_torch.models import LatentDiT
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    noise, x_cond, mask = make_inputs(2, dev, gen)
+    tvec = torch.full((2,), 0.5, device=dev)
+    linear_launches = {"K2": 2 * DEPTH, "K7": 2 * DEPTH + 1}
+    shared_launches = {"K1": DEPTH, "K2": DEPTH, "K7": 2 * DEPTH + 1, "K8": DEPTH}
+    for label, kw, launches in (("linear", dict(attention_mode="linear"), linear_launches),
+                                ("share_weights", dict(share_weights=True), shared_launches)):
+        model = LatentDiT(depth=DEPTH, in_dim=DIN, hidden_size=HIDDEN, num_heads=HEADS,
+                          mlp_ratio=MLP_RATIO, reference_init=False, dtype=torch.bfloat16,
+                          device=dev, generator=torch.Generator().manual_seed(SEED), **kw)
+        with torch.no_grad():
+            reset_counts()
+            got = model(noise, tvec, x_cond, mask)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            model.backend = "plain"
+            want_out = model(noise, tvec, x_cond, mask)
+        want = {key: 0 for key in counts}
+        want.update(launches)
+        _, rel = errors(got, want_out)
+        print(f"dit_variants: {label} forward 16x24 B=2: launches {counts} (expected {want}); "
+              f"kernel vs plain rel {rel:.3e} (tol {MODEL_REL_TOL}); finite="
+              f"{bool(torch.isfinite(got).all())}")
+        check(counts == want, f"{label} launches {counts} != {want}")
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+        check(rel <= MODEL_REL_TOL, f"{label}: kernel vs plain rel err {rel}")
+        del model
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -1376,6 +1771,8 @@ def main() -> int:
     from lam_slide_tpu_torch.ops import fused_mlp as fm
     from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
     from lam_slide_tpu_torch.ops import short_attention as tsa
+    from lam_slide_tpu_torch.ops.ablations import fused_temporal_attention as tft
+    from lam_slide_tpu_torch.ops.ablations import short_backward as tsb
     from lam_slide_tpu_torch.transport import Sampler, create_transport
 
     counters = {"K1": (fa, "launches"), "K1 bias": (fa, "bias_launches"),
@@ -1384,7 +1781,8 @@ def main() -> int:
                 "K9": (tsa, "launches"), "K9 bwd": (tsa, "bwd_launches"),
                 "K4 kv": (fa, "bwd_kv_launches"), "K4 q": (fa, "bwd_q_launches"),
                 "K4 bias": (fa, "bwd_bias_launches"), "K4 fp32": (fa, "bwd_fp32_launches"),
-                "K6 kv": (fnr, "bwd_kv_launches"), "K6 q": (fnr, "bwd_q_launches")}
+                "K6 kv": (fnr, "bwd_kv_launches"), "K6 q": (fnr, "bwd_q_launches"),
+                "K10": (tft, "launches"), "K11": (tsb, "launches")}
 
     def reset_counts():
         for mod, attr in counters.values():
@@ -1426,6 +1824,7 @@ def main() -> int:
     md17_kernel_checks(dev, torch.Generator().manual_seed(SEED + 3), table)
     md17_dit_kernel_checks(dev, torch.Generator().manual_seed(SEED + 4), table)
     md17_train_kernel_checks(dev, torch.Generator().manual_seed(SEED + 5), table)
+    ablation_kernel_checks(dev, torch.Generator().manual_seed(SEED + 9), table)
     phase_done("kernels")
 
     # 4. the slice
@@ -1568,6 +1967,18 @@ def main() -> int:
     s1_counts, s2_counts = md17_train_phase(dev, smi, reset_counts, read_counts)
     phase_done("md17_train")
 
+    # 11. the paths of K10 (the fused temporal block) and K11
+    k10_counts, k11_counts = ablation_phase(dev, smi, reset_counts, read_counts)
+    phase_done("ablation")
+
+    # 12. the SDE sampler and the likelihood solve on the 4AA DiT
+    sampler_phase(dev, make_model, smi, reset_counts, read_counts)
+    phase_done("samplers")
+
+    # 13. the linear-attention and shared-weight DiTs
+    dit_variants_phase(dev, reset_counts, read_counts)
+    phase_done("dit_variants")
+
     sources = {
         "K1": ("flash_attention_fwd", "flash_attention.cu", "flash_attention.py:37"),
         "K2": ("fused_mlp", "fused_mlp.cu", "fused_mlp.py:68"),
@@ -1588,20 +1999,25 @@ def main() -> int:
         "K4 fp32": ("flash_attention_backward (fp32 operands)", "flash_attention_bwd.cu",
                     "flash_attention.py:442"),
         "K9 bwd": ("short_attention_backward", "short_attention.cu", "short_attention.py:96"),
+        "K10": ("fused_temporal_attention", "flash_attention.cu",
+                "ablations/fused_temporal_attention.py:75"),
+        "K11": ("flash_backward_short", "short_backward.cu", "ablations/short_backward.py:31"),
     }
     # launches on the main paths: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve,
     # K3 under K1's counter (one binary), K5 from the 3 x 128 B=8 solve; K4
     # and K6 (the dK/dV and the dQ kernel together) from one train step at
     # 16 x 24 and at 3 x 128; K1's bias and fp32 variants and K9 from one
     # MD17 protocol batch; K4's bias and fp32 variants and K9's backward
-    # from one MD17 train step of each stage
+    # from one MD17 train step of each stage; K10 from one forward + backward
+    # of the fused temporal block, K11 from its call at the MD17 spatial axis
     md17_train = {key: s1_counts[key] + s2_counts[key] for key in s1_counts}
     main_counts = dict(launches[HEADS], K3=launches[HEADS]["K1"], K5=launches[WIDE_HEADS]["K5"],
                        K4=train_counts[HEADS]["K4 kv"] + train_counts[HEADS]["K4 q"],
                        K6=train_counts[WIDE_HEADS]["K6 kv"] + train_counts[WIDE_HEADS]["K6 q"],
                        **{"K1 bias": md17_counts["K1 bias"], "K1 fp32": md17_counts["K1 fp32"],
                           "K9": md17_counts["K9"], "K4 bias": md17_train["K4 bias"],
-                          "K4 fp32": md17_train["K4 fp32"], "K9 bwd": md17_train["K9 bwd"]})
+                          "K4 fp32": md17_train["K4 fp32"], "K9 bwd": md17_train["K9 bwd"],
+                          "K10": k10_counts["K10"], "K11": k11_counts["K11"]})
     kernels = [
         {"name": name, "route": "cuda", "source": f"lam_slide_tpu_torch/csrc/{src}",
          "replaces": f"lam_slide_tpu/ops/{tpu}", "launches": main_counts[key],

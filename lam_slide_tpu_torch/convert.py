@@ -2,7 +2,9 @@
 
 ``latent_dit_state_dict_from_jax`` takes a flax ``LatentDiT`` param tree as
 nested mappings of numpy arrays (unrolled ``block_i`` layout, or the
-``blocks/layer`` scan layout with a leading depth axis) and returns the
+``blocks/layer`` scan layout with a leading depth axis, or the one
+``block_shared`` layer of ``share_weights=True``, which becomes ``blocks.0``
+as ``train/torch_import.py:346-347`` maps it) and returns the
 port's ``LatentDiT`` state_dict; ``class_cond_dit_state_dict_from_jax`` does
 the same for ``ClassCondDiT``, and ``first_stage_state_dict_from_jax`` for
 the MD17 ``FirstStageBackbone`` (its params and its ``constants``, the
@@ -46,8 +48,6 @@ def latent_dit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """flax LatentDiT params -> port LatentDiT state_dict (fp32 tensors)."""
     if "params" in params and "x_in" not in params:
         params = params["params"]
-    if "block_shared" in params:
-        raise NotImplementedError("share_weights checkpoints are not ported yet")
     sd: Dict[str, torch.Tensor] = {}
     _dense(sd, "x_in", params["x_in"])
     _dense(sd, "cond_to_emb", params["cond_to_emb"])
@@ -59,7 +59,9 @@ def latent_dit_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     _dense(sd, "adaLN_modulation.1", params["adaLN_out"])
     _dense(sd, "linear", params["linear_out"])
 
-    if "blocks" in params:  # scan layout: blocks/layer/... with a leading depth axis
+    if "block_shared" in params:  # share_weights: one layer applied depth times
+        blocks = [params["block_shared"]]
+    elif "blocks" in params:  # scan layout: blocks/layer/... with a leading depth axis
         stacked = params["blocks"]["layer"]
         depth = np.asarray(stacked["modulation"]["lin"]["kernel"]).shape[0]
         blocks = [_unstack(stacked, i) for i in range(depth)]

@@ -60,3 +60,28 @@ __device__ __forceinline__ void lam_rmsnorm_rope(bf16* x, int dh, const float* s
   }
   __syncwarp();
 }
+
+// K10's form of the same (fused_temporal_attention.py:58-71): the same fp32
+// statistics, then xn = x * rr * scale and xn * cos + partner(xn) * sin with
+// a scale and an angle per lane (partner = (-x_odd, x_even)), all in fp32,
+// rounded to bf16 once.
+__device__ __forceinline__ void lam_rmsnorm_rope_lanes(bf16* x, int dh, const float* scale,
+                                                       const float* cos, const float* sin,
+                                                       float eps) {
+  const int lane = threadIdx.x % 32;
+  float ss = 0.0f;
+  for (int p = lane; p < dh / 2; p += 32) {
+    const float a = __bfloat162float(x[2 * p]), b = __bfloat162float(x[2 * p + 1]);
+    ss = __fadd_rn(ss, __fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b)));
+  }
+  ss = lam_warp_sum(ss);
+  const float rr = rsqrtf(__fadd_rn(__fdiv_rn(ss, static_cast<float>(dh)), eps));
+  for (int p = lane; p < dh / 2; p += 32) {
+    const int e = 2 * p, o = 2 * p + 1;
+    const float na = __fmul_rn(__fmul_rn(__bfloat162float(x[e]), rr), scale[e]);
+    const float nb = __fmul_rn(__fmul_rn(__bfloat162float(x[o]), rr), scale[o]);
+    x[e] = __float2bfloat16(__fsub_rn(__fmul_rn(na, cos[e]), __fmul_rn(nb, sin[e])));
+    x[o] = __float2bfloat16(__fadd_rn(__fmul_rn(nb, cos[o]), __fmul_rn(na, sin[o])));
+  }
+  __syncwarp();
+}

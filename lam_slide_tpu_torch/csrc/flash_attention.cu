@@ -1,9 +1,9 @@
-// Flash-attention forward for Hopper (sm_90a): bf16 in / bf16 out, its
-// variant with per-head QK RMS-norm + RoPE applied inside the kernel, and an
+// Flash-attention forward for Hopper (sm_90a): bf16 in / bf16 out, its two
+// variants with per-head QK RMS-norm + RoPE applied inside the kernel, and an
 // fp32 in / fp32 out instantiation; the bf16 and fp32 forwards take an
 // optional key-padding bias row.
 //
-// Replaces three Pallas TPU kernels:
+// Replaces four Pallas TPU kernels:
 // - K1, lam_slide_tpu/ops/flash_attention.py `_flash_kernel` (pallas_call in
 //   `_flash_forward`), the head-major forward;
 // - K3, the same file's `_packed_manual_kernel` (`flash_attention_packed`):
@@ -11,11 +11,20 @@
 //   strides with unit stride on dh, so q/k/v can be views of linear1's
 //   output and o a view of a packed [B, N, H*dh] buffer; the packed entry is
 //   this kernel called with packed strides, no second binary;
-// - K5, lam_slide_tpu/ops/flash_normrope.py `_nr_flash_kernel`: the NR=true
+// - K5, lam_slide_tpu/ops/flash_normrope.py `_nr_flash_kernel`: the XF_HEADMAJOR
 //   instantiation takes RAW q/k, normalizes and rotates the Q tile once after
 //   it lands in shared memory and each K tile as it lands, in place, and
 //   then runs the same recurrence (lam_rmsnorm_rope in common.cuh keeps the
-//   rounding points of headmajor_rope(headmajor_rmsnorm(x))).
+//   rounding points of headmajor_rope(headmajor_rmsnorm(x)));
+// - K10, lam_slide_tpu/ops/ablations/fused_temporal_attention.py `_kernel`
+//   (pallas_call in `_fused_forward`): the XF_LANE instantiation, K3's packed
+//   strides with K5's in-tile transform in the lane form of the JAX op. Its
+//   scales are [D] lane scales and its tables [T, D] lane tables (D = H*dh),
+//   read at the head's lane offset h*dh, so any table the JAX op accepts
+//   gives its result, not only tiled ones; and it rounds once, after norm
+//   and RoPE together (lam_rmsnorm_rope_lanes), where K5 rounds after each.
+//   The JAX kernel keeps a whole key row per query block; the online-softmax
+//   recurrence here computes the same function.
 //
 // Design: one thread block = one (batch*head, 64-row query tile), 4 warps of
 // 16 query rows each. The block loops over 64-key K/V tiles staged in shared
@@ -92,11 +101,26 @@ struct Layout {
   static constexpr size_t bytes = lam_align128(a_off + NWARPS * 16 * LDA * sizeof(float));
 };
 
-// NR: q/k are RAW and get the per-head RMS-norm (scales qs/ks [dh]) and
-// RoPE (cos/sin [>= max(Nq, Nk), dh/2], row-major) in shared memory.
-// BIAS: add the key-padding bias row (a separate instantiation, so the
-// unmasked kernels keep their inner loop as it was).
-template <int DP, bool NR, bool BIAS>
+// The transform of the q/k tiles in shared memory: none (K1, K3); K5's
+// per-head RMS-norm (scales qs/ks [dh]) and RoPE (cos/sin [>= max(Nq, Nk),
+// dh/2], row-major) on RAW q/k; or K10's lane form (scales [H*dh], tables
+// [>= max(Nq, Nk), H*dh], one rounding, eps given).
+enum Transform : int { XF_NONE = 0, XF_HEADMAJOR = 1, XF_LANE = 2 };
+
+template <int XF>
+__device__ __forceinline__ void transform_tile(bf16* tile, int ld, int n0, int n, int dh, int h,
+                                               int H, const float* scale, const float* cos,
+                                               const float* sin, float eps) {
+  if constexpr (XF == XF_HEADMAJOR)
+    normrope_tile(tile, ld, n0, n, dh, scale, cos, sin);
+  else
+    normrope_lane_tile(tile, ld, n0, n, dh, h * dh, H * dh, scale, cos, sin, eps);
+}
+
+// XF: the tile transform above. BIAS: add the key-padding bias row (a
+// separate instantiation, so the unmasked kernels keep their inner loop as
+// it was).
+template <int DP, int XF, bool BIAS>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
@@ -107,7 +131,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  long long q_sb, long long q_sh, long long q_sn,
                  long long k_sb, long long k_sh, long long k_sn,
                  long long v_sb, long long v_sh, long long v_sn,
-                 long long o_sb, long long o_sh, long long o_sn, float scale) {
+                 long long o_sb, long long o_sh, long long o_sn, float scale, float eps) {
   using Lay = Layout<DP>;
   constexpr int LDT = Lay::LDT, LDS = Lay::LDS, LDP = Lay::LDP, LDA = Lay::LDA;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -127,9 +151,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vp = v + b * v_sb + h * v_sh;
 
   load_tile<DP>(Qs, LDT, qp, q_sn, q0, Nq, dh);
-  if constexpr (NR) {
+  if constexpr (XF != XF_NONE) {
     __syncthreads();
-    normrope_tile(Qs, LDT, q0, Nq, dh, qs, cos, sin);
+    transform_tile<XF>(Qs, LDT, q0, Nq, dh, h, H, qs, cos, sin, eps);
   }
   for (int i = lane; i < 16 * LDA; i += 32) As[i] = 0.0f;
 
@@ -143,8 +167,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile<DP>(Ks, LDT, kp, k_sn, kt * BK, Nk, dh);
     load_tile<DP>(Vs, LDT, vp, v_sn, kt * BK, Nk, dh);
     __syncthreads();
-    if constexpr (NR) {
-      normrope_tile(Ks, LDT, kt * BK, Nk, dh, ks, cos, sin);
+    if constexpr (XF != XF_NONE) {
+      transform_tile<XF>(Ks, LDT, kt * BK, Nk, dh, h, H, ks, cos, sin, eps);
       __syncthreads();
     }
 
@@ -227,37 +251,39 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 struct NormRope {
   const float *qs, *ks, *cos, *sin;
+  float eps;
 };
 
-template <int DP, bool NR, bool BIAS>
+template <int DP, int XF, bool BIAS>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
                    const float* bias, NormRope nr, int B, int H, int Nq, int Nk, int dh,
                    const long long* s, float scale, cudaStream_t stream) {
   constexpr size_t smem = Layout<DP>::bytes;
-  static cudaError_t attr = lam_set_smem(flash_fwd_kernel<DP, NR, BIAS>, smem);
+  static cudaError_t attr = lam_set_smem(flash_fwd_kernel<DP, XF, BIAS>, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(grid_blocks(B * H, Nq, BQ));
-  flash_fwd_kernel<DP, NR, BIAS><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<DP, XF, BIAS><<<grid, THREADS, smem, stream>>>(
       q, k, v, o, lse, bias, nr.qs, nr.ks, nr.cos, nr.sin, H, Nq, Nk, dh, s[0], s[1], s[2],
-      s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], scale);
+      s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], scale, nr.eps);
   return cudaGetLastError();
 }
 
-template <bool NR, bool BIAS>
+template <int XF, bool BIAS>
 cudaError_t launch_dp(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
                       const float* bias, NormRope nr, int B, int H, int Nq, int Nk, int dh,
                       const long long* s, float scale, cudaStream_t st) {
   if (dh <= 32)
-    return launch<32, NR, BIAS>(q, k, v, o, lse, bias, nr, B, H, Nq, Nk, dh, s, scale, st);
+    return launch<32, XF, BIAS>(q, k, v, o, lse, bias, nr, B, H, Nq, Nk, dh, s, scale, st);
   if (dh <= 64)
-    return launch<64, NR, BIAS>(q, k, v, o, lse, bias, nr, B, H, Nq, Nk, dh, s, scale, st);
-  return launch<128, NR, BIAS>(q, k, v, o, lse, bias, nr, B, H, Nq, Nk, dh, s, scale, st);
+    return launch<64, XF, BIAS>(q, k, v, o, lse, bias, nr, B, H, Nq, Nk, dh, s, scale, st);
+  return launch<128, XF, BIAS>(q, k, v, o, lse, bias, nr, B, H, Nq, Nk, dh, s, scale, st);
 }
 
-template <bool NR>
+template <int XF>
 int launch_dh(const void* q, const void* k, const void* v, void* o, void* lse,
               const void* bias, NormRope nr, int B, int H, int Nq, int Nk, int dh,
               const long long* s, float scale, void* stream) {
+  constexpr bool NR = XF != XF_NONE;
   if (dh <= 0 || dh > 128 || (NR && (dh % 2 || bias != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto qb = static_cast<const bf16*>(q);
@@ -269,9 +295,9 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, void* lse,
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (NR || bias == nullptr)
-    err = launch_dp<NR, false>(qb, kb, vb, ob, lf, bf, nr, B, H, Nq, Nk, dh, s, scale, st);
+    err = launch_dp<XF, false>(qb, kb, vb, ob, lf, bf, nr, B, H, Nq, Nk, dh, s, scale, st);
   else
-    err = launch_dp<false, true>(qb, kb, vb, ob, lf, bf, nr, B, H, Nq, Nk, dh, s, scale, st);
+    err = launch_dp<XF_NONE, true>(qb, kb, vb, ob, lf, bf, nr, B, H, Nq, Nk, dh, s, scale, st);
   return static_cast<int>(err);
 }
 
@@ -384,8 +410,8 @@ extern "C" int lam_flash_attention_fwd(
     void* stream) {
   const long long s[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
                            v_sb, v_sh, v_sn, o_sb, o_sh, o_sn};
-  return launch_dh<false>(q, k, v, o, lse, bias, NormRope{}, B, H, Nq, Nk, dh, s, scale,
-                          stream);
+  return launch_dh<XF_NONE>(q, k, v, o, lse, bias, NormRope{}, B, H, Nq, Nk, dh, s, scale,
+                            stream);
 }
 
 // As lam_flash_attention_fwd on fp32 q/k/v/o; dh <= 64.
@@ -426,6 +452,25 @@ extern "C" int lam_flash_attention_normrope_fwd(
   const long long s[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
                            v_sb, v_sh, v_sn, o_sb, o_sh, o_sn};
   const NormRope nr{static_cast<const float*>(qs), static_cast<const float*>(ks),
-                    static_cast<const float*>(cos), static_cast<const float*>(sin)};
-  return launch_dh<true>(q, k, v, o, lse, nullptr, nr, B, H, Nq, Nk, dh, s, scale, stream);
+                    static_cast<const float*>(cos), static_cast<const float*>(sin), NR_EPS};
+  return launch_dh<XF_HEADMAJOR>(q, k, v, o, lse, nullptr, nr, B, H, Nq, Nk, dh, s, scale,
+                                 stream);
+}
+
+// K10: packed q/k/v [N, T, H*dh] as head-major bf16 [N, H, T, dh] strided
+// views (heads are contiguous dh lane segments, unit stride on dh) and o
+// the same, plus fp32 qs/ks [H*dh] lane scales and fp32 cos/sin
+// [>= T, H*dh] row-major lane tables; dh even. QK RMS-norm (eps) and RoPE
+// in the lane form with one rounding, then K1's recurrence. No bias, no lse.
+extern "C" int lam_fused_temporal_fwd(
+    const void* q, const void* k, const void* v, void* o, const void* qs, const void* ks,
+    const void* cos, const void* sin, int N, int H, int T, int dh, long long q_sb,
+    long long q_sh, long long q_sn, long long k_sb, long long k_sh, long long k_sn,
+    long long v_sb, long long v_sh, long long v_sn, long long o_sb, long long o_sh,
+    long long o_sn, float scale, float eps, void* stream) {
+  const long long s[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
+                           v_sb, v_sh, v_sn, o_sb, o_sh, o_sn};
+  const NormRope nr{static_cast<const float*>(qs), static_cast<const float*>(ks),
+                    static_cast<const float*>(cos), static_cast<const float*>(sin), eps};
+  return launch_dh<XF_LANE>(q, k, v, o, nullptr, nullptr, nr, N, H, T, T, dh, s, scale, stream);
 }

@@ -59,4 +59,18 @@ __device__ __forceinline__ void normrope_tile(bf16* tile, int ld, int n0, int n,
   }
 }
 
+// K10's lane form of the same: row r at sequence position n0 + r < n takes
+// its [dh] slice of the [D] lane scale and of the position's [D] lane-table
+// rows at the head's lane offset lane0 (D = H*dh), eps given, one rounding.
+__device__ __forceinline__ void normrope_lane_tile(bf16* tile, int ld, int n0, int n, int dh,
+                                                   int lane0, int D, const float* scale,
+                                                   const float* cos, const float* sin,
+                                                   float eps) {
+  const int warp = threadIdx.x / 32;
+  for (int r = warp * 16; r < warp * 16 + 16 && n0 + r < n; ++r) {
+    const long long row = static_cast<long long>(n0 + r) * D + lane0;
+    lam_rmsnorm_rope_lanes(tile + r * ld, dh, scale + lane0, cos + row, sin + row, eps);
+  }
+}
+
 }  // namespace lam_flash

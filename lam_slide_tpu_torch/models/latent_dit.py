@@ -24,6 +24,15 @@ shipping defaults:
 * the residual + LayerNorm + modulate glue: K7, twice per layer and once
   before the output layer (latent_dit.py:484-487,680).
 
+``ParallelMLPAttention(fused_temporal=True)`` (only the block exposes it,
+as in JAX) takes the long axis through K10 instead, before the K5 route:
+QK RMS-norm, RoPE and attention on packed views with lane tables and tiled
+lane scales (latent_dit.py:299-319). ``attention_mode="linear"`` replaces
+every softmax attention by ``linear_attention`` on normed and rotated q/k,
+so K8, K10, K5 and K3 are skipped (latent_dit.py:386-408).
+``share_weights=True`` applies one layer ``depth`` times (state_dict keys
+``blocks.0.*``, latent_dit.py:657-661).
+
 ``backend="auto"`` lets CUDA tensors launch the kernels; ``"plain"`` runs the
 plain PyTorch versions everywhere (for comparisons and timing). Under
 autograd each kernel runs inside its ``torch.autograd.Function``.
@@ -43,7 +52,11 @@ from lam_slide_tpu_torch.nn import initializers as inits
 from lam_slide_tpu_torch.nn.dense import dense, linear
 from lam_slide_tpu_torch.nn.embeddings import timestep_embedding
 from lam_slide_tpu_torch.nn.norms import QKNorm, layer_norm
-from lam_slide_tpu_torch.ops.attention import BACKENDS, attention_packed
+from lam_slide_tpu_torch.ops.ablations.fused_temporal_attention import (
+    fused_temporal_attention,
+    reference_fused_temporal,
+)
+from lam_slide_tpu_torch.ops.attention import BACKENDS, attention_packed, linear_attention
 from lam_slide_tpu_torch.ops.flash_normrope import (
     flash_attention_normrope,
     reference_attention_normrope,
@@ -57,7 +70,13 @@ from lam_slide_tpu_torch.ops.fused_spatial_block import (
     fused_spatial_block,
     reference_spatial_block,
 )
-from lam_slide_tpu_torch.ops.packed_attention import headmajor_rmsnorm, headmajor_rope
+from lam_slide_tpu_torch.ops.packed_attention import (
+    headmajor_rmsnorm,
+    headmajor_rope,
+    lane_rope_tables,
+)
+
+ATTENTION_MODES = ("scaled_dot_product", "linear")
 
 
 def rope_cos_sin(n: int, dim: int, theta: float = 10_000.0,
@@ -91,6 +110,21 @@ class Modulation(nn.Module):
         return parts[:3], parts[3:]
 
 
+class ModulationTriple(nn.Module):
+    """vec [B, D] -> three (shift, scale, gate) triples, each [B, 1, 1, D]
+    (mmdit.py:200-212; latent_dit.py:105-124, for triple-branch DiT
+    variants; no composite uses it)."""
+
+    def __init__(self, dim: int, zero_init: bool, gen: torch.Generator):
+        super().__init__()
+        init = inits.zeros_ if zero_init else inits.torch_linear_init_
+        self.lin = linear(dim, 9 * dim, init, gen)
+
+    def forward(self, vec: torch.Tensor, dtype: torch.dtype):
+        parts = dense(F.silu(vec), self.lin, dtype)[:, None, None, :].chunk(9, dim=-1)
+        return parts[:3], parts[3:6], parts[6:]
+
+
 class MLPEmbedder(nn.Module):
     """Linear -> SiLU -> Linear vector embedder (mmdit.py:116-124), std-0.02 init."""
 
@@ -112,14 +146,20 @@ class ParallelMLPAttention(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float,
                  reference_init: bool, packed_threshold: int, dtype: torch.dtype,
-                 gen: torch.Generator, qk_scale: Optional[float] = None):
+                 gen: torch.Generator, qk_scale: Optional[float] = None,
+                 attention_mode: str = "scaled_dot_product", fused_temporal: bool = False):
         super().__init__()
+        if attention_mode not in ATTENTION_MODES:
+            raise ValueError(f"unknown attention_mode {attention_mode!r}; expected one of "
+                             f"{ATTENTION_MODES}")
         d = hidden_size
         self.hidden_size, self.num_heads = d, num_heads
         self.mlp_hidden = int(d * mlp_ratio)
         self.packed_threshold = packed_threshold
         self.dtype = dtype
         self.qk_scale = qk_scale
+        self.linear_mode = attention_mode == "linear"
+        self.fused_temporal = fused_temporal
         kinit = inits.attn_kernel_init_ if reference_init else inits.torch_linear_init_
         self.linear1 = linear(d, 3 * d + self.mlp_hidden, kinit, gen)
         self.linear2 = linear(d + self.mlp_hidden, d, kinit, gen)
@@ -139,14 +179,27 @@ class ParallelMLPAttention(nn.Module):
         w1 = self.linear1.weight.to(dt)
         b1 = self.linear1.bias.to(dt)
         w2 = self.linear2.weight.to(dt)
-        if n <= self.packed_threshold:
+        if n <= self.packed_threshold and not self.linear_mode:
             block = reference_spatial_block if plain else fused_spatial_block
             return block(xd, w1, b1, q_scale, k_scale, w2, self.linear2.bias.to(dt), cos, sin,
                          h, float(scale))
 
         # linear1 computes only the q/k/v columns here; the MLP branch reads x.
         qkv = torch.matmul(xd, w1[:3 * d].t()) + b1[:3 * d]
-        if dh % 128 == 0:
+        if self.linear_mode:
+            q, k, v = (t.transpose(1, 2) for t in qkv.view(b, n, 3, h, dh).unbind(2))
+            q = headmajor_rope(headmajor_rmsnorm(q, q_scale), cos, sin)
+            k = headmajor_rope(headmajor_rmsnorm(k, k_scale), cos, sin)
+            attn = linear_attention(q, k, v).transpose(1, 2).reshape(b, n, d)
+        elif self.fused_temporal:
+            # K10 on packed views of linear1's output, lane tables and [1, D]
+            # tiled scales (latent_dit.py:309-311)
+            cos_l, sin_l = lane_rope_tables(cos, sin, h)
+            q, k, v = qkv.split(d, dim=-1)
+            attn_fn = reference_fused_temporal if plain else fused_temporal_attention
+            attn = attn_fn(q, k, v, cos_l, sin_l, q_scale.repeat(h)[None],
+                           k_scale.repeat(h)[None], h, float(scale))
+        elif dh % 128 == 0:
             # raw head-major q/k/v views; the kernel norms and rotates q/k
             q, k, v = (t.transpose(1, 2) for t in qkv.view(b, n, 3, h, dh).unbind(2))
             attn_fn = reference_attention_normrope if plain else flash_attention_normrope
@@ -175,13 +228,13 @@ class LatentDiTLayer(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float,
                  reference_init: bool, packed_threshold: int, dtype: torch.dtype,
-                 gen: torch.Generator):
+                 gen: torch.Generator, attention_mode: str = "scaled_dot_product"):
         super().__init__()
         self.dtype = dtype
         self.modulation = Modulation(hidden_size, zero_init=reference_init, gen=gen)
         common = (hidden_size, num_heads, mlp_ratio, reference_init, packed_threshold, dtype)
-        self.spatial_block = ParallelMLPAttention(*common, gen=gen)
-        self.temporal_block = ParallelMLPAttention(*common, gen=gen)
+        self.spatial_block = ParallelMLPAttention(*common, gen=gen, attention_mode=attention_mode)
+        self.temporal_block = ParallelMLPAttention(*common, gen=gen, attention_mode=attention_mode)
 
     def forward(self, x, pend_h, pend_gate, vec, sp_cos, sp_sin, tm_cos, tm_sin,
                 backend: str = "auto"):
@@ -217,6 +270,8 @@ class LatentDiT(nn.Module):
     ``device`` defaults to the CUDA card, so a missing card raises; pass
     ``device="cpu"`` to run on the CPU. ``checkpointing=True`` keeps only
     each layer's inputs for the backward and recomputes the layer there.
+    ``attention_mode="linear"`` takes linear attention on both axes;
+    ``share_weights=True`` builds one layer and applies it ``depth`` times.
     """
 
     def __init__(self, depth: int, in_dim: int, hidden_size: int, num_heads: int,
@@ -224,7 +279,8 @@ class LatentDiT(nn.Module):
                  theta: float = 10_000.0, normalize: bool = False,
                  reference_init: bool = True, packed_threshold: int = 8,
                  backend: str = "auto", dtype: torch.dtype = torch.float32,
-                 checkpointing: bool = False, device="cuda",
+                 checkpointing: bool = False, attention_mode: str = "scaled_dot_product",
+                 share_weights: bool = False, device="cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if hidden_size % num_heads:
@@ -236,6 +292,7 @@ class LatentDiT(nn.Module):
         self.depth, self.hidden_size, self.num_heads = depth, d, num_heads
         self.theta, self.normalize = theta, normalize
         self.backend, self.dtype, self.checkpointing = backend, dtype, checkpointing
+        self.share_weights = share_weights
         kinit = inits.attn_kernel_init_ if reference_init else inits.torch_linear_init_
         self.x_in = linear(in_dim, d, kinit, gen)
         self.cond_to_emb = linear(in_dim, d, kinit, gen)
@@ -244,8 +301,9 @@ class LatentDiT(nn.Module):
         self.time_in = MLPEmbedder(256, d, gen)
         self.vec_in = MLPEmbedder(vec_in_dim, d, gen) if vec_in_dim is not None else None
         self.blocks = nn.ModuleList(
-            LatentDiTLayer(d, num_heads, mlp_ratio, reference_init, packed_threshold, dtype, gen)
-            for _ in range(depth))
+            LatentDiTLayer(d, num_heads, mlp_ratio, reference_init, packed_threshold, dtype, gen,
+                           attention_mode)
+            for _ in range(1 if share_weights else depth))
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), linear(d, 2 * d, kinit, gen))
         out_init = inits.zeros_ if reference_init else inits.torch_linear_init_
         self.linear = linear(d, in_dim, out_init, gen)
@@ -271,7 +329,8 @@ class LatentDiT(nn.Module):
 
         pend_h = torch.zeros_like(h)
         pend_gate = torch.zeros((b, 1, 1, self.hidden_size), dtype=dt, device=x.device)
-        for block in self.blocks:
+        blocks = [self.blocks[0]] * self.depth if self.share_weights else self.blocks
+        for block in blocks:
             args = (h, pend_h, pend_gate, vec, sp_cos, sp_sin, tm_cos, tm_sin, self.backend)
             if self.checkpointing:
                 h, pend_h, pend_gate = checkpoint(block, *args, use_reentrant=False)

@@ -16,6 +16,9 @@ ones (``dot_product_attention_packed``, unmasked). With ``backend="auto"``:
 * everything else takes the plain version.
 
 ``backend="plain"`` always takes the plain version.
+
+``linear_attention`` is the O(N) mode (``attention_mode="linear"``); it has
+no kernel in either package.
 """
 
 from typing import Optional
@@ -56,3 +59,14 @@ def attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_head
         if 8 < n and q.shape == k.shape:
             return short_attention(q, k, v, num_heads, scale=scale)
     return reference_attention_packed(q, k, v, num_heads, scale)
+
+
+def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """O(N) linear attention over head-major ``[B, H, N, dh]`` operands
+    (reference mmdit.py:58-72; attention.py:62-73): softmax of q over the
+    features and of k over the sequence, both in fp32, q scaled by dh^-0.5,
+    then kᵀv and q(kᵀv) in fp32, rounded once to v's dtype."""
+    q = torch.softmax(q.float(), dim=-1) * q.shape[-1] ** -0.5
+    k = torch.softmax(k.float(), dim=-2)
+    context = torch.matmul(k.transpose(-1, -2), v.float())
+    return torch.matmul(q, context).to(v.dtype)

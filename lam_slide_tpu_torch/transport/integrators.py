@@ -1,12 +1,16 @@
-"""ODE integrators (counterpart of ``lam_slide_tpu/transport/integrators.py``).
+"""ODE and SDE integrators (counterpart of
+``lam_slide_tpu/transport/integrators.py``).
 
 ``drift_fn(x, t_vec)`` takes a [B] time vector like the reference model
 closures. The JAX package scans the fixed-grid steps with ``lax.scan`` and
 runs dopri5 under a bounded ``lax.while_loop``; here both are Python loops.
-The SDE integrators are not ported yet.
+The SDE steps draw their noise from an explicit ``torch.Generator``, one
+standard normal of x's shape per step, in step order; the Hutchinson
+divergence estimate of the likelihood ODE takes the drift's VJP with
+``torch.autograd.grad`` (JAX: ``jax.vjp``).
 """
 
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -32,6 +36,52 @@ def ode_fixed(drift_fn: Callable, x0: torch.Tensor, t0: float, t1: float,
         k2 = drift_fn(x + dt * k1, torch.full_like(tvec, t_next))
         x = x + 0.5 * dt * (k1 + k2)
     return x
+
+
+def sde_fixed(drift_fn: Callable, diffusion_fn: Callable, x0: torch.Tensor, t0: float,
+              t1: float, num_steps: int, method: str = "euler",
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Fixed-grid SDE solve over linspace(t0, t1, num_steps): num_steps - 1
+    steps of size ts[1] - ts[0] (integrators.py:57-99).
+
+    Euler–Maruyama: x <- x + drift dt + sqrt(2 D) w sqrt(dt). Heun: the noise
+    first, xhat = x + sqrt(2 D) w sqrt(dt), then a predictor/corrector step
+    from xhat. w ~ N(0, I) of x's shape and dtype, one draw per step from
+    ``generator``. Returns the state after the grid steps; the last
+    deterministic step (Mean/Tweedie/Euler) is the Sampler's.
+    """
+    if method not in ("euler", "heun"):
+        raise ValueError(f"unknown SDE method {method!r}")
+    ts = torch.linspace(t0, t1, num_steps, dtype=torch.float32)
+    dt = (ts[1] - ts[0]).item()
+    sqrt_dt = torch.sqrt(ts[1] - ts[0]).item()
+    x = x0
+    for i in range(num_steps - 1):
+        t = ts[i].item()
+        w = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        tvec = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
+        diffusion = diffusion_fn(x, tvec)
+        if method == "euler":
+            x = x + drift_fn(x, tvec) * dt + torch.sqrt(2.0 * diffusion) * (w * sqrt_dt)
+            continue
+        xhat = x + torch.sqrt(2.0 * diffusion) * (w * sqrt_dt)
+        k1 = drift_fn(xhat, tvec)
+        k2 = drift_fn(xhat + dt * k1, torch.full_like(tvec, (ts[i] + (ts[1] - ts[0])).item()))
+        x = xhat + 0.5 * dt * (k1 + k2)
+    return x
+
+
+def hutchinson_logp_drift(drift_fn: Callable, x: torch.Tensor, t: torch.Tensor,
+                          eps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(-drift, eps^T (d drift / d x) eps per batch element) for likelihood
+    ODEs (integrators.py:209-217): one forward of the drift and one VJP
+    (``torch.autograd.grad``) at ``eps``; neither output keeps a graph."""
+    with torch.enable_grad():
+        y = x.detach().requires_grad_()
+        drift = drift_fn(y, t)
+        (g,) = torch.autograd.grad(drift, y, eps)
+    logp_grad = (g * eps).reshape(x.shape[0], -1).sum(dim=1)
+    return -drift.detach(), logp_grad
 
 
 # Dormand–Prince 5(4) Butcher tableau (integrators.py:103-121).

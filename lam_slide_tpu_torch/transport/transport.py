@@ -1,15 +1,18 @@
-"""Stochastic-interpolant transport: training objective and ODE sampler
+"""Stochastic-interpolant transport: training objective and samplers
 (PyTorch port).
 
 Counterpart of ``lam_slide_tpu/transport/transport.py``: the four model
 parametrizations (NOISE/SCORE/VELOCITY/DATA), the three loss weightings,
-the integration interval, the interpolant draw and training loss, and the
-probability-flow drift with the ODE sampler (dopri5, the default, and
-fixed-grid euler/heun). Random draws come from an explicit
-``torch.Generator``. The SDE and likelihood samplers are not ported yet.
+the integration interval, the interpolant draw and training loss, the
+probability-flow drift and the score, the prior log density, and the three
+samplers: the ODE sampler (dopri5, the default, and fixed-grid
+euler/heun), the SDE sampler (Euler–Maruyama or Heun with a last
+deterministic step) and the Hutchinson likelihood solve. Random draws come
+from an explicit ``torch.Generator``.
 """
 
 import enum
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
@@ -55,6 +58,12 @@ class Transport:
     @property
     def path_sampler(self):
         return _PATHS[self.path_type]()
+
+    def prior_logp(self, z: torch.Tensor) -> torch.Tensor:
+        """Standard-normal log density of each batch element (transport.py:65-69)."""
+        n = z[0].numel()
+        flat = z.reshape(z.shape[0], -1)
+        return -n / 2.0 * math.log(2 * math.pi) - (flat ** 2).sum(dim=1) / 2.0
 
     def check_interval(self, train_eps: float, sample_eps: float, *,
                        diffusion_form: str = "SBDM", sde: bool = False,
@@ -155,13 +164,86 @@ class Transport:
             ModelType.DATA: data_ode,
         }[self.model_type]
 
+    def get_score(self) -> Callable:
+        """Score of x_t = alpha_t x1 + sigma_t x0 from the model head
+        (transport.py:176-187)."""
+        path = self.path_sampler
+        if self.model_type == ModelType.NOISE:
+            return lambda x, t, m, **kw: m(x, t, **kw) / -path.compute_sigma_t(expand_t(t, x))[0]
+        if self.model_type == ModelType.SCORE:
+            return lambda x, t, m, **kw: m(x, t, **kw)
+        if self.model_type == ModelType.VELOCITY:
+            return lambda x, t, m, **kw: path.get_score_from_velocity(m(x, t, **kw), x, t)
+        return lambda x, t, m, **kw: path.get_score_from_data(m(x, t, **kw), x, t)
+
 
 class Sampler:
-    """Sampler factory over a Transport (transport.py:229-503); ODE only."""
+    """Sampler factory over a Transport (transport.py:190-390)."""
 
     def __init__(self, transport: Transport):
         self.transport = transport
         self.drift = transport.get_drift()
+        self.score = transport.get_score()
+
+    def _sde_drift_diffusion(self, diffusion_form: str, diffusion_norm: float):
+        """(drift + diffusion * score, diffusion) of the reverse SDE
+        (transport.py:198-209)."""
+        path = self.transport.path_sampler
+
+        def diffusion_fn(x, t):
+            return path.compute_diffusion(x, t, form=diffusion_form, norm=diffusion_norm)
+
+        def sde_drift(x, t, model_fn, **kw):
+            return (self.drift(x, t, model_fn, **kw)
+                    + diffusion_fn(x, t) * self.score(x, t, model_fn, **kw))
+
+        return sde_drift, diffusion_fn
+
+    def _last_step_fn(self, sde_drift, last_step: Optional[str], last_step_size: float):
+        """The SDE solve's last deterministic step (transport.py:211-227)."""
+        path = self.transport.path_sampler
+        if last_step is None:
+            return lambda x, t, m, **kw: x
+        if last_step == "Mean":
+            return lambda x, t, m, **kw: x + sde_drift(x, t, m, **kw) * last_step_size
+        if last_step == "Tweedie":
+            def tweedie(x, t, m, **kw):
+                alpha = path.compute_alpha_t(t)[0][0]
+                sigma = path.compute_sigma_t(t)[0][0]
+                return x / alpha + (sigma ** 2) / alpha * self.score(x, t, m, **kw)
+
+            return tweedie
+        if last_step == "Euler":
+            return lambda x, t, m, **kw: x + self.drift(x, t, m, **kw) * last_step_size
+        raise NotImplementedError(f"last step {last_step!r}")
+
+    def sample_sde(self, *, sampling_method: str = "Euler", diffusion_form: str = "SBDM",
+                   diffusion_norm: float = 1.0, last_step: Optional[str] = "Mean",
+                   last_step_size: float = 0.04, num_steps: int = 250) -> Callable:
+        """SDE sample fn: (generator, init, model_fn, **kwargs) -> final x
+        (transport.py:229-268): num_steps - 1 Euler–Maruyama or Heun steps
+        over [t0, t1] with noise from ``generator``, then ``last_step`` at
+        t1 (Mean, Tweedie, Euler or None)."""
+        method = sampling_method.lower()
+        if method not in ("euler", "heun"):
+            raise NotImplementedError(f"SDE sampler {sampling_method!r}")
+        if last_step is None:
+            last_step_size = 0.0
+        sde_drift, sde_diffusion = self._sde_drift_diffusion(diffusion_form, diffusion_norm)
+        t0, t1 = self.transport.check_interval(
+            self.transport.train_eps, self.transport.sample_eps, diffusion_form=diffusion_form,
+            sde=True, eval=True, reverse=False, last_step_size=last_step_size)
+        last_step_fn = self._last_step_fn(sde_drift, last_step, last_step_size)
+
+        @torch.no_grad()  # the eval protocol never differentiates a solve
+        def _sample(generator, init, model_fn, **kw):
+            x = integrators.sde_fixed(lambda x, t: sde_drift(x, t, model_fn, **kw),
+                                      sde_diffusion, init, t0, t1, num_steps, method=method,
+                                      generator=generator)
+            ts = torch.full((init.shape[0],), t1, dtype=torch.float32, device=init.device)
+            return last_step_fn(x, ts, model_fn, **kw)
+
+        return _sample
 
     def sample_ode(self, *, sampling_method: str = "dopri5", num_steps: int = 50,
                    atol: float = 1e-6, rtol: float = 1e-3, reverse: bool = False,
@@ -197,10 +279,57 @@ class Sampler:
 
         return _sample
 
+    def sample_ode_likelihood(self, *, sampling_method: str = "euler", num_steps: int = 50,
+                              atol: float = 1e-6, rtol: float = 1e-3) -> Callable:
+        """Likelihood fn: (generator, x, model_fn, **kwargs) -> (logp,
+        drift_final) (transport.py:314-361).
+
+        Integrates the data back through the drift at time 1 - t with
+        num_steps - 1 fixed-grid Euler steps, together with the Hutchinson
+        estimate of the divergence (one drift VJP per step) at one Rademacher
+        eps from ``generator``; logp is the prior log density of the end
+        state less the integrated divergence. Like the JAX version, only
+        Euler is implemented (atol and rtol are accepted and unused); any
+        other method raises.
+        """
+        del atol, rtol
+        if sampling_method.lower() != "euler":
+            raise NotImplementedError(f"likelihood sampler {sampling_method!r}")
+        t0, t1 = self.transport.check_interval(
+            self.transport.train_eps, self.transport.sample_eps, sde=False, eval=True,
+            reverse=False, last_step_size=0.0)
+
+        def _sample(generator, x, model_fn, **kw):
+            eps = (torch.randint(0, 2, x.shape, generator=generator, device=x.device)
+                   .to(x.dtype) * 2.0 - 1.0)
+
+            def drift_fn(y, t):
+                return self.drift(y, torch.ones_like(t) * (1 - t), model_fn, **kw)
+
+            ts = torch.linspace(t0, t1, num_steps, dtype=torch.float32)
+            dts = ts[1:] - ts[:-1]
+            y = x
+            delta_logp = torch.zeros((x.shape[0],), dtype=torch.float32, device=x.device)
+            for i in range(num_steps - 1):
+                tv = torch.full((x.shape[0],), ts[i].item(), dtype=torch.float32,
+                                device=x.device)
+                dy, dlogp = integrators.hutchinson_logp_drift(drift_fn, y, tv, eps)
+                dt = dts[i].item()
+                y, delta_logp = y + dt * dy, delta_logp + dt * dlogp
+            return self.transport.prior_logp(y) - delta_logp, y
+
+        return _sample
+
     def get_sample_fn(self, sampling_method: str = "ODE",
                       sampling_kwargs: Optional[Dict[str, Any]] = None) -> Callable:
-        """Dispatch with the reference's default kwargs (transport.py:475-503);
-        ODE only."""
+        """Dispatch with the reference's default kwargs (transport.py:363-390):
+        "SDE" (Euler–Maruyama, the linear diffusion, the Mean last step of
+        0.04, 250 steps) or "ODE" (dopri5, atol 1e-6, rtol 1e-3)."""
+        if sampling_method == "SDE":
+            kw = {"sampling_method": "Euler", "diffusion_form": "linear", "diffusion_norm": 1.0,
+                  "last_step": "Mean", "last_step_size": 0.04, "num_steps": 250}
+            kw.update(sampling_kwargs or {})
+            return self.sample_sde(**kw)
         if sampling_method != "ODE":
             raise NotImplementedError(f"sampler {sampling_method!r}")
         kw = {"sampling_method": "dopri5", "num_steps": 50, "atol": 1e-6, "rtol": 1e-3,

@@ -23,6 +23,10 @@ from lam_slide_tpu_torch.ops import fused_adaln as fad
 from lam_slide_tpu_torch.ops import fused_mlp as fm
 from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
 from lam_slide_tpu_torch.ops import short_attention as tsa
+from lam_slide_tpu_torch.ops.ablations import fused_temporal_attention as tft
+from lam_slide_tpu_torch.ops.ablations import short_backward as tsb
+from lam_slide_tpu_torch.ops.packed_attention import lane_rope_tables
+from lam_slide_tpu_torch.transport import Sampler, create_transport
 from lam_slide_tpu_torch.train import create_train_state, make_train_step
 
 pytestmark = pytest.mark.cuda
@@ -79,6 +83,14 @@ S1_GRAD_REL_TOL = (3e-8, 7.1e-6)
 # per-tensor relative error (norm of the difference over the norm); the
 # limit chip_smoke.py holds the full-width DiT to at B=2.
 DIT_GRAD_REL_TOL = 1.6e-2
+# K10's grads (its backward is autograd of the plain packed reference, as in
+# JAX) against autograd of its plain version: the two recomputes round q/k
+# at different points (twice against once), so a grad moves by a bf16 ulp of
+# the transformed q/k times its weight; relative to max |grad| per output.
+# K11 against its plain version: K4's formulas and rounding points, so K4's
+# limits (bf16) and K4-fp32's (fp32).
+K10_GRAD_REL_TOL = 3e-2
+K11_REL_TOL = {torch.bfloat16: K4_REL_TOL, torch.float32: K4_F32_REL_TOL}
 
 
 @pytest.fixture
@@ -637,3 +649,137 @@ def test_dit_kernel_path_grads_match_plain_path(dev, hidden, heads, attn):
         assert got is not None and bool(torch.isfinite(got).all()), name
         assert got.abs().max().item() > 0, name
         assert (got - want).norm().item() <= DIT_GRAD_REL_TOL * want.norm().item(), name
+
+
+def _fused_temporal_inputs(g, dev, n, t, heads, dh, tiled=True):
+    """q/k/v as packed [N, T, D] views of one linear1-like buffer, lane
+    tables [T, D] and [1, D] lane scales (tiled [dh] ones, or one per lane)."""
+    d = heads * dh
+    qkv = (2 * torch.randn(n, t, 3 * d, generator=g)).to(dev, torch.bfloat16)
+    q, k, v = qkv.split(d, dim=-1)
+    cos_l, sin_l = lane_rope_tables(*rope_cos_sin(t, dh, device=dev), heads)
+    if tiled:
+        qs, ks = ((1 + 0.2 * torch.randn(dh, generator=g)).repeat(heads)[None].to(dev)
+                  for _ in range(2))
+    else:
+        qs, ks = ((1 + 0.2 * torch.randn(1, d, generator=g)).to(dev) for _ in range(2))
+    return q, k, v, cos_l, sin_l, qs, ks
+
+
+@pytest.mark.parametrize("n,t,heads,dh,tiled", [
+    (4, 1000, 16, 24, True),   # the 4AA temporal axis, 16 x 24
+    (2, 1000, 3, 128, True),   # 3 x 128
+    (3, 131, 4, 16, False),    # ragged T, a scale per lane
+])
+def test_fused_temporal_matches_plain(dev, n, t, heads, dh, tiled):
+    """K10 on packed views against its plain version (one rounding of q/k
+    after norm and RoPE on both sides): K1's pair of limits."""
+    args = _fused_temporal_inputs(_gen(30), dev, n, t, heads, dh, tiled)
+    before = tft.launches
+    got = tft.fused_temporal_attention(*args, heads, dh ** -0.5)
+    assert tft.launches == before + 1
+    want = tft.reference_fused_temporal(*args, heads, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert got.shape == args[0].shape and got.dtype == torch.bfloat16 and got.is_contiguous()
+    _assert_k1_close(got, want)
+
+
+def test_fused_temporal_refuses_what_it_cannot_take(dev):
+    q, k, v, cos_l, sin_l, qs, ks = _fused_temporal_inputs(_gen(31), dev, 2, 70, 2, 16)
+    with pytest.raises(ValueError, match="bf16"):
+        tft.fused_temporal_attention(q.float(), k.float(), v.float(), cos_l, sin_l, qs, ks, 2,
+                                     0.25)
+    with pytest.raises(ValueError, match="cos_l"):
+        tft.fused_temporal_attention(q, k, v, cos_l[:10], sin_l, qs, ks, 2, 0.25)
+
+
+def test_fused_temporal_grads_match_plain(dev):
+    """K10 under autograd (the Function's backward recomputes the plain
+    packed reference) against autograd of its plain version: dq, dk, dv and
+    both lane scales."""
+    args = _fused_temporal_inputs(_gen(32), dev, 2, 300, 4, 16)
+    grad = torch.randn(args[0].shape, generator=_gen(33)).to(dev, torch.bfloat16)
+    grads = []
+    for fn in (tft.fused_temporal_attention, tft.reference_fused_temporal):
+        leaves = [a.detach().clone().requires_grad_() if i in (0, 1, 2, 5, 6) else a
+                  for i, a in enumerate(args)]
+        (fn(*leaves, 4, 0.25).float() * grad.float()).sum().backward()
+        grads.append([leaves[i].grad for i in (0, 1, 2, 5, 6)])
+    for a, w in zip(*grads):
+        assert bool(torch.isfinite(a).all())
+        assert (a.double() - w.double()).abs().max().item() <= \
+            K10_GRAD_REL_TOL * w.double().abs().max().item()
+
+
+def test_fused_temporal_block_launches_k10_and_not_k5(dev):
+    """ParallelMLPAttention(fused_temporal=True) at dh 128: K10 once and K2
+    once per forward, no K5, close to the block's plain path."""
+    from lam_slide_tpu_torch.models.latent_dit import ParallelMLPAttention
+
+    block = ParallelMLPAttention(256, 2, 2.0, False, 8, torch.bfloat16, _gen(34),
+                                 fused_temporal=True).to(dev)
+    x = torch.randn(3, 200, 256, generator=_gen(35)).to(dev, torch.bfloat16)
+    cos, sin = rope_cos_sin(200, 128, device=dev)
+    with torch.no_grad():
+        before = (tft.launches, fm.launches, fnr.launches)
+        got = block(x, cos, sin)
+        assert (tft.launches - before[0], fm.launches - before[1],
+                fnr.launches - before[2]) == (1, 1, 0)
+        want = block(x, cos, sin, backend="plain")
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("b,h,nq,nk,dh", [
+    (8, 16, 192, 192, 16),   # the MD17 stage-2 spatial axis
+    (2, 3, 64, 64, 16),      # JAX's shapes: bh not a multiple of the group,
+    (2, 8, 192, 192, 24),    # the MD17 length at dh 24,
+    (2, 2, 33, 33, 16),      # an odd length
+    (3, 2, 130, 70, 32),     # different query and key lengths
+])
+def test_short_backward_matches_plain_and_k4(dev, dtype, b, h, nq, nk, dh):
+    """K11 from K1's out and lse against its plain version and against K4 on
+    the same inputs (the same function), grads the same dtype and shape."""
+    q, k, v, grad = (t.to(dtype) for t in _heads_views(_gen(36), dev, b, h, nq, nk, dh))
+    out, lse = fa._forward(q, k, v, dh ** -0.5, with_lse=True)
+    before = tsb.launches
+    got = tsb.flash_backward_short(q, k, v, out, lse, grad, dh ** -0.5)
+    assert tsb.launches == before + 1
+    want = tsb.reference_flash_backward_short(q, k, v, out, lse, grad, dh ** -0.5)
+    k4 = fa.flash_attention_backward(q, k, v, out, lse, grad, dh ** -0.5)
+    torch.cuda.synchronize()
+    _assert_grads_close(got, want, K11_REL_TOL[dtype])
+    _assert_grads_close(got, k4, 2 * K11_REL_TOL[dtype])
+
+
+def test_short_backward_refuses_what_it_cannot_take(dev):
+    q, k, v, grad = _heads_views(_gen(37), dev, 1, 2, 300, 300, 16)
+    out, lse = fa._forward(q, k, v, 0.25, with_lse=True)
+    with pytest.raises(ValueError, match="256"):
+        tsb.flash_backward_short(q, k, v, out, lse, grad, 0.25)
+
+
+def test_sde_and_likelihood_solves_on_the_card(dev):
+    """A small bf16 DiT through the SDE sampler and the likelihood solve:
+    finite outputs, the likelihood's VJP through K4 (two launches of each of
+    its kernels per drift evaluation at depth 2), close to the plain path on
+    the same noise."""
+    model = LatentDiT(depth=2, in_dim=8, hidden_size=64, num_heads=4, reference_init=False,
+                      dtype=torch.bfloat16, device=dev, generator=_gen(38))
+    x = torch.randn(2, 200, 2, 8, generator=_gen(39)).to(dev)
+    mask = torch.zeros(2, 200, 2, dtype=torch.long, device=dev)
+    mask[:, :1] = 1
+    kw = dict(x_cond=x * mask[..., None], x_cond_mask=mask)
+    sampler = Sampler(create_transport(path_type="GVP", prediction="data"))
+    sde = sampler.get_sample_fn("SDE", {"num_steps": 4})
+    like = sampler.sample_ode_likelihood(num_steps=3)
+    outs = {}
+    for backend in ("auto", "plain"):
+        model.backend = backend
+        before = fa.bwd_kv_launches
+        outs[backend] = (sde(torch.Generator(device=dev).manual_seed(0), x, model, **kw),
+                         *like(torch.Generator(device=dev).manual_seed(1), x, model, **kw))
+        assert fa.bwd_kv_launches - before == (2 * 2 if backend == "auto" else 0)
+    for got, want in zip(outs["auto"], outs["plain"]):
+        assert bool(torch.isfinite(got).all())
+        assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()

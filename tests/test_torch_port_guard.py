@@ -8,6 +8,8 @@
   (the kernels write through raw pointers, which autograd cannot see).
 * A masked or fp32 flash call (K1) that needs a gradient reaches the
   autograd Function whose backward is K4 with the bias and fp32 operands.
+* K10 (fused temporal attention) and K11 (the short grouped backward) are
+  wrappers like the others.
 * A failed kernel build raises.
 * The DiT, both MD17 stages and the registry's MD17 runs are built on the
   card unless the CPU is asked for, and the ODE sampler defaults to dopri5,
@@ -37,6 +39,8 @@ from lam_slide_tpu_torch.ops import fused_adaln as fad
 from lam_slide_tpu_torch.ops import fused_mlp as fm
 from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
 from lam_slide_tpu_torch.ops import short_attention as tsa
+from lam_slide_tpu_torch.ops.ablations import fused_temporal_attention as tft
+from lam_slide_tpu_torch.ops.ablations import short_backward as tsb
 from lam_slide_tpu_torch.transport import Sampler, create_transport
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -76,7 +80,7 @@ def test_no_sdpa_in_port():
     assert inside >= 1 and text.count("scaled_dot_product_attention") == inside
 
 
-WRAPPER_MODULES = [fa, fnr, fad, fm, fsb, tsa]
+WRAPPER_MODULES = [fa, fnr, fad, fm, fsb, tsa, tft, tsb]
 COUNTERS = ("launches", "bias_launches", "fp32_launches", "bwd_kv_launches", "bwd_q_launches",
             "bwd_bias_launches", "bwd_fp32_launches", "bwd_launches")
 
@@ -155,6 +159,14 @@ def _normrope_backward_inputs(device):
     return (q, k, v, *_normrope_inputs(device)[3:], out, lse, g, scale)
 
 
+def _fused_temporal_inputs(device):
+    q, k, v = (t.transpose(1, 2).flatten(2) for t in _attn_inputs(device))  # [1, 130, 48]
+    cos, sin = rope_cos_sin(130, 24, device=device)
+    cos_l, sin_l = (t.repeat_interleave(2, -1).repeat(1, 2) for t in (cos, sin))
+    return (q, k, v, cos_l, sin_l, torch.ones(1, 48, device=device),
+            torch.ones(1, 48, device=device), 2, 0.2)
+
+
 def _adaln_inputs(device):
     x = torch.zeros(2, 5, 2, 32, dtype=torch.bfloat16, device=device)
     mods = torch.zeros(2, 1, 1, 96, dtype=torch.bfloat16, device=device).chunk(3, dim=-1)
@@ -187,6 +199,8 @@ WRAPPERS = [
     ("K1 masked", lambda q, k, v, m: fa.flash_attention(q, k, v, mask=m), fa,
      "reference_attention", _masked_attn_inputs),
     ("K1 fp32", fa.flash_attention, fa, "reference_attention", _fp32_attn_inputs),
+    ("K10", tft.fused_temporal_attention, tft, "reference_fused_temporal",
+     _fused_temporal_inputs),
 ]
 BACKWARD_WRAPPERS = [
     ("K4", fa.flash_attention_backward, fa, "reference_flash_backward", _backward_inputs),
@@ -198,6 +212,9 @@ BACKWARD_WRAPPERS = [
      _normrope_backward_inputs),
     ("K9 backward", tsa.short_attention_backward, tsa, "reference_short_backward",
      _short_backward_inputs),
+    ("K11", tsb.flash_backward_short, tsb, "reference_flash_backward_short", _backward_inputs),
+    ("K11 fp32", tsb.flash_backward_short, tsb, "reference_flash_backward_short",
+     _fp32_backward_inputs),
 ]
 ALL_WRAPPERS = WRAPPERS + BACKWARD_WRAPPERS
 
@@ -360,7 +377,7 @@ def test_build_key_covers_every_source():
     names = {p.name for p in _build.sources()}
     assert {"flash_attention.cu", "flash_attention_bwd.cu", "flash_tiles.cuh", "fused_mlp.cu",
             "fused_adaln.cu", "fused_spatial_block.cu", "short_attention.cu", "common.cu",
-            "common.cuh"} <= names
+            "common.cuh", "short_backward.cu"} <= names
     assert _build.source_hash() == _build.source_hash()
 
 
