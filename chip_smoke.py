@@ -59,14 +59,15 @@ printed on its own line with its seconds:
    4e-4, dropout from the step's generator), then stage 2 on it (the bf16
    DiT, B=64, per-layer checkpointing, the SI loss plus the aux position
    and inter-distance losses through the frozen stage 1, lr 1e-3, EMA
-   0.999). For each stage: the launches of every kernel per step (derived
-   from the code, checkpointed recompute included), every grad finite and
-   non-zero, grads of the kernel path against the plain path on the same
-   draws (stage 2 at B=2), ten steps on one batch in which the loss (and
-   stage 2's SI loss) falls and every metric stays finite, step times and
-   peak memory of both paths, a profiled step; then ten stage-2 steps on
-   the aux losses alone, in which their sum falls, and one call of the
-   sampled val hook on the EMA weights.
+   0.999). For each stage: every grad finite and non-zero, grads of the
+   kernel path against the plain path on the same draws at the stage's
+   starting weights (stage 2 at B=2), the launches of every kernel per
+   step (derived from the code, checkpointed recompute included), ten
+   steps on one batch in which the loss (and stage 2's SI loss) falls and
+   every metric stays finite, step times and peak memory of both paths, a
+   profiled step; then ten stage-2 steps on the aux losses alone, in which
+   their sum falls, and one call of the sampled val hook on the EMA
+   weights.
 
 11. ablation: the paths of the two kernels the JAX package keeps as opt-in
    ablations, through their entry points: the 4AA temporal block
@@ -87,6 +88,14 @@ printed on its own line with its seconds:
 Phase 3 also holds K10 (at both head splits and a ragged T, and against
 the K5 and K3 routes) and K11 (against K4's grads, with its peak memory, and
 in fp32 at a JAX test shape) to their plain versions.
+
+K1 and K3 without a mask in bf16 and K4 without one run the kernels
+redesigned for Hopper (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu); phase
+3 holds them at every main-path shape: K1 at [4,16,1000,24] and
+[16,16,1000,24] and with the lse at [32,16,1000,24], K3 at [16,1000,384]
+and [9600,192,256] and with the lse at [1920,192,256], K4 at
+[32,16,1000,24] and [1920,16,192,16], and K1 on its cp.async route (dh 20).
+Every attention row's bound also counts its exponentials (one a score).
 
 The MD17 kernels are checked against their plain versions in phase 3: K1
 with the key-padding bias and with fp32 operands (and its lse), K9 forward
@@ -124,6 +133,11 @@ DOPRI5_MAX_STEPS = 1000  # ode_dopri5's bound on attempted steps
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 PEAK_HBM_BYTES = 3.35e12
+# Attention also needs one exponential a score (two a score on kernels that
+# recompute P): ex2 runs on the special-function units, 16 per SM per clock,
+# ~3.9 T/s on the card (the FlashAttention-3 paper, Shah et al. 2024, gives
+# the same). A bound counts one a score.
+PEAK_EXP_RATE = 3.9e12
 
 # K1 against its plain version: both round the output to bf16, and P is
 # rounded to bf16 before the running-max rescale in the kernel but after
@@ -235,16 +249,22 @@ K9_GRAD_REL_TOL = 8.6e-3
 # K1-fp32 lse within 1.431e-6 (the K1 lse limit at dh 24 covers it 4x).
 K4_F32_REL_TOL = 1e-5
 LSE_F32_ATOL = 6e-6
-# MD17 train steps, kernel path vs plain path on the same draws: (relative
-# error of the global grad norm, worst per-tensor ||g - g_ref|| / ||g_ref||).
-# Stage 1 at B=256 in fp32: exact fp32 on both sides up to the order of the
-# sums (K4-fp32 matches its plain version bit for bit, K1-fp32 to ~1e-7).
-# Stage 2 at B=2: the bf16 DiT (whose roundings differ in order, as at 4AA)
-# and the fp32 aux decode. First readings on an H100: stage 1 1.002e-8 and
-# 5.958e-7, stage 2 4.043e-6 and 3.393e-3 (vec_in_embedding); each limit is
-# 3x that.
-S1_GRAD_REL_TOL = (3e-8, 1.8e-6)
-MD17_GRAD_REL_TOL = (1.2e-5, 1.0e-2)
+# MD17 train steps, kernel path vs plain path on the same draws, at each
+# stage's starting weights (before any step): (relative error of the global
+# grad norm, worst per-tensor ||g - g_ref|| / ||g_ref||). Stage 1 at B=256
+# in fp32: exact fp32 on both sides up to the order of the sums. Stage 2 at
+# B=2: the bf16 DiT (whose roundings differ in order, as at 4AA) and the
+# fp32 aux decode. Each limit is 3x the largest reading of
+# tools/md17_grad_readings.py on an H100 over seeds 0-3, from this tree's
+# kernels and from the older attention template's alike: stage 1 5.025e-8
+# and 6.749e-7, stage 2 1.936e-5 and 3.985e-3. A plain path in TF32 reads
+# 8.4e-4 and 1.2 (stage 1), 4.4e-3 and 0.16 (stage 2) at the least; the
+# softmax weights at bf16 precision in stage 1's fp32 attention 1.3e-5 and
+# 3.8e-4. At stage 2's B=2 the softmax weights at 6 or 3 mantissa bits read
+# like the kernel path (1.0e-6 to 2.4e-5): this check does not see the
+# bf16 attention's precision; phase 3's K1/K4 rows do.
+S1_GRAD_REL_TOL = (1.5e-7, 2.0e-6)
+MD17_GRAD_REL_TOL = (5.8e-5, 1.2e-2)
 # Decoded positions of the MD17 protocol batch, kernel path vs plain path on
 # the same weights and noise, relative to max |pos|: nine Euler steps of a
 # bf16 DiT whose roundings differ in order, then the fp32 decoder. First
@@ -284,6 +304,20 @@ SOLVE_REL_TOL = 1.9e-2
 def check(ok: bool, msg: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def with_sm90(want: dict) -> dict:
+    """``want`` with the launches of the redesigned kernels that follow from
+    its K1 and K4 counts: every bf16 K1 call without a mask is one launch of
+    flash_fwd_sm90.cu and every bf16 K4 call without a mask three kernels of
+    flash_bwd_sm90.cu (preprocess, main, dQ), all on the TMA route at the
+    main paths' shapes. On the main paths every masked call is fp32 (K1
+    bias within K1 fp32; the old pair counts two kernels a call)."""
+    check(want["K1 bias"] <= want["K1 fp32"] and want["K4 bias"] <= want["K4 fp32"],
+          f"a bf16 masked call among the expected launches {want}")
+    return dict(want, **{"K1 sm90": want["K1"] - want["K1 fp32"],
+                         "K4 sm90": 3 * (want["K4 kv"] - want["K4 fp32"] // 2),
+                         "K1 cp.async": 0, "K4 cp.async": 0})
 
 
 def nvidia_smi() -> str:
@@ -328,11 +362,12 @@ def library_times(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     return both - fwd_only
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS, exps: float = 0):
     """(least ms, what bounds it) for FLOPs at ``peak`` (the tensor cores' bf16
-    rate unless given) and HBM bytes."""
-    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    rate unless given), HBM bytes and, for attention, its exponentials (one a
+    score) at PEAK_EXP_RATE: the largest of the three."""
+    return max((flops / peak * 1e3, "operations"), (nbytes / PEAK_HBM_BYTES * 1e3, "bytes"),
+               (exps / PEAK_EXP_RATE * 1e3, "exp"), key=lambda t: t[0])
 
 
 def errors(got: torch.Tensor, want: torch.Tensor):
@@ -375,12 +410,12 @@ class KernelTable:
         self.rows = {}
 
     def add(self, key, shape, err, limit, ms, plain_ms, flops, nbytes, lib_ms=None,
-            peak=PEAK_BF16_FLOPS):
-        bound_ms, bound_by = bound(flops, nbytes, peak)
+            peak=PEAK_BF16_FLOPS, exps=0):
+        bound_ms, bound_by = bound(flops, nbytes, peak, exps)
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(f"kernel {key} {shape}: max_abs_err {err:.3e} ({limit}) kernel {ms:.4f} ms "
               f"plain {plain_ms:.4f} ms library {lib} bound {bound_ms:.4f} ms ({bound_by}, "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB, {exps / 1e9:.3f} G exp)")
         self.rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by=bound_by, library_ms=lib_ms)
 
@@ -454,6 +489,7 @@ def kernel_checks(dev, gen, table: KernelTable) -> None:
     for batch in (2, 8):
         bp, rows = batch * L, batch * L * T  # temporal batch B*L; positions B*T*L
         attn_flops, attn_bytes = 4 * bp * T * T * d, 4 * bp * T * d * 2
+        exps16, exps3 = bp * HEADS * T * T, bp * WIDE_HEADS * T * T
 
         # K1 on head-major strided views of one qkv buffer
         dh = d // HEADS
@@ -467,7 +503,7 @@ def kernel_checks(dev, gen, table: KernelTable) -> None:
                   abs_err, f"atol {atol:.3e} = {K1_ULPS} bf16 ulps, gain tol {K1_GAIN_TOL}",
                   time_ms(lambda: fa.flash_attention(q, k, v)),
                   time_ms(lambda: fa.reference_attention(q, k, v)), attn_flops, attn_bytes,
-                  library_times(q, k, v, dh ** -0.5))
+                  library_times(q, k, v, dh ** -0.5), exps=exps16)
         check_k1(abs_err, atol, k1_gain)
 
         # K3: the packed entry on [B*L, T, H*dh] views of the same buffer
@@ -481,8 +517,28 @@ def kernel_checks(dev, gen, table: KernelTable) -> None:
                   f"atol {atol:.3e} = {K1_ULPS} bf16 ulps, gain tol {K1_GAIN_TOL}",
                   time_ms(lambda: fa.flash_attention_packed(qp, kp, vp, HEADS)),
                   time_ms(lambda: fa.reference_attention_packed(qp, kp, vp, HEADS)),
-                  attn_flops, attn_bytes, library_times(q, k, v, dh ** -0.5))
+                  attn_flops, attn_bytes, library_times(q, k, v, dh ** -0.5), exps=exps16)
         check_k1(abs_err, atol, k1_gain, "K3")
+
+        # K1's cp.async route: dh 20 (TMA needs dh % 8 == 0), q/k/v head-major
+        # views of one packed buffer at the 4AA temporal shape
+        qkv20 = _rand(gen, bp, T, 3 * HEADS * 20).to(dev, bf)
+        q20, k20, v20 = (t.transpose(1, 2) for t in qkv20.view(bp, T, 3, HEADS, 20).unbind(2))
+        check(not fa.sm90_tma_ok(q20, k20, v20), "dh 20 views must take the cp.async route")
+        before = fa.sm90_cp_async_launches
+        got, want = fa.flash_attention(q20, k20, v20), fa.reference_attention(q20, k20, v20)
+        torch.cuda.synchronize()
+        check(fa.sm90_cp_async_launches == before + 1, "K1 dh 20 did not take the cp.async route")
+        abs_err, _, atol, k1_gain = k1_errors(got, want)
+        table.add("K1 cp.async", f"q/k/v [{bp},{HEADS},{T},20] strided views, cp.async route, "
+                  f"gain {k1_gain:.7f}", abs_err,
+                  f"atol {atol:.3e} = {K1_ULPS} bf16 ulps, gain tol {K1_GAIN_TOL}",
+                  time_ms(lambda: fa.flash_attention(q20, k20, v20)),
+                  time_ms(lambda: fa.reference_attention(q20, k20, v20)),
+                  4 * bp * T * T * HEADS * 20, 4 * bp * T * HEADS * 20 * 2,
+                  library_times(q20, k20, v20, 20 ** -0.5), exps=exps16)
+        check_k1(abs_err, atol, k1_gain, "K1 cp.async")
+        del qkv20, q20, k20, v20
 
         # K5 on raw strided views of a 3 x 128 qkv buffer
         wdh = d // WIDE_HEADS
@@ -500,7 +556,7 @@ def kernel_checks(dev, gen, table: KernelTable) -> None:
                   f"atol {atol:.3e} = {K1_ULPS} bf16 ulps, gain tol {K1_GAIN_TOL}",
                   time_ms(lambda: fnr.flash_attention_normrope(*args5)),
                   time_ms(lambda: fnr.reference_attention_normrope(*args5)),
-                  attn_flops, attn_bytes + 2 * T * wdh // 2 * 4)
+                  attn_flops, attn_bytes + 2 * T * wdh // 2 * 4, exps=exps3)
         check_k1(abs_err, atol, k1_gain, "K5")
         # the same binary without the in-tile transform, on pre-transformed
         # q/k: what the transform costs inside K5
@@ -602,7 +658,16 @@ def backward_checks(dev, gen, table: KernelTable) -> None:
                                                                             reps=3)
             table.add(key, f"q/k/v/dO [{b},{h},{nq},{dh}] strided views", max(e[0] for e in errs),
                       f"rel tol {rel_tol} per grad, gain tol {K1_GAIN_TOL}", ms, plain_ms,
-                      2.5 * 4 * b * nq * nk * d, 8 * b * nq * d * 2 + b * h * nq * 4, lib)
+                      2.5 * 4 * b * nq * nk * d, 8 * b * nq * d * 2 + b * h * nq * 4, lib,
+                      exps=b * h * nq * nk)
+        if key == "K4":
+            # the forward with the lse at the same shape (the train step's K1)
+            table.add("K1 lse", f"q/k/v [{b},{h},{nq},{dh}] strided views, with lse; lse "
+                      f"max_abs_err {lse_err:.3e} (atol {lse_atol})", lse_err, f"atol {lse_atol}",
+                      time_ms(lambda: fa._forward(q, k, v, scale, with_lse=True)),
+                      time_ms(lambda: fa.reference_attention(q, k, v, scale, return_lse=True)),
+                      4 * b * nq * nk * h * dh, 4 * b * nq * h * dh * 2 + b * h * nq * 4,
+                      library_times(q, k, v, scale), exps=b * h * nq * nk)
         del got, want
 
 
@@ -656,7 +721,8 @@ def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
               time_ms(lambda: fa.flash_attention(*args, mask=mask)),
               time_ms(lambda: fa.reference_attention(*args, mask=mask)),
               4 * q.numel() * MD17_ATOMS, nbytes,
-              library_times(*args, dh ** -0.5, mask=mask), peak=PEAK_FP32_FLOPS)
+              library_times(*args, dh ** -0.5, mask=mask), peak=PEAK_FP32_FLOPS,
+              exps=q.numel() // dh * MD17_ATOMS)
 
     # K1-fp32: the latent self-attention, 2 heads over 192 latents, at the
     # decode batch (the encoder's is 5x smaller)
@@ -670,7 +736,7 @@ def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
               f"rel tol {K1_F32_REL_TOL}", time_ms(lambda: fa.flash_attention(q, k, v)),
               time_ms(lambda: fa.reference_attention(q, k, v), reps=5),
               4 * q.numel() * 192, 4 * q.numel() * 4, library_times(q, k, v, dh ** -0.5),
-              peak=PEAK_FP32_FLOPS)
+              peak=PEAK_FP32_FLOPS, exps=q.numel() // dh * 192)
     del qkv, q, k, v, got, want
 
     # K1-bias ragged: keys not a multiple of either kernel's key tile, an
@@ -713,7 +779,7 @@ def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
               f"{K1_GAIN_TOL}", time_ms(lambda: tsa.short_attention(*args)),
               time_ms(lambda: tsa.reference_short_attention(*args), reps=5),
               4 * seqs * MD17_T * MD17_T * d, 4 * seqs * MD17_T * d * 2,
-              library_times(*heads, dh ** -0.5))
+              library_times(*heads, dh ** -0.5), exps=seqs * 16 * MD17_T * MD17_T)
     del got, want
 
     # K9 backward at the same shape, then ragged lengths and head dims
@@ -748,7 +814,8 @@ def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
                                                 reps=10),
                       time_ms(lambda: tsa.reference_short_backward(*bargs), reps=3),
                       2.5 * 4 * seqs * n * n * d, 7 * seqs * n * d * 2,
-                      library_times(*heads, scale, grad=g.unflatten(-1, (16, dh)).transpose(1, 2)))
+                      library_times(*heads, scale, grad=g.unflatten(-1, (16, dh)).transpose(1, 2)),
+                      exps=seqs * 16 * n * n)
         del got, want
     torch.cuda.empty_cache()
 
@@ -787,8 +854,53 @@ def md17_dit_kernel_checks(dev, gen, table: KernelTable) -> None:
               time_ms(lambda: fa.flash_attention_packed(*args), reps=5),
               time_ms(lambda: fa.reference_attention_packed(*args), reps=2),
               4 * seqs * 192 * 192 * d, 4 * seqs * 192 * d * 2,
-              library_times(*head_major, dh ** -0.5))
+              library_times(*head_major, dh ** -0.5), exps=seqs * heads * 192 * 192)
     del q, k, v, args, head_major
+    torch.cuda.empty_cache()
+
+    # the stage-2 train step's spatial attention (B*T = 1920 sequences): K3
+    # with the lse, then K4 from its out and lse; q/k/v as LatentDiT passes them
+    seqs2 = MD17_BATCH * MD17_T
+    q, k = (_rand(gen, seqs2, 192, d).to(dev, bf) for _ in range(2))
+    v = _rand(gen, seqs2, 192, 3 * d).to(dev, bf)[..., 2 * d:]
+    qh, kh, vh = (t.unflatten(-1, (heads, dh)).transpose(1, 2) for t in (q, k, v))
+    scale = dh ** -0.5
+    out, lse = fa._forward(qh, kh, vh, scale, with_lse=True)
+    want, want_lse = fa.reference_attention(qh, kh, vh, scale, return_lse=True)
+    torch.cuda.synchronize()
+    abs_err, _, atol, k1_gain = k1_errors(out, want)
+    lse_err, lse_atol = (lse - want_lse).abs().max().item(), LSE_ATOL["K1"][24]
+    del want, want_lse
+    check_k1(abs_err, atol, k1_gain, "K3 lse MD17")
+    check(lse_err <= lse_atol, f"K3 lse MD17 lse err {lse_err} > {lse_atol}")
+    exps2 = seqs2 * heads * 192 * 192
+    table.add("K3 lse MD17", f"packed q/k/v [{seqs2},192,{d}] (v a strided view), {heads} x {dh}, "
+              f"with lse (max_abs_err {lse_err:.3e}, atol {lse_atol}), gain {k1_gain:.7f}",
+              abs_err, f"atol {atol:.3e} = {K1_ULPS} bf16 ulps, gain tol {K1_GAIN_TOL}",
+              time_ms(lambda: fa._forward(qh, kh, vh, scale, with_lse=True), reps=10),
+              time_ms(lambda: fa.reference_attention(qh, kh, vh, scale, return_lse=True), reps=3),
+              4 * seqs2 * 192 * 192 * d, 4 * seqs2 * 192 * d * 2 + seqs2 * heads * 192 * 4,
+              library_times(qh, kh, vh, scale), exps=exps2)
+    torch.cuda.empty_cache()
+    g = _rand(gen, seqs2, heads, 192, dh).to(dev, bf)
+    args = (qh, kh, vh, out, lse, g, scale)
+    got, want = fa.flash_attention_backward(*args), fa.reference_flash_backward(*args)
+    torch.cuda.synchronize()
+    errs = _grad_errors(got, want)
+    del got, want
+    torch.cuda.empty_cache()
+    detail = ", ".join(f"{n} rel {r:.3e} gain {gn:.7f}"
+                       for n, (_, r, gn) in zip(("dq", "dk", "dv"), errs))
+    for name, (_, rel, gn) in zip(("dq", "dk", "dv"), errs):
+        check(rel <= K4_REL_TOL, f"K4 MD17 {name} rel err {rel} > {K4_REL_TOL}")
+        check(abs(gn - 1) <= K1_GAIN_TOL, f"K4 MD17 {name} gain {gn} off 1 by > {K1_GAIN_TOL}")
+    table.add("K4 MD17", f"q/k/v/dO [{seqs2},{heads},192,{dh}] strided views; {detail}",
+              max(e[0] for e in errs), f"rel tol {K4_REL_TOL} per grad, gain tol {K1_GAIN_TOL}",
+              time_ms(lambda: fa.flash_attention_backward(*args), reps=10),
+              time_ms(lambda: fa.reference_flash_backward(*args), reps=2),
+              2.5 * 4 * seqs2 * 192 * 192 * d, 8 * seqs2 * 192 * d * 2 + seqs2 * heads * 192 * 4,
+              library_times(qh, kh, vh, scale, grad=g), exps=exps2)
+    del q, k, v, qh, kh, vh, out, lse, g, args
     torch.cuda.empty_cache()
 
     k2_check(dev, gen, table, "K2 MD17", tokens, d, 2 * d, plain_reps=3)
@@ -853,7 +965,8 @@ def md17_train_kernel_checks(dev, gen, table: KernelTable) -> None:
                       time_ms(lambda: fa.flash_attention_backward(*args, mask=mask), reps=10),
                       time_ms(lambda: fa.reference_flash_backward(*args, bias), reps=3),
                       2.5 * 4 * b * h * nq * nk * hd, nbytes,
-                      library_times(q, k, v, scale, grad=g, mask=mask), peak=PEAK_FP32_FLOPS)
+                      library_times(q, k, v, scale, grad=g, mask=mask), peak=PEAK_FP32_FLOPS,
+                      exps=b * h * nq * nk)
         del got, want
     torch.cuda.empty_cache()
 
@@ -921,7 +1034,8 @@ def ablation_kernel_checks(dev, gen, table: KernelTable) -> None:
                   f"tol {K10_ROUTE_REL_TOL}",
                   time_ms(lambda: tft.fused_temporal_attention(*args)),
                   time_ms(lambda: tft.reference_fused_temporal(*args), reps=5),
-                  4 * n * t * t * d, 4 * n * t * d * 2 + 2 * t * d * 4 + 2 * d * 4)
+                  4 * n * t * t * d, 4 * n * t * d * 2 + 2 * t * d * 4 + 2 * d * 4,
+                  exps=n * heads * t * t)
         check_k1(abs_err, atol, k1_gain, key)
         del got, want
     torch.cuda.empty_cache()
@@ -976,7 +1090,7 @@ def ablation_kernel_checks(dev, gen, table: KernelTable) -> None:
                                                           reps=10),
                       time_ms(lambda: tsb.reference_flash_backward_short(*args), reps=3),
                       2.5 * 4 * b * n * n * d_all, 8 * b * n * d_all * 2 + b * h * n * 4,
-                      library_times(q, k, v, scale, grad=g))
+                      library_times(q, k, v, scale, grad=g), exps=b * h * n * n)
             k4_ms = time_ms(lambda: fa.flash_attention_backward(*args), reps=10)
             print(f"kernel K4 at K11's shape: {k4_ms:.4f} ms")
         del got, want, k4, args, out, lse, qkv, q, k, v, g
@@ -1044,6 +1158,7 @@ def md17_phase(dev, smi, reset_counts, read_counts):
     want = {key: 0 for key in counts}
     want.update({"K1": MD17_DEPTH * e + 3, "K1 bias": 1, "K1 fp32": 3, "K2": 2 * MD17_DEPTH * e,
                  "K7": (2 * MD17_DEPTH + 1) * e, "K9": MD17_DEPTH * e})
+    want = with_sm90(want)
     bf16_k1 = counts["K1"] - counts["K1 fp32"]  # the bf16 launches: K3 on the spatial axis
     print(f"md17: evaluate_md17 K={MD17_K} Euler-{NUM_STEPS} B={MD17_BATCH}: {metrics}; launches "
           f"{counts}, of which K1 bf16 {bf16_k1} (expected {want}, K1 bf16 {MD17_DEPTH * e})")
@@ -1107,13 +1222,14 @@ def md17_phase(dev, smi, reset_counts, read_counts):
 def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, smi,
                       reset_counts, read_counts, grad_tol, falling):
     """One MD17 stage's train-step checks (phase 10) through the run's loss,
-    optimizer and ``make_train_step``: the launches of one step against
-    ``want``; every grad finite and non-zero; the kernel path's grads on
-    ``grad_batch`` against the plain path (``plain_modules`` set to "plain")
-    on the same draws; ten steps on ``batch`` with one fixed draw (dropout,
-    t and x0), in which every metric stays finite and the ``falling`` ones
-    fall; step times of both paths (median of 5, in turns) with their peak
-    memory; one profiled step. Returns (the launches, the state)."""
+    optimizer and ``make_train_step``: every grad finite and non-zero and
+    the kernel path's grads on ``grad_batch`` against the plain path
+    (``plain_modules`` set to "plain") on the same draws, at the stage's
+    starting weights; the launches of one step against ``want``; ten steps
+    on ``batch`` with one fixed draw (dropout, t and x0), in
+    which every metric stays finite and the ``falling`` ones fall; step
+    times of both paths (median of 5, in turns) with their peak memory; one
+    profiled step. Returns (the launches, the state)."""
     from lam_slide_tpu_torch.nn.blocks import set_backend
     from lam_slide_tpu_torch.train import create_train_state, make_train_step
 
@@ -1128,7 +1244,47 @@ def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, s
         for m in plain_modules:
             set_backend(m, backend)
 
-    # 1. launches of one train step
+    def compare():
+        # every parameter's grad finite and non-zero
+        model.zero_grad(set_to_none=True)
+        loss_fn(model, batch, draws(SEED), True)[0].backward()
+        bad = [n for n, p in model.named_parameters() if p.grad is None
+               or not bool(torch.isfinite(p.grad).all()) or not p.grad.abs().max().item() > 0]
+        n_params = len(list(model.parameters()))
+        print(f"md17_train {label}: {n_params - len(bad)} of {n_params} parameters have a finite, "
+              f"non-zero grad")
+        check(not bad, f"{label}: parameters without a finite, non-zero grad: {bad}")
+
+        # grads, kernel path vs plain path, on the same draws and weights
+        def grads():
+            model.zero_grad(set_to_none=True)
+            loss_fn(model, grad_batch, draws(SEED + 1), True)[0].backward()
+            out = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
+            model.zero_grad(set_to_none=True)
+            return out
+
+        got = grads()
+        set_all("plain")
+        ref = grads()
+        set_all("auto")
+        norm_err = abs(_global_norm(got) - _global_norm(ref)) / _global_norm(ref)
+        worst, where = max(((got[n] - r).norm().item() / r.norm().item(), n)
+                           for n, r in ref.items())
+        b = next(iter(grad_batch.values())).shape[0]
+        print(f"md17_train {label} B={b} grads, kernel path vs plain: global norm rel err "
+              f"{norm_err:.3e} (tol {grad_tol[0]}), worst tensor rel err {worst:.3e} at {where} "
+              f"(tol {grad_tol[1]})")
+        check(norm_err <= grad_tol[0], f"{label} grad norm vs plain")
+        check(worst <= grad_tol[1], f"{label} grad of {where} vs plain")
+
+    # 1. the grads, before any step of the stage: a step moves the weights,
+    # and AdamW's first, sign-like update turns the small differences
+    # between the paths' grads (and the run-to-run order of the bf16
+    # backward's dQ sums) into different weights, so a comparison after it
+    # reads differently from run to run
+    compare()
+
+    # 2. the launches of one train step
     reset_counts()
     state, metrics = step(state, batch, SEED)
     torch.cuda.synchronize()
@@ -1138,38 +1294,7 @@ def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, s
     check(counts == want, f"{label} train step launches {counts} != {want}")
     check(math.isfinite(metrics["loss"].item()), f"{label}: non-finite train loss")
 
-    # 2. every parameter's grad finite and non-zero
-    model.zero_grad(set_to_none=True)
-    loss_fn(model, batch, draws(SEED), True)[0].backward()
-    bad = [n for n, p in model.named_parameters() if p.grad is None
-           or not bool(torch.isfinite(p.grad).all()) or not p.grad.abs().max().item() > 0]
-    n_params = len(list(model.parameters()))
-    print(f"md17_train {label}: {n_params - len(bad)} of {n_params} parameters have a finite, "
-          f"non-zero grad")
-    check(not bad, f"{label}: parameters without a finite, non-zero grad: {bad}")
-
-    # 3. grads, kernel path vs plain path, on the same draws
-    def grads():
-        model.zero_grad(set_to_none=True)
-        loss_fn(model, grad_batch, draws(SEED + 1), True)[0].backward()
-        out = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
-        model.zero_grad(set_to_none=True)
-        return out
-
-    got = grads()
-    set_all("plain")
-    ref = grads()
-    set_all("auto")
-    norm_err = abs(_global_norm(got) - _global_norm(ref)) / _global_norm(ref)
-    worst, where = max(((got[n] - r).norm().item() / r.norm().item(), n) for n, r in ref.items())
-    b = next(iter(grad_batch.values())).shape[0]
-    print(f"md17_train {label} B={b} grads, kernel path vs plain: global norm rel err "
-          f"{norm_err:.3e} (tol {grad_tol[0]}), worst tensor rel err {worst:.3e} at {where} "
-          f"(tol {grad_tol[1]})")
-    check(norm_err <= grad_tol[0], f"{label} grad norm vs plain")
-    check(worst <= grad_tol[1], f"{label} grad of {where} vs plain")
-
-    # 4. ten steps on one batch with one fixed draw
+    # 3. ten steps on one batch with one fixed draw
     fixed = make_train_step(lambda m, bt, g, train: loss_fn(m, bt, draws(SEED + 2), train),
                             run.tx, ema_decay=run.trainer_cfg.ema_decay)
     history = []
@@ -1184,7 +1309,7 @@ def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, s
         if k in falling:
             check(seq[-1] < seq[0], f"{label}: {k} did not fall over ten steps")
 
-    # 5. step time and peak memory, kernel path vs plain path, in turns
+    # 4. step time and peak memory, kernel path vs plain path, in turns
     times, peaks = {"auto": [], "plain": []}, {}
     for backend in ("auto", "plain"):
         set_all(backend)
@@ -1209,7 +1334,7 @@ def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, s
               f"({bsz / med * 1e3:.2f} samples/s), runs {[round(x, 3) for x in times[backend]]} "
               f"ms, peak memory {peaks[backend]:.2f} GiB | {smi}")
 
-    # 6. one profiled step on the kernel path
+    # 5. one profiled step on the kernel path
     def one_step():
         nonlocal state
         state, _ = step(state, batch, SEED)
@@ -1239,6 +1364,7 @@ def md17_train_phase(dev, smi, reset_counts, read_counts):
     want1 = {key: 0 for key in counts}
     want1.update({"K1": 3, "K1 bias": 1, "K1 fp32": 3, "K4 kv": 3, "K4 q": 3, "K4 bias": 2,
                   "K4 fp32": 6})
+    want1 = with_sm90(want1)
     counts1, _ = md17_stage_checks(
         "stage 1", run1, batch1, batch1, want1, [run1.model], dev, smi, reset_counts,
         read_counts, S1_GRAD_REL_TOL, ("loss",))
@@ -1261,6 +1387,7 @@ def md17_train_phase(dev, smi, reset_counts, read_counts):
     want2.update({"K1": 2 + 2 * d + 1, "K1 bias": 1, "K1 fp32": 3, "K2": 2 * 2 * d,
                   "K7": 2 * 2 * d + 1, "K9": 2 * d, "K9 bwd": d, "K4 kv": d + 1,
                   "K4 q": d + 1, "K4 fp32": 2})
+    want2 = with_sm90(want2)
     grad_batch = {k: v[:GRAD_BATCH] for k, v in batch2.items()}
     counts2, state2 = md17_stage_checks(
         "stage 2", run2, batch2, grad_batch, want2, [ss.backbone, ss.first_stage], dev, smi,
@@ -1429,6 +1556,7 @@ def train_checks(dev, make_model, reset_counts, read_counts):
         want = {key: 0 for key in counts}
         want.update({fwd: DEPTH, "K2": DEPTH, "K7": 2 * DEPTH + 1, "K8": DEPTH,
                      f"{bwd} kv": DEPTH, f"{bwd} q": DEPTH})
+        want = with_sm90(want)
         print(f"train {split} B={TRAIN_BATCH}: one step, loss {metrics['loss'].item():.5f} "
               f"grad_norm {metrics['grad_norm'].item():.4f}, launches {counts} (expected {want})")
         check(counts == want, f"train step launches {counts} != {want}")
@@ -1575,6 +1703,7 @@ def ablation_phase(dev, smi, reset_counts, read_counts):
         via_k5 = k5_route(x, cos, sin)
     want_counts = {key: 0 for key in fwd_counts}
     want_counts.update({"K10": 1, "K2": 1})
+    want_counts = with_sm90(want_counts)
     _, rel = errors(got, want)
     _, rel5 = errors(got, via_k5)
     print(f"ablation: fused temporal block 3x128 x [{n},{T},{d}] forward: launches {fwd_counts} "
@@ -1688,6 +1817,7 @@ def sampler_phase(dev, make_model, smi, reset_counts, read_counts):
         want.update({key: n_ * evals for key, n_ in fwd.items()})
         if vjp:
             want.update({"K4 kv": DEPTH * evals, "K4 q": DEPTH * evals})
+        want = with_sm90(want)
         outs = out if isinstance(out, tuple) else (out,)
         finite = all(bool(torch.isfinite(t_).all()) for t_ in outs)
         shapes = [list(t_.shape) for t_ in outs]
@@ -1748,6 +1878,7 @@ def dit_variants_phase(dev, reset_counts, read_counts):
             want_out = model(noise, tvec, x_cond, mask)
         want = {key: 0 for key in counts}
         want.update(launches)
+        want = with_sm90(want)
         _, rel = errors(got, want_out)
         print(f"dit_variants: {label} forward 16x24 B=2: launches {counts} (expected {want}); "
               f"kernel vs plain rel {rel:.3e} (tol {MODEL_REL_TOL}); finite="
@@ -1782,7 +1913,10 @@ def main() -> int:
                 "K4 kv": (fa, "bwd_kv_launches"), "K4 q": (fa, "bwd_q_launches"),
                 "K4 bias": (fa, "bwd_bias_launches"), "K4 fp32": (fa, "bwd_fp32_launches"),
                 "K6 kv": (fnr, "bwd_kv_launches"), "K6 q": (fnr, "bwd_q_launches"),
-                "K10": (tft, "launches"), "K11": (tsb, "launches")}
+                "K10": (tft, "launches"), "K11": (tsb, "launches"),
+                "K1 sm90": (fa, "sm90_launches"), "K1 cp.async": (fa, "sm90_cp_async_launches"),
+                "K4 sm90": (fa, "bwd_sm90_launches"),
+                "K4 cp.async": (fa, "bwd_sm90_cp_async_launches")}
 
     def reset_counts():
         for mod, attr in counters.values():
@@ -1848,7 +1982,8 @@ def main() -> int:
         attn = "K5" if HIDDEN // heads % 128 == 0 else "K1"
         per_layer = {key: 0 for key in counters}
         per_layer.update({"K2": 1, "K7": 2, "K8": 1, attn: 1})
-        return {key: (DEPTH * n + (key == "K7")) * evals for key, n in per_layer.items()}
+        return with_sm90({key: (DEPTH * n + (key == "K7")) * evals
+                          for key, n in per_layer.items()})
 
     launches = {}
     inputs = {}
@@ -1980,13 +2115,13 @@ def main() -> int:
     phase_done("dit_variants")
 
     sources = {
-        "K1": ("flash_attention_fwd", "flash_attention.cu", "flash_attention.py:37"),
+        "K1": ("flash_attention_fwd", "flash_fwd_sm90.cu", "flash_attention.py:37"),
         "K2": ("fused_mlp", "fused_mlp.cu", "fused_mlp.py:68"),
-        "K3": ("flash_attention_packed", "flash_attention.cu", "flash_attention.py:228"),
+        "K3": ("flash_attention_packed", "flash_fwd_sm90.cu", "flash_attention.py:228"),
         "K5": ("flash_attention_normrope", "flash_attention.cu", "flash_normrope.py:74"),
         "K7": ("residual_adaln_modulate", "fused_adaln.cu", "fused_adaln.py:98"),
         "K8": ("fused_spatial_block", "fused_spatial_block.cu", "fused_spatial_block.py:108"),
-        "K4": ("flash_attention_backward", "flash_attention_bwd.cu", "flash_attention.py:442"),
+        "K4": ("flash_attention_backward", "flash_bwd_sm90.cu", "flash_attention.py:442"),
         "K6": ("flash_attention_normrope_backward", "flash_attention_bwd.cu",
                "flash_normrope.py:249"),
         "K1 bias": ("flash_attention_fwd (key-padding bias, fp32)", "flash_attention.cu",
@@ -2003,16 +2138,18 @@ def main() -> int:
                 "ablations/fused_temporal_attention.py:75"),
         "K11": ("flash_backward_short", "short_backward.cu", "ablations/short_backward.py:31"),
     }
-    # launches on the main paths: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve,
-    # K3 under K1's counter (one binary), K5 from the 3 x 128 B=8 solve; K4
-    # and K6 (the dK/dV and the dQ kernel together) from one train step at
-    # 16 x 24 and at 3 x 128; K1's bias and fp32 variants and K9 from one
-    # MD17 protocol batch; K4's bias and fp32 variants and K9's backward
-    # from one MD17 train step of each stage; K10 from one forward + backward
-    # of the fused temporal block, K11 from its call at the MD17 spatial axis
+    # launches on the main paths: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve
+    # (K1 and K3 one binary, flash_fwd_sm90.cu, whose launches it counts), K5
+    # from the 3 x 128 B=8 solve; K4 (the three kernels of flash_bwd_sm90.cu)
+    # from one train step at 16 x 24, K6 (its dK/dV and dQ kernels) at 3 x 128;
+    # K1's bias and fp32 variants and K9 from one MD17 protocol batch; K4's
+    # bias and fp32 variants and K9's backward from one MD17 train step of
+    # each stage; K10 from one forward + backward of the fused temporal
+    # block, K11 from its call at the MD17 spatial axis
     md17_train = {key: s1_counts[key] + s2_counts[key] for key in s1_counts}
-    main_counts = dict(launches[HEADS], K3=launches[HEADS]["K1"], K5=launches[WIDE_HEADS]["K5"],
-                       K4=train_counts[HEADS]["K4 kv"] + train_counts[HEADS]["K4 q"],
+    main_counts = dict(launches[HEADS], K1=launches[HEADS]["K1 sm90"],
+                       K3=launches[HEADS]["K1 sm90"], K5=launches[WIDE_HEADS]["K5"],
+                       K4=train_counts[HEADS]["K4 sm90"],
                        K6=train_counts[WIDE_HEADS]["K6 kv"] + train_counts[WIDE_HEADS]["K6 q"],
                        **{"K1 bias": md17_counts["K1 bias"], "K1 fp32": md17_counts["K1 fp32"],
                           "K9": md17_counts["K9"], "K4 bias": md17_train["K4 bias"],

@@ -3,7 +3,9 @@
 // fp32 in / fp32 out instantiation; the bf16 and fp32 forwards take an
 // optional key-padding bias row.
 //
-// Replaces four Pallas TPU kernels:
+// Replaces four Pallas TPU kernels (the unmasked bf16 K1 and K3 moved to
+// flash_fwd_sm90.cu, which was redesigned for Hopper; this template keeps
+// K1's key-padding bias, its fp32 operands, K5 and K10):
 // - K1, lam_slide_tpu/ops/flash_attention.py `_flash_kernel` (pallas_call in
 //   `_flash_forward`), the head-major forward;
 // - K3, the same file's `_packed_manual_kernel` (`flash_attention_packed`):
@@ -294,8 +296,10 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, void* lse,
   auto bf = static_cast<const float*>(bias);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (NR || bias == nullptr)
+  if constexpr (NR)
     err = launch_dp<XF, false>(qb, kb, vb, ob, lf, bf, nr, B, H, Nq, Nk, dh, s, scale, st);
+  else if (bias == nullptr)  // unmasked bf16 K1/K3: flash_fwd_sm90.cu
+    return static_cast<int>(cudaErrorInvalidValue);
   else
     err = launch_dp<XF_NONE, true>(qb, kb, vb, ob, lf, bf, nr, B, H, Nq, Nk, dh, s, scale, st);
   return static_cast<int>(err);
@@ -400,8 +404,10 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
 
 // q/k/v/o: bf16 [B, H, N, dh] addressed through element strides
 // (batch, head, seq); dh has unit stride. lse: null, or fp32 [B, H, Nq]
-// contiguous. bias: null, or the fp32 key-padding bias [B, Nk] contiguous.
-// Returns cudaGetLastError().
+// contiguous. bias: the fp32 key-padding bias [B, Nk] contiguous; a null
+// bias is refused (cudaErrorInvalidValue): the unmasked bf16 forward is
+// lam_flash_attention_fwd_sm90 (flash_fwd_sm90.cu). Returns
+// cudaGetLastError().
 extern "C" int lam_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, const void* bias, int B,
     int H, int Nq, int Nk, int dh, long long q_sb, long long q_sh, long long q_sn,

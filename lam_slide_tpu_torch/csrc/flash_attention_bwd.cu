@@ -2,7 +2,9 @@
 // optional key-padding bias row, its variant with per-head QK RMS-norm + RoPE
 // applied inside the kernel, and an fp32 in / fp32 out pair of kernels.
 //
-// Replaces four Pallas TPU kernels:
+// Replaces four Pallas TPU kernels (the unmasked bf16 K4 moved to
+// flash_bwd_sm90.cu, redesigned for Hopper; this pair keeps K4's
+// key-padding bias, its fp32 operands and K6):
 // - K4, lam_slide_tpu/ops/flash_attention.py `_flash_bwd_kv_kernel` and
 //   `_flash_bwd_q_kernel` (pallas_calls in `_flash_backward`);
 // - K6, lam_slide_tpu/ops/flash_normrope.py `_nr_bwd_kv_kernel` and
@@ -393,8 +395,8 @@ int launch_bwd(bool kv, const void* q, const void* k, const void* v, const void*
     err = launch_dp<true, false>(kv, a, B, st);
   else if (bias != nullptr)
     err = launch_dp<false, true>(kv, a, B, st);
-  else
-    err = launch_dp<false, false>(kv, a, B, st);
+  else  // unmasked bf16 K4: flash_bwd_sm90.cu
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 
@@ -585,9 +587,10 @@ int launch_bwd_f32(bool kv, const void* q, const void* k, const void* v, const v
 // strides (batch, head, seq) given in `strides` in the order q, k, v, dout,
 // dq, dk, dv (21 values); dh has unit stride. lse/delta: fp32 [B, H, Nq]
 // contiguous. bias: null, or the fp32 key-padding bias [B, Nk] contiguous
-// (K4 only). qs/ks/cos/sin: null for K4; for K6 the fp32 RMS-norm scales
-// [dh] and the row-major RoPE tables [>= max(Nq, Nk), dh/2], and dq/dk are
-// then gradients with respect to the transformed q/k. The kv entry writes
+// (K4 only; a null bias without qs is refused, the unmasked bf16 K4 being
+// lam_flash_attention_bwd_sm90). qs/ks/cos/sin: null for K4; for K6 the
+// fp32 RMS-norm scales [dh] and the row-major RoPE tables [>= max(Nq, Nk),
+// dh/2], and dq/dk are then gradients with respect to the transformed q/k. The kv entry writes
 // dk and dv, the q entry dq. Each returns cudaGetLastError().
 extern "C" int lam_flash_attention_bwd_kv(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,

@@ -1,0 +1,448 @@
+// Hopper (sm_90a) building blocks of the redesigned flash-attention kernels
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu): mbarriers, TMA tile loads and
+// their cp.async counterpart, wgmma with shared-memory matrix descriptors,
+// and the host-side tensor-map encoding.
+//
+// Shared-memory tiles loaded from device memory are row-major with the
+// rows swizzled as TMA's 32, 64 and 128-byte swizzle modes lay them out: a
+// tile of R rows by DP columns (DP = 16, 32, 64 or 128 bf16, the padded
+// head dim) is stored in panels of W = min(2*DP, 128) bytes a row (one panel,
+// or two of 64 columns at DP 128), panel p at byte p*R*W, row r of a panel
+// at r*W, and the 16-byte chunk c of a row at chunk c ^ swz(r) (swz below).
+// One TMA box writes a whole panel of a tile through the caller's element
+// strides (a 4-D map: dh, seq, head, batch), its out-of-bounds fill (zeros)
+// padding the rows past the sequence and the columns past dh, so the zero
+// padding lives in shared memory only. The same tile is a wgmma operand
+// either way round:
+// - K-major (the product sums over the columns, as Q and K in Q K^T): rows
+//   W bytes apart, eight-row groups 8*W apart (SBO); a k16 step moves the
+//   start 32 bytes along the row, or to the next panel;
+// - MN-major (the product sums over the rows, as V in P V): eight-row
+//   groups 8*W apart (SBO), panels R*W apart (LBO); a k16 step is sixteen
+//   rows, 16*W bytes.
+// Tiles written by threads (the backward's dS) use the unswizzled
+// ("interleave") layout instead: 8-row by 16-byte core matrices, contiguous.
+#pragma once
+
+#include <cuda.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace lam_sm90 {
+
+// ---- shared-memory addresses, mbarriers ----------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Arrive once the executing thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the barrier's phase with the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra LAB_WAIT;\n}\n" ::"r"(addr),
+      "r"(parity)
+      : "memory");
+}
+
+// Order this thread's generic-proxy shared-memory accesses before later
+// async-proxy ones (wgmma operand reads, TMA and bulk copies).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier over `threads` threads (a warpgroup: 128).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- TMA and bulk copies --------------------------------------------------
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// Contiguous bytes (a multiple of 16, both addresses 16-byte aligned).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// dst[i] += src[i] for `bytes` of fp32 in global memory, read from shared
+// memory asynchronously; completion is tracked by the thread's bulk groups.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src, uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until the thread's bulk groups no longer read shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Wait until the thread's bulk groups have completed (their writes done).
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// One piece of `bytes` (4, 8 or 16; both addresses aligned to it).
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+                 : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)), "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+                 : "memory");
+}
+
+__device__ __forceinline__ void zero_piece(unsigned char* dst, int bytes) {
+  if (bytes == 16)
+    *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  else if (bytes == 8)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(0, 0);
+  else if (bytes == 4)
+    *reinterpret_cast<uint32_t*>(dst) = 0u;
+  else
+    *reinterpret_cast<uint16_t*>(dst) = 0;
+}
+
+// The swizzled tile geometry for DP padded columns: W bytes a panel row,
+// PANELS panels, PE columns a panel, and the wgmma layout code (1 = 128-byte,
+// 2 = 64-byte, 3 = 32-byte swizzle).
+template <int DP>
+struct Swz {
+  static constexpr int W = DP >= 64 ? 128 : 2 * DP;
+  static constexpr int PE = W / 2;
+  static constexpr int PANELS = DP / PE;
+  static constexpr int LAYOUT = W == 128 ? 1 : W == 64 ? 2 : 3;
+  // the chunk permutation of row r (TMA's swizzle: the 16-byte chunk bits
+  // of the address XOR its bits 7.. for a W-byte row)
+  __device__ static constexpr int swz(int r) {
+    return W == 128 ? (r & 7) : W == 64 ? ((r >> 1) & 3) : ((r >> 2) & 1);
+  }
+};
+
+// The cp.async route's tile load, by the 32 lanes of the producer warp:
+// rows [row0, row0 + R) of one head (element stride sn between rows, unit
+// stride on dh) into a swizzled tile of R rows and DP columns, zero outside
+// [0, n) x [0, dh). `piece` (2, 4, 8 or 16 bytes) divides 2*dh, the base
+// address and every row offset, so no piece straddles dh or a 16-byte
+// chunk; 2-byte pieces go through registers (cp.async copies at least 4).
+template <int R, int DP>
+__device__ __forceinline__ void cp_tile(bf16* dst, const bf16* src, long long sn, int row0,
+                                        int n, int dh, int piece) {
+  using G = Swz<DP>;
+  const int lane = threadIdx.x % 32;
+  const int per_row = DP * 2 / piece;
+  unsigned char* base = reinterpret_cast<unsigned char*>(dst);
+  for (int it = lane; it < R * per_row; it += 32) {
+    const int r = it / per_row, byte = (it % per_row) * piece;
+    const int elem = byte / 2, panel = byte / G::W, chunk = (byte % G::W) / 16;
+    unsigned char* d = base + panel * (R * G::W) + r * G::W + ((chunk ^ G::swz(r)) * 16) +
+                       byte % 16;
+    if (row0 + r < n && elem < dh) {
+      const bf16* s = src + static_cast<long long>(row0 + r) * sn + elem;
+      if (piece == 2)
+        *reinterpret_cast<bf16*>(d) = *s;
+      else
+        cp_async(d, s, piece);
+    } else {
+      zero_piece(d, piece);
+    }
+  }
+}
+
+// After cp_tile: one plain arrive (covering the register copies and zero
+// stores, made visible to the async proxy first) and one arrive when the
+// lane's cp.async copies land; the barrier counts two arrivals per lane.
+__device__ __forceinline__ void cp_tile_arrive(uint64_t* bar) {
+  fence_proxy_async();
+  mbar_arrive(bar);
+  mbar_arrive_cp_async(bar);
+}
+
+constexpr uint32_t CP_ARRIVALS = 64;  // two per producer lane
+
+// ---- wgmma ------------------------------------------------------------------
+
+// Descriptor of an operand at shared address `p` with leading and stride
+// byte offsets lbo and sbo and a layout code (0 = interleave; 1, 2, 3 =
+// 128, 64, 32-byte swizzle, with tiles aligned to 1024 bytes, so the base
+// offset field stays 0). Interleave: lbo and sbo are the K-direction and
+// M/N-direction strides between core matrices.
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo, uint32_t sbo,
+                                              int layout = 0) {
+  const uint32_t addr = smem_u32(p);
+  uint64_t d = 0;
+  d |= static_cast<uint64_t>((addr & 0x3FFFF) >> 4);
+  d |= static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16;
+  d |= static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32;
+  d |= static_cast<uint64_t>(layout) << 62;
+  return d;
+}
+
+// K-major descriptor of k16 step kd of a swizzled tile of R rows at `tile`
+// (the rows from `row0` on), and MN-major descriptor of k16 step kk (rows
+// [16kk, 16kk + 16)).
+template <int DP, int R>
+__device__ __forceinline__ uint64_t kmajor_desc(const bf16* tile, int row0, int kd) {
+  using G = Swz<DP>;
+  const int panel = kd * 16 / G::PE, inb = (kd * 16 % G::PE) * 2;
+  return make_desc(reinterpret_cast<const unsigned char*>(tile) + panel * R * G::W +
+                       row0 * G::W + inb,
+                   16, 8 * G::W, G::LAYOUT);
+}
+
+template <int DP, int R>
+__device__ __forceinline__ uint64_t mnmajor_desc(const bf16* tile, int kk, int panel0 = 0) {
+  using G = Swz<DP>;
+  return make_desc(reinterpret_cast<const unsigned char*>(tile) + panel0 * R * G::W +
+                       kk * 16 * G::W,
+                   R * G::W, 8 * G::W, G::LAYOUT);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from touching accumulator (or register-operand) values
+// between an asynchronous wgmma and its wait: each register passes through
+// an empty asm after the wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// wgmma.mma_async m64nNk16, bf16 operands, fp32 accumulators d (N/2 per
+// thread). SS: A and B from shared memory through descriptors, TA/TB = 1
+// for MN-major operands. RS: A from registers (four 32-bit registers of
+// bf16 pairs, the m16n8k16 A-fragment layout per warp), B from shared memory.
+// acc = 0 overwrites d, 1 accumulates into it.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n24(float (&d)[12], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, %12, %13, p, 1, 1, %15, %16;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n24(float (&d)[12], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, {%12, %13, %14, %15}, %16, p, 1, 1, %18;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
+
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  static_assert(N == 16 || N == 24 || N == 32 || N == 64, "SS products of N 16, 24, 32, 64");
+  if constexpr (N == 16) wgmma_ss_n16<TA, TB>(d, da, db, acc);
+  else if constexpr (N == 24) wgmma_ss_n24<TA, TB>(d, da, db, acc);
+  else if constexpr (N == 32) wgmma_ss_n32<TA, TB>(d, da, db, acc);
+  else wgmma_ss_n64<TA, TB>(d, da, db, acc);
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                         int acc) {
+  if constexpr (N == 16) wgmma_rs_n16<TB>(d, a, db, acc);
+  else if constexpr (N == 24) wgmma_rs_n24<TB>(d, a, db, acc);
+  else if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, db, acc);
+  else if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, acc);
+  else wgmma_rs_n128<TB>(d, a, db, acc);
+}
+
+// ---- register fragments -----------------------------------------------------
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The accumulator of an m64nN product holds, in thread t of the warpgroup
+// (warp w = t / 32, g = (t % 32) / 4, c = t % 4), element 4j + e at row
+// 16w + g + 8 * (e / 2) and column 8j + 2c + e % 2. The A fragment of its
+// k16 step kk (columns [16kk, 16kk + 16) taken as the K axis of a next
+// product) is then the accumulator's elements 8kk .. 8kk + 7 in pairs.
+template <int N>
+__device__ __forceinline__ void a_fragment(const float (&s)[N / 2], int kk, uint32_t (&a)[4]) {
+  a[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+  a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+  a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+  a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// The padded widths of the redesigned kernels: the output / value width DV
+// (dh rounded up to 8 within {16, 24, 32}, else to 64 or 128) and the
+// product depth DP over dh (DV rounded up to 16).
+__host__ __device__ constexpr int width_for(int dh) {
+  return dh <= 16 ? 16 : dh <= 24 ? 24 : dh <= 32 ? 32 : dh <= 64 ? 64 : 128;
+}
+
+__host__ __device__ constexpr int depth_for(int dv) { return (dv + 15) / 16 * 16; }
+
+__host__ __device__ constexpr size_t align1024(size_t x) { return (x + 1023) & ~size_t(1023); }
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+}  // namespace lam_sm90
+
+// ---- host: tensor maps and copy sizes ----------------------------------------
+
+namespace lam_sm90_host {
+
+// A 4-D map of bf16 [batch, head, seq, dh] memory addressed through element
+// strides (unit stride on dh), boxes of `rows` rows by one panel of the
+// swizzled layout for `dp` padded columns (see above). Sizes of 1 get a
+// placeholder stride, so only strides of real axes have to meet TMA's
+// 16-byte rule. Returns false when the driver refuses the map.
+bool encode_tile_map(CUtensorMap* map, const void* base, int B, int H, int N, int dh,
+                     long long sb, long long sh, long long sn, int rows, int dp);
+
+// The largest piece (16, 8, 4 or 2 bytes) dividing 2*dh and every base
+// address and (batch, head, seq) offset of n tensors (strides s[3t..3t+2]):
+// the cp.async route's copy size.
+inline int copy_piece(const void* const* ptrs, const long long* s, int n, int dh) {
+  unsigned long long bits = 2ull * dh;
+  for (int t = 0; t < n; ++t) {
+    bits |= reinterpret_cast<unsigned long long>(ptrs[t]);
+    for (int i = 0; i < 3; ++i) bits |= 2ull * static_cast<unsigned long long>(s[3 * t + i]);
+  }
+  for (int piece = 16; piece > 2; piece >>= 1)
+    if ((bits & (piece - 1)) == 0) return piece;
+  return 2;
+}
+
+}  // namespace lam_sm90_host

@@ -38,6 +38,8 @@ _FLASH_BWD_F32 = [_P] * 10 + [_I] * 5 + [_LP, _F, _P]
 SIGNATURES = {
     "lam_flash_attention_fwd": _FLASH_FWD,
     "lam_flash_attention_fwd_f32": _FLASH_FWD,
+    "lam_flash_attention_fwd_sm90": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
+    "lam_flash_attention_bwd_sm90": [_P] * 10 + [_I] * 5 + [_LP, _F, _I, _P],
     "lam_flash_attention_normrope_fwd": [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _P],
     "lam_flash_attention_bwd_kv": _FLASH_BWD,
     "lam_flash_attention_bwd_q": _FLASH_BWD,
@@ -123,6 +125,8 @@ def load_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.lam_error_string.argtypes = [ctypes.c_int]
     lib.lam_error_string.restype = ctypes.c_char_p
+    lib.lam_flash_attention_bwd_sm90_scratch.argtypes = [_I] * 4
+    lib.lam_flash_attention_bwd_sm90_scratch.restype = _L
     return lib
 
 

@@ -4,13 +4,19 @@
 Counterpart of ``lam_slide_tpu/ops/flash_attention.py``: ``_flash_kernel``
 through ``flash_attention`` (K1), ``_packed_manual_kernel`` through
 ``flash_attention_packed`` (K3) and ``_flash_bwd_kv_kernel`` /
-``_flash_bwd_q_kernel`` through ``_flash_backward`` (K4). The forward lives
-in ``csrc/flash_attention.cu``; it reads q/k/v through (batch, head, seq)
-strides, so head-major views of a packed ``[B, N, H*dh]`` buffer go in
-without a copy, and it writes its output into packed memory, so
-``out.transpose(1, 2).reshape(B, N, H*dh)`` is a view. K3 is that same
-binary called on packed views: no copy in and none out. The backward lives
-in ``csrc/flash_attention_bwd.cu`` and reads and writes the same way.
+``_flash_bwd_q_kernel`` through ``_flash_backward`` (K4). The bf16
+forward without a mask lives in ``csrc/flash_fwd_sm90.cu`` (TMA-fed wgmma
+tiles, the softmax in registers), its backward in ``csrc/flash_bwd_sm90.cu``
+(dK, dV and dQ in one pass over the scores); the masked and fp32 variants
+keep ``csrc/flash_attention.cu`` and ``csrc/flash_attention_bwd.cu``. All
+read q/k/v through (batch, head, seq) strides, so head-major views of a
+packed ``[B, N, H*dh]`` buffer go in without a copy, and write packed
+memory, so ``out.transpose(1, 2).reshape(B, N, H*dh)`` is a view. K3 is
+the same binary called on packed views: no copy in and none out.
+
+The redesigned kernels load tiles with TMA when every operand allows it
+(``sm90_tma_ok``: dh % 8 == 0, 16-byte aligned bases and strides) and
+otherwise with cp.async, a second route of the same kernels.
 
 K1 also takes a ``[B, Nk]`` boolean key-padding mask (True = attend), which
 becomes the fp32 bias row of ``_mask_to_bias`` (0 or -0.7·finfo(fp32).max,
@@ -27,11 +33,16 @@ The packed entry differentiates through the same Function on its head-major
 views.
 
 Counters (plain integers, touched only where a kernel launches):
-``launches`` counts K1 launches of both entries and both dtypes,
+``launches`` counts K1 calls of both entries and both dtypes,
 ``bias_launches`` those with a key-padding bias, ``fp32_launches`` those
-with fp32 operands; ``bwd_kv_launches`` and ``bwd_q_launches`` count K4's
-dK/dV and dQ kernels, and ``bwd_bias_launches`` / ``bwd_fp32_launches``
-those of either kernel with the bias / with fp32 operands (two per call).
+with fp32 operands, ``sm90_launches`` the redesigned forward's launches and
+``sm90_cp_async_launches`` those of them on the cp.async route.
+``bwd_kv_launches`` and ``bwd_q_launches`` each count K4 calls (on the old
+pair, its dK/dV and its dQ kernel), ``bwd_bias_launches`` /
+``bwd_fp32_launches`` the old pair's kernels with the bias / with fp32
+operands (two per call), ``bwd_sm90_launches`` the redesigned backward's
+kernels (its preprocess, main and dQ kernels: three per call) and
+``bwd_sm90_cp_async_launches`` its main kernels on the cp.async route.
 """
 
 import ctypes
@@ -50,9 +61,27 @@ bwd_kv_launches = 0
 bwd_q_launches = 0
 bwd_bias_launches = 0
 bwd_fp32_launches = 0
+sm90_launches = 0
+sm90_cp_async_launches = 0
+bwd_sm90_launches = 0
+bwd_sm90_cp_async_launches = 0
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max  # the JAX kernels' mask fill
 F32_MAX_DH = 64  # the fp32 kernel keeps q and its accumulator in registers
+
+
+def sm90_tma_ok(*tensors: torch.Tensor) -> bool:
+    """Whether TMA can load every one of these bf16 ``[B, H, N, dh]`` views
+    (unit stride on dh): dh a multiple of 8, every base address and every
+    stride of an axis longer than 1 a multiple of 16 bytes. Otherwise the
+    redesigned kernels take their cp.async route."""
+    for t in tensors:
+        if t.shape[-1] % 8 or t.data_ptr() % 16:
+            return False
+        if any(size > 1 and (stride * t.element_size()) % 16
+               for size, stride in zip(t.shape[:3], t.stride()[:3])):
+            return False
+    return True
 
 
 def mask_to_bias(mask: torch.Tensor) -> torch.Tensor:
@@ -167,8 +196,10 @@ def _bias(mask: torch.Tensor, q: torch.Tensor, nk: int) -> torch.Tensor:
 
 def _forward(q, k, v, scale: float, with_lse: bool, mask: Optional[torch.Tensor] = None):
     """Launch K1 on checked head-major CUDA tensors -> (out, lse or None).
-    bf16 operands take the tensor-core kernel, fp32 operands the fp32
-    kernel; both write the lse when asked and take the mask's bias row."""
+    bf16 operands without a mask take the redesigned kernel (TMA or
+    cp.async route), bf16 with a mask the tensor-core template's bias
+    instantiation, fp32 operands the fp32 kernel; all write the lse when
+    asked."""
     _check(q, k, v, (torch.bfloat16, torch.float32))
     b, h, nq, dh = q.shape
     nk = k.shape[2]
@@ -177,15 +208,25 @@ def _forward(q, k, v, scale: float, with_lse: bool, mask: Optional[torch.Tensor]
     out = _packed_like(q, nq)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), None if bias is None else bias.data_ptr()]
-    global launches, bias_launches, fp32_launches
+    lse_ptr = None if lse is None else lse.data_ptr()
+    sm90 = not fp32 and bias is None
+    tma = sm90 and sm90_tma_ok(q, k, v)
+    global launches, bias_launches, fp32_launches, sm90_launches, sm90_cp_async_launches
     with torch.cuda.device(q.device):
-        _build.launch("lam_flash_attention_fwd_f32" if fp32 else "lam_flash_attention_fwd",
-                      *ptrs, b, h, nq, nk, dh, *strides, float(scale), _stream(q))
+        if sm90:
+            _build.launch("lam_flash_attention_fwd_sm90", q.data_ptr(), k.data_ptr(),
+                          v.data_ptr(), out.data_ptr(), lse_ptr, b, h, nq, nk, dh, *strides,
+                          float(scale), int(tma), _stream(q))
+        else:
+            _build.launch("lam_flash_attention_fwd_f32" if fp32 else "lam_flash_attention_fwd",
+                          q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
+                          None if bias is None else bias.data_ptr(), b, h, nq, nk, dh,
+                          *strides, float(scale), _stream(q))
     launches += 1
     bias_launches += bias is not None
     fp32_launches += fp32
+    sm90_launches += sm90
+    sm90_cp_async_launches += sm90 and not tma
     return out, lse
 
 
@@ -239,19 +280,50 @@ def _check_backward(q, k, v, out, lse, g, dtypes=(torch.bfloat16,)) -> None:
                          f"[{b}, {h}, {nq}] on {q.device}, got {tuple(lse.shape)} {lse.dtype}")
 
 
+def _launch_sm90_backward(q, k, v, out, lse, g, scale, counts):
+    """The redesigned K4 on checked bf16 CUDA tensors without a bias ->
+    (dq, dk, dv) in packed memory; its preprocess kernel forms delta =
+    rowsum(dO ⊙ O) itself. Its fp32 scratch (per-row stats and the dQ
+    accumulator) is allocated here, since the kernels allocate nothing, at
+    the size the C side gives."""
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    out = out if out.stride(-1) == 1 else out.contiguous()
+    floats = _build.load_library().lam_flash_attention_bwd_sm90_scratch(b, h, nq, dh)
+    scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
+    dq, dk, dv = _packed_like(q, nq), _packed_like(k, nk), _packed_like(v, nk)
+    strides = (ctypes.c_longlong * 24)(
+        *(s for t in (q, k, v, out, g, dq, dk, dv) for s in t.stride()[:3]))
+    tma = sm90_tma_ok(q, k, v, g)
+    with torch.cuda.device(q.device):
+        _build.launch("lam_flash_attention_bwd_sm90", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), g.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+                      dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, dh, strides,
+                      float(scale), int(tma), _stream(q))
+    counts.bwd_kv_launches += 1
+    counts.bwd_q_launches += 1
+    counts.bwd_sm90_launches += 3
+    counts.bwd_sm90_cp_async_launches += not tma
+    return dq, dk, dv
+
+
 def _launch_backward(q, k, v, out, lse, g, scale, counts, normrope=None, bias=None):
     """Launch K4 (or K6 with ``normrope = (q_scale, k_scale, cos, sin)``) on
-    checked CUDA tensors -> (dq, dk, dv) in packed memory; fp32 operands take
-    K4's fp32 pair, and ``bias`` is the fp32 ``[B, Nk]`` key-padding row.
+    checked CUDA tensors -> (dq, dk, dv) in packed memory. bf16 K4 without a
+    bias takes the redesigned backward; with the fp32 ``[B, Nk]`` key-padding
+    row ``bias``, and K6, the old pair; fp32 operands K4's fp32 pair.
     ``counts`` is the module whose ``bwd_kv_launches`` / ``bwd_q_launches``
-    (and K4's ``bwd_bias_launches`` / ``bwd_fp32_launches``) count them."""
+    (and K4's ``bwd_bias_launches`` / ``bwd_fp32_launches`` /
+    ``bwd_sm90_launches``) count them."""
     g = g if g.stride(-1) == 1 else g.contiguous()
+    fp32 = q.dtype == torch.float32
+    if not fp32 and bias is None and normrope is None:
+        return _launch_sm90_backward(q, k, v, out, lse, g, scale, counts)
     delta = (g.float() * out.float()).sum(dim=-1).contiguous()
     nq, nk = q.shape[2], k.shape[2]
     dq, dk, dv = _packed_like(q, nq), _packed_like(k, nk), _packed_like(v, nk)
     strides = (ctypes.c_longlong * 21)(
         *(s for t in (q, k, v, g, dq, dk, dv) for s in t.stride()[:3]))
-    fp32 = q.dtype == torch.float32
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), None if bias is None else bias.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr()]
@@ -279,10 +351,11 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gradient g, all head-major ``[B, H, N, dh]``, and the forward's
     ``[B, Nk]`` boolean key-padding mask, if any.
 
-    CPU tensors take ``reference_flash_backward``. CUDA tensors launch K4's
-    dK/dV kernel and then its dQ kernel (bf16 with dh <= 128 or fp32 with
-    dh <= 64) or raise; the grads come back in packed ``[B, N, H, dh]``
-    memory, so their packed ``[B, N, H*dh]`` form is a view.
+    CPU tensors take ``reference_flash_backward``. CUDA tensors launch K4
+    (bf16 with dh <= 128: the redesigned one-pass backward without a mask,
+    the dK/dV and dQ pair with one; fp32 with dh <= 64: the fp32 pair) or
+    raise; the grads come back in packed ``[B, N, H, dh]`` memory, so their
+    packed ``[B, N, H*dh]`` form is a view.
     """
     if q.device.type == "cpu":
         return reference_flash_backward(q, k, v, out, lse, g, scale,

@@ -1,13 +1,18 @@
 """Time flash-attention calls of the main paths on the card (CUDA events).
 
-The MD17 protocol's fp32 K1 calls as ``evaluate_md17`` makes them, without
-a gradient and so without the lse (K1-fp32 on the decoder's latent
-self-attention [9600, 2, 192, 16], K1-bias on the encoder's masked
-cross-attention [1920, 8, 192 -> 32, 16]), and the unmasked bf16 backward
-kernels of the 4AA train step (K4 at [32, 16, 1000, 24], K6 at
-[32, 3, 1000, 128], each from its forward's out and lse). It uses only
-entry points every tree of the port has, so an A/B of two trees runs it
-from each in turns:
+The redesigned bf16 kernels at their main-path shapes: K1 at the 4AA
+temporal axis [16, 16, 1000, 24] (Euler-10 at B=8), its packed entry K3 on
+[16, 1000, 384] and on the MD17 protocol's spatial axis [9600, 192, 256],
+and K4 at the 4AA train step [32, 16, 1000, 24] and the MD17 stage-2 step
+[1920, 16, 192, 16], each from its forward's out and lse. Beside them the
+kernels left on the older templates, which must keep their times: the MD17
+protocol's fp32 K1 calls as ``evaluate_md17`` makes them (K1-fp32 on the
+decoder's latent self-attention [9600, 2, 192, 16], K1-bias on the
+encoder's masked cross-attention [1920, 8, 192 -> 32, 16]), K4 with the
+bias and in fp32 at the MD17 stage-1 and stage-2 training shapes, K5 and
+its backward K6 at 3 x 128, and K10 at [16, 1000, 384]. It uses only entry
+points every tree of the port has, so an A/B of two trees runs it from each
+in turns:
 
     cd <tree> && PYTHONPATH=. python <this file> <label>
 
@@ -22,6 +27,8 @@ import torch
 from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
 from lam_slide_tpu_torch.ops import flash_attention as fa
 from lam_slide_tpu_torch.ops import flash_normrope as fnr
+from lam_slide_tpu_torch.ops.ablations import fused_temporal_attention as tft
+from lam_slide_tpu_torch.ops.packed_attention import lane_rope_tables
 
 REPS = 50
 
@@ -56,21 +63,57 @@ def main() -> int:
     ck, cv = (t.transpose(1, 2) for t in torch.randn(1920, 32, 2, 8, 16, generator=gen)
               .to(dev).unbind(2))
     mask = (torch.arange(32)[None, :] < torch.randint(9, 22, (1920, 1), generator=gen)).to(dev)
-    b4 = _heads(gen, dev, torch.bfloat16, 32, 1000, 16, 24)
+    bf = torch.bfloat16
+    # 4AA: K1 at B=8 (16 sequences), K3 on the same packed buffer
+    qkv1 = torch.randn(16, 1000, 3 * 384, generator=gen).to(dev, bf)
+    q1, k1, v1 = (t.transpose(1, 2) for t in qkv1.view(16, 1000, 3, 16, 24).unbind(2))
+    p1 = qkv1.chunk(3, dim=-1)
+    # MD17: K3 on the protocol's spatial axis; q/k contiguous, v a view
+    q3, k3 = (torch.randn(9600, 192, 256, generator=gen).to(dev, bf) for _ in range(2))
+    v3 = torch.randn(9600, 192, 768, generator=gen).to(dev, bf)[..., 512:]
+    b4 = _heads(gen, dev, bf, 32, 1000, 16, 24)
     out4, lse4 = fa._forward(*b4[:3], 24 ** -0.5, with_lse=True)
-    b6 = _heads(gen, dev, torch.bfloat16, 32, 1000, 3, 128, scale=2.0)
+    m4 = _heads(gen, dev, bf, 1920, 192, 16, 16)
+    outm4, lsem4 = fa._forward(*m4[:3], 16 ** -0.5, with_lse=True)
+    # K4 with the bias (stage 1's encoder, fp32) and in fp32 (stage 2's aux decode)
+    eq = torch.randn(256, 192, 8, 16, generator=gen).to(dev).transpose(1, 2)
+    ek, ev = (t.transpose(1, 2) for t in torch.randn(256, 32, 2, 8, 16, generator=gen)
+              .to(dev).unbind(2))
+    eg = torch.randn(256, 8, 192, 16, generator=gen).to(dev)
+    emask = (torch.arange(32)[None, :] < torch.randint(9, 22, (256, 1), generator=gen)).to(dev)
+    eout, else4 = fa._forward(eq, ek, ev, 16 ** -0.5, with_lse=True, mask=emask)
+    f4 = _heads(gen, dev, torch.float32, 1920, 192, 2, 16)
+    fout4, flse4 = fa._forward(*f4[:3], 16 ** -0.5, with_lse=True)
+    b6 = _heads(gen, dev, bf, 32, 1000, 3, 128, scale=2.0)
     qs, ks = ((1 + 0.2 * torch.randn(128, generator=gen)).to(dev) for _ in range(2))
     cos, sin = rope_cos_sin(1000, 128, device=dev)
     nr = (qs, ks, cos, sin)
     out6, lse6 = fnr._forward(*b6[:3], *nr, 128 ** -0.5, with_lse=True)
+    b5 = _heads(gen, dev, bf, 16, 1000, 3, 128, scale=2.0)
+    # K10 at 3 x 128 on packed [16, 1000, 384] views, tiled lane scales
+    qkv10 = (torch.randn(16, 1000, 3 * 384, generator=gen) * 2).to(dev, bf)
+    cos_l, sin_l = lane_rope_tables(cos, sin, 3)
+    k10 = (*qkv10.split(384, dim=-1), cos_l, sin_l, qs.repeat(3)[None], ks.repeat(3)[None], 3,
+           128 ** -0.5)
     calls = (
+        ("K1 bf16 [16,16,1000,24]", lambda: fa.flash_attention(q1, k1, v1), REPS),
+        ("K3 bf16 [16,1000,384]", lambda: fa.flash_attention_packed(*p1, 16), REPS),
+        ("K3 bf16 [9600,192,256]", lambda: fa.flash_attention_packed(q3, k3, v3, 16), 10),
+        ("K4 bf16 [32,16,1000,24]", lambda: fa.flash_attention_backward(
+            *b4[:3], out4, lse4, b4[3], 24 ** -0.5), 10),
+        ("K4 bf16 [1920,16,192,16]", lambda: fa.flash_attention_backward(
+            *m4[:3], outm4, lsem4, m4[3], 16 ** -0.5), 10),
         ("K1-fp32 [9600,2,192,16]", lambda: fa.flash_attention(q, k, v), REPS),
         ("K1-bias fp32 [1920,8,192->32,16]", lambda: fa.flash_attention(cq, ck, cv, mask=mask),
          REPS),
-        ("K4 bf16 [32,16,1000,24]", lambda: fa.flash_attention_backward(
-            *b4[:3], out4, lse4, b4[3], 24 ** -0.5), 10),
+        ("K4-bias fp32 [256,8,192->32,16]", lambda: fa.flash_attention_backward(
+            eq, ek, ev, eout, else4, eg, 16 ** -0.5, mask=emask), REPS),
+        ("K4-fp32 [1920,2,192,16]", lambda: fa.flash_attention_backward(
+            *f4[:3], fout4, flse4, f4[3], 16 ** -0.5), 10),
+        ("K5 bf16 [16,3,1000,128]", lambda: fnr.flash_attention_normrope(*b5[:3], *nr), REPS),
         ("K6 bf16 [32,3,1000,128]", lambda: fnr.flash_attention_normrope_backward(
             *b6[:3], *nr, out6, lse6, b6[3], 128 ** -0.5), 10),
+        ("K10 bf16 [16,1000,384] 3x128", lambda: tft.fused_temporal_attention(*k10), REPS),
     )
     with torch.no_grad():
         for name, fn, reps in calls:

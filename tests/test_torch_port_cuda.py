@@ -306,17 +306,20 @@ def test_flash_backward_matches_plain(dev, b, h, nq, nk, dh):
     _assert_grads_close(got, want, K4_REL_TOL)
 
 
-@pytest.mark.parametrize("b,h,n,dh", [(4200, 16, 130, 24), (22000, 3, 20, 128)])
+@pytest.mark.parametrize("b,h,n,dh", [(4200, 16, 130, 24), (22000, 3, 20, 128),
+                                      (4100, 16, 130, 16)])
 def test_flash_grids_take_more_than_65535_batch_heads(dev, b, h, n, dh):
     """The flash kernels launch on one grid axis of (batch·head, tile)
     pairs. Past gridDim.y's cap of 65,535 pairs (the MD17 DiT's spatial axis
-    has 153,600), K1 and K4 at dh 24, and K5 and K6 at dh 128, still match
-    their plain versions."""
+    has 153,600), K1 and K4 at dh 24 and 16 (the redesigned kernels), and K5
+    and K6 at dh 128, still match their plain versions."""
     g = _gen(13)
     q, k, v, grad = _heads_views(g, dev, b, h, n, n, dh, scale=1.0 if dh % 128 else 2.0)
     scale = dh ** -0.5
     if dh % 128:
+        before = (fa.sm90_launches, fa.bwd_sm90_launches)
         out, lse = fa._forward(q, k, v, scale, with_lse=True)
+        assert fa.sm90_launches == before[0] + 1
         _assert_k1_close(out, fa.reference_attention(q, k, v, scale))
         args = (q, k, v, out, lse, grad, scale)
         kernel, plain, tol = fa.flash_attention_backward, fa.reference_flash_backward, K4_REL_TOL
@@ -783,3 +786,128 @@ def test_sde_and_likelihood_solves_on_the_card(dev):
     for got, want in zip(outs["auto"], outs["plain"]):
         assert bool(torch.isfinite(got).all())
         assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+# --- the redesigned Hopper kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu) -------------
+
+SM90_HEAD_DIMS = [16, 24, 32, 64, 128]
+SM90_LENGTHS = [1, 63, 64, 65, 192, 1000, 1001]
+# lse limits per head dim: chip_smoke's K1 limits at the next head dim they
+# were read at (a smaller dh sums fewer products).
+SM90_LSE_ATOL = {16: LSE_ATOL["K1"][24], 24: LSE_ATOL["K1"][24], 32: LSE_ATOL["K1"][64],
+                 64: LSE_ATOL["K1"][64], 128: LSE_ATOL["K1"][128]}
+
+
+def _sm90_inputs(g, dev, n, dh, packed, b=2, h=2, nk=None):
+    nk = n if nk is None else nk
+    if packed:
+        return _heads_views(g, dev, b, h, n, nk, dh)
+    q, grad = (torch.randn(b, h, n, dh, generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, h, nk, dh, generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    return q, k, v, grad
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "headmajor"])
+@pytest.mark.parametrize("n", SM90_LENGTHS)
+@pytest.mark.parametrize("dh", SM90_HEAD_DIMS)
+def test_sm90_forward_matches_plain(dev, dh, n, packed):
+    """The redesigned forward on the TMA route, with the lse, on head-major
+    views of packed memory and on contiguous head-major tensors, at every
+    head-dim class and at lengths around its 64-row tiles."""
+    q, k, v, _ = _sm90_inputs(_gen(20 + n + dh), dev, n, dh, packed)
+    assert fa.sm90_tma_ok(q, k, v)
+    before = (fa.launches, fa.sm90_launches, fa.sm90_cp_async_launches)
+    out, lse = fa._forward(q, k, v, dh ** -0.5, with_lse=True)
+    assert (fa.launches, fa.sm90_launches, fa.sm90_cp_async_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    want, want_lse = fa.reference_attention(q, k, v, dh ** -0.5, return_lse=True)
+    torch.cuda.synchronize()
+    assert out.transpose(1, 2).is_contiguous()
+    _assert_k1_close(out, want)
+    assert (lse - want_lse).abs().max().item() <= SM90_LSE_ATOL[dh]
+    assert torch.equal(out, fa._forward(q, k, v, dh ** -0.5, with_lse=False)[0])
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "headmajor"])
+@pytest.mark.parametrize("n", SM90_LENGTHS)
+@pytest.mark.parametrize("dh", SM90_HEAD_DIMS)
+def test_sm90_backward_matches_plain(dev, dh, n, packed):
+    """The redesigned one-pass backward, from the redesigned forward's out
+    and lse: K4's limits per grad. One query row attends over 70 keys (a
+    ragged key tile): over a single key dq and dk are zero in exact
+    arithmetic, which the next test holds on its own."""
+    q, k, v, grad = _sm90_inputs(_gen(40 + n + dh), dev, n, dh, packed, nk=70 if n == 1 else n)
+    out, lse = fa._forward(q, k, v, dh ** -0.5, with_lse=True)
+    before = (fa.bwd_kv_launches, fa.bwd_q_launches, fa.bwd_sm90_launches,
+              fa.bwd_sm90_cp_async_launches)
+    got = fa.flash_attention_backward(q, k, v, out, lse, grad, dh ** -0.5)
+    assert (fa.bwd_kv_launches, fa.bwd_q_launches, fa.bwd_sm90_launches,
+            fa.bwd_sm90_cp_async_launches) == (before[0] + 1, before[1] + 1, before[2] + 3,
+                                               before[3])
+    want = fa.reference_flash_backward(q, k, v, out, lse, grad, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert all(t.transpose(1, 2).is_contiguous() for t in got)
+    _assert_grads_close(got, want, K4_REL_TOL)
+
+
+@pytest.mark.parametrize("dh", SM90_HEAD_DIMS)
+def test_sm90_backward_over_one_key(dev, dh):
+    """One query and one key: P = 1 and dS = dP - delta = 0 in exact
+    arithmetic, so dq and dk are zero up to the fp32 residue of two sums of
+    the same products (the plain version's too), and dv is dO."""
+    q, k, v, grad = _sm90_inputs(_gen(80 + dh), dev, 1, dh, True)
+    out, lse = fa._forward(q, k, v, dh ** -0.5, with_lse=True)
+    dq, dk, dv = fa.flash_attention_backward(q, k, v, out, lse, grad, dh ** -0.5)
+    torch.cuda.synchronize()
+    residue = 1e-5 * grad.float().abs().max().item() * v.float().abs().max().item()
+    assert dq.float().abs().max().item() <= residue
+    assert dk.float().abs().max().item() <= residue
+    assert torch.equal(dv, grad)
+
+
+def _cp_async_views(g, dev, case, b=2, h=3, nq=130, nk=257):
+    """Views TMA cannot load: dh 20 (rows 40 bytes apart), or dh 24 views of
+    packed buffers offset by one element (2-byte aligned bases)."""
+    dh, off = (20, 0) if case == "dh20" else (24, 1)
+    qbuf = torch.randn(b, nq, h * dh + off, generator=g).to(dev, torch.bfloat16)
+    kvbuf = torch.randn(b, nk, 2 * h * dh + off, generator=g).to(dev, torch.bfloat16)
+    q = qbuf[..., off:].unflatten(-1, (h, dh)).transpose(1, 2)
+    k, v = (t.transpose(1, 2) for t in kvbuf[..., off:].unflatten(-1, (2, h, dh)).unbind(2))
+    gbuf = torch.randn(b, nq, h * dh + off, generator=g).to(dev, torch.bfloat16)
+    grad = gbuf[..., off:].unflatten(-1, (h, dh)).transpose(1, 2)
+    return q, k, v, grad, dh
+
+
+@pytest.mark.parametrize("case", ["dh20", "offset_by_one"])
+def test_sm90_cp_async_route_matches_plain(dev, case):
+    """The second route of the redesigned kernels (cp.async copies by the
+    producer warp), forward with the lse and backward, counted as such."""
+    q, k, v, grad, dh = _cp_async_views(_gen(60), dev, case)
+    assert not fa.sm90_tma_ok(q, k, v)
+    before = (fa.sm90_cp_async_launches, fa.bwd_sm90_cp_async_launches)
+    out, lse = fa._forward(q, k, v, dh ** -0.5, with_lse=True)
+    got = fa.flash_attention_backward(q, k, v, out, lse, grad, dh ** -0.5)
+    assert (fa.sm90_cp_async_launches, fa.bwd_sm90_cp_async_launches) == (
+        before[0] + 1, before[1] + 1)
+    want_out, want_lse = fa.reference_attention(q, k, v, dh ** -0.5, return_lse=True)
+    want = fa.reference_flash_backward(q, k, v, out, lse, grad, dh ** -0.5)
+    torch.cuda.synchronize()
+    _assert_k1_close(out, want_out)
+    assert (lse - want_lse).abs().max().item() <= LSE_ATOL["K1"][24]
+    _assert_grads_close(got, want, K4_REL_TOL)
+
+
+@pytest.mark.parametrize("n", [192, 1000])
+def test_sm90_backward_dq_repeats_within_one_ulp(dev, n):
+    """dQ's fp32 partial sums arrive in the order the key-tile blocks finish,
+    so two runs may differ by one bf16 ulp of dq (at its largest |dq|, as
+    the K1 limits count ulps); dk and dv are formed in one block each and
+    repeat exactly."""
+    q, k, v, grad = _heads_views(_gen(70), dev, 4, 16, n, n, 24)
+    out, lse = fa._forward(q, k, v, 24 ** -0.5, with_lse=True)
+    first = fa.flash_attention_backward(q, k, v, out, lse, grad, 24 ** -0.5)
+    second = fa.flash_attention_backward(q, k, v, out, lse, grad, 24 ** -0.5)
+    torch.cuda.synchronize()
+    a, b = first[0].float(), second[0].float()
+    assert (a - b).abs().max().item() <= _ulp(a)
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
