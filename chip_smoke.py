@@ -96,6 +96,9 @@ redesigned for Hopper (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu); phase
 and [9600,192,256] and with the lse at [1920,192,256], K4 at
 [32,16,1000,24] and [1920,16,192,16], and K1 on its cp.async route (dh 20).
 Every attention row's bound also counts its exponentials (one a score).
+K9's backward and K11 are also redesigned for Hopper (mma.sync and wgmma
+tiles; csrc/short_attention.cu, csrc/short_backward.cu); phase 3 also
+checks that two calls of each on the same inputs give bit-identical grads.
 
 The MD17 kernels are checked against their plain versions in phase 3: K1
 with the key-padding bias and with fp32 operands (and its lse), K9 forward
@@ -599,6 +602,12 @@ def _grad_errors(got, want):
     return [(*errors(a, w), gain(a, w)) for a, w in zip(got, want)]
 
 
+def _bit_identical(first, second) -> bool:
+    """Whether two calls' grads agree bit for bit (no atomics, a fixed order)."""
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def backward_checks(dev, gen, table: KernelTable) -> None:
     """K4 and K6 against their plain backwards, and K1's and K5's lse against
     the plain log-sum-exp, at the train shapes (B*L = 32 sequences of 1000
@@ -786,7 +795,8 @@ def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
     g = _rand(gen, seqs, MD17_T, d).to(dev, bf)
     scale = dh ** -0.5
     for b, n, h, hd, key in ((seqs, MD17_T, 16, dh, "K9 backward"), (7, 9, 3, 24, "ragged"),
-                             (5, 31, 2, 64, "ragged"), (3, 127, 4, 16, "ragged")):
+                             (5, 31, 2, 64, "ragged"), (3, 127, 4, 16, "ragged"),
+                             (6, 33, 11, 8, "ragged")):
         if key == "ragged":
             q, k, g = (_rand(gen, b, n, h * hd).to(dev, bf) for _ in range(3))
             v = _rand(gen, b, n, 3 * h * hd).to(dev, bf)[..., -h * hd:]
@@ -797,11 +807,13 @@ def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
         bargs = (q, k, v, g, h, scale)
         got, want = tsa.short_attention_backward(*bargs), tsa.reference_short_backward(*bargs)
         torch.cuda.synchronize()
+        check(_bit_identical(got, tsa.short_attention_backward(*bargs)),
+              f"K9 backward n={n}: a second call on the same inputs differs")
         errs = _grad_errors(got, want)
         detail = ", ".join(f"{nm} rel {r:.3e} gain {gn:.7f}"
                            for nm, (_, r, gn) in zip(("dq", "dk", "dv"), errs))
         print(f"kernel {key} [{b},{n},{h}x{hd}]: {detail} (rel tol {K9_GRAD_REL_TOL}, gain tol "
-              f"{K1_GAIN_TOL})")
+              f"{K1_GAIN_TOL}); a second call bit-identical")
         for nm, (_, rel, gn) in zip(("dq", "dk", "dv"), errs):
             check(rel <= K9_GRAD_REL_TOL, f"K9 backward n={n} {nm} rel err {rel}")
             check(abs(gn - 1) <= K1_GAIN_TOL, f"K9 backward n={n} {nm} gain {gn}")
@@ -1061,6 +1073,8 @@ def ablation_kernel_checks(dev, gen, table: KernelTable) -> None:
             peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
             if name == "K11":
                 got = res
+                check(_bit_identical(got, fn(*args)),
+                      f"{key}: a second call on the same inputs differs")
             elif name == "K4":
                 k4 = res
             else:
@@ -1071,6 +1085,7 @@ def ablation_kernel_checks(dev, gen, table: KernelTable) -> None:
         errs, errs4 = _grad_errors(got, want), _grad_errors(got, k4)
         detail = ", ".join(f"{nm} rel {r:.3e} gain {gn:.7f} (vs K4 rel {r4:.3e})"
                            for nm, (_, r, gn), (_, r4, _) in zip(("dq", "dk", "dv"), errs, errs4))
+        detail += "; a second call bit-identical"
         for nm, (_, rel, gn), (_, rel4, gn4) in zip(("dq", "dk", "dv"), errs, errs4):
             check(rel <= rel_tol, f"{key} {nm} rel err {rel} > {rel_tol}")
             check(abs(gn - 1) <= K1_GAIN_TOL, f"{key} {nm} gain {gn}")

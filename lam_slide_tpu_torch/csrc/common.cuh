@@ -21,6 +21,19 @@ inline cudaError_t lam_set_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Blocks of a persistent grid: as many as the card holds at once (the
+// occupancy of `kernel` at this block size and dynamic shared memory, times
+// the SMs), at most `items`, at least one.
+template <typename Kernel>
+inline int lam_persistent_grid(Kernel kernel, int threads, size_t smem, long long items) {
+  int dev = 0, sms = 1, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  const long long grid = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  return static_cast<int>(grid < items ? grid : items);
+}
+
 // Sum over the 32 lanes of a warp; every lane gets the total.
 __device__ __forceinline__ float lam_warp_sum(float v) {
 #pragma unroll

@@ -49,9 +49,9 @@ SIGNATURES = {
     "lam_adaln_fwd": [_P] * 7 + [_L, _L, _L, _I] + [_L] * 6 + [_F, _I, _P],
     "lam_spatial_block_fwd": [_P] * 10 + [_L, _I, _I, _I, _I, _L, _L, _F, _P],
     "lam_short_attention_fwd": [_P] * 4 + [_I] * 4 + [_L] * 8 + [_F, _P],
-    "lam_short_attention_bwd": [_P] * 7 + [_I] * 4 + [_LP, _L, _L, _F, _P],
+    "lam_short_attention_bwd": [_P] * 7 + [_I] * 5 + [_LP, _L, _L, _F, _P],
     "lam_fused_temporal_fwd": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_F, _F, _P],
-    "lam_short_backward": [_P] * 9 + [_I] * 5 + [_LP, _F, _P],
+    "lam_short_backward": [_P] * 10 + [_I] * 5 + [_LP, _F, _I, _P],
     "lam_short_backward_f32": [_P] * 9 + [_I] * 5 + [_LP, _F, _P],
 }
 

@@ -6,14 +6,19 @@ Counterpart of ``lam_slide_tpu/ops/ablations/short_backward.py``
 backward of unmasked attention over head-major ``[B, H, N, dh]`` operands
 from the forward's output and per-row log-sum-exp, each (batch, head) item
 held whole on chip. Its target is the MD17 stage-2 spatial axis
-([64·30, 16, 192, 16]). The kernel lives in ``csrc/short_backward.cu``: one
-thread block per item, bf16 on the tensor cores and an fp32 FFMA kernel.
+([64·30, 16, 192, 16]). The kernel lives in ``csrc/short_backward.cu``: in
+bf16 a persistent block that loads each item whole (TMA, or cp.async where
+``sm90_tma_ok`` refuses the views) and runs its five products on wgmma, a
+warpgroup per 64 keys, dQ from a shared dS slab, no atomics; in fp32 an
+FFMA kernel.
 
 ``group`` sets how many items one TPU program takes, so only how the TPU
 grid pads; it is kept for the signature and changes nothing here.
 
 Counter (a plain integer, touched only where the kernel launches):
-``launches``.
+``launches``, one a call (in bf16 the call runs two kernels: delta =
+rowsum(g ⊙ out), outside the main kernel as JAX computes it outside its
+pallas_call, then the main kernel).
 """
 
 import ctypes
@@ -22,7 +27,7 @@ from typing import Tuple
 import torch
 
 from lam_slide_tpu_torch.ops import _build
-from lam_slide_tpu_torch.ops.flash_attention import _stream
+from lam_slide_tpu_torch.ops.flash_attention import _stream, sm90_tma_ok
 
 MAX_N = 256  # the item's q/k/v/dO stay whole in shared memory
 MAX_DH = {torch.bfloat16: 64, torch.float32: 32}
@@ -93,19 +98,27 @@ def flash_backward_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out:
     if q.device.type == "cpu":
         return reference_flash_backward_short(q, k, v, out, lse, g, scale, group)
     _check(q, k, v, out, lse, g, group)
-    delta = (g.float() * out.float()).sum(dim=-1).contiguous()
     do = g.to(q.dtype)
-    q, k, v, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, do))
+    q, k, v, out, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, out, do))
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
-    strides = (ctypes.c_longlong * 21)(
-        *(s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]))
     b, h, nq, dh = q.shape
-    entry = "lam_short_backward_f32" if q.dtype == torch.float32 else "lam_short_backward"
+    sizes = (b, h, nq, k.shape[2], dh)
     global launches
     with torch.cuda.device(q.device):
-        _build.launch(entry, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                      dv.data_ptr(), b, h, nq, k.shape[2], dh, strides, float(scale),
-                      _stream(q))
+        if q.dtype == torch.float32:
+            delta = (g.float() * out.float()).sum(dim=-1).contiguous()
+            strides = (ctypes.c_longlong * 21)(
+                *(s for t in (q, k, v, do, dq, dk, dv) for s in t.stride()[:3]))
+            _build.launch("lam_short_backward_f32", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                          dk.data_ptr(), dv.data_ptr(), *sizes, strides, float(scale), _stream(q))
+        else:
+            delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)  # the delta kernel's
+            strides = (ctypes.c_longlong * 24)(
+                *(s for t in (q, k, v, out, do, dq, dk, dv) for s in t.stride()[:3]))
+            _build.launch("lam_short_backward", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *sizes, strides,
+                          float(scale), int(sm90_tma_ok(q, k, v, do)), _stream(q))
     launches += 1
     return dq, dk, dv

@@ -5,9 +5,13 @@ Counterpart of ``lam_slide_tpu/ops/short_attention.py`` (``_short_fwd_kernel``
 and ``_short_bwd_kernel`` through ``short_attention``): unmasked
 self-attention over packed ``[B, n, H*dh]`` operands with 8 < n < 128, the
 stage-2 DiT's temporal axis for MD17, pedestrian and NBA (T=20..30). The
-kernels live in ``csrc/short_attention.cu``: a warp per (batch, head) pair,
-q/k/v read through packed strides, the n x n scores kept on chip; the
-backward recomputes them and saves nothing O(n²).
+kernels live in ``csrc/short_attention.cu``, q/k/v read through packed
+strides, the n x n scores kept on chip. The forward runs a warp per (batch,
+head) pair on the CUDA cores. The backward runs on the tensor cores
+(mma.sync): a persistent block takes a group of heads (a warp each) over
+batch rows, loading whole rows double-buffered by cp.async; for n <= 32 a
+warp holds its item's S and dP in registers and forms all three grads in
+one pass. ``bwd_heads_per_block`` chooses the group.
 
 On CUDA tensors that need a gradient the forward runs inside
 ``_ShortAttention`` (the JAX ``custom_vjp``), whose backward is the K9
@@ -30,6 +34,34 @@ launches = 0
 bwd_launches = 0
 
 MAX_DH = 64  # the kernels keep a q row and its accumulator in registers
+BWD_MAX_HEADS = 8  # warps (heads) a backward block
+SMEM_MAX = 232448  # the most dynamic shared memory an H100 block takes
+
+
+def _padded_dh(dh: int) -> int:
+    return 16 if dh <= 16 else 32 if dh <= 32 else 64
+
+
+def bwd_smem_bytes(n: int, dh: int, heads_per_block: int) -> int:
+    """Shared memory of a K9 backward block (``bwd::smem_bytes`` in
+    csrc/short_attention.cu): eleven bf16 tiles (two stages of q/k/v/dO, and
+    dq/dk/dv) of n rounded up to 32 rows by heads_per_block · dh-padded + 8
+    columns, and past 32 rows three fp32 row statistics a head."""
+    rows = -(-n // 32) * 32
+    row = heads_per_block * _padded_dh(dh) + 8
+    stats = heads_per_block * 3 * rows * 4 if rows > 32 else 0
+    return 11 * rows * row * 2 + stats
+
+
+def bwd_heads_per_block(n: int, num_heads: int, dh: int) -> int:
+    """Heads a K9 backward block takes: the heads split into as few groups
+    of at most BWD_MAX_HEADS as they go, evenly (16 heads -> 8 + 8, 11 ->
+    6 + 5), then fewer while the block's shared memory exceeds SMEM_MAX."""
+    groups = -(-num_heads // BWD_MAX_HEADS)
+    hb = -(-num_heads // groups)
+    while hb > 1 and bwd_smem_bytes(n, dh, hb) > SMEM_MAX:
+        hb -= 1
+    return hb
 
 
 def reference_short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -152,11 +184,12 @@ def short_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, n, d_all = q.shape
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
     strides = (ctypes.c_longlong * 8)(*(s for t in (q, k, v, g) for s in t.stride()[:2]))
+    dh = d_all // num_heads
     global bwd_launches
     with torch.cuda.device(q.device):
         _build.launch("lam_short_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, num_heads, n,
-                      d_all // num_heads, strides, dq.stride(0), dq.stride(1), float(scale),
-                      _stream(q))
+                      dh, bwd_heads_per_block(n, num_heads, dh), strides, dq.stride(0),
+                      dq.stride(1), float(scale), _stream(q))
     bwd_launches += 1
     return dq, dk, dv

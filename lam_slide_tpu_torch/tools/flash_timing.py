@@ -10,9 +10,13 @@ protocol's fp32 K1 calls as ``evaluate_md17`` makes them (K1-fp32 on the
 decoder's latent self-attention [9600, 2, 192, 16], K1-bias on the
 encoder's masked cross-attention [1920, 8, 192 -> 32, 16]), K4 with the
 bias and in fp32 at the MD17 stage-1 and stage-2 training shapes, K5 and
-its backward K6 at 3 x 128, and K10 at [16, 1000, 384]. It uses only entry
-points every tree of the port has, so an A/B of two trees runs it from each
-in turns:
+its backward K6 at 3 x 128, and K10 at [16, 1000, 384]. Then K9 forward and
+backward on the MD17 DiT's temporal axis, packed [B, 30, 256] (16 heads of
+16, v a view of linear1's output) at the protocol batch's B = 61440 and the
+stage-2 train step's B = 12288, and K11 at the MD17 spatial axis [1920, 16,
+192, 16] (head-major views of one packed buffer, from K1's out and lse). It
+uses only entry points every tree of the port has, so an A/B of two trees
+runs it from each in turns:
 
     cd <tree> && PYTHONPATH=. python <this file> <label>
 
@@ -27,7 +31,9 @@ import torch
 from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
 from lam_slide_tpu_torch.ops import flash_attention as fa
 from lam_slide_tpu_torch.ops import flash_normrope as fnr
+from lam_slide_tpu_torch.ops import short_attention as tsa
 from lam_slide_tpu_torch.ops.ablations import fused_temporal_attention as tft
+from lam_slide_tpu_torch.ops.ablations import short_backward as tsb
 from lam_slide_tpu_torch.ops.packed_attention import lane_rope_tables
 
 REPS = 50
@@ -95,6 +101,14 @@ def main() -> int:
     cos_l, sin_l = lane_rope_tables(cos, sin, 3)
     k10 = (*qkv10.split(384, dim=-1), cos_l, sin_l, qs.repeat(3)[None], ks.repeat(3)[None], 3,
            128 ** -0.5)
+    # K9 on the MD17 temporal axis: q/k contiguous, v a view, 16 heads of 16
+    k9 = {}
+    for b9 in (61440, 12288):
+        q9, k9_, g9 = (torch.randn(b9, 30, 256, generator=gen).to(dev, bf) for _ in range(3))
+        v9 = torch.randn(b9, 30, 768, generator=gen).to(dev, bf)[..., 512:]
+        k9[b9] = (q9, k9_, v9, g9)
+    m11 = _heads(gen, dev, bf, 1920, 192, 16, 16)
+    out11, lse11 = fa._forward(*m11[:3], 16 ** -0.5, with_lse=True)
     calls = (
         ("K1 bf16 [16,16,1000,24]", lambda: fa.flash_attention(q1, k1, v1), REPS),
         ("K3 bf16 [16,1000,384]", lambda: fa.flash_attention_packed(*p1, 16), REPS),
@@ -114,6 +128,12 @@ def main() -> int:
         ("K6 bf16 [32,3,1000,128]", lambda: fnr.flash_attention_normrope_backward(
             *b6[:3], *nr, out6, lse6, b6[3], 128 ** -0.5), 10),
         ("K10 bf16 [16,1000,384] 3x128", lambda: tft.fused_temporal_attention(*k10), REPS),
+        *((f"K9 fwd bf16 [{b9},30,256]", lambda b9=b9: tsa.short_attention(*k9[b9][:3], 16), 10)
+          for b9 in k9),
+        *((f"K9 bwd bf16 [{b9},30,256]",
+           lambda b9=b9: tsa.short_attention_backward(*k9[b9], 16, 0.25), 10) for b9 in k9),
+        ("K11 bf16 [1920,16,192,16]", lambda: tsb.flash_backward_short(
+            *m11[:3], out11, lse11, m11[3], 16 ** -0.5), 10),
     )
     with torch.no_grad():
         for name, fn, reps in calls:

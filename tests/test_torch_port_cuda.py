@@ -498,6 +498,14 @@ def _short_views(g, dev, b, n, heads, dh):
     (7, 9, 3, 24),       # shortest axis, dh padded to 32
     (5, 31, 2, 64),      # one past a warp of rows
     (3, 127, 4, 16),     # longest axis
+    (6, 15, 5, 16),      # one 16-row query block, ragged
+    (6, 16, 3, 32),      # exactly one query block
+    (6, 17, 11, 8),      # one past it; 11 heads in groups of 6 and 5
+    (4, 32, 16, 16),     # the longest one-pass item
+    (4, 33, 2, 16),      # the shortest three-pass item
+    (3, 63, 3, 24),      # key blocks of 32, ragged
+    (3, 64, 2, 64),      # exactly two key blocks at dh 64 (one head a block)
+    (3, 65, 3, 32),      # one past them
 ])
 def test_short_attention_matches_plain(dev, b, n, heads, dh):
     """K9 forward (K1's limits) and its backward kernel against the plain
@@ -519,6 +527,15 @@ def test_short_attention_matches_plain(dev, b, n, heads, dh):
     grads = tsa.short_attention_backward(q, k, v, grad, heads, scale)
     assert tsa.bwd_launches == before + 1
     _assert_grads_close(grads, tsa.reference_short_backward(q, k, v, grad, heads, scale),
+                        K9_GRAD_REL_TOL)
+    # no atomics: a second call repeats bit for bit
+    again = tsa.short_attention_backward(q, k, v, grad, heads, scale)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+    # a non-contiguous output gradient (a view of a wider buffer) reads in place
+    wide = torch.randn(b, n, 2 * heads * dh, generator=g).to(dev, torch.bfloat16)
+    g_view = wide[..., heads * dh:]
+    _assert_grads_close(tsa.short_attention_backward(q, k, v, g_view, heads, scale),
+                        tsa.reference_short_backward(q, k, v, g_view, heads, scale),
                         K9_GRAD_REL_TOL)
 
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
@@ -732,17 +749,28 @@ def test_fused_temporal_block_launches_k10_and_not_k5(dev):
     assert (got.float() - want.float()).abs().max().item() <= 1e-2 * want.abs().max().item()
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
-@pytest.mark.parametrize("b,h,nq,nk,dh", [
+K11_SHAPES = [
     (8, 16, 192, 192, 16),   # the MD17 stage-2 spatial axis
     (2, 3, 64, 64, 16),      # JAX's shapes: bh not a multiple of the group,
     (2, 8, 192, 192, 24),    # the MD17 length at dh 24,
     (2, 2, 33, 33, 16),      # an odd length
     (3, 2, 130, 70, 32),     # different query and key lengths
-])
+    (2, 3, 64, 193, 16),     # one query chunk, four key warpgroups
+    (2, 3, 193, 65, 16),     # four query chunks, two key warpgroups
+    (2, 2, 65, 64, 24),      # one past a query chunk, dh 24
+]
+# bf16 only: the fp32 kernel takes dh <= 32
+K11_BF16_SHAPES = [(2, 2, 256, 256, 64)]  # the largest item: one stage of shared memory
+
+
+@pytest.mark.parametrize("dtype,b,h,nq,nk,dh", [
+    *((dtype, *shape) for dtype in (torch.bfloat16, torch.float32) for shape in K11_SHAPES),
+    *((torch.bfloat16, *shape) for shape in K11_BF16_SHAPES)],
+    ids=lambda x: {torch.bfloat16: "bf16", torch.float32: "fp32"}.get(x))
 def test_short_backward_matches_plain_and_k4(dev, dtype, b, h, nq, nk, dh):
     """K11 from K1's out and lse against its plain version and against K4 on
-    the same inputs (the same function), grads the same dtype and shape."""
+    the same inputs (the same function), grads the same dtype and shape; a
+    second call repeats bit for bit (no atomics)."""
     q, k, v, grad = (t.to(dtype) for t in _heads_views(_gen(36), dev, b, h, nq, nk, dh))
     out, lse = fa._forward(q, k, v, dh ** -0.5, with_lse=True)
     before = tsb.launches
@@ -753,6 +781,8 @@ def test_short_backward_matches_plain_and_k4(dev, dtype, b, h, nq, nk, dh):
     torch.cuda.synchronize()
     _assert_grads_close(got, want, K11_REL_TOL[dtype])
     _assert_grads_close(got, k4, 2 * K11_REL_TOL[dtype])
+    again = tsb.flash_backward_short(q, k, v, out, lse, grad, dh ** -0.5)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
 
 def test_short_backward_refuses_what_it_cannot_take(dev):
