@@ -96,9 +96,14 @@ redesigned for Hopper (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu); phase
 and [9600,192,256] and with the lse at [1920,192,256], K4 at
 [32,16,1000,24] and [1920,16,192,16], and K1 on its cp.async route (dh 20).
 Every attention row's bound also counts its exponentials (one a score).
-K9's backward and K11 are also redesigned for Hopper (mma.sync and wgmma
-tiles; csrc/short_attention.cu, csrc/short_backward.cu); phase 3 also
-checks that two calls of each on the same inputs give bit-identical grads.
+K9 (forward and backward) and K11 are also redesigned for Hopper (mma.sync
+and wgmma tiles; csrc/short_attention.cu, csrc/short_backward.cu), and K2
+(csrc/fused_mlp.cu: TMA-fed wgmma GEMMs back to back, the GELU between them
+on chip); phase 3 also checks that two calls of each on the same inputs
+give bit-identical results, prints the route each K2 row took (every one
+must take the Hopper kernel with x by TMA; the counters of its WMMA route and
+its cp.async loads stay 0 on every main path) and, beside K2's plain time,
+the two-GEMM cuBLAS composition's.
 
 The MD17 kernels are checked against their plain versions in phase 3: K1
 with the key-padding bias and with fp32 operands (and its lse), K9 forward
@@ -423,10 +428,26 @@ class KernelTable:
                               bound_by=bound_by, library_ms=lib_ms)
 
 
+def mlp_composition(x, w1_rows, b1, w2_rows):
+    """K2's function as two cuBLAS GEMMs around PyTorch's exact GELU (a
+    yardstick, used nowhere in the port): ``linear`` with the bias, then
+    ``gelu``, then a product with fp32 output where the installed torch's
+    ``out_dtype`` takes it, else bf16. Returns (out, the output's dtype)."""
+    from torch.nn.functional import gelu, linear
+
+    h = gelu(linear(x, w1_rows, b1), approximate="none")
+    try:
+        return torch.mm(h, w2_rows.t(), out_dtype=torch.float32), "fp32"
+    except (TypeError, RuntimeError):
+        return torch.mm(h, w2_rows.t()), "bf16"
+
+
 def k2_check(dev, gen, table: KernelTable, key: str, rows: int, d: int, m: int,
              plain_reps: int = 20) -> None:
     """K2 on x [rows, d] and the MLP slices of linear1's and linear2's
-    nn.Linear weights, against its plain version."""
+    nn.Linear weights, against its plain version: the route it took (the
+    Hopper kernel with x by TMA at every main-path shape), a second call
+    bit-identical, and beside its time the two-GEMM cuBLAS composition's."""
     from lam_slide_tpu_torch.ops import fused_mlp as fm
 
     bf = torch.bfloat16
@@ -435,12 +456,24 @@ def k2_check(dev, gen, table: KernelTable, key: str, rows: int, d: int, m: int,
     w2_full = _rand(gen, d, d + m, scale=0.05).to(dev, bf)
     b1 = _rand(gen, m, scale=0.1).to(dev, bf)
     args = (x, w1_full[3 * d:].t(), b1, w2_full[:, d:].t())
+    before = (fm.launches, fm.wmma_launches, fm.cp_async_launches)
     got, want = fm.fused_mlp(*args), fm.reference_mlp(*args)
     torch.cuda.synchronize()
+    launched = tuple(n - b for n, b in zip((fm.launches, fm.wmma_launches,
+                                            fm.cp_async_launches), before))
+    route = ("WMMA" if launched[1] else "Hopper, x by cp.async" if launched[2]
+             else "Hopper, x by TMA")
+    check(launched == (1, 0, 0), f"{key} launches {launched}: took the {route} route")
     check(got.shape == (rows, d) and got.dtype == torch.float32, f"{key} shape/dtype")
+    check(torch.equal(got, fm.fused_mlp(*args)), f"{key}: a second call on the same inputs differs")
     abs_err, _ = errors(got, want)
     del got, want
-    table.add(key, f"x [{rows},{d}] w1 [{d},{m}] w2 [{m},{d}]", abs_err,
+    composition = (x, w1_full[3 * d:], b1, w2_full[:, d:])
+    _, comp_dtype = mlp_composition(*composition)
+    comp_ms = time_ms(lambda: mlp_composition(*composition), reps=plain_reps)
+    table.add(key, f"x [{rows},{d}] w1 [{d},{m}] w2 [{m},{d}], route {route}, a second call "
+              f"bit-identical; two-GEMM cuBLAS composition (linear + gelu + mm, {comp_dtype} out; "
+              f"not one library call) {comp_ms:.4f} ms", abs_err,
               f"atol {K2_ATOL}", time_ms(lambda: fm.fused_mlp(*args)),
               time_ms(lambda: fm.reference_mlp(*args), reps=plain_reps),
               4 * rows * d * m, rows * d * (2 + 4) + 2 * d * m * 2 + m * 2)
@@ -780,10 +813,13 @@ def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
     got, want = tsa.short_attention(*args), tsa.reference_short_attention(*args)
     torch.cuda.synchronize()
     check(got.shape == q.shape and got.dtype == bf, "K9 shape/dtype")
+    check(torch.equal(got, tsa.short_attention(*args)),
+          "K9: a second call on the same inputs differs")
     abs_err, _, atol, k1_gain = k1_errors(got, want)
     check_k1(abs_err, atol, k1_gain, "K9")
     heads = [t.unflatten(-1, (16, dh)).transpose(1, 2) for t in (q, k, v)]
-    table.add("K9", f"packed q/k/v [{seqs},{MD17_T},{d}] (v a strided view), 16 x {dh}, gain "
+    table.add("K9", f"packed q/k/v [{seqs},{MD17_T},{d}] (v a strided view), 16 x {dh}, a second "
+              f"call bit-identical, gain "
               f"{k1_gain:.7f}", abs_err, f"atol {atol:.3e} = {K1_ULPS} bf16 ulps, gain tol "
               f"{K1_GAIN_TOL}", time_ms(lambda: tsa.short_attention(*args)),
               time_ms(lambda: tsa.reference_short_attention(*args), reps=5),
@@ -803,6 +839,8 @@ def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
             got, want = tsa.short_attention(q, k, v, h), tsa.reference_short_attention(q, k, v, h)
             abs_err, _, atol, k1_gain = k1_errors(got, want)
             check_k1(abs_err, atol, k1_gain, f"K9 n={n}")
+            check(torch.equal(got, tsa.short_attention(q, k, v, h)),
+                  f"K9 n={n}: a second call on the same inputs differs")
             scale = hd ** -0.5
         bargs = (q, k, v, g, h, scale)
         got, want = tsa.short_attention_backward(*bargs), tsa.reference_short_backward(*bargs)
@@ -1923,6 +1961,7 @@ def main() -> int:
 
     counters = {"K1": (fa, "launches"), "K1 bias": (fa, "bias_launches"),
                 "K1 fp32": (fa, "fp32_launches"), "K2": (fm, "launches"),
+                "K2 wmma": (fm, "wmma_launches"), "K2 cp.async": (fm, "cp_async_launches"),
                 "K5": (fnr, "launches"), "K7": (fad, "launches"), "K8": (fsb, "launches"),
                 "K9": (tsa, "launches"), "K9 bwd": (tsa, "bwd_launches"),
                 "K4 kv": (fa, "bwd_kv_launches"), "K4 q": (fa, "bwd_q_launches"),

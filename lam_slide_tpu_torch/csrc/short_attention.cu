@@ -7,14 +7,22 @@
 // block-diagonal masking to fill 128x128 MXU tiles; nothing on the card
 // needs that, so it is not carried over.
 //
-// Forward: one warp per (batch, head) pair, up to four warps (heads) of one
-// batch row per block. q/k/v/o are read and written through packed
-// [B, n, H*dh] strides (batch, seq; unit stride on dh), so the DiT's q/k
-// and its v view of linear1's output go in without a relayout copy. The
-// warp stages its head's K and V rows in shared memory as fp32; a lane owns
-// one query row at a time, keeps its q row in registers, and writes its row
-// of scores into a per-lane row of shared memory (odd row stride: no bank
-// conflicts), so the n x n scores never leave the chip.
+// Forward, on the tensor cores, on the blocks of the backward below: a
+// persistent block owns a group of hb <= 8 heads (a warp each,
+// fwd_heads_per_block) and walks over batch rows. Whole rows of the group's
+// q, k and v columns (256 contiguous bytes a row at MD17) come in by
+// cp.async, 16 bytes a thread, into bf16 tiles double-buffered over batch
+// rows; q/k/v are read through packed [B, n, H*dh] strides (batch, seq;
+// unit stride on dh), so the DiT's q/k and its v view of linear1's output
+// go in without a relayout copy. A warp runs its head in 16-query blocks:
+// S = Q K^T on mma.sync.m16n8k16 over 32-key blocks, the fp32 row max and
+// sum of the exponentials online over the key blocks, then the weights
+// p / sum in fp32 rounded to bf16 as A fragments and O = bf16(P) V on
+// mma.sync, rounded once into a bf16 output tile that leaves as whole rows
+// of 16-byte stores. For n <= 32 (one key block) the scores stay in
+// registers between the statistics and P V; longer rows compute them twice,
+// so the weights round where the plain version rounds them (after the
+// normalisation), not where an online rescale would.
 //
 // Backward, on the tensor cores: a persistent block owns a group of hb <= 8
 // heads (a warp each) and walks over batch rows. Whole rows of the group's
@@ -42,17 +50,16 @@
 // weights p / sum rounded to bf16 for the AV product, fp32 accumulation,
 // one rounding of the output. Backward (`_short_bwd_kernel`): dV = bf16(P)^T
 // dO, dP = dO V^T, delta = rowsum(P * dP) with P in fp32, dS = P * (dP -
-// delta) * scale rounded to bf16, dQ = dS K, dK = dS^T Q, fp32 accumulation;
-// the backward takes the exponential as ex2 of the logits times
-// scale*log2(e). The _rn intrinsics keep products from contracting into
-// FMAs where the JAX math rounds them.
+// delta) * scale rounded to bf16, dQ = dS K, dK = dS^T Q, fp32 accumulation.
+// Both take the exponential as ex2 of the logits times scale*log2(e); the
+// _rn intrinsics keep products from contracting into FMAs where the JAX math
+// rounds them. Neither uses atomics, so a result repeats bit for bit.
 //
 // What bounds it on the H100: at the MD17 temporal shape ([61440, 30, 256],
 // 16 heads x dh 16) the forward moves ~3.8 GB of q/k/v/o (~1.1 ms at
-// 3.35 TB/s) for ~57 GFLOP, which it runs as FFMA on the CUDA cores (~1 ms
-// at 67 TFLOP/s), one float4 shared-memory broadcast per four FMAs. The
-// backward moves ~6.6 GB of q/k/v/dO/dq/dk/dv (~2.0 ms) for 2.5x the
-// forward's FLOPs, which the tensor cores take in a fraction of that: bytes.
+// 3.35 TB/s) for ~57 GFLOP, a fraction of that on the tensor cores: bytes.
+// The backward moves ~6.6 GB of q/k/v/dO/dq/dk/dv (~2.0 ms) for 2.5x the
+// forward's FLOPs: bytes too.
 
 #include <math_constants.h>
 
@@ -61,151 +68,8 @@
 
 namespace {
 
-constexpr int MAX_WARPS = 4;             // heads of one batch row per block
-constexpr size_t SMEM_BUDGET = 96 * 1024;  // per block, to pick the warps
-constexpr size_t SMEM_MAX = 160 * 1024;    // the largest a single warp needs
-
-struct Packed {
-  const bf16* p;
-  long long sb, sn;  // batch and sequence strides, in elements
-};
-
-// Shared-memory rows are 16-byte aligned (every per-warp region and every
-// [n, DP] tile starts on a multiple of 4 floats), so they are read as
-// float4 broadcasts: one load for four FMAs. The sums run in the order
-// c = 0 .. DP-1.
-template <int DP>
-__device__ __forceinline__ float dot(const float* a, const float* row) {
-  float s = 0.0f;
-#pragma unroll
-  for (int c = 0; c < DP; c += 4) {
-    const float4 r = *reinterpret_cast<const float4*>(row + c);
-    s = fmaf(a[c], r.x, s);
-    s = fmaf(a[c + 1], r.y, s);
-    s = fmaf(a[c + 2], r.z, s);
-    s = fmaf(a[c + 3], r.w, s);
-  }
-  return s;
-}
-
-// acc += w * row over DP values, row in shared memory.
-template <int DP>
-__device__ __forceinline__ void axpy(float* acc, float w, const float* row) {
-#pragma unroll
-  for (int c = 0; c < DP; c += 4) {
-    const float4 r = *reinterpret_cast<const float4*>(row + c);
-    acc[c] = fmaf(w, r.x, acc[c]);
-    acc[c + 1] = fmaf(w, r.y, acc[c + 1]);
-    acc[c + 2] = fmaf(w, r.z, acc[c + 2]);
-    acc[c + 3] = fmaf(w, r.w, acc[c + 3]);
-  }
-}
-
-// Rows [0, n) of head h of batch row b into a [n, DP] fp32 tile, zero for
-// columns >= dh.
-template <int DP>
-__device__ __forceinline__ void stage(float* dst, Packed t, int b, int h, int n, int dh) {
-  const int lane = threadIdx.x % 32;
-  const bf16* src = t.p + b * t.sb + static_cast<long long>(h) * dh;
-  for (int idx = lane; idx < n * DP; idx += 32) {
-    const int r = idx / DP, c = idx % DP;
-    dst[idx] = c < dh ? __bfloat162float(src[r * t.sn + c]) : 0.0f;
-  }
-}
-
-template <int DP>
-__device__ __forceinline__ void store_row(const float* acc, bf16* dst, int dh) {
-#pragma unroll
-  for (int c = 0; c < DP; ++c)
-    if (c < dh) dst[c] = __float2bfloat16(acc[c]);
-}
-
-// Scores of one query row against all n keys into srow, as fp32 softmax
-// weights p / sum; returns (max, sum) through m and l.
-template <int DP>
-__device__ __forceinline__ void softmax_row(const float* qr, const float* Ks, int n,
-                                            float scale, float* srow, float& m, float& l) {
-  m = -CUDART_INF_F;
-#pragma unroll 4  // independent dot products in flight; each sums in order
-  for (int j = 0; j < n; ++j) {
-    const float s = __fmul_rn(dot<DP>(qr, Ks + j * DP), scale);
-    srow[j] = s;
-    m = fmaxf(m, s);
-  }
-  l = 0.0f;
-  for (int j = 0; j < n; ++j) {
-    const float p = expf(srow[j] - m);
-    srow[j] = p;
-    l += p;
-  }
-#pragma unroll 4
-  for (int j = 0; j < n; ++j) srow[j] = __fdiv_rn(srow[j], l);
-}
-
-template <int DP>
-__host__ __device__ inline size_t fwd_warp_floats(int n) {
-  return 2 * static_cast<size_t>(n) * DP + 32 * static_cast<size_t>(n | 1);
-}
-
-template <int DP>
-__global__ void short_fwd_kernel(Packed q, Packed k, Packed v, bf16* __restrict__ o,
-                                 long long o_sb, long long o_sn, int H, int n, int dh,
-                                 float scale) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int b = blockIdx.x, h = blockIdx.y * (blockDim.x / 32) + warp;
-  if (h >= H) return;  // no block-wide barrier follows
-  float* Ks = smem + warp * fwd_warp_floats<DP>(n);
-  float* Vs = Ks + n * DP;
-  float* srow = Vs + n * DP + lane * (n | 1);
-  stage<DP>(Ks, k, b, h, n, dh);
-  stage<DP>(Vs, v, b, h, n, dh);
-  __syncwarp();
-
-  const bf16* qp = q.p + b * q.sb + static_cast<long long>(h) * dh;
-  for (int i = lane; i < n; i += 32) {
-    float qr[DP], acc[DP];
-#pragma unroll
-    for (int c = 0; c < DP; ++c) {
-      qr[c] = c < dh ? __bfloat162float(qp[i * q.sn + c]) : 0.0f;
-      acc[c] = 0.0f;
-    }
-    float m, l;
-    softmax_row<DP>(qr, Ks, n, scale, srow, m, l);
-    for (int j = 0; j < n; ++j) axpy<DP>(acc, lam_round_bf16(srow[j]), Vs + j * DP);
-    store_row<DP>(acc, o + b * o_sb + i * o_sn + static_cast<long long>(h) * dh, dh);
-  }
-}
-
-// Warps (heads) per block under the shared-memory budget, and the bytes.
-int warps_for(size_t warp_floats, int H, size_t* bytes) {
-  const size_t per_warp = warp_floats * sizeof(float);
-  int w = static_cast<int>(SMEM_BUDGET / per_warp);
-  w = w < 1 ? 1 : (w > MAX_WARPS ? MAX_WARPS : w);
-  if (w > H) w = H;
-  *bytes = per_warp * w;
-  return w;
-}
-
-template <int DP>
-cudaError_t launch_fwd(Packed q, Packed k, Packed v, bf16* o, long long o_sb, long long o_sn,
-                       int B, int H, int n, int dh, float scale, cudaStream_t stream) {
-  static cudaError_t attr = lam_set_smem(short_fwd_kernel<DP>, SMEM_MAX);
-  if (attr != cudaSuccess) return attr;
-  size_t bytes;
-  const int w = warps_for(fwd_warp_floats<DP>(n), H, &bytes);
-  if (bytes > SMEM_MAX) return cudaErrorInvalidValue;
-  dim3 grid(B, (H + w - 1) / w);
-  short_fwd_kernel<DP><<<grid, 32 * w, bytes, stream>>>(q, k, v, o, o_sb, o_sn, H, n, dh, scale);
-  return cudaGetLastError();
-}
-
 bool bad_shape(int B, int H, int n, int dh) {
   return B <= 0 || H <= 0 || n <= 8 || n >= 128 || dh <= 0 || dh > 64;
-}
-
-Packed packed(const void* p, long long sb, long long sn) {
-  return Packed{static_cast<const bf16*>(p), sb, sn};
 }
 
 // ---- backward ------------------------------------------------------------
@@ -707,31 +571,229 @@ cudaError_t launch_dp(Args& a, cudaStream_t stream) {
 
 }  // namespace bwd
 
+// ---- forward -------------------------------------------------------------
+
+namespace fwd {
+
+using bwd::a_frag;
+using bwd::cp_commit;
+using bwd::cp_wait1;
+using bwd::mma_rows;
+using bwd::move_rows;
+using bwd::quad_max;
+using bwd::quad_sum;
+using bwd::score_tile;
+using bwd::store_frag;
+using bwd::zero;
+using lam_sm90::ex2;
+
+constexpr int MAX_HEADS = 8;  // warps (heads) a block
+constexpr int THREADS = 32 * MAX_HEADS;
+constexpr size_t SMEM_MAX = 232448;  // the most dynamic shared memory a block takes
+
+struct Args {
+  const bf16* in[3];        // q, k, v
+  bf16* out;                // o
+  long long sb[3], sn[3];   // batch and sequence strides of the inputs
+  long long o_sb, o_sn;     // of the output
+  int B, H, n, dh, hb, groups, np, rs, piece, out_piece;
+  float c;                  // scale * log2(e)
+};
+
+// Shared memory of a block, in tiles of np rows (n rounded up to 32) by rs
+// = hb*DP + 8 bf16, laid out as the backward's: two stages of the q, k, v
+// tiles and the output tile. ops/short_attention.py's fwd_smem_bytes
+// mirrors this to choose hb.
+inline size_t smem_bytes(int np, int rs) {
+  return 7 * static_cast<size_t>(np) * rs * sizeof(bf16);
+}
+
+// The scaled logits t = s * c of row half r of a 16 x 32 block of raw
+// scores at key0, -inf past n; returns their largest over the row (quad).
+__device__ __forceinline__ float logits_rows(float (&s)[4][4], int r, int key0, int n, float c) {
+  const int cq = threadIdx.x % 4;
+  float mt = -CUDART_INF_F;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float t = key0 + 8 * j + 2 * cq + e < n ? s[j][2 * r + e] * c : -CUDART_INF_F;
+      s[j][2 * r + e] = t;
+      mt = fmaxf(mt, t);
+    }
+  return quad_max(mt);
+}
+
+// One head of one batch row: Q, K, V and the output O point at the warp's
+// head in their tiles (row stride rs). Per 16-query block: the row
+// statistics (max and sum of 2^(t - max)) online over 32-key blocks, then
+// the weights p = 2^(t - max) / sum in fp32, rounded to bf16 as A fragments,
+// and O = bf16(P) V on mma.sync, rounded once into the output tile. For
+// n <= 32 the scores of the one key block stay in registers between the two
+// steps; longer rows compute them again. Padding rows of Q are zero and
+// their outputs are never stored; keys past n get p = 0.
+template <int DP>
+__device__ __forceinline__ void head_fwd(const bf16* Q, const bf16* K, const bf16* V, bf16* O,
+                                         int rs, int n, float c) {
+  const int nqb = (n + 15) / 16, nkb = (n + 31) / 32;
+  for (int qb = 0; qb < nqb; ++qb) {
+    float s[4][4];
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.0f, 0.0f};
+    for (int kb = 0; kb < nkb; ++kb) {
+      score_tile<DP>(s, Q + 16 * qb * rs, K + 32 * kb * rs, rs);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mn = fmaxf(m[r], logits_rows(s, r, 32 * kb, n, c));
+        l[r] *= ex2(m[r] - mn);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) l[r] += ex2(s[j][2 * r + e] - mn);
+        m[r] = mn;
+      }
+    }
+    const float inv[2] = {__frcp_rn(quad_sum(l[0])), __frcp_rn(quad_sum(l[1]))};
+    float acc[1][DP / 8][4];
+    zero(acc);
+    for (int kb = 0; kb < nkb; ++kb) {
+      if (nkb > 1) {
+        score_tile<DP>(s, Q + 16 * qb * rs, K + 32 * kb * rs, rs);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) logits_rows(s, r, 32 * kb, n, c);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(ex2(s[j][e] - m[e / 2]), inv[e / 2]);
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t a[1][4];
+        a_frag(s, ks, a[0]);
+        mma_rows<1, DP / 8>(acc, a, V, rs, 32 * kb + 16 * ks, 0);
+      }
+    }
+    store_frag<DP / 8>(O, rs, 16 * qb, 0, acc[0]);
+  }
+}
+
+template <int DP>
+__device__ __forceinline__ void load_rows(const Args& a, bf16* stage, long long t) {
+  const int b = static_cast<int>(t / a.groups), h0 = static_cast<int>(t % a.groups) * a.hb;
+  const int nh = min(a.hb, a.H - h0);
+  const size_t te = static_cast<size_t>(a.np) * a.rs;
+#pragma unroll
+  for (int o = 0; o < 3; ++o) {
+    bf16* src = const_cast<bf16*>(a.in[o]) + b * a.sb[o] + static_cast<long long>(h0) * a.dh;
+    move_rows<DP, true>(stage + o * te, src, a.sn[o], a.n, a.hb, nh, a.dh, a.rs, a.piece);
+  }
+}
+
+// A persistent block walks over (batch row, head group) items: whole rows
+// of the group's q, k, v columns by cp.async into tiles double-buffered
+// over items, a warp a head, the output tile stored as whole rows.
+template <int DP>
+__global__ void __launch_bounds__(THREADS) short_fwd_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const size_t te = static_cast<size_t>(a.np) * a.rs;
+  bf16* out_tile = smem + 6 * te;
+  // zero both stages once (6 tiles, 3 * te / 4 pieces of 16 bytes): rows
+  // past n and columns past dh stay zero, so the products over them add
+  // nothing
+  for (size_t i = threadIdx.x; i < 3 * te / 4; i += blockDim.x)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const long long items = static_cast<long long>(a.B) * a.groups;
+  long long t = blockIdx.x;
+  if (t < items) load_rows<DP>(a, smem, t);
+  cp_commit();
+  for (int j = 0; t < items; ++j, t += gridDim.x) {
+    bf16* cur = smem + (j & 1) * 3 * te;
+    if (t + gridDim.x < items) load_rows<DP>(a, smem + ((j & 1) ^ 1) * 3 * te, t + gridDim.x);
+    cp_commit();
+    cp_wait1();  // this item's copies (the thread's own) have landed
+    __syncthreads();  // everyone's have; the output of the last item is stored
+    const int b = static_cast<int>(t / a.groups), h0 = static_cast<int>(t % a.groups) * a.hb;
+    const int nh = min(a.hb, a.H - h0);
+    if (warp < nh)
+      head_fwd<DP>(cur + warp * DP, cur + te + warp * DP, cur + 2 * te + warp * DP,
+                   out_tile + warp * DP, a.rs, a.n, a.c);
+    __syncthreads();  // the output tile is complete and this stage is read
+    move_rows<DP, false>(out_tile, a.out + b * a.o_sb + static_cast<long long>(h0) * a.dh, a.o_sn,
+                         a.n, a.hb, nh, a.dh, a.rs, a.out_piece);
+  }
+}
+
+template <int DP>
+cudaError_t launch(Args& a, cudaStream_t stream) {
+  a.rs = a.hb * DP + 8;
+  static cudaError_t attr = lam_set_smem(short_fwd_kernel<DP>, SMEM_MAX);
+  if (attr != cudaSuccess) return attr;
+  const size_t smem = smem_bytes(a.np, a.rs);
+  if (smem > SMEM_MAX) return cudaErrorInvalidValue;
+  const int threads = 32 * a.hb;
+  const int grid = lam_persistent_grid(short_fwd_kernel<DP>, threads, smem,
+                                       static_cast<long long>(a.B) * a.groups);
+  short_fwd_kernel<DP><<<grid, threads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace fwd
+
 }  // namespace
 
 // q/k/v: bf16 [B, n, H*dh] addressed through element strides (batch, seq),
 // unit stride on the last axis; o: bf16 [B, n, H*dh] with strides (o_sb,
-// o_sn). 8 < n < 128, dh <= 64. Returns cudaGetLastError().
+// o_sn). 8 < n < 128, dh <= 64. heads_per_block (1..8) sets the block's head
+// group (ops/short_attention.py's fwd_heads_per_block). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
 extern "C" int lam_short_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                       int B, int H, int n, int dh, long long q_sb,
-                                       long long q_sn, long long k_sb, long long k_sn,
-                                       long long v_sb, long long v_sn, long long o_sb,
-                                       long long o_sn, float scale, void* stream) {
-  if (bad_shape(B, H, n, dh)) return static_cast<int>(cudaErrorInvalidValue);
-  const Packed qp = packed(q, q_sb, q_sn), kp = packed(k, k_sb, k_sn),
-               vp = packed(v, v_sb, v_sn);
-  auto ob = static_cast<bf16*>(o);
+                                       int B, int H, int n, int dh, int heads_per_block,
+                                       long long q_sb, long long q_sn, long long k_sb,
+                                       long long k_sn, long long v_sb, long long v_sn,
+                                       long long o_sb, long long o_sn, float scale,
+                                       void* stream) {
+  if (bad_shape(B, H, n, dh) || heads_per_block < 1 || heads_per_block > fwd::MAX_HEADS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  fwd::Args a{};
+  const void* ins[3] = {q, k, v};
+  const long long sb[3] = {q_sb, k_sb, v_sb}, sn[3] = {q_sn, k_sn, v_sn};
+  long long in_s[9];
+  for (int t = 0; t < 3; ++t) {
+    a.in[t] = static_cast<const bf16*>(ins[t]);
+    a.sb[t] = sb[t];
+    a.sn[t] = sn[t];
+    in_s[3 * t] = sb[t];
+    in_s[3 * t + 1] = dh;  // head offsets are multiples of dh
+    in_s[3 * t + 2] = sn[t];
+  }
+  const long long out_s[3] = {o_sb, dh, o_sn};
+  a.out = static_cast<bf16*>(o);
+  a.o_sb = o_sb;
+  a.o_sn = o_sn;
+  a.B = B;
+  a.H = H;
+  a.n = n;
+  a.dh = dh;
+  a.hb = heads_per_block;
+  a.groups = (H + heads_per_block - 1) / heads_per_block;
+  a.np = (n + 31) / 32 * 32;
+  a.piece = lam_sm90_host::copy_piece(ins, in_s, 3, dh);
+  const void* outs[1] = {o};
+  a.out_piece = lam_sm90_host::copy_piece(outs, out_s, 1, dh);
+  a.c = scale * lam_sm90::LOG2E;
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dh <= 16)
-    err = launch_fwd<16>(qp, kp, vp, ob, o_sb, o_sn, B, H, n, dh, scale, st);
+    err = fwd::launch<16>(a, st);
   else if (dh <= 32)
-    err = launch_fwd<32>(qp, kp, vp, ob, o_sb, o_sn, B, H, n, dh, scale, st);
+    err = fwd::launch<32>(a, st);
   else
-    err = launch_fwd<64>(qp, kp, vp, ob, o_sb, o_sn, B, H, n, dh, scale, st);
+    err = fwd::launch<64>(a, st);
   return static_cast<int>(err);
 }
-
 
 // q/k/v/g (g the output gradient, dO): bf16 [B, n, H*dh] through (batch,
 // seq) element strides given in `strides` in the order q, k, v, g (8

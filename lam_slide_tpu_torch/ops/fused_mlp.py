@@ -2,20 +2,34 @@
 
 Counterpart of ``lam_slide_tpu/ops/fused_mlp.py`` (``_mlp_kernel`` through
 ``fused_mlp``): ``gelu(x @ w1 + b1) @ w2`` with fp32 output, the mid rounded
-once to the activation dtype, exact GELU, and the gelu intermediate kept in
-shared memory (``csrc/fused_mlp.cu``).
+once to the activation dtype, exact GELU, and the gelu intermediate never
+leaving the chip (``csrc/fused_mlp.cu``).
 
 Weights use the JAX layout ``w1 [d_in, d_mid]``, ``w2 [d_mid, d_out]``. On
 CUDA the kernel takes them as transposed views of torch ``nn.Linear``
 weights (``weight[rows].t()``, so ``stride(0) == 1``), which is how the DiT
 holds them.
 
+Two routes, both launched from ``fused_mlp``: the Hopper kernel
+(``lam_fused_mlp_sm90``: TMA-fed wgmma GEMMs back to back, the GELU in
+shared memory between them) wherever ``sm90_plan`` finds a shared-memory
+plan (every d_in up to 448, any d_mid and d_out), and the first port's WMMA
+kernel (``lam_fused_mlp_wmma``) for wider inputs. The Hopper kernel loads x
+by TMA when ``x_tma_ok`` holds, else by cp.async inside the same kernel, and
+reads the GELU of each bf16 mid from a table a small kernel builds with the
+same fp32 formula before it (one launch of K2 is the pair).
+
 Gradients: on CUDA tensors that need one, the kernel runs inside
 ``_FusedMLP``, whose backward is autograd of ``reference_mlp`` on the saved
 inputs (``_fused_mlp_bwd``, fused_mlp.py:125-128); no backward kernel.
 
-``launches`` counts kernel launches; nothing else touches it.
+Counters (plain integers, touched only where a kernel launches):
+``launches`` counts K2 launches of both routes, ``wmma_launches`` those on
+the WMMA route and ``cp_async_launches`` the Hopper kernel's launches that
+load x by cp.async.
 """
+
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,6 +38,58 @@ from lam_slide_tpu_torch.ops import _build
 from lam_slide_tpu_torch.ops._grad import needs_grad, plain_vjp
 
 launches = 0
+wmma_launches = 0
+cp_async_launches = 0
+
+# The Hopper kernel's GELU table (csrc/fused_mlp.cu GELU_LO, GELU_SPAN): the
+# bf16 GELU of every bf16 mid with |mid| in [2^-9, 8) (bit patterns from
+# GELU_TABLE_LO, GELU_TABLE_SPAN a sign), built by a small kernel before
+# each launch into scratch the wrapper allocates.
+GELU_TABLE_LO = 118 << 7
+GELU_TABLE_SPAN = 12 << 7
+GELU_TABLE_ENTRIES = 2 * GELU_TABLE_SPAN
+SMEM_MAX = 232448  # the most dynamic shared memory an H100 block takes
+SM90_ROWS = 128  # rows a tile of the Hopper kernel (two warpgroups of 64)
+SM90_MAX_S1 = 4  # w1 ring stages
+
+
+def sm90_smem_bytes(d_in: int, nc: int, no: int, s1: int) -> int:
+    """Shared memory of a Hopper K2 block (``sm90::smem_bytes`` in
+    csrc/fused_mlp.cu): the x tile of SM90_ROWS rows by d_in padded to
+    64-column panels (128 bytes a row each), s1 w1 panels of nc rows, two w2
+    panels of no rows by nc bf16, two GELU tiles of 64 rows by nc bf16 for
+    each of the two consumer warpgroups, the mbarriers (128) and 1024 bytes
+    of alignment slack."""
+    kp = -(-d_in // 64)
+    return (SM90_ROWS * kp * 128 + s1 * nc * kp * 128 + 2 * no * nc * 2 + 4 * 64 * nc * 2
+            + 128 + 1024)
+
+
+def sm90_plan(d_in: int, d_out: int) -> Optional[Tuple[int, int, int]]:
+    """The Hopper kernel's geometry for these widths, ``(nc, no, s1)``, or
+    None where its shared memory cannot hold them (the WMMA route then).
+
+    no: output columns a pass, a multiple of 64 up to 256 (a 64 x 256 fp32
+    accumulator is 128 registers a thread), as few passes as d_out allows and
+    as even (d_out 384: two of 192). nc: columns of d_mid a chunk, 64 where
+    two w1 stages fit, else 32. s1: w1 stages, as many as fit up to
+    SM90_MAX_S1.
+    """
+    passes = -(-d_out // 256)
+    per_pass = -(-d_out // passes)
+    no = -(-per_pass // 64) * 64
+    for nc in (64, 32):
+        for s1 in range(SM90_MAX_S1, 1, -1):
+            if sm90_smem_bytes(d_in, nc, no, s1) <= SMEM_MAX:
+                return nc, no, s1
+    return None
+
+
+def x_tma_ok(x2: torch.Tensor) -> bool:
+    """Whether TMA can load the rows of x ``[rows, d_in]`` (unit stride on
+    d_in): a 16-byte aligned base and row stride. Otherwise the Hopper
+    kernel copies x by cp.async."""
+    return x2.data_ptr() % 16 == 0 and (x2.shape[0] == 1 or (x2.stride(0) * 2) % 16 == 0)
 
 
 def reference_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -94,11 +160,20 @@ def _launch(x, w1, b1, w2) -> torch.Tensor:
     rows, d_in = x2.shape
     d_mid, d_out = w2.shape
     out = torch.empty((rows, d_out), dtype=torch.float32, device=x.device)
-    global launches
+    plan = sm90_plan(d_in, d_out)
+    ptrs = (x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), out.data_ptr())
+    dims = (rows, d_in, d_mid, d_out, x2.stride(0), w1.stride(1), w2.stride(1), out.stride(0))
+    global launches, wmma_launches, cp_async_launches
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.launch("lam_fused_mlp_fwd", x2.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                      w2.data_ptr(), out.data_ptr(), rows, d_in, d_mid, d_out,
-                      x2.stride(0), w1.stride(1), w2.stride(1), out.stride(0), stream)
+        if plan is None:
+            _build.launch("lam_fused_mlp_wmma", *ptrs, *dims, stream)
+            wmma_launches += 1
+        else:
+            tma = x_tma_ok(x2)
+            table = torch.empty(GELU_TABLE_ENTRIES, dtype=torch.int16, device=x.device)
+            _build.launch("lam_fused_mlp_sm90", *ptrs, table.data_ptr(), *dims, *plan, int(tma),
+                          stream)
+            cp_async_launches += not tma
     launches += 1
     return out.reshape(*lead, d_out)

@@ -6,12 +6,14 @@ and ``_short_bwd_kernel`` through ``short_attention``): unmasked
 self-attention over packed ``[B, n, H*dh]`` operands with 8 < n < 128, the
 stage-2 DiT's temporal axis for MD17, pedestrian and NBA (T=20..30). The
 kernels live in ``csrc/short_attention.cu``, q/k/v read through packed
-strides, the n x n scores kept on chip. The forward runs a warp per (batch,
-head) pair on the CUDA cores. The backward runs on the tensor cores
+strides, the n x n scores kept on chip. Both run on the tensor cores
 (mma.sync): a persistent block takes a group of heads (a warp each) over
-batch rows, loading whole rows double-buffered by cp.async; for n <= 32 a
-warp holds its item's S and dP in registers and forms all three grads in
-one pass. ``bwd_heads_per_block`` chooses the group.
+batch rows, loading whole rows double-buffered by cp.async and storing
+whole rows from a shared tile. The forward keeps the scores of n <= 32 in
+registers and computes them twice for longer rows (statistics, then P V);
+the backward holds its item's S and dP in registers for n <= 32 and forms
+all three grads in one pass. ``fwd_heads_per_block`` and
+``bwd_heads_per_block`` choose the groups.
 
 On CUDA tensors that need a gradient the forward runs inside
 ``_ShortAttention`` (the JAX ``custom_vjp``), whose backward is the K9
@@ -33,7 +35,8 @@ from lam_slide_tpu_torch.ops.flash_attention import _heads, _stream, reference_a
 launches = 0
 bwd_launches = 0
 
-MAX_DH = 64  # the kernels keep a q row and its accumulator in registers
+MAX_DH = 64  # the kernels keep a 16-row block's accumulators in registers
+FWD_MAX_HEADS = 8  # warps (heads) a forward block
 BWD_MAX_HEADS = 8  # warps (heads) a backward block
 SMEM_MAX = 232448  # the most dynamic shared memory an H100 block takes
 
@@ -51,6 +54,26 @@ def bwd_smem_bytes(n: int, dh: int, heads_per_block: int) -> int:
     row = heads_per_block * _padded_dh(dh) + 8
     stats = heads_per_block * 3 * rows * 4 if rows > 32 else 0
     return 11 * rows * row * 2 + stats
+
+
+def fwd_smem_bytes(n: int, dh: int, heads_per_block: int) -> int:
+    """Shared memory of a K9 forward block (``fwd::smem_bytes`` in
+    csrc/short_attention.cu): seven bf16 tiles (two stages of q/k/v, and the
+    output) of n rounded up to 32 rows by heads_per_block · dh-padded + 8
+    columns."""
+    rows = -(-n // 32) * 32
+    return 7 * rows * (heads_per_block * _padded_dh(dh) + 8) * 2
+
+
+def fwd_heads_per_block(n: int, num_heads: int, dh: int) -> int:
+    """Heads a K9 forward block takes: the heads split into as few groups of
+    at most FWD_MAX_HEADS as they go, evenly (16 heads -> 8 + 8, 11 -> 6 +
+    5), then fewer while the block's shared memory exceeds SMEM_MAX."""
+    groups = -(-num_heads // FWD_MAX_HEADS)
+    hb = -(-num_heads // groups)
+    while hb > 1 and fwd_smem_bytes(n, dh, hb) > SMEM_MAX:
+        hb -= 1
+    return hb
 
 
 def bwd_heads_per_block(n: int, num_heads: int, dh: int) -> int:
@@ -121,11 +144,12 @@ def _forward(q, k, v, num_heads: int, scale: float) -> torch.Tensor:
     b, n, d_all = q.shape
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:2]]
+    dh = d_all // num_heads
     global launches
     with torch.cuda.device(q.device):
         _build.launch("lam_short_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), b, num_heads, n, d_all // num_heads, *strides,
-                      float(scale), _stream(q))
+                      out.data_ptr(), b, num_heads, n, dh, fwd_heads_per_block(n, num_heads, dh),
+                      *strides, float(scale), _stream(q))
     launches += 1
     return out
 

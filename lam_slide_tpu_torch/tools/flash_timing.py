@@ -14,9 +14,13 @@ its backward K6 at 3 x 128, and K10 at [16, 1000, 384]. Then K9 forward and
 backward on the MD17 DiT's temporal axis, packed [B, 30, 256] (16 heads of
 16, v a view of linear1's output) at the protocol batch's B = 61440 and the
 stage-2 train step's B = 12288, and K11 at the MD17 spatial axis [1920, 16,
-192, 16] (head-major views of one packed buffer, from K1's out and lse). It
-uses only entry points every tree of the port has, so an A/B of two trees
-runs it from each in turns:
+192, 16] (head-major views of one packed buffer, from K1's out and lse).
+Last, K2 (``fused_mlp``, the MLP slices of nn.Linear weights as the DiT
+passes them) at its four main-path shapes: the 4AA Euler-10 solve at B=8
+([16000, 384] -> 768) and train step ([32000, 384]), the MD17 protocol
+batch ([1843200, 256] -> 512) and stage-2 step ([368640, 256]). It uses
+only entry points every tree of the port has, so an A/B of two trees runs
+it from each in turns:
 
     cd <tree> && PYTHONPATH=. python <this file> <label>
 
@@ -31,6 +35,7 @@ import torch
 from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
 from lam_slide_tpu_torch.ops import flash_attention as fa
 from lam_slide_tpu_torch.ops import flash_normrope as fnr
+from lam_slide_tpu_torch.ops import fused_mlp as fm
 from lam_slide_tpu_torch.ops import short_attention as tsa
 from lam_slide_tpu_torch.ops.ablations import fused_temporal_attention as tft
 from lam_slide_tpu_torch.ops.ablations import short_backward as tsb
@@ -109,6 +114,13 @@ def main() -> int:
         k9[b9] = (q9, k9_, v9, g9)
     m11 = _heads(gen, dev, bf, 1920, 192, 16, 16)
     out11, lse11 = fa._forward(*m11[:3], 16 ** -0.5, with_lse=True)
+    # K2: x and the MLP slices of linear1 [3d + 2d, d] and linear2 [d, d + 2d]
+    k2 = {}
+    for rows, d in ((16000, 384), (32000, 384), (1843200, 256), (368640, 256)):
+        w1 = (torch.randn(5 * d, d, generator=gen) * 0.05).to(dev, bf)
+        w2 = (torch.randn(d, 3 * d, generator=gen) * 0.05).to(dev, bf)
+        k2[rows, d] = (torch.randn(rows, d, generator=gen).to(dev, bf), w1[3 * d:].t(),
+                       (torch.randn(2 * d, generator=gen) * 0.1).to(dev, bf), w2[:, d:].t())
     calls = (
         ("K1 bf16 [16,16,1000,24]", lambda: fa.flash_attention(q1, k1, v1), REPS),
         ("K3 bf16 [16,1000,384]", lambda: fa.flash_attention_packed(*p1, 16), REPS),
@@ -134,6 +146,8 @@ def main() -> int:
            lambda b9=b9: tsa.short_attention_backward(*k9[b9], 16, 0.25), 10) for b9 in k9),
         ("K11 bf16 [1920,16,192,16]", lambda: tsb.flash_backward_short(
             *m11[:3], out11, lse11, m11[3], 16 ** -0.5), 10),
+        *((f"K2 bf16 [{rows},{d}] -> {2 * d}", lambda key=(rows, d): fm.fused_mlp(*k2[key]),
+           10 if rows > 100000 else REPS) for rows, d in k2),
     )
     with torch.no_grad():
         for name, fn, reps in calls:

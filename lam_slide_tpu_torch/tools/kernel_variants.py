@@ -1,20 +1,26 @@
-"""Time ablated copies of K9's backward and K11 on the card: what holds each back.
+"""Time ablated copies of K2, K9 (forward and backward) and K11 on the card:
+what holds each back.
 
 Each variant is a copy of the kernel's source with one piece of its work
 taken out by a text substitution, built alone with nvcc (beside
 csrc/common.cu) into its own library under ``lam_slide_tpu_torch/_build/``
-and called through ctypes on the same inputs at the MD17 shapes: K9's
-backward on packed [61440, 30, 256] (16 heads of 16, v a view of a wider
-buffer) and K11 on head-major views [1920, 16, 192, 16] with K1's out and
-lse. A variant's outputs are wrong by design; only its time means anything.
-The variants run in turns (in order, then in reverse), timed with CUDA
-events, beside PyTorch's fp32 rowsum(g * out) at K11's shape (the delta the
-K11 wrapper computed before its delta kernel). Each line names the card and
-its power limit. Run from a tree's root:
+and called through ctypes on the same inputs at the MD17 shapes: K2's
+Hopper route on x [1843200, 256] -> 512 -> 256 (the MLP slices of nn.Linear
+weights, as the DiT passes them), K9's forward and backward on packed
+[61440, 30, 256] (16 heads of 16, v a view of a wider buffer) and K11 on
+head-major views [1920, 16, 192, 16] with K1's out and lse. A variant's
+outputs are wrong by design; only its time means anything. Work a variant
+skips behind a run-time condition that never holds (``a.R < 0``) is still
+compiled, so what it feeds is not optimised away. The variants run in turns
+(in order, then in reverse), timed with CUDA events, beside PyTorch's fp32
+rowsum(g * out) at K11's shape (the delta the K11 wrapper computed before
+its delta kernel). Each line names the card and its power limit. Run from
+a tree's root:
 
-    PYTHONPATH=. python lam_slide_tpu_torch/tools/kernel_variants.py
+    PYTHONPATH=. python lam_slide_tpu_torch/tools/kernel_variants.py [K2 K9-forward K11 K9-backward]
 """
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -23,6 +29,7 @@ import torch
 
 from lam_slide_tpu_torch.ops import _build
 from lam_slide_tpu_torch.ops import flash_attention as fa
+from lam_slide_tpu_torch.ops import fused_mlp as fm
 from lam_slide_tpu_torch.ops import short_attention as tsa
 
 REPS = 20
@@ -37,6 +44,44 @@ K11_VARIANTS = {
     "no chunk barrier": [("named_sync(1, consumers);  // the slab", "// the slab")],
     "no dK/dV products": [("wgmma_rs<DV, 1>(dv, pf[kk]", "if (false) wgmma_rs<DV, 1>(dv, pf[kk]"),
                           ("wgmma_rs<DV, 1>(dk, df[kk]", "if (false) wgmma_rs<DV, 1>(dk, df[kk]")],
+}
+K2_LOOKUP = "static_cast<uint32_t>(__ldg(table + (in ? k + (h >> 15) * GELU_SPAN : 0u)))"
+K2_VARIANTS = {
+    "kernel": [],
+    "no stores": [("            __stcs(", "            if (a.R < 0) __stcs(")],
+    "no GEMM1": [("  for (int p = 0; p < kp; ++p) {", "  for (int p = 0; p < 0 * kp; ++p) {")],
+    "no GEMM2": [("wgmma_ss<NO, 0, 0>(o, dm + 2 * kk, dw + 2 * kk, 1);", ";")],
+    "GEMM2 half width": [("wgmma_ss<NO, 0, 0>(o, dm + 2 * kk,",
+                          "wgmma_ss<NO == 192 ? 64 : NO / 2, 0, 0>(reinterpret_cast<float(&)"
+                          "[NO == 192 ? 32 : NO / 4]>(o), dm + 2 * kk,")],
+    "no GELU": [(K2_LOOKUP, "h")],
+    "GELU by erff": [(K2_LOOKUP, "static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16("
+                                 "gelu_fp32(__uint_as_float(h << 16)))))")],
+    "GEMMs only": [("          (looked & keep) | (pack_bf16(val[0], val[1]) & ~keep);",
+                    "          pack_bf16(s[4 * j + 2 * rr], s[4 * j + 2 * rr + 1]);"),
+                   ("            __stcs(", "            if (a.R < 0) __stcs(")],
+    "GELU after GEMM2": [("  wgmma_wait1();  // GEMM1 of chunk c+1 is done;",
+                          "  wgmma_wait0();  // GEMM1 of chunk c+1 is done;")],
+    "weights loaded once": [
+        ("        mbar_arrive_expect_tx(&sm.full1[st], w1_tx);",
+         "        if (u >= a.s1) { mbar_arrive(&sm.full1[st]); return; }\n"
+         "        mbar_arrive_expect_tx(&sm.full1[st], w1_tx);"),
+        ("        mbar_arrive_expect_tx(&sm.full2[st], w2_tx);",
+         "        if (u >= S2) { mbar_arrive(&sm.full2[st]); return; }\n"
+         "        mbar_arrive_expect_tx(&sm.full2[st], w2_tx);")],
+}
+K9_FWD_VARIANTS = {
+    "kernel": [],
+    "loads and stores only": [("    if (warp < nh)\n      head_fwd<DP>(",
+                               "    if (a.n < 0)\n      head_fwd<DP>(")],
+    "no stores": [("    move_rows<DP, false>(out_tile,",
+                   "    if (a.n < 0) move_rows<DP, false>(out_tile,")],
+    "no exponential": [("l[r] *= ex2(m[r] - mn);", "l[r] *= m[r] - mn;"),
+                       ("l[r] += ex2(s[j][2 * r + e] - mn);", "l[r] += s[j][2 * r + e] - mn;"),
+                       ("__fmul_rn(ex2(s[j][e] - m[e / 2]), inv[e / 2]);",
+                        "__fmul_rn(s[j][e] - m[e / 2], inv[e / 2]);")],
+    "no AV": [("        mma_rows<1, DP / 8>(acc, a, V, rs,",
+               "        if (a[0][0] == 0x7fffffffu) mma_rows<1, DP / 8>(acc, a, V, rs,")],
 }
 K9_VARIANTS = {
     "kernel": [],
@@ -69,10 +114,11 @@ def _build_variants(source: str, entry: str, variants: dict) -> dict:
     for name, subs in variants.items():
         src = text
         for old, new in subs:
-            if old not in src:
-                raise RuntimeError(f"{source}: variant {name!r} finds no {old!r}")
+            if src.count(old) != 1:
+                raise RuntimeError(f"{source}: variant {name!r} finds {old!r} "
+                                   f"{src.count(old)} times, not once")
             src = src.replace(old, new)
-        tag = f"{source.split('.')[0]}_{''.join(c if c.isalnum() else '_' for c in name)}"
+        tag = f"{entry}_{''.join(c if c.isalnum() else '_' for c in name)}"
         (out / f"{tag}.cu").write_text(src)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", f"-I{_build.CSRC}", "-o",
                str(out / f"lib{tag}.so"), str(out / f"{tag}.cu"), str(_build.CSRC / "common.cu")]
@@ -103,16 +149,39 @@ def _in_turns(label: str, calls: dict, smi: str) -> None:
         print(f"{label} {name}: {_ms(calls[name]):.4f} ms | {smi}", flush=True)
 
 
-def main() -> int:
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    k11 = _build_variants("short_backward.cu", "lam_short_backward", K11_VARIANTS)
-    k9 = _build_variants("short_attention.cu", "lam_short_attention_bwd", K9_VARIANTS)
-    gen = torch.Generator().manual_seed(0)
+def _k2(gen, dev, stream, smi) -> None:
+    k2 = _build_variants("fused_mlp.cu", "lam_fused_mlp_sm90", K2_VARIANTS)
     bf = torch.bfloat16
-    stream = torch.cuda.current_stream().cuda_stream
+    rows, d = 1843200, 256
+    x = torch.randn(rows, d, generator=gen).to(dev, bf)
+    w1 = (torch.randn(3 * d + 2 * d, d, generator=gen) * 0.05).to(dev, bf)[3 * d:].t()
+    b1 = (torch.randn(2 * d, generator=gen) * 0.1).to(dev, bf)
+    w2 = (torch.randn(d, 3 * d, generator=gen) * 0.05).to(dev, bf)[:, d:].t()
+    out = torch.empty(rows, d, dtype=torch.float32, device=dev)
+    table = torch.empty(fm.GELU_TABLE_ENTRIES, dtype=torch.int16, device=dev)
+    args = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), out.data_ptr(),
+            table.data_ptr(), rows, d, 2 * d, d, x.stride(0), w1.stride(1), w2.stride(1),
+            out.stride(0), *fm.sm90_plan(d, d), int(fm.x_tma_ok(x)), stream)
+    _in_turns(f"K2 [{rows},{d}] -> {2 * d} -> {d}",
+              {name: _checked(fn, args) for name, fn in k2.items()}, smi)
 
+
+def _k9_forward(gen, dev, stream, smi) -> None:
+    k9f = _build_variants("short_attention.cu", "lam_short_attention_fwd", K9_FWD_VARIANTS)
+    bf, b = torch.bfloat16, 61440
+    q, k = (torch.randn(b, 30, 256, generator=gen).to(dev, bf) for _ in range(2))
+    v = torch.randn(b, 30, 768, generator=gen).to(dev, bf)[..., 512:]
+    o = torch.empty(b, 30, 256, dtype=bf, device=dev)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, 16, 30, 16,
+            tsa.fwd_heads_per_block(30, 16, 16), *(s for t in (q, k, v, o) for s in t.stride()[:2]),
+            0.25, stream)
+    _in_turns(f"K9 forward [{b},30,256]", {name: _checked(fn, args) for name, fn in k9f.items()},
+              smi)
+
+
+def _k11(gen, dev, stream, smi) -> None:
+    k11 = _build_variants("short_backward.cu", "lam_short_backward", K11_VARIANTS)
+    bf = torch.bfloat16
     qkv = torch.randn(1920, 192, 3, 16, 16, generator=gen).to(dev, bf)
     q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
     g = torch.randn(1920, 16, 192, 16, generator=gen).to(dev, bf)
@@ -127,18 +196,41 @@ def main() -> int:
     calls = {name: _checked(fn, args) for name, fn in k11.items()}
     calls["PyTorch delta"] = lambda: (g.float() * out.float()).sum(dim=-1).contiguous()
     _in_turns("K11 [1920,16,192,16]", calls, smi)
-    del qkv, q, k, v, g, out, lse, delta, grads
 
-    b = 61440
+
+def _k9_backward(gen, dev, stream, smi) -> None:
+    k9 = _build_variants("short_attention.cu", "lam_short_attention_bwd", K9_VARIANTS)
+    bf, b = torch.bfloat16, 61440
     q, k, g = (torch.randn(b, 30, 256, generator=gen).to(dev, bf) for _ in range(3))
     v = torch.randn(b, 30, 768, generator=gen).to(dev, bf)[..., 512:]
     grads = [torch.empty(b, 30, 256, dtype=bf, device=dev) for _ in range(3)]
-    strides9 = (ctypes.c_longlong * 8)(*(s for t in (q, k, v, g) for s in t.stride()[:2]))
-    args9 = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-             *(t.data_ptr() for t in grads), b, 16, 30, 16, tsa.bwd_heads_per_block(30, 16, 16),
-             strides9, grads[0].stride(0), grads[0].stride(1), 0.25, stream)
-    _in_turns(f"K9 backward [{b},30,256]", {name: _checked(fn, args9) for name, fn in k9.items()},
+    strides = (ctypes.c_longlong * 8)(*(s for t in (q, k, v, g) for s in t.stride()[:2]))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            *(t.data_ptr() for t in grads), b, 16, 30, 16, tsa.bwd_heads_per_block(30, 16, 16),
+            strides, grads[0].stride(0), grads[0].stride(1), 0.25, stream)
+    _in_turns(f"K9 backward [{b},30,256]", {name: _checked(fn, args) for name, fn in k9.items()},
               smi)
+
+
+KERNELS = {"K2": _k2, "K9-forward": _k9_forward, "K11": _k11, "K9-backward": _k9_backward}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("kernels", nargs="*", metavar="kernel",
+                        help=f"the kernels whose variants to time, of {', '.join(KERNELS)} "
+                             f"(default: all)")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    stream = torch.cuda.current_stream().cuda_stream
+    names = parser.parse_args().kernels or list(KERNELS)
+    unknown = sorted(set(names) - set(KERNELS))
+    if unknown:
+        parser.error(f"unknown kernels {unknown}")
+    for name in names:
+        KERNELS[name](torch.Generator().manual_seed(0), dev, stream, smi)
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -520,6 +520,7 @@ def test_short_attention_matches_plain(dev, b, n, heads, dh):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     _assert_k1_close(got, want)
+    assert torch.equal(got, tsa.short_attention(q, k, v, heads))  # no atomics
 
     grad = torch.randn(b, n, heads * dh, generator=g).to(dev, torch.bfloat16)
     scale = dh ** -0.5
@@ -582,23 +583,98 @@ def test_md17_dit_kernel_path_matches_plain_path(dev):
         assert err <= DIT_GRAD_REL_TOL * want_grad.norm().item(), name
 
 
-@pytest.mark.parametrize("rows,d_in,d_mid,d_out", [
-    (4000, 384, 768, 384),
-    (37, 64, 128, 32),
-])
-def test_fused_mlp_matches_plain(dev, rows, d_in, d_mid, d_out):
-    g = _gen(2)
-    x = torch.randn(rows, d_in, generator=g).to(dev, torch.bfloat16)
+def _mlp_inputs(g, dev, rows, d_in, d_mid, d_out, x_offset=0):
+    """x [rows, d_in] (from element x_offset of a flat buffer) and the MLP
+    slices as transposed nn.Linear weights."""
+    flat = torch.randn(rows * d_in + x_offset, generator=g).to(dev, torch.bfloat16)
+    x = flat[x_offset:].view(rows, d_in)
     w1 = (torch.randn(d_mid, d_in, generator=g) * 0.05).to(dev, torch.bfloat16).t()
     b1 = (torch.randn(d_mid, generator=g) * 0.1).to(dev, torch.bfloat16)
     w2 = (torch.randn(d_out, d_mid, generator=g) * 0.05).to(dev, torch.bfloat16).t()
-    before = fm.launches
+    return x, w1, b1, w2
+
+
+@pytest.mark.parametrize("rows,d_in,d_mid,d_out", [
+    (4000, 384, 768, 384),
+    (37, 64, 128, 32),
+    (1, 16, 32, 16),          # one row; hidden 16 of the test configs
+    (129, 32, 64, 32),        # one past a 128-row tile; hidden 32
+    (300, 128, 256, 128),     # pedestrian's hidden
+    (513, 256, 512, 256),     # MD17 and NBA's hidden, ragged rows
+    (16000, 384, 768, 384),   # the 4AA sampling shape at B=8
+    (1000, 48, 80, 272),      # widths off every tile: two output passes
+    (368640, 256, 512, 256),  # the MD17 stage-2 train step
+])
+def test_fused_mlp_matches_plain(dev, rows, d_in, d_mid, d_out):
+    """The Hopper K2 (x by TMA) against its plain version within K2_ATOL; a
+    second call repeats bit for bit (no atomics)."""
+    x, w1, b1, w2 = _mlp_inputs(_gen(2), dev, rows, d_in, d_mid, d_out)
+    before = (fm.launches, fm.wmma_launches, fm.cp_async_launches)
     got = fm.fused_mlp(x, w1, b1, w2)
-    assert fm.launches == before + 1
+    assert (fm.launches, fm.wmma_launches, fm.cp_async_launches) == (before[0] + 1, *before[1:])
     want = fm.reference_mlp(x, w1, b1, w2)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (rows, d_out)
     assert (got - want).abs().max().item() <= K2_ATOL
+    assert torch.equal(got, fm.fused_mlp(x, w1, b1, w2))
+
+
+def test_fused_mlp_routes_and_their_counters(dev):
+    """x at an odd element offset takes the Hopper kernel's cp.async route;
+    d_in 1024 (no shared-memory plan) the WMMA route; each counts its own
+    counter beside ``launches`` and matches the plain version."""
+    g = _gen(3)
+    for case, (rows, d_in, d_mid, d_out, off), counter in (
+            ("cp.async", (513, 256, 512, 256, 1), "cp_async_launches"),
+            ("wmma", (200, 1024, 512, 64, 0), "wmma_launches")):
+        x, w1, b1, w2 = _mlp_inputs(g, dev, rows, d_in, d_mid, d_out, off)
+        assert (fm.sm90_plan(d_in, d_out) is None) == (case == "wmma")
+        assert fm.x_tma_ok(x) == (case == "wmma")
+        before = (fm.launches, getattr(fm, counter))
+        got = fm.fused_mlp(x, w1, b1, w2)
+        assert (fm.launches, getattr(fm, counter)) == (before[0] + 1, before[1] + 1), case
+        want = fm.reference_mlp(x, w1, b1, w2)
+        torch.cuda.synchronize()
+        assert (got - want).abs().max().item() <= K2_ATOL, case
+        assert torch.equal(got, fm.fused_mlp(x, w1, b1, w2)), case
+
+
+@pytest.mark.parametrize("w1_scale,w2_scale", [
+    (1e-4, 0.05),  # |mid| mostly below 2^-9: below the GELU table, 0.5 mid
+    (1.0, 0.002),  # |mid| ~ 11: many above the table, mid or -0
+])
+def test_fused_mlp_gelu_outside_its_table(dev, w1_scale, w2_scale):
+    """The Hopper K2 reads the GELU of a bf16 mid from a table for |mid| in
+    [2^-9, 8) and takes closed forms outside it; at mids mostly outside, the
+    output still matches the plain version within K2_ATOL."""
+    g = _gen(6)
+    x = torch.randn(513, 128, generator=g).to(dev, torch.bfloat16)
+    w1 = (torch.randn(256, 128, generator=g) * w1_scale).to(dev, torch.bfloat16).t()
+    b1 = (torch.randn(256, generator=g) * w1_scale).to(dev, torch.bfloat16)
+    w2 = (torch.randn(128, 256, generator=g) * w2_scale).to(dev, torch.bfloat16).t()
+    got = fm.fused_mlp(x, w1, b1, w2)
+    want = fm.reference_mlp(x, w1, b1, w2)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= K2_ATOL
+
+
+def test_fused_mlp_grads_match_autograd_of_plain(dev):
+    """Inputs that need a grad run K2 inside _FusedMLP, whose backward is
+    autograd of reference_mlp: the same grads as autograd of the plain
+    version, and the forward within K2_ATOL."""
+    x, w1, b1, w2 = _mlp_inputs(_gen(4), dev, 300, 128, 256, 128)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, w1, b1, w2)]
+    plain = [t.detach().clone().requires_grad_() for t in (x, w1, b1, w2)]
+    g_out = torch.randn(300, 128, generator=_gen(5)).to(dev)
+    before = fm.launches
+    got = fm.fused_mlp(*leaves)
+    assert fm.launches == before + 1
+    got.backward(g_out)
+    want = fm.reference_mlp(*plain)
+    want.backward(g_out)
+    assert (got - want).abs().max().item() <= K2_ATOL
+    for leaf, ref in zip(leaves, plain):
+        torch.testing.assert_close(leaf.grad, ref.grad, atol=0, rtol=0)
 
 
 def test_fused_mlp_refuses_row_major_weights(dev):

@@ -1,17 +1,20 @@
-"""The plain versions behind the redesigned K9 backward and K11, on the CPU.
+"""The plain versions behind the redesigned K9 (forward and backward) and
+K11, on the CPU.
 
-``csrc/short_attention.cu``'s backward (K9) runs a warp per head on
-mma.sync tiles: one pass over 16-query by 32-key blocks for n <= 32, three
-passes for longer n; ``csrc/short_backward.cu`` (K11) runs a warpgroup per
-64 keys over 64-query chunks. On the card each is held to its plain
-version, ``reference_short_backward`` and ``reference_flash_backward_short``.
-Here those plain versions are held to the JAX kernels at the new tile
-edges: K9's against ``_short_bwd`` (its Pallas kernel in interpret mode) at
-n on both sides of 16, 32 and 64 and at dh 16, 24 (padded to 32) and 64;
-K11's against ``_flash_backward_short`` at query and key lengths on both
-sides of 64, 128 and 192, with Nq != Nk. Also the K9 wrapper's head-group
-chooser over the whole domain its checks accept, and that CPU calls count
-no launch.
+``csrc/short_attention.cu``'s K9 runs a warp per head on mma.sync tiles:
+the forward over 16-query by 32-key blocks (the scores of one key block
+kept in registers for n <= 32, computed twice past it), the backward in one
+pass for n <= 32 and three for longer n; ``csrc/short_backward.cu`` (K11)
+runs a warpgroup per 64 keys over 64-query chunks. On the card each is held
+to its plain version, ``reference_short_attention``,
+``reference_short_backward`` and ``reference_flash_backward_short``. Here
+those plain versions are held to the JAX kernels at the new tile edges:
+K9's against ``_short_fwd`` and ``_short_bwd`` (their Pallas kernels in
+interpret mode) at n on both sides of 16, 32 and 64 and at dh 16, 24
+(padded to 32) and 64; K11's against ``_flash_backward_short`` at query and
+key lengths on both sides of 64, 128 and 192, with Nq != Nk. Also the K9
+wrapper's head-group choosers, forward and backward, over the whole domain
+its checks accept, and that CPU calls count no launch.
 
 Inputs are made with numpy from a seed; fp32 on both sides, so only the
 order of fp32 sums differs: 2e-5 of the largest value (K9) and JAX's own
@@ -24,7 +27,7 @@ import pytest
 import torch
 
 from lam_slide_tpu.ops.ablations.short_backward import _flash_backward_short
-from lam_slide_tpu.ops.short_attention import _short_bwd
+from lam_slide_tpu.ops.short_attention import _short_bwd, _short_fwd
 from lam_slide_tpu_torch.ops import short_attention as tsa
 from lam_slide_tpu_torch.ops.ablations import short_backward as tsb
 
@@ -66,6 +69,54 @@ def test_k9_plain_backward_matches_jax_at_tile_edges(n, dh):
         assert a.shape == w.shape and a.dtype == torch.float32
         err = np.abs(a.numpy() - w).max()
         assert err <= K9_REL_TOL * np.abs(w).max(), f"{name}: max err {err}"
+
+
+@pytest.mark.parametrize("dh", K9_HEAD_DIMS)
+@pytest.mark.parametrize("n", K9_LENGTHS)
+def test_k9_plain_forward_matches_jax_at_tile_edges(n, dh):
+    heads, b = 3, 2
+    rng = np.random.default_rng(n * 131 + dh)
+    q, k, v = (_randn(rng, b, n, heads * dh) for _ in range(3))
+    scale = dh ** -0.5
+
+    def head_major(a):  # packed [B, n, H*dh] -> [B*H*n, dh]
+        return jnp.asarray(a.reshape(b, n, heads, dh).transpose(0, 2, 1, 3).reshape(-1, dh))
+
+    want = _short_fwd(*(head_major(a) for a in (q, k, v)), n, scale)
+    want = np.asarray(want).reshape(b, heads, n, dh).transpose(0, 2, 1, 3).reshape(b, n, -1)
+    got = tsa.reference_short_attention(_t(q), _t(k), _t(v), heads, scale)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    err = np.abs(got.numpy() - want).max()
+    assert err <= K9_REL_TOL * np.abs(want).max(), f"max err {err}"
+
+
+@pytest.mark.parametrize("dh", [8, 16, 24, 32, 64])
+def test_k9_forward_head_groups_fit_every_length_the_checks_accept(dh):
+    """Every n in 9..127 and head count 1..32: the forward's group is 1..8
+    heads and no more than there are, its shared memory fits the block's 227
+    KB, and the groups are as even as the head count allows while they
+    fit."""
+    for n in range(9, 128):
+        for heads in range(1, 33):
+            hb = tsa.fwd_heads_per_block(n, heads, dh)
+            assert 1 <= hb <= min(heads, tsa.FWD_MAX_HEADS)
+            assert tsa.fwd_smem_bytes(n, dh, hb) <= SMEM_MAX
+            groups = -(-heads // tsa.FWD_MAX_HEADS)
+            even = -(-heads // groups)
+            if tsa.fwd_smem_bytes(n, dh, even) <= SMEM_MAX:
+                assert hb == even
+
+
+def test_k9_forward_shared_memory_follows_the_kernel_layout():
+    """Seven bf16 tiles (two stages of q/k/v, the output) of n rounded up to
+    32 rows by hb * (dh padded to 16, 32 or 64) + 8 columns. The MD17
+    temporal axis (n 30, 16 heads of 16) takes groups of 8 in 61 KB, three
+    blocks an SM; dh 64 at n 127 fits one head a block."""
+    assert tsa.fwd_heads_per_block(30, 16, 16) == 8
+    assert tsa.fwd_smem_bytes(30, 16, 8) == 7 * 32 * (8 * 16 + 8) * 2 == 60928
+    assert tsa.fwd_smem_bytes(33, 24, 3) == 7 * 64 * (3 * 32 + 8) * 2
+    assert tsa.fwd_heads_per_block(127, 8, 64) == 1
+    assert tsa.fwd_smem_bytes(127, 64, 1) == 7 * 128 * 72 * 2
 
 
 def _softmax_stats(q, k, v, scale):
@@ -122,14 +173,16 @@ def test_k9_shared_memory_follows_the_kernel_layout():
 
 
 def test_cpu_calls_count_no_launch(monkeypatch):
-    """On CPU tensors both backwards take their plain versions and count
-    nothing."""
+    """On CPU tensors K9's forward and both backwards take their plain
+    versions and count nothing."""
+    monkeypatch.setattr(tsa, "launches", 0)
     monkeypatch.setattr(tsa, "bwd_launches", 0)
     monkeypatch.setattr(tsb, "launches", 0)
     rng = np.random.default_rng(0)
     q, k, v, g = (_t(_randn(rng, 2, 30, 32)).to(torch.bfloat16) for _ in range(4))
+    tsa.short_attention(q, k, v, 2)
     tsa.short_attention_backward(q, k, v, g, 2, 0.25)
     hq, hk, hv, hg = (_t(_randn(rng, 2, 2, 65, 16)).to(torch.bfloat16) for _ in range(4))
     out, lse = _softmax_stats(*(t.float().numpy() for t in (hq, hk, hv)), 0.25)
     tsb.flash_backward_short(hq, hk, hv, _t(out).to(torch.bfloat16), _t(lse), hg, 0.25)
-    assert (tsa.bwd_launches, tsb.launches) == (0, 0)
+    assert (tsa.launches, tsa.bwd_launches, tsb.launches) == (0, 0, 0)
