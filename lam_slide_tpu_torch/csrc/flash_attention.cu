@@ -1,30 +1,23 @@
-// Flash-attention forward for Hopper (sm_90a): bf16 in / bf16 out, its two
-// variants with per-head QK RMS-norm + RoPE applied inside the kernel, and an
-// fp32 in / fp32 out instantiation; the bf16 and fp32 forwards take an
-// optional key-padding bias row.
+// Flash-attention forward for Hopper (sm_90a) on the first tensor-core
+// template: bf16 in / bf16 out with a key-padding bias row, K10's variant
+// with the per-head QK RMS-norm + RoPE applied inside the kernel in its
+// lane form, and an fp32 in / fp32 out kernel with an optional bias.
 //
-// Replaces four Pallas TPU kernels (the unmasked bf16 K1 and K3 moved to
-// flash_fwd_sm90.cu, which was redesigned for Hopper; this template keeps
-// K1's key-padding bias, its fp32 operands, K5 and K10):
+// Replaces these Pallas TPU kernels, or variants of them (the unmasked bf16
+// K1 and K3 moved to flash_fwd_sm90.cu, which was redesigned for Hopper; K5
+// runs on that kernel after the write-once transform of qk_normrope.cu):
 // - K1, lam_slide_tpu/ops/flash_attention.py `_flash_kernel` (pallas_call in
-//   `_flash_forward`), the head-major forward;
-// - K3, the same file's `_packed_manual_kernel` (`flash_attention_packed`):
-//   q/k/v/o are read and written through per-tensor (batch, head, seq)
-//   strides with unit stride on dh, so q/k/v can be views of linear1's
-//   output and o a view of a packed [B, N, H*dh] buffer; the packed entry is
-//   this kernel called with packed strides, no second binary;
-// - K5, lam_slide_tpu/ops/flash_normrope.py `_nr_flash_kernel`: the XF_HEADMAJOR
-//   instantiation takes RAW q/k, normalizes and rotates the Q tile once after
-//   it lands in shared memory and each K tile as it lands, in place, and
-//   then runs the same recurrence (lam_rmsnorm_rope in common.cuh keeps the
-//   rounding points of headmajor_rope(headmajor_rmsnorm(x)));
+//   `_flash_forward`), the head-major forward, with its key-padding bias and
+//   with fp32 operands; q/k/v/o are read and written through per-tensor
+//   (batch, head, seq) strides with unit stride on dh, so they can be views
+//   of packed buffers;
 // - K10, lam_slide_tpu/ops/ablations/fused_temporal_attention.py `_kernel`
-//   (pallas_call in `_fused_forward`): the XF_LANE instantiation, K3's packed
-//   strides with K5's in-tile transform in the lane form of the JAX op. Its
-//   scales are [D] lane scales and its tables [T, D] lane tables (D = H*dh),
-//   read at the head's lane offset h*dh, so any table the JAX op accepts
-//   gives its result, not only tiled ones; and it rounds once, after norm
-//   and RoPE together (lam_rmsnorm_rope_lanes), where K5 rounds after each.
+//   (pallas_call in `_fused_forward`): the XF_LANE instantiation, packed
+//   strides with the QK transform of each tile in shared memory in the lane
+//   form of the JAX op. Its scales are [D] lane scales and its tables [T, D]
+//   lane tables (D = H*dh), read at the head's lane offset h*dh, so any
+//   table the JAX op accepts gives its result, not only tiled ones; and it
+//   rounds once, after norm and RoPE together (lam_rmsnorm_rope_lanes).
 //   The JAX kernel keeps a whole key row per query block; the online-softmax
 //   recurrence here computes the same function.
 //
@@ -45,9 +38,9 @@
 // so it is bound by the tensor-core and shared-memory work per tile, not
 // by HBM bytes (q/k/v are ~150 KB per head). This first version favours
 // clarity: WMMA through shared memory, scalar tile loads, no cp.async/TMA
-// pipelining and no wgmma; those are the levers for making it fast. The
-// K5 transform is redone for every (query tile, key tile) pair, as in the
-// TPU kernel: 16x the minimal norm/rope work at N=1000, all on chip.
+// pipelining and no wgmma; those are the levers for making it fast. K10's
+// transform is redone for every (query tile, key tile) pair, as in the TPU
+// kernel: 16x the minimal norm/rope work at N=1000, all on chip.
 //
 // Numerics (docs/PERF.md "Kernel numerics"): bf16 operands, fp32 logits
 // and statistics, P rounded to bf16 before the AV product, output in q's
@@ -103,20 +96,15 @@ struct Layout {
   static constexpr size_t bytes = lam_align128(a_off + NWARPS * 16 * LDA * sizeof(float));
 };
 
-// The transform of the q/k tiles in shared memory: none (K1, K3); K5's
-// per-head RMS-norm (scales qs/ks [dh]) and RoPE (cos/sin [>= max(Nq, Nk),
-// dh/2], row-major) on RAW q/k; or K10's lane form (scales [H*dh], tables
-// [>= max(Nq, Nk), H*dh], one rounding, eps given).
-enum Transform : int { XF_NONE = 0, XF_HEADMAJOR = 1, XF_LANE = 2 };
+// The transform of the q/k tiles in shared memory: none (K1), or K10's lane
+// form (scales [H*dh], tables [>= max(Nq, Nk), H*dh], one rounding, eps
+// given) on RAW q/k.
+enum Transform : int { XF_NONE = 0, XF_LANE = 2 };
 
-template <int XF>
 __device__ __forceinline__ void transform_tile(bf16* tile, int ld, int n0, int n, int dh, int h,
                                                int H, const float* scale, const float* cos,
                                                const float* sin, float eps) {
-  if constexpr (XF == XF_HEADMAJOR)
-    normrope_tile(tile, ld, n0, n, dh, scale, cos, sin);
-  else
-    normrope_lane_tile(tile, ld, n0, n, dh, h * dh, H * dh, scale, cos, sin, eps);
+  normrope_lane_tile(tile, ld, n0, n, dh, h * dh, H * dh, scale, cos, sin, eps);
 }
 
 // XF: the tile transform above. BIAS: add the key-padding bias row (a
@@ -155,7 +143,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile<DP>(Qs, LDT, qp, q_sn, q0, Nq, dh);
   if constexpr (XF != XF_NONE) {
     __syncthreads();
-    transform_tile<XF>(Qs, LDT, q0, Nq, dh, h, H, qs, cos, sin, eps);
+    transform_tile(Qs, LDT, q0, Nq, dh, h, H, qs, cos, sin, eps);
   }
   for (int i = lane; i < 16 * LDA; i += 32) As[i] = 0.0f;
 
@@ -170,7 +158,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile<DP>(Vs, LDT, vp, v_sn, kt * BK, Nk, dh);
     __syncthreads();
     if constexpr (XF != XF_NONE) {
-      transform_tile<XF>(Ks, LDT, kt * BK, Nk, dh, h, H, ks, cos, sin, eps);
+      transform_tile(Ks, LDT, kt * BK, Nk, dh, h, H, ks, cos, sin, eps);
       __syncthreads();
     }
 
@@ -444,23 +432,6 @@ extern "C" int lam_flash_attention_fwd_f32(
   else
     err = launch_f32<64>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, st);
   return static_cast<int>(err);
-}
-
-// As lam_flash_attention_fwd on RAW q/k, plus fp32 qs/ks [dh] (the learned
-// RMS-norm scales) and fp32 cos/sin [>= max(Nq, Nk), dh/2] row-major RoPE
-// tables; dh must be even. No bias.
-extern "C" int lam_flash_attention_normrope_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse, const void* qs,
-    const void* ks, const void* cos, const void* sin, int B, int H, int Nq, int Nk, int dh,
-    long long q_sb, long long q_sh, long long q_sn, long long k_sb, long long k_sh,
-    long long k_sn, long long v_sb, long long v_sh, long long v_sn, long long o_sb,
-    long long o_sh, long long o_sn, float scale, void* stream) {
-  const long long s[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
-                           v_sb, v_sh, v_sn, o_sb, o_sh, o_sn};
-  const NormRope nr{static_cast<const float*>(qs), static_cast<const float*>(ks),
-                    static_cast<const float*>(cos), static_cast<const float*>(sin), NR_EPS};
-  return launch_dh<XF_HEADMAJOR>(q, k, v, o, lse, nullptr, nr, B, H, Nq, Nk, dh, s, scale,
-                                 stream);
 }
 
 // K10: packed q/k/v [N, T, H*dh] as head-major bf16 [N, H, T, dh] strided

@@ -1,18 +1,14 @@
-// FlashAttention-2 backward for Hopper (sm_90a): bf16 in / bf16 out, with an
-// optional key-padding bias row, its variant with per-head QK RMS-norm + RoPE
-// applied inside the kernel, and an fp32 in / fp32 out pair of kernels.
+// FlashAttention-2 backward for Hopper (sm_90a) on the first tensor-core
+// template: bf16 in / bf16 out with a key-padding bias row, and an fp32 in /
+// fp32 out pair of kernels with an optional bias.
 //
-// Replaces four Pallas TPU kernels (the unmasked bf16 K4 moved to
-// flash_bwd_sm90.cu, redesigned for Hopper; this pair keeps K4's
-// key-padding bias, its fp32 operands and K6):
-// - K4, lam_slide_tpu/ops/flash_attention.py `_flash_bwd_kv_kernel` and
-//   `_flash_bwd_q_kernel` (pallas_calls in `_flash_backward`);
-// - K6, lam_slide_tpu/ops/flash_normrope.py `_nr_bwd_kv_kernel` and
-//   `_nr_bwd_q_kernel` (`_nr_backward`): the NR=true instantiation takes RAW
-//   q/k, normalizes and rotates every Q and K tile in shared memory as the
-//   forward K5 does (lam_rmsnorm_rope keeps its rounding points), and emits
-//   dq/dk with respect to the TRANSFORMED q/k; the caller chains them back to
-//   the raw q/k and the norm scales through autograd of the plain transform.
+// Replaces variants of the Pallas TPU kernels of K4,
+// lam_slide_tpu/ops/flash_attention.py `_flash_bwd_kv_kernel` and
+// `_flash_bwd_q_kernel` (pallas_calls in `_flash_backward`): its key-padding
+// bias and its fp32 operands. The unmasked bf16 K4 moved to
+// flash_bwd_sm90.cu, redesigned for Hopper; K6 (flash_normrope.py
+// `_nr_bwd_kv_kernel`, `_nr_bwd_q_kernel`) runs on that kernel too, on the
+// q/k that qk_normrope.cu transformed once for the forward.
 //
 // Given the forward's lse [B, H, Nq] and delta = rowsum(dO * O) [B, H, Nq]
 // (fp32, computed outside the kernels as in JAX), each tile recomputes
@@ -41,15 +37,13 @@
 // forward has two) with O(N*dh) bytes per head, so tensor-core and
 // shared-memory work per tile, as for K1. This first version favours
 // clarity: WMMA through shared memory, scalar tile loads, no cp.async/TMA
-// and no wgmma. The NR variant transforms every Q tile once per key tile in
-// the kv kernel and every K tile once per query tile in the q kernel, as the
-// TPU kernels do (16x the minimal transform work at N=1000).
+// and no wgmma.
 //
 // Key-padding bias (`_bwd_probs`, flash_attention.py:411-440): the fp32
 // [B, Nk] row the forward added (0 or -0.7*FLT_MAX) is added to the scaled
-// logit before exp(s - lse), exactly where JAX adds it, in both kernels. It
-// is a template parameter of the bf16 pair (BIAS), so the unmasked K4 and K6
-// keep their inner loop. An all-masked row's lse is the mask fill itself
+// logit before exp(s - lse), exactly where JAX adds it, in both kernels of
+// the bf16 pair (the unmasked bf16 K4 is flash_bwd_sm90.cu) and, when given,
+// of the fp32 pair. An all-masked row's lse is the mask fill itself
 // (log(Nk) rounds away), so each of its keys gets P = exp(0) = 1, as in JAX.
 //
 // fp32 operands (stage 1 trains in fp32; the stage-2 aux losses decode
@@ -97,9 +91,8 @@ enum Tensor { TQ = 0, TK = 3, TV = 6, TDO = 9, TDQ = 12, TDK = 15, TDV = 18 };
 struct BwdArgs {
   const bf16 *q, *k, *v, *dout;
   const float *lse, *delta;  // fp32 [B, H, Nq], contiguous
-  const float* bias;         // fp32 [B, Nk], contiguous; BIAS only
+  const float* bias;         // fp32 [B, Nk], contiguous
   bf16 *dq, *dk, *dv;
-  const float *qs, *ks, *cos, *sin;  // NR only
   int H, Nq, Nk, dh;
   long long s[21];
   float scale;
@@ -190,7 +183,7 @@ __device__ __forceinline__ void probs(float sl, float dp, float lse, float delta
 }
 
 // One (batch*head, 64-key tile): dK, dV over all query tiles.
-template <int DP, bool NR, bool BIAS>
+template <int DP>
 __global__ void __launch_bounds__(THREADS) flash_bwd_kv_kernel(const BwdArgs a) {
   using Lay = BwdLayout<DP>;
   constexpr int LDT = Lay::LDT, LDS = Lay::LDS, LDP = Lay::LDP;
@@ -217,10 +210,6 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_kv_kernel(const BwdArgs a) 
 
   load_tile<DP>(Ks, LDT, head(a.k, a, TK, b, h), a.s[TK + 2], k0, a.Nk, a.dh);
   load_tile<DP>(Vs, LDT, head(a.v, a, TV, b, h), a.s[TV + 2], k0, a.Nk, a.dh);
-  if constexpr (NR) {
-    __syncthreads();
-    normrope_tile(Ks, LDT, k0, a.Nk, a.dh, a.ks, a.cos, a.sin);
-  }
 
   Acc dk[DP / 16], dv[DP / 16];
 #pragma unroll
@@ -232,8 +221,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_kv_kernel(const BwdArgs a) 
   const int r = lane >> 1, half = lane & 1;
   const int key = k0 + warp * 16 + r;
   const bool key_ok = key < a.Nk;
-  float key_bias = 0.0f;
-  if constexpr (BIAS) key_bias = key_ok ? a.bias[static_cast<long long>(b) * a.Nk + key] : 0.0f;
+  const float key_bias = key_ok ? a.bias[static_cast<long long>(b) * a.Nk + key] : 0.0f;
   const int n_tiles = (a.Nq + BQ - 1) / BQ;
 
   for (int qt = 0; qt < n_tiles; ++qt) {
@@ -247,10 +235,6 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_kv_kernel(const BwdArgs a) 
       delta_s[i] = ok ? deltap[q0 + i] : 0.0f;
     }
     __syncthreads();
-    if constexpr (NR) {
-      normrope_tile(Qs, LDT, q0, a.Nq, a.dh, a.qs, a.cos, a.sin);
-      __syncthreads();
-    }
 
     // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x 64 queries
     two_products_t<DP, LDT, LDS>(Ks + warp * 16 * LDT, Qs, Vs + warp * 16 * LDT, dOs, Ss, DPs);
@@ -258,7 +242,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_kv_kernel(const BwdArgs a) 
     for (int j = 0; j < 32; ++j) {
       const int c = half * 32 + j;
       float sl = __fmul_rn(Ss[r * LDS + c], a.scale);
-      if constexpr (BIAS) sl = __fadd_rn(sl, key_bias);
+      sl = __fadd_rn(sl, key_bias);
       probs(sl, DPs[r * LDS + c], lse_s[c], delta_s[c], a.scale, key_ok && q0 + c < a.Nq,
             Ps + r * LDP + c, dSs + r * LDP + c);
     }
@@ -275,7 +259,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_kv_kernel(const BwdArgs a) 
 }
 
 // One (batch*head, 64-query tile): dQ over all key tiles.
-template <int DP, bool NR, bool BIAS>
+template <int DP>
 __global__ void __launch_bounds__(THREADS) flash_bwd_q_kernel(const BwdArgs a) {
   using Lay = BwdLayout<DP>;
   constexpr int LDT = Lay::LDT, LDS = Lay::LDS, LDP = Lay::LDP;
@@ -298,10 +282,6 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_q_kernel(const BwdArgs a) {
 
   load_tile<DP>(Qs, LDT, head(a.q, a, TQ, b, h), a.s[TQ + 2], q0, a.Nq, a.dh);
   load_tile<DP>(dOs, LDT, head(a.dout, a, TDO, b, h), a.s[TDO + 2], q0, a.Nq, a.dh);
-  if constexpr (NR) {
-    __syncthreads();
-    normrope_tile(Qs, LDT, q0, a.Nq, a.dh, a.qs, a.cos, a.sin);
-  }
 
   Acc dq[DP / 16];
 #pragma unroll
@@ -320,15 +300,9 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_q_kernel(const BwdArgs a) {
     __syncthreads();  // previous K/V tiles consumed
     load_tile<DP>(Ks, LDT, kp, a.s[TK + 2], k0, a.Nk, a.dh);
     load_tile<DP>(Vs, LDT, vp, a.s[TV + 2], k0, a.Nk, a.dh);
-    if constexpr (BIAS) {
-      for (int i = threadIdx.x; i < BK; i += THREADS)
-        bias_s[i] = k0 + i < a.Nk ? a.bias[static_cast<long long>(b) * a.Nk + k0 + i] : 0.0f;
-    }
+    for (int i = threadIdx.x; i < BK; i += THREADS)
+      bias_s[i] = k0 + i < a.Nk ? a.bias[static_cast<long long>(b) * a.Nk + k0 + i] : 0.0f;
     __syncthreads();
-    if constexpr (NR) {
-      normrope_tile(Ks, LDT, k0, a.Nk, a.dh, a.ks, a.cos, a.sin);
-      __syncthreads();
-    }
 
     // S = Q K^T and dP = dO V^T: the warp's 16 queries x 64 keys
     two_products_t<DP, LDT, LDS>(Qs + warp * 16 * LDT, Ks, dOs + warp * 16 * LDT, Vs, Ss, DPs);
@@ -336,7 +310,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_q_kernel(const BwdArgs a) {
     for (int j = 0; j < 32; ++j) {
       const int c = half * 32 + j;
       float sl = __fmul_rn(Ss[r * LDS + c], a.scale);
-      if constexpr (BIAS) sl = __fadd_rn(sl, bias_s[c]);
+      sl = __fadd_rn(sl, bias_s[c]);
       probs(sl, DPs[r * LDS + c], lse, delta, a.scale, row_ok && k0 + c < a.Nk, nullptr,
             dSs + r * LDP + c);
     }
@@ -348,55 +322,46 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_q_kernel(const BwdArgs a) {
                       q0 + warp * 16, a.Nq, a.dh);
 }
 
-template <int DP, bool NR, bool BIAS>
+template <int DP>
 cudaError_t launch(bool kv, const BwdArgs& a, int B, cudaStream_t stream) {
   constexpr size_t smem = BwdLayout<DP>::bytes;
   if (kv) {
-    static cudaError_t attr = lam_set_smem(flash_bwd_kv_kernel<DP, NR, BIAS>, smem);
+    static cudaError_t attr = lam_set_smem(flash_bwd_kv_kernel<DP>, smem);
     if (attr != cudaSuccess) return attr;
     const dim3 grid(grid_blocks(B * a.H, a.Nk, BK));
-    flash_bwd_kv_kernel<DP, NR, BIAS><<<grid, THREADS, smem, stream>>>(a);
+    flash_bwd_kv_kernel<DP><<<grid, THREADS, smem, stream>>>(a);
   } else {
-    static cudaError_t attr = lam_set_smem(flash_bwd_q_kernel<DP, NR, BIAS>, smem);
+    static cudaError_t attr = lam_set_smem(flash_bwd_q_kernel<DP>, smem);
     if (attr != cudaSuccess) return attr;
     const dim3 grid(grid_blocks(B * a.H, a.Nq, BQ));
-    flash_bwd_q_kernel<DP, NR, BIAS><<<grid, THREADS, smem, stream>>>(a);
+    flash_bwd_q_kernel<DP><<<grid, THREADS, smem, stream>>>(a);
   }
   return cudaGetLastError();
 }
 
-template <bool NR, bool BIAS>
-cudaError_t launch_dp(bool kv, const BwdArgs& a, int B, cudaStream_t stream) {
-  if (a.dh <= 32) return launch<32, NR, BIAS>(kv, a, B, stream);
-  if (a.dh <= 64) return launch<64, NR, BIAS>(kv, a, B, stream);
-  return launch<128, NR, BIAS>(kv, a, B, stream);
-}
-
+// The bf16 pair with the bias; a null bias is refused (the unmasked bf16 K4
+// is flash_bwd_sm90.cu).
 int launch_bwd(bool kv, const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, const void* bias, void* dq, void* dk,
-               void* dv, const void* qs, const void* ks, const void* cos, const void* sin,
-               int B, int H, int Nq, int Nk, int dh, const long long* strides, float scale,
-               void* stream) {
-  const bool nr = qs != nullptr;
-  if (dh <= 0 || dh > 128 || (nr && (dh % 2 || bias != nullptr)) || Nq <= 0 || Nk <= 0)
+               void* dv, int B, int H, int Nq, int Nk, int dh, const long long* strides,
+               float scale, void* stream) {
+  if (dh <= 0 || dh > 128 || bias == nullptr || Nq <= 0 || Nk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
             static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
             static_cast<const float*>(lse), static_cast<const float*>(delta),
             static_cast<const float*>(bias),
             static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-            static_cast<const float*>(qs), static_cast<const float*>(ks),
-            static_cast<const float*>(cos), static_cast<const float*>(sin),
             H, Nq, Nk, dh, {}, scale};
   for (int i = 0; i < 21; ++i) a.s[i] = strides[i];
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (nr)
-    err = launch_dp<true, false>(kv, a, B, st);
-  else if (bias != nullptr)
-    err = launch_dp<false, true>(kv, a, B, st);
-  else  // unmasked bf16 K4: flash_bwd_sm90.cu
-    err = cudaErrorInvalidValue;
+  if (dh <= 32)
+    err = launch<32>(kv, a, B, st);
+  else if (dh <= 64)
+    err = launch<64>(kv, a, B, st);
+  else
+    err = launch<128>(kv, a, B, st);
   return static_cast<int>(err);
 }
 
@@ -586,32 +551,28 @@ int launch_bwd_f32(bool kv, const void* q, const void* k, const void* v, const v
 // q/k/v/dout and dq/dk/dv: bf16 [B, H, N, dh] addressed through element
 // strides (batch, head, seq) given in `strides` in the order q, k, v, dout,
 // dq, dk, dv (21 values); dh has unit stride. lse/delta: fp32 [B, H, Nq]
-// contiguous. bias: null, or the fp32 key-padding bias [B, Nk] contiguous
-// (K4 only; a null bias without qs is refused, the unmasked bf16 K4 being
-// lam_flash_attention_bwd_sm90). qs/ks/cos/sin: null for K4; for K6 the
-// fp32 RMS-norm scales [dh] and the row-major RoPE tables [>= max(Nq, Nk),
-// dh/2], and dq/dk are then gradients with respect to the transformed q/k. The kv entry writes
-// dk and dv, the q entry dq. Each returns cudaGetLastError().
+// contiguous. bias: the fp32 key-padding bias [B, Nk] contiguous; a null
+// bias is refused, the unmasked bf16 K4 being lam_flash_attention_bwd_sm90.
+// The kv entry writes dk and dv, the q entry dq. Each returns
+// cudaGetLastError().
 extern "C" int lam_flash_attention_bwd_kv(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, const void* bias, void* dq, void* dk, void* dv, const void* qs,
-    const void* ks, const void* cos, const void* sin, int B, int H, int Nq, int Nk, int dh,
-    const long long* strides, float scale, void* stream) {
-  return launch_bwd(true, q, k, v, dout, lse, delta, bias, dq, dk, dv, qs, ks, cos, sin, B, H,
-                    Nq, Nk, dh, strides, scale, stream);
+    const void* delta, const void* bias, void* dq, void* dk, void* dv, int B, int H, int Nq,
+    int Nk, int dh, const long long* strides, float scale, void* stream) {
+  return launch_bwd(true, q, k, v, dout, lse, delta, bias, dq, dk, dv, B, H, Nq, Nk, dh,
+                    strides, scale, stream);
 }
 
 extern "C" int lam_flash_attention_bwd_q(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, const void* bias, void* dq, void* dk, void* dv, const void* qs,
-    const void* ks, const void* cos, const void* sin, int B, int H, int Nq, int Nk, int dh,
-    const long long* strides, float scale, void* stream) {
-  return launch_bwd(false, q, k, v, dout, lse, delta, bias, dq, dk, dv, qs, ks, cos, sin, B, H,
-                    Nq, Nk, dh, strides, scale, stream);
+    const void* delta, const void* bias, void* dq, void* dk, void* dv, int B, int H, int Nq,
+    int Nk, int dh, const long long* strides, float scale, void* stream) {
+  return launch_bwd(false, q, k, v, dout, lse, delta, bias, dq, dk, dv, B, H, Nq, Nk, dh,
+                    strides, scale, stream);
 }
 
 // As the two entries above on fp32 q/k/v/dout and dq/dk/dv (dh <= 64), with
-// the same strides, lse, delta and optional bias, and no QK transform.
+// the same strides, lse, delta and optional bias.
 extern "C" int lam_flash_attention_bwd_f32_kv(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, const void* bias, void* dq, void* dk, void* dv, int B, int H, int Nq,

@@ -4,7 +4,10 @@
 // Replaces the Pallas TPU kernels of K4, lam_slide_tpu/ops/flash_attention.py
 // `_flash_bwd_kv_kernel` and `_flash_bwd_q_kernel` (pallas_calls in
 // `_flash_backward`, probabilities from `_bwd_probs`), for bf16 inputs
-// without a key-padding bias. csrc/flash_attention_bwd.cu keeps K6, the
+// without a key-padding bias, and of K6, lam_slide_tpu/ops/flash_normrope.py
+// `_nr_bwd_kv_kernel` and `_nr_bwd_q_kernel`, which it runs on the q/k that
+// qk_normrope.cu transformed once for the forward (K6's grads are those with
+// respect to the transformed q/k). csrc/flash_attention_bwd.cu keeps K4's
 // bias and fp32 operands.
 //
 // Three kernels, in the FlashAttention-2/3 structure:

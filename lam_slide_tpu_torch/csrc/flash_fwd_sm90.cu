@@ -8,8 +8,9 @@
 //   this kernel reads q/k/v and writes o through (batch, head, seq) element
 //   strides, so K3 is the same binary called on head-major views of packed
 //   [B, N, H*dh] memory, with no copy in or out.
-// K1's key-padding bias, its fp32 operands, K5 and K10 stay on the template
-// of flash_attention.cu.
+// It also runs K5, lam_slide_tpu/ops/flash_normrope.py `_nr_flash_kernel`,
+// on the q/k that qk_normrope.cu transforms once. K1's key-padding bias, its
+// fp32 operands and K10 stay on the template of flash_attention.cu.
 //
 // What bounds it on the H100. At the main paths' head dims (16 at N = 192,
 // 24 at N = 1000) the products are small (4*N^2*dh FLOPs a head) and the

@@ -1,6 +1,6 @@
 // Tile shapes and shared-memory tile loaders of the flash-attention forward
-// (flash_attention.cu: K1, K3, K5) and backward (flash_attention_bwd.cu: K4,
-// K6) kernels.
+// (flash_attention.cu: K1 with a bias or fp32 operands, K10) and backward
+// (flash_attention_bwd.cu: K4 with a bias or fp32 operands) kernels.
 #pragma once
 
 #include "common.cuh"
@@ -12,7 +12,6 @@ constexpr int BK = 64;        // keys per tile
 constexpr int NWARPS = 4;     // 16 rows of a 64-row tile per warp
 constexpr int THREADS = NWARPS * 32;
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;  // the JAX kernels' mask fill
-constexpr float NR_EPS = 1e-6f;  // QK RMS-norm eps (flash_normrope.py _EPS)
 
 static_assert(BQ == BK, "the tile loaders serve Q, K, V and dO tiles alike");
 
@@ -46,22 +45,11 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src, lo
   }
 }
 
-// RMS-norm + RoPE of a tile's rows at sequence positions n0 + r < n, in
-// place; warp w takes rows [16w, 16w + 16). Padding rows stay zero.
-__device__ __forceinline__ void normrope_tile(bf16* tile, int ld, int n0, int n, int dh,
-                                              const float* scale, const float* cos,
-                                              const float* sin) {
-  const int warp = threadIdx.x / 32;
-  for (int r = warp * 16; r < warp * 16 + 16 && n0 + r < n; ++r) {
-    const long long pos = n0 + r;
-    lam_rmsnorm_rope(tile + r * ld, dh, scale, cos + pos * (dh / 2), sin + pos * (dh / 2),
-                     NR_EPS);
-  }
-}
-
-// K10's lane form of the same: row r at sequence position n0 + r < n takes
-// its [dh] slice of the [D] lane scale and of the position's [D] lane-table
-// rows at the head's lane offset lane0 (D = H*dh), eps given, one rounding.
+// K10's QK RMS-norm + RoPE of a tile's rows at sequence positions n0 + r < n,
+// in place, in the lane form; warp w takes rows [16w, 16w + 16), padding
+// rows stay zero. Row r takes its [dh] slice of the [D] lane scale and of
+// the position's [D] lane-table rows at the head's lane offset lane0
+// (D = H*dh), eps given, one rounding.
 __device__ __forceinline__ void normrope_lane_tile(bf16* tile, int ld, int n0, int n, int dh,
                                                    int lane0, int D, const float* scale,
                                                    const float* cos, const float* sin,

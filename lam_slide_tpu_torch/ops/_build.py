@@ -33,18 +33,17 @@ LIB_NAME = "liblam_slide_kernels.so"
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _LP = ctypes.POINTER(ctypes.c_longlong)
 _FLASH_FWD = [_P] * 6 + [_I] * 5 + [_L] * 12 + [_F, _P]
-_FLASH_BWD = [_P] * 14 + [_I] * 5 + [_LP, _F, _P]
-_FLASH_BWD_F32 = [_P] * 10 + [_I] * 5 + [_LP, _F, _P]
+_FLASH_BWD = [_P] * 10 + [_I] * 5 + [_LP, _F, _P]
 SIGNATURES = {
     "lam_flash_attention_fwd": _FLASH_FWD,
     "lam_flash_attention_fwd_f32": _FLASH_FWD,
     "lam_flash_attention_fwd_sm90": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
     "lam_flash_attention_bwd_sm90": [_P] * 10 + [_I] * 5 + [_LP, _F, _I, _P],
-    "lam_flash_attention_normrope_fwd": [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _P],
+    "lam_qk_normrope": [_P] * 8 + [_I] * 5 + [_L] * 6 + [_F, _P],
     "lam_flash_attention_bwd_kv": _FLASH_BWD,
     "lam_flash_attention_bwd_q": _FLASH_BWD,
-    "lam_flash_attention_bwd_f32_kv": _FLASH_BWD_F32,
-    "lam_flash_attention_bwd_f32_q": _FLASH_BWD_F32,
+    "lam_flash_attention_bwd_f32_kv": _FLASH_BWD,
+    "lam_flash_attention_bwd_f32_q": _FLASH_BWD,
     "lam_fused_mlp_sm90": [_P] * 6 + [_I] * 4 + [_L] * 4 + [_I] * 4 + [_P],
     "lam_fused_mlp_wmma": [_P] * 5 + [_I] * 4 + [_L] * 4 + [_P],
     "lam_adaln_fwd": [_P] * 7 + [_L, _L, _L, _I] + [_L] * 6 + [_F, _I, _P],

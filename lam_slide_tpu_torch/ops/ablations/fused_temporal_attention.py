@@ -8,9 +8,9 @@ segments; the RoPE tables are ``[T, D]`` lane tables and the norm scales
 ``[1, D]`` lane scales (``lane_rope_tables`` and the tiled ``[dh]`` scales,
 latent_dit.py:309-311). The kernel is the ``XF_LANE`` configuration of K1's
 template in ``csrc/flash_attention.cu`` (C entry ``lam_fused_temporal_fwd``):
-K3's packed strides, so no head transpose is copied in or out, and K5's
-in-tile transform in the JAX op's lane form, with one rounding to the
-operand dtype after norm and RoPE together.
+K3's packed strides, so no head transpose is copied in or out, and the QK
+RMS-norm + RoPE of each q and k tile in shared memory, in the JAX op's lane
+form, with one rounding to the operand dtype after norm and RoPE together.
 
 Gradients, as in JAX (``_bwd``, :185-191): no backward kernel; on CUDA
 tensors that need one, the forward runs inside ``_FusedTemporal``, whose

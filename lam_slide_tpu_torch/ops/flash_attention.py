@@ -204,29 +204,45 @@ def _forward(q, k, v, scale: float, with_lse: bool, mask: Optional[torch.Tensor]
     b, h, nq, dh = q.shape
     nk = k.shape[2]
     fp32 = q.dtype == torch.float32
+    global launches, bias_launches, fp32_launches
+    if not fp32 and mask is None:
+        out, lse = _launch_sm90_forward(q, k, v, scale, with_lse, sys.modules[__name__])
+        launches += 1
+        return out, lse
     bias = None if mask is None else _bias(mask, q, nk)
     out = _packed_like(q, nq)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    lse_ptr = None if lse is None else lse.data_ptr()
-    sm90 = not fp32 and bias is None
-    tma = sm90 and sm90_tma_ok(q, k, v)
-    global launches, bias_launches, fp32_launches, sm90_launches, sm90_cp_async_launches
     with torch.cuda.device(q.device):
-        if sm90:
-            _build.launch("lam_flash_attention_fwd_sm90", q.data_ptr(), k.data_ptr(),
-                          v.data_ptr(), out.data_ptr(), lse_ptr, b, h, nq, nk, dh, *strides,
-                          float(scale), int(tma), _stream(q))
-        else:
-            _build.launch("lam_flash_attention_fwd_f32" if fp32 else "lam_flash_attention_fwd",
-                          q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
-                          None if bias is None else bias.data_ptr(), b, h, nq, nk, dh,
-                          *strides, float(scale), _stream(q))
+        _build.launch("lam_flash_attention_fwd_f32" if fp32 else "lam_flash_attention_fwd",
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      None if lse is None else lse.data_ptr(),
+                      None if bias is None else bias.data_ptr(), b, h, nq, nk, dh,
+                      *strides, float(scale), _stream(q))
     launches += 1
     bias_launches += bias is not None
     fp32_launches += fp32
-    sm90_launches += sm90
-    sm90_cp_async_launches += sm90 and not tma
+    return out, lse
+
+
+def _launch_sm90_forward(q, k, v, scale: float, with_lse: bool, counts):
+    """The redesigned forward on checked bf16 CUDA tensors without a bias ->
+    (out in packed memory, lse or None), on the TMA route when
+    ``sm90_tma_ok`` allows it, else on the cp.async route. ``counts`` is the
+    module whose ``sm90_launches`` / ``sm90_cp_async_launches`` count it
+    (K1's, or K5's, which runs it on its transformed q/k)."""
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
+    out = _packed_like(q, nq)
+    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    tma = sm90_tma_ok(q, k, v)
+    with torch.cuda.device(q.device):
+        _build.launch("lam_flash_attention_fwd_sm90", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), None if lse is None else lse.data_ptr(), b, h, nq, nk, dh,
+                      *strides, float(scale), int(tma), _stream(q))
+    counts.sm90_launches += 1
+    counts.sm90_cp_async_launches += not tma
     return out, lse
 
 
@@ -285,7 +301,9 @@ def _launch_sm90_backward(q, k, v, out, lse, g, scale, counts):
     (dq, dk, dv) in packed memory; its preprocess kernel forms delta =
     rowsum(dO ⊙ O) itself. Its fp32 scratch (per-row stats and the dQ
     accumulator) is allocated here, since the kernels allocate nothing, at
-    the size the C side gives."""
+    the size the C side gives. ``counts`` is the module whose
+    ``bwd_sm90_launches`` / ``bwd_sm90_cp_async_launches`` count its kernels
+    (K4's, or K6's, which runs it on the transformed q/k)."""
     b, h, nq, dh = q.shape
     nk = k.shape[2]
     out = out if out.stride(-1) == 1 else out.contiguous()
@@ -300,46 +318,41 @@ def _launch_sm90_backward(q, k, v, out, lse, g, scale, counts):
                       out.data_ptr(), g.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, dh, strides,
                       float(scale), int(tma), _stream(q))
-    counts.bwd_kv_launches += 1
-    counts.bwd_q_launches += 1
     counts.bwd_sm90_launches += 3
     counts.bwd_sm90_cp_async_launches += not tma
     return dq, dk, dv
 
 
-def _launch_backward(q, k, v, out, lse, g, scale, counts, normrope=None, bias=None):
-    """Launch K4 (or K6 with ``normrope = (q_scale, k_scale, cos, sin)``) on
-    checked CUDA tensors -> (dq, dk, dv) in packed memory. bf16 K4 without a
-    bias takes the redesigned backward; with the fp32 ``[B, Nk]`` key-padding
-    row ``bias``, and K6, the old pair; fp32 operands K4's fp32 pair.
-    ``counts`` is the module whose ``bwd_kv_launches`` / ``bwd_q_launches``
-    (and K4's ``bwd_bias_launches`` / ``bwd_fp32_launches`` /
-    ``bwd_sm90_launches``) count them."""
+def _launch_backward(q, k, v, out, lse, g, scale, bias=None):
+    """Launch K4 on checked CUDA tensors -> (dq, dk, dv) in packed memory.
+    bf16 without a bias takes the redesigned backward; with the fp32
+    ``[B, Nk]`` key-padding row ``bias`` the old pair; fp32 operands K4's
+    fp32 pair."""
+    global bwd_kv_launches, bwd_q_launches, bwd_bias_launches, bwd_fp32_launches
     g = g if g.stride(-1) == 1 else g.contiguous()
     fp32 = q.dtype == torch.float32
-    if not fp32 and bias is None and normrope is None:
-        return _launch_sm90_backward(q, k, v, out, lse, g, scale, counts)
+    if not fp32 and bias is None:
+        grads = _launch_sm90_backward(q, k, v, out, lse, g, scale, sys.modules[__name__])
+        bwd_kv_launches += 1
+        bwd_q_launches += 1
+        return grads
     delta = (g.float() * out.float()).sum(dim=-1).contiguous()
     nq, nk = q.shape[2], k.shape[2]
     dq, dk, dv = _packed_like(q, nq), _packed_like(k, nk), _packed_like(v, nk)
     strides = (ctypes.c_longlong * 21)(
         *(s for t in (q, k, v, g, dq, dk, dv) for s in t.stride()[:3]))
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), None if bias is None else bias.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr()]
-    if not fp32:
-        ptrs += [t.data_ptr() for t in normrope] if normrope is not None else [None] * 4
-    args = (*ptrs, q.shape[0], q.shape[1], nq, nk, q.shape[3], strides, float(scale),
-            _stream(q))
+            dk.data_ptr(), dv.data_ptr(), q.shape[0], q.shape[1], nq, nk, q.shape[3], strides,
+            float(scale), _stream(q))
     entry = "lam_flash_attention_bwd_f32" if fp32 else "lam_flash_attention_bwd"
     with torch.cuda.device(q.device):
-        for kernel, counter in (("kv", "bwd_kv_launches"), ("q", "bwd_q_launches")):
-            _build.launch(f"{entry}_{kernel}", *args)
-            setattr(counts, counter, getattr(counts, counter) + 1)
-            if bias is not None:
-                counts.bwd_bias_launches += 1
-            if fp32:
-                counts.bwd_fp32_launches += 1
+        _build.launch(f"{entry}_kv", *args)
+        bwd_kv_launches += 1
+        _build.launch(f"{entry}_q", *args)
+        bwd_q_launches += 1
+    bwd_bias_launches += 2 * (bias is not None)
+    bwd_fp32_launches += 2 * fp32
     return dq, dk, dv
 
 
@@ -362,7 +375,7 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                         None if mask is None else mask_to_bias(mask))
     _check_backward(q, k, v, out, lse, g, (torch.bfloat16, torch.float32))
     bias = None if mask is None else _bias(mask, q, k.shape[2])
-    return _launch_backward(q, k, v, out, lse, g, scale, sys.modules[__name__], bias=bias)
+    return _launch_backward(q, k, v, out, lse, g, scale, bias=bias)
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,28 +1,34 @@
-"""Flash attention with QK RMS-norm + RoPE inside the kernel: CUDA kernels
-K5 (forward) and K6 (backward) and their plain PyTorch versions.
+"""Flash attention with QK RMS-norm + RoPE: CUDA kernels K5 (forward) and K6
+(backward) and their plain PyTorch versions.
 
 Counterpart of ``lam_slide_tpu/ops/flash_normrope.py`` (``_nr_flash_kernel``
 through ``flash_attention_normrope``; ``_nr_bwd_kv_kernel`` and
-``_nr_bwd_q_kernel`` through ``_nr_backward``). The forward is the ``NR``
-variant of K1's template in ``csrc/flash_attention.cu`` (C entry
-``lam_flash_attention_normrope_fwd``): it takes RAW head-major q/k, applies
-the per-head RMS-norm (eps 1e-6, learned fp32 ``[dh]`` scale) and the
-rotation of adjacent (even, odd) pairs to the Q tile and to each K tile in
-shared memory, and then runs K1's recurrence. The rounding points are those
-of ``headmajor_rope(headmajor_rmsnorm(x))``. The backward is the ``NR``
-variant of K4's template in ``csrc/flash_attention_bwd.cu``: it transforms
-the tiles the same way and returns dq/dk with respect to the TRANSFORMED
-q/k; ``_FlashNormRope`` chains them to the raw q/k and the two scales by
-autograd of the plain pre-transform, as ``_nr_core_bwd`` does with
+``_nr_bwd_q_kernel`` through ``_nr_backward``). The function is the TPU
+kernels': the per-head RMS-norm (eps 1e-6, learned fp32 ``[dh]`` scale) and
+the rotation of adjacent (even, odd) pairs of RAW head-major q/k, with the
+rounding points of ``headmajor_rope(headmajor_rmsnorm(x))``, then
+attention. On the card the transform runs once, in a kernel of its own
+(``csrc/qk_normrope.cu``, C entry ``lam_qk_normrope``), which writes
+contiguous head-major ``q_t``/``k_t``; the attention is the redesigned
+flash forward of ``csrc/flash_fwd_sm90.cu`` on ``(q_t, k_t, v)``, and its
+backward that of ``csrc/flash_bwd_sm90.cu``. ``_FlashNormRope`` keeps the
+forward's ``q_t``/``k_t`` for the backward, whose grads with respect to the
+TRANSFORMED q/k are chained to the raw q/k and the two scales by autograd of
+the plain pre-transform (``chain_backward``), as ``_nr_core_bwd`` does with
 ``jax.vjp`` of ``_pre_transform``.
 
 Counters (plain integers, touched only where a kernel launches):
-``launches`` counts K5, ``bwd_kv_launches`` and ``bwd_q_launches`` K6's
-dK/dV and dQ kernels.
+``launches`` counts K5 calls, ``transform_launches`` the transform kernel's
+launches (one a K5 call, one a ``flash_attention_normrope_backward`` call,
+one a ``qk_normrope`` call), ``sm90_launches`` the K5 calls on the
+redesigned forward and ``sm90_cp_async_launches`` those of them on its
+cp.async route; ``bwd_launches`` counts K6 calls, ``bwd_sm90_launches`` the
+redesigned backward's kernels (three a call) and
+``bwd_sm90_cp_async_launches`` its main kernels on the cp.async route.
 """
 
 import sys
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -31,8 +37,8 @@ from lam_slide_tpu_torch.ops._grad import needs_grad, plain_vjp
 from lam_slide_tpu_torch.ops.flash_attention import (
     _check,
     _check_backward,
-    _launch_backward,
-    _packed_like,
+    _launch_sm90_backward,
+    _launch_sm90_forward,
     _stream,
     reference_attention,
     reference_flash_backward,
@@ -41,8 +47,13 @@ from lam_slide_tpu_torch.ops.packed_attention import headmajor_rmsnorm, headmajo
 
 EPS = 1e-6
 launches = 0
-bwd_kv_launches = 0
-bwd_q_launches = 0
+transform_launches = 0
+sm90_launches = 0
+sm90_cp_async_launches = 0
+bwd_launches = 0
+bwd_sm90_launches = 0
+bwd_sm90_cp_async_launches = 0
+_COUNTS = sys.modules[__name__]  # the counters the shared launchers move
 
 
 def pre_transform(q: torch.Tensor, k: torch.Tensor, q_scale: torch.Tensor,
@@ -76,6 +87,20 @@ def reference_normrope_backward(q, k, v, q_scale, k_scale, cos, sin, out, lse, g
     return reference_flash_backward(q_t, k_t, v, out, lse, g, scale)
 
 
+def chain_backward(attn_backward: Callable, q, k, v, q_scale, k_scale, cos, sin, q_t, k_t,
+                   out, lse, g, scale: float, needs=(True, True, True, True, True)):
+    """(dq, dk, dv, dq_scale, dk_scale), None where ``needs`` (for q, k, v,
+    q_scale, k_scale) asks for no grad: ``attn_backward(q_t, k_t, v, out,
+    lse, g, scale) -> (dq_t, dk_t, dv)`` on the transformed q/k, then the
+    plain pre-transform's VJP to the raw q/k and the scales (``_nr_core_bwd``,
+    flash_normrope.py:452-466)."""
+    dq_t, dk_t, dv = attn_backward(q_t, k_t, v, out, lse, g, scale)
+    dq, dk, dqs, dks, _, _ = plain_vjp(pre_transform, (q, k, q_scale, k_scale, cos, sin),
+                                       (needs[0], needs[1], needs[3], needs[4], False, False),
+                                       (dq_t, dk_t))
+    return dq, dk, dv if needs[2] else None, dqs, dks
+
+
 def _check_normrope(q, q_scale, k_scale, cos, sin, nk) -> None:
     b, h, nq, dh = q.shape
     if dh % 2:
@@ -93,45 +118,95 @@ def _check_normrope(q, q_scale, k_scale, cos, sin, nk) -> None:
                              f"{dh // 2}], got {tuple(t.shape)}")
 
 
-def _forward(q, k, v, q_scale, k_scale, cos, sin, scale: float, with_lse: bool):
-    """Launch K5 on checked CUDA tensors -> (out, lse or None)."""
+def empty_transformed(q: torch.Tensor, k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Empty contiguous head-major buffers for q_t and k_t, in q's and k's
+    shapes, dtype and device: the layout every TMA map of the attention
+    kernels accepts when dh % 8 == 0."""
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k))
+
+
+def _launch_transform(q, k, q_scale, k_scale, cos, sin):
+    """The transform kernel on checked CUDA tensors -> contiguous (q_t, k_t)."""
+    global transform_launches
+    b, h, nq, dh = q.shape
+    q_t, k_t = empty_transformed(q, k)
+    with torch.cuda.device(q.device):
+        _build.launch("lam_qk_normrope", q.data_ptr(), k.data_ptr(), q_t.data_ptr(),
+                      k_t.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(),
+                      sin.data_ptr(), b, h, nq, k.shape[2], dh, *q.stride()[:3],
+                      *k.stride()[:3], EPS, _stream(q))
+    transform_launches += 1
+    return q_t, k_t
+
+
+def qk_normrope(q: torch.Tensor, k: torch.Tensor, q_scale: torch.Tensor,
+                k_scale: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """(q_t, k_t): the QK RMS-norm + RoPE of raw head-major bf16 q/k, written
+    once into contiguous head-major memory.
+
+    CPU tensors take ``pre_transform``. CUDA tensors launch the transform
+    kernel (bf16 q/k with unit stride on an even dh <= 128, fp32 scales and
+    tables) or raise; CUDA inputs that need a gradient raise too (the kernel
+    paths differentiate through ``chain_backward``).
+    """
+    if q.device.type == "cpu":
+        return pre_transform(q, k, q_scale, k_scale, cos, sin)
+    if needs_grad(q, k, q_scale, k_scale):
+        raise ValueError("qk_normrope: the transform kernel has no autograd; differentiate "
+                         "through flash_attention_normrope")
+    _check(q, k, k)
+    _check_normrope(q, q_scale, k_scale, cos, sin, k.shape[2])
+    return _launch_transform(q, k, q_scale, k_scale, cos, sin)
+
+
+def _forward_kernels(q, k, v, q_scale, k_scale, cos, sin, scale: float, with_lse: bool):
+    """Launch K5 on checked CUDA tensors: the transform kernel, then the
+    redesigned forward on (q_t, k_t, v) -> (out, lse or None, q_t, k_t)."""
+    global launches
     _check(q, k, v)
     _check_normrope(q, q_scale, k_scale, cos, sin, k.shape[2])
-    b, h, nq, dh = q.shape
-    out = _packed_like(q, nq)
-    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    global launches
-    with torch.cuda.device(q.device):
-        _build.launch("lam_flash_attention_normrope_fwd", q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-                      q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                      b, h, nq, k.shape[2], dh, *strides, float(scale), _stream(q))
+    q_t, k_t = _launch_transform(q, k, q_scale, k_scale, cos, sin)
+    out, lse = _launch_sm90_forward(q_t, k_t, v, scale, with_lse, _COUNTS)
     launches += 1
-    return out, lse
+    return out, lse, q_t, k_t
+
+
+def _forward(q, k, v, q_scale, k_scale, cos, sin, scale: float, with_lse: bool):
+    """K5 on checked CUDA tensors -> (out, lse or None)."""
+    return _forward_kernels(q, k, v, q_scale, k_scale, cos, sin, scale, with_lse)[:2]
+
+
+def _attention_backward(q_t, k_t, v, out, lse, g, scale: float):
+    """K6's attention part on the transformed q/k -> (dq_t, dk_t, dv) in
+    packed memory: the redesigned backward on CUDA tensors, its plain
+    version (``reference_flash_backward``) on CPU ones."""
+    global bwd_launches
+    if q_t.device.type == "cpu":
+        return reference_flash_backward(q_t, k_t, v, out, lse, g, scale)
+    g = g if g.stride(-1) == 1 else g.contiguous()
+    grads = _launch_sm90_backward(q_t, k_t, v, out, lse, g, scale, _COUNTS)
+    bwd_launches += 1
+    return grads
 
 
 class _FlashNormRope(torch.autograd.Function):
     """K5 forward (with lse) and K6 backward chained through the plain
-    pre-transform: ``_nr_core``'s VJP."""
+    pre-transform: ``_nr_core``'s VJP. The forward's q_t/k_t are kept for
+    the backward, so it does not transform again."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_scale, k_scale, cos, sin, scale):
-        out, lse = _forward(q, k, v, q_scale, k_scale, cos, sin, scale, with_lse=True)
-        ctx.save_for_backward(q, k, v, q_scale, k_scale, cos, sin, out, lse)
+        out, lse, q_t, k_t = _forward_kernels(q, k, v, q_scale, k_scale, cos, sin, scale,
+                                              with_lse=True)
+        ctx.save_for_backward(q, k, v, q_scale, k_scale, cos, sin, q_t, k_t, out, lse)
         ctx.scale = scale
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, q_scale, k_scale, cos, sin, out, lse = ctx.saved_tensors
-        dq_t, dk_t, dv = flash_attention_normrope_backward(q, k, v, q_scale, k_scale, cos,
-                                                           sin, out, lse, g, ctx.scale)
         need = ctx.needs_input_grad
-        dq, dk, dqs, dks, _, _ = plain_vjp(pre_transform, (q, k, q_scale, k_scale, cos, sin),
-                                           (need[0], need[1], need[3], need[4], False, False),
-                                           (dq_t, dk_t))
-        return dq, dk, dv, dqs, dks, None, None, None
+        grads = chain_backward(_attention_backward, *ctx.saved_tensors, g, ctx.scale, need[:5])
+        return (*grads, None, None, None)
 
 
 def flash_attention_normrope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -139,13 +214,14 @@ def flash_attention_normrope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              cos: torch.Tensor, sin: torch.Tensor,
                              mask: Optional[torch.Tensor] = None,
                              scale: Optional[float] = None) -> torch.Tensor:
-    """Attention over RAW head-major q/k with QKNorm + RoPE in the kernel.
+    """Attention over RAW head-major q/k with QKNorm + RoPE.
 
     CPU tensors take ``reference_attention_normrope``. CUDA tensors launch
     K5 (bf16 q/k/v with unit stride on an even dh <= 128, fp32 scales and
-    tables) or raise; when they need a gradient, through ``_FlashNormRope``,
-    whose backward is K6. Key-padding masks are not ported yet and raise on
-    every device.
+    tables: the transform kernel, then the redesigned flash forward) or
+    raise; when they need a gradient, through ``_FlashNormRope``, whose
+    backward is K6. Key-padding masks are not ported yet and raise on every
+    device.
     """
     if mask is not None:
         raise NotImplementedError("flash_attention_normrope: key-padding masks are not ported yet")
@@ -164,13 +240,13 @@ def flash_attention_normrope_backward(q, k, v, q_scale, k_scale, cos, sin, out, 
     gradient g.
 
     CPU tensors take ``reference_normrope_backward``. CUDA tensors launch
-    K6's dK/dV kernel and then its dQ kernel or raise; the grads come back
-    in packed ``[B, N, H, dh]`` memory.
+    the transform kernel and then K6 (the redesigned backward on q_t/k_t) or
+    raise; the grads come back in packed ``[B, N, H, dh]`` memory.
     """
     if q.device.type == "cpu":
         return reference_normrope_backward(q, k, v, q_scale, k_scale, cos, sin, out, lse, g,
                                            scale)
     _check_backward(q, k, v, out, lse, g)
     _check_normrope(q, q_scale, k_scale, cos, sin, k.shape[2])
-    return _launch_backward(q, k, v, out, lse, g, scale, sys.modules[__name__],
-                            (q_scale, k_scale, cos, sin))
+    q_t, k_t = _launch_transform(q, k, q_scale, k_scale, cos, sin)
+    return _attention_backward(q_t, k_t, v, out, lse, g, scale)

@@ -9,8 +9,13 @@ kernels left on the older templates, which must keep their times: the MD17
 protocol's fp32 K1 calls as ``evaluate_md17`` makes them (K1-fp32 on the
 decoder's latent self-attention [9600, 2, 192, 16], K1-bias on the
 encoder's masked cross-attention [1920, 8, 192 -> 32, 16]), K4 with the
-bias and in fp32 at the MD17 stage-1 and stage-2 training shapes, K5 and
-its backward K6 at 3 x 128, and K10 at [16, 1000, 384]. Then K9 forward and
+bias and in fp32 at the MD17 stage-1 and stage-2 training shapes, and K10
+at [16, 1000, 384]. K5 (the QK-norm + RoPE transform kernel, then the
+redesigned forward) at the 3 x 128 Euler-10 B=8 solve's [16, 3, 1000, 128]
+and, with the lse, at the train step's [32, 3, 1000, 128], and its backward
+K6 (the transform, then the redesigned backward) there; the transform
+kernel alone at [16, 3, 1000, 128], by events and by the profiler's device
+time (a tree without it prints that it has none). Then K9 forward and
 backward on the MD17 DiT's temporal axis, packed [B, 30, 256] (16 heads of
 16, v a view of linear1's output) at the protocol batch's B = 61440 and the
 stage-2 train step's B = 12288, and K11 at the MD17 spatial axis [1920, 16,
@@ -54,6 +59,20 @@ def _ms(fn, reps: int = REPS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, match: str, reps: int = REPS) -> float:
+    """Device time a call of the kernels whose name holds ``match``, from
+    torch.profiler (for a kernel shorter than its wrapper's host time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages() if match in e.key) / reps / 1e3
 
 
 def _heads(gen, dev, dtype, b, n, h, dh, scale=1.0):
@@ -137,6 +156,8 @@ def main() -> int:
         ("K4-fp32 [1920,2,192,16]", lambda: fa.flash_attention_backward(
             *f4[:3], fout4, flse4, f4[3], 16 ** -0.5), 10),
         ("K5 bf16 [16,3,1000,128]", lambda: fnr.flash_attention_normrope(*b5[:3], *nr), REPS),
+        ("K5 lse bf16 [32,3,1000,128]", lambda: fnr._forward(*b6[:3], *nr, 128 ** -0.5,
+                                                              with_lse=True), REPS),
         ("K6 bf16 [32,3,1000,128]", lambda: fnr.flash_attention_normrope_backward(
             *b6[:3], *nr, out6, lse6, b6[3], 128 ** -0.5), 10),
         ("K10 bf16 [16,1000,384] 3x128", lambda: tft.fused_temporal_attention(*k10), REPS),
@@ -152,6 +173,13 @@ def main() -> int:
     with torch.no_grad():
         for name, fn, reps in calls:
             print(f"{label}: {name} {_ms(fn, reps):.4f} ms | {smi}", flush=True)
+        if hasattr(fnr, "qk_normrope"):
+            tr = (b5[0], b5[1], *nr)
+            print(f"{label}: K5 transform bf16 [16,3,1000,128] {_ms(lambda: fnr.qk_normrope(*tr)):.4f}"
+                  f" ms (events), {_device_ms(lambda: fnr.qk_normrope(*tr), 'qk_normrope'):.4f} ms "
+                  f"(device) | {smi}", flush=True)
+        else:
+            print(f"{label}: K5 transform: this tree has no transform kernel | {smi}", flush=True)
     return 0
 
 

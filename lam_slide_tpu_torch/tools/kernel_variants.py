@@ -1,5 +1,5 @@
-"""Time ablated copies of K2, K9 (forward and backward) and K11 on the card:
-what holds each back.
+"""Time ablated copies of K2, K9 (forward and backward) and K11 on the card,
+and the pieces of K5 and K6: what holds each back.
 
 Each variant is a copy of the kernel's source with one piece of its work
 taken out by a text substitution, built alone with nvcc (beside
@@ -14,10 +14,18 @@ skips behind a run-time condition that never holds (``a.R < 0``) is still
 compiled, so what it feeds is not optimised away. The variants run in turns
 (in order, then in reverse), timed with CUDA events, beside PyTorch's fp32
 rowsum(g * out) at K11's shape (the delta the K11 wrapper computed before
-its delta kernel). Each line names the card and its power limit. Run from
+its delta kernel). K5 and K6 are compositions of kernels, so their pieces
+are timed alone instead, in turns, at the 3 x 128 train step's
+[32, 3, 1000, 128] (raw q/k/v head-major views of one packed buffer): the
+transform kernel, the redesigned forward on the transformed q/k, K5
+whole, the redesigned backward on them, the plain pre-transform's VJP that
+chains its grads to the raw q/k and the scales, and K6's backward as the
+train step runs it (the two together); the transform's device time from
+the profiler too. Each line names the card and its power limit. Run from
 a tree's root:
 
-    PYTHONPATH=. python lam_slide_tpu_torch/tools/kernel_variants.py [K2 K9-forward K11 K9-backward]
+    PYTHONPATH=. python lam_slide_tpu_torch/tools/kernel_variants.py \
+        [K2 K9-forward K11 K9-backward K5-K6]
 """
 
 import argparse
@@ -27,10 +35,14 @@ import sys
 
 import torch
 
+import chip_smoke as cs
+from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
 from lam_slide_tpu_torch.ops import _build
 from lam_slide_tpu_torch.ops import flash_attention as fa
+from lam_slide_tpu_torch.ops import flash_normrope as fnr
 from lam_slide_tpu_torch.ops import fused_mlp as fm
 from lam_slide_tpu_torch.ops import short_attention as tsa
+from lam_slide_tpu_torch.ops._grad import plain_vjp
 
 REPS = 20
 # variant: [(text in the source, its replacement), ...]
@@ -212,7 +224,39 @@ def _k9_backward(gen, dev, stream, smi) -> None:
               smi)
 
 
-KERNELS = {"K2": _k2, "K9-forward": _k9_forward, "K11": _k11, "K9-backward": _k9_backward}
+def _k5_k6(gen, dev, stream, smi) -> None:
+    bf, b, h, n, dh = torch.bfloat16, 32, 3, 1000, 128
+    qkv = (2 * torch.randn(b, n, 3, h, dh, generator=gen)).to(dev, bf)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    g = torch.randn(b, h, n, dh, generator=gen).to(dev, bf)
+    qs, ks = ((1 + 0.2 * torch.randn(dh, generator=gen)).to(dev) for _ in range(2))
+    cos, sin = rope_cos_sin(n, dh, device=dev)
+    scale = dh ** -0.5
+    tr = (q, k, qs, ks, cos, sin)
+    q_t, k_t = fnr.qk_normrope(*tr)
+    out, lse = fnr._forward(q, k, v, qs, ks, cos, sin, scale, with_lse=True)
+    dq_t, dk_t, _ = fnr._attention_backward(q_t, k_t, v, out, lse, g, scale)
+    saved = (q, k, v, qs, ks, cos, sin, q_t, k_t, out, lse, g, scale)
+    calls = {
+        "transform": lambda: fnr.qk_normrope(*tr),
+        "sm90 forward on q_t/k_t (lse)": lambda: fa._launch_sm90_forward(q_t, k_t, v, scale, True,
+                                                                         fnr),
+        "K5 (lse)": lambda: fnr._forward(q, k, v, qs, ks, cos, sin, scale, with_lse=True),
+        "sm90 backward on q_t/k_t": lambda: fnr._attention_backward(q_t, k_t, v, out, lse, g,
+                                                                     scale),
+        "chain VJP (plain)": lambda: plain_vjp(fnr.pre_transform, tr,
+                                               (True, True, True, True, False, False),
+                                               (dq_t, dk_t)),
+        "K6 as the train step runs it": lambda: fnr.chain_backward(fnr._attention_backward,
+                                                                   *saved),
+    }
+    _in_turns(f"K5/K6 pieces [{b},{h},{n},{dh}]", calls, smi)
+    device = cs.device_ms(calls["transform"], "qk_normrope_kernel", REPS)
+    print(f"K5/K6 pieces [{b},{h},{n},{dh}] transform (device): {device:.4f} ms | {smi}")
+
+
+KERNELS = {"K2": _k2, "K9-forward": _k9_forward, "K11": _k11, "K9-backward": _k9_backward,
+           "K5-K6": _k5_k6}
 
 
 def main() -> int:

@@ -1,6 +1,10 @@
 """Read the lse errors of K1 and K5 against the plain log-sum-exp on a CUDA
 card, over several input seeds per shape: the readings behind the lse
-limits of ``chip_smoke.py`` and ``tests/test_torch_port_cuda.py``.
+limits of ``chip_smoke.py`` and ``tests/test_torch_port_cuda.py``; and, on
+the same inputs, the transform kernel of K5 (``qk_normrope``) against
+``pre_transform``: its largest difference in bf16 ulps at the magnitude of
+each element's (even, odd) pair and the share of elements that differ, the
+readings behind the transform limits there.
 
 The inputs follow the GPU test's recipe (q/k/v as head-major views of
 packed bf16 buffers drawn from ``torch.randn``, QK-norm scales ``1 + 0.2 *
@@ -15,6 +19,7 @@ import subprocess
 
 import torch
 
+import chip_smoke as cs
 from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
 from lam_slide_tpu_torch.ops import _build
 from lam_slide_tpu_torch.ops import flash_attention as fa
@@ -28,7 +33,8 @@ SCALE = 0.3
 
 
 def lse_errors(dev, b, h, nq, nk, dh, seed):
-    """-> (K1 lse max abs error, K5 lse max abs error) on one seed's inputs."""
+    """-> (K1 lse max abs error, K5 lse max abs error, the transform's
+    largest pair-ulp difference, its differing share) on one seed's inputs."""
     g = torch.Generator().manual_seed(seed)
     qbuf = torch.randn(b, nq, h * dh, generator=g).to(dev, torch.bfloat16)
     kvbuf = torch.randn(b, nk, 2 * h * dh, generator=g).to(dev, torch.bfloat16)
@@ -40,9 +46,12 @@ def lse_errors(dev, b, h, nq, nk, dh, seed):
     qs, ks = ((1 + 0.2 * torch.randn(dh, generator=g)).to(dev) for _ in range(2))
     cos, sin = rope_cos_sin(max(nq, nk), dh, device=dev)
     _, lse5 = fnr._forward(q, k, v, qs, ks, cos, sin, SCALE, with_lse=True)
-    _, want5 = fa.reference_attention(*fnr.pre_transform(q, k, qs, ks, cos, sin), v, SCALE,
-                                      return_lse=True)
-    return (lse - want).abs().max().item(), (lse5 - want5).abs().max().item()
+    want_t = fnr.pre_transform(q, k, qs, ks, cos, sin)
+    _, want5 = fa.reference_attention(*want_t, v, SCALE, return_lse=True)
+    ulps = torch.cat([cs.pair_ulps(a, w).flatten()
+                      for a, w in zip(fnr.qk_normrope(q, k, qs, ks, cos, sin), want_t)])
+    return ((lse - want).abs().max().item(), (lse5 - want5).abs().max().item(),
+            ulps.max().item(), (ulps > 0).double().mean().item())
 
 
 def main() -> None:
@@ -54,8 +63,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     for shape in SHAPES:
         for seed in SEEDS:
-            k1, k5 = lse_errors(dev, *shape, seed)
-            print(f"lse {list(shape)} seed {seed}: K1 {k1:.3e} K5 {k5:.3e}")
+            k1, k5, worst, share = lse_errors(dev, *shape, seed)
+            print(f"lse {list(shape)} seed {seed}: K1 {k1:.3e} K5 {k5:.3e}; transform max "
+                  f"{worst:.3f} pair ulps, differing share {share:.3e}")
         torch.cuda.empty_cache()
 
 

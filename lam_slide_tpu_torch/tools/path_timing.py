@@ -6,8 +6,9 @@ The paths and their settings are ``chip_smoke.py``'s, read from the tree the
 tool runs in (its constants and helpers), so each tree times its own
 configuration:
 
-* the 4AA Euler-10 solve at 16 x dh 24, B=8 (the whole solve);
-* the 4AA 16 x dh 24 train step at B=16 (AdamW, EMA);
+* the 4AA Euler-10 solve at B=8 (the whole solve), at 16 x dh 24 and at
+  3 x dh 128;
+* the 4AA train step at B=16 (AdamW, EMA), at 16 x dh 24 and at 3 x dh 128;
 * one MD17 protocol batch (K=5 Euler-10 samples of 64 aspirin windows,
   decoded by stage 1, and their ADE/FDE), and the MD17 stage-2 train step
   at B=64, both on the registry's random weights and synthetic
@@ -67,26 +68,28 @@ def main() -> int:
                          backend=backend, device=dev,
                          generator=torch.Generator().manual_seed(cs.SEED)).eval()
 
-    split = f"{cs.HEADS}x{cs.HIDDEN // cs.HEADS}"
-    with torch.no_grad():
-        model = make_model(cs.HEADS)
-        euler = Sampler(create_transport(path_type="GVP", prediction="data")).sample_ode(
-            sampling_method="euler", num_steps=cs.NUM_STEPS)
-        noise, x_cond, mask = cs.make_inputs(8, dev, torch.Generator().manual_seed(cs.SEED))
-        report(f"4AA Euler-{cs.NUM_STEPS} {split} B=8 solve",
-               _timed(lambda: euler(noise, model, x_cond=x_cond, x_cond_mask=mask), args.runs))
-        del model
+    euler = Sampler(create_transport(path_type="GVP", prediction="data")).sample_ode(
+        sampling_method="euler", num_steps=cs.NUM_STEPS)
+    for heads in (cs.HEADS, cs.WIDE_HEADS):
+        split = f"{heads}x{cs.HIDDEN // heads}"
+        with torch.no_grad():
+            model = make_model(heads)
+            noise, x_cond, mask = cs.make_inputs(8, dev, torch.Generator().manual_seed(cs.SEED))
+            report(f"4AA Euler-{cs.NUM_STEPS} {split} B=8 solve",
+                   _timed(lambda: euler(noise, model, x_cond=x_cond, x_cond_mask=mask),
+                          args.runs))
+            del model
 
-    state, step, transport = cs.train_state(make_model, cs.HEADS)
-    batch = cs.train_batch(cs.TRAIN_BATCH, dev, transport, False, cs.SEED)
-    holder = {"state": state}
+        state, step, transport = cs.train_state(make_model, heads)
+        batch = cs.train_batch(cs.TRAIN_BATCH, dev, transport, False, cs.SEED)
+        holder = {"state": state}
 
-    def train_step():
-        holder["state"], _ = step(holder["state"], batch, cs.SEED)
+        def train_step():
+            holder["state"], _ = step(holder["state"], batch, cs.SEED)
 
-    report(f"4AA {split} B={cs.TRAIN_BATCH} train step", _timed(train_step, args.runs))
-    del state, holder, batch
-    torch.cuda.empty_cache()
+        report(f"4AA {split} B={cs.TRAIN_BATCH} train step", _timed(train_step, args.runs))
+        del state, holder, batch
+        torch.cuda.empty_cache()
 
     run1 = cs.md17_first_run(dev)
     run2 = cs.md17_second_run(run1, dev)

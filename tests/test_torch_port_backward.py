@@ -69,9 +69,11 @@ def plain_launches(monkeypatch):
     the autograd Functions run on CPU tensors."""
     monkeypatch.setattr(tfa, "_forward", lambda q, k, v, scale, with_lse, mask=None:
                         tfa.reference_attention(q, k, v, scale, return_lse=True, mask=mask))
-    monkeypatch.setattr(tnr, "_forward", lambda q, k, v, qs, ks, cos, sin, scale, with_lse:
-                        tfa.reference_attention(*tnr.pre_transform(q, k, qs, ks, cos, sin), v,
-                                                scale, return_lse=True))
+    def normrope_forward(q, k, v, qs, ks, cos, sin, scale, with_lse):
+        q_t, k_t = tnr.pre_transform(q, k, qs, ks, cos, sin)
+        return (*tfa.reference_attention(q_t, k_t, v, scale, return_lse=True), q_t, k_t)
+
+    monkeypatch.setattr(tnr, "_forward_kernels", normrope_forward)
     monkeypatch.setattr(tfm, "_launch", tfm.reference_mlp)
 
     def adaln(x, h, gate, shift, scale, eps):

@@ -82,7 +82,9 @@ def test_no_sdpa_in_port():
 
 WRAPPER_MODULES = [fa, fnr, fad, fm, fsb, tsa, tft, tsb]
 COUNTERS = ("launches", "bias_launches", "fp32_launches", "bwd_kv_launches", "bwd_q_launches",
-            "bwd_bias_launches", "bwd_fp32_launches", "bwd_launches")
+            "bwd_bias_launches", "bwd_fp32_launches", "bwd_launches", "transform_launches",
+            "sm90_launches", "sm90_cp_async_launches", "bwd_sm90_launches",
+            "bwd_sm90_cp_async_launches")
 
 
 def _zero_counters(monkeypatch):
@@ -210,6 +212,8 @@ BACKWARD_WRAPPERS = [
      _fp32_backward_inputs),
     ("K6", fnr.flash_attention_normrope_backward, fnr, "reference_normrope_backward",
      _normrope_backward_inputs),
+    ("K5 transform", lambda q, k, v, qs, ks, cos, sin: fnr.qk_normrope(q, k, qs, ks, cos, sin),
+     fnr, "pre_transform", _normrope_inputs),
     ("K9 backward", tsa.short_attention_backward, tsa, "reference_short_backward",
      _short_backward_inputs),
     ("K11", tsb.flash_backward_short, tsb, "reference_flash_backward_short", _backward_inputs),
