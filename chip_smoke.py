@@ -82,8 +82,9 @@ printed on its own line with its seconds:
    per step) on the 16 x 24 DiT at B=8: launches of every kernel per solve,
    finite outputs, solve times; kernel path against plain at B=2;
 13. dit_variants: one forward each of the DiT with
-   ``attention_mode="linear"`` and with ``share_weights=True`` against the
-   plain path, with their launches.
+   ``attention_mode="linear"``, with ``share_weights=True`` and at the tiny
+   test registries' width (hidden 32, 4 x dh 8, whose spatial blocks take
+   K8's WMMA route) against the plain path, with their launches.
 
 Phase 3 also holds K10 (at both head splits and a ragged T, and against
 the K5 and K3 routes) and K11 (against K4's grads, with its peak memory, and
@@ -105,11 +106,18 @@ Every attention row's bound also counts its exponentials (one a score).
 K9 (forward and backward) and K11 are also redesigned for Hopper (mma.sync
 and wgmma tiles; csrc/short_attention.cu, csrc/short_backward.cu), and K2
 (csrc/fused_mlp.cu: TMA-fed wgmma GEMMs back to back, the GELU between them
-on chip); phase 3 also checks that two calls of each on the same inputs
-give bit-identical results, prints the route each K2 row took (every one
-must take the Hopper kernel with x by TMA; the counters of its WMMA route and
-its cp.async loads stay 0 on every main path) and, beside K2's plain time,
-the two-GEMM cuBLAS composition's.
+on chip), and K8 (csrc/fused_spatial_block_sm90.cu: the whole spatial block
+on TMA-fed wgmma GEMMs with linear1 computed once a row); phase 3 also
+checks that two calls of each on the same inputs give bit-identical
+results, prints the route each K2 row took (every one must take the Hopper
+kernel with x by TMA; the counters of its WMMA route and its cp.async
+loads stay 0 on every main path) and, beside K2's plain time, the two-GEMM
+cuBLAS composition's, and beside K8's the two bare cuBLAS GEMMs of its
+shapes. K8 runs its Hopper route at every main-path shape (its WMMA
+route's counter stays 0 on every main path, phase 13's tiny DiT aside) and
+is held to its plain version at the 4AA widths at L = 1, 3 and 8, at the
+NBA and pedestrian widths, and on the WMMA route at hidden 32. K7's rows
+give its device time (profiler) beside the wrapper's event time.
 
 The MD17 kernels are checked against their plain versions in phase 3: K1
 with the key-padding bias and with fp32 operands (and its lse), K9 forward
@@ -380,23 +388,28 @@ def time_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, match, reps: int = 20) -> float:
+def device_ms(fn, match, reps: int = 20, attempts: int = 3) -> float:
     """Device time a call of fn of the kernels whose name holds ``match`` (a
     string, or a tuple of them), from torch.profiler over reps calls after a
     warm-up: for a kernel shorter than its wrapper's host time, which an
-    event time over back-to-back calls would measure instead."""
+    event time over back-to-back calls would measure instead. A trace that
+    holds none of the kernels (it happened once on an H100, for K7 at a tiny
+    shape) is taken again, up to ``attempts`` traces."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     matches = (match,) if isinstance(match, str) else match
-    us = sum(_device_time_us(e) for e in prof.key_averages() if any(m in e.key for m in matches))
-    check(us > 0, f"no device time traced for kernels named {match}")
-    return us / reps / 1e3
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_device_time_us(e) for e in prof.key_averages()
+                 if any(m in e.key for m in matches))
+        if us > 0:
+            return us / reps / 1e3
+    check(False, f"no device time traced for kernels named {match} in {attempts} traces")
 
 
 def library_times(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -576,9 +589,11 @@ def k7_check(dev, gen, table: KernelTable, key: str, batch: int, t: int, l: int,
     err0, _ = errors(y0, want_y0)
     atol0 = K7_ULPS * bf16_ulp(want_y0.float().abs().max().item())
     del y0, want_y0
+    event_ms = time_ms(lambda: fad.residual_adaln_modulate(*args7))
     table.add(key, f"x/h [{batch},{t},{l},{d}] (x_new bit-identical; y without residual "
-              f"{err0:.3e})", abs_err, f"atol {atol:.3e} = {K7_ULPS} bf16 ulp at max |y|",
-              time_ms(lambda: fad.residual_adaln_modulate(*args7)),
+              f"{err0:.3e}); time: the kernel's device time (profiler), the wrapper's event "
+              f"time {event_ms:.4f} ms", abs_err, f"atol {atol:.3e} = {K7_ULPS} bf16 ulp at max |y|",
+              device_ms(lambda: fad.residual_adaln_modulate(*args7), "adaln_kernel"),
               time_ms(lambda: fad.reference_residual_adaln_modulate(*args7), reps=plain_reps),
               0, 4 * batch * t * l * d * 2 + 3 * batch * d * 2)
     check(abs_err <= atol, f"{key} y max abs err {abs_err} > {atol}")
@@ -728,30 +743,94 @@ def kernel_checks(dev, gen, table: KernelTable) -> None:
         k2_check(dev, gen, table, "K2", rows, d, m)
         k7_check(dev, gen, table, "K7", batch, T, L, d)
 
-        # K8 on [B*T, L, D] frames at both head splits
+        # K8 on [B*T, L, D] frames at both head splits: the Hopper route
         frames = batch * T
         x8 = _rand(gen, frames, L, d).to(dev, bf)
         w18 = _rand(gen, 3 * d + m, d, scale=d ** -0.5).to(dev, bf)
         b18 = _rand(gen, 3 * d + m, scale=0.1).to(dev, bf)
         w28 = _rand(gen, d, d + m, scale=(d + m) ** -0.5).to(dev, bf)
         b28 = _rand(gen, d, scale=0.1).to(dev, bf)
+        a8 = _rand(gen, rows, d + m).to(dev, bf)  # [attn | gelu] for the GEMM yardstick
         for heads in (HEADS, WIDE_HEADS):
-            hd = d // heads
-            qs8, ks8 = ((1 + 0.2 * _rand(gen, hd)).to(dev) for _ in range(2))
-            cos8, sin8 = rope_cos_sin(L, hd, device=dev)
-            args8 = (x8, w18, b18, qs8, ks8, w28, b28, cos8, sin8, heads, hd ** -0.5)
-            got, want = fsb.fused_spatial_block(*args8), fsb.reference_spatial_block(*args8)
-            torch.cuda.synchronize()
-            check(got.shape == x8.shape and got.dtype == bf, "K8 shape/dtype")
-            abs_err, rel_err = errors(got, want)
             key = "K8" if heads == HEADS else "K8 3x128"
-            table.add(key, f"x [{frames},{L},{d}] heads {heads} x {hd} (rel {rel_err:.3e})",
-                      abs_err, f"rel tol {K8_REL_TOL}",
+            args8 = k8_args(dev, gen, x8, w18, b18, w28, b28, heads)
+            abs_err, rel_err, note = k8_check(key, args8, "sm90")
+            gemm_ms = time_ms(lambda: (torch.matmul(x8, w18.t()), torch.matmul(a8, w28.t())))
+            dev_ms = device_ms(lambda: fsb.fused_spatial_block(*args8), "spatial_sm90_kernel")
+            table.add(key, f"x [{frames},{L},{d}] heads {heads} x {d // heads}, Hopper route, "
+                      f"{note}, device time {dev_ms:.4f} ms; library none (the two bare cuBLAS "
+                      f"GEMMs x @ w1^T and [attn|gelu] @ w2^T, the kernel's floor: "
+                      f"{gemm_ms:.4f} ms)", abs_err, f"rel tol {K8_REL_TOL}",
                       time_ms(lambda: fsb.fused_spatial_block(*args8)),
                       time_ms(lambda: fsb.reference_spatial_block(*args8)),
                       2 * rows * (d * (3 * d + m) + (d + m) * d),
-                      2 * rows * d * 2 + ((3 * d + m) * d + d * (d + m)) * 2)
-            check(rel_err <= K8_REL_TOL, f"K8 heads {heads} rel err {rel_err} > {K8_REL_TOL}")
+                      2 * rows * d * 2 + ((3 * d + m) * d + d * (d + m)) * 2, gemm_ms)
+    k8_width_checks(dev, gen, table)
+
+
+def k8_args(dev, gen, x, w1, b1, w2, b2, heads):
+    """K8's arguments for x [N, L, D] and nn.Linear weights at ``heads`` heads:
+    QK-norm scales around 1 and the RoPE tables of the L positions."""
+    from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
+
+    dh = x.shape[-1] // heads
+    qs, ks = ((1 + 0.2 * _rand(gen, dh)).to(dev) for _ in range(2))
+    cos, sin = rope_cos_sin(x.shape[1], dh, device=dev)
+    return x, w1, b1, qs, ks, w2, b2, cos, sin, heads, dh ** -0.5
+
+
+def k8_check(key: str, args8, route: str):
+    """K8 against its plain version on ``args8``: one launch on ``route``
+    ("sm90": the Hopper kernel; "wmma": the WMMA route), the shape and dtype,
+    a second call bit-identical, the error within K8_REL_TOL. Returns (max
+    abs err, rel err, a note)."""
+    from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
+
+    before = (fsb.launches, fsb.wmma_launches)
+    got, want = fsb.fused_spatial_block(*args8), fsb.reference_spatial_block(*args8)
+    again = fsb.fused_spatial_block(*args8)
+    torch.cuda.synchronize()
+    launched = (fsb.launches - before[0], fsb.wmma_launches - before[1])
+    check(launched == ((2, 0) if route == "sm90" else (2, 2)),
+          f"{key} launches {launched} (both routes, WMMA) for two calls: not the {route} route")
+    check(got.shape == args8[0].shape and got.dtype == torch.bfloat16, f"{key} shape/dtype")
+    check(torch.equal(got, again), f"{key}: a second call on the same inputs differs")
+    abs_err, rel_err = errors(got, want)
+    check(rel_err <= K8_REL_TOL, f"{key} rel err {rel_err} > {K8_REL_TOL}")
+    return abs_err, rel_err, f"rel {rel_err:.3e}, a second call bit-identical"
+
+
+def k8_width_checks(dev, gen, table: KernelTable) -> None:
+    """K8 at the widths and frame lengths the main paths do not run: the 4AA
+    widths at L = 1, 3 and 8 (tiles of 64, 63 and 64 rows: whole frames)
+    at both head splits, the NBA DiT's (hidden 256, 16 x dh 16) and the
+    pedestrian DiT's (hidden 128, 4 x dh 32) at two frame lengths each, all
+    on the Hopper route; and the WMMA route at the tiny test registries'
+    width (hidden 32, 4 x dh 8), whose row of the summary this is."""
+    from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
+
+    bf = torch.bfloat16
+    cases = [(4000 // l, l, HIDDEN, HEADS) for l in (1, 3, 8)]
+    cases += [(4000 // l, l, HIDDEN, WIDE_HEADS) for l in (1, 3, 8)]
+    cases += [(999, 5, 256, 16), (2000, 2, 256, 16), (1001, 7, 128, 4), (2000, 4, 128, 4)]
+    for n, l, d, heads in cases + [(2000, 2, 32, 4)]:
+        m = 2 * d
+        x = _rand(gen, n, l, d).to(dev, bf)
+        w1 = _rand(gen, 3 * d + m, d, scale=d ** -0.5).to(dev, bf)
+        b1 = _rand(gen, 3 * d + m, scale=0.1).to(dev, bf)
+        w2 = _rand(gen, d, d + m, scale=(d + m) ** -0.5).to(dev, bf)
+        b2 = _rand(gen, d, scale=0.1).to(dev, bf)
+        args8 = k8_args(dev, gen, x, w1, b1, w2, b2, heads)
+        route = "wmma" if d == 32 else "sm90"
+        key = "K8 wmma" if route == "wmma" else f"K8 [{n},{l},{d}] {heads}x{d // heads}"
+        abs_err, rel_err, note = k8_check(key, args8, route)
+        rows = n * l
+        table.add(key, f"x [{n},{l},{d}] heads {heads} x {d // heads}, {route} route, {note}",
+                  abs_err, f"rel tol {K8_REL_TOL}",
+                  time_ms(lambda: fsb.fused_spatial_block(*args8)),
+                  time_ms(lambda: fsb.reference_spatial_block(*args8)),
+                  2 * rows * (d * (3 * d + m) + (d + m) * d),
+                  2 * rows * d * 2 + ((3 * d + m) * d + d * (d + m)) * 2)
 
 
 def _grad_errors(got, want):
@@ -2076,8 +2155,10 @@ def sampler_phase(dev, make_model, smi, reset_counts, read_counts):
 def dit_variants_phase(dev, reset_counts, read_counts):
     """Phase 13: one forward of the 4AA-width DiT (depth 7, hidden 384, 16 x
     24, B=2) with ``attention_mode="linear"`` and one with
-    ``share_weights=True``, each against its plain path on the same weights,
-    with the launches of each kernel."""
+    ``share_weights=True``, and one of the DiT at the tiny test registries'
+    width (hidden 32, 4 x dh 8), whose spatial blocks take K8's WMMA route,
+    each against its plain path on the same weights, with the launches of
+    each kernel. Returns the tiny DiT's launches."""
     from lam_slide_tpu_torch.models import LatentDiT
 
     gen = torch.Generator().manual_seed(SEED + 8)
@@ -2085,11 +2166,15 @@ def dit_variants_phase(dev, reset_counts, read_counts):
     tvec = torch.full((2,), 0.5, device=dev)
     linear_launches = {"K2": 2 * DEPTH, "K7": 2 * DEPTH + 1}
     shared_launches = {"K1": DEPTH, "K2": DEPTH, "K7": 2 * DEPTH + 1, "K8": DEPTH}
+    tiny_launches = dict(shared_launches, **{"K8 wmma": DEPTH})
     for label, kw, launches in (("linear", dict(attention_mode="linear"), linear_launches),
-                                ("share_weights", dict(share_weights=True), shared_launches)):
-        model = LatentDiT(depth=DEPTH, in_dim=DIN, hidden_size=HIDDEN, num_heads=HEADS,
-                          mlp_ratio=MLP_RATIO, reference_init=False, dtype=torch.bfloat16,
-                          device=dev, generator=torch.Generator().manual_seed(SEED), **kw)
+                                ("share_weights", dict(share_weights=True), shared_launches),
+                                ("hidden 32, 4 x 8", dict(hidden_size=32, num_heads=4),
+                                 tiny_launches)):
+        kw = dict(dict(hidden_size=HIDDEN, num_heads=HEADS), **kw)
+        model = LatentDiT(depth=DEPTH, in_dim=DIN, mlp_ratio=MLP_RATIO, reference_init=False,
+                          dtype=torch.bfloat16, device=dev,
+                          generator=torch.Generator().manual_seed(SEED), **kw)
         with torch.no_grad():
             reset_counts()
             got = model(noise, tvec, x_cond, mask)
@@ -2101,13 +2186,14 @@ def dit_variants_phase(dev, reset_counts, read_counts):
         want.update(launches)
         want = with_sm90(want)
         _, rel = errors(got, want_out)
-        print(f"dit_variants: {label} forward 16x24 B=2: launches {counts} (expected {want}); "
+        print(f"dit_variants: {label} forward B=2: launches {counts} (expected {want}); "
               f"kernel vs plain rel {rel:.3e} (tol {MODEL_REL_TOL}); finite="
               f"{bool(torch.isfinite(got).all())}")
         check(counts == want, f"{label} launches {counts} != {want}")
         check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
         check(rel <= MODEL_REL_TOL, f"{label}: kernel vs plain rel err {rel}")
         del model
+    return counts
 
 
 def main() -> int:
@@ -2131,6 +2217,7 @@ def main() -> int:
                 "K1 fp32": (fa, "fp32_launches"), "K2": (fm, "launches"),
                 "K2 wmma": (fm, "wmma_launches"), "K2 cp.async": (fm, "cp_async_launches"),
                 "K5": (fnr, "launches"), "K7": (fad, "launches"), "K8": (fsb, "launches"),
+                "K8 wmma": (fsb, "wmma_launches"),
                 "K9": (tsa, "launches"), "K9 bwd": (tsa, "bwd_launches"),
                 "K4 kv": (fa, "bwd_kv_launches"), "K4 q": (fa, "bwd_q_launches"),
                 "K4 bias": (fa, "bwd_bias_launches"), "K4 fp32": (fa, "bwd_fp32_launches"),
@@ -2336,8 +2423,8 @@ def main() -> int:
     sampler_phase(dev, make_model, smi, reset_counts, read_counts)
     phase_done("samplers")
 
-    # 13. the linear-attention and shared-weight DiTs
-    dit_variants_phase(dev, reset_counts, read_counts)
+    # 13. the linear-attention, shared-weight and tiny-width DiTs
+    tiny_counts = dit_variants_phase(dev, reset_counts, read_counts)
     phase_done("dit_variants")
 
     sources = {
@@ -2347,7 +2434,10 @@ def main() -> int:
         "K5": ("flash_attention_normrope", "flash_fwd_sm90.cu", "flash_normrope.py:74"),
         "K5 transform": ("qk_normrope", "qk_normrope.cu", "flash_normrope.py:74"),
         "K7": ("residual_adaln_modulate", "fused_adaln.cu", "fused_adaln.py:98"),
-        "K8": ("fused_spatial_block", "fused_spatial_block.cu", "fused_spatial_block.py:108"),
+        "K8": ("fused_spatial_block", "fused_spatial_block_sm90.cu",
+               "fused_spatial_block.py:108"),
+        "K8 wmma": ("fused_spatial_block (WMMA route, widths without a Hopper instance)",
+                    "fused_spatial_block.cu", "fused_spatial_block.py:108"),
         "K4": ("flash_attention_backward", "flash_bwd_sm90.cu", "flash_attention.py:442"),
         "K6": ("flash_attention_normrope_backward", "flash_bwd_sm90.cu",
                "flash_normrope.py:249"),
@@ -2373,7 +2463,8 @@ def main() -> int:
     # K1's bias and fp32 variants and K9 from one MD17 protocol batch; K4's
     # bias and fp32 variants and K9's backward from one MD17 train step of
     # each stage; K10 from one forward + backward of the fused temporal
-    # block, K11 from its call at the MD17 spatial axis
+    # block, K11 from its call at the MD17 spatial axis; K8's WMMA route
+    # from the forward of the hidden-32 DiT (0 on every path above)
     md17_train = {key: s1_counts[key] + s2_counts[key] for key in s1_counts}
     main_counts = dict(launches[HEADS], K1=launches[HEADS]["K1 sm90"],
                        K3=launches[HEADS]["K1 sm90"], K5=launches[WIDE_HEADS]["K5 sm90"],
@@ -2382,7 +2473,8 @@ def main() -> int:
                           "K1 bias": md17_counts["K1 bias"], "K1 fp32": md17_counts["K1 fp32"],
                           "K9": md17_counts["K9"], "K4 bias": md17_train["K4 bias"],
                           "K4 fp32": md17_train["K4 fp32"], "K9 bwd": md17_train["K9 bwd"],
-                          "K10": k10_counts["K10"], "K11": k11_counts["K11"]})
+                          "K10": k10_counts["K10"], "K11": k11_counts["K11"],
+                          "K8 wmma": tiny_counts["K8 wmma"]})
     kernels = [
         {"name": name, "route": "cuda", "source": f"lam_slide_tpu_torch/csrc/{src}",
          "replaces": f"lam_slide_tpu/ops/{tpu}", "launches": main_counts[key],

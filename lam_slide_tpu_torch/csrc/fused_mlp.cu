@@ -39,7 +39,7 @@
 //      64 x NO output accumulator. GEMM1 of chunk c+1 and GEMM2 of chunk c
 //      are in flight together while the GELU of chunk c+1 runs on the CUDA
 //      cores.
-//      The GELU of a bf16 mid is read from a 6 KB table (gelu_table_kernel,
+//      The GELU of a bf16 mid is read from a 6 KB table (gelu_table.cuh,
 //      the same fp32 formula, built first on the same stream) with closed
 //      forms outside it: the exact GELU with erff on the CUDA cores, not
 //      the products, bounded the kernel (ablations in PERF.md);
@@ -67,6 +67,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "gelu_table.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -103,34 +104,6 @@ struct alignas(64) Args {
   uint32_t x_bytes, w1_bytes, w2_bytes;  // one tile of each in shared memory
   const unsigned short* table;           // the GELU table (gelu_table_kernel)
 };
-
-// The exact GELU of a bf16 mid in fp32: 0.5 mid (1 + erf(mid / sqrt 2)),
-// rounded to bf16 by the caller.
-__device__ __forceinline__ float gelu_fp32(float mid) {
-  return 0.5f * mid * (1.0f + erff(mid * 0.70710678118654752f));
-}
-
-// mid is a bf16 value, so its GELU is one of at most 65,536 results. The
-// table holds gelu_fp32 rounded to bf16 for |mid| in [2^-9, 8) (biased
-// exponents 118..129, both signs: 3,072 entries, 6 KB, which stay in L1);
-// outside it the same formula has closed forms: below, 1 + erf lies within
-// half a bf16 ulp of 1, so the result rounds to 0.5 mid; above, erf is +-1
-// in fp32, so the result is mid, or -0 (NaN at -inf) for negative mid. A
-// lookup costs about a third of erff's instructions and latency, which
-// bounded the kernel (at MD17 on an H100: 3.36 ms with erff in the kernel,
-// 2.97 with the table). ops/fused_mlp.py mirrors these constants
-// (GELU_TABLE_*).
-constexpr uint32_t GELU_LO = 118u << 7;  // the table's first |mid| bits, 2^-9
-constexpr uint32_t GELU_SPAN = 12u << 7; // entries a sign
-constexpr int GELU_ENTRIES = 2 * GELU_SPAN;
-
-__global__ void gelu_table_kernel(unsigned short* table) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= GELU_ENTRIES) return;
-  const uint32_t sign = i >= static_cast<int>(GELU_SPAN) ? 0x8000u : 0u;
-  const uint32_t bits = sign | (GELU_LO + i % GELU_SPAN);
-  table[i] = __bfloat16_as_ushort(__float2bfloat16(gelu_fp32(__uint_as_float(bits << 16))));
-}
 
 // Shared memory of a block (ops/fused_mlp.py's sm90_smem_bytes mirrors it):
 // the x tile (BM rows of kp 128-byte panels), s1 w1 panels (nc rows of kp
@@ -624,9 +597,7 @@ extern "C" int lam_fused_mlp_sm90(const void* x, const void* w1, const void* b1,
     a.x_piece = lam_sm90_host::copy_piece(&x, s, 1, Din);
   }
   auto st = static_cast<cudaStream_t>(stream);
-  auto* tab = static_cast<unsigned short*>(table);
-  gelu_table_kernel<<<(GELU_ENTRIES + 255) / 256, 256, 0, st>>>(tab);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = fill_gelu_table(static_cast<unsigned short*>(table), st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = nc == 64 ? launch_no<64>(a, no, smem, st) : launch_no<32>(a, no, smem, st);
   return static_cast<int>(err);

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the redesigned kernels (the flash
 // attention of flash_fwd_sm90.cu and flash_bwd_sm90.cu, K11's
-// short_backward.cu, K2's fused_mlp.cu): mbarriers, TMA tile loads and
+// short_backward.cu, K2's fused_mlp.cu, K8's fused_spatial_block_sm90.cu):
+// mbarriers, TMA tile loads and
 // their cp.async counterpart, wgmma with shared-memory matrix descriptors,
 // and the host-side tensor-map encoding.
 //
@@ -338,6 +339,24 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)
 }
 
 template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n48(float (&d)[24], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, %27, %28;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -393,12 +412,15 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
-  static_assert(N == 16 || N == 24 || N == 32 || N == 64 || N == 128 || N == 192 || N == 256,
-                "SS products of N 16, 24, 32, 64, 128, 192, 256");
+  static_assert(N == 16 || N == 24 || N == 32 || N == 48 || N == 64 || N == 96 || N == 128 ||
+                    N == 192 || N == 256,
+                "SS products of N 16, 24, 32, 48, 64, 96, 128, 192, 256");
   if constexpr (N == 16) wgmma_ss_n16<TA, TB>(d, da, db, acc);
   else if constexpr (N == 24) wgmma_ss_n24<TA, TB>(d, da, db, acc);
   else if constexpr (N == 32) wgmma_ss_n32<TA, TB>(d, da, db, acc);
+  else if constexpr (N == 48) wgmma_ss_n48<TA, TB>(d, da, db, acc);
   else if constexpr (N == 64) wgmma_ss_n64<TA, TB>(d, da, db, acc);
+  else if constexpr (N == 96) wgmma_ss_n96<TA, TB>(d, da, db, acc);
   else if constexpr (N == 128) wgmma_ss_n128<TA, TB>(d, da, db, acc);
   else if constexpr (N == 192) wgmma_ss_n192<TA, TB>(d, da, db, acc);
   else wgmma_ss_n256<TA, TB>(d, da, db, acc);

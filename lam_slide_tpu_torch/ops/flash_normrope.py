@@ -40,6 +40,7 @@ from lam_slide_tpu_torch.ops.flash_attention import (
     _launch_sm90_backward,
     _launch_sm90_forward,
     _stream,
+    flash_attention,
     reference_attention,
     reference_flash_backward,
 )
@@ -220,11 +221,16 @@ def flash_attention_normrope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K5 (bf16 q/k/v with unit stride on an even dh <= 128, fp32 scales and
     tables: the transform kernel, then the redesigned flash forward) or
     raise; when they need a gradient, through ``_FlashNormRope``, whose
-    backward is K6. Key-padding masks are not ported yet and raise on every
-    device.
+    backward is K6. With a ``[B, Nk]`` key-padding mask, JAX's fallback
+    (flash_normrope.py:496-498): the plain ``pre_transform``, then
+    ``flash_attention(..., mask=mask)``, which is K1 with the bias on CUDA
+    tensors and ``reference_attention`` on CPU ones.
     """
     if mask is not None:
-        raise NotImplementedError("flash_attention_normrope: key-padding masks are not ported yet")
+        if q.device.type != "cpu":
+            _check_normrope(q, q_scale, k_scale, cos, sin, k.shape[2])
+        q_t, k_t = pre_transform(q, k, q_scale, k_scale, cos, sin)
+        return flash_attention(q_t, k_t, v, mask=mask, scale=scale)
     if q.device.type == "cpu":
         return reference_attention_normrope(q, k, v, q_scale, k_scale, cos, sin, scale)
     scale = q.shape[-1] ** -0.5 if scale is None else scale

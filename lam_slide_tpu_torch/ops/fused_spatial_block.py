@@ -2,12 +2,26 @@
 
 Counterpart of ``lam_slide_tpu/ops/fused_spatial_block.py`` (``_kernel``
 through ``fused_spatial_block``; plain version ``_reference_spatial_block``,
-:65-84). The kernel (``csrc/fused_spatial_block.cu``) runs the whole
-ParallelMLPAttention over L <= 8 positions for a block of frames with the
-``[rows, 3D+M]`` linear1 output kept in shared memory: linear1, per-head QK
-RMS-norm and RoPE, L×L softmax attention, exact GELU of the MLP slice, and
-``concat(attn, gelu) @ w2 + b2``. Any head split whose even dh divides D
-(16×24 and 3×128 at the 4AA width).
+:65-84): the whole ParallelMLPAttention over L <= 8 positions of each
+frame, linear1, per-head QK RMS-norm and RoPE, L×L softmax attention,
+exact GELU of the MLP slice, and ``concat(attn, gelu) @ w2 + b2``.
+
+Two routes, both launched from ``fused_spatial_block``; ``sm90_plan``
+picks one from the widths alone:
+- the Hopper kernel (``csrc/fused_spatial_block_sm90.cu``,
+  ``lam_spatial_block_sm90``) wherever the plan holds: the (D, dh) it has
+  instances of (``SM90_GROUPS``: 384 at dh 24 and 128, 256 at dh 16, 128 at
+  dh 32, every composite's width) at any L. A persistent block walks 64-row
+  tiles of whole frames with TMA-fed wgmma GEMMs; linear1 is computed once a
+  row, chunk by chunk of linear2's K dimension (head groups of ``group``
+  columns, then MLP chunks of twice that), and the fp32 output
+  accumulator lives for the whole tile. x must be 16-byte aligned there;
+- the first port's WMMA kernel (``csrc/fused_spatial_block.cu``,
+  ``lam_spatial_block_wmma``) for every other width the checks accept (the
+  tiny test registries' hidden 16 and 32 at dh 4 to 8): the whole
+  ``[32 rows, 3D+M]`` linear1 output of a block in shared memory.
+Neither is a fallback for the other: a CUDA tensor launches the plan's
+route or raises.
 
 Weights are in torch ``nn.Linear`` layout: ``w1 [3D+M, D]``, ``w2 [D, D+M]``.
 
@@ -16,14 +30,19 @@ Gradients: on CUDA tensors that need one, the kernel runs inside
 on the saved inputs (``_fused_bwd``, fused_spatial_block.py:225-230); no
 backward kernel.
 
-``launches`` counts kernel launches; nothing else touches it.
+Counters (plain integers, touched only where a kernel launches):
+``launches`` counts K8 launches of both routes, ``wmma_launches`` those on
+the WMMA route.
 """
+
+from typing import NamedTuple, Optional
 
 import torch
 
 from lam_slide_tpu_torch.nn.blocks import gelu_exact
 from lam_slide_tpu_torch.ops import _build
 from lam_slide_tpu_torch.ops._grad import needs_grad, plain_vjp
+from lam_slide_tpu_torch.ops.fused_mlp import GELU_TABLE_ENTRIES, SMEM_MAX
 from lam_slide_tpu_torch.ops.packed_attention import (
     headmajor_rmsnorm,
     headmajor_rope,
@@ -31,6 +50,58 @@ from lam_slide_tpu_torch.ops.packed_attention import (
 )
 
 launches = 0
+wmma_launches = 0
+
+# The Hopper kernel's geometry (csrc/fused_spatial_block_sm90.cu).
+SM90_ROWS = 64  # rows a tile, of which whole frames are used
+SM90_MAX_STAGES = 6  # stages of each weight ring
+# (D, dh) -> head group width of the instances the Hopper kernel has
+SM90_GROUPS = {(384, 24): 96, (384, 128): 128, (256, 16): 64, (128, 32): 64}
+
+
+class Sm90Plan(NamedTuple):
+    rows: int  # rows of a tile that are used: whole frames
+    group: int  # columns of an attention chunk (a head group)
+    mlp_chunk: int  # columns of an MLP chunk
+    s1: int  # w1 stages
+    s2: int  # w2 stages
+    smem: int  # shared memory of a block, bytes
+
+
+def sm90_smem_bytes(d: int, group: int, s1: int, s2: int) -> int:
+    """Shared memory of a Hopper K8 block (``smem_bytes`` in
+    csrc/fused_spatial_block_sm90.cu): the 64-row x tile (128 bytes a row
+    for every 64 columns of D), s1 w1 stages of ``group`` rows by 64
+    columns, s2 w2 stages of D rows by 32 columns, the staging area of q, k
+    and v of a head group (3 x group columns by 64 rows), the mbarriers
+    (256) and 1024 bytes of alignment slack."""
+    return (d * SM90_ROWS * 2 + s1 * group * 64 * 2 + s2 * d * 32 * 2
+            + 3 * group * SM90_ROWS * 2 + 256 + 1024)
+
+
+def sm90_plan(n: int, l: int, d: int, m: int, n_heads: int) -> Optional[Sm90Plan]:
+    """The Hopper kernel's geometry for x ``[n, l, d]``, mlp width m and
+    n_heads heads, or None where it has no instance (the WMMA route then).
+
+    rows: 64 // l * l, so no frame straddles two tiles. group: the head
+    group width of the (d, dh) instance; an MLP chunk is twice that. s1, s2:
+    three w2 stages and as many w1 stages as fit up to SM90_MAX_STAGES, if
+    that is at least three; else two w2 stages and as many w1 stages as
+    fit. (At [8000, 2, 384] on an H100: 3 x 128 0.2076 ms at (3, 3) against
+    0.2188 at (5, 2); 16 x 24 0.2135 at (5, 3), 0.2241 at (6, 2), PERF.md.)
+    """
+    if n <= 0 or not 1 <= l <= 8 or n_heads <= 0 or d % n_heads or m <= 0 or m % 16:
+        return None
+    group = SM90_GROUPS.get((d, d // n_heads))
+    if group is None or n * l >= 2 ** 31:
+        return None
+    for s2, least in ((3, 3), (2, 2)):
+        s1 = max((s for s in range(2, SM90_MAX_STAGES + 1)
+                  if sm90_smem_bytes(d, group, s, s2) <= SMEM_MAX), default=0)
+        if s1 >= least:
+            return Sm90Plan(64 // l * l, group, 2 * group, s1, s2,
+                            sm90_smem_bytes(d, group, s1, s2))
+    return None
 
 
 def reference_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -96,8 +167,9 @@ def fused_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """The spatial block over x ``[N, L, D]`` -> ``[N, L, D]``.
 
     CPU tensors take ``reference_spatial_block``. CUDA tensors launch the
-    kernel (bf16 x and weights, fp32 norm scales and ``[L, dh/2]`` tables) or
-    raise, through ``_SpatialBlock`` when they need a gradient.
+    kernel on the route of ``sm90_plan`` (bf16 x and weights, fp32 norm
+    scales and ``[L, dh/2]`` tables) or raise, through ``_SpatialBlock`` when
+    they need a gradient.
     """
     args = (x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale)
     if x.device.type == "cpu":
@@ -125,17 +197,27 @@ class _SpatialBlock(torch.autograd.Function):
 
 
 def _launch(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale) -> torch.Tensor:
-    """Launch K8 on CUDA tensors (checked here) -> ``[N, L, D]``."""
+    """Launch K8 on CUDA tensors (checked here) on the route of ``sm90_plan``
+    -> ``[N, L, D]``."""
     _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads)
     n, l, d = x.shape
     m = w1.shape[0] - 3 * d
+    plan = sm90_plan(n, l, d, m, n_heads)
+    if plan is not None and x.data_ptr() % 16:
+        raise ValueError("fused_spatial_block: x must be 16-byte aligned for the Hopper kernel")
     out = torch.empty_like(x)
-    global launches
+    ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr())
+    dims = (n, l, d, m, n_heads, w1.stride(0), w2.stride(0), float(scale))
+    global launches, wmma_launches
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _build.launch("lam_spatial_block_fwd", x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                      q_scale.data_ptr(), k_scale.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                      cos.data_ptr(), sin.data_ptr(), out.data_ptr(), n, l, d, m, n_heads,
-                      w1.stride(0), w2.stride(0), float(scale), stream)
+        if plan is None:
+            _build.launch("lam_spatial_block_wmma", *ptrs, *dims, stream)
+            wmma_launches += 1
+        else:
+            table = torch.empty(GELU_TABLE_ENTRIES, dtype=torch.int16, device=x.device)
+            _build.launch("lam_spatial_block_sm90", *ptrs, table.data_ptr(), *dims, plan.s1,
+                          plan.s2, stream)
     launches += 1
     return out

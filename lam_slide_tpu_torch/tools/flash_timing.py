@@ -20,10 +20,15 @@ backward on the MD17 DiT's temporal axis, packed [B, 30, 256] (16 heads of
 16, v a view of linear1's output) at the protocol batch's B = 61440 and the
 stage-2 train step's B = 12288, and K11 at the MD17 spatial axis [1920, 16,
 192, 16] (head-major views of one packed buffer, from K1's out and lse).
-Last, K2 (``fused_mlp``, the MLP slices of nn.Linear weights as the DiT
+Then K2 (``fused_mlp``, the MLP slices of nn.Linear weights as the DiT
 passes them) at its four main-path shapes: the 4AA Euler-10 solve at B=8
 ([16000, 384] -> 768) and train step ([32000, 384]), the MD17 protocol
-batch ([1843200, 256] -> 512) and stage-2 step ([368640, 256]). It uses
+batch ([1843200, 256] -> 512) and stage-2 step ([368640, 256]). Last, by
+events and by the profiler's device time, K8 (``fused_spatial_block``) at
+the 4AA solve's [2000, 2, 384] and [8000, 2, 384] at 16 x 24 and 3 x 128,
+and K7 (``residual_adaln_modulate``, h the transposed temporal output) at
+the 4AA B=8 solve's [8, 1000, 2, 384] and the MD17 protocol's [320, 30,
+192, 256]. It uses
 only entry points every tree of the port has, so an A/B of two trees runs
 it from each in turns:
 
@@ -40,7 +45,9 @@ import torch
 from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
 from lam_slide_tpu_torch.ops import flash_attention as fa
 from lam_slide_tpu_torch.ops import flash_normrope as fnr
+from lam_slide_tpu_torch.ops import fused_adaln as fad
 from lam_slide_tpu_torch.ops import fused_mlp as fm
+from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
 from lam_slide_tpu_torch.ops import short_attention as tsa
 from lam_slide_tpu_torch.ops.ablations import fused_temporal_attention as tft
 from lam_slide_tpu_torch.ops.ablations import short_backward as tsb
@@ -140,6 +147,28 @@ def main() -> int:
         w2 = (torch.randn(d, 3 * d, generator=gen) * 0.05).to(dev, bf)
         k2[rows, d] = (torch.randn(rows, d, generator=gen).to(dev, bf), w1[3 * d:].t(),
                        (torch.randn(2 * d, generator=gen) * 0.1).to(dev, bf), w2[:, d:].t())
+    # K8 at the 4AA Euler-10 solve's [B*T, L, D] at B=2 and B=8, both splits
+    k8 = {}
+    for n in (2000, 8000):
+        x8 = torch.randn(n, 2, 384, generator=gen).to(dev, bf)
+        w18 = (torch.randn(1920, 384, generator=gen) * 384 ** -0.5).to(dev, bf)
+        b18 = (torch.randn(1920, generator=gen) * 0.1).to(dev, bf)
+        w28 = (torch.randn(384, 1152, generator=gen) * 1152 ** -0.5).to(dev, bf)
+        b28 = (torch.randn(384, generator=gen) * 0.1).to(dev, bf)
+        for heads in (16, 3):
+            dh = 384 // heads
+            qs8, ks8 = ((1 + 0.2 * torch.randn(dh, generator=gen)).to(dev) for _ in range(2))
+            k8[n, heads] = (x8, w18, b18, qs8, ks8, w28, b28, *rope_cos_sin(2, dh, device=dev),
+                            heads, dh ** -0.5)
+    # K7 at the 4AA B=8 solve's [8, 1000, 2, 384] and the MD17 protocol's
+    # [320, 30, 192, 256]: h the transposed temporal output, the modulation
+    # chunks of one [B, 1, 1, 6D] tensor
+    k7 = {}
+    for b7, t7, l7, d7 in ((8, 1000, 2, 384), (320, 30, 192, 256)):
+        mods = (torch.randn(b7, 1, 1, 6 * d7, generator=gen) * 0.5).to(dev, bf).chunk(6, -1)
+        k7[b7, t7, l7, d7] = ((torch.randn(b7, t7, l7, d7, generator=gen) * 3).to(dev, bf),
+                              torch.randn(b7, l7, t7, d7, generator=gen).to(dev, bf).transpose(
+                                  1, 2), mods[2], mods[0], mods[1])
     calls = (
         ("K1 bf16 [16,16,1000,24]", lambda: fa.flash_attention(q1, k1, v1), REPS),
         ("K3 bf16 [16,1000,384]", lambda: fa.flash_attention_packed(*p1, 16), REPS),
@@ -173,6 +202,15 @@ def main() -> int:
     with torch.no_grad():
         for name, fn, reps in calls:
             print(f"{label}: {name} {_ms(fn, reps):.4f} ms | {smi}", flush=True)
+        for (n, heads), args8 in k8.items():
+            fn = lambda args8=args8: fsb.fused_spatial_block(*args8)  # noqa: E731
+            print(f"{label}: K8 bf16 [{n},2,384] {heads}x{384 // heads} {_ms(fn):.4f} ms "
+                  f"(events), {_device_ms(fn, 'spatial'):.4f} ms (device) | {smi}", flush=True)
+        for shape, args7 in k7.items():
+            fn = lambda args7=args7: fad.residual_adaln_modulate(*args7)  # noqa: E731
+            reps = 10 if shape[0] > 100 else REPS
+            print(f"{label}: K7 bf16 {list(shape)} {_ms(fn, reps):.4f} ms (events), "
+                  f"{_device_ms(fn, 'adaln_kernel', reps):.4f} ms (device) | {smi}", flush=True)
         if hasattr(fnr, "qk_normrope"):
             tr = (b5[0], b5[1], *nr)
             print(f"{label}: K5 transform bf16 [16,3,1000,128] {_ms(lambda: fnr.qk_normrope(*tr)):.4f}"

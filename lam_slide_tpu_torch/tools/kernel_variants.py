@@ -1,5 +1,5 @@
-"""Time ablated copies of K2, K9 (forward and backward) and K11 on the card,
-and the pieces of K5 and K6: what holds each back.
+"""Time ablated copies of K2, K7, K8, K9 (forward and backward) and K11 on
+the card, and the pieces of K5 and K6: what holds each back.
 
 Each variant is a copy of the kernel's source with one piece of its work
 taken out by a text substitution, built alone with nvcc (beside
@@ -8,7 +8,14 @@ and called through ctypes on the same inputs at the MD17 shapes: K2's
 Hopper route on x [1843200, 256] -> 512 -> 256 (the MLP slices of nn.Linear
 weights, as the DiT passes them), K9's forward and backward on packed
 [61440, 30, 256] (16 heads of 16, v a view of a wider buffer) and K11 on
-head-major views [1920, 16, 192, 16] with K1's out and lse. A variant's
+head-major views [1920, 16, 192, 16] with K1's out and lse; K8's Hopper
+route at the 4AA Euler-10 B=8 shape [8000, 2, 384] at 16 x 24 and 3 x 128
+(without the QK norm, RoPE and attention, without any epilogue, without
+either GEMM's products, with each weight stage loaded once and then
+reused) and K7 with
+the residual at the MD17 protocol batch's [320, 30, 192, 256] and the 4AA
+[8, 1000, 2, 384] (rows walked in h's order instead of x's, one row a warp
+instead of two, without h's loads, without stores). A variant's
 outputs are wrong by design; only its time means anything. Work a variant
 skips behind a run-time condition that never holds (``a.R < 0``) is still
 compiled, so what it feeds is not optimised away. The variants run in turns
@@ -25,7 +32,7 @@ the profiler too. Each line names the card and its power limit. Run from
 a tree's root:
 
     PYTHONPATH=. python lam_slide_tpu_torch/tools/kernel_variants.py \
-        [K2 K9-forward K11 K9-backward K5-K6]
+        [K2 K9-forward K11 K9-backward K5-K6 K8 K7]
 """
 
 import argparse
@@ -41,6 +48,7 @@ from lam_slide_tpu_torch.ops import _build
 from lam_slide_tpu_torch.ops import flash_attention as fa
 from lam_slide_tpu_torch.ops import flash_normrope as fnr
 from lam_slide_tpu_torch.ops import fused_mlp as fm
+from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
 from lam_slide_tpu_torch.ops import short_attention as tsa
 from lam_slide_tpu_torch.ops._grad import plain_vjp
 
@@ -81,6 +89,33 @@ K2_VARIANTS = {
         ("        mbar_arrive_expect_tx(&sm.full2[st], w2_tx);",
          "        if (u >= S2) { mbar_arrive(&sm.full2[st]); return; }\n"
          "        mbar_arrive_expect_tx(&sm.full2[st], w2_tx);")],
+}
+K8_EPILOGUES = [("        bias_epilogue<SW>(s, a,", "        if (a.R < 0) bias_epilogue<SW>(s, a,"),
+                ("        gelu_epilogue<SW>(s, a,", "        if (a.R < 0) gelu_epilogue<SW>(s, a,")]
+K8_ATTENTION = [("      attention<SB, DH>(a, sm.stg);", "      if (a.R < 0) attention<SB, DH>(a, sm.stg);"),
+                ("      normrope<SB, DH>(a, sm.stg);", "      if (a.R < 0) normrope<SB, DH>(a, sm.stg);")]
+K8_VARIANTS = {
+    "kernel": [],
+    "no norm, RoPE, attention": K8_ATTENTION,
+    "no epilogues at all": K8_EPILOGUES + K8_ATTENTION,
+    "no linear1 products": [("      wgmma_ss<N, 0, 0>(s, dx", "      if (a.R < 0) wgmma_ss<N, 0, 0>(s, dx")],
+    "no linear2 products": [("      wgmma_ss<NO, 0, 0>(o, da", "      if (a.R < 0) wgmma_ss<NO, 0, 0>(o, da")],
+    "weights loaded once": [
+        ("            mbar_arrive_expect_tx(&sm.full1[st], sm.w1_stage);",
+         "            if (u1 >= a.s1) { mbar_arrive(&sm.full1[st]); continue; }\n"
+         "            mbar_arrive_expect_tx(&sm.full1[st], sm.w1_stage);"),
+        ("          mbar_arrive_expect_tx(&sm.full2[st], 2 * box2);",
+         "          if (u2 >= a.s2) { mbar_arrive(&sm.full2[st]); continue; }\n"
+         "          mbar_arrive_expect_tx(&sm.full2[st], 2 * box2);")],
+}
+K7_VARIANTS = {
+    "kernel": [],
+    "rows in h's order": [("        xr[q] = row;", "        xr[q] = row % a.R1 * a.R2 + row / a.R1;")],
+    "one row a warp": [("constexpr int RPW = 2;", "constexpr int RPW = 1;")],
+    "no h loads": [("          if constexpr (RESIDUAL) load_vec<VEC>(hrow",
+                    "          if constexpr (RESIDUAL) if (a.R1 < 0) load_vec<VEC>(hrow")],
+    "no stores": [("            store_vec<VEC>(orow", "            if (a.R1 < 0) store_vec<VEC>(orow"),
+                  ("          store_vec<VEC>(yrow", "          if (a.R1 < 0) store_vec<VEC>(yrow")],
 }
 K9_FWD_VARIANTS = {
     "kernel": [],
@@ -178,6 +213,60 @@ def _k2(gen, dev, stream, smi) -> None:
               {name: _checked(fn, args) for name, fn in k2.items()}, smi)
 
 
+def _k8(gen, dev, stream, smi) -> None:
+    """K8's Hopper route at the 4AA Euler-10 B=8 shape [8000, 2, 384] at
+    both head splits, and its device time from the profiler."""
+    k8 = _build_variants("fused_spatial_block_sm90.cu", "lam_spatial_block_sm90", K8_VARIANTS)
+    bf = torch.bfloat16
+    n, l, d, m = 8000, 2, 384, 768
+    x = torch.randn(n, l, d, generator=gen).to(dev, bf)
+    w1 = (torch.randn(3 * d + m, d, generator=gen) * d ** -0.5).to(dev, bf)
+    b1 = (torch.randn(3 * d + m, generator=gen) * 0.1).to(dev, bf)
+    w2 = (torch.randn(d, d + m, generator=gen) * (d + m) ** -0.5).to(dev, bf)
+    b2 = (torch.randn(d, generator=gen) * 0.1).to(dev, bf)
+    out = torch.empty_like(x)
+    table = torch.empty(fm.GELU_TABLE_ENTRIES, dtype=torch.int16, device=dev)
+    for heads in (16, 3):
+        dh = d // heads
+        qs, ks = ((1 + 0.2 * torch.randn(dh, generator=gen)).to(dev) for _ in range(2))
+        cos, sin = rope_cos_sin(l, dh, device=dev)
+        plan = fsb.sm90_plan(n, l, d, m, heads)
+        args = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+                w2.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+                table.data_ptr(), n, l, d, m, heads, w1.stride(0), w2.stride(0), dh ** -0.5,
+                plan.s1, plan.s2, stream)
+        calls = {name: _checked(fn, args) for name, fn in k8.items()}
+        _in_turns(f"K8 [{n},{l},{d}] {heads}x{dh}", calls, smi)
+        device = cs.device_ms(calls["kernel"], "spatial_sm90_kernel", REPS)
+        print(f"K8 [{n},{l},{d}] {heads}x{dh} kernel (device): {device:.4f} ms | {smi}", flush=True)
+
+
+def _k7(gen, dev, stream, smi) -> None:
+    """K7 with the residual at the MD17 protocol batch's [320, 30, 192, 256]
+    and the 4AA B=8 solve's [8, 1000, 2, 384], h the transposed temporal
+    output, the modulation chunks of one [B, 1, 1, 6D] tensor; device times
+    from the profiler."""
+    k7 = _build_variants("fused_adaln.cu", "lam_adaln_fwd", K7_VARIANTS)
+    bf = torch.bfloat16
+    for b, t, l, d in ((320, 30, 192, 256), (8, 1000, 2, 384)):
+        x = (torch.randn(b, t, l, d, generator=gen) * 3).to(dev, bf)
+        h = torch.randn(b, l, t, d, generator=gen).to(dev, bf).transpose(1, 2)
+        shift, scale, gate = (torch.randn(b, 1, 1, 6 * d, generator=gen) * 0.5).to(dev, bf).chunk(
+            6, -1)[:3]
+        x_new, y = torch.empty_like(x), torch.empty_like(x)
+        dims = (ctypes.c_longlong * 10)(b * t * l, t, l, d, *h.stride()[:3], gate.stride(0),
+                                        shift.stride(0), scale.stride(0))
+        args = (x.data_ptr(), h.data_ptr(), gate.data_ptr(), shift.data_ptr(), scale.data_ptr(),
+                x_new.data_ptr(), y.data_ptr(), dims, 1e-6, 1, stream)
+        calls = {name: _checked(fn, args) for name, fn in k7.items()}
+        _in_turns(f"K7 [{b},{t},{l},{d}]", calls, smi)
+        for name in ("kernel", "rows in h's order"):
+            device = cs.device_ms(calls[name], "adaln_kernel", REPS)
+            print(f"K7 [{b},{t},{l},{d}] {name} (device): {device:.4f} ms | {smi}", flush=True)
+        del x, h, x_new, y
+        torch.cuda.empty_cache()
+
+
 def _k9_forward(gen, dev, stream, smi) -> None:
     k9f = _build_variants("short_attention.cu", "lam_short_attention_fwd", K9_FWD_VARIANTS)
     bf, b = torch.bfloat16, 61440
@@ -256,7 +345,7 @@ def _k5_k6(gen, dev, stream, smi) -> None:
 
 
 KERNELS = {"K2": _k2, "K9-forward": _k9_forward, "K11": _k11, "K9-backward": _k9_backward,
-           "K5-K6": _k5_k6}
+           "K5-K6": _k5_k6, "K8": _k8, "K7": _k7}
 
 
 def main() -> int:

@@ -203,10 +203,18 @@ def test_flash_normrope_matches_plain(dev, n, heads, dh):
 
 
 def test_flash_normrope_refuses_odd_dh_and_masks(dev):
-    q, k, v, qs, ks, cos, sin = _normrope_inputs(_gen(7), dev, 1, 2, 128, 24)
-    with pytest.raises(NotImplementedError):
-        fnr.flash_attention_normrope(q, k, v, qs, ks, cos, sin,
-                                     mask=torch.ones(1, 128, dtype=torch.bool, device=dev))
+    """With a key-padding mask, K5 takes JAX's fallback: the plain
+    pre-transform, then K1 with the bias (one K1-bias launch, no K5 one),
+    within K1's limits of the plain composition. Odd dh still raises."""
+    q, k, v, qs, ks, cos, sin = _normrope_inputs(_gen(7), dev, 2, 2, 128, 24)
+    mask = torch.arange(128, device=dev)[None] < torch.tensor([[128], [77]], device=dev)
+    before, k1 = _normrope_counts(), (fa.launches, fa.bias_launches)
+    got = fnr.flash_attention_normrope(q, k, v, qs, ks, cos, sin, mask=mask)
+    assert _launched(before, _normrope_counts()) == (0,) * 7
+    assert (fa.launches - k1[0], fa.bias_launches - k1[1]) == (1, 1)
+    want = fa.reference_attention(*fnr.pre_transform(q, k, qs, ks, cos, sin), v, mask=mask)
+    torch.cuda.synchronize()
+    _assert_k1_close(got, want)
     odd = torch.zeros(1, 2, 128, 23, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fnr.flash_attention_normrope(odd, odd, odd, qs[:23], ks[:23], cos, sin)
@@ -290,11 +298,14 @@ def test_normrope_function_takes_the_sm90_pair(dev, b, h, nq, nk, dh, route):
         assert (a - w).norm().item() <= 1.6e-2 * w.norm().item()
 
 
-@pytest.mark.parametrize("b,t,l,d", [(8, 1000, 2, 384), (3, 37, 4, 64)])
+@pytest.mark.parametrize("b,t,l,d", [(8, 1000, 2, 384), (3, 37, 4, 64), (320, 30, 192, 256),
+                                     (2, 5, 3, 30)])
 def test_adaln_matches_plain(dev, b, t, l, d):
     """K7: x_new bit-identical; y within 1 bf16 ulp at max |y|. h is the
     transposed view the DiT's temporal block hands over, and the mods are
-    chunks of one [B, 1, 1, 6D] tensor."""
+    chunks of one [B, 1, 1, 6D] tensor: at the 4AA and MD17 shapes (8-byte
+    and 16-byte accesses), a small one and one with D = 30 (4-byte
+    accesses, lanes idle)."""
     g = _gen(8)
     x = torch.randn(b, t, l, d, generator=g).to(dev, torch.bfloat16) * 3
     h = torch.randn(b, l, t, d, generator=g).to(dev, torch.bfloat16).transpose(1, 2)
@@ -313,6 +324,31 @@ def test_adaln_matches_plain(dev, b, t, l, d):
         assert (got.float() - want.float()).abs().max().item() <= _ulp(want.float())
 
 
+def test_adaln_refusals_after_a_kept_signature(dev):
+    """K7's wrapper keeps the checked launch arguments per signature (shapes,
+    strides, dtypes, devices, 4-byte alignment): after a good call, every
+    operand it refuses still raises ValueError: a modulation row two bytes
+    off 4-byte alignment, h with an odd stride, a non-contiguous x, fp32 x
+    or h."""
+    g = _gen(11)
+    x = torch.randn(2, 9, 3, 64, generator=g).to(dev, torch.bfloat16)
+    h = torch.randn(2, 3, 9, 64, generator=g).to(dev, torch.bfloat16).transpose(1, 2)
+    shift, scale, gate = (torch.randn(2, 1, 1, 384, generator=g) * 0.5).to(
+        dev, torch.bfloat16).chunk(6, dim=-1)[:3]
+    fad.residual_adaln_modulate(x, h, gate, shift, scale)
+    fad.adaln_modulate(x, shift, scale)
+    odd_gate = torch.zeros(2, 1, 1, 65, dtype=torch.bfloat16, device=dev)[..., 1:]
+    odd_h = torch.zeros(2, 3, 9, 65, dtype=torch.bfloat16, device=dev)[..., :64].transpose(1, 2)
+    bad = [(x, h, odd_gate, shift, scale), (x, h, gate, odd_gate, scale),
+           (x, odd_h, gate, shift, scale), (x.transpose(1, 2), h, gate, shift, scale),
+           (x.float(), h, gate, shift, scale), (x, h.float(), gate, shift, scale)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            fad.residual_adaln_modulate(*args)
+    with pytest.raises(ValueError):
+        fad.adaln_modulate(x, shift, odd_gate)
+
+
 def _spatial_inputs(g, dev, n, l, d, m, heads):
     dh = d // heads
     x = torch.randn(n, l, d, generator=g).to(dev, torch.bfloat16)
@@ -326,21 +362,45 @@ def _spatial_inputs(g, dev, n, l, d, m, heads):
 
 
 @pytest.mark.parametrize("n,l,d,m,heads", [
-    (2000, 2, 384, 768, 16),  # the 4AA spatial axis, 16 x 24
+    (2000, 2, 384, 768, 16),  # the 4AA spatial axis, 16 x 24 (B=2)
     (2000, 2, 384, 768, 3),   # 3 x 128
-    (37, 4, 32, 64, 4),       # ragged frame block, dh 8
-    (5, 3, 32, 64, 1),        # L that does not divide the block
+    (8000, 2, 384, 768, 16),  # B=8
+    (8000, 2, 384, 768, 3),
+    (4000, 1, 384, 768, 16),  # one position a frame
+    (1333, 3, 384, 768, 3),   # 63-row tiles of 21 frames
+    (500, 8, 384, 768, 16),   # eight positions a frame
+    (777, 5, 256, 512, 16),   # the NBA DiT's width, 16 x 16
+    (901, 7, 128, 256, 4),    # the pedestrian DiT's, 4 x 32
+    (37, 4, 32, 64, 4),       # ragged frame block, dh 8 (WMMA route)
+    (5, 3, 32, 64, 1),        # L that does not divide the block (WMMA route)
 ])
 def test_spatial_block_matches_plain(dev, n, l, d, m, heads):
+    """K8 on the route ``sm90_plan`` picks (the Hopper kernel at every
+    composite's width, the WMMA route at hidden 32), within K8_REL_TOL of
+    its plain version; a second call on the same inputs is bit-identical."""
     args = _spatial_inputs(_gen(9), dev, n, l, d, m, heads)
-    before = fsb.launches
+    before = (fsb.launches, fsb.wmma_launches)
     got = fsb.fused_spatial_block(*args)
-    assert fsb.launches == before + 1
+    wmma = fsb.sm90_plan(n, l, d, m, heads) is None
+    assert wmma == (d == 32)
+    assert (fsb.launches - before[0], fsb.wmma_launches - before[1]) == (1, int(wmma))
     want = fsb.reference_spatial_block(*args)
+    again = fsb.fused_spatial_block(*args)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got, again)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= K8_REL_TOL * want.float().abs().max().item()
+
+
+def test_spatial_block_refuses_a_misaligned_x_on_the_hopper_route(dev):
+    """The Hopper kernel loads x by TMA: a view of x one element into its
+    buffer raises instead of taking another route."""
+    args = list(_spatial_inputs(_gen(10), dev, 64, 2, 128, 256, 4))
+    x = torch.empty(64 * 2 * 128 + 1, dtype=torch.bfloat16, device=dev)[1:].view(64, 2, 128)
+    x.copy_(args[0])
+    with pytest.raises(ValueError):
+        fsb.fused_spatial_block(x, *args[1:])
 
 
 def _heads_views(g, dev, b, h, nq, nk, dh, scale=1.0):

@@ -359,12 +359,23 @@ def test_sampling_records_no_autograd_graph(method):
     assert out.grad_fn is None and not out.requires_grad
 
 
-def test_masks_are_refused():
-    """K1 takes a key-padding mask now; K5 still refuses one on every
-    device, and the packed entries (K3, K9) take none, as in JAX."""
-    with pytest.raises(NotImplementedError):
-        fnr.flash_attention_normrope(*_normrope_inputs("cpu"),
-                                     mask=torch.ones(1, 130, dtype=torch.bool))
+def test_masks_are_refused(monkeypatch):
+    """K1 takes a key-padding mask; K5 with one takes JAX's fallback
+    (flash_normrope.py:496-498), the plain pre-transform then K1's entry
+    with the mask, counting no K5 launch; the packed entries (K3, K9) take
+    none, as in JAX."""
+    _zero_counters(monkeypatch)
+    q, k, v, qs, ks, cos, sin = (t.normal_() if t.dim() == 4 else t
+                                 for t in _normrope_inputs("cpu"))
+    mask = torch.arange(130)[None] < 97
+    calls = []
+    real = fnr.flash_attention
+    monkeypatch.setattr(fnr, "flash_attention",
+                        lambda *a, **kw: calls.append(kw["mask"]) or real(*a, **kw))
+    got = fnr.flash_attention_normrope(q, k, v, qs, ks, cos, sin, mask=mask)
+    assert len(calls) == 1 and calls[0] is mask and not any(_counts())
+    want = fa.reference_attention(*fnr.pre_transform(q, k, qs, ks, cos, sin), v, mask=mask)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
     for entry in (fa.flash_attention_packed, tsa.short_attention):
         assert "mask" not in inspect.signature(entry).parameters
 

@@ -79,6 +79,35 @@ def test_normrope_plain_is_the_pre_transform_then_attention():
     torch.testing.assert_close(got, tfa.reference_attention(q_t, k_t, v), atol=2e-6, rtol=2e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nq,nk", [(40, 40), (40, 57)])
+def test_masked_normrope_matches_jax(dtype, nq, nk):
+    """A key-padding mask takes JAX's fallback (flash_normrope.py:496-498):
+    the pre-transform, then flash attention with the mask. Batch rows with
+    every key, with padded keys and with one key. At Nq == Nk the whole JAX
+    call; at Nq != Nk (JAX's call takes one table for both sides) its parts,
+    ``_pre_transform`` with the tables' first Nq and Nk rows and
+    ``flash_attention`` with the mask."""
+    rng = np.random.default_rng(nq * 100 + nk)
+    d, h, b = 8, 3, 3
+    q = rng.standard_normal((b, h, nq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, h, nk, d)).astype(np.float32) for _ in range(2))
+    qs, ks = ((1.0 + 0.1 * rng.standard_normal(d)).astype(np.float32) for _ in range(2))
+    cos, sin = (np.array(t) for t in j_rope_cos_sin(max(nq, nk), d))
+    mask = np.arange(nk)[None] < np.array([[nk], [nk - 9], [1]])
+    jargs, targs = _both((q, k, v, qs, ks, cos, sin), dtype)
+    if nq == nk:
+        want = jnr.flash_attention_normrope(*jargs, mask=jnp.asarray(mask))
+    else:
+        jq, jk = jargs[:2]
+        q_t, _ = jnr._pre_transform(jq, jq, *jargs[3:5], jargs[5][:nq], jargs[6][:nq])
+        _, k_t = jnr._pre_transform(jk, jk, *jargs[3:5], jargs[5][:nk], jargs[6][:nk])
+        want = jfa.flash_attention(q_t, k_t, jargs[2], mask=jnp.asarray(mask))
+    got = tnr.flash_attention_normrope(*targs, mask=torch.from_numpy(mask))
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, h, nq, d)
+    _close(got, want, dtype)
+
+
 def test_packed_plain_matches_jax_packed_kernel():
     """H=8: the JAX packed entry runs its manual-DMA kernel (interpret mode)."""
     rng = np.random.default_rng(3)
