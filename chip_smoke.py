@@ -3,7 +3,9 @@
 
 The main paths are the 4AA stage-2 sampler, the 4AA stage-2 train step, the
 MD17 sampling protocol, the MD17 training of both stages, the paths of the
-two ablation kernels (K10, K11), and the SDE and likelihood samplers. The
+two ablation kernels (K10, K11), the SDE and likelihood samplers, and MD17
+end to end through the port's own loop (its CLI, Trainer, checkpoints and
+run registry) to the fp32 test pass. The
 4AA paths run the full-width ``LatentDiT`` (depth 7, hidden 384,
 mlp_ratio 2, T=1000 frames, L=2 latents, in_dim 96, bf16) with random
 weights drawn from a seed, at both head splits (16 heads x dh 24 and 3
@@ -84,7 +86,19 @@ printed on its own line with its seconds:
 13. dit_variants: one forward each of the DiT with
    ``attention_mode="linear"``, with ``share_weights=True`` and at the tiny
    test registries' width (hidden 32, 4 x dh 8, whose spatial blocks take
-   K8's WMMA route) against the plain path, with their launches.
+   K8's WMMA route) against the plain path, with their launches;
+14. md17_loop: the port's CLI (``train.cli.main``) in-process in a
+   temporary workspace at full width on a synthetic aspirin trajectory:
+   stage 1 (fp32, B=256, one epoch with val), then stage 2 read from the run
+   registry (bf16 DiT, B=64, one epoch, val over one batch, the K=5 val hook,
+   the checkpoint) with ``--test`` (the fp32 rebuild of the DiT over the
+   test split, K=5 one repeat at a time), then ``--test-only`` from the
+   checkpoint: every call returns 0, the metric streams are finite and
+   complete, runs.json links the stages, ``--test-only`` reproduces
+   ``--test`` exactly, the test pass launches the fp32 K1, K2, K7 and K9 and
+   no bf16 DiT kernel while training launches the bf16 ones and K4; the fp32
+   protocol on the first test batch against the plain path (TF32 off), and
+   that batch's time and profile.
 
 Phase 3 also holds K10 (at both head splits and a ragged T, and against
 the K5 and K3 routes) and K11 (against K4's grads, with its peak memory, and
@@ -123,7 +137,10 @@ The MD17 kernels are checked against their plain versions in phase 3: K1
 with the key-padding bias and with fp32 operands (and its lse), K9 forward
 and backward at the protocol's shapes, K3, K2 and K7 at the DiT's 1.84 M
 tokens, and K4 with the bias (fp32 and bf16) and with fp32 operands at the
-training shapes, each also at ragged shapes with an all-masked row.
+training shapes, each also at ragged shapes with an all-masked row; and the
+fp32 instances the test pass runs (K2-fp32, K7-fp32, K9-fp32's forward;
+csrc/fused_mlp_f32.cu, fused_adaln_f32.cu, short_attention_f32.cu, FFMA,
+no TF32) at its shapes, with TF32 off on the plain side.
 
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -313,6 +330,32 @@ MD17_GRAD_REL_TOL = (5.8e-5, 1.2e-2)
 # bf16 DiT whose roundings differ in order, then the fp32 decoder. First
 # reading on an H100: 4.875e-4; the limit is 3x that.
 MD17_POS_REL_TOL = 1.5e-3
+# The MD17 test pass (phase 14) runs the DiT in fp32: MD17_LATENTS latents of
+# MD17_HIDDEN, 16 heads of 16, at the loaders' B=64. Its fp32 kernels
+# (K2-fp32, K7-fp32's y, K9-fp32's forward) against their plain versions
+# with TF32 off, relative to max |out|: exact fp32 on both sides up to the
+# order of the sums (and erff, expf against PyTorch's erf, exp). Readings of
+# python -m lam_slide_tpu_torch.tools.f32_readings on an H100 (seeds 20-23
+# at the test pass's shapes), worst: K2 0 (bit-identical: cuBLAS's SGEMM,
+# with TF32 off, sums each output over k in order with FMAs, as the kernel
+# does), K7 1.571e-7, K9 5.470e-7. Each limit is 3x the worst reading; K2's
+# is a floor of 1e-6 instead of 0, a few fp32 ulps for a cuBLAS algorithm
+# that sums in another order. K7's x_new must be bit-identical.
+MD17_LATENTS, MD17_HIDDEN, MD17_HEADS = 192, 256, 16
+# Phase 14's synthetic aspirin trajectory: 12,000 raw frames, 1,200 after
+# the 10x downsampling; with the split (0.6, 0.2, 0.2) and 30-frame windows
+# that is 691 train windows (stage 1: 2 steps at B=256; stage 2: 10 steps
+# at B=64) and 211 test windows (the test pass: 4 protocol batches).
+MD17_LOOP_FRAMES = 12_000
+# Phase 14's fp32 protocol on one test batch, kernel path vs plain path
+# (TF32 off) on the same weights and noise, in fp32 ulps of the plain path's
+# ADE and FDE (fp32 means over the batch): both run the fp32 DiT, with sums
+# in other orders, through nine Euler steps. Readings on an H100 (phase 14's
+# trained weights at seed 0, and python -m lam_slide_tpu_torch.tools.f32_readings
+# at seeds 0-2): 0 ulps every time, the per-element differences (~1e-7
+# relative) averaging out below one ulp of the mean. The limit is 3 ulps.
+MD17_F32_PROTOCOL_ULPS = 3
+F32_REL_TOL = {"K2 fp32": 1e-6, "K7 fp32": 4.8e-7, "K9 fp32": 1.7e-6}
 GRAD_NORM_REL_TOL = {"bf16": 8e-5, "fp32": 3e-3}
 GRAD_TENSOR_REL_TOL = {"bf16": 1.6e-2, "fp32": 4.5e-2}
 # K10 against its plain version: K1's pair of limits (q/k round once, after
@@ -1205,6 +1248,131 @@ def md17_dit_kernel_checks(dev, gen, table: KernelTable) -> None:
     torch.cuda.empty_cache()
 
 
+def f32_kernel_cases(dev, seed: int) -> dict:
+    """The fp32 kernels of the MD17 test pass at its shapes (B=64, T=30,
+    L=192, hidden 256, 16 x dh 16) on one seed's inputs, as the fp32 DiT
+    hands them over: name -> dict of the kernel call, the plain call, a
+    call that times the library's version in ms (or None), the shape text
+    and the FLOPs, bytes and exponentials of the bound. K2: x and the MLP
+    slices of linear1's and linear2's nn.Linear weights as transposed views;
+    its library version is the two-GEMM cuBLAS composition with PyTorch's
+    GELU (not one call). K7: the
+    residual stream, h the transposed temporal output, gate/shift/scale
+    chunks of one [B, 1, 1, 6D] tensor; both calls return (x_new, y); no
+    library call computes it, so ``composition`` (F.layer_norm + the
+    modulate) is timed beside it, and ``variant`` is the pair of calls
+    without the residual. K9: packed q/k/v views of one linear1 output over
+    the temporal axis; its library call is SDPA on their head-major views."""
+    from torch.nn.functional import gelu, layer_norm, linear
+
+    from lam_slide_tpu_torch.ops import fused_adaln as fad
+    from lam_slide_tpu_torch.ops import fused_mlp as fm
+    from lam_slide_tpu_torch.ops import short_attention as tsa
+
+    gen = torch.Generator().manual_seed(seed)
+    b, t, l, d, heads = MD17_BATCH, MD17_T, MD17_LATENTS, MD17_HIDDEN, MD17_HEADS
+    m, rows, dh = 2 * d, b * t * l, d // heads
+    x = _rand(gen, rows, d).to(dev)
+    lin1 = _rand(gen, 3 * d + m, d, scale=d ** -0.5).to(dev)
+    b1 = _rand(gen, m, scale=0.1).to(dev)
+    lin2 = _rand(gen, d, d + m, scale=(d + m) ** -0.5).to(dev)
+    mlp = (x, lin1[3 * d:].t(), b1, lin2[:, d:].t())
+    x7 = _rand(gen, b, t, l, d, scale=3.0).to(dev)
+    h7 = _rand(gen, b, l, t, d).to(dev).transpose(1, 2)
+    shift, scale, gate = _rand(gen, b, 1, 1, 6 * d, scale=0.5).to(dev).chunk(6, -1)[:3]
+    ada = (x7, h7, gate, shift, scale)
+    q, k, v = _rand(gen, b * l, t, 3 * d).to(dev).chunk(3, -1)
+    heads_major = [z.unflatten(-1, (heads, dh)).transpose(1, 2) for z in (q, k, v)]
+    return {
+        "K2 fp32": dict(
+            kernel=lambda: fm.fused_mlp(*mlp), plain=lambda: fm.reference_mlp(*mlp),
+            library_ms=lambda: time_ms(
+                lambda: linear(gelu(linear(x, lin1[3 * d:], b1)), lin2[:, d:]), reps=5),
+            shape=f"x [{rows},{d}] w1 [{d},{m}] w2 [{m},{d}] transposed nn.Linear views; "
+                  f"library: the two-GEMM cuBLAS composition with GELU (not one call)",
+            flops=4 * rows * d * m, nbytes=4 * (2 * rows * d + 2 * d * m + m), exps=0),
+        "K7 fp32": dict(
+            kernel=lambda: fad.residual_adaln_modulate(*ada),
+            plain=lambda: fad.reference_residual_adaln_modulate(*ada), library_ms=None,
+            composition=lambda: fad.modulate(layer_norm(x7 + gate * h7, (d,), eps=1e-6),
+                                             shift, scale),
+            variant=(lambda: fad.adaln_modulate(x7, shift, scale),
+                     lambda: fad.reference_adaln_modulate(x7, shift, scale)),
+            shape=f"x/h [{b},{t},{l},{d}] (h the transposed temporal view)",
+            flops=0, nbytes=4 * (4 * rows * d + 3 * b * d), exps=0),
+        "K9 fp32": dict(
+            kernel=lambda: tsa.short_attention(q, k, v, heads),
+            plain=lambda: tsa.reference_short_attention(q, k, v, heads, dh ** -0.5),
+            library_ms=lambda: library_times(*heads_major, dh ** -0.5),
+            shape=f"packed q/k/v [{b * l},{t},{d}] views of one [{b * l},{t},{3 * d}] buffer, "
+                  f"{heads} x {dh}; library: SDPA on fp32 head-major views",
+            flops=4 * b * l * heads * t * t * dh, nbytes=4 * 4 * b * l * t * d,
+            exps=b * l * heads * t * t),
+    }
+
+
+def f32_kernel_outputs(dev, seed: int) -> dict:
+    """name -> (kernel output, plain output, x_new bit-identical (K7) or None)
+    for ``f32_kernel_cases`` on one seed's inputs."""
+    out = {}
+    for name, case in f32_kernel_cases(dev, seed).items():
+        got, want = case["kernel"](), case["plain"]()
+        exact = None
+        if name == "K7 fp32":
+            exact = torch.equal(got[0], want[0])
+            got, want = got[1], want[1]
+        out[name] = (got, want, exact)
+    torch.cuda.synchronize()
+    return out
+
+
+def md17_f32_kernel_checks(dev, table: KernelTable) -> None:
+    """K2-fp32, K7-fp32 and K9-fp32's forward against their plain versions
+    (TF32 off) at the MD17 test pass's shapes, within F32_REL_TOL, on the
+    first seed of tools/f32_readings.py; K7's x_new bit-identical and its
+    modulation without the residual within the same limit; each kernel's
+    fp32 counter moves once a call; a second call bit-identical; times beside
+    the plain version's and the library's, and the fp32 bound."""
+    from lam_slide_tpu_torch.ops import fused_adaln as fad
+    from lam_slide_tpu_torch.ops import fused_mlp as fm
+    from lam_slide_tpu_torch.ops import short_attention as tsa
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    counters = {"K2 fp32": fm, "K7 fp32": fad, "K9 fp32": tsa}
+    for name, case in f32_kernel_cases(dev, 20).items():
+        mod, tol = counters[name], F32_REL_TOL[name]
+        before = (mod.launches, mod.fp32_launches)
+        got, again, want = case["kernel"](), case["kernel"](), case["plain"]()
+        torch.cuda.synchronize()
+        check((mod.launches - before[0], mod.fp32_launches - before[1]) == (2, 2),
+              f"{name}: the fp32 kernel did not launch once a call")
+        extra = ""
+        if name == "K7 fp32":
+            check(torch.equal(got[0], want[0]), "K7 fp32 x_new is not bit-identical")
+            check(torch.equal(got[0], again[0]), "K7 fp32: a second call's x_new differs")
+            got, again, want = got[1], again[1], want[1]
+            kernel0, plain0 = case["variant"]
+            rel0 = errors(kernel0(), plain0())[1]
+            check(rel0 <= tol, f"{name} (no residual) rel err {rel0} > {tol}")
+            extra = (f"; x_new bit-identical; y without residual rel {rel0:.3e}; library: none "
+                     f"(F.layer_norm + modulate {time_ms(case['composition'], reps=5):.4f} ms)")
+        check(torch.equal(got, again), f"{name}: a second call on the same inputs differs")
+        check(got.dtype == torch.float32 and got.shape == want.shape, f"{name} shape/dtype")
+        abs_err, rel = errors(got, want)
+        del got, again, want
+        torch.cuda.empty_cache()
+        check(rel <= tol, f"{name} rel err {rel} > {tol}")
+        library_ms = case["library_ms"]
+        table.add(name, f"{case['shape']}; rel {rel:.3e}, a second call bit-identical{extra}",
+                  abs_err, f"rel tol {tol}", time_ms(case["kernel"], reps=5),
+                  time_ms(case["plain"], reps=3), case["flops"], case["nbytes"],
+                  None if library_ms is None else library_ms(),
+                  peak=PEAK_FP32_FLOPS, exps=case["exps"])
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 def md17_train_kernel_checks(dev, gen, table: KernelTable) -> None:
     """K1-fp32's lse and K4 with the key-padding bias (fp32 and bf16) and with
     fp32 operands against the plain versions at the MD17 training shapes:
@@ -1414,7 +1582,7 @@ def md17_second_run(run1, dev):
     1e-3, EMA 0.999, the sampled val hook."""
     from lam_slide_tpu_torch.experiments import registry
 
-    return registry.md17_second_stage(run1.model, run1.config, seed=SEED,
+    return registry.md17_second_stage(first_stage=run1, seed=SEED,
                                       synthetic_frames=MD17_FRAMES, device=dev)
 
 
@@ -1517,6 +1685,156 @@ def md17_phase(dev, smi, reset_counts, read_counts):
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | {smi}")
         profile_run(protocol_batch, f"md17 protocol batch K={MD17_K} B={MD17_BATCH} kernel path")
     return counts
+
+
+def f32_protocol_pair(ss, batch, seed: int):
+    """The fp32 test protocol (evaluate_md17, K=5, Euler-10, k_chunk=1) on one
+    batch through the kernels and through the plain path (TF32 off), both
+    drawing their noise from a generator seeded with ``seed``: (kernel
+    ADE/FDE, plain ADE/FDE)."""
+    from lam_slide_tpu_torch.composites.testing import evaluate_md17
+    from lam_slide_tpu_torch.nn.blocks import set_backend
+
+    dev = next(ss.first_stage.parameters()).device
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for backend in ("auto", "plain"):
+        for module in (ss.backbone, ss.first_stage):
+            set_backend(module, backend)
+        out.append(evaluate_md17(ss, {"md17": [batch]}, scale=1.0, k=MD17_K, k_chunk=1,
+                                 generator=torch.Generator(device=dev).manual_seed(seed)))
+    for module in (ss.backbone, ss.first_stage):
+        set_backend(module, "auto")
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return tuple(out)
+
+
+def protocol_ulps(got: dict, want: dict) -> float:
+    """The largest |got - want| over the metrics, in fp32 ulps of want's."""
+    return max(abs(got[k] - want[k]) / float(np.spacing(np.float32(abs(want[k])))) for k in want)
+
+
+def md17_loop_phase(dev, smi, reset_counts, read_counts):
+    """Phase 14: MD17 through the port's own loop, by its CLI in-process in a
+    temporary workspace: stage 1 at full width (fp32, B=256, one epoch with
+    val), then stage 2 from the run registry (the bf16 DiT, B=64, one epoch,
+    val over one batch, the K=5 val hook, the checkpoint) with the fp32
+    --test pass over the test split, then --test-only from the checkpoint.
+    Returns the launches of stage 2's training (val and hook included) and
+    of its test pass."""
+    import shutil
+    import tempfile
+
+    from lam_slide_tpu_torch.composites import testing
+    from lam_slide_tpu_torch.experiments import registry
+    from lam_slide_tpu_torch.train.cli import main as cli
+
+    ws = tempfile.mkdtemp(prefix="md17_loop_")
+    real = testing.evaluate_md17
+    test_passes = []
+
+    def spy(ss, loaders, **kw):
+        """The CLI's test pass (k_chunk=1; the val hook passes none): its
+        launches, protocol batches and time."""
+        if kw.get("k_chunk") != 1:
+            return real(ss, loaders, **kw)
+        torch.cuda.synchronize()
+        before, t0 = read_counts(), time.perf_counter()
+        out = real(ss, loaders, **kw)
+        torch.cuda.synchronize()
+        after = read_counts()
+        test_passes.append(({key: after[key] - before[key] for key in after},
+                            time.perf_counter() - t0, out))
+        return out
+
+    common = ["--workspace", ws, "--molecule", "aspirin", "--epochs", "1",
+              "--exp-set", f"synthetic_frames={MD17_LOOP_FRAMES}"]
+    testing.evaluate_md17 = spy
+    try:
+        t0 = time.perf_counter()
+        rc1 = cli(["--experiment", "md17_first_stage", "--run-id", "s1",
+                   "--set", "val_every_n_epochs=1", *common])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reset_counts()
+        rc2 = cli(["--experiment", "md17_second_stage", "--run-id", "s2",
+                   "--first-stage-run", "s1", "--set", "val_every_n_epochs=1",
+                   "--set", "limit_val_batches=1", "--test", *common])
+        torch.cuda.synchronize()
+        total = read_counts()
+        t2 = time.perf_counter()
+        rc3 = cli(["--workspace", ws, "--run-id", "s2", "--test-only", "--test-ckpt", "last"])
+        t3 = time.perf_counter()
+        print(f"md17_loop: stage 1 {t1 - t0:.2f} s, stage 2 with --test {t2 - t1:.2f} s, "
+              f"--test-only {t3 - t2:.2f} s; return codes {rc1} {rc2} {rc3}")
+        check((rc1, rc2, rc3) == (0, 0, 0), f"md17_loop: CLI return codes {rc1} {rc2} {rc3}")
+        check(len(test_passes) == 2, f"md17_loop: {len(test_passes)} test passes, not 2")
+        (test_counts, test_s, metrics), (_, retest_s, retest) = test_passes
+        train_counts = {key: total[key] - test_counts[key] for key in total}
+
+        with open(f"{ws}/runs.json") as f:
+            runs = json.load(f)
+        check(runs["s2"]["config"]["first_stage_run"] == "s1", "runs.json does not link s2 to s1")
+        for run_id, splits in (("s1", ("train", "val/aspirin")),
+                               ("s2", ("train", "val/aspirin", "hook/val_sample"))):
+            with open(f"{ws}/{run_id}/metrics.jsonl") as f:
+                records = [json.loads(line) for line in f]
+            check([r["split"] for r in records] == list(splits),
+                  f"{run_id} metrics.jsonl splits {[r['split'] for r in records]}")
+            check(all(math.isfinite(v) for r in records for v in r.values()
+                      if isinstance(v, float)), f"{run_id}: a non-finite metric")
+            print(f"md17_loop {run_id} records: {records}")
+        with open(f"{ws}/s2/test_metrics.json") as f:
+            stored = json.load(f)
+        keys = {"test/aspirin/ade", "test/aspirin/fde"}
+        check(set(stored) == keys and all(math.isfinite(v) for v in stored.values()),
+              f"test_metrics.json {stored}")
+        check(retest == metrics == stored, f"--test-only {retest} != --test {metrics}")
+
+        # the test pass ran the fp32 kernels only; training the bf16 ones and K4
+        bf16 = {k: test_counts[k] - test_counts[f"{k} fp32"] for k in ("K1", "K2", "K7", "K9")}
+        print(f"md17_loop: --test {metrics} in {test_s:.2f} s (--test-only {retest_s:.2f} s); "
+              f"test-pass launches {test_counts}; stage-2 training launches {train_counts}")
+        check(all(test_counts[k] > 0 for k in ("K2 fp32", "K7 fp32", "K9 fp32", "K1 fp32")),
+              "md17_loop: an fp32 kernel did not launch in the test pass")
+        check(all(v == 0 for v in bf16.values()) and test_counts["K8"] == 0,
+              f"md17_loop: a bf16 DiT kernel launched in the test pass: {bf16}")
+        check(all(train_counts[k] - train_counts[f"{k} fp32"] > 0 for k in ("K2", "K7", "K9"))
+              and train_counts["K9 bwd"] > 0 and train_counts["K4 kv"] > 0
+              and train_counts["K1 sm90"] > 0,
+              f"md17_loop: a bf16 kernel or K4 did not launch in training: {train_counts}")
+
+        # the fp32 protocol on the first test batch, kernel path vs plain
+        # path, then its time and profile, on the checkpoint's weights
+        exp = registry.md17_second_stage(workspace=ws, first_stage_run="s1", molecule="aspirin",
+                                         synthetic_frames=MD17_LOOP_FRAMES, device=dev)
+        raw = registry.load_checkpoint_raw(f"{ws}/s2", "last")
+        ss = exp.test_model
+        ss.backbone.load_state_dict({**raw["params"], **raw["ema_params"]})
+        batch = next(iter(exp.test_loaders["aspirin"]))
+        kern, plain = f32_protocol_pair(ss, batch, SEED)
+        ulps = protocol_ulps(kern, plain)
+        print(f"md17_loop: fp32 protocol, first test batch (B={MD17_BATCH}), kernel path {kern} "
+              f"plain path {plain}: {ulps:.1f} fp32 ulps (limit {MD17_F32_PROTOCOL_ULPS})")
+        check(ulps <= MD17_F32_PROTOCOL_ULPS, f"md17_loop: fp32 protocol {ulps} ulps apart")
+
+        def protocol_batch():
+            return testing.evaluate_md17(ss, {"md17": [batch]}, scale=1.0, k=MD17_K, k_chunk=1)
+
+        with torch.no_grad():  # the kernel path ran the batch above: no warm-up
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            protocol_batch()
+            end.record()
+            torch.cuda.synchronize()
+            print(f"timing md17_loop fp32 test batch K={MD17_K} B={MD17_BATCH} k_chunk=1 kernel "
+                  f"path {start.elapsed_time(end):.3f} ms | {smi}")
+            profile_run(protocol_batch, f"md17_loop fp32 test batch K={MD17_K} B={MD17_BATCH}")
+    finally:
+        testing.evaluate_md17 = real
+        shutil.rmtree(ws, ignore_errors=True)
+    return train_counts, test_counts
 
 
 def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, smi,
@@ -2215,6 +2533,8 @@ def main() -> int:
 
     counters = {"K1": (fa, "launches"), "K1 bias": (fa, "bias_launches"),
                 "K1 fp32": (fa, "fp32_launches"), "K2": (fm, "launches"),
+                "K2 fp32": (fm, "fp32_launches"), "K7 fp32": (fad, "fp32_launches"),
+                "K9 fp32": (tsa, "fp32_launches"),
                 "K2 wmma": (fm, "wmma_launches"), "K2 cp.async": (fm, "cp_async_launches"),
                 "K5": (fnr, "launches"), "K7": (fad, "launches"), "K8": (fsb, "launches"),
                 "K8 wmma": (fsb, "wmma_launches"),
@@ -2271,6 +2591,7 @@ def main() -> int:
     md17_kernel_checks(dev, torch.Generator().manual_seed(SEED + 3), table)
     md17_dit_kernel_checks(dev, torch.Generator().manual_seed(SEED + 4), table)
     md17_train_kernel_checks(dev, torch.Generator().manual_seed(SEED + 5), table)
+    md17_f32_kernel_checks(dev, table)
     ablation_kernel_checks(dev, torch.Generator().manual_seed(SEED + 9), table)
     phase_done("kernels")
 
@@ -2427,6 +2748,11 @@ def main() -> int:
     tiny_counts = dit_variants_phase(dev, reset_counts, read_counts)
     phase_done("dit_variants")
 
+    # 14. MD17 through the port's own loop: CLI, Trainer, checkpoints, run
+    # registry, the fp32 --test pass and --test-only
+    _, loop_test_counts = md17_loop_phase(dev, smi, reset_counts, read_counts)
+    phase_done("md17_loop")
+
     sources = {
         "K1": ("flash_attention_fwd", "flash_fwd_sm90.cu", "flash_attention.py:37"),
         "K2": ("fused_mlp", "fused_mlp.cu", "fused_mlp.py:68"),
@@ -2454,6 +2780,11 @@ def main() -> int:
         "K10": ("fused_temporal_attention", "flash_attention.cu",
                 "ablations/fused_temporal_attention.py:75"),
         "K11": ("flash_backward_short", "short_backward.cu", "ablations/short_backward.py:31"),
+        "K2 fp32": ("fused_mlp (fp32 operands)", "fused_mlp_f32.cu", "fused_mlp.py:68"),
+        "K7 fp32": ("residual_adaln_modulate (fp32 operands)", "fused_adaln_f32.cu",
+                    "fused_adaln.py:98"),
+        "K9 fp32": ("short_attention (fp32 operands, forward)", "short_attention_f32.cu",
+                    "short_attention.py:83"),
     }
     # launches on the main paths: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve
     # (K1 and K3 one binary, flash_fwd_sm90.cu, whose launches it counts), K5
@@ -2464,7 +2795,8 @@ def main() -> int:
     # bias and fp32 variants and K9's backward from one MD17 train step of
     # each stage; K10 from one forward + backward of the fused temporal
     # block, K11 from its call at the MD17 spatial axis; K8's WMMA route
-    # from the forward of the hidden-32 DiT (0 on every path above)
+    # from the forward of the hidden-32 DiT (0 on every path above); K2, K7
+    # and K9 in fp32 from phase 14's stage-2 run (its --test pass)
     md17_train = {key: s1_counts[key] + s2_counts[key] for key in s1_counts}
     main_counts = dict(launches[HEADS], K1=launches[HEADS]["K1 sm90"],
                        K3=launches[HEADS]["K1 sm90"], K5=launches[WIDE_HEADS]["K5 sm90"],
@@ -2474,7 +2806,9 @@ def main() -> int:
                           "K9": md17_counts["K9"], "K4 bias": md17_train["K4 bias"],
                           "K4 fp32": md17_train["K4 fp32"], "K9 bwd": md17_train["K9 bwd"],
                           "K10": k10_counts["K10"], "K11": k11_counts["K11"],
-                          "K8 wmma": tiny_counts["K8 wmma"]})
+                          "K8 wmma": tiny_counts["K8 wmma"],
+                          **{key: loop_test_counts[key]
+                             for key in ("K2 fp32", "K7 fp32", "K9 fp32")}})
     kernels = [
         {"name": name, "route": "cuda", "source": f"lam_slide_tpu_torch/csrc/{src}",
          "replaces": f"lam_slide_tpu/ops/{tpu}", "launches": main_counts[key],

@@ -5,8 +5,9 @@ MD17 (second_stage/md17.py:139-179): zero the target frames, sample K=5
 repeats with the Euler-10 probability-flow ODE, decode, and average the
 per-repeat ADE/FDE of the predicted frames, times the dataset scale, per
 molecule. ``make_protocol_val_hook`` runs that protocol on a train state's
-EMA weights as the stage-2 validation (the pedestrian and NBA protocols
-come with their slices).
+EMA weights (its parameters when it keeps no EMA) as the stage-2
+validation of the ``Trainer``, every ``interval`` val epochs (the
+pedestrian and NBA protocols come with their slices).
 """
 
 import dataclasses
@@ -54,26 +55,33 @@ def evaluate_md17(ss, loaders: Mapping[str, Iterable], scale: float, k: int = 5,
 
 
 def make_protocol_val_hook(ss, loaders: Mapping[str, Iterable], scale: float = 1.0, k: int = 5,
-                           limit_batches: int = 1, sampling_kwargs: Optional[dict] = None):
+                           limit_batches: int = 1, interval: int = 1,
+                           sampling_kwargs: Optional[dict] = None):
     """Trainer eval hook (composites/testing.py:172-209): ``hook(state,
-    epoch)`` -> {"ade", "fde"}, the means over the loaders of the MD17
-    protocol (``evaluate_md17``) on ``state.ema_params`` over the first
-    ``limit_batches`` batches of each loader, the reference's stage-2
-    validation_step (second_stage/md17.py:75-113). ``state.model`` is
-    ``ss.backbone``; the noise of epoch e is drawn from seed 1234 + e on the
-    first stage's device. (JAX's ``interval`` of val epochs, which its
-    registry leaves at 1, waits for the port's ``Trainer``.)"""
+    epoch)`` -> {"ade", "fde"} every ``interval``-th call (None on the
+    others), the means over the loaders of the MD17 protocol
+    (``evaluate_md17``) on ``state.ema_params`` (``state.params`` when the
+    state keeps no EMA) over the first ``limit_batches`` batches of each
+    loader, the reference's stage-2 validation_step
+    (second_stage/md17.py:75-113). ``state.model`` is ``ss.backbone``; the
+    noise of epoch e is drawn from seed 1234 + e on the first stage's
+    device."""
     device = next(ss.first_stage.parameters()).device
+    calls = [0]
 
     def hook(state, epoch: int):
+        calls[0] += 1
+        if (calls[0] - 1) % interval:
+            return None
         backbone = ss.backbone
+        weights = state.ema_params if state.ema_params is not None else state.params
 
-        def on_ema(*args, **kwargs):
-            return functional_call(backbone, state.ema_params, args, kwargs)
+        def on_weights(*args, **kwargs):
+            return functional_call(backbone, weights, args, kwargs)
 
         limited = {name: itertools.islice(loader, limit_batches)
                    for name, loader in loaders.items()}
-        out = evaluate_md17(dataclasses.replace(ss, backbone=on_ema), limited, scale=scale, k=k,
+        out = evaluate_md17(dataclasses.replace(ss, backbone=on_weights), limited, scale=scale, k=k,
                             generator=torch.Generator(device=device).manual_seed(1234 + epoch),
                             sampling_kwargs=sampling_kwargs)
         ades = [v for key, v in out.items() if key.endswith("/ade")]

@@ -1,0 +1,269 @@
+// Fused MLP branch gelu(x @ w1 + b1) @ w2 with fp32 operands, for Hopper
+// (sm_90a), on the FP32 pipes (FFMA; no tensor cores, so no TF32).
+//
+// Replaces the fp32 instance of the Pallas TPU kernel
+// lam_slide_tpu/ops/fused_mlp.py `_mlp_kernel`, which the DiT runs in fp32
+// in the MD17 test pass (the registry's fp32 `test_model`). In fp32 the
+// kernel's `astype(x.dtype)` of the mid is a no-op, so the mid is not
+// rounded: mid = x @ w1 + b1 in fp32, then the exact GELU
+// 0.5 * mid * (1 + erf(mid * 2^-0.5)) in fp32 (erff; the bf16 kernel's GELU
+// table covers bf16 mids only), then out = gelu(mid) @ w2 in fp32.
+//
+// Layout: w1 [d_in, d_mid] and w2 [d_mid, d_out] are the transposed views of
+// nn.Linear weights the DiT passes (unit stride on their first axis), so
+// w1[i, m] = w1[i + m * w1_s] and w2[m, o] = w2[m + o * w2_s]: the rows of
+// the weights' own memory are columns here.
+//
+// Design (a tiled FFMA kernel): a block of 256 threads owns BM rows of x
+// (64, or 32) and keeps their [BM, d_out] fp32 output in registers (a
+// 16 x 16 thread grid: rows ty*RPT .. +RPT, columns tx + 16 j). x's tile
+// stays in shared memory for the whole block; d_mid streams through in
+// chunks of 32 columns, their w1 and w2 tiles double-buffered where shared
+// memory holds two stages (MD17's widths), so the next chunk's copies are in
+// flight while this one's products run. Every copy is a 16-byte cp.async
+// (x, w1 and w2 16-byte aligned, their strides multiples of 4 floats; the
+// wrapper checks), with zero fill past the last row or past d_mid. Every
+// tile keeps the layout of its source, rows along the reduction axis, so a
+// copy is a run of contiguous floats and a product reads 16 bytes at a
+// time:
+// - the chunk's w1 columns are 32 contiguous rows of the weight's memory,
+//   [32][d_in + 4]; GEMM1: each thread forms RPT x 2 mids (columns tx,
+//   tx + 16), reading x and w1 as float4 along d_in, adds b1, takes the GELU
+//   and stores them into a [BM][36] tile;
+// - the chunk's w2 rows are d_out runs of 32 contiguous floats of the
+//   weight's memory, [d_out][36]; GEMM2 adds the chunk's contribution to
+//   every output in registers, reading the GELU tile and w2 as float4 along
+//   d_mid.
+// Row strides of 4 mod 32 floats put the 16 distinct rows a warp reads at
+// once on distinct banks (two wavefronts for 256 bytes, the least). No
+// atomics: every output is summed by one thread in a fixed order, so a
+// result repeats bit for bit.
+//
+// What bounds it on the H100: 2 * rows * (d_in * d_mid + d_mid * d_out)
+// FLOPs on the FP32 pipes (67 TFLOP/s) against rows * (d_in + d_out) * 4
+// bytes: operations (2.88 ms at the MD17 test pass's 368,640 rows of 256 ->
+// 512 -> 256).
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int TX = 16, TY = 16;  // thread grid: columns x rows
+constexpr int BC = 32;           // d_mid columns a chunk
+constexpr int GS = BC + 4;       // row stride of the GELU and w2 tiles
+
+// Shared memory of a block (the wrapper's f32_smem_bytes mirrors it): the x
+// tile and `stages` w1 chunks with rows of d_in + 4 floats, the GELU chunk
+// and `stages` w2 chunks with rows of 36.
+size_t smem_bytes(int bm, int stages, int d_in, int d_out) {
+  return sizeof(float) * (static_cast<size_t>(bm + stages * BC) * (d_in + 4) +
+                          static_cast<size_t>(bm + stages * d_out) * GS);
+}
+
+struct Args {
+  const float *x, *w1, *b1, *w2;
+  float* out;
+  long long rows, x_s, w1_s, w2_s, o_s;
+  int d_in, d_mid, d_out;
+};
+
+__device__ __forceinline__ float gelu_exact(float v) {
+  // 0.5 * v * (1 + erf(v * 2^-0.5)), each op rounded as the plain version's
+  return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.0f, erff(__fmul_rn(v, 0.70710678118654752f))));
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros where !valid
+// (src is then not read).
+__device__ __forceinline__ void copy16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wait_groups() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// RPT rows a thread (BM = 16 * RPT), STAGES chunk buffers (1 or 2), NJ output
+// columns a thread (d_out <= 16 * NJ).
+template <int RPT, int STAGES, int NJ>
+__global__ void __launch_bounds__(THREADS) mlp_f32_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  constexpr int BM = TY * RPT;
+  const int xs = a.d_in + 4, k4 = a.d_in / 4;
+  float* x_s = reinterpret_cast<float*>(smem4);  // [BM][xs]
+  float* w1_s = x_s + BM * xs;                   // [STAGES][BC][xs]
+  float* g_s = w1_s + STAGES * BC * xs;          // [BM][GS]
+  float* w2_s = g_s + BM * GS;                   // [STAGES][d_out][GS]
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const long long row0 = static_cast<long long>(blockIdx.x) * BM;
+
+  auto load_chunk = [&](int m0, int st) {
+    float* w1_t = w1_s + st * BC * xs;
+    float* w2_t = w2_s + st * a.d_out * GS;
+    for (int idx = tid; idx < BC * k4; idx += THREADS) {
+      const int c = idx / k4, i = 4 * (idx % k4);
+      const bool valid = m0 + c < a.d_mid;
+      copy16(&w1_t[c * xs + i], a.w1 + i + static_cast<long long>(valid ? m0 + c : 0) * a.w1_s,
+             valid);
+    }
+    for (int idx = tid; idx < a.d_out * (BC / 4); idx += THREADS) {
+      const int o = idx / (BC / 4), m = 4 * (idx % (BC / 4));
+      const bool valid = m0 + m < a.d_mid;  // d_mid % 16 == 0: all 4 or none
+      copy16(&w2_t[o * GS + m], a.w2 + (valid ? m0 + m : 0) + static_cast<long long>(o) * a.w2_s,
+             valid);
+    }
+  };
+
+  for (int idx = tid; idx < BM * k4; idx += THREADS) {
+    const int r = idx / k4, k = 4 * (idx % k4);
+    const bool valid = row0 + r < a.rows;
+    copy16(&x_s[r * xs + k], a.x + (valid ? row0 + r : 0) * a.x_s + k, valid);
+  }
+  load_chunk(0, 0);
+  commit();
+
+  float acc[RPT][NJ];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[r][j] = 0.0f;
+
+  const int chunks = (a.d_mid + BC - 1) / BC;
+  for (int ch = 0; ch < chunks; ++ch) {
+    const int m0 = ch * BC, st = STAGES == 2 ? ch % 2 : 0;
+    if (STAGES == 2 && ch + 1 < chunks) {
+      load_chunk(m0 + BC, (ch + 1) % 2);  // its stage was freed by the last barrier
+      commit();
+      wait_groups<1>();
+    } else {
+      wait_groups<0>();
+    }
+    __syncthreads();  // this chunk's tiles (and x's) have landed for every thread
+    const float* w1_t = w1_s + st * BC * xs;
+    const float* w2_t = w2_s + st * a.d_out * GS;
+    // GEMM1: rows ty*RPT + r, chunk columns tx and tx + 16
+    float mid[RPT][2];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) mid[r][0] = mid[r][1] = 0.0f;
+    for (int k = 0; k < a.d_in; k += 4) {
+      float4 xv[RPT];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        xv[r] = *reinterpret_cast<const float4*>(&x_s[(ty * RPT + r) * xs + k]);
+      const float4 w0 = *reinterpret_cast<const float4*>(&w1_t[tx * xs + k]);
+      const float4 w1 = *reinterpret_cast<const float4*>(&w1_t[(tx + TX) * xs + k]);
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        mid[r][0] = dot4(xv[r], w0, mid[r][0]);
+        mid[r][1] = dot4(xv[r], w1, mid[r][1]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = m0 + tx + TX * e;
+      const float b = col < a.d_mid ? a.b1[col] : 0.0f;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        g_s[(ty * RPT + r) * GS + tx + TX * e] = gelu_exact(__fadd_rn(mid[r][e], b));
+    }
+    __syncthreads();
+    // GEMM2: out[rows, columns tx + 16 j] += gelu(mid) chunk @ w2 chunk
+#pragma unroll 2
+    for (int m = 0; m < BC; m += 4) {
+      float4 gv[RPT];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        gv[r] = *reinterpret_cast<const float4*>(&g_s[(ty * RPT + r) * GS + m]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int o = tx + TX * j;
+        if (o >= a.d_out) break;
+        const float4 wv = *reinterpret_cast<const float4*>(&w2_t[o * GS + m]);
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) acc[r][j] = dot4(gv[r], wv, acc[r][j]);
+      }
+    }
+    __syncthreads();  // this stage and the GELU tile are consumed
+    if (STAGES == 1 && ch + 1 < chunks) {
+      load_chunk(m0 + BC, 0);
+      commit();
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const long long row = row0 + ty * RPT + r;
+    if (row >= a.rows) break;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int o = tx + TX * j;
+      if (o < a.d_out) a.out[row * a.o_s + o] = acc[r][j];
+    }
+  }
+}
+
+template <int RPT, int STAGES, int NJ>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  constexpr int BM = TY * RPT;
+  const size_t smem = smem_bytes(BM, STAGES, a.d_in, a.d_out);
+  static cudaError_t attr = lam_set_smem(mlp_f32_kernel<RPT, STAGES, NJ>, 232448);
+  if (attr != cudaSuccess) return attr;
+  const long long blocks = (a.rows + BM - 1) / BM;
+  mlp_f32_kernel<RPT, STAGES, NJ><<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int RPT, int STAGES>
+cudaError_t launch_nj(const Args& a, cudaStream_t stream) {
+  const int nj = (a.d_out + 15) / 16;
+  if (nj <= 2) return launch<RPT, STAGES, 2>(a, stream);
+  if (nj <= 4) return launch<RPT, STAGES, 4>(a, stream);
+  if (nj <= 8) return launch<RPT, STAGES, 8>(a, stream);
+  if (nj <= 16) return launch<RPT, STAGES, 16>(a, stream);
+  if (nj <= 24) return launch<RPT, STAGES, 24>(a, stream);
+  return launch<RPT, STAGES, 32>(a, stream);
+}
+
+}  // namespace
+
+// x: fp32 [rows, d_in] (row stride x_s, unit stride on d_in); w1: fp32
+// [d_in, d_mid] at w1[i + m * w1_s]; b1: fp32 [d_mid] contiguous; w2: fp32
+// [d_mid, d_out] at w2[m + o * w2_s]; out: fp32 [rows, d_out] (row stride
+// o_s). x, w1, w2 16-byte aligned and x_s, w1_s, w2_s multiples of 4; d_in,
+// d_mid, d_out multiples of 16, d_out <= 512; bm rows a block (64 or 32)
+// and `stages` chunk buffers (2 or 1), from the wrapper's f32_plan. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
+extern "C" int lam_fused_mlp_f32(const void* x, const void* w1, const void* b1, const void* w2,
+                                 void* out, int rows, int d_in, int d_mid, int d_out,
+                                 long long x_s, long long w1_s, long long w2_s, long long o_s,
+                                 int bm, int stages, void* stream) {
+  const unsigned long long bits = reinterpret_cast<unsigned long long>(x) |
+                                  reinterpret_cast<unsigned long long>(w1) |
+                                  reinterpret_cast<unsigned long long>(w2) |
+                                  4ull * static_cast<unsigned long long>(x_s | w1_s | w2_s);
+  if (rows <= 0 || d_in <= 0 || d_in % 16 || d_mid <= 0 || d_mid % 16 || d_out <= 0 ||
+      d_out % 16 || d_out > 512 || (bm != 64 && bm != 32) || (stages != 1 && stages != 2) ||
+      (bits & 15) || smem_bytes(bm, stages, d_in, d_out) > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const float*>(x), static_cast<const float*>(w1),
+               static_cast<const float*>(b1), static_cast<const float*>(w2),
+               static_cast<float*>(out), rows, x_s, w1_s, w2_s, o_s, d_in, d_mid, d_out};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (bm == 64)
+    return static_cast<int>(stages == 2 ? launch_nj<4, 2>(a, st) : launch_nj<4, 1>(a, st));
+  return static_cast<int>(stages == 2 ? launch_nj<2, 2>(a, st) : launch_nj<2, 1>(a, st));
+}

@@ -1,23 +1,31 @@
 """Experiment registry: the MD17 training runs (counterpart of
-``lam_slide_tpu/experiments/registry.py:105-300``; reference
+``lam_slide_tpu/experiments/registry.py:60-300``; reference
 configs/experiment/md17/{first,second}-stage.yaml).
 
 Each builder assembles one run with the JAX registry's configs, batch
-sizes, ``TrainerConfig`` values, loaders and loss wiring: the model, the
-``loss_fn`` for ``train.make_train_step``, the optimizer from
-``make_optimizer`` and the loaders, and for stage 2 the sampled validation
-hook. ``smoke=True`` shrinks everything as the JAX smoke runs do (tiny
-widths, few windows) for CPU runs. Models are drawn from ``seed`` and built
-on the card unless ``device="cpu"``.
+sizes, ``TrainerConfig`` values (monitors, val cadence), loaders and loss
+wiring: the model, the ``loss_fn`` for ``train.make_train_step``, the
+optimizer from ``make_optimizer`` and the loaders; stage 2 also the sampled
+validation hook, the held-out test loaders and ``test_model``, the fp32
+rebuild of its bundle for the ``--test`` pass. ``meta`` holds the config,
+stage, domain and stage lineage for the run registry. ``smoke=True``
+shrinks everything as the JAX smoke runs do (tiny widths, few windows) for
+CPU runs. Models are drawn from ``seed`` and built on the card unless
+``device="cpu"``.
 
-Stage 2 takes the stage-1 model object itself (it is frozen there); reading
-it from the run registry by id waits for the port's checkpoints, as do the
-``Trainer`` loop and the fp32 rebuild of the DiT for the ``--test`` pass.
-With no raw MD17 files under ``data_root`` the datasets are the JAX
-package's synthetic trajectories (``data/md17.py``).
+Cross-stage lineage: ``md17_second_stage(first_stage_run=<id>)`` resolves
+the frozen stage 1 through the run registry (run_id -> run_dir ->
+checkpoint; the wandb run-ID lookup of src/utils/utils.py:180-199) and
+loads its EMA weights, matching ``load_ema_weights`` + ``freeze()``
+(second_stage/md17.py:46-51). ``first_stage=<stage-1 ExperimentRun>``
+takes a stage 1 trained in the same process instead (no JAX counterpart).
+With no raw MD17 files under ``data_root`` the datasets are the synthetic
+trajectories of ``data/md17.py``.
 """
 
+import dataclasses
 import functools
+import os
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
@@ -36,6 +44,7 @@ from lam_slide_tpu_torch.composites.testing import make_protocol_val_hook
 from lam_slide_tpu_torch.data.collate import pad_collate, pad_collate_temporal
 from lam_slide_tpu_torch.data.loader import Loader
 from lam_slide_tpu_torch.data.md17 import MD17Dataset
+from lam_slide_tpu_torch.train.checkpoint import resolve_run
 from lam_slide_tpu_torch.train.trainer import TrainerConfig, make_optimizer
 
 MD17_SCALES = {
@@ -49,7 +58,10 @@ MD17_SCALES = {
 class ExperimentRun:
     """One training run. ``model`` is the module whose parameters train
     (stage 1: the first stage; stage 2: the DiT backbone); ``second_stage``
-    is the stage-2 bundle (frozen stage 1, backbone, transport)."""
+    is the stage-2 bundle (frozen stage 1, backbone, transport) and
+    ``test_model`` its fp32 rebuild on the same frozen stage 1 for the
+    ``--test`` pass (reference src/train.py:100-118, precision="32-true");
+    ``test_loaders`` the held-out test split."""
 
     name: str
     config: Any
@@ -61,10 +73,51 @@ class ExperimentRun:
     val_loaders: Dict[str, Loader]
     second_stage: Any = None
     eval_fns: Dict[str, Callable] = field(default_factory=dict)
+    test_loaders: Optional[Dict[str, Loader]] = None
+    test_model: Any = None
+    meta: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def constants(self) -> Optional[Dict[str, Any]]:
+        """What the checkpoints carry beside the trained parameters: stage
+        2's frozen first stage, as ``{"first_stage": state_dict}``."""
+        if self.second_stage is None:
+            return None
+        return {"first_stage": self.second_stage.first_stage.state_dict()}
+
+
+def load_checkpoint_raw(run_dir: str, which: str = "best") -> dict:
+    """Read a checkpoint file without a train state -> its dict, tensors on
+    the CPU.
+
+    Falls back ``best`` -> ``last`` (a run that never improved its monitored
+    metric has no ``best``) with a visible warning: silently testing a
+    different checkpoint than requested would misattribute the metrics.
+    """
+    ckpt_dir = os.path.join(os.path.abspath(run_dir), "checkpoints")
+    path = os.path.join(ckpt_dir, f"{which}.pt")
+    if not os.path.exists(path):
+        fallback = os.path.join(ckpt_dir, "last.pt")
+        if which != "last" and os.path.exists(fallback):
+            print(f"WARNING: no '{which}' checkpoint in {run_dir}; falling back to 'last'",
+                  flush=True)
+            path = fallback
+        else:
+            raise FileNotFoundError(f"no '{which}' checkpoint under {ckpt_dir}")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_first_stage_variables(workspace: str, run_id: str, which: str = "best"):
+    """run_id -> (the frozen stage 1's state dict, its EMA parameters where
+    the run kept an EMA; the run's registry config)."""
+    info = resolve_run(workspace, run_id)
+    raw = load_checkpoint_raw(info["run_dir"], which)
+    state_dict = {**raw["params"], **(raw.get("ema_params") or {})}
+    return state_dict, info.get("config", {})
 
 
 def _md17_datasets(smoke, data_root, first_stage, molecules, num_entities, span, scales,
-                   synthetic_frames=None):
+                   with_test=False, synthetic_frames=None):
     # the synthetic fallback's default size is the JAX registry's; a larger
     # synthetic_frames fills the reference's 5000 train / 1000 val windows
     kw = dict(root=data_root, span=span, first_stage=first_stage, num_entities=num_entities,
@@ -75,7 +128,14 @@ def _md17_datasets(smoke, data_root, first_stage, molecules, num_entities, span,
     val_sets = {m: MD17Dataset(molecule=m, mode="val", scale=scales[m], rand_rotation=False,
                                force_length=16 if smoke else 256, **kw)
                 for m in molecules}
-    return train_sets, val_sets
+    if not with_test:
+        return train_sets, val_sets
+    # the held-out chronological test split, 1000 eval samples a molecule
+    # (geo_tdm/md17.py:120-154): the --test protocol's data
+    test_sets = {m: MD17Dataset(molecule=m, mode="test", scale=scales[m], rand_rotation=False,
+                                force_length=16 if smoke else None, **kw)
+                 for m in molecules}
+    return train_sets, val_sets, test_sets
 
 
 class _ConcatDataset:
@@ -96,68 +156,145 @@ def _molecules(molecule: str, smoke: bool):
     return molecules[:2] if smoke else molecules
 
 
-def _loaders(smoke, data_root, first_stage, molecules, num_entities, bs, collate, seed,
-             synthetic_frames):
-    train_sets, val_sets = _md17_datasets(smoke, data_root, first_stage, molecules,
-                                          num_entities, 30, MD17_SCALES, synthetic_frames)
-    collate = functools.partial(collate, num_entities=num_entities)
-    train_loader = Loader(_ConcatDataset(train_sets), bs, collate, seed=seed)
-    val_loaders = {m: Loader(ds, bs, collate, shuffle=False, seed=seed, drop_last=False)
-                   for m, ds in val_sets.items()}
-    return train_loader, val_loaders
+def _smoke_first_stage_config(scale: float) -> MD17FirstStageConfig:
+    return MD17FirstStageConfig(num_entities=32, dim_input=32, dim_latent=8, dim_entity=32,
+                                num_latents=8, dim_head_cross=8, dim_head_latent=8,
+                                num_head_cross=2, scale=scale)
 
 
-def md17_first_stage(smoke: bool = False, data_root: Optional[str] = None, seed: int = 0,
-                     molecule: str = "all", synthetic_frames: Optional[int] = None,
-                     device="cuda") -> ExperimentRun:
+def _eval_loader(ds, bs, collate, seed):
+    return Loader(ds, bs, collate, shuffle=False, seed=seed, drop_last=False)
+
+
+def md17_first_stage(smoke: bool = False, data_root: Optional[str] = None,
+                     workspace: str = "runs", seed: int = 0, molecule: str = "all",
+                     synthetic_frames: Optional[int] = None, device="cuda",
+                     **_) -> ExperimentRun:
     """MD17 stage 1 (registry.py:155-193): fp32, B=256 single frames, AdamW
-    lr 4e-4 over 3000 epochs, the stage-1 loss."""
+    lr 4e-4 over 3000 epochs, the stage-1 loss, ``pos_loss`` monitored on
+    val every 25 epochs."""
     scale = MD17_SCALES[molecule]
-    cfg = MD17FirstStageConfig(num_entities=32, scale=scale) if not smoke else (
-        MD17FirstStageConfig(num_entities=32, dim_input=32, dim_latent=8, dim_entity=32,
-                             num_latents=8, dim_head_cross=8, dim_head_latent=8,
-                             num_head_cross=2, scale=scale))
+    cfg = (MD17FirstStageConfig(num_entities=32, scale=scale) if not smoke
+           else _smoke_first_stage_config(scale))
     model = build_md17_first_stage(cfg, device=device,
                                    generator=torch.Generator().manual_seed(seed))
-    train_loader, val_loaders = _loaders(smoke, data_root, True, _molecules(molecule, smoke),
-                                         cfg.num_entities, 16 if smoke else 256, pad_collate,
-                                         seed, synthetic_frames)
-    trainer_cfg = TrainerConfig(max_epochs=2 if smoke else 3000, lr=4e-4)
+    train_sets, val_sets = _md17_datasets(smoke, data_root, True, _molecules(molecule, smoke),
+                                          cfg.num_entities, 30, MD17_SCALES,
+                                          synthetic_frames=synthetic_frames)
+    bs = 16 if smoke else 256
+    collate = functools.partial(pad_collate, num_entities=cfg.num_entities)
+    train_loader = Loader(_ConcatDataset(train_sets), bs, collate, seed=seed)
+    val_loaders = {m: _eval_loader(ds, bs, collate, seed) for m, ds in val_sets.items()}
+    trainer_cfg = TrainerConfig(max_epochs=2 if smoke else 3000, lr=4e-4, monitor="pos_loss",
+                                val_every_n_epochs=1 if smoke else 25, seed=seed)
     tx, _ = make_optimizer(trainer_cfg, len(train_loader))
     return ExperimentRun(name="md17_first_stage", config=cfg, trainer_cfg=trainer_cfg,
                          model=model, loss_fn=make_md17_first_stage_loss(cfg), tx=tx,
-                         train_loader=train_loader, val_loaders=val_loaders)
+                         train_loader=train_loader, val_loaders=val_loaders,
+                         meta={"config": dataclasses.asdict(cfg), "stage": 1, "domain": "md17"})
 
 
-def md17_second_stage(first_stage: nn.Module, first_stage_cfg: MD17FirstStageConfig,
-                      smoke: bool = False, data_root: Optional[str] = None, seed: int = 0,
-                      molecule: str = "all", synthetic_frames: Optional[int] = None,
-                      device="cuda") -> ExperimentRun:
-    """MD17 stage 2 (registry.py:196-300) on a trained stage 1: the bf16
-    class-conditional DiT with per-layer checkpointing (fp32 in smoke runs),
-    B=64 trajectories, AdamW lr 1e-3 over 1000 epochs, EMA 0.999, the SI
-    loss plus the aux pos/inter-distance losses through the frozen stage 1,
-    and the sampled val hook (K=5, one batch per molecule) under
-    ``eval_fns["val_sample"]``."""
+def _dtype(dit_dtype) -> Optional[torch.dtype]:
+    """A dtype from its name ("bfloat16", "float32") or as given."""
+    return getattr(torch, dit_dtype) if isinstance(dit_dtype, str) else dit_dtype
+
+
+def md17_second_stage(smoke: bool = False, data_root: Optional[str] = None,
+                      workspace: str = "runs", seed: int = 0, molecule: str = "all",
+                      first_stage_run: Optional[str] = None, dit_dtype=None,
+                      synthetic_frames: Optional[int] = None, batch_size: Optional[int] = None,
+                      num_heads: Optional[int] = None,
+                      first_stage: Optional[ExperimentRun] = None, device="cuda",
+                      **_) -> ExperimentRun:
+    """MD17 stage 2 (registry.py:196-300) on a frozen stage 1: from the run
+    registry (``first_stage_run``), from a stage-1 run of this process
+    (``first_stage``) or, in smoke runs, freshly drawn. The bf16
+    class-conditional DiT with per-layer checkpointing (fp32 in smoke runs;
+    ``dit_dtype`` overrides), B=64 trajectories (``batch_size``), 16 heads
+    (``num_heads``), AdamW lr 1e-3 over 1000 epochs, EMA 0.999, the SI loss
+    plus the aux pos/inter-distance losses through the frozen stage 1,
+    ``si_loss`` monitored on val every 10 epochs over 5 batches, the sampled
+    val hook (K=5, one batch a molecule) under ``eval_fns["val_sample"]``,
+    the test split's loaders and the fp32 ``test_model``."""
     molecules = _molecules(molecule, smoke)
-    train_loader, val_loaders = _loaders(smoke, data_root, False, molecules,
-                                         first_stage_cfg.num_entities, 4 if smoke else 64,
-                                         pad_collate_temporal, seed, synthetic_frames)
-    cfg = (MD17SecondStageConfig(in_dim=first_stage_cfg.dim_latent, class_conditional=True)
-           if not smoke else
-           MD17SecondStageConfig(in_dim=first_stage_cfg.dim_latent, depth=2, hidden_size=32,
-                                 num_heads=4, class_conditional=True, vec_in_dim=32))
-    dtype = torch.float32 if smoke else torch.bfloat16
-    ss = build_md17_second_stage(cfg, first_stage, dtype=dtype, device=device,
-                                 generator=torch.Generator().manual_seed(seed + 1))
     scale = MD17_SCALES[molecule]
+    if first_stage_run is not None:
+        fs_state, fs_cfg_dict = load_first_stage_variables(workspace, first_stage_run)
+        fs_cfg = MD17FirstStageConfig(**{
+            k: v for k, v in fs_cfg_dict.get("config", fs_cfg_dict).items()
+            if k in MD17FirstStageConfig.__dataclass_fields__})
+        fs_model = build_md17_first_stage(fs_cfg, device=device)
+        fs_model.load_state_dict(fs_state)
+    elif first_stage is not None:
+        fs_model, fs_cfg = first_stage.model, first_stage.config
+    elif smoke:
+        fs_cfg = _smoke_first_stage_config(scale)
+        fs_model = build_md17_first_stage(fs_cfg, device=device,
+                                          generator=torch.Generator().manual_seed(seed))
+    else:
+        raise ValueError("md17_second_stage requires first_stage_run (see run registry)")
+
+    train_sets, val_sets, test_sets = _md17_datasets(
+        smoke, data_root, False, molecules, fs_cfg.num_entities, 30, MD17_SCALES,
+        with_test=True, synthetic_frames=synthetic_frames)
+    bs = batch_size or (4 if smoke else 64)
+    collate = functools.partial(pad_collate_temporal, num_entities=fs_cfg.num_entities)
+    train_loader = Loader(_ConcatDataset(train_sets), bs, collate, seed=seed)
+    val_loaders = {m: _eval_loader(ds, bs, collate, seed) for m, ds in val_sets.items()}
+    test_loaders = {m: _eval_loader(ds, bs, collate, seed) for m, ds in test_sets.items()}
+    # num_heads: the head-split override (same hidden width, another dh)
+    heads = {"num_heads": num_heads} if num_heads else {}
+    cfg = (MD17SecondStageConfig(in_dim=fs_cfg.dim_latent, class_conditional=True, **heads)
+           if not smoke else
+           MD17SecondStageConfig(in_dim=fs_cfg.dim_latent, depth=2, hidden_size=32,
+                                 num_heads=num_heads or 4, class_conditional=True,
+                                 vec_in_dim=32))
+    # bf16-mixed stage 2 by default; dit_dtype overrides (sweeps, tests)
+    dtype = _dtype(dit_dtype) or (torch.float32 if smoke else torch.bfloat16)
+    ss = build_md17_second_stage(cfg, fs_model, dtype=dtype, device=device,
+                                 generator=torch.Generator().manual_seed(seed + 1))
+    # the fp32 rebuild for the --test pass (src/train.py:106-118
+    # precision="32-true"); the test protocol loads the trained weights
+    ss_test = build_md17_second_stage(cfg, fs_model, dtype=torch.float32, device=device,
+                                      generator=torch.Generator().manual_seed(seed + 1))
     loss_fn = ss.make_loss(weight_si_loss=cfg.weight_si_loss, weight_pos_loss=cfg.weight_pos_loss,
                            weight_inter_dist_loss=cfg.weight_inter_dist_loss,
                            calc_additional_losses=cfg.calc_additional_losses, scale=scale)
-    trainer_cfg = TrainerConfig(max_epochs=2 if smoke else 1000, lr=1e-3)
+    trainer_cfg = TrainerConfig(max_epochs=2 if smoke else 1000, lr=1e-3, monitor="si_loss",
+                                val_every_n_epochs=1 if smoke else 10, seed=seed,
+                                limit_val_batches=0 if smoke else 5)
     tx, _ = make_optimizer(trainer_cfg, len(train_loader))
+    # sampled val ADE/FDE each val epoch (reference second_stage/md17.py:75-113)
     hook = make_protocol_val_hook(ss, val_loaders, scale=scale, k=2 if smoke else 5,
                                   limit_batches=1)
     return ExperimentRun(name="md17_second_stage", config=cfg, trainer_cfg=trainer_cfg,
-                         model=ss.backbone, loss_fn=loss_fn, tx=tx, train_loader=train_loader, val_loaders=val_loaders, second_stage=ss,
-                         eval_fns={"val_sample": hook})
+                         model=ss.backbone, loss_fn=loss_fn, tx=tx, train_loader=train_loader,
+                         val_loaders=val_loaders, second_stage=ss,
+                         eval_fns={"val_sample": hook}, test_loaders=test_loaders,
+                         test_model=ss_test,
+                         meta={"config": dataclasses.asdict(cfg), "stage": 2, "domain": "md17",
+                               "first_stage_run": first_stage_run})
+
+
+EXPERIMENTS = {
+    "md17_first_stage": md17_first_stage,
+    "md17_second_stage": md17_second_stage,
+}
+# the JAX registry's other experiments, and the ROADMAP item that ports them
+UNPORTED = {
+    "pedestrian_first_stage": "Queue 1 item 5 (pedestrian and NBA)",
+    "pedestrian_second_stage": "Queue 1 item 5 (pedestrian and NBA)",
+    "nba_first_stage": "Queue 1 item 5 (pedestrian and NBA)",
+    "nba_second_stage": "Queue 1 item 5 (pedestrian and NBA)",
+    "peptide_first_stage": "Queue 1 item 3 (peptide)",
+    "peptide_second_stage": "Queue 1 item 3 (peptide)",
+}
+
+
+def build_experiment(name: str, **kwargs) -> ExperimentRun:
+    if name in UNPORTED:
+        raise NotImplementedError(f"experiment {name!r} is not ported yet: ROADMAP.md "
+                                  f"{UNPORTED[name]}")
+    if name not in EXPERIMENTS:
+        raise KeyError(f"unknown experiment {name!r}; available: {sorted(EXPERIMENTS)}")
+    return EXPERIMENTS[name](**kwargs)

@@ -14,6 +14,11 @@ Numerics (fused_adaln.py:83-105): the residual rounds per op in bf16, so
 ``x_new`` is bit-identical to the plain version; LayerNorm statistics in
 fp32; the normalized value rounds to bf16 before the modulate.
 
+fp32 operands (the MD17 test pass's fp32 DiT) take ``lam_adaln_fwd_f32``
+(``csrc/fused_adaln_f32.cu``): a warp a row, 16-byte accesses where the
+pointers and strides allow them, the same formulas in fp32 (x_new again
+bit-identical). All of x, h and the modulation rows share one dtype.
+
 Gradients: on CUDA tensors that need one, the kernel runs inside
 ``_AdaLN`` / ``_ResidualAdaLN``, whose backward is autograd of the plain
 version on the saved inputs (``_adaln_bwd`` and ``_residual_adaln_bwd``,
@@ -25,7 +30,8 @@ devices and 16-byte alignment of every tensor) once and keeps its launch
 arguments: at the 4AA widths the kernel takes a few microseconds of device
 time, less than the checks took on the host.
 
-``launches`` counts kernel launches of both entries; nothing else touches it.
+``launches`` counts kernel launches of both entries in both dtypes,
+``fp32_launches`` those in fp32; nothing else touches them.
 """
 
 import ctypes
@@ -41,6 +47,7 @@ from lam_slide_tpu_torch.ops import _build
 from lam_slide_tpu_torch.ops._grad import needs_grad, plain_vjp
 
 launches = 0
+fp32_launches = 0
 
 
 def modulate(xn: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -72,9 +79,10 @@ def _mod_batch_stride(name: str, m: torch.Tensor, x: torch.Tensor) -> int:
     if m.dim() != x.dim() or m.shape[0] != b or m.shape[-1] != d or m.numel() != b * d:
         raise ValueError(f"adaln: {name} must be [B, 1.., D] for x {tuple(x.shape)}, "
                          f"got {tuple(m.shape)}")
-    if m.stride(-1) != 1 or (b > 1 and m.stride(0) % 2) or m.data_ptr() % 4:
-        raise ValueError(f"adaln: {name} needs unit stride on D, an even batch stride and "
-                         f"4-byte alignment, got strides {m.stride()}")
+    bf16 = x.dtype == torch.bfloat16
+    if m.stride(-1) != 1 or (bf16 and ((b > 1 and m.stride(0) % 2) or m.data_ptr() % 4)):
+        raise ValueError(f"adaln: {name} needs unit stride on D (in bf16 also an even batch "
+                         f"stride and 4-byte alignment), got strides {m.stride()}")
     return m.stride(0)
 
 
@@ -89,18 +97,21 @@ def _launch_dims(x, h, gate, shift, scale) -> tuple:
     """Check K7's operands; return the launch's integer arguments: rows, R1,
     R2, D, h's three strides and the gate/shift/scale batch strides."""
     residual = h is not None
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"adaln: x must be bfloat16 or float32, got {x.dtype}")
     for name, t in (("x", x), ("h", h)) if residual else (("x", x),):
-        if not t.is_cuda or t.device != x.device or t.dtype != torch.bfloat16:
-            raise ValueError(f"adaln: {name} must be bfloat16 on one CUDA device, got "
+        if not t.is_cuda or t.device != x.device or t.dtype != x.dtype:
+            raise ValueError(f"adaln: {name} must be {x.dtype} on one CUDA device, got "
                              f"{t.dtype} on {t.device}")
-    if not 2 <= x.dim() <= 4 or x.shape[-1] % 2 or x.shape[-1] > 1024 or not x.is_contiguous():
-        raise ValueError(f"adaln: x must be a contiguous [B, ..., D] with 2 to 4 axes and an "
-                         f"even D <= 1024, got {tuple(x.shape)} strides {x.stride()}")
+    even = 2 if x.dtype == torch.bfloat16 else 1  # bf16 accesses take pairs
+    if not 2 <= x.dim() <= 4 or x.shape[-1] % even or x.shape[-1] > 1024 or not x.is_contiguous():
+        raise ValueError(f"adaln: x must be a contiguous [B, ..., D] with 2 to 4 axes and D "
+                         f"<= 1024 (even in bf16), got {tuple(x.shape)} strides {x.stride()}")
     x4 = _as_4d(x)
     h4 = _as_4d(h) if residual else x4
-    if h4.shape != x4.shape or h4.stride(-1) != 1 or any(s % 2 for s in h4.stride()[:3]):
-        raise ValueError(f"adaln: h must be {tuple(x.shape)} with unit stride on D and even "
-                         f"strides, got {tuple(h.shape)} strides {h.stride()}")
+    if h4.shape != x4.shape or h4.stride(-1) != 1 or any(s % even for s in h4.stride()[:3]):
+        raise ValueError(f"adaln: h must be {tuple(x.shape)} with unit stride on D (and even "
+                         f"strides in bf16), got {tuple(h.shape)} strides {h.stride()}")
     sb = {name: _mod_batch_stride(name, m, x)
           for name, m in (("shift", shift), ("scale", scale), ("gate", gate)) if m is not None}
     return (x.numel() // x.shape[-1], x4.shape[1], x4.shape[2], x.shape[-1], *h4.stride()[:3],
@@ -129,13 +140,16 @@ def _launch(x, h, gate, shift, scale, eps):
     x_new = torch.empty_like(x) if residual else x
     if not residual:  # the kernel reads neither h nor gate
         ptrs = [ptrs[0], ptrs[0], ptrs[1], *ptrs[1:]]
-    global launches
+    global launches, fp32_launches
+    fp32 = x.dtype == torch.float32
     # entering the device context costs host time; only another device needs it
     same = x.device.index == torch.cuda.current_device()
     with nullcontext() if same else torch.cuda.device(x.device):
-        _build.launch("lam_adaln_fwd", *ptrs, x_new.data_ptr(), y.data_ptr(), dims, float(eps),
-                      residual, torch.cuda.current_stream().cuda_stream)
+        _build.launch("lam_adaln_fwd_f32" if fp32 else "lam_adaln_fwd", *ptrs, x_new.data_ptr(),
+                      y.data_ptr(), dims, float(eps), residual,
+                      torch.cuda.current_stream().cuda_stream)
     launches += 1
+    fp32_launches += fp32
     return x_new, y
 
 
@@ -175,8 +189,8 @@ def adaln_modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor,
     ``[B, 1.., D]``.
 
     CPU tensors take ``reference_adaln_modulate``; CUDA tensors launch the
-    kernel (bf16, contiguous x) or raise, through ``_AdaLN`` when they need
-    a gradient.
+    kernel (bf16 or fp32, one dtype, contiguous x) or raise, through
+    ``_AdaLN`` when they need a gradient.
     """
     if x.device.type == "cpu":
         return reference_adaln_modulate(x, shift, scale, eps)
@@ -192,8 +206,9 @@ def residual_adaln_modulate(x: torch.Tensor, h: torch.Tensor, gate: torch.Tensor
     gate/shift/scale ``[B, 1.., D]``.
 
     CPU tensors take ``reference_residual_adaln_modulate``; CUDA tensors
-    launch the kernel (bf16, contiguous x, h with unit stride on D) or raise,
-    through ``_ResidualAdaLN`` when they need a gradient.
+    launch the kernel (bf16 or fp32, one dtype, contiguous x, h with unit
+    stride on D) or raise, through ``_ResidualAdaLN`` when they need a
+    gradient.
     """
     if x.device.type == "cpu":
         return reference_residual_adaln_modulate(x, h, gate, shift, scale, eps)

@@ -10,23 +10,27 @@ CUDA the kernel takes them as transposed views of torch ``nn.Linear``
 weights (``weight[rows].t()``, so ``stride(0) == 1``), which is how the DiT
 holds them.
 
-Two routes, both launched from ``fused_mlp``: the Hopper kernel
+Three routes, all launched from ``fused_mlp``. In bf16, the Hopper kernel
 (``lam_fused_mlp_sm90``: TMA-fed wgmma GEMMs back to back, the GELU in
 shared memory between them) wherever ``sm90_plan`` finds a shared-memory
 plan (every d_in up to 448, any d_mid and d_out), and the first port's WMMA
 kernel (``lam_fused_mlp_wmma``) for wider inputs. The Hopper kernel loads x
 by TMA when ``x_tma_ok`` holds, else by cp.async inside the same kernel, and
 reads the GELU of each bf16 mid from a table a small kernel builds with the
-same fp32 formula before it (one launch of K2 is the pair).
+same fp32 formula before it (one launch of K2 is the pair). In fp32 (the
+MD17 test pass's fp32 DiT), ``lam_fused_mlp_f32`` (``csrc/fused_mlp_f32.cu``):
+a tiled FFMA kernel, no TF32, its d_mid chunks double-buffered by cp.async
+where ``f32_plan`` finds room;
+the mid is not rounded there, as ``astype(x.dtype)`` is a no-op in fp32.
 
 Gradients: on CUDA tensors that need one, the kernel runs inside
 ``_FusedMLP``, whose backward is autograd of ``reference_mlp`` on the saved
 inputs (``_fused_mlp_bwd``, fused_mlp.py:125-128); no backward kernel.
 
 Counters (plain integers, touched only where a kernel launches):
-``launches`` counts K2 launches of both routes, ``wmma_launches`` those on
-the WMMA route and ``cp_async_launches`` the Hopper kernel's launches that
-load x by cp.async.
+``launches`` counts K2 launches of every route, ``wmma_launches`` those on
+the WMMA route, ``cp_async_launches`` the Hopper kernel's launches that
+load x by cp.async and ``fp32_launches`` those of the fp32 kernel.
 """
 
 from typing import Optional, Tuple
@@ -40,6 +44,7 @@ from lam_slide_tpu_torch.ops._grad import needs_grad, plain_vjp
 launches = 0
 wmma_launches = 0
 cp_async_launches = 0
+fp32_launches = 0
 
 # The Hopper kernel's GELU table (csrc/fused_mlp.cu GELU_LO, GELU_SPAN): the
 # bf16 GELU of every bf16 mid with |mid| in [2^-9, 8) (bit patterns from
@@ -85,6 +90,30 @@ def sm90_plan(d_in: int, d_out: int) -> Optional[Tuple[int, int, int]]:
     return None
 
 
+F32_CHUNK = 32  # d_mid columns a chunk of the fp32 kernel
+F32_PLANS = ((64, 2), (32, 2), (64, 1), (32, 1))  # (rows, chunk stages), the first that fits
+F32_MAX_D_OUT = 512  # a thread keeps up to 2 * 16 output columns of its rows
+
+
+def f32_smem_bytes(rows: int, stages: int, d_in: int, d_out: int) -> int:
+    """Shared memory of an fp32 K2 block (``smem_bytes`` in
+    csrc/fused_mlp_f32.cu): the x tile (``rows``) and ``stages`` w1 chunks
+    (32 rows of the weight) with rows of d_in + 4 floats, the GELU chunk
+    (``rows``) and ``stages`` w2 chunks (d_out rows) with rows of 36."""
+    return 4 * ((rows + stages * F32_CHUNK) * (d_in + 4)
+                + (rows + stages * d_out) * (F32_CHUNK + 4))
+
+
+def f32_plan(d_in: int, d_out: int) -> Optional[Tuple[int, int]]:
+    """The fp32 kernel's (rows a block, chunk stages): the first of
+    F32_PLANS whose shared memory fits (two stages let the next chunk's
+    copies run under this one's products), or None where none does or d_out
+    is past F32_MAX_D_OUT."""
+    if d_out > F32_MAX_D_OUT:
+        return None
+    return next((p for p in F32_PLANS if f32_smem_bytes(*p, d_in, d_out) <= SMEM_MAX), None)
+
+
 def x_tma_ok(x2: torch.Tensor) -> bool:
     """Whether TMA can load the rows of x ``[rows, d_in]`` (unit stride on
     d_in): a 16-byte aligned base and row stride. Otherwise the Hopper
@@ -94,31 +123,41 @@ def x_tma_ok(x2: torch.Tensor) -> bool:
 
 def reference_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                   w2: torch.Tensor) -> torch.Tensor:
-    """Plain version: bf16 mid (one rounding after the fp32 dot + bias),
-    exact GELU rounded to the activation dtype, fp32 output. The fp32
-    matmuls of bf16 values keep every product exact, as a bf16 GEMM with
-    fp32 accumulation does."""
+    """Plain version: the mid rounded once to the activation dtype after the
+    fp32 dot + bias (no rounding in fp32), exact GELU rounded to the
+    activation dtype, fp32 output. The fp32 matmuls of bf16 values keep
+    every product exact, as a bf16 GEMM with fp32 accumulation does."""
     mid = (torch.matmul(x.float(), w1.float()) + b1.float()).to(x.dtype)
     return torch.matmul(gelu_exact(mid).float(), w2.float())
 
 
 def _check(x, w1, b1, w2) -> None:
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_mlp: x must be bfloat16 or float32, got {x.dtype}")
     for name, t in (("x", x), ("w1", w1), ("b1", b1), ("w2", w2)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"fused_mlp: {name} must be on x's CUDA device, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"fused_mlp: {name} must be bfloat16, got {t.dtype}")
+        if t.dtype != x.dtype:
+            raise ValueError(f"fused_mlp: {name} must be {x.dtype} like x, got {t.dtype}")
     d_in, d_mid = w1.shape
     if x.shape[-1] != d_in or b1.shape != (d_mid,) or w2.shape[0] != d_mid:
         raise ValueError(f"fused_mlp: shapes x {tuple(x.shape)} w1 {tuple(w1.shape)} "
                          f"b1 {tuple(b1.shape)} w2 {tuple(w2.shape)} do not match")
     if d_in % 16 or d_mid % 16 or w2.shape[1] % 16:
         raise ValueError("fused_mlp: d_in, d_mid and d_out must be multiples of 16")
+    fp32 = x.dtype == torch.float32
+    if fp32 and f32_plan(d_in, w2.shape[1]) is None:
+        raise ValueError(f"fused_mlp: the fp32 kernel takes d_out <= {F32_MAX_D_OUT} and "
+                         f"widths whose tiles fit shared memory, got d_in {d_in} "
+                         f"d_out {w2.shape[1]}")
     for name, w in (("w1", w1), ("w2", w2)):
-        if w.stride(0) != 1 or w.stride(1) % 8 or w.data_ptr() % 32:
+        align = (w.stride(1) % 4 or w.data_ptr() % 16) if fp32 else (
+            w.stride(1) % 8 or w.data_ptr() % 32)
+        if w.stride(0) != 1 or align:
             raise ValueError(f"fused_mlp: {name} must be a transposed nn.Linear weight view "
-                             f"(stride(0) == 1, stride(1) % 8 == 0, 32-byte aligned), "
-                             f"got strides {w.stride()}")
+                             f"(stride(0) == 1; stride(1) % 8 == 0 and 32-byte aligned in bf16, "
+                             f"stride(1) % 4 == 0 and 16-byte aligned in fp32), got strides "
+                             f"{w.stride()}")
     if b1.stride(0) != 1:
         raise ValueError("fused_mlp: b1 must be contiguous")
 
@@ -127,8 +166,9 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor) -> torch.Tensor:
     """gelu(x @ w1 + b1) @ w2 -> fp32 ``[..., d_out]``.
 
-    CPU tensors take ``reference_mlp``; CUDA tensors launch the kernel or
-    raise, through ``_FusedMLP`` when they need a gradient.
+    CPU tensors take ``reference_mlp``; CUDA tensors (all bf16 or all fp32)
+    launch the kernel or raise, through ``_FusedMLP`` when they need a
+    gradient.
     """
     if x.device.type == "cpu":
         return reference_mlp(x, w1, b1, w2)
@@ -157,16 +197,22 @@ def _launch(x, w1, b1, w2) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1])
     if x2.stride(1) != 1:
         raise ValueError(f"fused_mlp: x needs unit stride on its last axis, got {x.stride()}")
+    if x.dtype == torch.float32 and (x2.data_ptr() % 16 or x2.stride(0) % 4):
+        raise ValueError("fused_mlp: the fp32 kernel copies x in 16-byte pieces: it needs a "
+                         "16-byte aligned x whose row stride is a multiple of 4")
     rows, d_in = x2.shape
     d_mid, d_out = w2.shape
     out = torch.empty((rows, d_out), dtype=torch.float32, device=x.device)
     plan = sm90_plan(d_in, d_out)
     ptrs = (x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), out.data_ptr())
     dims = (rows, d_in, d_mid, d_out, x2.stride(0), w1.stride(1), w2.stride(1), out.stride(0))
-    global launches, wmma_launches, cp_async_launches
+    global launches, wmma_launches, cp_async_launches, fp32_launches
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if plan is None:
+        if x.dtype == torch.float32:
+            _build.launch("lam_fused_mlp_f32", *ptrs, *dims, *f32_plan(d_in, d_out), stream)
+            fp32_launches += 1
+        elif plan is None:
             _build.launch("lam_fused_mlp_wmma", *ptrs, *dims, stream)
             wmma_launches += 1
         else:

@@ -19,8 +19,15 @@ On CUDA tensors that need a gradient the forward runs inside
 ``_ShortAttention`` (the JAX ``custom_vjp``), whose backward is the K9
 backward kernel.
 
+fp32 operands (the MD17 test pass's fp32 DiT) take the forward of
+``csrc/short_attention_f32.cu``: a warp an item on FFMA (no TF32), k and v
+in shared memory, a lane a query row; ``f32_fwd_warps`` sizes its blocks.
+The fp32 backward is not ported (fp32 training runs on no path yet): an
+fp32 call that needs a gradient raises.
+
 Counters (plain integers, touched only where a kernel launches):
-``launches`` the forward kernel, ``bwd_launches`` the backward kernel.
+``launches`` the forward kernel in both dtypes, ``fp32_launches`` its fp32
+launches, ``bwd_launches`` the backward kernel.
 """
 
 import ctypes
@@ -33,6 +40,7 @@ from lam_slide_tpu_torch.ops._grad import needs_grad
 from lam_slide_tpu_torch.ops.flash_attention import _heads, _stream, reference_attention_packed
 
 launches = 0
+fp32_launches = 0
 bwd_launches = 0
 
 MAX_DH = 64  # the kernels keep a 16-row block's accumulators in registers
@@ -87,6 +95,25 @@ def bwd_heads_per_block(n: int, num_heads: int, dh: int) -> int:
     return hb
 
 
+F32_MAX_WARPS = 8  # warps (items in flight) an fp32 forward block
+
+
+def f32_fwd_smem_bytes(n: int, dh: int, warps: int) -> int:
+    """Shared memory of an fp32 K9 forward block (csrc/short_attention_f32.cu):
+    each warp holds k and v of one item, n rows of dh rounded up to 16, 32
+    or 64 floats."""
+    return warps * 2 * n * _padded_dh(dh) * 4
+
+
+def f32_fwd_warps(n: int, dh: int) -> int:
+    """Warps an fp32 K9 forward block takes: F32_MAX_WARPS, fewer while its
+    shared memory exceeds SMEM_MAX."""
+    warps = F32_MAX_WARPS
+    while warps > 1 and f32_fwd_smem_bytes(n, dh, warps) > SMEM_MAX:
+        warps -= 1
+    return warps
+
+
 def reference_short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               num_heads: int, scale: Optional[float] = None) -> torch.Tensor:
     """Plain K9 forward, packed ``[B, n, H*dh]`` in and out: fp32 logits and
@@ -118,12 +145,15 @@ def reference_short_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return tuple(t.transpose(1, 2).reshape(q.shape).to(dtype) for t in (dq, dk, dv))
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+           dtypes=(torch.bfloat16, torch.float32)) -> None:
+    if q.dtype not in dtypes:
+        raise ValueError(f"short_attention: q must be one of {dtypes}, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"short_attention: {name} must be on q's CUDA device, got {t.device}")
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"short_attention: {name} must be bfloat16, got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"short_attention: {name} must be {q.dtype} like q, got {t.dtype}")
         if t.shape != q.shape or t.dim() != 3:
             raise ValueError(f"short_attention: {name} must be [B, n, H*dh] like q "
                              f"{tuple(q.shape)}, got {tuple(t.shape)}")
@@ -145,12 +175,20 @@ def _forward(q, k, v, num_heads: int, scale: float) -> torch.Tensor:
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:2]]
     dh = d_all // num_heads
-    global launches
+    fp32 = q.dtype == torch.float32
+    global launches, fp32_launches
     with torch.cuda.device(q.device):
-        _build.launch("lam_short_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), b, num_heads, n, dh, fwd_heads_per_block(n, num_heads, dh),
-                      *strides, float(scale), _stream(q))
+        if fp32:
+            _build.launch("lam_short_attention_fwd_f32", q.data_ptr(), k.data_ptr(),
+                          v.data_ptr(), out.data_ptr(), b, num_heads, n, dh,
+                          f32_fwd_warps(n, dh), *strides, float(scale), _stream(q))
+        else:
+            _build.launch("lam_short_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), b, num_heads, n, dh,
+                          fwd_heads_per_block(n, num_heads, dh), *strides, float(scale),
+                          _stream(q))
     launches += 1
+    fp32_launches += fp32
     return out
 
 
@@ -175,13 +213,17 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads
     of one shape, 8 < n < 128 -> packed ``[B, n, H*dh]``.
 
     CPU tensors take ``reference_short_attention``. CUDA tensors launch K9
-    (bf16, dh <= 64, unit stride on the last axis) or raise; when they need a
-    gradient, through ``_ShortAttention``, whose backward is K9's backward.
+    (bf16 or fp32, one dtype, dh <= 64, unit stride on the last axis) or
+    raise; when they need a gradient (bf16 only), through
+    ``_ShortAttention``, whose backward is K9's backward.
     """
     scale = float((q.shape[-1] // num_heads) ** -0.5 if scale is None else scale)
     if q.device.type == "cpu":
         return reference_short_attention(q, k, v, num_heads, scale)
     if needs_grad(q, k, v):
+        if q.dtype != torch.bfloat16:
+            raise ValueError(f"short_attention: a {q.dtype} call that needs a gradient has no "
+                             f"backward kernel (bf16 only)")
         return _ShortAttention.apply(q, k, v, num_heads, scale)
     return _forward(q, k, v, num_heads, scale)
 
@@ -198,7 +240,7 @@ def short_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if q.device.type == "cpu":
         return reference_short_backward(q, k, v, g, num_heads, scale)
-    _check(q, k, v, num_heads)
+    _check(q, k, v, num_heads, dtypes=(torch.bfloat16,))
     g = g.to(q.dtype)
     if g.shape != q.shape or g.device != q.device:
         raise ValueError(f"short_attention_backward: g must be {tuple(q.shape)} on {q.device}, "

@@ -143,7 +143,7 @@ def main() -> int:
         batch1 = device_batch(next(iter(run1.train_loader)), dev)
         _stage_readings("stage 1", run1.model, [run1.model], run1.loss_fn, batch1, seed, dev,
                         ["repeat", "tf32", "P7"] if args.controls else [], torch.float32, smi)
-        run2 = registry.md17_second_stage(run1.model, run1.config, seed=seed,
+        run2 = registry.md17_second_stage(first_stage=run1, seed=seed,
                                           synthetic_frames=FRAMES, device=dev)
         ss = run2.second_stage
         batch2 = device_batch(next(iter(run2.train_loader)), dev)

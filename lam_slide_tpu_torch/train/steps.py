@@ -13,7 +13,7 @@ training, the model on the EMA weights in evaluation) and ``generator`` is
 a ``torch.Generator`` on the batch's device.
 """
 
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -35,7 +35,7 @@ def _generator(seed: int, batch: Mapping[str, torch.Tensor]) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def make_train_step(loss_fn: Callable, tx, ema_decay: float = 0.999,
+def make_train_step(loss_fn: Callable, tx, ema_decay: Optional[float] = 0.999,
                     grad_accum: int = 1) -> Callable:
     """Build ``step(state, batch, seed) -> (state, metrics)``.
 
@@ -46,6 +46,9 @@ def make_train_step(loss_fn: Callable, tx, ema_decay: float = 0.999,
     many microbatches, each with its own stream (the step's seed folded with
     the microbatch index); their grads, losses and metrics are summed and
     averaged before ONE optimizer/EMA update, as JAX's ``lax.scan`` does.
+
+    ``ema_decay=None``, or a state without an EMA, skips the EMA update
+    (steps.py:105-106).
 
     metrics: the loss_fn's metrics, plus ``loss`` and ``grad_norm`` (the
     global norm of the unclipped grads), as device tensors.
@@ -80,7 +83,8 @@ def make_train_step(loss_fn: Callable, tx, ema_decay: float = 0.999,
             metrics = {k: v * inv for k, v in metrics.items()}
         grad_norm = global_norm(grads)
         tx.step(params, grads, state.opt_state, grad_norm)
-        ema_update(state.ema_params, params, ema_decay)
+        if state.ema_params is not None and ema_decay is not None:
+            ema_update(state.ema_params, params, ema_decay)
         for p in params.values():
             p.grad = None
         state.step += 1
@@ -89,8 +93,10 @@ def make_train_step(loss_fn: Callable, tx, ema_decay: float = 0.999,
     return step
 
 
-def make_eval_step(loss_fn: Callable) -> Callable:
-    """Build ``step(state, batch, seed) -> metrics`` on the EMA weights.
+def make_eval_step(loss_fn: Callable, use_ema: bool = True) -> Callable:
+    """Build ``step(state, batch, seed) -> metrics`` on the EMA weights, or
+    on the parameters when ``use_ema`` is False or the state keeps no EMA
+    (steps.py:155).
 
     Mirrors the reference's EMA swap-in for validation
     (lightning_base.py:87-96) without the swap: the model is applied to
@@ -101,8 +107,10 @@ def make_eval_step(loss_fn: Callable) -> Callable:
         def on_ema(*args, **kwargs):
             return functional_call(state.model, state.ema_params, args, kwargs)
 
+        model = on_ema if use_ema and state.ema_params is not None else state.model
+
         with torch.no_grad():
-            loss, metrics = loss_fn(on_ema, batch, _generator(seed, batch), False)
+            loss, metrics = loss_fn(model, batch, _generator(seed, batch), False)
         return {**metrics, "loss": loss}
 
     return step

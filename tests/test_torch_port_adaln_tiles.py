@@ -92,3 +92,38 @@ def test_k7_cpu_calls_count_no_launch(monkeypatch):
     torch.testing.assert_close(tad.adaln_modulate(x, shift, scale),
                                tad.reference_adaln_modulate(x, shift, scale), atol=0, rtol=0)
     assert tad.launches == 0
+
+
+# The fp32 kernel (csrc/fused_adaln_f32.cu): a warp a row, 16-byte accesses
+# (4 floats) where D allows, chunk c = lane + 32 k: D filling 1, 2, 3, 4 and
+# 8 chunks a lane, D leaving lanes idle (64) and D that takes 4-byte
+# accesses (30).
+F32_SHAPES = [(2, 5, 3, 128), (3, 5, 7, 256), (2, 37, 2, 384), (2, 3, 2, 512), (2, 3, 2, 1024),
+              (3, 11, 1, 64), (2, 5, 3, 30)]
+F32_REL_TOL = 1e-5
+
+
+@pytest.mark.parametrize("b,t,l,d", F32_SHAPES)
+def test_k7_fp32_plain_matches_jax_at_the_fp32_kernels_edges(monkeypatch, b, t, l, d):
+    """Both entries in fp32, h the transposed view, the mods chunks of one
+    [B, 1, 1, 6D] tensor: y within 1e-5 of the largest |y|; x_new within one
+    fp32 ulp at the largest |x_new|. The plain version rounds x + gate * h
+    per op, as PyTorch's ops and the card's kernel do (the GPU tests hold
+    those two bit for bit); XLA on the CPU contracts the product and the
+    add into one FMA, which rounds once."""
+    monkeypatch.setattr(jad, "FORCE_KERNEL", True)
+    x, h_blt, mods = _inputs(b * 1000 + d + 1, b, t, l, d)
+    tshift, tscale, tgate = torch.from_numpy(mods).chunk(6, dim=-1)[:3]
+    th = torch.from_numpy(h_blt).transpose(1, 2)
+    jshift, jscale, jgate = (jnp.asarray(m.numpy()) for m in (tshift, tscale, tgate))
+    jh = jnp.asarray(np.ascontiguousarray(h_blt.transpose(0, 2, 1, 3)))
+    want_x, want_y = jad.residual_adaln_modulate(jnp.asarray(x), jh, jgate, jshift, jscale)
+    got_x, got_y = tad.reference_residual_adaln_modulate(torch.from_numpy(x), th, tgate, tshift,
+                                                         tscale)
+    assert got_x.dtype == got_y.dtype == torch.float32
+    want_x = np.asarray(want_x)
+    assert np.abs(got_x.numpy() - want_x).max() <= np.spacing(np.abs(want_x).max())
+    want_y0 = np.asarray(jad.adaln_modulate(jnp.asarray(x), jshift, jscale))
+    got_y0 = tad.reference_adaln_modulate(torch.from_numpy(x), tshift, tscale).numpy()
+    for got, want in ((got_y.numpy(), np.asarray(want_y)), (got_y0, want_y0)):
+        assert np.abs(got - want).max() <= F32_REL_TOL * np.abs(want).max()

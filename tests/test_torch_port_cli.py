@@ -1,0 +1,230 @@
+"""The port's CLI and MD17 registry (``train/cli.py``,
+``experiments/registry.py``) and its fp32 test protocol against the JAX
+package, on the CPU.
+
+* The counterpart of ``tests/test_train.py::test_cli_test_protocol_fp32_on_test_split``:
+  smoke stage 1 -> stage 2 with ``--first-stage-run s1 --test`` and a bf16
+  training DiT: the protocol runs on the fp32 rebuild, every floating
+  tensor of it fp32, over the held-out test split, with ``k_chunk=1``, and
+  ``test_metrics.json`` is finite; ``--test-only`` from the checkpoint
+  alone reproduces it exactly; ``runs.json`` links s2 to s1 and its
+  ``launch`` block has the JAX CLI's keys.
+* The multi-device flags are refused, naming the ``parallel/`` item of
+  ROADMAP.md; the JAX registry's other experiments raise, naming theirs.
+* ``num_heads``, ``batch_size`` and ``dit_dtype`` reach the stage-2 config,
+  loaders and DiT as in the JAX registry; stage 1's registry meta equals
+  JAX's.
+* fp32 protocol parity: JAX ``evaluate_md17`` on its registry's fp32
+  ``test_model`` and the port's on the converted weights, fed the same
+  initial noise, K=2, ``k_chunk=1``: ADE/FDE within 1e-4 relative.
+"""
+
+import ast
+import dataclasses
+import json
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lam_slide_tpu.composites import testing as jtesting
+from lam_slide_tpu.experiments import registry as jreg
+from lam_slide_tpu_torch import convert
+from lam_slide_tpu_torch.composites import testing as ttesting
+from lam_slide_tpu_torch.experiments import registry as treg
+from lam_slide_tpu_torch.train.cli import main
+
+ROOT = Path(__file__).resolve().parents[1]
+PROTOCOL_RTOL = 1e-4
+
+
+def _cli_runs(ws):
+    """Smoke stage 1 (s1), then stage 2 (s2) on it with --test and a bf16
+    training DiT, both on the CPU."""
+    common = ["--smoke", "--workspace", ws, "--no-mesh", "--molecule", "aspirin",
+              "--device", "cpu"]
+    assert main(["--experiment", "md17_first_stage", "--run-id", "s1", "--epochs", "1",
+                 *common]) == 0
+    assert main(["--experiment", "md17_second_stage", "--run-id", "s2",
+                 "--first-stage-run", "s1", "--epochs", "1", "--test",
+                 "--exp-set", "dit_dtype=bfloat16", "--exp-set", "batch_size=16", *common]) == 0
+
+
+def test_cli_test_protocol_fp32_on_test_split_and_test_only(tmp_path, monkeypatch):
+    captured = []
+    real = ttesting.evaluate_md17
+
+    def spy(ss, loaders, **kw):
+        captured.append((ss, loaders, kw))
+        return real(ss, loaders, **kw)
+
+    monkeypatch.setattr(ttesting, "evaluate_md17", spy)
+    ws = str(tmp_path / "ws")
+    _cli_runs(ws)
+    runs = [c for c in captured if c[2].get("k_chunk") == 1]  # not the val hook's
+    (ss, loaders, kw), = runs
+    # the fp32 rebuild, not the bf16 training DiT
+    assert ss.backbone.backbone.dtype == torch.float32
+    for module in (ss.backbone, ss.first_stage):
+        for name, t in module.state_dict().items():
+            assert not t.is_floating_point() or t.dtype == torch.float32, name
+    # the held-out chronological test split, K repeats one at a time
+    assert [loader.dataset.mode for loader in loaders.values()] == ["test"]
+    assert kw["k_chunk"] == 1 and kw["k"] == 2
+    trained = json.load(open(tmp_path / "ws" / "s2" / "test_metrics.json"))
+    assert set(trained) == {"test/aspirin/ade", "test/aspirin/fde"}
+    assert all(np.isfinite(v) for v in trained.values())
+
+    # --test-only from the checkpoint alone: the experiment, molecule, smoke
+    # flag, overrides and stage lineage come back from the run registry
+    (tmp_path / "ws" / "s2" / "test_metrics.json").unlink()
+    assert main(["--workspace", ws, "--run-id", "s2", "--test-only", "--test-ckpt", "last",
+                 "--device", "cpu"]) == 0
+    assert json.load(open(tmp_path / "ws" / "s2" / "test_metrics.json")) == trained
+    assert captured[-1][0].backbone.backbone.dtype == torch.float32
+    assert captured[-1][2]["k_chunk"] == 1
+
+    registry = json.load(open(tmp_path / "ws" / "runs.json"))
+    assert registry["s2"]["config"]["first_stage_run"] == "s1"
+    assert registry["s2"]["config"]["launch"]["first_stage_run"] == "s1"
+    assert registry["s1"]["config"]["stage"] == 1 and registry["s2"]["config"]["stage"] == 2
+    assert set(registry["s2"]["config"]["launch"]) == _jax_launch_keys()
+    records = [json.loads(line) for line in open(tmp_path / "ws" / "s2" / "metrics.jsonl")]
+    assert [r["split"] for r in records] == ["train", "val/aspirin", "hook/val_sample"]
+    assert all(np.isfinite(v) for r in records for v in r.values() if isinstance(v, float))
+
+
+def _jax_launch_keys():
+    """The keys of the ``launch`` dict literal the JAX CLI registers."""
+    tree = ast.parse((ROOT / "lam_slide_tpu" / "train" / "cli.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Dict):
+            for key, value in zip(node.keys, node.values):
+                if isinstance(key, ast.Constant) and key.value == "launch":
+                    return {k.value for k in value.keys}
+    raise AssertionError("no launch block in the JAX CLI")
+
+
+@pytest.mark.parametrize("flags", [["--model-axis", "2"], ["--fsdp"], ["--devices", "2"],
+                                   ["--multihost"], ["--test-mesh"]])
+def test_multi_device_flags_are_refused(flags):
+    with pytest.raises(SystemExit, match="parallel/"):
+        main(["--experiment", "md17_first_stage", "--smoke", "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("name", sorted(set(jreg.EXPERIMENTS) - set(treg.EXPERIMENTS)))
+def test_unported_experiments_raise(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+        treg.build_experiment(name, smoke=True, device="cpu")
+
+
+def test_registry_names_cover_jax():
+    assert set(treg.EXPERIMENTS) | set(treg.UNPORTED) == set(jreg.EXPERIMENTS)
+
+
+def test_overrides_reach_the_config_as_in_jax():
+    """num_heads, batch_size and dit_dtype (as the string --exp-set gives)
+    on the smoke stage 2, against the JAX registry's run; num_heads also at
+    full width (the 2 x dh 128 split), where JAX needs a stage-1 run id."""
+    kw = dict(smoke=True, num_heads=2, batch_size=3, dit_dtype="bfloat16", molecule="aspirin")
+    jrun = jreg.md17_second_stage(**kw)
+    run = treg.md17_second_stage(**kw, device="cpu")
+    assert run.config.num_heads == jrun.meta["config"]["num_heads"] == 2
+    assert run.model.backbone.num_heads == 2
+    assert run.train_loader.batch_size == jrun.train_loader.batch_size == 3
+    for split in ("val_loaders", "test_loaders"):
+        assert {m: l.batch_size for m, l in getattr(run, split).items()} == {
+            m: l.batch_size for m, l in getattr(jrun, split).items()}
+    assert run.model.backbone.dtype == torch.bfloat16
+    assert jrun.model.backbone.dit.dtype == jnp.bfloat16
+    assert run.test_model.backbone.backbone.dtype == torch.float32
+    assert jrun.test_model.backbone.dit.dtype == jnp.float32
+    assert run.trainer_cfg == treg.TrainerConfig(**dataclasses.asdict(jrun.trainer_cfg))
+    assert set(run.meta) == set(jrun.meta) and run.meta["stage"] == jrun.meta["stage"]
+
+    s1 = treg.md17_first_stage(smoke=True, device="cpu")
+    full = treg.md17_second_stage(first_stage=s1, num_heads=2, molecule="aspirin",
+                                  device="cpu")
+    assert full.config.num_heads == 2 and full.config.hidden_size == 256
+    assert full.model.backbone.hidden_size // full.model.backbone.num_heads == 128
+    assert full.train_loader.batch_size == 64 and full.trainer_cfg.limit_val_batches == 5
+    assert full.model.backbone.dtype == torch.bfloat16
+
+
+def test_first_stage_registry_matches_jax():
+    """Stage 1's TrainerConfig (monitor pos_loss, val cadence) and its
+    registry meta (config, stage, domain) equal the JAX registry's, so a
+    stage-1 run's lineage record reads the same from both packages."""
+    jrun = jreg.md17_first_stage(smoke=True, molecule="aspirin")
+    run = treg.md17_first_stage(smoke=True, molecule="aspirin", device="cpu")
+    assert dataclasses.asdict(run.trainer_cfg) == dataclasses.asdict(jrun.trainer_cfg)
+    jmeta = json.loads(json.dumps(jrun.meta))
+    assert {k: v for k, v in run.meta.items() if k != "config"} == {
+        k: v for k, v in jmeta.items() if k != "config"}
+    # every field of the port's config, as JAX records it (JAX's config also
+    # has ``shift``, which the port's first stage does not take)
+    assert run.meta["config"] == {k: jmeta["config"][k] for k in run.meta["config"]}
+    full = treg.md17_first_stage(molecule="aspirin", device="cpu")
+    assert (full.trainer_cfg.monitor, full.trainer_cfg.val_every_n_epochs) == ("pos_loss", 25)
+
+
+def test_second_stage_from_a_run_id_prefers_the_ema(tmp_path):
+    """load_first_stage_variables reads the stage-1 checkpoint of a run id
+    and prefers its EMA; load_checkpoint_raw falls back from best to last
+    with a warning."""
+    ws = str(tmp_path / "ws")
+    assert main(["--experiment", "md17_first_stage", "--smoke", "--workspace", ws,
+                 "--run-id", "s1", "--epochs", "1", "--molecule", "aspirin", "--device", "cpu",
+                 "--set", "val_every_n_epochs=5"]) == 0
+    raw = treg.load_checkpoint_raw(str(tmp_path / "ws" / "s1"), "best")  # none: val never ran
+    state, cfg = treg.load_first_stage_variables(ws, "s1")
+    assert cfg["stage"] == 1
+    for k, v in raw["ema_params"].items():
+        assert torch.equal(state[k], v) and not torch.equal(v, raw["params"][k])
+    run = treg.md17_second_stage(smoke=True, first_stage_run="s1", molecule="aspirin",
+                                 workspace=ws, device="cpu")
+    for k, v in run.second_stage.first_stage.state_dict().items():
+        assert torch.equal(v, state[k]), k
+
+
+# ---------------------------------------------------------------- fp32 protocol parity
+
+def test_fp32_protocol_matches_jax(monkeypatch):
+    """The JAX registry's smoke stage 2 with a bf16 training DiT and its fp32
+    test_model; the port's test_model loaded with the same (converted)
+    weights. Both run evaluate_md17 over the first test batch, K=2,
+    k_chunk=1, fed the same initial noise."""
+    jrun = jreg.md17_second_stage(smoke=True, molecule="aspirin", dit_dtype="bfloat16")
+    run = treg.md17_second_stage(smoke=True, molecule="aspirin", dit_dtype="bfloat16",
+                                 device="cpu")
+    params = jax.tree.map(np.asarray, jrun.variables["params"])
+    fs_vars = jax.tree.map(np.asarray, jrun.variables["constants"]["first_stage"])
+    ss = run.test_model
+    ss.backbone.load_state_dict(convert.class_cond_dit_state_dict_from_jax(params))
+    ss.first_stage.load_state_dict(convert.first_stage_state_dict_from_jax(
+        fs_vars["params"], fs_vars["constants"]))
+    batch = next(iter(run.test_loaders["aspirin"]))
+    loaders = {"aspirin": [batch]}
+    x1, _ = jax.jit(jrun.test_model.prepare_batch)(fs_vars, {k: jnp.asarray(v)
+                                                             for k, v in batch.items()})
+    noise = np.random.default_rng(7).standard_normal(x1.shape).astype(np.float32)
+
+    def jax_normal(key, shape, dtype=jnp.float32):
+        assert tuple(shape) == noise.shape
+        return jnp.asarray(noise, dtype)
+
+    def torch_randn(shape, generator=None, device=None, dtype=None):
+        return torch.from_numpy(np.broadcast_to(noise, tuple(shape)).copy()).to(device, dtype)
+
+    monkeypatch.setattr(jax.random, "normal", jax_normal)
+    monkeypatch.setattr(torch, "randn", torch_randn)
+    scale = treg.MD17_SCALES["aspirin"]
+    want = jtesting.evaluate_md17(jrun.test_model, params, fs_vars, loaders, scale=scale, k=2,
+                                  k_chunk=1)
+    got = ttesting.evaluate_md17(ss, loaders, scale=scale, k=2, k_chunk=1)
+    assert set(got) == set(want) == {"test/aspirin/ade", "test/aspirin/fde"}
+    for k, v in want.items():
+        assert abs(got[k] - v) <= PROTOCOL_RTOL * abs(v), (k, got[k], v)

@@ -1176,3 +1176,130 @@ def test_sm90_backward_dq_repeats_within_one_ulp(dev, n):
     a, b = first[0].float(), second[0].float()
     assert (a - b).abs().max().item() <= _ulp(a)
     assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
+
+
+# ---- fp32 instances of K2, K7 and K9's forward (the MD17 test pass) -------
+
+# K2-fp32, K7-fp32 (y) and K9-fp32 against their plain versions with TF32
+# off, relative to max |out|: exact fp32 on both sides up to the order of
+# the sums (and erff against PyTorch's erf, expf against its exp), a few
+# fp32 ulps at every shape here (up to n 127 x dh 64 terms a sum). At the
+# MD17 test pass's shapes chip_smoke.py holds them to its readings
+# (python -m lam_slide_tpu_torch.tools.f32_readings: at most 5.5e-7).
+F32_REL_TOL = {"K2": 1e-5, "K7": 1e-5, "K9": 1e-5}
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _rel_err(got, want):
+    return ((got.double() - want.double()).abs().max() / want.double().abs().max()).item()
+
+
+@pytest.mark.parametrize("rows,d,m", [(36864, 256, 512), (77, 256, 512), (1000, 384, 768),
+                                      (33, 32, 64), (130, 64, 48)])
+def test_fused_mlp_fp32_matches_plain(dev, no_tf32, rows, d, m):
+    """K2-fp32 on the DiT's transposed nn.Linear weight views (w1 rows of a
+    linear1 weight, w2 columns of a linear2 weight): the MD17 test pass's
+    widths, odd row counts, the 4AA widths, the tiny registries' and a d_mid
+    that leaves a partial chunk; the fp32 counter moves, nothing else of K2's
+    routes; two calls give bit-identical outputs."""
+    g = _gen(80)
+    x = torch.randn(rows, d, generator=g).to(dev)
+    lin1 = (torch.randn(3 * d + m, d, generator=g) * d ** -0.5).to(dev)
+    b1 = (torch.randn(m, generator=g) * 0.1).to(dev)
+    lin2 = (torch.randn(d, d + m, generator=g) * (d + m) ** -0.5).to(dev)
+    w1, w2 = lin1[3 * d:].t(), lin2[:, d:].t()
+    before = (fm.launches, fm.fp32_launches, fm.wmma_launches, fm.cp_async_launches)
+    got = fm.fused_mlp(x, w1, b1, w2)
+    again = fm.fused_mlp(x, w1, b1, w2)
+    assert _launched(before, (fm.launches, fm.fp32_launches, fm.wmma_launches,
+                              fm.cp_async_launches)) == (2, 2, 0, 0)
+    want = fm.reference_mlp(x, w1, b1, w2)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (rows, d)
+    assert torch.equal(got, again)
+    assert _rel_err(got, want) <= F32_REL_TOL["K2"]
+
+
+def test_fused_mlp_refuses_mixed_dtypes(dev):
+    """Mixed dtypes raise, as do an fp32 d_out past the fp32 kernel's
+    registers and an fp32 x its 16-byte copies cannot load."""
+    x = torch.zeros(8, 32, device=dev)
+    w1 = torch.zeros(64, 32, device=dev).t()
+    b1 = torch.zeros(64, device=dev)
+    w2 = torch.zeros(32, 64, device=dev).t()
+    for args in ((x.bfloat16(), w1, b1, w2), (x, w1.bfloat16(), b1, w2),
+                 (x, w1, b1.bfloat16(), w2), (x, w1, b1, w2.bfloat16())):
+        with pytest.raises(ValueError):
+            fm.fused_mlp(*args)
+    with pytest.raises(ValueError):  # d_out past the fp32 kernel's registers
+        fm.fused_mlp(x, w1, b1, torch.zeros(576, 64, device=dev).t())
+    odd = torch.zeros(8 * 32 + 1, device=dev)[1:].view(8, 32)  # 4 bytes off 16-byte alignment
+    with pytest.raises(ValueError):
+        fm.fused_mlp(odd, w1, b1, w2)
+
+
+@pytest.mark.parametrize("b,t,l,d", [(8, 30, 192, 256), (3, 37, 4, 64), (2, 5, 3, 30),
+                                     (4, 1000, 2, 384)])
+def test_adaln_fp32_matches_plain(dev, b, t, l, d):
+    """K7-fp32, both entries: x_new bit-identical, y within F32_REL_TOL; h
+    the transposed view of the DiT's temporal output, the mods chunks of one
+    [B, 1, 1, 6D] tensor; at the MD17 test pass's widths (16-byte accesses),
+    small ones and D = 30 (4-byte accesses)."""
+    g = _gen(81)
+    x = torch.randn(b, t, l, d, generator=g).to(dev) * 3
+    h = torch.randn(b, l, t, d, generator=g).to(dev).transpose(1, 2)
+    shift, scale, gate = (torch.randn(b, 1, 1, 6 * d, generator=g) * 0.5).to(dev).chunk(
+        6, dim=-1)[:3]
+    before = (fad.launches, fad.fp32_launches)
+    x_new, y = fad.residual_adaln_modulate(x, h, gate, shift, scale)
+    y0 = fad.adaln_modulate(x, shift, scale)
+    assert _launched(before, (fad.launches, fad.fp32_launches)) == (2, 2)
+    want_x, want_y = fad.reference_residual_adaln_modulate(x, h, gate, shift, scale)
+    want_y0 = fad.reference_adaln_modulate(x, shift, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(x_new, want_x)
+    for got, want in ((y, want_y), (y0, want_y0)):
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        assert _rel_err(got, want) <= F32_REL_TOL["K7"]
+
+
+@pytest.mark.parametrize("b,n,heads,dh", [(12288, 30, 16, 16), (7, 30, 16, 16), (5, 9, 4, 24),
+                                          (3, 127, 2, 64), (4, 33, 11, 16)])
+def test_short_attention_fp32_matches_plain(dev, no_tf32, b, n, heads, dh):
+    """K9-fp32's forward on packed views of one qkv buffer (as the DiT hands
+    over q, k and v): the MD17 test pass's temporal shape, odd batch rows,
+    the shortest and longest n, dh 24 and 64; the fp32 counter moves, the
+    output is packed, two calls are bit-identical."""
+    g = _gen(82)
+    qkv = torch.randn(b, n, 3 * heads * dh, generator=g).to(dev)
+    q, k, v = qkv.chunk(3, dim=-1)
+    before = (tsa.launches, tsa.fp32_launches)
+    got = tsa.short_attention(q, k, v, heads)
+    again = tsa.short_attention(q, k, v, heads)
+    assert _launched(before, (tsa.launches, tsa.fp32_launches)) == (2, 2)
+    want = tsa.reference_short_attention(q, k, v, heads, dh ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape and got.is_contiguous()
+    assert torch.equal(got, again)
+    assert _rel_err(got, want) <= F32_REL_TOL["K9"]
+
+
+def test_short_attention_fp32_refusals(dev):
+    """Mixed dtypes raise, and so does an fp32 call that needs a gradient
+    (K9's backward is bf16 only) or an fp32 backward."""
+    q = torch.zeros(2, 30, 64, device=dev)
+    with pytest.raises(ValueError):
+        tsa.short_attention(q, q.bfloat16(), q, 4)
+    with pytest.raises(ValueError):
+        tsa.short_attention(q.bfloat16(), q, q.bfloat16(), 4)
+    with pytest.raises(ValueError):
+        tsa.short_attention(q.clone().requires_grad_(), q, q, 4)
+    with pytest.raises(ValueError):
+        tsa.short_attention_backward(q, q, q, q, 4, 0.25)

@@ -112,7 +112,7 @@ def test_registry_loaders_give_the_jax_batches(stage):
             smoke=True)
     else:
         t1 = treg.md17_first_stage(smoke=True, device="cpu")
-        trun = treg.md17_second_stage(t1.model, t1.config, smoke=True, device="cpu")
+        trun = treg.md17_second_stage(first_stage=t1, smoke=True, device="cpu")
         jrun = jreg.md17_second_stage(smoke=True)
     # the JAX registry draws one train batch for its model's init, which
     # starts the loader's epoch 0 (the port draws its weights from a seed)

@@ -322,13 +322,13 @@ def test_md17_runs_are_built_on_the_card_unless_the_cpu_is_asked_for():
     assert {p.device.type for p in run.model.parameters()} == {"cpu"}
     if torch.cuda.is_available():
         assert next(treg.md17_first_stage(smoke=True).model.parameters()).is_cuda
-        assert next(treg.md17_second_stage(run.model, run.config, smoke=True)
+        assert next(treg.md17_second_stage(first_stage=run, smoke=True)
                     .model.parameters()).is_cuda
     else:
         with pytest.raises((AssertionError, RuntimeError)):
             treg.md17_first_stage(smoke=True)
         with pytest.raises((AssertionError, RuntimeError)):
-            treg.md17_second_stage(run.model, run.config, smoke=True)
+            treg.md17_second_stage(first_stage=run, smoke=True)
 
 
 def test_sample_ode_defaults_to_dopri5():

@@ -163,7 +163,7 @@ def stage2():
     weights, its first train batch and two val batches, and the JAX second
     stage with its init."""
     run1, _, jfs, _, fs_vars = _stage1()
-    run2 = treg.md17_second_stage(run1.model, run1.config, smoke=True, device="cpu")
+    run2 = treg.md17_second_stage(first_stage=run1, smoke=True, device="cpu")
     batch = next(iter(run2.train_loader))
     val = {m: next(iter(loader)) for m, loader in list(run2.val_loaders.items())[:2]}
     jcfg = jmd17.MD17SecondStageConfig(in_dim=8, depth=2, hidden_size=32, num_heads=4,

@@ -145,3 +145,58 @@ def test_cpu_calls_count_no_launch(monkeypatch):
     got = tfm.fused_mlp(x, w1, b1, w2)
     torch.testing.assert_close(got, tfm.reference_mlp(x, w1, b1, w2), atol=0, rtol=0)
     assert (tfm.launches, tfm.wmma_launches, tfm.cp_async_launches) == (0, 0, 0)
+
+
+# ---- the fp32 kernel (csrc/fused_mlp_f32.cu): 64- or 32-row blocks, d_mid
+# in chunks of 32, a thread's outputs in columns tx + 16 j (j < 2..32)
+
+F32_REL_TOL = 1e-5
+# (rows, d_in, d_mid, d_out): rows on both sides of the 32- and 64-row
+# blocks; d_mid with a partial last chunk; d_out at the column counts a
+# thread's instances hold (32, 64, 128, 256, 384, 512) and one past; the
+# registry widths (hidden 16, 32, 128, 256, 384, mid 2x)
+F32_EDGES = ([(r, 32, 64, 32) for r in (31, 32, 33, 63, 64, 65)]
+             + [(65, 32, m, 32) for m in (16, 48, 80, 96, 112)]
+             + [(65, 384, m, 384) for m in (16, 48, 80)]
+             + [(33, 64, 96, o) for o in (48, 64, 80, 144, 256, 272, 384, 400, 512)]
+             + [(130, d, 2 * d, d) for d in REGISTRY_WIDTHS])
+
+
+@pytest.mark.parametrize("rows,d_in,d_mid,d_out", F32_EDGES)
+def test_k2_fp32_plain_matches_jax_at_the_fp32_kernels_edges(monkeypatch, rows, d_in, d_mid,
+                                                             d_out):
+    """The fp32 instance the MD17 test pass runs: ``reference_mlp`` in fp32
+    (no rounding of the mid) against JAX's kernel in interpret mode, within
+    1e-5 of the largest output."""
+    monkeypatch.setattr(jfm, "FORCE_KERNEL", True)
+    rng = np.random.default_rng(rows * 1000 + d_mid + d_out)
+    x = _randn(rng, rows, d_in)
+    w1 = _randn(rng, d_in, d_mid, scale=d_in ** -0.5)
+    b1 = _randn(rng, d_mid, scale=0.1)
+    w2 = _randn(rng, d_mid, d_out, scale=d_mid ** -0.5)
+    want = np.asarray(jfm.fused_mlp(*(jnp.asarray(a) for a in (x, w1, b1, w2))))
+    # w1/w2 as the transposed nn.Linear weight views the DiT passes
+    w1_t = torch.from_numpy(np.ascontiguousarray(w1.T)).t()
+    w2_t = torch.from_numpy(np.ascontiguousarray(w2.T)).t()
+    got = tfm.reference_mlp(torch.from_numpy(x), w1_t, torch.from_numpy(b1), w2_t)
+    assert got.dtype == torch.float32 and got.shape == (rows, d_out)
+    assert np.abs(got.numpy() - want).max() <= F32_REL_TOL * np.abs(want).max()
+
+
+def test_k2_fp32_plan_fits_every_width_the_checks_accept():
+    """Every d_in and d_out (multiples of 16) up to 1024: the fp32 plan is
+    the first of 64 rows with two chunk stages, 32 with two, 64 with one and
+    32 with one that fits the block's 227 KB, and none only past d_out 512
+    or where none fits; MD17's widths take 64 rows and two stages in 211 KB,
+    the 4AA's one stage."""
+    for d_in in range(16, 1025, 16):
+        for d_out in range(16, 1025, 16):
+            plan = tfm.f32_plan(d_in, d_out)
+            fits = [p for p in tfm.F32_PLANS if tfm.f32_smem_bytes(*p, d_in, d_out) <= SMEM_MAX]
+            if plan is None:
+                assert d_out > tfm.F32_MAX_D_OUT or not fits
+                continue
+            assert d_out <= tfm.F32_MAX_D_OUT and plan == fits[0]
+            assert tfm.f32_smem_bytes(*plan, d_in, d_out) <= SMEM_MAX
+    assert tfm.f32_plan(256, 256) == (64, 2) and tfm.f32_plan(384, 384) == (64, 1)
+    assert tfm.f32_smem_bytes(64, 2, 256, 256) == 4 * (128 * 260 + 576 * 36) == 216064

@@ -186,3 +186,49 @@ def test_cpu_calls_count_no_launch(monkeypatch):
     out, lse = _softmax_stats(*(t.float().numpy() for t in (hq, hk, hv)), 0.25)
     tsb.flash_backward_short(hq, hk, hv, _t(out).to(torch.bfloat16), _t(lse), hg, 0.25)
     assert (tsa.launches, tsa.bwd_launches, tsb.launches) == (0, 0, 0)
+
+
+# The fp32 forward (csrc/short_attention_f32.cu): a warp an item, a lane a
+# query row (rows lane, lane + 32, ...), k/v of the item in shared memory
+# padded to 16, 32 or 64 columns.
+F32_LENGTHS = [9, 31, 32, 33, 63, 64, 65, 95, 96, 97, 127]
+F32_HEAD_DIMS = [8, 16, 24, 32, 64]
+F32_REL_TOL = 1e-5
+
+
+@pytest.mark.parametrize("dh", F32_HEAD_DIMS)
+@pytest.mark.parametrize("n", F32_LENGTHS)
+def test_k9_fp32_plain_forward_matches_jax_at_the_fp32_kernels_edges(n, dh):
+    """``reference_short_attention`` in fp32 against ``_short_fwd`` (its
+    Pallas kernel in interpret mode) at n on both sides of each 32-row lane
+    round and dh on both sides of each column padding, within 1e-5 of the
+    largest output."""
+    heads, b = 2, 2
+    rng = np.random.default_rng(n * 211 + dh)
+    q, k, v = (_randn(rng, b, n, heads * dh) for _ in range(3))
+    scale = dh ** -0.5
+
+    def head_major(a):  # packed [B, n, H*dh] -> [B*H*n, dh]
+        return jnp.asarray(a.reshape(b, n, heads, dh).transpose(0, 2, 1, 3).reshape(-1, dh))
+
+    want = _short_fwd(*(head_major(a) for a in (q, k, v)), n, scale)
+    want = np.asarray(want).reshape(b, heads, n, dh).transpose(0, 2, 1, 3).reshape(b, n, -1)
+    got = tsa.reference_short_attention(_t(q), _t(k), _t(v), heads, scale)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() <= F32_REL_TOL * np.abs(want).max()
+
+
+def test_k9_fp32_forward_warps_fit_every_length_the_checks_accept():
+    """Every n in 9..127 and dh in 1..64: the fp32 forward's block takes 1..8
+    warps, as many as its shared memory (k and v of one item a warp) lets
+    fit the block's 227 KB. MD17's temporal axis (n 30, dh 16) takes 8 in
+    30 KB; n 127 at dh 64 three."""
+    for n in range(9, 128):
+        for dh in range(1, 65):
+            warps = tsa.f32_fwd_warps(n, dh)
+            assert 1 <= warps <= tsa.F32_MAX_WARPS
+            assert tsa.f32_fwd_smem_bytes(n, dh, warps) <= SMEM_MAX
+            if warps < tsa.F32_MAX_WARPS:
+                assert tsa.f32_fwd_smem_bytes(n, dh, warps + 1) > SMEM_MAX
+    assert tsa.f32_fwd_warps(30, 16) == 8 and tsa.f32_fwd_smem_bytes(30, 16, 8) == 30720
+    assert tsa.f32_fwd_warps(127, 64) == 3
