@@ -98,7 +98,19 @@ printed on its own line with its seconds:
    ``--test`` exactly, the test pass launches the fp32 K1, K2, K7 and K9 and
    no bf16 DiT kernel while training launches the bf16 ones and K4; the fp32
    protocol on the first test batch against the plain path (TF32 off), and
-   that batch's time and profile.
+   that batch's time and profile;
+15. peptide_loop: the 4AA workload through the port's entry points at full
+   width on synthetic peptides: ``train.cli`` stage 1 (fp32, B=512, three
+   steps, val), stage 2 read from the run registry (the bf16 DiT of depth 7,
+   hidden 384, 16 x 24, T = 1000, B=16, the geometry aux losses, three
+   steps, val over one batch, ``--test`` pointing to the eval CLI), then
+   ``analysis.eval_cli`` (the fp32 DiT, dopri5 atol 1e-6 / rtol 1e-3, two
+   test peptides in one batch x two rollouts, PDB files, the
+   torsion/TICA/MSM JSD summary): return codes, finite metrics and JSD, the
+   eval launching the fp32 K8, K3, K2 and K7 and no bf16 DiT kernel,
+   training the bf16 ones and K4; stage 2's loss and grads and one fp32
+   Euler-10 window against the plain path; step times, each window's dopri5
+   steps and solve time, the eval's wall time and the window's profile.
 
 Phase 3 also holds K10 (at both head splits and a ragged T, and against
 the K5 and K3 routes) and K11 (against K4's grads, with its peak memory, and
@@ -140,7 +152,11 @@ tokens, and K4 with the bias (fp32 and bf16) and with fp32 operands at the
 training shapes, each also at ragged shapes with an all-masked row; and the
 fp32 instances the test pass runs (K2-fp32, K7-fp32, K9-fp32's forward;
 csrc/fused_mlp_f32.cu, fused_adaln_f32.cu, short_attention_f32.cu, FFMA,
-no TF32) at its shapes, with TF32 off on the plain side.
+no TF32) at its shapes, with TF32 off on the plain side. Likewise the fp32
+kernels of the 4AA eval's DiT: K8-fp32 (csrc/fused_spatial_block_f32.cu)
+at [8000, 2, 384] and [2000, 2, 384] at both head splits, beside the two
+bare cuBLAS SGEMMs of its shapes, and K3-fp32, K2-fp32 and K7-fp32 at the
+4AA widths.
 
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -358,6 +374,48 @@ MD17_F32_PROTOCOL_ULPS = 3
 F32_REL_TOL = {"K2 fp32": 1e-6, "K7 fp32": 4.8e-7, "K9 fp32": 1.7e-6}
 GRAD_NORM_REL_TOL = {"bf16": 8e-5, "fp32": 3e-3}
 GRAD_TENSOR_REL_TOL = {"bf16": 1.6e-2, "fp32": 4.5e-2}
+# The 4AA eval (phase 15) runs the DiT in fp32 at the widths of the main
+# path (hidden 384, 16 x 24, T = 1000, L = 2) at its B = 2 and the sampling
+# B = 8: K8-fp32, K3-fp32 (K1's fp32 kernel at dh 24 over T = 1000), K2-fp32
+# at 384 -> 768 -> 384 (f32_plan's single-stage (64, 1)) and K7-fp32 at
+# D = 384. Against their plain versions with TF32 off, relative to max
+# |out|: exact fp32 on both sides up to the order of the sums (and erff,
+# expf against PyTorch's erf, exp): K1-fp32's limit (a few fp32 ulps) for
+# K8 and K3, the MD17 test pass's for K2 and K7 (F32_REL_TOL). Readings of
+# python -m lam_slide_tpu_torch.tools.peptide_readings on an H100 (seeds
+# 0-3): K8 up to 1.986e-6 (at [2000, 2, 384]), K3 2.852e-6, K2 0
+# (bit-identical), K7 1.881e-7: all inside.
+PEP_F32_REL_TOL = {"K8 fp32": 1e-5, "K3 fp32": K1_F32_REL_TOL,
+                   "K2 fp32": F32_REL_TOL["K2 fp32"], "K7 fp32": F32_REL_TOL["K7 fp32"]}
+# Phase 15, the 4AA workload through the CLI and eval_cli at full width on
+# synthetic peptides (data/peptide.py's fallback): stage 1 at its B = 512 on
+# the default 8 peptides x 1,200 frames, 192 visits of each a train epoch
+# (``repeats``, the JAX registry's epoch-length knob): three steps; stage 2 at
+# B = 16 on 8 peptides cut to 1,100 frames (from 2,000: the host's
+# precompute, T = 1000 windows still fit), 6 visits each: three steps, val
+# over one batch; eval_cli on 2 of its peptides x 2 rollouts, dopri5 atol
+# 1e-6 / rtol 1e-3, fp32, the peptides in one batch.
+PEP_S1_REPEATS = 192
+PEP_S2_FRAMES, PEP_S2_REPEATS = 1100, 6
+PEP_EVAL_IDS, PEP_ROLLOUTS = ("synth0", "synth1"), 2
+# Phase 15's kernel path against the plain path, on weights perturbed by
+# N(0, PEP_PERTURB_STD^2) (``perturb_``: the reference init makes every DiT
+# block the identity, which no kernel moves): stage 2's metrics and grads
+# before any step (B=2, the same t and x0; the bf16 DiT's roundings in
+# another order, then the fp32 aux decode and geometry) as (worst metric
+# rel err), (global grad norm rel err, worst per-tensor ||g - g_ref|| /
+# ||g_ref||), and the decoded atom14 of one fp32 Euler-10 window (TF32 off;
+# sums in another order through seven fp32 layers and nine steps), rel to
+# max |pos|. Readings of python -m lam_slide_tpu_torch.tools.peptide_readings
+# on an H100 (seeds 0-3, on the registry's random weights): metrics up to 7.761e-5;
+# grad norm up to 1.578e-3; worst tensor up to 0.193, at the QK-norm scales
+# (the smallest grads, moved most by bf16 activations rounded in another
+# order) but for one seed's x_in (1.104e-2); the window up to 1.268e-6.
+# Each limit is 3x the worst reading.
+PEP_PERTURB_STD = 0.02
+PEP_S2_LOSS_REL_TOL = 2.4e-4
+PEP_S2_GRAD_REL_TOL = (4.8e-3, 0.58)
+PEP_WINDOW_REL_TOL = 3.9e-6
 # K10 against its plain version: K1's pair of limits (q/k round once, after
 # norm and RoPE, on both sides; P rounds at different points). Against the
 # K5 route and the K3 route on the same raw q/k/v, which round q/k twice
@@ -1373,6 +1431,135 @@ def md17_f32_kernel_checks(dev, table: KernelTable) -> None:
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+def peptide_f32_kernel_checks(dev, gen, table: KernelTable) -> None:
+    """The fp32 kernels of the 4AA eval's DiT against their plain versions
+    (TF32 off) at its shapes: K8-fp32 at [8000, 2, 384] (the ``kernels``
+    line's row, with the two bare cuBLAS SGEMMs of its shapes as its library
+    time) and at the eval's [2000, 2, 384], at both head splits; K3-fp32
+    (packed q/k/v views, as LatentDiT passes them) at [2, 1000, 384] and
+    [8, 1000, 384], 16 x 24; K2-fp32 at 16,000 tokens of 384 -> 768 -> 384;
+    K7-fp32 at [8, 1000, 2, 384]. Each launches its fp32 kernel once a call
+    and repeats bit for bit."""
+    from torch.nn.functional import gelu, linear
+
+    from lam_slide_tpu_torch.ops import flash_attention as fa
+    from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    d, m = HIDDEN, MLP_RATIO * HIDDEN
+    tol = PEP_F32_REL_TOL["K8 fp32"]
+    for n, heads in ((8000, HEADS), (2000, HEADS), (8000, WIDE_HEADS), (2000, WIDE_HEADS)):
+        x = _rand(gen, n, L, d).to(dev)
+        w1 = _rand(gen, 3 * d + m, d, scale=d ** -0.5).to(dev)
+        b1 = _rand(gen, 3 * d + m, scale=0.1).to(dev)
+        w2 = _rand(gen, d, d + m, scale=(d + m) ** -0.5).to(dev)
+        b2 = _rand(gen, d, scale=0.1).to(dev)
+        args8 = k8_args(dev, gen, x, w1, b1, w2, b2, heads)
+        before = (fsb.launches, fsb.f32_launches, fsb.wmma_launches)
+        got, again = fsb.fused_spatial_block(*args8), fsb.fused_spatial_block(*args8)
+        want = fsb.reference_spatial_block(*args8)
+        torch.cuda.synchronize()
+        launched = (fsb.launches - before[0], fsb.f32_launches - before[1],
+                    fsb.wmma_launches - before[2])
+        check(launched == (2, 2, 0), f"K8 fp32: launches {launched} for two calls")
+        check(got.dtype == torch.float32 and got.shape == x.shape, "K8 fp32 shape/dtype")
+        check(torch.equal(got, again), "K8 fp32: a second call on the same inputs differs")
+        abs_err, rel = errors(got, want)
+        check(rel <= tol, f"K8 fp32 [{n},{L},{d}] {heads} heads rel err {rel} > {tol}")
+        rows = n * L
+        mid = torch.empty(rows, d + m, device=dev)
+
+        def sgemms():
+            linear(x.view(rows, d), w1, b1)
+            return linear(mid, w2, b2)
+
+        key = ("K8 fp32" if (n, heads) == (8000, HEADS)
+               else f"K8 fp32 [{n},{L},{d}] {heads}x{d // heads}")
+        plan = fsb.f32_plan(n, L, d, m, heads)
+        table.add(key, f"x [{n},{L},{d}] heads {heads} x {d // heads}, fp32 (plan: group "
+                  f"{plan.group}, 32 rows a block, {plan.smem} B), rel {rel:.3e}, a "
+                  f"second call bit-identical; library: two bare cuBLAS SGEMMs of its shapes",
+                  abs_err, f"rel tol {tol}", time_ms(lambda: fsb.fused_spatial_block(*args8)),
+                  time_ms(lambda: fsb.reference_spatial_block(*args8), reps=5),
+                  2 * rows * (d * (3 * d + m) + (d + m) * d),
+                  4 * (2 * rows * d + (3 * d + m) * (d + 1) + d * (d + m + 1)),
+                  time_ms(sgemms), peak=PEAK_FP32_FLOPS)
+        del x, w1, b1, w2, b2, args8, got, again, want, mid
+    torch.cuda.empty_cache()
+
+    dh = d // HEADS
+    for b in (2, 8):
+        # q/k contiguous (after the QK-norm and RoPE), v a view of linear1's
+        # output, as LatentDiT passes them over the temporal axis
+        seqs = b * L
+        q, k = (_rand(gen, seqs, T, d).to(dev) for _ in range(2))
+        v = _rand(gen, seqs, T, 3 * d).to(dev)[..., 2 * d:]
+        args = (q, k, v, HEADS)
+        before = (fa.launches, fa.fp32_launches)
+        got, again = fa.flash_attention_packed(*args), fa.flash_attention_packed(*args)
+        want = fa.reference_attention_packed(*args)
+        torch.cuda.synchronize()
+        check((fa.launches - before[0], fa.fp32_launches - before[1]) == (2, 2),
+              "K3 fp32: the fp32 kernel did not launch once a call")
+        check(torch.equal(got, again), "K3 fp32: a second call on the same inputs differs")
+        abs_err, rel = errors(got, want)
+        tol3 = PEP_F32_REL_TOL["K3 fp32"]
+        check(rel <= tol3, f"K3 fp32 [{seqs},{T},{d}] rel err {rel} > {tol3}")
+        head_major = [t.unflatten(-1, (HEADS, dh)).transpose(1, 2) for t in (q, k, v)]
+        table.add(f"K3 fp32 [{seqs},{T},{d}]", f"packed fp32 q/k/v [{seqs},{T},{d}] (v a strided "
+                  f"view), {HEADS} x {dh}, rel {rel:.3e}, a second call bit-identical",
+                  abs_err, f"rel tol {tol3}",
+                  time_ms(lambda: fa.flash_attention_packed(*args), reps=10),
+                  time_ms(lambda: fa.reference_attention_packed(*args), reps=3),
+                  4 * seqs * T * T * d, 4 * 4 * seqs * T * d,
+                  library_times(*head_major, dh ** -0.5), peak=PEAK_FP32_FLOPS,
+                  exps=seqs * HEADS * T * T)
+        del q, k, v, args, got, again, want, head_major
+    torch.cuda.empty_cache()
+
+    from lam_slide_tpu_torch.ops import fused_adaln as fad
+    from lam_slide_tpu_torch.ops import fused_mlp as fm
+
+    rows = 8 * T * L
+    x2 = _rand(gen, rows, d).to(dev)
+    lin1 = _rand(gen, 3 * d + m, d, scale=d ** -0.5).to(dev)
+    mb1 = _rand(gen, m, scale=0.1).to(dev)
+    lin2 = _rand(gen, d, d + m, scale=(d + m) ** -0.5).to(dev)
+    mlp = (x2, lin1[3 * d:].t(), mb1, lin2[:, d:].t())
+    x7 = _rand(gen, 8, T, L, d, scale=3.0).to(dev)
+    h7 = _rand(gen, 8, L, T, d).to(dev).transpose(1, 2)
+    shift, scale, gate = _rand(gen, 8, 1, 1, 6 * d, scale=0.5).to(dev).chunk(6, -1)[:3]
+    ada = (x7, h7, gate, shift, scale)
+    cases = (("K2 fp32", fm, lambda: fm.fused_mlp(*mlp), lambda: fm.reference_mlp(*mlp),
+              f"x [{rows},{d}] w1 [{d},{m}] w2 [{m},{d}] transposed nn.Linear views, plan "
+              f"{fm.f32_plan(d, d)}", 4 * rows * d * m, 4 * (2 * rows * d + 2 * d * m + m),
+              lambda: time_ms(lambda: linear(gelu(linear(x2, lin1[3 * d:], mb1)), lin2[:, d:]),
+                              reps=10)),
+             ("K7 fp32", fad, lambda: fad.residual_adaln_modulate(*ada),
+              lambda: fad.reference_residual_adaln_modulate(*ada),
+              f"x/h [8,{T},{L},{d}] (h the transposed temporal view)", 0,
+              4 * (4 * rows * d + 3 * 8 * d), None))
+    for name, mod, kern, plain, shape, flops, nbytes, lib in cases:
+        before = (mod.launches, mod.fp32_launches)
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        check((mod.launches - before[0], mod.fp32_launches - before[1]) == (2, 2),
+              f"{name} 4AA: the fp32 kernel did not launch once a call")
+        if name == "K7 fp32":
+            check(torch.equal(got[0], want[0]), "K7 fp32 4AA: x_new is not bit-identical")
+            got, again, want = got[1], again[1], want[1]
+        check(torch.equal(got, again), f"{name} 4AA: a second call on the same inputs differs")
+        abs_err, rel = errors(got, want)
+        tol = PEP_F32_REL_TOL[name]
+        check(rel <= tol, f"{name} 4AA rel err {rel} > {tol}")
+        table.add(f"{name} 4AA", f"{shape}; rel {rel:.3e}, a second call bit-identical",
+                  abs_err, f"rel tol {tol}", time_ms(kern, reps=10), time_ms(plain, reps=3),
+                  flops, nbytes, None if lib is None else lib(), peak=PEAK_FP32_FLOPS)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    torch.cuda.empty_cache()
+
+
 def md17_train_kernel_checks(dev, gen, table: KernelTable) -> None:
     """K1-fp32's lse and K4 with the key-padding bias (fp32 and bf16) and with
     fp32 operands against the plain versions at the MD17 training shapes:
@@ -1835,6 +2022,315 @@ def md17_loop_phase(dev, smi, reset_counts, read_counts):
         testing.evaluate_md17 = real
         shutil.rmtree(ws, ignore_errors=True)
     return train_counts, test_counts
+
+
+def _steady_step_ms(step, state, batch, reps: int = 3):
+    """Median CUDA-synchronized wall time of ``reps`` train steps after one
+    warm-up step; returns (ms, the state)."""
+    state, _ = step(state, batch, SEED)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        state, _ = step(state, batch, SEED)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), state
+
+
+def perturb_(model, seed: int):
+    """Add seeded N(0, PEP_PERTURB_STD^2) noise to every parameter of
+    ``model`` in place; returns a copy of its state dict before. The
+    reference init zeroes the DiT's modulations and output layer, so at the
+    starting weights every block is the identity and no kernel moves the
+    output: the kernel-vs-plain comparisons run on perturbed weights."""
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_((PEP_PERTURB_STD * torch.randn(p.shape, generator=gen)).to(p.device, p.dtype))
+    return before
+
+
+def peptide_grad_errors(run2, grad_batch, seed: int):
+    """Stage 2's metrics and DiT grads on ``grad_batch`` (the loss's t and x0
+    from a generator seeded with ``seed``), kernel path against plain path,
+    on the run's weights perturbed (``perturb_``, then restored): (worst
+    metric rel err, global grad norm rel err, (worst per-tensor
+    ||g - g_ref|| / ||g_ref||, its name), every loss and grad finite)."""
+    from lam_slide_tpu_torch.nn.blocks import set_backend
+
+    ss, model = run2.second_stage, run2.model
+    dev = next(model.parameters()).device
+    before = perturb_(model, seed)
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        total, metrics = run2.loss_fn(model, grad_batch,
+                                      torch.Generator(device=dev).manual_seed(seed), True)
+        total.backward()
+        grads = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return {k: v.item() for k, v in metrics.items()}, grads
+
+    got_m, got_g = loss_and_grads()
+    for module in (ss.backbone, ss.first_stage):
+        set_backend(module, "plain")
+    ref_m, ref_g = loss_and_grads()
+    for module in (ss.backbone, ss.first_stage):
+        set_backend(module, "auto")
+    model.load_state_dict(before)
+    loss_err = max(abs(got_m[k] - ref_m[k]) / abs(ref_m[k]) for k in ref_m)
+    norm_err = abs(_global_norm(got_g) - _global_norm(ref_g)) / _global_norm(ref_g)
+    worst = max(((got_g[n] - r).norm().item() / r.norm().item(), n) for n, r in ref_g.items())
+    finite = (all(math.isfinite(v) for v in got_m.values())
+              and all(bool(torch.isfinite(g).all()) for g in got_g.values()))
+    return loss_err, norm_err, worst, finite
+
+
+def peptide_window_batch(ss, trajs):
+    """The eval's T-frame batch (``RolloutSampler.create_batch``) on the
+    first frames of the first PEP_EVAL_IDS trajectories."""
+    from lam_slide_tpu_torch.analysis.rollout import RolloutSampler
+
+    sampler = RolloutSampler(ss)
+    trajs = trajs[:len(PEP_EVAL_IDS)]
+
+    def stack(key, dtype):
+        return torch.as_tensor(np.stack([t[key][0] for t in trajs]),
+                               device=sampler.device).to(dtype)
+
+    return sampler.create_batch(stack("atom14_pos", torch.float32), stack("aatype", torch.long),
+                                stack("atom14_mask", torch.float32))
+
+
+def peptide_window_errors(ss, batch, seed: int):
+    """One fp32 Euler-10 window of ``ss`` on ``batch`` at the noise of
+    ``seed``, kernel path against plain path (TF32 off), on the DiT's weights
+    perturbed (``perturb_``, then restored): (max abs err, rel err to max
+    |pos|, max |pos|) of the decoded atom14."""
+    from lam_slide_tpu_torch.nn.blocks import set_backend
+
+    dev = next(ss.backbone.parameters()).device
+    b = batch["aatype"].shape[0]
+    noise = torch.randn((b, T, L, DIN), generator=torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+    window = ss.make_sample_fn(sampling_kwargs={"sampling_method": "euler",
+                                                "num_steps": NUM_STEPS})
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    before = perturb_(ss.backbone, seed)
+    got = window(batch, noise=noise)["atom14_pos"]
+    for module in (ss.backbone, ss.first_stage):
+        set_backend(module, "plain")
+    want = window(batch, noise=noise)["atom14_pos"]
+    for module in (ss.backbone, ss.first_stage):
+        set_backend(module, "auto")
+    ss.backbone.load_state_dict(before)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    check(bool(torch.isfinite(got).all()), "peptide fp32 window: non-finite positions")
+    abs_err, rel = errors(got, want)
+    return abs_err, rel, want.abs().max().item()
+
+
+def peptide_loop_phase(dev, smi, reset_counts, read_counts):
+    """Phase 15: the 4AA workload through the port's entry points, in-process
+    in a temporary workspace at full width on synthetic peptides (the cuts
+    beside PEP_S1_REPEATS): ``train.cli`` stage 1 (fp32, B=512, three steps,
+    val), then stage 2 read from the run registry (the bf16 DiT of depth 7,
+    hidden 384, 16 x 24, T = 1000, B=16, the aux geometry losses, three
+    steps, val over one batch) with ``--test`` (the pointer to eval_cli),
+    then ``analysis.eval_cli`` on that run (the fp32 DiT, dopri5, two test
+    peptides in one batch x two rollouts, the JSD analysis). Checks: return
+    codes, finite metric streams and JSD summary, the PDB files, the
+    launches (eval: the fp32 K8, K3, K2 and K7 and no bf16 DiT kernel;
+    training: the bf16 ones and K4); stage 2's loss and grads before any
+    step and one fp32 Euler-10 window, kernel path against plain (TF32 off),
+    on perturbed weights (``perturb_``). Prints the step times, each eval window's dopri5
+    steps and solve time, the eval's wall time, and a profile of the fp32
+    window. Returns the eval's launches."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from lam_slide_tpu_torch.analysis import eval_cli
+    from lam_slide_tpu_torch.data.loader import device_batch
+    from lam_slide_tpu_torch.experiments import registry
+    from lam_slide_tpu_torch.train import create_train_state, make_train_step
+    from lam_slide_tpu_torch.train.cli import main as cli
+    from lam_slide_tpu_torch.transport import integrators
+    from lam_slide_tpu_torch.utils.trees import tree_to_f32
+
+    ws = tempfile.mkdtemp(prefix="peptide_loop_")
+    saved_env = os.environ.get("LAM_SLIDE_NO_DATA_CACHE")
+    os.environ["LAM_SLIDE_NO_DATA_CACHE"] = "1"  # time the precompute; leave no files
+    real_dopri5 = integrators.ode_dopri5
+    windows = []
+
+    def dopri5_spy(*args, return_stats=False, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, stats = real_dopri5(*args, return_stats=True, **kw)
+        torch.cuda.synchronize()
+        windows.append((stats, time.perf_counter() - t0))
+        return (x, stats) if return_stats else x
+
+    common = ["--workspace", ws, "--epochs", "1", "--set", "val_every_n_epochs=1"]
+    s2_sets = ["--exp-set", f"synthetic_frames={PEP_S2_FRAMES}",
+               "--exp-set", f"repeats={PEP_S2_REPEATS}"]
+    try:
+        # 1. stage 1, then stage 2 from the run registry with --test
+        t0 = time.perf_counter()
+        rc1 = cli(["--experiment", "peptide_first_stage", "--run-id", "p1",
+                   "--exp-set", f"repeats={PEP_S1_REPEATS}", *common])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reset_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc2 = cli(["--experiment", "peptide_second_stage", "--run-id", "p2",
+                       "--first-stage-run", "p1", "--set", "limit_val_batches=1", "--test",
+                       *s2_sets, *common])
+        torch.cuda.synchronize()
+        train_counts = read_counts()
+        t2 = time.perf_counter()
+        print(out.getvalue(), end="")
+        print(f"peptide_loop: stage 1 {t1 - t0:.2f} s, stage 2 with --test {t2 - t1:.2f} s "
+              f"(datasets, steps, val, checkpoints); return codes {rc1} {rc2}")
+        check((rc1, rc2) == (0, 0), f"peptide_loop: CLI return codes {rc1} {rc2}")
+        check("analysis.eval_cli --run p2" in out.getvalue()
+              and not os.path.exists(f"{ws}/p2/test_metrics.json"),
+              "peptide_loop: --test did not point to eval_cli, or wrote metrics")
+        with open(f"{ws}/runs.json") as f:
+            runs = json.load(f)
+        check(runs["p2"]["config"]["first_stage_run"] == "p1", "runs.json does not link p2 to p1")
+        for run_id in ("p1", "p2"):
+            with open(f"{ws}/{run_id}/metrics.jsonl") as f:
+                records = [json.loads(line) for line in f]
+            check([r["split"] for r in records] == ["train", "val/val"],
+                  f"{run_id} metrics.jsonl splits {[r['split'] for r in records]}")
+            check(all(math.isfinite(v) for r in records for v in r.values()
+                      if isinstance(v, float)), f"{run_id}: a non-finite metric")
+            print(f"peptide_loop {run_id} records: {records}")
+        bf16 = {k: train_counts[k] - train_counts.get(f"{k} fp32", 0)
+                for k in ("K1", "K2", "K7", "K8")}
+        print(f"peptide_loop: stage-2 training launches {train_counts}")
+        check(all(v > 0 for v in bf16.values()) and train_counts["K4 sm90"] > 0
+              and train_counts["K8 fp32"] == 0,
+              f"peptide_loop: a bf16 kernel or K4 did not launch in training: {train_counts}")
+
+        # 2. steady step times of both stages on the registry's runs (the
+        # loop's epoch times above include the first steps' set-up)
+        run1 = registry.peptide_first_stage(repeats=PEP_S1_REPEATS, device=dev)
+        batch1 = device_batch(next(iter(run1.train_loader)), dev)
+        step1 = make_train_step(run1.loss_fn, run1.tx, ema_decay=run1.trainer_cfg.ema_decay)
+        ms1, _ = _steady_step_ms(step1, create_train_state(run1.model, run1.tx), batch1)
+        run2 = registry.peptide_second_stage(workspace=ws, first_stage_run="p1",
+                                             synthetic_frames=PEP_S2_FRAMES,
+                                             repeats=PEP_S2_REPEATS, device=dev)
+        batch2 = device_batch(next(iter(run2.train_loader)), dev)
+        check(tuple(batch2["atom14_pos"].shape) == (TRAIN_BATCH, T, 4, 14, 3),
+              f"peptide stage-2 batch {tuple(batch2['atom14_pos'].shape)}")
+
+        # stage 2's loss and grads before any step, kernel path vs plain path,
+        # on the same draws (t, x0) at B=2, on perturbed starting weights
+        grad_batch = {k: v[:GRAD_BATCH] for k, v in batch2.items()}
+        loss_err, norm_err, (worst, where), finite = peptide_grad_errors(run2, grad_batch, SEED)
+        print(f"peptide_loop stage 2 B={GRAD_BATCH}, kernel path vs plain (bf16 DiT, fp32 "
+              f"stage 1, weights + N(0, {PEP_PERTURB_STD}^2)): worst metric rel err "
+              f"{loss_err:.3e} (tol {PEP_S2_LOSS_REL_TOL}); grads: global norm rel err "
+              f"{norm_err:.3e} (tol {PEP_S2_GRAD_REL_TOL[0]}), worst tensor rel err {worst:.3e} "
+              f"at {where} (tol {PEP_S2_GRAD_REL_TOL[1]})")
+        check(finite, "peptide_loop stage 2: a non-finite loss or grad")
+        check(loss_err <= PEP_S2_LOSS_REL_TOL, f"peptide stage-2 loss vs plain {loss_err}")
+        check(norm_err <= PEP_S2_GRAD_REL_TOL[0], f"peptide stage-2 grad norm vs plain {norm_err}")
+        check(worst <= PEP_S2_GRAD_REL_TOL[1], f"peptide stage-2 grad of {where} vs plain {worst}")
+        step2 = make_train_step(run2.loss_fn, run2.tx, ema_decay=run2.trainer_cfg.ema_decay)
+        ms2, _ = _steady_step_ms(step2, create_train_state(run2.model, run2.tx), batch2)
+        print(f"timing peptide_loop: stage 1 step B={batch1['aatype'].shape[0]} {ms1:.3f} ms, "
+              f"stage 2 step B={TRAIN_BATCH} {ms2:.3f} ms (kernel path, median of 3) | {smi}")
+        del run1, batch1, step1, run2, step2, grad_batch
+        torch.cuda.empty_cache()
+
+        # 3. eval_cli on the stage-2 run: the fp32 DiT, dopri5
+        integrators.ode_dopri5 = dopri5_spy
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc3 = eval_cli.main(["--run", "p2", "--workspace", ws, "--batch-peptides",
+                             "--num-rollouts", str(PEP_ROLLOUTS), "--pdb-ids", *PEP_EVAL_IDS])
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_counts = read_counts()
+        integrators.ode_dopri5 = real_dopri5
+        check(rc3 == 0, f"peptide_loop: eval_cli returned {rc3}")
+        with open(f"{ws}/p2/eval/metrics.json") as f:
+            metrics = json.load(f)
+        summary = metrics["summary"]
+        check(set(summary) == {"BB", "SC", "ALL", "TICA-0", "TICA-0,1", "MSMS"}
+              and all(math.isfinite(v) for v in summary.values())
+              and all(math.isfinite(v) for d in metrics["per_peptide"].values()
+                      for v in d.values()), f"peptide_loop: eval summary {summary}")
+        pdbs = sorted(p for p in os.listdir(f"{ws}/p2/eval") if p.endswith(".pdb"))
+        check(pdbs == [f"{n}.pdb" for n in PEP_EVAL_IDS], f"peptide_loop: PDB files {pdbs}")
+        check(len(windows) == PEP_ROLLOUTS, f"peptide_loop: {len(windows)} dopri5 solves")
+        for i, ((n_iters, n_acc), solve_s) in enumerate(windows):
+            check(n_iters < DOPRI5_MAX_STEPS, f"eval window {i}: dopri5 hit max_steps")
+            print(f"timing peptide_loop eval window {i} (fp32, B={len(PEP_EVAL_IDS)}, T={T}): "
+                  f"dopri5 {n_iters} steps, {n_acc} accepted, NFE {1 + 6 * n_iters}, solve "
+                  f"{solve_s:.3f} s | {smi}")
+        fp32_kernels = ("K8 fp32", "K1 fp32", "K2 fp32", "K7 fp32")
+        bf16 = {k: eval_counts[k] - eval_counts[f"{k} fp32"] for k in ("K1", "K2", "K7", "K8")}
+        print(f"peptide_loop: eval_cli {summary} in {eval_s:.2f} s wall (datasets, "
+              f"{PEP_ROLLOUTS} windows, PDBs, the JSD/TICA/MSM analysis); launches {eval_counts}"
+              f" | {smi}")
+        check(all(eval_counts[k] > 0 for k in fp32_kernels),
+              "peptide_loop: an fp32 kernel did not launch in the eval")
+        check(all(v == 0 for v in bf16.values()) and eval_counts["K5"] == 0
+              and eval_counts["K9"] == 0, f"peptide_loop: a bf16 DiT kernel launched: {bf16}")
+
+        # 4. one fp32 Euler-10 window at fixed noise, kernel path vs plain path
+        # (TF32 off) on the trained weights perturbed, then its time and profile
+        exp = registry.peptide_second_stage(workspace=ws, first_stage_run="p1",
+                                            synthetic_peptides=2, synthetic_frames=PEP_S2_FRAMES,
+                                            device=dev)
+        raw = registry.load_checkpoint_raw(f"{ws}/p2", "best")
+        ss = exp.test_model
+        ss.backbone.load_state_dict(tree_to_f32({**raw["params"], **raw["ema_params"]}))
+        ss.backbone.eval()
+        batch = peptide_window_batch(ss, exp.test_loaders["test"].dataset.trajectories)
+        reset_counts()
+        abs_err, rel, max_pos = peptide_window_errors(ss, batch, SEED)
+        window_counts = read_counts()
+        print(f"peptide_loop: fp32 Euler-{NUM_STEPS} window B={len(PEP_EVAL_IDS)}, kernel path vs "
+              f"plain (TF32 off, weights + N(0, {PEP_PERTURB_STD}^2)): decoded atom14 max_abs_err "
+              f"{abs_err:.3e} rel {rel:.3e} (tol {PEP_WINDOW_REL_TOL}), max|pos| {max_pos:.3f}; "
+              f"launches {window_counts}")
+        check(rel <= PEP_WINDOW_REL_TOL, f"peptide_loop: fp32 window vs plain rel err {rel}")
+        noise = torch.randn((len(PEP_EVAL_IDS), T, L, DIN), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(SEED))
+        window = ss.make_sample_fn(sampling_kwargs={"sampling_method": "euler",
+                                                    "num_steps": NUM_STEPS})
+        with torch.no_grad():
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            window(batch, noise=noise)
+            end.record()
+            torch.cuda.synchronize()
+            print(f"timing peptide_loop fp32 Euler-{NUM_STEPS} window B={len(PEP_EVAL_IDS)}: "
+                  f"{start.elapsed_time(end):.3f} ms kernel path | {smi}")
+            profile_run(lambda: window(batch, noise=noise),
+                        f"peptide_loop fp32 Euler-{NUM_STEPS} window B={len(PEP_EVAL_IDS)}")
+    finally:
+        integrators.ode_dopri5 = real_dopri5
+        if saved_env is None:
+            os.environ.pop("LAM_SLIDE_NO_DATA_CACHE", None)
+        else:
+            os.environ["LAM_SLIDE_NO_DATA_CACHE"] = saved_env
+        shutil.rmtree(ws, ignore_errors=True)
+    return eval_counts
 
 
 def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, smi,
@@ -2537,7 +3033,7 @@ def main() -> int:
                 "K9 fp32": (tsa, "fp32_launches"),
                 "K2 wmma": (fm, "wmma_launches"), "K2 cp.async": (fm, "cp_async_launches"),
                 "K5": (fnr, "launches"), "K7": (fad, "launches"), "K8": (fsb, "launches"),
-                "K8 wmma": (fsb, "wmma_launches"),
+                "K8 wmma": (fsb, "wmma_launches"), "K8 fp32": (fsb, "f32_launches"),
                 "K9": (tsa, "launches"), "K9 bwd": (tsa, "bwd_launches"),
                 "K4 kv": (fa, "bwd_kv_launches"), "K4 q": (fa, "bwd_q_launches"),
                 "K4 bias": (fa, "bwd_bias_launches"), "K4 fp32": (fa, "bwd_fp32_launches"),
@@ -2592,6 +3088,7 @@ def main() -> int:
     md17_dit_kernel_checks(dev, torch.Generator().manual_seed(SEED + 4), table)
     md17_train_kernel_checks(dev, torch.Generator().manual_seed(SEED + 5), table)
     md17_f32_kernel_checks(dev, table)
+    peptide_f32_kernel_checks(dev, torch.Generator().manual_seed(SEED + 10), table)
     ablation_kernel_checks(dev, torch.Generator().manual_seed(SEED + 9), table)
     phase_done("kernels")
 
@@ -2753,6 +3250,11 @@ def main() -> int:
     _, loop_test_counts = md17_loop_phase(dev, smi, reset_counts, read_counts)
     phase_done("md17_loop")
 
+    # 15. the 4AA workload through the port's entry points: train.cli stage 1
+    # and stage 2, then analysis.eval_cli (the fp32 DiT, dopri5, the JSD)
+    peptide_eval_counts = peptide_loop_phase(dev, smi, reset_counts, read_counts)
+    phase_done("peptide_loop")
+
     sources = {
         "K1": ("flash_attention_fwd", "flash_fwd_sm90.cu", "flash_attention.py:37"),
         "K2": ("fused_mlp", "fused_mlp.cu", "fused_mlp.py:68"),
@@ -2785,6 +3287,8 @@ def main() -> int:
                     "fused_adaln.py:98"),
         "K9 fp32": ("short_attention (fp32 operands, forward)", "short_attention_f32.cu",
                     "short_attention.py:83"),
+        "K8 fp32": ("fused_spatial_block (fp32 operands, forward)",
+                    "fused_spatial_block_f32.cu", "fused_spatial_block.py:108"),
     }
     # launches on the main paths: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve
     # (K1 and K3 one binary, flash_fwd_sm90.cu, whose launches it counts), K5
@@ -2796,7 +3300,8 @@ def main() -> int:
     # each stage; K10 from one forward + backward of the fused temporal
     # block, K11 from its call at the MD17 spatial axis; K8's WMMA route
     # from the forward of the hidden-32 DiT (0 on every path above); K2, K7
-    # and K9 in fp32 from phase 14's stage-2 run (its --test pass)
+    # and K9 in fp32 from phase 14's stage-2 run (its --test pass); K8 in
+    # fp32 from phase 15's eval (two dopri5 windows of the fp32 DiT)
     md17_train = {key: s1_counts[key] + s2_counts[key] for key in s1_counts}
     main_counts = dict(launches[HEADS], K1=launches[HEADS]["K1 sm90"],
                        K3=launches[HEADS]["K1 sm90"], K5=launches[WIDE_HEADS]["K5 sm90"],
@@ -2808,7 +3313,8 @@ def main() -> int:
                           "K10": k10_counts["K10"], "K11": k11_counts["K11"],
                           "K8 wmma": tiny_counts["K8 wmma"],
                           **{key: loop_test_counts[key]
-                             for key in ("K2 fp32", "K7 fp32", "K9 fp32")}})
+                             for key in ("K2 fp32", "K7 fp32", "K9 fp32")},
+                          "K8 fp32": peptide_eval_counts["K8 fp32"]})
     kernels = [
         {"name": name, "route": "cuda", "source": f"lam_slide_tpu_torch/csrc/{src}",
          "replaces": f"lam_slide_tpu/ops/{tpu}", "launches": main_counts[key],

@@ -73,7 +73,8 @@ def setup_conditioning(latents: torch.Tensor, cond_idx: Tuple[int, int],
 class SecondStage:
     """Frozen stage 1 + DiT backbone + transport. ``backbone`` is a
     ``LatentDiT`` or a ``ClassCondDiT``; when ``class_conditional`` the batch
-    carries class indices under ``cond_key``. Construction freezes
+    carries class indices under ``cond_key``. ``num_timesteps`` is the
+    window length T (the rollout sampler's). Construction freezes
     ``first_stage`` in place."""
 
     backbone: nn.Module
@@ -81,6 +82,7 @@ class SecondStage:
     first_stage: FirstStageBackbone
     cond_idx: Tuple[int, int] = (0, 10)
     mask_cond_mean: bool = True
+    num_timesteps: int = 30
     class_conditional: bool = False
     cond_key: str = "cond_molecule"
     frame_keys: Tuple[str, ...] = ("pos", "atom", "attention_mask", "entities")

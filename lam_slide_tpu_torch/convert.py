@@ -7,9 +7,16 @@ nested mappings of numpy arrays (unrolled ``block_i`` layout, or the
 as ``train/torch_import.py:346-347`` maps it) and returns the
 port's ``LatentDiT`` state_dict; ``class_cond_dit_state_dict_from_jax`` does
 the same for ``ClassCondDiT``, and ``first_stage_state_dict_from_jax`` for
-the MD17 ``FirstStageBackbone`` (its params and its ``constants``, the
-frozen entity table). flax Dense kernels ``[in, out]`` become torch Linear
-weights ``[out, in]``.
+the MD17 and the peptide ``FirstStageBackbone`` (its params and its
+``constants``, the frozen entity table). flax Dense kernels ``[in, out]``
+become torch Linear weights ``[out, in]``.
+
+The peptide key maps (stage 1's input embedder and the decoder's
+``extender``; stage 2 is a plain ``LatentDiT``) are the reference's keys:
+``tests/test_torch_port_peptide.py`` loads the trained reference checkpoint
+``tests/golden/ref_trained_probe.ckpt`` straight into the port's smoke-width
+stage 1 and holds it to that checkpoint's golden outputs, which pins these
+names and layouts.
 """
 
 from typing import Any, Dict, Mapping
@@ -135,8 +142,10 @@ def encoder_state_dict_from_jax(p: Mapping, prefix: str = "",
 
 
 def decoder_state_dict_from_jax(p: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
-    """flax Decoder / DecoderFE / Decoder2 params -> port decoder keys (no
-    entity table)."""
+    """flax Decoder / DecoderFE / Decoder2 / DecoderQuerySplitter params ->
+    port decoder keys (no entity table). The QuerySplitter's ``extender``
+    Dense ``[D, D * num_split]`` becomes the reference's Conv1d weight
+    ``extender.1.weight [D * num_split, D, 1]`` (same d-major channels)."""
     sd: Dict[str, torch.Tensor] = {}
     _dense(sd, prefix + "query_mlp.1", p["query_mlp"])
     for i in range(_count(p, "self_")):
@@ -149,6 +158,9 @@ def decoder_state_dict_from_jax(p: Mapping, prefix: str = "") -> Dict[str, torch
             name = key[len("head_"):-len("_fc")]
             _dense(sd, f"{prefix}output_layers.{name}.0", p[key])
             _dense(sd, f"{prefix}output_layers.{name}.2", p[f"head_{name}_out"])
+    if "extender" in p:
+        sd[prefix + "extender.1.weight"] = _t(np.asarray(p["extender"]["kernel"]).T[..., None])
+        sd[prefix + "extender.1.bias"] = _t(p["extender"]["bias"])
     if "energy_query" in p:
         sd[prefix + "energy_query"] = _t(p["energy_query"])
         _block(sd, prefix + "energy_block", p["energy_block"])
@@ -159,19 +171,34 @@ def decoder_state_dict_from_jax(p: Mapping, prefix: str = "") -> Dict[str, torch
     return sd
 
 
-def first_stage_state_dict_from_jax(params: Mapping,
-                                    constants: Mapping) -> Dict[str, torch.Tensor]:
-    """flax MD17 FirstStageBackbone params and constants -> port
+def first_stage_state_dict_from_jax(params: Mapping, constants: Mapping,
+                                    max_res: int = 10) -> Dict[str, torch.Tensor]:
+    """flax MD17 or peptide FirstStageBackbone params and constants -> port
     FirstStageBackbone state_dict (the reference Backbone's keys). The one
     entity table lands under both ``encoder.entity_embedding`` and
-    ``decoder.entity_embedding``, as in a reference state_dict."""
+    ``decoder.entity_embedding``, as in a reference state_dict.
+
+    Input embedders: MD17's ``embed_atom``/``embed_pos`` become
+    ``embed_atom.weight`` and ``embed_pos.mlp``; the peptide's
+    ``embedding_res`` becomes ``embedding_res.weight`` and its fixed sin-cos
+    table, which flax keeps as no parameter, the buffer
+    ``embed_res_pos.embeddings`` (``max_res`` rows, the config's default
+    10). Both merge MLPs (``merge_fc``, ``merge_out``) become ``net_merge.{0,2}``."""
+    from lam_slide_tpu_torch.nn.embeddings import sincos_position_table
+
     if "params" in params and "encoder" not in params:
         params = params["params"]
     if "constants" in constants:
         constants = constants["constants"]
     emb = params["input_embedder"]
-    sd: Dict[str, torch.Tensor] = {"embed_atom.weight": _t(emb["embed_atom"]["embedding"])}
-    _dense(sd, "embed_pos.mlp", emb["embed_pos"]["mlp"])
+    sd: Dict[str, torch.Tensor] = {}
+    if "embedding_res" in emb:
+        sd["embedding_res.weight"] = _t(emb["embedding_res"]["embedding"])
+        width = np.asarray(emb["merge_out"]["kernel"]).shape[1]
+        sd["embed_res_pos.embeddings"] = _t(sincos_position_table(max_res, width))
+    else:
+        sd["embed_atom.weight"] = _t(emb["embed_atom"]["embedding"])
+        _dense(sd, "embed_pos.mlp", emb["embed_pos"]["mlp"])
     _dense(sd, "net_merge.0", emb["merge_fc"])
     _dense(sd, "net_merge.2", emb["merge_out"])
     sd.update(encoder_state_dict_from_jax(params["encoder"], "encoder."))

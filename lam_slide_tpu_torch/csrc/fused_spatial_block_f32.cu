@@ -1,0 +1,391 @@
+// The DiT's whole small-L spatial block with fp32 operands, for Hopper
+// (sm_90a), on the FP32 pipes (FFMA; no tensor cores, so no TF32).
+//
+// Replaces the fp32 instance of the Pallas TPU kernel
+// lam_slide_tpu/ops/fused_spatial_block.py `_kernel` (pallas_call in
+// `_fused_vjp`), which computes in x's dtype: the 4AA eval samples the DiT
+// in fp32 (analysis/eval_cli.py, the registry's fp32 `test_model`). For x
+// [N, L <= 8, D] in nn.Linear layout weights w1 [3D + M, D], w2 [D, D + M]:
+//
+//   xw   = x @ w1^T + b1                                [rows, 3D + M]
+//   q, k = RoPE(RMSNorm_head(q or k) * scale) at the frame's L positions
+//   attn = softmax(q k^T * scale) v per head, over the L positions
+//   out  = [attn | gelu(mlp)] @ w2^T + b2                [rows, D]
+//
+// all in fp32, as the plain composition (ops/fused_spatial_block.py
+// reference_spatial_block) computes it in fp32; sums are taken in another
+// order, so results agree to a few fp32 ulps, not bit for bit.
+//
+// Design (a tiled FFMA kernel, K2-fp32's machinery): a block of 256 threads
+// owns RB = 32 rows, i.e. 32 / L whole frames, and keeps their [RB, D] fp32
+// output in registers (a 16 x 16 thread grid: rows 2 ty, 2 ty + 1, columns
+// tx + 16 j). The x tile stays in shared memory for
+// the whole block. linear1 is never held whole (at 4AA it is 1,920 floats a
+// position); linear2's K dimension is walked chunk by chunk instead:
+// - per head group (`group` columns, whole heads, at most 128 unless one
+//   head is wider): the group's q, k and v columns (3 x group) are computed
+//   into a staging tile [RB][3 group + 4], normed and rotated in place (one
+//   thread a (row, head, q|k)), attended (one thread a (row, head): L logits,
+//   softmax, the AV sum written over q), then `out += attn @ w2[:, group]^T`;
+// - per 32 MLP columns: their linear1 columns, + b1, the exact GELU into the
+//   staging tile, then `out += gelu @ w2[:, D + m0 ..]^T`.
+// The weights stream through one ring of two stages in 32-column tiles, a
+// w1 tile [32][D + 4] (32 rows of w1's memory) or a w2 tile [D][36] (D runs
+// of 32 floats), the next tile's cp.async copies in flight while this one's
+// products run; every copy is 16 bytes, zero-filled past the rows or
+// columns that exist. GEMM1 tiles: each thread forms RPT x 2 mids (columns
+// tx, tx + 16), reading x and w1 as float4 along D; GEMM2 tiles add a
+// tile's contribution to every output in registers, reading the staging
+// tile and w2 as float4 along K. Row strides of 4 mod 32 floats keep the 16
+// distinct rows a warp reads at once on distinct banks. No atomics: every
+// output is summed by one thread in a fixed order (attention groups, then
+// MLP chunks, K in order), so a result repeats bit for bit.
+//
+// What bounds it on the H100: 2 * rows * (D * (3D + M) + (D + M) * D) FLOPs
+// on the FP32 pipes (67 TFLOP/s) against rows * 2D * 4 bytes: operations
+// (0.56 ms at the 4AA eval's [8000, 2, 384]).
+
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int TX = 16, TY = 16;  // thread grid: columns x rows
+constexpr int RPT = 2;           // rows a thread
+constexpr int RB = TY * RPT;     // rows a block
+constexpr int BC = 32;           // columns a weight tile
+constexpr int GS = BC + 4;       // row stride of a w2 tile
+constexpr int MAXL = 8;
+
+// The floats of one ring stage: a w1 tile or a w2 tile, whichever is larger.
+__host__ __device__ inline int stage_floats(int d) {
+  const int w1 = BC * (d + 4), w2 = d * GS;
+  return w1 > w2 ? w1 : w2;
+}
+
+// Shared memory of a block (the wrapper's f32_smem_bytes mirrors it): the x
+// tile [RB][D + 4], the staging tile [RB][3 group + 4] and two ring stages.
+size_t smem_bytes(int d, int group) {
+  return sizeof(float) * (static_cast<size_t>(RB) * (d + 4) +
+                          static_cast<size_t>(RB) * (3 * group + 4) +
+                          2 * static_cast<size_t>(stage_floats(d)));
+}
+
+struct Args {
+  const float *x, *w1, *b1, *qs, *ks, *w2, *b2, *cos, *sin;
+  float* out;
+  long long n, w1_s, w2_s;
+  int l, d, m, dh, group, frames;  // frames: whole frames a block
+  float scale;
+};
+
+__device__ __forceinline__ float gelu_exact(float v) {
+  // 0.5 * v * (1 + erf(v * 2^-0.5)), each op rounded as the plain version's
+  return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.0f, erff(__fmul_rn(v, 0.70710678118654752f))));
+}
+
+__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// 16 bytes from global to shared memory, asynchronously; zeros where !valid
+// (src is then not read).
+__device__ __forceinline__ void copy16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void wait_groups() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One weight tile of the stream. w1 tiles: `n` columns (at most 32) of
+// linear1 whose c-th is w1 row `row(c)`, their mids written to staging
+// columns `dst + c` (through the GELU for an MLP tile). w2 tiles: K columns
+// k0 .. k0 + n of w2, read against staging columns `base ..`.
+struct Tile {
+  bool w1, gelu, last_of_group;
+  int n, k0, base, dst;  // base: the first staging/K column of the tile
+};
+
+// Tile t of the stream: for each head group g, ceil(3 group / 32) w1 tiles
+// (q, k, v of its heads) then ceil(group / 32) w2 tiles; then for each 32
+// MLP columns one w1 tile and one w2 tile.
+__device__ __forceinline__ Tile tile_of(int t, const Args& a) {
+  const int n1 = (3 * a.group + BC - 1) / BC, n2 = (a.group + BC - 1) / BC;
+  const int groups = a.d / a.group, attn_tiles = groups * (n1 + n2);
+  Tile tl{};
+  if (t < attn_tiles) {
+    const int g = t / (n1 + n2), u = t % (n1 + n2);
+    if (u < n1) {
+      tl.w1 = true;
+      tl.base = g * a.group;  // the group's first q column of linear1
+      tl.dst = u * BC;
+      tl.n = min(BC, 3 * a.group - u * BC);
+      tl.last_of_group = u == n1 - 1;
+    } else {
+      tl.k0 = g * a.group + (u - n1) * BC;
+      tl.base = (u - n1) * BC;
+      tl.n = min(BC, a.group - (u - n1) * BC);
+    }
+    return tl;
+  }
+  const int v = t - attn_tiles, m0 = (v / 2) * BC;
+  tl.n = min(BC, a.m - m0);
+  if (v % 2 == 0) {
+    tl.w1 = tl.gelu = true;
+    tl.base = 3 * a.d + m0;
+  } else {
+    tl.k0 = a.d + m0;
+  }
+  return tl;
+}
+
+// The w1 row of staging column c of an attention tile (q, k or v of the
+// group starting at column `base`), or of an MLP tile.
+__device__ __forceinline__ long long w1_row(const Tile& tl, int c, const Args& a) {
+  if (tl.gelu) return tl.base + c;
+  const int col = tl.dst + c, part = col / a.group;
+  return static_cast<long long>(part) * a.d + tl.base + col % a.group;
+}
+
+template <int NJ>
+__global__ void __launch_bounds__(THREADS) spatial_f32_kernel(const Args a) {
+  extern __shared__ float4 smem4[];
+  const int xs = a.d + 4, ss = 3 * a.group + 4, k4 = a.d / 4;
+  float* x_s = reinterpret_cast<float*>(smem4);  // [RB][xs]
+  float* st_s = x_s + RB * xs;                   // [RB][ss]
+  float* ring = st_s + RB * ss;                  // 2 x stage_floats(d)
+  const int sf = stage_floats(a.d);
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const long long item0 = static_cast<long long>(blockIdx.x) * a.frames;
+  const long long items = min(static_cast<long long>(a.frames), a.n - item0);
+  const int rows = static_cast<int>(items) * a.l;  // rows of this block that exist
+  const long long row0 = item0 * a.l;
+
+  auto load_tile = [&](int t, int st) {
+    const Tile tl = tile_of(t, a);
+    float* dst = ring + st * sf;
+    if (tl.w1) {
+      for (int idx = tid; idx < BC * k4; idx += THREADS) {
+        const int c = idx / k4, i = 4 * (idx % k4);
+        const bool valid = c < tl.n;
+        copy16(&dst[c * xs + i], a.w1 + i + (valid ? w1_row(tl, c, a) : 0) * a.w1_s, valid);
+      }
+    } else {
+      for (int idx = tid; idx < a.d * (BC / 4); idx += THREADS) {
+        const int o = idx / (BC / 4), mm = 4 * (idx % (BC / 4));
+        const bool valid = mm < tl.n;  // n % 4 == 0: all 4 or none
+        copy16(&dst[o * GS + mm],
+               a.w2 + (valid ? tl.k0 + mm : 0) + static_cast<long long>(o) * a.w2_s, valid);
+      }
+    }
+  };
+
+  for (int idx = tid; idx < RB * k4; idx += THREADS) {
+    const int r = idx / k4, k = 4 * (idx % k4);
+    const bool valid = r < rows;
+    copy16(&x_s[r * xs + k], a.x + (valid ? row0 + r : 0) * a.d + k, valid);
+  }
+  const int n1 = (3 * a.group + BC - 1) / BC, n2 = (a.group + BC - 1) / BC;
+  const int tiles = (a.d / a.group) * (n1 + n2) + 2 * ((a.m + BC - 1) / BC);
+  load_tile(0, 0);
+  commit();
+
+  float acc[RPT][NJ];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[r][j] = 0.0f;
+
+  const int heads_g = a.group / a.dh, half = a.dh / 2;
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {
+      load_tile(t + 1, (t + 1) % 2);  // its stage was freed by the last barrier
+      commit();
+      wait_groups<1>();
+    } else {
+      wait_groups<0>();
+    }
+    __syncthreads();  // tile t (and x) landed for every thread; staging writes visible
+    const Tile tl = tile_of(t, a);
+    const float* wt = ring + (t % 2) * sf;
+    if (tl.w1) {
+      // GEMM1: rows ty*RPT + r, tile columns tx and tx + 16
+      float mid[RPT][2];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) mid[r][0] = mid[r][1] = 0.0f;
+      for (int k = 0; k < a.d; k += 4) {
+        float4 xv[RPT];
+#pragma unroll
+        for (int r = 0; r < RPT; ++r)
+          xv[r] = *reinterpret_cast<const float4*>(&x_s[(ty * RPT + r) * xs + k]);
+        const float4 w0 = *reinterpret_cast<const float4*>(&wt[tx * xs + k]);
+        const float4 w1 = *reinterpret_cast<const float4*>(&wt[(tx + TX) * xs + k]);
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          mid[r][0] = dot4(xv[r], w0, mid[r][0]);
+          mid[r][1] = dot4(xv[r], w1, mid[r][1]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = tx + TX * e;
+        if (c >= tl.n) continue;
+        const float b = a.b1[w1_row(tl, c, a)];
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          const float v = __fadd_rn(mid[r][e], b);
+          st_s[(ty * RPT + r) * ss + (tl.gelu ? c : tl.dst + c)] = tl.gelu ? gelu_exact(v) : v;
+        }
+      }
+      if (tl.last_of_group) {
+        __syncthreads();  // the group's q, k, v are whole
+        // QK RMS-norm and RoPE, in place: one thread a (row, head, q|k)
+        for (int task = tid; task < RB * heads_g * 2; task += THREADS) {
+          const int r = task / (heads_g * 2), h = (task / 2) % heads_g, which = task % 2;
+          if (r >= rows) continue;
+          float* v = st_s + r * ss + which * a.group + h * a.dh;
+          const float* scale = which ? a.ks : a.qs;
+          const float* cs = a.cos + (r % a.l) * half;
+          const float* sn = a.sin + (r % a.l) * half;
+          float sq = 0.0f;
+          for (int e = 0; e < a.dh; ++e) sq = fmaf(v[e], v[e], sq);
+          const float rr = rsqrtf(__fadd_rn(__fdiv_rn(sq, static_cast<float>(a.dh)), 1e-6f));
+          for (int p = 0; p < half; ++p) {
+            const float na = __fmul_rn(__fmul_rn(v[2 * p], rr), scale[2 * p]);
+            const float nb = __fmul_rn(__fmul_rn(v[2 * p + 1], rr), scale[2 * p + 1]);
+            v[2 * p] = __fsub_rn(__fmul_rn(cs[p], na), __fmul_rn(sn[p], nb));
+            v[2 * p + 1] = __fadd_rn(__fmul_rn(sn[p], na), __fmul_rn(cs[p], nb));
+          }
+        }
+        __syncthreads();
+        // L x L attention: one thread a (row, head); the output over q
+        for (int task = tid; task < RB * heads_g; task += THREADS) {
+          const int r = task / heads_g, h = task % heads_g;
+          if (r >= rows) continue;
+          const int f0 = r - r % a.l;  // the frame's first row
+          float* q = st_s + r * ss + h * a.dh;
+          float logit[MAXL];
+          float mx = __int_as_float(0xff800000);  // -inf
+          for (int j = 0; j < a.l; ++j) {
+            const float* kj = st_s + (f0 + j) * ss + a.group + h * a.dh;
+            float s = 0.0f;
+            for (int e = 0; e < a.dh; ++e) s = fmaf(q[e], kj[e], s);
+            logit[j] = __fmul_rn(s, a.scale);
+            mx = fmaxf(mx, logit[j]);
+          }
+          float sum = 0.0f;
+          for (int j = 0; j < a.l; ++j) {
+            logit[j] = expf(__fsub_rn(logit[j], mx));
+            sum = __fadd_rn(sum, logit[j]);
+          }
+          for (int j = 0; j < a.l; ++j) logit[j] = __fdiv_rn(logit[j], sum);
+          for (int e = 0; e < a.dh; ++e) {
+            float o = 0.0f;
+            for (int j = 0; j < a.l; ++j)
+              o = fmaf(logit[j], st_s[(f0 + j) * ss + 2 * a.group + h * a.dh + e], o);
+            q[e] = o;  // q[e] is read by this thread alone, and no more
+          }
+        }
+      }
+    } else {
+      // GEMM2: out[rows, columns tx + 16 j] += staging[:, base ..] @ w2 tile
+      const float* src = st_s + tl.base;
+#pragma unroll 2
+      for (int mm = 0; mm < BC; mm += 4) {
+        float4 gv[RPT];
+#pragma unroll
+        for (int r = 0; r < RPT; ++r)
+          gv[r] = *reinterpret_cast<const float4*>(&src[(ty * RPT + r) * ss + mm]);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int o = tx + TX * j;
+          if (o >= a.d) break;
+          const float4 wv = *reinterpret_cast<const float4*>(&wt[o * GS + mm]);
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) acc[r][j] = dot4(gv[r], wv, acc[r][j]);
+        }
+      }
+    }
+    __syncthreads();  // this stage and the staging tile are consumed
+  }
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int row = ty * RPT + r;
+    if (row >= rows) break;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int o = tx + TX * j;
+      if (o < a.d) a.out[(row0 + row) * a.d + o] = __fadd_rn(acc[r][j], a.b2[o]);
+    }
+  }
+}
+
+template <int NJ>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes(a.d, a.group);
+  static cudaError_t attr = lam_set_smem(spatial_f32_kernel<NJ>, 232448);
+  if (attr != cudaSuccess) return attr;
+  const long long blocks = (a.n + a.frames - 1) / a.frames;
+  spatial_f32_kernel<NJ><<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// x: fp32 [N, L, D] contiguous; w1: fp32 [3D + M, D] (row stride w1_s, unit
+// column stride); b1 [3D + M], q/k scales [D / H], cos/sin [L, dh / 2], w2
+// [D, D + M] (row stride w2_s), b2 [D], all fp32 and contiguous where no
+// stride is given; out fp32 [N, L, D]. x, w1, w2 16-byte aligned, w1_s and
+// w2_s multiples of 4; D and M multiples of 16, an even head dim, `group` a
+// multiple of dh and of 4 that divides D (the wrapper's f32_plan), shared
+// memory within 227 KB (D up to 438 at head groups of 128 columns). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
+extern "C" int lam_spatial_block_f32(const void* x, const void* w1, const void* b1,
+                                     const void* qs, const void* ks, const void* w2,
+                                     const void* b2, const void* cos, const void* sin,
+                                     void* out, long long N, int L, int D, int M, int H,
+                                     long long w1_s, long long w2_s, float scale, int group,
+                                     void* stream) {
+  const unsigned long long bits = reinterpret_cast<unsigned long long>(x) |
+                                  reinterpret_cast<unsigned long long>(w1) |
+                                  reinterpret_cast<unsigned long long>(w2) |
+                                  4ull * static_cast<unsigned long long>(w1_s | w2_s);
+  if (N <= 0 || L < 1 || L > MAXL || D <= 0 || D % 16 || D > 16 * 32 || M <= 0 || M % 16 ||
+      H <= 0 || D % H || (D / H) % 2 || group <= 0 || group % (D / H) || group % 4 ||
+      D % group || (bits & 15) || smem_bytes(D, group) > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const float*>(x),   static_cast<const float*>(w1),
+               static_cast<const float*>(b1),  static_cast<const float*>(qs),
+               static_cast<const float*>(ks),  static_cast<const float*>(w2),
+               static_cast<const float*>(b2),  static_cast<const float*>(cos),
+               static_cast<const float*>(sin), static_cast<float*>(out),
+               N,
+               w1_s,
+               w2_s,
+               L,
+               D,
+               M,
+               D / H,
+               group,
+               RB / L,
+               scale};
+  auto st = static_cast<cudaStream_t>(stream);
+  const int nj = (D + 15) / 16;
+  if (nj <= 2) return static_cast<int>(launch<2>(a, st));
+  if (nj <= 8) return static_cast<int>(launch<8>(a, st));
+  if (nj <= 16) return static_cast<int>(launch<16>(a, st));
+  if (nj <= 24) return static_cast<int>(launch<24>(a, st));
+  return static_cast<int>(launch<32>(a, st));
+}

@@ -1,6 +1,7 @@
 """Host-side geometric augmentations (numpy, explicit RNG): the rotations the
-MD17 train set uses, copied from ``lam_slide_tpu/data/augment.py`` (numpy
-port of the reference's src/utils/data_utils.py). The other domains'
+MD17 train set uses and the Haar rotation and centre/rotate/translate of
+the peptide sets, copied from ``lam_slide_tpu/data/augment.py`` (numpy port
+of the reference's src/utils/data_utils.py). The other domains'
 augmentations come with their slices.
 """
 
@@ -41,3 +42,22 @@ def random_rotation_matrices(rng: np.random.Generator, b: int) -> np.ndarray:
 def rotate(points: np.ndarray, rot: np.ndarray) -> np.ndarray:
     """points [..., D] @ R^T (data_utils.py rotate_point_cloud)."""
     return points @ rot.T
+
+
+def uniform_rotation_matrix(rng: np.random.Generator) -> np.ndarray:
+    """Haar-uniform SO(3) rotation via QR (used for SE(3) trajectory aug)."""
+    a = rng.standard_normal((3, 3))
+    q, r = np.linalg.qr(a)
+    q *= np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    return q.astype(np.float32)
+
+
+def centre_random_augmentation(points: np.ndarray, rot: np.ndarray,
+                               translation: np.ndarray) -> np.ndarray:
+    """Center at the mean, rotate, translate (data_utils.py:40-50);
+    points [N, D] or [B, N, D]."""
+    axis = points.ndim - 2
+    center = points.mean(axis=axis, keepdims=True)
+    return (points - center) @ rot.T + translation

@@ -1,6 +1,6 @@
-"""Experiment registry: the MD17 training runs (counterpart of
-``lam_slide_tpu/experiments/registry.py:60-300``; reference
-configs/experiment/md17/{first,second}-stage.yaml).
+"""Experiment registry: the MD17 and the 4AA peptide training runs
+(counterpart of ``lam_slide_tpu/experiments/registry.py:60-300`` and
+``:549-712``; reference configs/experiment/{md17,peptide}/{first,second}-stage.yaml).
 
 Each builder assembles one run with the JAX registry's configs, batch
 sizes, ``TrainerConfig`` values (monitors, val cadence), loaders and loss
@@ -17,10 +17,11 @@ Cross-stage lineage: ``md17_second_stage(first_stage_run=<id>)`` resolves
 the frozen stage 1 through the run registry (run_id -> run_dir ->
 checkpoint; the wandb run-ID lookup of src/utils/utils.py:180-199) and
 loads its EMA weights, matching ``load_ema_weights`` + ``freeze()``
-(second_stage/md17.py:46-51). ``first_stage=<stage-1 ExperimentRun>``
-takes a stage 1 trained in the same process instead (no JAX counterpart).
-With no raw MD17 files under ``data_root`` the datasets are the synthetic
-trajectories of ``data/md17.py``.
+(second_stage/md17.py:46-51); ``peptide_second_stage`` does the same.
+``first_stage=<stage-1 ExperimentRun>`` takes a stage 1 trained in the same
+process instead (no JAX counterpart). With no raw MD17 or 4AA files under
+``data_root`` the datasets are the synthetic trajectories of
+``data/md17.py`` and ``data/peptide.py``.
 """
 
 import dataclasses
@@ -40,10 +41,19 @@ from lam_slide_tpu_torch.composites.md17 import (
     build_md17_second_stage,
     make_md17_first_stage_loss,
 )
+from lam_slide_tpu_torch.composites.peptide import (
+    PeptideFirstStageConfig,
+    PeptideSecondStageConfig,
+    build_peptide_first_stage,
+    build_peptide_second_stage,
+    make_peptide_first_stage_loss,
+    make_peptide_second_stage_loss,
+)
 from lam_slide_tpu_torch.composites.testing import make_protocol_val_hook
 from lam_slide_tpu_torch.data.collate import pad_collate, pad_collate_temporal
 from lam_slide_tpu_torch.data.loader import Loader
 from lam_slide_tpu_torch.data.md17 import MD17Dataset
+from lam_slide_tpu_torch.data.peptide import PeptideDataset
 from lam_slide_tpu_torch.train.checkpoint import resolve_run
 from lam_slide_tpu_torch.train.trainer import TrainerConfig, make_optimizer
 
@@ -276,9 +286,170 @@ def md17_second_stage(smoke: bool = False, data_root: Optional[str] = None,
                                "first_stage_run": first_stage_run})
 
 
+# ---------------------------------------------------------------------------
+# Peptide
+# ---------------------------------------------------------------------------
+
+
+def _pep_collate(samples):
+    out = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+    out["attention_mask"] = np.ones(out["aatype"].shape, dtype=bool)
+    return out
+
+
+_FRAME_HOLDOUT_REAL = ("frame_holdout is the synthetic-data validation protocol; real data "
+                       "(data_root) uses the sequence-disjoint reference splits")
+
+
+def _smoke_peptide_first_stage_config(scale: float = 1.0) -> PeptideFirstStageConfig:
+    return PeptideFirstStageConfig(dim_input=32, dim_latent=16, dim_entity=32, num_latents=2,
+                                   num_split=4, dim_head_cross=8, dim_head_latent=8,
+                                   scale=scale)
+
+
+def _pep_dir(data_root: Optional[str], split: str) -> Optional[str]:
+    return None if data_root is None else f"{data_root}/{split}"
+
+
+def peptide_first_stage(smoke: bool = False, data_root: Optional[str] = None,
+                        workspace: str = "runs", seed: int = 0,
+                        synthetic_peptides: Optional[int] = None,
+                        synthetic_frames: Optional[int] = None, repeats: int = 1,
+                        batch_size: Optional[int] = None, frame_holdout: float = 0.0,
+                        synthetic_version: int = 1, scale: float = 1.0, device="cuda",
+                        **_) -> ExperimentRun:
+    """4AA stage 1 (registry.py:555-627): fp32, B=512 single frames, AdamW
+    lr 1e-3 over 50,000 epochs, ``pos_loss`` monitored on val every 500
+    epochs. ``frame_holdout`` > 0 (synthetic only) validates on the last
+    fraction of the training sequences' frames instead of the disjoint
+    ``valsynth`` sequences. ``scale`` divides the coordinates (the reference
+    hparam; the default 1.0 is JAX's, ROADMAP Queue 1 item 3)."""
+    if frame_holdout and data_root is not None:
+        raise ValueError(_FRAME_HOLDOUT_REAL)
+    scale = float(scale)
+    cfg = (PeptideFirstStageConfig(scale=scale) if not smoke
+           else _smoke_peptide_first_stage_config(scale))
+    model = build_peptide_first_stage(cfg, device=device,
+                                      generator=torch.Generator().manual_seed(seed))
+    kw = dict(num_entities=cfg.num_entities, n_timesteps=100, scale=scale,
+              synthetic_peptides=synthetic_peptides or (4 if smoke else 8),
+              synthetic_frames=synthetic_frames or (120 if smoke else 1200),
+              repeats=repeats, synthetic_version=synthetic_version)
+    if frame_holdout:
+        kw["frame_split"] = (0.0, 1.0 - frame_holdout)
+    train = PeptideDataset(data_dir=_pep_dir(data_root, "train"), first_stage=True,
+                           rand_rotation=True, **kw)
+    val_kw = dict(kw, repeats=1)
+    if frame_holdout:
+        val_kw["frame_split"] = (1.0 - frame_holdout, 1.0)
+        val_kw["synthetic_prefix"] = "synth"  # same sequences, held-out frames
+    else:
+        val_kw["synthetic_prefix"] = "valsynth"
+    val = PeptideDataset(data_dir=_pep_dir(data_root, "val"), first_stage=True, **val_kw)
+    bs = batch_size or (4 if smoke else 512)
+    train_loader = Loader(train, bs, _pep_collate, seed=seed, drop_last=False)
+    val_loaders = {"val": _eval_loader(val, bs, _pep_collate, seed)}
+    trainer_cfg = TrainerConfig(max_epochs=2 if smoke else 50_000, lr=1e-3, monitor="pos_loss",
+                                val_every_n_epochs=1 if smoke else 500, seed=seed)
+    tx, _ = make_optimizer(trainer_cfg, len(train_loader))
+    return ExperimentRun(name="peptide_first_stage", config=cfg, trainer_cfg=trainer_cfg,
+                         model=model, loss_fn=make_peptide_first_stage_loss(cfg), tx=tx,
+                         train_loader=train_loader, val_loaders=val_loaders,
+                         meta={"config": dataclasses.asdict(cfg), "stage": 1,
+                               "domain": "peptide"})
+
+
+def peptide_second_stage(smoke: bool = False, data_root: Optional[str] = None,
+                         workspace: str = "runs", seed: int = 0,
+                         first_stage_run: Optional[str] = None, dit_dtype=None,
+                         synthetic_peptides: Optional[int] = None,
+                         synthetic_frames: Optional[int] = None, repeats: int = 1,
+                         batch_size: Optional[int] = None, n_timesteps: Optional[int] = None,
+                         frame_holdout: float = 0.0, num_heads: Optional[int] = None,
+                         synthetic_version: int = 1,
+                         first_stage: Optional[ExperimentRun] = None, device="cuda",
+                         **_) -> ExperimentRun:
+    """4AA stage 2 (registry.py:630-712) on a frozen stage 1 (from the run
+    registry, from a stage-1 run of this process, or freshly drawn in smoke
+    runs): the bf16 DiT (fp32 in smoke runs; ``dit_dtype`` overrides) of
+    depth 7, hidden 384, 16 heads (``num_heads``), T = 1000 windows
+    (``n_timesteps``), B=16 (``batch_size``), AdamW lr 1e-3 over 1500 epochs,
+    grad clip 0.5, the SI loss plus the decoded geometry aux losses,
+    ``si_loss`` monitored on val every 10 epochs; the ``testsynth`` test
+    loaders and the fp32 ``test_model`` that ``analysis.eval_cli`` samples
+    ("fp32 sampling of the bf16-trained model", configs/eval_peptide.yaml)."""
+    if frame_holdout and data_root is not None:
+        raise ValueError(_FRAME_HOLDOUT_REAL)
+    n_t = n_timesteps or (16 if smoke else 1000)
+    if first_stage_run is not None:
+        fs_state, fs_cfg_dict = load_first_stage_variables(workspace, first_stage_run)
+        fs_cfg = PeptideFirstStageConfig(**{
+            k: v for k, v in fs_cfg_dict.get("config", fs_cfg_dict).items()
+            if k in PeptideFirstStageConfig.__dataclass_fields__})
+        fs_model = build_peptide_first_stage(fs_cfg, device=device)
+        fs_model.load_state_dict(fs_state)
+    elif first_stage is not None:
+        fs_model, fs_cfg = first_stage.model, first_stage.config
+    elif smoke:
+        fs_cfg = _smoke_peptide_first_stage_config()
+        fs_model = build_peptide_first_stage(fs_cfg, device=device,
+                                             generator=torch.Generator().manual_seed(seed))
+    else:
+        raise ValueError("peptide_second_stage requires first_stage_run (see run registry)")
+
+    # the datasets inherit the stage-1 lineage's coordinate normalization
+    kw = dict(num_entities=fs_cfg.num_entities, n_timesteps=n_t, first_stage=False,
+              scale=fs_cfg.scale, shift=fs_cfg.shift,
+              synthetic_peptides=synthetic_peptides or (2 if smoke else 8),
+              synthetic_frames=synthetic_frames or (60 if smoke else 2000),
+              repeats=repeats, synthetic_version=synthetic_version)
+    tr_kw, val_kw = dict(kw), dict(kw, repeats=1)
+    if frame_holdout:  # same sequences, temporally held-out windows
+        tr_kw["frame_split"] = (0.0, 1.0 - frame_holdout)
+        val_kw["frame_split"] = (1.0 - frame_holdout, 1.0)
+        val_kw["synthetic_prefix"] = "synth"
+    else:
+        val_kw["synthetic_prefix"] = "valsynth"
+    train = PeptideDataset(data_dir=_pep_dir(data_root, "train"), rand_rotation=True, **tr_kw)
+    val = PeptideDataset(data_dir=_pep_dir(data_root, "val"), **val_kw)
+    bs = batch_size or (2 if smoke else 16)
+    train_loader = Loader(train, bs, _pep_collate, seed=seed, drop_last=False)
+    val_loaders = {"val": _eval_loader(val, bs, _pep_collate, seed)}
+
+    heads = {"num_heads": num_heads} if num_heads else {}
+    cfg = (PeptideSecondStageConfig(in_dim=fs_cfg.dim_latent, num_timesteps=n_t,
+                                    scan_layers=True, **heads)
+           if not smoke else
+           PeptideSecondStageConfig(in_dim=fs_cfg.dim_latent, depth=2, hidden_size=32,
+                                    num_heads=num_heads or 4, num_timesteps=n_t))
+    # bf16-mixed stage 2 by default; dit_dtype overrides (sweeps, tests)
+    dtype = _dtype(dit_dtype) or (torch.float32 if smoke else torch.bfloat16)
+    ss = build_peptide_second_stage(cfg, fs_model, dtype=dtype, device=device,
+                                    generator=torch.Generator().manual_seed(seed + 1))
+    # the fp32 rebuild: eval_cli's "fp32 sampling of the bf16-trained model"
+    ss_test = build_peptide_second_stage(cfg, fs_model, dtype=torch.float32, device=device,
+                                         generator=torch.Generator().manual_seed(seed + 1))
+    # grad clip 0.5 for peptide stage 2 (configs/experiment/peptide/second-stage.yaml:37)
+    trainer_cfg = TrainerConfig(max_epochs=2 if smoke else 1500, lr=1e-3, monitor="si_loss",
+                                grad_clip=0.5, val_every_n_epochs=1 if smoke else 10,
+                                seed=seed)
+    tx, _ = make_optimizer(trainer_cfg, len(train_loader))
+    test = PeptideDataset(data_dir=_pep_dir(data_root, "test"), synthetic_prefix="testsynth",
+                          **dict(kw, repeats=1))
+    test_loaders = {"test": _eval_loader(test, bs, _pep_collate, seed)}
+    return ExperimentRun(name="peptide_second_stage", config=cfg, trainer_cfg=trainer_cfg,
+                         model=ss.backbone, loss_fn=make_peptide_second_stage_loss(ss, cfg),
+                         tx=tx, train_loader=train_loader, val_loaders=val_loaders,
+                         second_stage=ss, test_loaders=test_loaders, test_model=ss_test,
+                         meta={"config": dataclasses.asdict(cfg), "stage": 2,
+                               "domain": "peptide", "first_stage_run": first_stage_run})
+
+
 EXPERIMENTS = {
     "md17_first_stage": md17_first_stage,
     "md17_second_stage": md17_second_stage,
+    "peptide_first_stage": peptide_first_stage,
+    "peptide_second_stage": peptide_second_stage,
 }
 # the JAX registry's other experiments, and the ROADMAP item that ports them
 UNPORTED = {
@@ -286,8 +457,6 @@ UNPORTED = {
     "pedestrian_second_stage": "Queue 1 item 5 (pedestrian and NBA)",
     "nba_first_stage": "Queue 1 item 5 (pedestrian and NBA)",
     "nba_second_stage": "Queue 1 item 5 (pedestrian and NBA)",
-    "peptide_first_stage": "Queue 1 item 3 (peptide)",
-    "peptide_second_stage": "Queue 1 item 3 (peptide)",
 }
 
 

@@ -7,8 +7,9 @@ latents (``output_block``); one MLP head per named output. The frozen
 entity table the backbone shares with the encoder sits in
 ``entity_embedding``, so the state_dict keys are the reference's
 (``query_mlp.1``, ``self_attn_blocks.{i}``, ``cross_attn_blocks.{i}``,
-``output_block``, ``output_layers.<name>.{0,2}``, ``entity_embedding.*``).
-``DecoderQuerySplitter`` waits for the peptide slice. In train mode
+``output_block``, ``output_layers.<name>.{0,2}``, ``entity_embedding.*``;
+``DecoderQuerySplitter`` adds ``extender.1``, the reference's Conv1d). In
+train mode
 (``deterministic=False``) ``dropout_query`` (0.1 in MD17) and
 ``dropout_latent`` (0) draw from the caller's generator (decoder.py:51-69);
 in eval nothing is dropped.
@@ -141,3 +142,38 @@ class Decoder2(_DecoderCore):
                    + self.query.to(self.dtype))
         latent = self.trunk(latent, queries, deterministic, generator)
         return self.heads(self.output_block(queries, latent))
+
+
+class DecoderQuerySplitter(_DecoderCore):
+    """Decoder that widens the latent set L -> L * num_split before the
+    output cross-attention (reference decoder.py:313-411; the peptide
+    decoder).
+
+    ``extender.1`` is the reference's ``Conv1d(D, D * num_split, 1)`` (weight
+    ``[D * num_split, D, 1]``), applied as one dense layer in the compute
+    dtype; its output channel ``(d, n)`` is d-major, the reference's
+    ``B (D N) L -> B (L N) D``, so token ``l * num_split + n`` takes channels
+    ``d * num_split + n``.
+    """
+
+    def __init__(self, outputs: Mapping[str, int], dim_latent: int, dim_entity: int,
+                 dim_query: int, num_split: int = 8, **kwargs):
+        super().__init__(outputs, dim_latent, dim_entity, dim_query, **kwargs)
+        self.num_split = num_split
+        conv = nn.utils.skip_init(nn.Conv1d, dim_latent, dim_latent * num_split, 1)
+        with torch.no_grad():
+            conv.weight.copy_(inits.torch_linear_init_(
+                torch.empty(dim_latent * num_split, dim_latent), self._cross["gen"])[..., None])
+            conv.bias.zero_()
+        self.extender = nn.Sequential(nn.Identity(), conv)
+
+    def forward(self, latent: torch.Tensor, entity_emb: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        queries = self.queries_from(entity_emb, deterministic, generator)
+        latent = self.trunk(latent, queries, deterministic, generator)
+        b, l, d = latent.shape
+        conv = self.extender[1]
+        ext = (torch.matmul(latent.to(self.dtype), conv.weight[..., 0].to(self.dtype).t())
+               + conv.bias.to(self.dtype))
+        ext = ext.reshape(b, l, d, self.num_split).transpose(2, 3).reshape(b, l * self.num_split, d)
+        return self.heads(self.output_block(queries, ext))

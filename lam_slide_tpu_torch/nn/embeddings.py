@@ -1,6 +1,7 @@
 """Embeddings (counterpart of ``lam_slide_tpu/nn/embeddings.py``).
 
-Ported: the timestep embedding, ``PointEmbed``, ``Embed`` with its max_norm
+Ported: the timestep embedding, the 1D sin-cos position table and its
+``SinCosPositionalEmbedding1D``, ``PointEmbed``, ``Embed`` with its max_norm
 row clamp and the frozen orthogonal ``EntityEmbedding``. Attribute names
 follow the reference's state_dict keys.
 """
@@ -8,6 +9,7 @@ follow the reference's state_dict keys.
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -30,6 +32,30 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10_000.0,
     if dim % 2:
         emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
     return emb
+
+
+def sincos_position_table(n_positions: int, embed_dim: int) -> np.ndarray:
+    """1D sin-cos position table (reference embeddings.py:6-26): [sin | cos]."""
+    assert embed_dim % 2 == 0
+    omega = np.arange(embed_dim // 2, dtype=np.float64) / (embed_dim / 2.0)
+    omega = 1.0 / 10_000**omega
+    pos = np.arange(n_positions, dtype=np.float64)
+    out = np.einsum("m,d->md", pos, omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1).astype(np.float32)
+
+
+class SinCosPositionalEmbedding1D(nn.Module):
+    """Adds the fixed sin-cos table to x[:, :S] (embeddings.py:41-47). The
+    table is the reference's persistent buffer ``embeddings``, so its
+    state_dict key is ``<name>.embeddings``; nothing trains it."""
+
+    def __init__(self, n_positions: int, embed_dim: int):
+        super().__init__()
+        self.register_buffer("embeddings",
+                             torch.from_numpy(sincos_position_table(n_positions, embed_dim)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.embeddings[:x.shape[-2]][None].to(x.dtype)
 
 
 class PointEmbed(nn.Module):

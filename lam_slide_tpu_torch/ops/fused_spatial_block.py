@@ -21,7 +21,16 @@ picks one from the widths alone:
   tiny test registries' hidden 16 and 32 at dh 4 to 8): the whole
   ``[32 rows, 3D+M]`` linear1 output of a block in shared memory.
 Neither is a fallback for the other: a CUDA tensor launches the plan's
-route or raises.
+route or raises. Those two take bf16; an all-fp32 call (the 4AA eval's fp32
+DiT) launches the third kernel,
+- ``lam_spatial_block_f32`` (``csrc/fused_spatial_block_f32.cu``), a tiled
+  FFMA kernel: linear2's K dimension walked head group by head group
+  (linear1's q, k, v of the group into a staging tile, norm, RoPE, L×L
+  attention, then its linear2 contribution) and 32 MLP columns at a time,
+  the weights streamed through a two-stage cp.async ring, the output in
+  registers; its geometry from ``f32_plan``, and where that has none it
+  raises naming the limit. Its forward only: an fp32 call that needs a
+  gradient raises (the fp32 backward is not ported, as with K9's).
 
 Weights are in torch ``nn.Linear`` layout: ``w1 [3D+M, D]``, ``w2 [D, D+M]``.
 
@@ -31,8 +40,8 @@ on the saved inputs (``_fused_bwd``, fused_spatial_block.py:225-230); no
 backward kernel.
 
 Counters (plain integers, touched only where a kernel launches):
-``launches`` counts K8 launches of both routes, ``wmma_launches`` those on
-the WMMA route.
+``launches`` counts K8 launches of every route, ``wmma_launches`` those on
+the WMMA route, ``f32_launches`` those of the fp32 kernel.
 """
 
 from typing import NamedTuple, Optional
@@ -51,6 +60,7 @@ from lam_slide_tpu_torch.ops.packed_attention import (
 
 launches = 0
 wmma_launches = 0
+f32_launches = 0
 
 # The Hopper kernel's geometry (csrc/fused_spatial_block_sm90.cu).
 SM90_ROWS = 64  # rows a tile, of which whole frames are used
@@ -104,6 +114,54 @@ def sm90_plan(n: int, l: int, d: int, m: int, n_heads: int) -> Optional[Sm90Plan
     return None
 
 
+# The fp32 kernel's geometry (csrc/fused_spatial_block_f32.cu).
+F32_TILE = 32  # columns of a weight tile
+F32_ROWS = 32  # rows a block, of which 32 // l * l are whole frames
+F32_MAX_GROUP = 128  # columns of a head group, unless one head is wider
+
+
+class F32Plan(NamedTuple):
+    group: int  # columns of a head group: whole heads, a multiple of 4 that divides D
+    smem: int  # shared memory of a block, bytes
+
+
+def f32_smem_bytes(d: int, group: int) -> int:
+    """Shared memory of an fp32 K8 block (``smem_bytes`` in
+    csrc/fused_spatial_block_f32.cu): the x tile ``[32][d + 4]``, the
+    staging tile ``[32][3 group + 4]`` and two ring stages, each a w1 tile
+    ``[32][d + 4]`` or a w2 tile ``[d][36]``, whichever is larger; fp32."""
+    stage = max(F32_TILE * (d + 4), d * (F32_TILE + 4))
+    return 4 * (F32_ROWS * (d + 4) + F32_ROWS * (3 * group + 4) + 2 * stage)
+
+
+def f32_group(d: int, n_heads: int) -> Optional[int]:
+    """The fp32 kernel's head group: the most whole heads whose columns are at
+    most F32_MAX_GROUP (one head if a head is wider), a multiple of 4 that
+    divides D; None where no group qualifies."""
+    if n_heads <= 0 or d % n_heads:
+        return None
+    dh = d // n_heads
+    if dh > F32_MAX_GROUP:
+        return dh if dh % 4 == 0 else None
+    fits = [hg * dh for hg in range(1, n_heads + 1)
+            if n_heads % hg == 0 and hg * dh <= F32_MAX_GROUP and (hg * dh) % 4 == 0]
+    return max(fits, default=None)
+
+
+def f32_plan(n: int, l: int, d: int, m: int, n_heads: int) -> Optional[F32Plan]:
+    """The fp32 kernel's geometry for x ``[n, l, d]``, mlp width m and
+    n_heads heads, or None where it has none: D and M multiples of 16, an
+    even head dim with a head group (``f32_group``), and shared memory
+    within SMEM_MAX (D up to 438 at head groups of 128 columns)."""
+    if (n <= 0 or not 1 <= l <= 8 or d % 16 or m <= 0 or m % 16 or n_heads <= 0
+            or d % n_heads or (d // n_heads) % 2 or n * l >= 2 ** 31):
+        return None
+    group = f32_group(d, n_heads)
+    if group is None or f32_smem_bytes(d, group) > SMEM_MAX:
+        return None
+    return F32Plan(group, f32_smem_bytes(d, group))
+
+
 def reference_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                             q_scale: torch.Tensor, k_scale: torch.Tensor,
                             w2: torch.Tensor, b2: torch.Tensor, cos: torch.Tensor,
@@ -130,9 +188,11 @@ def reference_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 def _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads) -> None:
-    for name, t, dtype in (("x", x, torch.bfloat16), ("w1", w1, torch.bfloat16),
-                           ("b1", b1, torch.bfloat16), ("w2", w2, torch.bfloat16),
-                           ("b2", b2, torch.bfloat16), ("q_scale", q_scale, torch.float32),
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_spatial_block: x must be bfloat16 or float32, got {x.dtype}")
+    for name, t, dtype in (("x", x, x.dtype), ("w1", w1, x.dtype), ("b1", b1, x.dtype),
+                           ("w2", w2, x.dtype), ("b2", b2, x.dtype),
+                           ("q_scale", q_scale, torch.float32),
                            ("k_scale", k_scale, torch.float32), ("cos", cos, torch.float32),
                            ("sin", sin, torch.float32)):
         if not t.is_cuda or t.device != x.device or t.dtype != dtype:
@@ -142,7 +202,7 @@ def _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads) -> None:
             raise ValueError(f"fused_spatial_block: {name} must be contiguous")
     if x.dim() != 3 or not 1 <= x.shape[1] <= 8:
         raise ValueError(f"fused_spatial_block: x must be [N, L <= 8, D], got {tuple(x.shape)}")
-    _, l, d = x.shape
+    n, l, d = x.shape
     width = w1.shape[0]
     dh = d // n_heads if d % n_heads == 0 else 0
     if d % 16 or (width - 3 * d) % 16 or width <= 3 * d or dh % 2 or dh == 0:
@@ -153,11 +213,20 @@ def _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads) -> None:
             or b2.shape != (d,) or q_scale.shape != (dh,) or k_scale.shape != (dh,)
             or cos.shape != (l, dh // 2) or sin.shape != (l, dh // 2)):
         raise ValueError("fused_spatial_block: parameter shapes do not match x and the heads")
+    fp32 = x.dtype == torch.float32
+    if fp32 and f32_plan(n, l, d, m, n_heads) is None:
+        group = f32_group(d, n_heads)
+        smem = None if group is None else f32_smem_bytes(d, group)
+        raise ValueError(f"fused_spatial_block: the fp32 kernel takes a head group of whole "
+                         f"heads that is a multiple of 4 and shared memory <= {SMEM_MAX} bytes, "
+                         f"got D={d}, {n_heads} heads: head group {group}, {smem} bytes")
     for name, w in (("w1", w1), ("w2", w2)):
-        if w.stride(1) != 1 or w.stride(0) % 8 or w.data_ptr() % 32:
+        if w.stride(1) != 1 or w.stride(0) % (4 if fp32 else 8) or w.data_ptr() % (16 if fp32
+                                                                                    else 32):
             raise ValueError(f"fused_spatial_block: {name} must be in nn.Linear layout "
-                             f"(unit column stride, row stride % 8 == 0, 32-byte aligned), "
-                             f"got strides {w.stride()}")
+                             f"(unit column stride, row stride % 8 == 0 and 32-byte aligned in "
+                             f"bf16, % 4 and 16-byte aligned in fp32), got strides "
+                             f"{w.stride()}")
 
 
 def fused_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -166,15 +235,19 @@ def fused_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                         sin: torch.Tensor, n_heads: int, scale: float) -> torch.Tensor:
     """The spatial block over x ``[N, L, D]`` -> ``[N, L, D]``.
 
-    CPU tensors take ``reference_spatial_block``. CUDA tensors launch the
-    kernel on the route of ``sm90_plan`` (bf16 x and weights, fp32 norm
-    scales and ``[L, dh/2]`` tables) or raise, through ``_SpatialBlock`` when
-    they need a gradient.
+    CPU tensors take ``reference_spatial_block``. CUDA tensors launch a
+    kernel or raise: bf16 x and weights the route of ``sm90_plan``, through
+    ``_SpatialBlock`` when they need a gradient; fp32 x and weights the fp32
+    kernel (forward only: an fp32 call that needs a gradient raises). The
+    norm scales and the ``[L, dh/2]`` tables are fp32 in both.
     """
     args = (x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale)
     if x.device.type == "cpu":
         return reference_spatial_block(*args)
     if needs_grad(*args):
+        if x.dtype == torch.float32:
+            raise ValueError("fused_spatial_block: the fp32 kernel is forward only; its "
+                             "backward is not ported (ROADMAP.md Queue 2)")
         return _SpatialBlock.apply(*args)
     return _launch(*args)
 
@@ -202,17 +275,23 @@ def _launch(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale) -> to
     _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads)
     n, l, d = x.shape
     m = w1.shape[0] - 3 * d
-    plan = sm90_plan(n, l, d, m, n_heads)
-    if plan is not None and x.data_ptr() % 16:
-        raise ValueError("fused_spatial_block: x must be 16-byte aligned for the Hopper kernel")
+    fp32 = x.dtype == torch.float32
+    plan = None if fp32 else sm90_plan(n, l, d, m, n_heads)
+    if (plan is not None or fp32) and x.data_ptr() % 16:
+        raise ValueError("fused_spatial_block: x must be 16-byte aligned for the Hopper and "
+                         "fp32 kernels")
     out = torch.empty_like(x)
     ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr())
     dims = (n, l, d, m, n_heads, w1.stride(0), w2.stride(0), float(scale))
-    global launches, wmma_launches
+    global launches, wmma_launches, f32_launches
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if plan is None:
+        if fp32:
+            f32 = f32_plan(n, l, d, m, n_heads)
+            _build.launch("lam_spatial_block_f32", *ptrs, *dims, f32.group, stream)
+            f32_launches += 1
+        elif plan is None:
             _build.launch("lam_spatial_block_wmma", *ptrs, *dims, stream)
             wmma_launches += 1
         else:

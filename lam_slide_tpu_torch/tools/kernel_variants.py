@@ -1,5 +1,5 @@
-"""Time ablated copies of K2, K7, K8, K9 (forward and backward) and K11 on
-the card, and the pieces of K5 and K6: what holds each back.
+"""Time ablated copies of K2, K7, K8, K8-fp32, K9 (forward and backward) and
+K11 on the card, and the pieces of K5 and K6: what holds each back.
 
 Each variant is a copy of the kernel's source with one piece of its work
 taken out by a text substitution, built alone with nvcc (beside
@@ -12,7 +12,10 @@ head-major views [1920, 16, 192, 16] with K1's out and lse; K8's Hopper
 route at the 4AA Euler-10 B=8 shape [8000, 2, 384] at 16 x 24 and 3 x 128
 (without the QK norm, RoPE and attention, without any epilogue, without
 either GEMM's products, with each weight stage loaded once and then
-reused) and K7 with
+reused); K8's fp32 kernel at [8000, 2, 384] and [2000, 2, 384] at 16 x 24
+and at [8000, 2, 384] at 3 x 128 (without most of either GEMM's FMAs,
+without the norm, RoPE and attention, with the first two weight tiles
+loaded and then reused, without the barrier that ends a tile) and K7 with
 the residual at the MD17 protocol batch's [320, 30, 192, 256] and the 4AA
 [8, 1000, 2, 384] (rows walked in h's order instead of x's, one row a warp
 instead of two, without h's loads, without stores). A variant's
@@ -32,7 +35,7 @@ the profiler too. Each line names the card and its power limit. Run from
 a tree's root:
 
     PYTHONPATH=. python lam_slide_tpu_torch/tools/kernel_variants.py \
-        [K2 K9-forward K11 K9-backward K5-K6 K8 K7]
+        [K2 K9-forward K11 K9-backward K5-K6 K8 K8-fp32 K7]
 """
 
 import argparse
@@ -94,6 +97,23 @@ K8_EPILOGUES = [("        bias_epilogue<SW>(s, a,", "        if (a.R < 0) bias_e
                 ("        gelu_epilogue<SW>(s, a,", "        if (a.R < 0) gelu_epilogue<SW>(s, a,")]
 K8_ATTENTION = [("      attention<SB, DH>(a, sm.stg);", "      if (a.R < 0) attention<SB, DH>(a, sm.stg);"),
                 ("      normrope<SB, DH>(a, sm.stg);", "      if (a.R < 0) normrope<SB, DH>(a, sm.stg);")]
+K8_F32_VARIANTS = {
+    "kernel": [],
+    "GEMM1 a quarter of its FMAs": [
+        ("          mid[r][0] = dot4(xv[r], w0, mid[r][0]);\n"
+         "          mid[r][1] = dot4(xv[r], w1, mid[r][1]);",
+         "          mid[r][0] = fmaf(xv[r].x, w0.x, mid[r][0]);\n"
+         "          mid[r][1] = fmaf(xv[r].y, w1.y, mid[r][1]);")],
+    "GEMM2 a quarter of its FMAs": [
+        ("for (int r = 0; r < RPT; ++r) acc[r][j] = dot4(gv[r], wv, acc[r][j]);",
+         "for (int r = 0; r < RPT; ++r) acc[r][j] = fmaf(gv[r].x, wv.x, acc[r][j]);")],
+    "no norm, RoPE, attention": [("      if (tl.last_of_group) {",
+                                  "      if (tl.last_of_group && a.n < 0) {")],
+    "weights loaded once": [("      load_tile(t + 1, (t + 1) % 2);  // its stage was freed",
+                             "      if (t < 1) load_tile(t + 1, (t + 1) % 2);  // its stage was freed")],
+    "no end-of-tile barrier": [("    __syncthreads();  // this stage and the staging tile are consumed\n",
+                                "")],
+}
 K8_VARIANTS = {
     "kernel": [],
     "no norm, RoPE, attention": K8_ATTENTION,
@@ -241,6 +261,29 @@ def _k8(gen, dev, stream, smi) -> None:
         print(f"K8 [{n},{l},{d}] {heads}x{dh} kernel (device): {device:.4f} ms | {smi}", flush=True)
 
 
+def _k8_f32(gen, dev, stream, smi) -> None:
+    """K8's fp32 kernel at the 4AA eval's shapes (B=8 and B=2) at 16 x 24 and
+    at B=8 at 3 x 128, fp32 x and nn.Linear weights."""
+    k8 = _build_variants("fused_spatial_block_f32.cu", "lam_spatial_block_f32", K8_F32_VARIANTS)
+    d, m, l = 384, 768, 2
+    w1 = (torch.randn(3 * d + m, d, generator=gen) * d ** -0.5).to(dev)
+    b1 = (torch.randn(3 * d + m, generator=gen) * 0.1).to(dev)
+    w2 = (torch.randn(d, d + m, generator=gen) * (d + m) ** -0.5).to(dev)
+    b2 = (torch.randn(d, generator=gen) * 0.1).to(dev)
+    for n, heads in ((8000, 16), (2000, 16), (8000, 3)):
+        dh = d // heads
+        x = torch.randn(n, l, d, generator=gen).to(dev)
+        out = torch.empty_like(x)
+        qs, ks = ((1 + 0.2 * torch.randn(dh, generator=gen)).to(dev) for _ in range(2))
+        cos, sin = rope_cos_sin(l, dh, device=dev)
+        args = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+                w2.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+                n, l, d, m, heads, w1.stride(0), w2.stride(0), dh ** -0.5,
+                fsb.f32_plan(n, l, d, m, heads).group, stream)
+        _in_turns(f"K8-fp32 [{n},{l},{d}] {heads}x{dh}",
+                  {name: _checked(fn, args) for name, fn in k8.items()}, smi)
+
+
 def _k7(gen, dev, stream, smi) -> None:
     """K7 with the residual at the MD17 protocol batch's [320, 30, 192, 256]
     and the 4AA B=8 solve's [8, 1000, 2, 384], h the transposed temporal
@@ -345,7 +388,7 @@ def _k5_k6(gen, dev, stream, smi) -> None:
 
 
 KERNELS = {"K2": _k2, "K9-forward": _k9_forward, "K11": _k11, "K9-backward": _k9_backward,
-           "K5-K6": _k5_k6, "K8": _k8, "K7": _k7}
+           "K5-K6": _k5_k6, "K8": _k8, "K8-fp32": _k8_f32, "K7": _k7}
 
 
 def main() -> int:

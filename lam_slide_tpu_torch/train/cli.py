@@ -4,13 +4,18 @@ reference's src/train.py).
     python -m lam_slide_tpu_torch.train.cli --experiment md17_first_stage --smoke
     python -m lam_slide_tpu_torch.train.cli --experiment md17_second_stage \\
         --first-stage-run <run_id> --workspace runs --data-root data/md17 --test
+    python -m lam_slide_tpu_torch.train.cli --experiment peptide_first_stage --run-id p1
+    python -m lam_slide_tpu_torch.train.cli --experiment peptide_second_stage \\
+        --first-stage-run p1 --run-id p2
+    python -m lam_slide_tpu_torch.analysis.eval_cli --run p2
 
 Runs go under <workspace>/<run_id>/ with metrics.jsonl and
 checkpoints/{best,last}.pt; every run is recorded in the workspace's run
 registry, so a stage-2 experiment resolves its frozen stage 1 by
 --first-stage-run (replacing the reference's wandb lineage). ``--test``
 runs the domain test protocol after training, ``--test-only`` on a
-finished run's checkpoint. Everything runs on one CUDA card (``--device``
+finished run's checkpoint (md17; a peptide stage-2 run prints the pointer
+to ``analysis.eval_cli``, the 4AA eval pipeline). Everything runs on one CUDA card (``--device``
 picks another device, such as ``cpu``); the multi-device flags wait for
 the port's ``parallel/``.
 """
@@ -196,7 +201,9 @@ def main(argv=None):
 
 def _run_test_protocol(args, exp, params, fs_state, run_dir, molecule):
     """The domain test protocol on restored or trained weights (stage 2
-    only): mean-K ADE/FDE for md17 (second_stage/md17.py:139-171).
+    only): mean-K ADE/FDE for md17 (second_stage/md17.py:139-171); for the
+    peptide domain only a pointer to ``analysis.eval_cli``, and no metrics
+    (lam_slide_tpu/train/cli.py:315-316).
 
     Reference precision and data semantics (src/train.py:100-118): the test
     pass runs with precision="32-true" on the held-out test split, here the
@@ -211,6 +218,10 @@ def _run_test_protocol(args, exp, params, fs_state, run_dir, molecule):
 
     if exp.meta.get("stage") != 2:
         print("test protocols are defined for stage-2 experiments only")
+        return
+    if exp.meta.get("domain") == "peptide":
+        print(f"use python -m lam_slide_tpu_torch.analysis.eval_cli --run "
+              f"{os.path.basename(os.path.normpath(run_dir))} for the peptide eval pipeline")
         return
     model = exp.test_model if exp.test_model is not None else exp.second_stage
     loaders = exp.test_loaders if exp.test_loaders is not None else exp.val_loaders

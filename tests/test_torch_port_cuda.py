@@ -1303,3 +1303,105 @@ def test_short_attention_fp32_refusals(dev):
         tsa.short_attention(q.clone().requires_grad_(), q, q, 4)
     with pytest.raises(ValueError):
         tsa.short_attention_backward(q, q, q, q, 4, 0.25)
+
+
+# ---- K8's fp32 kernel (the 4AA eval's fp32 DiT) ----------------------------
+
+# K8-fp32 against its plain version with TF32 off, relative to max |out|:
+# exact fp32 on both sides up to the order of the sums (linear1 over D
+# terms, linear2 over D + M) and erff / expf against PyTorch's erf / exp.
+F32_REL_TOL["K8"] = 1e-5
+# the fp32 DiT forward through the kernels against the plain path (TF32
+# off): seven fp32 kernels' sums in another order through two layers
+F32_MODEL_REL_TOL = 1e-4
+
+
+def _spatial_inputs_f32(g, dev, n, l, d, m, heads):
+    args = list(_spatial_inputs(g, dev, n, l, d, m, heads))
+    for i in (0, 1, 2, 5, 6):
+        args[i] = args[i].float()
+    return args
+
+
+@pytest.mark.parametrize("n,l,d,m,heads", [
+    (8000, 2, 384, 768, 16),  # the 4AA eval at B=8, 16 x 24
+    (8000, 2, 384, 768, 3),   # 3 x 128
+    (2000, 2, 384, 768, 16),  # B=2
+    (2000, 2, 384, 768, 3),
+    (3999, 1, 384, 768, 16),  # one position a frame, odd N
+    (1333, 3, 384, 768, 3),   # 30-row blocks of 10 frames
+    (501, 8, 384, 768, 16),   # eight positions a frame
+    (1001, 3, 384, 768, 16),
+    (777, 5, 256, 512, 16),   # the NBA DiT's width
+    (901, 7, 128, 256, 4),    # the pedestrian DiT's
+    (37, 4, 32, 64, 4),       # the tiny registries', dh 8
+])
+def test_spatial_block_fp32_matches_plain(dev, no_tf32, n, l, d, m, heads):
+    """K8-fp32 on all-fp32 operands within F32_REL_TOL["K8"] of the plain
+    version; only the fp32 counter moves beside ``launches``; two calls give
+    bit-identical outputs."""
+    args = _spatial_inputs_f32(_gen(83), dev, n, l, d, m, heads)
+    before = (fsb.launches, fsb.wmma_launches, fsb.f32_launches)
+    got = fsb.fused_spatial_block(*args)
+    again = fsb.fused_spatial_block(*args)
+    assert _launched(before, (fsb.launches, fsb.wmma_launches, fsb.f32_launches)) == (2, 0, 2)
+    want = fsb.reference_spatial_block(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, again)
+    assert _rel_err(got, want) <= F32_REL_TOL["K8"]
+
+
+def test_spatial_block_fp32_refusals(dev):
+    """Mixed dtypes raise; so do an fp32 call that needs a gradient (the fp32
+    backward is not ported), a width without an fp32 plan and a misaligned
+    x; nothing launches."""
+    args = _spatial_inputs_f32(_gen(84), dev, 64, 2, 128, 256, 4)
+    before = (fsb.launches, fsb.f32_launches)
+    for i in (0, 1, 2, 5, 6):
+        mixed = list(args)
+        mixed[i] = mixed[i].bfloat16()
+        with pytest.raises(ValueError):
+            fsb.fused_spatial_block(*mixed)
+    grad = list(args)
+    grad[0] = grad[0].clone().requires_grad_()
+    with pytest.raises(ValueError, match="forward only"):
+        fsb.fused_spatial_block(*grad)
+    wide = _spatial_inputs_f32(_gen(85), dev, 4, 2, 512, 1024, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        fsb.fused_spatial_block(*wide)
+    x = torch.empty(64 * 2 * 128 + 1, device=dev)[1:].view(64, 2, 128)
+    x.copy_(args[0])
+    with pytest.raises(ValueError):
+        fsb.fused_spatial_block(x, *args[1:])
+    assert (fsb.launches, fsb.f32_launches) == before
+
+
+def test_fp32_dit_forward_runs_the_fp32_kernels(dev, no_tf32):
+    """The 4AA eval's fp32 DiT (hidden 384, 16 x 24, T = 1000, L = 2) at two
+    layers and B=2: one forward launches K8-fp32, K3-fp32 (K1's fp32
+    counter), K2-fp32 and K7-fp32, and no bf16 kernel; its output is within
+    F32_MODEL_REL_TOL of the plain path's."""
+    model = LatentDiT(depth=2, in_dim=96, hidden_size=384, num_heads=16, mlp_ratio=2.0,
+                      reference_init=False, dtype=torch.float32, device=dev,
+                      generator=_gen(86)).eval()
+    g = _gen(87)
+    x = torch.randn(2, 1000, 2, 96, generator=g).to(dev)
+    mask = torch.zeros(2, 1000, 2, dtype=torch.int32, device=dev)
+    mask[:, 0] = 1
+    t = torch.full((2,), 0.5, device=dev)
+    counters = ((fsb, "f32_launches"), (fsb, "launches"), (fa, "fp32_launches"),
+                (fa, "launches"), (fm, "fp32_launches"), (fm, "launches"),
+                (fad, "fp32_launches"), (fad, "launches"))
+    before = [getattr(mod, name) for mod, name in counters]
+    with torch.no_grad():
+        got = model(x, t, x, mask)
+        torch.cuda.synchronize()
+        after = [getattr(mod, name) for mod, name in counters]
+        model.backend = "plain"
+        want = model(x, t, x, mask)
+    moved = [a - b for a, b in zip(after, before)]
+    for fp32, total in zip(moved[0::2], moved[1::2]):
+        assert fp32 > 0 and fp32 == total, moved
+    assert torch.isfinite(got).all() and got.dtype == torch.float32
+    assert _rel_err(got, want) <= F32_MODEL_REL_TOL

@@ -151,3 +151,100 @@ def test_cpu_calls_count_no_launch(monkeypatch):
         got = tsb.fused_spatial_block(*args)
         torch.testing.assert_close(got, tsb.reference_spatial_block(*args), atol=0, rtol=0)
     assert (tsb.launches, tsb.wmma_launches) == (0, 0)
+
+
+# --------------------------------------------------------------- fp32 (K8-fp32)
+
+def _check_f32_against_jax(monkeypatch, n, l, heads, dh, m, seed):
+    """``reference_spatial_block`` in fp32 against the JAX kernel in interpret
+    mode: max |got - want| within 1e-5 of max |want|."""
+    monkeypatch.setattr(jsb, "FORCE_KERNEL", True)
+    rng = np.random.default_rng(seed)
+    d = heads * dh
+    x = rng.standard_normal((n, l, d)).astype(np.float32)
+    w1 = (rng.standard_normal((d, 3 * d + m)) * d ** -0.5).astype(np.float32)
+    b1 = (rng.standard_normal(3 * d + m) * 0.1).astype(np.float32)
+    qs, ks = ((np.abs(rng.standard_normal(dh)) + 0.5).astype(np.float32) for _ in range(2))
+    w2 = (rng.standard_normal((d + m, d)) * (d + m) ** -0.5).astype(np.float32)
+    b2 = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    cos_l, sin_l = lane_rope_tables(*j_rope_cos_sin(l, dh), heads)
+    want = np.asarray(jsb.fused_spatial_block(
+        jnp.asarray(x), *(jnp.asarray(a) for a in (w1, b1, qs, ks, w2, b2)), cos_l, sin_l,
+        heads))
+    t = torch.from_numpy
+    got = tsb.reference_spatial_block(t(x), t(w1.T.copy()), t(b1), t(qs), t(ks), t(w2.T.copy()),
+                                      t(b2), *rope_cos_sin(l, dh), heads, dh ** -0.5)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    assert np.abs(got.numpy() - want).max() <= F32_RTOL * np.abs(want).max()
+
+
+F32_RTOL = 1e-5
+# the 4AA splits at narrow widths: many heads of dh 24, one head of dh 128
+F32_SPLITS = [(4, 24), (1, 128)]
+
+
+@pytest.mark.parametrize("l", [1, 2, 3, 8])
+@pytest.mark.parametrize("heads,dh", F32_SPLITS)
+def test_k8_f32_plain_matches_jax(monkeypatch, l, heads, dh):
+    """Frames on both sides of the fp32 kernel's 32-row blocks (32 // L
+    frames each) and one more."""
+    _check_f32_against_jax(monkeypatch, 2 * (32 // l) + 1, l, heads, dh, 2 * heads * dh,
+                           seed=100 * l + dh)
+
+
+def test_k8_f32_plan_over_every_width_the_checks_accept():
+    """``f32_plan`` over D, M multiples of 16 (D up to 1024) and every even
+    head dim: a plan exists exactly where a head group exists and shared
+    memory fits; its group holds whole heads, is a multiple of 4 dividing D
+    and at most 128 columns unless one head is wider."""
+    for d in range(16, 1025, 16):
+        for heads in (h for h in range(1, d // 2 + 1) if d % h == 0 and (d // h) % 2 == 0):
+            dh = d // heads
+            for m in (16, 2 * d):
+                for l in (1, 3, 8):
+                    plan = tsb.f32_plan(1000, l, d, m, heads)
+                    group = tsb.f32_group(d, heads)
+                    fits = group is not None and tsb.f32_smem_bytes(d, group) <= SMEM_MAX
+                    assert (plan is None) == (not fits), (d, heads, m, l)
+                    if plan is None:
+                        continue
+                    assert plan.group == group
+                    assert plan.group % dh == 0 and d % plan.group == 0 and plan.group % 4 == 0
+                    assert plan.group <= 128 or plan.group == dh
+                    assert plan.smem == tsb.f32_smem_bytes(d, group) <= SMEM_MAX
+
+
+@pytest.mark.parametrize("l", range(1, 9))
+def test_k8_f32_plans_at_the_checked_widths(l):
+    """The 4AA widths at both splits and the other composite and tiny widths
+    the card's checks run have an fp32 plan at every L; the 4AA plans'
+    shared memory: a 32 x 388 x tile, a staging tile of the group's q, k, v
+    (32 x (3 x 96 + 4) or 32 x (3 x 128 + 4)) and two ring stages of
+    384 x 36 floats."""
+    for d, heads in COMPOSITE_WIDTHS + TINY_WIDTHS:
+        assert tsb.f32_plan(2000, l, d, 2 * d, heads) is not None, (d, heads)
+    assert tsb.f32_plan(8000, l, 384, 768, 16) == (96, 4 * (32 * 388 + 32 * 292
+                                                            + 2 * 384 * 36))
+    assert tsb.f32_plan(8000, l, 384, 768, 3) == (128, 4 * (32 * 388 + 32 * 388
+                                                             + 2 * 384 * 36))
+    assert tsb.f32_plan(8000, l, 512, 1024, 8) is None  # 265 KB
+
+
+def test_cpu_fp32_call_takes_the_plain_version(monkeypatch):
+    """An all-fp32 CPU call (and one that needs a gradient) takes
+    reference_spatial_block and counts no launch of any route."""
+    for name in ("launches", "wmma_launches", "f32_launches"):
+        monkeypatch.setattr(tsb, name, 0)
+    rng = np.random.default_rng(1)
+    d, heads, m = 96, 4, 192
+    dh = d // heads
+    t = lambda *shape, s=1.0: torch.from_numpy(  # noqa: E731
+        (rng.standard_normal(shape) * s).astype(np.float32))
+    args = [t(7, 2, d), t(3 * d + m, d, s=0.1), t(3 * d + m), torch.ones(dh), torch.ones(dh),
+            t(d, d + m, s=0.1), t(d), *rope_cos_sin(2, dh), heads, dh ** -0.5]
+    got = tsb.fused_spatial_block(*args)
+    torch.testing.assert_close(got, tsb.reference_spatial_block(*args), atol=0, rtol=0)
+    args[0].requires_grad_(True)
+    tsb.fused_spatial_block(*args).sum().backward()
+    assert args[0].grad is not None
+    assert (tsb.launches, tsb.wmma_launches, tsb.f32_launches) == (0, 0, 0)
