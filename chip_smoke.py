@@ -98,7 +98,12 @@ printed on its own line with its seconds:
    ``--test`` exactly, the test pass launches the fp32 K1, K2, K7 and K9 and
    no bf16 DiT kernel while training launches the bf16 ones and K4; the fp32
    protocol on the first test batch against the plain path (TF32 off), and
-   that batch's time and profile;
+   that batch's time and profile; then stage 2 again from the same stage 1
+   at 2 x dh 128 (``--exp-set num_heads=2``) with ``--test``: the test pass
+   launches K5 in fp32 (the fp32 transform, then K1's fp32 kernel) 360 times
+   a test batch and neither K9 nor a bf16 DiT kernel, training the bf16 K5
+   and K6; its fp32 protocol against the plain path, its batch's time and
+   profile;
 15. peptide_loop: the 4AA workload through the port's entry points at full
    width on synthetic peptides: ``train.cli`` stage 1 (fp32, B=512, three
    steps, val), stage 2 read from the run registry (the bf16 DiT of depth 7,
@@ -110,7 +115,11 @@ printed on its own line with its seconds:
    eval launching the fp32 K8, K3, K2 and K7 and no bf16 DiT kernel,
    training the bf16 ones and K4; stage 2's loss and grads and one fp32
    Euler-10 window against the plain path; step times, each window's dopri5
-   steps and solve time, the eval's wall time and the window's profile.
+   steps and solve time, the eval's wall time and the window's profile; then
+   stage 2 at 3 x dh 128 (``--exp-set num_heads=3``, three steps) and
+   ``eval_cli`` on it: K5 in fp32 and K8-fp32 seven times an NFE, no K3 and
+   no bf16 DiT kernel; one fp32 window at 3 x 128 against the plain path,
+   its NFE, time and profile.
 
 Phase 3 also holds K10 (at both head splits and a ragged T, and against
 the K5 and K3 routes) and K11 (against K4's grads, with its peak memory, and
@@ -156,7 +165,13 @@ no TF32) at its shapes, with TF32 off on the plain side. Likewise the fp32
 kernels of the 4AA eval's DiT: K8-fp32 (csrc/fused_spatial_block_f32.cu)
 at [8000, 2, 384] and [2000, 2, 384] at both head splits, beside the two
 bare cuBLAS SGEMMs of its shapes, and K3-fp32, K2-fp32 and K7-fp32 at the
-4AA widths.
+4AA widths. And the fp32 kernels of the dh-128 splits (DH128_SPECS): K1's
+fp32 kernel at 64 < dh <= 128 (dh 72, 96, 128; N 20, 30, 77, 192, 1000;
+with the lse and the key-padding bias; 66,000 batch x heads), the fp32
+transform and K5-fp32 at the 4AA eval's [B, 3, 1000, 128] and MD17's
+[1920, 2, 192, 128] and [12288, 2, 30, 128], each beside SDPA in fp32 (and
+for K5 the plain pre_transform + SDPA); and bf16 K5 and K6 at those two MD17
+shapes, which the 2 x 128 training gives them.
 
 The last lines are a JSON summary of the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``. Any failed check raises and
@@ -416,6 +431,31 @@ PEP_PERTURB_STD = 0.02
 PEP_S2_LOSS_REL_TOL = 2.4e-4
 PEP_S2_GRAD_REL_TOL = (4.8e-3, 0.58)
 PEP_WINDOW_REL_TOL = 3.9e-6
+# dh 128 in fp32: the fp32 sampling DiTs at 2 x dh 128 (MD17's --test pass,
+# phase 14) and 3 x dh 128 (the 4AA eval, phase 15) run K5 in fp32: the fp32
+# transform (csrc/qk_normrope.cu), then K1's fp32 kernel over 64 < dh <= 128
+# (csrc/flash_attention.cu, four lanes a query row). Against their plain
+# versions with TF32 off, relative to max |out| (the transform per tensor)
+# and the lse absolute: exact fp32 on both sides up to the order of the sums.
+# Readings of python -m lam_slide_tpu_torch.tools.dh128_readings on an H100
+# (seeds 0-3 at the shapes of DH128_SPECS), worst: K1-fp32 at dh > 64
+# 2.210e-6 (at [2,3,1000,128]), its lse 2.384e-6, the fp32 transform
+# 2.122e-7, K5-fp32 2.326e-6 (at [8,3,1000,128]). Each limit is 3x the worst
+# reading.
+K1_F32_WIDE_REL_TOL = 6.7e-6
+LSE_F32_WIDE_ATOL = 7.2e-6
+TRANSFORM_F32_REL_TOL = 6.4e-7
+K5_F32_REL_TOL = 7e-6
+MD17_WIDE_HEADS = 2  # the 2 x dh 128 split of the MD17 DiT (hidden 256)
+# Phase 14's fp32 protocol at 2 x 128 on one test batch, kernel path vs plain
+# (TF32 off), in fp32 ulps of the plain path's ADE and FDE, and phase 15's
+# fp32 Euler-10 window at 3 x 128, kernel path vs plain on perturbed weights,
+# relative to max |pos|. Readings of tools/dh128_readings.py on an H100
+# (seeds 0-3, the registries' random weights): the protocol 0 ulps every
+# time, as at 16 x 16, so its limit is phase 14's (3 ulps); the window up to
+# 1.360e-6, the limit 3x that.
+MD17_WIDE_F32_PROTOCOL_ULPS = MD17_F32_PROTOCOL_ULPS
+PEP_WIDE_WINDOW_REL_TOL = 4.1e-6
 # K10 against its plain version: K1's pair of limits (q/k round once, after
 # norm and RoPE, on both sides; P rounds at different points). Against the
 # K5 route and the K3 route on the same raw q/k/v, which round q/k twice
@@ -491,11 +531,15 @@ def time_ms(fn, reps: int = 20) -> float:
 
 def device_ms(fn, match, reps: int = 20, attempts: int = 3) -> float:
     """Device time a call of fn of the kernels whose name holds ``match`` (a
-    string, or a tuple of them), from torch.profiler over reps calls after a
-    warm-up: for a kernel shorter than its wrapper's host time, which an
-    event time over back-to-back calls would measure instead. A trace that
-    holds none of the kernels (it happened once on an H100, for K7 at a tiny
-    shape) is taken again, up to ``attempts`` traces."""
+    string, or a tuple of them, one kernel each a call), from torch.profiler
+    over reps calls after a warm-up: for a kernel shorter than its wrapper's
+    host time, which an event time over back-to-back calls would measure
+    instead. Each kernel's time is averaged over the launches the trace
+    holds: on an H100 a trace of reps back-to-back calls has held only one
+    in five of a kernel's launches (an average over reps then read a fifth of
+    the event time, below the kernel's bytes bound). A trace that misses one
+    of the kernels (it happened once, for K7 at a tiny shape) is taken again,
+    up to ``attempts`` traces."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -506,10 +550,14 @@ def device_ms(fn, match, reps: int = 20, attempts: int = 3) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(_device_time_us(e) for e in prof.key_averages()
-                 if any(m in e.key for m in matches))
-        if us > 0:
-            return us / reps / 1e3
+        per_kernel = {}
+        for e in prof.key_averages():
+            hits = [m for m in matches if m in e.key]
+            if hits and e.count > 0 and _device_time_us(e) > 0:
+                time_us, count = per_kernel.get(hits[0], (0.0, 0))
+                per_kernel[hits[0]] = (time_us + _device_time_us(e), count + e.count)
+        if len(per_kernel) == len(matches):
+            return sum(t / n for t, n in per_kernel.values()) / 1e3
     check(False, f"no device time traced for kernels named {match} in {attempts} traces")
 
 
@@ -1560,6 +1608,288 @@ def peptide_f32_kernel_checks(dev, gen, table: KernelTable) -> None:
     torch.cuda.empty_cache()
 
 
+# dh 128 in fp32 (phase 3): (key, kind, b, heads, nq, nk, dh, lse, masked,
+# timed). "K1": K1's fp32 kernel over 64 < dh <= 128 on head-major views;
+# "transform": the fp32 QK-norm + RoPE transform; "K5": K5 in fp32 (the
+# transform, then K1's fp32 kernel). The 4AA eval's temporal axis at 3 x 128
+# (B*L = 4 sequences a window of two peptides; the issue's [2, ...] and the
+# sampling B's [8, ...]), the MD17 fp32 DiT's at 2 x 128 (B = 64: spatial
+# [1920, 2, 192], temporal [12288, 2, 30]), ragged and edge shapes. Timed
+# rows go to the table; the others are printed.
+DH128_SPECS = (
+    ("K1 fp32 dh128", "K1", 1920, 2, 192, 192, 128, False, False, True),
+    ("K1 fp32 dh128 [12288,2,30,128]", "K1", 12288, 2, 30, 30, 128, False, False, True),
+    ("K1 fp32 dh128 [8,3,1000,128]", "K1", 8, 3, 1000, 1000, 128, False, False, True),
+    ("K1 fp32 dh128 lse [2,3,1000,128]", "K1", 2, 3, 1000, 1000, 128, True, False, True),
+    ("K1 fp32 dh96 lse [64,4,192,96]", "K1", 64, 4, 192, 192, 96, True, False, False),
+    ("K1 fp32 dh72 ragged [3,2,77->45,72]", "K1", 3, 2, 77, 45, 72, False, False, False),
+    ("K1 fp32 dh128 bias ragged [3,2,130->257,128]", "K1", 3, 2, 130, 257, 128, True, True,
+     False),
+    ("K1 fp32 dh128 [22000,3,20,128] (66,000 batch x heads)", "K1", 22000, 3, 20, 20, 128,
+     False, False, False),
+    ("K5 transform fp32", "transform", 8, 3, 1000, 1000, 128, False, False, True),
+    ("K5 transform fp32 [1920,2,192,128]", "transform", 1920, 2, 192, 192, 128, False, False,
+     True),
+    ("K5 transform fp32 [12288,2,30,128]", "transform", 12288, 2, 30, 30, 128, False, False,
+     True),
+    ("K5 fp32 [2,3,1000,128]", "K5", 2, 3, 1000, 1000, 128, False, False, True),
+    ("K5 fp32", "K5", 8, 3, 1000, 1000, 128, False, False, True),
+    ("K5 fp32 [1920,2,192,128]", "K5", 1920, 2, 192, 192, 128, False, False, True),
+    ("K5 fp32 [12288,2,30,128]", "K5", 12288, 2, 30, 30, 128, False, False, True),
+    ("K5 fp32 ragged [3,2,130->257,96]", "K5", 3, 2, 130, 257, 96, False, False, False),
+)
+
+
+def dh128_inputs(dev, spec, seed: int):
+    """fp32 inputs of one DH128_SPECS row from a card generator seeded with
+    ``seed``: q/k/v head-major strided views of packed linear1-like buffers
+    (as the DiT passes them), the QK-norm scales around 1 and the RoPE
+    tables for the K5 and transform rows, a ragged key-padding mask (row 0
+    all masked) for the masked rows."""
+    from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
+
+    _, kind, b, h, nq, nk, dh, _, masked, _ = spec
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scale = 2.0 if kind != "K1" else 1.0
+    qbuf = scale * torch.randn(b, nq, 3 * h * dh, generator=gen, device=dev)
+    kvbuf = scale * torch.randn(b, nk, 3 * h * dh, generator=gen, device=dev)
+    q = qbuf[..., :h * dh].unflatten(-1, (h, dh)).transpose(1, 2)
+    k = kvbuf[..., h * dh:2 * h * dh].unflatten(-1, (h, dh)).transpose(1, 2)
+    v = kvbuf[..., 2 * h * dh:].unflatten(-1, (h, dh)).transpose(1, 2)
+    out = dict(q=q, k=k, v=v)
+    if kind != "K1":
+        out["qs"], out["ks"] = (1 + 0.2 * torch.randn(dh, generator=gen, device=dev)
+                                for _ in range(2))
+        out["cos"], out["sin"] = rope_cos_sin(max(nq, nk), dh, device=dev)
+    if masked:
+        lengths = torch.randint(1, nk + 1, (b,), generator=gen, device=dev)
+        mask = torch.arange(nk, device=dev)[None, :] < lengths[:, None]
+        mask[0] = False
+        out["mask"] = mask
+    return out
+
+
+def dh128_errors(dev, spec, seed: int):
+    """One DH128_SPECS row at ``seed``, kernel against plain (TF32 off):
+    (rel err to max |out| (the transform: the larger of q_t's and k_t's),
+    lse abs err or None, the inputs, the kernel's and plain calls, extra
+    text). Checks the launches of the first call and that a second call
+    repeats it bit for bit."""
+    from lam_slide_tpu_torch.ops import flash_attention as fa
+    from lam_slide_tpu_torch.ops import flash_normrope as fnr
+
+    key, kind, b, h, nq, nk, dh, with_lse, masked, _ = spec
+    x = dh128_inputs(dev, spec, seed)
+    q, k, v, mask = x["q"], x["k"], x["v"], x.get("mask")
+    scale = dh ** -0.5
+
+    def counts():
+        return (fa.launches, fa.fp32_launches, fa.bias_launches, fa.sm90_launches,
+                fnr.launches, fnr.fp32_launches, fnr.transform_launches, fnr.sm90_launches)
+
+    before = counts()
+    lse_err, extra = None, ""
+    if kind == "K1":
+        def kernel():
+            return fa._forward(q, k, v, scale, with_lse, mask)
+
+        def plain():
+            return fa.reference_attention(q, k, v, scale, return_lse=with_lse, mask=mask)
+
+        want_launched = (1, 1, int(masked), 0, 0, 0, 0, 0)
+    elif kind == "transform":
+        tr = (q, k, x["qs"], x["ks"], x["cos"], x["sin"])
+
+        def kernel():
+            return fnr.qk_normrope(*tr)
+
+        def plain():
+            return fnr.pre_transform(*tr)
+
+        want_launched = (0, 0, 0, 0, 0, 0, 1, 0)
+    else:
+        args5 = (q, k, v, x["qs"], x["ks"], x["cos"], x["sin"])
+
+        def kernel():
+            return fnr.flash_attention_normrope(*args5)
+
+        def plain():
+            return fnr.reference_attention_normrope(*args5)
+
+        want_launched = (0, 0, 0, 0, 1, 1, 1, 0)
+    got = kernel()
+    torch.cuda.synchronize()
+    launched = tuple(a - c for a, c in zip(counts(), before))
+    check(launched == want_launched, f"{key}: launches {launched} != {want_launched} (K1, K1 "
+          f"fp32, K1 bias, K1 sm90, K5, K5 fp32, transform, K5 sm90)")
+    again = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    if kind == "transform":
+        check(all(t.is_contiguous() and t.dtype == torch.float32 and t.shape == w.shape
+                  for t, w in zip(got, want)), f"{key}: q_t/k_t not contiguous fp32")
+        check(all(torch.equal(a, c) for a, c in zip(got, again)),
+              f"{key}: a second call on the same inputs differs")
+        errs = [errors(t, w) for t, w in zip(got, want)]
+        return max(e[1] for e in errs), None, max(e[0] for e in errs), x, kernel, plain, extra
+    if kind == "K1":
+        (got, lse), (again, _) = got, again
+        if with_lse:
+            want, want_lse = want
+            lse_err = (lse - want_lse).abs().max().item()
+        if masked:
+            uniform = v[0].mean(dim=1, keepdim=True).expand_as(got[0])
+            row_err = (got[0] - uniform).abs().max().item()
+            check(row_err <= 1e-5, f"{key}: all-masked row is not the mean of v: {row_err}")
+            extra = f"; all-masked row vs the mean of v {row_err:.3e}"
+    check(got.dtype == torch.float32 and got.shape == want.shape, f"{key} shape/dtype")
+    check(torch.equal(got, again), f"{key}: a second call on the same inputs differs")
+    abs_err, rel = errors(got, want)
+    return rel, lse_err, abs_err, x, kernel, plain, extra
+
+
+def dh128_kernel_checks(dev, table: KernelTable) -> None:
+    """The fp32 kernels at dh 128 (K1-fp32 over 64 < dh <= 128, the fp32
+    transform, K5-fp32) against their plain versions with TF32 off at the
+    shapes of DH128_SPECS, on the first seed of tools/dh128_readings.py:
+    launches, a second call bit-identical, the limits; the timed rows with
+    the plain version's time, the library's (SDPA on fp32 head-major tensors,
+    and for K5 the composition of the plain pre_transform and SDPA) and the
+    fp32 bound."""
+    from lam_slide_tpu_torch.ops import flash_normrope as fnr
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for spec in DH128_SPECS:
+        key, kind, b, h, nq, nk, dh, with_lse, masked, timed = spec
+        rel, lse_err, abs_err, x, kernel, plain, extra = dh128_errors(dev, spec, 0)
+        tol = {"K1": K1_F32_WIDE_REL_TOL, "transform": TRANSFORM_F32_REL_TOL,
+               "K5": K5_F32_REL_TOL}[kind]
+        lse_text = "" if lse_err is None else f", lse max_abs_err {lse_err:.3e} (atol " \
+                                               f"{LSE_F32_WIDE_ATOL})"
+        check(rel <= tol, f"{key} rel err {rel} > {tol}")
+        check(lse_err is None or lse_err <= LSE_F32_WIDE_ATOL,
+              f"{key} lse err {lse_err} > {LSE_F32_WIDE_ATOL}")
+        shape = f"[{b},{h},{nq}->{nk},{dh}]" if nq != nk else f"[{b},{h},{nq},{dh}]"
+        if not timed:
+            print(f"kernel {key} fp32 {shape}: max_abs_err {abs_err:.3e} rel {rel:.3e} (rel tol "
+                  f"{tol}){lse_text}{extra}; a second call bit-identical")
+            del x
+            torch.cuda.empty_cache()
+            continue
+        q, k, v = x["q"], x["k"], x["v"]
+        elems = q.numel() + k.numel()
+        scores = b * h * nq * nk
+        flops = 4 * scores * dh
+        nbytes = 4 * (2 * q.numel() + k.numel() + v.numel()) + (4 * b * h * nq if with_lse else 0)
+        library = None
+        if kind == "transform":
+            text = (f"raw fp32 q/k {shape} strided views -> contiguous q_t/k_t, rel {rel:.3e}, a "
+                    f"second call bit-identical; time: the kernel's device time (profiler), "
+                    f"the wrapper's event time {time_ms(kernel, reps=10):.4f} ms")
+            ms = device_ms(kernel, "qk_normrope_kernel", reps=10)
+            flops, nbytes = 8 * elems, 2 * elems * 4 + 2 * x["cos"].numel() * 4 + 2 * dh * 4
+            exps = 0
+        else:
+            exps = scores
+            ms = time_ms(kernel, reps=10)
+            if kind == "K1":
+                text = (f"fp32 q/k/v {shape} strided views, four lanes a row, rel {rel:.3e}"
+                        f"{lse_text}, a second call bit-identical; library: SDPA on the fp32 "
+                        f"head-major views (TF32 off)")
+                library = library_times(q, k, v, dh ** -0.5)
+            else:
+                tr = (x["qs"], x["ks"], x["cos"], x["sin"])
+                comp_ms = library_times(q, k, v, dh ** -0.5,
+                                        pre=lambda q_, k_: fnr.pre_transform(q_, k_, *tr))
+                dev_ms = device_ms(kernel, ("qk_normrope_kernel", "flash_fwd_f32_wide_kernel"),
+                                   reps=5)
+                text = (f"raw fp32 q/k/v {shape} strided views, fp32 transform + K1-fp32 (four "
+                        f"lanes a row), rel {rel:.3e}, a second call bit-identical, device time "
+                        f"of the two kernels {dev_ms:.4f} ms; library none (composition: plain "
+                        f"pre_transform + SDPA, TF32 off: {comp_ms:.4f} ms)")
+                nbytes += 2 * x["cos"].numel() * 4 + 2 * dh * 4
+        table.add(key, text, abs_err, f"rel tol {tol}", ms, time_ms(plain, reps=3), flops,
+                  nbytes, library, peak=PEAK_FP32_FLOPS, exps=exps)
+        del x, kernel, plain, q, k, v
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def md17_wide_bf16_checks(dev, seed: int, table: KernelTable) -> None:
+    """bf16 K5 (with its lse) and K6 at the MD17 stage-2 DiT's 2 x 128 shapes
+    at B = 64, which the training and the val hook of phase 14's 2 x 128 run
+    give them: the spatial axis [1920, 2, 192, 128] and the temporal one
+    [12288, 2, 30, 128], q/k/v head-major views of packed buffers; against
+    the plain versions with K1's limits, K5's lse limit at dh 128 and
+    K6_REL_TOL, each beside the composition of the plain pre_transform and
+    PyTorch's attention."""
+    from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
+    from lam_slide_tpu_torch.ops import flash_attention as fa
+    from lam_slide_tpu_torch.ops import flash_normrope as fnr
+
+    bf, dh, h = torch.bfloat16, 128, MD17_WIDE_HEADS
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for b, n in ((MD17_BATCH * MD17_T, MD17_LATENTS), (MD17_BATCH * MD17_LATENTS, MD17_T)):
+        qkv = (2 * torch.randn(b, n, 3 * h * dh, generator=gen, device=dev)).to(bf)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unflatten(-1, (3, h, dh)).unbind(2))
+        g = torch.randn(b, h, n, dh, generator=gen, device=dev).to(bf)
+        qs, ks = (1 + 0.2 * torch.randn(dh, generator=gen, device=dev) for _ in range(2))
+        cos, sin = rope_cos_sin(n, dh, device=dev)
+        scale = dh ** -0.5
+
+        def pre(q_, k_):
+            return fnr.pre_transform(q_, k_, qs, ks, cos, sin)
+
+        before = k5_counts()
+        out, lse = fnr._forward(q, k, v, qs, ks, cos, sin, scale, with_lse=True)
+        launched = tuple(a - c for a, c in zip(k5_counts(), before))
+        check(launched == (1, 1, 1, 0, 0, 0), f"K5 MD17 2x128 n={n}: launches {launched}")
+        want, want_lse = fa.reference_attention(*pre(q, k), v, scale, return_lse=True)
+        torch.cuda.synchronize()
+        abs_err, _, atol, k1_gain = k1_errors(out, want)
+        lse_err = (lse - want_lse).abs().max().item()
+        del want, want_lse
+        check_k1(abs_err, atol, k1_gain, f"K5 MD17 2x128 n={n}")
+        check(lse_err <= LSE_ATOL["K5"][dh], f"K5 MD17 2x128 n={n} lse err {lse_err}")
+        shape = f"[{b},{h},{n},{dh}]"
+        attn_flops, attn_bytes = 4 * b * h * n * n * dh, 4 * b * h * n * dh * 2
+        table.add(f"K5 MD17 2x128 {shape}", f"raw q/k/v {shape} strided views, with lse (max_abs"
+                  f"_err {lse_err:.3e}, atol {LSE_ATOL['K5'][dh]}), gain {k1_gain:.7f}; library "
+                  f"none (composition: plain pre_transform + SDPA: "
+                  f"{library_times(q, k, v, scale, pre=pre):.4f} ms)", abs_err,
+                  f"atol {atol:.3e} = {K1_ULPS} bf16 ulps, gain tol {K1_GAIN_TOL}",
+                  time_ms(lambda: fnr._forward(q, k, v, qs, ks, cos, sin, scale, with_lse=True),
+                          reps=10),
+                  time_ms(lambda: fa.reference_attention(*pre(q, k), v, scale, return_lse=True),
+                          reps=3),
+                  attn_flops, attn_bytes + b * h * n * 4, exps=b * h * n * n)
+        args = (q, k, v, qs, ks, cos, sin, out, lse, g, scale)
+        before = k6_counts()
+        got = fnr.flash_attention_normrope_backward(*args)
+        torch.cuda.synchronize()
+        launched = tuple(a - c for a, c in zip(k6_counts(), before))
+        check(launched == (1, 1, 3, 0, 0, 0), f"K6 MD17 2x128 n={n}: launches {launched}")
+        want = fnr.reference_normrope_backward(*args)
+        errs = _grad_errors(got, want)
+        del got, want
+        detail = ", ".join(f"{nm} rel {r:.3e} gain {gn:.7f}"
+                           for nm, (_, r, gn) in zip(("dq", "dk", "dv"), errs))
+        for nm, (_, rel, gn) in zip(("dq", "dk", "dv"), errs):
+            check(rel <= K6_REL_TOL, f"K6 MD17 2x128 n={n} {nm} rel err {rel} > {K6_REL_TOL}")
+            check(abs(gn - 1) <= K1_GAIN_TOL, f"K6 MD17 2x128 n={n} {nm} gain {gn}")
+        comp_ms = library_times(q, k, v, scale, grad=g, pre=pre)
+        table.add(f"K6 MD17 2x128 {shape}", f"q/k/v/dO {shape} strided views, transform kernel "
+                  f"+ sm90 backward; {detail}; library none (composition: plain pre_transform + "
+                  f"SDPA fwd+bwd - fwd: {comp_ms:.4f} ms)", max(e[0] for e in errs),
+                  f"rel tol {K6_REL_TOL} per grad, gain tol {K1_GAIN_TOL}",
+                  time_ms(lambda: fnr.flash_attention_normrope_backward(*args), reps=5),
+                  time_ms(lambda: fnr.reference_normrope_backward(*args), reps=2),
+                  2.5 * attn_flops, 8 * b * h * n * dh * 2 + b * h * n * 4, exps=b * h * n * n)
+        del qkv, q, k, v, g, out, lse, args
+        torch.cuda.empty_cache()
+
+
 def md17_train_kernel_checks(dev, gen, table: KernelTable) -> None:
     """K1-fp32's lse and K4 with the key-padding bias (fp32 and bf16) and with
     fp32 operands against the plain versions at the MD17 training shapes:
@@ -2018,10 +2348,79 @@ def md17_loop_phase(dev, smi, reset_counts, read_counts):
             print(f"timing md17_loop fp32 test batch K={MD17_K} B={MD17_BATCH} k_chunk=1 kernel "
                   f"path {start.elapsed_time(end):.3f} ms | {smi}")
             profile_run(protocol_batch, f"md17_loop fp32 test batch K={MD17_K} B={MD17_BATCH}")
+        del exp, ss, raw
+
+        # the 2 x dh 128 split: stage 2 from the same stage 1 with
+        # --exp-set num_heads=2 and the fp32 --test pass, whose DiT runs K5 in
+        # fp32 on both axes (the fp32 transform, then K1's fp32 kernel)
+        n_passes = len(test_passes)  # the checks above called evaluate_md17 too
+        reset_counts()
+        t0 = time.perf_counter()
+        rc4 = cli(["--experiment", "md17_second_stage", "--run-id", "s2w",
+                   "--first-stage-run", "s1", "--set", "val_every_n_epochs=1",
+                   "--set", "limit_val_batches=1", "--exp-set", f"num_heads={MD17_WIDE_HEADS}",
+                   "--test", *common])
+        torch.cuda.synchronize()
+        total = read_counts()
+        wide_s = time.perf_counter() - t0
+        check(rc4 == 0, f"md17_loop: the {MD17_WIDE_HEADS} x 128 run returned {rc4}")
+        check(len(test_passes) == n_passes + 1,
+              f"md17_loop: {len(test_passes) - n_passes} test passes of the "
+              f"{MD17_WIDE_HEADS} x 128 run, not 1")
+        wide_test, wide_test_s, wide_metrics = test_passes[n_passes]
+        wide_train = {key: total[key] - wide_test[key] for key in total}
+        with open(f"{ws}/s2w/test_metrics.json") as f:
+            stored = json.load(f)
+        check(stored == wide_metrics and set(stored) == keys
+              and all(math.isfinite(v) for v in stored.values()),
+              f"md17_loop {MD17_WIDE_HEADS} x 128: test_metrics.json {stored}")
+        exp = registry.md17_second_stage(workspace=ws, first_stage_run="s1", molecule="aspirin",
+                                         synthetic_frames=MD17_LOOP_FRAMES,
+                                         num_heads=MD17_WIDE_HEADS, device=dev)
+        check(exp.config.hidden_size // exp.config.num_heads == 128,
+              f"md17_loop: the num_heads={MD17_WIDE_HEADS} run is not at dh 128")
+        n_test = len(exp.test_loaders["aspirin"])
+        # every layer's spatial (L = 192) and temporal (T = 30) attention is
+        # K5 at dh 128: 2 x depth a drift evaluation, one repeat at a time
+        want_k5 = 2 * MD17_DEPTH * MD17_DRIFT_EVALS * MD17_K * n_test
+        print(f"md17_loop {MD17_WIDE_HEADS} x 128: stage 2 with --test {wide_s:.2f} s, --test "
+              f"{wide_metrics} in {wide_test_s:.2f} s ({n_test} test batches); test-pass "
+              f"launches {wide_test}; stage-2 training launches {wide_train}")
+        check(wide_test["K5 fp32"] == wide_test["K5"] == wide_test["K5 transform"] == want_k5,
+              f"md17_loop {MD17_WIDE_HEADS} x 128: K5-fp32 launches {wide_test['K5 fp32']}, "
+              f"not {want_k5} ({want_k5 // n_test} a test batch)")
+        check(all(wide_test[k] == wide_test[f"{k} fp32"] > 0 for k in ("K1", "K2", "K7"))
+              and wide_test["K9"] == wide_test["K8"] == wide_test["K5 sm90"] == 0,
+              f"md17_loop {MD17_WIDE_HEADS} x 128: a bf16 kernel or K9 in the test pass")
+        check(wide_train["K5"] - wide_train["K5 fp32"] > 0 and wide_train["K6"] > 0
+              and wide_train["K9"] == wide_train["K9 bwd"] == 0,
+              f"md17_loop {MD17_WIDE_HEADS} x 128: training did not take bf16 K5/K6 alone "
+              f"(K9 at dh 128 is on no path): {wide_train}")
+        raw = registry.load_checkpoint_raw(f"{ws}/s2w", "last")
+        ss = exp.test_model
+        ss.backbone.load_state_dict({**raw["params"], **raw["ema_params"]})
+        batch = next(iter(exp.test_loaders["aspirin"]))
+        kern, plain = f32_protocol_pair(ss, batch, SEED)
+        ulps = protocol_ulps(kern, plain)
+        print(f"md17_loop {MD17_WIDE_HEADS} x 128: fp32 protocol, first test batch, kernel path "
+              f"{kern} plain path {plain}: {ulps:.1f} fp32 ulps (limit "
+              f"{MD17_WIDE_F32_PROTOCOL_ULPS})")
+        check(ulps <= MD17_WIDE_F32_PROTOCOL_ULPS,
+              f"md17_loop {MD17_WIDE_HEADS} x 128: fp32 protocol {ulps} ulps apart")
+        with torch.no_grad():
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            protocol_batch()
+            end.record()
+            torch.cuda.synchronize()
+            print(f"timing md17_loop {MD17_WIDE_HEADS} x 128 fp32 test batch K={MD17_K} "
+                  f"B={MD17_BATCH} k_chunk=1 kernel path {start.elapsed_time(end):.3f} ms | {smi}")
+            profile_run(protocol_batch, f"md17_loop {MD17_WIDE_HEADS} x 128 fp32 test batch "
+                        f"K={MD17_K} B={MD17_BATCH}")
     finally:
         testing.evaluate_md17 = real
         shutil.rmtree(ws, ignore_errors=True)
-    return train_counts, test_counts
+    return train_counts, test_counts, wide_test
 
 
 def _steady_step_ms(step, state, batch, reps: int = 3):
@@ -2323,6 +2722,91 @@ def peptide_loop_phase(dev, smi, reset_counts, read_counts):
                   f"{start.elapsed_time(end):.3f} ms kernel path | {smi}")
             profile_run(lambda: window(batch, noise=noise),
                         f"peptide_loop fp32 Euler-{NUM_STEPS} window B={len(PEP_EVAL_IDS)}")
+        del exp, raw, ss, batch, window
+
+        # 5. the 3 x dh 128 split: stage 2 from the same stage 1 with
+        # --exp-set num_heads=3 (three steps), then eval_cli on it: the fp32
+        # DiT's temporal attention is K5 in fp32 (the fp32 transform, then
+        # K1's fp32 kernel), its spatial blocks K8-fp32 at 3 x 128
+        heads = f"{WIDE_HEADS} x {HIDDEN // WIDE_HEADS}"
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc4 = cli(["--experiment", "peptide_second_stage", "--run-id", "p2w",
+                       "--first-stage-run", "p1", "--set", "limit_val_batches=1",
+                       "--exp-set", f"num_heads={WIDE_HEADS}", *s2_sets, *common])
+        torch.cuda.synchronize()
+        wide_train = read_counts()
+        t1 = time.perf_counter()
+        check(rc4 == 0, f"peptide_loop {heads}: stage 2 returned {rc4}")
+        check(wide_train["K5"] - wide_train["K5 fp32"] > 0 and wide_train["K6"] > 0
+              and wide_train["K8"] > 0 and wide_train["K8 fp32"] == 0 and wide_train["K1"] == 0,
+              f"peptide_loop {heads}: training did not take bf16 K5, K6 and K8: {wide_train}")
+        windows.clear()
+        integrators.ode_dopri5 = dopri5_spy
+        reset_counts()
+        rc5 = eval_cli.main(["--run", "p2w", "--workspace", ws, "--batch-peptides",
+                             "--num-rollouts", str(PEP_ROLLOUTS), "--pdb-ids", *PEP_EVAL_IDS])
+        torch.cuda.synchronize()
+        wide_eval_s = time.perf_counter() - t1
+        wide_eval = read_counts()
+        integrators.ode_dopri5 = real_dopri5
+        check(rc5 == 0, f"peptide_loop {heads}: eval_cli returned {rc5}")
+        with open(f"{ws}/p2w/eval/metrics.json") as f:
+            metrics = json.load(f)
+        summary = metrics["summary"]
+        check(set(summary) == {"BB", "SC", "ALL", "TICA-0", "TICA-0,1", "MSMS"}
+              and all(math.isfinite(v) for v in summary.values()),
+              f"peptide_loop {heads}: eval summary {summary}")
+        check(len(windows) == PEP_ROLLOUTS, f"peptide_loop {heads}: {len(windows)} dopri5 solves")
+        nfe = 0
+        for i, ((n_iters, n_acc), solve_s) in enumerate(windows):
+            check(n_iters < DOPRI5_MAX_STEPS, f"eval window {i} at {heads}: dopri5 hit max_steps")
+            nfe += 1 + 6 * n_iters
+            print(f"timing peptide_loop {heads} eval window {i} (fp32, B={len(PEP_EVAL_IDS)}, "
+                  f"T={T}): dopri5 {n_iters} steps, {n_acc} accepted, NFE {1 + 6 * n_iters}, "
+                  f"solve {solve_s:.3f} s | {smi}")
+        print(f"peptide_loop {heads}: stage 2 (three steps, val) {t1 - t0:.2f} s, training "
+              f"launches {wide_train}; eval_cli {summary} in {wide_eval_s:.2f} s wall; launches "
+              f"{wide_eval} | {smi}")
+        want_k5 = DEPTH * nfe  # one temporal attention a layer a drift evaluation
+        check(wide_eval["K5 fp32"] == wide_eval["K5"] == wide_eval["K5 transform"] == want_k5
+              and wide_eval["K8 fp32"] == wide_eval["K8"] == want_k5,
+              f"peptide_loop {heads}: K5-fp32 / K8-fp32 launches {wide_eval['K5 fp32']} / "
+              f"{wide_eval['K8 fp32']}, not {DEPTH} x NFE = {want_k5}")
+        check(all(wide_eval[k] == wide_eval[f"{k} fp32"] for k in ("K2", "K7"))
+              and wide_eval["K1"] == wide_eval["K5 sm90"] == wide_eval["K9"] == 0,
+              f"peptide_loop {heads}: a bf16 DiT kernel or K3 launched in the eval: {wide_eval}")
+
+        # one fp32 Euler-10 window at 3 x 128, kernel path vs plain path
+        # (TF32 off) on the trained weights perturbed, then its time and profile
+        exp = registry.peptide_second_stage(workspace=ws, first_stage_run="p1",
+                                            synthetic_peptides=2, synthetic_frames=PEP_S2_FRAMES,
+                                            num_heads=WIDE_HEADS, device=dev)
+        raw = registry.load_checkpoint_raw(f"{ws}/p2w", "best")
+        ss = exp.test_model
+        ss.backbone.load_state_dict(tree_to_f32({**raw["params"], **raw["ema_params"]}))
+        ss.backbone.eval()
+        batch = peptide_window_batch(ss, exp.test_loaders["test"].dataset.trajectories)
+        reset_counts()
+        abs_err, rel, max_pos = peptide_window_errors(ss, batch, SEED)
+        print(f"peptide_loop {heads}: fp32 Euler-{NUM_STEPS} window B={len(PEP_EVAL_IDS)}, kernel "
+              f"path vs plain (TF32 off, weights + N(0, {PEP_PERTURB_STD}^2)): decoded atom14 "
+              f"max_abs_err {abs_err:.3e} rel {rel:.3e} (tol {PEP_WIDE_WINDOW_REL_TOL}), max|pos| "
+              f"{max_pos:.3f}; launches {read_counts()}")
+        check(rel <= PEP_WIDE_WINDOW_REL_TOL, f"peptide_loop {heads}: fp32 window rel err {rel}")
+        window = ss.make_sample_fn(sampling_kwargs={"sampling_method": "euler",
+                                                    "num_steps": NUM_STEPS})
+        with torch.no_grad():
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            window(batch, noise=noise)
+            end.record()
+            torch.cuda.synchronize()
+            print(f"timing peptide_loop {heads} fp32 Euler-{NUM_STEPS} window "
+                  f"B={len(PEP_EVAL_IDS)}: {start.elapsed_time(end):.3f} ms kernel path | {smi}")
+            profile_run(lambda: window(batch, noise=noise),
+                        f"peptide_loop {heads} fp32 Euler-{NUM_STEPS} window B={len(PEP_EVAL_IDS)}")
     finally:
         integrators.ode_dopri5 = real_dopri5
         if saved_env is None:
@@ -2330,7 +2814,7 @@ def peptide_loop_phase(dev, smi, reset_counts, read_counts):
         else:
             os.environ["LAM_SLIDE_NO_DATA_CACHE"] = saved_env
         shutil.rmtree(ws, ignore_errors=True)
-    return eval_counts
+    return eval_counts, wide_eval
 
 
 def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, smi,
@@ -3032,7 +3516,8 @@ def main() -> int:
                 "K2 fp32": (fm, "fp32_launches"), "K7 fp32": (fad, "fp32_launches"),
                 "K9 fp32": (tsa, "fp32_launches"),
                 "K2 wmma": (fm, "wmma_launches"), "K2 cp.async": (fm, "cp_async_launches"),
-                "K5": (fnr, "launches"), "K7": (fad, "launches"), "K8": (fsb, "launches"),
+                "K5": (fnr, "launches"), "K5 fp32": (fnr, "fp32_launches"),
+                "K7": (fad, "launches"), "K8": (fsb, "launches"),
                 "K8 wmma": (fsb, "wmma_launches"), "K8 fp32": (fsb, "f32_launches"),
                 "K9": (tsa, "launches"), "K9 bwd": (tsa, "bwd_launches"),
                 "K4 kv": (fa, "bwd_kv_launches"), "K4 q": (fa, "bwd_q_launches"),
@@ -3089,6 +3574,8 @@ def main() -> int:
     md17_train_kernel_checks(dev, torch.Generator().manual_seed(SEED + 5), table)
     md17_f32_kernel_checks(dev, table)
     peptide_f32_kernel_checks(dev, torch.Generator().manual_seed(SEED + 10), table)
+    dh128_kernel_checks(dev, table)
+    md17_wide_bf16_checks(dev, SEED + 11, table)
     ablation_kernel_checks(dev, torch.Generator().manual_seed(SEED + 9), table)
     phase_done("kernels")
 
@@ -3247,12 +3734,13 @@ def main() -> int:
 
     # 14. MD17 through the port's own loop: CLI, Trainer, checkpoints, run
     # registry, the fp32 --test pass and --test-only
-    _, loop_test_counts = md17_loop_phase(dev, smi, reset_counts, read_counts)
+    _, loop_test_counts, _ = md17_loop_phase(dev, smi, reset_counts, read_counts)
     phase_done("md17_loop")
 
     # 15. the 4AA workload through the port's entry points: train.cli stage 1
     # and stage 2, then analysis.eval_cli (the fp32 DiT, dopri5, the JSD)
-    peptide_eval_counts = peptide_loop_phase(dev, smi, reset_counts, read_counts)
+    peptide_eval_counts, wide_eval_counts = peptide_loop_phase(dev, smi, reset_counts,
+                                                               read_counts)
     phase_done("peptide_loop")
 
     sources = {
@@ -3289,6 +3777,11 @@ def main() -> int:
                     "short_attention.py:83"),
         "K8 fp32": ("fused_spatial_block (fp32 operands, forward)",
                     "fused_spatial_block_f32.cu", "fused_spatial_block.py:108"),
+        "K5 fp32": ("flash_attention_normrope (fp32 operands, forward: the fp32 transform, "
+                    "then K1's fp32 kernel at 64 < dh <= 128)", "flash_attention.cu",
+                    "flash_normrope.py:74"),
+        "K5 transform fp32": ("qk_normrope (fp32 operands)", "qk_normrope.cu",
+                              "flash_normrope.py:52"),
     }
     # launches on the main paths: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve
     # (K1 and K3 one binary, flash_fwd_sm90.cu, whose launches it counts), K5
@@ -3301,7 +3794,8 @@ def main() -> int:
     # block, K11 from its call at the MD17 spatial axis; K8's WMMA route
     # from the forward of the hidden-32 DiT (0 on every path above); K2, K7
     # and K9 in fp32 from phase 14's stage-2 run (its --test pass); K8 in
-    # fp32 from phase 15's eval (two dopri5 windows of the fp32 DiT)
+    # fp32 from phase 15's eval (two dopri5 windows of the fp32 DiT); K5 in
+    # fp32 and its fp32 transform from phase 15's eval at 3 x 128
     md17_train = {key: s1_counts[key] + s2_counts[key] for key in s1_counts}
     main_counts = dict(launches[HEADS], K1=launches[HEADS]["K1 sm90"],
                        K3=launches[HEADS]["K1 sm90"], K5=launches[WIDE_HEADS]["K5 sm90"],
@@ -3314,7 +3808,9 @@ def main() -> int:
                           "K8 wmma": tiny_counts["K8 wmma"],
                           **{key: loop_test_counts[key]
                              for key in ("K2 fp32", "K7 fp32", "K9 fp32")},
-                          "K8 fp32": peptide_eval_counts["K8 fp32"]})
+                          "K8 fp32": peptide_eval_counts["K8 fp32"],
+                          "K5 fp32": wide_eval_counts["K5 fp32"],
+                          "K5 transform fp32": wide_eval_counts["K5 transform"]})
     kernels = [
         {"name": name, "route": "cuda", "source": f"lam_slide_tpu_torch/csrc/{src}",
          "replaces": f"lam_slide_tpu/ops/{tpu}", "launches": main_counts[key],

@@ -55,14 +55,24 @@
 // weights over its Nk keys, as in JAX; padded keys past Nk stay at -inf,
 // below any masked key, so they never share that weight.
 //
-// fp32 operands (stage 1 runs in fp32, composites/md17.py:93): a second
-// kernel, one thread per query row and 64 rows per block, 32-key K/V tiles
-// in shared memory read as broadcasts, FFMA on the CUDA cores (no TF32:
-// the JAX interpret path it is held to is exact fp32), the same online
-// softmax and bias. dh <= 64 (q and the accumulator live in registers).
-// Bound on the H100 at the stage-1 shapes (keys <= 192, dh 16): bytes
-// (~0.14 ms for the encoder's cross call), with the FFMA work of the
-// same order at fp32's 67 TFLOP/s.
+// fp32 operands (stage 1 runs in fp32, composites/md17.py:93, and the fp32
+// sampling DiT of the MD17 --test pass and the 4AA eval): FFMA on the CUDA
+// cores (no TF32: the JAX interpret path it is held to is exact fp32), the
+// same online softmax and bias, 32-key K/V tiles in shared memory read as
+// broadcasts and 64 query rows a block. For dh <= 64 one thread takes a
+// query row, q and the accumulator in its registers. For 64 < dh <= 128
+// (the 2 x 128 and 3 x 128 DiTs, through K5's transform) a row would need
+// ~290 live floats in one thread, past the 255 registers, so a group of
+// four lanes shares it: lane g holds the 4-float chunks g, g + 4, ... of q
+// and of the accumulator (32 floats each), the group's four lanes read 64
+// contiguous bytes of a K/V row as float4 and the warp's eight groups the
+// same ones (a broadcast), and each logit is four partial dot products
+// summed by two xor shuffles (the same sum in all four lanes, so m and l
+// stay equal in the group). Bound on the H100: bytes at the stage-1 shapes
+// (keys <= 192, dh 16; ~0.14 ms for the encoder's cross call), operations
+// at dh 128 over N >= 192 (72.5 GFLOP, ~1.08 ms at [1920,2,192,128]), bytes
+// over MD17's T = 30 (~0.45 ms at [12288,2,30,128]). A register-tiled
+// design (a thread holding a block of scores) is the later redesign.
 //
 // lse: when the caller passes an fp32 [B, H, Nq] buffer (training), each
 // query row of either kernel also writes m + log(max(l, 1e-30)), the
@@ -388,6 +398,140 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
   return cudaGetLastError();
 }
 
+// fp32 operands at 64 < dh <= 128: a query row shared by F32_GROUP lanes,
+// lane g of the group holding the float4 chunks g, g + F32_GROUP, ... of q
+// and of the accumulator; F32_WIDE_ROWS rows and F32_GROUP threads a row a
+// block. Capped at 128 registers a thread so that two blocks share an SM:
+// left to itself ptxas takes 160 (no spill) and one block an SM runs 1.2x
+// (4AA, [4,3,1000,128]) to 1.4x (MD17, [1920,2,192,128]) slower on an H100
+// (tools/kernel_variants.py K1-fp32-wide).
+constexpr int F32_GROUP = 4;
+constexpr int F32_WIDE_ROWS = 64;
+constexpr int F32_WIDE_THREADS = F32_WIDE_ROWS * F32_GROUP;
+constexpr int F32_WIDE_DP = 128;
+
+__global__ void __launch_bounds__(F32_WIDE_THREADS, 2)
+flash_fwd_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, const float* __restrict__ bias, int H,
+                          int Nq, int Nk, int dh,
+                          long long q_sb, long long q_sh, long long q_sn,
+                          long long k_sb, long long k_sh, long long k_sn,
+                          long long v_sb, long long v_sh, long long v_sn,
+                          long long o_sb, long long o_sh, long long o_sn, float scale) {
+  constexpr int DP = F32_WIDE_DP;
+  constexpr int CHUNKS = DP / 4;             // float4 chunks of a row
+  constexpr int PER = CHUNKS / F32_GROUP;    // chunks of one lane
+  __shared__ float4 Ks[F32_KEYS][CHUNKS];
+  __shared__ float4 Vs[F32_KEYS][CHUNKS];
+  __shared__ float Bs[F32_KEYS];
+  const TileIdx ti = tile_index(Nq, F32_WIDE_ROWS);
+  const int b = ti.bh / H, h = ti.bh % H;
+  const int g = threadIdx.x % F32_GROUP;
+  const int qrow = ti.tile * F32_WIDE_ROWS + threadIdx.x / F32_GROUP;
+  const bool row_ok = qrow < Nq;
+  const float* qp = q + b * q_sb + h * q_sh + static_cast<long long>(qrow) * q_sn;
+  const float* kp = k + b * k_sb + h * k_sh;
+  const float* vp = v + b * v_sb + h * v_sh;
+
+  float4 qr[PER], acc[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int e = 4 * (g + F32_GROUP * i);
+    float x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[j] = (row_ok && e + j < dh) ? qp[e + j] : 0.0f;
+    qr[i] = make_float4(x[0], x[1], x[2], x[3]);
+    acc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  float m = NEG_INF, l = 0.0f;
+  float* kf = reinterpret_cast<float*>(Ks);
+  float* vf = reinterpret_cast<float*>(Vs);
+  for (int k0 = 0; k0 < Nk; k0 += F32_KEYS) {
+    __syncthreads();  // previous tile fully consumed
+    for (int idx = threadIdx.x; idx < F32_KEYS * DP; idx += F32_WIDE_THREADS) {
+      const int r = idx / DP, c = idx % DP;
+      const bool ok = k0 + r < Nk && c < dh;
+      kf[idx] = ok ? kp[static_cast<long long>(k0 + r) * k_sn + c] : 0.0f;
+      vf[idx] = ok ? vp[static_cast<long long>(k0 + r) * v_sn + c] : 0.0f;
+    }
+    if (threadIdx.x < F32_KEYS) {
+      const int key = k0 + threadIdx.x;
+      Bs[threadIdx.x] = (bias != nullptr && key < Nk) ? bias[static_cast<long long>(b) * Nk + key]
+                                                      : 0.0f;
+    }
+    __syncthreads();
+
+    float sv[F32_KEYS];
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < F32_KEYS; ++j) {
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const float4 kk = Ks[j][g + F32_GROUP * i];
+        s = fmaf(qr[i].x, kk.x, s);
+        s = fmaf(qr[i].y, kk.y, s);
+        s = fmaf(qr[i].z, kk.z, s);
+        s = fmaf(qr[i].w, kk.w, s);
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      // the scaled logit rounds before the bias add, as in JAX
+      s = k0 + j >= Nk ? -CUDART_INF_F : __fadd_rn(__fmul_rn(s, scale), Bs[j]);
+      sv[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    const float m_new = fmaxf(m, mx);
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      acc[i].x *= alpha;
+      acc[i].y *= alpha;
+      acc[i].z *= alpha;
+      acc[i].w *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < F32_KEYS; ++j) {
+      const float p = expf(sv[j] - m_new);
+      l += p;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const float4 vv = Vs[j][g + F32_GROUP * i];
+        acc[i].x = fmaf(p, vv.x, acc[i].x);
+        acc[i].y = fmaf(p, vv.y, acc[i].y);
+        acc[i].z = fmaf(p, vv.z, acc[i].z);
+        acc[i].w = fmaf(p, vv.w, acc[i].w);
+      }
+    }
+    m = m_new;
+  }
+  if (row_ok) {
+    const float denom = fmaxf(l, 1e-30f);
+    float* op = o + b * o_sb + h * o_sh + static_cast<long long>(qrow) * o_sn;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = 4 * (g + F32_GROUP * i);
+      const float y[4] = {acc[i].x, acc[i].y, acc[i].z, acc[i].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (e + j < dh) op[e + j] = y[j] / denom;
+    }
+    if (lse != nullptr && g == 0) lse[static_cast<long long>(ti.bh) * Nq + qrow] = m + logf(denom);
+  }
+}
+
+cudaError_t launch_f32_wide(const float* q, const float* k, const float* v, float* o,
+                            float* lse, const float* bias, int B, int H, int Nq, int Nk, int dh,
+                            const long long* s, float scale, cudaStream_t stream) {
+  const dim3 grid(grid_blocks(B * H, Nq, F32_WIDE_ROWS));
+  flash_fwd_f32_wide_kernel<<<grid, F32_WIDE_THREADS, 0, stream>>>(
+      q, k, v, o, lse, bias, H, Nq, Nk, dh, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
+      s[9], s[10], s[11], scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q/k/v/o: bf16 [B, H, N, dh] addressed through element strides
@@ -408,7 +552,8 @@ extern "C" int lam_flash_attention_fwd(
                             stream);
 }
 
-// As lam_flash_attention_fwd on fp32 q/k/v/o; dh <= 64.
+// As lam_flash_attention_fwd on fp32 q/k/v/o, with or without a bias; dh <= 128
+// (the four-lane kernel above 64).
 extern "C" int lam_flash_attention_fwd_f32(
     const void* q, const void* k, const void* v, void* o, void* lse, const void* bias, int B,
     int H, int Nq, int Nk, int dh, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
@@ -423,9 +568,11 @@ extern "C" int lam_flash_attention_fwd_f32(
   auto lf = static_cast<float*>(lse);
   auto bf = static_cast<const float*>(bias);
   auto st = static_cast<cudaStream_t>(stream);
-  if (dh <= 0 || dh > 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (dh <= 0 || dh > F32_WIDE_DP) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (dh <= 16)
+  if (dh > 64)
+    err = launch_f32_wide(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, st);
+  else if (dh <= 16)
     err = launch_f32<16>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, st);
   else if (dh <= 32)
     err = launch_f32<32>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, st);

@@ -40,6 +40,7 @@ SIGNATURES = {
     "lam_flash_attention_fwd_sm90": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
     "lam_flash_attention_bwd_sm90": [_P] * 10 + [_I] * 5 + [_LP, _F, _I, _P],
     "lam_qk_normrope": [_P] * 8 + [_I] * 5 + [_L] * 6 + [_F, _P],
+    "lam_qk_normrope_f32": [_P] * 8 + [_I] * 5 + [_L] * 6 + [_F, _P],
     "lam_flash_attention_bwd_kv": _FLASH_BWD,
     "lam_flash_attention_bwd_q": _FLASH_BWD,
     "lam_flash_attention_bwd_f32_kv": _FLASH_BWD,

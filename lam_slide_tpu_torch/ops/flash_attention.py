@@ -21,10 +21,13 @@ otherwise with cp.async, a second route of the same kernels.
 K1 also takes a ``[B, Nk]`` boolean key-padding mask (True = attend), which
 becomes the fp32 bias row of ``_mask_to_bias`` (0 or -0.7·finfo(fp32).max,
 flash_attention.py:624-629) added to the scaled logits in the kernel, and
-fp32 operands (stage 1 runs in fp32), through a second kernel with fp32 in
-and out. K4 takes both too: the bias row in both of its kernels (JAX
-``_bwd_probs``), and fp32 operands through a second pair of kernels. The
-packed entry K3 stays unmasked, as in JAX.
+fp32 operands (stage 1 and the fp32 sampling DiTs), through a second
+kernel with fp32 in and out: a thread a query row up to dh 64, four lanes a
+row above it up to dh 128. K4 takes both too: the bias row in both of its
+kernels (JAX ``_bwd_probs``), and fp32 operands through a second pair of
+kernels, up to dh 64 (``F32_GRAD_MAX_DH``): an fp32 call at a wider head
+that needs a gradient raises before its forward launches. The packed entry
+K3 stays unmasked, as in JAX.
 
 Gradients: on CUDA tensors that need one, the forward runs inside
 ``_FlashAttention`` (the JAX ``custom_vjp``), which asks K1 for the per-row
@@ -67,7 +70,10 @@ bwd_sm90_launches = 0
 bwd_sm90_cp_async_launches = 0
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max  # the JAX kernels' mask fill
-F32_MAX_DH = 64  # the fp32 kernel keeps q and its accumulator in registers
+MAX_DH = 128  # every forward kernel, bf16 and fp32 (four lanes a row above 64 in fp32)
+# K4's fp32 pair keeps q/k rows in registers and stops at dh 64, so an fp32
+# call that needs a gradient must stay within it.
+F32_GRAD_MAX_DH = 64
 
 
 def sm90_tma_ok(*tensors: torch.Tensor) -> bool:
@@ -171,9 +177,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != v.shape or k.shape[0] != b or k.shape[1] != h or k.shape[3] != dh:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not match")
-    max_dh = F32_MAX_DH if q.dtype == torch.float32 else 128
-    if not 0 < dh <= max_dh:
-        raise ValueError(f"flash_attention: head dim {dh} is not in (0, {max_dh}] for {q.dtype}")
+    if not 0 < dh <= MAX_DH:
+        raise ValueError(f"flash_attention: head dim {dh} is not in (0, {MAX_DH}]")
 
 
 def _packed_like(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -201,27 +206,38 @@ def _forward(q, k, v, scale: float, with_lse: bool, mask: Optional[torch.Tensor]
     instantiation, fp32 operands the fp32 kernel; all write the lse when
     asked."""
     _check(q, k, v, (torch.bfloat16, torch.float32))
-    b, h, nq, dh = q.shape
-    nk = k.shape[2]
     fp32 = q.dtype == torch.float32
     global launches, bias_launches, fp32_launches
     if not fp32 and mask is None:
         out, lse = _launch_sm90_forward(q, k, v, scale, with_lse, sys.modules[__name__])
         launches += 1
         return out, lse
-    bias = None if mask is None else _bias(mask, q, nk)
+    bias = None if mask is None else _bias(mask, q, k.shape[2])
+    out, lse = _launch_template_forward(q, k, v, scale, with_lse, bias)
+    launches += 1
+    bias_launches += bias is not None
+    fp32_launches += fp32
+    return out, lse
+
+
+def _launch_template_forward(q, k, v, scale: float, with_lse: bool,
+                             bias: Optional[torch.Tensor] = None):
+    """The older template's forward on checked CUDA tensors -> (out in packed
+    memory, lse or None): its bf16 kernel with the fp32 ``[B, Nk]`` bias row
+    (which it needs), or its fp32 kernel with or without one. Counts
+    nothing: K1's ``_forward`` and K5's fp32 path count their own calls."""
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
     out = _packed_like(q, nq)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    fp32 = q.dtype == torch.float32
     with torch.cuda.device(q.device):
         _build.launch("lam_flash_attention_fwd_f32" if fp32 else "lam_flash_attention_fwd",
                       q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                       None if lse is None else lse.data_ptr(),
                       None if bias is None else bias.data_ptr(), b, h, nq, nk, dh,
                       *strides, float(scale), _stream(q))
-    launches += 1
-    bias_launches += bias is not None
-    fp32_launches += fp32
     return out, lse
 
 
@@ -271,19 +287,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     operands; ``mask`` is a ``[B, Nk]`` boolean key-padding mask.
 
     CPU tensors take ``reference_attention``. CUDA tensors launch the kernel
-    (bf16 with dh <= 128 or fp32 with dh <= 64, unit stride on dh) or raise;
-    when they need a gradient, through ``_FlashAttention``, whose backward is
-    K4 with the same bias row and dtype.
+    (bf16 or fp32 with dh <= 128, unit stride on dh) or raise; when they
+    need a gradient, through ``_FlashAttention``, whose backward is K4 with
+    the same bias row and dtype (fp32 only up to dh 64: a wider fp32 call
+    that needs a gradient raises before the forward launches).
     """
     if q.device.type == "cpu":
         return reference_attention(q, k, v, scale, mask=mask)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if needs_grad(q, k, v):
+        _check_fp32_grad("flash_attention", q)
         return _FlashAttention.apply(q, k, v, mask, scale)
     return _forward(q, k, v, scale, with_lse=False, mask=mask)[0]
 
 
+def _check_fp32_grad(name: str, q: torch.Tensor) -> None:
+    """Raise for fp32 operands wider than K4's fp32 pair takes: their
+    gradient has no kernel (csrc/flash_attention_bwd.cu stops at dh 64)."""
+    if q.dtype == torch.float32 and q.shape[-1] > F32_GRAD_MAX_DH:
+        raise ValueError(f"{name}: fp32 operands at head dim {q.shape[-1]} have no backward "
+                         f"kernel (K4-fp32 takes dh <= {F32_GRAD_MAX_DH}; ROADMAP.md Queue 2 "
+                         f"A); run it without a gradient, or in bf16")
+
+
 def _check_backward(q, k, v, out, lse, g, dtypes=(torch.bfloat16,)) -> None:
+    _check_fp32_grad("flash_attention_backward", q)
     _check(q, k, v, dtypes)
     b, h, nq, dh = q.shape
     for name, t in (("out", out), ("g", g)):
@@ -366,9 +394,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take ``reference_flash_backward``. CUDA tensors launch K4
     (bf16 with dh <= 128: the redesigned one-pass backward without a mask,
-    the dK/dV and dQ pair with one; fp32 with dh <= 64: the fp32 pair) or
-    raise; the grads come back in packed ``[B, N, H, dh]`` memory, so their
-    packed ``[B, N, H*dh]`` form is a view.
+    the dK/dV and dQ pair with one; fp32 with dh <= F32_GRAD_MAX_DH: the
+    fp32 pair) or raise; the grads come back in packed ``[B, N, H, dh]``
+    memory, so their packed ``[B, N, H*dh]`` form is a view.
     """
     if q.device.type == "cpu":
         return reference_flash_backward(q, k, v, out, lse, g, scale,

@@ -8,19 +8,25 @@ kernels': the per-head RMS-norm (eps 1e-6, learned fp32 ``[dh]`` scale) and
 the rotation of adjacent (even, odd) pairs of RAW head-major q/k, with the
 rounding points of ``headmajor_rope(headmajor_rmsnorm(x))``, then
 attention. On the card the transform runs once, in a kernel of its own
-(``csrc/qk_normrope.cu``, C entry ``lam_qk_normrope``), which writes
-contiguous head-major ``q_t``/``k_t``; the attention is the redesigned
-flash forward of ``csrc/flash_fwd_sm90.cu`` on ``(q_t, k_t, v)``, and its
-backward that of ``csrc/flash_bwd_sm90.cu``. ``_FlashNormRope`` keeps the
-forward's ``q_t``/``k_t`` for the backward, whose grads with respect to the
-TRANSFORMED q/k are chained to the raw q/k and the two scales by autograd of
-the plain pre-transform (``chain_backward``), as ``_nr_core_bwd`` does with
-``jax.vjp`` of ``_pre_transform``.
+(``csrc/qk_normrope.cu``, C entries ``lam_qk_normrope`` in bf16 and
+``lam_qk_normrope_f32``), which writes contiguous head-major ``q_t``/``k_t``.
+In bf16 the attention is the redesigned flash forward of
+``csrc/flash_fwd_sm90.cu`` on ``(q_t, k_t, v)``, and its backward that of
+``csrc/flash_bwd_sm90.cu``. In fp32 (the fp32 sampling DiTs at dh 128) it
+is K1's fp32 kernel of ``csrc/flash_attention.cu``, forward only: an fp32
+call that needs a gradient raises (K6 in fp32 is not ported).
+``_FlashNormRope`` keeps the forward's ``q_t``/``k_t`` for the backward,
+whose grads with respect to the TRANSFORMED q/k are chained to the raw q/k
+and the two scales by autograd of the plain pre-transform
+(``chain_backward``), as ``_nr_core_bwd`` does with ``jax.vjp`` of
+``_pre_transform``.
 
 Counters (plain integers, touched only where a kernel launches):
-``launches`` counts K5 calls, ``transform_launches`` the transform kernel's
-launches (one a K5 call, one a ``flash_attention_normrope_backward`` call,
-one a ``qk_normrope`` call), ``sm90_launches`` the K5 calls on the
+``launches`` counts K5 calls of both dtypes and ``fp32_launches`` those in
+fp32 (the transform's fp32 kernel, then K1's fp32 kernel);
+``transform_launches`` counts the transform kernel's launches in both dtypes
+(one a K5 call, one a ``flash_attention_normrope_backward`` call, one a
+``qk_normrope`` call); ``sm90_launches`` the bf16 K5 calls on the
 redesigned forward and ``sm90_cp_async_launches`` those of them on its
 cp.async route; ``bwd_launches`` counts K6 calls, ``bwd_sm90_launches`` the
 redesigned backward's kernels (three a call) and
@@ -39,6 +45,7 @@ from lam_slide_tpu_torch.ops.flash_attention import (
     _check_backward,
     _launch_sm90_backward,
     _launch_sm90_forward,
+    _launch_template_forward,
     _stream,
     flash_attention,
     reference_attention,
@@ -47,7 +54,9 @@ from lam_slide_tpu_torch.ops.flash_attention import (
 from lam_slide_tpu_torch.ops.packed_attention import headmajor_rmsnorm, headmajor_rope
 
 EPS = 1e-6
+DTYPES = (torch.bfloat16, torch.float32)  # the forward's; the backward (K6) takes bf16
 launches = 0
+fp32_launches = 0
 transform_launches = 0
 sm90_launches = 0
 sm90_cp_async_launches = 0
@@ -127,12 +136,14 @@ def empty_transformed(q: torch.Tensor, k: torch.Tensor) -> Tuple[torch.Tensor, t
 
 
 def _launch_transform(q, k, q_scale, k_scale, cos, sin):
-    """The transform kernel on checked CUDA tensors -> contiguous (q_t, k_t)."""
+    """The transform kernel on checked CUDA tensors (bf16 or fp32) ->
+    contiguous (q_t, k_t) in q's dtype."""
     global transform_launches
     b, h, nq, dh = q.shape
     q_t, k_t = empty_transformed(q, k)
+    entry = "lam_qk_normrope_f32" if q.dtype == torch.float32 else "lam_qk_normrope"
     with torch.cuda.device(q.device):
-        _build.launch("lam_qk_normrope", q.data_ptr(), k.data_ptr(), q_t.data_ptr(),
+        _build.launch(entry, q.data_ptr(), k.data_ptr(), q_t.data_ptr(),
                       k_t.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(),
                       sin.data_ptr(), b, h, nq, k.shape[2], dh, *q.stride()[:3],
                       *k.stride()[:3], EPS, _stream(q))
@@ -142,32 +153,37 @@ def _launch_transform(q, k, q_scale, k_scale, cos, sin):
 
 def qk_normrope(q: torch.Tensor, k: torch.Tensor, q_scale: torch.Tensor,
                 k_scale: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-    """(q_t, k_t): the QK RMS-norm + RoPE of raw head-major bf16 q/k, written
-    once into contiguous head-major memory.
+    """(q_t, k_t): the QK RMS-norm + RoPE of raw head-major q/k, written
+    once into contiguous head-major memory in q's dtype.
 
     CPU tensors take ``pre_transform``. CUDA tensors launch the transform
-    kernel (bf16 q/k with unit stride on an even dh <= 128, fp32 scales and
-    tables) or raise; CUDA inputs that need a gradient raise too (the kernel
-    paths differentiate through ``chain_backward``).
+    kernel (bf16 or fp32 q/k with unit stride on an even dh <= 128, fp32
+    scales and tables) or raise; CUDA inputs that need a gradient raise too
+    (the kernel paths differentiate through ``chain_backward``).
     """
     if q.device.type == "cpu":
         return pre_transform(q, k, q_scale, k_scale, cos, sin)
     if needs_grad(q, k, q_scale, k_scale):
         raise ValueError("qk_normrope: the transform kernel has no autograd; differentiate "
                          "through flash_attention_normrope")
-    _check(q, k, k)
+    _check(q, k, k, DTYPES)
     _check_normrope(q, q_scale, k_scale, cos, sin, k.shape[2])
     return _launch_transform(q, k, q_scale, k_scale, cos, sin)
 
 
 def _forward_kernels(q, k, v, q_scale, k_scale, cos, sin, scale: float, with_lse: bool):
-    """Launch K5 on checked CUDA tensors: the transform kernel, then the
-    redesigned forward on (q_t, k_t, v) -> (out, lse or None, q_t, k_t)."""
-    global launches
-    _check(q, k, v)
+    """Launch K5 on checked CUDA tensors: the transform kernel, then on (q_t,
+    k_t, v) the redesigned forward (bf16) or K1's fp32 kernel (fp32) ->
+    (out, lse or None, q_t, k_t)."""
+    global launches, fp32_launches
+    _check(q, k, v, DTYPES)
     _check_normrope(q, q_scale, k_scale, cos, sin, k.shape[2])
     q_t, k_t = _launch_transform(q, k, q_scale, k_scale, cos, sin)
-    out, lse = _launch_sm90_forward(q_t, k_t, v, scale, with_lse, _COUNTS)
+    if q.dtype == torch.float32:
+        out, lse = _launch_template_forward(q_t, k_t, v, scale, with_lse)
+        fp32_launches += 1
+    else:
+        out, lse = _launch_sm90_forward(q_t, k_t, v, scale, with_lse, _COUNTS)
     launches += 1
     return out, lse, q_t, k_t
 
@@ -218,10 +234,12 @@ def flash_attention_normrope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention over RAW head-major q/k with QKNorm + RoPE.
 
     CPU tensors take ``reference_attention_normrope``. CUDA tensors launch
-    K5 (bf16 q/k/v with unit stride on an even dh <= 128, fp32 scales and
-    tables: the transform kernel, then the redesigned flash forward) or
-    raise; when they need a gradient, through ``_FlashNormRope``, whose
-    backward is K6. With a ``[B, Nk]`` key-padding mask, JAX's fallback
+    K5 (bf16 or fp32 q/k/v with unit stride on an even dh <= 128, fp32
+    scales and tables: the transform kernel, then the redesigned flash
+    forward in bf16 or K1's fp32 kernel in fp32) or raise; bf16 tensors that
+    need a gradient go through ``_FlashNormRope``, whose backward is K6, and
+    fp32 ones raise (the fp32 path is forward only: K6 in fp32 is not
+    ported). With a ``[B, Nk]`` key-padding mask, JAX's fallback
     (flash_normrope.py:496-498): the plain ``pre_transform``, then
     ``flash_attention(..., mask=mask)``, which is K1 with the bias on CUDA
     tensors and ``reference_attention`` on CPU ones.
@@ -235,6 +253,9 @@ def flash_attention_normrope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return reference_attention_normrope(q, k, v, q_scale, k_scale, cos, sin, scale)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if needs_grad(q, k, v, q_scale, k_scale):
+        if q.dtype == torch.float32:
+            raise ValueError("flash_attention_normrope: the fp32 kernels are forward only; K6 "
+                             "in fp32 is not ported (ROADMAP.md Queue 2 A)")
         return _FlashNormRope.apply(q, k, v, q_scale, k_scale, cos, sin, scale)
     return _forward(q, k, v, q_scale, k_scale, cos, sin, scale, with_lse=False)[0]
 

@@ -1,5 +1,6 @@
-"""Time ablated copies of K2, K7, K8, K8-fp32, K9 (forward and backward) and
-K11 on the card, and the pieces of K5 and K6: what holds each back.
+"""Time ablated copies of K1-fp32 at dh 128, K2, K7, K8, K8-fp32, K9 (forward
+and backward) and K11 on the card, and the pieces of K5 and K6: what holds
+each back.
 
 Each variant is a copy of the kernel's source with one piece of its work
 taken out by a text substitution, built alone with nvcc (beside
@@ -18,7 +19,10 @@ without the norm, RoPE and attention, with the first two weight tiles
 loaded and then reused, without the barrier that ends a tile) and K7 with
 the residual at the MD17 protocol batch's [320, 30, 192, 256] and the 4AA
 [8, 1000, 2, 384] (rows walked in h's order instead of x's, one row a warp
-instead of two, without h's loads, without stores). A variant's
+instead of two, without h's loads, without stores); K1's fp32 kernel at dh
+128 at MD17's [1920, 2, 192, 128] and the 4AA eval's [4, 3, 1000, 128]
+(uncapped registers: one block an SM, 32 query rows a block, without the
+K/V tile loads, without the PV products). A variant's
 outputs are wrong by design; only its time means anything. Work a variant
 skips behind a run-time condition that never holds (``a.R < 0``) is still
 compiled, so what it feeds is not optimised away. The variants run in turns
@@ -35,7 +39,7 @@ the profiler too. Each line names the card and its power limit. Run from
 a tree's root:
 
     PYTHONPATH=. python lam_slide_tpu_torch/tools/kernel_variants.py \
-        [K2 K9-forward K11 K9-backward K5-K6 K8 K8-fp32 K7]
+        [K1-fp32-wide K2 K9-forward K11 K9-backward K5-K6 K8 K8-fp32 K7]
 """
 
 import argparse
@@ -67,6 +71,22 @@ K11_VARIANTS = {
     "no chunk barrier": [("named_sync(1, consumers);  // the slab", "// the slab")],
     "no dK/dV products": [("wgmma_rs<DV, 1>(dv, pf[kk]", "if (false) wgmma_rs<DV, 1>(dv, pf[kk]"),
                           ("wgmma_rs<DV, 1>(dk, df[kk]", "if (false) wgmma_rs<DV, 1>(dk, df[kk]")],
+}
+# K1's fp32 kernel at 64 < dh <= 128 (four lanes a query row): occupancy
+# (at most 128 registers a thread, two 256-thread blocks an SM; uncapped,
+# ptxas takes 160 and one block fits) against its K/V tile loads and its
+# products
+K1_F32_WIDE_VARIANTS = {
+    "kernel": [],
+    "one block an SM (160 registers)": [
+        ("__global__ void __launch_bounds__(F32_WIDE_THREADS, 2)",
+         "__global__ void __launch_bounds__(F32_WIDE_THREADS)")],
+    "32 rows a block": [("constexpr int F32_WIDE_ROWS = 64;", "constexpr int F32_WIDE_ROWS = 32;")],
+    "no K/V tile loads": [("kf[idx] = ok ? kp[", "kf[idx] = Nq < 0 ? kp["),
+                          ("vf[idx] = ok ? vp[", "vf[idx] = Nq < 0 ? vp[")],
+    "no PV products": [("        const float4 vv = Vs[j][g + F32_GROUP * i];",
+                        "        if (Nq >= 0) continue;\n"
+                        "        const float4 vv = Vs[j][g + F32_GROUP * i];")],
 }
 K2_LOOKUP = "static_cast<uint32_t>(__ldg(table + (in ? k + (h >> 15) * GELU_SPAN : 0u)))"
 K2_VARIANTS = {
@@ -387,7 +407,25 @@ def _k5_k6(gen, dev, stream, smi) -> None:
     print(f"K5/K6 pieces [{b},{h},{n},{dh}] transform (device): {device:.4f} ms | {smi}")
 
 
-KERNELS = {"K2": _k2, "K9-forward": _k9_forward, "K11": _k11, "K9-backward": _k9_backward,
+def _k1_f32_wide(gen, dev, stream, smi) -> None:
+    """K1's fp32 kernel at dh 128 on head-major views of packed fp32 buffers:
+    MD17's fp32 spatial axis at 2 x 128 [1920, 2, 192, 128] and the 4AA
+    eval window's temporal axis at 3 x 128 [4, 3, 1000, 128]."""
+    k1 = _build_variants("flash_attention.cu", "lam_flash_attention_fwd_f32",
+                         K1_F32_WIDE_VARIANTS)
+    for b, h, n in ((1920, 2, 192), (4, 3, 1000)):
+        dh = 128
+        qkv = torch.randn(b, n, 3 * h * dh, generator=gen).to(dev)
+        q, k, v = (t.transpose(1, 2) for t in qkv.unflatten(-1, (3, h, dh)).unbind(2))
+        out = torch.empty(b, n, h, dh, device=dev).transpose(1, 2)
+        strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, None, b, h, n, n,
+                dh, *strides, dh ** -0.5, stream)
+        _in_turns(f"K1-fp32 [{b},{h},{n},{dh}]",
+                  {name: _checked(fn, args) for name, fn in k1.items()}, smi)
+
+
+KERNELS = {"K1-fp32-wide": _k1_f32_wide, "K2": _k2, "K9-forward": _k9_forward, "K11": _k11, "K9-backward": _k9_backward,
            "K5-K6": _k5_k6, "K8": _k8, "K8-fp32": _k8_f32, "K7": _k7}
 
 

@@ -16,7 +16,9 @@ package, on the CPU.
   JAX's.
 * fp32 protocol parity: JAX ``evaluate_md17`` on its registry's fp32
   ``test_model`` and the port's on the converted weights, fed the same
-  initial noise, K=2, ``k_chunk=1``: ADE/FDE within 1e-4 relative.
+  initial noise, K=2, ``k_chunk=1``: ADE/FDE within 1e-4 relative; at the
+  smoke width, and with the DiT widened to 2 x dh 128 (hidden 256,
+  ``num_heads=2``: its temporal attention takes K5's branch).
 """
 
 import ast
@@ -30,9 +32,11 @@ import numpy as np
 import pytest
 import torch
 
+from lam_slide_tpu.composites import md17 as jmd17
 from lam_slide_tpu.composites import testing as jtesting
 from lam_slide_tpu.experiments import registry as jreg
 from lam_slide_tpu_torch import convert
+from lam_slide_tpu_torch.composites import md17 as tmd17
 from lam_slide_tpu_torch.composites import testing as ttesting
 from lam_slide_tpu_torch.experiments import registry as treg
 from lam_slide_tpu_torch.train.cli import main
@@ -192,24 +196,40 @@ def test_second_stage_from_a_run_id_prefers_the_ema(tmp_path):
 
 # ---------------------------------------------------------------- fp32 protocol parity
 
-def test_fp32_protocol_matches_jax(monkeypatch):
+@pytest.mark.parametrize("width", ["smoke", "2x128"])
+def test_fp32_protocol_matches_jax(monkeypatch, width):
     """The JAX registry's smoke stage 2 with a bf16 training DiT and its fp32
     test_model; the port's test_model loaded with the same (converted)
     weights. Both run evaluate_md17 over the first test batch, K=2,
-    k_chunk=1, fed the same initial noise."""
-    jrun = jreg.md17_second_stage(smoke=True, molecule="aspirin", dit_dtype="bfloat16")
+    k_chunk=1, fed the same initial noise. At "2x128" both registries take
+    ``num_heads=2`` and both fp32 test models are rebuilt at hidden 256 on
+    the same frozen stage 1, with the JAX init's weights."""
+    heads = {"num_heads": 2} if width == "2x128" else {}
+    jrun = jreg.md17_second_stage(smoke=True, molecule="aspirin", dit_dtype="bfloat16", **heads)
     run = treg.md17_second_stage(smoke=True, molecule="aspirin", dit_dtype="bfloat16",
-                                 device="cpu")
+                                 device="cpu", **heads)
     params = jax.tree.map(np.asarray, jrun.variables["params"])
     fs_vars = jax.tree.map(np.asarray, jrun.variables["constants"]["first_stage"])
-    ss = run.test_model
+    jss, ss = jrun.test_model, run.test_model
+    batch = next(iter(run.test_loaders["aspirin"]))
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    if width == "2x128":
+        jcfg = dataclasses.replace(jmd17.MD17SecondStageConfig(**jrun.meta["config"]),
+                                   hidden_size=256)
+        jss = jmd17.build_md17_second_stage(jcfg, jss.first_stage, fs_vars,
+                                            dtype=jnp.float32)
+        x1, mk = jss.prepare_batch(fs_vars, jbatch)
+        params = jax.tree.map(np.asarray, jax.jit(jss.backbone.init)(
+            jax.random.PRNGKey(1), x1, jnp.zeros((x1.shape[0],)), mk["x_cond"],
+            mk["x_cond_mask"], mk.get("y_class"))["params"])
+        ss = tmd17.build_md17_second_stage(dataclasses.replace(run.config, hidden_size=256),
+                                           ss.first_stage, device="cpu")
+        assert ss.backbone.backbone.hidden_size // ss.backbone.backbone.num_heads == 128
     ss.backbone.load_state_dict(convert.class_cond_dit_state_dict_from_jax(params))
     ss.first_stage.load_state_dict(convert.first_stage_state_dict_from_jax(
         fs_vars["params"], fs_vars["constants"]))
-    batch = next(iter(run.test_loaders["aspirin"]))
     loaders = {"aspirin": [batch]}
-    x1, _ = jax.jit(jrun.test_model.prepare_batch)(fs_vars, {k: jnp.asarray(v)
-                                                             for k, v in batch.items()})
+    x1, _ = jax.jit(jss.prepare_batch)(fs_vars, jbatch)
     noise = np.random.default_rng(7).standard_normal(x1.shape).astype(np.float32)
 
     def jax_normal(key, shape, dtype=jnp.float32):
@@ -222,8 +242,7 @@ def test_fp32_protocol_matches_jax(monkeypatch):
     monkeypatch.setattr(jax.random, "normal", jax_normal)
     monkeypatch.setattr(torch, "randn", torch_randn)
     scale = treg.MD17_SCALES["aspirin"]
-    want = jtesting.evaluate_md17(jrun.test_model, params, fs_vars, loaders, scale=scale, k=2,
-                                  k_chunk=1)
+    want = jtesting.evaluate_md17(jss, params, fs_vars, loaders, scale=scale, k=2, k_chunk=1)
     got = ttesting.evaluate_md17(ss, loaders, scale=scale, k=2, k_chunk=1)
     assert set(got) == set(want) == {"test/aspirin/ade", "test/aspirin/fde"}
     for k, v in want.items():

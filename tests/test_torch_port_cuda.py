@@ -515,9 +515,9 @@ def test_flash_normrope_backward_matches_plain(dev, b, h, nq, nk, dh):
 
 
 def test_flash_refuses_what_it_cannot_take(dev):
-    q = torch.zeros(1, 2, 128, 80, device=dev)
+    q = torch.zeros(1, 2, 128, 160, device=dev)
     with pytest.raises(ValueError):
-        fa.flash_attention(q, q, q)  # fp32 with dh > 64
+        fa.flash_attention(q, q, q)  # fp32 with dh > 128
     wide = torch.zeros(1, 2, 128, 160, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fa.flash_attention(wide, wide, wide)  # dh > 128
@@ -1377,12 +1377,15 @@ def test_spatial_block_fp32_refusals(dev):
     assert (fsb.launches, fsb.f32_launches) == before
 
 
-def test_fp32_dit_forward_runs_the_fp32_kernels(dev, no_tf32):
-    """The 4AA eval's fp32 DiT (hidden 384, 16 x 24, T = 1000, L = 2) at two
-    layers and B=2: one forward launches K8-fp32, K3-fp32 (K1's fp32
-    counter), K2-fp32 and K7-fp32, and no bf16 kernel; its output is within
-    F32_MODEL_REL_TOL of the plain path's."""
-    model = LatentDiT(depth=2, in_dim=96, hidden_size=384, num_heads=16, mlp_ratio=2.0,
+@pytest.mark.parametrize("heads", [16, 3])
+def test_fp32_dit_forward_runs_the_fp32_kernels(dev, no_tf32, heads):
+    """The 4AA eval's fp32 DiT (hidden 384, T = 1000, L = 2) at two layers and
+    B=2, at 16 x 24 and 3 x 128: one forward launches K8-fp32, its temporal
+    attention in fp32 (K3-fp32, K1's fp32 counter, at 16 x 24; K5-fp32, the
+    fp32 transform then K1's fp32 kernel, at 3 x 128), K2-fp32 and K7-fp32,
+    and no bf16 kernel; its output is within F32_MODEL_REL_TOL of the plain
+    path's."""
+    model = LatentDiT(depth=2, in_dim=96, hidden_size=384, num_heads=heads, mlp_ratio=2.0,
                       reference_init=False, dtype=torch.float32, device=dev,
                       generator=_gen(86)).eval()
     g = _gen(87)
@@ -1390,9 +1393,12 @@ def test_fp32_dit_forward_runs_the_fp32_kernels(dev, no_tf32):
     mask = torch.zeros(2, 1000, 2, dtype=torch.int32, device=dev)
     mask[:, 0] = 1
     t = torch.full((2,), 0.5, device=dev)
-    counters = ((fsb, "f32_launches"), (fsb, "launches"), (fa, "fp32_launches"),
-                (fa, "launches"), (fm, "fp32_launches"), (fm, "launches"),
+    attn = fa if heads == 16 else fnr
+    counters = ((fsb, "f32_launches"), (fsb, "launches"), (attn, "fp32_launches"),
+                (attn, "launches"), (fm, "fp32_launches"), (fm, "launches"),
                 (fad, "fp32_launches"), (fad, "launches"))
+    other = fnr if attn is fa else fa
+    other_before = (other.launches, fnr.sm90_launches)
     before = [getattr(mod, name) for mod, name in counters]
     with torch.no_grad():
         got = model(x, t, x, mask)
@@ -1403,5 +1409,161 @@ def test_fp32_dit_forward_runs_the_fp32_kernels(dev, no_tf32):
     moved = [a - b for a, b in zip(after, before)]
     for fp32, total in zip(moved[0::2], moved[1::2]):
         assert fp32 > 0 and fp32 == total, moved
+    assert (other.launches, fnr.sm90_launches) == other_before
     assert torch.isfinite(got).all() and got.dtype == torch.float32
     assert _rel_err(got, want) <= F32_MODEL_REL_TOL
+
+
+# ---- dh 128 in fp32: K1-fp32 over 64 < dh <= 128, the fp32 transform, K5-fp32 --
+
+# Against the plain versions with TF32 off, relative to max |out| (the
+# transform: per tensor), and the lse absolute: exact fp32 on both sides up
+# to the order of the sums (the dot products split over four lanes, the
+# transform's sum of squares a warp shuffle). The limits chip_smoke.py uses:
+# 3x the worst readings of python -m lam_slide_tpu_torch.tools.dh128_readings
+# on an H100 (2.210e-6, lse 2.384e-6, 2.122e-7, 2.326e-6).
+K1_F32_WIDE_REL_TOL = 6.7e-6
+LSE_F32_WIDE_ATOL = 7.2e-6
+TRANSFORM_F32_REL_TOL = 6.4e-7
+K5_F32_REL_TOL = 7e-6
+
+
+def _fp32_counts():
+    return (fa.launches, fa.fp32_launches, fa.bias_launches, fa.sm90_launches)
+
+
+@pytest.mark.parametrize("b,h,nq,nk,dh,masked", [
+    (1920, 2, 192, 192, 128, False),  # the MD17 fp32 DiT's spatial axis
+    (4096, 2, 30, 30, 128, False),    # its temporal axis (T = 30)
+    (2, 3, 1000, 1000, 128, False),   # the 4AA eval's temporal axis at 3 x 128
+    (3, 2, 130, 257, 96, False),      # ragged query and key tiles
+    (2, 2, 77, 45, 72, False),        # N % 32 != 0, dh % 8 != 0
+    (3, 2, 130, 257, 128, True),      # the key-padding bias, an all-masked row
+    (22000, 3, 20, 20, 128, False),   # 66,000 batch x heads: past gridDim.y's cap
+])
+def test_flash_fp32_wide_heads_match_plain(dev, no_tf32, b, h, nq, nk, dh, masked):
+    """K1's fp32 kernel at 64 < dh <= 128 (four lanes a query row) on
+    head-major strided views: the output in packed memory, two calls
+    bit-identical, the lse within K1-fp32's limit, counted under K1 and its
+    fp32 (and bias) counters, never the redesigned bf16 kernel's."""
+    g = _gen(90)
+    qbuf = torch.randn(b, nq, h * dh, generator=g).to(dev)
+    kvbuf = torch.randn(b, nk, 2 * h * dh, generator=g).to(dev)
+    q = qbuf.view(b, nq, h, dh).transpose(1, 2)
+    k, v = (t.transpose(1, 2) for t in kvbuf.view(b, nk, 2, h, dh).unbind(2))
+    mask = _key_mask(g, dev, b, nk) if masked else None
+    before = _fp32_counts()
+    got, lse = fa._forward(q, k, v, dh ** -0.5, with_lse=True, mask=mask)
+    again = fa.flash_attention(q, k, v, mask=mask)
+    assert _launched(before, _fp32_counts()) == (2, 2, 2 * masked, 0)
+    want, want_lse = fa.reference_attention(q, k, v, dh ** -0.5, return_lse=True, mask=mask)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert got.transpose(1, 2).is_contiguous() and torch.equal(got, again)
+    assert _rel_err(got, want) <= K1_F32_WIDE_REL_TOL
+    assert (lse - want_lse).abs().max().item() <= LSE_F32_WIDE_ATOL
+    if masked:
+        uniform = v[0].mean(dim=1, keepdim=True).expand_as(got[0])
+        torch.testing.assert_close(got[0], uniform, atol=1e-5, rtol=0)
+
+
+def _transform_views(g, dev, b, heads, nq, nk, dh, dtype):
+    qbuf = (2 * torch.randn(b, nq, 3 * heads * dh, generator=g)).to(dev, dtype)
+    kbuf = (2 * torch.randn(b, nk, 3 * heads * dh, generator=g)).to(dev, dtype)
+    q = qbuf[..., :heads * dh].unflatten(-1, (heads, dh)).transpose(1, 2)
+    k = kbuf[..., heads * dh:2 * heads * dh].unflatten(-1, (heads, dh)).transpose(1, 2)
+    v = kbuf[..., 2 * heads * dh:].unflatten(-1, (heads, dh)).transpose(1, 2)
+    qs, ks = ((1 + 0.2 * torch.randn(dh, generator=g)).to(dev) for _ in range(2))
+    cos, sin = rope_cos_sin(max(nq, nk), dh, device=dev)
+    return q, k, v, qs, ks, cos, sin
+
+
+@pytest.mark.parametrize("b,heads,nq,nk,dh", [(2, 3, 1000, 1000, 128), (12288, 2, 30, 30, 128),
+                                              (3, 4, 130, 257, 64), (2, 2, 70, 33, 22)])
+def test_qk_normrope_fp32_matches_pre_transform(dev, b, heads, nq, nk, dh):
+    """The transform kernel in fp32 on raw strided views of packed buffers
+    against ``pre_transform``: contiguous fp32 head-major outputs within
+    TRANSFORM_F32_REL_TOL of max |want|, one launch under the transform's
+    counter. dh 22 takes the element-wise route (dh % 4 != 0)."""
+    q, k, _, qs, ks, cos, sin = _transform_views(_gen(91), dev, b, heads, nq, nk, dh,
+                                                 torch.float32)
+    before = fnr.transform_launches
+    got = fnr.qk_normrope(q, k, qs, ks, cos, sin)
+    assert fnr.transform_launches == before + 1
+    want = fnr.pre_transform(q, k, qs, ks, cos, sin)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.is_contiguous() and a.shape == w.shape and a.dtype == torch.float32
+        assert _rel_err(a, w) <= TRANSFORM_F32_REL_TOL
+
+
+@pytest.mark.parametrize("b,heads,nq,nk,dh", [
+    (2, 3, 1000, 1000, 128),   # the 4AA eval at 3 x 128, B = 2 (L = 1 here)
+    (8, 3, 1000, 1000, 128),
+    (1920, 2, 192, 192, 128),  # the MD17 fp32 DiT at 2 x 128: spatial
+    (12288, 2, 30, 30, 128),   # and temporal
+    (3, 2, 130, 257, 96),      # ragged
+])
+def test_flash_normrope_fp32_matches_plain(dev, no_tf32, b, heads, nq, nk, dh):
+    """K5 in fp32: the fp32 transform, then K1's fp32 kernel on (q_t, k_t, v),
+    within K5_F32_REL_TOL of the plain version; K5's counters (K5, fp32,
+    transform) move once, its sm90 counters and K1's not at all."""
+    args = _transform_views(_gen(92), dev, b, heads, nq, nk, dh, torch.float32)
+    before, k1 = _normrope_counts(), _fp32_counts()
+    fp32_before = fnr.fp32_launches
+    got = fnr.flash_attention_normrope(*args)
+    assert _launched(before, _normrope_counts()) == (1, 1, 0, 0, 0, 0, 0)
+    assert fnr.fp32_launches == fp32_before + 1 and _fp32_counts() == k1
+    want = fnr.reference_attention_normrope(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert _rel_err(got, want) <= K5_F32_REL_TOL
+
+
+@pytest.mark.parametrize("b,n", [(1920, 192), (12288, 30)])
+def test_normrope_bf16_at_md17_2x128_shapes(dev, b, n):
+    """K5 (with its lse) and K6 in bf16 at the MD17 stage-2 DiT's 2 x 128
+    shapes at B = 64 (the spatial axis over L = 192 and the temporal one over
+    T = 30), against the plain versions: K1's limits for the output, K5's lse
+    limit at dh 128, K6_REL_TOL for the grads."""
+    dh = 128
+    g = _gen(93)
+    q, k, v, grad = _heads_views(g, dev, b, 2, n, n, dh, scale=2.0)
+    qs, ks = ((1 + 0.2 * torch.randn(dh, generator=g)).to(dev) for _ in range(2))
+    cos, sin = rope_cos_sin(n, dh, device=dev)
+    before = _normrope_counts()
+    out, lse = fnr._forward(q, k, v, qs, ks, cos, sin, dh ** -0.5, with_lse=True)
+    args = (q, k, v, qs, ks, cos, sin, out, lse, grad, dh ** -0.5)
+    got = fnr.flash_attention_normrope_backward(*args)
+    assert _launched(before, _normrope_counts()) == (1, 2, 1, 0, 1, 3, 0)
+    want_out, want_lse = fa.reference_attention(*fnr.pre_transform(q, k, qs, ks, cos, sin), v,
+                                                dh ** -0.5, return_lse=True)
+    want = fnr.reference_normrope_backward(*args)
+    torch.cuda.synchronize()
+    _assert_k1_close(out, want_out)
+    assert (lse - want_lse).abs().max().item() <= LSE_ATOL["K5"][dh]
+    _assert_grads_close(got, want, K6_REL_TOL)
+
+
+def test_fp32_grads_at_wide_heads_raise_before_any_launch(dev):
+    """fp32 at dh > 64 has forward kernels only: with a gradient K1 (and its
+    packed entry) and K5 raise before their forwards launch, and K4-fp32
+    refuses dh 128; at dh 64 an fp32 K1 call with a gradient still goes
+    through K4's fp32 pair."""
+    q = torch.zeros(1, 2, 64, 128, device=dev, requires_grad=True)
+    qs, cos, sin = torch.ones(128, device=dev), *rope_cos_sin(64, 128, device=dev)
+    before = (*_fp32_counts(), *_normrope_counts(), fa.bwd_fp32_launches)
+    with pytest.raises(ValueError, match="backward"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="backward"):
+        fa.flash_attention_packed(*(q.transpose(1, 2).flatten(2) for _ in range(3)), 2)
+    with pytest.raises(ValueError, match="forward only"):
+        fnr.flash_attention_normrope(q, q, q, qs, qs, cos, sin)
+    d = q.detach()
+    with pytest.raises(ValueError, match="backward"):
+        fa.flash_attention_backward(d, d, d, d, torch.zeros(1, 2, 64, device=dev), d, 0.1)
+    torch.cuda.synchronize()
+    assert (*_fp32_counts(), *_normrope_counts(), fa.bwd_fp32_launches) == before
+    q64 = torch.randn(1, 2, 64, 64, device=dev, requires_grad=True)
+    fa.flash_attention(q64, q64, q64).sum().backward()
+    assert fa.bwd_fp32_launches == before[-1] + 2 and torch.isfinite(q64.grad).all()

@@ -1,7 +1,9 @@
 """The port's 4AA eval pieces (``analysis/``) against the JAX package's, on
 the CPU.
 
-* One Euler-10 rollout window at smoke width in fp32: the port's
+* One Euler-10 rollout window in fp32, at smoke width and at 2 x dh 128
+  (hidden 256, the head width of the 3 x 128 split, whose temporal
+  attention takes K5's branch): the port's
   ``make_sample_fn(...)(batch, noise=...)`` fed the noise JAX draws
   (lam_slide_tpu/composites/second_stage.py:202-203: split the key, then
   ``normal``) on the JAX weights, decoded ``atom14_pos`` within 1e-4 of the
@@ -44,6 +46,7 @@ from lam_slide_tpu_torch.analysis import jsd as tjsd
 from lam_slide_tpu_torch.analysis import msm as tmsm
 from lam_slide_tpu_torch.analysis import tica as ttica
 from lam_slide_tpu_torch.analysis.rollout import RolloutSampler as TRollout
+from lam_slide_tpu_torch.composites.peptide import build_peptide_second_stage
 from lam_slide_tpu_torch.data.peptide import PeptideDataset
 from lam_slide_tpu_torch.experiments import registry as treg
 
@@ -57,16 +60,22 @@ def _jb(batch):
     return {k: jnp.asarray(v) for k, v in batch.items()}
 
 
-@pytest.fixture(scope="module")
-def world():
+# DiT widths of the world: the smoke registry's, and a dh-128 one
+WIDTHS = {"smoke": {}, "2x128": {"hidden_size": 256, "num_heads": 2}}
+
+
+@pytest.fixture(scope="module", params=list(WIDTHS))
+def world(request):
     """The port's smoke stage 1 and 2 (fp32) holding the JAX init's weights
     (the DiT's perturbed: the reference init zeroes its output layer), the
-    JAX second stage on the same weights, and one test batch."""
+    JAX second stage on the same weights, and one test batch; the DiT at
+    the smoke width or widened to 2 x dh 128."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("LAM_SLIDE_NO_DATA_CACHE", "1")
         run1 = treg.peptide_first_stage(smoke=True, device="cpu")
         run2 = treg.peptide_second_stage(first_stage=run1, smoke=True, device="cpu")
     batch = next(iter(run2.test_loaders["test"]))
+    cfg = dataclasses.replace(run2.config, **WIDTHS[request.param])
     jfs = jpep.build_peptide_first_stage(jpep.PeptideFirstStageConfig(
         **dataclasses.asdict(run1.config)))
     fs_vars = jax.tree.map(np.asarray, jax.jit(jfs.init)(
@@ -75,7 +84,7 @@ def world():
         fs_vars["params"], fs_vars["constants"]))
     jcfg = jpep.PeptideSecondStageConfig(**{
         k: tuple(v) if isinstance(v, list) else v
-        for k, v in dataclasses.asdict(run2.config).items()})
+        for k, v in dataclasses.asdict(cfg).items()})
     jss = jpep.build_peptide_second_stage(jcfg, jfs, fs_vars)
     x1, mk = jax.jit(jss.prepare_batch)(fs_vars, _jb(batch))
     params = jax.jit(jss.backbone.init)(jax.random.PRNGKey(1), x1, jnp.zeros((x1.shape[0],)),
@@ -84,7 +93,8 @@ def world():
     params = jax.tree.map(
         lambda a: (np.asarray(a) + 0.05 * rng.standard_normal(a.shape)).astype(np.float32),
         params)
-    ss = run2.test_model
+    ss = (run2.test_model if cfg == run2.config
+          else build_peptide_second_stage(cfg, run1.model, device="cpu"))
     ss.backbone.load_state_dict(convert.latent_dit_state_dict_from_jax(params))
     return ss, jss, params, fs_vars, batch
 

@@ -7,7 +7,10 @@
   and inputs that need a gradient go through a ``torch.autograd.Function``
   (the kernels write through raw pointers, which autograd cannot see).
 * A masked or fp32 flash call (K1) that needs a gradient reaches the
-  autograd Function whose backward is K4 with the bias and fp32 operands.
+  autograd Function whose backward is K4 with the bias and fp32 operands;
+  fp32 operands wider than K4-fp32 takes (dh > 64), and an fp32 K5 call,
+  take the forward kernels without a gradient and raise with one, before
+  anything launches.
 * K10 (fused temporal attention) and K11 (the short grouped backward) are
   wrappers like the others.
 * A failed kernel build raises.
@@ -119,6 +122,22 @@ def _fp32_attn_inputs(device):
     return [t.float() for t in _attn_inputs(device)]
 
 
+def _fp32_wide_attn_inputs(device):
+    return [torch.zeros(1, 2, 130, 128, device=device) for _ in range(3)]
+
+
+def _fp32_normrope_inputs(device):
+    q, k, v = _fp32_wide_attn_inputs(device)
+    cos, sin = rope_cos_sin(130, 128, device=device)
+    return q, k, v, torch.ones(128, device=device), torch.ones(128, device=device), cos, sin
+
+
+def _fp32_wide_backward_inputs(device):
+    q, k, v = _fp32_wide_attn_inputs(device)
+    return q, k, v, torch.zeros_like(q), torch.zeros(1, 2, 130, device=device), \
+        torch.zeros_like(q), 0.2
+
+
 def _short_inputs(device):
     return [torch.zeros(1, 30, 48, dtype=torch.bfloat16, device=device) for _ in range(3)]
 
@@ -220,7 +239,23 @@ BACKWARD_WRAPPERS = [
     ("K11 fp32", tsb.flash_backward_short, tsb, "reference_flash_backward_short",
      _fp32_backward_inputs),
 ]
-ALL_WRAPPERS = WRAPPERS + BACKWARD_WRAPPERS
+# fp32 at dh 128: forward kernels without a gradient; with one, they raise
+# (test_fp32_calls_that_need_a_grad_raise_before_any_launch)
+FP32_FORWARD_ONLY = [
+    ("K1 fp32 dh128", fa.flash_attention, fa, "reference_attention", _fp32_wide_attn_inputs),
+    ("K3 fp32 dh128",
+     lambda *a: fa.flash_attention_packed(*(t.transpose(1, 2).flatten(2) for t in a), 2),
+     fa, "reference_attention_packed", _fp32_wide_attn_inputs),
+    ("K5 fp32", fnr.flash_attention_normrope, fnr, "reference_attention_normrope",
+     _fp32_normrope_inputs),
+]
+ALL_WRAPPERS = WRAPPERS + BACKWARD_WRAPPERS + FP32_FORWARD_ONLY + [
+    ("K5 transform fp32",
+     lambda q, k, v, qs, ks, cos, sin: fnr.qk_normrope(q, k, qs, ks, cos, sin),
+     fnr, "pre_transform", _fp32_normrope_inputs),
+    ("K4 fp32 dh128", fa.flash_attention_backward, fa, "reference_flash_backward",
+     _fp32_wide_backward_inputs),
+]
 
 
 @pytest.mark.parametrize("name,wrapper,module,plain,inputs", ALL_WRAPPERS,
@@ -284,6 +319,28 @@ def test_non_cpu_tensors_that_need_a_grad_reach_an_autograd_function(
         assert issubclass(cls, torch.autograd.Function) and cls.__module__ == module.__name__
     else:
         assert not reached
+
+
+@pytest.mark.parametrize("name,wrapper,module,plain,inputs", FP32_FORWARD_ONLY,
+                         ids=[w[0] for w in FP32_FORWARD_ONLY])
+def test_fp32_calls_that_need_a_grad_raise_before_any_launch(monkeypatch, name, wrapper, module,
+                                                             plain, inputs):
+    """fp32 at dh 128 has forward kernels only: K4's fp32 pair stops at dh 64
+    and K6 has no fp32 kernel. A non-CPU fp32 call that needs a gradient
+    raises, naming the missing backward, before its forward launches and
+    without reaching an autograd Function (whose backward would fail late);
+    so does K4-fp32 itself at dh 128."""
+    _zero_counters(monkeypatch)
+    reached = []
+    monkeypatch.setattr(torch.autograd.Function, "apply",
+                        classmethod(lambda cls, *a, **k: reached.append(cls)))
+    args = [t.requires_grad_() if isinstance(t, torch.Tensor) and t.is_floating_point() else t
+            for t in inputs("meta")]
+    with pytest.raises(ValueError, match="backward|forward only"):
+        wrapper(*args)
+    with pytest.raises(ValueError, match="backward"):
+        fa.flash_attention_backward(*_fp32_wide_backward_inputs("meta"))
+    assert not reached and not any(_counts())
 
 
 def test_dit_is_built_on_the_card_unless_the_cpu_is_asked_for():
