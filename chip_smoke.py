@@ -392,7 +392,8 @@ GRAD_TENSOR_REL_TOL = {"bf16": 1.6e-2, "fp32": 4.5e-2}
 # The 4AA eval (phase 15) runs the DiT in fp32 at the widths of the main
 # path (hidden 384, 16 x 24, T = 1000, L = 2) at its B = 2 and the sampling
 # B = 8: K8-fp32, K3-fp32 (K1's fp32 kernel at dh 24 over T = 1000), K2-fp32
-# at 384 -> 768 -> 384 (f32_plan's single-stage (64, 1)) and K7-fp32 at
+# at 384 -> 768 -> 384 (the outer-product kernel, 32-row blocks at B = 2,
+# 64-row ones at B = 8) and K7-fp32 at
 # D = 384. Against their plain versions with TF32 off, relative to max
 # |out|: exact fp32 on both sides up to the order of the sums (and erff,
 # expf against PyTorch's erf, exp): K1-fp32's limit (a few fp32 ulps) for
@@ -434,14 +435,16 @@ PEP_WINDOW_REL_TOL = 3.9e-6
 # dh 128 in fp32: the fp32 sampling DiTs at 2 x dh 128 (MD17's --test pass,
 # phase 14) and 3 x dh 128 (the 4AA eval, phase 15) run K5 in fp32: the fp32
 # transform (csrc/qk_normrope.cu), then K1's fp32 kernel over 64 < dh <= 128
-# (csrc/flash_attention.cu, four lanes a query row). Against their plain
+# (csrc/flash_attention.cu, register-tiled). Against their plain
 # versions with TF32 off, relative to max |out| (the transform per tensor)
 # and the lse absolute: exact fp32 on both sides up to the order of the sums.
 # Readings of python -m lam_slide_tpu_torch.tools.dh128_readings on an H100
 # (seeds 0-3 at the shapes of DH128_SPECS), worst: K1-fp32 at dh > 64
 # 2.210e-6 (at [2,3,1000,128]), its lse 2.384e-6, the fp32 transform
 # 2.122e-7, K5-fp32 2.326e-6 (at [8,3,1000,128]). Each limit is 3x the worst
-# reading.
+# reading. Those readings were of a kernel that shared a row's dot products
+# among four lanes; the register-tiled kernel reads at most 1.985e-6, lse
+# 9.537e-7, K5-fp32 2.094e-6, inside the same limits.
 K1_F32_WIDE_REL_TOL = 6.7e-6
 LSE_F32_WIDE_ATOL = 7.2e-6
 TRANSFORM_F32_REL_TOL = 6.4e-7
@@ -453,7 +456,7 @@ MD17_WIDE_HEADS = 2  # the 2 x dh 128 split of the MD17 DiT (hidden 256)
 # relative to max |pos|. Readings of tools/dh128_readings.py on an H100
 # (seeds 0-3, the registries' random weights): the protocol 0 ulps every
 # time, as at 16 x 16, so its limit is phase 14's (3 ulps); the window up to
-# 1.360e-6, the limit 3x that.
+# 1.360e-6, the limit 3x that (1.292e-6 on the register-tiled K1-fp32).
 MD17_WIDE_F32_PROTOCOL_ULPS = MD17_F32_PROTOCOL_ULPS
 PEP_WIDE_WINDOW_REL_TOL = 4.1e-6
 # K10 against its plain version: K1's pair of limits (q/k round once, after
@@ -1394,8 +1397,9 @@ def f32_kernel_cases(dev, seed: int) -> dict:
             kernel=lambda: fm.fused_mlp(*mlp), plain=lambda: fm.reference_mlp(*mlp),
             library_ms=lambda: time_ms(
                 lambda: linear(gelu(linear(x, lin1[3 * d:], b1)), lin2[:, d:]), reps=5),
-            shape=f"x [{rows},{d}] w1 [{d},{m}] w2 [{m},{d}] transposed nn.Linear views; "
-                  f"library: the two-GEMM cuBLAS composition with GELU (not one call)",
+            shape=f"x [{rows},{d}] w1 [{d},{m}] w2 [{m},{d}] transposed nn.Linear views, "
+                  f"outer-product kernel, plan {fm.tiled_plan(d, m, d, rows)}; library: the "
+                  f"two-GEMM cuBLAS composition with GELU (not one call)",
             flops=4 * rows * d * m, nbytes=4 * (2 * rows * d + 2 * d * m + m), exps=0),
         "K7 fp32": dict(
             kernel=lambda: fad.residual_adaln_modulate(*ada),
@@ -1448,11 +1452,13 @@ def md17_f32_kernel_checks(dev, table: KernelTable) -> None:
     counters = {"K2 fp32": fm, "K7 fp32": fad, "K9 fp32": tsa}
     for name, case in f32_kernel_cases(dev, 20).items():
         mod, tol = counters[name], F32_REL_TOL[name]
-        before = (mod.launches, mod.fp32_launches)
+        before = (mod.launches, mod.fp32_launches, fm.fp32_tiled_launches)
         got, again, want = case["kernel"](), case["kernel"](), case["plain"]()
         torch.cuda.synchronize()
         check((mod.launches - before[0], mod.fp32_launches - before[1]) == (2, 2),
               f"{name}: the fp32 kernel did not launch once a call")
+        check(fm.fp32_tiled_launches - before[2] == (2 if name == "K2 fp32" else 0),
+              f"{name}: K2-fp32 did not take its outer-product kernel")
         extra = ""
         if name == "K7 fp32":
             check(torch.equal(got[0], want[0]), "K7 fp32 x_new is not bit-identical")
@@ -1475,6 +1481,78 @@ def md17_f32_kernel_checks(dev, table: KernelTable) -> None:
                   time_ms(case["plain"], reps=3), case["flops"], case["nbytes"],
                   None if library_ms is None else library_ms(),
                   peak=PEAK_FP32_FLOPS, exps=case["exps"])
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+# K2-fp32 beyond the MD17 and 4AA sampling rows: (rows, d, route) at the 4AA
+# eval's B = 2 (the 384 instance at 32 rows a block: 125 blocks), the smoke
+# width (the 32 instance, hidden 32 at mlp_ratio 2) and hidden 128, which
+# has no outer-product instance and takes the dot-product kernel.
+K2_F32_ROUTE_SPECS = ((4000, 384, "tiled"), (4096, 32, "tiled"), (16000, 128, "dot"))
+
+
+def k2_f32_route_checks(dev, table: KernelTable) -> None:
+    """K2-fp32 at K2_F32_ROUTE_SPECS against its plain version (TF32 off)
+    within F32_REL_TOL, each on the route its plan gives (the counters move
+    once a call), a second call bit-identical; then the two routes on the
+    same MD17-width inputs (36,864 rows of 256 -> 512 -> 256), which sum in
+    one order and must agree bit for bit."""
+    from torch.nn.functional import gelu, linear
+
+    from lam_slide_tpu_torch.ops import _build
+    from lam_slide_tpu_torch.ops import fused_mlp as fm
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(SEED + 11)
+    tol = F32_REL_TOL["K2 fp32"]
+
+    def operands(rows, d):
+        x = _rand(gen, rows, d).to(dev)
+        lin1 = _rand(gen, 3 * d + 2 * d, d, scale=d ** -0.5).to(dev)
+        b1 = _rand(gen, 2 * d, scale=0.1).to(dev)
+        lin2 = _rand(gen, d, 3 * d, scale=(3 * d) ** -0.5).to(dev)
+        return (x, lin1[3 * d:].t(), b1, lin2[:, d:].t()), lin1[3 * d:], lin2[:, d:]
+
+    for rows, d, route in K2_F32_ROUTE_SPECS:
+        args, l1, l2 = operands(rows, d)
+        before = (fm.fp32_tiled_launches, fm.fp32_dot_launches)
+        got, again, want = fm.fused_mlp(*args), fm.fused_mlp(*args), fm.reference_mlp(*args)
+        torch.cuda.synchronize()
+        moved = (fm.fp32_tiled_launches - before[0], fm.fp32_dot_launches - before[1])
+        check(moved == ((2, 0) if route == "tiled" else (0, 2)),
+              f"K2 fp32 [{rows},{d}]: routes (tiled, dot) launched {moved}, not the {route} one")
+        check(torch.equal(got, again), f"K2 fp32 [{rows},{d}]: a second call differs")
+        abs_err, rel = errors(got, want)
+        check(rel <= tol, f"K2 fp32 [{rows},{d}] rel err {rel} > {tol}")
+        plan = fm.tiled_plan(d, 2 * d, d, rows) if route == "tiled" else fm.f32_plan(d, d)
+        x = args[0]
+        table.add(f"K2 fp32 {route} [{rows},{d}]", f"x [{rows},{d}] -> {2 * d} -> {d}, the "
+                  f"{'outer' if route == 'tiled' else 'dot'}-product kernel, plan {plan}; rel "
+                  f"{rel:.3e}, a second call bit-identical", abs_err, f"rel tol {tol}",
+                  time_ms(lambda: fm.fused_mlp(*args), reps=10),
+                  time_ms(lambda: fm.reference_mlp(*args), reps=3), 8 * rows * d * d,
+                  4 * (2 * rows * d + 4 * d * d + 2 * d),
+                  time_ms(lambda: linear(gelu(linear(x, l1, args[2])), l2), reps=10),
+                  peak=PEAK_FP32_FLOPS)
+        del args, got, again, want, x
+    args, _, _ = operands(36864, MD17_HIDDEN)
+    x, w1, b1, w2 = args
+    d = MD17_HIDDEN
+    dot = torch.empty(36864, d, device=dev)
+    with torch.cuda.device(dev):
+        _build.launch("lam_fused_mlp_f32", x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                      w2.data_ptr(), dot.data_ptr(), 36864, d, 2 * d, d, x.stride(0),
+                      w1.stride(1), w2.stride(1), dot.stride(0), *fm.f32_plan(d, d),
+                      torch.cuda.current_stream(dev).cuda_stream)
+    got = fm.fused_mlp(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, dot), "K2 fp32: the outer- and dot-product kernels differ at MD17's "
+          "widths")
+    print("kernel K2 fp32 routes: the outer- and dot-product kernels bit-identical at "
+          f"[36864,{d}] -> {2 * d} -> {d}")
+    del args, x, w1, b1, w2, dot, got
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
@@ -1580,8 +1658,9 @@ def peptide_f32_kernel_checks(dev, gen, table: KernelTable) -> None:
     shift, scale, gate = _rand(gen, 8, 1, 1, 6 * d, scale=0.5).to(dev).chunk(6, -1)[:3]
     ada = (x7, h7, gate, shift, scale)
     cases = (("K2 fp32", fm, lambda: fm.fused_mlp(*mlp), lambda: fm.reference_mlp(*mlp),
-              f"x [{rows},{d}] w1 [{d},{m}] w2 [{m},{d}] transposed nn.Linear views, plan "
-              f"{fm.f32_plan(d, d)}", 4 * rows * d * m, 4 * (2 * rows * d + 2 * d * m + m),
+              f"x [{rows},{d}] w1 [{d},{m}] w2 [{m},{d}] transposed nn.Linear views, "
+              f"outer-product kernel, plan {fm.tiled_plan(d, m, d, rows)}", 4 * rows * d * m,
+              4 * (2 * rows * d + 2 * d * m + m),
               lambda: time_ms(lambda: linear(gelu(linear(x2, lin1[3 * d:], mb1)), lin2[:, d:]),
                               reps=10)),
              ("K7 fp32", fad, lambda: fad.residual_adaln_modulate(*ada),
@@ -1589,11 +1668,13 @@ def peptide_f32_kernel_checks(dev, gen, table: KernelTable) -> None:
               f"x/h [8,{T},{L},{d}] (h the transposed temporal view)", 0,
               4 * (4 * rows * d + 3 * 8 * d), None))
     for name, mod, kern, plain, shape, flops, nbytes, lib in cases:
-        before = (mod.launches, mod.fp32_launches)
+        before = (mod.launches, mod.fp32_launches, fm.fp32_tiled_launches)
         got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
         check((mod.launches - before[0], mod.fp32_launches - before[1]) == (2, 2),
               f"{name} 4AA: the fp32 kernel did not launch once a call")
+        check(fm.fp32_tiled_launches - before[2] == (2 if name == "K2 fp32" else 0),
+              f"{name} 4AA: K2-fp32 did not take its outer-product kernel")
         if name == "K7 fp32":
             check(torch.equal(got[0], want[0]), "K7 fp32 4AA: x_new is not bit-identical")
             got, again, want = got[1], again[1], want[1]
@@ -1685,7 +1766,8 @@ def dh128_errors(dev, spec, seed: int):
 
     def counts():
         return (fa.launches, fa.fp32_launches, fa.bias_launches, fa.sm90_launches,
-                fnr.launches, fnr.fp32_launches, fnr.transform_launches, fnr.sm90_launches)
+                fa.fp32_wide_launches, fnr.launches, fnr.fp32_launches, fnr.transform_launches,
+                fnr.sm90_launches, fnr.fp32_wide_launches)
 
     before = counts()
     lse_err, extra = None, ""
@@ -1696,7 +1778,7 @@ def dh128_errors(dev, spec, seed: int):
         def plain():
             return fa.reference_attention(q, k, v, scale, return_lse=with_lse, mask=mask)
 
-        want_launched = (1, 1, int(masked), 0, 0, 0, 0, 0)
+        want_launched = (1, 1, int(masked), 0, int(dh > 64), 0, 0, 0, 0, 0)
     elif kind == "transform":
         tr = (q, k, x["qs"], x["ks"], x["cos"], x["sin"])
 
@@ -1706,7 +1788,7 @@ def dh128_errors(dev, spec, seed: int):
         def plain():
             return fnr.pre_transform(*tr)
 
-        want_launched = (0, 0, 0, 0, 0, 0, 1, 0)
+        want_launched = (0, 0, 0, 0, 0, 0, 0, 1, 0, 0)
     else:
         args5 = (q, k, v, x["qs"], x["ks"], x["cos"], x["sin"])
 
@@ -1716,12 +1798,13 @@ def dh128_errors(dev, spec, seed: int):
         def plain():
             return fnr.reference_attention_normrope(*args5)
 
-        want_launched = (0, 0, 0, 0, 1, 1, 1, 0)
+        want_launched = (0, 0, 0, 0, 0, 1, 1, 1, 0, int(dh > 64))
     got = kernel()
     torch.cuda.synchronize()
     launched = tuple(a - c for a, c in zip(counts(), before))
     check(launched == want_launched, f"{key}: launches {launched} != {want_launched} (K1, K1 "
-          f"fp32, K1 bias, K1 sm90, K5, K5 fp32, transform, K5 sm90)")
+          f"fp32, K1 bias, K1 sm90, K1 fp32 wide, K5, K5 fp32, transform, K5 sm90, K5 fp32 "
+          f"wide)")
     again = kernel()
     want = plain()
     torch.cuda.synchronize()
@@ -1756,6 +1839,7 @@ def dh128_kernel_checks(dev, table: KernelTable) -> None:
     the plain version's time, the library's (SDPA on fp32 head-major tensors,
     and for K5 the composition of the plain pre_transform and SDPA) and the
     fp32 bound."""
+    from lam_slide_tpu_torch.ops import flash_attention as fa
     from lam_slide_tpu_torch.ops import flash_normrope as fnr
 
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
@@ -1794,7 +1878,8 @@ def dh128_kernel_checks(dev, table: KernelTable) -> None:
             exps = scores
             ms = time_ms(kernel, reps=10)
             if kind == "K1":
-                text = (f"fp32 q/k/v {shape} strided views, four lanes a row, rel {rel:.3e}"
+                text = (f"fp32 q/k/v {shape} strided views, register-tiled (plan "
+                        f"{fa.f32_wide_plan(nq, nk)}), rel {rel:.3e}"
                         f"{lse_text}, a second call bit-identical; library: SDPA on the fp32 "
                         f"head-major views (TF32 off)")
                 library = library_times(q, k, v, dh ** -0.5)
@@ -1802,10 +1887,11 @@ def dh128_kernel_checks(dev, table: KernelTable) -> None:
                 tr = (x["qs"], x["ks"], x["cos"], x["sin"])
                 comp_ms = library_times(q, k, v, dh ** -0.5,
                                         pre=lambda q_, k_: fnr.pre_transform(q_, k_, *tr))
-                dev_ms = device_ms(kernel, ("qk_normrope_kernel", "flash_fwd_f32_wide_kernel"),
+                dev_ms = device_ms(kernel, ("qk_normrope_kernel", "flash_fwd_f32_tiled_kernel"),
                                    reps=5)
-                text = (f"raw fp32 q/k/v {shape} strided views, fp32 transform + K1-fp32 (four "
-                        f"lanes a row), rel {rel:.3e}, a second call bit-identical, device time "
+                text = (f"raw fp32 q/k/v {shape} strided views, fp32 transform + K1-fp32 "
+                        f"(register-tiled, plan {fa.f32_wide_plan(nq, nk)}), rel "
+                        f"{rel:.3e}, a second call bit-identical, device time "
                         f"of the two kernels {dev_ms:.4f} ms; library none (composition: plain "
                         f"pre_transform + SDPA, TF32 off: {comp_ms:.4f} ms)")
                 nbytes += 2 * x["cos"].numel() * 4 + 2 * dh * 4
@@ -2315,6 +2401,9 @@ def md17_loop_phase(dev, smi, reset_counts, read_counts):
               f"test-pass launches {test_counts}; stage-2 training launches {train_counts}")
         check(all(test_counts[k] > 0 for k in ("K2 fp32", "K7 fp32", "K9 fp32", "K1 fp32")),
               "md17_loop: an fp32 kernel did not launch in the test pass")
+        check(test_counts["K2 fp32 tiled"] == test_counts["K2 fp32"]
+              and test_counts["K2 fp32 dot"] == 0,
+              f"md17_loop: K2-fp32 left its outer-product kernel in the test pass: {test_counts}")
         check(all(v == 0 for v in bf16.values()) and test_counts["K8"] == 0,
               f"md17_loop: a bf16 DiT kernel launched in the test pass: {bf16}")
         check(all(train_counts[k] - train_counts[f"{k} fp32"] > 0 for k in ("K2", "K7", "K9"))
@@ -2339,7 +2428,9 @@ def md17_loop_phase(dev, smi, reset_counts, read_counts):
         def protocol_batch():
             return testing.evaluate_md17(ss, {"md17": [batch]}, scale=1.0, k=MD17_K, k_chunk=1)
 
-        with torch.no_grad():  # the kernel path ran the batch above: no warm-up
+        with torch.no_grad():
+            protocol_batch()  # warm-up: the plain path ran last
+            torch.cuda.synchronize()
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
             protocol_batch()
@@ -2389,6 +2480,11 @@ def md17_loop_phase(dev, smi, reset_counts, read_counts):
         check(wide_test["K5 fp32"] == wide_test["K5"] == wide_test["K5 transform"] == want_k5,
               f"md17_loop {MD17_WIDE_HEADS} x 128: K5-fp32 launches {wide_test['K5 fp32']}, "
               f"not {want_k5} ({want_k5 // n_test} a test batch)")
+        check(wide_test["K5 fp32 wide"] == want_k5 and wide_test["K1 fp32 wide"] == 0
+              and wide_test["K2 fp32 tiled"] == wide_test["K2 fp32"] > 0
+              and wide_test["K2 fp32 dot"] == 0,
+              f"md17_loop {MD17_WIDE_HEADS} x 128: the test pass did not run the register-tiled "
+              f"K1-fp32 under every K5-fp32 call and the outer-product K2-fp32: {wide_test}")
         check(all(wide_test[k] == wide_test[f"{k} fp32"] > 0 for k in ("K1", "K2", "K7"))
               and wide_test["K9"] == wide_test["K8"] == wide_test["K5 sm90"] == 0,
               f"md17_loop {MD17_WIDE_HEADS} x 128: a bf16 kernel or K9 in the test pass")
@@ -2408,6 +2504,8 @@ def md17_loop_phase(dev, smi, reset_counts, read_counts):
         check(ulps <= MD17_WIDE_F32_PROTOCOL_ULPS,
               f"md17_loop {MD17_WIDE_HEADS} x 128: fp32 protocol {ulps} ulps apart")
         with torch.no_grad():
+            protocol_batch()  # warm-up: the plain path ran last
+            torch.cuda.synchronize()
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
             protocol_batch()
@@ -2687,6 +2785,9 @@ def peptide_loop_phase(dev, smi, reset_counts, read_counts):
               f" | {smi}")
         check(all(eval_counts[k] > 0 for k in fp32_kernels),
               "peptide_loop: an fp32 kernel did not launch in the eval")
+        check(eval_counts["K2 fp32 tiled"] == eval_counts["K2 fp32"]
+              and eval_counts["K2 fp32 dot"] == 0,
+              f"peptide_loop: K2-fp32 left its outer-product kernel in the eval: {eval_counts}")
         check(all(v == 0 for v in bf16.values()) and eval_counts["K5"] == 0
               and eval_counts["K9"] == 0, f"peptide_loop: a bf16 DiT kernel launched: {bf16}")
 
@@ -2777,6 +2878,11 @@ def peptide_loop_phase(dev, smi, reset_counts, read_counts):
         check(all(wide_eval[k] == wide_eval[f"{k} fp32"] for k in ("K2", "K7"))
               and wide_eval["K1"] == wide_eval["K5 sm90"] == wide_eval["K9"] == 0,
               f"peptide_loop {heads}: a bf16 DiT kernel or K3 launched in the eval: {wide_eval}")
+        check(wide_eval["K5 fp32 wide"] == want_k5
+              and wide_eval["K2 fp32 tiled"] == wide_eval["K2 fp32"] > 0
+              and wide_eval["K2 fp32 dot"] == 0,
+              f"peptide_loop {heads}: the eval did not run the register-tiled K1-fp32 under "
+              f"every K5-fp32 call and the outer-product K2-fp32: {wide_eval}")
 
         # one fp32 Euler-10 window at 3 x 128, kernel path vs plain path
         # (TF32 off) on the trained weights perturbed, then its time and profile
@@ -3514,6 +3620,10 @@ def main() -> int:
     counters = {"K1": (fa, "launches"), "K1 bias": (fa, "bias_launches"),
                 "K1 fp32": (fa, "fp32_launches"), "K2": (fm, "launches"),
                 "K2 fp32": (fm, "fp32_launches"), "K7 fp32": (fad, "fp32_launches"),
+                "K1 fp32 wide": (fa, "fp32_wide_launches"),
+                "K5 fp32 wide": (fnr, "fp32_wide_launches"),
+                "K2 fp32 tiled": (fm, "fp32_tiled_launches"),
+                "K2 fp32 dot": (fm, "fp32_dot_launches"),
                 "K9 fp32": (tsa, "fp32_launches"),
                 "K2 wmma": (fm, "wmma_launches"), "K2 cp.async": (fm, "cp_async_launches"),
                 "K5": (fnr, "launches"), "K5 fp32": (fnr, "fp32_launches"),
@@ -3573,6 +3683,7 @@ def main() -> int:
     md17_dit_kernel_checks(dev, torch.Generator().manual_seed(SEED + 4), table)
     md17_train_kernel_checks(dev, torch.Generator().manual_seed(SEED + 5), table)
     md17_f32_kernel_checks(dev, table)
+    k2_f32_route_checks(dev, table)
     peptide_f32_kernel_checks(dev, torch.Generator().manual_seed(SEED + 10), table)
     dh128_kernel_checks(dev, table)
     md17_wide_bf16_checks(dev, SEED + 11, table)
@@ -3782,6 +3893,9 @@ def main() -> int:
                     "flash_normrope.py:74"),
         "K5 transform fp32": ("qk_normrope (fp32 operands)", "qk_normrope.cu",
                               "flash_normrope.py:52"),
+        "K1 fp32 dh128": ("flash_attention_fwd (fp32 operands at 64 < dh <= 128: the "
+                          "register-tiled kernel, under K5-fp32 on the main paths)",
+                          "flash_attention.cu", "flash_attention.py:37"),
     }
     # launches on the main paths: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve
     # (K1 and K3 one binary, flash_fwd_sm90.cu, whose launches it counts), K5
@@ -3795,7 +3909,8 @@ def main() -> int:
     # from the forward of the hidden-32 DiT (0 on every path above); K2, K7
     # and K9 in fp32 from phase 14's stage-2 run (its --test pass); K8 in
     # fp32 from phase 15's eval (two dopri5 windows of the fp32 DiT); K5 in
-    # fp32 and its fp32 transform from phase 15's eval at 3 x 128
+    # fp32, its fp32 transform and K1's register-tiled fp32 kernel under it
+    # from phase 15's eval at 3 x 128
     md17_train = {key: s1_counts[key] + s2_counts[key] for key in s1_counts}
     main_counts = dict(launches[HEADS], K1=launches[HEADS]["K1 sm90"],
                        K3=launches[HEADS]["K1 sm90"], K5=launches[WIDE_HEADS]["K5 sm90"],
@@ -3810,6 +3925,8 @@ def main() -> int:
                              for key in ("K2 fp32", "K7 fp32", "K9 fp32")},
                           "K8 fp32": peptide_eval_counts["K8 fp32"],
                           "K5 fp32": wide_eval_counts["K5 fp32"],
+                          "K1 fp32 dh128": (wide_eval_counts["K5 fp32 wide"]
+                                            + wide_eval_counts["K1 fp32 wide"]),
                           "K5 transform fp32": wide_eval_counts["K5 transform"]})
     kernels = [
         {"name": name, "route": "cuda", "source": f"lam_slide_tpu_torch/csrc/{src}",

@@ -58,21 +58,17 @@
 // fp32 operands (stage 1 runs in fp32, composites/md17.py:93, and the fp32
 // sampling DiT of the MD17 --test pass and the 4AA eval): FFMA on the CUDA
 // cores (no TF32: the JAX interpret path it is held to is exact fp32), the
-// same online softmax and bias, 32-key K/V tiles in shared memory read as
-// broadcasts and 64 query rows a block. For dh <= 64 one thread takes a
-// query row, q and the accumulator in its registers. For 64 < dh <= 128
-// (the 2 x 128 and 3 x 128 DiTs, through K5's transform) a row would need
-// ~290 live floats in one thread, past the 255 registers, so a group of
-// four lanes shares it: lane g holds the 4-float chunks g, g + 4, ... of q
-// and of the accumulator (32 floats each), the group's four lanes read 64
-// contiguous bytes of a K/V row as float4 and the warp's eight groups the
-// same ones (a broadcast), and each logit is four partial dot products
-// summed by two xor shuffles (the same sum in all four lanes, so m and l
-// stay equal in the group). Bound on the H100: bytes at the stage-1 shapes
-// (keys <= 192, dh 16; ~0.14 ms for the encoder's cross call), operations
-// at dh 128 over N >= 192 (72.5 GFLOP, ~1.08 ms at [1920,2,192,128]), bytes
-// over MD17's T = 30 (~0.45 ms at [12288,2,30,128]). A register-tiled
-// design (a thread holding a block of scores) is the later redesign.
+// same online softmax and bias. For dh <= 64 one thread takes a query row,
+// q and the accumulator in its registers, over 32-key K/V tiles read as
+// broadcasts, 64 rows a block. For 64 < dh <= 128 (the 2 x 128 and 3 x 128
+// DiTs, through K5's transform) a register-tiled kernel
+// (flash_fwd_f32_tiled_kernel below): each thread holds a 4 x 4 block of a
+// 64 x 64 score tile and a 4 x 8 block of the output, as a SIMT GEMM does,
+// so a 16-byte shared load feeds 8 to 10.7 FFMAs; each score takes one
+// expf. Bound on the H100: bytes at the stage-1 shapes (keys <= 192, dh 16;
+// ~0.14 ms for the encoder's cross call), operations at dh 128 over
+// N >= 192 (72.5 GFLOP, ~1.08 ms at [1920,2,192,128]), bytes over MD17's
+// T = 30 (~0.45 ms at [12288,2,30,128]).
 //
 // lse: when the caller passes an fp32 [B, H, Nq] buffer (training), each
 // query row of either kernel also writes m + log(max(l, 1e-30)), the
@@ -398,138 +394,352 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
   return cudaGetLastError();
 }
 
-// fp32 operands at 64 < dh <= 128: a query row shared by F32_GROUP lanes,
-// lane g of the group holding the float4 chunks g, g + F32_GROUP, ... of q
-// and of the accumulator; F32_WIDE_ROWS rows and F32_GROUP threads a row a
-// block. Capped at 128 registers a thread so that two blocks share an SM:
-// left to itself ptxas takes 160 (no spill) and one block an SM runs 1.2x
-// (4AA, [4,3,1000,128]) to 1.4x (MD17, [1920,2,192,128]) slower on an H100
-// (tools/kernel_variants.py K1-fp32-wide).
-constexpr int F32_GROUP = 4;
-constexpr int F32_WIDE_ROWS = 64;
-constexpr int F32_WIDE_THREADS = F32_WIDE_ROWS * F32_GROUP;
-constexpr int F32_WIDE_DP = 128;
+// fp32 operands at 64 < dh <= 128: register-tiled FFMA. A block of
+// WIDE_THREADS takes ROWS = 64 query rows of one (batch, head) sequence
+// (SEG = 1), or the first 32 query rows of two sequences whose Nq and Nk are
+// both at most 32 (SEG = 2: MD17's temporal axis, N = 30), and walks the
+// keys in tiles of WIDE_KEYS (ROWS = 32, two rows a thread, is the second
+// micro-tile size of tools/kernel_variants.py). dh is zero-padded to
+// WIDE_DP in shared memory only.
+// Q, K and V sit row-major in shared memory (Q and K rows padded to 132
+// floats, so the 16 key rows a warp reads at once fall on distinct banks),
+// copied by cp.async straight from the strided views: 16 bytes at a time
+// where every base, stride and dh allow it (VEC), else 4.
+// - S = Q K^T: thread (rg, kg), rg = 2 * warp + lane / 16, kg = lane % 16,
+//   holds the scores of query rows rg * RM + i (i < RM = ROWS / 16) and
+//   keys kg + 16 j (j < 4): per 4 columns of dh it reads RM float4 of Q
+//   (broadcast: the warp reads two rows' worth) and 4 of K, 4 RM dot4 (one
+//   FMA chain over dh a score), so a 16-byte shared load feeds 8 FFMAs at
+//   RM = 4.
+// - The softmax keeps a row in the 16 lanes of one half warp: the tile's
+//   row max by four xor shuffles, one expf a score, each lane's partial
+//   row sum rescaled by alpha (summed over the 16 lanes at the end). P goes
+//   to shared memory key-major, over the K tile (read by then), alpha
+//   beside it.
+// - O = P V: thread (prg, cg), prg = 4 * (warp / 2) + lane / 8, cg =
+//   8 * (warp % 2) + lane % 8, holds O's rows prg * RM + i and columns
+//   4 cg .. + 4 and 64 + 4 cg .. + 4 (RM x 8 floats); per key it reads one
+//   float4 (float2) of P and two of V for 8 RM FFMAs. O is rescaled by its
+//   rows' alpha from shared memory, divided by max(l, 1e-30) at the end.
+// A row's logit rounds as JAX's (the scaled dot product, then the bias);
+// keys past Nk get -inf. Two blocks an SM (~99 KB of shared memory and at
+// most 128 registers each), so there is no room for a second K/V stage (or
+// for the next K tile in registers: that spills): the V tile's copy runs
+// under the scores, the other block's products cover the rest. SEG = 2
+// runs the segment's half of the scores and keys only (a warp's rows lie in
+// one segment), so N = 30 does not run a 64-row block that is three
+// quarters empty.
+constexpr int WIDE_THREADS = 256;
+constexpr int WIDE_DP = 128;
+constexpr int WIDE_KEYS = 64;
+constexpr int WIDE_LDQK = WIDE_DP + 4;  // Q and K row stride (floats)
+constexpr int WIDE_LDV = WIDE_DP;       // V row stride
 
-__global__ void __launch_bounds__(F32_WIDE_THREADS, 2)
-flash_fwd_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, float* __restrict__ o,
-                          float* __restrict__ lse, const float* __restrict__ bias, int H,
-                          int Nq, int Nk, int dh,
-                          long long q_sb, long long q_sh, long long q_sn,
-                          long long k_sb, long long k_sh, long long k_sn,
-                          long long v_sb, long long v_sh, long long v_sn,
-                          long long o_sb, long long o_sh, long long o_sn, float scale) {
-  constexpr int DP = F32_WIDE_DP;
-  constexpr int CHUNKS = DP / 4;             // float4 chunks of a row
-  constexpr int PER = CHUNKS / F32_GROUP;    // chunks of one lane
-  __shared__ float4 Ks[F32_KEYS][CHUNKS];
-  __shared__ float4 Vs[F32_KEYS][CHUNKS];
-  __shared__ float Bs[F32_KEYS];
-  const TileIdx ti = tile_index(Nq, F32_WIDE_ROWS);
-  const int b = ti.bh / H, h = ti.bh % H;
-  const int g = threadIdx.x % F32_GROUP;
-  const int qrow = ti.tile * F32_WIDE_ROWS + threadIdx.x / F32_GROUP;
-  const bool row_ok = qrow < Nq;
-  const float* qp = q + b * q_sb + h * q_sh + static_cast<long long>(qrow) * q_sn;
-  const float* kp = k + b * k_sb + h * k_sh;
-  const float* vp = v + b * v_sb + h * v_sh;
+template <int ROWS>
+struct WideLayout {
+  static constexpr int RM = ROWS / 16;  // rows of a thread's micro-tiles
+  static constexpr int LDP = ROWS + 4;  // P^T: a key's row of ROWS probabilities
+  static constexpr int k_off = ROWS * WIDE_LDQK;
+  static constexpr int v_off = k_off + WIDE_KEYS * WIDE_LDQK;
+  static constexpr int b_off = v_off + WIDE_KEYS * WIDE_LDV;  // bias slice [WIDE_KEYS]
+  static constexpr int a_off = b_off + WIDE_KEYS;             // alpha [ROWS]
+  static constexpr int l_off = a_off + ROWS;                  // l [ROWS]
+  static constexpr size_t bytes = sizeof(float) * (l_off + ROWS);
+  static_assert(WIDE_KEYS * LDP <= WIDE_KEYS * WIDE_LDQK, "P^T fits in the K tile");
+};
 
-  float4 qr[PER], acc[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int e = 4 * (g + F32_GROUP * i);
-    float x[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) x[j] = (row_ok && e + j < dh) ? qp[e + j] : 0.0f;
-    qr[i] = make_float4(x[0], x[1], x[2], x[3]);
-    acc[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+template <int RM>
+struct RowVec;
+template <>
+struct RowVec<4> {
+  using T = float4;
+  __device__ static float get(const float4& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
   }
-  float m = NEG_INF, l = 0.0f;
-  float* kf = reinterpret_cast<float*>(Ks);
-  float* vf = reinterpret_cast<float*>(Vs);
-  for (int k0 = 0; k0 < Nk; k0 += F32_KEYS) {
-    __syncthreads();  // previous tile fully consumed
-    for (int idx = threadIdx.x; idx < F32_KEYS * DP; idx += F32_WIDE_THREADS) {
-      const int r = idx / DP, c = idx % DP;
-      const bool ok = k0 + r < Nk && c < dh;
-      kf[idx] = ok ? kp[static_cast<long long>(k0 + r) * k_sn + c] : 0.0f;
-      vf[idx] = ok ? vp[static_cast<long long>(k0 + r) * v_sn + c] : 0.0f;
-    }
-    if (threadIdx.x < F32_KEYS) {
-      const int key = k0 + threadIdx.x;
-      Bs[threadIdx.x] = (bias != nullptr && key < Nk) ? bias[static_cast<long long>(b) * Nk + key]
-                                                      : 0.0f;
-    }
-    __syncthreads();
+  __device__ static float4 make(const float* x) { return make_float4(x[0], x[1], x[2], x[3]); }
+};
+template <>
+struct RowVec<2> {
+  using T = float2;
+  __device__ static float get(const float2& v, int i) { return i == 0 ? v.x : v.y; }
+  __device__ static float2 make(const float* x) { return make_float2(x[0], x[1]); }
+};
 
-    float sv[F32_KEYS];
-    float mx = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < F32_KEYS; ++j) {
-      float s = 0.0f;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const float4 kk = Ks[j][g + F32_GROUP * i];
-        s = fmaf(qr[i].x, kk.x, s);
-        s = fmaf(qr[i].y, kk.y, s);
-        s = fmaf(qr[i].z, kk.z, s);
-        s = fmaf(qr[i].w, kk.w, s);
-      }
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      // the scaled logit rounds before the bias add, as in JAX
-      s = k0 + j >= Nk ? -CUDART_INF_F : __fadd_rn(__fmul_rn(s, scale), Bs[j]);
-      sv[j] = s;
-      mx = fmaxf(mx, s);
+__device__ __forceinline__ float f4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float wide_dot4(const float4 a, const float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// cp.async of 16 or 4 bytes, zeros where !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Rows [0, rows) of a tile: row r of sequence s = r / (rows / SEG) (offset
+// off0 or off1 from base) at position n0 + r % (rows / SEG), zero where the
+// sequence is past B*H (ok1 false), the position past n or the column past
+// dh.
+template <int SEG, bool VEC>
+__device__ __forceinline__ void wide_stage(float* dst, int ld, int rows, const float* base,
+                                           long long off0, long long off1, bool ok1,
+                                           long long sn, int n0, int n, int dh) {
+  const int per = rows / SEG;
+  if constexpr (VEC) {
+    for (int idx = threadIdx.x; idx < rows * (WIDE_DP / 4); idx += WIDE_THREADS) {
+      const int r = idx / (WIDE_DP / 4), c = 4 * (idx % (WIDE_DP / 4));
+      const int s = SEG == 1 ? 0 : r / per, pos = n0 + (SEG == 1 ? r : r % per);
+      const bool ok = (s == 0 || ok1) && pos < n && c < dh;
+      cp_async16(dst + r * ld + c, ok ? base + (s ? off1 : off0) + pos * sn + c : base, ok);
     }
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      acc[i].x *= alpha;
-      acc[i].y *= alpha;
-      acc[i].z *= alpha;
-      acc[i].w *= alpha;
+  } else {
+    for (int idx = threadIdx.x; idx < rows * WIDE_DP; idx += WIDE_THREADS) {
+      const int r = idx / WIDE_DP, c = idx % WIDE_DP;
+      const int s = SEG == 1 ? 0 : r / per, pos = n0 + (SEG == 1 ? r : r % per);
+      const bool ok = (s == 0 || ok1) && pos < n && c < dh;
+      cp_async4(dst + r * ld + c, ok ? base + (s ? off1 : off0) + pos * sn + c : base, ok);
     }
-#pragma unroll
-    for (int j = 0; j < F32_KEYS; ++j) {
-      const float p = expf(sv[j] - m_new);
-      l += p;
-#pragma unroll
-      for (int i = 0; i < PER; ++i) {
-        const float4 vv = Vs[j][g + F32_GROUP * i];
-        acc[i].x = fmaf(p, vv.x, acc[i].x);
-        acc[i].y = fmaf(p, vv.y, acc[i].y);
-        acc[i].z = fmaf(p, vv.z, acc[i].z);
-        acc[i].w = fmaf(p, vv.w, acc[i].w);
-      }
-    }
-    m = m_new;
-  }
-  if (row_ok) {
-    const float denom = fmaxf(l, 1e-30f);
-    float* op = o + b * o_sb + h * o_sh + static_cast<long long>(qrow) * o_sn;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = 4 * (g + F32_GROUP * i);
-      const float y[4] = {acc[i].x, acc[i].y, acc[i].z, acc[i].w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (e + j < dh) op[e + j] = y[j] / denom;
-    }
-    if (lse != nullptr && g == 0) lse[static_cast<long long>(ti.bh) * Nq + qrow] = m + logf(denom);
   }
 }
 
-cudaError_t launch_f32_wide(const float* q, const float* k, const float* v, float* o,
-                            float* lse, const float* bias, int B, int H, int Nq, int Nk, int dh,
-                            const long long* s, float scale, cudaStream_t stream) {
-  const dim3 grid(grid_blocks(B * H, Nq, F32_WIDE_ROWS));
-  flash_fwd_f32_wide_kernel<<<grid, F32_WIDE_THREADS, 0, stream>>>(
-      q, k, v, o, lse, bias, H, Nq, Nk, dh, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
-      s[9], s[10], s[11], scale);
+// Two blocks an SM cap a thread at 128 registers; the 4-byte copies and
+// stores of the unaligned instance (VEC false, off the main paths) need a
+// few more, so it runs one block an SM rather than spill.
+template <int ROWS, int SEG, bool VEC>
+__global__ void __launch_bounds__(WIDE_THREADS, VEC ? 2 : 1)
+flash_fwd_f32_tiled_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           float* __restrict__ lse, const float* __restrict__ bias, int BH,
+                           int H, int Nq, int Nk, int dh,
+                           long long q_sb, long long q_sh, long long q_sn,
+                           long long k_sb, long long k_sh, long long k_sn,
+                           long long v_sb, long long v_sh, long long v_sn,
+                           long long o_sb, long long o_sh, long long o_sn, float scale) {
+  using L = WideLayout<ROWS>;
+  using RV = RowVec<L::RM>;
+  constexpr int RM = L::RM, LDP = L::LDP, JN = 4 / SEG, QPER = ROWS / SEG;
+  static_assert(SEG == 1 || ROWS == 64, "two sequences a block take 64 rows");
+  extern __shared__ __align__(16) float wsm[];
+  float* Qs = wsm;
+  float* Ks = wsm + L::k_off;
+  float* Ps = Ks;  // P^T over the K tile, once the scores are formed
+  float* Vs = wsm + L::v_off;
+  float* Bs = wsm + L::b_off;
+  float* As = wsm + L::a_off;
+  float* Ls = wsm + L::l_off;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // the block's sequences: bh0 (and bh0 + 1 when SEG = 2), its first query row
+  int bh0, q0;
+  if constexpr (SEG == 1) {
+    const TileIdx ti = tile_index(Nq, ROWS);
+    bh0 = ti.bh;
+    q0 = ti.tile * ROWS;
+  } else {
+    bh0 = SEG * blockIdx.x;
+    q0 = 0;
+  }
+  const bool ok1 = SEG == 2 && bh0 + 1 < BH;
+  const int b0 = bh0 / H, h0 = bh0 % H, b1 = (bh0 + 1) / H, h1 = (bh0 + 1) % H;
+  const int seg = SEG == 1 ? 0 : warp / 4;  // a warp's rows (both layouts) lie in one segment
+
+  wide_stage<SEG, VEC>(Qs, WIDE_LDQK, ROWS, q, b0 * q_sb + h0 * q_sh, b1 * q_sb + h1 * q_sh, ok1,
+                       q_sn, q0, Nq, dh);
+
+  const int rg = 2 * warp + lane / 16, kg = lane % 16;  // S and softmax
+  const int prg = 4 * (warp / 2) + lane / 8, cg = 8 * (warp % 2) + lane % 8;  // O = P V
+  float m[RM], lp[RM], acc[RM][8];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = NEG_INF;
+    lp[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[i][c] = 0.0f;
+  }
+  const int n_tiles = SEG == 1 ? (Nk + WIDE_KEYS - 1) / WIDE_KEYS : 1;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * WIDE_KEYS;
+    wide_stage<SEG, VEC>(Ks, WIDE_LDQK, WIDE_KEYS, k, b0 * k_sb + h0 * k_sh,
+                         b1 * k_sb + h1 * k_sh, ok1, k_sn, k0, Nk, dh);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");  // K (and Q, on the first tile)
+    wide_stage<SEG, VEC>(Vs, WIDE_LDV, WIDE_KEYS, v, b0 * v_sb + h0 * v_sh,
+                         b1 * v_sb + h1 * v_sh, ok1, v_sn, k0, Nk, dh);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");  // V: lands while S is formed
+    if (tid < WIDE_KEYS) {
+      const int s = SEG == 1 ? 0 : tid / (WIDE_KEYS / SEG);
+      const int key = k0 + (SEG == 1 ? tid : tid % (WIDE_KEYS / SEG));
+      const bool ok = bias != nullptr && (s == 0 || ok1) && key < Nk;
+      Bs[tid] = ok ? bias[static_cast<long long>(s ? b1 : b0) * Nk + key] : 0.0f;
+    }
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+
+    // S: rows rg * RM + i, tile keys kg + 16 (seg * JN + j)
+    float sc[RM][JN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < JN; ++j) sc[i][j] = 0.0f;
+    const float* krow = Ks + (kg + 16 * seg * JN) * WIDE_LDQK;
+    const float* qrow = Qs + rg * RM * WIDE_LDQK;
+#pragma unroll 4
+    for (int d = 0; d < WIDE_DP; d += 4) {
+      float4 qv[RM];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qrow + i * WIDE_LDQK + d);
+#pragma unroll
+      for (int j = 0; j < JN; ++j) {
+        const float4 kv = *reinterpret_cast<const float4*>(krow + 16 * j * WIDE_LDQK + d);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) sc[i][j] = wide_dot4(qv[i], kv, sc[i][j]);
+      }
+    }
+    // the scaled logit rounds before the bias add, as in JAX; keys past Nk: -inf
+    float alpha[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < JN; ++j) {
+        const int col = kg + 16 * (seg * JN + j);
+        const int key = SEG == 1 ? k0 + col : kg + 16 * j;
+        sc[i][j] = key < Nk ? __fadd_rn(__fmul_rn(sc[i][j], scale), Bs[col]) : -CUDART_INF_F;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      alpha[i] = expf(m[i] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < JN; ++j) {
+        sc[i][j] = expf(sc[i][j] - m_new);
+        sum += sc[i][j];
+      }
+      lp[i] = lp[i] * alpha[i] + sum;
+      m[i] = m_new;
+    }
+    __syncthreads();  // every warp has read the K tile: P^T replaces it
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      float pj[RM];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) pj[i] = sc[i][j];
+      *reinterpret_cast<typename RV::T*>(Ps + (kg + 16 * (seg * JN + j)) * LDP + rg * RM) =
+          RV::make(pj);
+    }
+    if (kg == 0)
+      *reinterpret_cast<typename RV::T*>(As + rg * RM) = RV::make(alpha);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // P^T, alpha and the V tile in place
+
+    // O = O * alpha + P V over the segment's keys
+    const typename RV::T al = *reinterpret_cast<const typename RV::T*>(As + prg * RM);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][c] *= RV::get(al, i);
+    const int kb = seg * (WIDE_KEYS / SEG);
+    const int ke = SEG == 1 ? min(WIDE_KEYS, (Nk - k0 + 3) & ~3) : kb + WIDE_KEYS / SEG;
+    const float* prow = Ps + prg * RM;
+    const float* vrow = Vs + 4 * cg;
+#pragma unroll 4
+    for (int key = kb; key < ke; ++key) {
+      const typename RV::T pv = *reinterpret_cast<const typename RV::T*>(prow + key * LDP);
+      const float4 v0 = *reinterpret_cast<const float4*>(vrow + key * WIDE_LDV);
+      const float4 v1 = *reinterpret_cast<const float4*>(vrow + key * WIDE_LDV + 64);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float p = RV::get(pv, i);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[i][c] = fmaf(p, f4(v0, c), acc[i][c]);
+          acc[i][4 + c] = fmaf(p, f4(v1, c), acc[i][4 + c]);
+        }
+      }
+    }
+    __syncthreads();  // P (the K tile) and V consumed before the next copies
+  }
+
+  // l over the row's 16 lanes; the lse; then O / max(l, 1e-30)
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    float l = lp[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    const int r = rg * RM + i;
+    if (kg == 0) {
+      Ls[r] = l;
+      const int s = SEG == 1 ? 0 : r / QPER, pos = q0 + (SEG == 1 ? r : r % QPER);
+      if (lse != nullptr && (s == 0 || ok1) && pos < Nq)
+        lse[static_cast<long long>(bh0 + s) * Nq + pos] = m[i] + logf(fmaxf(l, 1e-30f));
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = prg * RM + i;
+    const int s = SEG == 1 ? 0 : r / QPER, pos = q0 + (SEG == 1 ? r : r % QPER);
+    if ((s != 0 && !ok1) || pos >= Nq) continue;
+    const float denom = fmaxf(Ls[r], 1e-30f);
+    float* op = o + (s ? b1 * o_sb + h1 * o_sh : b0 * o_sb + h0 * o_sh) +
+                static_cast<long long>(pos) * o_sn;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = 64 * half + 4 * cg;
+      const float y[4] = {acc[i][4 * half] / denom, acc[i][4 * half + 1] / denom,
+                          acc[i][4 * half + 2] / denom, acc[i][4 * half + 3] / denom};
+      if constexpr (VEC) {
+        if (c0 < dh) *reinterpret_cast<float4*>(op + c0) = make_float4(y[0], y[1], y[2], y[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (c0 + c < dh) op[c0 + c] = y[c];
+      }
+    }
+  }
+}
+
+template <int ROWS, int SEG, bool VEC>
+cudaError_t launch_f32_tiled(const float* q, const float* k, const float* v, float* o,
+                             float* lse, const float* bias, int B, int H, int Nq, int Nk, int dh,
+                             const long long* s, float scale, cudaStream_t stream) {
+  constexpr size_t smem = WideLayout<ROWS>::bytes;
+  static cudaError_t attr = lam_set_smem(flash_fwd_f32_tiled_kernel<ROWS, SEG, VEC>, smem);
+  if (attr != cudaSuccess) return attr;
+  const int bh = B * H;
+  const unsigned grid = SEG == 1 ? grid_blocks(bh, Nq, ROWS) : static_cast<unsigned>((bh + 1) / 2);
+  flash_fwd_f32_tiled_kernel<ROWS, SEG, VEC><<<grid, WIDE_THREADS, smem, stream>>>(
+      q, k, v, o, lse, bias, bh, H, Nq, Nk, dh, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
+      s[8], s[9], s[10], s[11], scale);
   return cudaGetLastError();
+}
+
+// The plan's instance: seg sequences a 64-row block (1, or 2 where Nq and Nk
+// are at most 32), 16-byte copies where q/k/v/o's bases and strides and dh
+// are multiples of 4 floats.
+template <bool VEC>
+cudaError_t launch_f32_wide(const float* q, const float* k, const float* v, float* o, float* lse,
+                            const float* bias, int B, int H, int Nq, int Nk, int dh,
+                            const long long* s, float scale, int seg, cudaStream_t st) {
+  if (seg == 2)
+    return launch_f32_tiled<64, 2, VEC>(q, k, v, o, lse, bias, B, H, Nq, Nk, dh, s, scale, st);
+  return launch_f32_tiled<64, 1, VEC>(q, k, v, o, lse, bias, B, H, Nq, Nk, dh, s, scale, st);
 }
 
 }  // namespace
@@ -552,13 +762,15 @@ extern "C" int lam_flash_attention_fwd(
                             stream);
 }
 
-// As lam_flash_attention_fwd on fp32 q/k/v/o, with or without a bias; dh <= 128
-// (the four-lane kernel above 64).
+// As lam_flash_attention_fwd on fp32 q/k/v/o, with or without a bias; dh <= 128.
+// seg: the plan of the register-tiled kernel at 64 < dh <= 128 (the
+// wrapper's f32_wide_plan: 1, or 2 sequences a block where Nq and Nk are at
+// most 32); unread at dh <= 64.
 extern "C" int lam_flash_attention_fwd_f32(
     const void* q, const void* k, const void* v, void* o, void* lse, const void* bias, int B,
     int H, int Nq, int Nk, int dh, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
     long long k_sh, long long k_sn, long long v_sb, long long v_sh, long long v_sn,
-    long long o_sb, long long o_sh, long long o_sn, float scale, void* stream) {
+    long long o_sb, long long o_sh, long long o_sn, float scale, int seg, void* stream) {
   const long long s[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
                            v_sb, v_sh, v_sn, o_sb, o_sh, o_sn};
   auto qf = static_cast<const float*>(q);
@@ -568,16 +780,27 @@ extern "C" int lam_flash_attention_fwd_f32(
   auto lf = static_cast<float*>(lse);
   auto bf = static_cast<const float*>(bias);
   auto st = static_cast<cudaStream_t>(stream);
-  if (dh <= 0 || dh > F32_WIDE_DP) return static_cast<int>(cudaErrorInvalidValue);
+  if (dh <= 0 || dh > WIDE_DP) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (dh > 64)
-    err = launch_f32_wide(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, st);
-  else if (dh <= 16)
+  if (dh > 64) {
+    if ((seg != 1 && seg != 2) || (seg == 2 && (Nq > 32 || Nk > 32)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    unsigned long long bits = reinterpret_cast<unsigned long long>(q) |
+                              reinterpret_cast<unsigned long long>(k) |
+                              reinterpret_cast<unsigned long long>(v) |
+                              reinterpret_cast<unsigned long long>(o);
+    for (long long x : s) bits |= 4ull * static_cast<unsigned long long>(x);
+    if ((bits & 15) == 0 && dh % 4 == 0)
+      err = launch_f32_wide<true>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, seg, st);
+    else
+      err = launch_f32_wide<false>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, seg, st);
+  } else if (dh <= 16) {
     err = launch_f32<16>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, st);
-  else if (dh <= 32)
+  } else if (dh <= 32) {
     err = launch_f32<32>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, st);
-  else
+  } else {
     err = launch_f32<64>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, st);
+  }
   return static_cast<int>(err);
 }
 

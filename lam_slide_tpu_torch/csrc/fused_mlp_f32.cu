@@ -14,7 +14,13 @@
 // w1[i, m] = w1[i + m * w1_s] and w2[m, o] = w2[m + o * w2_s]: the rows of
 // the weights' own memory are columns here.
 //
-// Design (a tiled FFMA kernel): a block of 256 threads owns BM rows of x
+// Two kernels. The outer-product kernel (namespace tiled, below) takes the
+// widths the registries build in fp32 (256 -> 512 -> 256, 384 -> 768 -> 384,
+// 32 -> 64 -> 32). The dot-product kernel takes the other widths, as a
+// route; both sum every output in the same order, so they agree bit for
+// bit.
+//
+// The dot-product kernel: a block of 256 threads owns BM rows of x
 // (64, or 32) and keeps their [BM, d_out] fp32 output in registers (a
 // 16 x 16 thread grid: rows ty*RPT .. +RPT, columns tx + 16 j). x's tile
 // stays in shared memory for the whole block; d_mid streams through in
@@ -39,10 +45,16 @@
 // atomics: every output is summed by one thread in a fixed order, so a
 // result repeats bit for bit.
 //
-// What bounds it on the H100: 2 * rows * (d_in * d_mid + d_mid * d_out)
+// What bounds both on the H100: 2 * rows * (d_in * d_mid + d_mid * d_out)
 // FLOPs on the FP32 pipes (67 TFLOP/s) against rows * (d_in + d_out) * 4
 // bytes: operations (2.88 ms at the MD17 test pass's 368,640 rows of 256 ->
-// 512 -> 256).
+// 512 -> 256). The dot-product kernel reads shared memory 16 bytes for 4 to
+// 13 FFMAs; the outer-product kernel, at MD17's 16 x 8 outputs and 4 x 8
+// mids a thread, 16 bytes for 21 FFMAs in GEMM2 and 10.7 in GEMM1. Both run
+// one block an SM at MD17's widths (8 warps; the output tile and x^T fill
+// the registers and shared memory), so each slice's barrier stalls the SM:
+// tools/kernel_variants.py K2-fp32 times what the products, the copies, the
+// GELU and the barriers cost.
 
 #include <stdint.h>
 
@@ -238,6 +250,215 @@ cudaError_t launch_nj(const Args& a, cudaStream_t stream) {
   return launch<RPT, STAGES, 32>(a, stream);
 }
 
+// ---------------------------------------------------------------------------
+// The outer-product kernel (the route of every width with an instance:
+// d_out 256, 384 and 32, tiled_plan in the wrapper). A block of NT threads
+// owns BM rows of x and keeps their [BM, D_OUT] output in registers, a
+// TM x TN micro-tile a thread. x is staged once, transposed through
+// registers, as x^T [d_in][BM + 4]. d_mid streams through in chunks of C
+// columns, in order; each chunk:
+// - GEMM1: the [BM, C] mid, a 4 x G1N micro-tile a thread (rows 4 rg .. + 4,
+//   mids 4 (mg + M1 jj) .. + 4), over k-slices of KS rows of w1^T
+//   [KS][C + 4] (rows of the wrapper's contiguous [d_in, d_mid] copy of the
+//   transposed nn.Linear view). Per column of d_in, one float4 of x^T and
+//   G1N / 4 of w1^T feed 4 G1N FFMAs; each mid one FMA chain over d_in, in
+//   order;
+// - b1, then the exact GELU, stored mid-major into G^T [C][BM + 4];
+// - GEMM2: the chunk's contribution to the output over m-slices of MS rows
+//   of w2^T (the wrapper's contiguous [d_mid, d_out] copy): per mid, TM / 4
+//   float4 of G^T and TN / 4 of w2^T feed TM TN FFMAs (21 a 16-byte load at
+//   16 x 8); each output one FMA chain over d_mid, in order.
+// The slices (GEMM1's w1^T, GEMM2's w2^T) pass through a ring of STAGES
+// stages by 16-byte cp.async, two slices in flight ahead of the one in use;
+// one barrier a slice. Lane layouts: a warp's eight neighbouring
+// lanes take eight neighbouring column groups and its four lane octets four
+// neighbouring row groups, so every shared load of a warp reads 64 or 128
+// contiguous bytes. The sums run in the order of the dot-product kernel
+// above, so the two routes agree bit for bit.
+namespace tiled {
+
+__device__ __forceinline__ float f4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+constexpr int STAGES = 3;
+
+template <int D_OUT_, int BM_, int NT_, int TM_, int TN_, int C_, int G1N_, int KS_, int MS_>
+struct Inst {
+  static constexpr int D_OUT = D_OUT_, BM = BM_, NT = NT_, TM = TM_, TN = TN_, C = C_,
+                       G1N = G1N_, KS = KS_, MS = MS_;
+  static constexpr int R1 = BM / 4, M1 = C / G1N;      // GEMM1 row and mid groups
+  static constexpr int R2 = BM / TM, C2 = D_OUT / TN;  // GEMM2 row and column groups
+  static constexpr int LDX = BM + 4, LDW1 = C + 4, LDG = BM + 4;
+  static constexpr int STAGE1 = KS * LDW1, STAGE2 = MS * D_OUT;
+  static constexpr int STAGE = STAGE1 > STAGE2 ? STAGE1 : STAGE2;  // floats a stage
+  // the wrapper's tiled_smem_bytes mirrors this
+  static size_t smem(int d_in) {
+    return sizeof(float) * (static_cast<size_t>(d_in) * LDX + STAGES * STAGE + C * LDG);
+  }
+  static_assert(R1 * M1 == NT && R2 * C2 == NT, "one micro-tile a thread");
+  static_assert(M1 % 8 == 0 && C2 % 8 == 0 && R1 % 4 == 0 && R2 % 4 == 0, "lane layout");
+  static_assert(C % MS == 0 && TM % 4 == 0 && TN % 4 == 0 && G1N % 4 == 0, "vectors");
+};
+
+// the wrapper's TILED_INSTANCES mirror these (d_out, rows a block)
+// MD17 (256 -> 512 -> 256): 128 rows, 256 threads at 16 x 8, one block an SM.
+using Inst256 = Inst<256, 128, 256, 16, 8, 64, 8, 64, 16>;
+// 4AA (384 -> 768 -> 384): 64 rows, 384 threads at 8 x 8, chunks of 96; and
+// 32 rows of 192 threads where 64-row blocks would not cover the SMs.
+using Inst384 = Inst<384, 64, 384, 8, 8, 96, 4, 64, 16>;
+using Inst384h = Inst<384, 32, 192, 8, 8, 96, 4, 64, 32>;
+// the smoke widths (32 -> 64 -> 32): 64 rows, 128 threads at 4 x 4.
+using Inst32 = Inst<32, 64, 128, 4, 4, 64, 8, 32, 64>;
+
+struct TArgs {
+  const float *x, *w1t, *b1, *w2t;
+  float* out;
+  long long rows, x_s, o_s;
+  int d_in, d_mid;
+};
+
+template <class I>
+__global__ void __launch_bounds__(I::NT, 1) mlp_f32_tiled_kernel(const TArgs a) {
+  constexpr int BM = I::BM, C = I::C, D_OUT = I::D_OUT, TM = I::TM, TN = I::TN, G1N = I::G1N;
+  constexpr int KS = I::KS, MS = I::MS, M1 = I::M1, R2 = I::R2, C2 = I::C2;
+  constexpr int LDX = I::LDX, LDW1 = I::LDW1, LDG = I::LDG, STAGE = I::STAGE;
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // x^T [d_in][BM + 4]
+  float* ring = xs + a.d_in * LDX;              // [STAGES][STAGE]
+  float* gs = ring + STAGES * STAGE;            // G^T [C][BM + 4]
+  const int t = threadIdx.x, lane = t % 32, wp = t / 32;
+  const int mg = lane % 8 + 8 * (wp % (M1 / 8)), rg = lane / 8 + 4 * (wp / (M1 / 8));
+  const int cg = lane % 8 + 8 * (wp % (C2 / 8)), rg2 = lane / 8 + 4 * (wp / (C2 / 8));
+  const long long row0 = static_cast<long long>(blockIdx.x) * BM;
+  const int ksl = a.d_in / KS, per = ksl + C / MS, total = (a.d_mid / C) * per;
+
+  // slice u: chunk u / per, then its ksl GEMM1 slices (w1^T), then its C / MS
+  // GEMM2 slices (w2^T), each into stage u % STAGES
+  auto load_slice = [&](int u) {
+    float* st = ring + (u % STAGES) * STAGE;
+    const int c = u / per, r = u % per;
+    if (r < ksl) {
+      const float* src = a.w1t + static_cast<long long>(r) * KS * a.d_mid + c * C;
+      for (int idx = t; idx < KS * (C / 4); idx += I::NT) {
+        const int k = idx / (C / 4), m = 4 * (idx % (C / 4));
+        copy16(st + k * LDW1 + m, src + static_cast<long long>(k) * a.d_mid + m, true);
+      }
+    } else {
+      const float* src = a.w2t + (static_cast<long long>(c) * C + (r - ksl) * MS) * D_OUT;
+      for (int idx = t; idx < MS * (D_OUT / 4); idx += I::NT)
+        copy16(st + 4 * idx, src + 4 * idx, true);
+    }
+  };
+#pragma unroll
+  for (int u = 0; u < STAGES - 1; ++u) {
+    if (u < total) load_slice(u);
+    commit();
+  }
+  // x^T: eight lanes read 128 contiguous bytes of a row, zeros past the rows
+  for (int idx = t; idx < BM * (a.d_in / 4); idx += I::NT) {
+    const int k = 4 * (idx % 8 + 8 * (idx / (8 * BM))), r = (idx / 8) % BM;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row0 + r < a.rows) v = *reinterpret_cast<const float4*>(a.x + (row0 + r) * a.x_s + k);
+    xs[k * LDX + r] = v.x;
+    xs[(k + 1) * LDX + r] = v.y;
+    xs[(k + 2) * LDX + r] = v.z;
+    xs[(k + 3) * LDX + r] = v.w;
+  }
+
+  float acc[TM][TN], mid[4][G1N];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+  for (int u = 0; u < total; ++u) {
+    wait_groups<STAGES - 2>();
+    __syncthreads();  // slice u (and x^T) landed; slice u - 1's stage is free
+    if (u + STAGES - 1 < total) load_slice(u + STAGES - 1);
+    commit();
+    const float* st = ring + (u % STAGES) * STAGE;
+    const int c = u / per, r = u % per;
+    if (r < ksl) {
+      if (r == 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < G1N; ++j) mid[i][j] = 0.0f;
+      }
+      const float* xt = xs + r * KS * LDX + 4 * rg;
+      const float* w1t = st + 4 * mg;
+#pragma unroll 8
+      for (int k = 0; k < KS; ++k) {
+        const float4 xv = *reinterpret_cast<const float4*>(xt + k * LDX);
+        float4 wv[G1N / 4];
+#pragma unroll
+        for (int jj = 0; jj < G1N / 4; ++jj)
+          wv[jj] = *reinterpret_cast<const float4*>(w1t + k * LDW1 + 4 * M1 * jj);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < G1N; ++j)
+            mid[i][j] = fmaf(f4(xv, i), f4(wv[j / 4], j % 4), mid[i][j]);
+      }
+      if (r == ksl - 1) {
+#pragma unroll
+        for (int j = 0; j < G1N; ++j) {
+          const int m = 4 * (mg + M1 * (j / 4)) + j % 4;
+          const float b = a.b1[c * C + m];
+          float g[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) g[i] = gelu_exact(__fadd_rn(mid[i][j], b));
+          *reinterpret_cast<float4*>(gs + m * LDG + 4 * rg) = make_float4(g[0], g[1], g[2], g[3]);
+        }
+      }
+    } else {
+      const float* w2t = st + 4 * cg;
+      const float* gr = gs + (r - ksl) * MS * LDG + 4 * rg2;
+#pragma unroll 4
+      for (int m = 0; m < MS; ++m) {
+        float4 gv[TM / 4], wv[TN / 4];
+#pragma unroll
+        for (int i = 0; i < TM / 4; ++i)
+          gv[i] = *reinterpret_cast<const float4*>(gr + m * LDG + 4 * R2 * i);
+#pragma unroll
+        for (int j = 0; j < TN / 4; ++j)
+          wv[j] = *reinterpret_cast<const float4*>(w2t + m * D_OUT + 4 * C2 * j);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float g = f4(gv[i / 4], i % 4);
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(g, f4(wv[j / 4], j % 4), acc[i][j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const long long row = row0 + 4 * (rg2 + R2 * (i / 4)) + i % 4;
+    if (row >= a.rows) continue;
+#pragma unroll
+    for (int j = 0; j < TN / 4; ++j)
+      *reinterpret_cast<float4*>(a.out + row * a.o_s + 4 * (cg + C2 * j)) =
+          make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]);
+  }
+}
+
+template <class I>
+cudaError_t launch(const TArgs& a, cudaStream_t stream) {
+  static cudaError_t attr = lam_set_smem(mlp_f32_tiled_kernel<I>, 232448);
+  if (attr != cudaSuccess) return attr;
+  const long long blocks = (a.rows + I::BM - 1) / I::BM;
+  mlp_f32_tiled_kernel<I><<<static_cast<unsigned>(blocks), I::NT, I::smem(a.d_in), stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <class I>
+bool takes(int d_in, int d_mid) {
+  return d_in % I::KS == 0 && d_mid % I::C == 0 && I::smem(d_in) <= 232448;
+}
+
+}  // namespace tiled
+
 }  // namespace
 
 // x: fp32 [rows, d_in] (row stride x_s, unit stride on d_in); w1: fp32
@@ -266,4 +487,38 @@ extern "C" int lam_fused_mlp_f32(const void* x, const void* w1, const void* b1, 
   if (bm == 64)
     return static_cast<int>(stages == 2 ? launch_nj<4, 2>(a, st) : launch_nj<4, 1>(a, st));
   return static_cast<int>(stages == 2 ? launch_nj<2, 2>(a, st) : launch_nj<2, 1>(a, st));
+}
+
+// As lam_fused_mlp_f32, on the outer-product kernel: w1t and w2t the
+// contiguous [d_in, d_mid] and [d_mid, d_out] copies of w1 and w2
+// (w1t[i * d_mid + m], w2t[m * d_out + o]); out contiguous; w1t, w2t and
+// x, w1t, w2t and out 16-byte aligned, x_s and o_s multiples of 4. d_out
+// and bm (rows a block) those of an instance (256 and 128, 384 and 64 or
+// 32, 32 and 64), d_in a multiple of its k-slice, d_mid of its chunk, the
+// shared memory within 232,448 bytes (the wrapper's tiled_plan);
+// cudaErrorInvalidValue for the rest.
+extern "C" int lam_fused_mlp_f32_tiled(const void* x, const void* w1t, const void* b1,
+                                       const void* w2t, void* out, int rows, int d_in,
+                                       int d_mid, int d_out, long long x_s, long long o_s,
+                                       int bm, void* stream) {
+  const unsigned long long bits = reinterpret_cast<unsigned long long>(x) |
+                                  reinterpret_cast<unsigned long long>(w1t) |
+                                  reinterpret_cast<unsigned long long>(w2t) |
+                                  reinterpret_cast<unsigned long long>(out) |
+                                  4ull * static_cast<unsigned long long>(x_s | o_s);
+  const tiled::TArgs a{static_cast<const float*>(x), static_cast<const float*>(w1t),
+                       static_cast<const float*>(b1), static_cast<const float*>(w2t),
+                       static_cast<float*>(out), rows, x_s, o_s, d_in, d_mid};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (rows <= 0 || d_in <= 0 || d_mid <= 0 || (bits & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (d_out == 256 && bm == 128 && tiled::takes<tiled::Inst256>(d_in, d_mid))
+    return static_cast<int>(tiled::launch<tiled::Inst256>(a, st));
+  if (d_out == 384 && bm == 64 && tiled::takes<tiled::Inst384>(d_in, d_mid))
+    return static_cast<int>(tiled::launch<tiled::Inst384>(a, st));
+  if (d_out == 384 && bm == 32 && tiled::takes<tiled::Inst384h>(d_in, d_mid))
+    return static_cast<int>(tiled::launch<tiled::Inst384h>(a, st));
+  if (d_out == 32 && bm == 64 && tiled::takes<tiled::Inst32>(d_in, d_mid))
+    return static_cast<int>(tiled::launch<tiled::Inst32>(a, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

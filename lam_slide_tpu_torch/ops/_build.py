@@ -36,7 +36,7 @@ _FLASH_FWD = [_P] * 6 + [_I] * 5 + [_L] * 12 + [_F, _P]
 _FLASH_BWD = [_P] * 10 + [_I] * 5 + [_LP, _F, _P]
 SIGNATURES = {
     "lam_flash_attention_fwd": _FLASH_FWD,
-    "lam_flash_attention_fwd_f32": _FLASH_FWD,
+    "lam_flash_attention_fwd_f32": [_P] * 6 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
     "lam_flash_attention_fwd_sm90": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
     "lam_flash_attention_bwd_sm90": [_P] * 10 + [_I] * 5 + [_LP, _F, _I, _P],
     "lam_qk_normrope": [_P] * 8 + [_I] * 5 + [_L] * 6 + [_F, _P],
@@ -48,6 +48,7 @@ SIGNATURES = {
     "lam_fused_mlp_sm90": [_P] * 6 + [_I] * 4 + [_L] * 4 + [_I] * 4 + [_P],
     "lam_fused_mlp_wmma": [_P] * 5 + [_I] * 4 + [_L] * 4 + [_P],
     "lam_fused_mlp_f32": [_P] * 5 + [_I] * 4 + [_L] * 4 + [_I, _I, _P],
+    "lam_fused_mlp_f32_tiled": [_P] * 5 + [_I] * 4 + [_L] * 2 + [_I, _P],
     "lam_adaln_fwd": [_P] * 7 + [_LP, _F, _I, _P],
     "lam_adaln_fwd_f32": [_P] * 7 + [_LP, _F, _I, _P],
     "lam_spatial_block_wmma": [_P] * 10 + [_L, _I, _I, _I, _I, _L, _L, _F, _P],

@@ -22,9 +22,11 @@ K1 also takes a ``[B, Nk]`` boolean key-padding mask (True = attend), which
 becomes the fp32 bias row of ``_mask_to_bias`` (0 or -0.7·finfo(fp32).max,
 flash_attention.py:624-629) added to the scaled logits in the kernel, and
 fp32 operands (stage 1 and the fp32 sampling DiTs), through a second
-kernel with fp32 in and out: a thread a query row up to dh 64, four lanes a
-row above it up to dh 128. K4 takes both too: the bias row in both of its
-kernels (JAX ``_bwd_probs``), and fp32 operands through a second pair of
+kernel with fp32 in and out: a thread a query row up to dh 64, and above it
+up to dh 128 a register-tiled kernel (a thread a 4 x 4 block of the scores
+and a 4 x 8 block of the output) whose geometry ``f32_wide_plan`` picks.
+K4 takes both too: the bias row in both of its kernels (JAX
+``_bwd_probs``), and fp32 operands through a second pair of
 kernels, up to dh 64 (``F32_GRAD_MAX_DH``): an fp32 call at a wider head
 that needs a gradient raises before its forward launches. The packed entry
 K3 stays unmasked, as in JAX.
@@ -38,7 +40,9 @@ views.
 Counters (plain integers, touched only where a kernel launches):
 ``launches`` counts K1 calls of both entries and both dtypes,
 ``bias_launches`` those with a key-padding bias, ``fp32_launches`` those
-with fp32 operands, ``sm90_launches`` the redesigned forward's launches and
+with fp32 operands, ``fp32_wide_launches`` those of them at 64 < dh <= 128
+(the register-tiled kernel), ``sm90_launches`` the redesigned forward's
+launches and
 ``sm90_cp_async_launches`` those of them on the cp.async route.
 ``bwd_kv_launches`` and ``bwd_q_launches`` each count K4 calls (on the old
 pair, its dK/dV and its dQ kernel), ``bwd_bias_launches`` /
@@ -60,6 +64,7 @@ from lam_slide_tpu_torch.ops._grad import needs_grad
 launches = 0
 bias_launches = 0
 fp32_launches = 0
+fp32_wide_launches = 0
 bwd_kv_launches = 0
 bwd_q_launches = 0
 bwd_bias_launches = 0
@@ -70,10 +75,30 @@ bwd_sm90_launches = 0
 bwd_sm90_cp_async_launches = 0
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max  # the JAX kernels' mask fill
-MAX_DH = 128  # every forward kernel, bf16 and fp32 (four lanes a row above 64 in fp32)
+MAX_DH = 128  # every forward kernel, bf16 and fp32 (register-tiled above 64 in fp32)
 # K4's fp32 pair keeps q/k rows in registers and stops at dh 64, so an fp32
 # call that needs a gradient must stay within it.
 F32_GRAD_MAX_DH = 64
+# The register-tiled fp32 kernel at 64 < dh <= 128 (csrc/flash_attention.cu
+# WideLayout<64>): 64-row blocks of 256 threads over key tiles of 64, dh
+# padded to 128, two blocks an SM.
+F32_WIDE_MIN_DH = 65
+F32_WIDE_SHORT = 32  # Nq and Nk at most this: two sequences share a 64-row block
+
+
+def f32_wide_smem_bytes() -> int:
+    """Shared memory of a register-tiled fp32 block (``WideLayout<64>`` in
+    csrc/flash_attention.cu): Q and K [64, 132] (P^T over K), V [64, 128],
+    the bias slice [64], alpha and l [64]."""
+    return 4 * (64 * 132 + 64 * 132 + 64 * 128 + 64 + 2 * 64)
+
+
+def f32_wide_plan(nq: int, nk: int) -> int:
+    """Sequences a 64-row block of the register-tiled fp32 kernel for nq
+    queries over nk keys: two where both axes are at most 32 (MD17's
+    temporal axis, T = 30), so its blocks are not three quarters empty,
+    else one."""
+    return 2 if nq <= F32_WIDE_SHORT and nk <= F32_WIDE_SHORT else 1
 
 
 def sm90_tma_ok(*tensors: torch.Tensor) -> bool:
@@ -213,7 +238,7 @@ def _forward(q, k, v, scale: float, with_lse: bool, mask: Optional[torch.Tensor]
         launches += 1
         return out, lse
     bias = None if mask is None else _bias(mask, q, k.shape[2])
-    out, lse = _launch_template_forward(q, k, v, scale, with_lse, bias)
+    out, lse = _launch_template_forward(q, k, v, scale, with_lse, bias, sys.modules[__name__])
     launches += 1
     bias_launches += bias is not None
     fp32_launches += fp32
@@ -221,23 +246,31 @@ def _forward(q, k, v, scale: float, with_lse: bool, mask: Optional[torch.Tensor]
 
 
 def _launch_template_forward(q, k, v, scale: float, with_lse: bool,
-                             bias: Optional[torch.Tensor] = None):
+                             bias: Optional[torch.Tensor], counts):
     """The older template's forward on checked CUDA tensors -> (out in packed
     memory, lse or None): its bf16 kernel with the fp32 ``[B, Nk]`` bias row
-    (which it needs), or its fp32 kernel with or without one. Counts
-    nothing: K1's ``_forward`` and K5's fp32 path count their own calls."""
+    (which it needs), or the fp32 kernels with or without one (at
+    64 < dh <= 128 the register-tiled one, in ``f32_wide_plan``'s geometry).
+    ``counts`` is the module whose ``fp32_wide_launches`` counts the
+    register-tiled kernel (K1's, or K5's, which runs it on its transformed
+    q/k); the callers count the rest."""
     b, h, nq, dh = q.shape
     nk = k.shape[2]
     out = _packed_like(q, nq)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
-    fp32 = q.dtype == torch.float32
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), None if bias is None else bias.data_ptr())
     with torch.cuda.device(q.device):
-        _build.launch("lam_flash_attention_fwd_f32" if fp32 else "lam_flash_attention_fwd",
-                      q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                      None if lse is None else lse.data_ptr(),
-                      None if bias is None else bias.data_ptr(), b, h, nq, nk, dh,
-                      *strides, float(scale), _stream(q))
+        if q.dtype == torch.float32:
+            wide = dh >= F32_WIDE_MIN_DH
+            _build.launch("lam_flash_attention_fwd_f32", *ptrs, b, h, nq, nk, dh, *strides,
+                          float(scale), f32_wide_plan(nq, nk) if wide else 0, _stream(q))
+            if wide:
+                counts.fp32_wide_launches += 1
+        else:
+            _build.launch("lam_flash_attention_fwd", *ptrs, b, h, nq, nk, dh, *strides,
+                          float(scale), _stream(q))
     return out, lse
 
 

@@ -23,7 +23,9 @@ and the two scales by autograd of the plain pre-transform
 
 Counters (plain integers, touched only where a kernel launches):
 ``launches`` counts K5 calls of both dtypes and ``fp32_launches`` those in
-fp32 (the transform's fp32 kernel, then K1's fp32 kernel);
+fp32 (the transform's fp32 kernel, then K1's fp32 kernel) and
+``fp32_wide_launches`` those of K1's register-tiled fp32 kernel among them
+(64 < dh <= 128);
 ``transform_launches`` counts the transform kernel's launches in both dtypes
 (one a K5 call, one a ``flash_attention_normrope_backward`` call, one a
 ``qk_normrope`` call); ``sm90_launches`` the bf16 K5 calls on the
@@ -57,6 +59,7 @@ EPS = 1e-6
 DTYPES = (torch.bfloat16, torch.float32)  # the forward's; the backward (K6) takes bf16
 launches = 0
 fp32_launches = 0
+fp32_wide_launches = 0
 transform_launches = 0
 sm90_launches = 0
 sm90_cp_async_launches = 0
@@ -180,7 +183,7 @@ def _forward_kernels(q, k, v, q_scale, k_scale, cos, sin, scale: float, with_lse
     _check_normrope(q, q_scale, k_scale, cos, sin, k.shape[2])
     q_t, k_t = _launch_transform(q, k, q_scale, k_scale, cos, sin)
     if q.dtype == torch.float32:
-        out, lse = _launch_template_forward(q_t, k_t, v, scale, with_lse)
+        out, lse = _launch_template_forward(q_t, k_t, v, scale, with_lse, None, _COUNTS)
         fp32_launches += 1
     else:
         out, lse = _launch_sm90_forward(q_t, k_t, v, scale, with_lse, _COUNTS)

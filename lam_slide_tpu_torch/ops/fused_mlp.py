@@ -18,10 +18,16 @@ kernel (``lam_fused_mlp_wmma``) for wider inputs. The Hopper kernel loads x
 by TMA when ``x_tma_ok`` holds, else by cp.async inside the same kernel, and
 reads the GELU of each bf16 mid from a table a small kernel builds with the
 same fp32 formula before it (one launch of K2 is the pair). In fp32 (the
-MD17 test pass's fp32 DiT), ``lam_fused_mlp_f32`` (``csrc/fused_mlp_f32.cu``):
-a tiled FFMA kernel, no TF32, its d_mid chunks double-buffered by cp.async
-where ``f32_plan`` finds room;
-the mid is not rounded there, as ``astype(x.dtype)`` is a no-op in fp32.
+MD17 test pass's fp32 DiT and the 4AA eval's), FFMA kernels in
+``csrc/fused_mlp_f32.cu``, no TF32: the outer-product kernel
+(``lam_fused_mlp_f32_tiled``, a thread a block of the output in registers,
+16 x 8 floats at MD17's widths) for the widths ``tiled_plan`` has an
+instance for (every width the registries build in fp32), on contiguous
+copies of w1's and w2's transposed views the wrapper makes each call
+(0.5 MB each at MD17, 1.2 MB at 4AA); the dot-product kernel
+(``lam_fused_mlp_f32``, its d_mid chunks double-buffered by cp.async where
+``f32_plan`` finds room) for the others. The mid is not rounded there, as
+``astype(x.dtype)`` is a no-op in fp32.
 
 Gradients: on CUDA tensors that need one, the kernel runs inside
 ``_FusedMLP``, whose backward is autograd of ``reference_mlp`` on the saved
@@ -30,9 +36,12 @@ inputs (``_fused_mlp_bwd``, fused_mlp.py:125-128); no backward kernel.
 Counters (plain integers, touched only where a kernel launches):
 ``launches`` counts K2 launches of every route, ``wmma_launches`` those on
 the WMMA route, ``cp_async_launches`` the Hopper kernel's launches that
-load x by cp.async and ``fp32_launches`` those of the fp32 kernel.
+load x by cp.async, ``fp32_launches`` those of the fp32 kernels,
+``fp32_tiled_launches`` those of the outer-product kernel and
+``fp32_dot_launches`` those of the dot-product kernel.
 """
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -45,6 +54,8 @@ launches = 0
 wmma_launches = 0
 cp_async_launches = 0
 fp32_launches = 0
+fp32_tiled_launches = 0
+fp32_dot_launches = 0
 
 # The Hopper kernel's GELU table (csrc/fused_mlp.cu GELU_LO, GELU_SPAN): the
 # bf16 GELU of every bf16 mid with |mid| in [2^-9, 8) (bit patterns from
@@ -114,6 +125,52 @@ def f32_plan(d_in: int, d_out: int) -> Optional[Tuple[int, int]]:
     return next((p for p in F32_PLANS if f32_smem_bytes(*p, d_in, d_out) <= SMEM_MAX), None)
 
 
+# The outer-product fp32 kernel's instances (csrc/fused_mlp_f32.cu
+# tiled::Inst*): (d_out, rows a block) -> (threads, d_mid columns a chunk,
+# d_in rows of a w1^T slice, d_mid rows of a w2^T slice); the slices pass
+# through a ring of TILED_STAGES stages.
+TILED_INSTANCES = {(256, 128): (256, 64, 64, 16), (384, 64): (384, 96, 64, 16),
+                   (384, 32): (192, 96, 64, 32), (32, 64): (128, 64, 32, 64)}
+TILED_STAGES = 3
+H100_SMS = 132
+
+
+def tiled_smem_bytes(d_in: int, d_out: int, rows: int) -> int:
+    """Shared memory of an outer-product fp32 block (``tiled::Inst::smem``):
+    x^T [d_in, rows + 4], the ring's stages, each the larger of a w1^T slice
+    [ks, chunk + 4] and a w2^T slice [ms, d_out], and G^T [chunk, rows + 4]."""
+    _, chunk, ks, ms = TILED_INSTANCES[(d_out, rows)]
+    stage = max(ks * (chunk + 4), ms * d_out)
+    return 4 * (d_in * (rows + 4) + TILED_STAGES * stage + chunk * (rows + 4))
+
+
+def tiled_plan(d_in: int, d_mid: int, d_out: int, rows: int = 1 << 30,
+               sms: int = H100_SMS) -> Optional[Tuple[int, int, int, int]]:
+    """The outer-product fp32 kernel's (rows a block, threads, d_mid columns
+    a chunk, shared bytes) for ``rows`` rows (by default as many as fill the
+    card) at these widths, or None where
+    it has no instance (d_out not 256, 384 or 32, d_in not a multiple of the
+    instance's k-slice, d_mid not one of its chunk) or its shared memory
+    would not fit: the dot-product kernel's route then (``f32_plan``). Of
+    two instances for one d_out, the smaller row block where the larger
+    would leave SMs idle (the 4AA eval's 4,000 rows: 125 blocks of 32 rows,
+    not 63 of 64)."""
+    sizes = sorted((bm for (o, bm) in TILED_INSTANCES if o == d_out), reverse=True)
+    if not sizes:
+        return None
+    bm = sizes[-1] if len(sizes) > 1 and -(-rows // sizes[0]) < sms else sizes[0]
+    threads, chunk, ks, _ = TILED_INSTANCES[(d_out, bm)]
+    smem = tiled_smem_bytes(d_in, d_out, bm)
+    if d_in % ks or d_mid % chunk or smem > SMEM_MAX:
+        return None
+    return bm, threads, chunk, smem
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def x_tma_ok(x2: torch.Tensor) -> bool:
     """Whether TMA can load the rows of x ``[rows, d_in]`` (unit stride on
     d_in): a 16-byte aligned base and row stride. Otherwise the Hopper
@@ -146,10 +203,11 @@ def _check(x, w1, b1, w2) -> None:
     if d_in % 16 or d_mid % 16 or w2.shape[1] % 16:
         raise ValueError("fused_mlp: d_in, d_mid and d_out must be multiples of 16")
     fp32 = x.dtype == torch.float32
-    if fp32 and f32_plan(d_in, w2.shape[1]) is None:
-        raise ValueError(f"fused_mlp: the fp32 kernel takes d_out <= {F32_MAX_D_OUT} and "
+    d_out = w2.shape[1]
+    if fp32 and tiled_plan(d_in, d_mid, d_out) is None and f32_plan(d_in, d_out) is None:
+        raise ValueError(f"fused_mlp: the fp32 kernels take d_out <= {F32_MAX_D_OUT} and "
                          f"widths whose tiles fit shared memory, got d_in {d_in} "
-                         f"d_out {w2.shape[1]}")
+                         f"d_out {d_out}")
     for name, w in (("w1", w1), ("w2", w2)):
         align = (w.stride(1) % 4 or w.data_ptr() % 16) if fp32 else (
             w.stride(1) % 8 or w.data_ptr() % 32)
@@ -207,11 +265,23 @@ def _launch(x, w1, b1, w2) -> torch.Tensor:
     ptrs = (x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), out.data_ptr())
     dims = (rows, d_in, d_mid, d_out, x2.stride(0), w1.stride(1), w2.stride(1), out.stride(0))
     global launches, wmma_launches, cp_async_launches, fp32_launches
+    global fp32_tiled_launches, fp32_dot_launches
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if x.dtype == torch.float32:
+        tiled = (tiled_plan(d_in, d_mid, d_out, rows, _sms(x.device))
+                 if x.dtype == torch.float32 else None)
+        if tiled is not None:
+            # [d_in, d_mid] and [d_mid, d_out] row-major: the kernel's k-major operands
+            w1t, w2t = w1.contiguous(), w2.contiguous()
+            _build.launch("lam_fused_mlp_f32_tiled", x2.data_ptr(), w1t.data_ptr(),
+                          b1.data_ptr(), w2t.data_ptr(), out.data_ptr(), rows, d_in, d_mid,
+                          d_out, x2.stride(0), out.stride(0), tiled[0], stream)
+            fp32_launches += 1
+            fp32_tiled_launches += 1
+        elif x.dtype == torch.float32:
             _build.launch("lam_fused_mlp_f32", *ptrs, *dims, *f32_plan(d_in, d_out), stream)
             fp32_launches += 1
+            fp32_dot_launches += 1
         elif plan is None:
             _build.launch("lam_fused_mlp_wmma", *ptrs, *dims, stream)
             wmma_launches += 1

@@ -28,11 +28,17 @@ events and by the profiler's device time, K8 (``fused_spatial_block``) at
 the 4AA solve's [2000, 2, 384] and [8000, 2, 384] at 16 x 24 and 3 x 128,
 and K7 (``residual_adaln_modulate``, h the transposed temporal output) at
 the 4AA B=8 solve's [8, 1000, 2, 384] and the MD17 protocol's [320, 30,
-192, 256]. It uses
-only entry points every tree of the port has, so an A/B of two trees runs
-it from each in turns:
+192, 256]. Last, the fp32 calls of the fp32 sampling DiTs (TF32 off):
+K1-fp32 at dh 128 on head-major views of packed buffers (MD17's 2 x 128
+axes [1920, 2, 192, 128] and [12288, 2, 30, 128], the 4AA eval's 3 x 128
+axis at B = 2 and B = 8, [4, 3, 1000, 128] and [16, 3, 1000, 128], and with
+the lse at [2, 3, 1000, 128]), K5-fp32 at MD17's and the 4AA eval's shapes,
+and K2-fp32 at the MD17 test pass's [368640, 256] -> 512 and the 4AA
+eval's [4000, 384] and sampling [16000, 384] -> 768; ``--fp32`` times these
+alone. It uses only entry points every tree of the port has, so an A/B of
+two trees runs it from each in turns:
 
-    cd <tree> && PYTHONPATH=. python <this file> <label>
+    cd <tree> && PYTHONPATH=. python <this file> <label> [--fp32]
 
 and prints one line per call with the card's name and power limit.
 """
@@ -89,12 +95,43 @@ def _heads(gen, dev, dtype, b, n, h, dh, scale=1.0):
     return q, k, v, torch.randn(b, h, n, dh, generator=gen).to(dev, dtype)
 
 
+def _fp32_calls(gen, dev) -> list:
+    """(name, call, reps) of the fp32 DiTs' K1-fp32 at dh 128, K5-fp32 and
+    K2-fp32 at their main-path shapes."""
+    calls = []
+    for b, h, n in ((1920, 2, 192), (12288, 2, 30), (4, 3, 1000), (16, 3, 1000)):
+        q, k, v, _ = _heads(gen, dev, torch.float32, b, n, h, 128)
+        calls.append((f"K1-fp32 [{b},{h},{n},128]",
+                      lambda q=q, k=k, v=v: fa.flash_attention(q, k, v), 10))
+        qs, ks = ((1 + 0.2 * torch.randn(128, generator=gen)).to(dev) for _ in range(2))
+        nr = (qs, ks, *rope_cos_sin(n, 128, device=dev))
+        calls.append((f"K5-fp32 [{b},{h},{n},128]",
+                      lambda q=q, k=k, v=v, nr=nr: fnr.flash_attention_normrope(q, k, v, *nr),
+                      10))
+    q, k, v, _ = _heads(gen, dev, torch.float32, 2, 1000, 3, 128)
+    calls.append(("K1-fp32 lse [2,3,1000,128]",
+                  lambda: fa._forward(q, k, v, 128 ** -0.5, with_lse=True), 10))
+    for rows, d in ((368640, 256), (4000, 384), (16000, 384)):
+        w1 = (torch.randn(5 * d, d, generator=gen) * d ** -0.5).to(dev)
+        w2 = (torch.randn(d, 3 * d, generator=gen) * (3 * d) ** -0.5).to(dev)
+        args = (torch.randn(rows, d, generator=gen).to(dev), w1[3 * d:].t(),
+                (torch.randn(2 * d, generator=gen) * 0.1).to(dev), w2[:, d:].t())
+        calls.append((f"K2-fp32 [{rows},{d}] -> {2 * d}", lambda args=args: fm.fused_mlp(*args),
+                       10))
+    return calls
+
+
 def main() -> int:
     label = sys.argv[1] if len(sys.argv) > 1 else "tree"
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     gen = torch.Generator().manual_seed(0)
+    if "--fp32" in sys.argv[2:]:
+        with torch.no_grad():
+            for name, fn, reps in _fp32_calls(gen, dev):
+                print(f"{label}: {name} {_ms(fn, reps):.4f} ms | {smi}", flush=True)
+        return 0
     q, k, v, _ = _heads(gen, dev, torch.float32, 9600, 192, 2, 16)
     cq = torch.randn(1920, 192, 8, 16, generator=gen).to(dev).transpose(1, 2)
     ck, cv = (t.transpose(1, 2) for t in torch.randn(1920, 32, 2, 8, 16, generator=gen)
@@ -218,6 +255,8 @@ def main() -> int:
                   f"(device) | {smi}", flush=True)
         else:
             print(f"{label}: K5 transform: this tree has no transform kernel | {smi}", flush=True)
+        for name, fn, reps in _fp32_calls(gen, dev):
+            print(f"{label}: {name} {_ms(fn, reps):.4f} ms | {smi}", flush=True)
     return 0
 
 

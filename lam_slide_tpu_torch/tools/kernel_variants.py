@@ -72,21 +72,38 @@ K11_VARIANTS = {
     "no dK/dV products": [("wgmma_rs<DV, 1>(dv, pf[kk]", "if (false) wgmma_rs<DV, 1>(dv, pf[kk]"),
                           ("wgmma_rs<DV, 1>(dk, df[kk]", "if (false) wgmma_rs<DV, 1>(dk, df[kk]")],
 }
-# K1's fp32 kernel at 64 < dh <= 128 (four lanes a query row): occupancy
-# (at most 128 registers a thread, two 256-thread blocks an SM; uncapped,
-# ptxas takes 160 and one block fits) against its K/V tile loads and its
-# products
+# K1's register-tiled fp32 kernel at 64 < dh <= 128: its products, its
+# exponentials and its K/V copies taken out one at a time, and 32-row blocks
+# (two rows a thread) in place of 64 where one sequence takes a block
 K1_F32_WIDE_VARIANTS = {
     "kernel": [],
-    "one block an SM (160 registers)": [
-        ("__global__ void __launch_bounds__(F32_WIDE_THREADS, 2)",
-         "__global__ void __launch_bounds__(F32_WIDE_THREADS)")],
-    "32 rows a block": [("constexpr int F32_WIDE_ROWS = 64;", "constexpr int F32_WIDE_ROWS = 32;")],
-    "no K/V tile loads": [("kf[idx] = ok ? kp[", "kf[idx] = Nq < 0 ? kp["),
-                          ("vf[idx] = ok ? vp[", "vf[idx] = Nq < 0 ? vp[")],
-    "no PV products": [("        const float4 vv = Vs[j][g + F32_GROUP * i];",
-                        "        if (Nq >= 0) continue;\n"
-                        "        const float4 vv = Vs[j][g + F32_GROUP * i];")],
+    "no S products": [("    for (int d = 0; d < WIDE_DP; d += 4) {",
+                       "    for (int d = 0; d < (Nq < 0 ? WIDE_DP : 0); d += 4) {")],
+    "no PV products": [("    for (int key = kb; key < ke; ++key) {",
+                        "    for (int key = kb; key < (Nq < 0 ? ke : kb); ++key) {")],
+    "no exponentials": [("        sc[i][j] = expf(sc[i][j] - m_new);",
+                         "        sc[i][j] = sc[i][j] - m_new;")],
+    "no K/V copies": [("    wide_stage<SEG, VEC>(Ks,", "    if (Nq < 0) wide_stage<SEG, VEC>(Ks,"),
+                      ("    wide_stage<SEG, VEC>(Vs,", "    if (Nq < 0) wide_stage<SEG, VEC>(Vs,")],
+    "32 rows a block": [("  return launch_f32_tiled<64, 1, VEC>(",
+                         "  return launch_f32_tiled<32, 1, VEC>(")],
+}
+# K2's outer-product fp32 kernel: either GEMM's products, the GELU or the
+# slice copies taken out, a ring of two stages (one slice in flight, not
+# two), and MD17's instance at the other micro-tile (8 x 8 a thread, 512
+# threads, so 128 registers a thread)
+K2_F32_VARIANTS = {
+    "kernel": [],
+    "no GEMM1 products": [("      for (int k = 0; k < KS; ++k) {",
+                           "      for (int k = 0; k < (a.rows < 0 ? KS : 0); ++k) {")],
+    "no GEMM2 products": [("      for (int m = 0; m < MS; ++m) {",
+                           "      for (int m = 0; m < (a.rows < 0 ? MS : 0); ++m) {")],
+    "no GELU": [("g[i] = gelu_exact(__fadd_rn(mid[i][j], b));", "g[i] = __fadd_rn(mid[i][j], b);")],
+    "no slice copies": [("    if (u + STAGES - 1 < total) load_slice(u + STAGES - 1);",
+                         "    if (a.rows < 0) load_slice(u + STAGES - 1);")],
+    "two stages": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
+    "8 x 8 at MD17": [("using Inst256 = Inst<256, 128, 256, 16, 8, 64, 8, 64, 16>;",
+                       "using Inst256 = Inst<256, 128, 512, 8, 8, 64, 4, 64, 16>;")],
 }
 K2_LOOKUP = "static_cast<uint32_t>(__ldg(table + (in ? k + (h >> 15) * GELU_SPAN : 0u)))"
 K2_VARIANTS = {
@@ -408,25 +425,56 @@ def _k5_k6(gen, dev, stream, smi) -> None:
 
 
 def _k1_f32_wide(gen, dev, stream, smi) -> None:
-    """K1's fp32 kernel at dh 128 on head-major views of packed fp32 buffers:
-    MD17's fp32 spatial axis at 2 x 128 [1920, 2, 192, 128] and the 4AA
-    eval window's temporal axis at 3 x 128 [4, 3, 1000, 128]."""
+    """K1's register-tiled fp32 kernel on head-major views of packed fp32
+    buffers, in its plan's geometry: MD17's fp32 axes at 2 x 128 (spatial
+    [1920, 2, 192, 128], temporal [12288, 2, 30, 128]) and the 4AA eval's
+    temporal axis at 3 x 128 (the eval's B = 2, [4, 3, 1000, 128], and the
+    sampling B = 8, [16, 3, 1000, 128])."""
     k1 = _build_variants("flash_attention.cu", "lam_flash_attention_fwd_f32",
                          K1_F32_WIDE_VARIANTS)
-    for b, h, n in ((1920, 2, 192), (4, 3, 1000)):
+    for b, h, n in ((1920, 2, 192), (12288, 2, 30), (4, 3, 1000), (16, 3, 1000)):
         dh = 128
         qkv = torch.randn(b, n, 3 * h * dh, generator=gen).to(dev)
         q, k, v = (t.transpose(1, 2) for t in qkv.unflatten(-1, (3, h, dh)).unbind(2))
         out = torch.empty(b, n, h, dh, device=dev).transpose(1, 2)
         strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+        seg = fa.f32_wide_plan(n, n)
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, None, b, h, n, n,
-                dh, *strides, dh ** -0.5, stream)
-        _in_turns(f"K1-fp32 [{b},{h},{n},{dh}]",
+                dh, *strides, dh ** -0.5, seg, stream)
+        _in_turns(f"K1-fp32 [{b},{h},{n},{dh}] {seg} sequence(s) a block",
                   {name: _checked(fn, args) for name, fn in k1.items()}, smi)
+        del qkv, q, k, v, out
+        torch.cuda.empty_cache()
 
 
-KERNELS = {"K1-fp32-wide": _k1_f32_wide, "K2": _k2, "K9-forward": _k9_forward, "K11": _k11, "K9-backward": _k9_backward,
-           "K5-K6": _k5_k6, "K8": _k8, "K8-fp32": _k8_f32, "K7": _k7}
+def _k2_f32(gen, dev, stream, smi) -> None:
+    """K2's outer-product fp32 kernel at the MD17 test pass's [368640, 256]
+    -> 512 -> 256 and the 4AA eval's [4000, 384] -> 768 -> 384 and sampling
+    [16000, 384], on the contiguous w1^T / w2^T copies the wrapper makes, in
+    its plan's row block; at 4AA also the kernel in the other row block."""
+    k2 = _build_variants("fused_mlp_f32.cu", "lam_fused_mlp_f32_tiled", K2_F32_VARIANTS)
+    for rows, d in ((368640, 256), (4000, 384), (16000, 384)):
+        m = 2 * d
+        x = torch.randn(rows, d, generator=gen).to(dev)
+        w1t = (torch.randn(d, m, generator=gen) * d ** -0.5).to(dev)
+        b1 = (torch.randn(m, generator=gen) * 0.1).to(dev)
+        w2t = (torch.randn(m, d, generator=gen) * m ** -0.5).to(dev)
+        out = torch.empty(rows, d, device=dev)
+        bm = fm.tiled_plan(d, m, d, rows)[0]
+        args = (x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), out.data_ptr(),
+                rows, d, m, d, x.stride(0), out.stride(0))
+        calls = {name: _checked(fn, (*args, bm, stream)) for name, fn in k2.items()}
+        if d == 384:
+            calls[f"kernel at {96 - bm} rows a block"] = _checked(k2["kernel"],
+                                                                  (*args, 96 - bm, stream))
+        _in_turns(f"K2-fp32 [{rows},{d}] -> {m} -> {d} ({bm} rows a block)", calls, smi)
+        del x, out
+        torch.cuda.empty_cache()
+
+
+KERNELS = {"K1-fp32-wide": _k1_f32_wide, "K2-fp32": _k2_f32, "K2": _k2,
+           "K9-forward": _k9_forward, "K11": _k11, "K9-backward": _k9_backward, "K5-K6": _k5_k6,
+           "K8": _k8, "K8-fp32": _k8_f32, "K7": _k7}
 
 
 def main() -> int:

@@ -17,6 +17,7 @@ from lam_slide_tpu_torch.models import LatentDiT
 from lam_slide_tpu_torch.data.loader import device_batch
 from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
 from lam_slide_tpu_torch.nn.blocks import set_backend
+from lam_slide_tpu_torch.ops import _build
 from lam_slide_tpu_torch.ops import flash_attention as fa
 from lam_slide_tpu_torch.ops import flash_normrope as fnr
 from lam_slide_tpu_torch.ops import fused_adaln as fad
@@ -1201,13 +1202,18 @@ def _rel_err(got, want):
     return ((got.double() - want.double()).abs().max() / want.double().abs().max()).item()
 
 
-@pytest.mark.parametrize("rows,d,m", [(36864, 256, 512), (77, 256, 512), (1000, 384, 768),
-                                      (33, 32, 64), (130, 64, 48)])
-def test_fused_mlp_fp32_matches_plain(dev, no_tf32, rows, d, m):
+@pytest.mark.parametrize("rows,d,m,route", [
+    (36864, 256, 512, "tiled"), (77, 256, 512, "tiled"), (129, 256, 512, "tiled"),
+    (1000, 384, 768, "tiled"), (4000, 384, 768, "tiled"), (16000, 384, 768, "tiled"),
+    (33, 32, 64, "tiled"), (4096, 32, 64, "tiled"),
+    (130, 64, 48, "dot"), (16000, 128, 256, "dot"), (77, 256, 496, "dot")])
+def test_fused_mlp_fp32_matches_plain(dev, no_tf32, rows, d, m, route):
     """K2-fp32 on the DiT's transposed nn.Linear weight views (w1 rows of a
-    linear1 weight, w2 columns of a linear2 weight): the MD17 test pass's
-    widths, odd row counts, the 4AA widths, the tiny registries' and a d_mid
-    that leaves a partial chunk; the fp32 counter moves, nothing else of K2's
+    linear1 weight, w2 columns of a linear2 weight): each instance of the
+    outer-product kernel (MD17's, the 4AA's at the eval's and the sampling
+    B, the smoke width) with odd row counts, and the dot-product route
+    (hidden 64 and 128, a d_mid off the chunk, which also leaves a partial
+    chunk); the fp32 counter and the route's move, nothing else of K2's
     routes; two calls give bit-identical outputs."""
     g = _gen(80)
     x = torch.randn(rows, d, generator=g).to(dev)
@@ -1215,16 +1221,38 @@ def test_fused_mlp_fp32_matches_plain(dev, no_tf32, rows, d, m):
     b1 = (torch.randn(m, generator=g) * 0.1).to(dev)
     lin2 = (torch.randn(d, d + m, generator=g) * (d + m) ** -0.5).to(dev)
     w1, w2 = lin1[3 * d:].t(), lin2[:, d:].t()
-    before = (fm.launches, fm.fp32_launches, fm.wmma_launches, fm.cp_async_launches)
+    before = (fm.launches, fm.fp32_launches, fm.wmma_launches, fm.cp_async_launches,
+              fm.fp32_tiled_launches, fm.fp32_dot_launches)
     got = fm.fused_mlp(x, w1, b1, w2)
     again = fm.fused_mlp(x, w1, b1, w2)
+    tiled = route == "tiled"
     assert _launched(before, (fm.launches, fm.fp32_launches, fm.wmma_launches,
-                              fm.cp_async_launches)) == (2, 2, 0, 0)
+                              fm.cp_async_launches, fm.fp32_tiled_launches,
+                              fm.fp32_dot_launches)) == (2, 2, 0, 0, 2 * tiled, 2 * (not tiled))
     want = fm.reference_mlp(x, w1, b1, w2)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (rows, d)
     assert torch.equal(got, again)
     assert _rel_err(got, want) <= F32_REL_TOL["K2"]
+
+
+def test_fused_mlp_fp32_routes_agree_bit_for_bit(dev):
+    """The outer-product and dot-product kernels sum every output over k in
+    one order, so at MD17's widths (which both take) they agree bit for bit."""
+    g = _gen(82)
+    rows, d, m = 5000, 256, 512
+    x = torch.randn(rows, d, generator=g).to(dev)
+    w1 = (torch.randn(m, d, generator=g) * d ** -0.5).to(dev).t()
+    b1 = (torch.randn(m, generator=g) * 0.1).to(dev)
+    w2 = (torch.randn(d, m, generator=g) * m ** -0.5).to(dev).t()
+    dot = torch.empty(rows, d, device=dev)
+    _build.launch("lam_fused_mlp_f32", x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                  w2.data_ptr(), dot.data_ptr(), rows, d, m, d, x.stride(0), w1.stride(1),
+                  w2.stride(1), dot.stride(0), *fm.f32_plan(d, d),
+                  torch.cuda.current_stream(dev).cuda_stream)
+    got = fm.fused_mlp(x, w1, b1, w2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dot)
 
 
 def test_fused_mlp_refuses_mixed_dtypes(dev):
@@ -1418,7 +1446,7 @@ def test_fp32_dit_forward_runs_the_fp32_kernels(dev, no_tf32, heads):
 
 # Against the plain versions with TF32 off, relative to max |out| (the
 # transform: per tensor), and the lse absolute: exact fp32 on both sides up
-# to the order of the sums (the dot products split over four lanes, the
+# to the order of the sums (the row sums split over 16 lanes, the
 # transform's sum of squares a warp shuffle). The limits chip_smoke.py uses:
 # 3x the worst readings of python -m lam_slide_tpu_torch.tools.dh128_readings
 # on an H100 (2.210e-6, lse 2.384e-6, 2.122e-7, 2.326e-6).
@@ -1429,23 +1457,33 @@ K5_F32_REL_TOL = 7e-6
 
 
 def _fp32_counts():
-    return (fa.launches, fa.fp32_launches, fa.bias_launches, fa.sm90_launches)
+    return (fa.launches, fa.fp32_launches, fa.bias_launches, fa.sm90_launches,
+            fa.fp32_wide_launches)
 
 
 @pytest.mark.parametrize("b,h,nq,nk,dh,masked", [
     (1920, 2, 192, 192, 128, False),  # the MD17 fp32 DiT's spatial axis
-    (4096, 2, 30, 30, 128, False),    # its temporal axis (T = 30)
-    (2, 3, 1000, 1000, 128, False),   # the 4AA eval's temporal axis at 3 x 128
+    (4096, 2, 30, 30, 128, False),    # its temporal axis (T = 30): two sequences a block
+    (12288, 2, 30, 30, 128, False),   # at the test pass's B = 64
+    (2, 3, 1000, 1000, 128, False),   # the 4AA eval's temporal axis at 3 x 128: 32-row blocks
+    (4, 3, 1000, 1000, 128, False),   # the eval's B = 2 (two peptides, L = 2)
+    (8, 3, 1000, 1000, 128, False),   # the sampling B = 8: 64-row blocks
+    (64, 4, 192, 192, 96, False),     # dh 96
     (3, 2, 130, 257, 96, False),      # ragged query and key tiles
     (2, 2, 77, 45, 72, False),        # N % 32 != 0, dh % 8 != 0
+    (2, 2, 77, 45, 70, False),        # dh % 4 != 0: 4-byte copies
+    (3, 1, 31, 17, 128, False),       # ragged short axes, an odd count of sequences
     (3, 2, 130, 257, 128, True),      # the key-padding bias, an all-masked row
+    (5, 2, 20, 29, 128, True),        # the bias with two sequences a block
     (22000, 3, 20, 20, 128, False),   # 66,000 batch x heads: past gridDim.y's cap
 ])
 def test_flash_fp32_wide_heads_match_plain(dev, no_tf32, b, h, nq, nk, dh, masked):
-    """K1's fp32 kernel at 64 < dh <= 128 (four lanes a query row) on
-    head-major strided views: the output in packed memory, two calls
-    bit-identical, the lse within K1-fp32's limit, counted under K1 and its
-    fp32 (and bias) counters, never the redesigned bf16 kernel's."""
+    """K1's register-tiled fp32 kernel at 64 < dh <= 128 on head-major
+    strided views, in each geometry of ``f32_wide_plan`` (64- and 32-row
+    blocks, two short sequences a block): the output in packed memory, two
+    calls bit-identical, the lse within K1-fp32's limit, counted under K1
+    and its fp32, fp32-wide (and bias) counters, never the redesigned bf16
+    kernel's."""
     g = _gen(90)
     qbuf = torch.randn(b, nq, h * dh, generator=g).to(dev)
     kvbuf = torch.randn(b, nk, 2 * h * dh, generator=g).to(dev)
@@ -1455,7 +1493,7 @@ def test_flash_fp32_wide_heads_match_plain(dev, no_tf32, b, h, nq, nk, dh, maske
     before = _fp32_counts()
     got, lse = fa._forward(q, k, v, dh ** -0.5, with_lse=True, mask=mask)
     again = fa.flash_attention(q, k, v, mask=mask)
-    assert _launched(before, _fp32_counts()) == (2, 2, 2 * masked, 0)
+    assert _launched(before, _fp32_counts()) == (2, 2, 2 * masked, 0, 2)
     want, want_lse = fa.reference_attention(q, k, v, dh ** -0.5, return_lse=True, mask=mask)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == want.shape
@@ -1505,15 +1543,18 @@ def test_qk_normrope_fp32_matches_pre_transform(dev, b, heads, nq, nk, dh):
     (3, 2, 130, 257, 96),      # ragged
 ])
 def test_flash_normrope_fp32_matches_plain(dev, no_tf32, b, heads, nq, nk, dh):
-    """K5 in fp32: the fp32 transform, then K1's fp32 kernel on (q_t, k_t, v),
-    within K5_F32_REL_TOL of the plain version; K5's counters (K5, fp32,
-    transform) move once, its sm90 counters and K1's not at all."""
+    """K5 in fp32: the fp32 transform, then K1's register-tiled fp32 kernel on
+    (q_t, k_t, v), within K5_F32_REL_TOL of the plain version; K5's counters
+    (K5, fp32, fp32-wide, transform) move once, its sm90 counters and K1's
+    not at all."""
     args = _transform_views(_gen(92), dev, b, heads, nq, nk, dh, torch.float32)
     before, k1 = _normrope_counts(), _fp32_counts()
-    fp32_before = fnr.fp32_launches
+    fp32_before = (fnr.fp32_launches, fnr.fp32_wide_launches)
     got = fnr.flash_attention_normrope(*args)
     assert _launched(before, _normrope_counts()) == (1, 1, 0, 0, 0, 0, 0)
-    assert fnr.fp32_launches == fp32_before + 1 and _fp32_counts() == k1
+    assert (fnr.fp32_launches, fnr.fp32_wide_launches) == (fp32_before[0] + 1,
+                                                            fp32_before[1] + 1)
+    assert _fp32_counts() == k1
     want = fnr.reference_attention_normrope(*args)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == want.shape
