@@ -119,7 +119,30 @@ printed on its own line with its seconds:
    stage 2 at 3 x dh 128 (``--exp-set num_heads=3``, three steps) and
    ``eval_cli`` on it: K5 in fp32 and K8-fp32 seven times an NFE, no K3 and
    no bf16 DiT kernel; one fp32 window at 3 x 128 against the plain path,
-   its NFE, time and profile.
+   its NFE, time and profile;
+16. fp32_train: fp32 training on the card. Both registries' ``--smoke``
+   stage 2 through ``train.cli`` in a temporary workspace (stage 1, then
+   stage 2 from the run registry, MD17's with ``--test``): every call
+   returns 0, every metric is finite, stage 2 launches K8-fp32 and K9-fp32
+   forward and backward and no bf16 DiT kernel. Then the fp32 stage-2 train
+   step (``dit_dtype="float32"``) at full width through the registries'
+   loss, AdamW, clip and EMA: MD17 (depth 4, hidden 256, T=30, L=192,
+   B=64, per-layer checkpointing) at 16 x dh 16 and 2 x dh 128, 4AA (depth
+   7, hidden 384, T=1000, L=2, B=16) at 16 x dh 24 and 3 x dh 128: grads
+   at B=2 against the plain path (TF32 off), the launches of every kernel
+   per step (the checkpointed recompute included), every grad finite and
+   non-zero, a few steps on one batch in which the SI loss falls, step
+   times of both paths and peak memory, a profiled step at 16 heads.
+
+Phase 3 also holds the fp32 backward kernels of fp32 training to their
+plain versions with TF32 off: K9-fp32's backward (csrc/short_attention_f32.cu)
+at [12288, 30, 256] and the smoke DiTs' 4 x dh 8, K4-fp32's register-tiled
+pair at dh 128 (csrc/flash_attention_bwd.cu) at [16,3,1000,128],
+[1920,2,192,128], [12288,2,30,128] and a ragged dh-96 shape, K6-fp32 at
+[16,3,1000,128] (and the whole K5-fp32 + K6-fp32 autograd chain), and
+K8-fp32's grads through its autograd Function at [16000, 2, 384], each
+timed beside its plain version, its bound and SDPA's fp32 forward +
+backward less forward.
 
 Phase 3 also holds K10 (at both head splits and a ragged T, and against
 the K5 and K3 routes) and K11 (against K4's grads, with its peak memory, and
@@ -459,6 +482,37 @@ MD17_WIDE_HEADS = 2  # the 2 x dh 128 split of the MD17 DiT (hidden 256)
 # 1.360e-6, the limit 3x that (1.292e-6 on the register-tiled K1-fp32).
 MD17_WIDE_F32_PROTOCOL_ULPS = MD17_F32_PROTOCOL_ULPS
 PEP_WIDE_WINDOW_REL_TOL = 4.1e-6
+# fp32 training (phase 3's fp32 backward rows and phase 16, fp32_train): the
+# fp32 backward kernels against their plain versions with TF32 off, per
+# grad relative to its max |grad|: exact fp32 on both sides up to the order
+# of the sums (K9-fp32's delta from unnormalised weights and P as e / l; K6
+# the fp32 transform's q_t/k_t, then the chain VJP; K8-fp32 under autograd
+# the kernel's forward, then the plain VJP). First readings on an H100 (the
+# rows' seeds): K9-fp32's backward 8.094e-7, K6-fp32 7.374e-7 (the autograd
+# chain's worst grad), K8-fp32's output 3.733e-7 (its grads bit-identical);
+# K4-fp32's register-tiled pair read 0 at every shape: it forms each
+# product as one FMA chain in the order cuBLAS's SGEMM does (TF32 off), so
+# its limit allows ~8 fp32 ulps of the largest grad instead of 3x that.
+# The others are 3x their reading.
+K9_F32_GRAD_REL_TOL = 2.5e-6
+K4_F32_WIDE_REL_TOL = 1e-6
+K6_F32_REL_TOL = 2.3e-6
+K8_F32_GRAD_REL_TOL = 1.2e-6
+# Phase 16's full-width fp32 stage-2 steps at B = 2, the kernel path's grads
+# against the plain path's (TF32 off) on the same weights and draws: the
+# global grad norm's relative error and the worst per-tensor ||g - g_ref|| /
+# ||g_ref||. First readings on an H100, worst of the four splits: 8.829e-8
+# (4AA 16 x 24) and 2.431e-6 (4AA 16 x 24, a temporal QK-norm scale, the
+# smallest grads); MD17 read 6.064e-9 and 1.914e-7. Each limit is 3x that.
+F32_TRAIN_GRAD_REL_TOL = (2.7e-7, 7.3e-6)
+F32_TRAIN_STEPS = 4  # steps on one batch and draw in which the SI loss falls
+F32_TIMED_STEPS = 2  # timed steps of each path, in turns
+# the MD17 smoke runs' and the full-width MD17 steps' synthetic raw frames a
+# molecule (phase 14's: enough for B = 64 windows)
+F32_MD17_FRAMES = 12_000
+# the full-width 4AA steps' synthetic peptides: 2 of 1,100 frames, each
+# visited 8 times an epoch (``repeats``), one B = 16 batch of T = 1000 windows
+F32_PEP_PEPTIDES, F32_PEP_FRAMES, F32_PEP_REPEATS = 2, 1100, 8
 # K10 against its plain version: K1's pair of limits (q/k round once, after
 # norm and RoPE, on both sides; P rounds at different points). Against the
 # K5 route and the K3 route on the same raw q/k/v, which round q/k twice
@@ -1701,6 +1755,8 @@ DH128_SPECS = (
     ("K1 fp32 dh128", "K1", 1920, 2, 192, 192, 128, False, False, True),
     ("K1 fp32 dh128 [12288,2,30,128]", "K1", 12288, 2, 30, 30, 128, False, False, True),
     ("K1 fp32 dh128 [8,3,1000,128]", "K1", 8, 3, 1000, 1000, 128, False, False, True),
+    ("K1 fp32 dh128 [4,3,1000,128]", "K1", 4, 3, 1000, 1000, 128, False, False, True),
+    ("K1 fp32 dh128 [16,3,1000,128]", "K1", 16, 3, 1000, 1000, 128, False, False, True),
     ("K1 fp32 dh128 lse [2,3,1000,128]", "K1", 2, 3, 1000, 1000, 128, True, False, True),
     ("K1 fp32 dh96 lse [64,4,192,96]", "K1", 64, 4, 192, 192, 96, True, False, False),
     ("K1 fp32 dh72 ragged [3,2,77->45,72]", "K1", 3, 2, 77, 45, 72, False, False, False),
@@ -1715,6 +1771,8 @@ DH128_SPECS = (
      True),
     ("K5 fp32 [2,3,1000,128]", "K5", 2, 3, 1000, 1000, 128, False, False, True),
     ("K5 fp32", "K5", 8, 3, 1000, 1000, 128, False, False, True),
+    ("K5 fp32 [4,3,1000,128]", "K5", 4, 3, 1000, 1000, 128, False, False, True),
+    ("K5 fp32 [16,3,1000,128]", "K5", 16, 3, 1000, 1000, 128, False, False, True),
     ("K5 fp32 [1920,2,192,128]", "K5", 1920, 2, 192, 192, 128, False, False, True),
     ("K5 fp32 [12288,2,30,128]", "K5", 12288, 2, 30, 30, 128, False, False, True),
     ("K5 fp32 ragged [3,2,130->257,96]", "K5", 3, 2, 130, 257, 96, False, False, False),
@@ -1974,6 +2032,209 @@ def md17_wide_bf16_checks(dev, seed: int, table: KernelTable) -> None:
                   2.5 * attn_flops, 8 * b * h * n * dh * 2 + b * h * n * 4, exps=b * h * n * n)
         del qkv, q, k, v, g, out, lse, args
         torch.cuda.empty_cache()
+
+
+def f32_train_kernel_checks(dev, table: KernelTable) -> None:
+    """The fp32 backward kernels that fp32 training runs, against their plain
+    versions with TF32 off, on inputs from a card generator: K9-fp32's
+    backward at MD17's [12288, 30, 256] (16 x dh 16) and the smoke DiTs'
+    4 x dh 8 over n 30 and 16; the register-tiled K4-fp32 pair at dh 128 at
+    the 4AA fp32 DiT's [16, 3, 1000, 128] and MD17's [1920, 2, 192, 128] and
+    [12288, 2, 30, 128] (two sequences a block), and ragged at dh 96; K6 in
+    fp32 at [16, 3, 1000, 128], the kernel backward and the whole autograd
+    chain; K8-fp32's grads through ``_SpatialBlock`` at the 4AA train step's
+    [16000, 2, 384] at both splits. Each row: launches, a second call
+    bit-identical, the limit, and for the timed rows the kernel's time, the
+    plain version's, the bound (five products at fp32's rate, each input
+    read and each grad written once, one exponential a score) and SDPA's
+    fp32 forward + backward less forward."""
+    from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
+    from lam_slide_tpu_torch.ops import flash_attention as fa
+    from lam_slide_tpu_torch.ops import flash_normrope as fnr
+    from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
+    from lam_slide_tpu_torch.ops import short_attention as tsa
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    # K9-fp32's backward: q/k/v packed views of one qkv buffer, as the DiT's
+    # temporal block hands them over
+    for key, b, n, heads, dh, timed in (
+            ("K9 fp32 bwd", MD17_BATCH * 192, MD17_T, 16, 16, True),
+            ("K9 fp32 bwd smoke MD17", 4 * 8, 30, 4, 8, False),
+            ("K9 fp32 bwd smoke 4AA", 2 * 2, 16, 4, 8, False)):
+        qkv = torch.randn(b, n, 3 * heads * dh, generator=gen, device=dev)
+        q, k, v = qkv.chunk(3, dim=-1)
+        g = torch.randn(b, n, heads * dh, generator=gen, device=dev)
+        scale = dh ** -0.5
+        before = (tsa.bwd_launches, tsa.bwd_fp32_launches)
+        got = tsa.short_attention_backward(q, k, v, g, heads, scale)
+        launched = (tsa.bwd_launches - before[0], tsa.bwd_fp32_launches - before[1])
+        again = tsa.short_attention_backward(q, k, v, g, heads, scale)
+        want = tsa.reference_short_backward(q, k, v, g, heads, scale)
+        check(launched == (1, 1), f"{key}: launches {launched} != (1, 1)")
+        check(_bit_identical(got, again), f"{key}: a second call differs")
+        errs = _grad_errors(got, want)
+        worst = max(e[1] for e in errs)
+        detail = ", ".join(f"{nm} rel {r:.3e}" for nm, (_, r, _) in zip(("dq", "dk", "dv"), errs))
+        shape = f"[{b},{n},{heads * dh}] {heads} x dh {dh}"
+        check(worst <= K9_F32_GRAD_REL_TOL, f"{key} rel err {worst} > {K9_F32_GRAD_REL_TOL}")
+        if not timed:
+            print(f"kernel {key} {shape}: {detail} (rel tol {K9_F32_GRAD_REL_TOL}); a second "
+                  f"call bit-identical")
+            continue
+        heads_view = [t.unflatten(-1, (heads, dh)).transpose(1, 2) for t in (q, k, v, g)]
+        table.add(key, f"fp32 packed q/k/v views {shape}: {detail}, a second call "
+                  f"bit-identical; library: SDPA fwd+bwd - fwd on fp32 head-major views",
+                  max(e[0] for e in errs), f"rel tol {K9_F32_GRAD_REL_TOL} per grad",
+                  time_ms(lambda: tsa.short_attention_backward(q, k, v, g, heads, scale),
+                          reps=10),
+                  time_ms(lambda: tsa.reference_short_backward(q, k, v, g, heads, scale),
+                          reps=3),
+                  10 * b * heads * n * n * dh, 7 * q.numel() * 4,
+                  library_times(*heads_view[:3], scale, grad=heads_view[3]),
+                  peak=PEAK_FP32_FLOPS, exps=b * heads * n * n)
+        del qkv, q, k, v, g, got, again, want, heads_view
+    torch.cuda.empty_cache()
+
+    # K4-fp32 at 64 < dh <= 128 (the register-tiled pair) and K6-fp32 on it
+    for key, kind, b, h, nq, nk, dh, timed in (
+            ("K4 fp32 dh128", "K4", 1920, 2, 192, 192, 128, True),
+            ("K4 fp32 dh128 [12288,2,30,128]", "K4", 12288, 2, 30, 30, 128, True),
+            ("K4 fp32 dh128 [16,3,1000,128]", "K4", 16, 3, 1000, 1000, 128, True),
+            ("K4 fp32 dh96 ragged [3,2,130->257,96]", "K4", 3, 2, 130, 257, 96, False),
+            ("K6 fp32", "K6", 16, 3, 1000, 1000, 128, True)):
+        spec = (key, "K1" if kind == "K4" else "K5", b, h, nq, nk, dh, True, False, True)
+        x = dh128_inputs(dev, spec, SEED + 13)
+        q, k, v = x["q"], x["k"], x["v"]
+        scale = dh ** -0.5
+        g = torch.randn(b, h, nq, dh, generator=gen, device=dev)
+        if kind == "K4":
+            out, lse = fa._forward(q, k, v, scale, with_lse=True)
+            args = (q, k, v, out, lse, g, scale)
+
+            def kernel():
+                return fa.flash_attention_backward(*args)
+
+            def plain():
+                return fa.reference_flash_backward(*args)
+
+            def counts():
+                return (fa.bwd_kv_launches, fa.bwd_fp32_launches, fa.bwd_fp32_wide_launches,
+                        fa.bwd_sm90_launches)
+
+            want_launched = (1, 2, 2, 0)
+            library = lambda: library_times(q, k, v, scale, grad=g)
+        else:
+            tr = (x["qs"], x["ks"], x["cos"], x["sin"])
+            out, lse = fnr._forward(q, k, v, *tr, scale, with_lse=True)
+            args = (q, k, v, *tr, out, lse, g, scale)
+
+            def kernel():
+                return fnr.flash_attention_normrope_backward(*args)
+
+            def plain():
+                return fnr.reference_normrope_backward(*args)
+
+            def counts():
+                return (fnr.bwd_launches, fnr.bwd_fp32_launches, fnr.bwd_fp32_wide_launches,
+                        fnr.bwd_sm90_launches, fa.bwd_kv_launches)
+
+            want_launched = (1, 2, 2, 0, 0)
+            library = lambda: library_times(q, k, v, scale, grad=g,
+                                            pre=lambda q_, k_: fnr.pre_transform(q_, k_, *tr))
+        before = counts()
+        got = kernel()
+        launched = tuple(a - c for a, c in zip(counts(), before))
+        again = kernel()
+        want = plain()
+        check(launched == want_launched, f"{key}: launches {launched} != {want_launched}")
+        check(_bit_identical(got, again), f"{key}: a second call differs")
+        tol = K4_F32_WIDE_REL_TOL if kind == "K4" else K6_F32_REL_TOL
+        errs = _grad_errors(got, want)
+        worst = max(e[1] for e in errs)
+        names = ("dq", "dk", "dv") if kind == "K4" else ("dq_t", "dk_t", "dv")
+        detail = ", ".join(f"{nm} rel {r:.3e}" for nm, (_, r, _) in zip(names, errs))
+        check(worst <= tol, f"{key} rel err {worst} > {tol}")
+        del got, again, want
+        extra = ""
+        if kind == "K6":
+            # the whole chain: K5-fp32 + K6-fp32 under autograd against
+            # autograd of the plain version, grads of q, k, v and both scales
+            grads = {}
+            for path in ("kernel", "plain"):
+                leaves = [t.detach().clone().requires_grad_() for t in (q, k, v, *tr[:2])]
+                fn = (fnr.flash_attention_normrope if path == "kernel"
+                      else fnr.reference_attention_normrope)
+                fn(*leaves, *tr[2:], scale=scale).backward(g)
+                grads[path] = [t.grad for t in leaves]
+            chain = max(errors(a, w)[1] for a, w in zip(grads["kernel"], grads["plain"]))
+            check(chain <= K6_F32_REL_TOL, f"{key} autograd chain rel err {chain}")
+            extra = (f"; K5-fp32 + K6-fp32 under autograd vs autograd of the plain version, "
+                     f"grads of q, k, v and both scales: worst rel {chain:.3e}")
+            del grads, leaves
+        shape = f"[{b},{h},{nq}->{nk},{dh}]" if nq != nk else f"[{b},{h},{nq},{dh}]"
+        if not timed:
+            print(f"kernel {key} {shape}: {detail} (rel tol {tol}); a second call "
+                  f"bit-identical{extra}")
+            del x, q, k, v, g, out, lse, args
+            torch.cuda.empty_cache()
+            continue
+        plan = fa.f32_wide_plan(nq, nk)
+        nbytes = 4 * (4 * b * h * nq * dh + 4 * b * h * nk * dh + b * h * nq)
+        what = ("register-tiled pair" if kind == "K4" else
+                "the fp32 transform, then the register-tiled K4-fp32 pair on q_t/k_t")
+        lib_text = ("SDPA fwd+bwd - fwd on the fp32 head-major views" if kind == "K4" else
+                    "none (composition: plain pre_transform + SDPA fwd+bwd - fwd)")
+        table.add(key, f"fp32 q/k/v/dO {shape} strided views, {what} (plan {plan}): {detail}, "
+                  f"a second call bit-identical{extra}; library: {lib_text} (TF32 off)",
+                  max(e[0] for e in errs), f"rel tol {tol} per grad", time_ms(kernel, reps=5),
+                  time_ms(plain, reps=2), 10 * b * h * nq * nk * dh, nbytes, library(),
+                  peak=PEAK_FP32_FLOPS, exps=b * h * nq * nk)
+        del x, q, k, v, g, out, lse, args
+        torch.cuda.empty_cache()
+
+    # K8-fp32 under autograd: the kernel's forward, the plain VJP backward
+    for heads in (HEADS, WIDE_HEADS):
+        key = f"K8 fp32 grad {heads}x{HIDDEN // heads}"
+        n, d, m = TRAIN_BATCH * T, HIDDEN, int(HIDDEN * MLP_RATIO)
+        dh = d // heads
+        cos, sin = rope_cos_sin(L, dh, device=dev)
+        base = [torch.randn(n, L, d, generator=gen, device=dev),
+                torch.randn(3 * d + m, d, generator=gen, device=dev) * d ** -0.5,
+                torch.randn(3 * d + m, generator=gen, device=dev) * 0.1,
+                1 + 0.2 * torch.randn(dh, generator=gen, device=dev),
+                1 + 0.2 * torch.randn(dh, generator=gen, device=dev),
+                torch.randn(d, d + m, generator=gen, device=dev) * (d + m) ** -0.5,
+                torch.randn(d, generator=gen, device=dev) * 0.1]
+        g = torch.randn(n, L, d, generator=gen, device=dev)
+
+        def fwd_bwd(fn):
+            leaves = [t.detach().requires_grad_() for t in base]
+            out = fn(*leaves, cos, sin, heads, dh ** -0.5)
+            out.backward(g)
+            return out.detach(), [t.grad for t in leaves]
+
+        before = (fsb.launches, fsb.f32_launches)
+        got_out, got = fwd_bwd(fsb.fused_spatial_block)
+        launched = (fsb.launches - before[0], fsb.f32_launches - before[1])
+        want_out, want = fwd_bwd(fsb.reference_spatial_block)
+        check(launched == (1, 1), f"{key}: launches {launched} != (1, 1)")
+        out_rel = errors(got_out, want_out)[1]
+        worst = max(errors(a, w)[1] for a, w in zip(got, want))
+        check(all(bool(torch.isfinite(t).all()) for t in got), f"{key}: a non-finite grad")
+        check(max(out_rel, worst) <= K8_F32_GRAD_REL_TOL,
+              f"{key}: out rel {out_rel}, worst grad rel {worst} > {K8_F32_GRAD_REL_TOL}")
+        ms = time_ms(lambda: fwd_bwd(fsb.fused_spatial_block), reps=5)
+        plain_ms = time_ms(lambda: fwd_bwd(fsb.reference_spatial_block), reps=3)
+        print(f"kernel {key} [{n},{L},{d}] fp32 forward + backward through _SpatialBlock (the "
+              f"kernel's forward, the plain VJP): out rel {out_rel:.3e}, worst grad rel "
+              f"{worst:.3e} of x, w1, b1, both scales, w2, b2 (rel tol {K8_F32_GRAD_REL_TOL}); "
+              f"kernel path {ms:.4f} ms, plain forward + backward {plain_ms:.4f} ms")
+        del base, g, got, want, got_out, want_out
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def md17_train_kernel_checks(dev, gen, table: KernelTable) -> None:
@@ -2923,17 +3184,19 @@ def peptide_loop_phase(dev, smi, reset_counts, read_counts):
     return eval_counts, wide_eval
 
 
-def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, smi,
-                      reset_counts, read_counts, grad_tol, falling):
-    """One MD17 stage's train-step checks (phase 10) through the run's loss,
-    optimizer and ``make_train_step``: every grad finite and non-zero and
-    the kernel path's grads on ``grad_batch`` against the plain path
-    (``plain_modules`` set to "plain") on the same draws, at the stage's
-    starting weights; the launches of one step against ``want``; ten steps
-    on ``batch`` with one fixed draw (dropout, t and x0), in
+def stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, smi,
+                 reset_counts, read_counts, grad_tol, falling, phase="md17_train",
+                 steps=TRAIN_STEPS, timed=TIMED_STEPS, profile=True):
+    """One training stage's train-step checks (phases 10 and 16) through the
+    run's loss, optimizer and ``make_train_step``: every grad finite and
+    non-zero and the kernel path's grads on ``grad_batch`` against the plain
+    path (``plain_modules`` set to "plain") on the same draws, at the
+    stage's starting weights; the launches of one step against ``want``;
+    ``steps`` steps on ``batch`` with one fixed draw (dropout, t and x0), in
     which every metric stays finite and the ``falling`` ones fall; step
-    times of both paths (median of 5, in turns) with their peak memory; one
-    profiled step. Returns (the launches, the state)."""
+    times of both paths (median of ``timed``, in turns) with their peak
+    memory; with ``profile``, one profiled step. ``phase`` prefixes the
+    printed lines. Returns (the launches, the state)."""
     from lam_slide_tpu_torch.nn.blocks import set_backend
     from lam_slide_tpu_torch.train import create_train_state, make_train_step
 
@@ -2955,7 +3218,7 @@ def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, s
         bad = [n for n, p in model.named_parameters() if p.grad is None
                or not bool(torch.isfinite(p.grad).all()) or not p.grad.abs().max().item() > 0]
         n_params = len(list(model.parameters()))
-        print(f"md17_train {label}: {n_params - len(bad)} of {n_params} parameters have a finite, "
+        print(f"{phase} {label}: {n_params - len(bad)} of {n_params} parameters have a finite, "
               f"non-zero grad")
         check(not bad, f"{label}: parameters without a finite, non-zero grad: {bad}")
 
@@ -2975,7 +3238,7 @@ def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, s
         worst, where = max(((got[n] - r).norm().item() / r.norm().item(), n)
                            for n, r in ref.items())
         b = next(iter(grad_batch.values())).shape[0]
-        print(f"md17_train {label} B={b} grads, kernel path vs plain: global norm rel err "
+        print(f"{phase} {label} B={b} grads, kernel path vs plain: global norm rel err "
               f"{norm_err:.3e} (tol {grad_tol[0]}), worst tensor rel err {worst:.3e} at {where} "
               f"(tol {grad_tol[1]})")
         check(norm_err <= grad_tol[0], f"{label} grad norm vs plain")
@@ -2993,7 +3256,7 @@ def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, s
     state, metrics = step(state, batch, SEED)
     torch.cuda.synchronize()
     counts = read_counts()
-    print(f"md17_train {label}: one step, loss {metrics['loss'].item():.5f} grad_norm "
+    print(f"{phase} {label}: one step, loss {metrics['loss'].item():.5f} grad_norm "
           f"{metrics['grad_norm'].item():.4f}, launches {counts} (expected {want})")
     check(counts == want, f"{label} train step launches {counts} != {want}")
     check(math.isfinite(metrics["loss"].item()), f"{label}: non-finite train loss")
@@ -3002,16 +3265,16 @@ def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, s
     fixed = make_train_step(lambda m, bt, g, train: loss_fn(m, bt, draws(SEED + 2), train),
                             run.tx, ema_decay=run.trainer_cfg.ema_decay)
     history = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         state, metrics = fixed(state, batch, SEED)
         history.append({k: v.item() for k, v in metrics.items()})
     for k in history[0]:
         seq = [h[k] for h in history]
-        print(f"md17_train {label}: {TRAIN_STEPS} steps on one batch, {k} "
+        print(f"{phase} {label}: {steps} steps on one batch, {k} "
               f"{[round(x, 5) for x in seq]}")
-        check(all(math.isfinite(x) for x in seq), f"{label}: non-finite {k} in ten steps")
+        check(all(math.isfinite(x) for x in seq), f"{label}: non-finite {k} in {steps} steps")
         if k in falling:
-            check(seq[-1] < seq[0], f"{label}: {k} did not fall over ten steps")
+            check(seq[-1] < seq[0], f"{label}: {k} did not fall over {steps} steps")
 
     # 4. step time and peak memory, kernel path vs plain path, in turns
     times, peaks = {"auto": [], "plain": []}, {}
@@ -3022,7 +3285,7 @@ def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, s
         state, _ = step(state, batch, SEED)  # warm-up, with the peak memory of a step
         torch.cuda.synchronize()
         peaks[backend] = torch.cuda.max_memory_allocated() / 2 ** 30
-    for i in range(TIMED_STEPS):
+    for i in range(timed):
         for backend in (("auto", "plain") if i % 2 == 0 else ("plain", "auto")):
             set_all(backend)
             torch.cuda.synchronize()
@@ -3034,7 +3297,7 @@ def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, s
     bsz = next(iter(batch.values())).shape[0]
     for backend, name in (("auto", "kernel path"), ("plain", "plain path")):
         med = float(np.median(times[backend]))
-        print(f"timing md17_train {label} B={bsz} {name}: step {med:.3f} ms median "
+        print(f"timing {phase} {label} B={bsz} {name}: step {med:.3f} ms median "
               f"({bsz / med * 1e3:.2f} samples/s), runs {[round(x, 3) for x in times[backend]]} "
               f"ms, peak memory {peaks[backend]:.2f} GiB | {smi}")
 
@@ -3043,7 +3306,8 @@ def md17_stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, s
         nonlocal state
         state, _ = step(state, batch, SEED)
 
-    profile_run(one_step, f"md17_train {label} step B={bsz} kernel path")
+    if profile:
+        profile_run(one_step, f"{phase} {label} step B={bsz} kernel path")
     return counts, state
 
 
@@ -3069,7 +3333,7 @@ def md17_train_phase(dev, smi, reset_counts, read_counts):
     want1.update({"K1": 3, "K1 bias": 1, "K1 fp32": 3, "K4 kv": 3, "K4 q": 3, "K4 bias": 2,
                   "K4 fp32": 6})
     want1 = with_sm90(want1)
-    counts1, _ = md17_stage_checks(
+    counts1, _ = stage_checks(
         "stage 1", run1, batch1, batch1, want1, [run1.model], dev, smi, reset_counts,
         read_counts, S1_GRAD_REL_TOL, ("loss",))
 
@@ -3093,7 +3357,7 @@ def md17_train_phase(dev, smi, reset_counts, read_counts):
                   "K4 q": d + 1, "K4 fp32": 2})
     want2 = with_sm90(want2)
     grad_batch = {k: v[:GRAD_BATCH] for k, v in batch2.items()}
-    counts2, state2 = md17_stage_checks(
+    counts2, state2 = stage_checks(
         "stage 2", run2, batch2, grad_batch, want2, [ss.backbone, ss.first_stage], dev, smi,
         reset_counts, read_counts, MD17_GRAD_REL_TOL, ("loss", "si_loss"))
 
@@ -3138,6 +3402,170 @@ def md17_train_phase(dev, smi, reset_counts, read_counts):
           f"K={MD17_K}): {val} in {time.perf_counter() - t0:.3f} s")
     check(all(math.isfinite(x) for x in val.values()), "non-finite val ADE/FDE")
     return counts1, counts2
+
+
+def f32_want(counts, *nonzero):
+    """Every counter 0 but those the dicts ``nonzero`` give (later ones win)."""
+    want = {key: 0 for key in counts}
+    for given in nonzero:
+        want.update(given)
+    return want
+
+
+def fp32_train_phase(dev, smi, reset_counts, read_counts):
+    """Phase 16: fp32 training on the card. Both registries' ``--smoke``
+    stage 2 through ``train.cli`` in a temporary workspace (stage 1, then
+    stage 2 from the run registry, one epoch each, val over one batch): every
+    call returns 0, every metric is finite, and the stage-2 runs launch
+    K8-fp32 and K9-fp32 forward and backward and no bf16 DiT kernel. Then
+    the fp32 stage-2 train step at full width (``dit_dtype="float32"``): MD17
+    (depth 4, hidden 256, T = 30, L = 192, B = 64, per-layer checkpointing)
+    at 16 x dh 16 and 2 x dh 128, 4AA (depth 7, hidden 384, T = 1000, L = 2,
+    B = 16; on perturbed weights) at 16 x dh 24 and 3 x dh 128, each through
+    ``stage_checks`` with TF32 off: F32_TRAIN_STEPS steps in which the SI
+    loss falls, F32_TIMED_STEPS timed steps of each path, a profiled step at
+    16 heads.
+    Returns the launches of one step of each full-width run, by label."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from lam_slide_tpu_torch.data.loader import device_batch
+    from lam_slide_tpu_torch.experiments import registry
+    from lam_slide_tpu_torch.train.cli import main as cli
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    ws = tempfile.mkdtemp(prefix="fp32_train_")
+    saved_env = os.environ.get("LAM_SLIDE_NO_DATA_CACHE")
+    os.environ["LAM_SLIDE_NO_DATA_CACHE"] = "1"
+    bf16_keys = ("K1 sm90", "K4 sm90", "K5 sm90", "K6 sm90", "K8 wmma")
+    paired = ("K2", "K7", "K8", "K9", "K9 bwd")
+    try:
+        # 1. the --smoke runs of both registries through the CLI
+        common = ["--workspace", ws, "--smoke", "--epochs", "1", "--set", "limit_val_batches=1"]
+        for prefix, s1, s2 in (("md17", "ms1", "ms2"), ("peptide", "ps1", "ps2")):
+            extra = ["--molecule", "aspirin"] if prefix == "md17" else []
+            t0 = time.perf_counter()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc1 = cli(["--experiment", f"{prefix}_first_stage", "--run-id", s1, *common,
+                           *extra])
+                torch.cuda.synchronize()
+                reset_counts()
+                # MD17's --test: the fp32 rebuild's protocol over the test split
+                rc2 = cli(["--experiment", f"{prefix}_second_stage", "--run-id", s2,
+                           "--first-stage-run", s1, *common, *extra,
+                           *(["--test"] if prefix == "md17" else [])])
+                torch.cuda.synchronize()
+            counts = read_counts()
+            records = []
+            for run_id in (s1, s2):
+                with open(f"{ws}/{run_id}/metrics.jsonl") as f:
+                    records += [json.loads(line) for line in f]
+            bf16 = {k: counts[k] - counts[f"{k} fp32"] for k in paired}
+            bf16.update({k: counts[k] for k in bf16_keys})
+            print(f"fp32_train {prefix} --smoke: stage 1 and stage 2 in "
+                  f"{time.perf_counter() - t0:.2f} s, return codes {rc1} {rc2}; records "
+                  f"{records}; stage-2 launches {counts}")
+            check((rc1, rc2) == (0, 0), f"fp32_train {prefix} --smoke: return codes {rc1} {rc2}")
+            check(records and all(math.isfinite(v) for r in records for v in r.values()
+                                  if isinstance(v, float)),
+                  f"fp32_train {prefix} --smoke: a non-finite metric")
+            check(all(counts[k] > 0 for k in ("K8 fp32", "K9 fp32", "K9 bwd fp32")),
+                  f"fp32_train {prefix} --smoke: K8-fp32 or K9-fp32 (fwd, bwd) did not launch")
+            check(not any(bf16.values()),
+                  f"fp32_train {prefix} --smoke: a bf16 DiT kernel launched: {bf16}")
+
+        # 2. the full-width fp32 train steps
+        results = {}
+        d = MD17_DEPTH
+        run1 = registry.md17_first_stage(seed=SEED, molecule="aspirin",
+                                         synthetic_frames=F32_MD17_FRAMES, device=dev)
+        counts = read_counts()
+        # per step: the encode (K1 bias + K1 latent self-attention, fp32),
+        # the DiT's forward and its checkpointed recompute, the aux decode
+        # (K1 fp32 with lse; K4-fp32 once)
+        per_step = {"K1 bias": 1, "K4 kv": 1, "K4 q": 1, "K2": 4 * d, "K2 fp32": 4 * d,
+                    "K2 fp32 tiled": 4 * d, "K7": 4 * d + 1, "K7 fp32": 4 * d + 1}
+        md17_want = {
+            # the spatial axis (L = 192) through K3 (K1's counter), the
+            # temporal one (T = 30) through K9, both fp32; K4-fp32 at dh 16
+            # per layer and the decode's
+            16: f32_want(counts, per_step, {
+                "K1": 2 + 2 * d + 1, "K1 fp32": 2 + 2 * d + 1, "K9": 2 * d, "K9 fp32": 2 * d,
+                "K9 bwd": d, "K9 bwd fp32": d, "K4 kv": d + 1, "K4 q": d + 1,
+                "K4 fp32": 2 * (d + 1)}),
+            # both axes through K5-fp32 (the transform, then K1's register-tiled
+            # kernel) and K6-fp32 (K4's register-tiled pair, two kernels)
+            MD17_WIDE_HEADS: f32_want(counts, per_step, {
+                "K1": 3, "K1 fp32": 3, "K4 fp32": 2, "K5": 4 * d, "K5 fp32": 4 * d,
+                "K5 transform": 4 * d, "K5 fp32 wide": 4 * d, "K6": 2 * d, "K6 fp32": 4 * d,
+                "K6 fp32 wide": 4 * d}),
+        }
+        for heads in (16, MD17_WIDE_HEADS):
+            run2 = registry.md17_second_stage(first_stage=run1, seed=SEED, molecule="aspirin",
+                                              synthetic_frames=F32_MD17_FRAMES,
+                                              dit_dtype="float32", num_heads=heads, device=dev)
+            batch = device_batch(next(iter(run2.train_loader)), dev)
+            check(batch["pos"].shape[:2] == (MD17_BATCH, MD17_T),
+                  f"MD17 fp32 stage-2 batch {tuple(batch['pos'].shape)}")
+            ss = run2.second_stage
+            label = f"md17 {heads}x{256 // heads}"
+            results[label], _ = stage_checks(
+                label, run2, batch, {k: v[:GRAD_BATCH] for k, v in batch.items()},
+                md17_want[heads], [ss.backbone, ss.first_stage], dev, smi, reset_counts,
+                read_counts, F32_TRAIN_GRAD_REL_TOL, ("si_loss",), "fp32_train",
+                F32_TRAIN_STEPS, F32_TIMED_STEPS, profile=heads == 16)
+            del run2, batch, ss
+            torch.cuda.empty_cache()
+        del run1
+
+        run1 = registry.peptide_first_stage(seed=SEED, synthetic_peptides=F32_PEP_PEPTIDES,
+                                            synthetic_frames=F32_PEP_FRAMES, device=dev)
+        # per step (no checkpointing): per layer K8-fp32 on the spatial axis
+        # (L = 2), K2-fp32 and two K7-fp32, and one K7-fp32 before the output
+        # layer; the temporal axis (T = 1000) through K3-fp32 (K1's counter)
+        # and K4-fp32 at 16 x 24, K5-fp32 and K6-fp32 at 3 x 128; the aux
+        # decode's attention (fewer than 128 queries) is plain
+        per_step = {"K2": DEPTH, "K2 fp32": DEPTH, "K2 fp32 tiled": DEPTH,
+                    "K7": 2 * DEPTH + 1, "K7 fp32": 2 * DEPTH + 1, "K8": DEPTH, "K8 fp32": DEPTH}
+        pep_want = {
+            HEADS: f32_want(counts, per_step, {
+                "K1": DEPTH, "K1 fp32": DEPTH, "K4 kv": DEPTH, "K4 q": DEPTH,
+                "K4 fp32": 2 * DEPTH}),
+            WIDE_HEADS: f32_want(counts, per_step, {
+                "K5": DEPTH, "K5 fp32": DEPTH, "K5 transform": DEPTH, "K5 fp32 wide": DEPTH,
+                "K6": DEPTH, "K6 fp32": 2 * DEPTH, "K6 fp32 wide": 2 * DEPTH}),
+        }
+        for heads in (HEADS, WIDE_HEADS):
+            run2 = registry.peptide_second_stage(
+                first_stage=run1, seed=SEED, synthetic_peptides=F32_PEP_PEPTIDES,
+                synthetic_frames=F32_PEP_FRAMES, repeats=F32_PEP_REPEATS, dit_dtype="float32",
+                num_heads=heads, device=dev)
+            batch = device_batch(next(iter(run2.train_loader)), dev)
+            check(tuple(batch["atom14_pos"].shape[:2]) == (TRAIN_BATCH, T),
+                  f"4AA fp32 stage-2 batch {tuple(batch['atom14_pos'].shape)}")
+            ss = run2.second_stage
+            label = f"4AA {heads}x{HIDDEN // heads}"
+            perturb_(run2.model, SEED)  # the reference init makes every block the identity
+            results[label], _ = stage_checks(
+                label, run2, batch, {k: v[:GRAD_BATCH] for k, v in batch.items()},
+                pep_want[heads], [ss.backbone, ss.first_stage], dev, smi, reset_counts,
+                read_counts, F32_TRAIN_GRAD_REL_TOL, ("si_loss",), "fp32_train",
+                F32_TRAIN_STEPS, F32_TIMED_STEPS, profile=heads == HEADS)
+            del run2, batch, ss
+            torch.cuda.empty_cache()
+        return results
+    finally:
+        shutil.rmtree(ws, ignore_errors=True)
+        if saved_env is None:
+            os.environ.pop("LAM_SLIDE_NO_DATA_CACHE", None)
+        else:
+            os.environ["LAM_SLIDE_NO_DATA_CACHE"] = saved_env
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def make_inputs(batch: int, dev, gen):
@@ -3640,7 +4068,11 @@ def main() -> int:
                 "K5 transform": (fnr, "transform_launches"), "K5 sm90": (fnr, "sm90_launches"),
                 "K5 cp.async": (fnr, "sm90_cp_async_launches"),
                 "K6 sm90": (fnr, "bwd_sm90_launches"),
-                "K6 cp.async": (fnr, "bwd_sm90_cp_async_launches")}
+                "K6 cp.async": (fnr, "bwd_sm90_cp_async_launches"),
+                "K4 fp32 wide": (fa, "bwd_fp32_wide_launches"),
+                "K6 fp32": (fnr, "bwd_fp32_launches"),
+                "K6 fp32 wide": (fnr, "bwd_fp32_wide_launches"),
+                "K9 bwd fp32": (tsa, "bwd_fp32_launches")}
 
     def reset_counts():
         for mod, attr in counters.values():
@@ -3687,6 +4119,7 @@ def main() -> int:
     peptide_f32_kernel_checks(dev, torch.Generator().manual_seed(SEED + 10), table)
     dh128_kernel_checks(dev, table)
     md17_wide_bf16_checks(dev, SEED + 11, table)
+    f32_train_kernel_checks(dev, table)
     ablation_kernel_checks(dev, torch.Generator().manual_seed(SEED + 9), table)
     phase_done("kernels")
 
@@ -3854,6 +4287,11 @@ def main() -> int:
                                                                read_counts)
     phase_done("peptide_loop")
 
+    # 16. fp32 training: both registries' --smoke stage 2 through the CLI,
+    # and the full-width fp32 stage-2 steps at all four head splits
+    f32_counts = fp32_train_phase(dev, smi, reset_counts, read_counts)
+    phase_done("fp32_train")
+
     sources = {
         "K1": ("flash_attention_fwd", "flash_fwd_sm90.cu", "flash_attention.py:37"),
         "K2": ("fused_mlp", "fused_mlp.cu", "fused_mlp.py:68"),
@@ -3886,8 +4324,9 @@ def main() -> int:
                     "fused_adaln.py:98"),
         "K9 fp32": ("short_attention (fp32 operands, forward)", "short_attention_f32.cu",
                     "short_attention.py:83"),
-        "K8 fp32": ("fused_spatial_block (fp32 operands, forward)",
-                    "fused_spatial_block_f32.cu", "fused_spatial_block.py:108"),
+        "K8 fp32": ("fused_spatial_block (fp32 operands; under autograd the kernel's "
+                    "forward and the plain VJP)", "fused_spatial_block_f32.cu",
+                    "fused_spatial_block.py:108"),
         "K5 fp32": ("flash_attention_normrope (fp32 operands, forward: the fp32 transform, "
                     "then K1's fp32 kernel at 64 < dh <= 128)", "flash_attention.cu",
                     "flash_normrope.py:74"),
@@ -3896,6 +4335,14 @@ def main() -> int:
         "K1 fp32 dh128": ("flash_attention_fwd (fp32 operands at 64 < dh <= 128: the "
                           "register-tiled kernel, under K5-fp32 on the main paths)",
                           "flash_attention.cu", "flash_attention.py:37"),
+        "K9 fp32 bwd": ("short_attention_backward (fp32 operands)", "short_attention_f32.cu",
+                        "short_attention.py:96"),
+        "K4 fp32 dh128": ("flash_attention_backward (fp32 operands at 64 < dh <= 128: the "
+                          "register-tiled pair, under K6-fp32 on the main paths)",
+                          "flash_attention_bwd.cu", "flash_attention.py:442"),
+        "K6 fp32": ("flash_attention_normrope_backward (fp32 operands: K4-fp32's "
+                    "register-tiled pair on the forward's q_t/k_t)", "flash_attention_bwd.cu",
+                    "flash_normrope.py:249"),
     }
     # launches on the main paths: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve
     # (K1 and K3 one binary, flash_fwd_sm90.cu, whose launches it counts), K5
@@ -3927,7 +4374,13 @@ def main() -> int:
                           "K5 fp32": wide_eval_counts["K5 fp32"],
                           "K1 fp32 dh128": (wide_eval_counts["K5 fp32 wide"]
                                             + wide_eval_counts["K1 fp32 wide"]),
-                          "K5 transform fp32": wide_eval_counts["K5 transform"]})
+                          "K5 transform fp32": wide_eval_counts["K5 transform"],
+                          "K9 fp32 bwd": f32_counts["md17 16x16"]["K9 bwd fp32"],
+                          "K4 fp32 dh128": (f32_counts["4AA 3x128"]["K6 fp32 wide"]
+                                            + f32_counts["4AA 3x128"]["K4 fp32 wide"]),
+                          "K6 fp32": f32_counts["4AA 3x128"]["K6"]})
+    idle = [key for key in sources if not main_counts[key] > 0]
+    check(not idle, f"kernels launched no time on their main paths: {idle}")
     kernels = [
         {"name": name, "route": "cuda", "source": f"lam_slide_tpu_torch/csrc/{src}",
          "replaces": f"lam_slide_tpu/ops/{tpu}", "launches": main_counts[key],

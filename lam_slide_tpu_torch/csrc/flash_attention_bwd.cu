@@ -54,10 +54,15 @@
 // and read as broadcasts. The kv kernel owns key rows (k, v, dK, dV in
 // registers) and walks the query tiles; the q kernel owns query rows (q, dO,
 // dQ in registers) and walks the key tiles; P is rebuilt from the saved lse,
-// no atomics. dh <= 64; at dh 64 the kv kernel's four register rows spill to
-// local memory. Bound at the MD17 shapes (dh 16, <= 192 keys): the five
+// no atomics. This pair takes dh <= 64; at dh 64 the kv kernel's four
+// register rows spill to local memory. Bound at the MD17 shapes (dh 16, <= 192 keys): the five
 // products' FFMA work at fp32's 67 TFLOP/s, of the order of the bytes.
+// Above dh 64 (the fp32 DiTs' 2 x 128 and 3 x 128 splits in training, K6's
+// fp32 attention part on the transformed q/k too) the register-tiled pair
+// below takes the fp32 operands instead: a thread holds 4 x 4 blocks of S
+// and dP and a 4 x 8 block of each output, as the fp32 forward does.
 
+#include <math_constants.h>
 #include <mma.h>
 
 #include "flash_tiles.cuh"
@@ -524,11 +529,366 @@ cudaError_t launch_f32(bool kv, const BwdF32Args& a, int B, cudaStream_t stream)
   return cudaGetLastError();
 }
 
+// fp32 operands at 64 < dh <= 128: a register-tiled pair in the manner of
+// flash_attention.cu's flash_fwd_f32_tiled_kernel, FFMA, no atomics. A block
+// of WIDE_THREADS owns a 64-row tile of one (batch, head) sequence (SEG = 1),
+// or the rows of two sequences whose Nq and Nk are both at most 32 (SEG =
+// 2: MD17's temporal axis, N = 30), with its two stationary operands in
+// shared memory (the kv kernel K and V, the q kernel Q and dO) and walks the
+// other side in 64-row tiles (Q and dO, or K and V), each copied by cp.async
+// (16 bytes where bases, strides and dh allow it: VEC), dh zero-padded to
+// WIDE_DP.
+// - S and dP: thread (rg, kg), rg = 2 * warp + lane / 16, kg = lane % 16,
+//   holds S and dP of its stationary rows rg * 4 + i (i < 4) against the
+//   streamed rows kg + 16 j (j < 4 / SEG), two 4 x 4 blocks: per 4 columns
+//   of dh it reads 4 float4 of its own rows (shared by the 16 lanes of a
+//   half warp) and one of each streamed row (16 rows at once, on distinct
+//   banks) for 16 FFMAs of each product. Then P = exp(S * scale + bias -
+//   lse) and dS = P (dP - delta) * scale, with the JAX kernels' rounding
+//   points; a key past Nk gets a -inf bias and a query past Nq a +inf lse,
+//   so its P is 0. The kv kernel puts P and dS in shared memory query-major
+//   (a query's 64 keys), the q kernel dS key-major.
+// - The products over the streamed rows: thread (prg, cg), prg = 4 * (warp
+//   / 2) + lane / 8, cg = 8 * (warp % 2) + lane % 8, holds the stationary
+//   rows prg * 4 + i and columns 4 cg .. + 4 and 64 + 4 cg .. + 4 of each
+//   output (dK and dV: 64 accumulators; dQ: 32); per streamed row it reads
+//   one float4 of P or dS and two of dO or Q (or K) a product.
+// One block an SM (~167 KB / ~150 KB of shared memory: four 64 x 132
+// tiles, P and dS 64 x 68); SEG = 2 runs a warp's own segment only (its
+// rows lie in one sequence), as the forward does. Bounds on the H100 (five
+// products at 67 TFLOP/s; the kernels do seven, S and dP in both):
+// [16,3,1000,128] 0.92 ms, [1920,2,192,128] 2.70 ms, [12288,2,30,128]
+// 0.90 ms (bytes).
+constexpr int WB_RM = 4;               // stationary rows a thread holds
+constexpr int WB_LDP = WIDE_KEYS + 4;  // P / dS rows of the kernels' 64 columns
+
+struct WideBwdLayout {
+  static constexpr int tile = WIDE_KEYS * WIDE_LDQK;
+  static constexpr int s0 = 0;          // stationary tiles: K, V (kv) or Q, dO (q)
+  static constexpr int s1 = tile;
+  static constexpr int t0 = 2 * tile;   // streamed tiles: Q, dO (kv) or K, V (q)
+  static constexpr int t1 = 3 * tile;
+  static constexpr int p_off = 4 * tile;               // P (kv kernel only)
+  static constexpr int ds_off = p_off + WIDE_KEYS * WB_LDP;
+  static constexpr int row_off = ds_off + WIDE_KEYS * WB_LDP;  // lse, delta, bias [64] each
+  static constexpr size_t bytes = sizeof(float) * (row_off + 3 * WIDE_KEYS);
+};
+
+// Offsets of the block's two sequences in tensor t (the second is unread
+// when ok1 is false).
+__device__ __forceinline__ long long seq_offset(const BwdF32Args& a, Tensor t, int bh) {
+  return (bh / a.H) * a.s[t] + (bh % a.H) * a.s[t + 1];
+}
+
+// Row r of the block's 64 (a position of sequence r / 32 when SEG = 2):
+// its sequence and position; valid when the sequence exists and pos < n.
+template <int SEG>
+__device__ __forceinline__ bool wide_row(int r, int n0, int n, bool ok1, int& seq, int& pos) {
+  seq = SEG == 1 ? 0 : r / (WIDE_KEYS / 2);
+  pos = n0 + (SEG == 1 ? r : r % (WIDE_KEYS / 2));
+  return (seq == 0 || ok1) && pos < n;
+}
+
+// The 4 x (4 / SEG) blocks of X Y^T and Z W^T: X, Z the thread's own rows
+// (row stride WIDE_LDQK), Y, W the streamed rows kg + 16 j.
+template <int JN>
+__device__ __forceinline__ void wide_two_products(const float* X, const float* Y, const float* Z,
+                                                  const float* W, float (&xy)[WB_RM][JN],
+                                                  float (&zw)[WB_RM][JN]) {
+#pragma unroll
+  for (int i = 0; i < WB_RM; ++i)
+#pragma unroll
+    for (int j = 0; j < JN; ++j) xy[i][j] = zw[i][j] = 0.0f;
+#pragma unroll 2
+  for (int d = 0; d < WIDE_DP; d += 4) {
+    float4 xv[WB_RM];
+#pragma unroll
+    for (int i = 0; i < WB_RM; ++i) xv[i] = *reinterpret_cast<const float4*>(X + i * WIDE_LDQK + d);
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      const float4 yv = *reinterpret_cast<const float4*>(Y + 16 * j * WIDE_LDQK + d);
+#pragma unroll
+      for (int i = 0; i < WB_RM; ++i) xy[i][j] = wide_dot4(xv[i], yv, xy[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < WB_RM; ++i) xv[i] = *reinterpret_cast<const float4*>(Z + i * WIDE_LDQK + d);
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      const float4 wv = *reinterpret_cast<const float4*>(W + 16 * j * WIDE_LDQK + d);
+#pragma unroll
+      for (int i = 0; i < WB_RM; ++i) zw[i][j] = wide_dot4(xv[i], wv, zw[i][j]);
+    }
+  }
+}
+
+// acc[i][0..8) += w_i * (row's columns 4 cg .. + 4 and 64 + 4 cg .. + 4).
+__device__ __forceinline__ void wide_axpy(float (&acc)[WB_RM][8], const float4 w,
+                                          const float* row) {
+  const float4 r0 = *reinterpret_cast<const float4*>(row);
+  const float4 r1 = *reinterpret_cast<const float4*>(row + 64);
+#pragma unroll
+  for (int i = 0; i < WB_RM; ++i) {
+    const float wi = f4(w, i);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[i][c] = fmaf(wi, f4(r0, c), acc[i][c]);
+      acc[i][4 + c] = fmaf(wi, f4(r1, c), acc[i][4 + c]);
+    }
+  }
+}
+
+// Write rows prg * 4 + i of acc (columns 4 cg .. and 64 + 4 cg ..) to
+// tensor t at the block's positions n0 + ..., those valid only.
+template <int SEG, bool VEC>
+__device__ __forceinline__ void wide_store(const BwdF32Args& a, float* base, Tensor t, int bh0,
+                                           bool ok1, int n0, int n, int prg, int cg,
+                                           const float (&acc)[WB_RM][8]) {
+#pragma unroll
+  for (int i = 0; i < WB_RM; ++i) {
+    int seq, pos;
+    if (!wide_row<SEG>(prg * WB_RM + i, n0, n, ok1, seq, pos)) continue;
+    float* out = base + seq_offset(a, t, bh0 + seq) + static_cast<long long>(pos) * a.s[t + 2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int c0 = 64 * half + 4 * cg;
+      if constexpr (VEC) {
+        if (c0 < a.dh)
+          *reinterpret_cast<float4*>(out + c0) =
+              make_float4(acc[i][4 * half], acc[i][4 * half + 1], acc[i][4 * half + 2],
+                          acc[i][4 * half + 3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (c0 + c < a.dh) out[c0 + c] = acc[i][4 * half + c];
+      }
+    }
+  }
+}
+
+// The block's first sequence and first row of its stationary tile.
+template <int SEG>
+__device__ __forceinline__ void wide_block(int n, int& bh0, int& n0) {
+  if constexpr (SEG == 1) {
+    const TileIdx ti = tile_index(n, WIDE_KEYS);
+    bh0 = ti.bh;
+    n0 = ti.tile * WIDE_KEYS;
+  } else {
+    bh0 = SEG * blockIdx.x;
+    n0 = 0;
+  }
+}
+
+// dK, dV of one 64-key tile (or of two sequences' keys) over all queries.
+template <int SEG, bool VEC>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+flash_bwd_kv_f32_tiled_kernel(const BwdF32Args a, int BH) {
+  using L = WideBwdLayout;
+  constexpr int JN = 4 / SEG;
+  extern __shared__ __align__(16) float wbs[];
+  float *Ks = wbs + L::s0, *Vs = wbs + L::s1, *Qs = wbs + L::t0, *Gs = wbs + L::t1;
+  float *Ps = wbs + L::p_off, *dSs = wbs + L::ds_off;
+  float *Ls = wbs + L::row_off, *Ds = Ls + WIDE_KEYS, *Bk = Ds + WIDE_KEYS;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  int bh0, k0;
+  wide_block<SEG>(a.Nk, bh0, k0);
+  const bool ok1 = SEG == 2 && bh0 + 1 < BH;
+  const int seg = SEG == 1 ? 0 : warp / 4;
+
+  wide_stage<SEG, VEC>(Ks, WIDE_LDQK, WIDE_KEYS, a.k, seq_offset(a, TK, bh0),
+                       seq_offset(a, TK, bh0 + 1), ok1, a.s[TK + 2], k0, a.Nk, a.dh);
+  wide_stage<SEG, VEC>(Vs, WIDE_LDQK, WIDE_KEYS, a.v, seq_offset(a, TV, bh0),
+                       seq_offset(a, TV, bh0 + 1), ok1, a.s[TV + 2], k0, a.Nk, a.dh);
+  if (tid < WIDE_KEYS) {
+    int sq, key;
+    const bool ok = wide_row<SEG>(tid, k0, a.Nk, ok1, sq, key);
+    const float kb = (ok && a.bias != nullptr)
+                         ? a.bias[static_cast<long long>((bh0 + sq) / a.H) * a.Nk + key] : 0.0f;
+    Bk[tid] = ok ? kb : -CUDART_INF_F;
+  }
+
+  const int rg = 2 * warp + lane / 16, kg = lane % 16;
+  const int prg = 4 * (warp / 2) + lane / 8, cg = 8 * (warp % 2) + lane % 8;
+  float dk[WB_RM][8], dv[WB_RM][8];
+#pragma unroll
+  for (int i = 0; i < WB_RM; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) dk[i][c] = dv[i][c] = 0.0f;
+
+  const int n_tiles = SEG == 1 ? (a.Nq + WIDE_KEYS - 1) / WIDE_KEYS : 1;
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    const int q0 = qt * WIDE_KEYS;
+    wide_stage<SEG, VEC>(Qs, WIDE_LDQK, WIDE_KEYS, a.q, seq_offset(a, TQ, bh0),
+                         seq_offset(a, TQ, bh0 + 1), ok1, a.s[TQ + 2], q0, a.Nq, a.dh);
+    wide_stage<SEG, VEC>(Gs, WIDE_LDQK, WIDE_KEYS, a.dout, seq_offset(a, TDO, bh0),
+                         seq_offset(a, TDO, bh0 + 1), ok1, a.s[TDO + 2], q0, a.Nq, a.dh);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (tid < WIDE_KEYS) {
+      int sq, pos;
+      const bool ok = wide_row<SEG>(tid, q0, a.Nq, ok1, sq, pos);
+      const long long row = static_cast<long long>(bh0 + sq) * a.Nq + pos;
+      Ls[tid] = ok ? a.lse[row] : CUDART_INF_F;
+      Ds[tid] = ok ? a.delta[row] : 0.0f;
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T: keys rg * 4 + i, queries kg + 16 (seg JN + j)
+    float st[WB_RM][JN], dpt[WB_RM][JN];
+    const int col0 = kg + 16 * seg * JN;
+    wide_two_products<JN>(Ks + rg * WB_RM * WIDE_LDQK, Qs + col0 * WIDE_LDQK,
+                          Vs + rg * WB_RM * WIDE_LDQK, Gs + col0 * WIDE_LDQK, st, dpt);
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      const int col = col0 + 16 * j;
+      float p[WB_RM], ds[WB_RM];
+#pragma unroll
+      for (int i = 0; i < WB_RM; ++i) {
+        const float sl = __fadd_rn(__fmul_rn(st[i][j], a.scale), Bk[rg * WB_RM + i]);
+        p[i] = expf(__fsub_rn(sl, Ls[col]));
+        ds[i] = __fmul_rn(__fmul_rn(p[i], __fsub_rn(dpt[i][j], Ds[col])), a.scale);
+      }
+      *reinterpret_cast<float4*>(Ps + col * WB_LDP + rg * WB_RM) =
+          make_float4(p[0], p[1], p[2], p[3]);
+      *reinterpret_cast<float4*>(dSs + col * WB_LDP + rg * WB_RM) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    __syncthreads();
+
+    // dV += P^T dO and dK += dS^T Q over the segment's queries
+    const int qb = seg * (WIDE_KEYS / SEG);
+    const int qe = SEG == 1 ? min(WIDE_KEYS, (a.Nq - q0 + 3) & ~3) : qb + WIDE_KEYS / SEG;
+#pragma unroll 2
+    for (int qi = qb; qi < qe; ++qi) {
+      wide_axpy(dv, *reinterpret_cast<const float4*>(Ps + qi * WB_LDP + prg * WB_RM),
+                Gs + qi * WIDE_LDQK + 4 * cg);
+      wide_axpy(dk, *reinterpret_cast<const float4*>(dSs + qi * WB_LDP + prg * WB_RM),
+                Qs + qi * WIDE_LDQK + 4 * cg);
+    }
+    __syncthreads();  // Q, dO, P and dS consumed before the next copies
+  }
+  wide_store<SEG, VEC>(a, a.dk, TDK, bh0, ok1, k0, a.Nk, prg, cg, dk);
+  wide_store<SEG, VEC>(a, a.dv, TDV, bh0, ok1, k0, a.Nk, prg, cg, dv);
+}
+
+// dQ of one 64-query tile (or of two sequences' queries) over all keys.
+template <int SEG, bool VEC>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+flash_bwd_q_f32_tiled_kernel(const BwdF32Args a, int BH) {
+  using L = WideBwdLayout;
+  constexpr int JN = 4 / SEG;
+  extern __shared__ __align__(16) float wbs[];
+  float *Qs = wbs + L::s0, *Gs = wbs + L::s1, *Ks = wbs + L::t0, *Vs = wbs + L::t1;
+  float* dSs = wbs + L::ds_off;
+  float *Ls = wbs + L::row_off, *Ds = Ls + WIDE_KEYS, *Bk = Ds + WIDE_KEYS;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  int bh0, q0;
+  wide_block<SEG>(a.Nq, bh0, q0);
+  const bool ok1 = SEG == 2 && bh0 + 1 < BH;
+  const int seg = SEG == 1 ? 0 : warp / 4;
+
+  wide_stage<SEG, VEC>(Qs, WIDE_LDQK, WIDE_KEYS, a.q, seq_offset(a, TQ, bh0),
+                       seq_offset(a, TQ, bh0 + 1), ok1, a.s[TQ + 2], q0, a.Nq, a.dh);
+  wide_stage<SEG, VEC>(Gs, WIDE_LDQK, WIDE_KEYS, a.dout, seq_offset(a, TDO, bh0),
+                       seq_offset(a, TDO, bh0 + 1), ok1, a.s[TDO + 2], q0, a.Nq, a.dh);
+  if (tid < WIDE_KEYS) {
+    int sq, pos;
+    const bool ok = wide_row<SEG>(tid, q0, a.Nq, ok1, sq, pos);
+    const long long row = static_cast<long long>(bh0 + sq) * a.Nq + pos;
+    Ls[tid] = ok ? a.lse[row] : CUDART_INF_F;
+    Ds[tid] = ok ? a.delta[row] : 0.0f;
+  }
+
+  const int rg = 2 * warp + lane / 16, kg = lane % 16;
+  const int prg = 4 * (warp / 2) + lane / 8, cg = 8 * (warp % 2) + lane % 8;
+  float dq[WB_RM][8];
+#pragma unroll
+  for (int i = 0; i < WB_RM; ++i)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) dq[i][c] = 0.0f;
+
+  const int n_tiles = SEG == 1 ? (a.Nk + WIDE_KEYS - 1) / WIDE_KEYS : 1;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * WIDE_KEYS;
+    wide_stage<SEG, VEC>(Ks, WIDE_LDQK, WIDE_KEYS, a.k, seq_offset(a, TK, bh0),
+                         seq_offset(a, TK, bh0 + 1), ok1, a.s[TK + 2], k0, a.Nk, a.dh);
+    wide_stage<SEG, VEC>(Vs, WIDE_LDQK, WIDE_KEYS, a.v, seq_offset(a, TV, bh0),
+                         seq_offset(a, TV, bh0 + 1), ok1, a.s[TV + 2], k0, a.Nk, a.dh);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (tid < WIDE_KEYS) {
+      int sq, key;
+      const bool ok = wide_row<SEG>(tid, k0, a.Nk, ok1, sq, key);
+      const float kb = (ok && a.bias != nullptr)
+                           ? a.bias[static_cast<long long>((bh0 + sq) / a.H) * a.Nk + key]
+                           : 0.0f;
+      Bk[tid] = ok ? kb : -CUDART_INF_F;
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: queries rg * 4 + i, keys kg + 16 (seg JN + j)
+    float sc[WB_RM][JN], dp[WB_RM][JN];
+    const int col0 = kg + 16 * seg * JN;
+    wide_two_products<JN>(Qs + rg * WB_RM * WIDE_LDQK, Ks + col0 * WIDE_LDQK,
+                          Gs + rg * WB_RM * WIDE_LDQK, Vs + col0 * WIDE_LDQK, sc, dp);
+#pragma unroll
+    for (int j = 0; j < JN; ++j) {
+      const int col = col0 + 16 * j;
+      float ds[WB_RM];
+#pragma unroll
+      for (int i = 0; i < WB_RM; ++i) {
+        const int r = rg * WB_RM + i;
+        const float sl = __fadd_rn(__fmul_rn(sc[i][j], a.scale), Bk[col]);
+        const float p = expf(__fsub_rn(sl, Ls[r]));
+        ds[i] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[i][j], Ds[r])), a.scale);
+      }
+      *reinterpret_cast<float4*>(dSs + col * WB_LDP + rg * WB_RM) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    __syncthreads();
+
+    // dQ += dS K over the segment's keys
+    const int kb = seg * (WIDE_KEYS / SEG);
+    const int ke = SEG == 1 ? min(WIDE_KEYS, (a.Nk - k0 + 3) & ~3) : kb + WIDE_KEYS / SEG;
+#pragma unroll 2
+    for (int key = kb; key < ke; ++key)
+      wide_axpy(dq, *reinterpret_cast<const float4*>(dSs + key * WB_LDP + prg * WB_RM),
+                Ks + key * WIDE_LDQK + 4 * cg);
+    __syncthreads();  // K, V and dS consumed before the next copies
+  }
+  wide_store<SEG, VEC>(a, a.dq, TDQ, bh0, ok1, q0, a.Nq, prg, cg, dq);
+}
+
+template <int SEG, bool VEC>
+cudaError_t launch_f32_tiled(bool kv, const BwdF32Args& a, int B, cudaStream_t stream) {
+  constexpr size_t smem = WideBwdLayout::bytes;
+  const int bh = B * a.H;
+  if (kv) {
+    static cudaError_t attr = lam_set_smem(flash_bwd_kv_f32_tiled_kernel<SEG, VEC>, smem);
+    if (attr != cudaSuccess) return attr;
+    const unsigned grid = SEG == 1 ? grid_blocks(bh, a.Nk, WIDE_KEYS)
+                                   : static_cast<unsigned>((bh + 1) / 2);
+    flash_bwd_kv_f32_tiled_kernel<SEG, VEC><<<grid, WIDE_THREADS, smem, stream>>>(a, bh);
+  } else {
+    static cudaError_t attr = lam_set_smem(flash_bwd_q_f32_tiled_kernel<SEG, VEC>, smem);
+    if (attr != cudaSuccess) return attr;
+    const unsigned grid = SEG == 1 ? grid_blocks(bh, a.Nq, WIDE_KEYS)
+                                   : static_cast<unsigned>((bh + 1) / 2);
+    flash_bwd_q_f32_tiled_kernel<SEG, VEC><<<grid, WIDE_THREADS, smem, stream>>>(a, bh);
+  }
+  return cudaGetLastError();
+}
+
+template <bool VEC>
+cudaError_t launch_f32_wide(bool kv, const BwdF32Args& a, int B, int seg, cudaStream_t st) {
+  return seg == 2 ? launch_f32_tiled<2, VEC>(kv, a, B, st) : launch_f32_tiled<1, VEC>(kv, a, B, st);
+}
+
 int launch_bwd_f32(bool kv, const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, const void* bias, void* dq, void* dk,
                    void* dv, int B, int H, int Nq, int Nk, int dh, const long long* strides,
-                   float scale, void* stream) {
-  if (dh <= 0 || dh > 64 || Nq <= 0 || Nk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                   float scale, int seg, void* stream) {
+  if (dh <= 0 || dh > WIDE_DP || Nq <= 0 || Nk <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   BwdF32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
                static_cast<const float*>(v), static_cast<const float*>(dout),
                static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -537,7 +897,18 @@ int launch_bwd_f32(bool kv, const void* q, const void* k, const void* v, const v
   for (int i = 0; i < 21; ++i) a.s[i] = strides[i];
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dh <= 16)
+  if (dh > 64) {
+    if ((seg != 1 && seg != 2) || (seg == 2 && (Nq > 32 || Nk > 32)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const void* ptrs[7] = {q, k, v, dout, dq, dk, dv};
+    unsigned long long bits = 0;
+    for (const void* p : ptrs) bits |= reinterpret_cast<unsigned long long>(p);
+    for (int i = 0; i < 21; ++i) bits |= 4ull * static_cast<unsigned long long>(strides[i]);
+    if ((bits & 15) == 0 && dh % 4 == 0)
+      err = launch_f32_wide<true>(kv, a, B, seg, st);
+    else
+      err = launch_f32_wide<false>(kv, a, B, seg, st);
+  } else if (dh <= 16)
     err = launch_f32<16>(kv, a, B, st);
   else if (dh <= 32)
     err = launch_f32<32>(kv, a, B, st);
@@ -571,20 +942,22 @@ extern "C" int lam_flash_attention_bwd_q(
                     strides, scale, stream);
 }
 
-// As the two entries above on fp32 q/k/v/dout and dq/dk/dv (dh <= 64), with
-// the same strides, lse, delta and optional bias.
+// As the two entries above on fp32 q/k/v/dout and dq/dk/dv (dh <= 128), with
+// the same strides, lse, delta and optional bias. seg: the plan of the
+// register-tiled pair at 64 < dh <= 128 (the wrapper's f32_wide_plan: 1, or
+// 2 sequences a block where Nq and Nk are at most 32); unread at dh <= 64.
 extern "C" int lam_flash_attention_bwd_f32_kv(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, const void* bias, void* dq, void* dk, void* dv, int B, int H, int Nq,
-    int Nk, int dh, const long long* strides, float scale, void* stream) {
+    int Nk, int dh, const long long* strides, float scale, int seg, void* stream) {
   return launch_bwd_f32(true, q, k, v, dout, lse, delta, bias, dq, dk, dv, B, H, Nq, Nk, dh,
-                        strides, scale, stream);
+                        strides, scale, seg, stream);
 }
 
 extern "C" int lam_flash_attention_bwd_f32_q(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, const void* bias, void* dq, void* dk, void* dv, int B, int H, int Nq,
-    int Nk, int dh, const long long* strides, float scale, void* stream) {
+    int Nk, int dh, const long long* strides, float scale, int seg, void* stream) {
   return launch_bwd_f32(false, q, k, v, dout, lse, delta, bias, dq, dk, dv, B, H, Nq, Nk, dh,
-                        strides, scale, stream);
+                        strides, scale, seg, stream);
 }

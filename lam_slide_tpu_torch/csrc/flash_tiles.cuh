@@ -1,6 +1,7 @@
 // Tile shapes and shared-memory tile loaders of the flash-attention forward
 // (flash_attention.cu: K1 with a bias or fp32 operands, K10) and backward
-// (flash_attention_bwd.cu: K4 with a bias or fp32 operands) kernels.
+// (flash_attention_bwd.cu: K4 with a bias or fp32 operands) kernels, and the
+// helpers of their register-tiled fp32 kernels at dh 128.
 #pragma once
 
 #include "common.cuh"
@@ -60,5 +61,67 @@ __device__ __forceinline__ void normrope_lane_tile(bf16* tile, int ld, int n0, i
     lam_rmsnorm_rope_lanes(tile + r * ld, dh, scale + lane0, cos + row, sin + row, eps);
   }
 }
+
+// The register-tiled fp32 kernels at 64 < dh <= 128 (flash_attention.cu's
+// forward, flash_attention_bwd.cu's dK/dV and dQ pair): blocks of
+// WIDE_THREADS over 64-row tiles, dh zero-padded to WIDE_DP in shared
+// memory, rows of WIDE_LDQK floats where 16 rows are read at once (their
+// float4 loads fall on distinct banks), copied by cp.async.
+constexpr int WIDE_THREADS = 256;
+constexpr int WIDE_DP = 128;
+constexpr int WIDE_KEYS = 64;
+constexpr int WIDE_LDQK = WIDE_DP + 4;  // Q and K row stride (floats)
+
+__device__ __forceinline__ float f4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ float wide_dot4(const float4 a, const float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// cp.async of 16 or 4 bytes, zeros where !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Rows [0, rows) of a tile: row r of sequence s = r / (rows / SEG) (offset
+// off0 or off1 from base) at position n0 + r % (rows / SEG), zero where the
+// sequence is past B*H (ok1 false), the position past n or the column past
+// dh.
+template <int SEG, bool VEC>
+__device__ __forceinline__ void wide_stage(float* dst, int ld, int rows, const float* base,
+                                           long long off0, long long off1, bool ok1,
+                                           long long sn, int n0, int n, int dh) {
+  const int per = rows / SEG;
+  if constexpr (VEC) {
+    for (int idx = threadIdx.x; idx < rows * (WIDE_DP / 4); idx += WIDE_THREADS) {
+      const int r = idx / (WIDE_DP / 4), c = 4 * (idx % (WIDE_DP / 4));
+      const int s = SEG == 1 ? 0 : r / per, pos = n0 + (SEG == 1 ? r : r % per);
+      const bool ok = (s == 0 || ok1) && pos < n && c < dh;
+      cp_async16(dst + r * ld + c, ok ? base + (s ? off1 : off0) + pos * sn + c : base, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * WIDE_DP; idx += WIDE_THREADS) {
+      const int r = idx / WIDE_DP, c = idx % WIDE_DP;
+      const int s = SEG == 1 ? 0 : r / per, pos = n0 + (SEG == 1 ? r : r % per);
+      const bool ok = (s == 0 || ok1) && pos < n && c < dh;
+      cp_async4(dst + r * ld + c, ok ? base + (s ? off1 : off0) + pos * sn + c : base, ok);
+    }
+  }
+}
+
 
 }  // namespace lam_flash

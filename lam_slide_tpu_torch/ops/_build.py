@@ -43,8 +43,8 @@ SIGNATURES = {
     "lam_qk_normrope_f32": [_P] * 8 + [_I] * 5 + [_L] * 6 + [_F, _P],
     "lam_flash_attention_bwd_kv": _FLASH_BWD,
     "lam_flash_attention_bwd_q": _FLASH_BWD,
-    "lam_flash_attention_bwd_f32_kv": _FLASH_BWD,
-    "lam_flash_attention_bwd_f32_q": _FLASH_BWD,
+    "lam_flash_attention_bwd_f32_kv": _FLASH_BWD[:-1] + [_I, _P],
+    "lam_flash_attention_bwd_f32_q": _FLASH_BWD[:-1] + [_I, _P],
     "lam_fused_mlp_sm90": [_P] * 6 + [_I] * 4 + [_L] * 4 + [_I] * 4 + [_P],
     "lam_fused_mlp_wmma": [_P] * 5 + [_I] * 4 + [_L] * 4 + [_P],
     "lam_fused_mlp_f32": [_P] * 5 + [_I] * 4 + [_L] * 4 + [_I, _I, _P],
@@ -57,6 +57,7 @@ SIGNATURES = {
     "lam_short_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P],
     "lam_short_attention_fwd_f32": [_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P],
     "lam_short_attention_bwd": [_P] * 7 + [_I] * 5 + [_LP, _L, _L, _F, _P],
+    "lam_short_attention_bwd_f32": [_P] * 7 + [_I] * 5 + [_LP, _L, _L, _F, _P],
     "lam_fused_temporal_fwd": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_F, _F, _P],
     "lam_short_backward": [_P] * 10 + [_I] * 5 + [_LP, _F, _I, _P],
     "lam_short_backward_f32": [_P] * 9 + [_I] * 5 + [_LP, _F, _P],

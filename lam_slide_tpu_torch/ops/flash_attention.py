@@ -26,10 +26,11 @@ kernel with fp32 in and out: a thread a query row up to dh 64, and above it
 up to dh 128 a register-tiled kernel (a thread a 4 x 4 block of the scores
 and a 4 x 8 block of the output) whose geometry ``f32_wide_plan`` picks.
 K4 takes both too: the bias row in both of its kernels (JAX
-``_bwd_probs``), and fp32 operands through a second pair of
-kernels, up to dh 64 (``F32_GRAD_MAX_DH``): an fp32 call at a wider head
-that needs a gradient raises before its forward launches. The packed entry
-K3 stays unmasked, as in JAX.
+``_bwd_probs``), and fp32 operands through a second pair of kernels, a
+thread an owned row up to dh 64 and above it up to dh 128
+(``F32_GRAD_MAX_DH``) a register-tiled pair (a thread a 4 x 4 block of S
+and dP and a 4 x 8 block of each grad) in ``f32_wide_plan``'s geometry.
+The packed entry K3 stays unmasked, as in JAX.
 
 Gradients: on CUDA tensors that need one, the forward runs inside
 ``_FlashAttention`` (the JAX ``custom_vjp``), which asks K1 for the per-row
@@ -47,8 +48,10 @@ launches and
 ``bwd_kv_launches`` and ``bwd_q_launches`` each count K4 calls (on the old
 pair, its dK/dV and its dQ kernel), ``bwd_bias_launches`` /
 ``bwd_fp32_launches`` the old pair's kernels with the bias / with fp32
-operands (two per call), ``bwd_sm90_launches`` the redesigned backward's
-kernels (its preprocess, main and dQ kernels: three per call) and
+operands (two per call), ``bwd_fp32_wide_launches`` those of the
+register-tiled fp32 pair among them (64 < dh <= 128),
+``bwd_sm90_launches`` the redesigned backward's kernels (its
+preprocess, main and dQ kernels: three per call) and
 ``bwd_sm90_cp_async_launches`` its main kernels on the cp.async route.
 """
 
@@ -69,6 +72,7 @@ bwd_kv_launches = 0
 bwd_q_launches = 0
 bwd_bias_launches = 0
 bwd_fp32_launches = 0
+bwd_fp32_wide_launches = 0
 sm90_launches = 0
 sm90_cp_async_launches = 0
 bwd_sm90_launches = 0
@@ -76,12 +80,13 @@ bwd_sm90_cp_async_launches = 0
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max  # the JAX kernels' mask fill
 MAX_DH = 128  # every forward kernel, bf16 and fp32 (register-tiled above 64 in fp32)
-# K4's fp32 pair keeps q/k rows in registers and stops at dh 64, so an fp32
-# call that needs a gradient must stay within it.
-F32_GRAD_MAX_DH = 64
-# The register-tiled fp32 kernel at 64 < dh <= 128 (csrc/flash_attention.cu
-# WideLayout<64>): 64-row blocks of 256 threads over key tiles of 64, dh
-# padded to 128, two blocks an SM.
+# K4's fp32 kernels: a thread a row up to dh 64, the register-tiled pair
+# above it up to this; an fp32 call that needs a gradient stays within it.
+F32_GRAD_MAX_DH = 128
+# The register-tiled fp32 kernels at 64 < dh <= 128 (csrc/flash_attention.cu
+# WideLayout<64>, csrc/flash_attention_bwd.cu WideBwdLayout): 64-row blocks
+# of 256 threads over tiles of 64, dh padded to 128; the forward two blocks
+# an SM, the backward pair one.
 F32_WIDE_MIN_DH = 65
 F32_WIDE_SHORT = 32  # Nq and Nk at most this: two sequences share a 64-row block
 
@@ -94,10 +99,10 @@ def f32_wide_smem_bytes() -> int:
 
 
 def f32_wide_plan(nq: int, nk: int) -> int:
-    """Sequences a 64-row block of the register-tiled fp32 kernel for nq
-    queries over nk keys: two where both axes are at most 32 (MD17's
-    temporal axis, T = 30), so its blocks are not three quarters empty,
-    else one."""
+    """Sequences a 64-row block of the register-tiled fp32 kernels (K1's
+    forward, K4's pair) for nq queries over nk keys: two where both axes are
+    at most 32 (MD17's temporal axis, T = 30), so its blocks are not three
+    quarters empty, else one."""
     return 2 if nq <= F32_WIDE_SHORT and nk <= F32_WIDE_SHORT else 1
 
 
@@ -322,8 +327,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take ``reference_attention``. CUDA tensors launch the kernel
     (bf16 or fp32 with dh <= 128, unit stride on dh) or raise; when they
     need a gradient, through ``_FlashAttention``, whose backward is K4 with
-    the same bias row and dtype (fp32 only up to dh 64: a wider fp32 call
-    that needs a gradient raises before the forward launches).
+    the same bias row and dtype.
     """
     if q.device.type == "cpu":
         return reference_attention(q, k, v, scale, mask=mask)
@@ -335,12 +339,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _check_fp32_grad(name: str, q: torch.Tensor) -> None:
-    """Raise for fp32 operands wider than K4's fp32 pair takes: their
-    gradient has no kernel (csrc/flash_attention_bwd.cu stops at dh 64)."""
+    """Raise for fp32 operands wider than K4's fp32 kernels take: their
+    gradient has no kernel (csrc/flash_attention_bwd.cu stops at dh 128)."""
     if q.dtype == torch.float32 and q.shape[-1] > F32_GRAD_MAX_DH:
         raise ValueError(f"{name}: fp32 operands at head dim {q.shape[-1]} have no backward "
-                         f"kernel (K4-fp32 takes dh <= {F32_GRAD_MAX_DH}; ROADMAP.md Queue 2 "
-                         f"A); run it without a gradient, or in bf16")
+                         f"kernel (K4-fp32 takes dh <= {F32_GRAD_MAX_DH})")
 
 
 def _check_backward(q, k, v, out, lse, g, dtypes=(torch.bfloat16,)) -> None:
@@ -384,37 +387,55 @@ def _launch_sm90_backward(q, k, v, out, lse, g, scale, counts):
     return dq, dk, dv
 
 
-def _launch_backward(q, k, v, out, lse, g, scale, bias=None):
-    """Launch K4 on checked CUDA tensors -> (dq, dk, dv) in packed memory.
-    bf16 without a bias takes the redesigned backward; with the fp32
-    ``[B, Nk]`` key-padding row ``bias`` the old pair; fp32 operands K4's
-    fp32 pair."""
-    global bwd_kv_launches, bwd_q_launches, bwd_bias_launches, bwd_fp32_launches
-    g = g if g.stride(-1) == 1 else g.contiguous()
-    fp32 = q.dtype == torch.float32
-    if not fp32 and bias is None:
-        grads = _launch_sm90_backward(q, k, v, out, lse, g, scale, sys.modules[__name__])
-        bwd_kv_launches += 1
-        bwd_q_launches += 1
-        return grads
+def _launch_template_backward(q, k, v, out, lse, g, scale, bias, counts):
+    """The older pair on checked CUDA tensors (g with unit stride on dh) ->
+    (dq, dk, dv) in packed memory: its bf16 kernels with the fp32 ``[B, Nk]``
+    key-padding row ``bias`` (which they need), or the fp32 pair with or
+    without one (at 64 < dh <= 128 the register-tiled pair, in
+    ``f32_wide_plan``'s geometry); delta = rowsum(dO ⊙ O) is formed here.
+    ``counts`` is the module whose ``bwd_fp32_launches`` /
+    ``bwd_fp32_wide_launches`` count the fp32 kernels (K4's, or K6's, which
+    runs the pair on its transformed q/k); the callers count the rest."""
     delta = (g.float() * out.float()).sum(dim=-1).contiguous()
-    nq, nk = q.shape[2], k.shape[2]
+    b, h, nq, dh = q.shape
+    nk = k.shape[2]
     dq, dk, dv = _packed_like(q, nq), _packed_like(k, nk), _packed_like(v, nk)
     strides = (ctypes.c_longlong * 21)(
         *(s for t in (q, k, v, g, dq, dk, dv) for s in t.stride()[:3]))
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), None if bias is None else bias.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), q.shape[0], q.shape[1], nq, nk, q.shape[3], strides,
-            float(scale), _stream(q))
-    entry = "lam_flash_attention_bwd_f32" if fp32 else "lam_flash_attention_bwd"
+            dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, dh, strides, float(scale))
+    fp32 = q.dtype == torch.float32
+    wide = fp32 and dh >= F32_WIDE_MIN_DH
+    if fp32:
+        entry, args = "lam_flash_attention_bwd_f32", (
+            *args, f32_wide_plan(nq, nk) if wide else 0, _stream(q))
+    else:
+        entry, args = "lam_flash_attention_bwd", (*args, _stream(q))
     with torch.cuda.device(q.device):
         _build.launch(f"{entry}_kv", *args)
-        bwd_kv_launches += 1
         _build.launch(f"{entry}_q", *args)
-        bwd_q_launches += 1
-    bwd_bias_launches += 2 * (bias is not None)
-    bwd_fp32_launches += 2 * fp32
+    counts.bwd_fp32_launches += 2 * fp32
+    counts.bwd_fp32_wide_launches += 2 * wide
     return dq, dk, dv
+
+
+def _launch_backward(q, k, v, out, lse, g, scale, bias=None):
+    """Launch K4 on checked CUDA tensors -> (dq, dk, dv) in packed memory.
+    bf16 without a bias takes the redesigned backward; with the fp32
+    ``[B, Nk]`` key-padding row ``bias`` the old pair; fp32 operands K4's
+    fp32 pair (register-tiled above dh 64)."""
+    global bwd_kv_launches, bwd_q_launches, bwd_bias_launches
+    g = g if g.stride(-1) == 1 else g.contiguous()
+    counts = sys.modules[__name__]
+    if q.dtype != torch.float32 and bias is None:
+        grads = _launch_sm90_backward(q, k, v, out, lse, g, scale, counts)
+    else:
+        grads = _launch_template_backward(q, k, v, out, lse, g, scale, bias, counts)
+        bwd_bias_launches += 2 * (bias is not None)
+    bwd_kv_launches += 1
+    bwd_q_launches += 1
+    return grads
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -428,8 +449,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take ``reference_flash_backward``. CUDA tensors launch K4
     (bf16 with dh <= 128: the redesigned one-pass backward without a mask,
     the dK/dV and dQ pair with one; fp32 with dh <= F32_GRAD_MAX_DH: the
-    fp32 pair) or raise; the grads come back in packed ``[B, N, H, dh]``
-    memory, so their packed ``[B, N, H*dh]`` form is a view.
+    fp32 pair, register-tiled above dh 64) or raise; the grads come back in
+    packed ``[B, N, H, dh]`` memory, so their packed ``[B, N, H*dh]`` form
+    is a view.
     """
     if q.device.type == "cpu":
         return reference_flash_backward(q, k, v, out, lse, g, scale,

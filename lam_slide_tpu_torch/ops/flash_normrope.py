@@ -12,14 +12,14 @@ attention. On the card the transform runs once, in a kernel of its own
 ``lam_qk_normrope_f32``), which writes contiguous head-major ``q_t``/``k_t``.
 In bf16 the attention is the redesigned flash forward of
 ``csrc/flash_fwd_sm90.cu`` on ``(q_t, k_t, v)``, and its backward that of
-``csrc/flash_bwd_sm90.cu``. In fp32 (the fp32 sampling DiTs at dh 128) it
-is K1's fp32 kernel of ``csrc/flash_attention.cu``, forward only: an fp32
-call that needs a gradient raises (K6 in fp32 is not ported).
-``_FlashNormRope`` keeps the forward's ``q_t``/``k_t`` for the backward,
-whose grads with respect to the TRANSFORMED q/k are chained to the raw q/k
-and the two scales by autograd of the plain pre-transform
-(``chain_backward``), as ``_nr_core_bwd`` does with ``jax.vjp`` of
-``_pre_transform``.
+``csrc/flash_bwd_sm90.cu``. In fp32 (the fp32 DiTs at dh 128, sampling
+and training) it is K1's fp32 kernel of ``csrc/flash_attention.cu``, and
+its backward K4's fp32 pair of ``csrc/flash_attention_bwd.cu`` (the
+register-tiled one at 64 < dh <= 128). ``_FlashNormRope`` keeps the
+forward's ``q_t``/``k_t`` for the backward, whose grads with respect to
+the TRANSFORMED q/k are chained to the raw q/k and the two scales by
+autograd of the plain pre-transform (``chain_backward``), as
+``_nr_core_bwd`` does with ``jax.vjp`` of ``_pre_transform``.
 
 Counters (plain integers, touched only where a kernel launches):
 ``launches`` counts K5 calls of both dtypes and ``fp32_launches`` those in
@@ -30,9 +30,11 @@ fp32 (the transform's fp32 kernel, then K1's fp32 kernel) and
 (one a K5 call, one a ``flash_attention_normrope_backward`` call, one a
 ``qk_normrope`` call); ``sm90_launches`` the bf16 K5 calls on the
 redesigned forward and ``sm90_cp_async_launches`` those of them on its
-cp.async route; ``bwd_launches`` counts K6 calls, ``bwd_sm90_launches`` the
+cp.async route; ``bwd_launches`` counts K6 calls of both dtypes, ``bwd_sm90_launches`` the
 redesigned backward's kernels (three a call) and
-``bwd_sm90_cp_async_launches`` its main kernels on the cp.async route.
+``bwd_sm90_cp_async_launches`` its main kernels on the cp.async route,
+``bwd_fp32_launches`` the fp32 pair's kernels (two a call) and
+``bwd_fp32_wide_launches`` those of them on the register-tiled pair.
 """
 
 import sys
@@ -45,8 +47,10 @@ from lam_slide_tpu_torch.ops._grad import needs_grad, plain_vjp
 from lam_slide_tpu_torch.ops.flash_attention import (
     _check,
     _check_backward,
+    _check_fp32_grad,
     _launch_sm90_backward,
     _launch_sm90_forward,
+    _launch_template_backward,
     _launch_template_forward,
     _stream,
     flash_attention,
@@ -56,7 +60,7 @@ from lam_slide_tpu_torch.ops.flash_attention import (
 from lam_slide_tpu_torch.ops.packed_attention import headmajor_rmsnorm, headmajor_rope
 
 EPS = 1e-6
-DTYPES = (torch.bfloat16, torch.float32)  # the forward's; the backward (K6) takes bf16
+DTYPES = (torch.bfloat16, torch.float32)
 launches = 0
 fp32_launches = 0
 fp32_wide_launches = 0
@@ -66,6 +70,8 @@ sm90_cp_async_launches = 0
 bwd_launches = 0
 bwd_sm90_launches = 0
 bwd_sm90_cp_async_launches = 0
+bwd_fp32_launches = 0
+bwd_fp32_wide_launches = 0
 _COUNTS = sys.modules[__name__]  # the counters the shared launchers move
 
 
@@ -198,13 +204,17 @@ def _forward(q, k, v, q_scale, k_scale, cos, sin, scale: float, with_lse: bool):
 
 def _attention_backward(q_t, k_t, v, out, lse, g, scale: float):
     """K6's attention part on the transformed q/k -> (dq_t, dk_t, dv) in
-    packed memory: the redesigned backward on CUDA tensors, its plain
-    version (``reference_flash_backward``) on CPU ones."""
+    packed memory: on CUDA tensors the redesigned backward in bf16, K4's
+    fp32 pair in fp32; its plain version (``reference_flash_backward``) on
+    CPU ones."""
     global bwd_launches
     if q_t.device.type == "cpu":
         return reference_flash_backward(q_t, k_t, v, out, lse, g, scale)
     g = g if g.stride(-1) == 1 else g.contiguous()
-    grads = _launch_sm90_backward(q_t, k_t, v, out, lse, g, scale, _COUNTS)
+    if q_t.dtype == torch.float32:
+        grads = _launch_template_backward(q_t, k_t, v, out, lse, g, scale, None, _COUNTS)
+    else:
+        grads = _launch_sm90_backward(q_t, k_t, v, out, lse, g, scale, _COUNTS)
     bwd_launches += 1
     return grads
 
@@ -239,10 +249,9 @@ def flash_attention_normrope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take ``reference_attention_normrope``. CUDA tensors launch
     K5 (bf16 or fp32 q/k/v with unit stride on an even dh <= 128, fp32
     scales and tables: the transform kernel, then the redesigned flash
-    forward in bf16 or K1's fp32 kernel in fp32) or raise; bf16 tensors that
-    need a gradient go through ``_FlashNormRope``, whose backward is K6, and
-    fp32 ones raise (the fp32 path is forward only: K6 in fp32 is not
-    ported). With a ``[B, Nk]`` key-padding mask, JAX's fallback
+    forward in bf16 or K1's fp32 kernel in fp32) or raise; tensors that need
+    a gradient go through ``_FlashNormRope``, whose backward is K6 (in fp32
+    on K4's fp32 pair). With a ``[B, Nk]`` key-padding mask, JAX's fallback
     (flash_normrope.py:496-498): the plain ``pre_transform``, then
     ``flash_attention(..., mask=mask)``, which is K1 with the bias on CUDA
     tensors and ``reference_attention`` on CPU ones.
@@ -256,9 +265,7 @@ def flash_attention_normrope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return reference_attention_normrope(q, k, v, q_scale, k_scale, cos, sin, scale)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if needs_grad(q, k, v, q_scale, k_scale):
-        if q.dtype == torch.float32:
-            raise ValueError("flash_attention_normrope: the fp32 kernels are forward only; K6 "
-                             "in fp32 is not ported (ROADMAP.md Queue 2 A)")
+        _check_fp32_grad("flash_attention_normrope", q)
         return _FlashNormRope.apply(q, k, v, q_scale, k_scale, cos, sin, scale)
     return _forward(q, k, v, q_scale, k_scale, cos, sin, scale, with_lse=False)[0]
 
@@ -270,13 +277,14 @@ def flash_attention_normrope_backward(q, k, v, q_scale, k_scale, cos, sin, out, 
     gradient g.
 
     CPU tensors take ``reference_normrope_backward``. CUDA tensors launch
-    the transform kernel and then K6 (the redesigned backward on q_t/k_t) or
-    raise; the grads come back in packed ``[B, N, H, dh]`` memory.
+    the transform kernel and then K6 (on q_t/k_t the redesigned backward in
+    bf16, K4's fp32 pair in fp32) or raise; the grads come back in packed
+    ``[B, N, H, dh]`` memory.
     """
     if q.device.type == "cpu":
         return reference_normrope_backward(q, k, v, q_scale, k_scale, cos, sin, out, lse, g,
                                            scale)
-    _check_backward(q, k, v, out, lse, g)
+    _check_backward(q, k, v, out, lse, g, DTYPES)
     _check_normrope(q, q_scale, k_scale, cos, sin, k.shape[2])
     q_t, k_t = _launch_transform(q, k, q_scale, k_scale, cos, sin)
     return _attention_backward(q_t, k_t, v, out, lse, g, scale)

@@ -29,8 +29,8 @@ DiT) launches the third kernel,
   attention, then its linear2 contribution) and 32 MLP columns at a time,
   the weights streamed through a two-stage cp.async ring, the output in
   registers; its geometry from ``f32_plan``, and where that has none it
-  raises naming the limit. Its forward only: an fp32 call that needs a
-  gradient raises (the fp32 backward is not ported, as with K9's).
+  raises naming the limit. Under autograd it runs inside ``_SpatialBlock``
+  like the others (the fp32 stage-2 training of both registries).
 
 Weights are in torch ``nn.Linear`` layout: ``w1 [3D+M, D]``, ``w2 [D, D+M]``.
 
@@ -236,18 +236,14 @@ def fused_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """The spatial block over x ``[N, L, D]`` -> ``[N, L, D]``.
 
     CPU tensors take ``reference_spatial_block``. CUDA tensors launch a
-    kernel or raise: bf16 x and weights the route of ``sm90_plan``, through
-    ``_SpatialBlock`` when they need a gradient; fp32 x and weights the fp32
-    kernel (forward only: an fp32 call that needs a gradient raises). The
-    norm scales and the ``[L, dh/2]`` tables are fp32 in both.
+    kernel or raise: bf16 x and weights the route of ``sm90_plan``, fp32 x
+    and weights the fp32 kernel; through ``_SpatialBlock`` when they need a
+    gradient. The norm scales and the ``[L, dh/2]`` tables are fp32 in both.
     """
     args = (x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale)
     if x.device.type == "cpu":
         return reference_spatial_block(*args)
     if needs_grad(*args):
-        if x.dtype == torch.float32:
-            raise ValueError("fused_spatial_block: the fp32 kernel is forward only; its "
-                             "backward is not ported (ROADMAP.md Queue 2)")
         return _SpatialBlock.apply(*args)
     return _launch(*args)
 

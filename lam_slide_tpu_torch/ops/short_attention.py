@@ -19,15 +19,18 @@ On CUDA tensors that need a gradient the forward runs inside
 ``_ShortAttention`` (the JAX ``custom_vjp``), whose backward is the K9
 backward kernel.
 
-fp32 operands (the MD17 test pass's fp32 DiT) take the forward of
-``csrc/short_attention_f32.cu``: a warp an item on FFMA (no TF32), k and v
-in shared memory, a lane a query row; ``f32_fwd_warps`` sizes its blocks.
-The fp32 backward is not ported (fp32 training runs on no path yet): an
-fp32 call that needs a gradient raises.
+fp32 operands (the MD17 test pass's fp32 DiT, and the fp32 stage-2
+training of both registries) take the kernels of
+``csrc/short_attention_f32.cu``, a warp an item on FFMA (no TF32): the
+forward with k and v in shared memory and a lane a query row
+(``f32_fwd_warps`` sizes its blocks), the backward with q, k, v and dO in
+shared memory, a query pass (dQ, the row statistics) and a key pass (dK,
+dV) in which a lane owns a row (``f32_bwd_warps``).
 
 Counters (plain integers, touched only where a kernel launches):
 ``launches`` the forward kernel in both dtypes, ``fp32_launches`` its fp32
-launches, ``bwd_launches`` the backward kernel.
+launches, ``bwd_launches`` the backward kernel in both dtypes,
+``bwd_fp32_launches`` its fp32 launches.
 """
 
 import ctypes
@@ -42,6 +45,7 @@ from lam_slide_tpu_torch.ops.flash_attention import _heads, _stream, reference_a
 launches = 0
 fp32_launches = 0
 bwd_launches = 0
+bwd_fp32_launches = 0
 
 MAX_DH = 64  # the kernels keep a 16-row block's accumulators in registers
 FWD_MAX_HEADS = 8  # warps (heads) a forward block
@@ -95,7 +99,7 @@ def bwd_heads_per_block(n: int, num_heads: int, dh: int) -> int:
     return hb
 
 
-F32_MAX_WARPS = 8  # warps (items in flight) an fp32 forward block
+F32_MAX_WARPS = 8  # warps (items in flight) an fp32 block, forward or backward
 
 
 def f32_fwd_smem_bytes(n: int, dh: int, warps: int) -> int:
@@ -110,6 +114,23 @@ def f32_fwd_warps(n: int, dh: int) -> int:
     shared memory exceeds SMEM_MAX."""
     warps = F32_MAX_WARPS
     while warps > 1 and f32_fwd_smem_bytes(n, dh, warps) > SMEM_MAX:
+        warps -= 1
+    return warps
+
+
+def f32_bwd_smem_bytes(n: int, dh: int, warps: int) -> int:
+    """Shared memory of an fp32 K9 backward block (csrc/short_attention_f32.cu
+    ``bwd_warp_floats``): each warp holds q, k, v and dO of one item, n rows
+    of dh rounded up to 16, 32 or 64 floats, and three row statistics of n
+    rounded up to 4 floats."""
+    return warps * (4 * n * _padded_dh(dh) + 3 * (-(-n // 4) * 4)) * 4
+
+
+def f32_bwd_warps(n: int, dh: int) -> int:
+    """Warps an fp32 K9 backward block takes: F32_MAX_WARPS, fewer while its
+    shared memory exceeds SMEM_MAX."""
+    warps = F32_MAX_WARPS
+    while warps > 1 and f32_bwd_smem_bytes(n, dh, warps) > SMEM_MAX:
         warps -= 1
     return warps
 
@@ -214,16 +235,13 @@ def short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads
 
     CPU tensors take ``reference_short_attention``. CUDA tensors launch K9
     (bf16 or fp32, one dtype, dh <= 64, unit stride on the last axis) or
-    raise; when they need a gradient (bf16 only), through
-    ``_ShortAttention``, whose backward is K9's backward.
+    raise; when they need a gradient, through ``_ShortAttention``, whose
+    backward is K9's backward in the same dtype.
     """
     scale = float((q.shape[-1] // num_heads) ** -0.5 if scale is None else scale)
     if q.device.type == "cpu":
         return reference_short_attention(q, k, v, num_heads, scale)
     if needs_grad(q, k, v):
-        if q.dtype != torch.bfloat16:
-            raise ValueError(f"short_attention: a {q.dtype} call that needs a gradient has no "
-                             f"backward kernel (bf16 only)")
         return _ShortAttention.apply(q, k, v, num_heads, scale)
     return _forward(q, k, v, num_heads, scale)
 
@@ -235,12 +253,12 @@ def short_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     gradient g, all packed ``[B, n, H*dh]``.
 
     CPU tensors take ``reference_short_backward``. CUDA tensors launch K9's
-    backward kernel (bf16, dh <= 64) or raise; g is cast to q's dtype first,
-    as ``_short_core_bwd`` does.
+    backward kernel (bf16 or fp32, dh <= 64) or raise; g is cast to q's
+    dtype first, as ``_short_core_bwd`` does.
     """
     if q.device.type == "cpu":
         return reference_short_backward(q, k, v, g, num_heads, scale)
-    _check(q, k, v, num_heads, dtypes=(torch.bfloat16,))
+    _check(q, k, v, num_heads)
     g = g.to(q.dtype)
     if g.shape != q.shape or g.device != q.device:
         raise ValueError(f"short_attention_backward: g must be {tuple(q.shape)} on {q.device}, "
@@ -251,11 +269,18 @@ def short_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3))
     strides = (ctypes.c_longlong * 8)(*(s for t in (q, k, v, g) for s in t.stride()[:2]))
     dh = d_all // num_heads
-    global bwd_launches
+    fp32 = q.dtype == torch.float32
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, num_heads, n, dh)
+    global bwd_launches, bwd_fp32_launches
     with torch.cuda.device(q.device):
-        _build.launch("lam_short_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, num_heads, n,
-                      dh, bwd_heads_per_block(n, num_heads, dh), strides, dq.stride(0),
-                      dq.stride(1), float(scale), _stream(q))
+        if fp32:
+            _build.launch("lam_short_attention_bwd_f32", *ptrs, f32_bwd_warps(n, dh), strides,
+                          dq.stride(0), dq.stride(1), float(scale), _stream(q))
+        else:
+            _build.launch("lam_short_attention_bwd", *ptrs,
+                          bwd_heads_per_block(n, num_heads, dh), strides, dq.stride(0),
+                          dq.stride(1), float(scale), _stream(q))
     bwd_launches += 1
+    bwd_fp32_launches += fp32
     return dq, dk, dv

@@ -1320,17 +1320,57 @@ def test_short_attention_fp32_matches_plain(dev, no_tf32, b, n, heads, dh):
 
 
 def test_short_attention_fp32_refusals(dev):
-    """Mixed dtypes raise, and so does an fp32 call that needs a gradient
-    (K9's backward is bf16 only) or an fp32 backward."""
+    """Mixed dtypes raise, forward and backward, and nothing launches."""
     q = torch.zeros(2, 30, 64, device=dev)
+    before = (tsa.launches, tsa.bwd_launches)
     with pytest.raises(ValueError):
         tsa.short_attention(q, q.bfloat16(), q, 4)
     with pytest.raises(ValueError):
         tsa.short_attention(q.bfloat16(), q, q.bfloat16(), 4)
     with pytest.raises(ValueError):
-        tsa.short_attention(q.clone().requires_grad_(), q, q, 4)
-    with pytest.raises(ValueError):
-        tsa.short_attention_backward(q, q, q, q, 4, 0.25)
+        tsa.short_attention_backward(q, q.bfloat16(), q, q, 4, 0.25)
+    assert (tsa.launches, tsa.bwd_launches) == before
+
+
+# K9-fp32's backward against its plain version with TF32 off, per grad
+# relative to its max: exact fp32 on both sides up to the order of the sums
+# (the kernel's delta from unnormalised weights, its P as e / l), over up
+# to 127 terms here. chip_smoke.py holds the main path's shapes to 3x its
+# readings (8.094e-7 at [12288, 30, 256]).
+K9_F32_GRAD_REL_TOL = 1e-5
+
+
+@pytest.mark.parametrize("b,n,heads,dh", [
+    (12288, 30, 16, 16),  # the MD17 fp32 DiT's temporal axis at B = 64
+    (64, 30, 4, 8),       # the MD17 smoke DiT's (hidden 32, 4 x dh 8)
+    (64, 16, 4, 8),       # the 4AA smoke DiT's (T = 16)
+    (7, 30, 16, 16), (5, 9, 4, 24), (3, 127, 2, 64), (4, 33, 11, 16), (6, 32, 3, 32)])
+def test_short_attention_fp32_backward_matches_plain(dev, no_tf32, b, n, heads, dh):
+    """K9-fp32's backward on packed views of one qkv buffer: within
+    K9_F32_GRAD_REL_TOL of the plain backward, two calls bit-identical (no
+    atomics), a strided output gradient read in place; the autograd Function
+    runs the fp32 forward and this backward, one launch each."""
+    g = _gen(95)
+    qkv = torch.randn(b, n, 3 * heads * dh, generator=g).to(dev)
+    q, k, v = qkv.chunk(3, dim=-1)
+    grad = torch.randn(b, n, 2 * heads * dh, generator=g).to(dev)[..., heads * dh:]
+    scale = dh ** -0.5
+    before = (tsa.bwd_launches, tsa.bwd_fp32_launches)
+    got = tsa.short_attention_backward(q, k, v, grad, heads, scale)
+    again = tsa.short_attention_backward(q, k, v, grad, heads, scale)
+    assert _launched(before, (tsa.bwd_launches, tsa.bwd_fp32_launches)) == (2, 2)
+    want = tsa.reference_short_backward(q, k, v, grad, heads, scale)
+    torch.cuda.synchronize()
+    for a, w, b_ in zip(got, want, again):
+        assert a.dtype == torch.float32 and a.shape == q.shape and a.is_contiguous()
+        assert torch.equal(a, b_)
+        assert _rel_err(a, w) <= K9_F32_GRAD_REL_TOL
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    before = (tsa.fp32_launches, tsa.bwd_fp32_launches)
+    tsa.short_attention(*leaves, heads).backward(grad)
+    assert _launched(before, (tsa.fp32_launches, tsa.bwd_fp32_launches)) == (1, 1)
+    for leaf, want_grad in zip(leaves, got):
+        assert torch.equal(leaf.grad, want_grad)
 
 
 # ---- K8's fp32 kernel (the 4AA eval's fp32 DiT) ----------------------------
@@ -1381,9 +1421,8 @@ def test_spatial_block_fp32_matches_plain(dev, no_tf32, n, l, d, m, heads):
 
 
 def test_spatial_block_fp32_refusals(dev):
-    """Mixed dtypes raise; so do an fp32 call that needs a gradient (the fp32
-    backward is not ported), a width without an fp32 plan and a misaligned
-    x; nothing launches."""
+    """Mixed dtypes raise; so do a width without an fp32 plan and a
+    misaligned x; nothing launches."""
     args = _spatial_inputs_f32(_gen(84), dev, 64, 2, 128, 256, 4)
     before = (fsb.launches, fsb.f32_launches)
     for i in (0, 1, 2, 5, 6):
@@ -1391,10 +1430,6 @@ def test_spatial_block_fp32_refusals(dev):
         mixed[i] = mixed[i].bfloat16()
         with pytest.raises(ValueError):
             fsb.fused_spatial_block(*mixed)
-    grad = list(args)
-    grad[0] = grad[0].clone().requires_grad_()
-    with pytest.raises(ValueError, match="forward only"):
-        fsb.fused_spatial_block(*grad)
     wide = _spatial_inputs_f32(_gen(85), dev, 4, 2, 512, 1024, 8)
     with pytest.raises(ValueError, match="shared memory"):
         fsb.fused_spatial_block(*wide)
@@ -1403,6 +1438,40 @@ def test_spatial_block_fp32_refusals(dev):
     with pytest.raises(ValueError):
         fsb.fused_spatial_block(x, *args[1:])
     assert (fsb.launches, fsb.f32_launches) == before
+
+
+@pytest.mark.parametrize("n,l,d,m,heads", [
+    (2000, 2, 384, 768, 16),  # the 4AA fp32 DiT's spatial axis at B=1, 16 x 24
+    (2000, 2, 384, 768, 3),   # 3 x 128
+    (1920, 8, 32, 64, 4),     # the MD17 smoke DiT (8 latents, 4 x dh 8)
+    (64, 2, 32, 64, 4),       # the 4AA smoke DiT (L = 2)
+])
+def test_spatial_block_fp32_grads_match_plain(dev, no_tf32, n, l, d, m, heads):
+    """K8-fp32 under autograd: ``_SpatialBlock`` launches the fp32 kernel
+    once, its output within F32_REL_TOL["K8"] of the plain version, and its
+    backward (autograd of the plain version on the saved inputs, JAX's
+    ``_fused_bwd``) gives every input the plain path's grad."""
+    args = _spatial_inputs_f32(_gen(96), dev, n, l, d, m, heads)
+    grad = torch.randn(n, l, d, generator=_gen(97)).to(dev)
+    grads = {}
+    for kernel in (True, False):
+        leaves = [t.detach().clone().requires_grad_() if i in (0, 1, 2, 3, 4, 5, 6) else t
+                  for i, t in enumerate(args)]
+        before = (fsb.launches, fsb.f32_launches)
+        fn = fsb.fused_spatial_block if kernel else fsb.reference_spatial_block
+        out = fn(*leaves)
+        assert _launched(before, (fsb.launches, fsb.f32_launches)) == ((1, 1) if kernel
+                                                                       else (0, 0))
+        out.backward(grad)
+        grads[kernel] = [t.grad for t in leaves[:7]]
+        if kernel:
+            got_out = out.detach()
+        else:
+            assert _rel_err(got_out, out.detach()) <= F32_REL_TOL["K8"]
+    torch.cuda.synchronize()
+    for got, want in zip(grads[True], grads[False]):
+        assert got is not None and torch.isfinite(got).all()
+        assert _rel_err(got, want) <= F32_REL_TOL["K8"]
 
 
 @pytest.mark.parametrize("heads", [16, 3])
@@ -1586,25 +1655,157 @@ def test_normrope_bf16_at_md17_2x128_shapes(dev, b, n):
     _assert_grads_close(got, want, K6_REL_TOL)
 
 
-def test_fp32_grads_at_wide_heads_raise_before_any_launch(dev):
-    """fp32 at dh > 64 has forward kernels only: with a gradient K1 (and its
-    packed entry) and K5 raise before their forwards launch, and K4-fp32
-    refuses dh 128; at dh 64 an fp32 K1 call with a gradient still goes
-    through K4's fp32 pair."""
-    q = torch.zeros(1, 2, 64, 128, device=dev, requires_grad=True)
-    qs, cos, sin = torch.ones(128, device=dev), *rope_cos_sin(64, 128, device=dev)
-    before = (*_fp32_counts(), *_normrope_counts(), fa.bwd_fp32_launches)
+# K4-fp32's register-tiled pair at 64 < dh <= 128 against its plain version
+# with TF32 off, per grad relative to its max: exact fp32 on both sides up to
+# the order of the sums (dK and dV over up to 1000 queries); chip_smoke.py
+# read 0 at its shapes (one FMA chain a product, in cuBLAS's order) and
+# allows 1e-6 there.
+K4_F32_WIDE_REL_TOL = 1e-5
+
+
+def _fp32_bwd_counts():
+    return (fa.bwd_kv_launches, fa.bwd_q_launches, fa.bwd_fp32_launches,
+            fa.bwd_fp32_wide_launches, fa.bwd_bias_launches, fa.bwd_sm90_launches)
+
+
+@pytest.mark.parametrize("b,h,nq,nk,dh,masked", [
+    (16, 3, 1000, 1000, 128, False),  # the 4AA fp32 DiT's temporal axis at 3 x 128, B = 16
+    (1920, 2, 192, 192, 128, False),  # the MD17 fp32 DiT at 2 x 128: spatial
+    (12288, 2, 30, 30, 128, False),   # and temporal: two sequences a block
+    (3, 2, 130, 257, 96, False),      # ragged query and key tiles
+    (2, 2, 77, 45, 70, False),        # dh % 4 != 0: 4-byte copies
+    (3, 1, 31, 17, 128, False),       # ragged short axes, an odd count of sequences
+    (3, 2, 130, 257, 128, True),      # the key-padding bias, an all-masked row
+    (5, 2, 20, 29, 128, True),        # the bias with two sequences a block
+])
+def test_flash_fp32_wide_backward_matches_plain(dev, no_tf32, b, h, nq, nk, dh, masked):
+    """K4's register-tiled fp32 pair on head-major strided views, from
+    K1-fp32's out and lse: grads in packed memory within K4_F32_WIDE_REL_TOL
+    of the plain backward, two calls bit-identical (no atomics), counted
+    under K4 and its fp32 and fp32-wide counters (two kernels a call); the
+    autograd Function runs the same pair."""
+    g = _gen(98)
+    qbuf = torch.randn(b, nq, h * dh, generator=g).to(dev)
+    kvbuf = torch.randn(b, nk, 2 * h * dh, generator=g).to(dev)
+    q = qbuf.view(b, nq, h, dh).transpose(1, 2)
+    k, v = (t.transpose(1, 2) for t in kvbuf.view(b, nk, 2, h, dh).unbind(2))
+    grad = torch.randn(b, h, nq, dh, generator=g).to(dev)
+    mask = _key_mask(g, dev, b, nk) if masked else None
+    scale = dh ** -0.5
+    out, lse = fa._forward(q, k, v, scale, with_lse=True, mask=mask)
+    before = _fp32_bwd_counts()
+    got = fa.flash_attention_backward(q, k, v, out, lse, grad, scale, mask=mask)
+    again = fa.flash_attention_backward(q, k, v, out, lse, grad, scale, mask=mask)
+    assert _launched(before, _fp32_bwd_counts()) == (2, 2, 4, 4, 4 * masked, 0)
+    want = fa.reference_flash_backward(q, k, v, out, lse, grad, scale,
+                                       None if mask is None else fa.mask_to_bias(mask))
+    torch.cuda.synchronize()
+    for a, w, b_ in zip(got, want, again):
+        assert a.dtype == torch.float32 and a.transpose(1, 2).is_contiguous()
+        assert torch.equal(a, b_)
+        assert _rel_err(a, w) <= K4_F32_WIDE_REL_TOL
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, mask=mask).backward(grad)
+    for leaf, want_grad in zip(leaves, got):
+        assert _rel_err(leaf.grad, want_grad) <= K4_F32_WIDE_REL_TOL
+
+
+def test_fp32_grads_past_dh_128_raise_before_any_launch(dev):
+    """K4-fp32 takes dh <= 128, as every forward kernel does: a wider fp32
+    call raises, with a gradient or in the backward, and nothing launches."""
+    q = torch.zeros(1, 2, 64, 136, device=dev, requires_grad=True)
+    before = (*_fp32_counts(), *_fp32_bwd_counts())
     with pytest.raises(ValueError, match="backward"):
         fa.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="backward"):
-        fa.flash_attention_packed(*(q.transpose(1, 2).flatten(2) for _ in range(3)), 2)
-    with pytest.raises(ValueError, match="forward only"):
-        fnr.flash_attention_normrope(q, q, q, qs, qs, cos, sin)
     d = q.detach()
     with pytest.raises(ValueError, match="backward"):
         fa.flash_attention_backward(d, d, d, d, torch.zeros(1, 2, 64, device=dev), d, 0.1)
+    assert (*_fp32_counts(), *_fp32_bwd_counts()) == before
+
+
+# K6 in fp32 (the fp32 transform's q_t/k_t, K4's register-tiled pair, the
+# plain chain VJP) against autograd of the plain version with TF32 off, per
+# grad relative to its max; the chain's rsqrt and rotation carry the
+# attention grads' few ulps.
+K6_F32_REL_TOL = 2e-5
+
+
+@pytest.mark.parametrize("b,heads,nq,nk,dh", [
+    (16, 3, 1000, 1000, 128),  # the 4AA fp32 DiT's temporal axis at 3 x 128
+    (64, 2, 192, 192, 128),    # the MD17 fp32 DiT's spatial axis at 2 x 128
+    (256, 2, 30, 30, 128),     # and temporal
+    (3, 2, 130, 257, 96),      # ragged
+])
+def test_flash_normrope_fp32_grads_match_plain(dev, no_tf32, b, heads, nq, nk, dh):
+    """K5-fp32 under autograd: ``_FlashNormRope`` runs K5-fp32 (the fp32
+    transform once, K1-fp32) and K6-fp32 (K4's register-tiled pair, two
+    kernels, on the kept q_t/k_t; no transform again), and every grad (q, k,
+    v, both scales) is within K6_F32_REL_TOL of autograd of the plain
+    version; ``flash_attention_normrope_backward`` gives the same attention
+    grads."""
+    args = _transform_views(_gen(99), dev, b, heads, nq, nk, dh, torch.float32)
+    grad = torch.randn(b, heads, nq, dh, generator=_gen(100)).to(dev)
+    grads = {}
+    for kernel in (True, False):
+        leaves = [t.detach().clone().requires_grad_() if i < 5 else t
+                  for i, t in enumerate(args)]
+        counts = (fnr.launches, fnr.transform_launches, fnr.bwd_launches,
+                  fnr.bwd_fp32_launches, fnr.bwd_fp32_wide_launches, fnr.bwd_sm90_launches)
+        k4 = _fp32_bwd_counts()
+        fn = fnr.flash_attention_normrope if kernel else fnr.reference_attention_normrope
+        fn(*leaves).backward(grad)
+        moved = _launched(counts, (fnr.launches, fnr.transform_launches, fnr.bwd_launches,
+                                   fnr.bwd_fp32_launches, fnr.bwd_fp32_wide_launches,
+                                   fnr.bwd_sm90_launches))
+        assert moved == ((1, 1, 1, 2, 2, 0) if kernel else (0,) * 6)
+        assert _fp32_bwd_counts() == k4
+        grads[kernel] = [t.grad for t in leaves[:5]]
     torch.cuda.synchronize()
-    assert (*_fp32_counts(), *_normrope_counts(), fa.bwd_fp32_launches) == before
-    q64 = torch.randn(1, 2, 64, 64, device=dev, requires_grad=True)
-    fa.flash_attention(q64, q64, q64).sum().backward()
-    assert fa.bwd_fp32_launches == before[-1] + 2 and torch.isfinite(q64.grad).all()
+    for got, want in zip(grads[True], grads[False]):
+        assert got is not None and torch.isfinite(got).all()
+        assert _rel_err(got, want) <= K6_F32_REL_TOL
+
+
+# The fp32 DiT's grads through the kernels against the plain path's (TF32
+# off), per parameter relative to its norm: every fp32 kernel's sums in
+# another order through two layers, carried by the backward.
+F32_DIT_GRAD_REL_TOL = 1e-4
+
+
+@pytest.mark.parametrize("hidden,heads,t,l,checkpointing", [
+    (384, 16, 1000, 2, False),  # 4AA: K8-fp32, K3-fp32 + K4-fp32 at dh 24
+    (384, 3, 1000, 2, True),    # 4AA 3 x 128: K8-fp32, K5-fp32 + K6-fp32; recompute
+    (256, 16, 30, 192, True),   # MD17: K3-fp32 + K4-fp32 at dh 16, K9-fp32 both ways
+    (256, 2, 30, 192, False),   # MD17 2 x 128: K5-fp32 + K6-fp32 on both axes
+])
+def test_fp32_dit_grads_match_plain_path(dev, no_tf32, hidden, heads, t, l, checkpointing):
+    """An fp32 DiT of depth 2 at a registry's width under autograd: every
+    parameter gets a finite, non-zero grad through the fp32 kernels and no
+    bf16 kernel launches, within F32_DIT_GRAD_REL_TOL of the plain path's."""
+    model = LatentDiT(depth=2, in_dim=16, hidden_size=hidden, num_heads=heads, mlp_ratio=2.0,
+                      reference_init=False, dtype=torch.float32, device=dev,
+                      checkpointing=checkpointing, generator=_gen(101))
+    g = _gen(102)
+    b = 2
+    x = torch.randn(b, t, l, 16, generator=g).to(dev)
+    mask = torch.zeros(b, t, l, dtype=torch.long, device=dev)
+    mask[:, :1] = 1
+    x_cond = x * mask[..., None]
+    tvec = torch.tensor([0.3, 0.7], device=dev)
+    bf16 = lambda: (fa.sm90_launches, fa.bwd_sm90_launches, fnr.sm90_launches,
+                    fnr.bwd_sm90_launches, fm.launches - fm.fp32_launches,
+                    fad.launches - fad.fp32_launches, fsb.launches - fsb.f32_launches,
+                    tsa.launches - tsa.fp32_launches, tsa.bwd_launches - tsa.bwd_fp32_launches)
+    grads = {}
+    for backend in ("auto", "plain"):
+        model.backend = backend
+        model.zero_grad(set_to_none=True)
+        before = bf16()
+        model(x, tvec, x_cond, mask).square().mean().backward()
+        assert bf16() == before
+        grads[backend] = {n: p.grad for n, p in model.named_parameters()}
+    for name, got in grads["auto"].items():
+        want = grads["plain"][name]
+        assert got is not None and bool(torch.isfinite(got).all()), name
+        assert got.abs().max().item() > 0, name
+        assert (got - want).norm().item() <= F32_DIT_GRAD_REL_TOL * want.norm().item(), name

@@ -7,9 +7,9 @@
   and inputs that need a gradient go through a ``torch.autograd.Function``
   (the kernels write through raw pointers, which autograd cannot see).
 * A masked or fp32 flash call (K1) that needs a gradient reaches the
-  autograd Function whose backward is K4 with the bias and fp32 operands;
-  fp32 operands wider than K4-fp32 takes (dh > 64), and an fp32 K5 call,
-  take the forward kernels without a gradient and raise with one, before
+  autograd Function whose backward is K4 with the bias and fp32 operands,
+  and so do fp32 calls at dh 128 (K1, K3, K5), of K8 and of K9; fp32
+  operands wider than K4-fp32 takes (dh > 128) raise with a gradient before
   anything launches.
 * K10 (fused temporal attention) and K11 (the short grouped backward) are
   wrappers like the others.
@@ -87,7 +87,8 @@ WRAPPER_MODULES = [fa, fnr, fad, fm, fsb, tsa, tft, tsb]
 COUNTERS = ("launches", "bias_launches", "fp32_launches", "bwd_kv_launches", "bwd_q_launches",
             "bwd_bias_launches", "bwd_fp32_launches", "bwd_launches", "transform_launches",
             "sm90_launches", "sm90_cp_async_launches", "bwd_sm90_launches",
-            "bwd_sm90_cp_async_launches")
+            "bwd_sm90_cp_async_launches", "fp32_wide_launches", "bwd_fp32_wide_launches",
+            "f32_launches")
 
 
 def _zero_counters(monkeypatch):
@@ -122,20 +123,23 @@ def _fp32_attn_inputs(device):
     return [t.float() for t in _attn_inputs(device)]
 
 
-def _fp32_wide_attn_inputs(device):
-    return [torch.zeros(1, 2, 130, 128, device=device) for _ in range(3)]
+def _fp32_wide_attn_inputs(device, dh=128):
+    return [torch.zeros(1, 2, 130, dh, device=device) for _ in range(3)]
 
 
-def _fp32_normrope_inputs(device):
-    q, k, v = _fp32_wide_attn_inputs(device)
-    cos, sin = rope_cos_sin(130, 128, device=device)
-    return q, k, v, torch.ones(128, device=device), torch.ones(128, device=device), cos, sin
+def _fp32_normrope_inputs(device, dh=128):
+    q, k, v = _fp32_wide_attn_inputs(device, dh)
+    cos, sin = rope_cos_sin(130, dh, device=device)
+    return q, k, v, torch.ones(dh, device=device), torch.ones(dh, device=device), cos, sin
 
 
-def _fp32_wide_backward_inputs(device):
-    q, k, v = _fp32_wide_attn_inputs(device)
+def _fp32_wide_backward_inputs(device, dh=128):
+    q, k, v = _fp32_wide_attn_inputs(device, dh)
     return q, k, v, torch.zeros_like(q), torch.zeros(1, 2, 130, device=device), \
         torch.zeros_like(q), 0.2
+
+
+TOO_WIDE = 136  # past every kernel's dh <= 128
 
 
 def _short_inputs(device):
@@ -239,17 +243,34 @@ BACKWARD_WRAPPERS = [
     ("K11 fp32", tsb.flash_backward_short, tsb, "reference_flash_backward_short",
      _fp32_backward_inputs),
 ]
-# fp32 at dh 128: forward kernels without a gradient; with one, they raise
-# (test_fp32_calls_that_need_a_grad_raise_before_any_launch)
-FP32_FORWARD_ONLY = [
+# fp32 at dh 128 (K4's register-tiled pair, K6 in fp32) and the fp32 K8 and
+# K9: with a gradient, through their autograd Functions
+# (test_fp32_calls_that_need_a_grad_reach_an_autograd_function)
+FP32_WITH_GRAD = [
     ("K1 fp32 dh128", fa.flash_attention, fa, "reference_attention", _fp32_wide_attn_inputs),
     ("K3 fp32 dh128",
      lambda *a: fa.flash_attention_packed(*(t.transpose(1, 2).flatten(2) for t in a), 2),
      fa, "reference_attention_packed", _fp32_wide_attn_inputs),
     ("K5 fp32", fnr.flash_attention_normrope, fnr, "reference_attention_normrope",
      _fp32_normrope_inputs),
+    ("K8 fp32", fsb.fused_spatial_block, fsb, "reference_spatial_block",
+     lambda device: [t.float() if isinstance(t, torch.Tensor) else t
+                     for t in _spatial_inputs(device)]),
+    ("K9 fp32", lambda q, k, v: tsa.short_attention(q, k, v, 2), tsa,
+     "reference_short_attention", lambda device: [t.float() for t in _short_inputs(device)]),
 ]
-ALL_WRAPPERS = WRAPPERS + BACKWARD_WRAPPERS + FP32_FORWARD_ONLY + [
+# fp32 wider than every kernel takes: with a gradient they raise
+# (test_fp32_calls_that_need_a_grad_raise_before_any_launch)
+FP32_TOO_WIDE = [
+    ("K1 fp32 dh136", fa.flash_attention, fa, "reference_attention",
+     lambda device: _fp32_wide_attn_inputs(device, TOO_WIDE)),
+    ("K3 fp32 dh136",
+     lambda *a: fa.flash_attention_packed(*(t.transpose(1, 2).flatten(2) for t in a), 2),
+     fa, "reference_attention_packed", lambda device: _fp32_wide_attn_inputs(device, TOO_WIDE)),
+    ("K5 fp32 dh136", fnr.flash_attention_normrope, fnr, "reference_attention_normrope",
+     lambda device: _fp32_normrope_inputs(device, TOO_WIDE)),
+]
+ALL_WRAPPERS = WRAPPERS + BACKWARD_WRAPPERS + FP32_WITH_GRAD + [
     ("K5 transform fp32",
      lambda q, k, v, qs, ks, cos, sin: fnr.qk_normrope(q, k, qs, ks, cos, sin),
      fnr, "pre_transform", _fp32_normrope_inputs),
@@ -321,25 +342,49 @@ def test_non_cpu_tensors_that_need_a_grad_reach_an_autograd_function(
         assert not reached
 
 
-@pytest.mark.parametrize("name,wrapper,module,plain,inputs", FP32_FORWARD_ONLY,
-                         ids=[w[0] for w in FP32_FORWARD_ONLY])
+@pytest.mark.parametrize("name,wrapper,module,plain,inputs", FP32_WITH_GRAD,
+                         ids=[w[0] for w in FP32_WITH_GRAD])
+def test_fp32_calls_that_need_a_grad_reach_an_autograd_function(monkeypatch, name, wrapper,
+                                                                module, plain, inputs):
+    """fp32 training on the card: K4's fp32 pair takes dh up to 128 (its
+    register-tiled pair above 64), K6 runs on it in fp32, K8-fp32 runs under
+    ``_SpatialBlock`` and K9 has an fp32 backward. A non-CPU fp32 call that
+    needs a gradient reaches its module's autograd Function, launching
+    nothing before it."""
+    _zero_counters(monkeypatch)
+    reached = []
+
+    def apply(cls, *args, **kwargs):
+        reached.append(cls)
+        raise _ReachedFunction
+
+    monkeypatch.setattr(torch.autograd.Function, "apply", classmethod(apply))
+    args = [t.requires_grad_() if isinstance(t, torch.Tensor) and t.is_floating_point() else t
+            for t in inputs("meta")]
+    with pytest.raises(_ReachedFunction):
+        wrapper(*args)
+    (cls,) = reached
+    assert cls.__module__ == module.__name__ and not any(_counts())
+
+
+@pytest.mark.parametrize("name,wrapper,module,plain,inputs", FP32_TOO_WIDE,
+                         ids=[w[0] for w in FP32_TOO_WIDE])
 def test_fp32_calls_that_need_a_grad_raise_before_any_launch(monkeypatch, name, wrapper, module,
                                                              plain, inputs):
-    """fp32 at dh 128 has forward kernels only: K4's fp32 pair stops at dh 64
-    and K6 has no fp32 kernel. A non-CPU fp32 call that needs a gradient
-    raises, naming the missing backward, before its forward launches and
-    without reaching an autograd Function (whose backward would fail late);
-    so does K4-fp32 itself at dh 128."""
+    """fp32 above dh 128 has no kernel, forward or backward (K4-fp32 stops
+    at dh 128). A non-CPU fp32 call that needs a gradient raises, naming the
+    missing backward, before its forward launches and without reaching an
+    autograd Function; so does K4-fp32 itself at that width."""
     _zero_counters(monkeypatch)
     reached = []
     monkeypatch.setattr(torch.autograd.Function, "apply",
                         classmethod(lambda cls, *a, **k: reached.append(cls)))
     args = [t.requires_grad_() if isinstance(t, torch.Tensor) and t.is_floating_point() else t
             for t in inputs("meta")]
-    with pytest.raises(ValueError, match="backward|forward only"):
+    with pytest.raises(ValueError, match="backward"):
         wrapper(*args)
     with pytest.raises(ValueError, match="backward"):
-        fa.flash_attention_backward(*_fp32_wide_backward_inputs("meta"))
+        fa.flash_attention_backward(*_fp32_wide_backward_inputs("meta", TOO_WIDE))
     assert not reached and not any(_counts())
 
 
