@@ -136,10 +136,14 @@ printed on its own line with its seconds:
 
 Phase 3 also holds the fp32 backward kernels of fp32 training to their
 plain versions with TF32 off: K9-fp32's backward (csrc/short_attention_f32.cu)
-at [12288, 30, 256] and the smoke DiTs' 4 x dh 8, K4-fp32's register-tiled
-pair at dh 128 (csrc/flash_attention_bwd.cu) at [16,3,1000,128],
-[1920,2,192,128], [12288,2,30,128] and a ragged dh-96 shape, K6-fp32 at
-[16,3,1000,128] (and the whole K5-fp32 + K6-fp32 autograd chain), and
+at [12288, 30, 256] and the smoke DiTs' 4 x dh 8; K4-fp32's narrow kernel
+(csrc/flash_attention_bwd.cu, dh <= 64) at the 4AA fp32 step's
+[32,16,1000,24] and a ragged dh-20 shape (and, with the MD17 rows below, at
+[1920,16,192,16], [1920,2,192,16], [256,8,192->32,16] with the bias and a
+ragged dh-24 shape with an all-masked row) and its wide kernel at dh 128
+at [16,3,1000,128], [1920,2,192,128], [12288,2,30,128] and a ragged dh-96
+shape, a second call bit-identical at each; K6-fp32 at [16,3,1000,128]
+(and the whole K5-fp32 + K6-fp32 autograd chain), and
 K8-fp32's grads through its autograd Function at [16000, 2, 384], each
 timed beside its plain version, its bound and SDPA's fp32 forward +
 backward less forward.
@@ -490,12 +494,10 @@ PEP_WIDE_WINDOW_REL_TOL = 4.1e-6
 # the kernel's forward, then the plain VJP). First readings on an H100 (the
 # rows' seeds): K9-fp32's backward 8.094e-7, K6-fp32 7.374e-7 (the autograd
 # chain's worst grad), K8-fp32's output 3.733e-7 (its grads bit-identical);
-# K4-fp32's register-tiled pair read 0 at every shape: it forms each
-# product as one FMA chain in the order cuBLAS's SGEMM does (TF32 off), so
-# its limit allows ~8 fp32 ulps of the largest grad instead of 3x that.
-# The others are 3x their reading.
+# K4-fp32's kernels sum dQ over the key tiles' shares, in another order than
+# cuBLAS's one FMA chain a product, so both are held to K4_F32_REL_TOL. The
+# others are 3x their reading.
 K9_F32_GRAD_REL_TOL = 2.5e-6
-K4_F32_WIDE_REL_TOL = 1e-6
 K6_F32_REL_TOL = 2.3e-6
 K8_F32_GRAD_REL_TOL = 1.2e-6
 # Phase 16's full-width fp32 stage-2 steps at B = 2, the kernel path's grads
@@ -547,7 +549,7 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def with_sm90(want: dict) -> dict:
+def with_sm90(want: dict, k4_fp32_calls: int = 0) -> dict:
     """``want`` with the launches of the redesigned kernels that follow from
     its K1, K4, K5 and K6 counts: every bf16 K1 call without a mask is one
     launch of flash_fwd_sm90.cu and every bf16 K4 call without a mask three
@@ -556,11 +558,11 @@ def with_sm90(want: dict) -> dict:
     autograd, on the forward's q_t/k_t: no transform) three kernels of
     flash_bwd_sm90.cu; all on the TMA route at the main paths' shapes. On
     the main paths every masked call is fp32 (K1 bias within K1 fp32; the
-    old pair counts two kernels a call)."""
+    fp32 K4 calls, ``k4_fp32_calls`` of them, count their own kernels)."""
     check(want["K1 bias"] <= want["K1 fp32"] and want["K4 bias"] <= want["K4 fp32"],
           f"a bf16 masked call among the expected launches {want}")
     return dict(want, **{"K1 sm90": want["K1"] - want["K1 fp32"],
-                         "K4 sm90": 3 * (want["K4 kv"] - want["K4 fp32"] // 2),
+                         "K4 sm90": 3 * (want["K4 kv"] - k4_fp32_calls),
                          "K5 transform": want["K5"], "K5 sm90": want["K5"],
                          "K6 sm90": 3 * want["K6"], "K1 cp.async": 0, "K4 cp.async": 0,
                          "K5 cp.async": 0, "K6 cp.async": 0})
@@ -2038,7 +2040,8 @@ def f32_train_kernel_checks(dev, table: KernelTable) -> None:
     """The fp32 backward kernels that fp32 training runs, against their plain
     versions with TF32 off, on inputs from a card generator: K9-fp32's
     backward at MD17's [12288, 30, 256] (16 x dh 16) and the smoke DiTs'
-    4 x dh 8 over n 30 and 16; the register-tiled K4-fp32 pair at dh 128 at
+    4 x dh 8 over n 30 and 16; K4-fp32's narrow kernel at the 4AA fp32
+    step's [32, 16, 1000, 24] and ragged at dh 20; its wide kernel at dh 128 at
     the 4AA fp32 DiT's [16, 3, 1000, 128] and MD17's [1920, 2, 192, 128] and
     [12288, 2, 30, 128] (two sequences a block), and ragged at dh 96; K6 in
     fp32 at [16, 3, 1000, 128], the kernel backward and the whole autograd
@@ -2098,8 +2101,13 @@ def f32_train_kernel_checks(dev, table: KernelTable) -> None:
         del qkv, q, k, v, g, got, again, want, heads_view
     torch.cuda.empty_cache()
 
-    # K4-fp32 at 64 < dh <= 128 (the register-tiled pair) and K6-fp32 on it
+    # K4-fp32 at dh <= 64 (the narrow kernel) at the 4AA fp32 step's temporal
+    # axis and ragged at dh 20 (4-byte copies, dh padded to 24); at
+    # 64 < dh <= 128 (the wide kernel and its dQ shares' sum) and K6-fp32 on it
     for key, kind, b, h, nq, nk, dh, timed in (
+            ("K4 fp32 [32,16,1000,24]", "K4", TRAIN_BATCH * L, HEADS, T, T, HIDDEN // HEADS,
+             True),
+            ("K4 fp32 dh20 ragged [3,2,130->257,20]", "K4", 3, 2, 130, 257, 20, False),
             ("K4 fp32 dh128", "K4", 1920, 2, 192, 192, 128, True),
             ("K4 fp32 dh128 [12288,2,30,128]", "K4", 12288, 2, 30, 30, 128, True),
             ("K4 fp32 dh128 [16,3,1000,128]", "K4", 16, 3, 1000, 1000, 128, True),
@@ -2124,7 +2132,8 @@ def f32_train_kernel_checks(dev, table: KernelTable) -> None:
                 return (fa.bwd_kv_launches, fa.bwd_fp32_launches, fa.bwd_fp32_wide_launches,
                         fa.bwd_sm90_launches)
 
-            want_launched = (1, 2, 2, 0)
+            kernels = k4_f32_kernels(dh, nq, nk)
+            want_launched = (1, kernels, kernels if dh > 64 else 0, 0)
             library = lambda: library_times(q, k, v, scale, grad=g)
         else:
             tr = (x["qs"], x["ks"], x["cos"], x["sin"])
@@ -2141,7 +2150,8 @@ def f32_train_kernel_checks(dev, table: KernelTable) -> None:
                 return (fnr.bwd_launches, fnr.bwd_fp32_launches, fnr.bwd_fp32_wide_launches,
                         fnr.bwd_sm90_launches, fa.bwd_kv_launches)
 
-            want_launched = (1, 2, 2, 0, 0)
+            kernels = k4_f32_kernels(dh, nq, nk)
+            want_launched = (1, kernels, kernels, 0, 0)
             library = lambda: library_times(q, k, v, scale, grad=g,
                                             pre=lambda q_, k_: fnr.pre_transform(q_, k_, *tr))
         before = counts()
@@ -2151,7 +2161,7 @@ def f32_train_kernel_checks(dev, table: KernelTable) -> None:
         want = plain()
         check(launched == want_launched, f"{key}: launches {launched} != {want_launched}")
         check(_bit_identical(got, again), f"{key}: a second call differs")
-        tol = K4_F32_WIDE_REL_TOL if kind == "K4" else K6_F32_REL_TOL
+        tol = K6_F32_REL_TOL if kind == "K6" else K4_F32_REL_TOL
         errs = _grad_errors(got, want)
         worst = max(e[1] for e in errs)
         names = ("dq", "dk", "dv") if kind == "K4" else ("dq_t", "dk_t", "dv")
@@ -2181,10 +2191,10 @@ def f32_train_kernel_checks(dev, table: KernelTable) -> None:
             del x, q, k, v, g, out, lse, args
             torch.cuda.empty_cache()
             continue
-        plan = fa.f32_wide_plan(nq, nk)
+        plan = fa.f32_wide_plan(nq, nk) if dh > 64 else fa.f32_narrow_plan(dh, nq, nk, b * h)
         nbytes = 4 * (4 * b * h * nq * dh + 4 * b * h * nk * dh + b * h * nq)
-        what = ("register-tiled pair" if kind == "K4" else
-                "the fp32 transform, then the register-tiled K4-fp32 pair on q_t/k_t")
+        what = ("narrow kernel" if dh <= 64 else "wide kernel" if kind == "K4" else
+                "the fp32 transform, then K4-fp32's wide kernel on q_t/k_t")
         lib_text = ("SDPA fwd+bwd - fwd on the fp32 head-major views" if kind == "K4" else
                     "none (composition: plain pre_transform + SDPA fwd+bwd - fwd)")
         table.add(key, f"fp32 q/k/v/dO {shape} strided views, {what} (plan {plan}): {detail}, "
@@ -2252,6 +2262,7 @@ def md17_train_kernel_checks(dev, gen, table: KernelTable) -> None:
              ("K4 bias bf16", MD17_S1_BATCH, 8, 192, MD17_ATOMS, dh, bf),
              ("K4 fp32 stage 1", MD17_S1_BATCH, 2, 192, 192, dh, f32),
              ("K4 fp32", MD17_BATCH * MD17_T, 2, 192, 192, dh, f32),
+             ("K4 fp32 [1920,16,192,16]", MD17_BATCH * MD17_T, MD17_HEADS, 192, 192, dh, f32),
              ("K4 bias fp32 ragged", 3, 3, 130, 257, 24, f32),
              ("K4 bias bf16 ragged", 3, 3, 130, 257, 24, bf))
     for key, b, h, nq, nk, hd, dtype in cases:
@@ -2271,6 +2282,9 @@ def md17_train_kernel_checks(dev, gen, table: KernelTable) -> None:
         want = fa.reference_flash_backward(*args, bias)
         torch.cuda.synchronize()
         fp32 = dtype == f32
+        if fp32:
+            check(_bit_identical(got, fa.flash_attention_backward(*args, mask=mask)),
+                  f"{key}: a second call differs")
         lse_err = (lse - want_lse).abs().max().item()
         lse_atol = LSE_F32_ATOL if fp32 else LSE_ATOL["K1"][24]
         rel_tol = K4_F32_REL_TOL if fp32 else K4_REL_TOL
@@ -2278,12 +2292,13 @@ def md17_train_kernel_checks(dev, gen, table: KernelTable) -> None:
         detail = ", ".join(f"{n} rel {r:.3e} gain {gn:.7f}"
                            for n, (_, r, gn) in zip(("dq", "dk", "dv"), errs))
         print(f"kernel {key} [{b},{h},{nq},{nk},{hd}] {str(dtype)[6:]}: {detail} (rel tol "
-              f"{rel_tol}); K1 lse max_abs_err {lse_err:.3e} (atol {lse_atol})")
+              f"{rel_tol}); K1 lse max_abs_err {lse_err:.3e} (atol {lse_atol})"
+              f"{'; a second call bit-identical' if fp32 else ''}")
         check(lse_err <= lse_atol, f"K1 lse err {lse_err} > {lse_atol} at {key}")
         for name, (_, rel, gn) in zip(("dq", "dk", "dv"), errs):
             check(rel <= rel_tol, f"{key} {name} rel err {rel} > {rel_tol}")
             check(abs(gn - 1) <= K1_GAIN_TOL, f"{key} {name} gain {gn} off 1 by > {K1_GAIN_TOL}")
-        if key in ("K4 bias", "K4 fp32"):
+        if key in ("K4 bias", "K4 fp32", "K4 fp32 [1920,16,192,16]"):
             # five products (2.5x the forward's FLOPs) at fp32's rate; q, out,
             # dO, dq and k, v, dk, dv once in fp32, lse and the bias row once
             nbytes = 4 * (4 * b * h * nq * hd + 4 * b * h * nk * hd + b * h * nq
@@ -3330,9 +3345,10 @@ def md17_train_phase(dev, smi, reset_counts, read_counts):
           f"MD17 stage-1 batch {tuple(batch1['pos'].shape)}")
     counts = read_counts()
     want1 = {key: 0 for key in counts}
-    want1.update({"K1": 3, "K1 bias": 1, "K1 fp32": 3, "K4 kv": 3, "K4 q": 3, "K4 bias": 2,
-                  "K4 fp32": 6})
-    want1 = with_sm90(want1)
+    cross = k4_f32_kernels(16, 192, MD17_ATOMS)  # the encoder's, with the bias
+    want1.update({"K1": 3, "K1 bias": 1, "K1 fp32": 3, "K4 kv": 3, "K4 q": 3, "K4 bias": cross,
+                  "K4 fp32": cross + 2 * k4_f32_kernels(16, 192, 192)})
+    want1 = with_sm90(want1, k4_fp32_calls=3)
     counts1, _ = stage_checks(
         "stage 1", run1, batch1, batch1, want1, [run1.model], dev, smi, reset_counts,
         read_counts, S1_GRAD_REL_TOL, ("loss",))
@@ -3354,8 +3370,8 @@ def md17_train_phase(dev, smi, reset_counts, read_counts):
     want2 = {key: 0 for key in counts}
     want2.update({"K1": 2 + 2 * d + 1, "K1 bias": 1, "K1 fp32": 3, "K2": 2 * 2 * d,
                   "K7": 2 * 2 * d + 1, "K9": 2 * d, "K9 bwd": d, "K4 kv": d + 1,
-                  "K4 q": d + 1, "K4 fp32": 2})
-    want2 = with_sm90(want2)
+                  "K4 q": d + 1, "K4 fp32": k4_f32_kernels(16, 192, 192)})
+    want2 = with_sm90(want2, k4_fp32_calls=1)
     grad_batch = {k: v[:GRAD_BATCH] for k, v in batch2.items()}
     counts2, state2 = stage_checks(
         "stage 2", run2, batch2, grad_batch, want2, [ss.backbone, ss.first_stage], dev, smi,
@@ -3402,6 +3418,14 @@ def md17_train_phase(dev, smi, reset_counts, read_counts):
           f"K={MD17_K}): {val} in {time.perf_counter() - t0:.3f} s")
     check(all(math.isfinite(x) for x in val.values()), "non-finite val ADE/FDE")
     return counts1, counts2
+
+
+def k4_f32_kernels(dh: int, nq: int, nk: int) -> int:
+    """Kernels of one fp32 K4 (or K6) call: the one-pass kernel and, where it
+    keeps more than one key tile's dQ shares, their sum."""
+    from lam_slide_tpu_torch.ops import flash_attention as fa
+
+    return 1 + (fa.f32_dq_tiles(dh, nq, nk) > 1)
 
 
 def f32_want(counts, *nonzero):
@@ -3490,6 +3514,10 @@ def fp32_train_phase(dev, smi, reset_counts, read_counts):
         # (K1 fp32 with lse; K4-fp32 once)
         per_step = {"K1 bias": 1, "K4 kv": 1, "K4 q": 1, "K2": 4 * d, "K2 fp32": 4 * d,
                     "K2 fp32 tiled": 4 * d, "K7": 4 * d + 1, "K7 fp32": 4 * d + 1}
+        # K6-fp32's kernels a layer: the spatial axis (L = 192) and the
+        # temporal one (T = 30)
+        md17_wide_kernels = (k4_f32_kernels(128, MD17_LATENTS, MD17_LATENTS)
+                             + k4_f32_kernels(128, MD17_T, MD17_T))
         md17_want = {
             # the spatial axis (L = 192) through K3 (K1's counter), the
             # temporal one (T = 30) through K9, both fp32; K4-fp32 at dh 16
@@ -3497,13 +3525,15 @@ def fp32_train_phase(dev, smi, reset_counts, read_counts):
             16: f32_want(counts, per_step, {
                 "K1": 2 + 2 * d + 1, "K1 fp32": 2 + 2 * d + 1, "K9": 2 * d, "K9 fp32": 2 * d,
                 "K9 bwd": d, "K9 bwd fp32": d, "K4 kv": d + 1, "K4 q": d + 1,
-                "K4 fp32": 2 * (d + 1)}),
+                "K4 fp32": (d + 1) * k4_f32_kernels(16, MD17_LATENTS, MD17_LATENTS)}),
             # both axes through K5-fp32 (the transform, then K1's register-tiled
-            # kernel) and K6-fp32 (K4's register-tiled pair, two kernels)
+            # kernel) and K6-fp32 (K4's wide kernel, and on the spatial axis
+            # the sum of its dQ shares)
             MD17_WIDE_HEADS: f32_want(counts, per_step, {
-                "K1": 3, "K1 fp32": 3, "K4 fp32": 2, "K5": 4 * d, "K5 fp32": 4 * d,
-                "K5 transform": 4 * d, "K5 fp32 wide": 4 * d, "K6": 2 * d, "K6 fp32": 4 * d,
-                "K6 fp32 wide": 4 * d}),
+                "K1": 3, "K1 fp32": 3, "K4 fp32": k4_f32_kernels(16, MD17_LATENTS, MD17_LATENTS),
+                "K5": 4 * d, "K5 fp32": 4 * d,
+                "K5 transform": 4 * d, "K5 fp32 wide": 4 * d, "K6": 2 * d,
+                "K6 fp32": d * md17_wide_kernels, "K6 fp32 wide": d * md17_wide_kernels}),
         }
         for heads in (16, MD17_WIDE_HEADS):
             run2 = registry.md17_second_stage(first_stage=run1, seed=SEED, molecule="aspirin",
@@ -3535,10 +3565,11 @@ def fp32_train_phase(dev, smi, reset_counts, read_counts):
         pep_want = {
             HEADS: f32_want(counts, per_step, {
                 "K1": DEPTH, "K1 fp32": DEPTH, "K4 kv": DEPTH, "K4 q": DEPTH,
-                "K4 fp32": 2 * DEPTH}),
+                "K4 fp32": DEPTH * k4_f32_kernels(HIDDEN // HEADS, T, T)}),
             WIDE_HEADS: f32_want(counts, per_step, {
                 "K5": DEPTH, "K5 fp32": DEPTH, "K5 transform": DEPTH, "K5 fp32 wide": DEPTH,
-                "K6": DEPTH, "K6 fp32": 2 * DEPTH, "K6 fp32 wide": 2 * DEPTH}),
+                "K6": DEPTH, "K6 fp32": DEPTH * k4_f32_kernels(128, T, T),
+                "K6 fp32 wide": DEPTH * k4_f32_kernels(128, T, T)}),
         }
         for heads in (HEADS, WIDE_HEADS):
             run2 = registry.peptide_second_stage(
@@ -4338,10 +4369,11 @@ def main() -> int:
         "K9 fp32 bwd": ("short_attention_backward (fp32 operands)", "short_attention_f32.cu",
                         "short_attention.py:96"),
         "K4 fp32 dh128": ("flash_attention_backward (fp32 operands at 64 < dh <= 128: the "
-                          "register-tiled pair, under K6-fp32 on the main paths)",
+                          "wide kernel, one pass over the key tiles, and its dQ shares' sum; "
+                          "under K6-fp32 on the main paths)",
                           "flash_attention_bwd.cu", "flash_attention.py:442"),
         "K6 fp32": ("flash_attention_normrope_backward (fp32 operands: K4-fp32's "
-                    "register-tiled pair on the forward's q_t/k_t)", "flash_attention_bwd.cu",
+                    "wide kernel on the forward's q_t/k_t)", "flash_attention_bwd.cu",
                     "flash_normrope.py:249"),
     }
     # launches on the main paths: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve

@@ -43,8 +43,7 @@ SIGNATURES = {
     "lam_qk_normrope_f32": [_P] * 8 + [_I] * 5 + [_L] * 6 + [_F, _P],
     "lam_flash_attention_bwd_kv": _FLASH_BWD,
     "lam_flash_attention_bwd_q": _FLASH_BWD,
-    "lam_flash_attention_bwd_f32_kv": _FLASH_BWD[:-1] + [_I, _P],
-    "lam_flash_attention_bwd_f32_q": _FLASH_BWD[:-1] + [_I, _P],
+    "lam_flash_attention_bwd_f32": [_P] * 11 + [_I] * 5 + [_LP, _F, _I, _P],
     "lam_fused_mlp_sm90": [_P] * 6 + [_I] * 4 + [_L] * 4 + [_I] * 4 + [_P],
     "lam_fused_mlp_wmma": [_P] * 5 + [_I] * 4 + [_L] * 4 + [_P],
     "lam_fused_mlp_f32": [_P] * 5 + [_I] * 4 + [_L] * 4 + [_I, _I, _P],

@@ -26,10 +26,14 @@ kernel with fp32 in and out: a thread a query row up to dh 64, and above it
 up to dh 128 a register-tiled kernel (a thread a 4 x 4 block of the scores
 and a 4 x 8 block of the output) whose geometry ``f32_wide_plan`` picks.
 K4 takes both too: the bias row in both of its kernels (JAX
-``_bwd_probs``), and fp32 operands through a second pair of kernels, a
-thread an owned row up to dh 64 and above it up to dh 128
-(``F32_GRAD_MAX_DH``) a register-tiled pair (a thread a 4 x 4 block of S
-and dP and a 4 x 8 block of each grad) in ``f32_wide_plan``'s geometry.
+``_bwd_probs``), and fp32 operands through register-tiled kernels (a
+thread a 4 x 4 block of S and dP and a register tile of each grad): up to
+dh 64 the narrow kernel in ``f32_narrow_plan``'s geometry (dh padded to a
+multiple of 8, two blocks an SM), above it up to dh 128
+(``F32_GRAD_MAX_DH``) the wide kernel in ``f32_wide_plan``'s; each makes
+one pass over the key tiles, forms S and dP once and writes dK, dV and
+each tile's share of dQ, which a second kernel sums where there is more
+than one.
 The packed entry K3 stays unmasked, as in JAX.
 
 Gradients: on CUDA tensors that need one, the forward runs inside
@@ -45,11 +49,11 @@ with fp32 operands, ``fp32_wide_launches`` those of them at 64 < dh <= 128
 (the register-tiled kernel), ``sm90_launches`` the redesigned forward's
 launches and
 ``sm90_cp_async_launches`` those of them on the cp.async route.
-``bwd_kv_launches`` and ``bwd_q_launches`` each count K4 calls (on the old
-pair, its dK/dV and its dQ kernel), ``bwd_bias_launches`` /
-``bwd_fp32_launches`` the old pair's kernels with the bias / with fp32
-operands (two per call), ``bwd_fp32_wide_launches`` those of the
-register-tiled fp32 pair among them (64 < dh <= 128),
+``bwd_kv_launches`` and ``bwd_q_launches`` each count K4 calls,
+``bwd_bias_launches`` the bf16 or fp32 kernels with the bias (two a bf16
+call), ``bwd_fp32_launches`` the fp32 kernels (one or two a call,
+``f32_dq_tiles``),
+``bwd_fp32_wide_launches`` those of them at 64 < dh <= 128,
 ``bwd_sm90_launches`` the redesigned backward's kernels (its
 preprocess, main and dQ kernels: three per call) and
 ``bwd_sm90_cp_async_launches`` its main kernels on the cp.async route.
@@ -57,7 +61,7 @@ preprocess, main and dQ kernels: three per call) and
 
 import ctypes
 import sys
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -80,13 +84,13 @@ bwd_sm90_cp_async_launches = 0
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max  # the JAX kernels' mask fill
 MAX_DH = 128  # every forward kernel, bf16 and fp32 (register-tiled above 64 in fp32)
-# K4's fp32 kernels: a thread a row up to dh 64, the register-tiled pair
-# above it up to this; an fp32 call that needs a gradient stays within it.
+# K4's fp32 kernels: the narrow one up to dh 64, the wide one above it
+# up to this; an fp32 call that needs a gradient stays within it.
 F32_GRAD_MAX_DH = 128
 # The register-tiled fp32 kernels at 64 < dh <= 128 (csrc/flash_attention.cu
 # WideLayout<64>, csrc/flash_attention_bwd.cu WideBwdLayout): 64-row blocks
 # of 256 threads over tiles of 64, dh padded to 128; the forward two blocks
-# an SM, the backward pair one.
+# an SM, the backward one.
 F32_WIDE_MIN_DH = 65
 F32_WIDE_SHORT = 32  # Nq and Nk at most this: two sequences share a 64-row block
 
@@ -100,10 +104,65 @@ def f32_wide_smem_bytes() -> int:
 
 def f32_wide_plan(nq: int, nk: int) -> int:
     """Sequences a 64-row block of the register-tiled fp32 kernels (K1's
-    forward, K4's pair) for nq queries over nk keys: two where both axes are
-    at most 32 (MD17's temporal axis, T = 30), so its blocks are not three
-    quarters empty, else one."""
+    forward, K4's wide kernel) for nq queries over nk keys: two where both
+    axes are at most 32 (MD17's temporal axis, T = 30), so its blocks are
+    not three quarters empty, else one."""
     return 2 if nq <= F32_WIDE_SHORT and nk <= F32_WIDE_SHORT else 1
+
+
+# K4's fp32 kernel at dh <= 64 (csrc/flash_attention_bwd.cu NarrowLayout):
+# blocks of 256 threads over 64-key tiles, dh padded to the first of these
+F32_NARROW_DPS = (8, 16, 24, 32, 48, 64)
+F32_NARROW_THREADS = 256
+F32_NARROW_ROWS = 64
+SM_SHARED_BYTES = 233472  # an H100 SM's 228 KB, 1 KB of it reserved for each block
+SM_REGISTERS = 65536
+
+
+class F32NarrowPlan(NamedTuple):
+    """Geometry of K4's narrow fp32 kernel for one call: the padded width
+    ``dp``; the columns of dK and dV a thread sums (``cols``) and the slices
+    of a query tile's rows that many threads sum apart (``slices``); a
+    block's dynamic shared memory; its blocks (one a 64-key tile); and the
+    blocks an SM holds (shared memory and the 128 registers a thread that
+    ``__launch_bounds__`` asks for)."""
+    dp: int
+    cols: int
+    slices: int
+    smem_bytes: int
+    blocks: int
+    blocks_per_sm: int
+
+
+def f32_narrow_plan(dh: int, nq: int, nk: int, bh: int = 1) -> F32NarrowPlan:
+    """The narrow fp32 kernel's plan (csrc/flash_attention_bwd.cu
+    NarrowLayout and NarrowSplit) for ``bh`` sequences of nq queries over nk
+    keys at head dim dh <= 64: dh padded to the next of F32_NARROW_DPS; a
+    thread holds 4 keys and 4 or 6 columns of dK and of dV (48 accumulators
+    at most). A block's shared memory: K and V, two stages of Q and dO (64
+    rows of dp + 4 floats each), P and dS (64 x 68) and two stages of the
+    query tile's lse and delta; the slices' partial sums, 64 rows of dp + 1
+    floats each, overlay it at the end."""
+    if not 0 < dh <= F32_NARROW_DPS[-1]:
+        raise ValueError(f"f32_narrow_plan: dh {dh} is not in (0, {F32_NARROW_DPS[-1]}]")
+    dp = next(p for p in F32_NARROW_DPS if dh <= p)
+    cols = 6 if dp % 6 == 0 else 4
+    slices = F32_NARROW_THREADS // (16 * (dp // cols))
+    rows = F32_NARROW_ROWS
+    smem = 4 * (6 * rows * (dp + 4) + 2 * rows * (rows + 4) + 4 * rows)
+    per_sm = min(SM_SHARED_BYTES // (smem + 1024), SM_REGISTERS // (128 * F32_NARROW_THREADS))
+    return F32NarrowPlan(dp, cols, slices, smem, bh * -(-nk // rows), per_sm)
+
+
+def f32_dq_tiles(dh: int, nq: int, nk: int) -> int:
+    """Key tiles whose dQ shares K4's fp32 kernel keeps in scratch, fp32
+    ``[tiles, B*H, nq, dh]``, for a second kernel to sum: 1 (no scratch,
+    one kernel, which writes dQ itself) where one 64-key tile holds every
+    key, or at dh > 64 one block of two short sequences does
+    (``f32_wide_plan`` 2)."""
+    if dh >= F32_WIDE_MIN_DH and f32_wide_plan(nq, nk) == 2:
+        return 1
+    return -(-nk // 64)
 
 
 def sm90_tma_ok(*tensors: torch.Tensor) -> bool:
@@ -388,51 +447,60 @@ def _launch_sm90_backward(q, k, v, out, lse, g, scale, counts):
 
 
 def _launch_template_backward(q, k, v, out, lse, g, scale, bias, counts):
-    """The older pair on checked CUDA tensors (g with unit stride on dh) ->
-    (dq, dk, dv) in packed memory: its bf16 kernels with the fp32 ``[B, Nk]``
-    key-padding row ``bias`` (which they need), or the fp32 pair with or
-    without one (at 64 < dh <= 128 the register-tiled pair, in
-    ``f32_wide_plan``'s geometry); delta = rowsum(dO ⊙ O) is formed here.
-    ``counts`` is the module whose ``bwd_fp32_launches`` /
+    """The older template's backward on checked CUDA tensors (g with unit
+    stride on dh) -> ((dq, dk, dv) in packed memory, kernels launched): its
+    bf16 pair (dK/dV, then dQ) with the fp32 ``[B, Nk]`` key-padding row
+    ``bias`` (which it needs), or the fp32 one-pass kernels with or without
+    one (the narrow kernel at dh <= 64 in ``f32_narrow_plan``'s geometry,
+    the wide one above in ``f32_wide_plan``'s), then the sum of their dQ
+    shares where ``f32_dq_tiles`` is above 1; delta = rowsum(dO ⊙ O) is
+    formed here. ``counts`` is the module whose ``bwd_fp32_launches`` /
     ``bwd_fp32_wide_launches`` count the fp32 kernels (K4's, or K6's, which
-    runs the pair on its transformed q/k); the callers count the rest."""
+    runs them on its transformed q/k); the callers count the rest."""
     delta = (g.float() * out.float()).sum(dim=-1).contiguous()
     b, h, nq, dh = q.shape
     nk = k.shape[2]
     dq, dk, dv = _packed_like(q, nq), _packed_like(k, nk), _packed_like(v, nk)
     strides = (ctypes.c_longlong * 21)(
         *(s for t in (q, k, v, g, dq, dk, dv) for s in t.stride()[:3]))
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), None if bias is None else bias.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, h, nq, nk, dh, strides, float(scale))
+            dk.data_ptr(), dv.data_ptr())
+    dims = (b, h, nq, nk, dh, strides, float(scale))
     fp32 = q.dtype == torch.float32
     wide = fp32 and dh >= F32_WIDE_MIN_DH
-    if fp32:
-        entry, args = "lam_flash_attention_bwd_f32", (
-            *args, f32_wide_plan(nq, nk) if wide else 0, _stream(q))
-    else:
-        entry, args = "lam_flash_attention_bwd", (*args, _stream(q))
     with torch.cuda.device(q.device):
-        _build.launch(f"{entry}_kv", *args)
-        _build.launch(f"{entry}_q", *args)
-    counts.bwd_fp32_launches += 2 * fp32
-    counts.bwd_fp32_wide_launches += 2 * wide
-    return dq, dk, dv
+        if fp32:
+            tiles = f32_dq_tiles(dh, nq, nk)
+            scratch = (torch.empty((tiles, b * h, nq, dh), dtype=torch.float32, device=q.device)
+                       if tiles > 1 else None)
+            plan = f32_wide_plan(nq, nk) if wide else f32_narrow_plan(dh, nq, nk).dp
+            _build.launch("lam_flash_attention_bwd_f32", *ptrs,
+                          None if scratch is None else scratch.data_ptr(), *dims, plan,
+                          _stream(q))
+            kernels = 1 + (tiles > 1)
+            counts.bwd_fp32_launches += kernels
+            counts.bwd_fp32_wide_launches += kernels * wide
+        else:
+            _build.launch("lam_flash_attention_bwd_kv", *ptrs, *dims, _stream(q))
+            _build.launch("lam_flash_attention_bwd_q", *ptrs, *dims, _stream(q))
+            kernels = 2
+    return (dq, dk, dv), kernels
 
 
 def _launch_backward(q, k, v, out, lse, g, scale, bias=None):
     """Launch K4 on checked CUDA tensors -> (dq, dk, dv) in packed memory.
     bf16 without a bias takes the redesigned backward; with the fp32
     ``[B, Nk]`` key-padding row ``bias`` the old pair; fp32 operands K4's
-    fp32 pair (register-tiled above dh 64)."""
+    fp32 kernels (the narrow one up to dh 64, the wide one above)."""
     global bwd_kv_launches, bwd_q_launches, bwd_bias_launches
     g = g if g.stride(-1) == 1 else g.contiguous()
     counts = sys.modules[__name__]
     if q.dtype != torch.float32 and bias is None:
         grads = _launch_sm90_backward(q, k, v, out, lse, g, scale, counts)
     else:
-        grads = _launch_template_backward(q, k, v, out, lse, g, scale, bias, counts)
-        bwd_bias_launches += 2 * (bias is not None)
+        grads, kernels = _launch_template_backward(q, k, v, out, lse, g, scale, bias, counts)
+        bwd_bias_launches += kernels * (bias is not None)
     bwd_kv_launches += 1
     bwd_q_launches += 1
     return grads
@@ -449,9 +517,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take ``reference_flash_backward``. CUDA tensors launch K4
     (bf16 with dh <= 128: the redesigned one-pass backward without a mask,
     the dK/dV and dQ pair with one; fp32 with dh <= F32_GRAD_MAX_DH: the
-    fp32 pair, register-tiled above dh 64) or raise; the grads come back in
-    packed ``[B, N, H, dh]`` memory, so their packed ``[B, N, H*dh]`` form
-    is a view.
+    narrow fp32 kernel up to dh 64, the wide one above) or raise; the
+    grads come back in packed ``[B, N, H, dh]`` memory, so their packed
+    ``[B, N, H*dh]`` form is a view.
     """
     if q.device.type == "cpu":
         return reference_flash_backward(q, k, v, out, lse, g, scale,

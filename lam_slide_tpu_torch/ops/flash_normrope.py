@@ -14,8 +14,8 @@ In bf16 the attention is the redesigned flash forward of
 ``csrc/flash_fwd_sm90.cu`` on ``(q_t, k_t, v)``, and its backward that of
 ``csrc/flash_bwd_sm90.cu``. In fp32 (the fp32 DiTs at dh 128, sampling
 and training) it is K1's fp32 kernel of ``csrc/flash_attention.cu``, and
-its backward K4's fp32 pair of ``csrc/flash_attention_bwd.cu`` (the
-register-tiled one at 64 < dh <= 128). ``_FlashNormRope`` keeps the
+its backward K4's fp32 kernels of ``csrc/flash_attention_bwd.cu`` (the
+wide one at 64 < dh <= 128). ``_FlashNormRope`` keeps the
 forward's ``q_t``/``k_t`` for the backward, whose grads with respect to
 the TRANSFORMED q/k are chained to the raw q/k and the two scales by
 autograd of the plain pre-transform (``chain_backward``), as
@@ -33,8 +33,9 @@ redesigned forward and ``sm90_cp_async_launches`` those of them on its
 cp.async route; ``bwd_launches`` counts K6 calls of both dtypes, ``bwd_sm90_launches`` the
 redesigned backward's kernels (three a call) and
 ``bwd_sm90_cp_async_launches`` its main kernels on the cp.async route,
-``bwd_fp32_launches`` the fp32 pair's kernels (two a call) and
-``bwd_fp32_wide_launches`` those of them on the register-tiled pair.
+``bwd_fp32_launches`` K4's fp32 kernels (one or two a call,
+``flash_attention.f32_dq_tiles``) and ``bwd_fp32_wide_launches`` those of
+them at 64 < dh <= 128.
 """
 
 import sys
@@ -205,14 +206,14 @@ def _forward(q, k, v, q_scale, k_scale, cos, sin, scale: float, with_lse: bool):
 def _attention_backward(q_t, k_t, v, out, lse, g, scale: float):
     """K6's attention part on the transformed q/k -> (dq_t, dk_t, dv) in
     packed memory: on CUDA tensors the redesigned backward in bf16, K4's
-    fp32 pair in fp32; its plain version (``reference_flash_backward``) on
-    CPU ones."""
+    fp32 kernels in fp32; its plain version (``reference_flash_backward``)
+    on CPU ones."""
     global bwd_launches
     if q_t.device.type == "cpu":
         return reference_flash_backward(q_t, k_t, v, out, lse, g, scale)
     g = g if g.stride(-1) == 1 else g.contiguous()
     if q_t.dtype == torch.float32:
-        grads = _launch_template_backward(q_t, k_t, v, out, lse, g, scale, None, _COUNTS)
+        grads, _ = _launch_template_backward(q_t, k_t, v, out, lse, g, scale, None, _COUNTS)
     else:
         grads = _launch_sm90_backward(q_t, k_t, v, out, lse, g, scale, _COUNTS)
     bwd_launches += 1
@@ -251,7 +252,7 @@ def flash_attention_normrope(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scales and tables: the transform kernel, then the redesigned flash
     forward in bf16 or K1's fp32 kernel in fp32) or raise; tensors that need
     a gradient go through ``_FlashNormRope``, whose backward is K6 (in fp32
-    on K4's fp32 pair). With a ``[B, Nk]`` key-padding mask, JAX's fallback
+    on K4's fp32 kernels). With a ``[B, Nk]`` key-padding mask, JAX's fallback
     (flash_normrope.py:496-498): the plain ``pre_transform``, then
     ``flash_attention(..., mask=mask)``, which is K1 with the bias on CUDA
     tensors and ``reference_attention`` on CPU ones.
@@ -278,7 +279,7 @@ def flash_attention_normrope_backward(q, k, v, q_scale, k_scale, cos, sin, out, 
 
     CPU tensors take ``reference_normrope_backward``. CUDA tensors launch
     the transform kernel and then K6 (on q_t/k_t the redesigned backward in
-    bf16, K4's fp32 pair in fp32) or raise; the grads come back in packed
+    bf16, K4's fp32 kernels in fp32) or raise; the grads come back in packed
     ``[B, N, H, dh]`` memory.
     """
     if q.device.type == "cpu":

@@ -35,10 +35,17 @@ axis at B = 2 and B = 8, [4, 3, 1000, 128] and [16, 3, 1000, 128], and with
 the lse at [2, 3, 1000, 128]), K5-fp32 at MD17's and the 4AA eval's shapes,
 and K2-fp32 at the MD17 test pass's [368640, 256] -> 512 and the 4AA
 eval's [4000, 384] and sampling [16000, 384] -> 768; ``--fp32`` times these
-alone. It uses only entry points every tree of the port has, so an A/B of
-two trees runs it from each in turns:
+alone. ``--bwd-fp32`` times K4 on fp32 operands alone (TF32 off) at the
+shapes of fp32 training (BWD_FP32_SHAPES: the 4AA DiT's [32, 16, 1000, 24]
+and [16, 3, 1000, 128], MD17's [1920, 16, 192, 16], [1920, 2, 192, 16],
+[1920, 2, 192, 128] and [12288, 2, 30, 128], stage 1's encoder [256, 8, 192
+-> 32, 16] with the bias) and K6 in fp32 at [16, 3, 1000, 128], with
+``--yardsticks`` also their plain versions, SDPA's fp32 forward + backward
+less forward (for K6 after the plain transform) and K4's bound. It uses only
+entry points every tree of the port has, so an A/B of two trees runs it
+from each in turns:
 
-    cd <tree> && PYTHONPATH=. python <this file> <label> [--fp32]
+    cd <tree> && PYTHONPATH=. python <this file> <label> [--fp32 | --bwd-fp32 [--yardsticks]]
 
 and prints one line per call with the card's name and power limit.
 """
@@ -121,12 +128,85 @@ def _fp32_calls(gen, dev) -> list:
     return calls
 
 
+# K4-fp32's shapes on the fp32 training paths: (b, h, nq, nk, dh, masked)
+BWD_FP32_SHAPES = ((32, 16, 1000, 1000, 24, False), (1920, 16, 192, 192, 16, False),
+                   (1920, 2, 192, 192, 16, False), (256, 8, 192, 32, 16, True),
+                   (16, 3, 1000, 1000, 128, False), (1920, 2, 192, 192, 128, False),
+                   (12288, 2, 30, 30, 128, False))
+
+
+def _bwd_fp32(gen, dev, label: str, smi: str, yardsticks: bool) -> None:
+    """K4-fp32 (``flash_attention_backward`` on fp32 operands, from K1-fp32's
+    out and lse) at BWD_FP32_SHAPES, TF32 off: q/k/v head-major views of one
+    packed buffer (q of its own where nq != nk, the key-padding mask of
+    stage 1's encoder there), g contiguous; then K6-fp32 at [16, 3, 1000,
+    128] from K5-fp32's out and lse. With ``yardsticks`` also the plain
+    versions, SDPA's fp32 forward + backward less forward and K4's bound
+    (chip_smoke.bound: five products at fp32's rate)."""
+    import chip_smoke as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for b, h, nq, nk, dh, masked in BWD_FP32_SHAPES:
+        if nq == nk:
+            q, k, v, g = _heads(gen, dev, torch.float32, b, nq, h, dh)
+        else:
+            q = torch.randn(b, nq, h, dh, generator=gen).to(dev).transpose(1, 2)
+            k, v = (t.transpose(1, 2) for t in torch.randn(b, nk, 2, h, dh, generator=gen)
+                    .to(dev).unbind(2))
+            g = torch.randn(b, h, nq, dh, generator=gen).to(dev)
+        mask = None
+        if masked:
+            mask = (torch.arange(nk)[None, :] < torch.randint(9, nk - 10, (b, 1),
+                                                              generator=gen)).to(dev)
+        scale = dh ** -0.5
+        out, lse = fa._forward(q, k, v, scale, with_lse=True, mask=mask)
+        args = (q, k, v, out, lse, g, scale)
+        shape = f"[{b},{h},{nq}{'' if nq == nk else f'->{nk}'},{dh}]{' bias' if masked else ''}"
+        reps = 5 if dh == 128 or nq == 1000 else 10
+        ms = _ms(lambda: fa.flash_attention_backward(*args, mask=mask), reps)
+        text = f"{label}: K4-fp32 {shape} {ms:.4f} ms"
+        if yardsticks:
+            bias = None if mask is None else fa.mask_to_bias(mask)
+            plain = _ms(lambda: fa.reference_flash_backward(*args, bias), 2)
+            sdpa = cs.library_times(q, k, v, scale, grad=g, mask=mask)
+            nbytes = 4 * (4 * b * h * nq * dh + 4 * b * h * nk * dh + b * h * nq
+                          + (b * nk if masked else 0))
+            bound_ms, by = cs.bound(10 * b * h * nq * nk * dh, nbytes, cs.PEAK_FP32_FLOPS,
+                                    b * h * nq * nk)
+            text += (f", plain {plain:.4f} ms, SDPA fwd+bwd - fwd {sdpa:.4f} ms, bound "
+                     f"{bound_ms:.4f} ms ({by})")
+        print(f"{text} | {smi}", flush=True)
+        del q, k, v, g, out, lse, args
+        torch.cuda.empty_cache()
+    # K6-fp32: the fp32 transform, then K4-fp32 on q_t/k_t, at the 4AA fp32
+    # DiT's 3 x 128 temporal axis
+    b, h, n, dh = 16, 3, 1000, 128
+    q, k, v, g = _heads(gen, dev, torch.float32, b, n, h, dh)
+    tr = (*((1 + 0.2 * torch.randn(dh, generator=gen)).to(dev) for _ in range(2)),
+          *rope_cos_sin(n, dh, device=dev))
+    scale = dh ** -0.5
+    out, lse = fnr._forward(q, k, v, *tr, scale, with_lse=True)
+    args = (q, k, v, *tr, out, lse, g, scale)
+    text = (f"{label}: K6-fp32 [{b},{h},{n},{dh}] "
+            f"{_ms(lambda: fnr.flash_attention_normrope_backward(*args), 5):.4f} ms")
+    if yardsticks:
+        plain = _ms(lambda: fnr.reference_normrope_backward(*args), 2)
+        composition = cs.library_times(q, k, v, scale, grad=g,
+                                       pre=lambda q_, k_: fnr.pre_transform(q_, k_, *tr))
+        text += f", plain {plain:.4f} ms, pre_transform + SDPA fwd+bwd - fwd {composition:.4f} ms"
+    print(f"{text} | {smi}", flush=True)
+
+
 def main() -> int:
     label = sys.argv[1] if len(sys.argv) > 1 else "tree"
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     gen = torch.Generator().manual_seed(0)
+    if "--bwd-fp32" in sys.argv[2:]:
+        with torch.no_grad():
+            _bwd_fp32(gen, dev, label, smi, "--yardsticks" in sys.argv[2:])
+        return 0
     if "--fp32" in sys.argv[2:]:
         with torch.no_grad():
             for name, fn, reps in _fp32_calls(gen, dev):

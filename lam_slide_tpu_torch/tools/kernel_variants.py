@@ -1,6 +1,6 @@
-"""Time ablated copies of K1-fp32 at dh 128, K2, K7, K8, K8-fp32, K9 (forward
-and backward) and K11 on the card, and the pieces of K5 and K6: what holds
-each back.
+"""Time ablated copies of K4-fp32, K1-fp32 at dh 128, K2, K7, K8, K8-fp32, K9
+(forward and backward) and K11 on the card, and the pieces of K5 and K6:
+what holds each back.
 
 Each variant is a copy of the kernel's source with one piece of its work
 taken out by a text substitution, built alone with nvcc (beside
@@ -13,7 +13,10 @@ head-major views [1920, 16, 192, 16] with K1's out and lse; K8's Hopper
 route at the 4AA Euler-10 B=8 shape [8000, 2, 384] at 16 x 24 and 3 x 128
 (without the QK norm, RoPE and attention, without any epilogue, without
 either GEMM's products, with each weight stage loaded once and then
-reused); K8's fp32 kernel at [8000, 2, 384] and [2000, 2, 384] at 16 x 24
+reused); K4's fp32 kernels (K4_F32_VARIANTS: the narrow kernel at the 4AA
+fp32 step's [32, 16, 1000, 24] and the MD17 fp32 DiT's [1920, 16, 192, 16],
+the wide one at [16, 3, 1000, 128], [1920, 2, 192, 128] and [12288, 2, 30,
+128], TF32 off); K8's fp32 kernel at [8000, 2, 384] and [2000, 2, 384] at 16 x 24
 and at [8000, 2, 384] at 3 x 128 (without most of either GEMM's FMAs,
 without the norm, RoPE and attention, with the first two weight tiles
 loaded and then reused, without the barrier that ends a tile) and K7 with
@@ -39,7 +42,7 @@ the profiler too. Each line names the card and its power limit. Run from
 a tree's root:
 
     PYTHONPATH=. python lam_slide_tpu_torch/tools/kernel_variants.py \
-        [K1-fp32-wide K2 K9-forward K11 K9-backward K5-K6 K8 K8-fp32 K7]
+        [K4-fp32 K1-fp32-wide K2-fp32 K2 K9-forward K11 K9-backward K5-K6 K8 K8-fp32 K7]
 """
 
 import argparse
@@ -197,6 +200,36 @@ K9_VARIANTS = {
 }
 
 
+# K4's fp32 kernels (csrc/flash_attention_bwd.cu), each one pass over a key
+# tile's queries: the narrow kernel's S and dP products, its dK/dV products,
+# its query tiles' copies, its exponentials or its partial sums' epilogue
+# taken out, or one block an SM (no register cap); either kernel without its
+# dQ shares' products or without their sum. Each variant builds the whole
+# file.
+K4_F32_VARIANTS = {
+    "kernel": [],
+    "no S/dP products": [("  for (int d = 0; d < DP; d += 4) {",
+                          "  for (int d = 0; d < (X == Y ? DP : 0); d += 4) {")],
+    "no dK/dV products": [
+        ("      narrow_axpy<CN>(dv, ", "      if (a.Nq < 0) narrow_axpy<CN>(dv, "),
+        ("      narrow_axpy<CN>(dk, ", "      if (a.Nq < 0) narrow_axpy<CN>(dk, ")],
+    "no query tile copies": [
+        ("    narrow_stage<DP, VEC>(Qn, qp,", "    if (a.Nq < 0) narrow_stage<DP, VEC>(Qn, qp,"),
+        ("    narrow_stage<DP, VEC>(Qn + L::tile, dop,",
+         "    if (a.Nq < 0) narrow_stage<DP, VEC>(Qn + L::tile, dop,")],
+    "no exponentials": [("        p[i] = expf(__fsub_rn(s, lse));", "        p[i] = __fsub_rn(s, lse);")],
+    "no partial-sum epilogue": [("    if (n0 + r >= n || c >= dh) continue;",
+                                 "    if (n0 + r >= n || c >= dh || n > 0) continue;")],
+    "one block an SM": [("__launch_bounds__(NB_THREADS, 2)", "__launch_bounds__(NB_THREADS, 1)")],
+    "without dQ shares": [("  for (int kk = kb; kk < ke; kk += 4) {",
+                           "  for (int kk = kb; kk < (a.Nq < 0 ? ke : kb); kk += 4) {", 2)],
+    "without their sum": [("  if (err != cudaSuccess || a.scratch == nullptr) return err;",
+                           "  return err;")],
+}
+K4_F32_NARROW_SHAPES = ((32, 16, 1000, 24), (1920, 16, 192, 16))
+K4_F32_WIDE_SHAPES = ((16, 3, 1000, 128), (1920, 2, 192, 128), (12288, 2, 30, 128))
+
+
 def _ms(fn, reps: int = REPS) -> float:
     fn()
     torch.cuda.synchronize()
@@ -209,20 +242,24 @@ def _ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _build_variants(source: str, entry: str, variants: dict) -> dict:
-    """{variant: the ctypes entry of its library}, built in parallel."""
+def _build_variants(source: str, entry, variants: dict) -> dict:
+    """{variant: the ctypes entry of its library (a tuple of them when
+    ``entry`` is a tuple of names)}, built in parallel. A substitution is
+    (text, replacement) for text found once, or (text, replacement, count)."""
     text = (_build.CSRC / source).read_text()
     out = _build.BUILD_ROOT / "variants"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, subs in variants.items():
         src = text
-        for old, new in subs:
-            if src.count(old) != 1:
+        for old, new, *count in subs:
+            want = count[0] if count else 1
+            if src.count(old) != want:
                 raise RuntimeError(f"{source}: variant {name!r} finds {old!r} "
-                                   f"{src.count(old)} times, not once")
+                                   f"{src.count(old)} times, not {want}")
             src = src.replace(old, new)
-        tag = f"{entry}_{''.join(c if c.isalnum() else '_' for c in name)}"
+        first = entry if isinstance(entry, str) else entry[0]
+        tag = f"{first}_{''.join(c if c.isalnum() else '_' for c in name)}"
         (out / f"{tag}.cu").write_text(src)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", f"-I{_build.CSRC}", "-o",
                str(out / f"lib{tag}.so"), str(out / f"{tag}.cu"), str(_build.CSRC / "common.cu")]
@@ -233,9 +270,12 @@ def _build_variants(source: str, entry: str, variants: dict) -> dict:
         log = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {source} variant {name!r}:\n{log}")
-        fn = getattr(ctypes.CDLL(str(lib)), entry)
-        fn.argtypes, fn.restype = _build.SIGNATURES[entry], ctypes.c_int
-        entries[name] = fn
+        fns = []
+        for each in ((entry,) if isinstance(entry, str) else entry):
+            fn = getattr(ctypes.CDLL(str(lib)), each)
+            fn.argtypes, fn.restype = _build.SIGNATURES[each], ctypes.c_int
+            fns.append(fn)
+        entries[name] = fns[0] if isinstance(entry, str) else tuple(fns)
     return entries
 
 
@@ -472,7 +512,49 @@ def _k2_f32(gen, dev, stream, smi) -> None:
         torch.cuda.empty_cache()
 
 
-KERNELS = {"K1-fp32-wide": _k1_f32_wide, "K2-fp32": _k2_f32, "K2": _k2,
+def _k4_f32_inputs(gen, dev, b, h, n, dh):
+    """fp32 q/k/v head-major views of one packed buffer, a contiguous g, K1's
+    out and lse, delta, empty grads in packed memory, the 21 strides."""
+    qkv = torch.randn(b, n, 3 * h * dh, generator=gen).to(dev)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unflatten(-1, (3, h, dh)).unbind(2))
+    g = torch.randn(b, h, n, dh, generator=gen).to(dev)
+    out, lse = fa._forward(q, k, v, dh ** -0.5, with_lse=True)
+    delta = (g * out).sum(dim=-1).contiguous()
+    grads = [torch.empty(b, n, h, dh, device=dev).transpose(1, 2) for _ in range(3)]
+    strides = (ctypes.c_longlong * 21)(*(s for t in (q, k, v, g, *grads) for s in t.stride()[:3]))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), None, *(t.data_ptr() for t in grads))
+    return (q, k, v, g, out, lse, delta, grads), ptrs, strides
+
+
+def _k4_f32(gen, dev, stream, smi) -> None:
+    """K4's fp32 kernels with TF32 off, in every variant: the narrow kernel
+    at the 4AA fp32 step's [32, 16, 1000, 24] and the MD17 fp32 DiT's
+    [1920, 16, 192, 16], the wide kernel at the 4AA [16, 3, 1000, 128] and
+    MD17's [1920, 2, 192, 128] and [12288, 2, 30, 128] (there one key tile
+    holds every key: no dQ shares to sum)."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    libs = _build_variants("flash_attention_bwd.cu", "lam_flash_attention_bwd_f32",
+                           K4_F32_VARIANTS)
+    for b, h, n, dh in (*K4_F32_NARROW_SHAPES, *K4_F32_WIDE_SHAPES):
+        keep, ptrs, strides = _k4_f32_inputs(gen, dev, b, h, n, dh)
+        wide = dh > 64
+        plan = fa.f32_wide_plan(n, n) if wide else fa.f32_narrow_plan(dh, n, n).dp
+        tiles = fa.f32_dq_tiles(dh, n, n)
+        scratch = torch.empty(tiles, b * h, n, dh, device=dev) if tiles > 1 else None
+        args = (*ptrs, None if scratch is None else scratch.data_ptr(), b, h, n, n, dh, strides,
+                dh ** -0.5, plan, stream)
+        names = (("kernel", "without dQ shares", "without their sum") if wide
+                 else tuple(K4_F32_VARIANTS))
+        calls = {name: _checked(libs[name], args) for name in names
+                 if scratch is not None or name != "without their sum"}
+        _in_turns(f"K4-fp32 {'wide' if wide else 'narrow'} [{b},{h},{n},{dh}] (plan {plan}, "
+                  f"{tiles} key tile(s) of dQ shares)", calls, smi)
+        del keep, scratch
+        torch.cuda.empty_cache()
+
+
+KERNELS = {"K4-fp32": _k4_f32, "K1-fp32-wide": _k1_f32_wide, "K2-fp32": _k2_f32, "K2": _k2,
            "K9-forward": _k9_forward, "K11": _k11, "K9-backward": _k9_backward, "K5-K6": _k5_k6,
            "K8": _k8, "K8-fp32": _k8_f32, "K7": _k7}
 

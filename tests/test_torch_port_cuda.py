@@ -404,6 +404,15 @@ def test_spatial_block_refuses_a_misaligned_x_on_the_hopper_route(dev):
         fsb.fused_spatial_block(x, *args[1:])
 
 
+def _k4_kernels(dtype, dh, nq, nk):
+    """Kernels of one K4 call on the older template: the bf16 pair (with the
+    bias), or an fp32 one-pass kernel and, where it keeps more than one key
+    tile's dQ shares, their sum."""
+    if dtype != torch.float32:
+        return 2
+    return 1 + (fa.f32_dq_tiles(dh, nq, nk) > 1)
+
+
 def _heads_views(g, dev, b, h, nq, nk, dh, scale=1.0):
     """q, k, v as head-major strided views of packed buffers, and a
     head-major output gradient."""
@@ -588,16 +597,17 @@ def test_flash_backward_with_mask_matches_plain(dev, dtype, b, h, nq, nk, dh):
     before = (fa.bwd_kv_launches, fa.bwd_q_launches, fa.bwd_bias_launches, fa.bwd_fp32_launches)
     fa.flash_attention(*leaves, mask=mask).backward(grad)
     torch.cuda.synchronize()
+    n = _k4_kernels(dtype, dh, nq, nk)
     assert (fa.bwd_kv_launches, fa.bwd_q_launches, fa.bwd_bias_launches,
-            fa.bwd_fp32_launches) == (before[0] + 1, before[1] + 1, before[2] + 2,
-                                      before[3] + 2 * fp32)
+            fa.bwd_fp32_launches) == (before[0] + 1, before[1] + 1, before[2] + n,
+                                      before[3] + n * fp32)
     _assert_grads_close([t.grad for t in leaves], want, K4_F32_REL_TOL if fp32 else K4_REL_TOL)
 
 
 @pytest.mark.parametrize("b,h,nq,nk,dh", [(3, 2, 192, 192, 16), (2, 3, 130, 257, 64)])
 def test_flash_fp32_lse_and_backward_match_plain(dev, b, h, nq, nk, dh):
     """K1-fp32's lse (and that asking for it leaves out unchanged), and K4's
-    fp32 pair on strided views, grads in packed memory."""
+    fp32 kernels on strided views, grads in packed memory."""
     q, k, v, grad = (t.float() for t in _heads_views(_gen(20), dev, b, h, nq, nk, dh))
     out, lse = fa._forward(q, k, v, 0.3, with_lse=True)
     _, want_lse = fa.reference_attention(q, k, v, 0.3, return_lse=True)
@@ -605,7 +615,7 @@ def test_flash_fp32_lse_and_backward_match_plain(dev, b, h, nq, nk, dh):
     assert (lse - want_lse).abs().max().item() <= LSE_F32_ATOL
     before = fa.bwd_fp32_launches
     got = fa.flash_attention_backward(q, k, v, out, lse, grad, 0.3)
-    assert fa.bwd_fp32_launches == before + 2
+    assert fa.bwd_fp32_launches == before + _k4_kernels(torch.float32, dh, nq, nk)
     want = fa.reference_flash_backward(q, k, v, out, lse, grad, 0.3)
     torch.cuda.synchronize()
     assert all(t.dtype == torch.float32 and t.transpose(1, 2).is_contiguous() for t in got)
@@ -626,7 +636,10 @@ def test_md17_first_stage_step_on_the_card(dev):
     state, metrics = make_train_step(run.loss_fn, run.tx)(state, batch, 0)
     after = (fa.launches, fa.bias_launches, fa.fp32_launches, fa.bwd_kv_launches,
              fa.bwd_q_launches, fa.bwd_bias_launches, fa.bwd_fp32_launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (3, 1, 3, 3, 3, 2, 6)
+    cross = _k4_kernels(torch.float32, 16, 192, 32)  # the encoder's, with the bias
+    latent = _k4_kernels(torch.float32, 16, 192, 192)  # the two latent self-attentions
+    assert tuple(a - b for a, b in zip(after, before)) == (3, 1, 3, 3, 3, cross,
+                                                            cross + 2 * latent)
     assert torch.isfinite(metrics["loss"])
 
     def grads():
@@ -1574,6 +1587,51 @@ def test_flash_fp32_wide_heads_match_plain(dev, no_tf32, b, h, nq, nk, dh, maske
         torch.testing.assert_close(got[0], uniform, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("b,h,nq,nk,dh,masked", [
+    (32, 16, 1000, 1000, 24, False),  # the 4AA fp32 DiT's temporal axis (16 x 24)
+    (1920, 16, 192, 192, 16, False),  # the MD17 fp32 DiT's spatial axis (16 x 16)
+    (256, 8, 192, 32, 16, True),      # MD17 stage 1's encoder cross-attention, the bias
+    (256, 2, 192, 192, 16, False),    # its latent self-attention
+    (8, 4, 30, 30, 8, False),         # the smoke DiTs' dh 8
+    (3, 2, 130, 257, 32, True),       # ragged query and key tiles, an all-masked row
+    (3, 2, 65, 63, 48, False),        # dh 48
+    (2, 3, 64, 193, 40, True),        # dh 40, padded to 48
+    (3, 2, 130, 257, 64, False),      # dh 64: one slice of dK, dV
+    (2, 3, 77, 45, 18, True),         # dh % 4 != 0: 4-byte copies, padded to 24
+    (2, 2, 1, 3, 16, False),          # one query (a key tile of 3)
+    (4100, 16, 70, 70, 16, False),    # 65,600 batch x heads
+])
+def test_flash_fp32_narrow_backward_matches_plain(dev, no_tf32, b, h, nq, nk, dh, masked):
+    """K4's narrow fp32 kernel at dh <= 64 on head-major strided views, from
+    K1-fp32's out and lse, at each padded width of ``f32_narrow_plan`` and
+    its tiles' edges: every grad within K4_F32_REL_TOL of the plain
+    version's largest, in packed memory, two calls bit-identical, counted
+    under K4's fp32 counter (``_k4_kernels`` a call) and not the wide
+    one's."""
+    g = _gen(95)
+    qbuf = torch.randn(b, nq, h * dh, generator=g).to(dev)
+    kvbuf = torch.randn(b, nk, 2 * h * dh, generator=g).to(dev)
+    q = qbuf.view(b, nq, h, dh).transpose(1, 2)
+    k, v = (t.transpose(1, 2) for t in kvbuf.view(b, nk, 2, h, dh).unbind(2))
+    grad = torch.randn(b, h, nq, dh, generator=g).to(dev)
+    mask = _key_mask(g, dev, b, nk) if masked else None
+    scale = dh ** -0.5
+    out, lse = fa._forward(q, k, v, scale, with_lse=True, mask=mask)
+    before = (fa.bwd_fp32_launches, fa.bwd_fp32_wide_launches, fa.bwd_bias_launches)
+    got = fa.flash_attention_backward(q, k, v, out, lse, grad, scale, mask=mask)
+    again = fa.flash_attention_backward(q, k, v, out, lse, grad, scale, mask=mask)
+    n = _k4_kernels(torch.float32, dh, nq, nk)
+    assert _launched(before, (fa.bwd_fp32_launches, fa.bwd_fp32_wide_launches,
+                              fa.bwd_bias_launches)) == (2 * n, 0, 2 * n * masked)
+    want = fa.reference_flash_backward(q, k, v, out, lse, grad, scale,
+                                       None if mask is None else fa.mask_to_bias(mask))
+    torch.cuda.synchronize()
+    for name, a, w, a2 in zip(("dq", "dk", "dv"), got, want, again):
+        assert a.dtype == torch.float32 and a.shape == w.shape and a.transpose(1, 2).is_contiguous()
+        assert torch.equal(a, a2), f"{name}: a second call differs"
+        assert _rel_err(a, w) <= K4_F32_REL_TOL, f"{name}: rel err {_rel_err(a, w)}"
+
+
 def _transform_views(g, dev, b, heads, nq, nk, dh, dtype):
     qbuf = (2 * torch.randn(b, nq, 3 * heads * dh, generator=g)).to(dev, dtype)
     kbuf = (2 * torch.randn(b, nk, 3 * heads * dh, generator=g)).to(dev, dtype)
@@ -1655,11 +1713,10 @@ def test_normrope_bf16_at_md17_2x128_shapes(dev, b, n):
     _assert_grads_close(got, want, K6_REL_TOL)
 
 
-# K4-fp32's register-tiled pair at 64 < dh <= 128 against its plain version
-# with TF32 off, per grad relative to its max: exact fp32 on both sides up to
-# the order of the sums (dK and dV over up to 1000 queries); chip_smoke.py
-# read 0 at its shapes (one FMA chain a product, in cuBLAS's order) and
-# allows 1e-6 there.
+# K4-fp32's wide kernel at 64 < dh <= 128 against its plain version with
+# TF32 off, per grad relative to its max: exact fp32 on both sides up to the
+# order of the sums (dK and dV over up to 1000 queries, dQ over the key
+# tiles' shares); chip_smoke.py holds it to the same limit.
 K4_F32_WIDE_REL_TOL = 1e-5
 
 
@@ -1679,11 +1736,11 @@ def _fp32_bwd_counts():
     (5, 2, 20, 29, 128, True),        # the bias with two sequences a block
 ])
 def test_flash_fp32_wide_backward_matches_plain(dev, no_tf32, b, h, nq, nk, dh, masked):
-    """K4's register-tiled fp32 pair on head-major strided views, from
+    """K4's wide fp32 kernel on head-major strided views, from
     K1-fp32's out and lse: grads in packed memory within K4_F32_WIDE_REL_TOL
     of the plain backward, two calls bit-identical (no atomics), counted
-    under K4 and its fp32 and fp32-wide counters (two kernels a call); the
-    autograd Function runs the same pair."""
+    under K4 and its fp32 and fp32-wide counters (``_k4_kernels`` a call);
+    the autograd Function runs the same kernels."""
     g = _gen(98)
     qbuf = torch.randn(b, nq, h * dh, generator=g).to(dev)
     kvbuf = torch.randn(b, nk, 2 * h * dh, generator=g).to(dev)
@@ -1696,7 +1753,8 @@ def test_flash_fp32_wide_backward_matches_plain(dev, no_tf32, b, h, nq, nk, dh, 
     before = _fp32_bwd_counts()
     got = fa.flash_attention_backward(q, k, v, out, lse, grad, scale, mask=mask)
     again = fa.flash_attention_backward(q, k, v, out, lse, grad, scale, mask=mask)
-    assert _launched(before, _fp32_bwd_counts()) == (2, 2, 4, 4, 4 * masked, 0)
+    n = _k4_kernels(torch.float32, dh, nq, nk)
+    assert _launched(before, _fp32_bwd_counts()) == (2, 2, 2 * n, 2 * n, 2 * n * masked, 0)
     want = fa.reference_flash_backward(q, k, v, out, lse, grad, scale,
                                        None if mask is None else fa.mask_to_bias(mask))
     torch.cuda.synchronize()
@@ -1723,7 +1781,7 @@ def test_fp32_grads_past_dh_128_raise_before_any_launch(dev):
     assert (*_fp32_counts(), *_fp32_bwd_counts()) == before
 
 
-# K6 in fp32 (the fp32 transform's q_t/k_t, K4's register-tiled pair, the
+# K6 in fp32 (the fp32 transform's q_t/k_t, K4's wide fp32 kernel, the
 # plain chain VJP) against autograd of the plain version with TF32 off, per
 # grad relative to its max; the chain's rsqrt and rotation carry the
 # attention grads' few ulps.
@@ -1738,8 +1796,8 @@ K6_F32_REL_TOL = 2e-5
 ])
 def test_flash_normrope_fp32_grads_match_plain(dev, no_tf32, b, heads, nq, nk, dh):
     """K5-fp32 under autograd: ``_FlashNormRope`` runs K5-fp32 (the fp32
-    transform once, K1-fp32) and K6-fp32 (K4's register-tiled pair, two
-    kernels, on the kept q_t/k_t; no transform again), and every grad (q, k,
+    transform once, K1-fp32) and K6-fp32 (K4's wide fp32 kernels,
+    ``_k4_kernels``, on the kept q_t/k_t; no transform again), and every grad (q, k,
     v, both scales) is within K6_F32_REL_TOL of autograd of the plain
     version; ``flash_attention_normrope_backward`` gives the same attention
     grads."""
@@ -1757,7 +1815,8 @@ def test_flash_normrope_fp32_grads_match_plain(dev, no_tf32, b, heads, nq, nk, d
         moved = _launched(counts, (fnr.launches, fnr.transform_launches, fnr.bwd_launches,
                                    fnr.bwd_fp32_launches, fnr.bwd_fp32_wide_launches,
                                    fnr.bwd_sm90_launches))
-        assert moved == ((1, 1, 1, 2, 2, 0) if kernel else (0,) * 6)
+        n = _k4_kernels(torch.float32, dh, nq, nk)
+        assert moved == ((1, 1, 1, n, n, 0) if kernel else (0,) * 6)
         assert _fp32_bwd_counts() == k4
         grads[kernel] = [t.grad for t in leaves[:5]]
     torch.cuda.synchronize()
