@@ -188,11 +188,17 @@ tokens, and K4 with the bias (fp32 and bf16) and with fp32 operands at the
 training shapes, each also at ragged shapes with an all-masked row; and the
 fp32 instances the test pass runs (K2-fp32, K7-fp32, K9-fp32's forward;
 csrc/fused_mlp_f32.cu, fused_adaln_f32.cu, short_attention_f32.cu, FFMA,
-no TF32) at its shapes, with TF32 off on the plain side. Likewise the fp32
-kernels of the 4AA eval's DiT: K8-fp32 (csrc/fused_spatial_block_f32.cu)
-at [8000, 2, 384] and [2000, 2, 384] at both head splits, beside the two
-bare cuBLAS SGEMMs of its shapes, and K3-fp32, K2-fp32 and K7-fp32 at the
-4AA widths. And the fp32 kernels of the dh-128 splits (DH128_SPECS): K1's
+no TF32) at its shapes, with TF32 off on the plain side; K1 in fp32 and
+with the bias runs the narrow register-tiled kernel
+(csrc/flash_attention.cu, dh <= 64), held there at stage 1's shapes and,
+as K3-fp32, at the fp32 DiT's spatial axis [1920, 192, 256]. Likewise the
+fp32 kernels of the 4AA eval's DiT: K8-fp32's outer-product kernel
+(csrc/fused_spatial_block_f32.cu) at [8000, 2, 384] and [2000, 2, 384] at
+both head splits, beside the two bare cuBLAS SGEMMs of its shapes and
+bit-identical to its dot-product route, and K3-fp32 (the narrow kernel),
+K2-fp32 and K7-fp32 at the 4AA widths. Every fp32 path's launches show K1
+at dh <= 64 on the narrow kernel and K8 on the outer-product one. And the
+fp32 kernels of the dh-128 splits (DH128_SPECS): K1's
 fp32 kernel at 64 < dh <= 128 (dh 72, 96, 128; N 20, 30, 77, 192, 1000;
 with the lse and the key-padding bias; 66,000 batch x heads), the fp32
 transform and K5-fp32 at the 4AA eval's [B, 3, 1000, 128] and MD17's
@@ -561,11 +567,22 @@ def with_sm90(want: dict, k4_fp32_calls: int = 0) -> dict:
     fp32 K4 calls, ``k4_fp32_calls`` of them, count their own kernels)."""
     check(want["K1 bias"] <= want["K1 fp32"] and want["K4 bias"] <= want["K4 fp32"],
           f"a bf16 masked call among the expected launches {want}")
-    return dict(want, **{"K1 sm90": want["K1"] - want["K1 fp32"],
-                         "K4 sm90": 3 * (want["K4 kv"] - k4_fp32_calls),
-                         "K5 transform": want["K5"], "K5 sm90": want["K5"],
-                         "K6 sm90": 3 * want["K6"], "K1 cp.async": 0, "K4 cp.async": 0,
-                         "K5 cp.async": 0, "K6 cp.async": 0})
+    return with_routes(dict(want, **{"K1 sm90": want["K1"] - want["K1 fp32"],
+                                     "K4 sm90": 3 * (want["K4 kv"] - k4_fp32_calls),
+                                     "K5 transform": want["K5"], "K5 sm90": want["K5"],
+                                     "K6 sm90": 3 * want["K6"], "K1 cp.async": 0,
+                                     "K4 cp.async": 0, "K5 cp.async": 0, "K6 cp.async": 0}))
+
+
+def with_routes(want: dict) -> dict:
+    """``want`` with the fp32 kernels' routes that follow from its counts on
+    the main paths: every fp32 K1 call at dh <= 64 (those not on the wide
+    kernel) on the narrow kernel, no K5 call on it (K5 runs at dh 128), and
+    every fp32 K8 call on the outer-product kernel (the 4AA widths), none on
+    the dot-product route."""
+    return dict(want, **{"K1 fp32 narrow": want["K1 fp32"] - want["K1 fp32 wide"],
+                         "K5 fp32 narrow": 0, "K8 fp32 tiled": want["K8 fp32"],
+                         "K8 fp32 dot": 0})
 
 
 def nvidia_smi() -> str:
@@ -1194,7 +1211,8 @@ def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
     and backward, against their plain versions at the MD17 protocol's shapes
     (stage 1 on B*T = 1920 frames to encode and K*B*T = 9600 to decode; the
     DiT's temporal axis at K*B*L = 61440 sequences of 30 frames) and at
-    ragged shapes; the table rows for K1-bias, K1-fp32 and K9."""
+    ragged shapes; the table rows for K1-bias, K1-fp32, K9 and K3-fp32 on
+    the fp32 DiT's spatial axis [1920, 192, 256]."""
     from lam_slide_tpu_torch.ops import flash_attention as fa
     from lam_slide_tpu_torch.ops import short_attention as tsa
 
@@ -1236,6 +1254,32 @@ def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
               peak=PEAK_FP32_FLOPS, exps=q.numel() // dh * 192)
     del qkv, q, k, v, got, want
 
+    # K3-fp32: the fp32 DiT's spatial axis in the --test pass (B*T = 1920
+    # frames of 192 latents, 16 x dh 16): packed q/k, v a view of linear1's
+    # output, on the narrow kernel; drawn on the card by a generator of its
+    # own, so the draws below are as before
+    d3, g3 = 16 * dh, torch.Generator(device=dev).manual_seed(SEED + 13)
+    q, k = (torch.randn(frames, 192, d3, generator=g3, device=dev) for _ in range(2))
+    v = torch.randn(frames, 192, 3 * d3, generator=g3, device=dev)[..., 2 * d3:]
+    args = (q, k, v, 16)
+    before = (fa.fp32_launches, fa.fp32_narrow_launches)
+    got, again = fa.flash_attention_packed(*args), fa.flash_attention_packed(*args)
+    want = fa.reference_attention_packed(*args)
+    torch.cuda.synchronize()
+    check((fa.fp32_launches - before[0], fa.fp32_narrow_launches - before[1]) == (2, 2),
+          "K3-fp32 at MD17: the narrow fp32 kernel did not launch once a call")
+    check(torch.equal(got, again), "K3-fp32 at MD17: a second call on the same inputs differs")
+    err, rel = _check_f32(got, want, "K3-fp32 at MD17")
+    heads = [t.unflatten(-1, (16, dh)).transpose(1, 2) for t in (q, k, v)]
+    table.add("K3 fp32 [1920,192,256]", f"packed fp32 q/k/v [{frames},192,{d3}] (v a strided "
+              f"view), 16 x {dh}, the narrow kernel (rel {rel:.3e}), a second call "
+              f"bit-identical", err, f"rel tol {K1_F32_REL_TOL}",
+              time_ms(lambda: fa.flash_attention_packed(*args), reps=10),
+              time_ms(lambda: fa.reference_attention_packed(*args), reps=3),
+              4 * q.numel() * 192, 4 * 4 * q.numel(), library_times(*heads, dh ** -0.5),
+              peak=PEAK_FP32_FLOPS, exps=frames * 16 * 192 * 192)
+    del q, k, v, args, got, again, want, heads
+
     # K1-bias ragged: keys not a multiple of either kernel's key tile, an
     # all-masked row (uniform weights over its keys), bf16 and fp32
     for dtype in (bf, f32):
@@ -1260,10 +1304,13 @@ def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
               f"row vs the mean of v: {row_err:.3e}")
 
     # K9 on the DiT's temporal axis: q/k contiguous [K*B*L, 30, 256], v a
-    # view of linear1's output, 16 heads of 16
+    # view of linear1's output, 16 heads of 16; these 2.8 G draws (with the
+    # backward's g) are made on the card by a generator of their own, as a
+    # host generator takes about 14 s for them
     seqs, d = MD17_K * MD17_BATCH * 192, 256
-    q, k = (_rand(gen, seqs, MD17_T, d).to(dev, bf) for _ in range(2))
-    v = _rand(gen, seqs, MD17_T, 3 * d).to(dev, bf)[..., 2 * d:]
+    g9 = torch.Generator(device=dev).manual_seed(SEED + 9)
+    q, k = (torch.randn(seqs, MD17_T, d, generator=g9, device=dev).to(bf) for _ in range(2))
+    v = torch.randn(seqs, MD17_T, 3 * d, generator=g9, device=dev).to(bf)[..., 2 * d:]
     args = (q, k, v, 16)
     got, want = tsa.short_attention(*args), tsa.reference_short_attention(*args)
     torch.cuda.synchronize()
@@ -1283,7 +1330,7 @@ def md17_kernel_checks(dev, gen, table: KernelTable) -> None:
     del got, want
 
     # K9 backward at the same shape, then ragged lengths and head dims
-    g = _rand(gen, seqs, MD17_T, d).to(dev, bf)
+    g = torch.randn(seqs, MD17_T, d, generator=g9, device=dev).to(bf)
     scale = dh ** -0.5
     for b, n, h, hd, key in ((seqs, MD17_T, 16, dh, "K9 backward"), (7, 9, 3, 24, "ragged"),
                              (5, 31, 2, 64, "ragged"), (3, 127, 4, 16, "ragged"),
@@ -1341,9 +1388,11 @@ def md17_dit_kernel_checks(dev, gen, table: KernelTable) -> None:
     dh = d // heads
 
     # K3: q/k contiguous (after the QK-norm and RoPE), v a view of linear1's
-    # output, as LatentDiT passes them
-    q, k = (_rand(gen, seqs, 192, d).to(dev, bf) for _ in range(2))
-    v = _rand(gen, seqs, 192, 3 * d).to(dev, bf)[..., 2 * d:]
+    # output, as LatentDiT passes them; drawn on the card by a generator of
+    # its own (2.4 G draws, about 12 s on a host generator)
+    g3 = torch.Generator(device=dev).manual_seed(SEED + 3)
+    q, k = (torch.randn(seqs, 192, d, generator=g3, device=dev).to(bf) for _ in range(2))
+    v = torch.randn(seqs, 192, 3 * d, generator=g3, device=dev).to(bf)[..., 2 * d:]
     args = (q, k, v, heads)
     got, want = fa.flash_attention_packed(*args), fa.reference_attention_packed(*args)
     torch.cuda.synchronize()
@@ -1617,13 +1666,15 @@ def peptide_f32_kernel_checks(dev, gen, table: KernelTable) -> None:
     """The fp32 kernels of the 4AA eval's DiT against their plain versions
     (TF32 off) at its shapes: K8-fp32 at [8000, 2, 384] (the ``kernels``
     line's row, with the two bare cuBLAS SGEMMs of its shapes as its library
-    time) and at the eval's [2000, 2, 384], at both head splits; K3-fp32
-    (packed q/k/v views, as LatentDiT passes them) at [2, 1000, 384] and
-    [8, 1000, 384], 16 x 24; K2-fp32 at 16,000 tokens of 384 -> 768 -> 384;
-    K7-fp32 at [8, 1000, 2, 384]. Each launches its fp32 kernel once a call
-    and repeats bit for bit."""
+    time) and at the eval's [2000, 2, 384], at both head splits, on its
+    outer-product kernel and bit-identical to the dot-product route; K3-fp32
+    (packed q/k/v views, as LatentDiT passes them) at [4, 1000, 384] and
+    [16, 1000, 384], 16 x 24, on the narrow kernel; K2-fp32 at 16,000 tokens
+    of 384 -> 768 -> 384; K7-fp32 at [8, 1000, 2, 384]. Each launches its
+    fp32 kernel once a call and repeats bit for bit."""
     from torch.nn.functional import gelu, linear
 
+    from lam_slide_tpu_torch.ops import _build
     from lam_slide_tpu_torch.ops import flash_attention as fa
     from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
 
@@ -1638,17 +1689,29 @@ def peptide_f32_kernel_checks(dev, gen, table: KernelTable) -> None:
         w2 = _rand(gen, d, d + m, scale=(d + m) ** -0.5).to(dev)
         b2 = _rand(gen, d, scale=0.1).to(dev)
         args8 = k8_args(dev, gen, x, w1, b1, w2, b2, heads)
-        before = (fsb.launches, fsb.f32_launches, fsb.wmma_launches)
+        names = ("launches", "f32_launches", "wmma_launches", "f32_tiled_launches",
+                 "f32_dot_launches")
+        before = [getattr(fsb, name) for name in names]
         got, again = fsb.fused_spatial_block(*args8), fsb.fused_spatial_block(*args8)
         want = fsb.reference_spatial_block(*args8)
         torch.cuda.synchronize()
-        launched = (fsb.launches - before[0], fsb.f32_launches - before[1],
-                    fsb.wmma_launches - before[2])
-        check(launched == (2, 2, 0), f"K8 fp32: launches {launched} for two calls")
+        launched = tuple(getattr(fsb, name) - b for name, b in zip(names, before))
+        check(launched == (2, 2, 0, 2, 0), f"K8 fp32: launches {launched} of (K8, fp32, WMMA, "
+              f"outer-product, dot-product) for two calls")
         check(got.dtype == torch.float32 and got.shape == x.shape, "K8 fp32 shape/dtype")
         check(torch.equal(got, again), "K8 fp32: a second call on the same inputs differs")
         abs_err, rel = errors(got, want)
         check(rel <= tol, f"K8 fp32 [{n},{L},{d}] {heads} heads rel err {rel} > {tol}")
+        # the dot-product route on the same inputs sums in the same order
+        plan = fsb.f32_plan(n, L, d, m, heads)
+        dot = torch.empty_like(x)
+        with torch.cuda.device(dev):
+            _build.launch("lam_spatial_block_f32", *(t.data_ptr() for t in args8[:9]),
+                          dot.data_ptr(), n, L, d, m, heads, w1.stride(0), w2.stride(0),
+                          args8[10], plan.group, torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        check(torch.equal(got, dot), f"K8 fp32 [{n},{L},{d}] {heads} heads: the outer- and "
+              f"dot-product kernels differ")
         rows = n * L
         mid = torch.empty(rows, d + m, device=dev)
 
@@ -1658,16 +1721,40 @@ def peptide_f32_kernel_checks(dev, gen, table: KernelTable) -> None:
 
         key = ("K8 fp32" if (n, heads) == (8000, HEADS)
                else f"K8 fp32 [{n},{L},{d}] {heads}x{d // heads}")
-        plan = fsb.f32_plan(n, L, d, m, heads)
-        table.add(key, f"x [{n},{L},{d}] heads {heads} x {d // heads}, fp32 (plan: group "
-                  f"{plan.group}, 32 rows a block, {plan.smem} B), rel {rel:.3e}, a "
-                  f"second call bit-identical; library: two bare cuBLAS SGEMMs of its shapes",
+        table.add(key, f"x [{n},{L},{d}] heads {heads} x {d // heads}, fp32, the "
+                  f"outer-product kernel (plan: group {plan.group}, 32 rows a block, "
+                  f"{plan.blocks} blocks, {plan.smem} B), rel {rel:.3e}, a "
+                  f"second call and the dot-product route bit-identical; library: two bare "
+                  f"cuBLAS SGEMMs of its shapes",
                   abs_err, f"rel tol {tol}", time_ms(lambda: fsb.fused_spatial_block(*args8)),
                   time_ms(lambda: fsb.reference_spatial_block(*args8), reps=5),
                   2 * rows * (d * (3 * d + m) + (d + m) * d),
                   4 * (2 * rows * d + (3 * d + m) * (d + 1) + d * (d + m + 1)),
                   time_ms(sgemms), peak=PEAK_FP32_FLOPS)
-        del x, w1, b1, w2, b2, args8, got, again, want, mid
+        del x, w1, b1, w2, b2, args8, got, again, want, mid, dot
+    # ragged last blocks of the outer-product kernel: frames that do not
+    # fill a 32-row block, L = 1, 3 (30 rows used) and 8, both splits; a
+    # generator of their own, so the draws below are as before
+    gr = torch.Generator().manual_seed(SEED + 14)
+    for n, l, heads in ((3999, 1, HEADS), (1001, 3, WIDE_HEADS), (37, 8, HEADS)):
+        x = _rand(gr, n, l, d).to(dev)
+        w1 = _rand(gr, 3 * d + m, d, scale=d ** -0.5).to(dev)
+        b1 = _rand(gr, 3 * d + m, scale=0.1).to(dev)
+        w2 = _rand(gr, d, d + m, scale=(d + m) ** -0.5).to(dev)
+        b2 = _rand(gr, d, scale=0.1).to(dev)
+        args8 = k8_args(dev, gr, x, w1, b1, w2, b2, heads)
+        before = fsb.f32_tiled_launches
+        got, again = fsb.fused_spatial_block(*args8), fsb.fused_spatial_block(*args8)
+        want = fsb.reference_spatial_block(*args8)
+        torch.cuda.synchronize()
+        check(fsb.f32_tiled_launches - before == 2,
+              f"K8 fp32 [{n},{l},{d}]: the outer-product kernel did not launch once a call")
+        check(torch.equal(got, again), f"K8 fp32 [{n},{l},{d}]: a second call differs")
+        _, rel = errors(got, want)
+        check(rel <= tol, f"K8 fp32 [{n},{l},{d}] {heads} heads rel err {rel} > {tol}")
+        print(f"kernel K8 fp32 ragged [{n},{l},{d}] {heads}x{d // heads}: rel {rel:.3e} (rel tol "
+              f"{tol}), a second call bit-identical")
+        del x, w1, b1, w2, b2, args8, got, again, want
     torch.cuda.empty_cache()
 
     dh = d // HEADS
@@ -1678,12 +1765,13 @@ def peptide_f32_kernel_checks(dev, gen, table: KernelTable) -> None:
         q, k = (_rand(gen, seqs, T, d).to(dev) for _ in range(2))
         v = _rand(gen, seqs, T, 3 * d).to(dev)[..., 2 * d:]
         args = (q, k, v, HEADS)
-        before = (fa.launches, fa.fp32_launches)
+        before = (fa.launches, fa.fp32_launches, fa.fp32_narrow_launches)
         got, again = fa.flash_attention_packed(*args), fa.flash_attention_packed(*args)
         want = fa.reference_attention_packed(*args)
         torch.cuda.synchronize()
-        check((fa.launches - before[0], fa.fp32_launches - before[1]) == (2, 2),
-              "K3 fp32: the fp32 kernel did not launch once a call")
+        check((fa.launches - before[0], fa.fp32_launches - before[1],
+               fa.fp32_narrow_launches - before[2]) == (2, 2, 2),
+              "K3 fp32: the narrow fp32 kernel did not launch once a call")
         check(torch.equal(got, again), "K3 fp32: a second call on the same inputs differs")
         abs_err, rel = errors(got, want)
         tol3 = PEP_F32_REL_TOL["K3 fp32"]
@@ -2680,6 +2768,9 @@ def md17_loop_phase(dev, smi, reset_counts, read_counts):
         check(test_counts["K2 fp32 tiled"] == test_counts["K2 fp32"]
               and test_counts["K2 fp32 dot"] == 0,
               f"md17_loop: K2-fp32 left its outer-product kernel in the test pass: {test_counts}")
+        check(test_counts["K1 fp32 narrow"] == test_counts["K1 fp32"],
+              f"md17_loop: K1-fp32 at dh 16 left its narrow kernel in the test pass: "
+              f"{test_counts}")
         check(all(v == 0 for v in bf16.values()) and test_counts["K8"] == 0,
               f"md17_loop: a bf16 DiT kernel launched in the test pass: {bf16}")
         check(all(train_counts[k] - train_counts[f"{k} fp32"] > 0 for k in ("K2", "K7", "K9"))
@@ -3064,6 +3155,11 @@ def peptide_loop_phase(dev, smi, reset_counts, read_counts):
         check(eval_counts["K2 fp32 tiled"] == eval_counts["K2 fp32"]
               and eval_counts["K2 fp32 dot"] == 0,
               f"peptide_loop: K2-fp32 left its outer-product kernel in the eval: {eval_counts}")
+        check(eval_counts["K8 fp32 tiled"] == eval_counts["K8 fp32"]
+              and eval_counts["K8 fp32 dot"] == 0
+              and eval_counts["K1 fp32 narrow"] == eval_counts["K1 fp32"],
+              f"peptide_loop: K8-fp32 left its outer-product kernel or K3-fp32 its narrow one "
+              f"in the eval: {eval_counts}")
         check(all(v == 0 for v in bf16.values()) and eval_counts["K5"] == 0
               and eval_counts["K9"] == 0, f"peptide_loop: a bf16 DiT kernel launched: {bf16}")
 
@@ -3148,7 +3244,8 @@ def peptide_loop_phase(dev, smi, reset_counts, read_counts):
               f"{wide_eval} | {smi}")
         want_k5 = DEPTH * nfe  # one temporal attention a layer a drift evaluation
         check(wide_eval["K5 fp32"] == wide_eval["K5"] == wide_eval["K5 transform"] == want_k5
-              and wide_eval["K8 fp32"] == wide_eval["K8"] == want_k5,
+              and wide_eval["K8 fp32"] == wide_eval["K8"] == wide_eval["K8 fp32 tiled"]
+              == want_k5,
               f"peptide_loop {heads}: K5-fp32 / K8-fp32 launches {wide_eval['K5 fp32']} / "
               f"{wide_eval['K8 fp32']}, not {DEPTH} x NFE = {want_k5}")
         check(all(wide_eval[k] == wide_eval[f"{k} fp32"] for k in ("K2", "K7"))
@@ -3429,11 +3526,12 @@ def k4_f32_kernels(dh: int, nq: int, nk: int) -> int:
 
 
 def f32_want(counts, *nonzero):
-    """Every counter 0 but those the dicts ``nonzero`` give (later ones win)."""
+    """Every counter 0 but those the dicts ``nonzero`` give (later ones win),
+    and the fp32 routes that follow (``with_routes``)."""
     want = {key: 0 for key in counts}
     for given in nonzero:
         want.update(given)
-    return want
+    return with_routes(want)
 
 
 def fp32_train_phase(dev, smi, reset_counts, read_counts):
@@ -4081,6 +4179,10 @@ def main() -> int:
                 "K2 fp32": (fm, "fp32_launches"), "K7 fp32": (fad, "fp32_launches"),
                 "K1 fp32 wide": (fa, "fp32_wide_launches"),
                 "K5 fp32 wide": (fnr, "fp32_wide_launches"),
+                "K1 fp32 narrow": (fa, "fp32_narrow_launches"),
+                "K5 fp32 narrow": (fnr, "fp32_narrow_launches"),
+                "K8 fp32 tiled": (fsb, "f32_tiled_launches"),
+                "K8 fp32 dot": (fsb, "f32_dot_launches"),
                 "K2 fp32 tiled": (fm, "fp32_tiled_launches"),
                 "K2 fp32 dot": (fm, "fp32_dot_launches"),
                 "K9 fp32": (tsa, "fp32_launches"),
@@ -4337,9 +4439,10 @@ def main() -> int:
         "K4": ("flash_attention_backward", "flash_bwd_sm90.cu", "flash_attention.py:442"),
         "K6": ("flash_attention_normrope_backward", "flash_bwd_sm90.cu",
                "flash_normrope.py:249"),
-        "K1 bias": ("flash_attention_fwd (key-padding bias, fp32)", "flash_attention.cu",
-                    "flash_attention.py:37"),
-        "K1 fp32": ("flash_attention_fwd (fp32 operands)", "flash_attention.cu",
+        "K1 bias": ("flash_attention_fwd (key-padding bias, fp32: the narrow kernel over "
+                    "32-key tiles)", "flash_attention.cu", "flash_attention.py:37"),
+        "K1 fp32": ("flash_attention_fwd (fp32 operands at dh <= 64: the narrow register-tiled "
+                    "kernel, also K3-fp32's on the fp32 DiTs)", "flash_attention.cu",
                     "flash_attention.py:37"),
         "K9": ("short_attention", "short_attention.cu", "short_attention.py:83"),
         "K4 bias": ("flash_attention_backward (key-padding bias, fp32)",
@@ -4355,9 +4458,9 @@ def main() -> int:
                     "fused_adaln.py:98"),
         "K9 fp32": ("short_attention (fp32 operands, forward)", "short_attention_f32.cu",
                     "short_attention.py:83"),
-        "K8 fp32": ("fused_spatial_block (fp32 operands; under autograd the kernel's "
-                    "forward and the plain VJP)", "fused_spatial_block_f32.cu",
-                    "fused_spatial_block.py:108"),
+        "K8 fp32": ("fused_spatial_block (fp32 operands: the outer-product kernel at the 4AA "
+                    "widths; under autograd the kernel's forward and the plain VJP)",
+                    "fused_spatial_block_f32.cu", "fused_spatial_block.py:108"),
         "K5 fp32": ("flash_attention_normrope (fp32 operands, forward: the fp32 transform, "
                     "then K1's fp32 kernel at 64 < dh <= 128)", "flash_attention.cu",
                     "flash_normrope.py:74"),
@@ -4395,14 +4498,15 @@ def main() -> int:
                        K3=launches[HEADS]["K1 sm90"], K5=launches[WIDE_HEADS]["K5 sm90"],
                        K4=train_counts[HEADS]["K4 sm90"], K6=train_counts[WIDE_HEADS]["K6 sm90"],
                        **{"K5 transform": launches[WIDE_HEADS]["K5 transform"],
-                          "K1 bias": md17_counts["K1 bias"], "K1 fp32": md17_counts["K1 fp32"],
+                          "K1 bias": md17_counts["K1 bias"],
+                          "K1 fp32": md17_counts["K1 fp32 narrow"],
                           "K9": md17_counts["K9"], "K4 bias": md17_train["K4 bias"],
                           "K4 fp32": md17_train["K4 fp32"], "K9 bwd": md17_train["K9 bwd"],
                           "K10": k10_counts["K10"], "K11": k11_counts["K11"],
                           "K8 wmma": tiny_counts["K8 wmma"],
                           **{key: loop_test_counts[key]
                              for key in ("K2 fp32", "K7 fp32", "K9 fp32")},
-                          "K8 fp32": peptide_eval_counts["K8 fp32"],
+                          "K8 fp32": peptide_eval_counts["K8 fp32 tiled"],
                           "K5 fp32": wide_eval_counts["K5 fp32"],
                           "K1 fp32 dh128": (wide_eval_counts["K5 fp32 wide"]
                                             + wide_eval_counts["K1 fp32 wide"]),

@@ -58,17 +58,21 @@
 // fp32 operands (stage 1 runs in fp32, composites/md17.py:93, and the fp32
 // sampling DiT of the MD17 --test pass and the 4AA eval): FFMA on the CUDA
 // cores (no TF32: the JAX interpret path it is held to is exact fp32), the
-// same online softmax and bias. For dh <= 64 one thread takes a query row,
-// q and the accumulator in its registers, over 32-key K/V tiles read as
-// broadcasts, 64 rows a block. For 64 < dh <= 128 (the 2 x 128 and 3 x 128
-// DiTs, through K5's transform) a register-tiled kernel
-// (flash_fwd_f32_tiled_kernel below): each thread holds a 4 x 4 block of a
-// 64 x 64 score tile and a 4 x 8 block of the output, as a SIMT GEMM does,
-// so a 16-byte shared load feeds 8 to 10.7 FFMAs; each score takes one
-// expf. Bound on the H100: bytes at the stage-1 shapes (keys <= 192, dh 16;
-// ~0.14 ms for the encoder's cross call), operations at dh 128 over
-// N >= 192 (72.5 GFLOP, ~1.08 ms at [1920,2,192,128]), bytes over MD17's
-// T = 30 (~0.45 ms at [12288,2,30,128]).
+// same online softmax and bias, in two register-tiled kernels that hold,
+// as a SIMT GEMM does, a thread's block of the scores and of the output:
+// for dh <= 64 (the 4AA DiT's dh 24, MD17's dh 16) the narrow kernel
+// (flash_fwd_f32_narrow_kernel below: 64-row blocks of 256 threads, a
+// thread 4 x 4 scores and, over a quarter of each key tile, 4 x dh/4
+// outputs, dh padded to a multiple of 8, three blocks an SM at dh <= 16 and
+// two above); for 64 < dh <= 128 (the 2 x 128 and 3 x 128 DiTs, through
+// K5's transform)
+// flash_fwd_f32_tiled_kernel: a thread a 4 x 4 block of a 64 x 64 score
+// tile and a 4 x 8 block of the output, so a 16-byte shared load feeds 8 to
+// 10.7 FFMAs. Each score takes one expf. Bound on the H100: bytes at the
+// stage-1 cross-attention (keys 32, dh 16; ~0.13 ms), operations over
+// N >= 192 (0.68 ms at [9600,2,192,16], 72.5 GFLOP and ~1.08 ms at
+// [1920,2,192,128]), bytes over MD17's T = 30 (~0.45 ms at
+// [12288,2,30,128]).
 //
 // lse: when the caller passes an fp32 [B, H, Nq] buffer (training), each
 // query row of either kernel also writes m + log(max(l, 1e-30)), the
@@ -299,99 +303,306 @@ int launch_dh(const void* q, const void* k, const void* v, void* o, void* lse,
   return static_cast<int>(err);
 }
 
-// fp32 operands: 64 query rows per block, one thread per row; 32-key K/V
-// tiles (and the bias slice) staged in shared memory and read as
-// broadcasts; q and the accumulator in registers.
-constexpr int F32_ROWS = 64;
-constexpr int F32_KEYS = 32;
+// fp32 operands at dh <= 64 (the 4AA fp32 DiT's dh 24 through K3, MD17's
+// dh 16: stage 1 with and without the bias, and the fp32 DiT's K3):
+// register-tiled FFMA in the narrow geometry of K4's fp32 kernel
+// (flash_attention_bwd.cu). A block of NF_THREADS takes 64 query rows of
+// one (batch, head) sequence and walks the keys in tiles of KT (the
+// wrapper's f32_narrow_fwd_plan: 64, or 32 where Nk <= 32, stage 1's padded
+// atoms, so that tile is not half empty);
+// the K and V tiles and the bias slice are double-buffered by cp.async (16
+// bytes where bases, strides and dh allow it: VEC), dh zero-padded to DP,
+// the next of 8, 16, 24, 32, 48, 64, in shared memory only, in rows of
+// DP + 4 floats (16 rows read at once fall on distinct banks).
+// - S = Q K^T: thread (rg, kg) = (tid / 16, tid % 16) holds the scores of
+//   query rows 4 rg + i and keys kg + 16 j (i < 4, j < KT / 16): per 4
+//   columns of dh it reads 4 float4 of Q (one address a half warp) and
+//   KT / 16 of K (16 rows at once), one FMA chain over dh a score.
+// - The softmax keeps a row in the 16 lanes of one half warp, as the
+//   register-tiled kernel at dh 128 does: the tile's row max by four xor
+//   shuffles, one expf a score, each lane's partial row sum rescaled by
+//   alpha. P goes to shared memory key-major, alpha beside it.
+// - O = P V: thread (sl, ro, co) sums slice sl of the tile's keys (KT / 4
+//   of them) into query rows 4 ro + i and columns DP / 4 co .. + DP / 4:
+//   per key a float4 of P and DP / 4 floats of V for DP FFMAs, with no
+//   padding past the keys that exist. The four slices' partial outputs,
+//   each rescaled by alpha at every tile, meet once at the end of the block
+//   in shared memory, summed in slice order, so a result repeats bit for
+//   bit.
+// Two blocks an SM (at most 128 registers a thread; 54 KB of shared memory
+// at DP 24), three at DP <= 16 (at most 85 registers). Bound on the H100:
+// operations (4 dh FLOPs a score; 0.0917 ms at [4,1000,384] 16 x dh 24),
+// or bytes where the keys are few (stage 1's cross-attention over 32
+// atoms).
+constexpr int NF_THREADS = 256;
+constexpr int NF_ROWS = 64;          // query rows a block
+constexpr int NF_LDP = NF_ROWS + 4;  // P^T: a key's row of 64 probabilities
+constexpr int NF_SLICES = 4;         // key slices of O = P V
 
-template <int DP>
-__global__ void __launch_bounds__(F32_ROWS)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, const float* __restrict__ bias, int H, int Nq,
-                     int Nk, int dh,
-                     long long q_sb, long long q_sh, long long q_sn,
-                     long long k_sb, long long k_sh, long long k_sn,
-                     long long v_sb, long long v_sh, long long v_sn,
-                     long long o_sb, long long o_sh, long long o_sn, float scale) {
-  __shared__ float Ks[F32_KEYS][DP];
-  __shared__ float Vs[F32_KEYS][DP];
-  __shared__ float Bs[F32_KEYS];
-  const TileIdx ti = tile_index(Nq, F32_ROWS);
-  const int b = ti.bh / H, h = ti.bh % H;
-  const int qrow = ti.tile * F32_ROWS + threadIdx.x;
-  const bool row_ok = qrow < Nq;
-  const float* kp = k + b * k_sb + h * k_sh;
-  const float* vp = v + b * v_sb + h * v_sh;
+template <int DP, int KT>
+struct NarrowFwdLayout {
+  static constexpr int LD = DP + 4;
+  static constexpr int k_off = NF_ROWS * LD;          // Q [64][LD] at 0, K [2][KT][LD]
+  static constexpr int v_off = k_off + 2 * KT * LD;   // V [2][KT][LD]
+  static constexpr int p_off = v_off + 2 * KT * LD;   // P^T [KT][NF_LDP]
+  static constexpr int b_off = p_off + KT * NF_LDP;   // the bias slice [2][KT]
+  static constexpr int tiles = b_off + 2 * KT;
+  // the slices' partial outputs [NF_SLICES][64][DP + 1] overlay the tiles at the end
+  static constexpr int partials = NF_SLICES * NF_ROWS * (DP + 1);
+  static constexpr int a_off = tiles > partials ? tiles : partials;  // alpha [64]
+  static constexpr int l_off = a_off + NF_ROWS;                      // l [64]
+  static constexpr size_t bytes = sizeof(float) * (l_off + NF_ROWS);
+};
 
-  float qr[DP], acc[DP];
-#pragma unroll
-  for (int c = 0; c < DP; ++c) {
-    qr[c] = (row_ok && c < dh) ? q[b * q_sb + h * q_sh + qrow * q_sn + c] : 0.0f;
-    acc[c] = 0.0f;
-  }
-  float m = NEG_INF, l = 0.0f;
-  for (int k0 = 0; k0 < Nk; k0 += F32_KEYS) {
-    __syncthreads();  // previous tile fully consumed
-    for (int idx = threadIdx.x; idx < F32_KEYS * DP; idx += F32_ROWS) {
+// Rows [n0, n0 + rows) of one sequence (row stride sn) into a [rows][DP + 4]
+// tile by cp.async, zero past n and past dh.
+template <int DP, bool VEC>
+__device__ __forceinline__ void narrow_fwd_stage(float* dst, const float* src, long long sn,
+                                                 int rows, int n0, int n, int dh) {
+  constexpr int LD = DP + 4;
+  if constexpr (VEC) {
+    for (int idx = threadIdx.x; idx < rows * (DP / 4); idx += NF_THREADS) {
+      const int r = idx / (DP / 4), c = 4 * (idx % (DP / 4));
+      const bool ok = n0 + r < n && c < dh;
+      cp_async16(dst + r * LD + c, ok ? src + (n0 + r) * sn + c : src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * DP; idx += NF_THREADS) {
       const int r = idx / DP, c = idx % DP;
-      const bool ok = k0 + r < Nk && c < dh;
-      Ks[r][c] = ok ? kp[static_cast<long long>(k0 + r) * k_sn + c] : 0.0f;
-      Vs[r][c] = ok ? vp[static_cast<long long>(k0 + r) * v_sn + c] : 0.0f;
+      const bool ok = n0 + r < n && c < dh;
+      cp_async4(dst + r * LD + c, ok ? src + (n0 + r) * sn + c : src, ok);
     }
-    if (threadIdx.x < F32_KEYS) {
-      const int key = k0 + threadIdx.x;
-      Bs[threadIdx.x] = (bias != nullptr && key < Nk) ? bias[static_cast<long long>(b) * Nk + key]
-                                                      : 0.0f;
-    }
-    __syncthreads();
-
-    float sv[F32_KEYS];
-    float mx = NEG_INF;
-#pragma unroll
-    for (int j = 0; j < F32_KEYS; ++j) {
-      float s = 0.0f;
-#pragma unroll
-      for (int c = 0; c < DP; ++c) s = fmaf(qr[c], Ks[j][c], s);
-      // the scaled logit rounds before the bias add, as in JAX
-      s = k0 + j >= Nk ? -CUDART_INF_F : __fadd_rn(__fmul_rn(s, scale), Bs[j]);
-      sv[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    const float m_new = fmaxf(m, mx);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
-#pragma unroll
-    for (int c = 0; c < DP; ++c) acc[c] *= alpha;
-#pragma unroll
-    for (int j = 0; j < F32_KEYS; ++j) {
-      const float p = expf(sv[j] - m_new);
-      l += p;
-#pragma unroll
-      for (int c = 0; c < DP; ++c) acc[c] = fmaf(p, Vs[j][c], acc[c]);
-    }
-    m = m_new;
-  }
-  if (row_ok) {
-    const float denom = fmaxf(l, 1e-30f);
-    float* op = o + b * o_sb + h * o_sh + static_cast<long long>(qrow) * o_sn;
-#pragma unroll
-    for (int c = 0; c < DP; ++c)
-      if (c < dh) op[c] = acc[c] / denom;
-    if (lse != nullptr) lse[static_cast<long long>(ti.bh) * Nq + qrow] = m + logf(denom);
   }
 }
 
+// CN consecutive floats of a shared-memory row, in float4 or float2 loads.
+template <int CN>
+__device__ __forceinline__ void narrow_fwd_row(const float* p, float (&r)[CN]) {
+  if constexpr (CN % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < CN; c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + c);
+      r[c] = x.x, r[c + 1] = x.y, r[c + 2] = x.z, r[c + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < CN; c += 2) {
+      const float2 x = *reinterpret_cast<const float2*>(p + c);
+      r[c] = x.x, r[c + 1] = x.y;
+    }
+  }
+}
+
+// Blocks an SM: three at dh <= 16 (MD17's short axes over 192 or 32 keys,
+// where a block's prologue and epilogue weigh most: 0.6062 against 0.7373 ms
+// at [1920,8,192->32,16] on an H100), else two (0.2634 against 0.2694 at
+// [4,16,1000,24]; tools/kernel_variants.py K1-fp32-narrow).
 template <int DP>
-cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o, float* lse,
-                       const float* bias, int B, int H, int Nq, int Nk, int dh,
-                       const long long* s, float scale, cudaStream_t stream) {
-  const dim3 grid(grid_blocks(B * H, Nq, F32_ROWS));
-  flash_fwd_f32_kernel<DP><<<grid, F32_ROWS, 0, stream>>>(
-      q, k, v, o, lse, bias, H, Nq, Nk, dh, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8],
-      s[9], s[10], s[11], scale);
+constexpr int nf_blocks_per_sm() { return DP <= 16 ? 3 : 2; }
+
+template <int DP, int KT, bool VEC>
+__global__ void __launch_bounds__(NF_THREADS, nf_blocks_per_sm<DP>())
+flash_fwd_f32_narrow_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ o,
+                            float* __restrict__ lse, const float* __restrict__ bias, int H,
+                            int Nq, int Nk, int dh,
+                            long long q_sb, long long q_sh, long long q_sn,
+                            long long k_sb, long long k_sh, long long k_sn,
+                            long long v_sb, long long v_sh, long long v_sn,
+                            long long o_sb, long long o_sh, long long o_sn, float scale) {
+  using L = NarrowFwdLayout<DP, KT>;
+  constexpr int LD = L::LD, JN = KT / 16, CO = DP / 4, SK = KT / NF_SLICES;
+  extern __shared__ __align__(16) float nfs[];
+  float* Qs = nfs;
+  float* Ps = nfs + L::p_off;
+  float* As = nfs + L::a_off;
+  float* Ls = nfs + L::l_off;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const TileIdx ti = tile_index(Nq, NF_ROWS);
+  const int b = ti.bh / H, h = ti.bh % H, q0 = ti.tile * NF_ROWS;
+  const float* kp = k + b * k_sb + h * k_sh;
+  const float* vp = v + b * v_sb + h * v_sh;
+  const float* bp = bias == nullptr ? nullptr : bias + static_cast<long long>(b) * Nk;
+
+  // tile t of K, V and the bias into stage t % 2; without a bias both
+  // stages' slices stay 0, and 0.0 leaves a logit exact
+  auto stage = [&](int t) {
+    const int st = t & 1, k0 = t * KT;
+    narrow_fwd_stage<DP, VEC>(nfs + L::k_off + st * KT * LD, kp, k_sn, KT, k0, Nk, dh);
+    narrow_fwd_stage<DP, VEC>(nfs + L::v_off + st * KT * LD, vp, v_sn, KT, k0, Nk, dh);
+    if (bp != nullptr && tid < KT)
+      cp_async4(nfs + L::b_off + st * KT + tid, k0 + tid < Nk ? bp + k0 + tid : bp,
+                k0 + tid < Nk);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  if (bp == nullptr && tid < 2 * KT) nfs[L::b_off + tid] = 0.0f;
+  narrow_fwd_stage<DP, VEC>(Qs, q + b * q_sb + h * q_sh, q_sn, NF_ROWS, q0, Nq, dh);
+  stage(0);
+
+  const int rg = tid / 16, kg = tid % 16;  // S and the softmax
+  const int sl = warp / 2, ro = 8 * (warp % 2) + lane / 4, co = lane % 4;  // O = P V
+  float m[4], lp[4], acc[4][CO];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = NEG_INF;
+    lp[i] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CO; ++c) acc[i][c] = 0.0f;
+  }
+  const int n_tiles = (Nk + KT - 1) / KT;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * KT;
+    const float* Ks = nfs + L::k_off + (t & 1) * KT * LD;
+    const float* Vs = nfs + L::v_off + (t & 1) * KT * LD;
+    const float* Bs = nfs + L::b_off + (t & 1) * KT;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // tile t (and Q) landed; tile t - 1's P and V consumed
+    if (t + 1 < n_tiles) stage(t + 1);
+
+    // S: rows 4 rg + i, tile keys kg + 16 j
+    float sc[4][JN];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < JN; ++j) sc[i][j] = 0.0f;
+    const float* qrow = Qs + 4 * rg * LD;
+    const float* krow = Ks + kg * LD;
+#pragma unroll
+    for (int d = 0; d < DP; d += 4) {
+      float4 qv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(qrow + i * LD + d);
+#pragma unroll
+      for (int j = 0; j < JN; ++j) {
+        const float4 kv = *reinterpret_cast<const float4*>(krow + 16 * j * LD + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sc[i][j] = wide_dot4(qv[i], kv, sc[i][j]);
+      }
+    }
+    // the scaled logit rounds before the bias add, as in JAX; keys past Nk: -inf
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < JN; ++j) {
+        const int col = kg + 16 * j;
+        sc[i][j] = k0 + col < Nk ? __fadd_rn(__fmul_rn(sc[i][j], scale), Bs[col])
+                                 : -CUDART_INF_F;
+        mx = fmaxf(mx, sc[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      alpha[i] = expf(m[i] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < JN; ++j) {
+        const float p = expf(sc[i][j] - m_new);
+        sc[i][j] = p;
+        sum += p;
+      }
+      lp[i] = lp[i] * alpha[i] + sum;
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < JN; ++j)
+      *reinterpret_cast<float4*>(Ps + (kg + 16 * j) * NF_LDP + 4 * rg) =
+          make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
+    if (kg == 0)
+      *reinterpret_cast<float4*>(As + 4 * rg) = make_float4(alpha[0], alpha[1], alpha[2], alpha[3]);
+    __syncthreads();  // P^T and alpha in place
+
+    // O = O * alpha + P V over the slice's keys that exist
+    const float4 al = *reinterpret_cast<const float4*>(As + 4 * ro);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < CO; ++c) acc[i][c] *= f4(al, i);
+    const int kb = sl * SK, ke = min(kb + SK, Nk - k0);
+    const float* prow = Ps + 4 * ro;
+    const float* vrow = Vs + CO * co;
+#pragma unroll 4
+    for (int kk = kb; kk < ke; ++kk) {
+      const float4 pv = *reinterpret_cast<const float4*>(prow + kk * NF_LDP);
+      float vr[CO];
+      narrow_fwd_row<CO>(vrow + kk * LD, vr);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < CO; ++c) acc[i][c] = fmaf(f4(pv, i), vr[c], acc[i][c]);
+    }
+  }
+
+  // l over the row's 16 lanes and the lse; then the slices' partial outputs
+  // summed in slice order, divided by max(l, 1e-30)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float l = lp[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    const int r = 4 * rg + i;
+    if (kg == 0) {
+      Ls[r] = l;
+      if (lse != nullptr && q0 + r < Nq)
+        lse[static_cast<long long>(ti.bh) * Nq + q0 + r] = m[i] + logf(fmaxf(l, 1e-30f));
+    }
+  }
+  __syncthreads();  // every read of the tiles is done: the partials overlay them
+  constexpr int RLD = DP + 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < CO; ++c) nfs[(sl * NF_ROWS + 4 * ro + i) * RLD + CO * co + c] = acc[i][c];
+  __syncthreads();
+  float* op = o + b * o_sb + h * o_sh;
+  for (int idx = tid; idx < NF_ROWS * DP; idx += NF_THREADS) {
+    const int r = idx / DP, c = idx % DP;
+    if (q0 + r >= Nq || c >= dh) continue;
+    float y = nfs[r * RLD + c];
+#pragma unroll
+    for (int s = 1; s < NF_SLICES; ++s) y += nfs[(s * NF_ROWS + r) * RLD + c];
+    op[(q0 + r) * o_sn + c] = y / fmaxf(Ls[r], 1e-30f);
+  }
+}
+
+template <int DP, int KT, bool VEC>
+cudaError_t launch_f32_narrow(const float* q, const float* k, const float* v, float* o,
+                              float* lse, const float* bias, int B, int H, int Nq, int Nk,
+                              int dh, const long long* s, float scale, cudaStream_t stream) {
+  constexpr size_t smem = NarrowFwdLayout<DP, KT>::bytes;
+  static cudaError_t attr = lam_set_smem(flash_fwd_f32_narrow_kernel<DP, KT, VEC>, smem);
+  if (attr != cudaSuccess) return attr;
+  flash_fwd_f32_narrow_kernel<DP, KT, VEC>
+      <<<grid_blocks(B * H, Nq, NF_ROWS), NF_THREADS, smem, stream>>>(
+          q, k, v, o, lse, bias, H, Nq, Nk, dh, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7],
+          s[8], s[9], s[10], s[11], scale);
   return cudaGetLastError();
+}
+
+// The narrow kernel at the padded width dp and key tile (32 or 64) of the
+// wrapper's f32_narrow_fwd_plan.
+template <bool VEC>
+cudaError_t launch_f32_narrow_dp(const float* q, const float* k, const float* v, float* o,
+                                 float* lse, const float* bias, int B, int H, int Nq, int Nk,
+                                 int dh, const long long* s, float scale, int dp, int keys,
+                                 cudaStream_t st) {
+#define LAM_NARROW_FWD(DP)                                                                     \
+  case DP:                                                                                     \
+    return keys == 32 ? launch_f32_narrow<DP, 32, VEC>(q, k, v, o, lse, bias, B, H, Nq, Nk,    \
+                                                       dh, s, scale, st)                       \
+                      : launch_f32_narrow<DP, 64, VEC>(q, k, v, o, lse, bias, B, H, Nq, Nk,    \
+                                                       dh, s, scale, st);
+  switch (dp) {
+    LAM_NARROW_FWD(8)
+    LAM_NARROW_FWD(16)
+    LAM_NARROW_FWD(24)
+    LAM_NARROW_FWD(32)
+    LAM_NARROW_FWD(48)
+    LAM_NARROW_FWD(64)
+    default: return cudaErrorInvalidValue;
+  }
+#undef LAM_NARROW_FWD
 }
 
 // fp32 operands at 64 < dh <= 128: register-tiled FFMA. A block of
@@ -710,14 +921,17 @@ extern "C" int lam_flash_attention_fwd(
 }
 
 // As lam_flash_attention_fwd on fp32 q/k/v/o, with or without a bias; dh <= 128.
-// seg: the plan of the register-tiled kernel at 64 < dh <= 128 (the
-// wrapper's f32_wide_plan: 1, or 2 sequences a block where Nq and Nk are at
-// most 32); unread at dh <= 64.
+// plan: at dh <= 64 the narrow kernel's padded width and keys its key
+// tile (the wrapper's f32_narrow_fwd_plan: 8, 16, 24, 32, 48 or 64, at
+// least dh; 32 or 64); at 64 < dh <= 128 the register-tiled kernel's
+// sequences a block (f32_wide_plan: 1, or 2 where Nq and Nk are at most
+// 32), keys unused.
 extern "C" int lam_flash_attention_fwd_f32(
     const void* q, const void* k, const void* v, void* o, void* lse, const void* bias, int B,
     int H, int Nq, int Nk, int dh, long long q_sb, long long q_sh, long long q_sn, long long k_sb,
     long long k_sh, long long k_sn, long long v_sb, long long v_sh, long long v_sn,
-    long long o_sb, long long o_sh, long long o_sn, float scale, int seg, void* stream) {
+    long long o_sb, long long o_sh, long long o_sn, float scale, int plan, int keys,
+    void* stream) {
   const long long s[12] = {q_sb, q_sh, q_sn, k_sb, k_sh, k_sn,
                            v_sb, v_sh, v_sn, o_sb, o_sh, o_sn};
   auto qf = static_cast<const float*>(q);
@@ -727,27 +941,28 @@ extern "C" int lam_flash_attention_fwd_f32(
   auto lf = static_cast<float*>(lse);
   auto bf = static_cast<const float*>(bias);
   auto st = static_cast<cudaStream_t>(stream);
-  if (dh <= 0 || dh > WIDE_DP) return static_cast<int>(cudaErrorInvalidValue);
+  const bool wide = dh > 64;
+  if (dh <= 0 || dh > WIDE_DP || Nq <= 0 || Nk <= 0 ||
+      (wide ? (plan != 1 && plan != 2) || (plan == 2 && (Nq > 32 || Nk > 32))
+            : plan < dh || plan > 64 || plan % 8 != 0 || (keys != 32 && keys != 64)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte copies where every base and stride allows them and dh % 4 == 0
+  unsigned long long bits = reinterpret_cast<unsigned long long>(q) |
+                            reinterpret_cast<unsigned long long>(k) |
+                            reinterpret_cast<unsigned long long>(v) |
+                            reinterpret_cast<unsigned long long>(o);
+  for (long long x : s) bits |= 4ull * static_cast<unsigned long long>(x);
+  const bool vec = (bits & 15) == 0 && dh % 4 == 0;
   cudaError_t err;
-  if (dh > 64) {
-    if ((seg != 1 && seg != 2) || (seg == 2 && (Nq > 32 || Nk > 32)))
-      return static_cast<int>(cudaErrorInvalidValue);
-    unsigned long long bits = reinterpret_cast<unsigned long long>(q) |
-                              reinterpret_cast<unsigned long long>(k) |
-                              reinterpret_cast<unsigned long long>(v) |
-                              reinterpret_cast<unsigned long long>(o);
-    for (long long x : s) bits |= 4ull * static_cast<unsigned long long>(x);
-    if ((bits & 15) == 0 && dh % 4 == 0)
-      err = launch_f32_wide<true>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, seg, st);
-    else
-      err = launch_f32_wide<false>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, seg, st);
-  } else if (dh <= 16) {
-    err = launch_f32<16>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, st);
-  } else if (dh <= 32) {
-    err = launch_f32<32>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, st);
-  } else {
-    err = launch_f32<64>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, st);
-  }
+  if (wide)
+    err = vec ? launch_f32_wide<true>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, plan, st)
+              : launch_f32_wide<false>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale, plan,
+                                       st);
+  else
+    err = vec ? launch_f32_narrow_dp<true>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale,
+                                           plan, keys, st)
+              : launch_f32_narrow_dp<false>(qf, kf, vf, of, lf, bf, B, H, Nq, Nk, dh, s, scale,
+                                            plan, keys, st);
   return static_cast<int>(err);
 }
 

@@ -16,11 +16,17 @@
 // reference_spatial_block) computes it in fp32; sums are taken in another
 // order, so results agree to a few fp32 ulps, not bit for bit.
 //
-// Design (a tiled FFMA kernel, K2-fp32's machinery): a block of 256 threads
-// owns RB = 32 rows, i.e. 32 / L whole frames, and keeps their [RB, D] fp32
-// output in registers (a 16 x 16 thread grid: rows 2 ty, 2 ty + 1, columns
-// tx + 16 j). The x tile stays in shared memory for
-// the whole block. linear1 is never held whole (at 4AA it is 1,920 floats a
+// Two kernels. The outer-product kernel (namespace tiled, below) takes the
+// widths of the 4AA DiT (D 384 at 16 x 24 and 3 x 128, M 768); the
+// dot-product kernel takes the other widths the wrapper's checks accept, as
+// a route. Both sum every output and every mid in the same order, so they
+// agree bit for bit.
+//
+// The dot-product kernel (K2-fp32's first machinery): a block of 256
+// threads owns RB = 32 rows, i.e. 32 / L whole frames, and keeps their
+// [RB, D] fp32 output in registers (a 16 x 16 thread grid: rows 2 ty,
+// 2 ty + 1, columns tx + 16 j). The x tile stays in shared memory for the
+// whole block. linear1 is never held whole (at 4AA it is 1,920 floats a
 // position); linear2's K dimension is walked chunk by chunk instead:
 // - per head group (`group` columns, whole heads, at most 128 unless one
 //   head is wider): the group's q, k and v columns (3 x group) are computed
@@ -41,13 +47,18 @@
 // output is summed by one thread in a fixed order (attention groups, then
 // MLP chunks, K in order), so a result repeats bit for bit.
 //
-// What bounds it on the H100: 2 * rows * (D * (3D + M) + (D + M) * D) FLOPs
-// on the FP32 pipes (67 TFLOP/s) against rows * 2D * 4 bytes: operations
-// (0.56 ms at the 4AA eval's [8000, 2, 384]).
+// What bounds both on the H100: 2 * rows * (D * (3D + M) + (D + M) * D)
+// FLOPs on the FP32 pipes (67 TFLOP/s) against rows * 2D * 4 bytes:
+// operations (0.14 ms at the 4AA eval's [2000, 2, 384], 0.56 at
+// [8000, 2, 384]). The dot-product kernel reads shared memory 16 bytes for 4
+// FFMAs in linear1 (a thread 2 x 2 mids of a 32-column tile); the
+// outer-product kernel 16 bytes for 12 (a thread 4 x 12 outputs or mids),
+// and its weights arrive by bulk copies the threads do not issue.
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -342,6 +353,345 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The outer-product kernel (namespace tiled; the route of the widths the
+// wrapper's f32_plan gives it: D 384 with head groups of 96 or 128 columns
+// and M a multiple of 384, the 4AA DiT at 16 x 24 and 3 x 128), in the shape
+// of K2-fp32's outer-product kernel (fused_mlp_f32.cu). A block of NT = 256
+// threads owns BM = 32 rows (32 / L whole frames) and keeps their
+// [32, 384] output in registers, a TM x TN2 = 4 x 12 micro-tile a thread;
+// x^T [D][36] stays in shared memory for the whole block. linear1 runs in
+// passes of P columns: a head group's q, k and v columns (P = 3 x group:
+// 288 or 384), then 384 MLP columns at a time. Per pass:
+// - GEMM1 over k-slices of KS = 32 rows of the pass's [D][P] block of the
+//   w1 stream (the wrapper's pass-ordered copy of w1^T): per row of the
+//   slice, a float4 of x^T and the thread's P / 32 floats of w1^T (float4s,
+//   and a scalar at P = 288) feed 4 P / 32 FFMAs, a 4 x 12 (4 x 9) mid tile;
+// - + b1 (and the exact GELU for an MLP pass) into the staging tile S^T
+//   [384][36], column-major (a column's 32 rows contiguous);
+// - for a head group, the QK RMS-norm and RoPE (one thread a (row, head,
+//   q|k)) and the L x L attention (one thread a (row, head), the output
+//   over q) in place;
+// - GEMM2: the pass's contribution to every output over m-slices of MS = 32
+//   rows of w2^T (the wrapper's contiguous [D + M, D] copy): per row, a
+//   float4 of S^T and three of w2^T feed 48 FFMAs.
+// Every slice is one contiguous run of the w1 stream or of w2^T, so thread
+// 0 moves it with one bulk copy (cp.async.bulk) into a ring of two 48 KB
+// stages, completing on the stage's mbarrier, the next slice in flight under
+// this one's products; the threads spend no instruction on the copies. One
+// barrier a slice frees the stage for the next copy. Lane layout: a warp's
+// eight neighbouring lanes take eight neighbouring column groups and its
+// four lane octets four neighbouring row groups, so a warp's shared load
+// reads 64 or 128 contiguous bytes. Every output and every mid is one FMA
+// chain in the order of the dot-product kernel above (k in order; linear2's
+// K dimension by head groups, then MLP columns, in order), so the two
+// routes agree bit for bit.
+// Shared memory: x^T and S^T 54 KB each and the ring 96 KB, one block an
+// SM; the 4AA eval's 4,000 rows run 125 blocks on 132 SMs. 16-row blocks
+// (250, each streaming all 4.7 MB of weights) took 0.4092 against 0.3060
+// ms there on an H100. tools/kernel_variants.py K8-fp32 times those, the
+// other layouts (128 threads of 8 x 12, 192 of 8 x 8, 384 of 4 x 8) and
+// rings (16-row slices three and four deep), all slower.
+namespace tiled {
+
+constexpr int BM = 32;        // rows a block
+constexpr int LDX = BM + 4;   // x^T and S^T column stride
+constexpr int D = 384;        // the instances' width
+constexpr int PM = 384;       // MLP columns a pass
+constexpr int KS = 32;        // w1^T rows a GEMM1 slice
+constexpr int MS = KS;        // w2^T rows a GEMM2 slice
+constexpr int STAGES = 2;     // ring stages
+constexpr int STAGE = KS * D; // floats a ring stage: a [KS][<= 384] w1^T or a [MS][384] w2^T slice
+constexpr int MAXL = 8;
+
+// the wrapper's f32_tiled_smem_bytes mirrors this: x^T, S^T, the ring and
+// its mbarriers
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (2 * D * LDX + STAGES * STAGE) + 8 * STAGES;
+}
+
+__device__ __forceinline__ float f4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+struct TArgs {
+  const float *x, *w1s, *b1, *qs, *ks, *w2t, *b2, *cos, *sin;
+  float* out;
+  long long n;     // frames
+  int l, m, dh, frames;  // frames: whole frames a block
+  float scale;
+};
+
+// Columns of a thread in a P-wide pass of C column groups: Q float4 at
+// 4 (cg + C q) and S scalars at 4 C Q + cg + C s.
+template <int C, int Q, int S>
+struct Cols {
+  static constexpr int N = 4 * Q + S, P = C * N;
+  __device__ static int col(int cg, int j) {
+    return j < 4 * Q ? 4 * (cg + C * (j / 4)) + j % 4 : 4 * C * Q + cg + C * (j - 4 * Q);
+  }
+};
+
+// mid[i][j] += sum over the slice's KS rows k of x^T[k][TM rg + i] w[k][col j]
+template <int C, int Q, int S, int TM, int TN>
+__device__ __forceinline__ void gemm1_slice(float (&mid)[TM][TN], const float* xt,
+                                            const float* w, int cg) {
+  using CL = Cols<C, Q, S>;
+#pragma unroll 2
+  for (int k = 0; k < KS; ++k) {
+    float4 xv[TM / 4];
+#pragma unroll
+    for (int i = 0; i < TM / 4; ++i) xv[i] = *reinterpret_cast<const float4*>(xt + k * LDX + 4 * i);
+    float wv[CL::N];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const float4 w4 = *reinterpret_cast<const float4*>(w + k * CL::P + 4 * (cg + C * q));
+      wv[4 * q] = w4.x, wv[4 * q + 1] = w4.y, wv[4 * q + 2] = w4.z, wv[4 * q + 3] = w4.w;
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) wv[4 * Q + s] = w[k * CL::P + 4 * C * Q + cg + C * s];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float xi = f4(xv[i / 4], i % 4);
+#pragma unroll
+      for (int j = 0; j < CL::N; ++j) mid[i][j] = fmaf(xi, wv[j], mid[i][j]);
+    }
+  }
+}
+
+// mid + b1 (through the exact GELU for an MLP pass) into S^T; `src(c)` is
+// the linear1 column (b1 index) of pass column c
+template <int C, int Q, int S, int TM, int TN, class Src>
+__device__ __forceinline__ void gemm1_store(const float (&mid)[TM][TN], float* st,
+                                            const float* b1, bool gelu, int rg, int cg,
+                                            Src src) {
+  using CL = Cols<C, Q, S>;
+#pragma unroll
+  for (int j = 0; j < CL::N; ++j) {
+    const int c = CL::col(cg, j);
+    const float b = b1[src(c)];
+    float y[TM];
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const float v = __fadd_rn(mid[i][j], b);
+      y[i] = gelu ? gelu_exact(v) : v;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; i += 4)
+      *reinterpret_cast<float4*>(st + c * LDX + TM * rg + i) =
+          make_float4(y[i], y[i + 1], y[i + 2], y[i + 3]);
+  }
+}
+
+// One head group of GROUP columns: q, k, v at S^T columns [0, GROUP),
+// [GROUP, 2 GROUP), [2 GROUP, 3 GROUP); QK RMS-norm and RoPE in place, then
+// the L x L attention, its output over q. The same per-element arithmetic as
+// the dot-product kernel.
+template <int NT, int GROUP>
+__device__ __forceinline__ void attend(float* st, const TArgs& a, int rows) {
+  const int tid = threadIdx.x, heads_g = GROUP / a.dh, half = a.dh / 2;
+  for (int task = tid; task < BM * heads_g * 2; task += NT) {
+    const int r = task % BM, hw = task / BM, h = hw / 2, which = hw % 2;
+    if (r >= rows) continue;
+    float* v = st + (which * GROUP + h * a.dh) * LDX + r;  // element e at v[e * LDX]
+    const float* scale = which ? a.ks : a.qs;
+    const float* cs = a.cos + (r % a.l) * half;
+    const float* sn = a.sin + (r % a.l) * half;
+    float sq = 0.0f;
+    for (int e = 0; e < a.dh; ++e) sq = fmaf(v[e * LDX], v[e * LDX], sq);
+    const float rr = rsqrtf(__fadd_rn(__fdiv_rn(sq, static_cast<float>(a.dh)), 1e-6f));
+    for (int p = 0; p < half; ++p) {
+      const float na = __fmul_rn(__fmul_rn(v[2 * p * LDX], rr), scale[2 * p]);
+      const float nb = __fmul_rn(__fmul_rn(v[(2 * p + 1) * LDX], rr), scale[2 * p + 1]);
+      v[2 * p * LDX] = __fsub_rn(__fmul_rn(cs[p], na), __fmul_rn(sn[p], nb));
+      v[(2 * p + 1) * LDX] = __fadd_rn(__fmul_rn(sn[p], na), __fmul_rn(cs[p], nb));
+    }
+  }
+  __syncthreads();
+  for (int task = tid; task < BM * heads_g; task += NT) {
+    const int r = task % BM, h = task / BM;
+    if (r >= rows) continue;
+    const int f0 = r - r % a.l;  // the frame's first row
+    float* q = st + h * a.dh * LDX + r;
+    const float* kf = st + (GROUP + h * a.dh) * LDX + f0;
+    const float* vf = st + (2 * GROUP + h * a.dh) * LDX + f0;
+    float logit[MAXL];
+    float mx = __int_as_float(0xff800000);  // -inf
+    for (int j = 0; j < a.l; ++j) {
+      float s = 0.0f;
+      for (int e = 0; e < a.dh; ++e) s = fmaf(q[e * LDX], kf[e * LDX + j], s);
+      logit[j] = __fmul_rn(s, a.scale);
+      mx = fmaxf(mx, logit[j]);
+    }
+    float sum = 0.0f;
+    for (int j = 0; j < a.l; ++j) {
+      logit[j] = expf(__fsub_rn(logit[j], mx));
+      sum = __fadd_rn(sum, logit[j]);
+    }
+    for (int j = 0; j < a.l; ++j) logit[j] = __fdiv_rn(logit[j], sum);
+    for (int e = 0; e < a.dh; ++e) {
+      float o = 0.0f;
+      for (int j = 0; j < a.l; ++j) o = fmaf(logit[j], vf[e * LDX + j], o);
+      q[e * LDX] = o;  // q[e] is read by this thread alone, and no more
+    }
+  }
+}
+
+// NT threads, TM rows a thread (row groups R = 32 / TM, column groups
+// C = NT / R), head groups of GROUP columns (96 or 128).
+template <int NT, int TM, int GROUP>
+__global__ void __launch_bounds__(NT, 1) spatial_f32_tiled_kernel(const TArgs a) {
+  constexpr int R = BM / TM, C = NT / R;            // row and column groups
+  constexpr int TN2 = D / C;                        // output columns a thread
+  constexpr int PA = 3 * GROUP, NA = PA / C;        // an attention pass
+  constexpr int NM = PM / C;                        // an MLP pass
+  constexpr int TN = NA > NM ? NA : NM;             // mids a thread a row
+  constexpr int G = D / GROUP;                      // head groups
+  constexpr int N1 = D / KS;                        // GEMM1 slices a pass
+  constexpr int NA2 = GROUP / MS, NM2 = PM / MS;    // GEMM2 slices a pass
+  static_assert(R % 4 == 0 && C % 8 == 0 && TN2 % 4 == 0 && PA % C == 0 && PM % C == 0,
+                "lane layout");
+  static_assert(GROUP % MS == 0 && PA <= D, "slices");
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // x^T [D][LDX]
+  float* st = xs + D * LDX;                     // S^T [D][LDX]
+  float* ring = st + D * LDX;                   // [STAGES][STAGE]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);  // [STAGES]
+  const int t = threadIdx.x, lane = t % 32, wp = t / 32;
+  const int rg = lane / 8 + 4 * (wp / (C / 8)), cg = lane % 8 + 8 * (wp % (C / 8));
+  const long long item0 = static_cast<long long>(blockIdx.x) * a.frames;
+  const int rows = static_cast<int>(min(static_cast<long long>(a.frames), a.n - item0)) * a.l;
+  const long long row0 = item0 * a.l;
+  const int per_attn = N1 + NA2, per_mlp = N1 + NM2;
+  const int total = G * per_attn + (a.m / PM) * per_mlp;
+
+  // slice u: pass u's GEMM1 slices (KS rows of the pass's [D][P] block of
+  // the w1 stream), then its GEMM2 slices (w2^T rows k0 + s MS .. + MS),
+  // each one contiguous bulk copy into stage u % STAGES by thread 0
+  auto load_slice = [&](int u) {
+    const bool attn = u < G * per_attn;
+    const int v = attn ? u : u - G * per_attn, per = attn ? per_attn : per_mlp;
+    const int pass = v / per, s = v % per;
+    const float* src;
+    uint32_t bytes;
+    if (s < N1) {
+      const long long off = attn ? pass * PA : G * PA + pass * PM;
+      const int p = attn ? PA : PM;
+      src = a.w1s + off * D + static_cast<long long>(s) * KS * p;
+      bytes = sizeof(float) * KS * p;
+    } else {
+      const long long k0 = (attn ? pass * GROUP : D + pass * PM) + (s - N1) * MS;
+      src = a.w2t + k0 * D;
+      bytes = sizeof(float) * MS * D;
+    }
+    uint64_t* bar = full + u % STAGES;
+    lam_sm90::fence_proxy_async();  // the stage's earlier reads come first
+    lam_sm90::mbar_arrive_expect_tx(bar, bytes);
+    lam_sm90::bulk_load(ring + (u % STAGES) * STAGE, src, bytes, bar);
+  };
+  if (t == 0) {
+    for (int i = 0; i < STAGES; ++i) lam_sm90::mbar_init(full + i, 1);
+    lam_sm90::mbar_init_fence();
+    for (int u = 0; u < STAGES - 1 && u < total; ++u) load_slice(u);
+  }
+  // x^T: eight lanes read 128 contiguous bytes of a row, zeros past the rows
+  for (int idx = t; idx < BM * (D / 4); idx += NT) {
+    const int k = 4 * (idx % 8 + 8 * (idx / (8 * BM))), r = (idx / 8) % BM;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (r < rows) v = *reinterpret_cast<const float4*>(a.x + (row0 + r) * D + k);
+    xs[k * LDX + r] = v.x;
+    xs[(k + 1) * LDX + r] = v.y;
+    xs[(k + 2) * LDX + r] = v.z;
+    xs[(k + 3) * LDX + r] = v.w;
+  }
+
+  float acc[TM][TN2], mid[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN2; ++j) acc[i][j] = 0.0f;
+  for (int u = 0; u < total; ++u) {
+    __syncthreads();  // x^T written, the mbarriers set; slice u - 1's stage and reads done
+    if (t == 0 && u + STAGES - 1 < total) load_slice(u + STAGES - 1);
+    lam_sm90::mbar_wait(full + u % STAGES, (u / STAGES) & 1);  // slice u landed
+    const float* w = ring + (u % STAGES) * STAGE;
+    const bool attn = u < G * per_attn;
+    const int v = attn ? u : u - G * per_attn, per = attn ? per_attn : per_mlp;
+    const int pass = v / per, s = v % per;
+    if (s < N1) {
+      if (s == 0) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) mid[i][j] = 0.0f;
+      }
+      const float* xt = xs + s * KS * LDX + TM * rg;
+      if (attn)
+        gemm1_slice<C, NA / 4, NA % 4, TM, TN>(mid, xt, w, cg);
+      else
+        gemm1_slice<C, NM / 4, NM % 4, TM, TN>(mid, xt, w, cg);
+      if (s == N1 - 1) {
+        if (attn) {
+          gemm1_store<C, NA / 4, NA % 4, TM, TN>(mid, st, a.b1, false, rg, cg, [&](int c) {
+            return (c / GROUP) * D + pass * GROUP + c % GROUP;
+          });
+          __syncthreads();  // the group's q, k, v are whole
+          attend<NT, GROUP>(st, a, rows);
+        } else {
+          gemm1_store<C, NM / 4, NM % 4, TM, TN>(mid, st, a.b1, true, rg, cg,
+                                             [&](int c) { return 3 * D + pass * PM + c; });
+        }
+      }
+    } else {
+      // out += S^T[(s - N1) MS ..][rows] (x) the w2^T slice
+      const float* sr = st + (s - N1) * MS * LDX + TM * rg;
+#pragma unroll 2
+      for (int kk = 0; kk < MS; ++kk) {
+        float4 av[TM / 4];
+#pragma unroll
+        for (int i = 0; i < TM / 4; ++i)
+          av[i] = *reinterpret_cast<const float4*>(sr + kk * LDX + 4 * i);
+        float4 wv[TN2 / 4];
+#pragma unroll
+        for (int q = 0; q < TN2 / 4; ++q)
+          wv[q] = *reinterpret_cast<const float4*>(w + kk * D + 4 * (cg + C * q));
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float ai = f4(av[i / 4], i % 4);
+#pragma unroll
+          for (int j = 0; j < TN2; ++j) acc[i][j] = fmaf(ai, f4(wv[j / 4], j % 4), acc[i][j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = TM * rg + i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int q = 0; q < TN2 / 4; ++q) {
+      const int o = 4 * (cg + C * q);
+      *reinterpret_cast<float4*>(a.out + (row0 + r) * D + o) =
+          make_float4(__fadd_rn(acc[i][4 * q], a.b2[o]), __fadd_rn(acc[i][4 * q + 1], a.b2[o + 1]),
+                      __fadd_rn(acc[i][4 * q + 2], a.b2[o + 2]),
+                      __fadd_rn(acc[i][4 * q + 3], a.b2[o + 3]));
+    }
+  }
+}
+
+template <int NT, int TM, int GROUP>
+cudaError_t launch(const TArgs& a, cudaStream_t stream) {
+  static cudaError_t attr = lam_set_smem(spatial_f32_tiled_kernel<NT, TM, GROUP>, 232448);
+  if (attr != cudaSuccess) return attr;
+  const long long blocks = (a.n + a.frames - 1) / a.frames;
+  spatial_f32_tiled_kernel<NT, TM, GROUP>
+      <<<static_cast<unsigned>(blocks), NT, smem_bytes(), stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace tiled
+
 }  // namespace
 
 // x: fp32 [N, L, D] contiguous; w1: fp32 [3D + M, D] (row stride w1_s, unit
@@ -388,4 +738,36 @@ extern "C" int lam_spatial_block_f32(const void* x, const void* w1, const void* 
   if (nj <= 16) return static_cast<int>(launch<16>(a, st));
   if (nj <= 24) return static_cast<int>(launch<24>(a, st));
   return static_cast<int>(launch<32>(a, st));
+}
+
+// As lam_spatial_block_f32, on the outer-product kernel: w1s the w1 stream,
+// linear1's columns in the kernel's passes (each head group's q, k and v
+// columns, then the MLP columns), a pass of P columns a contiguous [D][P]
+// block of w1^T, the passes one after another; w2t the contiguous [D + M, D]
+// copy of w2 (w2t[k * D + o]); out contiguous; x, w1s, w2t and out 16-byte
+// aligned. D 384, M a multiple of 384, an even head dim and `group` 96 or
+// 128 (whole heads; the wrapper's f32_plan); cudaErrorInvalidValue for the
+// rest.
+extern "C" int lam_spatial_block_f32_tiled(const void* x, const void* w1s, const void* b1,
+                                           const void* qs, const void* ks, const void* w2t,
+                                           const void* b2, const void* cos, const void* sin,
+                                           void* out, long long N, int L, int D, int M, int H,
+                                           float scale, int group, void* stream) {
+  const unsigned long long bits = reinterpret_cast<unsigned long long>(x) |
+                                  reinterpret_cast<unsigned long long>(w1s) |
+                                  reinterpret_cast<unsigned long long>(w2t) |
+                                  reinterpret_cast<unsigned long long>(out);
+  if (N <= 0 || L < 1 || L > tiled::MAXL || D != tiled::D || M <= 0 || M % tiled::PM ||
+      H <= 0 || D % H || (D / H) % 2 || (group != 96 && group != 128) || group % (D / H) ||
+      (bits & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const tiled::TArgs a{static_cast<const float*>(x),   static_cast<const float*>(w1s),
+                       static_cast<const float*>(b1),  static_cast<const float*>(qs),
+                       static_cast<const float*>(ks),  static_cast<const float*>(w2t),
+                       static_cast<const float*>(b2),  static_cast<const float*>(cos),
+                       static_cast<const float*>(sin), static_cast<float*>(out),
+                       N, L, M, D / H, tiled::BM / L, scale};
+  auto st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(group == 96 ? tiled::launch<256, 4, 96>(a, st)
+                                      : tiled::launch<256, 4, 128>(a, st));
 }

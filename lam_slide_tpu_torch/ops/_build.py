@@ -36,7 +36,7 @@ _FLASH_FWD = [_P] * 6 + [_I] * 5 + [_L] * 12 + [_F, _P]
 _FLASH_BWD = [_P] * 10 + [_I] * 5 + [_LP, _F, _P]
 SIGNATURES = {
     "lam_flash_attention_fwd": _FLASH_FWD,
-    "lam_flash_attention_fwd_f32": [_P] * 6 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
+    "lam_flash_attention_fwd_f32": [_P] * 6 + [_I] * 5 + [_L] * 12 + [_F, _I, _I, _P],
     "lam_flash_attention_fwd_sm90": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
     "lam_flash_attention_bwd_sm90": [_P] * 10 + [_I] * 5 + [_LP, _F, _I, _P],
     "lam_qk_normrope": [_P] * 8 + [_I] * 5 + [_L] * 6 + [_F, _P],
@@ -53,6 +53,7 @@ SIGNATURES = {
     "lam_spatial_block_wmma": [_P] * 10 + [_L, _I, _I, _I, _I, _L, _L, _F, _P],
     "lam_spatial_block_sm90": [_P] * 11 + [_L, _I, _I, _I, _I, _L, _L, _F, _I, _I, _P],
     "lam_spatial_block_f32": [_P] * 10 + [_L, _I, _I, _I, _I, _L, _L, _F, _I, _P],
+    "lam_spatial_block_f32_tiled": [_P] * 10 + [_L, _I, _I, _I, _I, _F, _I, _P],
     "lam_short_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P],
     "lam_short_attention_fwd_f32": [_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P],
     "lam_short_attention_bwd": [_P] * 7 + [_I] * 5 + [_LP, _L, _L, _F, _P],

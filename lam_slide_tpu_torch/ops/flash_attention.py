@@ -21,10 +21,12 @@ otherwise with cp.async, a second route of the same kernels.
 K1 also takes a ``[B, Nk]`` boolean key-padding mask (True = attend), which
 becomes the fp32 bias row of ``_mask_to_bias`` (0 or -0.7·finfo(fp32).max,
 flash_attention.py:624-629) added to the scaled logits in the kernel, and
-fp32 operands (stage 1 and the fp32 sampling DiTs), through a second
-kernel with fp32 in and out: a thread a query row up to dh 64, and above it
-up to dh 128 a register-tiled kernel (a thread a 4 x 4 block of the scores
-and a 4 x 8 block of the output) whose geometry ``f32_wide_plan`` picks.
+fp32 operands (stage 1 and the fp32 DiTs), through register-tiled kernels
+with fp32 in and out: up to dh 64 the narrow kernel (a thread a 4 x 4 block
+of the scores and, over a quarter of each key tile, a 4 x dh/4 block of the
+output; dh padded to a multiple of 8) in ``f32_narrow_fwd_plan``'s
+geometry, above it up to dh 128 the wide kernel (a thread a 4 x 4 block of
+the scores and a 4 x 8 block of the output) in ``f32_wide_plan``'s.
 K4 takes both too: the bias row in both of its kernels (JAX
 ``_bwd_probs``), and fp32 operands through register-tiled kernels (a
 thread a 4 x 4 block of S and dP and a register tile of each grad): up to
@@ -45,8 +47,9 @@ views.
 Counters (plain integers, touched only where a kernel launches):
 ``launches`` counts K1 calls of both entries and both dtypes,
 ``bias_launches`` those with a key-padding bias, ``fp32_launches`` those
-with fp32 operands, ``fp32_wide_launches`` those of them at 64 < dh <= 128
-(the register-tiled kernel), ``sm90_launches`` the redesigned forward's
+with fp32 operands, ``fp32_narrow_launches`` those of them at dh <= 64
+(the narrow kernel), ``fp32_wide_launches`` those at 64 < dh <= 128
+(the wide kernel), ``sm90_launches`` the redesigned forward's
 launches and
 ``sm90_cp_async_launches`` those of them on the cp.async route.
 ``bwd_kv_launches`` and ``bwd_q_launches`` each count K4 calls,
@@ -71,6 +74,7 @@ from lam_slide_tpu_torch.ops._grad import needs_grad
 launches = 0
 bias_launches = 0
 fp32_launches = 0
+fp32_narrow_launches = 0
 fp32_wide_launches = 0
 bwd_kv_launches = 0
 bwd_q_launches = 0
@@ -152,6 +156,39 @@ def f32_narrow_plan(dh: int, nq: int, nk: int, bh: int = 1) -> F32NarrowPlan:
     smem = 4 * (6 * rows * (dp + 4) + 2 * rows * (rows + 4) + 4 * rows)
     per_sm = min(SM_SHARED_BYTES // (smem + 1024), SM_REGISTERS // (128 * F32_NARROW_THREADS))
     return F32NarrowPlan(dp, cols, slices, smem, bh * -(-nk // rows), per_sm)
+
+
+class F32NarrowFwdPlan(NamedTuple):
+    """Geometry of K1's narrow fp32 kernel for one call: the padded width
+    ``dp``, the keys of a tile (``keys``) and a block's dynamic shared
+    memory."""
+    dp: int
+    keys: int
+    smem_bytes: int
+
+
+def f32_narrow_fwd_smem_bytes(dp: int, keys: int) -> int:
+    """Shared memory of a narrow fp32 forward block (``NarrowFwdLayout`` in
+    csrc/flash_attention.cu): Q (64 rows) and two stages of K and V (``keys``
+    rows each) of dp + 4 floats, P^T (``keys`` x 68), two stages of the bias
+    slice; the four key slices' partial outputs (4 x 64 rows of dp + 1)
+    overlay them at the end; then alpha and l (64 each)."""
+    rows = F32_NARROW_ROWS
+    tiles = (rows + 4 * keys) * (dp + 4) + keys * (rows + 4) + 2 * keys
+    return 4 * (max(tiles, 4 * rows * (dp + 1)) + 2 * rows)
+
+
+def f32_narrow_fwd_plan(dh: int, nk: int) -> F32NarrowFwdPlan:
+    """The narrow fp32 forward's plan (csrc/flash_attention.cu
+    ``flash_fwd_f32_narrow_kernel``, which takes dp and keys from it) over nk
+    keys at head dim dh <= 64: dh padded to the next of F32_NARROW_DPS, as
+    K4's narrow kernel pads it; key tiles of 32 where nk <= 32 (stage 1's
+    32 padded atoms fill one), else 64."""
+    if not 0 < dh <= F32_NARROW_DPS[-1]:
+        raise ValueError(f"f32_narrow_fwd_plan: dh {dh} is not in (0, {F32_NARROW_DPS[-1]}]")
+    dp = next(p for p in F32_NARROW_DPS if dh <= p)
+    keys = 32 if nk <= 32 else 64
+    return F32NarrowFwdPlan(dp, keys, f32_narrow_fwd_smem_bytes(dp, keys))
 
 
 def f32_dq_tiles(dh: int, nq: int, nk: int) -> int:
@@ -313,11 +350,12 @@ def _launch_template_forward(q, k, v, scale: float, with_lse: bool,
                              bias: Optional[torch.Tensor], counts):
     """The older template's forward on checked CUDA tensors -> (out in packed
     memory, lse or None): its bf16 kernel with the fp32 ``[B, Nk]`` bias row
-    (which it needs), or the fp32 kernels with or without one (at
-    64 < dh <= 128 the register-tiled one, in ``f32_wide_plan``'s geometry).
-    ``counts`` is the module whose ``fp32_wide_launches`` counts the
-    register-tiled kernel (K1's, or K5's, which runs it on its transformed
-    q/k); the callers count the rest."""
+    (which it needs), or the fp32 kernels with or without one (the narrow
+    one at dh <= 64 in ``f32_narrow_fwd_plan``'s geometry, the wide one at
+    64 < dh <= 128 in ``f32_wide_plan``'s). ``counts`` is the module whose
+    ``fp32_narrow_launches`` / ``fp32_wide_launches`` count those kernels
+    (K1's, or K5's, which runs the wide one on its transformed q/k); the
+    callers count the rest."""
     b, h, nq, dh = q.shape
     nk = k.shape[2]
     out = _packed_like(q, nq)
@@ -328,10 +366,13 @@ def _launch_template_forward(q, k, v, scale: float, with_lse: bool,
     with torch.cuda.device(q.device):
         if q.dtype == torch.float32:
             wide = dh >= F32_WIDE_MIN_DH
+            plan = (f32_wide_plan(nq, nk), 0) if wide else f32_narrow_fwd_plan(dh, nk)[:2]
             _build.launch("lam_flash_attention_fwd_f32", *ptrs, b, h, nq, nk, dh, *strides,
-                          float(scale), f32_wide_plan(nq, nk) if wide else 0, _stream(q))
+                          float(scale), *plan, _stream(q))
             if wide:
                 counts.fp32_wide_launches += 1
+            else:
+                counts.fp32_narrow_launches += 1
         else:
             _build.launch("lam_flash_attention_fwd", *ptrs, b, h, nq, nk, dh, *strides,
                           float(scale), _stream(q))

@@ -24,8 +24,8 @@ autograd of the plain pre-transform (``chain_backward``), as
 Counters (plain integers, touched only where a kernel launches):
 ``launches`` counts K5 calls of both dtypes and ``fp32_launches`` those in
 fp32 (the transform's fp32 kernel, then K1's fp32 kernel) and
-``fp32_wide_launches`` those of K1's register-tiled fp32 kernel among them
-(64 < dh <= 128);
+``fp32_wide_launches`` those of K1's wide fp32 kernel among them
+(64 < dh <= 128), ``fp32_narrow_launches`` those of its narrow one (dh <= 64);
 ``transform_launches`` counts the transform kernel's launches in both dtypes
 (one a K5 call, one a ``flash_attention_normrope_backward`` call, one a
 ``qk_normrope`` call); ``sm90_launches`` the bf16 K5 calls on the
@@ -65,6 +65,7 @@ DTYPES = (torch.bfloat16, torch.float32)
 launches = 0
 fp32_launches = 0
 fp32_wide_launches = 0
+fp32_narrow_launches = 0
 transform_launches = 0
 sm90_launches = 0
 sm90_cp_async_launches = 0

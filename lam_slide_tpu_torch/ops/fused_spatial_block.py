@@ -22,15 +22,24 @@ picks one from the widths alone:
   ``[32 rows, 3D+M]`` linear1 output of a block in shared memory.
 Neither is a fallback for the other: a CUDA tensor launches the plan's
 route or raises. Those two take bf16; an all-fp32 call (the 4AA eval's fp32
-DiT) launches the third kernel,
-- ``lam_spatial_block_f32`` (``csrc/fused_spatial_block_f32.cu``), a tiled
-  FFMA kernel: linear2's K dimension walked head group by head group
-  (linear1's q, k, v of the group into a staging tile, norm, RoPE, L×L
-  attention, then its linear2 contribution) and 32 MLP columns at a time,
-  the weights streamed through a two-stage cp.async ring, the output in
-  registers; its geometry from ``f32_plan``, and where that has none it
-  raises naming the limit. Under autograd it runs inside ``_SpatialBlock``
-  like the others (the fp32 stage-2 training of both registries).
+DiT) launches one of two FFMA kernels in ``csrc/fused_spatial_block_f32.cu``,
+both walking linear2's K dimension head group by head group (linear1's q, k,
+v of the group into a staging tile, norm, RoPE, L×L attention, then its
+linear2 contribution) and then MLP columns, the output in registers, the
+weights streamed through a two-stage ring; ``f32_plan`` picks the
+route from the widths, and where it has none the call raises naming the
+limit:
+- ``lam_spatial_block_f32_tiled``, the outer-product kernel, for D 384 with
+  head groups of 96 or 128 columns and M a multiple of 384 (the 4AA DiT at
+  16 × 24 and 3 × 128): 32-row blocks of 256 threads, x^T resident, a
+  thread a 4 × 12 block of the output and of each linear1 pass; the
+  wrapper's pass-ordered w1 stream (``f32_tiled_passes``) and w2^T copy
+  arrive slice by slice by bulk copies into a two-stage ring;
+- ``lam_spatial_block_f32``, the first fp32 kernel (a thread 2 × 2 mids of a
+  32-column tile), for the other widths (the smoke and tiny registries, the
+  pedestrian and NBA widths); the two agree bit for bit.
+Under autograd they run inside ``_SpatialBlock`` like the others (the fp32
+stage-2 training of both registries).
 
 Weights are in torch ``nn.Linear`` layout: ``w1 [3D+M, D]``, ``w2 [D, D+M]``.
 
@@ -41,9 +50,13 @@ backward kernel.
 
 Counters (plain integers, touched only where a kernel launches):
 ``launches`` counts K8 launches of every route, ``wmma_launches`` those on
-the WMMA route, ``f32_launches`` those of the fp32 kernel.
+the WMMA route, ``f32_launches`` those of the fp32 kernels,
+``f32_tiled_launches`` those of them on the outer-product kernel and
+``f32_dot_launches`` those on the first fp32 kernel.
 """
 
+import functools
+import weakref
 from typing import NamedTuple, Optional
 
 import torch
@@ -61,6 +74,8 @@ from lam_slide_tpu_torch.ops.packed_attention import (
 launches = 0
 wmma_launches = 0
 f32_launches = 0
+f32_tiled_launches = 0
+f32_dot_launches = 0
 
 # The Hopper kernel's geometry (csrc/fused_spatial_block_sm90.cu).
 SM90_ROWS = 64  # rows a tile, of which whole frames are used
@@ -114,19 +129,26 @@ def sm90_plan(n: int, l: int, d: int, m: int, n_heads: int) -> Optional[Sm90Plan
     return None
 
 
-# The fp32 kernel's geometry (csrc/fused_spatial_block_f32.cu).
-F32_TILE = 32  # columns of a weight tile
-F32_ROWS = 32  # rows a block, of which 32 // l * l are whole frames
+# The fp32 kernels' geometry (csrc/fused_spatial_block_f32.cu).
+F32_TILE = 32  # columns of a weight tile of the dot-product kernel
+F32_ROWS = 32  # rows a block of either kernel, of which 32 // l * l are whole frames
 F32_MAX_GROUP = 128  # columns of a head group, unless one head is wider
+# The outer-product kernel (namespace tiled): D, the columns of an MLP pass
+# and the head groups it has instances of.
+F32_TILED_D = 384
+F32_TILED_MLP = 384
+F32_TILED_GROUPS = (96, 128)
 
 
 class F32Plan(NamedTuple):
     group: int  # columns of a head group: whole heads, a multiple of 4 that divides D
     smem: int  # shared memory of a block, bytes
+    route: str  # "tiled" (the outer-product kernel) or "dot" (the first fp32 kernel)
+    blocks: int  # blocks of the call: one a 32 // l frames
 
 
 def f32_smem_bytes(d: int, group: int) -> int:
-    """Shared memory of an fp32 K8 block (``smem_bytes`` in
+    """Shared memory of a dot-product fp32 K8 block (``smem_bytes`` in
     csrc/fused_spatial_block_f32.cu): the x tile ``[32][d + 4]``, the
     staging tile ``[32][3 group + 4]`` and two ring stages, each a w1 tile
     ``[32][d + 4]`` or a w2 tile ``[d][36]``, whichever is larger; fp32."""
@@ -134,8 +156,16 @@ def f32_smem_bytes(d: int, group: int) -> int:
     return 4 * (F32_ROWS * (d + 4) + F32_ROWS * (3 * group + 4) + 2 * stage)
 
 
+def f32_tiled_smem_bytes() -> int:
+    """Shared memory of an outer-product fp32 K8 block (``tiled::smem_bytes``):
+    x^T and the staging tile S^T, ``[384][36]`` each, two ring stages of a
+    ``[32][384]`` slice of w1^T or w2^T, fp32, and an 8-byte mbarrier a
+    stage."""
+    return 4 * (2 * F32_TILED_D * (F32_ROWS + 4) + 2 * 32 * F32_TILED_D) + 8 * 2
+
+
 def f32_group(d: int, n_heads: int) -> Optional[int]:
-    """The fp32 kernel's head group: the most whole heads whose columns are at
+    """The fp32 kernels' head group: the most whole heads whose columns are at
     most F32_MAX_GROUP (one head if a head is wider), a multiple of 4 that
     divides D; None where no group qualifies."""
     if n_heads <= 0 or d % n_heads:
@@ -148,18 +178,76 @@ def f32_group(d: int, n_heads: int) -> Optional[int]:
     return max(fits, default=None)
 
 
+def f32_tiled_passes(d: int, m: int, group: int) -> list:
+    """The outer-product kernel's linear1 passes: the linear1 columns (w1
+    rows) of each, every head group's q, k and v columns, then the MLP
+    columns F32_TILED_MLP at a time."""
+    passes = [[part * d + g * group + c for part in range(3) for c in range(group)]
+              for g in range(d // group)]
+    return passes + [list(range(3 * d + p, 3 * d + p + F32_TILED_MLP))
+                     for p in range(0, m, F32_TILED_MLP)]
+
+
+@functools.lru_cache(maxsize=16)
+def _w1_stream_index(d: int, m: int, group: int, row_stride: int,
+                     device: torch.device) -> torch.Tensor:
+    """Offsets into w1's memory (rows ``row_stride`` apart) of the
+    outer-product kernel's w1 stream: each pass's [D][P] block of w1^T (row
+    k holds the pass's P columns at input k), the passes one after another,
+    so a slice of KS rows of a pass is one contiguous run."""
+    blocks = [(torch.tensor(cols)[None, :] * row_stride + torch.arange(d)[:, None]).flatten()
+              for cols in f32_tiled_passes(d, m, group)]
+    return torch.cat(blocks).to(device)
+
+
+# The outer-product kernel's weight operands, kept while their weights are
+# unchanged: id(w1) -> (weak refs to w1 and w2, their key, w1 stream, w2^T)
+_tiled_weights: dict = {}
+
+
+def _tiled_operands(w1: torch.Tensor, w2: torch.Tensor, d: int, m: int, group: int):
+    """The outer-product kernel's k-major weights: the pass-ordered w1^T
+    blocks (the w1 stream) and the contiguous ``[D + M, D]`` w2^T, each slice
+    of either a contiguous run. Built once for a pair of weight tensors and
+    kept until either is written in place (its version moves, as an
+    optimizer step moves it) or freed; an eval over fixed weights builds
+    them once a block."""
+    key = (w1.data_ptr(), w1._version, w1.stride(0), w2.data_ptr(), w2._version, group)
+    hit = _tiled_weights.get(id(w1))
+    if hit is not None and hit[0]() is w1 and hit[1]() is w2 and hit[2] == key:
+        return hit[3], hit[4]
+    span = (w1.shape[0] - 1) * w1.stride(0) + d
+    with torch.no_grad():
+        w1s = w1.as_strided((span,), (1,)).index_select(
+            0, _w1_stream_index(d, m, group, w1.stride(0), w1.device))
+        w2t = w2.t().contiguous()
+    wid = id(w1)
+    _tiled_weights[wid] = (weakref.ref(w1, lambda _: _tiled_weights.pop(wid, None)),
+                           weakref.ref(w2), key, w1s, w2t)
+    return w1s, w2t
+
+
 def f32_plan(n: int, l: int, d: int, m: int, n_heads: int) -> Optional[F32Plan]:
-    """The fp32 kernel's geometry for x ``[n, l, d]``, mlp width m and
-    n_heads heads, or None where it has none: D and M multiples of 16, an
-    even head dim with a head group (``f32_group``), and shared memory
-    within SMEM_MAX (D up to 438 at head groups of 128 columns)."""
+    """The fp32 kernels' geometry for x ``[n, l, d]``, mlp width m and
+    n_heads heads, or None where they have none: D and M multiples of 16, an
+    even head dim with a head group (``f32_group``). The outer-product
+    kernel where D is 384, M a multiple of 384 and the group 96 or 128
+    columns (at the 4AA eval's 4,000 rows, 125 blocks of 32 rows on the
+    H100's 132 SMs, one block an SM); else the dot-product kernel where its
+    shared memory fits SMEM_MAX (D up to 438 at head groups of 128
+    columns)."""
     if (n <= 0 or not 1 <= l <= 8 or d % 16 or m <= 0 or m % 16 or n_heads <= 0
             or d % n_heads or (d // n_heads) % 2 or n * l >= 2 ** 31):
         return None
     group = f32_group(d, n_heads)
-    if group is None or f32_smem_bytes(d, group) > SMEM_MAX:
+    if group is None:
         return None
-    return F32Plan(group, f32_smem_bytes(d, group))
+    blocks = -(-n // (F32_ROWS // l))
+    if d == F32_TILED_D and m % F32_TILED_MLP == 0 and group in F32_TILED_GROUPS:
+        return F32Plan(group, f32_tiled_smem_bytes(), "tiled", blocks)
+    if f32_smem_bytes(d, group) > SMEM_MAX:
+        return None
+    return F32Plan(group, f32_smem_bytes(d, group), "dot", blocks)
 
 
 def reference_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -280,12 +368,22 @@ def _launch(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale) -> to
     ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr())
     dims = (n, l, d, m, n_heads, w1.stride(0), w2.stride(0), float(scale))
-    global launches, wmma_launches, f32_launches
+    global launches, wmma_launches, f32_launches, f32_tiled_launches, f32_dot_launches
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if fp32:
             f32 = f32_plan(n, l, d, m, n_heads)
-            _build.launch("lam_spatial_block_f32", *ptrs, *dims, f32.group, stream)
+            if f32.route == "tiled":
+                w1s, w2t = _tiled_operands(w1, w2, d, m, f32.group)
+                _build.launch("lam_spatial_block_f32_tiled", x.data_ptr(), w1s.data_ptr(),
+                              b1.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),
+                              w2t.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                              out.data_ptr(), n, l, d, m, n_heads, float(scale), f32.group,
+                              stream)
+                f32_tiled_launches += 1
+            else:
+                _build.launch("lam_spatial_block_f32", *ptrs, *dims, f32.group, stream)
+                f32_dot_launches += 1
             f32_launches += 1
         elif plan is None:
             _build.launch("lam_spatial_block_wmma", *ptrs, *dims, stream)

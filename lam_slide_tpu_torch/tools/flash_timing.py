@@ -34,8 +34,13 @@ axes [1920, 2, 192, 128] and [12288, 2, 30, 128], the 4AA eval's 3 x 128
 axis at B = 2 and B = 8, [4, 3, 1000, 128] and [16, 3, 1000, 128], and with
 the lse at [2, 3, 1000, 128]), K5-fp32 at MD17's and the 4AA eval's shapes,
 and K2-fp32 at the MD17 test pass's [368640, 256] -> 512 and the 4AA
-eval's [4000, 384] and sampling [16000, 384] -> 768; ``--fp32`` times these
-alone. ``--bwd-fp32`` times K4 on fp32 operands alone (TF32 off) at the
+eval's [4000, 384] and sampling [16000, 384] -> 768, then K1-fp32 at
+dh <= 64 (K3-fp32 on the 4AA eval's [4, 1000, 384] and [16, 1000, 384] and
+MD17's [1920, 192, 256], with the lse at [16, 16, 1000, 24], stage 1's
+[9600, 2, 192, 16] and, with the bias, [1920, 8, 192 -> 32, 16]) and
+K8-fp32 at [2000, 2, 384] and [8000, 2, 384] at both splits and forward +
+backward at [16000, 2, 384]; ``--fp32`` times these alone. ``--bwd-fp32``
+times K4 on fp32 operands alone (TF32 off) at the
 shapes of fp32 training (BWD_FP32_SHAPES: the 4AA DiT's [32, 16, 1000, 24]
 and [16, 3, 1000, 128], MD17's [1920, 16, 192, 16], [1920, 2, 192, 16],
 [1920, 2, 192, 128] and [12288, 2, 30, 128], stage 1's encoder [256, 8, 192
@@ -102,9 +107,63 @@ def _heads(gen, dev, dtype, b, n, h, dh, scale=1.0):
     return q, k, v, torch.randn(b, h, n, dh, generator=gen).to(dev, dtype)
 
 
+def _narrow_fp32_calls(gen, dev) -> list:
+    """(name, call, reps) of K1-fp32 at dh <= 64 and K8-fp32 at their
+    main-path shapes: K3-fp32 on the 4AA fp32 DiT's packed q/k/v (16 x 24, v
+    a view of linear1's output) at the eval's B = 2 and the sampling B = 8,
+    and on MD17's spatial axis [1920, 192, 256] (16 x 16); K1-fp32 with the
+    lse at the 4AA train step's [16, 16, 1000, 24]; stage 1's latent
+    self-attention [9600, 2, 192, 16] and its masked cross-attention
+    [1920, 8, 192 -> 32, 16]; K8-fp32 at the eval's [2000, 2, 384] and
+    [8000, 2, 384] at 16 x 24 and 3 x 128, and its forward + backward (the
+    kernel's forward, the plain VJP) at the train step's [16000, 2, 384]."""
+    calls = []
+    for b, n, h, dh in ((4, 1000, 16, 24), (16, 1000, 16, 24), (1920, 192, 16, 16)):
+        d = h * dh
+        args = (torch.randn(b, n, d, generator=gen).to(dev),
+                torch.randn(b, n, d, generator=gen).to(dev),
+                torch.randn(b, n, 3 * d, generator=gen).to(dev)[..., 2 * d:], h)
+        calls.append((f"K3-fp32 [{b},{n},{d}]",
+                      lambda args=args: fa.flash_attention_packed(*args), 10))
+    q, k, v, _ = _heads(gen, dev, torch.float32, 16, 1000, 16, 24)
+    calls.append(("K1-fp32 lse [16,16,1000,24]",
+                  lambda: fa._forward(q, k, v, 24 ** -0.5, with_lse=True), 10))
+    q2, k2, v2, _ = _heads(gen, dev, torch.float32, 9600, 192, 2, 16)
+    calls.append(("K1-fp32 [9600,2,192,16]", lambda: fa.flash_attention(q2, k2, v2), 10))
+    cq = torch.randn(1920, 192, 8, 16, generator=gen).to(dev).transpose(1, 2)
+    ck, cv = (t.transpose(1, 2) for t in torch.randn(1920, 32, 2, 8, 16, generator=gen)
+              .to(dev).unbind(2))
+    mask = (torch.arange(32)[None, :] < torch.randint(9, 22, (1920, 1), generator=gen)).to(dev)
+    calls.append(("K1-bias fp32 [1920,8,192->32,16]",
+                  lambda: fa.flash_attention(cq, ck, cv, mask=mask), 10))
+    d, m, l = 384, 768, 2
+    w1 = (torch.randn(3 * d + m, d, generator=gen) * d ** -0.5).to(dev)
+    b1 = (torch.randn(3 * d + m, generator=gen) * 0.1).to(dev)
+    w2 = (torch.randn(d, d + m, generator=gen) * (d + m) ** -0.5).to(dev)
+    b2 = (torch.randn(d, generator=gen) * 0.1).to(dev)
+    for n, heads in ((2000, 16), (8000, 16), (2000, 3), (8000, 3), (16000, 16)):
+        dh = d // heads
+        qs, ks = ((1 + 0.2 * torch.randn(dh, generator=gen)).to(dev) for _ in range(2))
+        args = [torch.randn(n, l, d, generator=gen).to(dev), w1, b1, qs, ks, w2, b2,
+                *rope_cos_sin(l, dh, device=dev), heads, dh ** -0.5]
+        if n < 16000:
+            calls.append((f"K8-fp32 [{n},{l},{d}] {heads}x{dh}",
+                          lambda args=args: fsb.fused_spatial_block(*args), 10))
+            continue
+        leaves = [t.clone().requires_grad_(True) for t in args[:7]]
+        g = torch.randn(n, l, d, generator=gen).to(dev)
+
+        def fwd_bwd(leaves=leaves, g=g, rest=args[7:]):
+            with torch.enable_grad():
+                out = fsb.fused_spatial_block(*leaves, *rest)
+                torch.autograd.grad(out, leaves, g)
+        calls.append((f"K8-fp32 forward + backward [{n},{l},{d}] {heads}x{dh}", fwd_bwd, 5))
+    return calls
+
+
 def _fp32_calls(gen, dev) -> list:
     """(name, call, reps) of the fp32 DiTs' K1-fp32 at dh 128, K5-fp32 and
-    K2-fp32 at their main-path shapes."""
+    K2-fp32 at their main-path shapes, then ``_narrow_fp32_calls``."""
     calls = []
     for b, h, n in ((1920, 2, 192), (12288, 2, 30), (4, 3, 1000), (16, 3, 1000)):
         q, k, v, _ = _heads(gen, dev, torch.float32, b, n, h, 128)
@@ -125,7 +184,7 @@ def _fp32_calls(gen, dev) -> list:
                 (torch.randn(2 * d, generator=gen) * 0.1).to(dev), w2[:, d:].t())
         calls.append((f"K2-fp32 [{rows},{d}] -> {2 * d}", lambda args=args: fm.fused_mlp(*args),
                        10))
-    return calls
+    return calls + _narrow_fp32_calls(gen, dev)
 
 
 # K4-fp32's shapes on the fp32 training paths: (b, h, nq, nk, dh, masked)
@@ -208,6 +267,7 @@ def main() -> int:
             _bwd_fp32(gen, dev, label, smi, "--yardsticks" in sys.argv[2:])
         return 0
     if "--fp32" in sys.argv[2:]:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
         with torch.no_grad():
             for name, fn, reps in _fp32_calls(gen, dev):
                 print(f"{label}: {name} {_ms(fn, reps):.4f} ms | {smi}", flush=True)

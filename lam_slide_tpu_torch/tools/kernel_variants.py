@@ -137,22 +137,71 @@ K8_EPILOGUES = [("        bias_epilogue<SW>(s, a,", "        if (a.R < 0) bias_e
                 ("        gelu_epilogue<SW>(s, a,", "        if (a.R < 0) gelu_epilogue<SW>(s, a,")]
 K8_ATTENTION = [("      attention<SB, DH>(a, sm.stg);", "      if (a.R < 0) attention<SB, DH>(a, sm.stg);"),
                 ("      normrope<SB, DH>(a, sm.stg);", "      if (a.R < 0) normrope<SB, DH>(a, sm.stg);")]
+# K8-fp32's outer-product kernel (namespace tiled): either GEMM's products,
+# the norm, RoPE and attention, or the slice copies taken out (the first
+# slices loaded, then reused), the barrier at the top of a slice kept only
+# before the first, rings of 16-row slices three and four stages deep in
+# place of two of 32 rows, the other thread layouts: 128 threads of 8 x 12,
+# 192 of 8 x 8 and 384 of 4 x 8 (substituted for 256 of 4 x 12), and blocks
+# of 16 rows (128 threads of 4 x 12: twice the blocks, 250 at the eval's
+# 4,000 rows, each streaming all the weights)
+K8_F32_TILED_256 = ("tiled::launch<256, 4, 96>(a, st)\n"
+                    "                                      : tiled::launch<256, 4, 128>(a, st)")
+K8_F32_RING = ("constexpr int KS = 32;", "constexpr int STAGES = 2;")
 K8_F32_VARIANTS = {
     "kernel": [],
-    "GEMM1 a quarter of its FMAs": [
-        ("          mid[r][0] = dot4(xv[r], w0, mid[r][0]);\n"
-         "          mid[r][1] = dot4(xv[r], w1, mid[r][1]);",
-         "          mid[r][0] = fmaf(xv[r].x, w0.x, mid[r][0]);\n"
-         "          mid[r][1] = fmaf(xv[r].y, w1.y, mid[r][1]);")],
-    "GEMM2 a quarter of its FMAs": [
-        ("for (int r = 0; r < RPT; ++r) acc[r][j] = dot4(gv[r], wv, acc[r][j]);",
-         "for (int r = 0; r < RPT; ++r) acc[r][j] = fmaf(gv[r].x, wv.x, acc[r][j]);")],
-    "no norm, RoPE, attention": [("      if (tl.last_of_group) {",
-                                  "      if (tl.last_of_group && a.n < 0) {")],
-    "weights loaded once": [("      load_tile(t + 1, (t + 1) % 2);  // its stage was freed",
-                             "      if (t < 1) load_tile(t + 1, (t + 1) % 2);  // its stage was freed")],
-    "no end-of-tile barrier": [("    __syncthreads();  // this stage and the staging tile are consumed\n",
-                                "")],
+    "no GEMM1 products": [("  for (int k = 0; k < KS; ++k) {",
+                           "  for (int k = 0; k < (cg < 0 ? KS : 0); ++k) {")],
+    "no GEMM2 products": [("      for (int kk = 0; kk < MS; ++kk) {",
+                           "      for (int kk = 0; kk < (a.n < 0 ? MS : 0); ++kk) {")],
+    "no norm, RoPE, attention": [("          attend<NT, GROUP>(st, a, rows);",
+                                  "          if (a.n < 0) attend<NT, GROUP>(st, a, rows);")],
+    "weights loaded once": [
+        ("    if (t == 0 && u + STAGES - 1 < total) load_slice(u + STAGES - 1);",
+         "    if (t == 0 && u + STAGES - 1 < total && u < 1) load_slice(u + STAGES - 1);"),
+        ("    lam_sm90::mbar_wait(full + u % STAGES, (u / STAGES) & 1);",
+         "    if (u < STAGES) lam_sm90::mbar_wait(full + u % STAGES, (u / STAGES) & 1);")],
+    "one slice barrier": [("    __syncthreads();  // x^T written, the mbarriers set;",
+                           "    if (u == 0) __syncthreads();  // x^T written, the mbarriers set;")],
+    "16-row slices, 3 stages": [(K8_F32_RING[0], "constexpr int KS = 16;"),
+                                (K8_F32_RING[1], "constexpr int STAGES = 3;")],
+    "16-row slices, 4 stages": [(K8_F32_RING[0], "constexpr int KS = 16;"),
+                                (K8_F32_RING[1], "constexpr int STAGES = 4;")],
+    "128 threads (8 x 12)": [(K8_F32_TILED_256, "tiled::launch<128, 8, 96>(a, st) : "
+                                                "tiled::launch<128, 8, 128>(a, st)")],
+    "192 threads (8 x 8)": [(K8_F32_TILED_256, "tiled::launch<192, 8, 96>(a, st) : "
+                                               "tiled::launch<192, 8, 128>(a, st)")],
+    "384 threads (4 x 8)": [(K8_F32_TILED_256, "tiled::launch<384, 4, 96>(a, st) : "
+                                               "tiled::launch<384, 4, 128>(a, st)")],
+    "16-row blocks (128 threads, 4 x 12)": [
+        ("constexpr int BM = 32;", "constexpr int BM = 16;"),
+        (K8_F32_TILED_256, "tiled::launch<128, 4, 96>(a, st) : "
+                           "tiled::launch<128, 4, 128>(a, st)")],
+}
+# K1's narrow fp32 kernel (dh <= 64): its S or PV products, its
+# exponentials, its K/V tile copies or its partial outputs' epilogue taken
+# out, two, three or one blocks an SM at every dh (the kernel: three at
+# dh <= 16, two above), and 64-key tiles where Nk <= 32 takes 32
+K1_F32_NARROW_VARIANTS = {
+    "kernel": [],
+    "no S products": [("    for (int d = 0; d < DP; d += 4) {\n      float4 qv[4];",
+                       "    for (int d = 0; d < (Nq < 0 ? DP : 0); d += 4) {\n"
+                       "      float4 qv[4];")],
+    "no PV products": [("    for (int kk = kb; kk < ke; ++kk) {",
+                        "    for (int kk = kb; kk < (Nq < 0 ? ke : kb); ++kk) {")],
+    "no exponentials": [("        const float p = expf(sc[i][j] - m_new);",
+                         "        const float p = sc[i][j] - m_new;")],
+    "no K/V copies": [("    narrow_fwd_stage<DP, VEC>(nfs + L::k_off",
+                       "    if (Nq < 0) narrow_fwd_stage<DP, VEC>(nfs + L::k_off"),
+                      ("    narrow_fwd_stage<DP, VEC>(nfs + L::v_off",
+                       "    if (Nq < 0) narrow_fwd_stage<DP, VEC>(nfs + L::v_off")],
+    "no partial-output epilogue": [("    if (q0 + r >= Nq || c >= dh) continue;",
+                                    "    if (q0 + r >= Nq || c >= dh || Nq > 0) continue;")],
+    "two blocks an SM": [("return DP <= 16 ? 3 : 2;", "return 2;")],
+    "three blocks an SM": [("return DP <= 16 ? 3 : 2;", "return 3;")],
+    "one block an SM": [("return DP <= 16 ? 3 : 2;", "return 1;")],
+    "64-key tiles at Nk <= 32": [("    return keys == 32 ? launch_f32_narrow<DP, 32, VEC>",
+                                  "    return keys == 0 ? launch_f32_narrow<DP, 32, VEC>")],
 }
 K8_VARIANTS = {
     "kernel": [],
@@ -339,26 +388,68 @@ def _k8(gen, dev, stream, smi) -> None:
 
 
 def _k8_f32(gen, dev, stream, smi) -> None:
-    """K8's fp32 kernel at the 4AA eval's shapes (B=8 and B=2) at 16 x 24 and
-    at B=8 at 3 x 128, fp32 x and nn.Linear weights."""
-    k8 = _build_variants("fused_spatial_block_f32.cu", "lam_spatial_block_f32", K8_F32_VARIANTS)
+    """K8's outer-product fp32 kernel at the 4AA eval's shapes (B=2 and B=8)
+    at 16 x 24 and 3 x 128 and the fp32 train step's forward [16000, 2, 384]
+    at 16 x 24, on the w1 stream and the contiguous w2^T copy the wrapper
+    makes."""
+    k8 = _build_variants("fused_spatial_block_f32.cu", "lam_spatial_block_f32_tiled",
+                         K8_F32_VARIANTS)
     d, m, l = 384, 768, 2
     w1 = (torch.randn(3 * d + m, d, generator=gen) * d ** -0.5).to(dev)
     b1 = (torch.randn(3 * d + m, generator=gen) * 0.1).to(dev)
-    w2 = (torch.randn(d, d + m, generator=gen) * (d + m) ** -0.5).to(dev)
+    w2t = (torch.randn(d + m, d, generator=gen) * (d + m) ** -0.5).to(dev)
     b2 = (torch.randn(d, generator=gen) * 0.1).to(dev)
-    for n, heads in ((8000, 16), (2000, 16), (8000, 3)):
+    for n, heads in ((2000, 16), (8000, 16), (2000, 3), (8000, 3), (16000, 16)):
         dh = d // heads
         x = torch.randn(n, l, d, generator=gen).to(dev)
         out = torch.empty_like(x)
         qs, ks = ((1 + 0.2 * torch.randn(dh, generator=gen)).to(dev) for _ in range(2))
         cos, sin = rope_cos_sin(l, dh, device=dev)
-        args = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-                w2.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-                n, l, d, m, heads, w1.stride(0), w2.stride(0), dh ** -0.5,
-                fsb.f32_plan(n, l, d, m, heads).group, stream)
-        _in_turns(f"K8-fp32 [{n},{l},{d}] {heads}x{dh}",
-                  {name: _checked(fn, args) for name, fn in k8.items()}, smi)
+        plan = fsb.f32_plan(n, l, d, m, heads)
+        w1s = w1.flatten()[fsb._w1_stream_index(d, m, plan.group, d, dev)]
+        args = (x.data_ptr(), w1s.data_ptr(), b1.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+                w2t.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+                n, l, d, m, heads, dh ** -0.5, plan.group)
+        calls = {name: _checked(fn, (*args, stream)) for name, fn in k8.items()}
+        _in_turns(f"K8-fp32 [{n},{l},{d}] {heads}x{dh} ({plan.blocks} blocks of 32 rows)", calls,
+                  smi)
+        del x, out
+        torch.cuda.empty_cache()
+
+
+def _k1_f32_narrow(gen, dev, stream, smi) -> None:
+    """K1's narrow fp32 kernel in its plan's geometry: K3-fp32 on the 4AA
+    eval's packed q/k/v (16 x 24, v a view of linear1's output) at B = 2 and
+    B = 8, [4, 1000, 384] and [16, 1000, 384], and on MD17's spatial axis
+    [1920, 192, 256] (16 x 16); K1-fp32 on stage 1's latent self-attention
+    [9600, 2, 192, 16] and, with the bias, its cross-attention [1920, 8,
+    192 -> 32, 16]."""
+    k1 = _build_variants("flash_attention.cu", "lam_flash_attention_fwd_f32",
+                         K1_F32_NARROW_VARIANTS)
+    for b, h, nq, nk, dh, masked in ((4, 16, 1000, 1000, 24, False),
+                                     (16, 16, 1000, 1000, 24, False),
+                                     (1920, 16, 192, 192, 16, False),
+                                     (9600, 2, 192, 192, 16, False),
+                                     (1920, 8, 192, 32, 16, True)):
+        q = torch.randn(b, nq, h * dh, generator=gen).to(dev)
+        k = torch.randn(b, nk, h * dh, generator=gen).to(dev)
+        v = torch.randn(b, nk, 3 * h * dh, generator=gen).to(dev)[..., -h * dh:]
+        q, k, v = (t.unflatten(-1, (h, dh)).transpose(1, 2) for t in (q, k, v))
+        out = torch.empty(b, nq, h, dh, device=dev).transpose(1, 2)
+        bias = None
+        if masked:
+            keep = torch.arange(nk)[None, :] < torch.randint(9, 22, (b, 1), generator=gen)
+            bias = fa.mask_to_bias(keep.to(dev)).contiguous()
+        strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
+        plan = fa.f32_narrow_fwd_plan(dh, nk)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+                None if bias is None else bias.data_ptr(), b, h, nq, nk, dh, *strides,
+                dh ** -0.5, plan.dp, plan.keys, stream)
+        names = [n for n in K1_F32_NARROW_VARIANTS if masked or "Nk <= 32" not in n]
+        _in_turns(f"K1-fp32 narrow [{b},{h},{nq}->{nk},{dh}] (dp {plan.dp}, {plan.keys}-key "
+                  f"tiles)", {name: _checked(k1[name], args) for name in names}, smi)
+        del q, k, v, out
+        torch.cuda.empty_cache()
 
 
 def _k7(gen, dev, stream, smi) -> None:
@@ -480,7 +571,7 @@ def _k1_f32_wide(gen, dev, stream, smi) -> None:
         strides = [st for t in (q, k, v, out) for st in t.stride()[:3]]
         seg = fa.f32_wide_plan(n, n)
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, None, b, h, n, n,
-                dh, *strides, dh ** -0.5, seg, stream)
+                dh, *strides, dh ** -0.5, seg, 0, stream)
         _in_turns(f"K1-fp32 [{b},{h},{n},{dh}] {seg} sequence(s) a block",
                   {name: _checked(fn, args) for name, fn in k1.items()}, smi)
         del qkv, q, k, v, out
@@ -554,7 +645,8 @@ def _k4_f32(gen, dev, stream, smi) -> None:
         torch.cuda.empty_cache()
 
 
-KERNELS = {"K4-fp32": _k4_f32, "K1-fp32-wide": _k1_f32_wide, "K2-fp32": _k2_f32, "K2": _k2,
+KERNELS = {"K4-fp32": _k4_f32, "K1-fp32-narrow": _k1_f32_narrow, "K1-fp32-wide": _k1_f32_wide,
+           "K2-fp32": _k2_f32, "K2": _k2,
            "K9-forward": _k9_forward, "K11": _k11, "K9-backward": _k9_backward, "K5-K6": _k5_k6,
            "K8": _k8, "K8-fp32": _k8_f32, "K7": _k7}
 

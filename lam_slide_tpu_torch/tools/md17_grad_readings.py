@@ -21,11 +21,17 @@ numbers for other runs of the plain path against it:
   the plain path rounds them to bf16's 7; its fp32 decode is left as it is).
 
 A limit that a lower-precision control stays under cannot see that loss
-of precision. The
+of precision.
+
+``--step-test`` reads instead, for each seed, the point of
+tests/test_torch_port_cuda.py's ``test_md17_first_stage_step_on_the_card``:
+stage 1 from the registry's default data, the first 16 rows of its first
+train batch, after one train step, draws from seed + 1 (seed 0 is the
+test's own point). The
 tool uses only entry points every tree of the port has, so a comparison of
 two trees runs it from each:
 
-    cd <tree> && PYTHONPATH=. python <this file> [--seeds 0 1 2 3] [--controls]
+    cd <tree> && PYTHONPATH=. python <this file> [--seeds 0 1 2 3] [--controls] [--step-test]
 """
 
 import argparse
@@ -39,6 +45,7 @@ from lam_slide_tpu_torch.experiments import registry
 from lam_slide_tpu_torch.nn.blocks import set_backend
 from lam_slide_tpu_torch.ops import attention as attention_ops
 from lam_slide_tpu_torch.ops import flash_attention as fa
+from lam_slide_tpu_torch.train import create_train_state, make_train_step
 
 FRAMES = 100_000  # chip_smoke's MD17_FRAMES
 GRAD_BATCH = 2  # chip_smoke's GRAD_BATCH
@@ -116,10 +123,12 @@ def _stage_readings(label, model, modules, loss_fn, batch, seed, dev, controls, 
 
     def reading(name, got, ref):
         norm = abs(_global_norm(got) - _global_norm(ref)) / _global_norm(ref)
+        norm32 = [torch.stack([g.norm() for g in gs.values()]).norm().item() for gs in (got, ref)]
         worst, where = max(((got[n] - r).norm().item() / r.norm().item(), n)
                            for n, r in ref.items())
-        print(f"{label} seed {seed} {name}: global norm rel err {norm:.3e}, worst tensor rel "
-              f"err {worst:.3e} at {where} | {smi}", flush=True)
+        print(f"{label} seed {seed} {name}: global norm rel err {norm:.3e} (of fp32 norms "
+              f"{abs(norm32[0] - norm32[1]) / norm32[1]:.3e}), worst tensor rel err "
+              f"{worst:.3e} at {where} | {smi}", flush=True)
 
     got = grads("auto")
     ref = grads("plain")
@@ -134,11 +143,21 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3])
     parser.add_argument("--controls", action="store_true")
+    parser.add_argument("--step-test", action="store_true")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     for seed in args.seeds:
+        if args.step_test:
+            run = registry.md17_first_stage(seed=seed, device=dev)
+            batch = {k: v[:16] for k, v in device_batch(next(iter(run.train_loader)), dev).items()}
+            make_train_step(run.loss_fn, run.tx)(create_train_state(run.model, run.tx), batch, 0)
+            _stage_readings("stage 1 B=16 after a step", run.model, [run.model], run.loss_fn,
+                            batch, seed, dev, ["repeat"] if args.controls else [], torch.float32,
+                            smi)
+            del run
+            continue
         run1 = registry.md17_first_stage(seed=seed, synthetic_frames=FRAMES, device=dev)
         batch1 = device_batch(next(iter(run1.train_loader)), dev)
         _stage_readings("stage 1", run1.model, [run1.model], run1.loss_fn, batch1, seed, dev,

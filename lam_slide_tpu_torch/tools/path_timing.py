@@ -14,11 +14,15 @@ configuration:
   at B=64, both on the registry's random weights and synthetic
   trajectories.
 
+With ``--fp32`` it times the 4AA DiT in fp32 instead (TF32 off), the
+kernel path and the plain path: the Euler-10 window at the eval's B=2 and
+the train step at B=16, at 16 x dh 24 and at 3 x dh 128.
+
 Each is warmed up once and then timed ``--runs`` times with the card
 synchronised around it; printed are the mean and the runs in ms, with the
 card's name and power limit. Run it from a tree's root:
 
-    cd <tree> && PYTHONPATH=. python <this file> [--runs 3] [--label parent]
+    cd <tree> && PYTHONPATH=. python <this file> [--runs 3] [--label parent] [--fp32]
 """
 
 import argparse
@@ -49,10 +53,41 @@ def _timed(fn, runs: int) -> list:
     return times
 
 
+def _fp32_paths(runs: int, dev, make_model, euler, report) -> None:
+    """The 4AA DiT in fp32 (TF32 off), kernel path and plain path: the
+    Euler-10 window at B=2 and the B=16 train step, at both head splits."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for heads in (cs.HEADS, cs.WIDE_HEADS):
+        split = f"{heads}x{cs.HIDDEN // heads}"
+        for backend in ("auto", "plain"):
+            path = "kernel" if backend == "auto" else "plain"
+            with torch.no_grad():
+                model = make_model(heads, torch.float32, backend)
+                noise, x_cond, mask = cs.make_inputs(2, dev,
+                                                     torch.Generator().manual_seed(cs.SEED))
+                report(f"4AA fp32 Euler-{cs.NUM_STEPS} {split} B=2 window, {path} path",
+                       _timed(lambda: euler(noise, model, x_cond=x_cond, x_cond_mask=mask),
+                              runs))
+                del model
+            state, step, transport = cs.train_state(
+                lambda h, backend: make_model(h, torch.float32, backend), heads, backend)
+            batch = cs.train_batch(cs.TRAIN_BATCH, dev, transport, False, cs.SEED)
+            holder = {"state": state}
+
+            def train_step():
+                holder["state"], _ = step(holder["state"], batch, cs.SEED)
+
+            report(f"4AA fp32 {split} B={cs.TRAIN_BATCH} train step, {path} path",
+                   _timed(train_step, runs))
+            del state, holder, batch
+            torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--runs", type=int, default=3)
     parser.add_argument("--label", default="tree")
+    parser.add_argument("--fp32", action="store_true")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -70,6 +105,9 @@ def main() -> int:
 
     euler = Sampler(create_transport(path_type="GVP", prediction="data")).sample_ode(
         sampling_method="euler", num_steps=cs.NUM_STEPS)
+    if args.fp32:
+        _fp32_paths(args.runs, dev, make_model, euler, report)
+        return 0
     for heads in (cs.HEADS, cs.WIDE_HEADS):
         split = f"{heads}x{cs.HIDDEN // heads}"
         with torch.no_grad():

@@ -652,7 +652,9 @@ def test_md17_first_stage_step_on_the_card(dev):
     set_backend(run.model, "plain")
     want = grads()
     assert all(bool(torch.isfinite(gr).all()) and gr.abs().max() > 0 for gr in got.values())
-    norm = lambda gs: torch.stack([gr.norm() for gr in gs.values()]).norm().item()
+    # in fp64, as chip_smoke.py's _global_norm: an fp32 norm rounds both
+    # paths' norms to a grid of one ulp, coarser than the limit
+    norm = lambda gs: torch.stack([gr.double().norm() for gr in gs.values()]).norm().item()
     assert abs(norm(got) - norm(want)) <= S1_GRAD_REL_TOL[0] * norm(want)
     for name, gr in got.items():
         assert (gr - want[name]).norm() <= S1_GRAD_REL_TOL[1] * want[name].norm(), name
@@ -1451,6 +1453,111 @@ def test_spatial_block_fp32_refusals(dev):
     with pytest.raises(ValueError):
         fsb.fused_spatial_block(x, *args[1:])
     assert (fsb.launches, fsb.f32_launches) == before
+
+
+@pytest.mark.parametrize("n,l,heads", [
+    (2000, 2, 16), (2000, 2, 3),  # the 4AA eval at B=2, both splits
+    (8000, 2, 16), (16000, 2, 3),  # sampling at B=8, the train step's forward
+    (37, 1, 16), (37, 3, 3), (37, 8, 16), (17, 5, 3), (1, 8, 16),  # ragged last blocks
+])
+def test_spatial_block_fp32_tiled_matches_plain_and_the_dot_route(dev, no_tf32, n, l, heads):
+    """K8-fp32's outer-product kernel at the 4AA widths: the plan's route
+    (its counter, not the dot-product one's, moves once a call), within
+    F32_REL_TOL["K8"] of the plain version, a second call bit-identical, and
+    bit-identical to the dot-product route on the same inputs (both sum in
+    one order)."""
+    d, m = 384, 768
+    args = _spatial_inputs_f32(_gen(122), dev, n, l, d, m, heads)
+    plan = fsb.f32_plan(n, l, d, m, heads)
+    assert plan.route == "tiled"
+    counters = (fsb.launches, fsb.f32_launches, fsb.f32_tiled_launches, fsb.f32_dot_launches)
+    got = fsb.fused_spatial_block(*args)
+    again = fsb.fused_spatial_block(*args)
+    assert _launched(counters, (fsb.launches, fsb.f32_launches, fsb.f32_tiled_launches,
+                                fsb.f32_dot_launches)) == (2, 2, 2, 0)
+    x, w1, b1, qs, ks, w2, b2, cos, sin, _, scale = args
+    dot = torch.empty_like(x)
+    _build.launch("lam_spatial_block_f32", *(t.data_ptr() for t in args[:9]), dot.data_ptr(),
+                  n, l, d, m, heads, w1.stride(0), w2.stride(0), scale, plan.group,
+                  torch.cuda.current_stream().cuda_stream)
+    want = fsb.reference_spatial_block(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, dot)
+    assert _rel_err(got, want) <= F32_REL_TOL["K8"]
+
+
+def test_spatial_block_fp32_tiled_follows_weights_written_in_place(dev, no_tf32):
+    """The outer-product route builds its k-major weight operands once for a
+    pair of weight tensors and keeps them: a second call builds none, a write
+    in place to w1 or w2 (as an optimizer step makes) is seen by the next
+    call, and the entry goes with w1."""
+    args = _spatial_inputs_f32(_gen(124), dev, 200, 2, 384, 768, 16)
+    fsb.fused_spatial_block(*args)
+    key = id(args[1])
+    kept = fsb._tiled_weights[key][3]
+    fsb.fused_spatial_block(*args)
+    assert fsb._tiled_weights[key][3] is kept
+    for i in (1, 5):
+        with torch.no_grad():
+            args[i].mul_(1.5)
+        got = fsb.fused_spatial_block(*args)
+        want = fsb.reference_spatial_block(*args)
+        torch.cuda.synchronize()
+        assert _rel_err(got, want) <= F32_REL_TOL["K8"]
+    args[1] = None
+    assert key not in fsb._tiled_weights
+
+
+@pytest.mark.parametrize("b,h,nq,nk,dh,lse,masked", [
+    (4, 16, 1000, 1000, 24, False, False),  # K3-fp32 at the 4AA eval's temporal axis
+    (16, 16, 1000, 1000, 24, True, False),  # the 4AA fp32 train step's, with the lse
+    (96, 2, 192, 192, 16, False, False),    # MD17 stage 1's latent self-attention
+    (96, 8, 192, 32, 16, True, True),       # its cross-attention over 32 atoms, the bias
+    (3, 3, 130, 257, 20, True, True),       # ragged, dh 20 (4-byte copies)
+    (2, 2, 65, 63, 8, True, False),         # the tile edges at the other widths
+    (2, 3, 193, 191, 48, True, True),
+    (2, 3, 64, 65, 64, True, False),
+    (3, 2, 30, 30, 40, False, False),
+    (2, 2, 70, 1, 24, True, False),         # one key
+])
+def test_flash_fp32_narrow_matches_plain(dev, no_tf32, b, h, nq, nk, dh, lse, masked):
+    """K1's narrow fp32 kernel (dh <= 64) on head-major strided views:
+    within K1_F32_REL_TOL of the plain version and its lse within
+    LSE_F32_ATOL (an all-masked row included), only the narrow kernel's
+    counter moves beside K1's, a second call bit-identical."""
+    g = _gen(121)
+    q, k, v, _ = (t.float() for t in _heads_views(g, dev, b, h, nq, nk, dh))
+    mask = _key_mask(g, dev, b, nk) if masked else None
+    names = ("launches", "fp32_launches", "fp32_narrow_launches", "fp32_wide_launches",
+             "bias_launches")
+    before = tuple(getattr(fa, n) for n in names)
+    got, got_lse = fa._forward(q, k, v, dh ** -0.5, with_lse=lse, mask=mask)
+    again, _ = fa._forward(q, k, v, dh ** -0.5, with_lse=lse, mask=mask)
+    assert _launched(before, tuple(getattr(fa, n) for n in names)) == (2, 2, 2, 0, 2 * masked)
+    want = fa.reference_attention(q, k, v, dh ** -0.5, return_lse=lse, mask=mask)
+    torch.cuda.synchronize()
+    if lse:
+        want, want_lse = want
+        assert (got_lse - want_lse).abs().max().item() <= LSE_F32_ATOL
+    assert torch.equal(got, again)
+    assert _rel_err(got, want) <= K1_F32_REL_TOL
+
+
+@pytest.mark.parametrize("b,n,heads,dh", [(4, 1000, 16, 24), (64, 192, 16, 16)])
+def test_flash_packed_fp32_runs_the_narrow_kernel(dev, no_tf32, b, n, heads, dh):
+    """K3-fp32 on packed q/k and v a view of linear1's output, as the fp32
+    DiTs pass them (the 4AA temporal axis, MD17's spatial one): the narrow
+    kernel, within K1_F32_REL_TOL of the plain version."""
+    g = _gen(123)
+    d = heads * dh
+    q, k = (torch.randn(b, n, d, generator=g).to(dev) for _ in range(2))
+    v = torch.randn(b, n, 3 * d, generator=g).to(dev)[..., 2 * d:]
+    before = fa.fp32_narrow_launches
+    got = fa.flash_attention_packed(q, k, v, heads)
+    assert fa.fp32_narrow_launches == before + 1
+    want = fa.reference_attention_packed(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and _rel_err(got, want) <= K1_F32_REL_TOL
 
 
 @pytest.mark.parametrize("n,l,d,m,heads", [

@@ -194,9 +194,11 @@ def test_k8_f32_plain_matches_jax(monkeypatch, l, heads, dh):
 
 def test_k8_f32_plan_over_every_width_the_checks_accept():
     """``f32_plan`` over D, M multiples of 16 (D up to 1024) and every even
-    head dim: a plan exists exactly where a head group exists and shared
-    memory fits; its group holds whole heads, is a multiple of 4 dividing D
-    and at most 128 columns unless one head is wider."""
+    head dim: a plan exists exactly where a head group exists and, on the
+    dot-product route, shared memory fits; its group holds whole heads, is a
+    multiple of 4 dividing D and at most 128 columns unless one head is
+    wider; the outer-product route takes D 384 with M a multiple of 384 and
+    groups of 96 or 128 columns, and the dot-product route the rest."""
     for d in range(16, 1025, 16):
         for heads in (h for h in range(1, d // 2 + 1) if d % h == 0 and (d // h) % 2 == 0):
             dh = d // heads
@@ -204,36 +206,48 @@ def test_k8_f32_plan_over_every_width_the_checks_accept():
                 for l in (1, 3, 8):
                     plan = tsb.f32_plan(1000, l, d, m, heads)
                     group = tsb.f32_group(d, heads)
-                    fits = group is not None and tsb.f32_smem_bytes(d, group) <= SMEM_MAX
+                    tiled = (group is not None and d == 384 and m % 384 == 0
+                             and group in (96, 128))
+                    fits = group is not None and (
+                        tiled or tsb.f32_smem_bytes(d, group) <= SMEM_MAX)
                     assert (plan is None) == (not fits), (d, heads, m, l)
                     if plan is None:
                         continue
                     assert plan.group == group
                     assert plan.group % dh == 0 and d % plan.group == 0 and plan.group % 4 == 0
                     assert plan.group <= 128 or plan.group == dh
-                    assert plan.smem == tsb.f32_smem_bytes(d, group) <= SMEM_MAX
+                    assert plan.route == ("tiled" if tiled else "dot"), (d, heads, m)
+                    smem = tsb.f32_tiled_smem_bytes() if tiled else tsb.f32_smem_bytes(d, group)
+                    assert plan.smem == smem <= SMEM_MAX
+                    assert plan.blocks == -(-1000 // (32 // l))
 
 
 @pytest.mark.parametrize("l", range(1, 9))
 def test_k8_f32_plans_at_the_checked_widths(l):
     """The 4AA widths at both splits and the other composite and tiny widths
-    the card's checks run have an fp32 plan at every L; the 4AA plans'
-    shared memory: a 32 x 388 x tile, a staging tile of the group's q, k, v
-    (32 x (3 x 96 + 4) or 32 x (3 x 128 + 4)) and two ring stages of
-    384 x 36 floats."""
+    the card's checks run have an fp32 plan at every L. The 4AA plans take
+    the outer-product kernel: 32-row blocks, shared memory
+    x^T and S^T of 384 x 36 floats and two ring stages of 32 x 384; the
+    other composite and tiny widths the dot-product kernel, whose 256.0 KB
+    at D 512 do not fit."""
     for d, heads in COMPOSITE_WIDTHS + TINY_WIDTHS:
-        assert tsb.f32_plan(2000, l, d, 2 * d, heads) is not None, (d, heads)
-    assert tsb.f32_plan(8000, l, 384, 768, 16) == (96, 4 * (32 * 388 + 32 * 292
-                                                            + 2 * 384 * 36))
-    assert tsb.f32_plan(8000, l, 384, 768, 3) == (128, 4 * (32 * 388 + 32 * 388
-                                                             + 2 * 384 * 36))
+        plan = tsb.f32_plan(2000, l, d, 2 * d, heads)
+        assert plan is not None, (d, heads)
+        assert plan.route == ("tiled" if d == 384 else "dot"), (d, heads)
+    blocks = -(-8000 // (32 // l))
+    smem = 4 * (2 * 384 * 36 + 2 * 32 * 384) + 16  # and two mbarriers
+    assert tsb.f32_plan(8000, l, 384, 768, 16) == (96, smem, "tiled", blocks)
+    assert tsb.f32_plan(8000, l, 384, 768, 3) == (128, smem, "tiled", blocks)
+    assert tsb.f32_plan(8000, l, 256, 512, 16) == (
+        128, 4 * (32 * 260 + 32 * 388 + 2 * 256 * 36), "dot", blocks)
     assert tsb.f32_plan(8000, l, 512, 1024, 8) is None  # 265 KB
 
 
 def test_cpu_fp32_call_takes_the_plain_version(monkeypatch):
     """An all-fp32 CPU call (and one that needs a gradient) takes
     reference_spatial_block and counts no launch of any route."""
-    for name in ("launches", "wmma_launches", "f32_launches"):
+    for name in ("launches", "wmma_launches", "f32_launches", "f32_tiled_launches",
+                 "f32_dot_launches"):
         monkeypatch.setattr(tsb, name, 0)
     rng = np.random.default_rng(1)
     d, heads, m = 96, 4, 192
@@ -247,4 +261,5 @@ def test_cpu_fp32_call_takes_the_plain_version(monkeypatch):
     args[0].requires_grad_(True)
     tsb.fused_spatial_block(*args).sum().backward()
     assert args[0].grad is not None
-    assert (tsb.launches, tsb.wmma_launches, tsb.f32_launches) == (0, 0, 0)
+    assert (tsb.launches, tsb.wmma_launches, tsb.f32_launches, tsb.f32_tiled_launches,
+            tsb.f32_dot_launches) == (0, 0, 0, 0, 0)
