@@ -136,7 +136,9 @@ printed on its own line with its seconds:
 
 Phase 3 also holds the fp32 backward kernels of fp32 training to their
 plain versions with TF32 off: K9-fp32's backward (csrc/short_attention_f32.cu)
-at [12288, 30, 256] and the smoke DiTs' 4 x dh 8; K4-fp32's narrow kernel
+at [12288, 30, 256] and the smoke DiTs' 4 x dh 8, and both of K9-fp32's
+kernels at their tiles' edges (K9_F32_EDGE_SPECS: n 9 to 127, dh 5 to 64,
+uneven head groups, views that take 4-byte copies); K4-fp32's narrow kernel
 (csrc/flash_attention_bwd.cu, dh <= 64) at the 4AA fp32 step's
 [32,16,1000,24] and a ragged dh-20 shape (and, with the MD17 rows below, at
 [1920,16,192,16], [1920,2,192,16], [256,8,192->32,16] with the bias and a
@@ -2122,6 +2124,56 @@ def md17_wide_bf16_checks(dev, seed: int, table: KernelTable) -> None:
                   2.5 * attn_flops, 8 * b * h * n * dh * 2 + b * h * n * 4, exps=b * h * n * n)
         del qkv, q, k, v, g, out, lse, args
         torch.cuda.empty_cache()
+
+
+# K9-fp32 (csrc/short_attention_f32.cu, f32_fwd_plan / f32_bwd_plan) at its
+# tiles' edges, beyond the main-path rows: (b, n, heads, dh, misaligned),
+# q/k/v views of one buffer one column wider where misaligned (4-byte
+# copies in place of 16-byte ones)
+K9_F32_EDGE_SPECS = (
+    (256, 127, 4, 64, False),  # [256,127,256]: one head an item, the backward's two chunks
+    (4096, 16, 4, 8, False),   # the 4AA smoke width's n = 16, at a batch that fills the card
+    (7, 9, 3, 24, True),       # the shortest axis
+    (5, 31, 11, 20, True),     # uneven head groups, dh 20
+    (4, 33, 2, 16, False),     # past 32 keys
+    (6, 65, 3, 12, True),      # past 64: a row a thread, two query chunks
+    (2, 127, 4, 5, True))      # dh 5, padded to 8
+
+
+def k9_f32_edge_checks(dev) -> None:
+    """K9-fp32's forward and backward at K9_F32_EDGE_SPECS against their
+    plain versions with TF32 off, within F32_REL_TOL["K9 fp32"] and
+    K9_F32_GRAD_REL_TOL: one launch a call, a second call bit-identical."""
+    from lam_slide_tpu_torch.ops import short_attention as tsa
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    for b, n, heads, dh, misaligned in K9_F32_EDGE_SPECS:
+        d, scale = heads * dh, dh ** -0.5
+        qkv = torch.randn(b, n, 3 * d + misaligned, generator=gen, device=dev)
+        q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d + misaligned:]
+        g = torch.randn(b, n, d, generator=gen, device=dev)
+        before = (tsa.fp32_launches, tsa.bwd_fp32_launches)
+        out, again = tsa.short_attention(q, k, v, heads), tsa.short_attention(q, k, v, heads)
+        grads = tsa.short_attention_backward(q, k, v, g, heads, scale)
+        grads_again = tsa.short_attention_backward(q, k, v, g, heads, scale)
+        launched = (tsa.fp32_launches - before[0], tsa.bwd_fp32_launches - before[1])
+        key = f"K9 fp32 [{b},{n},{d}] {heads} x dh {dh}{' misaligned' if misaligned else ''}"
+        check(launched == (2, 2), f"{key}: launches {launched} != (2, 2)")
+        check(torch.equal(out, again) and _bit_identical(grads, grads_again),
+              f"{key}: a second call differs")
+        rel = errors(out, tsa.reference_short_attention(q, k, v, heads, scale))[1]
+        rels = [e[1] for e in _grad_errors(grads, tsa.reference_short_backward(q, k, v, g, heads,
+                                                                                 scale))]
+        check(rel <= F32_REL_TOL["K9 fp32"] and max(rels) <= K9_F32_GRAD_REL_TOL,
+              f"{key}: rel err forward {rel}, backward {rels}")
+        print(f"kernel {key}: forward rel {rel:.3e} (tol {F32_REL_TOL['K9 fp32']}), backward "
+              f"dq/dk/dv rel {' / '.join(f'{r:.3e}' for r in rels)} (tol "
+              f"{K9_F32_GRAD_REL_TOL}); second calls bit-identical")
+        del qkv, q, k, v, g, out, again, grads, grads_again
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def f32_train_kernel_checks(dev, table: KernelTable) -> None:
@@ -4253,6 +4305,7 @@ def main() -> int:
     dh128_kernel_checks(dev, table)
     md17_wide_bf16_checks(dev, SEED + 11, table)
     f32_train_kernel_checks(dev, table)
+    k9_f32_edge_checks(dev)
     ablation_kernel_checks(dev, torch.Generator().manual_seed(SEED + 9), table)
     phase_done("kernels")
 

@@ -55,9 +55,9 @@ SIGNATURES = {
     "lam_spatial_block_f32": [_P] * 10 + [_L, _I, _I, _I, _I, _L, _L, _F, _I, _P],
     "lam_spatial_block_f32_tiled": [_P] * 10 + [_L, _I, _I, _I, _I, _F, _I, _P],
     "lam_short_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P],
-    "lam_short_attention_fwd_f32": [_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P],
+    "lam_short_attention_fwd_f32": [_P] * 4 + [_I] * 6 + [_L] * 8 + [_F, _P],
     "lam_short_attention_bwd": [_P] * 7 + [_I] * 5 + [_LP, _L, _L, _F, _P],
-    "lam_short_attention_bwd_f32": [_P] * 7 + [_I] * 5 + [_LP, _L, _L, _F, _P],
+    "lam_short_attention_bwd_f32": [_P] * 7 + [_I] * 6 + [_LP, _L, _L, _F, _P],
     "lam_fused_temporal_fwd": [_P] * 8 + [_I] * 4 + [_L] * 12 + [_F, _F, _P],
     "lam_short_backward": [_P] * 10 + [_I] * 5 + [_LP, _F, _I, _P],
     "lam_short_backward_f32": [_P] * 9 + [_I] * 5 + [_LP, _F, _P],

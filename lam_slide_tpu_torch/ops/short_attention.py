@@ -21,11 +21,13 @@ backward kernel.
 
 fp32 operands (the MD17 test pass's fp32 DiT, and the fp32 stage-2
 training of both registries) take the kernels of
-``csrc/short_attention_f32.cu``, a warp an item on FFMA (no TF32): the
-forward with k and v in shared memory and a lane a query row
-(``f32_fwd_warps`` sizes its blocks), the backward with q, k, v and dO in
-shared memory, a query pass (dQ, the row statistics) and a key pass (dK,
-dV) in which a lane owns a row (``f32_bwd_warps``).
+``csrc/short_attention_f32.cu`` on FFMA (no TF32): persistent blocks over
+items, an item one batch row's group of heads whose whole rows are copied
+by cp.async into shared memory. The forward forms each query
+row's logits once in registers, a thread two rows of a head
+(``f32_fwd_plan`` sizes its blocks); the backward forms S and dP once a
+query chunk into shared memory, takes the row statistics a thread a row,
+then dV, dK and dQ as outer-product tiles (``f32_bwd_plan``).
 
 Counters (plain integers, touched only where a kernel launches):
 ``launches`` the forward kernel in both dtypes, ``fp32_launches`` its fp32
@@ -34,7 +36,7 @@ launches, ``bwd_launches`` the backward kernel in both dtypes,
 """
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -99,40 +101,76 @@ def bwd_heads_per_block(n: int, num_heads: int, dh: int) -> int:
     return hb
 
 
-F32_MAX_WARPS = 8  # warps (items in flight) an fp32 block, forward or backward
+# The fp32 kernels (csrc/short_attention_f32.cu): persistent blocks over
+# items, an item one batch row's group of heads, its rows in shared memory
+# on one stage, which leaves room for more blocks an SM: on an H100 at
+# MD17's [12288, 30, 256] two stages lost in both kernels
+# (tools/kernel_variants.py K9-fp32).
+F32_BLOCK_THREADS = 64  # threads a block aims at (fewer heads an item past it)
+F32_MAX_THREADS = 256
+F32_KV_TILES = 2  # the backward's dK/dV tiles a thread at most (``bwd::W``)
 
 
-def f32_fwd_smem_bytes(n: int, dh: int, warps: int) -> int:
-    """Shared memory of an fp32 K9 forward block (csrc/short_attention_f32.cu):
-    each warp holds k and v of one item, n rows of dh rounded up to 16, 32
-    or 64 floats."""
-    return warps * 2 * n * _padded_dh(dh) * 4
+class F32ShortPlan(NamedTuple):
+    """An fp32 K9 kernel's launch for one call: ``heads`` of one batch row
+    an item (a block's unit of work), ``threads`` a block, and the block's
+    dynamic shared memory, which the kernel sizes alike from the same
+    geometry and refuses past SMEM_MAX."""
+    heads: int
+    threads: int
+    smem_bytes: int
 
 
-def f32_fwd_warps(n: int, dh: int) -> int:
-    """Warps an fp32 K9 forward block takes: F32_MAX_WARPS, fewer while its
-    shared memory exceeds SMEM_MAX."""
-    warps = F32_MAX_WARPS
-    while warps > 1 and f32_fwd_smem_bytes(n, dh, warps) > SMEM_MAX:
-        warps -= 1
-    return warps
+def _tile_ld(heads: int, dp: int) -> int:
+    """Row stride (floats) of a staged tile (``tile_ld``): heads * dp rounded
+    up to 32, plus 4."""
+    return -(-heads * dp // 32) * 32 + 4
 
 
-def f32_bwd_smem_bytes(n: int, dh: int, warps: int) -> int:
-    """Shared memory of an fp32 K9 backward block (csrc/short_attention_f32.cu
-    ``bwd_warp_floats``): each warp holds q, k, v and dO of one item, n rows
-    of dh rounded up to 16, 32 or 64 floats, and three row statistics of n
-    rounded up to 4 floats."""
-    return warps * (4 * n * _padded_dh(dh) + 3 * (-(-n // 4) * 4)) * 4
+def _even_heads(num_heads: int, most: int) -> int:
+    """The heads split into as few groups of at most ``most`` as they go,
+    evenly (16 heads at most 8 -> 8 + 8, 11 -> 6 + 5): a group's size."""
+    groups = -(-num_heads // max(1, most))
+    return -(-num_heads // groups)
 
 
-def f32_bwd_warps(n: int, dh: int) -> int:
-    """Warps an fp32 K9 backward block takes: F32_MAX_WARPS, fewer while its
-    shared memory exceeds SMEM_MAX."""
-    warps = F32_MAX_WARPS
-    while warps > 1 and f32_bwd_smem_bytes(n, dh, warps) > SMEM_MAX:
-        warps -= 1
-    return warps
+def f32_fwd_plan(n: int, dh: int, num_heads: int) -> F32ShortPlan:
+    """The fp32 forward's plan (``lam_short_attention_fwd_f32`` in
+    csrc/short_attention_f32.cu takes heads and threads from it): a thread
+    owns R query rows of one head (the kernel's: 2 for n <= 64, 1 past it,
+    where a row's logits fill 128 registers), so a head takes G = ceil(n /
+    R) threads; an item holds as many heads as keep a block at
+    F32_BLOCK_THREADS (MD17's 16 x dh 16: 4 heads, 60 threads), split
+    evenly; its q, k and v rows (G * R rows of ``_tile_ld`` floats each,
+    dh padded to a multiple of 4)."""
+    rows = 2 if n <= 64 else 1
+    g = -(-n // rows)
+    heads = _even_heads(num_heads, F32_BLOCK_THREADS // g)
+    ld = _tile_ld(heads, -(-dh // 4) * 4)
+    return F32ShortPlan(heads, -(-heads * g // 32) * 32, 4 * 3 * g * rows * ld)
+
+
+def f32_bwd_plan(n: int, dh: int, num_heads: int) -> F32ShortPlan:
+    """The fp32 backward's plan (``bwd::geometry`` in
+    csrc/short_attention_f32.cu): keys padded to np = ceil4(n), query chunks
+    of qc = np rows (64 past 64), whole chunks staged; a thread holds 4 keys
+    x 4 columns of dK and dV (a head takes np / 4 * dp / 4 such tiles, dp
+    dh padded to a multiple of 4, at most F32_KV_TILES a thread); an item
+    holds as many heads as keep those tiles at F32_BLOCK_THREADS (MD17's 16
+    x dh 16: 2 heads, 64 threads), split evenly; its q, k, v and dO rows,
+    then its S and dP (qc rows of ldp floats a head, plus 4)."""
+    dp = -(-dh // 4) * 4
+    np_ = -(-n // 4) * 4
+    qc = np_ if np_ <= 64 else 64
+    nr = -(-np_ // qc) * qc
+    ldp = np_ if (np_ // 4) % 2 else np_ + 4
+    tiles = (np_ // 4) * (dp // 4)
+    heads = _even_heads(num_heads, F32_BLOCK_THREADS // tiles)
+    units = heads * tiles
+    threads = min(F32_MAX_THREADS,
+                  -(-max(min(units, F32_BLOCK_THREADS), -(-units // F32_KV_TILES)) // 32) * 32)
+    return F32ShortPlan(heads, threads,
+                        4 * (4 * nr * _tile_ld(heads, dp) + 2 * heads * (qc * ldp + 4)))
 
 
 def reference_short_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -200,9 +238,10 @@ def _forward(q, k, v, num_heads: int, scale: float) -> torch.Tensor:
     global launches, fp32_launches
     with torch.cuda.device(q.device):
         if fp32:
+            plan = f32_fwd_plan(n, dh, num_heads)
             _build.launch("lam_short_attention_fwd_f32", q.data_ptr(), k.data_ptr(),
-                          v.data_ptr(), out.data_ptr(), b, num_heads, n, dh,
-                          f32_fwd_warps(n, dh), *strides, float(scale), _stream(q))
+                          v.data_ptr(), out.data_ptr(), b, num_heads, n, dh, plan.heads,
+                          plan.threads, *strides, float(scale), _stream(q))
         else:
             _build.launch("lam_short_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), b, num_heads, n, dh,
@@ -275,8 +314,9 @@ def short_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     global bwd_launches, bwd_fp32_launches
     with torch.cuda.device(q.device):
         if fp32:
-            _build.launch("lam_short_attention_bwd_f32", *ptrs, f32_bwd_warps(n, dh), strides,
-                          dq.stride(0), dq.stride(1), float(scale), _stream(q))
+            plan = f32_bwd_plan(n, dh, num_heads)
+            _build.launch("lam_short_attention_bwd_f32", *ptrs, plan.heads, plan.threads,
+                          strides, dq.stride(0), dq.stride(1), float(scale), _stream(q))
         else:
             _build.launch("lam_short_attention_bwd", *ptrs,
                           bwd_heads_per_block(n, num_heads, dh), strides, dq.stride(0),

@@ -39,7 +39,13 @@ dh <= 64 (K3-fp32 on the 4AA eval's [4, 1000, 384] and [16, 1000, 384] and
 MD17's [1920, 192, 256], with the lse at [16, 16, 1000, 24], stage 1's
 [9600, 2, 192, 16] and, with the bias, [1920, 8, 192 -> 32, 16]) and
 K8-fp32 at [2000, 2, 384] and [8000, 2, 384] at both splits and forward +
-backward at [16000, 2, 384]; ``--fp32`` times these alone. ``--bwd-fp32``
+backward at [16000, 2, 384], and K9-fp32's forward and backward
+(SHORT_FP32_SHAPES: MD17's temporal axis [12288, 30, 256] at 16 x 16 with
+v a strided view, the 4AA smoke width's n = 16 at 4 x 8, [256, 127, 256]
+at 4 x 64 and ragged n 9 / 31 / 33 at 16 x 16); ``--fp32`` times these
+alone, ``--short-fp32`` K9-fp32's alone, with ``--yardsticks`` also their
+plain versions, SDPA's (fp32, TF32 off; forward + backward less forward
+for the backward) and their bounds. ``--bwd-fp32``
 times K4 on fp32 operands alone (TF32 off) at the
 shapes of fp32 training (BWD_FP32_SHAPES: the 4AA DiT's [32, 16, 1000, 24]
 and [16, 3, 1000, 128], MD17's [1920, 16, 192, 16], [1920, 2, 192, 16],
@@ -50,7 +56,8 @@ less forward (for K6 after the plain transform) and K4's bound. It uses only
 entry points every tree of the port has, so an A/B of two trees runs it
 from each in turns:
 
-    cd <tree> && PYTHONPATH=. python <this file> <label> [--fp32 | --bwd-fp32 [--yardsticks]]
+    cd <tree> && PYTHONPATH=. python <this file> <label> \
+        [--fp32 | --short-fp32 [--yardsticks] | --bwd-fp32 [--yardsticks]]
 
 and prints one line per call with the card's name and power limit.
 """
@@ -161,6 +168,52 @@ def _narrow_fp32_calls(gen, dev) -> list:
     return calls
 
 
+# K9-fp32's shapes: (b, n, heads, dh), the first MD17's temporal axis at the
+# fp32 stage-2 step's and the test pass's B = 64 (64 x 192 sequences)
+SHORT_FP32_SHAPES = ((12288, 30, 16, 16), (65536, 16, 4, 8), (256, 127, 4, 64),
+                     (12288, 9, 16, 16), (12288, 31, 16, 16), (12288, 33, 16, 16))
+
+
+def _short_fp32_inputs(gen, dev, b, n, heads, dh):
+    """K9-fp32's q and k contiguous, v a view of a wider buffer (as linear1's
+    output hands it over), a contiguous output gradient."""
+    d = heads * dh
+    q, k, g = (torch.randn(b, n, d, generator=gen).to(dev) for _ in range(3))
+    v = torch.randn(b, n, 3 * d, generator=gen).to(dev)[..., 2 * d:]
+    return q, k, v, g
+
+
+def _short_fp32_calls(gen, dev, yardsticks: bool = False) -> list:
+    """(name, call, reps, yardsticks) of K9-fp32's forward and backward at
+    SHORT_FP32_SHAPES; the yardsticks (plain ms, SDPA ms, bound ms and what
+    bounds it) when asked for (chip_smoke.bound: four products for the
+    forward, five for the backward, at fp32's rate; each input read and each
+    output written once; one exponential a score)."""
+    import chip_smoke as cs
+
+    calls = []
+    for b, n, heads, dh in SHORT_FP32_SHAPES:
+        q, k, v, g = _short_fp32_inputs(gen, dev, b, n, heads, dh)
+        scale = dh ** -0.5
+        shape = f"[{b},{n},{heads * dh}] {heads}x{dh}"
+        fwd = lambda q=q, k=k, v=v, heads=heads: tsa.short_attention(q, k, v, heads)  # noqa: E731
+        bwd = lambda q=q, k=k, v=v, g=g, heads=heads, scale=scale: (  # noqa: E731
+            tsa.short_attention_backward(q, k, v, g, heads, scale))
+        extra = [None, None]
+        if yardsticks:
+            major = [t.unflatten(-1, (heads, dh)).transpose(1, 2) for t in (q, k, v, g)]
+            scores, size = b * heads * n * n, 4 * q.numel()
+            extra = [(_ms(lambda: tsa.reference_short_attention(q, k, v, heads, scale), 3),
+                      cs.library_times(*major[:3], scale),
+                      *cs.bound(4 * scores * dh, 4 * size, cs.PEAK_FP32_FLOPS, scores)),
+                     (_ms(lambda: tsa.reference_short_backward(q, k, v, g, heads, scale), 3),
+                      cs.library_times(*major[:3], scale, grad=major[3]),
+                      *cs.bound(10 * scores * dh, 7 * size, cs.PEAK_FP32_FLOPS, scores))]
+        calls += [(f"K9-fp32 forward {shape}", fwd, 10, extra[0]),
+                  (f"K9-fp32 backward {shape}", bwd, 10, extra[1])]
+    return calls
+
+
 def _fp32_calls(gen, dev) -> list:
     """(name, call, reps) of the fp32 DiTs' K1-fp32 at dh 128, K5-fp32 and
     K2-fp32 at their main-path shapes, then ``_narrow_fp32_calls``."""
@@ -184,7 +237,8 @@ def _fp32_calls(gen, dev) -> list:
                 (torch.randn(2 * d, generator=gen) * 0.1).to(dev), w2[:, d:].t())
         calls.append((f"K2-fp32 [{rows},{d}] -> {2 * d}", lambda args=args: fm.fused_mlp(*args),
                        10))
-    return calls + _narrow_fp32_calls(gen, dev)
+    return (calls + _narrow_fp32_calls(gen, dev)
+            + [call[:3] for call in _short_fp32_calls(gen, dev)])
 
 
 # K4-fp32's shapes on the fp32 training paths: (b, h, nq, nk, dh, masked)
@@ -265,6 +319,17 @@ def main() -> int:
     if "--bwd-fp32" in sys.argv[2:]:
         with torch.no_grad():
             _bwd_fp32(gen, dev, label, smi, "--yardsticks" in sys.argv[2:])
+        return 0
+    if "--short-fp32" in sys.argv[2:]:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        with torch.no_grad():
+            for name, fn, reps, extra in _short_fp32_calls(gen, dev,
+                                                           "--yardsticks" in sys.argv[2:]):
+                text = f"{label}: {name} {_ms(fn, reps):.4f} ms"
+                if extra is not None:
+                    text += (f", plain {extra[0]:.4f} ms, SDPA {extra[1]:.4f} ms, bound "
+                             f"{extra[2]:.4f} ms ({extra[3]})")
+                print(f"{text} | {smi}", flush=True)
         return 0
     if "--fp32" in sys.argv[2:]:
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False

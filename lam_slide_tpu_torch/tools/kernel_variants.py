@@ -1,6 +1,6 @@
 """Time ablated copies of K4-fp32, K1-fp32 at dh 128, K2, K7, K8, K8-fp32, K9
-(forward and backward) and K11 on the card, and the pieces of K5 and K6:
-what holds each back.
+and K9-fp32 (forward and backward) and K11 on the card, and the pieces of K5
+and K6: what holds each back.
 
 Each variant is a copy of the kernel's source with one piece of its work
 taken out by a text substitution, built alone with nvcc (beside
@@ -16,7 +16,11 @@ either GEMM's products, with each weight stage loaded once and then
 reused); K4's fp32 kernels (K4_F32_VARIANTS: the narrow kernel at the 4AA
 fp32 step's [32, 16, 1000, 24] and the MD17 fp32 DiT's [1920, 16, 192, 16],
 the wide one at [16, 3, 1000, 128], [1920, 2, 192, 128] and [12288, 2, 30,
-128], TF32 off); K8's fp32 kernel at [8000, 2, 384] and [2000, 2, 384] at 16 x 24
+128], TF32 off); K9-fp32's forward and backward at MD17's [12288, 30, 256]
+(K9_F32_VARIANTS: without copies in, exponentials, products or stores; on
+two stages and with one row a thread, both checked against the kernel's
+bits; other geometries: heads an item, threads) and at [256,
+127, 256]; K8's fp32 kernel at [8000, 2, 384] and [2000, 2, 384] at 16 x 24
 and at [8000, 2, 384] at 3 x 128 (without most of either GEMM's FMAs,
 without the norm, RoPE and attention, with the first two weight tiles
 loaded and then reused, without the barrier that ends a tile) and K7 with
@@ -42,7 +46,8 @@ the profiler too. Each line names the card and its power limit. Run from
 a tree's root:
 
     PYTHONPATH=. python lam_slide_tpu_torch/tools/kernel_variants.py \
-        [K4-fp32 K1-fp32-wide K2-fp32 K2 K9-forward K11 K9-backward K5-K6 K8 K8-fp32 K7]
+        [K4-fp32 K1-fp32-narrow K1-fp32-wide K2-fp32 K2 K9-forward K11 K9-backward K9-fp32
+         K5-K6 K8 K8-fp32 K7]
 """
 
 import argparse
@@ -275,6 +280,65 @@ K4_F32_VARIANTS = {
     "without their sum": [("  if (err != cudaSuccess || a.scratch == nullptr) return err;",
                            "  return err;")],
 }
+# K9-fp32's kernels (csrc/short_attention_f32.cu): each variant builds the
+# whole file, and the forward and the backward are timed on it. Their
+# copies in (both kernels' ``load``), their exponentials, their products
+# (the forward's logits and AV; the backward's S and dP, and its grads) or
+# their stores taken out; the backward without S and dP alone. Two variants
+# compute the same outputs another way and are held to the kernel's bits
+# (K9_F32_EXACT): two stages (the next item's copies in flight while this
+# one computes, twice the tiles) and, in the forward, one query row a
+# thread at n <= 64.
+K9_F32_LOAD = "  auto load = [&](long long item, float* base) {\n"
+K9_F32_ONE_STAGE = """  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    float* const Qs = fs;  // the item's tiles: q, k, v (and dO) from here
+    __syncthreads();  // the previous item's reads of shared memory are done
+    load(item, Qs);
+    commit();
+    wait_group<0>();
+"""
+K9_F32_TWO_STAGES = """  if (blockIdx.x < items) load(blockIdx.x, fs);
+  commit();
+  for (long long item = blockIdx.x, it = 0; item < items; item += gridDim.x, ++it) {
+    float* const Qs = fs + (it & 1) * stage;
+    __syncthreads();  // the previous item's reads of shared memory are done
+    if (item + gridDim.x < items) load(item + gridDim.x, fs + (~it & 1) * stage);
+    commit();
+    wait_group<1>();
+"""
+K9_F32_VARIANTS = {
+    "kernel": [],
+    "two stages": [(K9_F32_ONE_STAGE, K9_F32_TWO_STAGES, 2),
+                   ("i < stage; i += blockDim.x) fs[i] = 0.0f;",
+                    "i < 2 * stage; i += blockDim.x) fs[i] = 0.0f;"),
+                   ("sizeof(float) * 3 * tile_rows<R>(a.n) * a.ld;",
+                    "sizeof(float) * 6 * tile_rows<R>(a.n) * a.ld;"),
+                   ("float* Sb = fs + stage;", "float* Sb = fs + 2 * stage;"),
+                   ("return 4 * static_cast<size_t>(a.nr) * a.ld",
+                    "return 8 * static_cast<size_t>(a.nr) * a.ld")],
+    "one row a thread": [("launch<32, 2, VEC>(a, threads", "launch<32, 1, VEC>(a, threads"),
+                         ("launch<64, 2, VEC>(a, threads", "launch<64, 1, VEC>(a, threads")],
+    "no loads": [(K9_F32_LOAD, K9_F32_LOAD + "    if (a.n > 0) return;\n", 2)],
+    "no exponentials": [("s[r][j] = expf(__fsub_rn(s[r][j], m));", "s[r][j] = __fsub_rn(s[r][j], m);"),
+                        ("ev[e] = expf(__fsub_rn(f4(x, e), m));", "ev[e] = __fsub_rn(f4(x, e), m);")],
+    "no products": [("  for (int c = 0; c < a.dp; c += 4) {",
+                     "  for (int c = 0; c < (a.n < 0 ? a.dp : 0); c += 4) {", 2),
+                    ("    for (int d = 0; d < a.dp; d += 4) {",
+                     "    for (int d = 0; d < (a.n < 0 ? a.dp : 0); d += 4) {"),
+                    ("        for (int i = 0; i < rows; ++i) {",
+                     "        for (int i = 0; i < (a.n < 0 ? rows : 0); ++i) {"),
+                    ("        for (int j = 0; j < a.np; j += 4) {",
+                     "        for (int j = 0; j < (a.n < 0 ? a.np : 0); j += 4) {")],
+    "no S/dP products": [("    for (int d = 0; d < a.dp; d += 4) {",
+                          "    for (int d = 0; d < (a.n < 0 ? a.dp : 0); d += 4) {")],
+    "no stores": [("    write_rows<VEC>(a.o + at.b", "    if (a.n < 0) write_rows<VEC>(a.o + at.b"),
+                  ("if (hh < at.nh) store_tile<VEC>(a.dq", "if (a.n < 0) store_tile<VEC>(a.dq"),
+                  ("      if (hh >= at.nh) continue;", "      if (hh >= at.nh || a.n > 0) continue;")],
+}
+K9_F32_BWD_ONLY = ("no S/dP products",)
+K9_F32_FWD_ONLY = ("one row a thread",)
+K9_F32_EXACT = ("two stages", "one row a thread")
+K9_F32_STAGES = ("kernel", "two stages")
 K4_F32_NARROW_SHAPES = ((32, 16, 1000, 24), (1920, 16, 192, 16))
 K4_F32_WIDE_SHAPES = ((16, 3, 1000, 128), (1920, 2, 192, 128), (12288, 2, 30, 128))
 
@@ -524,6 +588,74 @@ def _k9_backward(gen, dev, stream, smi) -> None:
               smi)
 
 
+# K9-fp32's geometries beside each plan's, by the kernel's own library:
+# forward heads an item (threads to match), backward (heads an item,
+# threads)
+K9_F32_FWD_HEADS = (8, 2)
+K9_F32_BWD_GEOMETRIES = ((4, 128), (1, 32), (8, 256))
+
+
+def _k9_f32(gen, dev, stream, smi) -> None:
+    """K9-fp32's forward and backward in every variant at MD17's temporal
+    axis [12288, 30, 256], 16 x dh 16 (q, k and the output gradient
+    contiguous, v a view of a wider buffer), in its plan's geometry, then
+    the kernel in the geometries of K9_F32_FWD_HEADS and
+    K9_F32_BWD_GEOMETRIES; at [256, 127, 256], 4 x dh 64, the forward on
+    one and two stages (two stages of the backward pass 227 KB there) and
+    the backward. The variants of K9_F32_EXACT and the other geometries
+    must give the kernel's outputs bit for bit, or the run stops."""
+    libs = _build_variants("short_attention_f32.cu",
+                           ("lam_short_attention_fwd_f32", "lam_short_attention_bwd_f32"),
+                           K9_F32_VARIANTS)
+    for b, n, heads, dh in ((12288, 30, 16, 16), (256, 127, 4, 64)):
+        d = heads * dh
+        q, k, g = (torch.randn(b, n, d, generator=gen).to(dev) for _ in range(3))
+        v = torch.randn(b, n, 3 * d, generator=gen).to(dev)[..., 2 * d:]
+        out = torch.empty(b, n, d, device=dev)
+        grads = [torch.empty(b, n, d, device=dev) for _ in range(3)]
+        strides = (ctypes.c_longlong * 8)(*(s for t in (q, k, v, g) for s in t.stride()[:2]))
+        fwd_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, heads, n, dh)
+        fwd_tail = (*(s for t in (q, k, v, out) for s in t.stride()[:2]), dh ** -0.5, stream)
+        bwd_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                    *(t.data_ptr() for t in grads), b, heads, n, dh)
+        bwd_tail = (strides, grads[0].stride(0), grads[0].stride(1), dh ** -0.5, stream)
+        md17 = n == 30
+        fp, bp = tsa.f32_fwd_plan(n, dh, heads), tsa.f32_bwd_plan(n, dh, heads)
+
+        def fwd(name, h):
+            rows = 1 if name == "one row a thread" or n > 64 else 2
+            threads = -(-h * -(-n // rows) // 32) * 32
+            return _checked(libs[name][0], (*fwd_args, h, threads, *fwd_tail))
+
+        def bwd(name, h, threads):
+            return _checked(libs[name][1], (*bwd_args, h, threads, *bwd_tail))
+        fwd_calls = {name: fwd(name, fp.heads) for name in (libs if md17 else K9_F32_STAGES)
+                     if name not in K9_F32_BWD_ONLY}
+        for h in K9_F32_FWD_HEADS if md17 else ():
+            fwd_calls[f"{h} heads"] = fwd("kernel", h)
+        bwd_calls = {name: bwd(name, bp.heads, bp.threads)
+                     for name in (libs if md17 else ["kernel"]) if name not in K9_F32_FWD_ONLY}
+        for h, threads in K9_F32_BWD_GEOMETRIES if md17 else ():
+            bwd_calls[f"{h} heads, {threads} threads"] = bwd("kernel", h, threads)
+        for calls, outs in ((fwd_calls, [out]), (bwd_calls, grads)):
+            calls["kernel"]()
+            want = [t.clone() for t in outs]
+            for name, call in calls.items():
+                if name in K9_F32_EXACT or name[0].isdigit():
+                    for t in outs:
+                        t.fill_(float("nan"))
+                    call()
+                    if not all(torch.equal(a, w) for a, w in zip(outs, want)):
+                        raise RuntimeError(f"K9-fp32 [{b},{n},{d}] {name}: not the kernel's bits")
+            del want
+        _in_turns(f"K9-fp32 forward [{b},{n},{d}] {heads}x{dh} (plan: {fp.heads} heads, "
+                  f"{fp.threads} threads)", fwd_calls, smi)
+        _in_turns(f"K9-fp32 backward [{b},{n},{d}] {heads}x{dh} (plan: {bp.heads} heads, "
+                  f"{bp.threads} threads)", bwd_calls, smi)
+        del q, k, v, g, out, grads
+        torch.cuda.empty_cache()
+
+
 def _k5_k6(gen, dev, stream, smi) -> None:
     bf, b, h, n, dh = torch.bfloat16, 32, 3, 1000, 128
     qkv = (2 * torch.randn(b, n, 3, h, dh, generator=gen)).to(dev, bf)
@@ -647,7 +779,8 @@ def _k4_f32(gen, dev, stream, smi) -> None:
 
 KERNELS = {"K4-fp32": _k4_f32, "K1-fp32-narrow": _k1_f32_narrow, "K1-fp32-wide": _k1_f32_wide,
            "K2-fp32": _k2_f32, "K2": _k2,
-           "K9-forward": _k9_forward, "K11": _k11, "K9-backward": _k9_backward, "K5-K6": _k5_k6,
+           "K9-forward": _k9_forward, "K11": _k11, "K9-backward": _k9_backward,
+           "K9-fp32": _k9_f32, "K5-K6": _k5_k6,
            "K8": _k8, "K8-fp32": _k8_f32, "K7": _k7}
 
 

@@ -16,13 +16,19 @@ configuration:
 
 With ``--fp32`` it times the 4AA DiT in fp32 instead (TF32 off), the
 kernel path and the plain path: the Euler-10 window at the eval's B=2 and
-the train step at B=16, at 16 x dh 24 and at 3 x dh 128.
+the train step at B=16, at 16 x dh 24 and at 3 x dh 128. With
+``--md17-fp32`` it times MD17's fp32 DiT at 16 x dh 16 (TF32 off), kernel
+path: the fp32 stage-2 train step at B=64 (phase 16's, checkpointed) and
+one protocol batch of its fp32 DiT as the ``--test`` pass runs it (K=5,
+k_chunk=1, B=64, a val batch), where K9-fp32 runs 8 times a step forward
+and 4 backward, and 180 times a batch.
 
 Each is warmed up once and then timed ``--runs`` times with the card
 synchronised around it; printed are the mean and the runs in ms, with the
 card's name and power limit. Run it from a tree's root:
 
-    cd <tree> && PYTHONPATH=. python <this file> [--runs 3] [--label parent] [--fp32]
+    cd <tree> && PYTHONPATH=. python <this file> [--runs 3] [--label parent] \
+        [--fp32 | --md17-fp32]
 """
 
 import argparse
@@ -83,11 +89,39 @@ def _fp32_paths(runs: int, dev, make_model, euler, report) -> None:
             torch.cuda.empty_cache()
 
 
+def _md17_fp32_paths(runs: int, dev, report) -> None:
+    """MD17's fp32 DiT at 16 x dh 16 (TF32 off), kernel path: the stage-2
+    train step at B=64 on phase 16's data and one fp32 protocol batch."""
+    from lam_slide_tpu_torch.composites import testing
+    from lam_slide_tpu_torch.experiments import registry
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    run1 = registry.md17_first_stage(seed=cs.SEED, molecule="aspirin",
+                                     synthetic_frames=cs.F32_MD17_FRAMES, device=dev)
+    run2 = registry.md17_second_stage(first_stage=run1, seed=cs.SEED, molecule="aspirin",
+                                      synthetic_frames=cs.F32_MD17_FRAMES, dit_dtype="float32",
+                                      num_heads=16, device=dev)
+    batch = device_batch(next(iter(run2.train_loader)), dev)
+    step = make_train_step(run2.loss_fn, run2.tx, ema_decay=run2.trainer_cfg.ema_decay)
+    holder = {"state": create_train_state(run2.model, run2.tx)}
+
+    def train_step():
+        holder["state"], _ = step(holder["state"], batch, cs.SEED)
+
+    report(f"MD17 fp32 16x16 stage-2 B={cs.MD17_BATCH} train step", _timed(train_step, runs))
+    val = next(iter(run2.val_loaders["aspirin"]))
+    with torch.no_grad():
+        report(f"MD17 fp32 16x16 protocol batch K={cs.MD17_K} B={cs.MD17_BATCH} k_chunk=1",
+               _timed(lambda: testing.evaluate_md17(run2.second_stage, {"md17": [val]},
+                                                    scale=1.0, k=cs.MD17_K, k_chunk=1), runs))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--runs", type=int, default=3)
     parser.add_argument("--label", default="tree")
     parser.add_argument("--fp32", action="store_true")
+    parser.add_argument("--md17-fp32", action="store_true")
     args = parser.parse_args()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -107,6 +141,9 @@ def main() -> int:
         sampling_method="euler", num_steps=cs.NUM_STEPS)
     if args.fp32:
         _fp32_paths(args.runs, dev, make_model, euler, report)
+        return 0
+    if args.md17_fp32:
+        _md17_fp32_paths(args.runs, dev, report)
         return 0
     for heads in (cs.HEADS, cs.WIDE_HEADS):
         split = f"{heads}x{cs.HIDDEN // heads}"

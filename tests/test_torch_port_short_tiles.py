@@ -188,9 +188,9 @@ def test_cpu_calls_count_no_launch(monkeypatch):
     assert (tsa.launches, tsa.bwd_launches, tsb.launches) == (0, 0, 0)
 
 
-# The fp32 forward (csrc/short_attention_f32.cu): a warp an item, a lane a
-# query row (rows lane, lane + 32, ...), k/v of the item in shared memory
-# padded to 16, 32 or 64 columns.
+# The fp32 forward (csrc/short_attention_f32.cu): a block an item of one
+# batch row's heads, a thread two query rows of a head (one past n 64), the
+# item's q/k/v in shared memory padded to a multiple of 4 columns.
 F32_LENGTHS = [9, 31, 32, 33, 63, 64, 65, 95, 96, 97, 127]
 F32_HEAD_DIMS = [8, 16, 24, 32, 64]
 F32_REL_TOL = 1e-5
@@ -219,16 +219,19 @@ def test_k9_fp32_plain_forward_matches_jax_at_the_fp32_kernels_edges(n, dh):
 
 
 def test_k9_fp32_forward_warps_fit_every_length_the_checks_accept():
-    """Every n in 9..127 and dh in 1..64: the fp32 forward's block takes 1..8
-    warps, as many as its shared memory (k and v of one item a warp) lets
-    fit the block's 227 KB. MD17's temporal axis (n 30, dh 16) takes 8 in
-    30 KB; n 127 at dh 64 three."""
+    """Every n in 9..127 and dh in 1..64 at 16 heads: the fp32 forward's plan
+    (``f32_fwd_plan``, which replaced the warps-a-block count) takes 1..16
+    heads an item in at most 256 threads, a multiple of 32 and enough for a
+    thread per (head, row group) (two query rows a thread at n <= 64, one
+    past it), its q, k and v within the block's 227 KB. MD17's temporal
+    axis (n 30, 16 x dh 16) takes 4 heads in 64 threads and 24,480 bytes;
+    n 127 at dh 64 one head in 128 threads."""
     for n in range(9, 128):
         for dh in range(1, 65):
-            warps = tsa.f32_fwd_warps(n, dh)
-            assert 1 <= warps <= tsa.F32_MAX_WARPS
-            assert tsa.f32_fwd_smem_bytes(n, dh, warps) <= SMEM_MAX
-            if warps < tsa.F32_MAX_WARPS:
-                assert tsa.f32_fwd_smem_bytes(n, dh, warps + 1) > SMEM_MAX
-    assert tsa.f32_fwd_warps(30, 16) == 8 and tsa.f32_fwd_smem_bytes(30, 16, 8) == 30720
-    assert tsa.f32_fwd_warps(127, 64) == 3
+            plan = tsa.f32_fwd_plan(n, dh, 16)
+            assert 1 <= plan.heads <= 16
+            assert plan.threads % 32 == 0 and plan.threads <= tsa.F32_MAX_THREADS
+            assert plan.threads >= plan.heads * -(-n // (2 if n <= 64 else 1))
+            assert plan.smem_bytes <= SMEM_MAX
+    assert tsa.f32_fwd_plan(30, 16, 16) == (4, 64, 24480)
+    assert tsa.f32_fwd_plan(127, 64, 16)[:2] == (1, 128)
