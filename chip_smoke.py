@@ -3,9 +3,10 @@
 
 The main paths are the 4AA stage-2 sampler, the 4AA stage-2 train step, the
 MD17 sampling protocol, the MD17 training of both stages, the paths of the
-two ablation kernels (K10, K11), the SDE and likelihood samplers, and MD17
+two ablation kernels (K10, K11), the SDE and likelihood samplers, MD17
 end to end through the port's own loop (its CLI, Trainer, checkpoints and
-run registry) to the fp32 test pass. The
+run registry) to the fp32 test pass, and the pedestrian and NBA workloads
+through the same loop to their fp32 min-over-K test pass. The
 4AA paths run the full-width ``LatentDiT`` (depth 7, hidden 384,
 mlp_ratio 2, T=1000 frames, L=2 latents, in_dim 96, bf16) with random
 weights drawn from a seed, at both head splits (16 heads x dh 24 and 3
@@ -132,7 +133,30 @@ printed on its own line with its seconds:
    at B=2 against the plain path (TF32 off), the launches of every kernel
    per step (the checkpointed recompute included), every grad finite and
    non-zero, a few steps on one batch in which the SI loss falls, step
-   times of both paths and peak memory, a profiled step at 16 heads.
+   times of both paths and peak memory, a profiled step at 16 heads;
+17. ped_nba_loop: the pedestrian (ETH/UCY) and NBA workloads through
+   ``train.cli`` in a temporary workspace at the registries' full widths on
+   synthetic data (PN_DATA): stage 1 (fp32, B=512 / B=1024, one epoch with
+   val; its attention axes are too short for a kernel, so it launches
+   none), then stage 2 from the run registry (the bf16 class-conditional
+   DiT of depth 6, T=20: hidden 128 at 4 x dh 32 over L=2 latents /
+   hidden 256 at 16 x dh 16 over L=8, B=256 / B=1024, one epoch, val over
+   one batch a loader, the min-over-K val hook) with ``--test`` (the fp32
+   rebuild, K=20 / K=60 one repeat at a time over the first test batch of
+   each loader, NBA with the k-means final-position clustering): return
+   codes, complete and finite metric streams, the test keys (NBA's
+   ``_post`` ones), the exact launches of training (steps x (K8, K9, K2 per
+   layer, two K7 per layer and one more, K9's backward per layer) plus the
+   val forwards), of the hook and of the test pass (depth x 9 drift
+   evaluations x K x test batches, on the fp32 kernels alone: K8-fp32 on
+   its dot-product route, K2-fp32 on its dot-product route at hidden 128
+   and its outer-product kernel at 256); the test pass's time; one profiled
+   repeat of a test batch; the fp32 protocol on one test batch (its first
+   PN_CMP_ROWS windows) through the kernels against the plain path on the
+   same noise (within PN_METRIC_REL_TOL) with both paths' times; then the
+   bf16 stage-2 step at full width (``stage_checks``: grads against the
+   plain path at B=2 within PN_S2_GRAD_REL_TOL, launches, ten steps with a
+   falling SI loss, step times of both paths, NBA's step profiled).
 
 Phase 3 also holds the fp32 backward kernels of fp32 training to their
 plain versions with TF32 off: K9-fp32's backward (csrc/short_attention_f32.cu)
@@ -151,8 +175,14 @@ timed beside its plain version, its bound and SDPA's fp32 forward +
 backward less forward.
 
 Phase 3 also holds K10 (at both head splits and a ragged T, and against
-the K5 and K3 routes) and K11 (against K4's grads, with its peak memory, and
-in fp32 at a JAX test shape) to their plain versions.
+the K5 and K3 routes, beside the composition of the plain pre_transform and
+SDPA) and K11 (against K4's grads, with its peak memory, and in fp32 at a
+JAX test shape) to their plain versions; and, at the pedestrian and NBA
+DiTs' shapes (``ped_nba_kernel_checks``: x [5120, 2, 128] and
+[20480, 8, 256], q/k/v [512, 20, 128] and [8192, 20, 256]), K8, K9 forward
+and backward, K2 and K7 in bf16 and in fp32 (TF32 off; K8-fp32 and the
+pedestrian's K2-fp32 on their dot-product routes), each with its bound and
+SDPA or the PyTorch composition beside it.
 
 K1 and K3 without a mask in bf16 and K4 without one run the kernels
 redesigned for Hopper (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu); phase
@@ -551,6 +581,39 @@ SAMPLER_BATCH = 8
 SOLVE_CMP_STEPS = (5, 4)
 SOLVE_REL_TOL = 1.9e-2
 
+# The pedestrian and NBA workloads (phase 3's rows at their shapes, phase
+# 17): their stage-2 DiTs (composites/pedestrian.py, composites/nba.py) have
+# depth 6, T = 20 frames (8 condition the other 12) and mlp_ratio 2;
+# (batch, hidden, heads, L, K) per workload: the registries' stage-2 B, the
+# DiT's width and head split, its latents and the test protocol's K.
+PN_DEPTH, PN_T = 6, 20
+PN_SHAPES = {"pedestrian": (256, 128, 4, 2, 20), "nba": (1024, 256, 16, 8, 60)}
+# Phase 17's synthetic data (data/pedestrian.py's and data/nba.py's
+# fallbacks; the real ETH/UCY and SocialVAE files are not in the
+# repository): (the registry knob, stage 1's size, stage 2's size). The
+# pedestrian sets hold that many scenes of each of the five, so stage 1
+# takes 2 steps at B = 512 and stage 2 5 at B = 256; an NBA stage-1 epoch
+# draws one frame a game, so 2,048 games give 2 steps at B = 1024, and 46
+# games of 64 frames give 2,070 windows: 2 stage-2 steps at B = 1024 and
+# one test batch of 1,024.
+PN_DATA = {"pedestrian": ("synthetic_scenes", 256, 256),
+           "nba": ("synthetic_games", 2048, 46)}
+# The kernel path against the plain path on one test batch (phase 17): its
+# first PN_CMP_ROWS windows (the test pass itself runs the whole batch), the
+# test model's weights perturbed as phase 15 perturbs them (``perturb_``),
+# the protocol's K, num_runs and FPC, the same noise, TF32 off: the largest
+# relative difference of the batch's metrics. Stage 2's bf16 step: the
+# grads at B=2 against the plain path (global norm rel err, worst
+# per-tensor ||g - g_ref|| / ||g_ref||). Readings of
+# python -m lam_slide_tpu_torch.tools.ped_nba_readings on an H100 (seeds
+# 0-3, the registries' random weights): the protocol 0 at the pedestrian
+# width at every seed, up to 4.769e-6 at NBA's (an FPC metric: k-means
+# assignments and the nearest sample move with fp32 sums in another
+# order); the grads' norm up to 3.520e-5 and a tensor up to 4.973e-3 (the
+# class embedding, a QK-norm scale, time_in). Each limit is 3x the worst.
+PN_CMP_ROWS = {"pedestrian": 256, "nba": 256}
+PN_METRIC_REL_TOL = 1.5e-5
+PN_S2_GRAD_REL_TOL = (1.1e-4, 1.5e-2)
 
 def check(ok: bool, msg: str) -> None:
     if not ok:
@@ -792,6 +855,18 @@ def k2_check(dev, gen, table: KernelTable, key: str, rows: int, d: int, m: int,
     check(abs_err <= K2_ATOL, f"{key} max abs err {abs_err} > {K2_ATOL}")
 
 
+def adaln_composition(x, h, gate, shift, scale):
+    """K7's function as PyTorch ops (a yardstick, used nowhere in the port):
+    the gated residual, ``F.layer_norm`` without affine parameters, the
+    modulation."""
+    from torch.nn.functional import layer_norm
+
+    from lam_slide_tpu_torch.ops import fused_adaln as fad
+
+    x_new = x + gate * h
+    return x_new, fad.modulate(layer_norm(x_new, (x.shape[-1],), eps=1e-6), shift, scale)
+
+
 def k7_check(dev, gen, table: KernelTable, key: str, batch: int, t: int, l: int, d: int,
              plain_reps: int = 20) -> None:
     """K7 on the DiT's [B, T, L, D] stream against its plain version: h the
@@ -817,9 +892,11 @@ def k7_check(dev, gen, table: KernelTable, key: str, batch: int, t: int, l: int,
     atol0 = K7_ULPS * bf16_ulp(want_y0.float().abs().max().item())
     del y0, want_y0
     event_ms = time_ms(lambda: fad.residual_adaln_modulate(*args7))
+    comp_ms = time_ms(lambda: adaln_composition(*args7), reps=plain_reps)
     table.add(key, f"x/h [{batch},{t},{l},{d}] (x_new bit-identical; y without residual "
               f"{err0:.3e}); time: the kernel's device time (profiler), the wrapper's event "
-              f"time {event_ms:.4f} ms", abs_err, f"atol {atol:.3e} = {K7_ULPS} bf16 ulp at max |y|",
+              f"time {event_ms:.4f} ms; library: none (F.layer_norm + modulate composition "
+              f"{comp_ms:.4f} ms)", abs_err, f"atol {atol:.3e} = {K7_ULPS} bf16 ulp at max |y|",
               device_ms(lambda: fad.residual_adaln_modulate(*args7), "adaln_kernel"),
               time_ms(lambda: fad.reference_residual_adaln_modulate(*args7), reps=plain_reps),
               0, 4 * batch * t * l * d * 2 + 3 * batch * d * 2)
@@ -2455,6 +2532,205 @@ def md17_train_kernel_checks(dev, gen, table: KernelTable) -> None:
     torch.cuda.empty_cache()
 
 
+def ped_nba_kernel_checks(dev, table: KernelTable, seed: int = SEED + 17) -> None:
+    """K8, K9 (forward and backward), K2 and K7 against their plain versions
+    at the shapes the pedestrian and NBA stage-2 DiTs give them at the
+    registries' B (PN_SHAPES): the bf16 training DiT and one repeat of the
+    fp32 test pass (TF32 off), which share their shapes. K8 on x [B*T, L, D]
+    (the Hopper kernel in bf16; in fp32 the dot-product route, as
+    ``f32_plan`` gives these widths); K9 on packed q/k/v views of one
+    linear1 output [B*L, T, 3D] and its backward; K2 on the temporal MLP
+    branch's B*T*L rows (in fp32 the dot-product route at hidden 128, the
+    outer-product kernel at 256); K7 on the [B, T, L, D] stream. Each: its
+    counters, a second call bit-identical, the limit of its dtype's rows
+    above, its time beside the plain version's, the bound and SDPA (K9), or
+    the PyTorch composition (K2, K7; the two bare GEMMs of its shapes for
+    K8) where no one call computes the function. Printed rows only: the
+    ``kernels`` line keeps its shapes. Inputs from a card generator seeded
+    with ``seed``."""
+    from torch.nn.functional import gelu, linear
+
+    from lam_slide_tpu_torch.ops import fused_adaln as fad
+    from lam_slide_tpu_torch.ops import fused_mlp as fm
+    from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
+    from lam_slide_tpu_torch.ops import short_attention as tsa
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    for workload, (b, d, heads, l, _) in PN_SHAPES.items():
+        m, dh, t = 2 * d, d // heads, PN_T
+        frames, seqs, rows = b * t, b * l, b * t * l
+        for dtype in (torch.bfloat16, torch.float32):
+            fp32 = dtype == torch.float32
+            tag, peak, es = ("fp32", PEAK_FP32_FLOPS, 4) if fp32 else ("bf16", PEAK_BF16_FLOPS, 2)
+            fp = " fp32" if fp32 else ""
+
+            # K8 over the L latents of each frame
+            w1, b1 = randn(3 * d + m, d, scale=d ** -0.5), randn(3 * d + m, scale=0.1)
+            w2, b2 = randn(d, d + m, scale=(d + m) ** -0.5), randn(d, scale=0.1)
+            x = randn(frames, l, d)
+            args8 = k8_args(dev, torch.Generator().manual_seed(seed), *(
+                z.to(dtype) for z in (x, w1, b1, w2, b2)), heads)
+            names = ("launches", "f32_launches", "wmma_launches", "f32_tiled_launches",
+                     "f32_dot_launches")
+            before = [getattr(fsb, name) for name in names]
+            got, again = fsb.fused_spatial_block(*args8), fsb.fused_spatial_block(*args8)
+            want = fsb.reference_spatial_block(*args8)
+            torch.cuda.synchronize()
+            launched = tuple(getattr(fsb, name) - n for name, n in zip(names, before))
+            key = f"K8{fp} {workload} [{frames},{l},{d}] {heads}x{dh}"
+            check(launched == ((2, 2, 0, 0, 2) if fp32 else (2, 0, 0, 0, 0)),
+                  f"{key}: launches {launched} of (K8, fp32, WMMA, outer-product, "
+                  f"dot-product) for two calls")
+            check(torch.equal(got, again), f"{key}: a second call differs")
+            tol = PEP_F32_REL_TOL["K8 fp32"] if fp32 else K8_REL_TOL
+            abs_err, rel = errors(got, want)
+            check(rel <= tol, f"{key} rel err {rel} > {tol}")
+            del got, again, want
+            a8, wd1, bd1, wd2, bd2 = args8[0], args8[1], args8[2], args8[5], args8[6]
+            mid = torch.empty(frames * l, d + m, device=dev, dtype=dtype)
+            gemms = time_ms(lambda: (linear(a8.view(-1, d), wd1, bd1), linear(mid, wd2, bd2)))
+            table.add(key, f"x [{frames},{l},{d}] {tag}, heads {heads} x {dh}, "
+                      f"{'the dot-product route' if fp32 else 'the Hopper kernel'}, rel "
+                      f"{rel:.3e}, a second call bit-identical; library: none (the two bare "
+                      f"cuBLAS GEMMs of its shapes {gemms:.4f} ms)", abs_err, f"rel tol {tol}",
+                      time_ms(lambda: fsb.fused_spatial_block(*args8)),
+                      time_ms(lambda: fsb.reference_spatial_block(*args8), reps=5),
+                      2 * frames * l * (d * (3 * d + m) + (d + m) * d),
+                      es * (2 * frames * l * d + (3 * d + m) * (d + 1) + d * (d + m + 1)),
+                      peak=peak)
+            del args8, a8, wd1, bd1, wd2, bd2, mid, x
+
+            # K9 on the temporal axis: packed views of one linear1 output
+            q, k, v = randn(seqs, t, 3 * d).to(dtype).chunk(3, -1)
+            g = randn(seqs, t, d).to(dtype)
+            scale = dh ** -0.5
+            counters = ("fp32_launches", "bwd_fp32_launches") if fp32 else ("launches",
+                                                                            "bwd_launches")
+            before = [getattr(tsa, c) for c in counters]
+            got, again = tsa.short_attention(q, k, v, heads), tsa.short_attention(q, k, v, heads)
+            want = tsa.reference_short_attention(q, k, v, heads, scale)
+            bwd, bwd_again = (tsa.short_attention_backward(q, k, v, g, heads, scale)
+                              for _ in range(2))
+            bwd_want = tsa.reference_short_backward(q, k, v, g, heads, scale)
+            torch.cuda.synchronize()
+            key = f"K9{fp} {workload} [{seqs},{t},{d}] {heads}x{dh}"
+            launched = tuple(getattr(tsa, c) - n for c, n in zip(counters, before))
+            check(launched == (2, 2), f"{key}: forward / backward launches {launched} for two "
+                  f"calls each")
+            check(torch.equal(got, again) and _bit_identical(bwd, bwd_again),
+                  f"{key}: a second call differs")
+            if fp32:
+                abs_err, rel = errors(got, want)
+                check(rel <= F32_REL_TOL["K9 fp32"], f"{key} rel err {rel}")
+                fwd_note, fwd_tol = f"rel {rel:.3e}", f"rel tol {F32_REL_TOL['K9 fp32']}"
+            else:
+                abs_err, _, atol, k1_gain = k1_errors(got, want)
+                check_k1(abs_err, atol, k1_gain, key)
+                fwd_note = f"gain {k1_gain:.7f}"
+                fwd_tol = f"atol {atol:.3e} = {K1_ULPS} bf16 ulps, gain tol {K1_GAIN_TOL}"
+            errs = _grad_errors(bwd, bwd_want)
+            bwd_tol = K9_F32_GRAD_REL_TOL if fp32 else K9_GRAD_REL_TOL
+            for nm, (_, r, gn) in zip(("dq", "dk", "dv"), errs):
+                check(r <= bwd_tol, f"{key} backward {nm} rel err {r} > {bwd_tol}")
+                check(fp32 or abs(gn - 1) <= K1_GAIN_TOL, f"{key} backward {nm} gain {gn}")
+            detail = ", ".join(f"{nm} rel {r:.3e}" for nm, (_, r, _) in zip(("dq", "dk", "dv"),
+                                                                             errs))
+            del got, again, want, bwd, bwd_again, bwd_want
+            hm = [z.unflatten(-1, (heads, dh)).transpose(1, 2) for z in (q, k, v, g)]
+            flops, exps = 4 * seqs * t * t * d, seqs * heads * t * t
+            table.add(key, f"packed q/k/v views {tag}, {fwd_note}, a second call bit-identical; "
+                      f"library: SDPA on head-major views", abs_err, fwd_tol,
+                      time_ms(lambda: tsa.short_attention(q, k, v, heads)),
+                      time_ms(lambda: tsa.reference_short_attention(q, k, v, heads, scale), reps=5),
+                      flops, 4 * seqs * t * d * es, library_times(*hm[:3], scale), peak=peak,
+                      exps=exps)
+            table.add(f"K9{fp} bwd {workload} [{seqs},{t},{d}] {heads}x{dh}",
+                      f"packed q/k/v/dO views {tag}: {detail}, a second call bit-identical; "
+                      f"library: SDPA fwd+bwd - fwd", max(e[0] for e in errs),
+                      f"rel tol {bwd_tol} per grad",
+                      time_ms(lambda: tsa.short_attention_backward(q, k, v, g, heads, scale)),
+                      time_ms(lambda: tsa.reference_short_backward(q, k, v, g, heads, scale),
+                              reps=3),
+                      2.5 * flops, 7 * seqs * t * d * es,
+                      library_times(*hm[:3], scale, grad=hm[3]), peak=peak, exps=exps)
+            del q, k, v, g, hm
+
+            # K2: the temporal block's MLP branch over every token
+            x2 = randn(rows, d).to(dtype)
+            lin1, mb1 = randn(3 * d + m, d, scale=d ** -0.5).to(dtype), randn(m, scale=0.1)
+            lin2 = randn(d, d + m, scale=(d + m) ** -0.5).to(dtype)
+            mlp = (x2, lin1[3 * d:].t(), mb1.to(dtype), lin2[:, d:].t())
+            names = ("launches", "fp32_launches", "fp32_tiled_launches", "fp32_dot_launches",
+                     "wmma_launches", "cp_async_launches")
+            before = [getattr(fm, name) for name in names]
+            got, again, want = fm.fused_mlp(*mlp), fm.fused_mlp(*mlp), fm.reference_mlp(*mlp)
+            torch.cuda.synchronize()
+            launched = tuple(getattr(fm, name) - n for name, n in zip(names, before))
+            route = ("bf16 Hopper" if not fp32 else
+                     "outer-product" if fm.tiled_plan(d, m, d, rows) is not None else "dot-product")
+            want_launched = {"bf16 Hopper": (2, 0, 0, 0, 0, 0), "outer-product": (2, 2, 2, 0, 0, 0),
+                             "dot-product": (2, 2, 0, 2, 0, 0)}[route]
+            key = f"K2{fp} {workload} [{rows},{d}]"
+            check(launched == want_launched, f"{key}: launches {launched}, not the {route} route")
+            check(torch.equal(got, again), f"{key}: a second call differs")
+            abs_err, rel = errors(got, want)
+            tol = F32_REL_TOL["K2 fp32"] if fp32 else K2_ATOL
+            check((rel if fp32 else abs_err) <= tol, f"{key} error {abs_err} (rel {rel}) > {tol}")
+            del got, again, want
+            comp_ms = time_ms(lambda: linear(gelu(linear(x2, lin1[3 * d:], mlp[2])), lin2[:, d:]),
+                              reps=5)
+            table.add(key, f"x [{rows},{d}] -> {m} -> {d} {tag}, transposed nn.Linear views, the "
+                      f"{route} route, rel {rel:.3e}, a second call bit-identical; library: none "
+                      f"(the two-GEMM cuBLAS composition with GELU {comp_ms:.4f} ms)", abs_err,
+                      f"{'rel tol' if fp32 else 'atol'} {tol}", time_ms(lambda: fm.fused_mlp(*mlp)),
+                      time_ms(lambda: fm.reference_mlp(*mlp), reps=3), 4 * rows * d * m,
+                      rows * d * (es + 4) + 2 * d * m * es + m * es, peak=peak)
+            del x2, lin1, mb1, lin2, mlp
+
+            # K7 on the residual stream, h the transposed temporal output
+            x7 = randn(b, t, l, d, scale=3.0).to(dtype)
+            h7 = randn(b, l, t, d).to(dtype).transpose(1, 2)
+            shift, scale7, gate = randn(b, 1, 1, 6 * d, scale=0.5).to(dtype).chunk(6, -1)[:3]
+            ada = (x7, h7, gate, shift, scale7)
+            counter = "fp32_launches" if fp32 else "launches"
+            before = getattr(fad, counter)
+            (x_new, y), (x_again, y_again) = (fad.residual_adaln_modulate(*ada) for _ in range(2))
+            want_x, want_y = fad.reference_residual_adaln_modulate(*ada)
+            torch.cuda.synchronize()
+            key = f"K7{fp} {workload} [{b},{t},{l},{d}]"
+            check(getattr(fad, counter) - before == 2, f"{key}: the kernel did not launch once "
+                  f"a call")
+            check(torch.equal(x_new, want_x), f"{key}: x_new is not bit-identical")
+            check(torch.equal(x_new, x_again) and torch.equal(y, y_again),
+                  f"{key}: a second call differs")
+            abs_err, rel = errors(y, want_y)
+            if fp32:
+                tol, limit = F32_REL_TOL["K7 fp32"], f"rel tol {F32_REL_TOL['K7 fp32']}"
+                check(rel <= tol, f"{key} rel err {rel} > {tol}")
+            else:
+                atol = K7_ULPS * bf16_ulp(want_y.float().abs().max().item())
+                limit = f"atol {atol:.3e} = {K7_ULPS} bf16 ulp at max |y|"
+                check(abs_err <= atol, f"{key} y max abs err {abs_err} > {atol}")
+            del x_new, y, x_again, y_again, want_x, want_y
+            comp_ms = time_ms(lambda: adaln_composition(*ada), reps=5)
+            table.add(key, f"x/h [{b},{t},{l},{d}] {tag} (h the transposed temporal view), "
+                      f"x_new bit-identical, y rel {rel:.3e}, a second call bit-identical; time: "
+                      f"the kernel's device time (profiler); library: none (F.layer_norm + "
+                      f"modulate composition {comp_ms:.4f} ms)", abs_err, limit,
+                      device_ms(lambda: fad.residual_adaln_modulate(*ada), "adaln"),
+                      time_ms(lambda: fad.reference_residual_adaln_modulate(*ada), reps=5),
+                      0, es * (4 * rows * d + 3 * b * d), peak=peak)
+            del x7, h7, shift, scale7, gate, ada
+            torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 def ablation_kernel_checks(dev, gen, table: KernelTable) -> None:
     """K10 and K11 against their plain versions. K10 on packed q/k/v views
     of a linear1-like buffer [B*L = 16, T = 1000, 384] bf16 with lane tables
@@ -2512,13 +2788,21 @@ def ablation_kernel_checks(dev, gen, table: KernelTable) -> None:
                 check(rel <= K10_ROUTE_REL_TOL, f"{key} vs the {route} route rel err {rel}")
                 check(abs(g_ - 1) <= K1_GAIN_TOL, f"{key} vs the {route} route gain {g_}")
             del via_k5, via_k3, qn, kn
+        # library: none; with tiled scales the composition of the plain
+        # pre_transform and SDPA on head-major views, as K5's row has
+        library = None
+        if tiled:
+            heads_of = [t_.unflatten(-1, (heads, dh)).transpose(1, 2) for t_ in (q, k, v)]
+            library = library_times(*heads_of, dh ** -0.5, pre=lambda q_, k_: fnr.pre_transform(
+                q_, k_, qs, ks, cos, sin))
+            detail.append("library: none (the composition pre_transform + SDPA)")
         table.add(key, f"packed q/k/v [{n},{t},{d}] views, {heads} x {dh}, "
                   f"{'tiled' if tiled else 'per-lane'} scales; {'; '.join(detail)}", abs_err,
                   f"atol {atol:.3e} = {K1_ULPS} bf16 ulps, gain tol {K1_GAIN_TOL}, routes rel "
                   f"tol {K10_ROUTE_REL_TOL}",
                   time_ms(lambda: tft.fused_temporal_attention(*args)),
                   time_ms(lambda: tft.reference_fused_temporal(*args), reps=5),
-                  4 * n * t * t * d, 4 * n * t * d * 2 + 2 * t * d * 4 + 2 * d * 4,
+                  4 * n * t * t * d, 4 * n * t * d * 2 + 2 * t * d * 4 + 2 * d * 4, library,
                   exps=n * heads * t * t)
         check_k1(abs_err, atol, k1_gain, key)
         del got, want
@@ -2938,6 +3222,222 @@ def md17_loop_phase(dev, smi, reset_counts, read_counts):
         testing.evaluate_md17 = real
         shutil.rmtree(ws, ignore_errors=True)
     return train_counts, test_counts, wide_test
+
+
+def min_k_batch_errors(ss, batch, cfg, seed: int):
+    """The fp32 test protocol (``evaluate_min_k`` with the config's K,
+    num_runs and post_process, k_chunk=1) on one batch through the kernels
+    and through the plain path (TF32 off), both drawing their noise from a
+    generator seeded with ``seed``, on the DiT's weights perturbed
+    (``perturb_``, then restored): (kernel metrics, plain metrics, their
+    largest relative difference, kernel s, plain s)."""
+    from lam_slide_tpu_torch.composites.testing import evaluate_min_k
+    from lam_slide_tpu_torch.nn.blocks import set_backend
+
+    dev = next(ss.first_stage.parameters()).device
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    before = perturb_(ss.backbone, seed)
+    out, secs = [], []
+    for backend in ("auto", "plain"):
+        for module in (ss.backbone, ss.first_stage):
+            set_backend(module, backend)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out.append(evaluate_min_k(ss, {"batch": [batch]}, k=cfg.K, num_runs=cfg.num_runs,
+                                      post_process=cfg.post_process, k_chunk=1,
+                                      generator=torch.Generator(device=dev).manual_seed(seed)))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    for module in (ss.backbone, ss.first_stage):
+        set_backend(module, "auto")
+    ss.backbone.load_state_dict(before)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    got, want = out
+    check(all(math.isfinite(v) for v in got.values()), f"min-K protocol: non-finite {got}")
+    rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+    return got, want, rel, secs[0], secs[1]
+
+
+def ped_nba_loop_phase(dev, smi, reset_counts, read_counts):
+    """Phase 17: the pedestrian and NBA workloads through the port's CLI
+    in-process in a temporary workspace, at the registries' full widths on
+    synthetic data (PN_DATA): stage 1 (fp32; B=512 / 1024), then stage 2
+    from the run registry (the bf16 class-conditional DiT, B=256 / 1024,
+    one epoch, val over one batch a loader, the min-over-K val hook) with
+    ``--test`` (the fp32 rebuild, K=20 / K=60 one repeat at a time, the first
+    test batch of each loader; NBA with the k-means final-position
+    clustering). Then the kernel path against the plain path on one test
+    batch and the bf16 stage-2 step (``stage_checks``)."""
+    import shutil
+    import tempfile
+
+    from lam_slide_tpu_torch.composites import testing
+    from lam_slide_tpu_torch.data.loader import device_batch
+    from lam_slide_tpu_torch.experiments import registry
+    from lam_slide_tpu_torch.ops import fused_mlp as fm
+    from lam_slide_tpu_torch.train.cli import main as cli
+
+    ws = tempfile.mkdtemp(prefix="ped_nba_loop_")
+    real = testing.evaluate_min_k
+    passes = []
+
+    def spy(ss, loaders, **kw):
+        """The CLI's test pass (k_chunk=1) and the val hook's protocol: their
+        launches, seconds and metrics."""
+        kind = "test" if kw.get("k_chunk") == 1 else "hook"
+        torch.cuda.synchronize()
+        before, t0 = read_counts(), time.perf_counter()
+        out = real(ss, loaders, **kw)
+        torch.cuda.synchronize()
+        after = read_counts()
+        passes.append((kind, {key: after[key] - before[key] for key in after},
+                       time.perf_counter() - t0, out))
+        return out
+
+    testing.evaluate_min_k = spy
+    try:
+        for workload, (b, d, heads, l, k) in PN_SHAPES.items():
+            knob, n1, n2 = PN_DATA[workload]
+            common = ["--workspace", ws, "--epochs", "1", "--set", "val_every_n_epochs=1"]
+            reset_counts()
+            t0 = time.perf_counter()
+            rc1 = cli(["--experiment", f"{workload}_first_stage", "--run-id", f"{workload}1",
+                       "--exp-set", f"{knob}={n1}", *common])
+            torch.cuda.synchronize()
+            s1_counts = read_counts()
+            t1 = time.perf_counter()
+            reset_counts()
+            n_passes = len(passes)
+            rc2 = cli(["--experiment", f"{workload}_second_stage", "--run-id", f"{workload}2",
+                       "--first-stage-run", f"{workload}1", "--exp-set", f"{knob}={n2}",
+                       "--exp-set", "test_batches=1", "--set", "limit_val_batches=1", "--test",
+                       *common])
+            torch.cuda.synchronize()
+            total = read_counts()
+            t2 = time.perf_counter()
+            print(f"ped_nba_loop {workload}: stage 1 {t1 - t0:.2f} s, stage 2 with --test "
+                  f"{t2 - t1:.2f} s; return codes {rc1} {rc2}")
+            check((rc1, rc2) == (0, 0), f"ped_nba_loop {workload}: CLI return codes {rc1} {rc2}")
+            # stage 1 runs no kernel: its attention axes (at most 11 entities,
+            # 8 latents) take the plain path, as in JAX (_pick_backend)
+            check(not any(s1_counts.values()), f"ped_nba_loop {workload}: stage 1 launched "
+                  f"{ {key: n for key, n in s1_counts.items() if n} }")
+            run_passes = passes[n_passes:]
+            kinds = [p[0] for p in run_passes]
+            check(sorted(kinds) == ["hook", "test"], f"ped_nba_loop {workload}: passes {kinds}")
+            (_, hook_counts, hook_s, hook_out), = [p for p in run_passes if p[0] == "hook"]
+            (_, test_counts, test_s, metrics), = [p for p in run_passes if p[0] == "test"]
+            train_counts = {key: total[key] - test_counts[key] - hook_counts[key]
+                            for key in total}
+
+            exp = registry.build_experiment(f"{workload}_second_stage", workspace=ws,
+                                            first_stage_run=f"{workload}1", test_batches=1,
+                                            device=dev, **{knob: n2})
+            cfg = exp.config
+            loaders = list(exp.val_loaders)
+            splits = {f"{workload}1": ["train", *(f"val/{s}" for s in loaders)],
+                      f"{workload}2": ["train", *(f"val/{s}" for s in loaders),
+                                       "hook/val_sample"]}
+            for run_id, want_splits in splits.items():
+                with open(f"{ws}/{run_id}/metrics.jsonl") as f:
+                    records = [json.loads(line) for line in f]
+                check([r["split"] for r in records] == want_splits,
+                      f"{run_id} metrics.jsonl splits {[r['split'] for r in records]}")
+                check(all(math.isfinite(v) for r in records for v in r.values()
+                          if isinstance(v, float)), f"{run_id}: a non-finite metric")
+                print(f"ped_nba_loop {run_id} records: {records}")
+            with open(f"{ws}/{workload}2/test_metrics.json") as f:
+                stored = json.load(f)
+            names = ("ade", "fde", "ade_post", "fde_post") if cfg.post_process else ("ade", "fde")
+            keys = {f"test/{s}/{name}" for s in loaders for name in names}
+            check(stored == metrics and set(stored) == keys
+                  and all(math.isfinite(v) for v in stored.values()),
+                  f"ped_nba_loop {workload}: test_metrics.json {stored}, keys {sorted(keys)}")
+            check(cfg.K == k and cfg.post_process == (workload == "nba"),
+                  f"ped_nba_loop {workload}: K {cfg.K}, post_process {cfg.post_process}")
+
+            # exact launches: per DiT forward, per layer K8 (spatial, L
+            # latents), K9 (temporal, T frames), K2 (its MLP branch) and two
+            # K7, and one K7 for the output AdaLN; a train step adds K9's
+            # backward per layer (no checkpointing); the Euler-10 solve makes
+            # DRIFT_EVALS forwards; the val hook solves its K=20 repeats of
+            # one batch a loader as one batch, the test pass K repeats one at
+            # a time over test_batches=1 a loader
+            raw = registry.load_checkpoint_raw(f"{ws}/{workload}2", "last")
+            steps, n_loaders = int(raw["step"]), len(loaders)
+            n_test = sum(len(loader) for loader in exp.test_loaders.values())
+            per_fwd = {"K8": PN_DEPTH, "K9": PN_DEPTH, "K2": PN_DEPTH, "K7": 2 * PN_DEPTH + 1}
+            zero = {key: 0 for key in total}
+            want_train = dict(zero, **{key: n * (steps + n_loaders) for key, n in per_fwd.items()},
+                              **{"K9 bwd": PN_DEPTH * steps})
+            want_hook = dict(zero, **{key: n * n_loaders * DRIFT_EVALS
+                                      for key, n in per_fwd.items()})
+            k2_route = ("K2 fp32 dot" if fm.tiled_plan(d, 2 * d, d, b * PN_T * l) is None
+                        else "K2 fp32 tiled")
+            want_test = dict(zero, **{key: n * n_test * k * DRIFT_EVALS
+                                      for key, n in per_fwd.items()})
+            want_test.update({f"{key} fp32": want_test[key] for key in per_fwd})
+            want_test.update({"K8 fp32 dot": want_test["K8"], k2_route: want_test["K2"]})
+            print(f"ped_nba_loop {workload}: stage 2 {steps} steps, {n_loaders} val loaders, "
+                  f"{n_test} test batches; training launches {train_counts}; val hook launches "
+                  f"{hook_counts} ({hook_s:.2f} s, {hook_out}); test-pass launches {test_counts}")
+            for what, got, want in (("training", train_counts, want_train),
+                                    ("val hook", hook_counts, want_hook),
+                                    ("test pass", test_counts, want_test)):
+                check(got == want, f"ped_nba_loop {workload} {what} launches "
+                      f"{ {key: n for key, n in got.items() if n} } != "
+                      f"{ {key: n for key, n in want.items() if n} }")
+            print(f"timing ped_nba_loop {workload} fp32 test pass: {n_test} test batches of "
+                  f"B={b}, K={k}, k_chunk=1: {test_s:.3f} s ({test_s / n_test * 1e3:.3f} ms a "
+                  f"test batch) | {smi}")
+            print(f"ped_nba_loop {workload}: --test {metrics}")
+
+            # one of the test pass's K repeats on a test batch, profiled (the
+            # pass's trace would hold K times its launches)
+            ss = exp.test_model
+            ss.backbone.load_state_dict({**raw["params"], **raw["ema_params"]})
+            full = device_batch(next(iter(exp.test_loaders[loaders[0]])), dev)
+            one_repeat = ss.make_k_sample_fn(k=1, sampling_kwargs={
+                "sampling_method": "euler", "num_steps": NUM_STEPS})
+            with torch.no_grad():
+                profile_run(lambda: one_repeat(full, generator=torch.Generator(
+                    device=dev).manual_seed(SEED)), f"ped_nba_loop {workload} fp32 test batch "
+                    f"B={b}, one of its K={k} repeats (encode, Euler-{NUM_STEPS}, decode)")
+
+            # the kernel path against the plain path on one test batch
+            rows = PN_CMP_ROWS[workload]
+            batch = {key: val[:rows] for key, val in full.items()}
+            got, want, rel, kern_s, plain_s = min_k_batch_errors(ss, batch, cfg, SEED)
+            print(f"ped_nba_loop {workload}: fp32 protocol on the first {rows} windows of the "
+                  f"first test batch (K={cfg.K}), kernel path {got} plain path {want}: largest "
+                  f"rel difference {rel:.3e} (tol {PN_METRIC_REL_TOL})")
+            print(f"timing ped_nba_loop {workload} fp32 test batch B={rows} K={cfg.K} "
+                  f"k_chunk=1: kernel path {kern_s * 1e3:.3f} ms, plain path "
+                  f"{plain_s * 1e3:.3f} ms | {smi}")
+            check(rel <= PN_METRIC_REL_TOL, f"ped_nba_loop {workload}: the kernel path's "
+                  f"metrics {rel} apart from the plain path's")
+            del ss
+
+            # the bf16 stage-2 step at full width on perturbed weights
+            perturb_(exp.model, SEED)
+            ss2 = exp.second_stage
+            batch2 = device_batch(next(iter(exp.train_loader)), dev)
+            check(batch2["pos"].shape[:2] == (b, PN_T),
+                  f"{workload} stage-2 batch {tuple(batch2['pos'].shape)}")
+            grad_batch = {key: val[:GRAD_BATCH] for key, val in batch2.items()}
+            want_step = dict(zero, **per_fwd, **{"K9 bwd": PN_DEPTH})
+            stage_checks(f"{workload} stage 2", exp, batch2, grad_batch, want_step,
+                         [ss2.backbone, ss2.first_stage], dev, smi, reset_counts, read_counts,
+                         PN_S2_GRAD_REL_TOL, ("si_loss",), phase="ped_nba_loop",
+                         profile=workload == "nba")
+            del exp, ss2, batch2, grad_batch, raw
+            torch.cuda.empty_cache()
+    finally:
+        testing.evaluate_min_k = real
+        shutil.rmtree(ws, ignore_errors=True)
+
 
 
 def _steady_step_ms(step, state, batch, reps: int = 3):
@@ -4307,6 +4807,7 @@ def main() -> int:
     f32_train_kernel_checks(dev, table)
     k9_f32_edge_checks(dev)
     ablation_kernel_checks(dev, torch.Generator().manual_seed(SEED + 9), table)
+    ped_nba_kernel_checks(dev, table)
     phase_done("kernels")
 
     # 4. the slice
@@ -4477,6 +4978,12 @@ def main() -> int:
     # and the full-width fp32 stage-2 steps at all four head splits
     f32_counts = fp32_train_phase(dev, smi, reset_counts, read_counts)
     phase_done("fp32_train")
+
+    # 17. the pedestrian and NBA workloads through train.cli: stage 1, stage
+    # 2 and the fp32 --test pass (min over K, NBA's final-position
+    # clustering), at full width
+    ped_nba_loop_phase(dev, smi, reset_counts, read_counts)
+    phase_done("ped_nba_loop")
 
     sources = {
         "K1": ("flash_attention_fwd", "flash_fwd_sm90.cu", "flash_attention.py:37"),

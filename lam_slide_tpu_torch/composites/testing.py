@@ -1,13 +1,18 @@
-"""Domain test protocols (counterpart of ``lam_slide_tpu/composites/testing.py``;
-the MD17 protocol, on one card with no mesh).
+"""Domain test protocols (counterpart of ``lam_slide_tpu/composites/testing.py``,
+on one card with no mesh).
 
-MD17 (second_stage/md17.py:139-179): zero the target frames, sample K=5
-repeats with the Euler-10 probability-flow ODE, decode, and average the
-per-repeat ADE/FDE of the predicted frames, times the dataset scale, per
-molecule. ``make_protocol_val_hook`` runs that protocol on a train state's
-EMA weights (its parameters when it keeps no EMA) as the stage-2
-validation of the ``Trainer``, every ``interval`` val epochs (the
-pedestrian and NBA protocols come with their slices).
+* MD17 (second_stage/md17.py:139-179): zero the target frames, sample K=5
+  repeats with the Euler-10 probability-flow ODE, decode, and average the
+  per-repeat ADE/FDE of the predicted frames, times the dataset scale, per
+  molecule (``evaluate_md17``).
+* Pedestrian (second_stage/pedestrian.py:148-239) and NBA: per-entity
+  trajectories, the min over ``num_runs`` of K samples (K=20 / K=60), with
+  the k-means final-position clustering when ``post_process``; times the
+  scale, per scene (``evaluate_min_k``).
+
+``make_protocol_val_hook`` runs a domain's protocol on a train state's EMA
+weights (its parameters when it keeps no EMA) as the stage-2 validation of
+the ``Trainer``, every ``interval`` val epochs.
 """
 
 import dataclasses
@@ -18,7 +23,17 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from lam_slide_tpu_torch.composites.evaluation import mean_over_k_ade_fde, zero_target_frames
+from lam_slide_tpu_torch.composites.evaluation import (
+    mean_over_k_ade_fde,
+    per_entity_min_k_ade_fde,
+    zero_target_frames,
+)
+
+
+def _sample_k_fn(ss, k, k_chunk, sampling_kwargs):
+    return ss.make_k_sample_fn(
+        k=k, k_chunk=k_chunk, sampling_method="ODE",
+        sampling_kwargs=sampling_kwargs or {"sampling_method": "euler", "num_steps": 10})
 
 
 def evaluate_md17(ss, loaders: Mapping[str, Iterable], scale: float, k: int = 5,
@@ -35,9 +50,7 @@ def evaluate_md17(ss, loaders: Mapping[str, Iterable], scale: float, k: int = 5,
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     cond_end = ss.cond_idx[1]
-    sample_k = ss.make_k_sample_fn(
-        k=k, k_chunk=k_chunk, sampling_method="ODE",
-        sampling_kwargs=sampling_kwargs or {"sampling_method": "euler", "num_steps": 10})
+    sample_k = _sample_k_fn(ss, k, k_chunk, sampling_kwargs)
     out = {}
     for name, loader in loaders.items():
         ades, fdes = [], []
@@ -54,18 +67,60 @@ def evaluate_md17(ss, loaders: Mapping[str, Iterable], scale: float, k: int = 5,
     return out
 
 
-def make_protocol_val_hook(ss, loaders: Mapping[str, Iterable], scale: float = 1.0, k: int = 5,
+def evaluate_min_k(ss, loaders: Mapping[str, Iterable], scale: float = 1.0, k: int = 20,
+                   num_runs: int = 20, post_process: bool = False,
+                   generator: Optional[torch.Generator] = None,
+                   sampling_kwargs: Optional[dict] = None, pos_key: str = "pos",
+                   k_chunk: Optional[int] = None) -> Dict[str, float]:
+    """Pedestrian/NBA protocol -> {"test/<scene>/ade", "test/<scene>/fde"}
+    and, with ``post_process`` (FPC), also ``.../ade_post`` and
+    ``.../fde_post``: per batch the per-entity min over the first
+    ``num_runs`` of K samples (and over the FPC picks), then the mean over
+    the batches, times ``scale``. Batches and ``generator`` as in
+    ``evaluate_md17``."""
+    if k < num_runs:
+        raise ValueError("K must be >= num_runs (second_stage/pedestrian.py:44-47)")
+    device = next(ss.first_stage.parameters()).device
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    cond_end = ss.cond_idx[1]
+    sample_k = _sample_k_fn(ss, k, k_chunk, sampling_kwargs)
+    out = {}
+    for name, loader in loaders.items():
+        accum = {"ade": [], "fde": [], "ade_post": [], "fde_post": []}
+        for batch in loader:
+            batch = {key: torch.as_tensor(val, device=device) for key, val in batch.items()}
+            true_pos = batch[pos_key][:, cond_end:]
+            emask = batch["attention_mask"][:, 0]
+            preds = sample_k(zero_target_frames(batch, cond_end, keys=(pos_key,)),
+                             generator=generator)
+            pred_k = preds[pos_key][:, :, cond_end:]
+            ade, fde = per_entity_min_k_ade_fde(pred_k, true_pos, emask, num_runs=num_runs)
+            accum["ade"].append(float(ade))
+            accum["fde"].append(float(fde))
+            if post_process:
+                ade_p, fde_p = per_entity_min_k_ade_fde(pred_k, true_pos, emask,
+                                                        num_runs=num_runs, fpc=True)
+                accum["ade_post"].append(float(ade_p))
+                accum["fde_post"].append(float(fde_p))
+        keys = ("ade", "fde", "ade_post", "fde_post") if post_process else ("ade", "fde")
+        out.update({f"test/{name}/{key}": float(np.mean(accum[key]) * scale) for key in keys})
+    return out
+
+
+def make_protocol_val_hook(ss, loaders: Mapping[str, Iterable], domain: str = "md17",
+                           scale: float = 1.0, k: int = 5, num_runs: Optional[int] = None,
                            limit_batches: int = 1, interval: int = 1,
                            sampling_kwargs: Optional[dict] = None):
     """Trainer eval hook (composites/testing.py:172-209): ``hook(state,
     epoch)`` -> {"ade", "fde"} every ``interval``-th call (None on the
-    others), the means over the loaders of the MD17 protocol
-    (``evaluate_md17``) on ``state.ema_params`` (``state.params`` when the
-    state keeps no EMA) over the first ``limit_batches`` batches of each
-    loader, the reference's stage-2 validation_step
-    (second_stage/md17.py:75-113). ``state.model`` is ``ss.backbone``; the
-    noise of epoch e is drawn from seed 1234 + e on the first stage's
-    device."""
+    others), the means over the loaders of the domain's protocol
+    (``evaluate_md17`` for "md17", else ``evaluate_min_k`` with ``num_runs``,
+    K by default) on ``state.ema_params`` (``state.params`` when the state
+    keeps no EMA) over the first ``limit_batches`` batches of each loader,
+    the reference's stage-2 validation_step (second_stage/md17.py:75-113,
+    pedestrian.py:148-190). ``state.model`` is ``ss.backbone``; the noise of
+    epoch e is drawn from seed 1234 + e on the first stage's device."""
     device = next(ss.first_stage.parameters()).device
     calls = [0]
 
@@ -81,9 +136,14 @@ def make_protocol_val_hook(ss, loaders: Mapping[str, Iterable], scale: float = 1
 
         limited = {name: itertools.islice(loader, limit_batches)
                    for name, loader in loaders.items()}
-        out = evaluate_md17(dataclasses.replace(ss, backbone=on_weights), limited, scale=scale, k=k,
-                            generator=torch.Generator(device=device).manual_seed(1234 + epoch),
-                            sampling_kwargs=sampling_kwargs)
+        on_ss = dataclasses.replace(ss, backbone=on_weights)
+        generator = torch.Generator(device=device).manual_seed(1234 + epoch)
+        if domain == "md17":
+            out = evaluate_md17(on_ss, limited, scale=scale, k=k, generator=generator,
+                                sampling_kwargs=sampling_kwargs)
+        else:
+            out = evaluate_min_k(on_ss, limited, scale=scale, k=k, num_runs=num_runs or k,
+                                 generator=generator, sampling_kwargs=sampling_kwargs)
         ades = [v for key, v in out.items() if key.endswith("/ade")]
         fdes = [v for key, v in out.items() if key.endswith("/fde")]
         return {"ade": float(np.mean(ades)), "fde": float(np.mean(fdes))}

@@ -7,8 +7,8 @@ nested mappings of numpy arrays (unrolled ``block_i`` layout, or the
 as ``train/torch_import.py:346-347`` maps it) and returns the
 port's ``LatentDiT`` state_dict; ``class_cond_dit_state_dict_from_jax`` does
 the same for ``ClassCondDiT``, and ``first_stage_state_dict_from_jax`` for
-the MD17 and the peptide ``FirstStageBackbone`` (its params and its
-``constants``, the frozen entity table). flax Dense kernels ``[in, out]``
+the MD17, peptide, pedestrian and NBA ``FirstStageBackbone`` (its params
+and its ``constants``, the frozen entity table). flax Dense kernels ``[in, out]``
 become torch Linear weights ``[out, in]``.
 
 The peptide key maps (stage 1's input embedder and the decoder's
@@ -173,17 +173,20 @@ def decoder_state_dict_from_jax(p: Mapping, prefix: str = "") -> Dict[str, torch
 
 def first_stage_state_dict_from_jax(params: Mapping, constants: Mapping,
                                     max_res: int = 10) -> Dict[str, torch.Tensor]:
-    """flax MD17 or peptide FirstStageBackbone params and constants -> port
-    FirstStageBackbone state_dict (the reference Backbone's keys). The one
-    entity table lands under both ``encoder.entity_embedding`` and
-    ``decoder.entity_embedding``, as in a reference state_dict.
+    """flax MD17, peptide, pedestrian or NBA FirstStageBackbone params and
+    constants -> port FirstStageBackbone state_dict (the reference
+    Backbone's keys). The one entity table lands under both
+    ``encoder.entity_embedding`` and ``decoder.entity_embedding``, as in a
+    reference state_dict.
 
     Input embedders: MD17's ``embed_atom``/``embed_pos`` become
     ``embed_atom.weight`` and ``embed_pos.mlp``; the peptide's
     ``embedding_res`` becomes ``embedding_res.weight`` and its fixed sin-cos
     table, which flax keeps as no parameter, the buffer
     ``embed_res_pos.embeddings`` (``max_res`` rows, the config's default
-    10). Both merge MLPs (``merge_fc``, ``merge_out``) become ``net_merge.{0,2}``."""
+    10); NBA's ``embed_team``/``embed_group`` become ``embed_team.weight``
+    and ``embed_group.weight``; the pedestrian's has the merge MLP alone.
+    Every merge MLP (``merge_fc``, ``merge_out``) becomes ``net_merge.{0,2}``."""
     from lam_slide_tpu_torch.nn.embeddings import sincos_position_table
 
     if "params" in params and "encoder" not in params:
@@ -196,9 +199,12 @@ def first_stage_state_dict_from_jax(params: Mapping, constants: Mapping,
         sd["embedding_res.weight"] = _t(emb["embedding_res"]["embedding"])
         width = np.asarray(emb["merge_out"]["kernel"]).shape[1]
         sd["embed_res_pos.embeddings"] = _t(sincos_position_table(max_res, width))
-    else:
+    elif "embed_atom" in emb:
         sd["embed_atom.weight"] = _t(emb["embed_atom"]["embedding"])
         _dense(sd, "embed_pos.mlp", emb["embed_pos"]["mlp"])
+    for name in ("embed_team", "embed_group"):
+        if name in emb:
+            sd[f"{name}.weight"] = _t(emb[name]["embedding"])
     _dense(sd, "net_merge.0", emb["merge_fc"])
     _dense(sd, "net_merge.2", emb["merge_out"])
     sd.update(encoder_state_dict_from_jax(params["encoder"], "encoder."))

@@ -1,8 +1,9 @@
-"""Host-side geometric augmentations (numpy, explicit RNG): the rotations the
-MD17 train set uses and the Haar rotation and centre/rotate/translate of
-the peptide sets, copied from ``lam_slide_tpu/data/augment.py`` (numpy port
-of the reference's src/utils/data_utils.py). The other domains'
-augmentations come with their slices.
+"""Host-side geometric augmentations (numpy, explicit RNG), copied from
+``lam_slide_tpu/data/augment.py`` (numpy port of the reference's
+src/utils/data_utils.py): the rotations of the MD17 train set, the Haar
+rotation and centre/rotate/translate of the peptide sets, the 2D rotation
+of the pedestrian and NBA sets, the rotation about the centroid and the
+range remap.
 """
 
 import numpy as np
@@ -39,6 +40,12 @@ def random_rotation_matrices(rng: np.random.Generator, b: int) -> np.ndarray:
     return (rz @ ry @ rx).astype(np.float32)
 
 
+def random_rotation_matrix_2d(rng: np.random.Generator) -> np.ndarray:
+    theta = 2 * np.pi * rng.random()
+    c, s = np.cos(theta), np.sin(theta)
+    return np.array([[c, -s], [s, c]], dtype=np.float32)
+
+
 def rotate(points: np.ndarray, rot: np.ndarray) -> np.ndarray:
     """points [..., D] @ R^T (data_utils.py rotate_point_cloud)."""
     return points @ rot.T
@@ -61,3 +68,16 @@ def centre_random_augmentation(points: np.ndarray, rot: np.ndarray,
     axis = points.ndim - 2
     center = points.mean(axis=axis, keepdims=True)
     return (points - center) @ rot.T + translation
+
+
+def rotate_about_center(points: np.ndarray, rot: np.ndarray) -> np.ndarray:
+    """Rotate about the per-cloud centroid, keeping the centroid fixed
+    (data_utils.py:53-84); points [N, D] or [B, N, D], rot [D, D]."""
+    axis = points.ndim - 2
+    center = points.mean(axis=axis, keepdims=True)
+    return (points - center) @ rot.T + center
+
+
+def scale_to_new_range(x, old_min=-0.5, old_max=0.5, new_min=0.1, new_max=0.9):
+    """Affine range remap (data_utils.py:99-100; occupancy-grid tooling)."""
+    return (x - old_min) * (new_max - new_min) / (old_max - old_min) + new_min

@@ -1,13 +1,15 @@
 """Whole-batch assembly primitives: gather windows, pad, augment, mask.
 
 The numpy forms of ``lam_slide_tpu/data/batch_assembly.py``, copied: the
-pieces ``MD17Dataset``'s whole-batch path uses. The JAX package also runs
-them through a C++ engine (``lam_slide_tpu/native``); the port's copy of
-that engine waits for its own slice. Semantics (pinned there against the
-per-sample path): window gather + entity padding (reference
-collate_functions.py:46-82), shift/scale + rotation + translation
-(datasets/md17.py), frame-0 centering over real entities
-(datasets/md17.py:103), exact attention masks.
+pieces the whole-batch paths of ``MD17Dataset``, ``PedestrianDataset`` and
+``NBADataset`` use. The JAX package also runs them through a C++ engine
+(``lam_slide_tpu/native``, with base-pointer tables, ``source_pointers``);
+the port's copy of that engine waits for its own slice. Semantics (pinned
+there against the per-sample path): window gather + entity padding
+(reference collate_functions.py:46-82), shift/scale + rotation +
+translation (datasets/{md17,nba}.py), frame-0 centering over real entities
+(datasets/md17.py:103), exact attention masks, NBA team flips
+(datasets/nba.py:97-107).
 """
 
 from typing import List, Optional
@@ -27,6 +29,25 @@ def gather_pad_f32(srcs: List[np.ndarray], starts, span: int, n_pad: int) -> np.
     out = np.zeros((len(srcs), span, n_pad, srcs[0].shape[2]), np.float32)
     for i, (s, st) in enumerate(zip(srcs, starts)):
         out[i, :, :s.shape[1]] = s[st : st + span]
+    return out
+
+
+def gather_pad_i64(srcs: List[np.ndarray], starts, span: int, n_pad: int) -> np.ndarray:
+    """srcs[b]: [F_b, n_b] int64; -> [B, span, n_pad], windows as in
+    ``gather_pad_f32``, the entity axis zero-padded."""
+    starts = _as_i64(starts)
+    out = np.zeros((len(srcs), span, n_pad), np.int64)
+    for i, (s, st) in enumerate(zip(srcs, starts)):
+        s = np.ascontiguousarray(s, dtype=np.int64)
+        out[i, :, :s.shape[1]] = s[st : st + span]
+    return out
+
+
+def broadcast_pad_i64(rows: List[np.ndarray], span: int, n_pad: int) -> np.ndarray:
+    """rows[b]: [n_b] int64 entity ids; -> [B, span, n_pad] (time-broadcast)."""
+    out = np.zeros((len(rows), span, n_pad), np.int64)
+    for i, r in enumerate(rows):
+        out[i, :, :len(r)] = np.asarray(r, np.int64)[None, :]
     return out
 
 
@@ -74,6 +95,18 @@ def attention_mask(n_real, t: int, n_pad: int) -> np.ndarray:
     n_real = _as_i64(n_real)
     mask = np.arange(n_pad)[None, None, :] < n_real[:, None, None]
     return np.broadcast_to(mask, (len(n_real), t, n_pad)).copy()
+
+
+def team_flip(team: np.ndarray, flip) -> np.ndarray:
+    """In place: swap labels 1 <-> 2 for samples with flip[b] set;
+    team [B, ...] int64."""
+    sel = np.asarray(flip).astype(bool)
+    sub = team[sel]
+    m1, m2 = sub == 1, sub == 2
+    sub[m1] = 2
+    sub[m2] = 1
+    team[sel] = sub
+    return team
 
 
 def permutations_batch(rng: np.random.Generator, b: int, n_pool: int,

@@ -1,6 +1,6 @@
-"""Experiment registry: the MD17 and the 4AA peptide training runs
-(counterpart of ``lam_slide_tpu/experiments/registry.py:60-300`` and
-``:549-712``; reference configs/experiment/{md17,peptide}/{first,second}-stage.yaml).
+"""Experiment registry: the MD17, pedestrian, NBA and 4AA peptide training
+runs (counterpart of ``lam_slide_tpu/experiments/registry.py``; reference
+configs/experiment/{md17,pedestrian,nba,peptide}/{first,second}-stage.yaml).
 
 Each builder assembles one run with the JAX registry's configs, batch
 sizes, ``TrainerConfig`` values (monitors, val cadence), loaders and loss
@@ -17,15 +17,19 @@ Cross-stage lineage: ``md17_second_stage(first_stage_run=<id>)`` resolves
 the frozen stage 1 through the run registry (run_id -> run_dir ->
 checkpoint; the wandb run-ID lookup of src/utils/utils.py:180-199) and
 loads its EMA weights, matching ``load_ema_weights`` + ``freeze()``
-(second_stage/md17.py:46-51); ``peptide_second_stage`` does the same.
+(second_stage/md17.py:46-51); the other stage-2 builders do the same.
 ``first_stage=<stage-1 ExperimentRun>`` takes a stage 1 trained in the same
-process instead (no JAX counterpart). With no raw MD17 or 4AA files under
+process instead (no JAX counterpart). With no raw files under
 ``data_root`` the datasets are the synthetic trajectories of
-``data/md17.py`` and ``data/peptide.py``.
+``data/{md17,pedestrian,nba,peptide}.py``; the port-only knobs
+``synthetic_frames`` (MD17), ``synthetic_scenes`` (pedestrian) and
+``synthetic_games`` (NBA) size them, and ``test_batches`` keeps the first
+batches of each test loader of the pedestrian and NBA stage 2.
 """
 
 import dataclasses
 import functools
+import itertools
 import os
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
@@ -34,6 +38,20 @@ import numpy as np
 import torch
 from torch import nn
 
+from lam_slide_tpu_torch.composites.nba import (
+    NBAFirstStageConfig,
+    NBASecondStageConfig,
+    build_nba_first_stage,
+    build_nba_second_stage,
+    make_nba_first_stage_loss,
+)
+from lam_slide_tpu_torch.composites.pedestrian import (
+    PedestrianFirstStageConfig,
+    PedestrianSecondStageConfig,
+    build_pedestrian_first_stage,
+    build_pedestrian_second_stage,
+    make_pedestrian_first_stage_loss,
+)
 from lam_slide_tpu_torch.composites.md17 import (
     MD17FirstStageConfig,
     MD17SecondStageConfig,
@@ -53,6 +71,8 @@ from lam_slide_tpu_torch.composites.testing import make_protocol_val_hook
 from lam_slide_tpu_torch.data.collate import pad_collate, pad_collate_temporal
 from lam_slide_tpu_torch.data.loader import Loader
 from lam_slide_tpu_torch.data.md17 import MD17Dataset
+from lam_slide_tpu_torch.data.nba import NBADataset
+from lam_slide_tpu_torch.data.pedestrian import PedestrianDataset
 from lam_slide_tpu_torch.data.peptide import PeptideDataset
 from lam_slide_tpu_torch.train.checkpoint import resolve_run
 from lam_slide_tpu_torch.train.trainer import TrainerConfig, make_optimizer
@@ -286,6 +306,261 @@ def md17_second_stage(smoke: bool = False, data_root: Optional[str] = None,
                                "first_stage_run": first_stage_run})
 
 
+def _stage1_of_run(workspace, run_id, cfg_cls, build, device):
+    """The frozen stage 1 of a registered run: (model with its EMA weights,
+    config)."""
+    fs_state, fs_cfg_dict = load_first_stage_variables(workspace, run_id)
+    fs_cfg = cfg_cls(**{k: v for k, v in fs_cfg_dict.get("config", fs_cfg_dict).items()
+                        if k in cfg_cls.__dataclass_fields__})
+    fs_model = build(fs_cfg, device=device)
+    fs_model.load_state_dict(fs_state)
+    return fs_model, fs_cfg
+
+
+class _FirstBatches:
+    """The first ``n`` batches of a loader (its other attributes pass through)."""
+
+    def __init__(self, loader, n: int):
+        self.loader, self.n = loader, n
+
+    def __len__(self) -> int:
+        return min(len(self.loader), self.n)
+
+    def __iter__(self):
+        return itertools.islice(iter(self.loader), self.n)
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+
+def _test_loaders(loaders, test_batches: Optional[int]):
+    if not test_batches:
+        return loaders
+    return {name: _FirstBatches(loader, test_batches) for name, loader in loaders.items()}
+
+
+# ---------------------------------------------------------------------------
+# Pedestrian
+# ---------------------------------------------------------------------------
+
+PED_SCENES = ["zara1", "zara2", "univ", "hotel", "eth"]
+
+
+def _smoke_pedestrian_first_stage_config() -> PedestrianFirstStageConfig:
+    return PedestrianFirstStageConfig(dim_input=32, dim_latent=8, dim_entity=32,
+                                      dim_head_cross=8, dim_head_latent=8, num_head_cross=2)
+
+
+def pedestrian_first_stage(smoke: bool = False, data_root: Optional[str] = None,
+                           workspace: str = "runs", seed: int = 0,
+                           synthetic_scenes: Optional[int] = None, device="cuda",
+                           **_) -> ExperimentRun:
+    """Pedestrian stage 1 (registry.py:306-341): fp32, B=512 single frames
+    of the five ETH/UCY scenes, AdamW lr 1e-3 over 2000 epochs,
+    ``pos_loss`` monitored every 25 epochs on the test split (the
+    reference's val, pedestrian.py:198-204)."""
+    scenes = PED_SCENES[:2] if smoke else PED_SCENES
+    cfg = PedestrianFirstStageConfig() if not smoke else _smoke_pedestrian_first_stage_config()
+    model = build_pedestrian_first_stage(cfg, device=device,
+                                         generator=torch.Generator().manual_seed(seed))
+    kw = dict(root=data_root, num_entities=cfg.num_entities,
+              synthetic_scenes=synthetic_scenes or (24 if smoke else 64))
+    train_sets = [PedestrianDataset(scene=s, phase="train", rand_rotation=True, **kw)
+                  for s in scenes]
+    val_sets = {s: PedestrianDataset(scene=s, phase="test", **kw) for s in scenes}
+    bs = 16 if smoke else 512
+    collate = functools.partial(pad_collate, num_entities=cfg.num_entities)
+    train_loader = Loader(_ConcatDataset(train_sets), bs, collate, seed=seed)
+    val_loaders = {s: _eval_loader(ds, bs, collate, seed) for s, ds in val_sets.items()}
+    trainer_cfg = TrainerConfig(max_epochs=2 if smoke else 2000, lr=1e-3, monitor="pos_loss",
+                                val_every_n_epochs=1 if smoke else 25, seed=seed)
+    tx, _ = make_optimizer(trainer_cfg, len(train_loader))
+    return ExperimentRun(name="pedestrian_first_stage", config=cfg, trainer_cfg=trainer_cfg,
+                         model=model, loss_fn=make_pedestrian_first_stage_loss(cfg), tx=tx,
+                         train_loader=train_loader, val_loaders=val_loaders,
+                         meta={"config": dataclasses.asdict(cfg), "stage": 1,
+                               "domain": "pedestrian"})
+
+
+def pedestrian_second_stage(smoke: bool = False, data_root: Optional[str] = None,
+                            workspace: str = "runs", seed: int = 0,
+                            first_stage_run: Optional[str] = None, dit_dtype=None,
+                            synthetic_scenes: Optional[int] = None,
+                            test_batches: Optional[int] = None,
+                            first_stage: Optional[ExperimentRun] = None, device="cuda",
+                            **_) -> ExperimentRun:
+    """Pedestrian stage 2 (registry.py:344-417) on a frozen stage 1 (from the
+    run registry, from a stage-1 run of this process, or freshly drawn in
+    smoke runs): the bf16 class-conditional DiT (depth 6, hidden 128, 4
+    heads, T = 20, L = 2; fp32 in smoke runs, ``dit_dtype`` overrides) at
+    B=256, AdamW lr 1e-3 over 3000 epochs, the SI loss plus the aux
+    pos/inter-distance losses, ``si_loss`` monitored every 25 epochs, the
+    sampled val hook (min over 20 of K=20, one batch a scene), the fp32
+    ``test_model``, and the test split as both val and test loaders (the
+    reference's, pedestrian.py:198-204)."""
+    scenes = PED_SCENES[:2] if smoke else PED_SCENES
+    if first_stage_run is not None:
+        fs_model, fs_cfg = _stage1_of_run(workspace, first_stage_run,
+                                          PedestrianFirstStageConfig,
+                                          build_pedestrian_first_stage, device)
+    elif first_stage is not None:
+        fs_model, fs_cfg = first_stage.model, first_stage.config
+    elif smoke:
+        fs_cfg = _smoke_pedestrian_first_stage_config()
+        fs_model = build_pedestrian_first_stage(fs_cfg, device=device,
+                                                generator=torch.Generator().manual_seed(seed))
+    else:
+        raise ValueError("pedestrian_second_stage requires first_stage_run")
+
+    kw = dict(root=data_root, num_entities=fs_cfg.num_entities, first_stage=False,
+              synthetic_scenes=synthetic_scenes or (12 if smoke else 64))
+    train_sets = [PedestrianDataset(scene=s, phase="train", rand_rotation=True,
+                                    flip_vertical=True, flip_horizontal=True, **kw)
+                  for s in scenes]
+    val_sets = {s: PedestrianDataset(scene=s, phase="test", **kw) for s in scenes}
+    bs = 4 if smoke else 256
+    collate = functools.partial(pad_collate_temporal, num_entities=fs_cfg.num_entities)
+    train_loader = Loader(_ConcatDataset(train_sets), bs, collate, seed=seed)
+    val_loaders = {s: _eval_loader(ds, bs, collate, seed) for s, ds in val_sets.items()}
+    cfg = (PedestrianSecondStageConfig(in_dim=fs_cfg.dim_latent, class_conditional=True,
+                                       scan_layers=True)
+           if not smoke else
+           PedestrianSecondStageConfig(in_dim=fs_cfg.dim_latent, depth=1, hidden_size=16,
+                                       num_heads=2, class_conditional=True, vec_in_dim=16))
+    return _min_k_second_stage("pedestrian_second_stage", "pedestrian", cfg, fs_model,
+                               build_pedestrian_second_stage, train_loader, val_loaders,
+                               smoke, seed, dit_dtype, device, test_batches, first_stage_run,
+                               max_epochs=3000, val_every=25)
+
+
+def _min_k_second_stage(name, domain, cfg, fs_model, build, train_loader, val_loaders, smoke,
+                        seed, dit_dtype, device, test_batches, first_stage_run, max_epochs,
+                        val_every, meta=None) -> ExperimentRun:
+    """What the pedestrian and NBA stage-2 builders share: the training and
+    fp32 test DiTs, the loss, the trainer config, the min-over-K val hook,
+    the test split (the val loaders) as the test loaders."""
+    # bf16-mixed stage 2 by default; dit_dtype overrides (sweeps, tests)
+    dtype = _dtype(dit_dtype) or (torch.float32 if smoke else torch.bfloat16)
+    ss = build(cfg, fs_model, dtype=dtype, device=device,
+               generator=torch.Generator().manual_seed(seed + 1))
+    # the fp32 rebuild for the --test pass (src/train.py:106-118 precision="32-true")
+    ss_test = build(cfg, fs_model, dtype=torch.float32, device=device,
+                    generator=torch.Generator().manual_seed(seed + 1))
+    loss_fn = ss.make_loss(weight_si_loss=cfg.weight_si_loss, weight_pos_loss=cfg.weight_pos_loss,
+                           weight_inter_dist_loss=cfg.weight_inter_dist_loss,
+                           calc_additional_losses=cfg.calc_additional_losses)
+    trainer_cfg = TrainerConfig(max_epochs=2 if smoke else max_epochs, lr=1e-3,
+                                monitor="si_loss", val_every_n_epochs=1 if smoke else val_every,
+                                seed=seed)
+    tx, _ = make_optimizer(trainer_cfg, len(train_loader))
+    # sampled val min-ADE/FDE (reference second_stage/pedestrian.py:148-190)
+    hook = make_protocol_val_hook(ss, val_loaders, domain, k=2 if smoke else 20,
+                                  num_runs=2 if smoke else 20, limit_batches=1)
+    return ExperimentRun(name=name, config=cfg, trainer_cfg=trainer_cfg, model=ss.backbone,
+                         loss_fn=loss_fn, tx=tx, train_loader=train_loader,
+                         val_loaders=val_loaders, second_stage=ss,
+                         eval_fns={"val_sample": hook},
+                         test_loaders=_test_loaders(val_loaders, test_batches),
+                         test_model=ss_test,
+                         meta={"config": dataclasses.asdict(cfg), "stage": 2, "domain": domain,
+                               **(meta or {}), "first_stage_run": first_stage_run})
+
+
+# ---------------------------------------------------------------------------
+# NBA
+# ---------------------------------------------------------------------------
+
+NBA_SHIFT = {"score": 47.5787, "rebound": 47.2872}
+NBA_SCALE = {"score": 24.7269, "rebound": 26.5484}
+
+
+def _smoke_nba_first_stage_config(scene: str) -> NBAFirstStageConfig:
+    return NBAFirstStageConfig(dim_input=32, dim_latent=8, dim_entity=32, num_latents=4,
+                               dim_head_cross=8, dim_head_latent=8, scale=NBA_SCALE[scene])
+
+
+def _nba_root(data_root: Optional[str], scene: str) -> Optional[str]:
+    # the scene's processed directory with train/test subdirs (the
+    # reference's data_dir/<scene>/<mode> SocialVAE layout)
+    return None if data_root is None else os.path.join(data_root, scene)
+
+
+def nba_first_stage(smoke: bool = False, data_root: Optional[str] = None,
+                    workspace: str = "runs", seed: int = 0, scene: str = "score",
+                    synthetic_games: Optional[int] = None, device="cuda",
+                    **_) -> ExperimentRun:
+    """NBA stage 1 (registry.py:428-469): fp32, B=1024 single frames (a
+    random frame of a random game each), team flips and rotations, AdamW lr
+    4e-4 over 10,000 epochs, ``pos_loss`` monitored every 100 epochs on the
+    test split (the reference's test-as-val, nba.py:233-240)."""
+    cfg = (NBAFirstStageConfig(scale=NBA_SCALE[scene]) if not smoke
+           else _smoke_nba_first_stage_config(scene))
+    model = build_nba_first_stage(cfg, device=device,
+                                  generator=torch.Generator().manual_seed(seed))
+    kw = dict(root=_nba_root(data_root, scene), num_entities=cfg.num_entities,
+              shift=NBA_SHIFT[scene], scale=NBA_SCALE[scene],
+              synthetic_games=synthetic_games or (16 if smoke else 64))
+    train = NBADataset(scene=scene, flip=True, rand_rotation=True, split="train", **kw)
+    val = NBADataset(scene=scene, split="test", **kw)
+    bs = 8 if smoke else 1024
+    collate = functools.partial(pad_collate, num_entities=cfg.num_entities)
+    train_loader = Loader(train, bs, collate, seed=seed, drop_last=False)
+    val_loaders = {scene: _eval_loader(val, bs, collate, seed)}
+    trainer_cfg = TrainerConfig(max_epochs=2 if smoke else 10_000, lr=4e-4, monitor="pos_loss",
+                                val_every_n_epochs=1 if smoke else 100, seed=seed)
+    tx, _ = make_optimizer(trainer_cfg, len(train_loader))
+    return ExperimentRun(name="nba_first_stage", config=cfg, trainer_cfg=trainer_cfg,
+                         model=model, loss_fn=make_nba_first_stage_loss(cfg), tx=tx,
+                         train_loader=train_loader, val_loaders=val_loaders,
+                         meta={"config": dataclasses.asdict(cfg), "stage": 1, "domain": "nba",
+                               "scene": scene})
+
+
+def nba_second_stage(smoke: bool = False, data_root: Optional[str] = None,
+                     workspace: str = "runs", seed: int = 0, scene: str = "score",
+                     first_stage_run: Optional[str] = None, dit_dtype=None,
+                     synthetic_games: Optional[int] = None, batch_size: Optional[int] = None,
+                     test_batches: Optional[int] = None,
+                     first_stage: Optional[ExperimentRun] = None, device="cuda",
+                     **_) -> ExperimentRun:
+    """NBA stage 2 (registry.py:472-541) on a frozen stage 1: the bf16
+    class-conditional DiT (depth 6, hidden 256, 16 heads, T = 20, L = 8) at
+    B=1024 windows (``batch_size``), AdamW lr 1e-3 over 1000 epochs,
+    ``si_loss`` monitored every 10 epochs, the sampled val hook (min over
+    20 of K=20), the fp32 ``test_model`` (K=60, the first 20 and the FPC
+    picks), the test split as both val and test loaders."""
+    if first_stage_run is not None:
+        fs_model, fs_cfg = _stage1_of_run(workspace, first_stage_run, NBAFirstStageConfig,
+                                          build_nba_first_stage, device)
+    elif first_stage is not None:
+        fs_model, fs_cfg = first_stage.model, first_stage.config
+    elif smoke:
+        fs_cfg = _smoke_nba_first_stage_config(scene)
+        fs_model = build_nba_first_stage(fs_cfg, device=device,
+                                         generator=torch.Generator().manual_seed(seed))
+    else:
+        raise ValueError("nba_second_stage requires first_stage_run")
+
+    kw = dict(root=_nba_root(data_root, scene), num_entities=fs_cfg.num_entities,
+              first_stage=False, shift=NBA_SHIFT[scene], scale=NBA_SCALE[scene],
+              synthetic_games=synthetic_games or (4 if smoke else 64))
+    train = NBADataset(scene=scene, flip=True, rand_rotation=True, split="train", **kw)
+    val = NBADataset(scene=scene, split="test", **kw)
+    bs = batch_size or (4 if smoke else 1024)
+    collate = functools.partial(pad_collate_temporal, num_entities=fs_cfg.num_entities)
+    train_loader = Loader(train, bs, collate, seed=seed)
+    val_loaders = {scene: _eval_loader(val, bs, collate, seed)}
+    cfg = (NBASecondStageConfig(in_dim=fs_cfg.dim_latent, class_conditional=True,
+                                scan_layers=True)
+           if not smoke else
+           NBASecondStageConfig(in_dim=fs_cfg.dim_latent, depth=1, hidden_size=16, num_heads=2,
+                                class_conditional=True, vec_in_dim=16))
+    return _min_k_second_stage("nba_second_stage", "nba", cfg, fs_model, build_nba_second_stage,
+                               train_loader, val_loaders, smoke, seed, dit_dtype, device,
+                               test_batches, first_stage_run, max_epochs=1000, val_every=10,
+                               meta={"scene": scene})
+
+
 # ---------------------------------------------------------------------------
 # Peptide
 # ---------------------------------------------------------------------------
@@ -448,22 +723,16 @@ def peptide_second_stage(smoke: bool = False, data_root: Optional[str] = None,
 EXPERIMENTS = {
     "md17_first_stage": md17_first_stage,
     "md17_second_stage": md17_second_stage,
+    "pedestrian_first_stage": pedestrian_first_stage,
+    "pedestrian_second_stage": pedestrian_second_stage,
+    "nba_first_stage": nba_first_stage,
+    "nba_second_stage": nba_second_stage,
     "peptide_first_stage": peptide_first_stage,
     "peptide_second_stage": peptide_second_stage,
-}
-# the JAX registry's other experiments, and the ROADMAP item that ports them
-UNPORTED = {
-    "pedestrian_first_stage": "Queue 1 item 5 (pedestrian and NBA)",
-    "pedestrian_second_stage": "Queue 1 item 5 (pedestrian and NBA)",
-    "nba_first_stage": "Queue 1 item 5 (pedestrian and NBA)",
-    "nba_second_stage": "Queue 1 item 5 (pedestrian and NBA)",
 }
 
 
 def build_experiment(name: str, **kwargs) -> ExperimentRun:
-    if name in UNPORTED:
-        raise NotImplementedError(f"experiment {name!r} is not ported yet: ROADMAP.md "
-                                  f"{UNPORTED[name]}")
     if name not in EXPERIMENTS:
         raise KeyError(f"unknown experiment {name!r}; available: {sorted(EXPERIMENTS)}")
     return EXPERIMENTS[name](**kwargs)

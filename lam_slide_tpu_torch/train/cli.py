@@ -4,6 +4,10 @@ reference's src/train.py).
     python -m lam_slide_tpu_torch.train.cli --experiment md17_first_stage --smoke
     python -m lam_slide_tpu_torch.train.cli --experiment md17_second_stage \\
         --first-stage-run <run_id> --workspace runs --data-root data/md17 --test
+    python -m lam_slide_tpu_torch.train.cli --experiment nba_first_stage --scene score \
+        --run-id n1
+    python -m lam_slide_tpu_torch.train.cli --experiment nba_second_stage \
+        --first-stage-run n1 --run-id n2 --test
     python -m lam_slide_tpu_torch.train.cli --experiment peptide_first_stage --run-id p1
     python -m lam_slide_tpu_torch.train.cli --experiment peptide_second_stage \\
         --first-stage-run p1 --run-id p2
@@ -14,8 +18,9 @@ checkpoints/{best,last}.pt; every run is recorded in the workspace's run
 registry, so a stage-2 experiment resolves its frozen stage 1 by
 --first-stage-run (replacing the reference's wandb lineage). ``--test``
 runs the domain test protocol after training, ``--test-only`` on a
-finished run's checkpoint (md17; a peptide stage-2 run prints the pointer
-to ``analysis.eval_cli``, the 4AA eval pipeline). Everything runs on one CUDA card (``--device``
+finished run's checkpoint (md17's mean over K, the pedestrian and NBA
+min over K with NBA's final-position clustering; a peptide stage-2 run
+prints the pointer to ``analysis.eval_cli``, the 4AA eval pipeline). Everything runs on one CUDA card (``--device``
 picks another device, such as ``cpu``); the multi-device flags wait for
 the port's ``parallel/``.
 """
@@ -66,6 +71,9 @@ def main(argv=None):
     parser.add_argument("--molecule", default=None,
                         help="md17: molecule or 'all' (default; --test-only recovers the "
                              "trained run's value)")
+    parser.add_argument("--scene", default=None,
+                        help="nba: score|rebound (default score; --test-only recovers the "
+                             "trained run's value)")
     parser.add_argument("--set", dest="overrides", action="append", default=[],
                         metavar="KEY=VALUE",
                         help="override TrainerConfig fields (e.g. --set lr=2e-4)")
@@ -75,7 +83,8 @@ def main(argv=None):
                              "(e.g. --exp-set batch_size=16)")
     parser.add_argument("--test", action="store_true",
                         help="after training, run the domain test protocol on the test split "
-                             "(mean-K ADE/FDE for md17)")
+                             "(mean-K ADE/FDE for md17, per-entity min-K for pedestrian and "
+                             "nba)")
     parser.add_argument("--test-only", action="store_true",
                         help="skip training: restore --run-id's checkpoint and run the domain "
                              "test protocol")
@@ -118,7 +127,7 @@ def main(argv=None):
         run_dir = info["run_dir"]
         stored = info.get("config", {})
         launch = stored.get("launch", {})
-        for name in ("experiment", "molecule", "data_root", "first_stage_run"):
+        for name in ("experiment", "molecule", "scene", "data_root", "first_stage_run"):
             if getattr(args, name) is None and launch.get(name) is not None:
                 setattr(args, name, launch[name])
         if launch.get("smoke") and not args.smoke:
@@ -126,7 +135,8 @@ def main(argv=None):
         exp_kwargs = {**launch.get("exp_overrides", {}), **exp_kwargs}
         if args.first_stage_run is None:
             args.first_stage_run = stored.get("first_stage_run")
-        mismatches = {f: (launch[f], getattr(args, f)) for f in ("experiment", "molecule")
+        mismatches = {f: (launch[f], getattr(args, f))
+                      for f in ("experiment", "molecule", "scene")
                       if launch.get(f) is not None and getattr(args, f) != launch[f]}
         if mismatches:
             print(f"WARNING: --test-only overrides the trained run's settings: {mismatches}")
@@ -134,11 +144,12 @@ def main(argv=None):
     if not args.experiment:
         raise SystemExit("--experiment is required (no stored value found)")
     molecule = args.molecule if args.molecule is not None else "all"
+    scene = args.scene if args.scene is not None else "score"
 
     exp = build_experiment(args.experiment, smoke=args.smoke, data_root=args.data_root,
                            workspace=args.workspace, seed=args.seed,
                            first_stage_run=args.first_stage_run, molecule=molecule,
-                           device=args.device, **exp_kwargs)
+                           scene=scene, device=args.device, **exp_kwargs)
     if args.epochs is not None:
         exp.trainer_cfg.max_epochs = args.epochs
     for item in args.overrides:
@@ -169,7 +180,7 @@ def main(argv=None):
     register_run(args.workspace, run_id, run_dir, {
         **exp.meta,
         "launch": {
-            "experiment": args.experiment, "molecule": molecule, "scene": None,
+            "experiment": args.experiment, "molecule": molecule, "scene": scene,
             "smoke": bool(args.smoke), "data_root": args.data_root, "seed": args.seed,
             "first_stage_run": args.first_stage_run, "exp_overrides": exp_kwargs,
         },
@@ -201,9 +212,12 @@ def main(argv=None):
 
 def _run_test_protocol(args, exp, params, fs_state, run_dir, molecule):
     """The domain test protocol on restored or trained weights (stage 2
-    only): mean-K ADE/FDE for md17 (second_stage/md17.py:139-171); for the
+    only): mean-K ADE/FDE for md17 (second_stage/md17.py:139-171), the
+    per-entity min over ``num_runs`` of K samples for pedestrian and nba
+    (second_stage/pedestrian.py:149-239), with the final-position
+    clustering where the config's ``post_process`` asks for it; for the
     peptide domain only a pointer to ``analysis.eval_cli``, and no metrics
-    (lam_slide_tpu/train/cli.py:315-316).
+    (lam_slide_tpu/train/cli.py:295-316).
 
     Reference precision and data semantics (src/train.py:100-118): the test
     pass runs with precision="32-true" on the held-out test split, here the
@@ -228,11 +242,17 @@ def _run_test_protocol(args, exp, params, fs_state, run_dir, molecule):
     model.backbone.load_state_dict(tree_to_f32(params))
     if fs_state is not None:
         model.first_stage.load_state_dict(tree_to_f32(fs_state))
-    k = int(exp.meta.get("config", {}).get("K", 5))
+    cfg = exp.meta.get("config", {})
+    k = int(cfg.get("K", 5))
     if args.smoke:
         k = min(k, 2)
-    metrics = testing.evaluate_md17(model, loaders, scale=MD17_SCALES[molecule], k=k,
-                                    k_chunk=1)
+    if exp.meta.get("domain") == "md17":
+        metrics = testing.evaluate_md17(model, loaders, scale=MD17_SCALES[molecule], k=k,
+                                        k_chunk=1)
+    else:
+        metrics = testing.evaluate_min_k(model, loaders, k=k,
+                                         num_runs=min(int(cfg.get("num_runs", k)), k), k_chunk=1,
+                                         post_process=bool(cfg.get("post_process", False)))
     with open(os.path.join(run_dir, "test_metrics.json"), "w") as f:
         json.dump(metrics, f, indent=2)
     print(json.dumps(metrics))

@@ -2017,3 +2017,124 @@ def test_fp32_dit_grads_match_plain_path(dev, no_tf32, hidden, heads, t, l, chec
         assert got is not None and bool(torch.isfinite(got).all()), name
         assert got.abs().max().item() > 0, name
         assert (got - want).norm().item() <= F32_DIT_GRAD_REL_TOL * want.norm().item(), name
+
+# ---- the pedestrian and NBA DiTs' widths (chip_smoke.py phase 17) ---------
+
+# (B, hidden, heads, L) of each workload's stage-2 DiT at its registry's
+# batch, T = 20 frames: the shapes of the bf16 train step and of one repeat
+# of the fp32 test pass
+PED_NBA = {"pedestrian": (256, 128, 4, 2), "nba": (1024, 256, 16, 8)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("workload", sorted(PED_NBA))
+def test_spatial_block_at_the_pedestrian_and_nba_widths(dev, no_tf32, workload, dtype):
+    """K8 over [B*T, L, D]: in bf16 the Hopper kernel within K8_REL_TOL, in
+    fp32 the dot-product route within F32_REL_TOL["K8"]; a second call
+    bit-identical."""
+    b, d, heads, l = PED_NBA[workload]
+    args = (_spatial_inputs(_gen(110), dev, b * 20, l, d, 2 * d, heads)
+            if dtype == torch.bfloat16 else
+            _spatial_inputs_f32(_gen(110), dev, b * 20, l, d, 2 * d, heads))
+    names = ("launches", "wmma_launches", "f32_launches", "f32_tiled_launches",
+             "f32_dot_launches")
+    before = [getattr(fsb, n) for n in names]
+    got, again = fsb.fused_spatial_block(*args), fsb.fused_spatial_block(*args)
+    moved = tuple(getattr(fsb, n) - v for n, v in zip(names, before))
+    assert moved == ((2, 0, 0, 0, 0) if dtype == torch.bfloat16 else (2, 0, 2, 0, 2))
+    want = fsb.reference_spatial_block(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape and torch.equal(got, again)
+    tol = K8_REL_TOL if dtype == torch.bfloat16 else F32_REL_TOL["K8"]
+    assert _rel_err(got, want) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("workload", sorted(PED_NBA))
+def test_short_attention_at_the_pedestrian_and_nba_widths(dev, no_tf32, workload, dtype):
+    """K9 forward and backward at n = 20 on packed views of one qkv buffer
+    [B*L, 20, 3D]: bf16 within K1's limits and K9_GRAD_REL_TOL, fp32 within
+    F32_REL_TOL["K9"] and K9_F32_GRAD_REL_TOL; second calls bit-identical."""
+    b, d, heads, l = PED_NBA[workload]
+    g = _gen(111)
+    q, k, v = torch.randn(b * l, 20, 3 * d, generator=g).to(dev, dtype).chunk(3, dim=-1)
+    grad = torch.randn(b * l, 20, d, generator=g).to(dev, dtype)
+    scale = (d // heads) ** -0.5
+    fp32 = dtype == torch.float32
+    counters = ("fp32_launches", "bwd_fp32_launches") if fp32 else ("launches", "bwd_launches")
+    before = [getattr(tsa, c) for c in counters]
+    out, out_again = (tsa.short_attention(q, k, v, heads) for _ in range(2))
+    grads, grads_again = (tsa.short_attention_backward(q, k, v, grad, heads, scale)
+                          for _ in range(2))
+    assert _launched(before, [getattr(tsa, c) for c in counters]) == (2, 2)
+    want = tsa.reference_short_attention(q, k, v, heads, scale)
+    want_grads = tsa.reference_short_backward(q, k, v, grad, heads, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out_again)
+    assert all(torch.equal(a, a2) for a, a2 in zip(grads, grads_again))
+    if fp32:
+        assert _rel_err(out, want) <= F32_REL_TOL["K9"]
+        for a, w in zip(grads, want_grads):
+            assert _rel_err(a, w) <= K9_F32_GRAD_REL_TOL
+    else:
+        _assert_k1_close(out, want)
+        _assert_grads_close(grads, want_grads, K9_GRAD_REL_TOL)
+
+
+def test_fused_mlp_fp32_dot_route_at_the_pedestrian_width(dev, no_tf32):
+    """K2-fp32 at the pedestrian DiT's MLP branch (B*T*L = 10,240 rows of
+    128 -> 256 -> 128), which has no outer-product instance: the dot-product
+    route within F32_REL_TOL["K2"], a second call bit-identical."""
+    g = _gen(112)
+    rows, d, m = 256 * 20 * 2, 128, 256
+    x = torch.randn(rows, d, generator=g).to(dev)
+    lin1 = (torch.randn(3 * d + m, d, generator=g) * d ** -0.5).to(dev)
+    b1 = (torch.randn(m, generator=g) * 0.1).to(dev)
+    lin2 = (torch.randn(d, d + m, generator=g) * (d + m) ** -0.5).to(dev)
+    args = (x, lin1[3 * d:].t(), b1, lin2[:, d:].t())
+    assert fm.tiled_plan(d, m, d, rows) is None
+    before = (fm.fp32_launches, fm.fp32_tiled_launches, fm.fp32_dot_launches)
+    got, again = fm.fused_mlp(*args), fm.fused_mlp(*args)
+    assert _launched(before, (fm.fp32_launches, fm.fp32_tiled_launches,
+                              fm.fp32_dot_launches)) == (2, 0, 2)
+    want = fm.reference_mlp(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and _rel_err(got, want) <= F32_REL_TOL["K2"]
+
+
+@pytest.mark.parametrize("workload", sorted(PED_NBA))
+def test_pedestrian_and_nba_fp32_dit_forward_matches_plain_path(dev, no_tf32, workload):
+    """The registry's fp32 test model (the class-conditional DiT of depth 6
+    at the workload's width) at B=2 on weights perturbed by N(0, 0.02^2)
+    (the reference init makes every block the identity): one forward
+    through K8-fp32 (dot-product route), K9-fp32, K2-fp32 and K7-fp32, per
+    layer one, one, one and two, and one more K7 (no bf16 kernel), against
+    the plain path within F32_MODEL_REL_TOL."""
+    from lam_slide_tpu_torch.experiments import registry
+
+    _, d, heads, l = PED_NBA[workload]
+    run1 = registry.build_experiment(f"{workload}_first_stage", device=dev)
+    run2 = registry.build_experiment(f"{workload}_second_stage", first_stage=run1, device=dev)
+    dit = run2.test_model.backbone
+    g = _gen(113)
+    with torch.no_grad():
+        for p in dit.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g).to(dev))
+    x = torch.randn(2, 20, l, 32, generator=g).to(dev)
+    mask = torch.zeros(2, 20, l, dtype=torch.long, device=dev)
+    mask[:, :8] = 1
+    x_cond, t = x * mask[..., None], torch.tensor([0.3, 0.7], device=dev)
+    y = torch.tensor([1, 0], device=dev)
+    names = ((fsb, "f32_dot_launches"), (tsa, "fp32_launches"), (fm, "fp32_launches"),
+             (fad, "fp32_launches"), (fsb, "launches"), (tsa, "launches"), (fm, "launches"),
+             (fad, "launches"))
+    before = [getattr(mod, n) for mod, n in names]
+    with torch.no_grad():
+        got = dit(x, t, x_cond, mask, y)
+        moved = tuple(getattr(mod, n) - v for (mod, n), v in zip(names, before))
+        set_backend(dit, "plain")
+        want = dit(x, t, x_cond, mask, y)
+    torch.cuda.synchronize()
+    assert moved == (6, 6, 6, 13) * 2
+    assert bool(torch.isfinite(got).all()) and want.abs().max().item() > 0
+    assert _rel_err(got, want) <= F32_MODEL_REL_TOL
