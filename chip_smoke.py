@@ -148,9 +148,9 @@ printed on its own line with its seconds:
    ``_post`` ones), the exact launches of training (steps x (K8, K9, K2 per
    layer, two K7 per layer and one more, K9's backward per layer) plus the
    val forwards), of the hook and of the test pass (depth x 9 drift
-   evaluations x K x test batches, on the fp32 kernels alone: K8-fp32 on
-   its dot-product route, K2-fp32 on its dot-product route at hidden 128
-   and its outer-product kernel at 256); the test pass's time; one profiled
+   evaluations x K x test batches, on the fp32 kernels alone: K8-fp32 and
+   K2-fp32 on their outer-product kernels, none on a dot-product route);
+   the test pass's time; one profiled
    repeat of a test batch; the fp32 protocol on one test batch (its first
    PN_CMP_ROWS windows) through the kernels against the plain path on the
    same noise (within PN_METRIC_REL_TOL) with both paths' times; then the
@@ -180,9 +180,11 @@ SDPA) and K11 (against K4's grads, with its peak memory, and in fp32 at a
 JAX test shape) to their plain versions; and, at the pedestrian and NBA
 DiTs' shapes (``ped_nba_kernel_checks``: x [5120, 2, 128] and
 [20480, 8, 256], q/k/v [512, 20, 128] and [8192, 20, 256]), K8, K9 forward
-and backward, K2 and K7 in bf16 and in fp32 (TF32 off; K8-fp32 and the
-pedestrian's K2-fp32 on their dot-product routes), each with its bound and
-SDPA or the PyTorch composition beside it.
+and backward, K2 and K7 in bf16 and in fp32 (TF32 off; K8-fp32 and K2-fp32
+on their outer-product kernels, each bit-identical to its dot-product route
+launched directly), each with its bound and SDPA or the PyTorch composition
+beside it; and K8-fp32's dot-product route at the tiny registries' hidden
+32 (``k8_f32_dot_check``), the widths it still takes.
 
 K1 and K3 without a mask in bf16 and K4 without one run the kernels
 redesigned for Hopper (csrc/flash_fwd_sm90.cu, csrc/flash_bwd_sm90.cu); phase
@@ -643,8 +645,8 @@ def with_routes(want: dict) -> dict:
     """``want`` with the fp32 kernels' routes that follow from its counts on
     the main paths: every fp32 K1 call at dh <= 64 (those not on the wide
     kernel) on the narrow kernel, no K5 call on it (K5 runs at dh 128), and
-    every fp32 K8 call on the outer-product kernel (the 4AA widths), none on
-    the dot-product route."""
+    every fp32 K8 call on the outer-product kernel (the 4AA, NBA and
+    pedestrian widths), none on the dot-product route."""
     return dict(want, **{"K1 fp32 narrow": want["K1 fp32"] - want["K1 fp32 wide"],
                          "K5 fp32 narrow": 0, "K8 fp32 tiled": want["K8 fp32"],
                          "K8 fp32 dot": 0})
@@ -1671,9 +1673,9 @@ def md17_f32_kernel_checks(dev, table: KernelTable) -> None:
 
 # K2-fp32 beyond the MD17 and 4AA sampling rows: (rows, d, route) at the 4AA
 # eval's B = 2 (the 384 instance at 32 rows a block: 125 blocks), the smoke
-# width (the 32 instance, hidden 32 at mlp_ratio 2) and hidden 128, which
+# width (the 32 instance, hidden 32 at mlp_ratio 2) and hidden 96, which
 # has no outer-product instance and takes the dot-product kernel.
-K2_F32_ROUTE_SPECS = ((4000, 384, "tiled"), (4096, 32, "tiled"), (16000, 128, "dot"))
+K2_F32_ROUTE_SPECS = ((4000, 384, "tiled"), (4096, 32, "tiled"), (16000, 96, "dot"))
 
 
 def k2_f32_route_checks(dev, table: KernelTable) -> None:
@@ -2537,19 +2539,22 @@ def ped_nba_kernel_checks(dev, table: KernelTable, seed: int = SEED + 17) -> Non
     at the shapes the pedestrian and NBA stage-2 DiTs give them at the
     registries' B (PN_SHAPES): the bf16 training DiT and one repeat of the
     fp32 test pass (TF32 off), which share their shapes. K8 on x [B*T, L, D]
-    (the Hopper kernel in bf16; in fp32 the dot-product route, as
-    ``f32_plan`` gives these widths); K9 on packed q/k/v views of one
-    linear1 output [B*L, T, 3D] and its backward; K2 on the temporal MLP
-    branch's B*T*L rows (in fp32 the dot-product route at hidden 128, the
-    outer-product kernel at 256); K7 on the [B, T, L, D] stream. Each: its
-    counters, a second call bit-identical, the limit of its dtype's rows
-    above, its time beside the plain version's, the bound and SDPA (K9), or
-    the PyTorch composition (K2, K7; the two bare GEMMs of its shapes for
-    K8) where no one call computes the function. Printed rows only: the
+    (the Hopper kernel in bf16; in fp32 the outer-product kernel, as
+    ``f32_plan`` gives these widths, bit-identical to the dot-product route
+    launched directly); K9 on packed q/k/v views of one linear1 output
+    [B*L, T, 3D] and its backward; K2 on the temporal MLP branch's B*T*L
+    rows (in fp32 the outer-product kernel, bit-identical to the
+    dot-product route); K7 on the [B, T, L, D] stream. Each: its counters, a
+    second call bit-identical, the limit of its dtype's rows above, its time
+    beside the plain version's, the bound and SDPA (K9), or the PyTorch
+    composition (K2, K7; the two bare GEMMs of its shapes for K8) where no
+    one call computes the function. Then K8-fp32's dot-product route at a
+    width it still takes (``k8_f32_dot_check``). Printed rows only: the
     ``kernels`` line keeps its shapes. Inputs from a card generator seeded
     with ``seed``."""
     from torch.nn.functional import gelu, linear
 
+    from lam_slide_tpu_torch.ops import _build
     from lam_slide_tpu_torch.ops import fused_adaln as fad
     from lam_slide_tpu_torch.ops import fused_mlp as fm
     from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
@@ -2558,6 +2563,7 @@ def ped_nba_kernel_checks(dev, table: KernelTable, seed: int = SEED + 17) -> Non
     saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=dev).manual_seed(seed)
+    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
@@ -2584,19 +2590,33 @@ def ped_nba_kernel_checks(dev, table: KernelTable, seed: int = SEED + 17) -> Non
             torch.cuda.synchronize()
             launched = tuple(getattr(fsb, name) - n for name, n in zip(names, before))
             key = f"K8{fp} {workload} [{frames},{l},{d}] {heads}x{dh}"
-            check(launched == ((2, 2, 0, 0, 2) if fp32 else (2, 0, 0, 0, 0)),
+            check(launched == ((2, 2, 0, 2, 0) if fp32 else (2, 0, 0, 0, 0)),
                   f"{key}: launches {launched} of (K8, fp32, WMMA, outer-product, "
                   f"dot-product) for two calls")
             check(torch.equal(got, again), f"{key}: a second call differs")
             tol = PEP_F32_REL_TOL["K8 fp32"] if fp32 else K8_REL_TOL
             abs_err, rel = errors(got, want)
             check(rel <= tol, f"{key} rel err {rel} > {tol}")
+            plan = fsb.f32_plan(frames, l, d, m, heads) if fp32 else None
+            if fp32:
+                # the dot-product route on the same inputs sums in the same order
+                dot = torch.empty_like(got)
+                with torch.cuda.device(dev):
+                    _build.launch("lam_spatial_block_f32", *(z.data_ptr() for z in args8[:9]),
+                                  dot.data_ptr(), frames, l, d, m, heads, args8[1].stride(0),
+                                  args8[5].stride(0), args8[10], fsb.f32_group(d, heads),
+                                  stream)
+                torch.cuda.synchronize()
+                check(torch.equal(got, dot), f"{key}: the outer- and dot-product kernels differ")
+                del dot
             del got, again, want
             a8, wd1, bd1, wd2, bd2 = args8[0], args8[1], args8[2], args8[5], args8[6]
             mid = torch.empty(frames * l, d + m, device=dev, dtype=dtype)
             gemms = time_ms(lambda: (linear(a8.view(-1, d), wd1, bd1), linear(mid, wd2, bd2)))
-            table.add(key, f"x [{frames},{l},{d}] {tag}, heads {heads} x {dh}, "
-                      f"{'the dot-product route' if fp32 else 'the Hopper kernel'}, rel "
+            route = (f"the outer-product kernel (plan: group {plan.group}, {plan.rows} rows a "
+                     f"block, {plan.blocks} blocks, {plan.smem} B), bit-identical to the "
+                     f"dot-product route" if fp32 else "the Hopper kernel")
+            table.add(key, f"x [{frames},{l},{d}] {tag}, heads {heads} x {dh}, {route}, rel "
                       f"{rel:.3e}, a second call bit-identical; library: none (the two bare "
                       f"cuBLAS GEMMs of its shapes {gemms:.4f} ms)", abs_err, f"rel tol {tol}",
                       time_ms(lambda: fsb.fused_spatial_block(*args8)),
@@ -2682,13 +2702,31 @@ def ped_nba_kernel_checks(dev, table: KernelTable, seed: int = SEED + 17) -> Non
             abs_err, rel = errors(got, want)
             tol = F32_REL_TOL["K2 fp32"] if fp32 else K2_ATOL
             check((rel if fp32 else abs_err) <= tol, f"{key} error {abs_err} (rel {rel}) > {tol}")
+            if route == "outer-product":
+                # the dot-product route on the same inputs sums in the same order
+                dot = torch.empty_like(got)
+                w1v, w2v = mlp[1], mlp[3]
+                with torch.cuda.device(dev):
+                    _build.launch("lam_fused_mlp_f32", x2.data_ptr(), w1v.data_ptr(),
+                                  mlp[2].data_ptr(), w2v.data_ptr(), dot.data_ptr(), rows, d, m,
+                                  d, x2.stride(0), w1v.stride(1), w2v.stride(1), dot.stride(0),
+                                  *fm.f32_plan(d, d), stream)
+                torch.cuda.synchronize()
+                check(torch.equal(got, dot), f"{key}: the outer- and dot-product kernels differ")
+                route += (f" route (plan {fm.tiled_plan(d, m, d, rows)}), bit-identical to the "
+                          f"dot-product")
+                del dot
             del got, again, want
             comp_ms = time_ms(lambda: linear(gelu(linear(x2, lin1[3 * d:], mlp[2])), lin2[:, d:]),
                               reps=5)
+            # fp32: the kernel's device time (the pedestrian call is shorter than 0.1 ms)
+            k2_ms = (device_ms(lambda: fm.fused_mlp(*mlp), "mlp_f32") if fp32
+                     else time_ms(lambda: fm.fused_mlp(*mlp)))
             table.add(key, f"x [{rows},{d}] -> {m} -> {d} {tag}, transposed nn.Linear views, the "
-                      f"{route} route, rel {rel:.3e}, a second call bit-identical; library: none "
-                      f"(the two-GEMM cuBLAS composition with GELU {comp_ms:.4f} ms)", abs_err,
-                      f"{'rel tol' if fp32 else 'atol'} {tol}", time_ms(lambda: fm.fused_mlp(*mlp)),
+                      f"{route} route, rel {rel:.3e}, a second call bit-identical; "
+                      f"{'time: the kernel device time (profiler); ' if fp32 else ''}library: "
+                      f"none (the two-GEMM cuBLAS composition with GELU {comp_ms:.4f} ms)",
+                      abs_err, f"{'rel tol' if fp32 else 'atol'} {tol}", k2_ms,
                       time_ms(lambda: fm.reference_mlp(*mlp), reps=3), 4 * rows * d * m,
                       rows * d * (es + 4) + 2 * d * m * es + m * es, peak=peak)
             del x2, lin1, mb1, lin2, mlp
@@ -2728,7 +2766,65 @@ def ped_nba_kernel_checks(dev, table: KernelTable, seed: int = SEED + 17) -> Non
                       0, es * (4 * rows * d + 3 * b * d), peak=peak)
             del x7, h7, shift, scale7, gate, ada
             torch.cuda.empty_cache()
+    k8_f32_dot_check(dev, table, gen)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+# K8-fp32's dot-product route at a width it still takes (no outer-product
+# instance): the tiny registries' hidden 32 at 4 x 8, M 64, L = 8, over as
+# many frames as the NBA test pass's repeat
+K8_F32_DOT_SHAPE = (20480, 8, 32, 4)
+
+
+def k8_f32_dot_check(dev, table: KernelTable, gen) -> None:
+    """K8-fp32 on the dot-product route (the first fp32 kernel) at
+    K8_F32_DOT_SHAPE, TF32 off: its counters (the dot-product one moves once
+    a call), a second call bit-identical, within PEP_F32_REL_TOL["K8 fp32"]
+    of the plain version, its time beside the plain version's, the bound
+    and the two bare cuBLAS SGEMMs of its shapes. A printed row."""
+    from torch.nn.functional import linear
+
+    from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
+
+    n, l, d, heads = K8_F32_DOT_SHAPE
+    m, dh = 2 * d, d // heads
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    w1, b1 = randn(3 * d + m, d, scale=d ** -0.5), randn(3 * d + m, scale=0.1)
+    w2, b2 = randn(d, d + m, scale=(d + m) ** -0.5), randn(d, scale=0.1)
+    args8 = k8_args(dev, torch.Generator().manual_seed(SEED + 21), randn(n, l, d), w1, b1, w2,
+                    b2, heads)
+    plan = fsb.f32_plan(n, l, d, m, heads)
+    check(plan.route == "dot", f"K8 fp32 [{n},{l},{d}]: plan {plan}, not the dot-product route")
+    before = (fsb.f32_launches, fsb.f32_tiled_launches, fsb.f32_dot_launches)
+    got, again = fsb.fused_spatial_block(*args8), fsb.fused_spatial_block(*args8)
+    want = fsb.reference_spatial_block(*args8)
+    torch.cuda.synchronize()
+    launched = (fsb.f32_launches - before[0], fsb.f32_tiled_launches - before[1],
+                fsb.f32_dot_launches - before[2])
+    key = f"K8 fp32 dot [{n},{l},{d}] {heads}x{dh}"
+    check(launched == (2, 0, 2), f"{key}: launches {launched} of (fp32, outer-product, "
+          f"dot-product) for two calls")
+    check(torch.equal(got, again), f"{key}: a second call differs")
+    tol = PEP_F32_REL_TOL["K8 fp32"]
+    abs_err, rel = errors(got, want)
+    check(rel <= tol, f"{key} rel err {rel} > {tol}")
+    del got, again, want
+    rows = n * l
+    mid = torch.empty(rows, d + m, device=dev)
+    gemms = time_ms(lambda: (linear(args8[0].view(-1, d), w1, b1), linear(mid, w2, b2)))
+    table.add(key, f"x [{n},{l},{d}] fp32, heads {heads} x {dh}, the dot-product route (plan: "
+              f"group {plan.group}, {plan.blocks} blocks of 32 rows, {plan.smem} B), rel "
+              f"{rel:.3e}, a second call bit-identical; library: none (the two bare cuBLAS "
+              f"SGEMMs of its shapes {gemms:.4f} ms)", abs_err, f"rel tol {tol}",
+              time_ms(lambda: fsb.fused_spatial_block(*args8)),
+              time_ms(lambda: fsb.reference_spatial_block(*args8), reps=5),
+              2 * rows * (d * (3 * d + m) + (d + m) * d),
+              4 * (2 * rows * d + (3 * d + m) * (d + 1) + d * (d + m + 1)), peak=PEAK_FP32_FLOPS)
+    del args8, mid
+    torch.cuda.empty_cache()
 
 
 def ablation_kernel_checks(dev, gen, table: KernelTable) -> None:
@@ -3277,6 +3373,7 @@ def ped_nba_loop_phase(dev, smi, reset_counts, read_counts):
     from lam_slide_tpu_torch.data.loader import device_batch
     from lam_slide_tpu_torch.experiments import registry
     from lam_slide_tpu_torch.ops import fused_mlp as fm
+    from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
     from lam_slide_tpu_torch.train.cli import main as cli
 
     ws = tempfile.mkdtemp(prefix="ped_nba_loop_")
@@ -3374,12 +3471,14 @@ def ped_nba_loop_phase(dev, smi, reset_counts, read_counts):
                               **{"K9 bwd": PN_DEPTH * steps})
             want_hook = dict(zero, **{key: n * n_loaders * DRIFT_EVALS
                                       for key, n in per_fwd.items()})
-            k2_route = ("K2 fp32 dot" if fm.tiled_plan(d, 2 * d, d, b * PN_T * l) is None
-                        else "K2 fp32 tiled")
+            # the fp32 test pass: K8 and K2 on their outer-product kernels
+            check(fsb.f32_plan(b * PN_T, l, d, 2 * d, heads).route == "tiled"
+                  and fm.tiled_plan(d, 2 * d, d, b * PN_T * l) is not None,
+                  f"ped_nba_loop {workload}: an fp32 plan without the outer-product route")
             want_test = dict(zero, **{key: n * n_test * k * DRIFT_EVALS
                                       for key, n in per_fwd.items()})
             want_test.update({f"{key} fp32": want_test[key] for key in per_fwd})
-            want_test.update({"K8 fp32 dot": want_test["K8"], k2_route: want_test["K2"]})
+            want_test.update({"K8 fp32 tiled": want_test["K8"], "K2 fp32 tiled": want_test["K2"]})
             print(f"ped_nba_loop {workload}: stage 2 {steps} steps, {n_loaders} val loaders, "
                   f"{n_test} test batches; training launches {train_counts}; val hook launches "
                   f"{hook_counts} ({hook_s:.2f} s, {hook_out}); test-pass launches {test_counts}")
@@ -5018,8 +5117,9 @@ def main() -> int:
                     "fused_adaln.py:98"),
         "K9 fp32": ("short_attention (fp32 operands, forward)", "short_attention_f32.cu",
                     "short_attention.py:83"),
-        "K8 fp32": ("fused_spatial_block (fp32 operands: the outer-product kernel at the 4AA "
-                    "widths; under autograd the kernel's forward and the plain VJP)",
+        "K8 fp32": ("fused_spatial_block (fp32 operands: the outer-product kernel at the 4AA, "
+                    "NBA and pedestrian widths; under autograd the kernel's forward and the "
+                    "plain VJP)",
                     "fused_spatial_block_f32.cu", "fused_spatial_block.py:108"),
         "K5 fp32": ("flash_attention_normrope (fp32 operands, forward: the fp32 transform, "
                     "then K1's fp32 kernel at 64 < dh <= 128)", "flash_attention.cu",

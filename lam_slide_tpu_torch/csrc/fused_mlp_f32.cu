@@ -252,11 +252,11 @@ cudaError_t launch_nj(const Args& a, cudaStream_t stream) {
 
 // ---------------------------------------------------------------------------
 // The outer-product kernel (the route of every width with an instance:
-// d_out 256, 384 and 32, tiled_plan in the wrapper). A block of NT threads
-// owns BM rows of x and keeps their [BM, D_OUT] output in registers, a
-// TM x TN micro-tile a thread. x is staged once, transposed through
-// registers, as x^T [d_in][BM + 4]. d_mid streams through in chunks of C
-// columns, in order; each chunk:
+// d_out 256, 384, 128 and 32, tiled_plan in the wrapper). A block of NT
+// threads owns BM rows of x and keeps their [BM, D_OUT] output in
+// registers, a TM x TN micro-tile a thread. x is staged once, transposed
+// through registers, as x^T [d_in][BM + 4]. d_mid streams through in chunks
+// of C columns, in order; each chunk:
 // - GEMM1: the [BM, C] mid, a 4 x G1N micro-tile a thread (rows 4 rg .. + 4,
 //   mids 4 (mg + M1 jj) .. + 4), over k-slices of KS rows of w1^T
 //   [KS][C + 4] (rows of the wrapper's contiguous [d_in, d_mid] copy of the
@@ -310,6 +310,9 @@ using Inst384 = Inst<384, 64, 384, 8, 8, 96, 4, 64, 16>;
 using Inst384h = Inst<384, 32, 192, 8, 8, 96, 4, 64, 32>;
 // the smoke widths (32 -> 64 -> 32): 64 rows, 128 threads at 4 x 4.
 using Inst32 = Inst<32, 64, 128, 4, 4, 64, 8, 32, 64>;
+// the pedestrian DiT (128 -> 256 -> 128): 32 rows, 128 threads at 4 x 8,
+// chunks of 128 (at its test pass's 10,240 rows 320 blocks, two an SM).
+using Inst128 = Inst<128, 32, 128, 4, 8, 128, 8, 32, 32>;
 
 struct TArgs {
   const float *x, *w1t, *b1, *w2t;
@@ -491,11 +494,11 @@ extern "C" int lam_fused_mlp_f32(const void* x, const void* w1, const void* b1, 
 
 // As lam_fused_mlp_f32, on the outer-product kernel: w1t and w2t the
 // contiguous [d_in, d_mid] and [d_mid, d_out] copies of w1 and w2
-// (w1t[i * d_mid + m], w2t[m * d_out + o]); out contiguous; w1t, w2t and
-// x, w1t, w2t and out 16-byte aligned, x_s and o_s multiples of 4. d_out
-// and bm (rows a block) those of an instance (256 and 128, 384 and 64 or
-// 32, 32 and 64), d_in a multiple of its k-slice, d_mid of its chunk, the
-// shared memory within 232,448 bytes (the wrapper's tiled_plan);
+// (w1t[i * d_mid + m], w2t[m * d_out + o]); out contiguous; x, w1t, w2t
+// and out 16-byte aligned, x_s and o_s multiples of 4. d_out and bm (rows a
+// block) those of an instance (256 and 128, 384 and 64 or 32, 128 and 32,
+// 32 and 64), d_in a multiple of its k-slice, d_mid of its chunk,
+// the shared memory within 232,448 bytes (the wrapper's tiled_plan);
 // cudaErrorInvalidValue for the rest.
 extern "C" int lam_fused_mlp_f32_tiled(const void* x, const void* w1t, const void* b1,
                                        const void* w2t, void* out, int rows, int d_in,
@@ -520,5 +523,7 @@ extern "C" int lam_fused_mlp_f32_tiled(const void* x, const void* w1t, const voi
     return static_cast<int>(tiled::launch<tiled::Inst384h>(a, st));
   if (d_out == 32 && bm == 64 && tiled::takes<tiled::Inst32>(d_in, d_mid))
     return static_cast<int>(tiled::launch<tiled::Inst32>(a, st));
+  if (d_out == 128 && bm == 32 && tiled::takes<tiled::Inst128>(d_in, d_mid))
+    return static_cast<int>(tiled::launch<tiled::Inst128>(a, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

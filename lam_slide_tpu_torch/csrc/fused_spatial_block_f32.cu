@@ -17,10 +17,12 @@
 // order, so results agree to a few fp32 ulps, not bit for bit.
 //
 // Two kernels. The outer-product kernel (namespace tiled, below) takes the
-// widths of the 4AA DiT (D 384 at 16 x 24 and 3 x 128, M 768); the
-// dot-product kernel takes the other widths the wrapper's checks accept, as
-// a route. Both sum every output and every mid in the same order, so they
-// agree bit for bit.
+// widths it has instances of: the 4AA DiT's (D 384 at 16 x 24 and 3 x 128,
+// M 768), the NBA DiT's (D 256 at 16 x 16, M 512) and the pedestrian DiT's
+// (D 128 at 4 x 32, M 256); the dot-product kernel takes the other widths
+// the wrapper's checks accept (the smoke and tiny registries'), as a route.
+// Both sum every output and every mid in the same order, so they agree bit
+// for bit.
 //
 // The dot-product kernel (K2-fp32's first machinery): a block of 256
 // threads owns RB = 32 rows, i.e. 32 / L whole frames, and keeps their
@@ -50,10 +52,11 @@
 // What bounds both on the H100: 2 * rows * (D * (3D + M) + (D + M) * D)
 // FLOPs on the FP32 pipes (67 TFLOP/s) against rows * 2D * 4 bytes:
 // operations (0.14 ms at the 4AA eval's [2000, 2, 384], 0.56 at
-// [8000, 2, 384]). The dot-product kernel reads shared memory 16 bytes for 4
-// FFMAs in linear1 (a thread 2 x 2 mids of a 32-column tile); the
-// outer-product kernel 16 bytes for 12 (a thread 4 x 12 outputs or mids),
-// and its weights arrive by bulk copies the threads do not issue.
+// [8000, 2, 384], 2.56 at NBA's [20480, 8, 256]). The dot-product kernel
+// reads shared memory 16 bytes for 4 FFMAs in linear1 (a thread 2 x 2 mids
+// of a 32-column tile); the outer-product kernel 16 bytes for 12 or more
+// (a thread 4 x 12 outputs or mids at 4AA, 8 x 8 at NBA), and its weights
+// arrive by bulk copies that cost the threads no instructions.
 
 #include <stdint.h>
 
@@ -356,60 +359,86 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 // ---------------------------------------------------------------------------
 // The outer-product kernel (namespace tiled; the route of the widths the
-// wrapper's f32_plan gives it: D 384 with head groups of 96 or 128 columns
-// and M a multiple of 384, the 4AA DiT at 16 x 24 and 3 x 128), in the shape
-// of K2-fp32's outer-product kernel (fused_mlp_f32.cu). A block of NT = 256
-// threads owns BM = 32 rows (32 / L whole frames) and keeps their
-// [32, 384] output in registers, a TM x TN2 = 4 x 12 micro-tile a thread;
-// x^T [D][36] stays in shared memory for the whole block. linear1 runs in
-// passes of P columns: a head group's q, k and v columns (P = 3 x group:
-// 288 or 384), then 384 MLP columns at a time. Per pass:
+// wrapper's f32_plan gives it: the instances below, the 4AA DiT's D 384 at
+// head groups of 96 and 128 columns, the NBA DiT's D 256 at head groups of
+// 64 and the pedestrian DiT's D 128 at head groups of 128, each with M a
+// multiple of D), in the shape of K2-fp32's outer-product kernel (fused_mlp_f32.cu). A
+// block of NT threads owns BM rows (BM / L whole frames) and keeps their
+// [BM, D] output in registers, a TM x D / C micro-tile a thread (C column
+// groups); x^T [D][BM + 4] stays in shared memory for the whole block.
+// linear1 runs in passes of P columns: a head group's q, k and v columns
+// (P = 3 x GROUP), then D MLP columns at a time. Per pass:
 // - GEMM1 over k-slices of KS = 32 rows of the pass's [D][P] block of the
 //   w1 stream (the wrapper's pass-ordered copy of w1^T): per row of the
-//   slice, a float4 of x^T and the thread's P / 32 floats of w1^T (float4s,
-//   and a scalar at P = 288) feed 4 P / 32 FFMAs, a 4 x 12 (4 x 9) mid tile;
+//   slice, TM / 4 float4 of x^T and the thread's P / C floats of w1^T
+//   (float4s, and scalars where P / C is not a multiple of 4) feed
+//   TM P / C FFMAs;
 // - + b1 (and the exact GELU for an MLP pass) into the staging tile S^T
-//   [384][36], column-major (a column's 32 rows contiguous);
+//   [max(3 GROUP, D)][BM + 4], column-major (a column's BM rows contiguous);
 // - for a head group, the QK RMS-norm and RoPE (one thread a (row, head,
 //   q|k)) and the L x L attention (one thread a (row, head), the output
 //   over q) in place;
 // - GEMM2: the pass's contribution to every output over m-slices of MS = 32
-//   rows of w2^T (the wrapper's contiguous [D + M, D] copy): per row, a
-//   float4 of S^T and three of w2^T feed 48 FFMAs.
+//   rows of w2^T (the wrapper's contiguous [D + M, D] copy): per row, TM / 4
+//   float4 of S^T and D / 4C of w2^T feed TM D / C FFMAs.
 // Every slice is one contiguous run of the w1 stream or of w2^T, so thread
-// 0 moves it with one bulk copy (cp.async.bulk) into a ring of two 48 KB
-// stages, completing on the stage's mbarrier, the next slice in flight under
-// this one's products; the threads spend no instruction on the copies. One
-// barrier a slice frees the stage for the next copy. Lane layout: a warp's
-// eight neighbouring lanes take eight neighbouring column groups and its
-// four lane octets four neighbouring row groups, so a warp's shared load
-// reads 64 or 128 contiguous bytes. Every output and every mid is one FMA
-// chain in the order of the dot-product kernel above (k in order; linear2's
-// K dimension by head groups, then MLP columns, in order), so the two
+// 0 moves it with one bulk copy (cp.async.bulk) into a ring of two stages
+// of KS x max(3 GROUP, D) floats, completing on the stage's mbarrier, the
+// next slice in flight under this one's products; the threads spend no
+// instruction on the copies. One barrier a slice frees the stage for the
+// next copy. Lane layout: a warp's eight neighbouring lanes take eight
+// neighbouring column groups and its four lane octets four neighbouring row
+// groups, so a warp's shared load reads 64 or 128 contiguous bytes. Every
+// output and every mid is one FMA chain in the order of the dot-product
+// kernel above (k in order; linear2's K dimension by head groups, then MLP
+// columns, in order), whatever the head group and the row block, so the two
 // routes agree bit for bit.
-// Shared memory: x^T and S^T 54 KB each and the ring 96 KB, one block an
-// SM; the 4AA eval's 4,000 rows run 125 blocks on 132 SMs. 16-row blocks
-// (250, each streaming all 4.7 MB of weights) took 0.4092 against 0.3060
-// ms there on an H100. tools/kernel_variants.py K8-fp32 times those, the
-// other layouts (128 threads of 8 x 12, 192 of 8 x 8, 384 of 4 x 8) and
-// rings (16-row slices three and four deep), all slower.
+// 4AA (D 384): x^T and S^T 54 KB each and the ring 96 KB, one block an SM;
+// the eval's 4,000 rows run 125 blocks on 132 SMs. 16-row blocks (250,
+// each streaming all 4.7 MB of weights) took 0.4092 against 0.3060 ms there
+// on an H100. tools/kernel_variants.py K8-fp32 times those, the other
+// layouts and rings (all slower at 4AA) and the pedestrian and NBA
+// instances' alternatives.
 namespace tiled {
 
-constexpr int BM = 32;        // rows a block
-constexpr int LDX = BM + 4;   // x^T and S^T column stride
-constexpr int D = 384;        // the instances' width
-constexpr int PM = 384;       // MLP columns a pass
-constexpr int KS = 32;        // w1^T rows a GEMM1 slice
-constexpr int MS = KS;        // w2^T rows a GEMM2 slice
-constexpr int STAGES = 2;     // ring stages
-constexpr int STAGE = KS * D; // floats a ring stage: a [KS][<= 384] w1^T or a [MS][384] w2^T slice
+constexpr int KS = 32;     // w1^T rows a GEMM1 slice
+constexpr int MS = KS;     // w2^T rows a GEMM2 slice
+constexpr int STAGES = 2;  // ring stages
 constexpr int MAXL = 8;
 
-// the wrapper's f32_tiled_smem_bytes mirrors this: x^T, S^T, the ring and
-// its mbarriers
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * D * LDX + STAGES * STAGE) + 8 * STAGES;
-}
+// D columns, BM rows a block, NT threads of TM rows each, head groups of
+// GROUP columns; MLP passes of D columns.
+template <int D_, int BM_, int NT_, int TM_, int GROUP_>
+struct Inst {
+  static constexpr int D = D_, BM = BM_, NT = NT_, TM = TM_, GROUP = GROUP_;
+  static constexpr int PA = 3 * GROUP, PM = D;         // columns of a pass
+  static constexpr int PS = PA > PM ? PA : PM;         // S^T columns
+  static constexpr int LDX = BM + 4;                   // x^T and S^T column stride
+  static constexpr int STAGE = KS * PS;                // floats a ring stage
+  static constexpr int R = BM / TM, C = NT / R;        // row and column groups
+  static constexpr int TN2 = D / C;                    // output columns a thread
+  static constexpr int NA = PA / C, NM = PM / C;       // mids a thread a row of a pass
+  // the wrapper's f32_tiled_smem_bytes mirrors this: x^T, S^T, the ring and
+  // its mbarriers
+  static constexpr size_t smem =
+      sizeof(float) * (static_cast<size_t>(D + PS) * LDX + STAGES * STAGE) + 8 * STAGES;
+  static_assert(R % 4 == 0 && C % 8 == 0 && TM % 4 == 0 && TN2 % 4 == 0 && PA % C == 0 &&
+                    PM % C == 0 && D % 32 == 0,
+                "lane layout");
+  static_assert(GROUP % MS == 0 && D % GROUP == 0 && D % KS == 0, "slices");
+  static_assert(smem <= 232448, "shared memory");
+};
+
+// the wrapper's F32_TILED_INSTANCES mirrors these: (D, head group) -> rows
+// a block
+// 4AA (D 384, M 768) at 16 x 24 and 3 x 128: 32 rows, 256 threads of 4 x 12.
+using I384g96 = Inst<384, 32, 256, 4, 96>;
+using I384g128 = Inst<384, 32, 256, 4, 128>;
+// NBA (D 256, M 512, 16 x 16): 64 rows, 256 threads of 8 x 8.
+using I256 = Inst<256, 64, 256, 8, 64>;
+// pedestrian (D 128, M 256, 4 x 32): 32 rows, 256 threads of 4 x 4, head
+// groups of 128 (an attention pass of 384 columns, three times D).
+using I128 = Inst<128, 32, 256, 4, 128>;
 
 __device__ __forceinline__ float f4(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -434,7 +463,7 @@ struct Cols {
 };
 
 // mid[i][j] += sum over the slice's KS rows k of x^T[k][TM rg + i] w[k][col j]
-template <int C, int Q, int S, int TM, int TN>
+template <int LDX, int C, int Q, int S, int TM, int TN>
 __device__ __forceinline__ void gemm1_slice(float (&mid)[TM][TN], const float* xt,
                                             const float* w, int cg) {
   using CL = Cols<C, Q, S>;
@@ -462,7 +491,7 @@ __device__ __forceinline__ void gemm1_slice(float (&mid)[TM][TN], const float* x
 
 // mid + b1 (through the exact GELU for an MLP pass) into S^T; `src(c)` is
 // the linear1 column (b1 index) of pass column c
-template <int C, int Q, int S, int TM, int TN, class Src>
+template <int LDX, int C, int Q, int S, int TM, int TN, class Src>
 __device__ __forceinline__ void gemm1_store(const float (&mid)[TM][TN], float* st,
                                             const float* b1, bool gelu, int rg, int cg,
                                             Src src) {
@@ -484,14 +513,15 @@ __device__ __forceinline__ void gemm1_store(const float (&mid)[TM][TN], float* s
   }
 }
 
-// One head group of GROUP columns: q, k, v at S^T columns [0, GROUP),
-// [GROUP, 2 GROUP), [2 GROUP, 3 GROUP); QK RMS-norm and RoPE in place, then
-// the L x L attention, its output over q. The same per-element arithmetic as
-// the dot-product kernel.
-template <int NT, int GROUP>
+// One head group: q, k, v at S^T columns [0, GROUP), [GROUP, 2 GROUP),
+// [2 GROUP, 3 GROUP); QK RMS-norm and RoPE in place, then the L x L
+// attention, its output over q. The same per-element arithmetic as the
+// dot-product kernel.
+template <class I>
 __device__ __forceinline__ void attend(float* st, const TArgs& a, int rows) {
+  constexpr int BM = I::BM, LDX = I::LDX, GROUP = I::GROUP;
   const int tid = threadIdx.x, heads_g = GROUP / a.dh, half = a.dh / 2;
-  for (int task = tid; task < BM * heads_g * 2; task += NT) {
+  for (int task = tid; task < BM * heads_g * 2; task += I::NT) {
     const int r = task % BM, hw = task / BM, h = hw / 2, which = hw % 2;
     if (r >= rows) continue;
     float* v = st + (which * GROUP + h * a.dh) * LDX + r;  // element e at v[e * LDX]
@@ -509,7 +539,7 @@ __device__ __forceinline__ void attend(float* st, const TArgs& a, int rows) {
     }
   }
   __syncthreads();
-  for (int task = tid; task < BM * heads_g; task += NT) {
+  for (int task = tid; task < BM * heads_g; task += I::NT) {
     const int r = task % BM, h = task / BM;
     if (r >= rows) continue;
     const int f0 = r - r % a.l;  // the frame's first row
@@ -538,25 +568,19 @@ __device__ __forceinline__ void attend(float* st, const TArgs& a, int rows) {
   }
 }
 
-// NT threads, TM rows a thread (row groups R = 32 / TM, column groups
-// C = NT / R), head groups of GROUP columns (96 or 128).
-template <int NT, int TM, int GROUP>
-__global__ void __launch_bounds__(NT, 1) spatial_f32_tiled_kernel(const TArgs a) {
-  constexpr int R = BM / TM, C = NT / R;            // row and column groups
-  constexpr int TN2 = D / C;                        // output columns a thread
-  constexpr int PA = 3 * GROUP, NA = PA / C;        // an attention pass
-  constexpr int NM = PM / C;                        // an MLP pass
+template <class I>
+__global__ void __launch_bounds__(I::NT, 1) spatial_f32_tiled_kernel(const TArgs a) {
+  constexpr int D = I::D, BM = I::BM, NT = I::NT, TM = I::TM, GROUP = I::GROUP;
+  constexpr int LDX = I::LDX, STAGE = I::STAGE, C = I::C, TN2 = I::TN2;
+  constexpr int PA = I::PA, PM = I::PM, NA = I::NA, NM = I::NM;
   constexpr int TN = NA > NM ? NA : NM;             // mids a thread a row
   constexpr int G = D / GROUP;                      // head groups
   constexpr int N1 = D / KS;                        // GEMM1 slices a pass
   constexpr int NA2 = GROUP / MS, NM2 = PM / MS;    // GEMM2 slices a pass
-  static_assert(R % 4 == 0 && C % 8 == 0 && TN2 % 4 == 0 && PA % C == 0 && PM % C == 0,
-                "lane layout");
-  static_assert(GROUP % MS == 0 && PA <= D, "slices");
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);  // x^T [D][LDX]
-  float* st = xs + D * LDX;                     // S^T [D][LDX]
-  float* ring = st + D * LDX;                   // [STAGES][STAGE]
+  float* st = xs + D * LDX;                     // S^T [PS][LDX]
+  float* ring = st + I::PS * LDX;               // [STAGES][STAGE]
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);  // [STAGES]
   const int t = threadIdx.x, lane = t % 32, wp = t / 32;
   const int rg = lane / 8 + 4 * (wp / (C / 8)), cg = lane % 8 + 8 * (wp % (C / 8));
@@ -628,19 +652,19 @@ __global__ void __launch_bounds__(NT, 1) spatial_f32_tiled_kernel(const TArgs a)
       }
       const float* xt = xs + s * KS * LDX + TM * rg;
       if (attn)
-        gemm1_slice<C, NA / 4, NA % 4, TM, TN>(mid, xt, w, cg);
+        gemm1_slice<LDX, C, NA / 4, NA % 4, TM, TN>(mid, xt, w, cg);
       else
-        gemm1_slice<C, NM / 4, NM % 4, TM, TN>(mid, xt, w, cg);
+        gemm1_slice<LDX, C, NM / 4, NM % 4, TM, TN>(mid, xt, w, cg);
       if (s == N1 - 1) {
         if (attn) {
-          gemm1_store<C, NA / 4, NA % 4, TM, TN>(mid, st, a.b1, false, rg, cg, [&](int c) {
+          gemm1_store<LDX, C, NA / 4, NA % 4, TM, TN>(mid, st, a.b1, false, rg, cg, [&](int c) {
             return (c / GROUP) * D + pass * GROUP + c % GROUP;
           });
           __syncthreads();  // the group's q, k, v are whole
-          attend<NT, GROUP>(st, a, rows);
+          attend<I>(st, a, rows);
         } else {
-          gemm1_store<C, NM / 4, NM % 4, TM, TN>(mid, st, a.b1, true, rg, cg,
-                                             [&](int c) { return 3 * D + pass * PM + c; });
+          gemm1_store<LDX, C, NM / 4, NM % 4, TM, TN>(
+              mid, st, a.b1, true, rg, cg, [&](int c) { return 3 * D + pass * PM + c; });
         }
       }
     } else {
@@ -680,13 +704,20 @@ __global__ void __launch_bounds__(NT, 1) spatial_f32_tiled_kernel(const TArgs a)
   }
 }
 
-template <int NT, int TM, int GROUP>
-cudaError_t launch(const TArgs& a, cudaStream_t stream) {
-  static cudaError_t attr = lam_set_smem(spatial_f32_tiled_kernel<NT, TM, GROUP>, 232448);
+// Whether instance I takes width d, MLP width m, head group `group` and
+// `bm` rows a block.
+template <class I>
+bool takes(int d, int m, int group, int bm) {
+  return d == I::D && m % I::PM == 0 && group == I::GROUP && bm == I::BM;
+}
+
+template <class I>
+cudaError_t launch(TArgs a, cudaStream_t stream) {
+  static cudaError_t attr = lam_set_smem(spatial_f32_tiled_kernel<I>, 232448);
   if (attr != cudaSuccess) return attr;
+  a.frames = I::BM / a.l;
   const long long blocks = (a.n + a.frames - 1) / a.frames;
-  spatial_f32_tiled_kernel<NT, TM, GROUP>
-      <<<static_cast<unsigned>(blocks), NT, smem_bytes(), stream>>>(a);
+  spatial_f32_tiled_kernel<I><<<static_cast<unsigned>(blocks), I::NT, I::smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -742,32 +773,38 @@ extern "C" int lam_spatial_block_f32(const void* x, const void* w1, const void* 
 
 // As lam_spatial_block_f32, on the outer-product kernel: w1s the w1 stream,
 // linear1's columns in the kernel's passes (each head group's q, k and v
-// columns, then the MLP columns), a pass of P columns a contiguous [D][P]
-// block of w1^T, the passes one after another; w2t the contiguous [D + M, D]
-// copy of w2 (w2t[k * D + o]); out contiguous; x, w1s, w2t and out 16-byte
-// aligned. D 384, M a multiple of 384, an even head dim and `group` 96 or
-// 128 (whole heads; the wrapper's f32_plan); cudaErrorInvalidValue for the
-// rest.
+// columns, then the MLP columns D at a time), a pass of P columns a
+// contiguous [D][P] block of w1^T, the passes one after another; w2t the
+// contiguous [D + M, D] copy of w2 (w2t[k * D + o]); out contiguous; x, w1s,
+// w2t and out 16-byte aligned. (D, group, bm) those of an instance
+// (tiled::I*: the wrapper's f32_plan), M a multiple of D, an even head dim
+// dividing `group`; cudaErrorInvalidValue for the rest.
 extern "C" int lam_spatial_block_f32_tiled(const void* x, const void* w1s, const void* b1,
                                            const void* qs, const void* ks, const void* w2t,
                                            const void* b2, const void* cos, const void* sin,
                                            void* out, long long N, int L, int D, int M, int H,
-                                           float scale, int group, void* stream) {
+                                           float scale, int group, int bm, void* stream) {
   const unsigned long long bits = reinterpret_cast<unsigned long long>(x) |
                                   reinterpret_cast<unsigned long long>(w1s) |
                                   reinterpret_cast<unsigned long long>(w2t) |
                                   reinterpret_cast<unsigned long long>(out);
-  if (N <= 0 || L < 1 || L > tiled::MAXL || D != tiled::D || M <= 0 || M % tiled::PM ||
-      H <= 0 || D % H || (D / H) % 2 || (group != 96 && group != 128) || group % (D / H) ||
-      (bits & 15))
+  if (N <= 0 || L < 1 || L > tiled::MAXL || M <= 0 || H <= 0 || D % H || (D / H) % 2 ||
+      group <= 0 || group % (D / H) || (bits & 15))
     return static_cast<int>(cudaErrorInvalidValue);
   const tiled::TArgs a{static_cast<const float*>(x),   static_cast<const float*>(w1s),
                        static_cast<const float*>(b1),  static_cast<const float*>(qs),
                        static_cast<const float*>(ks),  static_cast<const float*>(w2t),
                        static_cast<const float*>(b2),  static_cast<const float*>(cos),
                        static_cast<const float*>(sin), static_cast<float*>(out),
-                       N, L, M, D / H, tiled::BM / L, scale};
+                       N, L, M, D / H, 0, scale};
   auto st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(group == 96 ? tiled::launch<256, 4, 96>(a, st)
-                                      : tiled::launch<256, 4, 128>(a, st));
+  if (tiled::takes<tiled::I384g96>(D, M, group, bm))
+    return static_cast<int>(tiled::launch<tiled::I384g96>(a, st));
+  if (tiled::takes<tiled::I384g128>(D, M, group, bm))
+    return static_cast<int>(tiled::launch<tiled::I384g128>(a, st));
+  if (tiled::takes<tiled::I256>(D, M, group, bm))
+    return static_cast<int>(tiled::launch<tiled::I256>(a, st));
+  if (tiled::takes<tiled::I128>(D, M, group, bm))
+    return static_cast<int>(tiled::launch<tiled::I128>(a, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

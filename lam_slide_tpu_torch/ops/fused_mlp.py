@@ -130,7 +130,8 @@ def f32_plan(d_in: int, d_out: int) -> Optional[Tuple[int, int]]:
 # d_in rows of a w1^T slice, d_mid rows of a w2^T slice); the slices pass
 # through a ring of TILED_STAGES stages.
 TILED_INSTANCES = {(256, 128): (256, 64, 64, 16), (384, 64): (384, 96, 64, 16),
-                   (384, 32): (192, 96, 64, 32), (32, 64): (128, 64, 32, 64)}
+                   (384, 32): (192, 96, 64, 32), (128, 32): (128, 128, 32, 32),
+                   (32, 64): (128, 64, 32, 64)}
 TILED_STAGES = 3
 H100_SMS = 132
 
@@ -148,9 +149,9 @@ def tiled_plan(d_in: int, d_mid: int, d_out: int, rows: int = 1 << 30,
                sms: int = H100_SMS) -> Optional[Tuple[int, int, int, int]]:
     """The outer-product fp32 kernel's (rows a block, threads, d_mid columns
     a chunk, shared bytes) for ``rows`` rows (by default as many as fill the
-    card) at these widths, or None where
-    it has no instance (d_out not 256, 384 or 32, d_in not a multiple of the
-    instance's k-slice, d_mid not one of its chunk) or its shared memory
+    card) at these widths, or None where it has no instance (d_out not 256,
+    384, 128 or 32, d_in not a multiple of the instance's k-slice, d_mid not
+    one of its chunk) or its shared memory
     would not fit: the dot-product kernel's route then (``f32_plan``). Of
     two instances for one d_out, the smaller row block where the larger
     would leave SMs idle (the 4AA eval's 4,000 rows: 125 blocks of 32 rows,

@@ -29,15 +29,19 @@ linear2 contribution) and then MLP columns, the output in registers, the
 weights streamed through a two-stage ring; ``f32_plan`` picks the
 route from the widths, and where it has none the call raises naming the
 limit:
-- ``lam_spatial_block_f32_tiled``, the outer-product kernel, for D 384 with
-  head groups of 96 or 128 columns and M a multiple of 384 (the 4AA DiT at
-  16 × 24 and 3 × 128): 32-row blocks of 256 threads, x^T resident, a
-  thread a 4 × 12 block of the output and of each linear1 pass; the
-  wrapper's pass-ordered w1 stream (``f32_tiled_passes``) and w2^T copy
-  arrive slice by slice by bulk copies into a two-stage ring;
+- ``lam_spatial_block_f32_tiled``, the outer-product kernel, at the widths
+  it has instances of (``F32_TILED_INSTANCES``) with M a multiple of D: the
+  4AA DiT's D 384 at head groups of 96 or 128 columns (16 × 24, 3 × 128;
+  32-row blocks, a thread a 4 × 12 block of the output), the NBA DiT's D
+  256 (16 × 16; head groups of 64, 64-row blocks, 8 × 8 a thread) and the
+  pedestrian DiT's D 128 (4 × 32; head groups of 128, 32-row blocks, 4 × 4
+  a thread); 256 threads, x^T resident, linear1 in passes of a head group's
+  q, k and v columns or D MLP columns; the wrapper's pass-ordered w1 stream
+  (``f32_tiled_passes``) and w2^T copy arrive slice by slice by bulk copies
+  into a two-stage ring;
 - ``lam_spatial_block_f32``, the first fp32 kernel (a thread 2 × 2 mids of a
-  32-column tile), for the other widths (the smoke and tiny registries, the
-  pedestrian and NBA widths); the two agree bit for bit.
+  32-column tile), for the other widths (the smoke and tiny registries');
+  the two agree bit for bit.
 Under autograd they run inside ``_SpatialBlock`` like the others (the fp32
 stage-2 training of both registries).
 
@@ -131,20 +135,24 @@ def sm90_plan(n: int, l: int, d: int, m: int, n_heads: int) -> Optional[Sm90Plan
 
 # The fp32 kernels' geometry (csrc/fused_spatial_block_f32.cu).
 F32_TILE = 32  # columns of a weight tile of the dot-product kernel
-F32_ROWS = 32  # rows a block of either kernel, of which 32 // l * l are whole frames
+F32_ROWS = 32  # rows a dot-product block, of which 32 // l * l are whole frames
 F32_MAX_GROUP = 128  # columns of a head group, unless one head is wider
-# The outer-product kernel (namespace tiled): D, the columns of an MLP pass
-# and the head groups it has instances of.
-F32_TILED_D = 384
-F32_TILED_MLP = 384
-F32_TILED_GROUPS = (96, 128)
+F32_SLICE = 32  # rows of a weight slice of the outer-product kernel (tiled::KS)
+# The outer-product kernel's instances (namespace tiled, tiled::I*): (D, head
+# group) -> rows a block. Its MLP passes are D columns wide, so it takes M a
+# multiple of D.
+F32_TILED_INSTANCES = {(384, 96): 32, (384, 128): 32, (256, 64): 64, (128, 128): 32}
+# its head group where it is not f32_group's: the most whole heads within
+# this many columns (at NBA's 16 x 16, four heads)
+F32_TILED_MAX_GROUP = {256: 64}
 
 
 class F32Plan(NamedTuple):
     group: int  # columns of a head group: whole heads, a multiple of 4 that divides D
     smem: int  # shared memory of a block, bytes
     route: str  # "tiled" (the outer-product kernel) or "dot" (the first fp32 kernel)
-    blocks: int  # blocks of the call: one a 32 // l frames
+    blocks: int  # blocks of the call: one a rows // l frames
+    rows: int  # rows a block, of which rows // l * l are whole frames
 
 
 def f32_smem_bytes(d: int, group: int) -> int:
@@ -156,36 +164,37 @@ def f32_smem_bytes(d: int, group: int) -> int:
     return 4 * (F32_ROWS * (d + 4) + F32_ROWS * (3 * group + 4) + 2 * stage)
 
 
-def f32_tiled_smem_bytes() -> int:
-    """Shared memory of an outer-product fp32 K8 block (``tiled::smem_bytes``):
-    x^T and the staging tile S^T, ``[384][36]`` each, two ring stages of a
-    ``[32][384]`` slice of w1^T or w2^T, fp32, and an 8-byte mbarrier a
-    stage."""
-    return 4 * (2 * F32_TILED_D * (F32_ROWS + 4) + 2 * 32 * F32_TILED_D) + 8 * 2
+def f32_tiled_smem_bytes(d: int, group: int, rows: int) -> int:
+    """Shared memory of an outer-product fp32 K8 block (``tiled::Inst::smem``):
+    x^T ``[d][rows + 4]``, the staging tile S^T ``[ps][rows + 4]`` with ps
+    the wider pass (a head group's ``3 group`` columns or ``d`` MLP columns),
+    two ring stages of a ``[32][ps]`` slice of the w1 stream or w2^T, fp32,
+    and an 8-byte mbarrier a stage."""
+    ps = max(3 * group, d)
+    return 4 * ((d + ps) * (rows + 4) + 2 * F32_SLICE * ps) + 8 * 2
 
 
-def f32_group(d: int, n_heads: int) -> Optional[int]:
+def f32_group(d: int, n_heads: int, most: int = F32_MAX_GROUP) -> Optional[int]:
     """The fp32 kernels' head group: the most whole heads whose columns are at
-    most F32_MAX_GROUP (one head if a head is wider), a multiple of 4 that
+    most ``most`` (one head if a head is wider), a multiple of 4 that
     divides D; None where no group qualifies."""
     if n_heads <= 0 or d % n_heads:
         return None
     dh = d // n_heads
-    if dh > F32_MAX_GROUP:
+    if dh > most:
         return dh if dh % 4 == 0 else None
     fits = [hg * dh for hg in range(1, n_heads + 1)
-            if n_heads % hg == 0 and hg * dh <= F32_MAX_GROUP and (hg * dh) % 4 == 0]
+            if n_heads % hg == 0 and hg * dh <= most and (hg * dh) % 4 == 0]
     return max(fits, default=None)
 
 
 def f32_tiled_passes(d: int, m: int, group: int) -> list:
     """The outer-product kernel's linear1 passes: the linear1 columns (w1
     rows) of each, every head group's q, k and v columns, then the MLP
-    columns F32_TILED_MLP at a time."""
+    columns d at a time."""
     passes = [[part * d + g * group + c for part in range(3) for c in range(group)]
               for g in range(d // group)]
-    return passes + [list(range(3 * d + p, 3 * d + p + F32_TILED_MLP))
-                     for p in range(0, m, F32_TILED_MLP)]
+    return passes + [list(range(3 * d + p, 3 * d + p + d)) for p in range(0, m, d)]
 
 
 @functools.lru_cache(maxsize=16)
@@ -231,8 +240,10 @@ def f32_plan(n: int, l: int, d: int, m: int, n_heads: int) -> Optional[F32Plan]:
     """The fp32 kernels' geometry for x ``[n, l, d]``, mlp width m and
     n_heads heads, or None where they have none: D and M multiples of 16, an
     even head dim with a head group (``f32_group``). The outer-product
-    kernel where D is 384, M a multiple of 384 and the group 96 or 128
-    columns (at the 4AA eval's 4,000 rows, 125 blocks of 32 rows on the
+    kernel where it has an instance for D and its head group
+    (``F32_TILED_INSTANCES``; at D 256 the group of at most 64 columns) and
+    M is a multiple of D: the 4AA, NBA and pedestrian DiTs'
+    widths (at the 4AA eval's 4,000 rows, 125 blocks of 32 rows on the
     H100's 132 SMs, one block an SM); else the dot-product kernel where its
     shared memory fits SMEM_MAX (D up to 438 at head groups of 128
     columns)."""
@@ -242,12 +253,14 @@ def f32_plan(n: int, l: int, d: int, m: int, n_heads: int) -> Optional[F32Plan]:
     group = f32_group(d, n_heads)
     if group is None:
         return None
-    blocks = -(-n // (F32_ROWS // l))
-    if d == F32_TILED_D and m % F32_TILED_MLP == 0 and group in F32_TILED_GROUPS:
-        return F32Plan(group, f32_tiled_smem_bytes(), "tiled", blocks)
+    tiled = f32_group(d, n_heads, F32_TILED_MAX_GROUP.get(d, F32_MAX_GROUP))
+    if (d, tiled) in F32_TILED_INSTANCES and m % d == 0:
+        rows = F32_TILED_INSTANCES[(d, tiled)]
+        return F32Plan(tiled, f32_tiled_smem_bytes(d, tiled, rows), "tiled",
+                       -(-n // (rows // l)), rows)
     if f32_smem_bytes(d, group) > SMEM_MAX:
         return None
-    return F32Plan(group, f32_smem_bytes(d, group), "dot", blocks)
+    return F32Plan(group, f32_smem_bytes(d, group), "dot", -(-n // (F32_ROWS // l)), F32_ROWS)
 
 
 def reference_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -379,7 +392,7 @@ def _launch(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale) -> to
                               b1.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),
                               w2t.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(),
                               out.data_ptr(), n, l, d, m, n_heads, float(scale), f32.group,
-                              stream)
+                              f32.rows, stream)
                 f32_tiled_launches += 1
             else:
                 _build.launch("lam_spatial_block_f32", *ptrs, *dims, f32.group, stream)

@@ -20,10 +20,16 @@ the wide one at [16, 3, 1000, 128], [1920, 2, 192, 128] and [12288, 2, 30,
 (K9_F32_VARIANTS: without copies in, exponentials, products or stores; on
 two stages and with one row a thread, both checked against the kernel's
 bits; other geometries: heads an item, threads) and at [256,
-127, 256]; K8's fp32 kernel at [8000, 2, 384] and [2000, 2, 384] at 16 x 24
-and at [8000, 2, 384] at 3 x 128 (without most of either GEMM's FMAs,
-without the norm, RoPE and attention, with the first two weight tiles
-loaded and then reused, without the barrier that ends a tile) and K7 with
+127, 256]; K8's fp32 outer-product kernel at the 4AA shapes ([2000, 2,
+384] and [8000, 2, 384] at both head splits, [16000, 2, 384] at 16 x 24),
+NBA's [20480, 8, 256] and the pedestrian's [5120, 2, 128] (without either
+GEMM's products, without the norm, RoPE and attention, with the first
+weight slices loaded and then reused, with one slice barrier, on rings of
+16-row slices, and in other layouts, K8_F32_LAYOUT), in turns with the
+dot-product route at NBA and the pedestrian width; K2's fp32
+outer-product kernel (K2_F32_VARIANTS) at MD17's, the 4AA's and the
+pedestrian's widths, at the last also beside the dot-product route and by
+device time; and K7 with
 the residual at the MD17 protocol batch's [320, 30, 192, 256] and the 4AA
 [8, 1000, 2, 384] (rows walked in h's order instead of x's, one row a warp
 instead of two, without h's loads, without stores); K1's fp32 kernel at dh
@@ -98,8 +104,9 @@ K1_F32_WIDE_VARIANTS = {
 }
 # K2's outer-product fp32 kernel: either GEMM's products, the GELU or the
 # slice copies taken out, a ring of two stages (one slice in flight, not
-# two), and MD17's instance at the other micro-tile (8 x 8 a thread, 512
-# threads, so 128 registers a thread)
+# two), MD17's instance at the other micro-tile (8 x 8 a thread, 512
+# threads, so 128 registers a thread) and the pedestrian's in 64-row blocks
+# of 256 threads (160 blocks at its 10,240 rows, not 320)
 K2_F32_VARIANTS = {
     "kernel": [],
     "no GEMM1 products": [("      for (int k = 0; k < KS; ++k) {",
@@ -112,7 +119,14 @@ K2_F32_VARIANTS = {
     "two stages": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
     "8 x 8 at MD17": [("using Inst256 = Inst<256, 128, 256, 16, 8, 64, 8, 64, 16>;",
                        "using Inst256 = Inst<256, 128, 512, 8, 8, 64, 4, 64, 16>;")],
+    "64-row blocks (256 threads, 4 x 8)": [
+        ("using Inst128 = Inst<128, 32, 128, 4, 8, 128, 8, 32, 32>;",
+         "using Inst128 = Inst<128, 64, 256, 4, 8, 128, 8, 32, 32>;"),
+        ("if (d_out == 128 && bm == 32", "if (d_out == 128 && bm == 64")],
 }
+# the layout variants timed at one d_out alone: d_out -> the rows a block
+# they are called with; the others run at every width in the plan's block
+K2_F32_LAYOUT = {"8 x 8 at MD17": {256: 128}, "64-row blocks (256 threads, 4 x 8)": {128: 64}}
 K2_LOOKUP = "static_cast<uint32_t>(__ldg(table + (in ? k + (h >> 15) * GELU_SPAN : 0u)))"
 K2_VARIANTS = {
     "kernel": [],
@@ -146,21 +160,35 @@ K8_ATTENTION = [("      attention<SB, DH>(a, sm.stg);", "      if (a.R < 0) atte
 # the norm, RoPE and attention, or the slice copies taken out (the first
 # slices loaded, then reused), the barrier at the top of a slice kept only
 # before the first, rings of 16-row slices three and four stages deep in
-# place of two of 32 rows, the other thread layouts: 128 threads of 8 x 12,
-# 192 of 8 x 8 and 384 of 4 x 8 (substituted for 256 of 4 x 12), and blocks
-# of 16 rows (128 threads of 4 x 12: twice the blocks, 250 at the eval's
-# 4,000 rows, each streaming all the weights)
-K8_F32_TILED_256 = ("tiled::launch<256, 4, 96>(a, st)\n"
-                    "                                      : tiled::launch<256, 4, 128>(a, st)")
+# place of two of 32 rows (at every width); at 4AA the other thread
+# layouts: 128 threads of 8 x 12, 192 of 8 x 8 and 384 of 4 x 8
+# (substituted for 256 of 4 x 12), and blocks of 16 rows (128 threads of
+# 4 x 12: twice the blocks, 250 at the eval's 4,000 rows, each streaming all
+# the weights); at NBA (64-row blocks of 256 threads at 8 x 8, head groups
+# of 64) 32-row blocks of 4 x 8, with head groups of 64 or 128, and 512
+# threads of 4 x 8; at the pedestrian width (32-row blocks of 256 threads at
+# 4 x 4, head groups of 128) head groups of 64, 128 threads of 4 x 8 and
+# 64-row blocks of 8 x 4 at head groups of 64 (at 128, 237,584 bytes)
+K8_F32_4AA = ("using I384g96 = Inst<384, 32, 256, 4, 96>;\n"
+              "using I384g128 = Inst<384, 32, 256, 4, 128>;")
+K8_F32_NBA = "using I256 = Inst<256, 64, 256, 8, 64>;"
+K8_F32_PED = "using I128 = Inst<128, 32, 256, 4, 128>;"
 K8_F32_RING = ("constexpr int KS = 32;", "constexpr int STAGES = 2;")
+
+
+def _k8_f32_4aa(threads: int, tm: int, bm: int = 32):
+    return [(K8_F32_4AA, f"using I384g96 = Inst<384, {bm}, {threads}, {tm}, 96>;\n"
+                         f"using I384g128 = Inst<384, {bm}, {threads}, {tm}, 128>;")]
+
+
 K8_F32_VARIANTS = {
     "kernel": [],
     "no GEMM1 products": [("  for (int k = 0; k < KS; ++k) {",
                            "  for (int k = 0; k < (cg < 0 ? KS : 0); ++k) {")],
     "no GEMM2 products": [("      for (int kk = 0; kk < MS; ++kk) {",
                            "      for (int kk = 0; kk < (a.n < 0 ? MS : 0); ++kk) {")],
-    "no norm, RoPE, attention": [("          attend<NT, GROUP>(st, a, rows);",
-                                  "          if (a.n < 0) attend<NT, GROUP>(st, a, rows);")],
+    "no norm, RoPE, attention": [("          attend<I>(st, a, rows);",
+                                  "          if (a.n < 0) attend<I>(st, a, rows);")],
     "weights loaded once": [
         ("    if (t == 0 && u + STAGES - 1 < total) load_slice(u + STAGES - 1);",
          "    if (t == 0 && u + STAGES - 1 < total && u < 1) load_slice(u + STAGES - 1);"),
@@ -172,16 +200,30 @@ K8_F32_VARIANTS = {
                                 (K8_F32_RING[1], "constexpr int STAGES = 3;")],
     "16-row slices, 4 stages": [(K8_F32_RING[0], "constexpr int KS = 16;"),
                                 (K8_F32_RING[1], "constexpr int STAGES = 4;")],
-    "128 threads (8 x 12)": [(K8_F32_TILED_256, "tiled::launch<128, 8, 96>(a, st) : "
-                                                "tiled::launch<128, 8, 128>(a, st)")],
-    "192 threads (8 x 8)": [(K8_F32_TILED_256, "tiled::launch<192, 8, 96>(a, st) : "
-                                               "tiled::launch<192, 8, 128>(a, st)")],
-    "384 threads (4 x 8)": [(K8_F32_TILED_256, "tiled::launch<384, 4, 96>(a, st) : "
-                                               "tiled::launch<384, 4, 128>(a, st)")],
-    "16-row blocks (128 threads, 4 x 12)": [
-        ("constexpr int BM = 32;", "constexpr int BM = 16;"),
-        (K8_F32_TILED_256, "tiled::launch<128, 4, 96>(a, st) : "
-                           "tiled::launch<128, 4, 128>(a, st)")],
+    "128 threads (8 x 12)": _k8_f32_4aa(128, 8),
+    "192 threads (8 x 8)": _k8_f32_4aa(192, 8),
+    "384 threads (4 x 8)": _k8_f32_4aa(384, 4),
+    "16-row blocks (128 threads, 4 x 12)": _k8_f32_4aa(128, 4, 16),
+    "32-row blocks (4 x 8)": [(K8_F32_NBA, "using I256 = Inst<256, 32, 256, 4, 64>;")],
+    "32-row blocks, head groups of 128": [(K8_F32_NBA,
+                                           "using I256 = Inst<256, 32, 256, 4, 128>;")],
+    "512 threads (4 x 8)": [(K8_F32_NBA, "using I256 = Inst<256, 64, 512, 4, 64>;")],
+    "head groups of 64": [(K8_F32_PED, "using I128 = Inst<128, 32, 256, 4, 64>;")],
+    "128 threads (4 x 8)": [(K8_F32_PED, "using I128 = Inst<128, 32, 128, 4, 128>;")],
+    "64-row blocks, head groups of 64 (8 x 4)": [(K8_F32_PED,
+                                                  "using I128 = Inst<128, 64, 256, 8, 64>;")],
+}
+# the layout variants (timed at one width: D -> (head group, rows a block)
+# they are called with); every other variant is timed at every width at the
+# plan's group and block
+K8_F32_LAYOUT = {
+    "128 threads (8 x 12)": {384: None}, "192 threads (8 x 8)": {384: None},
+    "384 threads (4 x 8)": {384: None}, "16-row blocks (128 threads, 4 x 12)": {384: (None, 16)},
+    "32-row blocks (4 x 8)": {256: (64, 32)},
+    "32-row blocks, head groups of 128": {256: (128, 32)},
+    "512 threads (4 x 8)": {256: None},
+    "head groups of 64": {128: (64, 32)}, "128 threads (4 x 8)": {128: None},
+    "64-row blocks, head groups of 64 (8 x 4)": {128: (64, 64)},
 }
 # K1's narrow fp32 kernel (dh <= 64): its S or PV products, its
 # exponentials, its K/V tile copies or its partial outputs' epilogue taken
@@ -453,31 +495,62 @@ def _k8(gen, dev, stream, smi) -> None:
 
 def _k8_f32(gen, dev, stream, smi) -> None:
     """K8's outer-product fp32 kernel at the 4AA eval's shapes (B=2 and B=8)
-    at 16 x 24 and 3 x 128 and the fp32 train step's forward [16000, 2, 384]
-    at 16 x 24, on the w1 stream and the contiguous w2^T copy the wrapper
-    makes."""
-    k8 = _build_variants("fused_spatial_block_f32.cu", "lam_spatial_block_f32_tiled",
-                         K8_F32_VARIANTS)
-    d, m, l = 384, 768, 2
-    w1 = (torch.randn(3 * d + m, d, generator=gen) * d ** -0.5).to(dev)
-    b1 = (torch.randn(3 * d + m, generator=gen) * 0.1).to(dev)
-    w2t = (torch.randn(d + m, d, generator=gen) * (d + m) ** -0.5).to(dev)
-    b2 = (torch.randn(d, generator=gen) * 0.1).to(dev)
-    for n, heads in ((2000, 16), (8000, 16), (2000, 3), (8000, 3), (16000, 16)):
-        dh = d // heads
+    at 16 x 24 and 3 x 128, the fp32 train step's forward [16000, 2, 384]
+    at 16 x 24, and one repeat of the NBA and pedestrian fp32 test passes
+    ([20480, 8, 256] at 16 x 16, [5120, 2, 128] at 4 x 32), on the w1
+    stream and the contiguous w2^T copy the wrapper makes. At NBA and the
+    pedestrian width the dot-product route (the first fp32 kernel, at its
+    head group of 128) runs first and last in the turns, and the kernel and
+    each layout variant are checked bit for bit against it."""
+    k8 = _build_variants("fused_spatial_block_f32.cu",
+                         ("lam_spatial_block_f32_tiled", "lam_spatial_block_f32"), K8_F32_VARIANTS)
+    shapes = ((2000, 2, 384, 16), (8000, 2, 384, 16), (2000, 2, 384, 3), (8000, 2, 384, 3),
+              (16000, 2, 384, 16), (20480, 8, 256, 16), (5120, 2, 128, 4))
+    for n, l, d, heads in shapes:
+        m, dh = 2 * d, d // heads
+        w1 = (torch.randn(3 * d + m, d, generator=gen) * d ** -0.5).to(dev)
+        b1 = (torch.randn(3 * d + m, generator=gen) * 0.1).to(dev)
+        w2 = (torch.randn(d, d + m, generator=gen) * (d + m) ** -0.5).to(dev)
+        w2t = w2.t().contiguous()
+        b2 = (torch.randn(d, generator=gen) * 0.1).to(dev)
         x = torch.randn(n, l, d, generator=gen).to(dev)
-        out = torch.empty_like(x)
         qs, ks = ((1 + 0.2 * torch.randn(dh, generator=gen)).to(dev) for _ in range(2))
         cos, sin = rope_cos_sin(l, dh, device=dev)
         plan = fsb.f32_plan(n, l, d, m, heads)
-        w1s = w1.flatten()[fsb._w1_stream_index(d, m, plan.group, d, dev)]
-        args = (x.data_ptr(), w1s.data_ptr(), b1.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-                w2t.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-                n, l, d, m, heads, dh ** -0.5, plan.group)
-        calls = {name: _checked(fn, (*args, stream)) for name, fn in k8.items()}
-        _in_turns(f"K8-fp32 [{n},{l},{d}] {heads}x{dh} ({plan.blocks} blocks of 32 rows)", calls,
-                  smi)
-        del x, out
+        outs, calls, streams = {}, {}, {}  # streams: head group -> its w1 stream
+
+        def tiled_call(name, group, bm):
+            out = outs[name] = torch.empty_like(x)
+            if group not in streams:
+                streams[group] = w1.flatten()[fsb._w1_stream_index(d, m, group, d, dev)]
+            args = (x.data_ptr(), streams[group].data_ptr(), b1.data_ptr(), qs.data_ptr(),
+                    ks.data_ptr(), w2t.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                    out.data_ptr(), n, l, d, m, heads, dh ** -0.5, group, bm, stream)
+            return _checked(k8[name][0], args)
+
+        if d != 384:
+            out = outs["dot-product route"] = torch.empty_like(x)
+            calls["dot-product route"] = _checked(k8["kernel"][1], (
+                x.data_ptr(), w1.data_ptr(), b1.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+                w2.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), n, l,
+                d, m, heads, d, d + m, dh ** -0.5, fsb.f32_group(d, heads), stream))
+        for name in k8:
+            layout = K8_F32_LAYOUT.get(name, {d: None})
+            if d not in layout:
+                continue
+            group, bm = layout[d] or (None, None)
+            calls[name] = tiled_call(name, group or plan.group, bm or plan.rows)
+        label = f"K8-fp32 [{n},{l},{d}] {heads}x{dh} ({plan.blocks} blocks of {plan.rows} rows)"
+        if d != 384:
+            for name in ("kernel", *(v for v in K8_F32_LAYOUT if d in K8_F32_LAYOUT[v])):
+                calls[name]()
+                calls["dot-product route"]()
+                torch.cuda.synchronize()
+                same = torch.equal(outs[name], outs["dot-product route"])
+                print(f"{label} {name}: bit-identical to the dot-product route: {same}",
+                      flush=True)
+        _in_turns(label, calls, smi)
+        del x, outs, calls, streams
         torch.cuda.empty_cache()
 
 
@@ -712,11 +785,18 @@ def _k1_f32_wide(gen, dev, stream, smi) -> None:
 
 def _k2_f32(gen, dev, stream, smi) -> None:
     """K2's outer-product fp32 kernel at the MD17 test pass's [368640, 256]
-    -> 512 -> 256 and the 4AA eval's [4000, 384] -> 768 -> 384 and sampling
-    [16000, 384], on the contiguous w1^T / w2^T copies the wrapper makes, in
-    its plan's row block; at 4AA also the kernel in the other row block."""
-    k2 = _build_variants("fused_mlp_f32.cu", "lam_fused_mlp_f32_tiled", K2_F32_VARIANTS)
-    for rows, d in ((368640, 256), (4000, 384), (16000, 384)):
+    -> 512 -> 256, the 4AA eval's [4000, 384] -> 768 -> 384 and sampling
+    [16000, 384], and the pedestrian test pass's [10240, 128] -> 256 -> 128,
+    on the contiguous w1^T / w2^T copies the wrapper makes, in its plan's
+    row block (a layout variant in its own, K2_F32_LAYOUT); where the width
+    has another instance, also the kernel in the other row block. At the
+    pedestrian width the dot-product route runs first and last in the
+    turns, the kernel is checked bit for bit against it, and the dot-product
+    route, the kernel and its 64-row layout are also timed by their device
+    time from the profiler, their calls being shorter than 0.1 ms."""
+    k2 = _build_variants("fused_mlp_f32.cu", ("lam_fused_mlp_f32_tiled", "lam_fused_mlp_f32"),
+                         K2_F32_VARIANTS)
+    for rows, d in ((368640, 256), (4000, 384), (16000, 384), (10240, 128)):
         m = 2 * d
         x = torch.randn(rows, d, generator=gen).to(dev)
         w1t = (torch.randn(d, m, generator=gen) * d ** -0.5).to(dev)
@@ -726,12 +806,34 @@ def _k2_f32(gen, dev, stream, smi) -> None:
         bm = fm.tiled_plan(d, m, d, rows)[0]
         args = (x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), out.data_ptr(),
                 rows, d, m, d, x.stride(0), out.stride(0))
-        calls = {name: _checked(fn, (*args, bm, stream)) for name, fn in k2.items()}
-        if d == 384:
-            calls[f"kernel at {96 - bm} rows a block"] = _checked(k2["kernel"],
-                                                                  (*args, 96 - bm, stream))
-        _in_turns(f"K2-fp32 [{rows},{d}] -> {m} -> {d} ({bm} rows a block)", calls, smi)
-        del x, out
+        calls = {}
+        if d == 128:
+            w1r, w2r, dot = w1t.t().contiguous(), w2t.t().contiguous(), torch.empty_like(out)
+            calls["dot-product route"] = _checked(k2["kernel"][1], (
+                x.data_ptr(), w1r.data_ptr(), b1.data_ptr(), w2r.data_ptr(), dot.data_ptr(),
+                rows, d, m, d, x.stride(0), d, m, dot.stride(0), *fm.f32_plan(d, d), stream))
+        for name, fn in k2.items():
+            layout = K2_F32_LAYOUT.get(name, {d: bm})
+            if d in layout:
+                calls[name] = _checked(fn[0], (*args, layout[d], stream))
+        for other in sorted(o for (w, o) in fm.TILED_INSTANCES if w == d and o != bm):
+            calls[f"kernel at {other} rows a block"] = _checked(k2["kernel"][0],
+                                                                (*args, other, stream))
+        label = f"K2-fp32 [{rows},{d}] -> {m} -> {d} ({bm} rows a block)"
+        if d == 128:
+            calls["kernel"]()
+            calls["dot-product route"]()
+            torch.cuda.synchronize()
+            print(f"{label} kernel: bit-identical to the dot-product route: "
+                  f"{torch.equal(out, dot)}", flush=True)
+        _in_turns(label, calls, smi)
+        if d == 128:
+            for name in ("dot-product route", "kernel", *(c for c in calls if "64-row" in c),
+                         "kernel", "dot-product route"):
+                kernel = "mlp_f32_kernel" if name.startswith("dot") else "mlp_f32_tiled_kernel"
+                print(f"{label} {name} (device): "
+                      f"{cs.device_ms(calls[name], kernel, REPS):.4f} ms | {smi}", flush=True)
+        del x, out, calls
         torch.cuda.empty_cache()
 
 

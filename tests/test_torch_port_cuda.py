@@ -1226,15 +1226,16 @@ def _rel_err(got, want):
     (36864, 256, 512, "tiled"), (77, 256, 512, "tiled"), (129, 256, 512, "tiled"),
     (1000, 384, 768, "tiled"), (4000, 384, 768, "tiled"), (16000, 384, 768, "tiled"),
     (33, 32, 64, "tiled"), (4096, 32, 64, "tiled"),
-    (130, 64, 48, "dot"), (16000, 128, 256, "dot"), (77, 256, 496, "dot")])
+    (16000, 128, 256, "tiled"), (10240, 128, 256, "tiled"), (77, 128, 256, "tiled"),
+    (130, 64, 48, "dot"), (16000, 96, 192, "dot"), (77, 256, 496, "dot")])
 def test_fused_mlp_fp32_matches_plain(dev, no_tf32, rows, d, m, route):
     """K2-fp32 on the DiT's transposed nn.Linear weight views (w1 rows of a
     linear1 weight, w2 columns of a linear2 weight): each instance of the
     outer-product kernel (MD17's, the 4AA's at the eval's and the sampling
-    B, the smoke width) with odd row counts, and the dot-product route
-    (hidden 64 and 128, a d_mid off the chunk, which also leaves a partial
-    chunk); the fp32 counter and the route's move, nothing else of K2's
-    routes; two calls give bit-identical outputs."""
+    B, the smoke width, the pedestrian's) with odd row counts, and the
+    dot-product route (hidden 64 and 96, a d_mid off the chunk, which also
+    leaves a partial chunk); the fp32 counter and the route's move, nothing
+    else of K2's routes; two calls give bit-identical outputs."""
     g = _gen(80)
     x = torch.randn(rows, d, generator=g).to(dev)
     lin1 = (torch.randn(3 * d + m, d, generator=g) * d ** -0.5).to(dev)
@@ -1436,6 +1437,9 @@ def test_short_attention_fp32_kernels_at_their_tile_edges(dev, no_tf32, b, n, he
 # exact fp32 on both sides up to the order of the sums (linear1 over D
 # terms, linear2 over D + M) and erff / expf against PyTorch's erf / exp.
 F32_REL_TOL["K8"] = 1e-5
+# K8-fp32 under autograd against the plain path: its output and the grads
+# of the plain VJP on the saved inputs; the limit chip_smoke.py uses
+K8_F32_GRAD_REL_TOL = 1.2e-6
 # the fp32 DiT forward through the kernels against the plain path (TF32
 # off): seven fp32 kernels' sums in another order through two layers
 F32_MODEL_REL_TOL = 1e-4
@@ -1526,6 +1530,76 @@ def test_spatial_block_fp32_tiled_matches_plain_and_the_dot_route(dev, no_tf32, 
     torch.cuda.synchronize()
     assert torch.equal(got, again) and torch.equal(got, dot)
     assert _rel_err(got, want) <= F32_REL_TOL["K8"]
+
+
+def _spatial_f32_dot(args):
+    """K8-fp32's dot-product route launched directly on ``args`` (at its own
+    head group, ``f32_group``)."""
+    x, w1, b1, qs, ks, w2, b2, cos, sin, heads, scale = args
+    n, l, d = x.shape
+    m = w1.shape[0] - 3 * d
+    dot = torch.empty_like(x)
+    _build.launch("lam_spatial_block_f32", *(t.data_ptr() for t in args[:9]), dot.data_ptr(),
+                  n, l, d, m, heads, w1.stride(0), w2.stride(0), scale, fsb.f32_group(d, heads),
+                  torch.cuda.current_stream().cuda_stream)
+    return dot
+
+
+@pytest.mark.parametrize("n,l,d,heads", [
+    (20480, 8, 256, 16),  # the NBA fp32 test pass: 2,560 blocks of 64 rows
+    (7, 8, 256, 16), (9, 8, 256, 16), (17, 8, 256, 16),  # 8 frames a block at L = 8
+    (11, 5, 256, 16), (13, 5, 256, 16), (63, 1, 256, 16), (65, 1, 256, 16),
+    (5120, 2, 128, 4),  # the pedestrian fp32 test pass: 320 blocks of 32 rows
+    (15, 2, 128, 4), (17, 2, 128, 4), (33, 2, 128, 4),  # 16 frames a block at L = 2
+    (9, 3, 128, 4), (11, 3, 128, 4), (3, 8, 128, 4), (5, 8, 128, 4),
+])
+def test_spatial_block_fp32_tiled_at_the_pedestrian_and_nba_widths(dev, no_tf32, n, l, d,
+                                                                     heads):
+    """K8-fp32's outer-product instances at the NBA (D 256, 16 x 16, M 512:
+    head groups of 64, 64-row blocks) and pedestrian (D 128, 4 x 32, M 256:
+    head groups of 128, 32-row blocks) widths, at the test passes' shapes and
+    on both sides of a block's edge: the outer-product counter moves once a
+    call, a second call bit-identical, bit-identical to the dot-product
+    route (at its head group, 128) and within F32_REL_TOL["K8"] of the
+    plain version."""
+    m = 2 * d
+    args = _spatial_inputs_f32(_gen(125), dev, n, l, d, m, heads)
+    plan = fsb.f32_plan(n, l, d, m, heads)
+    assert (plan.route, plan.group, plan.rows) == (("tiled", 64, 64) if d == 256
+                                                   else ("tiled", 128, 32))
+    counters = (fsb.launches, fsb.f32_launches, fsb.f32_tiled_launches, fsb.f32_dot_launches)
+    got = fsb.fused_spatial_block(*args)
+    again = fsb.fused_spatial_block(*args)
+    assert _launched(counters, (fsb.launches, fsb.f32_launches, fsb.f32_tiled_launches,
+                                fsb.f32_dot_launches)) == (2, 2, 2, 0)
+    dot = _spatial_f32_dot(args)
+    want = fsb.reference_spatial_block(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, dot)
+    assert _rel_err(got, want) <= F32_REL_TOL["K8"]
+
+
+def test_spatial_block_fp32_tiled_grads_at_the_nba_width(dev, no_tf32):
+    """One forward + backward through ``_SpatialBlock`` at the NBA width
+    (2,560 frames of [8, 256], 16 x 16): the forward on the outer-product
+    kernel, its output and every input's grad (the plain VJP on the saved
+    inputs) within K8_F32_GRAD_REL_TOL of the plain path's."""
+    n, l, d, m, heads = 2560, 8, 256, 512, 16
+    args = _spatial_inputs_f32(_gen(126), dev, n, l, d, m, heads)
+    grad = torch.randn(n, l, d, generator=_gen(127)).to(dev)
+    outs, grads = {}, {}
+    for kernel in (True, False):
+        leaves = [t.detach().clone().requires_grad_() if i < 7 else t
+                  for i, t in enumerate(args)]
+        before = fsb.f32_tiled_launches
+        out = (fsb.fused_spatial_block if kernel else fsb.reference_spatial_block)(*leaves)
+        assert fsb.f32_tiled_launches - before == kernel
+        out.backward(grad)
+        outs[kernel], grads[kernel] = out.detach(), [t.grad for t in leaves[:7]]
+    torch.cuda.synchronize()
+    assert _rel_err(outs[True], outs[False]) <= K8_F32_GRAD_REL_TOL
+    for got, want in zip(grads[True], grads[False]):
+        assert torch.isfinite(got).all() and _rel_err(got, want) <= K8_F32_GRAD_REL_TOL
 
 
 def test_spatial_block_fp32_tiled_follows_weights_written_in_place(dev, no_tf32):
@@ -2030,7 +2104,8 @@ PED_NBA = {"pedestrian": (256, 128, 4, 2), "nba": (1024, 256, 16, 8)}
 @pytest.mark.parametrize("workload", sorted(PED_NBA))
 def test_spatial_block_at_the_pedestrian_and_nba_widths(dev, no_tf32, workload, dtype):
     """K8 over [B*T, L, D]: in bf16 the Hopper kernel within K8_REL_TOL, in
-    fp32 the dot-product route within F32_REL_TOL["K8"]; a second call
+    fp32 the outer-product route within F32_REL_TOL["K8"] and bit-identical
+    to the dot-product route launched directly; a second call
     bit-identical."""
     b, d, heads, l = PED_NBA[workload]
     args = (_spatial_inputs(_gen(110), dev, b * 20, l, d, 2 * d, heads)
@@ -2041,12 +2116,14 @@ def test_spatial_block_at_the_pedestrian_and_nba_widths(dev, no_tf32, workload, 
     before = [getattr(fsb, n) for n in names]
     got, again = fsb.fused_spatial_block(*args), fsb.fused_spatial_block(*args)
     moved = tuple(getattr(fsb, n) - v for n, v in zip(names, before))
-    assert moved == ((2, 0, 0, 0, 0) if dtype == torch.bfloat16 else (2, 0, 2, 0, 2))
+    assert moved == ((2, 0, 0, 0, 0) if dtype == torch.bfloat16 else (2, 0, 2, 2, 0))
     want = fsb.reference_spatial_block(*args)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape and torch.equal(got, again)
     tol = K8_REL_TOL if dtype == torch.bfloat16 else F32_REL_TOL["K8"]
     assert _rel_err(got, want) <= tol
+    if dtype == torch.float32:
+        assert torch.equal(got, _spatial_f32_dot(args))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -2083,23 +2160,34 @@ def test_short_attention_at_the_pedestrian_and_nba_widths(dev, no_tf32, workload
 
 def test_fused_mlp_fp32_dot_route_at_the_pedestrian_width(dev, no_tf32):
     """K2-fp32 at the pedestrian DiT's MLP branch (B*T*L = 10,240 rows of
-    128 -> 256 -> 128), which has no outer-product instance: the dot-product
-    route within F32_REL_TOL["K2"], a second call bit-identical."""
+    128 -> 256 -> 128) and at a ragged count: the outer-product kernel's
+    d_out 128 instance (32-row blocks of 128 threads) within
+    F32_REL_TOL["K2"], a second call bit-identical, and bit-identical
+    to the dot-product route launched directly on the same inputs (both sum
+    in one order)."""
     g = _gen(112)
-    rows, d, m = 256 * 20 * 2, 128, 256
-    x = torch.randn(rows, d, generator=g).to(dev)
-    lin1 = (torch.randn(3 * d + m, d, generator=g) * d ** -0.5).to(dev)
-    b1 = (torch.randn(m, generator=g) * 0.1).to(dev)
-    lin2 = (torch.randn(d, d + m, generator=g) * (d + m) ** -0.5).to(dev)
-    args = (x, lin1[3 * d:].t(), b1, lin2[:, d:].t())
-    assert fm.tiled_plan(d, m, d, rows) is None
-    before = (fm.fp32_launches, fm.fp32_tiled_launches, fm.fp32_dot_launches)
-    got, again = fm.fused_mlp(*args), fm.fused_mlp(*args)
-    assert _launched(before, (fm.fp32_launches, fm.fp32_tiled_launches,
-                              fm.fp32_dot_launches)) == (2, 0, 2)
-    want = fm.reference_mlp(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(got, again) and _rel_err(got, want) <= F32_REL_TOL["K2"]
+    d, m = 128, 256
+    for rows in (256 * 20 * 2, 10201):
+        x = torch.randn(rows, d, generator=g).to(dev)
+        lin1 = (torch.randn(3 * d + m, d, generator=g) * d ** -0.5).to(dev)
+        b1 = (torch.randn(m, generator=g) * 0.1).to(dev)
+        lin2 = (torch.randn(d, d + m, generator=g) * (d + m) ** -0.5).to(dev)
+        args = (x, lin1[3 * d:].t(), b1, lin2[:, d:].t())
+        assert fm.tiled_plan(d, m, d, rows)[:3] == (32, 128, 128)
+        before = (fm.fp32_launches, fm.fp32_tiled_launches, fm.fp32_dot_launches)
+        got, again = fm.fused_mlp(*args), fm.fused_mlp(*args)
+        assert _launched(before, (fm.fp32_launches, fm.fp32_tiled_launches,
+                                  fm.fp32_dot_launches)) == (2, 2, 0)
+        want = fm.reference_mlp(*args)
+        w1, w2 = args[1], args[3]
+        dot = torch.empty(rows, d, device=dev)
+        _build.launch("lam_fused_mlp_f32", x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                      w2.data_ptr(), dot.data_ptr(), rows, d, m, d, x.stride(0), w1.stride(1),
+                      w2.stride(1), dot.stride(0), *fm.f32_plan(d, d),
+                      torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again) and torch.equal(got, dot)
+        assert _rel_err(got, want) <= F32_REL_TOL["K2"]
 
 
 @pytest.mark.parametrize("workload", sorted(PED_NBA))
@@ -2107,7 +2195,7 @@ def test_pedestrian_and_nba_fp32_dit_forward_matches_plain_path(dev, no_tf32, wo
     """The registry's fp32 test model (the class-conditional DiT of depth 6
     at the workload's width) at B=2 on weights perturbed by N(0, 0.02^2)
     (the reference init makes every block the identity): one forward
-    through K8-fp32 (dot-product route), K9-fp32, K2-fp32 and K7-fp32, per
+    through K8-fp32 (outer-product route), K9-fp32, K2-fp32 and K7-fp32, per
     layer one, one, one and two, and one more K7 (no bf16 kernel), against
     the plain path within F32_MODEL_REL_TOL."""
     from lam_slide_tpu_torch.experiments import registry
@@ -2125,7 +2213,7 @@ def test_pedestrian_and_nba_fp32_dit_forward_matches_plain_path(dev, no_tf32, wo
     mask[:, :8] = 1
     x_cond, t = x * mask[..., None], torch.tensor([0.3, 0.7], device=dev)
     y = torch.tensor([1, 0], device=dev)
-    names = ((fsb, "f32_dot_launches"), (tsa, "fp32_launches"), (fm, "fp32_launches"),
+    names = ((fsb, "f32_tiled_launches"), (tsa, "fp32_launches"), (fm, "fp32_launches"),
              (fad, "fp32_launches"), (fsb, "launches"), (tsa, "launches"), (fm, "launches"),
              (fad, "launches"))
     before = [getattr(mod, n) for mod, n in names]

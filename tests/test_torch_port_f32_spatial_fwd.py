@@ -5,7 +5,10 @@ the CPU.
 at the 4AA DiT's widths (D 384 at 16 x 24 and 3 x 128, M 768): blocks of 32
 rows (32 // L whole frames), x^T resident, linear1 in passes of a head
 group's q, k and v columns (288 or 384) and of 384 MLP columns, a thread a
-4 x 12 block of the output. On the card it is held to
+4 x 12 block of the output; and at the NBA (D 256 at 16 x 16, M 512) and
+pedestrian (D 128 at 4 x 32, M 256) DiTs' widths: head groups of 64 and
+128 columns (attention passes of 192 and 384 columns), MLP passes of D
+columns, blocks of 64 rows (NBA) and 32 rows (pedestrian). On the card it is held to
 ``reference_spatial_block`` (and to the dot-product route, bit for bit);
 here that plain version is held to the JAX kernel (``fused_spatial_block``
 with ``FORCE_KERNEL``, its Pallas kernel in interpret mode) on inputs made
@@ -14,11 +17,14 @@ with numpy from a seed:
 * rows N * L on both sides of the 32-row blocks and of two of them (31/32/
   33, 63/64/65) at every L in 1..8, at 16 x 24 and 3 x 128;
 * the eval's 4,000 rows and the sampling's 16,000 at L = 2;
-* the other composite widths (NBA and pedestrian, the dot-product route)
-  and the tiny registries' widths.
+* the other composite widths (NBA and pedestrian) and the tiny registries'
+  widths (the dot-product route);
+* frames on both sides of the NBA and pedestrian blocks at L = 8 and 2.
 
 Also ``f32_plan`` over every width ``_check`` accepts: the route, the
-group, the shared memory and the blocks, and the 4AA plans at 4,000 rows.
+group, the shared memory and the blocks, the 4AA plans at 4,000 rows and
+the NBA and pedestrian plans at their test passes' rows; and the w1 stream
+at the NBA and pedestrian widths.
 
 Tolerance: fp32 on both sides, so only the order of the sums (and the JAX
 kernel's polynomial erf, 1.5e-7) differs: 2e-5 of the largest output.
@@ -92,14 +98,18 @@ def test_k8_f32_plain_matches_jax_at_the_other_widths(monkeypatch, d, heads, l):
 def test_k8_f32_plan_routes_over_every_width_the_checks_accept():
     """Every D, M multiple of 16 (D up to 1024, M 16 and 2D) and even head
     dim at L 1, 2 and 8: the outer-product route exactly where D is 384, M a
-    multiple of 384 and the head group 96 or 128 columns (then its own
-    shared memory), else the dot-product route where that fits;
-    the blocks hold 32 // L frames each."""
+    multiple of 384 and the head group 96 or 128 columns, or D is 256, M a
+    multiple of 256 and the head dim at most 64 (then head groups of 64,
+    64-row blocks), or D is 128 and M a multiple of 128 (its own shared
+    memory each), else the dot-product route where that fits; the blocks
+    hold rows // L frames each."""
     for d in range(16, 1025, 16):
         for heads in (h for h in range(1, d // 2 + 1) if d % h == 0 and (d // h) % 2 == 0):
-            group = tsb.f32_group(d, heads)
+            group, dh = tsb.f32_group(d, heads), d // heads
             for m in (16, 2 * d):
-                tiled = d == 384 and m % 384 == 0 and group in (96, 128)
+                tiled = ((d == 384 and m % 384 == 0 and group in (96, 128))
+                         or (d == 256 and m % 256 == 0 and dh <= 64)
+                         or (d == 128 and m % 128 == 0))
                 for l in (1, 2, 8):
                     plan = tsb.f32_plan(4000, l, d, m, heads)
                     if plan is None:
@@ -107,8 +117,10 @@ def test_k8_f32_plan_routes_over_every_width_the_checks_accept():
                             not tiled and tsb.f32_smem_bytes(d, group) > SMEM_MAX)
                         continue
                     assert plan.route == ("tiled" if tiled else "dot")
-                    assert plan.smem <= SMEM_MAX and plan.group == group
-                    assert plan.blocks == -(-4000 // (32 // l))
+                    assert plan.smem <= SMEM_MAX
+                    assert plan.group == (64 if tiled and d == 256 else group)
+                    assert plan.rows == (64 if tiled and d == 256 else 32)
+                    assert plan.blocks == -(-4000 // (plan.rows // l))
 
 
 @pytest.mark.parametrize("heads", [16, 3])
@@ -122,10 +134,82 @@ def test_k8_f32_plans_at_the_eval_rows(heads):
     plan = tsb.f32_plan(2000, 2, 384, 768, heads)
     assert plan.route == "tiled"
     assert plan.blocks == 125  # <= the H100's 132 SMs
-    assert plan.smem == 4 * (2 * 384 * 36 + 2 * 32 * 384) + 16 == tsb.f32_tiled_smem_bytes()
+    assert plan.smem == 4 * (2 * 384 * 36 + 2 * 32 * 384) + 16 == tsb.f32_tiled_smem_bytes(
+        384, plan.group, 32)
     assert SMEM_MAX // plan.smem == 1
     assert tsb.f32_plan(8000, 2, 384, 768, heads).blocks == 500
     assert plan.group == (96 if heads == 16 else 128)
+
+
+# (D, heads, M, L, frames of a test pass's repeat) of the NBA and pedestrian
+# DiTs: B*T frames of L latents at the registries' B (1024, 256) and T = 20
+PED_NBA = {"nba": (256, 16, 512, 8, 20480), "pedestrian": (128, 4, 256, 2, 5120)}
+
+
+@pytest.mark.parametrize("workload", sorted(PED_NBA))
+def test_k8_f32_plans_at_the_pedestrian_and_nba_widths(workload):
+    """The NBA and pedestrian widths take the outer-product kernel at any
+    L <= 8 and row count, one block within an H100 block's 227 KB. NBA: head
+    groups of 64 columns (4 heads of 16), x^T and S^T of 256 x 68 floats,
+    stages of 32 x 256, 204,816 bytes. Pedestrian: head groups of 128 (all
+    4 heads of 32), an attention pass of 384 columns, three times D, so S^T
+    and the stages are 384 columns wide, 172,048 bytes. The test pass: 2,560
+    blocks of 64 rows at NBA, 320 of 32 at the pedestrian width."""
+    d, heads, m, l_pass, frames = PED_NBA[workload]
+    group, rows, smem = (64, 64, 204816) if d == 256 else (128, 32, 172048)
+    for l in range(1, 9):
+        for n in (1, 7, 33, frames):
+            plan = tsb.f32_plan(n, l, d, m, heads)
+            assert plan == (group, smem, "tiled", -(-n // (rows // l)), rows), (n, l)
+    assert smem <= SMEM_MAX
+    assert tsb.f32_plan(frames, l_pass, d, m, heads).blocks == (2560 if d == 256 else 320)
+
+
+@pytest.mark.parametrize("workload", sorted(PED_NBA))
+def test_k8_f32_w1_stream_at_the_pedestrian_and_nba_widths(workload):
+    """The outer-product kernel's w1 stream at the NBA and pedestrian widths
+    (attention passes of 192 and 384 columns, three times D at the
+    pedestrian width; MLP passes of D): each w1 row appears in exactly one
+    pass, in pass order (each head group's q, k and v columns, then the MLP
+    columns in order), and each 32-row slice of a pass's [D][P] block is one
+    contiguous run of the stream that holds w1[cols, k0 : k0 + 32]^T, also
+    at a row stride wider than D."""
+    d, heads, m, _, _ = PED_NBA[workload]
+    group = tsb.f32_plan(100, 2, d, m, heads).group
+    passes = tsb.f32_tiled_passes(d, m, group)
+    assert [len(p) for p in passes] == [3 * group] * (d // group) + [d] * (m // d)
+    assert sorted(c for p in passes for c in p) == list(range(3 * d + m))
+    for g in range(d // group):
+        assert passes[g] == [part * d + g * group + c for part in range(3)
+                             for c in range(group)]
+    assert [c for p in passes[d // group:] for c in p] == list(range(3 * d, 3 * d + m))
+    rng = np.random.default_rng(d)
+    for stride in (d, d + 4):
+        w1 = torch.from_numpy(rng.standard_normal((3 * d + m, stride)).astype(np.float32))
+        index = tsb._w1_stream_index(d, m, group, stride, torch.device("cpu"))
+        stream = w1.flatten()[index]
+        assert stream.shape == ((3 * d + m) * d,)
+        off = 0
+        for cols in passes:
+            p = len(cols)
+            for k0 in range(0, d, 32):
+                run = stream[off + k0 * p: off + (k0 + 32) * p].view(32, p)
+                assert torch.equal(run, w1[cols, k0:k0 + 32].t())
+            off += d * p
+        assert off == stream.numel()
+
+
+# (heads, dh, L, frames): frames on both sides of the NBA block (64 rows: 8
+# frames at L = 8, 32 at L = 2) and the pedestrian one (32 rows: 4 frames at
+# L = 8, 16 at L = 2)
+BLOCK_EDGES = [(16, 16, 8, 7), (16, 16, 8, 9), (16, 16, 2, 31), (16, 16, 2, 33),
+               (4, 32, 8, 3), (4, 32, 8, 5), (4, 32, 2, 15), (4, 32, 2, 17)]
+
+
+@pytest.mark.parametrize("heads,dh,l,n", BLOCK_EDGES)
+def test_k8_f32_plain_matches_jax_at_the_pedestrian_and_nba_blocks_edges(monkeypatch, heads,
+                                                                           dh, l, n):
+    _check(monkeypatch, n, l, heads, dh, 2 * heads * dh, seed=7000 + 100 * dh + 10 * l + n)
 
 
 def test_cpu_calls_count_no_launch(monkeypatch):
@@ -148,3 +232,21 @@ def test_cpu_calls_count_no_launch(monkeypatch):
     tsb.fused_spatial_block(*args).sum().backward()
     assert args[0].grad is not None
     assert [getattr(tsb, n) for n in names] == [0] * len(names)
+
+
+@pytest.mark.parametrize("source,table", [("fused_spatial_block_f32.cu", "K8_F32_VARIANTS"),
+                                          ("fused_mlp_f32.cu", "K2_F32_VARIANTS")])
+def test_timing_variants_find_their_text(source, table):
+    """tools/kernel_variants.py builds its K8-fp32 and K2-fp32 variants by
+    text substitutions in the kernel's source: each finds its text the
+    stated number of times (once unless stated), and each layout variant
+    names a variant."""
+    from lam_slide_tpu_torch.ops import _build
+    from lam_slide_tpu_torch.tools import kernel_variants as kv
+
+    text = (_build.CSRC / source).read_text()
+    for name, subs in getattr(kv, table).items():
+        for old, _, *count in subs:
+            assert text.count(old) == (count[0] if count else 1), (name, old)
+    assert set(kv.K8_F32_LAYOUT) <= set(kv.K8_F32_VARIANTS)
+    assert set(kv.K2_F32_LAYOUT) <= set(kv.K2_F32_VARIANTS)

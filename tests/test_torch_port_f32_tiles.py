@@ -7,7 +7,8 @@ tiles, dh zero-padded to 128, two sequences in one block where both axes
 are at most 32. ``csrc/fused_mlp_f32.cu``'s outer-product kernel
 takes K2 in fp32 at the registries' widths: 128-row blocks with d_mid in
 chunks of 64 (256 -> 512 -> 256), 64-row blocks with chunks of 96 (384 ->
-768 -> 384) and 64-row blocks with chunks of 64 (32 -> 64 -> 32). On the
+768 -> 384), 32-row blocks with chunks of 128 (128 -> 256 -> 128) and
+64-row blocks with chunks of 64 (32 -> 64 -> 32). On the
 card each is held to its plain version; here the plain versions are held to
 the JAX kernels (interpret mode, ``FORCE_KERNEL`` for K2) at those tiles'
 edges, on inputs made with numpy from a seed:
@@ -98,9 +99,11 @@ def _mlp_check(monkeypatch, rows, d_in, d_mid, d_out):
     assert np.abs(got.numpy() - want).max() <= MLP_REL_TOL * np.abs(want).max()
 
 
-# rows on both sides of each instance's row block: 128 (d_out 256), 64 (384, 32)
+# rows on both sides of each instance's row block: 128 (d_out 256), 64 (384, 32),
+# 32 (128)
 MLP_ROWS = ([(r, 256, 512, 256) for r in (127, 128, 129)]
             + [(r, 384, 768, 384) for r in (63, 64, 65)]
+            + [(r, 128, 256, 128) for r in (31, 32, 33, 63, 65)]
             + [(r, 32, 64, 32) for r in (1, 63, 64, 65, 129)])
 # d_mid on both sides of each instance's chunk: 64 (256, 32) and 96 (384)
 MLP_MIDS = ([(33, 256, m, 256) for m in (48, 64, 80, 128)]
@@ -118,10 +121,10 @@ def test_k2_fp32_plain_matches_jax_at_the_tiled_kernels_edges(monkeypatch, rows,
 def test_tiled_plan_over_every_width_the_checks_accept(d_out):
     """Every d_in (multiples of 16 up to 1024), d_mid (multiples of 16 up to
     1536) and row count: the outer-product plan exists exactly for d_out 256,
-    384 or 32 with d_in a multiple of the instance's k-slice, d_mid one of
-    its chunk and its shared memory (x^T grows with d_in) within the block's
-    227 KB; at d_out 384 it takes 32-row blocks exactly where 64-row ones
-    would number fewer than the SMs."""
+    384, 128 or 32 with d_in a multiple of the instance's k-slice, d_mid one
+    of its chunk and its shared memory (x^T grows with d_in) within the
+    block's 227 KB; at d_out 384 it takes 32-row blocks exactly where 64-row
+    ones would number fewer than the SMs."""
     sizes = sorted((bm for (o, bm) in tfm.TILED_INSTANCES if o == d_out), reverse=True)
     for rows in (1, 333, 4000, 8384, 8385, 16000, 368640):
         for d_in in range(16, 1025, 16):
@@ -161,17 +164,33 @@ def test_tiled_plans_at_the_registry_widths():
 
 @pytest.mark.parametrize("d_in,d_mid,d_out,route", [
     (256, 512, 256, "tiled"), (384, 768, 384, "tiled"), (32, 64, 32, "tiled"),
-    (16, 32, 16, "dot"), (128, 256, 128, "dot"), (256, 496, 256, "dot"),
-    (480, 960, 256, "dot"), (1024, 2048, 1024, None)])
+    (16, 32, 16, "dot"), (128, 256, 128, "tiled"), (96, 192, 96, "dot"),
+    (256, 496, 256, "dot"), (480, 960, 256, "dot"), (1024, 2048, 1024, None)])
 def test_k2_fp32_routes(d_in, d_mid, d_out, route):
     """The route each width takes on the card: the registries' fp32 widths
-    (MD17, 4AA, the smoke width) the outer-product kernel; the hidden-16 and
-    hidden-128 widths, a d_mid off the chunk and a d_in off the k-slice the
-    dot-product kernel; past both, the check refuses."""
+    (MD17, 4AA, the pedestrian's hidden 128, the smoke width) the
+    outer-product kernel; the hidden-16 and hidden-96 widths, a d_mid off
+    the chunk and a d_in off the k-slice the dot-product kernel; past both,
+    the check refuses."""
     tiled = tfm.tiled_plan(d_in, d_mid, d_out)
     dot = tfm.f32_plan(d_in, d_out)
     got = "tiled" if tiled is not None else "dot" if dot is not None else None
     assert got == route
+
+
+def test_tiled_plans_at_the_pedestrian_width():
+    """The pedestrian DiT's MLP branch (128 -> 256 -> 128): 32-row blocks of
+    128 threads at any row count (x^T [128, 36], three stages of the larger
+    of a 32-row w1^T slice [32, 132] and a 32-row w2^T slice [32, 128], G^T
+    [128, 36]), two blocks an SM: at the test pass's 10,240 rows 320 blocks
+    (64-row blocks of 256 threads, 160 of them with 28 in a second wave, were
+    slower on an H100, tools/kernel_variants.py K2-fp32)."""
+    smem = 4 * (128 * 36 + 3 * 32 * 132 + 128 * 36)
+    for rows in (1, 77, 10240, 368640):
+        assert tfm.tiled_plan(128, 256, 128, rows) == (32, 128, 128, smem)
+    assert smem == 87552 and 2 * smem <= 233472  # two blocks in an SM's 228 KB
+    assert tfm.tiled_plan(128, 248, 128, 10240) is None  # d_mid off the chunk: the dot route
+    assert tfm.tiled_plan(128, 248, 128, 10240) is None  # d_mid off the chunk: the dot route
 
 
 @pytest.mark.parametrize("nq", [1, 20, 30, 31, 32, 33, 63, 64, 65, 130, 192, 1000])

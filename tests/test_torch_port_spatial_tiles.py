@@ -192,13 +192,38 @@ def test_k8_f32_plain_matches_jax(monkeypatch, l, heads, dh):
                            seed=100 * l + dh)
 
 
+def _f32_tiled_rule(d: int, m: int, heads: int):
+    """(head group, rows a block) of the outer-product route at this width,
+    or None where it has no instance: D 384 with M a multiple of 384 and the
+    fp32 group (at most 128 columns) of 96 or 128 columns, 32-row blocks;
+    D 256 with M a multiple of 256 and a head dim of at most 64, head groups
+    of 64 columns and 64-row blocks; D 128 with M a multiple of 128, the fp32
+    group (128 columns at every split) and 32-row blocks."""
+    group, dh = tsb.f32_group(d, heads), d // heads
+    if d == 384 and m % 384 == 0 and group in (96, 128):
+        return group, 32
+    if d == 256 and m % 256 == 0 and dh <= 64:
+        return 64, 64
+    if d == 128 and m % 128 == 0:
+        return group, 32
+    return None
+
+
+def _f32_tiled_smem(d: int, group: int, rows: int) -> int:
+    """x^T [d][rows + 4], S^T [ps][rows + 4] and two ring stages [32][ps],
+    ps the wider pass (3 group or d columns), fp32, and two mbarriers."""
+    ps = max(3 * group, d)
+    return 4 * ((d + ps) * (rows + 4) + 2 * 32 * ps) + 16
+
+
 def test_k8_f32_plan_over_every_width_the_checks_accept():
     """``f32_plan`` over D, M multiples of 16 (D up to 1024) and every even
     head dim: a plan exists exactly where a head group exists and, on the
     dot-product route, shared memory fits; its group holds whole heads, is a
     multiple of 4 dividing D and at most 128 columns unless one head is
-    wider; the outer-product route takes D 384 with M a multiple of 384 and
-    groups of 96 or 128 columns, and the dot-product route the rest."""
+    wider; the outer-product route takes the widths it has instances of
+    (``_f32_tiled_rule``) at their group and block, and the dot-product
+    route the rest at the fp32 group and 32-row blocks."""
     for d in range(16, 1025, 16):
         for heads in (h for h in range(1, d // 2 + 1) if d % h == 0 and (d // h) % 2 == 0):
             dh = d // heads
@@ -206,40 +231,48 @@ def test_k8_f32_plan_over_every_width_the_checks_accept():
                 for l in (1, 3, 8):
                     plan = tsb.f32_plan(1000, l, d, m, heads)
                     group = tsb.f32_group(d, heads)
-                    tiled = (group is not None and d == 384 and m % 384 == 0
-                             and group in (96, 128))
+                    tiled = None if group is None else _f32_tiled_rule(d, m, heads)
                     fits = group is not None and (
-                        tiled or tsb.f32_smem_bytes(d, group) <= SMEM_MAX)
+                        tiled is not None or tsb.f32_smem_bytes(d, group) <= SMEM_MAX)
                     assert (plan is None) == (not fits), (d, heads, m, l)
                     if plan is None:
                         continue
-                    assert plan.group == group
                     assert plan.group % dh == 0 and d % plan.group == 0 and plan.group % 4 == 0
                     assert plan.group <= 128 or plan.group == dh
-                    assert plan.route == ("tiled" if tiled else "dot"), (d, heads, m)
-                    smem = tsb.f32_tiled_smem_bytes() if tiled else tsb.f32_smem_bytes(d, group)
+                    assert plan.route == ("dot" if tiled is None else "tiled"), (d, heads, m)
+                    want_group, rows = (group, 32) if tiled is None else tiled
+                    assert (plan.group, plan.rows) == (want_group, rows)
+                    smem = (tsb.f32_smem_bytes(d, group) if tiled is None
+                            else _f32_tiled_smem(d, *tiled))
                     assert plan.smem == smem <= SMEM_MAX
-                    assert plan.blocks == -(-1000 // (32 // l))
+                    assert plan.blocks == -(-1000 // (rows // l))
 
 
 @pytest.mark.parametrize("l", range(1, 9))
 def test_k8_f32_plans_at_the_checked_widths(l):
     """The 4AA widths at both splits and the other composite and tiny widths
-    the card's checks run have an fp32 plan at every L. The 4AA plans take
-    the outer-product kernel: 32-row blocks, shared memory
-    x^T and S^T of 384 x 36 floats and two ring stages of 32 x 384; the
-    other composite and tiny widths the dot-product kernel, whose 256.0 KB
-    at D 512 do not fit."""
+    the card's checks run have an fp32 plan at every L. The composite widths
+    take the outer-product kernel: at 4AA 32-row blocks, shared memory x^T
+    and S^T of 384 x 36 floats and two ring stages of 32 x 384; at NBA
+    64-row blocks, head groups of 64 and x^T and S^T of 256 x 68 floats with
+    stages of 32 x 256; at the pedestrian width 32-row blocks, head groups
+    of 128 (an attention pass of 384 columns, three times D) and S^T and
+    the stages 384 columns wide. The tiny widths take the dot-product kernel,
+    whose 256.0 KB at D 512 do not fit."""
     for d, heads in COMPOSITE_WIDTHS + TINY_WIDTHS:
         plan = tsb.f32_plan(2000, l, d, 2 * d, heads)
         assert plan is not None, (d, heads)
-        assert plan.route == ("tiled" if d == 384 else "dot"), (d, heads)
+        assert plan.route == ("tiled" if d >= 128 else "dot"), (d, heads)
     blocks = -(-8000 // (32 // l))
     smem = 4 * (2 * 384 * 36 + 2 * 32 * 384) + 16  # and two mbarriers
-    assert tsb.f32_plan(8000, l, 384, 768, 16) == (96, smem, "tiled", blocks)
-    assert tsb.f32_plan(8000, l, 384, 768, 3) == (128, smem, "tiled", blocks)
+    assert tsb.f32_plan(8000, l, 384, 768, 16) == (96, smem, "tiled", blocks, 32)
+    assert tsb.f32_plan(8000, l, 384, 768, 3) == (128, smem, "tiled", blocks, 32)
     assert tsb.f32_plan(8000, l, 256, 512, 16) == (
-        128, 4 * (32 * 260 + 32 * 388 + 2 * 256 * 36), "dot", blocks)
+        64, 4 * (2 * 256 * 68 + 2 * 32 * 256) + 16, "tiled", -(-8000 // (64 // l)), 64)
+    assert tsb.f32_plan(8000, l, 128, 256, 4) == (
+        128, 4 * ((128 + 384) * 36 + 2 * 32 * 384) + 16, "tiled", blocks, 32)
+    assert tsb.f32_plan(8000, l, 256, 512, 2) == (  # dh 128: no instance
+        128, 4 * (32 * 260 + 32 * 388 + 2 * 256 * 36), "dot", blocks, 32)
     assert tsb.f32_plan(8000, l, 512, 1024, 8) is None  # 265 KB
 
 
