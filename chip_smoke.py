@@ -5,8 +5,9 @@ The main paths are the 4AA stage-2 sampler, the 4AA stage-2 train step, the
 MD17 sampling protocol, the MD17 training of both stages, the paths of the
 two ablation kernels (K10, K11), the SDE and likelihood samplers, MD17
 end to end through the port's own loop (its CLI, Trainer, checkpoints and
-run registry) to the fp32 test pass, and the pedestrian and NBA workloads
-through the same loop to their fp32 min-over-K test pass. The
+run registry) to the fp32 test pass, the pedestrian and NBA workloads
+through the same loop to their fp32 min-over-K test pass, and raw MD
+trajectory files through the port's preprocessing into the 4AA loop. The
 4AA paths run the full-width ``LatentDiT`` (depth 7, hidden 384,
 mlp_ratio 2, T=1000 frames, L=2 latents, in_dim 96, bf16) with random
 weights drawn from a seed, at both head splits (16 heads x dh 24 and 3
@@ -20,7 +21,8 @@ printed on its own line with its seconds:
 1. device: needs ``torch.cuda.is_available()``; prints the card's name and
    power limit from nvidia-smi;
 2. build: compiles ``lam_slide_tpu_torch/csrc/*.cu`` with nvcc for sm_90a,
-   one process per source;
+   one process per source, and the native host engine
+   (``lam_slide_tpu_torch/native/*.cc``) with g++;
 3. kernels: each kernel (K1 flash, K2 fused MLP, K3 packed flash, K5 flash
    with QKNorm + RoPE and its transform kernel, K7 residual AdaLN, K8
    spatial block) against its plain PyTorch version at main-path shapes at
@@ -157,6 +159,21 @@ printed on its own line with its seconds:
    bf16 stage-2 step at full width (``stage_checks``: grads against the
    plain path at B=2 within PN_S2_GRAD_REL_TOL, launches, ten steps with a
    falling SI loss, step times of both paths, NBA's step profiled).
+18. trajio: raw MD files of synthetic peptides (``tools/synthetic_md.py``: PDB
+   topologies with hydrogens, XTC / DCD / multi-model PDB trajectories; 8
+   train peptides of 1,100 frames and a held-out one) through the port's
+   ``tools/process_4aa`` (the native XTC codec, built with g++) into
+   ``train.cli`` with ``--data-root`` at full width: hydrogens stripped,
+   each npz the decoded frames after ``superpose_center`` and the written
+   ones within the codec's bound, each state0 PDB parsed; stage 1 (fp32,
+   B=512, three steps, val) and stage 2 (the bf16 DiT of depth 7, hidden
+   384, 16 x 24, T=1000, B=16, three steps, val): return codes, finite
+   metric streams, stage 2's launches of K1/K3, K2, K4, K7 and K8, step
+   times. Then the loaders' host batch on the native batch engine and on
+   the numpy forms (MD17 stage 1 at B=256, MD17 stage 2 at B=64, NBA stage 2
+   at B=1024; median of 5; the batches agree, the engine's counter moves)
+   beside phases 10 and 17's step times, and one smoke sweep
+   (``experiments.sweeps.run_sweep("peptide", smoke=True)``) in-process.
 
 Phase 3 also holds the fp32 backward kernels of fp32 training to their
 plain versions with TF32 off: K9-fp32's backward (csrc/short_attention_f32.cu)
@@ -249,6 +266,7 @@ the script exits non-zero. Run from the repository root:
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -616,6 +634,30 @@ PN_DATA = {"pedestrian": ("synthetic_scenes", 256, 256),
 PN_CMP_ROWS = {"pedestrian": 256, "nba": 256}
 PN_METRIC_REL_TOL = 1.5e-5
 PN_S2_GRAD_REL_TOL = (1.1e-4, 1.5e-2)
+# Phase 18 (trajio): raw MD files of synthetic peptides
+# (lam_slide_tpu_torch/tools/synthetic_md.py: PDB topologies with hydrogens,
+# XTC / DCD / multi-model PDB trajectories by turns) through the port's
+# process_4aa into the 4AA CLI with --data-root: as many train peptides and
+# frames as phase 15's stage 2 (so its T = 1000 windows fill B = 16), and one
+# held-out peptide for val and test.
+TRAJIO_TRAIN, TRAJIO_PRECISION = 8, 1000.0
+TRAJIO_FORMATS = ("xtc", "dcd", "pdb")
+# What each codec keeps of a written coordinate, in nm (XTC: a grid of
+# 1 / precision; PDB: Å to 3 decimals; DCD: float32 Å), each plus 2 float32
+# ulps of the largest coordinate; the processed frames against the written
+# ones after superpose_center within TRAJIO_FIT_FACTOR times that (centering
+# adds the mean error, the fit onto frame 0 carries frame 0's errors: at most
+# 1.9x in tests/test_torch_port_process_4aa.py's readings).
+TRAJIO_CODEC_BOUND = {"xtc": 0.5 / TRAJIO_PRECISION, "pdb": 5e-5, "dcd": 0.0}
+TRAJIO_FIT_FACTOR = 4.0
+# The loaders' host batch (phase 18), engine against numpy: the median of
+# HOST_REPS batches each; floats within HOST_FLOAT_TOL, integers bit for bit
+# (the limits of tests/test_batch_assembly.py:68,79).
+HOST_REPS = 5
+HOST_FLOAT_TOL = 1e-5
+# Kernel-path step times (ms, median) that stage_checks measured, by
+# "<phase> <label>": phase 18 prints the host batch times beside them.
+STEP_MS = {}
 
 def check(ok: bool, msg: str) -> None:
     if not ok:
@@ -4058,6 +4100,7 @@ def stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, smi,
             times[backend].append((time.perf_counter() - t0) * 1e3)
     set_all("auto")
     bsz = next(iter(batch.values())).shape[0]
+    STEP_MS[f"{phase} {label}"] = float(np.median(times["auto"]))
     for backend, name in (("auto", "kernel path"), ("plain", "plain path")):
         med = float(np.median(times[backend]))
         print(f"timing {phase} {label} B={bsz} {name}: step {med:.3f} ms median "
@@ -4808,11 +4851,270 @@ def dit_variants_phase(dev, reset_counts, read_counts):
     return counts
 
 
+def _host_batch(loader, reps=HOST_REPS):
+    """Median ms over ``reps`` of one batch made as the Loader's producer
+    makes it (the dataset's whole-batch path where the Loader takes it, else
+    ``sample`` + the collate), on the first batch's indices and a fresh draw
+    of the same seed each time; -> (ms, the last batch, whole-batch?)."""
+    from lam_slide_tpu_torch.data.loader import _is_canonical_collate
+
+    ds = loader.dataset
+    batched = getattr(ds, "sample_batch", None)
+    if batched is not None and not _is_canonical_collate(loader.collate_fn, ds):
+        batched = None
+    idx = next(loader._batch_indices(np.random.default_rng((loader.seed, 0))))
+    times = []
+    for _ in range(reps):
+        rng = np.random.default_rng((loader.seed, 1))
+        t0 = time.perf_counter()
+        batch = (batched(idx, rng) if batched is not None
+                 else loader.collate_fn([ds.sample(int(i), rng) for i in idx]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), batch, batched is not None
+
+
+def host_batch_times(dev, smi):
+    """Phase 18's loader timing: the host batch of the MD17 stage-1 loader
+    (B=256), the MD17 stage-2 loaders (B=64: the registry's train loader
+    over the 8 molecules, and one molecule's, the val and test loaders'
+    whole-batch path) and the NBA stage-2 loader (B=1024, the registry's
+    64 synthetic games), on the native engine (the default) and on the numpy
+    forms (LAM_SLIDE_NO_NATIVE=1), beside the kernel-path step times of
+    phases 10 and 17. The routes' batches agree (integers bit for bit,
+    floats within HOST_FLOAT_TOL), and the engine's counter moves on the
+    whole-batch loaders."""
+    import functools
+    import os
+
+    from lam_slide_tpu_torch import native
+    from lam_slide_tpu_torch.composites.nba import NBAFirstStageConfig
+    from lam_slide_tpu_torch.data.collate import pad_collate_temporal
+    from lam_slide_tpu_torch.data.loader import Loader
+    from lam_slide_tpu_torch.data.md17 import MD17Dataset
+    from lam_slide_tpu_torch.data.nba import NBADataset
+    from lam_slide_tpu_torch.experiments import registry
+
+    md17_s1 = md17_first_run(dev).train_loader
+    molecules = list(registry.MD17_SCALES)[:-1]
+    train_sets, _ = registry._md17_datasets(False, None, False, molecules, MD17_ATOMS, MD17_T,
+                                            registry.MD17_SCALES,
+                                            synthetic_frames=MD17_FRAMES)
+    collate = functools.partial(pad_collate_temporal, num_entities=MD17_ATOMS)
+    md17_s2 = Loader(registry._ConcatDataset(train_sets), MD17_BATCH, collate, seed=SEED)
+    aspirin = MD17Dataset(molecule="aspirin", mode="test", span=MD17_T, first_stage=False,
+                          num_entities=MD17_ATOMS, scale=registry.MD17_SCALES["aspirin"],
+                          rand_rotation=False, synthetic_frames=MD17_FRAMES)
+    md17_one = Loader(aspirin, MD17_BATCH, collate, seed=SEED)
+    n_nba = NBAFirstStageConfig().num_entities
+
+    def nba_loader():  # the route is fixed when the dataset is built
+        ds = NBADataset(scene="score", flip=True, rand_rotation=True, split="train",
+                        num_entities=n_nba, first_stage=False,
+                        shift=registry.NBA_SHIFT["score"], scale=registry.NBA_SCALE["score"],
+                        synthetic_games=64)
+        return Loader(ds, 1024, functools.partial(pad_collate_temporal, num_entities=n_nba),
+                      seed=SEED)
+
+    cases = [("md17 stage 1", lambda: md17_s1, "md17_train stage 1"),
+             ("md17 stage 2 (8 molecules)", lambda: md17_s2, "md17_train stage 2"),
+             ("md17 stage 2 (aspirin, val/test)", lambda: md17_one, "md17_train stage 2"),
+             ("nba stage 2", nba_loader, "ped_nba_loop nba stage 2")]
+    for label, make, step_key in cases:
+        native.calls = 0
+        ms_engine, got, whole = _host_batch(make())
+        calls = native.calls
+        os.environ["LAM_SLIDE_NO_NATIVE"] = "1"
+        try:
+            ms_numpy, want, _ = _host_batch(make())
+        finally:
+            del os.environ["LAM_SLIDE_NO_NATIVE"]
+        check(set(got) == set(want), f"trajio host batch {label}: keys differ")
+        worst = 0.0
+        for k, w in want.items():
+            g = got[k]
+            check(g.dtype == w.dtype and g.shape == w.shape, f"trajio {label}: {k} differs")
+            if w.dtype.kind == "f":
+                check(np.allclose(g, w, rtol=HOST_FLOAT_TOL, atol=HOST_FLOAT_TOL),
+                      f"trajio {label}: {k} engine vs numpy")
+                worst = max(worst, float(np.abs(g - w).max()))
+            else:
+                check(np.array_equal(g, w), f"trajio {label}: {k} engine vs numpy")
+        check(calls > 0 if whole else calls == 0,
+              f"trajio {label}: {calls} engine calls (whole-batch path: {whole})")
+        bsz = make().batch_size
+        step = STEP_MS.get(step_key)
+        check(step is not None, f"trajio: no step time of {step_key}")
+        print(f"timing trajio host batch {label} B={bsz} "
+              f"({'whole-batch' if whole else 'per sample + collate'}): engine "
+              f"{ms_engine:.3f} ms ({calls} engine calls), numpy {ms_numpy:.3f} ms, median of "
+              f"{HOST_REPS}; max |engine - numpy| {worst:.3e} (tol {HOST_FLOAT_TOL}); the "
+              f"{step_key} kernel-path step {step:.3f} ms | host of {smi}")
+
+
+def trajio_phase(dev, smi, reset_counts, read_counts):
+    """Phase 18: raw MD files through the port's process_4aa into the 4AA CLI
+    at full width, the loaders' host batch on the engine and on numpy, and
+    one smoke sweep. Writes 8 train peptides of PEP_S2_FRAMES frames and one
+    held-out peptide (tools/synthetic_md.py) as XTC, DCD and multi-model PDB
+    trajectories beside PDB topologies with hydrogens; runs
+    ``python -m lam_slide_tpu_torch.tools.process_4aa``'s ``main`` on each
+    split and checks that the hydrogens are gone, that each npz is the
+    decoded frames after ``superpose_center`` (bit for bit) and the written
+    ones within the codec's bound carried through the fit, and that each
+    state0 PDB parses; trains ``train.cli`` stage 1 (fp32, B=512, three
+    steps, val) and stage 2 (the bf16 DiT of depth 7, hidden 384, 16 x 24,
+    T=1000, L=2, B=16, three steps, val) with ``--data-root`` on the
+    processed files: return codes, finite metric streams, stage 2's launches
+    of K1/K3, K2, K4, K7 and K8 (as phase 15 reads them), step times. Then
+    ``host_batch_times`` and ``sweeps.run_sweep("peptide", smoke=True)``
+    in-process."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    from lam_slide_tpu_torch import native
+    from lam_slide_tpu_torch.data.peptide import parse_pdb_topology, superpose_center
+    from lam_slide_tpu_torch.data.trajio import load_traj
+    from lam_slide_tpu_torch.experiments import sweeps
+    from lam_slide_tpu_torch.tools import process_4aa
+    from lam_slide_tpu_torch.tools.synthetic_md import write_raw_peptide
+    from lam_slide_tpu_torch.train.cli import main as cli
+
+    check(native.available(), "trajio: LAM_SLIDE_NO_NATIVE=1 turns off the engine it runs")
+    ws = tempfile.mkdtemp(prefix="trajio_")
+    saved_env = os.environ.get("LAM_SLIDE_NO_DATA_CACHE")
+    os.environ["LAM_SLIDE_NO_DATA_CACHE"] = "1"  # leave no files
+    try:
+        # 1. raw MD files, the three formats by turns
+        t0 = time.perf_counter()
+        sims, root = f"{ws}/sims", f"{ws}/data"
+        splits = {"train": [f"raw{i}" for i in range(TRAJIO_TRAIN)], "val": ["rawval"]}
+        written = {}
+        for i, name in enumerate(splits["train"] + splits["val"]):
+            fmt = TRAJIO_FORMATS[i % len(TRAJIO_FORMATS)]
+            written[name] = (fmt, *write_raw_peptide(sims, name, fmt, PEP_S2_FRAMES,
+                                                     precision=TRAJIO_PRECISION))
+        t1 = time.perf_counter()
+
+        # 2. process_4aa on each split (stride 1); the test split is the val
+        # peptide again, so no loader falls back to synthetic peptides
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            for split, names in splits.items():
+                with open(f"{ws}/{split}.csv", "w") as f:
+                    f.write("name\n" + "".join(f"{n}\n" for n in names))
+                process_4aa.main(["--split", f"{ws}/{split}.csv", "--sim-dir", sims,
+                                  "--outdir", f"{root}/{split}", "--stride", "1"])
+        shutil.copytree(f"{root}/val", f"{root}/test")
+        t2 = time.perf_counter()
+        check(out.getvalue().split() == [w for n in splits["train"] + splits["val"]
+                                         for w in ("done", n)],
+              f"trajio: process_4aa printed {out.getvalue()!r}")
+        worst = {fmt: [0.0, 0.0, 0.0] for fmt in TRAJIO_FORMATS}  # codec, fit, bound
+        for name, (fmt, frames, heavy) in written.items():
+            split = "val" if name in splits["val"] else "train"
+            decoded = load_traj(f"{sims}/{name}/{name}.{fmt}", pdb_unit="nm")
+            npz = np.load(f"{root}/{split}/{name}-traj-arrays.npz")["positions"]
+            residues = parse_pdb_topology(f"{root}/{split}/{name}-traj-state0.pdb")
+            with open(f"{root}/{split}/{name}-traj-state0.pdb") as f:
+                atom_names = [line[12:16].strip() for line in f if line.startswith("ATOM")]
+            bound = TRAJIO_CODEC_BOUND[fmt] + 2 * float(np.spacing(np.abs(frames).max()))
+            codec = float(np.abs(decoded - frames).max())
+            fit = float(np.abs(npz - superpose_center(frames[:, heavy].copy())).max())
+            worst[fmt] = [max(worst[fmt][0], codec), max(worst[fmt][1], fit), bound]
+            check(npz.shape == (PEP_S2_FRAMES, len(heavy), 3) and len(heavy) < frames.shape[1],
+                  f"trajio {name}: npz {npz.shape}, {len(heavy)} of {frames.shape[1]} heavy")
+            check(len(atom_names) == len(heavy) == sum(len(a) for _, a in residues)
+                  and len(residues) == 4
+                  and not any(a.startswith("H") or a[:1].isdigit() for a in atom_names),
+                  f"trajio {name}: state0 holds {atom_names}")
+            check(codec <= bound, f"trajio {name} ({fmt}): codec error {codec} > {bound}")
+            check(np.array_equal(npz, superpose_center(decoded[:, heavy])),
+                  f"trajio {name}: the npz is not the decoded frames after superpose_center")
+            check(fit <= TRAJIO_FIT_FACTOR * bound,
+                  f"trajio {name} ({fmt}): npz vs written frames {fit} > "
+                  f"{TRAJIO_FIT_FACTOR} x {bound}")
+        for fmt, (codec, fit, bound) in worst.items():
+            print(f"trajio {fmt}: decoded vs written max {codec:.3e} nm (bound {bound:.3e}); "
+                  f"npz vs written after superpose_center max {fit:.3e} nm (tol "
+                  f"{TRAJIO_FIT_FACTOR * bound:.3e})")
+        print(f"trajio: {len(written)} raw peptides x {PEP_S2_FRAMES} frames written in "
+              f"{t1 - t0:.2f} s, processed in {t2 - t1:.2f} s (hydrogens stripped, state0 "
+              f"parsed)")
+
+        # 3. the 4AA CLI on the processed files at full width
+        common = ["--workspace", ws, "--data-root", root, "--epochs", "1", "--set",
+                  "val_every_n_epochs=1"]
+        reset_counts()
+        t0 = time.perf_counter()
+        rc1 = cli(["--experiment", "peptide_first_stage", "--run-id", "t1",
+                   "--exp-set", f"repeats={PEP_S1_REPEATS}", *common])
+        torch.cuda.synchronize()
+        s1_counts = read_counts()
+        t1 = time.perf_counter()
+        reset_counts()
+        rc2 = cli(["--experiment", "peptide_second_stage", "--run-id", "t2",
+                   "--first-stage-run", "t1", "--set", "limit_val_batches=1",
+                   "--exp-set", f"repeats={PEP_S2_REPEATS}", *common])
+        torch.cuda.synchronize()
+        s2_counts = read_counts()
+        t2 = time.perf_counter()
+        print(f"trajio: stage 1 {t1 - t0:.2f} s, stage 2 {t2 - t1:.2f} s (datasets from the "
+              f"processed files, steps, val, checkpoints); return codes {rc1} {rc2}")
+        check((rc1, rc2) == (0, 0), f"trajio: CLI return codes {rc1} {rc2}")
+        with open(f"{ws}/runs.json") as f:
+            runs = json.load(f)
+        check(runs["t2"]["config"]["launch"]["data_root"] == root
+              and runs["t2"]["config"]["first_stage_run"] == "t1",
+              "trajio: runs.json does not record the data root or the stage-1 run")
+        for run_id, want_steps in (("t1", 3), ("t2", 3)):
+            with open(f"{ws}/{run_id}/metrics.jsonl") as f:
+                records = [json.loads(line) for line in f]
+            check([r["split"] for r in records] == ["train", "val/val"],
+                  f"trajio {run_id} metrics.jsonl splits {[r['split'] for r in records]}")
+            check(all(math.isfinite(v) for r in records for v in r.values()
+                      if isinstance(v, float)), f"trajio {run_id}: a non-finite metric")
+            train = records[0]
+            print(f"timing trajio {run_id}: {train['time_s']} s an epoch, step_ms "
+                  f"{train['step_ms']} (the epoch over its steps, set-up included) | {smi}")
+            print(f"trajio {run_id} records: {records}")
+        bf16 = {k: s2_counts[k] - s2_counts.get(f"{k} fp32", 0) for k in ("K1", "K2", "K7", "K8")}
+        print(f"trajio: stage-1 launches {s1_counts}; stage-2 launches {s2_counts}")
+        check(all(v > 0 for v in bf16.values()) and s2_counts["K4 sm90"] > 0
+              and s2_counts["K8 fp32"] == 0,
+              f"trajio: a bf16 kernel or K4 did not launch in stage 2: {s2_counts}")
+        torch.cuda.empty_cache()
+
+        # 4. the loaders' host batch, engine against numpy
+        host_batch_times(dev, smi)
+
+        # 5. one smoke sweep through run_sweep, in-process on the card
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_ids = sweeps.run_sweep("peptide", workspace=f"{ws}/sweep", smoke=True)
+        check(len(run_ids) == len(sweeps.SWEEPS["peptide"]), f"trajio sweep: {run_ids}")
+        with open(f"{ws}/sweep/{run_ids[0]}/metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        check(records and all(math.isfinite(v) for r in records for v in r.values()
+                              if isinstance(v, float)), "trajio sweep: a non-finite metric")
+        print(f"trajio: sweep peptide --smoke (peptide_second_stage) run {run_ids[0]} in "
+              f"{time.perf_counter() - t0:.2f} s, {len(records)} records, last {records[-1]}")
+    finally:
+        if saved_env is None:
+            os.environ.pop("LAM_SLIDE_NO_DATA_CACHE", None)
+        else:
+            os.environ["LAM_SLIDE_NO_DATA_CACHE"] = saved_env
+        shutil.rmtree(ws, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
               file=sys.stderr)
         return 1
+    from lam_slide_tpu_torch import native
     from lam_slide_tpu_torch.models import LatentDiT
     from lam_slide_tpu_torch.ops import _build
     from lam_slide_tpu_torch.ops import flash_attention as fa
@@ -4886,6 +5188,12 @@ def main() -> int:
     _build.load_library()
     print(f"build: {lib.relative_to(_build.BUILD_ROOT.parent.parent)} "
           f"in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    engine = native.build()
+    native.lib()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
+    print(f"build: native engine {os.path.relpath(engine, _build.BUILD_ROOT.parent.parent)} "
+          f"({gxx.splitlines()[0]}) in {time.perf_counter() - t0:.2f} s")
     phase_done("build")
 
     # 3. kernels vs plain at main-path shapes; the backward checks draw from
@@ -5083,6 +5391,11 @@ def main() -> int:
     # clustering), at full width
     ped_nba_loop_phase(dev, smi, reset_counts, read_counts)
     phase_done("ped_nba_loop")
+
+    # 18. raw MD files through process_4aa into the 4AA CLI, the loaders'
+    # host batch on the native engine and on numpy, one smoke sweep
+    trajio_phase(dev, smi, reset_counts, read_counts)
+    phase_done("trajio")
 
     sources = {
         "K1": ("flash_attention_fwd", "flash_fwd_sm90.cu", "flash_attention.py:37"),

@@ -2,8 +2,8 @@
 ``lam_slide_tpu/data/augment.py`` (numpy port of the reference's
 src/utils/data_utils.py): the rotations of the MD17 train set, the Haar
 rotation and centre/rotate/translate of the peptide sets, the 2D rotation
-of the pedestrian and NBA sets, the rotation about the centroid and the
-range remap.
+of the pedestrian and NBA sets, the rotation about the centroid, the range
+remap and the element classes of a parsed topology.
 """
 
 import numpy as np
@@ -81,3 +81,18 @@ def rotate_about_center(points: np.ndarray, rot: np.ndarray) -> np.ndarray:
 def scale_to_new_range(x, old_min=-0.5, old_max=0.5, new_min=0.1, new_max=0.9):
     """Affine range remap (data_utils.py:99-100; occupancy-grid tooling)."""
     return (x - old_min) * (new_max - new_min) / (old_max - old_min) + new_min
+
+
+def encode_atoms(residues, encoding=None) -> np.ndarray:
+    """Element-class ids for a parsed topology (data_utils.py:87-89, with the
+    mdtraj Trajectory replaced by peptide.parse_pdb_topology residues:
+    [(resname, [atom names])]; element = leading letter of the atom name)."""
+    from lam_slide_tpu_torch.data.constants import ATOM_ENCODING
+
+    encoding = ATOM_ENCODING if encoding is None else encoding
+    out = []
+    for _, names in residues:
+        for name in names:
+            element = next((c for c in name if c.isalpha()), "C")
+            out.append(encoding[element])
+    return np.asarray(out, np.int64)

@@ -24,6 +24,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from lam_slide_tpu_torch import native
 from lam_slide_tpu_torch.data import batch_assembly as ba
 from lam_slide_tpu_torch.data.augment import (random_rotation_matrices,
                                               random_rotation_matrix, rotate)
@@ -157,7 +158,9 @@ class MD17Dataset(Dataset):
                 f"{self.molecule} has {self.n_atoms} atoms > num_entities {self.num_entities}"
             )
         if not self.first_stage:
-            # whole-batch fast path picked up by the Loader (batch_assembly)
+            # whole-batch fast path picked up by the Loader (batch_assembly);
+            # contiguous copy: the split/downsample slicing leaves a strided
+            # view, and the native engine reads raw pointers
             self.x = np.ascontiguousarray(self.x, np.float32)
             self.sample_batch = self._sample_batch_temporal
 
@@ -204,7 +207,13 @@ class MD17Dataset(Dataset):
         t, n, n_pad = self.span, self.n_atoms, self.num_entities
         starts = idxs * self._interval
         n_real = np.full((b,), n, np.int64)
-        pos = ba.gather_pad_f32([self.x] * b, starts, t, n_pad)
+        if native.available():  # one shared source buffer -> one pointer
+            pos = ba.gather_pad_f32(
+                None, starts, t, n_pad, n_src=n_real, c=3,
+                src_ptrs=np.full((b,), self.x.ctypes.data, np.uintp),
+            )
+        else:
+            pos = ba.gather_pad_f32([self.x] * b, starts, t, n_pad)
         ba.center_frame0(pos, n_real)  # md17.py:103, before normalization
         rots = None
         if self.rand_rotation:

@@ -7,9 +7,10 @@ SocialVAE split, sliding windows of ``num_frames`` via cumulative sizes +
 bisect (nba.py:129-143), team-flip + 2D rotation/translation augmentation
 (nba.py:97-107). Stage 1 draws a random frame from a random game; stage 2
 returns windows. Synthetic fallback: ball + 2×5 players with attracted
-motion around a moving play focus. The whole-batch stage-2 path takes the
-numpy forms of the batch-assembly primitives (the JAX package's C++ engine
-waits for its own slice of the port), as ``MD17Dataset`` does.
+motion around a moving play focus. The whole-batch stage-2 path assembles
+its batches in the port's C++ engine (``lam_slide_tpu_torch/native``, with
+base-pointer tables over the games), or in the numpy forms when
+``LAM_SLIDE_NO_NATIVE=1``, as ``MD17Dataset`` does.
 """
 
 import os
@@ -20,6 +21,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from lam_slide_tpu_torch import native
 from lam_slide_tpu_torch.data import batch_assembly as ba
 from lam_slide_tpu_torch.data.augment import random_rotation_matrix_2d, rotate
 from lam_slide_tpu_torch.data.loader import Dataset
@@ -148,6 +150,14 @@ class NBADataset(Dataset):
             # per-sample numpy + stack
             self._cum = np.asarray(self.cumulative_sizes, np.int64)
             self._game_n = np.asarray([g["pos"].shape[1] for g in self.games], np.int64)
+            if native.available():  # base-pointer tables (games stay alive)
+                self._ptrs = {
+                    "pos": ba.source_pointers([g["pos"] for g in self.games], np.float32),
+                    **{k: ba.source_pointers([g[k] for g in self.games], np.int64)
+                       for k in ("team", "group", "agent_id")},
+                }
+            else:
+                self._ptrs = None
             self.sample_batch = self._sample_batch_temporal
 
     def __len__(self) -> int:
@@ -208,10 +218,19 @@ class NBADataset(Dataset):
         gi = np.searchsorted(self._cum, idxs, side="right") - 1
         starts = idxs - self._cum[gi]
         n_real = self._game_n[gi]
-        games = [self.games[g] for g in gi]
-        pos = ba.gather_pad_f32([g["pos"] for g in games], starts, t, n_pad)
-        team, group, agent_id = (ba.gather_pad_i64([g[k] for g in games], starts, t, n_pad)
-                                 for k in ("team", "group", "agent_id"))
+        if self._ptrs is not None:
+            pos = ba.gather_pad_f32(None, starts, t, n_pad, src_ptrs=self._ptrs["pos"][gi],
+                                    n_src=n_real, c=2)
+            team, group, agent_id = (
+                ba.gather_pad_i64(None, starts, t, n_pad, src_ptrs=self._ptrs[k][gi],
+                                  n_src=n_real)
+                for k in ("team", "group", "agent_id"))
+        else:
+            games = [self.games[g] for g in gi]
+            pos = ba.gather_pad_f32([g["pos"] for g in games], starts, t, n_pad)
+            team, group, agent_id = (
+                ba.gather_pad_i64([g[k] for g in games], starts, t, n_pad)
+                for k in ("team", "group", "agent_id"))
 
         if self.flip:
             ba.team_flip(team, rng.random(b) < 0.5)

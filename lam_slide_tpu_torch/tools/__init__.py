@@ -1,1 +1,3 @@
-"""Measurement scripts of the port, run on a CUDA card."""
+"""Tools of the port: measurement scripts run on a CUDA card, the 4AA
+preprocessing of raw MD files (``process_4aa``) and raw MD files of
+synthetic peptides (``synthetic_md``)."""

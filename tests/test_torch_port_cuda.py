@@ -2226,3 +2226,40 @@ def test_pedestrian_and_nba_fp32_dit_forward_matches_plain_path(dev, no_tf32, wo
     assert moved == (6, 6, 6, 13) * 2
     assert bool(torch.isfinite(got).all()) and want.abs().max().item() > 0
     assert _rel_err(got, want) <= F32_MODEL_REL_TOL
+
+
+@pytest.mark.parametrize("workload", ["md17", "nba"])
+def test_engine_batches_land_on_the_card_as_the_numpy_route(dev, monkeypatch, workload):
+    """The stage-2 whole-batch path on the native engine (the default) and on
+    the numpy forms (LAM_SLIDE_NO_NATIVE=1), at one seed, through
+    device_batch: integers and masks bit for bit, floats within 1e-5
+    (tests/test_batch_assembly.py:68,79; the engine sums in another order)."""
+    import numpy as np
+
+    from lam_slide_tpu_torch import native
+    from lam_slide_tpu_torch.data.md17 import MD17Dataset
+    from lam_slide_tpu_torch.data.nba import NBADataset
+
+    def batch():
+        if workload == "md17":
+            ds = MD17Dataset(molecule="aspirin", mode="train", first_stage=False, span=30,
+                             num_entities=32, synthetic_frames=4000, scale=2.0)
+        else:
+            ds = NBADataset(scene="score", first_stage=False, flip=True, rand_rotation=True,
+                            num_entities=11, shift=47.5787, scale=24.7269, synthetic_games=8)
+        idx = np.arange(64)
+        return device_batch(ds.sample_batch(idx, np.random.default_rng(0)), dev)
+
+    calls = native.calls
+    got = batch()
+    assert native.calls > calls
+    monkeypatch.setenv("LAM_SLIDE_NO_NATIVE", "1")
+    want = batch()
+    assert set(got) == set(want)
+    for k, w in want.items():
+        g = got[k]
+        assert g.device.type == "cuda" and g.dtype == w.dtype and g.shape == w.shape, k
+        if w.is_floating_point():
+            assert torch.allclose(g, w, rtol=1e-5, atol=1e-5), k
+        else:
+            assert torch.equal(g, w), k

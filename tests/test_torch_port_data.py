@@ -2,10 +2,11 @@
 
 ``lam_slide_tpu_torch.data`` (``MD17Dataset``, the collates, ``Loader``) and
 the registry's loaders must give the JAX package's batches for the same seed,
-bit for bit: the same numpy code on the same draws. The JAX package can also
+bit for bit: the same numpy code on the same draws. Both packages also
 assemble stage-2 batches in a C++ engine whose float sums may round
-differently; the port copies the numpy path, so the JAX side runs with that
-engine off.
+differently from numpy's; here both run their numpy forms (the engines are
+held to each other and to the numpy forms in
+``tests/test_torch_port_native_engine.py``).
 """
 
 import threading
@@ -30,6 +31,7 @@ from lam_slide_tpu_torch.experiments import registry as treg
 def numpy_batch_assembly(monkeypatch):
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_tried", True)
+    monkeypatch.setenv("LAM_SLIDE_NO_NATIVE", "1")  # the port's numpy forms too
 
 
 def _assert_same(got, want):

@@ -61,6 +61,7 @@ def numpy_batch_assembly(monkeypatch):
     the port copies (its C++ engine sums in another order)."""
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_tried", True)
+    monkeypatch.setenv("LAM_SLIDE_NO_NATIVE", "1")  # the port's numpy forms too
 
 
 def _assert_same(got, want):

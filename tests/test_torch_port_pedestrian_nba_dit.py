@@ -68,6 +68,7 @@ WORKLOADS = {
 def numpy_batch_assembly(monkeypatch):
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_tried", True)
+    monkeypatch.setenv("LAM_SLIDE_NO_NATIVE", "1")  # the port's numpy forms too
 
 
 def _close(got, want, tol, name=""):

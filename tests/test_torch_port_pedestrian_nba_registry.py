@@ -24,6 +24,7 @@ from lam_slide_tpu_torch.experiments import registry as treg
 def numpy_batch_assembly(monkeypatch):
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(native, "_tried", True)
+    monkeypatch.setenv("LAM_SLIDE_NO_NATIVE", "1")  # the port's numpy forms too
 
 
 def _assert_same(got, want):
