@@ -6,8 +6,11 @@ MD17 sampling protocol, the MD17 training of both stages, the paths of the
 two ablation kernels (K10, K11), the SDE and likelihood samplers, MD17
 end to end through the port's own loop (its CLI, Trainer, checkpoints and
 run registry) to the fp32 test pass, the pedestrian and NBA workloads
-through the same loop to their fp32 min-over-K test pass, and raw MD
-trajectory files through the port's preprocessing into the 4AA loop. The
+through the same loop to their fp32 min-over-K test pass, raw MD
+trajectory files through the port's preprocessing into the 4AA loop, and
+the port's parallel/ (the data-parallel and FSDP2 train steps on a
+one-rank NCCL group, ring attention over chunks on the card, the sampling
+hook). The
 4AA paths run the full-width ``LatentDiT`` (depth 7, hidden 384,
 mlp_ratio 2, T=1000 frames, L=2 latents, in_dim 96, bf16) with random
 weights drawn from a seed, at both head splits (16 heads x dh 24 and 3
@@ -174,6 +177,26 @@ printed on its own line with its seconds:
    at B=1024; median of 5; the batches agree, the engine's counter moves)
    beside phases 10 and 17's step times, and one smoke sweep
    (``experiments.sweeps.run_sweep("peptide", smoke=True)``) in-process.
+19. parallel: the port's parallel/ on the one card. (i) An NCCL process
+   group of world size 1 and its mesh; the 4AA stage-2 B=16 train step of
+   phase 7 at both head splits under the data-parallel step (its batch a
+   ``LocalBatch`` whose rows are the whole batch, its draws made for those
+   rows, its grads all-reduced once over the one-rank group) and under
+   FSDP2's ``fully_shard`` (DiT layers and root; its grads reduce-scattered
+   by FSDP2), each from the unwrapped step's starting weights, batch and
+   seed: the loss equal within PAR_LOSS_REL_TOL, each updated parameter's
+   move within PAR_MOVED_REL_TOL of the unwrapped step's, the launches of
+   every kernel the unwrapped step's, one grad all-reduce in the DP step
+   and none in the others, and every draw of the wrapped steps made under
+   a LocalBatch's rows. (ii) Ring attention
+   as a ring of P=4 chunks in one process (two NCCL ranks cannot share the
+   card) at [2,16,1000,24] and [2,3,1000,128] bf16: forward and the grads
+   of q, k, v against one K1 + K4 call on the whole sequence
+   (PAR_RING_REL_TOL), K1 P*P times forward and K4 P*P times backward,
+   with both paths' times. (iii) ``analysis.callbacks.make_peptide_sampling_hook``
+   once (figures off) on phase 15's trained 4AA stage-2 run (its
+   checkpoint's weights and EMA, its val peptides): every peptide sampled
+   (the hook prints none as failed), finite JSD summary, its launches.
 
 Phase 3 also holds the fp32 backward kernels of fp32 training to their
 plain versions with TF32 off: K9-fp32's backward (csrc/short_attention_f32.cu)
@@ -264,6 +287,8 @@ the script exits non-zero. Run from the repository root:
     python3 chip_smoke.py
 """
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -653,6 +678,18 @@ TRAJIO_FIT_FACTOR = 4.0
 # The loaders' host batch (phase 18), engine against numpy: the median of
 # HOST_REPS batches each; floats within HOST_FLOAT_TOL, integers bit for bit
 # (the limits of tests/test_batch_assembly.py:68,79).
+# phase 19: the wrapped steps take the unwrapped step's loss (the forward
+# is the same computation) and move each parameter as it does; the bf16
+# backward sums dQ in a varying order, so updates are held to their move:
+# on an H100 at 700 W the unwrapped step repeated read up to 4.07e-3 of a
+# tensor's move, the wrapped ones 4.66e-3
+PAR_LOSS_REL_TOL = 1e-6
+PAR_MOVED_REL_TOL = 2e-2
+PAR_RING_CHUNKS = 4
+PAR_RING_SHAPES = ((2, 16, 1000, 24), (2, 3, 1000, 128))
+# the ring merges the chunks' bf16 outputs (and sums their bf16 grads) in
+# fp32: a few bf16 ulps against one K1 + K4 call, as a norm ratio
+PAR_RING_REL_TOL = 1e-2
 HOST_REPS = 5
 HOST_FLOAT_TOL = 1e-5
 # Kernel-path step times (ms, median) that stage_checks measured, by
@@ -3705,7 +3742,8 @@ def peptide_loop_phase(dev, smi, reset_counts, read_counts):
     step and one fp32 Euler-10 window, kernel path against plain (TF32 off),
     on perturbed weights (``perturb_``). Prints the step times, each eval window's dopri5
     steps and solve time, the eval's wall time, and a profile of the fp32
-    window. Returns the eval's launches."""
+    window. Returns the eval's launches at both splits and, for phase 19,
+    the 16 x 24 stage-2 run (registry run and best checkpoint)."""
     import contextlib
     import io
     import os
@@ -3862,6 +3900,7 @@ def peptide_loop_phase(dev, smi, reset_counts, read_counts):
                                             synthetic_peptides=2, synthetic_frames=PEP_S2_FRAMES,
                                             device=dev)
         raw = registry.load_checkpoint_raw(f"{ws}/p2", "best")
+        pep_state = (exp, raw)  # phase 19's sampling hook runs on this run
         ss = exp.test_model
         ss.backbone.load_state_dict(tree_to_f32({**raw["params"], **raw["ema_params"]}))
         ss.backbone.eval()
@@ -3986,7 +4025,7 @@ def peptide_loop_phase(dev, smi, reset_counts, read_counts):
         else:
             os.environ["LAM_SLIDE_NO_DATA_CACHE"] = saved_env
         shutil.rmtree(ws, ignore_errors=True)
-    return eval_counts, wide_eval
+    return eval_counts, wide_eval, pep_state
 
 
 def stage_checks(label, run, batch, grad_batch, want, plain_modules, dev, smi,
@@ -4474,7 +4513,7 @@ def train_batch(batch: int, dev, transport, fixed_draws: bool, seed: int):
     return out
 
 
-def train_state(make_model, heads, backend="auto"):
+def train_state(make_model, heads, backend="auto", mesh=None):
     from lam_slide_tpu_torch.train import create_train_state, make_train_step
     from lam_slide_tpu_torch.train.trainer import TrainerConfig, make_optimizer
     from lam_slide_tpu_torch.transport import create_transport
@@ -4483,7 +4522,7 @@ def train_state(make_model, heads, backend="auto"):
     tx, _ = make_optimizer(cfg, 1)
     model = make_model(heads, backend=backend)
     transport = create_transport(path_type="GVP", prediction="data")
-    step = make_train_step(si_loss_fn(transport), tx, ema_decay=cfg.ema_decay)
+    step = make_train_step(si_loss_fn(transport), tx, ema_decay=cfg.ema_decay, mesh=mesh)
     return create_train_state(model, tx), step, transport
 
 
@@ -5109,6 +5148,190 @@ def trajio_phase(dev, smi, reset_counts, read_counts):
         shutil.rmtree(ws, ignore_errors=True)
 
 
+def _moved_err(model, start, ref_params) -> tuple:
+    """(worst ||p - p_ref|| / ||p_ref - p0|| over the tensors, its name)."""
+    from lam_slide_tpu_torch.parallel.fsdp import full, reshard, uses_fsdp
+
+    if uses_fsdp(model):
+        reshard(model)
+    worst = (0.0, "")
+    for name, p in model.named_parameters():
+        moved = (ref_params[name] - start[name]).norm().item()
+        if moved == 0:
+            continue
+        err = (full(p).detach().float() - ref_params[name]).norm().item() / moved
+        worst = max(worst, (err, name))
+    return worst
+
+
+def parallel_phase(dev, smi, make_model, pep_state, reset_counts, read_counts):
+    """Phase 19: the data-parallel and FSDP2 steps on an NCCL group of one
+    rank, the ring of P chunks on the card, the peptide sampling hook."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from lam_slide_tpu_torch import parallel
+    from lam_slide_tpu_torch.analysis.callbacks import make_peptide_sampling_hook
+    from lam_slide_tpu_torch.ops import flash_attention as fa
+    from lam_slide_tpu_torch.parallel import rows as prow
+    from lam_slide_tpu_torch.train import create_train_state
+    from lam_slide_tpu_torch.train import steps as tsteps
+
+    # what the wrapped steps run of the data-parallel path: the grad
+    # all-reduces, and the rows each random draw was made for
+    seen = {"reduces": 0, "draws": []}
+    real_reduce, real_draw = tsteps.all_reduce_mean, prow._draw
+
+    def counted_reduce(tensors, group):
+        seen["reduces"] += 1
+        return real_reduce(tensors, group)
+
+    def recorded_draw(*args, **kwargs):
+        seen["draws"].append(prow.active())
+        return real_draw(*args, **kwargs)
+
+    with tempfile.TemporaryDirectory(prefix="parallel_") as tmp:
+        parallel.init_distributed("nccl", rank=0, world_size=1,
+                                  init_method=f"file://{tmp}/rendezvous")
+        tsteps.all_reduce_mean, prow._draw = counted_reduce, recorded_draw
+        try:
+            mesh = parallel.make_mesh(parallel.MeshSpec())
+            print(f"parallel: NCCL group of {dist.get_world_size()}, mesh "
+                  f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {mesh.device_type}")
+            # (i) the wrapped train steps against the unwrapped one
+            for heads in (HEADS, WIDE_HEADS):
+                split = f"{heads}x{HIDDEN // heads}"
+                results = {}
+                for mode in ("plain", "repeat", "dp", "fsdp"):
+                    wrapped = mode in ("dp", "fsdp")
+                    state, step, transport = train_state(make_model, heads,
+                                                         mesh=mesh if wrapped else None)
+                    if mode == "plain":
+                        start = {k: v.detach().float().clone()
+                                 for k, v in state.model.named_parameters()}
+                    batch = train_batch(TRAIN_BATCH, dev, transport, False, SEED)
+                    if mode == "fsdp":
+                        state = parallel.shard_train_state_fsdp(state, mesh)
+                        share = parallel.sharded_share(state.model, 1)
+                        print(f"parallel {split} fsdp: {share['sharded_bytes']}/"
+                              f"{share['total_bytes']} parameter bytes in DTensor shards "
+                              f"over data (one rank)")
+                    if wrapped:
+                        batch = parallel.shard_batch(batch, mesh, full_local=True)
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    seen["reduces"], seen["draws"] = 0, []
+                    t0 = time.perf_counter()
+                    state, metrics = step(state, batch, SEED)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                    counts = read_counts()
+                    loss = metrics["loss"].item()
+                    ran = (seen["reduces"], len(seen["draws"]),
+                           sum(r is not None and r.group is not None for r in seen["draws"]))
+                    if mode == "plain":
+                        ref = {k: v.detach().float().clone()
+                               for k, v in state.model.named_parameters()}
+                        results[mode] = (loss, (0.0, ""), counts, secs, ran)
+                    else:
+                        results[mode] = (loss, _moved_err(state.model, start, ref), counts,
+                                         secs, ran)
+                    del state, step
+                    torch.cuda.empty_cache()
+                ref_loss, _, ref_counts, _, _ = results["plain"]
+                for mode, (loss, (moved, where), counts, secs, ran) in results.items():
+                    rel = abs(loss - ref_loss) / abs(ref_loss)
+                    reduces, draws, row_draws = ran
+                    print(f"parallel {split} B={TRAIN_BATCH} {mode} step: loss {loss:.6f} (rel "
+                          f"err {rel:.3e}, tol {PAR_LOSS_REL_TOL}); worst parameter move err "
+                          f"{moved:.3e} at {where or '-'} (tol {PAR_MOVED_REL_TOL}); "
+                          f"{secs * 1e3:.1f} ms (first step of its state); grad all-reduces "
+                          f"{reduces}, draws {draws} ({row_draws} for a LocalBatch's rows over "
+                          f"the group); launches {counts} | {smi}")
+                    check(rel <= PAR_LOSS_REL_TOL, f"parallel {split} {mode}: loss {loss} vs "
+                          f"{ref_loss}")
+                    # the DP step all-reduces its grads once; FSDP2 reduce-scatters
+                    # them itself; both draw every t/x0/dropout for their rows
+                    check(reduces == (1 if mode == "dp" else 0),
+                          f"parallel {split} {mode}: {reduces} grad all-reduces")
+                    check(draws > 0 and row_draws == (draws if mode in ("dp", "fsdp") else 0),
+                          f"parallel {split} {mode}: {row_draws} of {draws} draws for rows")
+                    check(moved <= PAR_MOVED_REL_TOL, f"parallel {split} {mode}: {where} moved "
+                          f"{moved} off the unwrapped step")
+                    check(counts == ref_counts, f"parallel {split} {mode}: launches {counts} != "
+                          f"{ref_counts}")
+
+            # (ii) the ring of P chunks against one K1 + K4 call
+            p = PAR_RING_CHUNKS
+            for shape in PAR_RING_SHAPES:
+                gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+                q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                              for _ in range(4))
+
+                def ring():
+                    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+                    out = torch.cat(parallel.ring_attention_chunks(
+                        qs.chunk(p, 2), ks.chunk(p, 2), vs.chunk(p, 2)), 2)
+                    return (out.detach(), *torch.autograd.grad(out, (qs, ks, vs), g))
+
+                def whole():
+                    qs, ks, vs = (t.detach().requires_grad_(True) for t in (q, k, v))
+                    out = fa.flash_attention(qs, ks, vs)
+                    return (out.detach(), *torch.autograd.grad(out, (qs, ks, vs), g))
+
+                reset_counts()
+                got = ring()
+                torch.cuda.synchronize()
+                counts = read_counts()
+                want = whole()
+                errs = [((a.float() - b.float()).norm() / b.float().norm()).item()
+                        for a, b in zip(got, want)]
+                ring_ms, whole_ms = time_ms(ring, reps=5), time_ms(whole, reps=5)
+                print(f"parallel ring P={p} {list(shape)} bf16, forward + grads vs one K1 + K4 "
+                      f"call: rel err out/dq/dk/dv {[f'{e:.3e}' for e in errs]} (tol "
+                      f"{PAR_RING_REL_TOL}); launches K1 {counts['K1']} K4 {counts['K4 kv']} "
+                      f"(K4 sm90 kernels {counts['K4 sm90']}); ring {ring_ms:.3f} ms, one "
+                      f"K1 + K4 {whole_ms:.3f} ms | {smi}")
+                check(max(errs) <= PAR_RING_REL_TOL, f"ring {shape}: rel errs {errs}")
+                check(counts["K1"] == p * p and counts["K4 kv"] == p * p,
+                      f"ring {shape}: K1 {counts['K1']} K4 {counts['K4 kv']} != {p * p}")
+        finally:
+            tsteps.all_reduce_mean, prow._draw = real_reduce, real_draw
+            dist.destroy_process_group()
+
+    # (iii) the peptide sampling hook on phase 15's trained stage-2 run
+    exp, raw = pep_state
+    state = create_train_state(exp.model, exp.tx)
+    exp.model.load_state_dict(raw["params"])
+    for name, e in state.ema_params.items():
+        e.copy_(raw["ema_params"][name])
+    trajectories = exp.val_loaders["val"].dataset.trajectories
+    with tempfile.TemporaryDirectory(prefix="hook_") as run_dir:
+        hook = make_peptide_sampling_hook(exp.second_stage, trajectories, run_dir,
+                                          figures=False)
+        reset_counts()
+        # the hook reports a peptide it could not sample and goes on (as in
+        # training); here every peptide must be sampled
+        said = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(said):
+            summary = hook(state, 0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = read_counts()
+    said = said.getvalue()
+    print(said, end="")
+    n_pep = min(2, len(trajectories))
+    print(f"parallel: peptide sampling hook (Euler-10, 2 rollouts x {n_pep} val peptides, EMA "
+          f"weights) in {secs:.2f} s: {summary}; launches {counts} | {smi}")
+    check(n_pep > 0 and "sampling hook failed" not in said,
+          f"sampling hook left out a peptide: {said.strip()!r}")
+    check(summary is not None and all(math.isfinite(v) for v in summary.values()),
+          f"sampling hook summary {summary}")
+    check(counts["K8"] > 0 and counts["K2"] > 0, f"sampling hook launches {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -5377,8 +5600,8 @@ def main() -> int:
 
     # 15. the 4AA workload through the port's entry points: train.cli stage 1
     # and stage 2, then analysis.eval_cli (the fp32 DiT, dopri5, the JSD)
-    peptide_eval_counts, wide_eval_counts = peptide_loop_phase(dev, smi, reset_counts,
-                                                               read_counts)
+    peptide_eval_counts, wide_eval_counts, pep_state = peptide_loop_phase(
+        dev, smi, reset_counts, read_counts)
     phase_done("peptide_loop")
 
     # 16. fp32 training: both registries' --smoke stage 2 through the CLI,
@@ -5396,6 +5619,12 @@ def main() -> int:
     # host batch on the native engine and on numpy, one smoke sweep
     trajio_phase(dev, smi, reset_counts, read_counts)
     phase_done("trajio")
+
+    # 19. parallel/: the DP and FSDP2 steps on a one-rank NCCL group, the
+    # ring of P chunks on the card, the peptide sampling hook
+    parallel_phase(dev, smi, make_model, pep_state, reset_counts, read_counts)
+    del pep_state
+    phase_done("parallel")
 
     sources = {
         "K1": ("flash_attention_fwd", "flash_fwd_sm90.cu", "flash_attention.py:37"),

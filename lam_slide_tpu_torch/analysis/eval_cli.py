@@ -22,8 +22,7 @@ import os
 import sys
 import time
 
-FIGURES_TODO = ("--figures needs analysis/plots.py, which waits for matplotlib: the card's "
-                "machine does not have it (ROADMAP.md Queue 1 item 4)")
+NO_MATPLOTLIB = "--figures draws with matplotlib, which is not installed here"
 
 
 def main(argv=None):
@@ -44,7 +43,9 @@ def main(argv=None):
     p.add_argument("--truncate", type=int, default=None)
     p.add_argument("--no-msm", action="store_true")
     p.add_argument("--no-decorr", action="store_true")
-    p.add_argument("--figures", action="store_true", help=FIGURES_TODO)
+    p.add_argument("--figures", action="store_true",
+                   help="also write the per-peptide summary figure (analysis/plots.py, "
+                        "needs matplotlib) as summary.png")
     p.add_argument("--outdir", default=None)
     p.add_argument("--batch-peptides", action="store_true",
                    help="sample every test peptide in one batched solve per rollout window "
@@ -64,7 +65,10 @@ def main(argv=None):
                    help="torch device the eval samples on (default: the card)")
     args = p.parse_args(argv)
     if args.figures:
-        raise SystemExit(FIGURES_TODO)
+        import importlib.util
+
+        if importlib.util.find_spec("matplotlib") is None:
+            raise SystemExit(NO_MATPLOTLIB)
 
     import numpy as np
     import torch
@@ -170,6 +174,10 @@ def main(argv=None):
     cfg = EvalConfig(truncate=args.truncate, run_msm=not args.no_msm,
                      run_decorrelation=not args.no_decorr)
     per, summary = evaluate_peptides(samples, cfg)
+    if args.figures:
+        from lam_slide_tpu_torch.analysis.plots import eval_summary_figure
+
+        eval_summary_figure(per, path=os.path.join(outdir, "summary.png"))
     with open(os.path.join(outdir, "metrics.json"), "w") as f:
         json.dump({"summary": summary, "per_peptide": {k: v["JSD"] for k, v in per.items()}},
                   f, indent=2)

@@ -14,6 +14,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from lam_slide_tpu_torch.nn.losses import safe_norm
+from lam_slide_tpu_torch.parallel.rows import mask_denominator
 
 
 def zero_target_frames(batch: Dict[str, torch.Tensor], cond_end: int,
@@ -98,6 +99,6 @@ def per_entity_min_k_ade_fde(pred_pos_k: torch.Tensor, true_pos: torch.Tensor,
     else:
         ade_sel, fde_sel = ade_k[:, :num_runs], fde_k[:, :num_runs]
     m = entity_mask.reshape(b * n).to(ade_k.dtype)
-    denom = m.sum().clamp_min(1.0)
+    denom = mask_denominator(m.sum())
     return ((ade_sel.min(dim=1).values * m).sum() / denom,
             (fde_sel.min(dim=1).values * m).sum() / denom)

@@ -27,6 +27,7 @@ from lam_slide_tpu_torch.composites.pedestrian import (
 from lam_slide_tpu_torch.nn.blocks import gelu_exact, mlp, run_mlp
 from lam_slide_tpu_torch.nn.embeddings import Embed
 from lam_slide_tpu_torch.nn.losses import masked_cross_entropy
+from lam_slide_tpu_torch.parallel.rows import mask_denominator
 
 
 class NBAInputEmbedder(nn.Module):
@@ -99,7 +100,7 @@ def classification_metrics(logits: torch.Tensor, targets: torch.Tensor,
     targets = targets.long()
     m = mask.float()
     real = m > 0
-    acc = ((pred == targets) * m).sum() / m.sum().clamp_min(1.0)
+    acc = ((pred == targets) * m).sum() / mask_denominator(m.sum())
     precs, recs = [], []
     for c in range(n_classes):
         tp = ((pred == c) & (targets == c) & real).sum()

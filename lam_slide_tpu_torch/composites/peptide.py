@@ -39,6 +39,7 @@ from lam_slide_tpu_torch.nn.losses import (
     masked_norm,
     safe_norm,
 )
+from lam_slide_tpu_torch.parallel.rows import mask_denominator
 
 
 class PeptideInputEmbedder(nn.Module):
@@ -141,7 +142,7 @@ def masked_cosine_flat(pred: torch.Tensor, target: torch.Tensor,
     tn = target / torch.clamp(safe_norm(target, dim=-1, keepdim=True), min=1e-8)
     per = 1.0 - (pn * tn).sum(dim=-1)
     m = mask.to(per.dtype)
-    return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (per * m).sum() / mask_denominator(m.sum())
 
 
 def peptide_reconstruction_losses(preds: Dict[str, torch.Tensor],

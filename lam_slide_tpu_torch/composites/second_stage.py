@@ -28,6 +28,7 @@ from torch import nn
 from lam_slide_tpu_torch.composites.first_stage import FirstStageBackbone
 from lam_slide_tpu_torch.nn import initializers as inits
 from lam_slide_tpu_torch.nn.losses import inter_distance, masked_mse, masked_norm
+from lam_slide_tpu_torch.parallel import rows as batch_rows
 from lam_slide_tpu_torch.transport import Sampler, Transport
 
 
@@ -176,8 +177,7 @@ class SecondStage:
         def sample(batch, noise=None, generator=None):
             x1, model_kwargs = self.prepare_batch(batch)
             if noise is None:
-                noise = torch.randn(x1.shape, generator=generator, device=x1.device,
-                                    dtype=x1.dtype)
+                noise = batch_rows.randn(x1.shape, generator, device=x1.device, dtype=x1.dtype)
             latents = solve(noise, self.model_fn(), **model_kwargs)
             return self._decode_all(latents, batch["entities"])
 
@@ -200,8 +200,8 @@ class SecondStage:
             x1, model_kwargs = self.prepare_batch(batch)
             b = x1.shape[0]
             if noise is None:
-                noise = torch.randn((k, *x1.shape), generator=generator, device=x1.device,
-                                    dtype=x1.dtype)
+                noise = batch_rows.randn((k, *x1.shape), generator, batch_dim=1,
+                                   device=x1.device, dtype=x1.dtype)
             rep = {key: val.repeat(k_chunk, *([1] * (val.dim() - 1)))
                    for key, val in model_kwargs.items()}
             entities = batch["entities"].repeat(k_chunk, 1, 1)

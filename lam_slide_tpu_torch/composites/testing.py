@@ -1,5 +1,12 @@
-"""Domain test protocols (counterpart of ``lam_slide_tpu/composites/testing.py``,
-on one card with no mesh).
+"""Domain test protocols (counterpart of ``lam_slide_tpu/composites/testing.py``).
+
+Pass ``mesh`` (parallel/mesh.py) to shard evaluation over its data axis:
+each rank samples its rows of a test batch (``shard_batch``) with the
+noise a one-rank run draws for them (``parallel.rows.use_rows``), and the
+metrics are reduced over the ranks (MD17's per-sample errors gathered, the
+min-over-K means averaged with the global entity count), so a sharded run
+gives the one-rank metrics; a batch whose size the data axis does not
+divide runs whole on every rank, as JAX runs it replicated.
 
 * MD17 (second_stage/md17.py:139-179): zero the target frames, sample K=5
   repeats with the Euler-10 probability-flow ODE, decode, and average the
@@ -21,13 +28,15 @@ from typing import Dict, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
-from torch.func import functional_call
+import torch.distributed as dist
 
 from lam_slide_tpu_torch.composites.evaluation import (
     mean_over_k_ade_fde,
     per_entity_min_k_ade_fde,
     zero_target_frames,
 )
+from lam_slide_tpu_torch.parallel.mesh import shard_batch
+from lam_slide_tpu_torch.parallel.rows import use_rows
 
 
 def _sample_k_fn(ss, k, k_chunk, sampling_kwargs):
@@ -36,16 +45,44 @@ def _sample_k_fn(ss, k, k_chunk, sampling_kwargs):
         sampling_kwargs=sampling_kwargs or {"sampling_method": "euler", "num_steps": 10})
 
 
+def _on_device(batch, device, mesh, loader):
+    """-> (this rank's part of ``batch`` on ``device``, its rows or None)."""
+    rows = None
+    if mesh is not None:
+        batch = shard_batch(batch, mesh,
+                            full_local=getattr(loader, "process_shard", None) is None)
+        rows = batch.rows
+    return {key: torch.as_tensor(val, device=device) for key, val in batch.items()}, rows
+
+
+def _gather(t: torch.Tensor, rows) -> torch.Tensor:
+    """Every rank's rows of ``t`` (axis 0) in rank order: the global batch's."""
+    if rows is None:
+        return t
+    parts = [torch.empty_like(t) for _ in range(rows.size)]
+    dist.all_gather(parts, t.contiguous(), group=rows.group)
+    return torch.cat(parts)
+
+
+def _rank_mean(t: torch.Tensor, rows) -> torch.Tensor:
+    if rows is None:
+        return t
+    t = t.detach().clone()
+    dist.all_reduce(t, group=rows.group)
+    return t / rows.size
+
+
 def evaluate_md17(ss, loaders: Mapping[str, Iterable], scale: float, k: int = 5,
                   generator: Optional[torch.Generator] = None,
                   sampling_kwargs: Optional[dict] = None,
-                  k_chunk: Optional[int] = None) -> Dict[str, float]:
+                  k_chunk: Optional[int] = None, mesh=None) -> Dict[str, float]:
     """-> {"test/<molecule>/ade": ..., "test/<molecule>/fde": ...}.
 
     ``loaders`` maps a molecule name to an iterable of batches (dicts of
     arrays or tensors in the MD17 stage-2 layout); the batches move to the
     first stage's device. ``generator`` draws the initial noise (a generator
-    on that device; seed 0 when none is given)."""
+    on that device; seed 0 when none is given). ``mesh``: shard each batch
+    over its data axis (module docstring)."""
     device = next(ss.first_stage.parameters()).device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -55,13 +92,14 @@ def evaluate_md17(ss, loaders: Mapping[str, Iterable], scale: float, k: int = 5,
     for name, loader in loaders.items():
         ades, fdes = [], []
         for batch in loader:
-            batch = {key: torch.as_tensor(val, device=device) for key, val in batch.items()}
+            batch, rows = _on_device(batch, device, mesh, loader)
             true_pos = batch["pos"][:, cond_end:]
             mask = batch["attention_mask"][:, cond_end:]
-            preds = sample_k(zero_target_frames(batch, cond_end), generator=generator)
+            with use_rows(rows):
+                preds = sample_k(zero_target_frames(batch, cond_end), generator=generator)
             ade, fde = mean_over_k_ade_fde(preds["pos"][:, :, cond_end:], true_pos, mask)
-            ades.append(ade)
-            fdes.append(fde)
+            ades.append(_gather(ade, rows))
+            fdes.append(_gather(fde, rows))
         out[f"test/{name}/ade"] = float(torch.cat(ades).mean()) * scale
         out[f"test/{name}/fde"] = float(torch.cat(fdes).mean()) * scale
     return out
@@ -71,12 +109,12 @@ def evaluate_min_k(ss, loaders: Mapping[str, Iterable], scale: float = 1.0, k: i
                    num_runs: int = 20, post_process: bool = False,
                    generator: Optional[torch.Generator] = None,
                    sampling_kwargs: Optional[dict] = None, pos_key: str = "pos",
-                   k_chunk: Optional[int] = None) -> Dict[str, float]:
+                   k_chunk: Optional[int] = None, mesh=None) -> Dict[str, float]:
     """Pedestrian/NBA protocol -> {"test/<scene>/ade", "test/<scene>/fde"}
     and, with ``post_process`` (FPC), also ``.../ade_post`` and
     ``.../fde_post``: per batch the per-entity min over the first
     ``num_runs`` of K samples (and over the FPC picks), then the mean over
-    the batches, times ``scale``. Batches and ``generator`` as in
+    the batches, times ``scale``. Batches, ``generator`` and ``mesh`` as in
     ``evaluate_md17``."""
     if k < num_runs:
         raise ValueError("K must be >= num_runs (second_stage/pedestrian.py:44-47)")
@@ -89,20 +127,22 @@ def evaluate_min_k(ss, loaders: Mapping[str, Iterable], scale: float = 1.0, k: i
     for name, loader in loaders.items():
         accum = {"ade": [], "fde": [], "ade_post": [], "fde_post": []}
         for batch in loader:
-            batch = {key: torch.as_tensor(val, device=device) for key, val in batch.items()}
+            batch, rows = _on_device(batch, device, mesh, loader)
             true_pos = batch[pos_key][:, cond_end:]
             emask = batch["attention_mask"][:, 0]
-            preds = sample_k(zero_target_frames(batch, cond_end, keys=(pos_key,)),
-                             generator=generator)
-            pred_k = preds[pos_key][:, :, cond_end:]
-            ade, fde = per_entity_min_k_ade_fde(pred_k, true_pos, emask, num_runs=num_runs)
-            accum["ade"].append(float(ade))
-            accum["fde"].append(float(fde))
-            if post_process:
-                ade_p, fde_p = per_entity_min_k_ade_fde(pred_k, true_pos, emask,
-                                                        num_runs=num_runs, fpc=True)
-                accum["ade_post"].append(float(ade_p))
-                accum["fde_post"].append(float(fde_p))
+            with use_rows(rows):
+                preds = sample_k(zero_target_frames(batch, cond_end, keys=(pos_key,)),
+                                 generator=generator)
+                pred_k = preds[pos_key][:, :, cond_end:]
+                got = {"ade": per_entity_min_k_ade_fde(pred_k, true_pos, emask,
+                                                       num_runs=num_runs)}
+                if post_process:
+                    got["post"] = per_entity_min_k_ade_fde(pred_k, true_pos, emask,
+                                                           num_runs=num_runs, fpc=True)
+            for key, (ade, fde) in got.items():
+                suffix = "" if key == "ade" else "_post"
+                accum["ade" + suffix].append(float(_rank_mean(ade, rows)))
+                accum["fde" + suffix].append(float(_rank_mean(fde, rows)))
         keys = ("ade", "fde", "ade_post", "fde_post") if post_process else ("ade", "fde")
         out.update({f"test/{name}/{key}": float(np.mean(accum[key]) * scale) for key in keys})
     return out
@@ -128,22 +168,19 @@ def make_protocol_val_hook(ss, loaders: Mapping[str, Iterable], domain: str = "m
         calls[0] += 1
         if (calls[0] - 1) % interval:
             return None
-        backbone = ss.backbone
-        weights = state.ema_params if state.ema_params is not None else state.params
-
-        def on_weights(*args, **kwargs):
-            return functional_call(backbone, weights, args, kwargs)
+        from lam_slide_tpu_torch.train.steps import on_weights
 
         limited = {name: itertools.islice(loader, limit_batches)
                    for name, loader in loaders.items()}
-        on_ss = dataclasses.replace(ss, backbone=on_weights)
         generator = torch.Generator(device=device).manual_seed(1234 + epoch)
-        if domain == "md17":
-            out = evaluate_md17(on_ss, limited, scale=scale, k=k, generator=generator,
-                                sampling_kwargs=sampling_kwargs)
-        else:
-            out = evaluate_min_k(on_ss, limited, scale=scale, k=k, num_runs=num_runs or k,
-                                 generator=generator, sampling_kwargs=sampling_kwargs)
+        with on_weights(ss.backbone, state.ema_params) as backbone:
+            on_ss = dataclasses.replace(ss, backbone=backbone)
+            if domain == "md17":
+                out = evaluate_md17(on_ss, limited, scale=scale, k=k, generator=generator,
+                                    sampling_kwargs=sampling_kwargs)
+            else:
+                out = evaluate_min_k(on_ss, limited, scale=scale, k=k, num_runs=num_runs or k,
+                                     generator=generator, sampling_kwargs=sampling_kwargs)
         ades = [v for key, v in out.items() if key.endswith("/ade")]
         fdes = [v for key, v in out.items() if key.endswith("/fde")]
         return {"ade": float(np.mean(ades)), "fde": float(np.mean(fdes))}

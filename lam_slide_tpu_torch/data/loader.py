@@ -7,14 +7,15 @@ slicing and a 3x3 rotation; the expensive preprocessing happens once when a
 dataset is built), so it keeps a step loop fed. A dataset may offer a
 whole-batch path (``sample_batch``), which the loader takes for the
 canonical padded collate: the same semantics as ``sample`` + collate, with
-other (equally distributed) augmentation draws. The multi-host sharding of
-the JAX loader waits for the port's ``parallel/``.
+other (equally distributed) augmentation draws. ``process_shard`` feeds
+one rank of a data-parallel run its slice of each global batch (JAX's
+multi-host feeding, loader.py:57-110).
 """
 
 import functools
 import queue
 import threading
-from typing import Callable, Dict, Iterator, Mapping, Sequence
+from typing import Callable, Dict, Iterator, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,6 +50,11 @@ def _is_canonical_collate(collate_fn, dataset) -> bool:
 
 
 class Loader:
+    # Multi-process default, set once by the entry point after the process
+    # group starts (train/cli.py --multihost); every Loader built afterwards
+    # feeds its process's slice of each global batch.
+    default_process_shard: Optional[tuple] = None
+
     def __init__(
         self,
         dataset: Dataset,
@@ -58,7 +64,41 @@ class Loader:
         seed: int = 0,
         drop_last: bool = True,
         prefetch: int = 2,
+        process_shard: Optional[tuple] = None,
     ):
+        """process_shard=(index, count): multi-process data feeding — every
+        process draws the SAME shuffled global order (same seed) and keeps
+        the contiguous per-process slice of each batch, so the concatenation
+        over processes is the single-process batch (the rows
+        ``parallel.shard_batch`` gives rank ``index``). batch_size stays
+        GLOBAL. Augmentation RNG streams differ per process (each draws only
+        its slice): distributionally identical, not bit-reproducible across
+        different process counts."""
+        # full_batch_feed: the fallback for loaders that can't be
+        # process-sharded (ragged final batch, non-divisible batch size):
+        # every process draws identical full batches (same seed and order)
+        # and shard_batch slices out each rank's rows. Correct but without
+        # the per-process IO saving, which is why train loaders should use
+        # drop_last=True under --multihost.
+        self.full_batch_feed = False
+        ambient = process_shard is None
+        if ambient:
+            process_shard = type(self).default_process_shard
+        if process_shard is not None:
+            pi, pc = process_shard
+            if not 0 <= pi < pc:
+                raise ValueError(f"bad process_shard {process_shard}")
+            shardable = drop_last and batch_size % pc == 0
+            if not shardable:
+                if not ambient:
+                    raise ValueError(
+                        "process_shard requires drop_last=True and a "
+                        "process-divisible batch_size (a ragged or uneven "
+                        "batch would desynchronize hosts); drop "
+                        "process_shard to use replicated full-batch feeding")
+                process_shard = None
+                self.full_batch_feed = True
+        self.process_shard = process_shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn
@@ -79,7 +119,12 @@ class Loader:
         if self.shuffle:
             rng.shuffle(order)
         for i in range(len(self)):
-            yield order[i * self.batch_size : (i + 1) * self.batch_size]
+            idx = order[i * self.batch_size : (i + 1) * self.batch_size]
+            if self.process_shard is not None:
+                pi, pc = self.process_shard
+                local = self.batch_size // pc
+                idx = idx[pi * local : (pi + 1) * local]
+            yield idx
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         """One epoch of batches; epoch e draws from np.random.default_rng((seed, e))."""

@@ -16,14 +16,12 @@ or from the shell:  python -m lam_slide_tpu_torch.experiments.sweeps md17 \
     --workspace runs --first-stage-run ab12cd34 [--smoke]
 
 Runs train on one CUDA card (``device`` picks another, such as ``cpu``).
-Multi-device runs (``devices``, SLURM jobs of more than one node) wait for
-the port's ``parallel/`` and raise.
+``devices`` runs each entry as ``train.cli --devices N`` (N data-parallel
+ranks a job); SLURM jobs of more than one node pass ``--multihost``, one
+rank a node joined through the job's first host.
 """
 
 from typing import Dict, List, Optional, Tuple, Union
-
-PARALLEL_TODO = ("needs the port's parallel/, which is not ported yet (ROADMAP.md Queue 1, "
-                 "the parallel/ item)")
 
 # (experiment name, overrides) per dataset — mirrors the reference sweep tree:
 # md17/{aspirin..uracil,all}, pedestrian/{eth,hotel,univ,zara1,zara2,all},
@@ -66,13 +64,13 @@ def run_sweep(
     launcher (configs/hydra/joblib.yaml): each entry becomes a ``train.cli``
     subprocess with its own run workspace dir, up to ``jobs`` at a time
     (``device`` other than the card forwards ``--device``). ``devices``
-    (the JAX launcher's virtual device mesh) raises.
+    forwards ``--devices N`` to each job (the JAX launcher's virtual device
+    mesh; here N data-parallel ranks a job), through the subprocess
+    launcher even at jobs=1.
     """
-    if devices:
-        raise NotImplementedError(f"run_sweep(devices={devices}) {PARALLEL_TODO}")
-    if jobs > 1:
+    if jobs > 1 or devices:
         return _run_sweep_parallel(name, workspace, first_stage_runs, smoke,
-                                   extra, jobs, device)
+                                   extra, jobs, device, devices)
     import os
 
     from lam_slide_tpu_torch.experiments.registry import EXPERIMENTS
@@ -110,7 +108,7 @@ def _resolve_entries(name, first_stage_runs, extra):
 
 
 def _run_sweep_parallel(name, workspace, first_stage_runs, smoke, extra,
-                        jobs, device="cuda") -> List[str]:
+                        jobs, device="cuda", devices=None) -> List[str]:
     """Subprocess fan-out over sweep entries (the joblib-launcher shape).
 
     Each entry gets its own run_id/run_dir; the run registry handles
@@ -134,6 +132,8 @@ def _run_sweep_parallel(name, workspace, first_stage_runs, smoke, extra,
             cmd += ["--first-stage-run", str(fs_run)]
         if device != "cuda":
             cmd += ["--device", str(device)]
+        if devices:
+            cmd += ["--devices", str(devices)]
         for key, val in kwargs.items():
             if key in ("molecule", "scene"):
                 cmd += [f"--{key}", str(val)]
@@ -170,17 +170,18 @@ def submit_slurm(name, workspace="runs", first_stage_runs=None, smoke=False,
     ``tasks_per_node: ${n_gpus}``, ``nodes: ${n_nodes}``, partition/account
     per cluster).
 
-    One sbatch script per sweep entry under ``<workspace>/slurm/``, one
-    ``srun`` task on one node, training on that node's card. ``nodes`` > 1
-    (the JAX launcher's ``--multihost`` jobs) raises. ``submit=False`` (or no
+    One sbatch script per sweep entry under ``<workspace>/slurm/``: ``nodes``
+    tasks launched by ``srun``, one a node on that node's card; with more
+    than one node the job exports the rendezvous (``MASTER_ADDR``: the
+    job's first host) and passes ``--multihost``, and each task joins the
+    process group as rank ``SLURM_PROCID`` of ``SLURM_NTASKS``
+    (``parallel.mesh.init_distributed``). ``submit=False`` (or no
     ``sbatch`` on PATH) writes the scripts and prints the submit commands
     instead — scheduling stays external, exactly like the reference's
     submitit integration.
 
     Returns the generated script paths.
     """
-    if nodes > 1:
-        raise NotImplementedError(f"submit_slurm(nodes={nodes}) {PARALLEL_TODO}")
     import os
     import shutil
     import subprocess
@@ -197,6 +198,8 @@ def submit_slurm(name, workspace="runs", first_stage_runs=None, smoke=False,
             args.append("--smoke")
         if fs_run:
             args += ["--first-stage-run", str(fs_run)]
+        if nodes > 1:
+            args.append("--multihost")
         for key, val in kwargs.items():
             if key in ("molecule", "scene"):
                 args += [f"--{key}", str(val)]
@@ -219,9 +222,11 @@ def submit_slurm(name, workspace="runs", first_stage_runs=None, smoke=False,
                          *args])
         path = os.path.join(script_dir, f"{name}-{dataset}-{run_id}.sbatch")
         os.makedirs(os.path.join(workspace, run_id), exist_ok=True)
+        rendezvous = ('export MASTER_ADDR=$(scontrol show hostnames "$SLURM_JOB_NODELIST" '
+                      '| head -n 1)\nexport MASTER_PORT=29500\n') if nodes > 1 else ""
         with open(path, "w") as f:
             f.write("#!/bin/bash\n" + "\n".join(directives) + "\n\n"
-                    "set -euo pipefail\nexport OMP_NUM_THREADS=1\n" + body + "\n")
+                    "set -euo pipefail\nexport OMP_NUM_THREADS=1\n" + rendezvous + body + "\n")
         os.chmod(path, 0o755)
         scripts.append(path)
 
@@ -246,7 +251,8 @@ def main(argv=None):
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--jobs", type=int, default=1,
                    help="parallel subprocess launches (joblib-launcher shape)")
-    p.add_argument("--devices", type=int, default=None, help=PARALLEL_TODO)
+    p.add_argument("--devices", type=int, default=None,
+                   help="forward --devices N (N data-parallel ranks) to each job")
     p.add_argument("--device", default="cuda",
                    help="torch device each run trains on (default: the card)")
     p.add_argument("--slurm", action="store_true",
@@ -257,7 +263,7 @@ def main(argv=None):
     p.add_argument("--slurm-qos", default=None)
     p.add_argument("--slurm-time", default="24:00:00")
     p.add_argument("--slurm-nodes", type=int, default=1,
-                   help=f"hosts per job; > 1 {PARALLEL_TODO}")
+                   help="hosts per job; >1 adds --multihost (one rank a node)")
     p.add_argument("--no-submit", action="store_true",
                    help="with --slurm: only generate the scripts")
     args = p.parse_args(argv)

@@ -21,6 +21,7 @@ from lam_slide_tpu_torch.nn import initializers as inits
 from lam_slide_tpu_torch.nn.dense import dense, linear
 from lam_slide_tpu_torch.nn.norms import LayerNorm, QKNorm, rms_normalize
 from lam_slide_tpu_torch.ops.attention import BACKENDS, attention
+from lam_slide_tpu_torch.parallel import rows as batch_rows
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -54,7 +55,7 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
     if rate >= 1.0:
         return torch.zeros_like(x)
     shape = [1 if i in broadcast_dims else n for i, n in enumerate(x.shape)]
-    keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = batch_rows.rand(shape, generator, device=x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -81,7 +82,7 @@ def dropout_seq(x: torch.Tensor, mask: Optional[torch.Tensor], rate: float,
     dropped first. Returns (x, mask) gathered to that length."""
     b, n = x.shape[:2]
     keep = max(1, int(n * (1.0 - rate)))
-    scores = torch.rand((b, n), generator=generator, device=x.device)
+    scores = batch_rows.rand((b, n), generator, device=x.device)
     if mask is not None:
         scores = torch.where(mask, scores, -1.0)
     idx = torch.argsort(-scores, dim=1)[:, :keep]

@@ -10,6 +10,8 @@ from typing import Dict, Mapping
 
 import torch
 
+from lam_slide_tpu_torch.parallel.fsdp import local
+
 
 def ema_init(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Detached copies of the parameters."""
@@ -26,5 +28,6 @@ def ema_update(ema_params: Dict[str, torch.Tensor], params: Mapping[str, torch.T
     """
     rate = (1.0 - torch.tensor(decay, dtype=torch.float32)).item()
     for name, e in ema_params.items():
-        e.sub_((e - params[name].to(e.dtype)).mul_(rate))
+        e, p = local(e), local(params[name])  # DTensors (FSDP2): shard by shard
+        e.sub_((e - p.to(e.dtype)).mul_(rate))
     return ema_params

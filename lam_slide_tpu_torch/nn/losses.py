@@ -9,10 +9,12 @@ from typing import Optional
 
 import torch
 
+from lam_slide_tpu_torch.parallel.rows import mask_denominator
+
 
 def _mask_mean(per_item: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     mask = mask.to(per_item.dtype)
-    return (per_item * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (per_item * mask).sum() / mask_denominator(mask.sum())
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -84,7 +86,7 @@ def inter_distance(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor)
     """
     pair_mask = _pair_mask(mask)
     diff = (cdist(pred, pred) - cdist(target, target)) * pair_mask
-    return diff.square().sum() / torch.clamp(pair_mask.sum(), min=1.0)
+    return diff.square().sum() / mask_denominator(pair_mask.sum())
 
 
 def inter_distance_huber(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
@@ -93,7 +95,7 @@ def inter_distance_huber(pred: torch.Tensor, target: torch.Tensor, mask: torch.T
     pair_mask = _pair_mask(mask)
     diff = (cdist(pred, pred) - cdist(target, target)).abs()
     per_pair = torch.where(diff <= delta, 0.5 * diff * diff, delta * (diff - 0.5 * delta))
-    return (per_pair * pair_mask).sum() / torch.clamp(pair_mask.sum(), min=1.0)
+    return (per_pair * pair_mask).sum() / mask_denominator(pair_mask.sum())
 
 
 def inter_distance_relative(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
@@ -104,7 +106,7 @@ def inter_distance_relative(pred: torch.Tensor, target: torch.Tensor, mask: torc
     diff = (cdist(pred, pred) - dt).abs()
     if relative:
         diff = diff / (dt + 1e-8)
-    return (diff * pair_mask).sum() / torch.clamp(pair_mask.sum(), min=1.0)
+    return (diff * pair_mask).sum() / mask_denominator(pair_mask.sum())
 
 
 def similarity(pred: torch.Tensor, mask: torch.Tensor, sigma: float = 0.01) -> torch.Tensor:
@@ -113,7 +115,7 @@ def similarity(pred: torch.Tensor, mask: torch.Tensor, sigma: float = 0.01) -> t
     triu = torch.triu(torch.ones((s, s), dtype=torch.float32, device=pred.device), diagonal=1)
     pair_mask = _pair_mask(mask) * triu
     sim = torch.exp(-cdist(pred, pred).square() / (2.0 * sigma ** 2)) * pair_mask
-    return sim.sum() / torch.clamp(mask.float().sum(), min=1.0)
+    return sim.sum() / mask_denominator(mask.float().sum())
 
 
 def masked_cosine_v3(pred: torch.Tensor, target: torch.Tensor,
@@ -129,7 +131,7 @@ def inter_distance_signed(pred: torch.Tensor, target: torch.Tensor,
     """Signed (non-squared) pairwise-distance difference (InterDistanceLoss2)."""
     pair_mask = _pair_mask(mask)
     diff = (cdist(pred, pred) - cdist(target, target)) * pair_mask
-    return diff.sum() / torch.clamp(pair_mask.sum(), min=1.0)
+    return diff.sum() / mask_denominator(pair_mask.sum())
 
 
 def inter_distance_adjacent(pred: torch.Tensor, target: torch.Tensor,
@@ -138,7 +140,7 @@ def inter_distance_adjacent(pred: torch.Tensor, target: torch.Tensor,
     (InterDistanceLossAdjacent)."""
     adj = adj_matrix.float()
     diff = (cdist(pred, pred) - cdist(target, target)) * adj
-    return (diff ** 2).sum() / torch.clamp(adj.sum(), min=1.0)
+    return (diff ** 2).sum() / mask_denominator(adj.sum())
 
 
 def mean_flat(x: torch.Tensor) -> torch.Tensor:

@@ -438,6 +438,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _forward(q, k, v, scale, with_lse=False, mask=mask)[0]
 
 
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of ``flash_attention`` without a mask and without a
+    gradient: the fp32 per-row log-sum-exp ``[B, H, Nq]`` beside the output
+    (JAX ``_flash_forward(..., with_lse=True)``), the statistics ring
+    attention merges. CPU tensors take ``reference_attention``; CUDA
+    tensors launch K1 or raise."""
+    if q.device.type == "cpu":
+        return reference_attention(q, k, v, scale, return_lse=True)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _forward(q, k, v, scale, with_lse=True)
+
+
 def _check_fp32_grad(name: str, q: torch.Tensor) -> None:
     """Raise for fp32 operands wider than K4's fp32 kernels take: their
     gradient has no kernel (csrc/flash_attention_bwd.cu stops at dh 128)."""

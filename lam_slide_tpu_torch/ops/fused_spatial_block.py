@@ -236,6 +236,14 @@ def _tiled_operands(w1: torch.Tensor, w2: torch.Tensor, d: int, m: int, group: i
     return w1s, w2t
 
 
+def clear_weight_cache() -> None:
+    """Drop every kept weight operand. For writers that leave a weight's
+    version as it was: FSDP2 all-gathers into the same parameter under a
+    preserved version counter, so parallel/fsdp.py calls this before each
+    sharded unit runs."""
+    _tiled_weights.clear()
+
+
 def f32_plan(n: int, l: int, d: int, m: int, n_heads: int) -> Optional[F32Plan]:
     """The fp32 kernels' geometry for x ``[n, l, d]``, mlp width m and
     n_heads heads, or None where they have none: D and M multiples of 16, an

@@ -13,6 +13,9 @@ Replaces two reference subsystems:
   a test from the checkpoint needs nothing but the run directory). Files
   are written to a temporary name and moved into place, so a reader never
   sees half a checkpoint. ``meta.json`` has the JAX package's fields.
+  In a data-parallel run (``group``) every rank forms the payload, whole
+  tensors gathered from FSDP2's shards, rank 0 writes it and the others
+  wait at a barrier, so every rank can read it back.
   Orbax checkpoints of the JAX package are not read.
 * The wandb run-ID lineage between stages (src/utils/utils.py:180-199):
   a plain JSON registry under the workspace root maps run_id -> {run_dir,
@@ -27,6 +30,9 @@ import time
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
+
+from lam_slide_tpu_torch.parallel.fsdp import full, reshard, uses_fsdp
 
 from lam_slide_tpu_torch.train.optim import AdamWState
 from lam_slide_tpu_torch.train.state import TrainState
@@ -38,22 +44,31 @@ def _atomic_save(payload: Any, path: str) -> None:
     os.replace(tmp, path)
 
 
+def _whole(tree):
+    return None if tree is None else {k: full(v).detach() for k, v in tree.items()}
+
+
 def checkpoint_payload(state: TrainState) -> Dict[str, Any]:
-    """The saved dict of a train state (tensors as they are, on their device)."""
+    """The saved dict of a train state (tensors on their device; a sharded
+    DTensor as its whole tensor, which every rank must call for)."""
+    if uses_fsdp(state.model):
+        reshard(state.model)
     opt = state.opt_state
     return {"step": int(state.step),
-            "params": {k: v.detach() for k, v in state.model.state_dict().items()},
-            "ema_params": state.ema_params,
-            "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu},
+            "params": _whole(state.model.state_dict()),
+            "ema_params": _whole(state.ema_params),
+            "opt_state": {"count": opt.count, "mu": _whole(opt.mu), "nu": _whole(opt.nu)},
             "constants": state.constants}
 
 
 class CheckpointManager:
     """best/last checkpoint retention on a monitored metric (mode 'min'|'max')."""
 
-    def __init__(self, run_dir: str, monitor: str = "loss", mode: str = "min"):
+    def __init__(self, run_dir: str, monitor: str = "loss", mode: str = "min", group=None):
         self.run_dir = os.path.abspath(run_dir)
         self.ckpt_dir = os.path.join(self.run_dir, "checkpoints")
+        self.group = group
+        self.writer = group is None or dist.get_rank(group) == 0
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self.monitor = monitor
         self.mode = mode
@@ -88,16 +103,22 @@ class CheckpointManager:
     def save(self, state: TrainState, metrics: Optional[Dict[str, float]] = None):
         """Save 'last'; promote it to 'best' when the monitored metric improves."""
         step = int(state.step)
-        _atomic_save(checkpoint_payload(state), self.path("last"))
+        payload = checkpoint_payload(state)
         extra = {"last_step": step}
         value = None if metrics is None else metrics.get(self.monitor)
-        if value is not None and self._is_better(float(value)):
+        better = value is not None and self._is_better(float(value))
+        if better:
             self.best_metric = float(value)
-            tmp = f"{self.path('best')}.{os.getpid()}.tmp"
-            shutil.copyfile(self.path("last"), tmp)
-            os.replace(tmp, self.path("best"))
             extra["best_step"] = step
-        self._save_meta(extra)
+        if self.writer:
+            _atomic_save(payload, self.path("last"))
+            if better:
+                tmp = f"{self.path('best')}.{os.getpid()}.tmp"
+                shutil.copyfile(self.path("last"), tmp)
+                os.replace(tmp, self.path("best"))
+            self._save_meta(extra)
+        if self.group is not None:
+            dist.barrier(group=self.group)
 
     def restore(self, state: TrainState, which: str = "last") -> TrainState:
         """Load a checkpoint into ``state`` in place (the model's state dict,

@@ -20,19 +20,31 @@ registry, so a stage-2 experiment resolves its frozen stage 1 by
 runs the domain test protocol after training, ``--test-only`` on a
 finished run's checkpoint (md17's mean over K, the pedestrian and NBA
 min over K with NBA's final-position clustering; a peptide stage-2 run
-prints the pointer to ``analysis.eval_cli``, the 4AA eval pipeline). Everything runs on one CUDA card (``--device``
-picks another device, such as ``cpu``); the multi-device flags wait for
-the port's ``parallel/``.
+prints the pointer to ``analysis.eval_cli``, the 4AA eval pipeline).
+
+Runs go on the CUDA card (``--device`` picks another device, such as
+``cpu``). Data parallelism (parallel/): ``--multihost`` joins the process
+group torchrun sets up (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` /
+``MASTER_PORT``; NCCL on the card, gloo with ``--device cpu``) and feeds
+each process its slice of every batch; ``--devices N`` spawns N ranks on
+this host, the role of the JAX CLI's virtual devices (gloo ranks with
+``--device cpu``; on the card, one rank a GPU, so N may not exceed the
+GPUs found), each loading the whole batch and keeping its rows; ``--fsdp``
+shards the parameters, EMA and AdamW moments with FSDP2 and ``--test-mesh``
+shards the test protocols over the ranks. A single process given one of
+these runs a one-rank group. Rank 0 registers the run, logs and writes
+the checkpoints; ``--no-mesh`` keeps a launch unsharded.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import secrets
 import sys
 
-PARALLEL_TODO = ("needs the port's parallel/, which is not ported yet (ROADMAP.md Queue 1, "
-                 "the parallel/ item)")
+TP_TODO = ("--model-axis > 1 is tensor parallelism, which the port does not have yet "
+           "(ROADMAP.md Queue 1, the tensor-parallelism item)")
 
 
 def _parse_value(raw: str):
@@ -62,12 +74,21 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda",
                         help="torch device the run builds its models on (default: the card)")
     parser.add_argument("--no-mesh", action="store_true",
-                        help="accepted for the JAX CLI's command lines; one device either way")
-    parser.add_argument("--model-axis", type=int, default=1, help=f"> 1 {PARALLEL_TODO}")
-    parser.add_argument("--fsdp", action="store_true", help=PARALLEL_TODO)
-    parser.add_argument("--devices", type=int, default=None, help=PARALLEL_TODO)
-    parser.add_argument("--multihost", action="store_true", help=PARALLEL_TODO)
-    parser.add_argument("--test-mesh", action="store_true", help=PARALLEL_TODO)
+                        help="single rank, no sharding, whatever the other flags say")
+    parser.add_argument("--model-axis", type=int, default=1,
+                        help="mesh model-axis size; > 1 (tensor parallelism) is not ported")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="fully-sharded data parallelism (parallel/fsdp.py, FSDP2): "
+                             "params, EMA and AdamW moments sharded over the data axis")
+    parser.add_argument("--devices", type=int, default=None,
+                        help="spawn N data-parallel ranks on this host (gloo with --device "
+                             "cpu, else one rank a GPU)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join torchrun's process group (RANK, WORLD_SIZE, MASTER_ADDR, "
+                             "MASTER_PORT); each process loads its slice of every batch")
+    parser.add_argument("--test-mesh", action="store_true",
+                        help="shard the --test protocols over the data axis (default: every "
+                             "rank runs the whole protocol, the reference's single program)")
     parser.add_argument("--molecule", default=None,
                         help="md17: molecule or 'all' (default; --test-only recovers the "
                              "trained run's value)")
@@ -97,20 +118,98 @@ def main(argv=None):
                         help="mirror the metric stream to a wandb run (needs wandb)")
     args = parser.parse_args(argv)
 
-    refused = [flag for flag, on in (("--model-axis > 1", args.model_axis > 1),
-                                     ("--fsdp", args.fsdp), ("--devices", args.devices),
-                                     ("--multihost", args.multihost),
-                                     ("--test-mesh", args.test_mesh)) if on]
-    if refused:
-        raise SystemExit(f"{', '.join(refused)}: {PARALLEL_TODO}")
+    if args.model_axis > 1:
+        raise SystemExit(TP_TODO)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if args.devices and not args.no_mesh:
+        return _spawn_devices(args, argv)
+    with _process_group(args) as mesh:
+        return _main(args, mesh)
 
+
+def _spawn_devices(args, argv) -> int:
+    """``--devices N``: run this command line in N ranks of one process
+    group on this host, all with rank 0's run id."""
+    import torch
+
+    from lam_slide_tpu_torch.parallel.mesh import run_ranks
+
+    n = args.devices
+    if torch.device(args.device).type == "cuda":
+        found = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n > found:
+            raise SystemExit(f"--devices {n}: found {found} GPU(s); pass --device cpu for "
+                             f"{n} gloo ranks on the CPU")
+    i = argv.index("--devices")
+    argv = argv[:i] + argv[i + 2:]
+    if args.run_id is None:
+        argv += ["--run-id", secrets.token_hex(4)]
+    backend = "gloo" if torch.device(args.device).type == "cpu" else "nccl"
+    codes = run_ranks(_rank_main, n, args=(argv,), backend=backend, timeout_s=24 * 3600.0)
+    return max(codes)
+
+
+def _rank_main(rank: int, argv) -> int:
+    return main(argv)
+
+
+@contextlib.contextmanager
+def _process_group(args):
+    """The data mesh of this launch (None without a multi-device flag or
+    with --no-mesh): the running process group (a --devices rank,
+    torchrun's under --multihost), or a one-rank group started here and
+    ended on exit."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    wants = (args.fsdp or args.multihost or args.test_mesh or args.devices
+             or dist.is_initialized())
+    if args.no_mesh or not wants:
+        yield None
+        return
+
+    from lam_slide_tpu_torch.parallel.mesh import MeshSpec, init_distributed, make_mesh
+
+    backend = "gloo" if torch.device(args.device).type == "cpu" else "nccl"
+    own = not dist.is_initialized()
+    with tempfile.TemporaryDirectory(prefix="lam_pg_") as tmp:
+        if own and args.multihost:
+            init_distributed(backend)
+        elif own:
+            init_distributed(backend, rank=0, world_size=1,
+                             init_method="file://" + os.path.join(tmp, "rendezvous"))
+        try:
+            if args.multihost:
+                from lam_slide_tpu_torch.data.loader import Loader
+
+                Loader.default_process_shard = (dist.get_rank(), dist.get_world_size())
+                print(f"multihost: process {dist.get_rank()}/{dist.get_world_size()}")
+            mesh = make_mesh(MeshSpec(model=args.model_axis))
+            if dist.get_rank() == 0:
+                print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+            yield mesh
+        finally:
+            if args.multihost:
+                from lam_slide_tpu_torch.data.loader import Loader
+
+                Loader.default_process_shard = None
+            if own:
+                dist.destroy_process_group()
+
+
+def _main(args, mesh) -> int:
     from lam_slide_tpu_torch.experiments.registry import build_experiment
     from lam_slide_tpu_torch.train.checkpoint import register_run, resolve_run
     from lam_slide_tpu_torch.train.trainer import Trainer
 
-    run_id = args.run_id or secrets.token_hex(4)
+    main_rank = mesh is None or mesh.get_rank() == 0
+    run_id = args.run_id or _shared_token(mesh)
     run_dir = os.path.join(args.workspace, run_id)
-    print(f"run_id={run_id} device={args.device}")
+    if main_rank:
+        print(f"run_id={run_id} device={args.device}"
+              + ("" if mesh is None else f" ranks={mesh.size()}"))
     exp_kwargs = {}
     for item in args.exp_overrides:
         key, _, raw = item.partition("=")
@@ -152,6 +251,8 @@ def main(argv=None):
                            scene=scene, device=args.device, **exp_kwargs)
     if args.epochs is not None:
         exp.trainer_cfg.max_epochs = args.epochs
+    if args.fsdp:
+        exp.trainer_cfg.fsdp = True
     for item in args.overrides:
         key, _, raw = item.partition("=")
         if not hasattr(exp.trainer_cfg, key):
@@ -173,51 +274,69 @@ def main(argv=None):
         raw = load_checkpoint_raw(run_dir, which=args.test_ckpt)
         params = {**raw["params"], **(raw.get("ema_params") or {})}
         fs_state = (raw.get("constants") or {}).get("first_stage")
-        _run_test_protocol(args, exp, params, fs_state, run_dir, molecule)
-        print(f"done: test-only step={int(raw['step'])} run_dir={run_dir}")
+        _run_test_protocol(args, exp, params, fs_state, run_dir, molecule, mesh)
+        if main_rank:
+            print(f"done: test-only step={int(raw['step'])} run_dir={run_dir}")
         return 0
 
-    register_run(args.workspace, run_id, run_dir, {
-        **exp.meta,
-        "launch": {
-            "experiment": args.experiment, "molecule": molecule, "scene": scene,
-            "smoke": bool(args.smoke), "data_root": args.data_root, "seed": args.seed,
-            "first_stage_run": args.first_stage_run, "exp_overrides": exp_kwargs,
-        },
-    })
+    if main_rank:
+        register_run(args.workspace, run_id, run_dir, {
+            **exp.meta,
+            "launch": {
+                "experiment": args.experiment, "molecule": molecule, "scene": scene,
+                "smoke": bool(args.smoke), "data_root": args.data_root, "seed": args.seed,
+                "first_stage_run": args.first_stage_run, "exp_overrides": exp_kwargs,
+            },
+        })
     sinks = []
-    if args.tensorboard:
+    if main_rank and args.tensorboard:
         from lam_slide_tpu_torch.train.sinks import TensorBoardSink
 
         sinks.append(TensorBoardSink(os.path.join(run_dir, "tb")))
-    if args.wandb_project:
+    if main_rank and args.wandb_project:
         from lam_slide_tpu_torch.train.sinks import WandbSink
 
         sinks.append(WandbSink(project=args.wandb_project, name=run_id))
     trainer = Trainer(exp.trainer_cfg, exp.loss_fn, run_dir, eval_fns=exp.eval_fns,
-                      sinks=sinks)
+                      sinks=sinks, mesh=mesh)
     state = trainer.fit(exp.model, exp.train_loader, exp.val_loaders, resume=args.resume,
                         constants=exp.constants)
 
     if args.test:
         # reference semantics: test on the EMA weights (src/train.py:100-118);
         # the fp32 rebuild and the held-out split live in _run_test_protocol
-        params = {**state.model.state_dict(), **(state.ema_params or {})}
-        fs_state = (state.constants or {}).get("first_stage")
-        _run_test_protocol(args, exp, params, fs_state, run_dir, molecule)
+        from lam_slide_tpu_torch.parallel.fsdp import full
 
-    print(f"done: step={state.step} run_dir={run_dir}")
+        whole = {k: full(v) for k, v in {**state.model.state_dict(),
+                                         **(state.ema_params or {})}.items()}
+        fs_state = (state.constants or {}).get("first_stage")
+        _run_test_protocol(args, exp, whole, fs_state, run_dir, molecule, mesh)
+
+    if main_rank:
+        print(f"done: step={state.step} run_dir={run_dir}")
     return 0
 
 
-def _run_test_protocol(args, exp, params, fs_state, run_dir, molecule):
+def _shared_token(mesh) -> str:
+    """A fresh run id, rank 0's on every rank."""
+    token = [secrets.token_hex(4)]
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list(token, src=0)
+    return token[0]
+
+
+def _run_test_protocol(args, exp, params, fs_state, run_dir, molecule, mesh=None):
     """The domain test protocol on restored or trained weights (stage 2
     only): mean-K ADE/FDE for md17 (second_stage/md17.py:139-171), the
     per-entity min over ``num_runs`` of K samples for pedestrian and nba
     (second_stage/pedestrian.py:149-239), with the final-position
     clustering where the config's ``post_process`` asks for it; for the
     peptide domain only a pointer to ``analysis.eval_cli``, and no metrics
-    (lam_slide_tpu/train/cli.py:295-316).
+    (lam_slide_tpu/train/cli.py:295-316). Over a mesh every rank runs the
+    protocol, sharded over the data axis with ``--test-mesh``, and rank 0
+    writes and prints the metrics.
 
     Reference precision and data semantics (src/train.py:100-118): the test
     pass runs with precision="32-true" on the held-out test split, here the
@@ -230,12 +349,15 @@ def _run_test_protocol(args, exp, params, fs_state, run_dir, molecule):
     from lam_slide_tpu_torch.experiments.registry import MD17_SCALES
     from lam_slide_tpu_torch.utils.trees import tree_to_f32
 
+    main_rank = mesh is None or mesh.get_rank() == 0
     if exp.meta.get("stage") != 2:
         print("test protocols are defined for stage-2 experiments only")
         return
     if exp.meta.get("domain") == "peptide":
-        print(f"use python -m lam_slide_tpu_torch.analysis.eval_cli --run "
-              f"{os.path.basename(os.path.normpath(run_dir))} for the peptide eval pipeline")
+        if main_rank:
+            print(f"use python -m lam_slide_tpu_torch.analysis.eval_cli --run "
+                  f"{os.path.basename(os.path.normpath(run_dir))} for the peptide eval "
+                  f"pipeline")
         return
     model = exp.test_model if exp.test_model is not None else exp.second_stage
     loaders = exp.test_loaders if exp.test_loaders is not None else exp.val_loaders
@@ -246,13 +368,17 @@ def _run_test_protocol(args, exp, params, fs_state, run_dir, molecule):
     k = int(cfg.get("K", 5))
     if args.smoke:
         k = min(k, 2)
+    test_mesh = mesh if args.test_mesh else None
     if exp.meta.get("domain") == "md17":
         metrics = testing.evaluate_md17(model, loaders, scale=MD17_SCALES[molecule], k=k,
-                                        k_chunk=1)
+                                        k_chunk=1, mesh=test_mesh)
     else:
         metrics = testing.evaluate_min_k(model, loaders, k=k,
                                          num_runs=min(int(cfg.get("num_runs", k)), k), k_chunk=1,
-                                         post_process=bool(cfg.get("post_process", False)))
+                                         post_process=bool(cfg.get("post_process", False)),
+                                         mesh=test_mesh)
+    if not main_rank:
+        return
     with open(os.path.join(run_dir, "test_metrics.json"), "w") as f:
         json.dump(metrics, f, indent=2)
     print(json.dumps(metrics))

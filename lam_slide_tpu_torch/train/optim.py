@@ -10,7 +10,8 @@ state in place, where optax returns new trees. Per update:
     mu   <- b1 · mu + (1 − b1) · g;   nu <- b2 · nu + (1 − b2) · g²
     p    <- p − lr(count) · (mu / (1 − b1^t) / (√(nu / (1 − b2^t)) + eps) + wd · p)
 
-with t = count + 1 and decoupled weight decay on every parameter.
+with t = count + 1 and decoupled weight decay on every parameter. FSDP2's
+DTensor parameters, grads and moments are updated shard by shard.
 ``torch.optim.AdamW`` applies the decay before the Adam step and
 ``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm, so neither is
 used.
@@ -20,12 +21,29 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Mapping, Optional
 
 import torch
+import torch.distributed as dist
+
+from lam_slide_tpu_torch.parallel import fsdp as _fsdp
 
 
 def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element (``optax.global_norm``),
-    an fp32 0-dim tensor on the tensors' device."""
-    return torch.stack([t.float().square().sum() for t in tensors.values()]).sum().sqrt()
+    an fp32 0-dim tensor on the tensors' device. Shards of DTensors (FSDP2's
+    grads) count once over their mesh: their local sums of squares are
+    all-reduced, so every rank clips by the same norm."""
+    whole, parts, mesh = [], [], None
+    for t in tensors.values():
+        if _fsdp.is_sharded(t):
+            parts.append(_fsdp.local(t).float().square().sum())
+            mesh = t.device_mesh
+        else:
+            whole.append(_fsdp.local(t).float().square().sum())
+    total = torch.stack(whole).sum() if whole else None
+    if parts:
+        shared = torch.stack(parts).sum()
+        dist.all_reduce(shared, group=mesh.get_group(0))
+        total = shared if total is None else total + shared
+    return total.sqrt()
 
 
 @dataclass
@@ -68,7 +86,9 @@ class AdamW:
         # bias corrections in fp32, as optax takes decay ** count
         bc1, bc2 = ((1.0 - torch.tensor(b, dtype=torch.float32) ** t).item() for b in (B1, B2))
         for name, p in params.items():
-            g, mu, nu = grads[name], state.mu[name], state.nu[name]
+            # DTensors (FSDP2) update their local shards in place
+            p, g, mu, nu = (_fsdp.local(t) for t in (p, grads[name], state.mu[name],
+                                                      state.nu[name]))
             mu.mul_(B1).add_(g, alpha=1.0 - B1)
             nu.mul_(B2).addcmul_(g, g, value=1.0 - B2)
             update = (mu / bc1) / ((nu / bc2).sqrt_() + EPS)

@@ -7,8 +7,15 @@ best/last checkpointing keyed on a monitored metric, JSONL metric logging,
 the LR schedule (warmup-cosine computed from steps_per_epoch up front —
 replacing the reference's ConfigLRScheduler callback,
 src/callbacks/config_lr_scheduler.py), optional gradient clipping, and
-resume. One card, no mesh: ``fsdp=True`` raises until the port has its
-``parallel/``.
+resume. With a ``mesh`` (parallel/mesh.py) the loop runs data parallel
+over its ``data`` axis, one process a rank: each rank steps on its rows of
+every batch (``shard_batch``; a loader with a ``process_shard`` already
+feeds them), the grads are averaged across the ranks, ``fsdp=True`` shards
+the parameters, EMA and AdamW moments with FSDP2 (parallel/fsdp.py), the
+epoch's metric means are averaged over the ranks once, rank 0 writes the
+metric stream and the checkpoints (whole tensors, so a checkpoint of a
+data-parallel or FSDP run loads in a one-card run) and every rank reads
+them back on a resume.
 
 Metrics stay on the device: each step's metrics are kept as tensors, and
 the loop waits for the device once every ``log_every_steps`` steps (so the
@@ -25,9 +32,18 @@ from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from lam_slide_tpu_torch.data.loader import device_batch
+from lam_slide_tpu_torch.parallel.fsdp import shard_train_state_fsdp, sharded_share
+from lam_slide_tpu_torch.parallel.mesh import (
+    LocalBatch,
+    broadcast_module,
+    data_group,
+    data_size,
+    shard_batch,
+)
 from lam_slide_tpu_torch.nn.schedules import linear_warmup_cosine
 from lam_slide_tpu_torch.train.checkpoint import CheckpointManager
 from lam_slide_tpu_torch.train.optim import AdamW
@@ -54,8 +70,8 @@ class TrainerConfig:
     ckpt_every_n_epochs: int = 1
     limit_val_batches: int = 0  # 0 = all (reference limit_val_batches)
     log_every_steps: int = 50
-    # fully-sharded data parallelism needs the port's parallel/, which is
-    # not ported: True raises in Trainer.fit
+    # fully-sharded data parallelism over the mesh's data axis
+    # (parallel/fsdp.py); without a mesh there is nothing to shard
     fsdp: bool = False
     seed: int = 0
 
@@ -128,14 +144,40 @@ class MetricLogger:
         self.sinks = []
 
 
-def _mean_metrics(acc: Dict[str, list]) -> Dict[str, float]:
+def _mean_metrics(acc: Dict[str, list], group=None) -> Dict[str, float]:
     """Per-key means of lists of 0-dim device tensors, brought to the host in
-    one transfer (the float32 means np.mean takes of the JAX values)."""
+    one transfer (the float32 means np.mean takes of the JAX values); over a
+    data-parallel ``group``, then averaged over its ranks in one all-reduce."""
     if not acc:
         return {}
     keys = list(acc)
     host = torch.stack([torch.stack([v.float() for v in acc[k]]) for k in keys]).cpu().numpy()
-    return {k: float(np.mean(row)) for k, row in zip(keys, host)}
+    means = np.asarray([np.mean(row) for row in host], dtype=np.float32)
+    if group is not None:
+        device = acc[keys[0]][0].device
+        reduced = torch.from_numpy(means).to(device)
+        dist.all_reduce(reduced, group=group)
+        means = (reduced / dist.get_world_size(group)).cpu().numpy()
+    return {k: float(v) for k, v in zip(keys, means)}
+
+
+class _NullLogger:
+    """The metric stream of a rank other than 0: rank 0 writes it."""
+
+    def log_hparams(self, hparams):
+        pass
+
+    def log(self, record):
+        pass
+
+    def backup(self):
+        return None
+
+    def reset(self):
+        pass
+
+    def close(self):
+        pass
 
 
 def _wait(t: Optional[torch.Tensor]) -> None:
@@ -150,13 +192,17 @@ class Trainer:
 
     def __init__(self, cfg: TrainerConfig, loss_fn: Callable, run_dir: str,
                  eval_fns: Optional[Mapping[str, Callable]] = None, quiet: bool = False,
-                 sinks=()):
+                 sinks=(), mesh=None):
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.run_dir = os.path.abspath(run_dir)
         self.eval_fns = dict(eval_fns or {})
-        self.logger = MetricLogger(self.run_dir, quiet=quiet, sinks=sinks)
-        self.quiet = quiet
+        self.mesh = mesh
+        self.group = None if mesh is None else data_group(mesh)
+        self.is_main = mesh is None or dist.get_rank() == 0
+        self.logger = (MetricLogger(self.run_dir, quiet=quiet, sinks=sinks) if self.is_main
+                       else _NullLogger())
+        self.quiet = quiet or not self.is_main
 
     def init_state(self, model: nn.Module, steps_per_epoch: int,
                    constants: Optional[Dict[str, Any]] = None):
@@ -173,14 +219,14 @@ class Trainer:
         frozen first stage's state dict under ``"first_stage"``). Batches
         move to the model's device."""
         cfg = self.cfg
-        if cfg.fsdp:
-            raise NotImplementedError("fsdp needs the port's parallel/, which is not ported "
-                                      "yet (ROADMAP Queue 1)")
         self.device = next(model.parameters()).device
         steps_per_epoch = max(len(train_loader), 1)
+        if self.group is not None:
+            broadcast_module(model, self.mesh)  # every rank starts from rank 0's weights
         state, tx = self.init_state(model, steps_per_epoch, constants)
 
-        ckpt = CheckpointManager(self.run_dir, monitor=cfg.monitor, mode=cfg.monitor_mode)
+        ckpt = CheckpointManager(self.run_dir, monitor=cfg.monitor, mode=cfg.monitor_mode,
+                                 group=self.group)
         start_epoch = 0
         if resume and ckpt.has("last"):
             ckpt.restore(state, "last")
@@ -198,9 +244,17 @@ class Trainer:
                       + (f" (prior metrics saved to {backup})" if backup else ""))
             self.logger.reset()
 
+        # sharding after a possible resume, so a restored state gets laid out
+        if cfg.fsdp and self.mesh is not None:
+            state = shard_train_state_fsdp(state, self.mesh)
+            share = sharded_share(state.model, data_size(self.mesh))
+            if not self.quiet:
+                print(f"fsdp: {share['sharded_bytes']}/{share['total_bytes']} param bytes "
+                      f"sharded over data ({share['share']:.3f}; JAX's rule "
+                      f"{share['jax_rule_share']:.3f})")
         train_step = make_train_step(self.loss_fn, tx, ema_decay=cfg.ema_decay,
-                                     grad_accum=cfg.grad_accum)
-        eval_step = make_eval_step(self.loss_fn)
+                                     grad_accum=cfg.grad_accum, mesh=self.mesh)
+        eval_step = make_eval_step(self.loss_fn, mesh=self.mesh)
         n_params = param_count(state.params)
         if not self.quiet:
             print(f"params: {n_params:,}  steps/epoch: {steps_per_epoch}")
@@ -221,10 +275,11 @@ class Trainer:
             # failure and keep the last state, so a failed job can resume
             self.logger.log({"split": "error", "error": f"{type(e).__name__}: {e}"[:500],
                              "step": state.step})
-            try:
-                ckpt.save(state)
-            except Exception:
-                pass  # the per-epoch 'last' checkpoint already covers resume
+            if self.group is None or data_size(self.mesh) == 1:  # one rank cannot gather
+                try:
+                    ckpt.save(state)
+                except Exception:
+                    pass  # the per-epoch 'last' checkpoint already covers resume
             raise
         finally:
             self.logger.close()
@@ -239,7 +294,7 @@ class Trainer:
             n_steps = 0
             last_loss = None
             for batch in train_loader:
-                state, metrics = train_step(state, self._put(batch), cfg.seed)
+                state, metrics = train_step(state, self._put(batch, train_loader), cfg.seed)
                 for k, v in metrics.items():
                     acc.setdefault(k, []).append(v)
                 last_loss = metrics.get("loss")
@@ -248,7 +303,7 @@ class Trainer:
                     _wait(last_loss)
             _wait(last_loss)  # epoch wall time = device time
             epoch_s = time.time() - t0
-            train_metrics = _mean_metrics(acc)
+            train_metrics = _mean_metrics(acc, self.group)
             timer.record_epoch(epoch_s, n_steps)
             record = {"epoch": epoch, "split": "train", "time_s": round(epoch_s, 2),
                       "step_ms": round(epoch_s / max(n_steps, 1) * 1e3, 2),
@@ -280,10 +335,10 @@ class Trainer:
             for bi, batch in enumerate(loader):
                 if self.cfg.limit_val_batches and bi >= self.cfg.limit_val_batches:
                     break
-                metrics = eval_step(state, self._put(batch), self.cfg.seed)
+                metrics = eval_step(state, self._put(batch, loader), self.cfg.seed)
                 for k, v in metrics.items():
                     acc.setdefault(k, []).append(v)  # device tensors, no sync
-            means = _mean_metrics(acc)
+            means = _mean_metrics(acc, self.group)
             record = {"epoch": epoch, "split": f"val/{name}"}
             record.update({f"val/{name}/{k}": v for k, v in means.items()})
             self.logger.log(record)
@@ -291,8 +346,22 @@ class Trainer:
                 all_means.setdefault(k, []).append(v)
         return {k: float(np.mean(v)) for k, v in all_means.items()}
 
-    def _put(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-        """A loader batch (numpy arrays or tensors) on the model's device."""
+    def _put(self, batch: Mapping[str, Any], loader=None) -> Dict[str, torch.Tensor]:
+        """A loader batch (numpy arrays or tensors) on the model's device;
+        over a mesh, this rank's rows of it (``shard_batch``: a loader with a
+        ``process_shard`` hands over this rank's rows, any other the whole
+        batch)."""
+        rows = None
+        if self.mesh is not None:
+            batch = shard_batch(batch, self.mesh,
+                                full_local=getattr(loader, "process_shard", None) is None)
+            rows = batch.rows
         if all(isinstance(v, torch.Tensor) for v in batch.values()):
-            return {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
-        return device_batch(batch, self.device)
+            out = {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
+        else:
+            out = device_batch(batch, self.device)
+        if self.mesh is None:
+            return out
+        out = LocalBatch(out)
+        out.rows = rows
+        return out

@@ -14,6 +14,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from lam_slide_tpu_torch.parallel import rows as batch_rows
+
 
 def ode_fixed(drift_fn: Callable, x0: torch.Tensor, t0: float, t1: float,
               num_steps: int, method: str = "euler") -> torch.Tensor:
@@ -58,7 +60,7 @@ def sde_fixed(drift_fn: Callable, diffusion_fn: Callable, x0: torch.Tensor, t0: 
     x = x0
     for i in range(num_steps - 1):
         t = ts[i].item()
-        w = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        w = batch_rows.randn(x.shape, generator, dtype=x.dtype, device=x.device)
         tvec = torch.full((x.shape[0],), t, dtype=torch.float32, device=x.device)
         diffusion = diffusion_fn(x, tvec)
         if method == "euler":
@@ -117,7 +119,8 @@ def ode_dopri5(drift_fn: Callable, x0: torch.Tensor, t0: float, t1: float,
     """Adaptive Dormand–Prince 5(4) with FSAL (integrators.py:124-206).
 
     The step controller is the JAX one: the RMS error norm of
-    err / (atol + rtol * max(|y0|, |y1|)) over the whole state, a step factor
+    err / (atol + rtol * max(|y0|, |y1|)) over the whole state (over the
+    global batch under ``parallel.rows.use_rows``), a step factor
     safety * ratio^-0.2 clipped to [min_factor, max_factor], dt0 = 0.02 (t1 - t0),
     at most ``max_steps`` attempted steps. Accept and reject stay on the
     device (``torch.where``); the one host read per attempted step is the
@@ -148,7 +151,7 @@ def ode_dopri5(drift_fn: Callable, x0: torch.Tensor, t0: float, t1: float,
         x5 = x + dt * _combine(_DP_B5, ks)
         err = dt * _combine(_DP_E, ks)
         scale = atol + rtol * torch.maximum(x.abs(), x5.abs())
-        ratio = (err / scale).float().square().mean().sqrt()
+        ratio = batch_rows.batch_mean((err / scale).float().square()).sqrt()
         accept = ratio <= 1.0
         factor = torch.clamp(safety * torch.clamp(ratio, min=1e-10) ** -0.2,
                              min_factor, max_factor)

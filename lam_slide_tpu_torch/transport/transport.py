@@ -19,6 +19,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from lam_slide_tpu_torch.nn.losses import mean_flat
+from lam_slide_tpu_torch.parallel import rows as batch_rows
 from lam_slide_tpu_torch.transport import integrators
 from lam_slide_tpu_torch.transport.path import GVPCPlan, ICPlan, VPCPlan, expand_t
 
@@ -86,9 +87,9 @@ class Transport:
     def sample(self, x1: torch.Tensor, generator: torch.Generator):
         """Draw x0 ~ N(0, I), then t ~ U(t0, t1) per batch element
         (transport.py:103-114) -> (t, x0, x1)."""
-        x0 = torch.randn(x1.shape, generator=generator, dtype=x1.dtype, device=x1.device)
+        x0 = batch_rows.randn(x1.shape, generator, dtype=x1.dtype, device=x1.device)
         t0, t1 = self.check_interval(self.train_eps, self.sample_eps)
-        t = torch.rand((x1.shape[0],), generator=generator, dtype=torch.float32,
+        t = batch_rows.rand((x1.shape[0],), generator, dtype=torch.float32,
                        device=x1.device) * (t1 - t0) + t0
         return t, x0, x1
 
@@ -300,7 +301,7 @@ class Sampler:
             reverse=False, last_step_size=0.0)
 
         def _sample(generator, x, model_fn, **kw):
-            eps = (torch.randint(0, 2, x.shape, generator=generator, device=x.device)
+            eps = (batch_rows.randint(0, 2, x.shape, generator, device=x.device)
                    .to(x.dtype) * 2.0 - 1.0)
 
             def drift_fn(y, t):

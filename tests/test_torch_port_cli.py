@@ -9,8 +9,11 @@ package, on the CPU.
   ``test_metrics.json`` is finite; ``--test-only`` from the checkpoint
   alone reproduces it exactly; ``runs.json`` links s2 to s1 and its
   ``launch`` block has the JAX CLI's keys.
-* The multi-device flags are refused, naming the ``parallel/`` item of
-  ROADMAP.md; every experiment of the JAX registry builds.
+* ``--model-axis 2`` is refused, naming the tensor-parallelism item of
+  ROADMAP.md; ``--fsdp``, ``--devices 2``, ``--multihost`` (two processes
+  under a torchrun-style rendezvous) and ``--test-mesh`` run on the CPU and
+  give the one-rank run's records, weights and test metrics; every
+  experiment of the JAX registry builds.
 * ``num_heads``, ``batch_size`` and ``dit_dtype`` reach the stage-2 config,
   loaders and DiT as in the JAX registry; stage 1's registry meta equals
   JAX's.
@@ -24,6 +27,7 @@ package, on the CPU.
 import ast
 import dataclasses
 import json
+import socket
 from pathlib import Path
 
 import jax
@@ -39,7 +43,10 @@ from lam_slide_tpu_torch import convert
 from lam_slide_tpu_torch.composites import md17 as tmd17
 from lam_slide_tpu_torch.composites import testing as ttesting
 from lam_slide_tpu_torch.experiments import registry as treg
+from lam_slide_tpu_torch.parallel import run_ranks
 from lam_slide_tpu_torch.train.cli import main
+
+from support_torch_parallel_ranks import cli_rank
 
 ROOT = Path(__file__).resolve().parents[1]
 PROTOCOL_RTOL = 1e-4
@@ -112,11 +119,96 @@ def _jax_launch_keys():
     raise AssertionError("no launch block in the JAX CLI")
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _records(path):
+    return [json.loads(line) for line in open(path) if '"train"' in line]
+
+
+@pytest.fixture(scope="module")
+def one_rank_s1(tmp_path_factory):
+    """A plain one-rank smoke stage 1 (one epoch): the reference run."""
+    ws = str(tmp_path_factory.mktemp("ws1"))
+    assert main(["--experiment", "md17_first_stage", *S1, "--workspace", ws, "--run-id", "s1",
+                 "--no-mesh"]) == 0
+    return ws
+
+
+S1 = ["--smoke", "--device", "cpu", "--molecule", "aspirin", "--epochs", "1"]
+
+
+def _same_run(ws, run, ref_ws, rtol=1e-5):
+    """The run's train records and weights equal the one-rank run's: the
+    data-parallel step is the one-rank step."""
+    got, want = _records(Path(ws) / run / "metrics.jsonl"), _records(Path(ref_ws) / "s1" /
+                                                                     "metrics.jsonl")
+    assert len(got) == len(want) == 1
+    for k, v in want[0].items():
+        if k.startswith("train/"):
+            assert abs(got[0][k] - v) <= rtol * max(abs(v), 1e-30), k
+    a = treg.load_checkpoint_raw(str(Path(ws) / run), "last")["params"]
+    b = treg.load_checkpoint_raw(str(Path(ref_ws) / "s1"), "last")["params"]
+    model = treg.md17_first_stage(smoke=True, device="cpu").model
+    model.load_state_dict(a)  # whole tensors: it loads in a one-rank run
+    for k, w in b.items():
+        if w.is_floating_point():
+            assert (a[k] - w).abs().max() <= 1e-4 * max(w.abs().max(), 1e-30), k
+
+
 @pytest.mark.parametrize("flags", [["--model-axis", "2"], ["--fsdp"], ["--devices", "2"],
                                    ["--multihost"], ["--test-mesh"]])
-def test_multi_device_flags_are_refused(flags):
-    with pytest.raises(SystemExit, match="parallel/"):
-        main(["--experiment", "md17_first_stage", "--smoke", "--device", "cpu", *flags])
+def test_multi_device_flags_are_refused(flags, tmp_path, one_rank_s1):
+    """Named for the refusals it once pinned. ``--model-axis > 1`` (tensor
+    parallelism) is still refused, naming its ROADMAP item; the other
+    multi-device flags run on the CPU. ``--fsdp`` (a one-rank group) and
+    ``--devices 2`` (two spawned gloo ranks) equal the one-rank run, with a
+    checkpoint that loads in one. ``--multihost`` runs as two processes
+    joined through torchrun's environment variables, each loading its slice
+    of every batch: both finish, rank 0 alone logs, and its records are
+    finite (each process draws its own augmentation stream, so they are not
+    the one-rank run's). ``--test-mesh`` with ``--devices 2 --test-only``
+    shards the protocol over the ranks and gives the one-rank metrics."""
+    ws = str(tmp_path)
+    if flags[0] == "--model-axis":
+        with pytest.raises(SystemExit, match="tensor-parallelism item"):
+            main(["--experiment", "md17_first_stage", *S1, *flags])
+    elif flags[0] == "--fsdp":
+        assert main(["--experiment", "md17_first_stage", *S1, "--workspace", ws, "--run-id", "f",
+                     *flags]) == 0
+        _same_run(ws, "f", one_rank_s1)
+    elif flags[0] == "--devices":
+        assert main(["--experiment", "md17_first_stage", *S1, "--workspace", ws, "--run-id", "d",
+                     *flags]) == 0
+        _same_run(ws, "d", one_rank_s1)
+    elif flags[0] == "--multihost":
+        env = {"WORLD_SIZE": 2, "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": _free_port()}
+        argv = ["--experiment", "md17_first_stage", *S1, "--workspace", ws, "--run-id", "m",
+                *flags]
+        outs = run_ranks(cli_rank, 2, args=(argv, env), init=False, timeout_s=300.0)
+        assert [o["code"] for o in outs] == [0, 0]
+        for r, o in enumerate(outs):
+            assert f"multihost: process {r}/2" in o["stdout"]
+        assert "done:" in outs[0]["stdout"] and "done:" not in outs[1]["stdout"]
+        records = _records(Path(ws) / "m" / "metrics.jsonl")
+        assert len(records) == 1 and all(np.isfinite(v) for v in records[0].values()
+                                         if isinstance(v, float))
+    else:
+        ws = one_rank_s1  # stage 2 on the reference stage 1, then its test pass
+        assert main(["--experiment", "md17_second_stage", "--first-stage-run", "s1", *S1,
+                     "--workspace", ws, "--run-id", "s2m", "--no-mesh",
+                     "--set", "val_every_n_epochs=2"]) == 0  # no val pass: only its test
+        test_only = ["--workspace", ws, "--run-id", "s2m", "--test-only", "--device", "cpu"]
+        assert main([*test_only, "--no-mesh"]) == 0
+        want = json.load(open(Path(ws) / "s2m" / "test_metrics.json"))
+        assert main([*test_only, "--devices", "2", *flags]) == 0
+        got = json.load(open(Path(ws) / "s2m" / "test_metrics.json"))
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert abs(got[k] - v) <= 1e-5 * abs(v), k
 
 
 # the JAX registry's experiments that the port's registry refused (raising

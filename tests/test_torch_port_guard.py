@@ -1,7 +1,8 @@
 """Guards of the PyTorch/CUDA port that need no card.
 
-* The port and ``chip_smoke.py`` import neither JAX, flax nor the JAX package,
-  and only ``chip_smoke.library_times`` calls PyTorch's own attention.
+* The port (every package of it, parallel/ included) and ``chip_smoke.py``
+  import neither JAX, flax nor the JAX package, and only
+  ``chip_smoke.library_times`` calls PyTorch's own attention.
 * Kernel wrappers take their plain versions only on CPU tensors (counters
   untouched); on any other device they launch or raise, with no fallback,
   and inputs that need a gradient go through a ``torch.autograd.Function``
@@ -46,6 +47,9 @@ from lam_slide_tpu_torch.ops.ablations import fused_temporal_attention as tft
 from lam_slide_tpu_torch.ops.ablations import short_backward as tsb
 from lam_slide_tpu_torch.transport import Sampler, create_transport
 
+# the module (the package's ``ring_attention`` name is its function)
+tring = importlib.import_module("lam_slide_tpu_torch.parallel.ring_attention")
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "lam_slide_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "lam_slide_tpu"}
@@ -69,6 +73,13 @@ def _imported_roots(path: Path):
 def test_no_jax_imports(path):
     bad = FORBIDDEN.intersection(_imported_roots(path))
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_guard_covers_every_port_package():
+    """The import guard walks every module of the port, parallel/ included."""
+    covered = {p.relative_to(PORT).parts[0] for p in _port_sources()[:-1]}
+    packages = {p.name for p in PORT.iterdir() if (p / "__init__.py").exists()}
+    assert "parallel" in packages and packages <= covered
 
 
 def test_no_sdpa_in_port():
@@ -276,6 +287,10 @@ ALL_WRAPPERS = WRAPPERS + BACKWARD_WRAPPERS + FP32_WITH_GRAD + [
      fnr, "pre_transform", _fp32_normrope_inputs),
     ("K4 fp32 dh128", fa.flash_attention_backward, fa, "reference_flash_backward",
      _fp32_wide_backward_inputs),
+    ("K1 lse", fa.flash_attention_with_lse, fa, "reference_attention", _attn_inputs),
+    ("ring", lambda q, k, v: tring.ring_attention_chunks(q.chunk(2, 2), k.chunk(2, 2),
+                                                         v.chunk(2, 2)),
+     tring, "_chunk_stats", _attn_inputs),
 ]
 
 

@@ -82,7 +82,7 @@ def test_cli_smoke_stages_and_min_k_test_pass(tmp_path, test_passes, workload):
     assert set(loaders) == set(jrun.test_loaders)
     k = min(cfg["K"], 2)  # a smoke run's K
     assert kw == dict(k=k, num_runs=min(cfg["num_runs"], k), k_chunk=1,
-                      post_process=cfg["post_process"])
+                      post_process=cfg["post_process"], mesh=None)  # mesh: --test-mesh
     suffixes = ("ade", "fde") + (("ade_post", "fde_post") if cfg["post_process"] else ())
     stored = json.load(open(tmp_path / "ws" / "s2" / "test_metrics.json"))
     assert stored == metrics

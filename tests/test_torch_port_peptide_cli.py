@@ -11,7 +11,8 @@ width: ``train.cli --experiment peptide_first_stage``, then
   exits 0, writes one PDB a test peptide and ``metrics.json`` with the JAX
   eval's keys and finite values, on the fp32 rebuild of the bf16-trained
   DiT; ``--unroll`` changes nothing; ``--control`` samples a random DiT;
-  ``--figures`` and unknown ``--pdb-ids`` exit with their messages.
+  ``--figures`` writes the summary figure (and exits naming matplotlib
+  without it); unknown ``--pdb-ids`` exit with their message.
 * The registry: the configs, trainer settings and overrides (``num_heads``,
   ``batch_size``, ``dit_dtype``, ``n_timesteps``) as the JAX registry sets
   them.
@@ -134,9 +135,20 @@ def test_eval_cli_end_to_end(workspace, monkeypatch):
     assert not torch.equal(built[-1].backbone.x_in.weight, trained["ema_params"]["x_in.weight"])
 
 
-def test_eval_cli_refusals(workspace, monkeypatch):
+def test_eval_cli_refusals(workspace, monkeypatch, tmp_path):
+    """``--figures`` draws the summary figure with analysis/plots.py, and
+    exits naming matplotlib where it is not installed; unknown
+    ``--pdb-ids`` are refused."""
     ws, _ = workspace
     monkeypatch.setenv("LAM_SLIDE_NO_DATA_CACHE", "1")
+    assert eval_cli.main(["--run", "s2", "--workspace", ws, "--figures", "--outdir",
+                          str(tmp_path), *EVAL]) == 0
+    assert (tmp_path / "summary.png").stat().st_size > 0
+    import importlib.util
+
+    real = importlib.util.find_spec
+    monkeypatch.setattr(importlib.util, "find_spec",
+                        lambda name, *a: None if name == "matplotlib" else real(name, *a))
     with pytest.raises(SystemExit, match="matplotlib"):
         eval_cli.main(["--run", "s2", "--workspace", ws, "--figures", *EVAL])
     with pytest.raises(SystemExit, match="--pdb-ids not found"):

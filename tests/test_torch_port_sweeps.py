@@ -6,8 +6,9 @@ builds the same ``train.cli`` argv but for the module path
 (``subprocess.run`` is replaced, so nothing trains in a subprocess); the
 SLURM scripts hold the same text but for the module path. ``run_sweep``
 trains a smoke entry in-process on the port's registry and ``Trainer``.
-The multi-device options (``devices``, SLURM jobs of more than one node)
-raise until the port's ``parallel/`` exists.
+The multi-device options forward ``--devices N`` (``devices``) and
+``--multihost`` (SLURM jobs of more than one node, which also export the
+rendezvous) as the JAX launcher does.
 """
 
 import json
@@ -97,14 +98,44 @@ def test_slurm_scripts_match_jax(tmp_path, fixed_ids):
         assert os.access(path, os.X_OK)
 
 
-def test_multi_device_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        tsw.run_sweep("peptide", workspace=str(tmp_path), devices=2)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        tsw.submit_slurm("peptide", workspace=str(tmp_path), nodes=2, submit=False)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        tsw.main(["peptide", "--workspace", str(tmp_path), "--devices", "2"])
-    assert not os.path.exists(os.path.join(tmp_path, "slurm"))
+def test_multi_device_options_raise(tmp_path, monkeypatch, fixed_ids):
+    """Named for the refusals it once pinned: the multi-device options now
+    run. ``devices`` forwards ``--devices N`` to each job (the JAX
+    launcher's argv), also from the shell and at jobs=1; a SLURM job of two
+    nodes passes ``--multihost`` and exports the rendezvous, its script
+    otherwise JAX's."""
+    seen = []
+
+    def fake_run(cmd, stdout=None, stderr=None):
+        seen.append(list(cmd))
+        return subprocess.CompletedProcess(cmd, 0)
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    ws = str(tmp_path / "ws")
+    fixed_ids()
+    jsw.run_sweep("nba", workspace=ws, jobs=2, devices=2)
+    want, seen[:] = sorted(seen), []
+    fixed_ids()
+    tsw.run_sweep("nba", workspace=ws, devices=2)
+    assert [_port_argv(cmd) for cmd in sorted(seen)] == want
+    assert all(cmd[cmd.index("--devices") + 1] == "2" for cmd in want)
+    seen[:] = []
+    tsw.main(["peptide", "--workspace", ws, "--devices", "2"])
+    assert len(seen) == 1 and seen[0][seen[0].index("--devices") + 1] == "2"
+
+    kw = dict(first_stage_runs="s1", smoke=True, nodes=2, submit=False)
+    fixed_ids()
+    want = {p: open(p).read() for p in jsw.submit_slurm("peptide", workspace=str(tmp_path),
+                                                         **kw)}
+    fixed_ids()
+    (path,) = tsw.submit_slurm("peptide", workspace=str(tmp_path), **kw)
+    text = open(path).read()
+    assert "#SBATCH --nodes=2" in text and " --multihost" in text
+    rendezvous = ('export MASTER_ADDR=$(scontrol show hostnames "$SLURM_JOB_NODELIST" '
+                  '| head -n 1)\nexport MASTER_PORT=29500\n')
+    assert rendezvous in text
+    assert text.replace(rendezvous, "").replace("lam_slide_tpu_torch.", "lam_slide_tpu.") \
+        == want[path]
 
 
 def test_in_process_smoke_sweep(tmp_path, monkeypatch):
