@@ -690,6 +690,28 @@ PAR_RING_SHAPES = ((2, 16, 1000, 24), (2, 3, 1000, 128))
 # the ring merges the chunks' bf16 outputs (and sums their bf16 grads) in
 # fp32: a few bf16 ulps against one K1 + K4 call, as a norm ratio
 PAR_RING_REL_TOL = 1e-2
+# Tensor parallelism (phase 20, parallel/tp.py), every shard of a block in
+# one process on the one card: the 4AA splits (heads, tp) and the MD17 DiT's
+# tp. The forward keeps the unsharded block's rounding points (linear2's
+# fp32 sums taken shard by shard, one rounding after them): the loss within
+# TP_LOSS_REL_TOL (first reading 8.8e-8 at 16 x 24 tp 2). The backward
+# cannot: each shard's grad of the block input is rounded to bf16 before
+# the shards' grads are summed (Megatron's and GSPMD's bf16 TP alike), so
+# the grads at B=2 are held to the limits of the kernel path against the
+# plain path (GRAD_NORM_REL_TOL, GRAD_TENSOR_REL_TOL; MD17's
+# MD17_GRAD_REL_TOL), which differ in rounding points the same way. A first
+# AdamW step moves each element by about lr wherever its grad is not ~0, so
+# an element whose grad is at that noise moves the other way: the moves,
+# beside the unsharded step's own repeat (its K4 dQ order; 2.3e-3), read
+# 4.118e-2 at time_in.in_layer.weight at 16 x 24 tp 2 on an H100
+# (its grad sums every block's modulation grads); TP_MOVED_REL_TOL bounds
+# them at 0.1, where a wrong shard (a head's grad lost or counted twice)
+# moves a whole tensor (CPU tests: fp32 TP equals one rank within 2e-4).
+TP_SPLITS = ((HEADS, 2), (HEADS, 4), (WIDE_HEADS, 3))
+TP_MD17 = 2
+TP_LOSS_REL_TOL = 1e-4
+TP_MOVED_REL_TOL = 0.1
+TP_SOLVE_BATCH = 8
 HOST_REPS = 5
 HOST_FLOAT_TOL = 1e-5
 # Kernel-path step times (ms, median) that stage_checks measured, by
@@ -1151,6 +1173,8 @@ def kernel_checks(dev, gen, table: KernelTable) -> None:
                       2 * rows * (d * (3 * d + m) + (d + m) * d),
                       2 * rows * d * 2 + ((3 * d + m) * d + d * (d + m)) * 2, gemm_ms)
     k8_width_checks(dev, gen, table)
+    k8_tp_checks(dev, gen, table)
+    tp_rank_kernel_checks(dev, gen, table)
 
 
 def k8_args(dev, gen, x, w1, b1, w2, b2, heads):
@@ -1216,6 +1240,149 @@ def k8_width_checks(dev, gen, table: KernelTable) -> None:
                   time_ms(lambda: fsb.reference_spatial_block(*args8)),
                   2 * rows * (d * (3 * d + m) + (d + m) * d),
                   2 * rows * d * 2 + ((3 * d + m) * d + d * (d + m)) * 2)
+
+
+def k8_tp_checks(dev, gen, table: KernelTable) -> None:
+    """K8's per-rank instance, a tensor-parallel rank's partial (Da = D/tp
+    attention columns of H/tp heads, Mr = M/tp MLP columns, linear2's fp32
+    product without b2), at the 4AA train step's [16000, 2, 384] for each
+    split of TP_SPLITS: rank 0's slice against the plain partial, a second
+    call bit-identical; the ranks' partials summed, rounded and + b2 against
+    the whole block's kernel; the kernel's time, bound, plain time and the
+    two bare cuBLAS GEMMs of the rank's shapes. The row of 16 x 24 at tp 2
+    is the summary's "K8 tp partial"."""
+    from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
+    from lam_slide_tpu_torch.parallel import tp
+
+    bf = torch.bfloat16
+    d, m = HIDDEN, MLP_RATIO * HIDDEN
+    frames = TRAIN_BATCH * T
+    rows = frames * L
+    x = _rand(gen, frames, L, d).to(dev, bf)
+    w1 = _rand(gen, 3 * d + m, d, scale=d ** -0.5).to(dev, bf)
+    b1 = _rand(gen, 3 * d + m, scale=0.1).to(dev, bf)
+    w2 = _rand(gen, d, d + m, scale=(d + m) ** -0.5).to(dev, bf)
+    b2 = _rand(gen, d, scale=0.1).to(dev, bf)
+    for heads, size in TP_SPLITS:
+        split = f"{heads}x{d // heads}"
+        key = "K8 tp partial" if (heads, size) == (HEADS, 2) else f"K8 tp partial {split} tp{size}"
+        whole = k8_args(dev, gen, x, w1, b1, w2, b2, heads)
+        da, mr = d // size, m // size
+        kw = {"attn_width": da, "partial": True}
+
+        def rank_args(r, whole=whole, size=size):
+            return (x, tp.slice_linear1(w1, d, m, size, r), tp.slice_linear1(b1, d, m, size, r),
+                    whole[3], whole[4], tp.slice_linear2(w2, d, m, size, r), None, whole[7],
+                    whole[8], heads // size, whole[10])
+
+        ranks = [rank_args(r) for r in range(size)]
+        before = (fsb.launches, fsb.tp_partial_launches)
+        parts = [fsb.fused_spatial_block(*a, **kw) for a in ranks]
+        again = fsb.fused_spatial_block(*ranks[0], **kw)
+        whole_out = fsb.fused_spatial_block(*whole)
+        torch.cuda.synchronize()
+        launched = (fsb.launches - before[0], fsb.tp_partial_launches - before[1])
+        want = fsb.reference_spatial_block(*ranks[0], **kw)
+        got = parts[0]
+        check(launched == (size + 2, size + 1), f"{key}: launches (K8, partial) {launched} for "
+              f"{size} partials, a repeat and the whole block")
+        check(got.dtype == torch.float32 and got.shape == x.shape, f"{key} shape/dtype")
+        check(torch.equal(got, again), f"{key}: a second call on the same inputs differs")
+        abs_err, rel_err = errors(got, want)
+        summed = sum(parts[1:], parts[0]).to(bf) + b2
+        _, sum_rel = errors(summed, whole_out)
+        check(rel_err <= K8_REL_TOL, f"{key} rel err {rel_err} > {K8_REL_TOL}")
+        check(sum_rel <= K8_REL_TOL, f"{key}: the summed partials vs the whole block, rel err "
+              f"{sum_rel} > {K8_REL_TOL}")
+        xr, w1r, w2r = x.view(rows, d), ranks[0][1], ranks[0][5]
+        a8 = _rand(gen, rows, da + mr).to(dev, bf)  # [attn | gelu] of the rank
+        gemm_ms = time_ms(lambda: (torch.matmul(xr, w1r.t()), torch.matmul(a8, w2r.t())))
+        dev_ms = device_ms(lambda: fsb.fused_spatial_block(*ranks[0], **kw), "spatial_sm90_kernel")
+        table.add(key, f"x [{frames},{L},{d}] {split} at tp {size}: rank 0's {heads // size} heads "
+                  f"(Da {da}) and {mr} MLP columns, w1 {list(w1r.shape)}, w2 {list(w2r.shape)}, "
+                  f"fp32 partial; Hopper route, rel {rel_err:.3e}, a second call bit-identical, "
+                  f"the {size} partials summed + b2 vs the whole block's kernel rel {sum_rel:.3e}, "
+                  f"device time {dev_ms:.4f} ms; library none (the two bare cuBLAS GEMMs of the "
+                  f"rank, x @ w1^T and [attn|gelu] @ w2^T: {gemm_ms:.4f} ms)", abs_err,
+                  f"rel tol {K8_REL_TOL}",
+                  time_ms(lambda: fsb.fused_spatial_block(*ranks[0], **kw)),
+                  time_ms(lambda: fsb.reference_spatial_block(*ranks[0], **kw)),
+                  2 * rows * (d * (3 * da + mr) + (da + mr) * d),
+                  rows * d * 2 + rows * d * 4 + ((3 * da + mr) * d + d * (da + mr)) * 2, gemm_ms)
+        del parts, again, whole_out, want, got, summed, ranks
+
+
+# (key, module kernel, sequences, n, rank heads, dh): a tensor-parallel
+# rank's attention on its own views of linear1's output (q/k normed and
+# rotated as LatentDiT passes them, v a strided view), at the train steps
+# of phase 20: 4AA B=16 (B*L = 32 sequences of T=1000) at 16 x 24 tp 2 and
+# tp 4, 3 x 128 tp 3 (K5 on raw views), MD17 B=64 tp 2 (its spatial axis,
+# B*T = 1920 sequences of L=192, and its temporal axis, B*L = 12288 of T=30)
+TP_RANK_ATTENTION = (("K3 tp 16x24 tp2", "K3", 32, T, 8, 24),
+                     ("K3 tp 16x24 tp4", "K3", 32, T, 4, 24),
+                     ("K5 tp 3x128 tp3", "K5", 32, T, 1, 128),
+                     ("K3 tp md17 tp2", "K3", 1920, 192, 8, 16),
+                     ("K9 tp md17 tp2", "K9", 12288, MD17_T, 8, 16))
+# (key, rows, d, d_mid): K2 at a rank's MLP width, 4AA's temporal rows
+# (B*L*T) at M/tp for tp 2, 4 and 3, MD17's (B*T*L at the spatial axis) at tp 2
+TP_RANK_MLP = (("K2 tp 16x24 tp2", TRAIN_BATCH * L * T, HIDDEN, 384),
+               ("K2 tp 16x24 tp4", TRAIN_BATCH * L * T, HIDDEN, 192),
+               ("K2 tp 3x128 tp3", TRAIN_BATCH * L * T, HIDDEN, 256),
+               ("K2 tp md17 tp2", MD17_BATCH * MD17_T * 192, 256, 256))
+
+
+def tp_rank_kernel_checks(dev, gen, table: KernelTable) -> None:
+    """The kernels a tensor-parallel rank runs besides K8's partial, at its
+    widths (TP_RANK_ATTENTION, TP_RANK_MLP): each against its plain version
+    (K1's ulp and gain limits, K2_ATOL), on the TMA route (0 cp.async
+    launches; K2 by k2_check), K9 with its head groups at 8 heads."""
+    from lam_slide_tpu_torch.models.latent_dit import rope_cos_sin
+    from lam_slide_tpu_torch.ops import flash_attention as fa
+    from lam_slide_tpu_torch.ops import flash_normrope as fnr
+    from lam_slide_tpu_torch.ops import short_attention as tsa
+
+    bf = torch.bfloat16
+    for key, kernel, seqs, n, heads, dh in TP_RANK_ATTENTION:
+        da = heads * dh
+        g = torch.Generator(device=dev).manual_seed(SEED + 24)
+        qkv = torch.randn(seqs, n, 3 * da, generator=g, device=dev).to(bf)
+        if kernel == "K5":
+            q, k, v = (t.transpose(1, 2) for t in qkv.view(seqs, n, 3, heads, dh).unbind(2))
+            qs, ks = ((1 + 0.2 * _rand(gen, dh)).to(dev) for _ in range(2))
+            cos, sin = rope_cos_sin(n, dh, device=dev)
+            args = (q, k, v, qs, ks, cos, sin)
+            fn, plain = fnr.flash_attention_normrope, fnr.reference_attention_normrope
+            note = f"raw head-major views [{seqs},{heads},{n},{dh}] of qkv [{seqs},{n},{3 * da}]"
+        else:
+            q, k = (qkv[..., i * da:(i + 1) * da].contiguous() for i in range(2))
+            v = qkv[..., 2 * da:]
+            args = (q, k, v, heads)
+            fn, plain = ((fa.flash_attention_packed, fa.reference_attention_packed) if kernel == "K3"
+                         else (tsa.short_attention, tsa.reference_short_attention))
+            note = f"packed q/k [{seqs},{n},{da}], v a view of qkv [{seqs},{n},{3 * da}]"
+            if kernel == "K9":
+                note += (f", head groups fwd {tsa.fwd_heads_per_block(n, heads, dh)} / bwd "
+                         f"{tsa.bwd_heads_per_block(n, heads, dh)} of {heads}")
+        cp_before = (fa.sm90_cp_async_launches, fnr.sm90_cp_async_launches)
+        got, want = fn(*args), plain(*args)
+        torch.cuda.synchronize()
+        cp_async = (fa.sm90_cp_async_launches - cp_before[0],
+                    fnr.sm90_cp_async_launches - cp_before[1])
+        check(cp_async == (0, 0), f"{key}: cp.async launches {cp_async}")
+        check(torch.equal(got, fn(*args)), f"{key}: a second call on the same inputs differs")
+        abs_err, _, atol, k1_gain = k1_errors(got, want)
+        check_k1(abs_err, atol, k1_gain, key)
+        del got, want
+        table.add(key, f"{note}, {heads} x {dh}, TMA route, gain {k1_gain:.7f}, a second call "
+                  f"bit-identical", abs_err, f"atol {atol:.3e} = {K1_ULPS} bf16 ulps",
+                  time_ms(lambda: fn(*args), reps=5), time_ms(lambda: plain(*args), reps=2),
+                  4 * seqs * heads * n * n * dh, 4 * seqs * n * da * 2,
+                  exps=seqs * heads * n * n)
+        del qkv, q, k, v, args
+        torch.cuda.empty_cache()
+    for key, rows, d, d_mid in TP_RANK_MLP:
+        k2_check(dev, gen, table, key, rows, d, d_mid, plain_reps=3)
+        torch.cuda.empty_cache()
 
 
 def _grad_errors(got, want):
@@ -4247,7 +4414,7 @@ def md17_train_phase(dev, smi, reset_counts, read_counts):
     print(f"md17_train stage 2: val hook on the EMA weights ({len(run2.val_loaders)} molecules, "
           f"K={MD17_K}): {val} in {time.perf_counter() - t0:.3f} s")
     check(all(math.isfinite(x) for x in val.values()), "non-finite val ADE/FDE")
-    return counts1, counts2
+    return counts1, counts2, (run2, batch2)
 
 
 def k4_f32_kernels(dh: int, nq: int, nk: int) -> int:
@@ -5148,19 +5315,25 @@ def trajio_phase(dev, smi, reset_counts, read_counts):
         shutil.rmtree(ws, ignore_errors=True)
 
 
-def _moved_err(model, start, ref_params) -> tuple:
-    """(worst ||p - p_ref|| / ||p_ref - p0|| over the tensors, its name)."""
+def _whole_params(model) -> dict:
+    """The whole parameters of a model, fp32, under the one-rank names: an
+    FSDP2 model's DTensors and a tensor-parallel model's shards gathered."""
+    from lam_slide_tpu_torch.parallel import gather_tree
     from lam_slide_tpu_torch.parallel.fsdp import full, reshard, uses_fsdp
 
     if uses_fsdp(model):
         reshard(model)
+    params = {k: full(p).detach().float().clone() for k, p in model.named_parameters()}
+    return gather_tree(model, params)
+
+
+def _moved_err(params, start, ref_params) -> tuple:
+    """(worst ||p - p_ref|| / ||p_ref - p0|| over the tensors, its name)."""
     worst = (0.0, "")
-    for name, p in model.named_parameters():
+    for name, p in params.items():
         moved = (ref_params[name] - start[name]).norm().item()
-        if moved == 0:
-            continue
-        err = (full(p).detach().float() - ref_params[name]).norm().item() / moved
-        worst = max(worst, (err, name))
+        if moved:
+            worst = max(worst, ((p - ref_params[name]).norm().item() / moved, name))
     return worst
 
 
@@ -5235,8 +5408,8 @@ def parallel_phase(dev, smi, make_model, pep_state, reset_counts, read_counts):
                                for k, v in state.model.named_parameters()}
                         results[mode] = (loss, (0.0, ""), counts, secs, ran)
                     else:
-                        results[mode] = (loss, _moved_err(state.model, start, ref), counts,
-                                         secs, ran)
+                        results[mode] = (loss, _moved_err(_whole_params(state.model), start, ref),
+                                         counts, secs, ran)
                     del state, step
                     torch.cuda.empty_cache()
                 ref_loss, _, ref_counts, _, _ = results["plain"]
@@ -5332,6 +5505,181 @@ def parallel_phase(dev, smi, make_model, pep_state, reset_counts, read_counts):
     check(counts["K8"] > 0 and counts["K2"] > 0, f"sampling hook launches {counts}")
 
 
+def _tp_grads(model, loss_fn, batch) -> dict:
+    """The whole (gathered) grads of one backward of ``loss_fn`` on ``batch``."""
+    from lam_slide_tpu_torch.parallel import gather_tree
+
+    loss_fn(model, batch, torch.Generator(device=batch["x1" if "x1" in batch else "pos"].device)
+            .manual_seed(SEED + 1), True)[0].backward()
+    grads = {k: p.grad.detach().float().clone() for k, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return gather_tree(model, grads)
+
+
+def _tp_grad_errors(got, want) -> tuple:
+    """(global norm rel err, worst per-tensor ||g - g_ref|| / ||g_ref||, its name)."""
+    norm_err = abs(_global_norm(got) - _global_norm(want)) / _global_norm(want)
+    worst = max((((got[k] - w).norm() / w.norm()).item(), k) for k, w in want.items()
+                if w.norm() > 0)
+    return norm_err, *worst
+
+
+def _tp_step(state, step, batch, reset_counts, read_counts):
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch, SEED)
+    loss = metrics["loss"].item()
+    secs = time.perf_counter() - t0
+    return state, loss, read_counts(), secs
+
+
+def tp_phase(dev, smi, make_model, md17_run, reset_counts, read_counts) -> dict:
+    """Phase 20: tensor parallelism (parallel/tp.py) with every shard of a
+    block in this process on the one card (a card hosts one NCCL rank):
+    the 4AA stage-2 B=16 train step at each split of TP_SPLITS and the MD17
+    stage-2 B=64 step at tp TP_MD17, each against the unsharded step on the
+    same weights and draws (the loss, the parameter moves, beside the
+    unsharded step's own repeat) with its launches; then an Euler-10 B=8
+    solve through the shards at 16 x 24 tp 2 against the unsharded solve.
+    Every kernel of a block runs once a shard (K8 as the partial instance,
+    K2 at d_mid = M/tp, K1/K3, K5, K4, K6, K9 on the shard's heads, all on
+    the TMA route), K7 once a layer. Returns the launches of the 16 x 24 tp
+    2 step."""
+    import copy
+
+    from lam_slide_tpu_torch.parallel import tp
+    from lam_slide_tpu_torch.train import create_train_state, make_train_step
+    from lam_slide_tpu_torch.transport import Sampler, create_transport
+
+    main_counts = None
+    for heads in (HEADS, WIDE_HEADS):
+        split = f"{heads}x{HIDDEN // heads}"
+        results = {}
+        for mode in ("plain", "repeat", *(f"tp{s}" for h, s in TP_SPLITS if h == heads)):
+            state, step, transport = train_state(make_model, heads)
+            if mode == "plain":
+                start = _whole_params(state.model)
+            batch = train_batch(TRAIN_BATCH, dev, transport, False, SEED)
+            size = int(mode[2:]) if mode.startswith("tp") else 1
+            if size > 1:
+                state = tp.shard_train_state(state, size=size)
+            grads = _tp_grads(state.model, si_loss_fn(transport),
+                              train_batch(GRAD_BATCH, dev, transport, True, SEED + 1))
+            state, loss, counts, secs = _tp_step(state, step, batch, reset_counts, read_counts)
+            params = _whole_params(state.model)
+            if mode == "plain":
+                ref, ref_grads = params, grads
+            results[mode] = (size, loss, _moved_err(params, start, ref),
+                             _tp_grad_errors(grads, ref_grads), counts, secs)
+            del state, step, params, grads
+            torch.cuda.empty_cache()
+        _, ref_loss, _, _, ref_counts, ref_secs = results["plain"]
+        for mode, (size, loss, (moved, where), gerr, counts, secs) in results.items():
+            rel = abs(loss - ref_loss) / abs(ref_loss)
+            want = {k: v if k.startswith("K7") else v * size for k, v in ref_counts.items()}
+            want["K8 tp partial"] = ref_counts["K8"] * size if size > 1 else 0
+            cp_async = {k: v for k, v in counts.items() if "cp.async" in k}
+            print(f"tp {split} B={TRAIN_BATCH} {mode} step: loss {loss:.6f} (rel err {rel:.3e}, "
+                  f"tol {TP_LOSS_REL_TOL}); grads at B={GRAD_BATCH} vs unsharded: norm rel err "
+                  f"{gerr[0]:.3e} (tol {GRAD_NORM_REL_TOL['bf16']}), worst tensor {gerr[1]:.3e} "
+                  f"at {gerr[2]} (tol {GRAD_TENSOR_REL_TOL['bf16']}); worst parameter move err "
+                  f"{moved:.3e} at {where or '-'} (tol {TP_MOVED_REL_TOL}); {secs * 1e3:.1f} ms "
+                  f"(first step of its state; unsharded {ref_secs * 1e3:.1f} ms); launches K8 "
+                  f"{counts['K8']} (tp partial {counts['K8 tp partial']}), K2 {counts['K2']}, "
+                  f"K1 {counts['K1']}, K5 {counts['K5']}, K4 {counts['K4 kv']}, K6 "
+                  f"{counts['K6']}, K7 {counts['K7']}, cp.async {cp_async} | {smi}")
+            check(rel <= TP_LOSS_REL_TOL, f"tp {split} {mode}: loss {loss} vs {ref_loss}")
+            check(gerr[0] <= GRAD_NORM_REL_TOL["bf16"] and gerr[1] <= GRAD_TENSOR_REL_TOL["bf16"],
+                  f"tp {split} {mode}: grads vs unsharded {gerr}")
+            check(moved <= TP_MOVED_REL_TOL, f"tp {split} {mode}: {where} moved {moved} off "
+                  f"the unsharded step")
+            check(counts == want, f"tp {split} {mode}: launches {counts} != {want}")
+            check(not any(cp_async.values()), f"tp {split} {mode}: cp.async launches {cp_async}")
+            if (heads, size) == (HEADS, 2):
+                main_counts = counts
+
+    # the MD17 stage-2 DiT (depth 4, hidden 256, 16 x dh 16; its spatial
+    # axis L=192 on K3, its temporal axis T=30 on K9) from phase 10's run
+    run2, batch2 = md17_run
+    base = copy.deepcopy(run2.model)
+    results = {}
+    for mode in ("plain", "repeat", f"tp{TP_MD17}"):
+        model = copy.deepcopy(base)
+        state = create_train_state(model, run2.tx)
+        step = make_train_step(run2.loss_fn, run2.tx, ema_decay=run2.trainer_cfg.ema_decay)
+        if mode == "plain":
+            start = _whole_params(model)
+        size = int(mode[2:]) if mode.startswith("tp") else 1
+        if size > 1:
+            state = tp.shard_train_state(state, size=size)
+        grads = _tp_grads(state.model, run2.loss_fn, {k: v[:GRAD_BATCH] for k, v in batch2.items()})
+        state, loss, counts, secs = _tp_step(state, step, batch2, reset_counts, read_counts)
+        params = _whole_params(state.model)
+        if mode == "plain":
+            ref, ref_grads = params, grads
+        results[mode] = (size, loss, _moved_err(params, start, ref),
+                         _tp_grad_errors(grads, ref_grads), counts, secs)
+        del state, step, model, params, grads
+        torch.cuda.empty_cache()
+    _, ref_loss, _, _, ref_counts, ref_secs = results["plain"]
+    for mode, (size, loss, (moved, where), gerr, counts, secs) in results.items():
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        cp_async = {k: v for k, v in counts.items() if "cp.async" in k}
+        print(f"tp md17 16x16 B={MD17_BATCH} {mode} step: loss {loss:.6f} (rel err {rel:.3e}, "
+              f"tol {TP_LOSS_REL_TOL}); grads at B={GRAD_BATCH} vs unsharded: norm rel err "
+              f"{gerr[0]:.3e} (tol {MD17_GRAD_REL_TOL[0]}), worst tensor {gerr[1]:.3e} at "
+              f"{gerr[2]} (tol {MD17_GRAD_REL_TOL[1]}); worst parameter move err {moved:.3e} at "
+              f"{where or '-'} (tol {TP_MOVED_REL_TOL}); {secs * 1e3:.1f} ms (unsharded "
+              f"{ref_secs * 1e3:.1f} ms); launches K1 {counts['K1']}, K2 {counts['K2']}, K9 "
+              f"{counts['K9']}, K9 bwd {counts['K9 bwd']}, K4 {counts['K4 kv']}, K7 "
+              f"{counts['K7']}, cp.async {cp_async} | {smi}")
+        check(rel <= TP_LOSS_REL_TOL, f"tp md17 {mode}: loss {loss} vs {ref_loss}")
+        check(gerr[0] <= MD17_GRAD_REL_TOL[0] and gerr[1] <= MD17_GRAD_REL_TOL[1],
+              f"tp md17 {mode}: grads vs unsharded {gerr}")
+        check(moved <= TP_MOVED_REL_TOL, f"tp md17 {mode}: {where} moved {moved}")
+        for key in ("K2", "K9", "K9 bwd"):  # kernels of the DiT blocks alone
+            check(counts[key] == ref_counts[key] * size,
+                  f"tp md17 {mode}: {key} {counts[key]} != {size} x {ref_counts[key]}")
+        check(not any(cp_async.values()), f"tp md17 {mode}: cp.async launches {cp_async}")
+    del base
+
+    # an Euler-10 solve through the sharded forward, against the unsharded
+    euler = Sampler(create_transport(path_type="GVP", prediction="data")).sample_ode(
+        sampling_method="euler", num_steps=NUM_STEPS)
+    model = make_model(HEADS)
+    noise, x_cond, mask = make_inputs(TP_SOLVE_BATCH, dev, torch.Generator().manual_seed(SEED + 20))
+    kw = dict(x_cond=x_cond, x_cond_mask=mask)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = euler(noise, model, **kw)
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        tp.shard_model(model, tp.in_process(2))
+        reset_counts()
+        t0 = time.perf_counter()
+        got = euler(noise, model, **kw)
+        torch.cuda.synchronize()
+        tp_s = time.perf_counter() - t0
+    counts = read_counts()
+    _, rel = errors(got, want)
+    evals = DEPTH * 2 * DRIFT_EVALS
+    print(f"tp Euler-{NUM_STEPS} {HEADS}x{HIDDEN // HEADS} B={TP_SOLVE_BATCH} tp 2: out "
+          f"{list(got.shape)} vs the unsharded solve rel err {rel:.3e} (tol {MODEL_REL_TOL}); "
+          f"solve {tp_s:.3f} s (unsharded {whole_s:.3f} s, each its first); launches K8 "
+          f"{counts['K8']} (tp partial {counts['K8 tp partial']}), K2 {counts['K2']}, K1 "
+          f"{counts['K1']}, K7 {counts['K7']} | {smi}")
+    check(bool(torch.isfinite(got).all()) and rel <= MODEL_REL_TOL,
+          f"tp Euler solve rel err {rel}")
+    check(counts["K8 tp partial"] == evals and counts["K2"] == evals and counts["K1"] == evals,
+          f"tp Euler solve launches {counts}: not {evals} K8 partials, K2 and K1")
+    del model
+    torch.cuda.empty_cache()
+    return main_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -5381,7 +5729,8 @@ def main() -> int:
                 "K4 fp32 wide": (fa, "bwd_fp32_wide_launches"),
                 "K6 fp32": (fnr, "bwd_fp32_launches"),
                 "K6 fp32 wide": (fnr, "bwd_fp32_wide_launches"),
-                "K9 bwd fp32": (tsa, "bwd_fp32_launches")}
+                "K9 bwd fp32": (tsa, "bwd_fp32_launches"),
+                "K8 tp partial": (fsb, "tp_partial_launches")}
 
     def reset_counts():
         for mod, attr in counters.values():
@@ -5578,7 +5927,7 @@ def main() -> int:
     phase_done("md17")
 
     # 10. MD17 training, both stages
-    s1_counts, s2_counts = md17_train_phase(dev, smi, reset_counts, read_counts)
+    s1_counts, s2_counts, md17_run = md17_train_phase(dev, smi, reset_counts, read_counts)
     phase_done("md17_train")
 
     # 11. the paths of K10 (the fused temporal block) and K11
@@ -5625,6 +5974,12 @@ def main() -> int:
     parallel_phase(dev, smi, make_model, pep_state, reset_counts, read_counts)
     del pep_state
     phase_done("parallel")
+
+    # 20. tensor parallelism: the 4AA and MD17 stage-2 steps with every
+    # shard of a block on the one card, an Euler solve through the shards
+    tp_counts = tp_phase(dev, smi, make_model, md17_run, reset_counts, read_counts)
+    del md17_run
+    phase_done("tp")
 
     sources = {
         "K1": ("flash_attention_fwd", "flash_fwd_sm90.cu", "flash_attention.py:37"),
@@ -5680,6 +6035,9 @@ def main() -> int:
         "K6 fp32": ("flash_attention_normrope_backward (fp32 operands: K4-fp32's "
                     "wide kernel on the forward's q_t/k_t)", "flash_attention_bwd.cu",
                     "flash_normrope.py:249"),
+        "K8 tp partial": ("fused_spatial_block (a tensor-parallel rank's fp32 partial: H/tp "
+                          "heads, M/tp MLP columns, no b2)", "fused_spatial_block_sm90.cu",
+                          "fused_spatial_block.py:108"),
     }
     # launches on the main paths: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve
     # (K1 and K3 one binary, flash_fwd_sm90.cu, whose launches it counts), K5
@@ -5694,7 +6052,8 @@ def main() -> int:
     # and K9 in fp32 from phase 14's stage-2 run (its --test pass); K8 in
     # fp32 from phase 15's eval (two dopri5 windows of the fp32 DiT); K5 in
     # fp32, its fp32 transform and K1's register-tiled fp32 kernel under it
-    # from phase 15's eval at 3 x 128
+    # from phase 15's eval at 3 x 128; K8's tensor-parallel partial from
+    # phase 20's 16 x 24 step at tp 2
     md17_train = {key: s1_counts[key] + s2_counts[key] for key in s1_counts}
     main_counts = dict(launches[HEADS], K1=launches[HEADS]["K1 sm90"],
                        K3=launches[HEADS]["K1 sm90"], K5=launches[WIDE_HEADS]["K5 sm90"],
@@ -5716,7 +6075,8 @@ def main() -> int:
                           "K9 fp32 bwd": f32_counts["md17 16x16"]["K9 bwd fp32"],
                           "K4 fp32 dh128": (f32_counts["4AA 3x128"]["K6 fp32 wide"]
                                             + f32_counts["4AA 3x128"]["K4 fp32 wide"]),
-                          "K6 fp32": f32_counts["4AA 3x128"]["K6"]})
+                          "K6 fp32": f32_counts["4AA 3x128"]["K6"],
+                          "K8 tp partial": tp_counts["K8 tp partial"]})
     idle = [key for key in sources if not main_counts[key] > 0]
     check(not idle, f"kernels launched no time on their main paths: {idle}")
     kernels = [

@@ -11,6 +11,15 @@
 //   attn = softmax(q k^T * scale) v per head, over the L positions
 //   out  = bf16(bf16([attn | gelu(mlp)] @ w2^T) + b2)      [rows, D]
 //
+// Under tensor parallelism (parallel/tp.py) a rank holds whole heads and a
+// slice of the MLP: q, k and v of Da = (H / tp) * dh columns and Mr = M / tp
+// MLP columns, so linear1 is [3 Da + Mr, D] and linear2 [D, Da + Mr]; the
+// input and output stay D wide. With `partial` set the kernel stores the
+// fp32 sum [attn | gelu(mlp)] @ w2^T itself, unrounded and without b2: the
+// model group adds the ranks' partials, then rounds once and adds b2, the
+// rounding points of the whole block. At Da = D without `partial` it is
+// the whole block, the same instructions as before the parameter existed.
+//
 // What bounds it on the H100: 2 * rows * D * (3D + M + D + M) FLOPs (37.7
 // GFLOP at 16,000 positions of the 4AA DiT, 0.038 ms at 989 TFLOP/s)
 // against 1.5 KB of x and output a position: two GEMMs back to back, bound
@@ -115,7 +124,8 @@ struct alignas(64) Args {
   const float *qs, *ks, *cos, *sin;
   const unsigned short* table;  // the GELU table
   bf16* out;
-  int R, L, M, rt, tiles, kp, s1, s2, n_attn, n_mlp, b1_pairs;
+  float* out32;  // the fp32 partial (partial set), else null
+  int R, L, M, DA, rt, tiles, kp, s1, s2, n_attn, n_mlp, b1_pairs, partial;
   float scale;
 };
 
@@ -471,7 +481,7 @@ __device__ __forceinline__ void consume(const Args& a, const Smem& sm, int my_ti
       for (int part = 0; part < 3; ++part) {
         gemm1<SW, SB>(s, sm, a, wg * SW, u1);
         if (part == 0) named_sync(BAR_TILE, CONSUMERS);  // both linear2 of the last chunk are done
-        bias_epilogue<SW>(s, a, part * D + c * SB + wg * SW, sm.stg + part * (SB / AP) * A_PANEL,
+        bias_epilogue<SW>(s, a, part * a.DA + c * SB + wg * SW, sm.stg + part * (SB / AP) * A_PANEL,
                           wg * SW);
       }
       named_sync(BAR_TILE, CONSUMERS);
@@ -489,13 +499,28 @@ __device__ __forceinline__ void consume(const Args& a, const Smem& sm, int my_ti
         gemm1<SW, SB>(s, sm, a, wg * SW, u1);
         if (part == 1 && c + 1 == a.n_mlp) warp_arrive(sm.xempty);  // the tile's last step
         if (part == 0) named_sync(BAR_TILE, CONSUMERS);
-        gelu_epilogue<SW>(s, a, 3 * D + mcol, mcol, sm.stg, part * SB + wg * SW);
+        gelu_epilogue<SW>(s, a, 3 * a.DA + mcol, mcol, sm.stg, part * SB + wg * SW);
       }
       fence_proxy_async();
       named_sync(BAR_TILE, CONSUMERS);
       gemm2<NO>(o, sm, a, 2 * SB / AP, wg, u2);
     }
-    // epilogue: out = bf16(bf16(acc) + b2), rows g and g + 8 of each warp's 16
+    // epilogue, rows g and g + 8 of each warp's 16: the fp32 partial acc,
+    // or out = bf16(bf16(acc) + b2)
+    if (a.partial) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = 16 * warp + g + 8 * rr;
+        const long long grow = static_cast<long long>(t) * a.rt + row;
+        if (row >= a.rt || grow >= a.R) continue;
+        float* dst = a.out32 + grow * D + wg * NO;
+#pragma unroll
+        for (int j = 0; j < NO / 8; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * j + 2 * cq) =
+              make_float2(o[4 * j + 2 * rr], o[4 * j + 2 * rr + 1]);
+      }
+      continue;
+    }
     const unsigned short* b2 = reinterpret_cast<const unsigned short*>(a.b2) + wg * NO;
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -570,7 +595,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         for (int step = 0; step < (attn ? 3 : 2); ++step) {
           // the step's first w1 row: q, k and v of the head group, or the
           // MLP chunk's two halves
-          const int r0 = attn ? step * D + c * SB : 3 * D + (c - a.n_attn) * 2 * SB + step * SB;
+          const int r0 =
+              attn ? step * a.DA + c * SB : 3 * a.DA + (c - a.n_attn) * 2 * SB + step * SB;
           for (int p = 0; p < a.kp; ++p, ++u1) {
             const int st = u1 % a.s1;
             mbar_wait(&sm.empty1[st], ((u1 / a.s1) & 1) ^ 1);
@@ -578,7 +604,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             tma_load_4d(sm.w1 + st * sm.w1_stage, &a.mw1, &sm.full1[st], p * XP, r0, 0, 0);
           }
         }
-        const int k0 = attn ? c * SB : D + (c - a.n_attn) * 2 * SB;  // the chunk's w2 column
+        const int k0 = attn ? c * SB : a.DA + (c - a.n_attn) * 2 * SB;  // the chunk's w2 column
         for (int q = 0; q < (attn ? SB : 2 * SB) / AP; ++q, ++u2) {
           const int st = u2 % a.s2;
           mbar_wait(&sm.empty2[st], ((u2 / a.s2) & 1) ^ 1);
@@ -606,25 +632,28 @@ cudaError_t launch(const Args& a, size_t smem, cudaStream_t stream) {
 
 }  // namespace
 
-// x, out: bf16 [N, L, D] contiguous, x 16-byte aligned; w1: bf16 [3D + M, D]
-// rows with row stride ld1 (nn.Linear layout), b1: bf16 [3D + M]; w2: bf16
-// [D, D + M] rows with row stride ld2, b2: bf16 [D]; qs, ks: fp32 [D / H];
-// cos, sin: fp32 [L, D / H / 2] row-major; table: scratch for the GELU
-// table (GELU_ENTRIES bf16). 1 <= L <= 8, M a multiple of 16, (D, D / H) one
-// of the instances of group_for; w1/w2 16-byte aligned with strides that
-// are multiples of 8. The plan (ops/fused_spatial_block.py sm90_plan): s1
-// w1 stages and s2 w2 stages, 2..6 each. Returns cudaGetLastError(), or
+// x: bf16 [N, L, D] contiguous, 16-byte aligned; H heads of dh = DA / H
+// columns, DA a multiple of the head group and at most D (D: the whole
+// block); w1: bf16 [3 DA + M, D] rows with row stride ld1 (nn.Linear
+// layout), b1: bf16 [3 DA + M]; w2: bf16 [D, DA + M] rows with row stride
+// ld2, b2: bf16 [D] (unread with `partial`); qs, ks: fp32 [dh]; cos, sin:
+// fp32 [L, dh / 2] row-major; out: bf16 [N, L, D], or with `partial` fp32
+// [N, L, D] (the partial sum, no b2); table: scratch for the GELU table
+// (GELU_ENTRIES bf16). 1 <= L <= 8, M a multiple of 16, (D, dh) one of the
+// instances of group_for; w1/w2 16-byte aligned with strides that are
+// multiples of 8. The plan (ops/fused_spatial_block.py sm90_plan): s1 w1
+// stages and s2 w2 stages, 2..6 each. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for what it does not take.
 extern "C" int lam_spatial_block_sm90(const void* x, const void* w1, const void* b1,
                                       const void* qs, const void* ks, const void* w2,
                                       const void* b2, const void* cos, const void* sin, void* out,
                                       void* table, long long N, int L, int D, int M, int H,
                                       long long ld1, long long ld2, float scale, int s1, int s2,
-                                      void* stream) {
-  const int dh = H > 0 && D % H == 0 ? D / H : 0;
+                                      int DA, int partial, void* stream) {
+  const int dh = H > 0 && DA > 0 && DA % H == 0 ? DA / H : 0;
   const int sb = group_for(D, dh);
   if (N <= 0 || L < 1 || L > MAXL || N * L >= (1LL << 31) || M <= 0 || M % 16 || sb == 0 ||
-      s1 < 2 || s1 > MAX_STAGES || s2 < 2 || s2 > MAX_STAGES)
+      DA > D || DA % sb || s1 < 2 || s1 > MAX_STAGES || s2 < 2 || s2 > MAX_STAGES)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(D, sb, s1, s2);
   if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
@@ -636,16 +665,19 @@ extern "C" int lam_spatial_block_sm90(const void* x, const void* w1, const void*
   a.cos = static_cast<const float*>(cos);
   a.sin = static_cast<const float*>(sin);
   a.table = static_cast<const unsigned short*>(table);
-  a.out = static_cast<bf16*>(out);
+  a.partial = partial != 0;
+  a.out = a.partial ? nullptr : static_cast<bf16*>(out);
+  a.out32 = a.partial ? static_cast<float*>(out) : nullptr;
   a.R = static_cast<int>(N * L);
   a.L = L;
   a.M = M;
+  a.DA = DA;
   a.rt = BM / L * L;
   a.tiles = (a.R + a.rt - 1) / a.rt;
   a.kp = D / XP;
   a.s1 = s1;
   a.s2 = s2;
-  a.n_attn = D / sb;
+  a.n_attn = DA / sb;
   a.n_mlp = (M + 2 * sb - 1) / (2 * sb);
   a.scale = scale;
   a.b1_pairs = reinterpret_cast<unsigned long long>(b1) % 4 == 0;
@@ -654,8 +686,8 @@ extern "C" int lam_spatial_block_sm90(const void* x, const void* w1, const void*
   // x and w1 in boxes of one 64-column panel (64 and SB rows), w2 in boxes
   // of one 32-column panel of D / 2 rows
   if (!encode_tile_map(&a.mx, x, 1, 1, a.R, D, 0, 0, D, BM, XP) ||
-      !encode_tile_map(&a.mw1, w1, 1, 1, 3 * D + M, D, 0, 0, ld1, sb, XP) ||
-      !encode_tile_map(&a.mw2, w2, 1, 1, D, D + M, 0, 0, ld2, D / 2, AP))
+      !encode_tile_map(&a.mw1, w1, 1, 1, 3 * DA + M, D, 0, 0, ld1, sb, XP) ||
+      !encode_tile_map(&a.mw2, w2, 1, 1, D, DA + M, 0, 0, ld2, D / 2, AP))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = fill_gelu_table(static_cast<unsigned short*>(table), st);

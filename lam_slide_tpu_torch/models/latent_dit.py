@@ -33,6 +33,13 @@ so K8, K10, K5 and K3 are skipped (latent_dit.py:386-408).
 ``share_weights=True`` applies one layer ``depth`` times (state_dict keys
 ``blocks.0.*``, latent_dit.py:657-661).
 
+Tensor parallelism (parallel/tp.py) splits a ``ParallelMLPAttention`` into
+shards of whole heads and MLP slices; each shard runs the block's kernels at
+its own widths and returns linear2's fp32 partial without b2 (K8 with
+``partial``, or K3/K1, K5, K9 on its heads and K2 at ``d_mid = M/tp``), the
+model group adds them, and the block rounds once and adds b2 as the
+unsharded block does.
+
 ``backend="auto"`` lets CUDA tensors launch the kernels; ``"plain"`` runs the
 plain PyTorch versions everywhere (for comparisons and timing). Under
 autograd each kernel runs inside its ``torch.autograd.Function``.
@@ -67,6 +74,7 @@ from lam_slide_tpu_torch.ops.fused_adaln import (
 )
 from lam_slide_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
 from lam_slide_tpu_torch.ops.fused_spatial_block import (
+    TP_F32_TODO,
     fused_spatial_block,
     reference_spatial_block,
 )
@@ -164,25 +172,51 @@ class ParallelMLPAttention(nn.Module):
         self.linear1 = linear(d, 3 * d + self.mlp_hidden, kinit, gen)
         self.linear2 = linear(d + self.mlp_hidden, d, kinit, gen)
         self.norm = QKNorm(d // num_heads)
+        self.tp = None  # parallel/tp.py: how the shards meet, once sharded
 
     def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                 backend: str = "auto") -> torch.Tensor:
-        d, h = self.hidden_size, self.num_heads
-        dh = d // h
-        b, n = x.shape[0], x.shape[1]
-        scale = self.qk_scale if self.qk_scale is not None else dh ** -0.5
         dt = self.dtype
+        b2 = self.linear2.bias.to(dt)
+        qs, ks = self.norm.query_norm.scale, self.norm.key_norm.scale
+        if self.tp is not None:
+            # the input and the QK-norm scales enter the shards, which each
+            # give back their part of the grads, summed over the model group
+            xd, qs, ks = (self.tp.enter(t) for t in (x.to(dt), qs, ks))
+            if xd.is_cuda and dt == torch.float32:
+                raise NotImplementedError(f"ParallelMLPAttention: {TP_F32_TODO}")
+            h = self.num_heads // self.tp.size
+            partials = [self._partial(xd, s.linear1.weight, s.linear1.bias, s.linear2.weight,
+                                      qs, ks, h, cos, sin, backend) for s in self.shards]
+            return self.tp.reduce(partials).to(dt) + b2
         xd = x.to(dt)
-        q_scale = self.norm.query_norm.scale
-        k_scale = self.norm.key_norm.scale
+        w1, b1, w2 = self.linear1.weight, self.linear1.bias, self.linear2.weight
+        if x.shape[1] <= self.packed_threshold and not self.linear_mode:
+            block = reference_spatial_block if backend == "plain" else fused_spatial_block
+            return block(xd, w1.to(dt), b1.to(dt), qs, ks, w2.to(dt), b2, cos, sin,
+                         self.num_heads, float(self._scale()))
+        return self._partial(xd, w1, b1, w2, qs, ks, self.num_heads, cos, sin,
+                             backend).to(dt) + b2
+
+    def _scale(self) -> float:
+        dh = self.hidden_size // self.num_heads
+        return self.qk_scale if self.qk_scale is not None else dh ** -0.5
+
+    def _partial(self, xd, w1, b1, w2, q_scale, k_scale, h, cos, sin, backend) -> torch.Tensor:
+        """linear2's fp32 product, without b2, of the block over ``h`` heads
+        and the MLP columns of ``w1 [3Da+Mr, D]``, ``b1`` and ``w2 [D, Da+Mr]``
+        (the whole block, or a tensor-parallel shard)."""
+        dt = self.dtype
+        dh = self.hidden_size // self.num_heads
+        d = h * dh  # Da: the q, k and v columns of the h heads
+        b, n = xd.shape[0], xd.shape[1]
+        scale = self._scale()
         plain = backend == "plain"
-        w1 = self.linear1.weight.to(dt)
-        b1 = self.linear1.bias.to(dt)
-        w2 = self.linear2.weight.to(dt)
+        w1, b1, w2 = w1.to(dt), b1.to(dt), w2.to(dt)
         if n <= self.packed_threshold and not self.linear_mode:
             block = reference_spatial_block if plain else fused_spatial_block
-            return block(xd, w1, b1, q_scale, k_scale, w2, self.linear2.bias.to(dt), cos, sin,
-                         h, float(scale))
+            return block(xd, w1, b1, q_scale, k_scale, w2, None, cos, sin, h, float(scale),
+                         attn_width=d, partial=True)
 
         # linear1 computes only the q/k/v columns here; the MLP branch reads x.
         qkv = torch.matmul(xd, w1[:3 * d].t()) + b1[:3 * d]
@@ -215,8 +249,7 @@ class ParallelMLPAttention(nn.Module):
 
         mlp_fn = reference_mlp if plain else fused_mlp
         out32 = torch.matmul(attn.float(), w2[:, :d].float().t())
-        out32 = out32 + mlp_fn(xd, w1[3 * d:].t(), b1[3 * d:], w2[:, d:].t())
-        return out32.to(dt) + self.linear2.bias.to(dt)
+        return out32 + mlp_fn(xd, w1[3 * d:].t(), b1[3 * d:], w2[:, d:].t())
 
 
 def _adaln_fn(backend: str):

@@ -51,7 +51,7 @@ SIGNATURES = {
     "lam_adaln_fwd": [_P] * 7 + [_LP, _F, _I, _P],
     "lam_adaln_fwd_f32": [_P] * 7 + [_LP, _F, _I, _P],
     "lam_spatial_block_wmma": [_P] * 10 + [_L, _I, _I, _I, _I, _L, _L, _F, _P],
-    "lam_spatial_block_sm90": [_P] * 11 + [_L, _I, _I, _I, _I, _L, _L, _F, _I, _I, _P],
+    "lam_spatial_block_sm90": [_P] * 11 + [_L, _I, _I, _I, _I, _L, _L, _F, _I, _I, _I, _I, _P],
     "lam_spatial_block_f32": [_P] * 10 + [_L, _I, _I, _I, _I, _L, _L, _F, _I, _P],
     "lam_spatial_block_f32_tiled": [_P] * 10 + [_L, _I, _I, _I, _I, _F, _I, _I, _P],
     "lam_short_attention_fwd": [_P] * 4 + [_I] * 5 + [_L] * 8 + [_F, _P],

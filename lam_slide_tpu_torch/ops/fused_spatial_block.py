@@ -47,6 +47,15 @@ stage-2 training of both registries).
 
 Weights are in torch ``nn.Linear`` layout: ``w1 [3D+M, D]``, ``w2 [D, D+M]``.
 
+Tensor parallelism (parallel/tp.py): a rank's block holds ``n_heads``
+whole heads, ``attn_width`` = Da of their q, k and v columns, and Mr MLP
+columns, so ``w1 [3Da+Mr, D]`` and ``w2 [D, Da+Mr]``; with ``partial`` the
+call returns the fp32 sum ``[attn | gelu(mlp)] @ w2^T`` of its slice,
+unrounded and without b2, which the model group adds up before the one
+rounding and ``+ b2`` of the whole block. On the card only the Hopper
+route takes it: bf16, an instance for (D, Da / n_heads), Da a multiple of
+its head group; fp32 tensor parallelism raises (``TP_F32_TODO``).
+
 Gradients: on CUDA tensors that need one, the kernel runs inside
 ``_SpatialBlock``, whose backward is autograd of ``reference_spatial_block``
 on the saved inputs (``_fused_bwd``, fused_spatial_block.py:225-230); no
@@ -55,8 +64,10 @@ backward kernel.
 Counters (plain integers, touched only where a kernel launches):
 ``launches`` counts K8 launches of every route, ``wmma_launches`` those on
 the WMMA route, ``f32_launches`` those of the fp32 kernels,
-``f32_tiled_launches`` those of them on the outer-product kernel and
-``f32_dot_launches`` those on the first fp32 kernel.
+``f32_tiled_launches`` those of them on the outer-product kernel,
+``f32_dot_launches`` those on the first fp32 kernel and
+``tp_partial_launches`` the Hopper launches of a tensor-parallel rank's
+partial (``partial`` set).
 """
 
 import functools
@@ -80,12 +91,16 @@ wmma_launches = 0
 f32_launches = 0
 f32_tiled_launches = 0
 f32_dot_launches = 0
+tp_partial_launches = 0
 
 # The Hopper kernel's geometry (csrc/fused_spatial_block_sm90.cu).
 SM90_ROWS = 64  # rows a tile, of which whole frames are used
 SM90_MAX_STAGES = 6  # stages of each weight ring
 # (D, dh) -> head group width of the instances the Hopper kernel has
 SM90_GROUPS = {(384, 24): 96, (384, 128): 128, (256, 16): 64, (128, 32): 64}
+# what a per-rank fp32 block (tensor parallelism) meets on the card
+TP_F32_TODO = ("fp32 tensor parallelism is not ported: K8-fp32 and K2-fp32 have no instance at "
+               "a rank's widths (M / tp; ROADMAP.md Queue 1, the fp32 tensor-parallelism item)")
 
 
 class Sm90Plan(NamedTuple):
@@ -108,9 +123,11 @@ def sm90_smem_bytes(d: int, group: int, s1: int, s2: int) -> int:
             + 3 * group * SM90_ROWS * 2 + 256 + 1024)
 
 
-def sm90_plan(n: int, l: int, d: int, m: int, n_heads: int) -> Optional[Sm90Plan]:
+def sm90_plan(n: int, l: int, d: int, m: int, n_heads: int,
+              attn_width: Optional[int] = None) -> Optional[Sm90Plan]:
     """The Hopper kernel's geometry for x ``[n, l, d]``, mlp width m and
-    n_heads heads, or None where it has no instance (the WMMA route then).
+    n_heads heads over ``attn_width`` columns (default d; a tensor-parallel
+    rank's Da), or None where it has no instance (the WMMA route then).
 
     rows: 64 // l * l, so no frame straddles two tiles. group: the head
     group width of the (d, dh) instance; an MLP chunk is twice that. s1, s2:
@@ -119,10 +136,12 @@ def sm90_plan(n: int, l: int, d: int, m: int, n_heads: int) -> Optional[Sm90Plan
     fit. (At [8000, 2, 384] on an H100: 3 x 128 0.2076 ms at (3, 3) against
     0.2188 at (5, 2); 16 x 24 0.2135 at (5, 3), 0.2241 at (6, 2), PERF.md.)
     """
-    if n <= 0 or not 1 <= l <= 8 or n_heads <= 0 or d % n_heads or m <= 0 or m % 16:
+    da = d if attn_width is None else attn_width
+    if (n <= 0 or not 1 <= l <= 8 or n_heads <= 0 or not 0 < da <= d or da % n_heads
+            or m <= 0 or m % 16):
         return None
-    group = SM90_GROUPS.get((d, d // n_heads))
-    if group is None or n * l >= 2 ** 31:
+    group = SM90_GROUPS.get((d, da // n_heads))
+    if group is None or da % group or n * l >= 2 ** 31:
         return None
     for s2, least in ((3, 3), (2, 2)):
         s1 = max((s for s in range(2, SM90_MAX_STAGES + 1)
@@ -273,37 +292,47 @@ def f32_plan(n: int, l: int, d: int, m: int, n_heads: int) -> Optional[F32Plan]:
 
 def reference_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                             q_scale: torch.Tensor, k_scale: torch.Tensor,
-                            w2: torch.Tensor, b2: torch.Tensor, cos: torch.Tensor,
+                            w2: torch.Tensor, b2: Optional[torch.Tensor], cos: torch.Tensor,
                             sin: torch.Tensor, n_heads: int, scale: float,
-                            eps: float = 1e-6) -> torch.Tensor:
+                            eps: float = 1e-6, attn_width: Optional[int] = None,
+                            partial: bool = False) -> torch.Tensor:
     """linear1 → QKNorm → RoPE → L×L attention ∥ gelu MLP → linear2.
 
     x: ``[N, L, D]`` in the compute dtype; cos/sin: ``[L, dh/2]`` fp32.
+    ``attn_width``: the q, k and v columns of the ``n_heads`` heads (default
+    D); with ``partial`` the fp32 product of linear2 without b2 (b2 unread).
     """
     n, l, d = x.shape
-    dh = d // n_heads
+    da = d if attn_width is None else attn_width
+    dh = da // n_heads
     dtype = x.dtype
     xw = torch.matmul(x, w1.to(dtype).t()) + b1.to(dtype)
-    q, k, v, mlp = xw[..., :d], xw[..., d:2 * d], xw[..., 2 * d:3 * d], xw[..., 3 * d:]
+    q, k, v, mlp = xw[..., :da], xw[..., da:2 * da], xw[..., 2 * da:3 * da], xw[..., 3 * da:]
 
-    def heads(t):  # [N, L, D] -> [N, H, L, dh]
+    def heads(t):  # [N, L, Da] -> [N, H, L, dh]
         return t.reshape(n, l, n_heads, dh).transpose(1, 2)
 
     qh = headmajor_rope(headmajor_rmsnorm(heads(q), q_scale, eps), cos, sin)
     kh = headmajor_rope(headmajor_rmsnorm(heads(k), k_scale, eps), cos, sin)
-    attn = small_attention(qh, kh, heads(v), scale=scale).transpose(1, 2).reshape(n, l, d)
+    attn = small_attention(qh, kh, heads(v), scale=scale).transpose(1, 2).reshape(n, l, da)
     out = torch.cat([attn, gelu_exact(mlp)], dim=-1)
+    if partial:
+        return torch.matmul(out.float(), w2.float().t())
     return torch.matmul(out, w2.to(dtype).t()) + b2.to(dtype)
 
 
-def _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads) -> None:
+def _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, da, partial) -> None:
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_spatial_block: x must be bfloat16 or float32, got {x.dtype}")
+    if x.dtype == torch.float32 and (partial or da != x.shape[-1]):
+        raise NotImplementedError(f"fused_spatial_block: {TP_F32_TODO}")
     for name, t, dtype in (("x", x, x.dtype), ("w1", w1, x.dtype), ("b1", b1, x.dtype),
                            ("w2", w2, x.dtype), ("b2", b2, x.dtype),
                            ("q_scale", q_scale, torch.float32),
                            ("k_scale", k_scale, torch.float32), ("cos", cos, torch.float32),
                            ("sin", sin, torch.float32)):
+        if name == "b2" and partial:
+            continue
         if not t.is_cuda or t.device != x.device or t.dtype != dtype:
             raise ValueError(f"fused_spatial_block: {name} must be {dtype} on x's CUDA device, "
                              f"got {t.dtype} on {t.device}")
@@ -313,13 +342,15 @@ def _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads) -> None:
         raise ValueError(f"fused_spatial_block: x must be [N, L <= 8, D], got {tuple(x.shape)}")
     n, l, d = x.shape
     width = w1.shape[0]
-    dh = d // n_heads if d % n_heads == 0 else 0
-    if d % 16 or (width - 3 * d) % 16 or width <= 3 * d or dh % 2 or dh == 0:
+    dh = da // n_heads if 0 < da <= d and da % n_heads == 0 else 0
+    if d % 16 or (width - 3 * da) % 16 or width <= 3 * da or dh % 2 or dh == 0:
         raise ValueError(f"fused_spatial_block: needs D and M multiples of 16 and an even "
-                         f"head dim, got D={d}, w1 rows {width}, {n_heads} heads")
-    m = width - 3 * d
-    if (w1.shape != (width, d) or b1.shape != (width,) or w2.shape != (d, d + m)
-            or b2.shape != (d,) or q_scale.shape != (dh,) or k_scale.shape != (dh,)
+                         f"head dim, got D={d}, attention width {da}, w1 rows {width}, "
+                         f"{n_heads} heads")
+    m = width - 3 * da
+    if (w1.shape != (width, d) or b1.shape != (width,) or w2.shape != (d, da + m)
+            or (not partial and b2.shape != (d,)) or q_scale.shape != (dh,)
+            or k_scale.shape != (dh,)
             or cos.shape != (l, dh // 2) or sin.shape != (l, dh // 2)):
         raise ValueError("fused_spatial_block: parameter shapes do not match x and the heads")
     fp32 = x.dtype == torch.float32
@@ -340,9 +371,12 @@ def _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads) -> None:
 
 def fused_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                         q_scale: torch.Tensor, k_scale: torch.Tensor,
-                        w2: torch.Tensor, b2: torch.Tensor, cos: torch.Tensor,
-                        sin: torch.Tensor, n_heads: int, scale: float) -> torch.Tensor:
-    """The spatial block over x ``[N, L, D]`` -> ``[N, L, D]``.
+                        w2: torch.Tensor, b2: Optional[torch.Tensor], cos: torch.Tensor,
+                        sin: torch.Tensor, n_heads: int, scale: float,
+                        attn_width: Optional[int] = None,
+                        partial: bool = False) -> torch.Tensor:
+    """The spatial block over x ``[N, L, D]`` -> ``[N, L, D]`` (fp32 with
+    ``partial``: a tensor-parallel rank's share, module docstring).
 
     CPU tensors take ``reference_spatial_block``. CUDA tensors launch a
     kernel or raise: bf16 x and weights the route of ``sm90_plan``, fp32 x
@@ -350,46 +384,57 @@ def fused_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     gradient. The norm scales and the ``[L, dh/2]`` tables are fp32 in both.
     """
     args = (x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale)
+    kw = {"attn_width": attn_width, "partial": partial}
     if x.device.type == "cpu":
-        return reference_spatial_block(*args)
+        return reference_spatial_block(*args, **kw)
     if needs_grad(*args):
-        return _SpatialBlock.apply(*args)
-    return _launch(*args)
+        return _SpatialBlock.apply(*args, attn_width, partial)
+    return _launch(*args, **kw)
 
 
 class _SpatialBlock(torch.autograd.Function):
     """K8 forward, autograd of ``reference_spatial_block`` backward."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale):
+    def forward(ctx, x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale,
+                attn_width=None, partial=False):
         ctx.save_for_backward(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin)
         ctx.n_heads, ctx.scale = n_heads, scale
-        return _launch(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale)
+        ctx.kw = {"attn_width": attn_width, "partial": partial}
+        return _launch(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale, **ctx.kw)
 
     @staticmethod
     def backward(ctx, g):
         grads = plain_vjp(
-            lambda *a: reference_spatial_block(*a, ctx.n_heads, ctx.scale),
+            lambda *a: reference_spatial_block(*a, ctx.n_heads, ctx.scale, **ctx.kw),
             ctx.saved_tensors, ctx.needs_input_grad[:9], (g,))
-        return (*grads, None, None)
+        return (*grads, None, None, None, None)
 
 
-def _launch(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale) -> torch.Tensor:
+def _launch(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale,
+            attn_width: Optional[int] = None, partial: bool = False) -> torch.Tensor:
     """Launch K8 on CUDA tensors (checked here) on the route of ``sm90_plan``
     -> ``[N, L, D]``."""
-    _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads)
     n, l, d = x.shape
-    m = w1.shape[0] - 3 * d
+    da = d if attn_width is None else attn_width
+    _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, da, partial)
+    m = w1.shape[0] - 3 * da
     fp32 = x.dtype == torch.float32
-    plan = None if fp32 else sm90_plan(n, l, d, m, n_heads)
+    plan = None if fp32 else sm90_plan(n, l, d, m, n_heads, da)
+    if plan is None and (partial or da != d):
+        raise ValueError(f"fused_spatial_block: a tensor-parallel rank's block runs only on the "
+                         f"Hopper route, which has no instance for D={d}, {n_heads} heads over "
+                         f"{da} columns")
     if (plan is not None or fp32) and x.data_ptr() % 16:
         raise ValueError("fused_spatial_block: x must be 16-byte aligned for the Hopper and "
                          "fp32 kernels")
-    out = torch.empty_like(x)
+    out = torch.empty(x.shape, dtype=torch.float32 if partial else x.dtype, device=x.device)
     ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr())
+            w2.data_ptr(), 0 if partial else b2.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            out.data_ptr())
     dims = (n, l, d, m, n_heads, w1.stride(0), w2.stride(0), float(scale))
     global launches, wmma_launches, f32_launches, f32_tiled_launches, f32_dot_launches
+    global tp_partial_launches
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if fp32:
@@ -412,6 +457,7 @@ def _launch(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale) -> to
         else:
             table = torch.empty(GELU_TABLE_ENTRIES, dtype=torch.int16, device=x.device)
             _build.launch("lam_spatial_block_sm90", *ptrs, table.data_ptr(), *dims, plan.s1,
-                          plan.s2, stream)
+                          plan.s2, da, int(partial), stream)
+            tp_partial_launches += int(partial)
     launches += 1
     return out

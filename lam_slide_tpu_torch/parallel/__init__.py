@@ -1,6 +1,5 @@
-"""Data parallelism, FSDP2 and ring attention over ``torch.distributed``
-(counterpart of ``lam_slide_tpu/parallel``; its tensor parallelism, tp.py,
-is not ported)."""
+"""Data parallelism, FSDP2, tensor parallelism and ring attention over
+``torch.distributed`` (counterpart of ``lam_slide_tpu/parallel``)."""
 
 from lam_slide_tpu_torch.parallel.fsdp import (
     fsdp_spec,
@@ -14,6 +13,9 @@ from lam_slide_tpu_torch.parallel.mesh import (
     batch_sharding,
     init_distributed,
     make_mesh,
+    model_group,
+    model_rank,
+    model_size,
     replicated,
     run_ranks,
     shard_batch,
@@ -24,14 +26,26 @@ from lam_slide_tpu_torch.parallel.ring_attention import (
     ring_attention_chunks,
     sequence_parallel_attention,
 )
+from lam_slide_tpu_torch.parallel.tp import (
+    dit_tp_spec,
+    gather_state_dict,
+    gather_tree,
+    shard_train_state,
+)
 
 __all__ = [
     "LocalBatch",
     "MeshSpec",
     "batch_sharding",
+    "dit_tp_spec",
     "fsdp_spec",
+    "gather_state_dict",
+    "gather_tree",
     "init_distributed",
     "make_mesh",
+    "model_group",
+    "model_rank",
+    "model_size",
     "reference_attention",
     "replicated",
     "ring_attention",
@@ -40,6 +54,7 @@ __all__ = [
     "sequence_parallel_attention",
     "shard_batch",
     "shard_model",
+    "shard_train_state",
     "shard_train_state_fsdp",
     "sharded_share",
 ]

@@ -9,7 +9,10 @@ card, gloo on the CPU), ``make_mesh`` lays the ranks out as a
 rank its contiguous rows of the global batch, as
 ``jax.make_array_from_process_local_data`` assembles them. The data-parallel
 train step (train/steps.py) and FSDP2 (parallel/fsdp.py) run over the
-``data`` axis; a ``model`` axis above 1 (tensor parallelism) is not ported.
+``data`` axis, tensor parallelism (parallel/tp.py) over the ``model`` axis.
+Rank ``data_rank * model + model_rank`` sits at (data_rank, model_rank), so
+the ranks of one model group are neighbours; the model ranks of one data
+rank load, draw and step on the same rows.
 
 ``run_ranks`` spawns N ranks of a function on this host, each in a process
 of its own joined by a ``file://`` rendezvous: the CLI's ``--devices N``,
@@ -94,17 +97,13 @@ def init_distributed(backend: Optional[str] = None, rank: Optional[int] = None,
 def make_mesh(spec: Optional[MeshSpec] = None):
     """A ``DeviceMesh`` with axes ("data", "model") over every rank of the
     running process group, on the backend's devices (NCCL: "cuda", gloo:
-    "cpu")."""
+    "cpu"); a model axis above 1 is tensor parallelism (parallel/tp.py)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call init_distributed first")
     spec = spec or MeshSpec()
     data, model = spec.shape(dist.get_world_size())
-    if model > 1:
-        raise NotImplementedError(
-            "a model axis above 1 is tensor parallelism, which the port does not have yet "
-            "(ROADMAP.md Queue 1, the tensor-parallelism item)")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, (data, model), mesh_dim_names=AXES)
 
@@ -135,14 +134,25 @@ def data_size(mesh) -> int:
     return mesh.size(AXES.index("data"))
 
 
+def model_group(mesh):
+    return mesh.get_group("model")
+
+
+def model_rank(mesh) -> int:
+    return mesh.get_local_rank("model")
+
+
+def model_size(mesh) -> int:
+    return mesh.size(AXES.index("model"))
+
+
 def broadcast_module(model: torch.nn.Module, mesh) -> None:
-    """Copy data rank 0's parameters and buffers to every rank of ``mesh``'s
-    data axis, in place (DDP's start), so the replicas begin equal."""
-    group = data_group(mesh)
-    src = dist.get_global_rank(group, 0)
+    """Copy rank 0's parameters and buffers to every rank of ``mesh``, in
+    place (DDP's start), so the replicas, and the whole weights tensor
+    parallelism then slices, begin equal."""
     with torch.no_grad():
         for t in (*model.parameters(), *model.buffers()):
-            dist.broadcast(t.data, src=src, group=group)
+            dist.broadcast(t.data, src=0)
 
 
 class LocalBatch(dict):

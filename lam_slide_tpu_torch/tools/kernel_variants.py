@@ -486,7 +486,7 @@ def _k8(gen, dev, stream, smi) -> None:
         args = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), qs.data_ptr(), ks.data_ptr(),
                 w2.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
                 table.data_ptr(), n, l, d, m, heads, w1.stride(0), w2.stride(0), dh ** -0.5,
-                plan.s1, plan.s2, stream)
+                plan.s1, plan.s2, d, 0, stream)
         calls = {name: _checked(fn, args) for name, fn in k8.items()}
         _in_turns(f"K8 [{n},{l},{d}] {heads}x{dh}", calls, smi)
         device = cs.device_ms(calls["kernel"], "spatial_sm90_kernel", REPS)

@@ -3,8 +3,7 @@
     python -m lam_slide_tpu_torch.tools.multichip_dryrun [--ranks 2]
 
 Spawns N gloo ranks (``parallel.run_ranks``) and prints one line for each
-check, as the JAX package's multichip dry run does (its tensor-parallel
-check is left out: the port has no tensor parallelism):
+check, as the JAX package's multichip dry run does:
 
 * the data-parallel (DP) train step of the tiny MD17 second stage (the JAX
   dry run's config: 16 entities, latent 8, a depth-2 hidden-32 4-head
@@ -13,6 +12,9 @@ check is left out: the port has no tensor parallelism):
   against the one-rank step on the same batch;
 * the FSDP2 step (parallel/fsdp.py) of the same model, its loss against
   the one-rank step, and the share of parameter bytes it shards;
+* with N even, the tensor-parallel step (parallel/tp.py) of the same model
+  on a data N/2 x model 2 mesh (at ``--ranks 8``, JAX's data 4 x model 2),
+  its loss beside the DP step's: equal, as in JAX's MULTICHIP_r05.json;
 * the peptide stage-2 smoke experiment's DP step against one rank;
 * a sharded K=2 Euler-2 sample of the peptide smoke model (each rank its
   rows, gathered) against the one-rank sample;
@@ -80,9 +82,9 @@ def build_tiny_md17(device="cpu", seed: int = 0):
     return ss, ss.make_loss(**loss_kw)
 
 
-def _step(model, loss_fn, batch, mesh=None, fsdp=False, lr=1e-3):
+def _step(model, loss_fn, batch, mesh=None, fsdp=False, tp=False, lr=1e-3):
     """One train step -> (this rank's loss, grad norm, state)."""
-    from lam_slide_tpu_torch.parallel import shard_batch, shard_train_state_fsdp
+    from lam_slide_tpu_torch.parallel import shard_batch, shard_train_state, shard_train_state_fsdp
     from lam_slide_tpu_torch.train import create_train_state, make_train_step
     from lam_slide_tpu_torch.train.optim import AdamW
 
@@ -90,6 +92,8 @@ def _step(model, loss_fn, batch, mesh=None, fsdp=False, lr=1e-3):
     state = create_train_state(model, tx)
     if fsdp:
         state = shard_train_state_fsdp(state, mesh)
+    if tp:
+        state = shard_train_state(state, mesh)
     tb = {k: torch.as_tensor(v) for k, v in batch.items()}
     if mesh is not None:
         tb = shard_batch(tb, mesh, full_local=True)
@@ -154,6 +158,20 @@ def dryrun_rank(rank: int, n: int) -> list:
         lines.append(f"multichip_dryrun({n}): fsdp ok — loss={loss_f:.4f}, "
                      f"{share['sharded_bytes']}/{share['total_bytes']} param bytes sharded "
                      f"over data (JAX's rule: {share['jax_rule_share']:.3f} of them)")
+
+    if n % 2 == 0:
+        mesh_tp = make_mesh(MeshSpec(data=n // 2, model=2))
+        ss_t, loss_fn_t = build_tiny_md17()
+        loss_t, _, state_t = _step(ss_t.backbone, loss_fn_t, batch, mesh_tp, tp=True)
+        loss_t = _rank_mean(loss_t)
+        split = sum(".shards." in name for name, _ in state_t.model.named_parameters())
+        assert split > 0, "tensor parallelism split no block"
+        if rank == 0:
+            assert abs(loss_t - one) <= 1e-5 * max(1.0, abs(one)), f"TP loss {loss_t} != {one}"
+            lines.append(f"multichip_dryrun({n}): tp ok — loss={loss_t:.4f} (DP {loss:.4f}, "
+                         f"1 rank {one:.4f}), mesh="
+                         f"{dict(zip(mesh_tp.mesh_dim_names, mesh_tp.shape))}, {split} "
+                         f"shard tensors a rank")
 
     exp = peptide_second_stage(smoke=True, device="cpu")
     pep = next(iter(exp.train_loader))

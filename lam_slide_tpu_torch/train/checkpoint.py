@@ -13,9 +13,12 @@ Replaces two reference subsystems:
   a test from the checkpoint needs nothing but the run directory). Files
   are written to a temporary name and moved into place, so a reader never
   sees half a checkpoint. ``meta.json`` has the JAX package's fields.
-  In a data-parallel run (``group``) every rank forms the payload, whole
-  tensors gathered from FSDP2's shards, rank 0 writes it and the others
-  wait at a barrier, so every rank can read it back.
+  In a multi-rank run (``group``) every rank forms the payload, whole
+  tensors gathered from FSDP2's shards and from tensor parallelism's
+  (parallel/tp.py, under the one-rank names), rank 0 of the group writes it
+  and the others wait at a barrier, so every rank can read it back. A
+  checkpoint is restored into a state of whole tensors, which the trainer
+  then lays out, so any run resumes from any other's.
   Orbax checkpoints of the JAX package are not read.
 * The wandb run-ID lineage between stages (src/utils/utils.py:180-199):
   a plain JSON registry under the workspace root maps run_id -> {run_dir,
@@ -33,6 +36,7 @@ import torch
 import torch.distributed as dist
 
 from lam_slide_tpu_torch.parallel.fsdp import full, reshard, uses_fsdp
+from lam_slide_tpu_torch.parallel.tp import gather_tree, shard_tree
 
 from lam_slide_tpu_torch.train.optim import AdamWState
 from lam_slide_tpu_torch.train.state import TrainState
@@ -44,20 +48,25 @@ def _atomic_save(payload: Any, path: str) -> None:
     os.replace(tmp, path)
 
 
-def _whole(tree):
-    return None if tree is None else {k: full(v).detach() for k, v in tree.items()}
+def _whole(model, tree):
+    if tree is None:
+        return None
+    return gather_tree(model, {k: full(v).detach() for k, v in tree.items()})
 
 
 def checkpoint_payload(state: TrainState) -> Dict[str, Any]:
     """The saved dict of a train state (tensors on their device; a sharded
-    DTensor as its whole tensor, which every rank must call for)."""
+    DTensor or a tensor-parallel block as its whole tensors, which every
+    rank must call for)."""
     if uses_fsdp(state.model):
         reshard(state.model)
     opt = state.opt_state
+    model = state.model
     return {"step": int(state.step),
-            "params": _whole(state.model.state_dict()),
-            "ema_params": _whole(state.ema_params),
-            "opt_state": {"count": opt.count, "mu": _whole(opt.mu), "nu": _whole(opt.nu)},
+            "params": _whole(model, model.state_dict()),
+            "ema_params": _whole(model, state.ema_params),
+            "opt_state": {"count": opt.count, "mu": _whole(model, opt.mu),
+                          "nu": _whole(model, opt.nu)},
             "constants": state.constants}
 
 
@@ -122,17 +131,21 @@ class CheckpointManager:
 
     def restore(self, state: TrainState, which: str = "last") -> TrainState:
         """Load a checkpoint into ``state`` in place (the model's state dict,
-        the EMA, the optimizer state, the step and the constants); returns it."""
+        the EMA, the optimizer state, the step and the constants); returns it.
+        A tensor-parallel state takes its slices of the whole tensors."""
         if not self.has(which):
             raise FileNotFoundError(f"no '{which}' checkpoint under {self.ckpt_dir}")
         device = next(state.model.parameters()).device
         raw = torch.load(self.path(which), map_location=device, weights_only=True)
-        state.model.load_state_dict(raw["params"])
+        model = state.model
+        state.model.load_state_dict(shard_tree(model, raw["params"]))
         if state.ema_params is not None and raw["ema_params"] is not None:
+            ema = shard_tree(model, raw["ema_params"])
             for k, v in state.ema_params.items():
-                v.copy_(raw["ema_params"][k])
+                v.copy_(ema[k])
         opt = raw["opt_state"]
-        state.opt_state = AdamWState(count=int(opt["count"]), mu=opt["mu"], nu=opt["nu"])
+        state.opt_state = AdamWState(count=int(opt["count"]), mu=shard_tree(model, opt["mu"]),
+                                     nu=shard_tree(model, opt["nu"]))
         state.step = int(raw["step"])
         state.constants = raw["constants"]
         return state

@@ -30,10 +30,14 @@ each process its slice of every batch; ``--devices N`` spawns N ranks on
 this host, the role of the JAX CLI's virtual devices (gloo ranks with
 ``--device cpu``; on the card, one rank a GPU, so N may not exceed the
 GPUs found), each loading the whole batch and keeping its rows; ``--fsdp``
-shards the parameters, EMA and AdamW moments with FSDP2 and ``--test-mesh``
-shards the test protocols over the ranks. A single process given one of
-these runs a one-rank group. Rank 0 registers the run, logs and writes
-the checkpoints; ``--no-mesh`` keeps a launch unsharded.
+shards the parameters, EMA and AdamW moments with FSDP2, ``--model-axis
+M`` lays the ranks out as data x M and splits the DiT blocks over each
+model group of M ranks (tensor parallelism, parallel/tp.py: whole heads and
+MLP slices a rank; the M ranks of a data rank train on the same rows), and
+``--test-mesh`` shards the test protocols over the data axis. A single
+process given one of these runs a one-rank group. Rank 0 registers the run,
+logs and writes the checkpoints (whole tensors); ``--no-mesh`` keeps a
+launch unsharded.
 """
 
 import argparse
@@ -42,9 +46,6 @@ import json
 import os
 import secrets
 import sys
-
-TP_TODO = ("--model-axis > 1 is tensor parallelism, which the port does not have yet "
-           "(ROADMAP.md Queue 1, the tensor-parallelism item)")
 
 
 def _parse_value(raw: str):
@@ -76,7 +77,9 @@ def main(argv=None):
     parser.add_argument("--no-mesh", action="store_true",
                         help="single rank, no sharding, whatever the other flags say")
     parser.add_argument("--model-axis", type=int, default=1,
-                        help="mesh model-axis size; > 1 (tensor parallelism) is not ported")
+                        help="mesh model-axis size; > 1 splits the DiT blocks over that many "
+                             "ranks (tensor parallelism, parallel/tp.py); with --devices N or "
+                             "--multihost")
     parser.add_argument("--fsdp", action="store_true",
                         help="fully-sharded data parallelism (parallel/fsdp.py, FSDP2): "
                              "params, EMA and AdamW moments sharded over the data axis")
@@ -118,8 +121,6 @@ def main(argv=None):
                         help="mirror the metric stream to a wandb run (needs wandb)")
     args = parser.parse_args(argv)
 
-    if args.model_axis > 1:
-        raise SystemExit(TP_TODO)
     argv = list(sys.argv[1:] if argv is None else argv)
     if args.devices and not args.no_mesh:
         return _spawn_devices(args, argv)
@@ -165,7 +166,7 @@ def _process_group(args):
     import torch.distributed as dist
 
     wants = (args.fsdp or args.multihost or args.test_mesh or args.devices
-             or dist.is_initialized())
+             or args.model_axis > 1 or dist.is_initialized())
     if args.no_mesh or not wants:
         yield None
         return
@@ -181,12 +182,14 @@ def _process_group(args):
             init_distributed(backend, rank=0, world_size=1,
                              init_method="file://" + os.path.join(tmp, "rendezvous"))
         try:
+            mesh = make_mesh(MeshSpec(model=args.model_axis))
             if args.multihost:
                 from lam_slide_tpu_torch.data.loader import Loader
+                from lam_slide_tpu_torch.parallel.mesh import data_rank, data_size
 
-                Loader.default_process_shard = (dist.get_rank(), dist.get_world_size())
+                # each data rank loads its slice; its model ranks the same one
+                Loader.default_process_shard = (data_rank(mesh), data_size(mesh))
                 print(f"multihost: process {dist.get_rank()}/{dist.get_world_size()}")
-            mesh = make_mesh(MeshSpec(model=args.model_axis))
             if dist.get_rank() == 0:
                 print(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
             yield mesh
@@ -306,9 +309,10 @@ def _main(args, mesh) -> int:
         # reference semantics: test on the EMA weights (src/train.py:100-118);
         # the fp32 rebuild and the held-out split live in _run_test_protocol
         from lam_slide_tpu_torch.parallel.fsdp import full
+        from lam_slide_tpu_torch.parallel.tp import gather_tree
 
-        whole = {k: full(v) for k, v in {**state.model.state_dict(),
-                                         **(state.ema_params or {})}.items()}
+        whole = gather_tree(state.model, {k: full(v) for k, v in {
+            **state.model.state_dict(), **(state.ema_params or {})}.items()})
         fs_state = (state.constants or {}).get("first_stage")
         _run_test_protocol(args, exp, whole, fs_state, run_dir, molecule, mesh)
 

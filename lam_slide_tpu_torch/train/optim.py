@@ -11,14 +11,16 @@ state in place, where optax returns new trees. Per update:
     p    <- p − lr(count) · (mu / (1 − b1^t) / (√(nu / (1 − b2^t)) + eps) + wd · p)
 
 with t = count + 1 and decoupled weight decay on every parameter. FSDP2's
-DTensor parameters, grads and moments are updated shard by shard.
+DTensor parameters, grads and moments are updated shard by shard, as are
+tensor parallelism's slices (parallel/tp.py): the update is elementwise,
+and the clip's norm counts each slice once and each replicated tensor once.
 ``torch.optim.AdamW`` applies the decay before the Adam step and
 ``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm, so neither is
 used.
 """
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Collection, Dict, Mapping, Optional
 
 import torch
 import torch.distributed as dist
@@ -26,23 +28,31 @@ import torch.distributed as dist
 from lam_slide_tpu_torch.parallel import fsdp as _fsdp
 
 
-def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: Mapping[str, torch.Tensor], model_sharded: Collection[str] = (),
+                model_group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every element (``optax.global_norm``),
     an fp32 0-dim tensor on the tensors' device. Shards of DTensors (FSDP2's
     grads) count once over their mesh: their local sums of squares are
-    all-reduced, so every rank clips by the same norm."""
-    whole, parts, mesh = [], [], None
-    for t in tensors.values():
+    all-reduced, so every rank clips by the same norm. So do the tensors
+    named in ``model_sharded``, tensor-parallel slices spread over
+    ``model_group`` (parallel/tp.py ``sharded_names``), while every other
+    tensor, whole on each rank of that group, counts once."""
+    whole, parts, tp_parts, mesh = [], [], [], None
+    for name, t in tensors.items():
         if _fsdp.is_sharded(t):
             parts.append(_fsdp.local(t).float().square().sum())
             mesh = t.device_mesh
+        elif name in model_sharded and model_group is not None:
+            tp_parts.append(t.float().square().sum())
         else:
             whole.append(_fsdp.local(t).float().square().sum())
     total = torch.stack(whole).sum() if whole else None
-    if parts:
-        shared = torch.stack(parts).sum()
-        dist.all_reduce(shared, group=mesh.get_group(0))
-        total = shared if total is None else total + shared
+    for sums, group in ((parts, None if mesh is None else mesh.get_group(0)),
+                        (tp_parts, model_group)):
+        if sums:
+            shared = torch.stack(sums).sum()
+            dist.all_reduce(shared, group=group)
+            total = shared if total is None else total + shared
     return total.sqrt()
 
 

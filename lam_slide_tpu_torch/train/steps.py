@@ -12,6 +12,10 @@ draws what a one-rank step draws for those rows and its masked means take
 the global mask mass; the grads are then averaged over the ``data`` axis,
 by one all-reduce of flat per-dtype buffers after the last microbatch, or,
 for a model sharded by FSDP2 (parallel/fsdp.py), by its reduce-scatter.
+Under tensor parallelism (parallel/tp.py) the model ranks of a data rank
+run the same rows; the grads are averaged over the data group alone (the
+model group's sums ran inside the blocks), and the clip's global norm sums
+the slices' squares over the model group.
 The loss and metrics a step returns are this rank's terms, whose mean over
 the ranks is the global batch's value; the trainer reduces them once an
 epoch.
@@ -34,6 +38,7 @@ from torch.func import functional_call
 
 from lam_slide_tpu_torch.nn.ema import ema_update
 from lam_slide_tpu_torch.parallel import fsdp as _fsdp
+from lam_slide_tpu_torch.parallel import tp as _tp
 from lam_slide_tpu_torch.parallel.mesh import data_group
 from lam_slide_tpu_torch.parallel.rows import Rows, use_rows
 from lam_slide_tpu_torch.train.optim import global_norm
@@ -137,7 +142,7 @@ def make_train_step(loss_fn: Callable, tx, ema_decay: Optional[float] = 0.999,
             grads = {k: g * inv for k, g in grads.items()}
             loss = loss * inv
             metrics = {k: v * inv for k, v in metrics.items()}
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(grads, *_tp.sharded_names(state.model))
         tx.step(params, grads, state.opt_state, grad_norm)
         if state.ema_params is not None and ema_decay is not None:
             ema_update(state.ema_params, params, ema_decay)

@@ -11,11 +11,13 @@ resume. With a ``mesh`` (parallel/mesh.py) the loop runs data parallel
 over its ``data`` axis, one process a rank: each rank steps on its rows of
 every batch (``shard_batch``; a loader with a ``process_shard`` already
 feeds them), the grads are averaged across the ranks, ``fsdp=True`` shards
-the parameters, EMA and AdamW moments with FSDP2 (parallel/fsdp.py), the
-epoch's metric means are averaged over the ranks once, rank 0 writes the
-metric stream and the checkpoints (whole tensors, so a checkpoint of a
-data-parallel or FSDP run loads in a one-card run) and every rank reads
-them back on a resume.
+the parameters, EMA and AdamW moments with FSDP2 (parallel/fsdp.py), a
+model axis above 1 splits the DiT blocks over the model group
+(parallel/tp.py; the model ranks of a data rank step on the same rows),
+the epoch's metric means are averaged over the ranks once, rank 0 writes
+the metric stream and the checkpoints (whole tensors, so a checkpoint of a
+data-parallel, FSDP or tensor-parallel run loads in a one-card run) and
+every rank reads them back on a resume.
 
 Metrics stay on the device: each step's metrics are kept as tensors, and
 the loop waits for the device once every ``log_every_steps`` steps (so the
@@ -37,17 +39,19 @@ from torch import nn
 
 from lam_slide_tpu_torch.data.loader import device_batch
 from lam_slide_tpu_torch.parallel.fsdp import shard_train_state_fsdp, sharded_share
+from lam_slide_tpu_torch.parallel import tp as _tp
 from lam_slide_tpu_torch.parallel.mesh import (
     LocalBatch,
     broadcast_module,
     data_group,
     data_size,
+    model_size,
     shard_batch,
 )
 from lam_slide_tpu_torch.nn.schedules import linear_warmup_cosine
 from lam_slide_tpu_torch.train.checkpoint import CheckpointManager
 from lam_slide_tpu_torch.train.optim import AdamW
-from lam_slide_tpu_torch.train.state import TrainState, create_train_state, param_count
+from lam_slide_tpu_torch.train.state import TrainState, create_train_state
 from lam_slide_tpu_torch.train.steps import make_eval_step, make_train_step
 from lam_slide_tpu_torch.utils.profiling import StepTimer
 
@@ -225,8 +229,9 @@ class Trainer:
             broadcast_module(model, self.mesh)  # every rank starts from rank 0's weights
         state, tx = self.init_state(model, steps_per_epoch, constants)
 
+        # every rank takes part in a save (the gathers), rank 0 writes
         ckpt = CheckpointManager(self.run_dir, monitor=cfg.monitor, mode=cfg.monitor_mode,
-                                 group=self.group)
+                                 group=None if self.mesh is None else dist.group.WORLD)
         start_epoch = 0
         if resume and ckpt.has("last"):
             ckpt.restore(state, "last")
@@ -245,7 +250,14 @@ class Trainer:
             self.logger.reset()
 
         # sharding after a possible resume, so a restored state gets laid out
-        if cfg.fsdp and self.mesh is not None:
+        tp = self.mesh is not None and model_size(self.mesh) > 1
+        fsdp = cfg.fsdp and self.mesh is not None
+        if tp and fsdp:  # lam_slide_tpu/train/trainer.py:200-202
+            raise ValueError("fsdp composes with the data axis only; "
+                             "use either --model-axis or fsdp")
+        if tp:
+            state = _tp.shard_train_state(state, self.mesh)
+        elif fsdp:
             state = shard_train_state_fsdp(state, self.mesh)
             share = sharded_share(state.model, data_size(self.mesh))
             if not self.quiet:
@@ -255,7 +267,7 @@ class Trainer:
         train_step = make_train_step(self.loss_fn, tx, ema_decay=cfg.ema_decay,
                                      grad_accum=cfg.grad_accum, mesh=self.mesh)
         eval_step = make_eval_step(self.loss_fn, mesh=self.mesh)
-        n_params = param_count(state.params)
+        n_params = _tp.global_param_count(state.model)
         if not self.quiet:
             print(f"params: {n_params:,}  steps/epoch: {steps_per_epoch}")
         # hyperparameter logging to sinks (reference log_hyperparameters,
@@ -275,7 +287,7 @@ class Trainer:
             # failure and keep the last state, so a failed job can resume
             self.logger.log({"split": "error", "error": f"{type(e).__name__}: {e}"[:500],
                              "step": state.step})
-            if self.group is None or data_size(self.mesh) == 1:  # one rank cannot gather
+            if self.mesh is None or self.mesh.size() == 1:  # one rank cannot gather
                 try:
                     ckpt.save(state)
                 except Exception:

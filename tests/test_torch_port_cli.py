@@ -162,11 +162,12 @@ def _same_run(ws, run, ref_ws, rtol=1e-5):
 @pytest.mark.parametrize("flags", [["--model-axis", "2"], ["--fsdp"], ["--devices", "2"],
                                    ["--multihost"], ["--test-mesh"]])
 def test_multi_device_flags_are_refused(flags, tmp_path, one_rank_s1):
-    """Named for the refusals it once pinned. ``--model-axis > 1`` (tensor
-    parallelism) is still refused, naming its ROADMAP item; the other
-    multi-device flags run on the CPU. ``--fsdp`` (a one-rank group) and
-    ``--devices 2`` (two spawned gloo ranks) equal the one-rank run, with a
-    checkpoint that loads in one. ``--multihost`` runs as two processes
+    """Named for the refusals it once pinned: every multi-device flag now
+    runs on the CPU. ``--model-axis 2`` with ``--devices 2`` (two gloo ranks
+    on a data 1 x model 2 mesh: both ranks train on the whole batch; stage
+    1 has no DiT block to split, so every parameter stays whole), ``--fsdp``
+    (a one-rank group) and ``--devices 2`` (two spawned gloo ranks) equal
+    the one-rank run, with a checkpoint that loads in one. ``--multihost`` runs as two processes
     joined through torchrun's environment variables, each loading its slice
     of every batch: both finish, rank 0 alone logs, and its records are
     finite (each process draws its own augmentation stream, so they are not
@@ -174,8 +175,9 @@ def test_multi_device_flags_are_refused(flags, tmp_path, one_rank_s1):
     shards the protocol over the ranks and gives the one-rank metrics."""
     ws = str(tmp_path)
     if flags[0] == "--model-axis":
-        with pytest.raises(SystemExit, match="tensor-parallelism item"):
-            main(["--experiment", "md17_first_stage", *S1, *flags])
+        assert main(["--experiment", "md17_first_stage", *S1, "--workspace", ws, "--run-id", "t",
+                     "--devices", "2", *flags]) == 0
+        _same_run(ws, "t", one_rank_s1)
     elif flags[0] == "--fsdp":
         assert main(["--experiment", "md17_first_stage", *S1, "--workspace", ws, "--run-id", "f",
                      *flags]) == 0

@@ -399,6 +399,72 @@ def test_spatial_block_matches_plain(dev, n, l, d, m, heads):
     assert err <= K8_REL_TOL * want.float().abs().max().item()
 
 
+@pytest.mark.parametrize("n,l,d,m,heads,size", [
+    (2000, 2, 384, 768, 16, 2),  # 4AA 16 x 24 at tp 2: Da 192, Mr 384
+    (2000, 2, 384, 768, 16, 4),  # tp 4: Da 96, Mr 192
+    (2000, 2, 384, 768, 3, 3),   # 3 x 128 at tp 3: one head, Da 128, Mr 256
+    (777, 5, 256, 512, 16, 2),   # the NBA DiT's width at tp 2
+    (901, 7, 128, 256, 4, 2),    # the pedestrian DiT's at tp 2
+])
+def test_spatial_block_rank_partial_matches_plain(dev, n, l, d, m, heads, size):
+    """K8's per-rank instance (tensor parallelism): each rank's fp32 partial
+    within K8_REL_TOL of its plain version, a second call bit-identical,
+    counted under ``tp_partial_launches``; the ranks' partials summed,
+    rounded and + b2 within K8_REL_TOL of the whole block's kernel."""
+    from lam_slide_tpu_torch.parallel import tp
+
+    x, w1, b1, qs, ks, w2, b2, cos, sin, _, scale = _spatial_inputs(_gen(11), dev, n, l, d, m,
+                                                                   heads)
+    kw = {"attn_width": d // size, "partial": True}
+    parts = []
+    for r in range(size):
+        args = (x, tp.slice_linear1(w1, d, m, size, r), tp.slice_linear1(b1, d, m, size, r), qs,
+                ks, tp.slice_linear2(w2, d, m, size, r), None, cos, sin, heads // size, scale)
+        before = fsb.tp_partial_launches
+        got = fsb.fused_spatial_block(*args, **kw)
+        assert fsb.tp_partial_launches == before + 1
+        want = fsb.reference_spatial_block(*args, **kw)
+        again = fsb.fused_spatial_block(*args, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        assert torch.equal(got, again)
+        err = (got - want).abs().max().item()
+        assert err <= K8_REL_TOL * want.abs().max().item()
+        parts.append(got)
+    whole = fsb.fused_spatial_block(x, w1, b1, qs, ks, w2, b2, cos, sin, heads, scale)
+    summed = (sum(parts[1:], parts[0]).to(torch.bfloat16) + b2).float()
+    assert (summed - whole.float()).abs().max().item() <= K8_REL_TOL * whole.float().abs().max()
+
+
+def test_sharded_dit_forward_matches_the_whole_one(dev):
+    """A 4AA-width DiT (depth 2) with every block split into two shards in
+    this process: the forward within the kernel-vs-plain model limit of the
+    whole model's, K8 launching only its partial instance; an fp32 DiT
+    under tensor parallelism raises on the card."""
+    from lam_slide_tpu_torch.parallel import tp
+
+    def make(dtype):
+        return LatentDiT(depth=2, in_dim=8, hidden_size=384, num_heads=16, reference_init=False,
+                         dtype=dtype, device=dev, generator=_gen(12))
+
+    model = make(torch.bfloat16)
+    g = _gen(13)
+    x = torch.randn(2, 50, 2, 8, generator=g).to(dev)
+    mask = torch.zeros(2, 50, 2, dtype=torch.long, device=dev)
+    mask[:, :1] = 1
+    t = torch.full((2,), 0.5, device=dev)
+    with torch.no_grad():
+        want = model(x, t, x * mask[..., None], mask)
+        tp.shard_model(model, tp.in_process(2))
+        before = (fsb.launches, fsb.tp_partial_launches)
+        got = model(x, t, x * mask[..., None], mask)
+    assert (fsb.launches - before[0], fsb.tp_partial_launches - before[1]) == (4, 4)
+    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
+    f32 = tp.shard_model(make(torch.float32), tp.in_process(2))
+    with pytest.raises(NotImplementedError, match="fp32 tensor-parallelism item"):
+        f32(x, t, x, mask)
+
+
 def test_spatial_block_refuses_a_misaligned_x_on_the_hopper_route(dev):
     """The Hopper kernel loads x by TMA: a view of x one element into its
     buffer raises instead of taking another route."""

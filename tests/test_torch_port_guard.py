@@ -99,7 +99,8 @@ COUNTERS = ("launches", "bias_launches", "fp32_launches", "bwd_kv_launches", "bw
             "bwd_bias_launches", "bwd_fp32_launches", "bwd_launches", "transform_launches",
             "sm90_launches", "sm90_cp_async_launches", "bwd_sm90_launches",
             "bwd_sm90_cp_async_launches", "fp32_wide_launches", "bwd_fp32_wide_launches",
-            "f32_launches", "fp32_narrow_launches", "f32_tiled_launches", "f32_dot_launches")
+            "f32_launches", "fp32_narrow_launches", "f32_tiled_launches", "f32_dot_launches",
+            "tp_partial_launches")
 
 
 def _zero_counters(monkeypatch):
