@@ -711,6 +711,31 @@ TP_SPLITS = ((HEADS, 2), (HEADS, 4), (WIDE_HEADS, 3))
 TP_MD17 = 2
 TP_LOSS_REL_TOL = 1e-4
 TP_MOVED_REL_TOL = 0.1
+# phase 20's bf16 4AA step at 16 x 24 tp 8, whose ranks (Da 48) have no
+# Hopper plan: K8 on the WMMA partial; the NBA-width forward's tp (Da 32)
+TP_WMMA_SPLIT = (HEADS, 8)
+TP_NBA = 8
+# phase 20's fp32 lines (TF32 off), against the unsharded fp32 step on the
+# same weights and draws. The fp32 path keeps every rounding point of the
+# unsharded one and changes only the order of fp32 sums: linear2's product
+# summed shard by shard, the block input's and the QK-norm scales' grads
+# summed over the shards. The unsharded fp32 step's own repeat is the noise
+# floor: on an H100 at 700 W it read 0 on every line, loss, grads and moves
+# bit for bit, at 4AA (both splits) and MD17 (no atomics on the fp32
+# path), so each limit rests on what sum order alone moves, read once:
+# - the loss: 8.764e-8 (one fp32 ulp of a loss of 1.36) at 3 x 128 tp 3 and
+#   MD17 tp 2, 0 at 16 x 24 tp 2 and 4; the limit is 4 ulps there, 3.5e-7;
+# - the grads at B=2: norm up to 2.385e-9, a tensor up to 6.766e-7 (a
+#   QK-norm scale): held to F32_TRAIN_GRAD_REL_TOL, the kernel path against
+#   the plain path in fp32, which differ in sum order the same way;
+# - the moves of AdamW's first step: up to 3.392e-5 of a tensor's move (a
+#   QK-norm scale at 16 x 24 tp 2); 3x that, 1e-4 (the bf16 lines need 0.1:
+#   there each shard's input grad rounds to bf16 before the sum);
+# - the NBA-width forward at tp 8: 4.166e-7 of the largest output; 3x,
+#   1.3e-6.
+TP_F32_LOSS_REL_TOL = 3.5e-7
+TP_F32_MOVED_REL_TOL = 1e-4
+TP_F32_FWD_REL_TOL = 1.3e-6
 TP_SOLVE_BATCH = 8
 HOST_REPS = 5
 HOST_FLOAT_TOL = 1e-5
@@ -1175,6 +1200,7 @@ def kernel_checks(dev, gen, table: KernelTable) -> None:
     k8_width_checks(dev, gen, table)
     k8_tp_checks(dev, gen, table)
     tp_rank_kernel_checks(dev, gen, table)
+    tp_rank_f32_kernel_checks(dev, table)
 
 
 def k8_args(dev, gen, x, w1, b1, w2, b2, heads):
@@ -1242,74 +1268,132 @@ def k8_width_checks(dev, gen, table: KernelTable) -> None:
                   2 * rows * d * 2 + ((3 * d + m) * d + d * (d + m)) * 2)
 
 
+# K8's per-rank instance at the ranks of phase 20 and below a Hopper head
+# group: (key, frames, L, D, heads, tp, fp32, route). bf16 at the 4AA train
+# step's [16000, 2, 384] on the Hopper kernel at each split of TP_SPLITS,
+# then on the WMMA kernel at 16 x 24 tp 8 (Da 48 under a group of 96) and at
+# the pedestrian (tp 4) and NBA (tp 8) DiTs' test-pass frames (Da 32 under
+# 64); fp32 (TF32 off) on the outer-product kernel at the TP_SPLITS ranks
+# and on the dot-product kernel at phase 20's NBA fp32 forward rank (tp 8:
+# Da 32 under the D 256 instance's head group of 64), the shape whose
+# launches the summary's "K8 fp32 tp partial dot" row counts.
+K8_TP_CASES = (
+    ("K8 tp partial", TRAIN_BATCH * T, L, HIDDEN, HEADS, 2, False, "sm90"),
+    (f"K8 tp partial {HEADS}x24 tp4", TRAIN_BATCH * T, L, HIDDEN, HEADS, 4, False, "sm90"),
+    (f"K8 tp partial {WIDE_HEADS}x128 tp3", TRAIN_BATCH * T, L, HIDDEN, WIDE_HEADS, 3, False,
+     "sm90"),
+    ("K8 wmma tp partial", TRAIN_BATCH * T, L, HIDDEN, HEADS, 8, False, "wmma"),
+    ("K8 wmma tp partial pedestrian tp4", 256 * 20, 2, 128, 4, 4, False, "wmma"),
+    ("K8 wmma tp partial nba tp8", 1024 * 20, 8, 256, 16, 8, False, "wmma"),
+    ("K8 fp32 tp partial", TRAIN_BATCH * T, L, HIDDEN, HEADS, 2, True, "tiled"),
+    (f"K8 fp32 tp partial {HEADS}x24 tp4", TRAIN_BATCH * T, L, HIDDEN, HEADS, 4, True, "tiled"),
+    (f"K8 fp32 tp partial {WIDE_HEADS}x128 tp3", TRAIN_BATCH * T, L, HIDDEN, WIDE_HEADS, 3,
+     True, "tiled"),
+    ("K8 fp32 tp partial dot", 1024 * 20, 8, 256, 16, 8, True, "dot"),
+)
+
+
 def k8_tp_checks(dev, gen, table: KernelTable) -> None:
     """K8's per-rank instance, a tensor-parallel rank's partial (Da = D/tp
     attention columns of H/tp heads, Mr = M/tp MLP columns, linear2's fp32
-    product without b2), at the 4AA train step's [16000, 2, 384] for each
-    split of TP_SPLITS: rank 0's slice against the plain partial, a second
-    call bit-identical; the ranks' partials summed, rounded and + b2 against
-    the whole block's kernel; the kernel's time, bound, plain time and the
-    two bare cuBLAS GEMMs of the rank's shapes. The row of 16 x 24 at tp 2
-    is the summary's "K8 tp partial"."""
+    product without b2), at K8_TP_CASES: the last rank's slice against the
+    plain partial (K8_REL_TOL in bf16; PEP_F32_REL_TOL["K8 fp32"] in fp32,
+    TF32 off) on the case's route (its counter and tp_partial_launches move
+    once a call), a second call bit-identical, on the outer-product route
+    bit-identical to the dot-product one; the ranks' partials summed, rounded and + b2 against
+    the whole block's kernel within the same limit; the kernel's time (and
+    on the Hopper route its device time), bound, plain time and the two
+    bare cuBLAS GEMMs (SGEMMs in fp32) of the rank's shapes. The rows "K8
+    tp partial" (16 x 24 tp 2), "K8 wmma tp partial" (tp 8), "K8 fp32 tp
+    partial" (tp 2) and "K8 fp32 tp partial dot" (NBA tp 8) are the
+    summary's, each at the shape whose launches phase 20 counts."""
+    from torch.nn.functional import linear
+
     from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
     from lam_slide_tpu_torch.parallel import tp
 
-    bf = torch.bfloat16
-    d, m = HIDDEN, MLP_RATIO * HIDDEN
-    frames = TRAIN_BATCH * T
-    rows = frames * L
-    x = _rand(gen, frames, L, d).to(dev, bf)
-    w1 = _rand(gen, 3 * d + m, d, scale=d ** -0.5).to(dev, bf)
-    b1 = _rand(gen, 3 * d + m, scale=0.1).to(dev, bf)
-    w2 = _rand(gen, d, d + m, scale=(d + m) ** -0.5).to(dev, bf)
-    b2 = _rand(gen, d, scale=0.1).to(dev, bf)
-    for heads, size in TP_SPLITS:
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    names = ("launches", "tp_partial_launches", "wmma_launches", "f32_tiled_launches",
+             "f32_dot_launches")
+    weights = {}
+    for key, frames, l, d, heads, size, fp32, route in K8_TP_CASES:
+        dtype = torch.float32 if fp32 else torch.bfloat16
+        m = MLP_RATIO * d
+        if (frames, l, d) not in weights:
+            weights = {(frames, l, d): (
+                _rand(gen, frames, l, d), _rand(gen, 3 * d + m, d, scale=d ** -0.5),
+                _rand(gen, 3 * d + m, scale=0.1), _rand(gen, d, d + m, scale=(d + m) ** -0.5),
+                _rand(gen, d, scale=0.1))}
+        x, w1, b1, w2, b2 = (t.to(dev, dtype) for t in weights[(frames, l, d)])
         split = f"{heads}x{d // heads}"
-        key = "K8 tp partial" if (heads, size) == (HEADS, 2) else f"K8 tp partial {split} tp{size}"
         whole = k8_args(dev, gen, x, w1, b1, w2, b2, heads)
-        da, mr = d // size, m // size
+        da, mr, rows = d // size, m // size, frames * l
         kw = {"attn_width": da, "partial": True}
 
-        def rank_args(r, whole=whole, size=size):
-            return (x, tp.slice_linear1(w1, d, m, size, r), tp.slice_linear1(b1, d, m, size, r),
-                    whole[3], whole[4], tp.slice_linear2(w2, d, m, size, r), None, whole[7],
-                    whole[8], heads // size, whole[10])
+        def rank_args(r, whole=whole, size=size, d=d, m=m, heads=heads):
+            return (whole[0], tp.slice_linear1(whole[1], d, m, size, r),
+                    tp.slice_linear1(whole[2], d, m, size, r), whole[3], whole[4],
+                    tp.slice_linear2(whole[5], d, m, size, r), None, whole[7], whole[8],
+                    heads // size, whole[10])
 
         ranks = [rank_args(r) for r in range(size)]
-        before = (fsb.launches, fsb.tp_partial_launches)
+        last = ranks[-1]
+        before = [getattr(fsb, name) for name in names]
         parts = [fsb.fused_spatial_block(*a, **kw) for a in ranks]
-        again = fsb.fused_spatial_block(*ranks[0], **kw)
+        again = fsb.fused_spatial_block(*last, **kw)
         whole_out = fsb.fused_spatial_block(*whole)
         torch.cuda.synchronize()
-        launched = (fsb.launches - before[0], fsb.tp_partial_launches - before[1])
-        want = fsb.reference_spatial_block(*ranks[0], **kw)
-        got = parts[0]
-        check(launched == (size + 2, size + 1), f"{key}: launches (K8, partial) {launched} for "
-              f"{size} partials, a repeat and the whole block")
+        launched = tuple(getattr(fsb, name) - b for name, b in zip(names, before))
+        # the whole block's own route: the Hopper kernel in bf16, the
+        # outer-product kernel in fp32 at these widths
+        want_launched = (size + 2, size + 1, (size + 1) * (route == "wmma"),
+                         (size + 1) * (route == "tiled") + fp32, (size + 1) * (route == "dot"))
+        check(launched == want_launched, f"{key}: launches {launched} of {names} for {size} "
+              f"partials, a repeat and the whole block, not {want_launched}")
+        want = fsb.reference_spatial_block(*last, **kw)
+        got = parts[-1]
         check(got.dtype == torch.float32 and got.shape == x.shape, f"{key} shape/dtype")
         check(torch.equal(got, again), f"{key}: a second call on the same inputs differs")
+        note = ""
+        if fp32:
+            plan = fsb.f32_plan(frames, l, d, mr, heads // size, da)
+            note = (f"; plan group {plan.group}, {plan.rows} rows a block, {plan.blocks} "
+                    f"blocks, {plan.smem} B")
+        if route == "tiled":
+            check(torch.equal(got, fsb._launch_f32_dot(*last, **kw)),
+                  f"{key}: the outer- and dot-product partials differ")
+            note += ", bit-identical to the dot-product route"
+        tol = PEP_F32_REL_TOL["K8 fp32"] if fp32 else K8_REL_TOL
         abs_err, rel_err = errors(got, want)
-        summed = sum(parts[1:], parts[0]).to(bf) + b2
+        summed = sum(parts[1:], parts[0]).to(dtype) + b2
         _, sum_rel = errors(summed, whole_out)
-        check(rel_err <= K8_REL_TOL, f"{key} rel err {rel_err} > {K8_REL_TOL}")
-        check(sum_rel <= K8_REL_TOL, f"{key}: the summed partials vs the whole block, rel err "
-              f"{sum_rel} > {K8_REL_TOL}")
-        xr, w1r, w2r = x.view(rows, d), ranks[0][1], ranks[0][5]
-        a8 = _rand(gen, rows, da + mr).to(dev, bf)  # [attn | gelu] of the rank
-        gemm_ms = time_ms(lambda: (torch.matmul(xr, w1r.t()), torch.matmul(a8, w2r.t())))
-        dev_ms = device_ms(lambda: fsb.fused_spatial_block(*ranks[0], **kw), "spatial_sm90_kernel")
-        table.add(key, f"x [{frames},{L},{d}] {split} at tp {size}: rank 0's {heads // size} heads "
-                  f"(Da {da}) and {mr} MLP columns, w1 {list(w1r.shape)}, w2 {list(w2r.shape)}, "
-                  f"fp32 partial; Hopper route, rel {rel_err:.3e}, a second call bit-identical, "
-                  f"the {size} partials summed + b2 vs the whole block's kernel rel {sum_rel:.3e}, "
-                  f"device time {dev_ms:.4f} ms; library none (the two bare cuBLAS GEMMs of the "
-                  f"rank, x @ w1^T and [attn|gelu] @ w2^T: {gemm_ms:.4f} ms)", abs_err,
-                  f"rel tol {K8_REL_TOL}",
-                  time_ms(lambda: fsb.fused_spatial_block(*ranks[0], **kw)),
-                  time_ms(lambda: fsb.reference_spatial_block(*ranks[0], **kw)),
+        check(rel_err <= tol, f"{key} rel err {rel_err} > {tol}")
+        check(sum_rel <= tol, f"{key}: the summed partials vs the whole block, rel err "
+              f"{sum_rel} > {tol}")
+        del parts, again, whole_out, want, got, summed
+        xr, w1r, w2r = x.view(rows, d), last[1], last[5]
+        a8 = torch.empty(rows, da + mr, device=dev, dtype=dtype)  # [attn | gelu] of the rank
+        gemm_ms = time_ms(lambda: (linear(xr, w1r), linear(a8, w2r)))
+        if route == "sm90":
+            dev_ms = device_ms(lambda: fsb.fused_spatial_block(*last, **kw), "spatial_sm90_kernel")
+            note += f", device time {dev_ms:.4f} ms"
+        size_b = 4 if fp32 else 2
+        table.add(key, f"x [{frames},{l},{d}] {split} at tp {size}: rank {size - 1}'s "
+                  f"{heads // size} heads (Da {da}) and {mr} MLP columns, w1 {list(w1r.shape)}, "
+                  f"w2 {list(w2r.shape)}, {'fp32' if fp32 else 'bf16'}, fp32 partial; {route} "
+                  f"route, rel {rel_err:.3e}, a second call bit-identical{note}, the {size} "
+                  f"partials summed + b2 vs the whole block's kernel rel {sum_rel:.3e}; library "
+                  f"none (the two bare cuBLAS {'SGEMMs' if fp32 else 'GEMMs'} of the rank, "
+                  f"x @ w1^T and [attn|gelu] @ w2^T: {gemm_ms:.4f} ms)", abs_err,
+                  f"rel tol {tol}", time_ms(lambda: fsb.fused_spatial_block(*last, **kw)),
+                  time_ms(lambda: fsb.reference_spatial_block(*last, **kw), reps=5),
                   2 * rows * (d * (3 * da + mr) + (da + mr) * d),
-                  rows * d * 2 + rows * d * 4 + ((3 * da + mr) * d + d * (da + mr)) * 2, gemm_ms)
-        del parts, again, whole_out, want, got, summed, ranks
+                  rows * d * size_b + rows * d * 4 + ((3 * da + mr) * (d + 1) + d * (da + mr))
+                  * size_b, gemm_ms, peak=PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+        del ranks, last, whole, a8, x, w1, b1, w2, b2
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 # (key, module kernel, sequences, n, rank heads, dh): a tensor-parallel
@@ -1383,6 +1467,163 @@ def tp_rank_kernel_checks(dev, gen, table: KernelTable) -> None:
     for key, rows, d, d_mid in TP_RANK_MLP:
         k2_check(dev, gen, table, key, rows, d, d_mid, plain_reps=3)
         torch.cuda.empty_cache()
+
+
+# (key, kind, sequences, heads, n, dh): a tensor-parallel rank's fp32
+# attention on its own heads at the fp32 train steps of phase 20: the 4AA
+# temporal axis (B*L = 32 sequences of T=1000) at 16 x 24 tp 2 and tp 4 (K3
+# through K1's fp32 kernel, K4-fp32 backward) and 3 x 128 tp 3 (one head:
+# K5-fp32, K6-fp32); MD17 B=64 at 16 x 16 tp 2, its spatial axis (B*T =
+# 1920 sequences of L=192; K3, K4) and its temporal one (B*L = 12288 of
+# T=30; K9-fp32 forward and backward), and at 2 x 128 tp 2 (one head) its
+# spatial axis (K5-fp32, K6-fp32)
+TP_RANK_F32_ATTENTION = (
+    ("tp 16x24 tp2", "K1", TRAIN_BATCH * L, 8, T, 24),
+    ("tp 16x24 tp4", "K1", TRAIN_BATCH * L, 4, T, 24),
+    ("tp 3x128 tp3", "K5", TRAIN_BATCH * L, 1, T, 128),
+    ("tp md17 tp2", "K1", MD17_BATCH * MD17_T, 8, 192, 16),
+    ("tp md17 tp2", "K9", MD17_BATCH * 192, 8, MD17_T, 16),
+    ("tp md17 2x128 tp2", "K5", MD17_BATCH * MD17_T, 1, 192, 128),
+)
+# (key, rows, d, d_mid): K2-fp32 at a rank's MLP width, as TP_RANK_MLP
+TP_RANK_F32_MLP = tuple((key.replace("K2 tp", "K2 fp32 tp"), rows, d, d_mid)
+                        for key, rows, d, d_mid in TP_RANK_MLP)
+
+
+def tp_rank_f32_kernel_checks(dev, table: KernelTable) -> None:
+    """The fp32 kernels a tensor-parallel rank runs besides K8's partial, at
+    its widths (TP_RANK_F32_ATTENTION, TP_RANK_F32_MLP), against their
+    plain versions with TF32 off: the forward (K3 through K1-fp32, K5-fp32,
+    K9-fp32) within K1_F32_REL_TOL, K5_F32_REL_TOL or F32_REL_TOL["K9
+    fp32"], the backward (K4-fp32, K6-fp32, K9-fp32's) within
+    K4_F32_REL_TOL, K6_F32_REL_TOL or K9_F32_GRAD_REL_TOL per grad; K2-fp32
+    within F32_REL_TOL["K2 fp32"] on the route its plan gives (printed: the
+    dot-product kernel at 3 x 128 tp 3's d_mid 256). Each launches its fp32
+    kernel, repeats bit for bit, and is timed beside its plain version, its
+    bound and SDPA's fp32 call (K2: the two-GEMM composition)."""
+    from torch.nn.functional import gelu, linear
+
+    from lam_slide_tpu_torch.ops import flash_attention as fa
+    from lam_slide_tpu_torch.ops import flash_normrope as fnr
+    from lam_slide_tpu_torch.ops import fused_mlp as fm
+    from lam_slide_tpu_torch.ops import short_attention as tsa
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    for tag, kind, b, h, n, dh in TP_RANK_F32_ATTENTION:
+        scale = dh ** -0.5
+        g = torch.randn(b, h, n, dh, generator=gen, device=dev)
+        if kind == "K9":
+            qkv = torch.randn(b, n, 3 * h * dh, generator=gen, device=dev)
+            q, k, v = qkv.chunk(3, dim=-1)
+            g = g.transpose(1, 2).reshape(b, n, h * dh)
+            fwd = (lambda: tsa.short_attention(q, k, v, h),
+                   lambda: tsa.reference_short_attention(q, k, v, h, scale))
+            bwd = (lambda: tsa.short_attention_backward(q, k, v, g, h, scale),
+                   lambda: tsa.reference_short_backward(q, k, v, g, h, scale))
+            counts = (lambda: (tsa.fp32_launches, tsa.bwd_fp32_launches))
+            want_counts = ((1, 0), (0, 1))
+            heads_view = [t.unflatten(-1, (h, dh)).transpose(1, 2) for t in (q, k, v, g)]
+            lib = (lambda: library_times(*heads_view[:3], scale),
+                   lambda: library_times(*heads_view[:3], scale, grad=heads_view[3]))
+            tols = (F32_REL_TOL["K9 fp32"], K9_F32_GRAD_REL_TOL)
+            keys = (f"K9 fp32 {tag}", f"K9 fp32 bwd {tag}")
+            shape = f"packed q/k/v [{b},{n},{h * dh}] views of one qkv buffer"
+        else:
+            x = dh128_inputs(dev, (tag, kind, b, h, n, n, dh, True, False, True), SEED + 26)
+            q, k, v = x["q"], x["k"], x["v"]
+            if kind == "K1":
+                out, lse = fa._forward(q, k, v, scale, with_lse=True)
+                args = (q, k, v, out, lse, g, scale)
+                fwd = (lambda: fa._forward(q, k, v, scale, False)[0],
+                       lambda: fa.reference_attention(q, k, v, scale))
+                bwd = (lambda: fa.flash_attention_backward(*args),
+                       lambda: fa.reference_flash_backward(*args))
+                counts = (lambda: (fa.fp32_launches, fa.bwd_fp32_launches))
+                want_counts = ((1, 0), (0, k4_f32_kernels(dh, n, n)))
+                lib = (lambda: library_times(q, k, v, scale),
+                       lambda: library_times(q, k, v, scale, grad=g))
+                tols = (K1_F32_REL_TOL, K4_F32_REL_TOL)
+                keys = (f"K3 fp32 {tag}", f"K4 fp32 {tag}")
+            else:
+                tr = (x["qs"], x["ks"], x["cos"], x["sin"])
+                out, lse = fnr._forward(q, k, v, *tr, scale, with_lse=True)
+                args = (q, k, v, *tr, out, lse, g, scale)
+                fwd = (lambda: fnr.flash_attention_normrope(q, k, v, *tr),
+                       lambda: fnr.reference_attention_normrope(q, k, v, *tr))
+                bwd = (lambda: fnr.flash_attention_normrope_backward(*args),
+                       lambda: fnr.reference_normrope_backward(*args))
+                counts = (lambda: (fnr.fp32_launches, fnr.bwd_fp32_launches))
+                want_counts = ((1, 0), (0, k4_f32_kernels(dh, n, n)))
+
+                def pre(q_, k_):
+                    return fnr.pre_transform(q_, k_, *tr)
+
+                lib = (lambda: library_times(q, k, v, scale, pre=pre),
+                       lambda: library_times(q, k, v, scale, grad=g, pre=pre))
+                tols = (K5_F32_REL_TOL, K6_F32_REL_TOL)
+                keys = (f"K5 fp32 {tag}", f"K6 fp32 {tag}")
+            shape = f"head-major q/k/v [{b},{h},{n},{dh}] strided views of packed buffers"
+        for which, ((kernel, plain), want_launched, tol, key) in enumerate(
+                zip((fwd, bwd), want_counts, tols, keys)):
+            before = counts()
+            got = kernel()
+            launched = tuple(a - c for a, c in zip(counts(), before))
+            again = kernel()
+            want = plain()
+            check(launched == want_launched, f"{key}: launches {launched} != {want_launched}")
+            check(_bit_identical(got if which else [got], again if which else [again]),
+                  f"{key}: a second call differs")
+            errs = _grad_errors(got, want) if which else [(*errors(got, want), 0.0)]
+            worst = max(e[1] for e in errs)
+            check(worst <= tol, f"{key} rel err {worst} > {tol}")
+            what = "forward" if not which else "backward, grads " + ", ".join(
+                f"{nm} rel {r:.3e}" for nm, (_, r, _) in zip(("dq", "dk", "dv"), errs))
+            del got, again, want
+            flops = (4 if not which else 10) * b * h * n * n * dh
+            nbytes = 4 * (4 if not which else 8) * b * h * n * dh
+            table.add(key, f"{shape}, {h} x {dh} (a rank's heads), fp32 {what}; rel "
+                      f"{worst:.3e}, a second call bit-identical; library: SDPA"
+                      f"{' fwd+bwd - fwd' if which else ''} on the fp32 head-major views"
+                      f"{' after the plain pre_transform' if kind == 'K5' else ''} (TF32 off)",
+                      max(e[0] for e in errs), f"rel tol {tol}", time_ms(kernel, reps=5),
+                      time_ms(plain, reps=2), flops, nbytes, lib[which](),
+                      peak=PEAK_FP32_FLOPS, exps=b * h * n * n)
+        del q, k, v, g, fwd, bwd, lib
+        torch.cuda.empty_cache()
+    for key, rows, d, d_mid in TP_RANK_F32_MLP:
+        x = torch.randn(rows, d, generator=gen, device=dev)
+        w1 = torch.randn(d_mid, d, generator=gen, device=dev) * d ** -0.5
+        b1 = torch.randn(d_mid, generator=gen, device=dev) * 0.1
+        w2 = torch.randn(d, d_mid, generator=gen, device=dev) * d_mid ** -0.5
+        args = (x, w1.t(), b1, w2.t())
+        before = (fm.fp32_launches, fm.fp32_tiled_launches, fm.fp32_dot_launches)
+        got, again, want = fm.fused_mlp(*args), fm.fused_mlp(*args), fm.reference_mlp(*args)
+        torch.cuda.synchronize()
+        launched = tuple(a - c for a, c in zip((fm.fp32_launches, fm.fp32_tiled_launches,
+                                                fm.fp32_dot_launches), before))
+        route = "tiled" if launched[1] else "dot"
+        check(launched[0] == 2 and launched[1] + launched[2] == 2 and 0 in launched[1:],
+              f"{key}: launches (fp32, tiled, dot) {launched} for two calls")
+        check(torch.equal(got, again), f"{key}: a second call differs")
+        abs_err, rel = errors(got, want)
+        tol = F32_REL_TOL["K2 fp32"]
+        check(rel <= tol, f"{key} rel err {rel} > {tol}")
+        plan = fm.tiled_plan(d, d_mid, d, rows) if route == "tiled" else fm.f32_plan(d, d)
+        del got, again, want
+        table.add(key, f"x [{rows},{d}] -> {d_mid} (a rank's M/tp) -> {d} fp32 partial, the "
+                  f"{'outer' if route == 'tiled' else 'dot'}-product route, plan {plan}; rel "
+                  f"{rel:.3e}, a second call bit-identical; library: the two-GEMM cuBLAS "
+                  f"composition with GELU (not one call)", abs_err, f"rel tol {tol}",
+                  time_ms(lambda: fm.fused_mlp(*args), reps=5),
+                  time_ms(lambda: fm.reference_mlp(*args), reps=2), 4 * rows * d * d_mid,
+                  4 * (2 * rows * d + 2 * d * d_mid + d_mid),
+                  time_ms(lambda: linear(gelu(linear(x, w1, b1)), w2), reps=5),
+                  peak=PEAK_FP32_FLOPS)
+        del x, w1, b1, w2, args
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def _grad_errors(got, want):
@@ -2001,7 +2242,6 @@ def peptide_f32_kernel_checks(dev, gen, table: KernelTable) -> None:
     fp32 kernel once a call and repeats bit for bit."""
     from torch.nn.functional import gelu, linear
 
-    from lam_slide_tpu_torch.ops import _build
     from lam_slide_tpu_torch.ops import flash_attention as fa
     from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
 
@@ -2031,11 +2271,7 @@ def peptide_f32_kernel_checks(dev, gen, table: KernelTable) -> None:
         check(rel <= tol, f"K8 fp32 [{n},{L},{d}] {heads} heads rel err {rel} > {tol}")
         # the dot-product route on the same inputs sums in the same order
         plan = fsb.f32_plan(n, L, d, m, heads)
-        dot = torch.empty_like(x)
-        with torch.cuda.device(dev):
-            _build.launch("lam_spatial_block_f32", *(t.data_ptr() for t in args8[:9]),
-                          dot.data_ptr(), n, L, d, m, heads, w1.stride(0), w2.stride(0),
-                          args8[10], plan.group, torch.cuda.current_stream(dev).cuda_stream)
+        dot = fsb._launch_f32_dot(*args8)
         torch.cuda.synchronize()
         check(torch.equal(got, dot), f"K8 fp32 [{n},{L},{d}] {heads} heads: the outer- and "
               f"dot-product kernels differ")
@@ -2846,12 +3082,7 @@ def ped_nba_kernel_checks(dev, table: KernelTable, seed: int = SEED + 17) -> Non
             plan = fsb.f32_plan(frames, l, d, m, heads) if fp32 else None
             if fp32:
                 # the dot-product route on the same inputs sums in the same order
-                dot = torch.empty_like(got)
-                with torch.cuda.device(dev):
-                    _build.launch("lam_spatial_block_f32", *(z.data_ptr() for z in args8[:9]),
-                                  dot.data_ptr(), frames, l, d, m, heads, args8[1].stride(0),
-                                  args8[5].stride(0), args8[10], fsb.f32_group(d, heads),
-                                  stream)
+                dot = fsb._launch_f32_dot(*args8)
                 torch.cuda.synchronize()
                 check(torch.equal(got, dot), f"{key}: the outer- and dot-product kernels differ")
                 del dot
@@ -4447,7 +4678,8 @@ def fp32_train_phase(dev, smi, reset_counts, read_counts):
     ``stage_checks`` with TF32 off: F32_TRAIN_STEPS steps in which the SI
     loss falls, F32_TIMED_STEPS timed steps of each path, a profiled step at
     16 heads.
-    Returns the launches of one step of each full-width run, by label."""
+    Returns the launches of one step of each full-width run, by label, and
+    the MD17 16 x 16 run with its batch (phase 20's fp32 MD17 step)."""
     import contextlib
     import io
     import os
@@ -4533,6 +4765,7 @@ def fp32_train_phase(dev, smi, reset_counts, read_counts):
                 "K5 transform": 4 * d, "K5 fp32 wide": 4 * d, "K6": 2 * d,
                 "K6 fp32": d * md17_wide_kernels, "K6 fp32 wide": d * md17_wide_kernels}),
         }
+        md17_tp_run = None
         for heads in (16, MD17_WIDE_HEADS):
             run2 = registry.md17_second_stage(first_stage=run1, seed=SEED, molecule="aspirin",
                                               synthetic_frames=F32_MD17_FRAMES,
@@ -4547,6 +4780,8 @@ def fp32_train_phase(dev, smi, reset_counts, read_counts):
                 md17_want[heads], [ss.backbone, ss.first_stage], dev, smi, reset_counts,
                 read_counts, F32_TRAIN_GRAD_REL_TOL, ("si_loss",), "fp32_train",
                 F32_TRAIN_STEPS, F32_TIMED_STEPS, profile=heads == 16)
+            if heads == 16:
+                md17_tp_run = (run2, batch)  # phase 20's fp32 MD17 step at tp 2
             del run2, batch, ss
             torch.cuda.empty_cache()
         del run1
@@ -4587,7 +4822,7 @@ def fp32_train_phase(dev, smi, reset_counts, read_counts):
                 F32_TRAIN_STEPS, F32_TIMED_STEPS, profile=heads == HEADS)
             del run2, batch, ss
             torch.cuda.empty_cache()
-        return results
+        return results, md17_tp_run
     finally:
         shutil.rmtree(ws, ignore_errors=True)
         if saved_env is None:
@@ -4680,14 +4915,14 @@ def train_batch(batch: int, dev, transport, fixed_draws: bool, seed: int):
     return out
 
 
-def train_state(make_model, heads, backend="auto", mesh=None):
+def train_state(make_model, heads, backend="auto", mesh=None, dtype=torch.bfloat16):
     from lam_slide_tpu_torch.train import create_train_state, make_train_step
     from lam_slide_tpu_torch.train.trainer import TrainerConfig, make_optimizer
     from lam_slide_tpu_torch.transport import create_transport
 
     cfg = TrainerConfig(max_epochs=TRAIN_EPOCHS, lr=1e-3, grad_clip=CLIP, ema_decay=EMA_DECAY)
     tx, _ = make_optimizer(cfg, 1)
-    model = make_model(heads, backend=backend)
+    model = make_model(heads, dtype=dtype, backend=backend)
     transport = create_transport(path_type="GVP", prediction="data")
     step = make_train_step(si_loss_fn(transport), tx, ema_decay=cfg.ema_decay, mesh=mesh)
     return create_train_state(model, tx), step, transport
@@ -5535,115 +5770,178 @@ def _tp_step(state, step, batch, reset_counts, read_counts):
     return state, loss, read_counts(), secs
 
 
-def tp_phase(dev, smi, make_model, md17_run, reset_counts, read_counts) -> dict:
+def _tp_want(ref_counts, size, fp32):
+    """The launches of a step with every block in ``size`` shards, from the
+    unsharded step's: every kernel of a block once a shard, K7 once a layer;
+    K8 only as its partial instance, on the route of the rank's widths (the
+    WMMA route at 16 x 24 tp 8 in bf16, whose Hopper plan needs Da a whole
+    number of head groups of 96); K2-fp32's two routes taken together (its
+    outer-product instance needs d_mid a multiple of its chunk: 3 x 128 tp 3's
+    256 takes the dot-product kernel)."""
+    want = {k: v if k.startswith("K7") else v * size for k, v in ref_counts.items()}
+    want["K8 tp partial"] = ref_counts["K8"] * size if size > 1 else 0
+    if not fp32 and size == TP_WMMA_SPLIT[1]:
+        want["K8 wmma"] = ref_counts["K8"] * size
+    if fp32:
+        for key in ("K2 fp32 tiled", "K2 fp32 dot"):
+            want.pop(key)
+    return want
+
+
+def _tp_counts_ok(counts, want) -> bool:
+    return ({k: counts[k] for k in want} == want
+            and counts["K2 fp32 tiled"] + counts["K2 fp32 dot"] == want["K2 fp32"])
+
+
+def tp_phase(dev, smi, make_model, md17_run, md17_f32_run, reset_counts, read_counts) -> dict:
     """Phase 20: tensor parallelism (parallel/tp.py) with every shard of a
     block in this process on the one card (a card hosts one NCCL rank):
-    the 4AA stage-2 B=16 train step at each split of TP_SPLITS and the MD17
-    stage-2 B=64 step at tp TP_MD17, each against the unsharded step on the
-    same weights and draws (the loss, the parameter moves, beside the
-    unsharded step's own repeat) with its launches; then an Euler-10 B=8
-    solve through the shards at 16 x 24 tp 2 against the unsharded solve.
-    Every kernel of a block runs once a shard (K8 as the partial instance,
-    K2 at d_mid = M/tp, K1/K3, K5, K4, K6, K9 on the shard's heads, all on
-    the TMA route), K7 once a layer. Returns the launches of the 16 x 24 tp
-    2 step."""
+    the 4AA stage-2 B=16 train step in bf16 at each split of TP_SPLITS and
+    at 16 x 24 tp 8 (K8 on the WMMA partial), and in fp32 (TF32 off) at
+    each split of TP_SPLITS (K8-fp32's outer-product partial); the MD17
+    stage-2 B=64 step at tp TP_MD17 in bf16 (phase 10's run) and in fp32
+    (phase 16's 16 x 16 run); each against the unsharded step of its dtype
+    on the same weights and draws (the loss, the grads, the parameter
+    moves, beside the unsharded step's own repeat) with its launches. Then
+    an Euler-10 B=8 solve through the shards at 16 x 24 tp 2 against the
+    unsharded solve, and a forward of a DiT of the NBA widths at tp 8 in
+    bf16 (the WMMA partial) and fp32 (the dot-product partial) against the
+    unsharded forward. Every kernel of a block runs once a shard (K8 as the
+    partial instance, K2 at d_mid = M/tp, K1/K3, K5, K4, K6, K9 on the
+    shard's heads), K7 once a layer. Returns the main-path launches of the
+    summary's partial rows: K8's Hopper and fp32 outer-product partials
+    from the 16 x 24 tp 2 steps, its WMMA partial from the tp 8 step, its
+    fp32 dot-product partial from the NBA fp32 forward."""
     import copy
 
+    from lam_slide_tpu_torch.models import LatentDiT
     from lam_slide_tpu_torch.parallel import tp
     from lam_slide_tpu_torch.train import create_train_state, make_train_step
     from lam_slide_tpu_torch.transport import Sampler, create_transport
 
-    main_counts = None
-    for heads in (HEADS, WIDE_HEADS):
-        split = f"{heads}x{HIDDEN // heads}"
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    main_counts = {}
+    for fp32 in (False, True):
+        dtype = torch.float32 if fp32 else torch.bfloat16
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = (
+            (False, False) if fp32 else saved)
+        name = "fp32" if fp32 else "bf16"
+        loss_tol = TP_F32_LOSS_REL_TOL if fp32 else TP_LOSS_REL_TOL
+        grad_tols = F32_TRAIN_GRAD_REL_TOL if fp32 else (GRAD_NORM_REL_TOL["bf16"],
+                                                          GRAD_TENSOR_REL_TOL["bf16"])
+        moved_tol = TP_F32_MOVED_REL_TOL if fp32 else TP_MOVED_REL_TOL
+        splits = TP_SPLITS if fp32 else TP_SPLITS + (TP_WMMA_SPLIT,)
+        for heads in (HEADS, WIDE_HEADS):
+            split = f"{heads}x{HIDDEN // heads}"
+            results = {}
+            for mode in ("plain", "repeat", *(f"tp{s}" for h, s in splits if h == heads)):
+                state, step, transport = train_state(make_model, heads, dtype=dtype)
+                if mode == "plain":
+                    start = _whole_params(state.model)
+                batch = train_batch(TRAIN_BATCH, dev, transport, False, SEED)
+                size = int(mode[2:]) if mode.startswith("tp") else 1
+                if size > 1:
+                    state = tp.shard_train_state(state, size=size)
+                grads = _tp_grads(state.model, si_loss_fn(transport),
+                                  train_batch(GRAD_BATCH, dev, transport, True, SEED + 1))
+                state, loss, counts, secs = _tp_step(state, step, batch, reset_counts,
+                                                     read_counts)
+                params = _whole_params(state.model)
+                if mode == "plain":
+                    ref, ref_grads = params, grads
+                results[mode] = (size, loss, _moved_err(params, start, ref),
+                                 _tp_grad_errors(grads, ref_grads), counts, secs)
+                del state, step, params, grads
+                torch.cuda.empty_cache()
+            _, ref_loss, _, _, ref_counts, ref_secs = results["plain"]
+            for mode, (size, loss, (moved, where), gerr, counts, secs) in results.items():
+                rel = abs(loss - ref_loss) / abs(ref_loss)
+                want = _tp_want(ref_counts, size, fp32)
+                cp_async = {k: v for k, v in counts.items() if "cp.async" in k}
+                k8 = (f"K8 fp32 {counts['K8 fp32']} (outer-product {counts['K8 fp32 tiled']}, "
+                      f"dot-product {counts['K8 fp32 dot']}), K2 fp32 {counts['K2 fp32']} "
+                      f"(outer-product {counts['K2 fp32 tiled']}, dot-product "
+                      f"{counts['K2 fp32 dot']})" if fp32 else
+                      f"K8 {counts['K8']} (WMMA {counts['K8 wmma']}), K2 {counts['K2']}")
+                print(f"tp {split} {name} B={TRAIN_BATCH} {mode} step: loss {loss:.6f} (rel err "
+                      f"{rel:.3e}, tol {loss_tol}); grads at B={GRAD_BATCH} vs unsharded: norm "
+                      f"rel err {gerr[0]:.3e} (tol {grad_tols[0]}), worst tensor {gerr[1]:.3e} "
+                      f"at {gerr[2]} (tol {grad_tols[1]}); worst parameter move err "
+                      f"{moved:.3e} at {where or '-'} (tol {moved_tol}); {secs * 1e3:.1f} ms "
+                      f"(first step of its state; unsharded {ref_secs * 1e3:.1f} ms); launches "
+                      f"{k8}, tp partial {counts['K8 tp partial']}, K1 {counts['K1']}, K5 "
+                      f"{counts['K5']}, K4 {counts['K4 kv']}, K6 {counts['K6']}, K7 "
+                      f"{counts['K7']}, cp.async {cp_async} | {smi}")
+                check(rel <= loss_tol, f"tp {split} {name} {mode}: loss {loss} vs {ref_loss}")
+                check(gerr[0] <= grad_tols[0] and gerr[1] <= grad_tols[1],
+                      f"tp {split} {name} {mode}: grads vs unsharded {gerr}")
+                check(moved <= moved_tol, f"tp {split} {name} {mode}: {where} moved {moved} off "
+                      f"the unsharded step")
+                check(_tp_counts_ok(counts, want),
+                      f"tp {split} {name} {mode}: launches {counts} != {want}")
+                check(not any(cp_async.values()),
+                      f"tp {split} {name} {mode}: cp.async launches {cp_async}")
+                if (heads, size) == (HEADS, 2):
+                    key = "K8 fp32 tp partial" if fp32 else "K8 tp partial"
+                    main_counts[key] = counts["K8 tp partial"]
+                if (heads, size) == TP_WMMA_SPLIT and not fp32:
+                    main_counts["K8 wmma tp partial"] = counts["K8 wmma"]
+
+        # the MD17 stage-2 DiT (depth 4, hidden 256, 16 x dh 16; its spatial
+        # axis L=192 on K3, its temporal axis T=30 on K9): phase 10's bf16
+        # run, phase 16's fp32 one
+        run2, batch2 = md17_f32_run if fp32 else md17_run
+        base = copy.deepcopy(run2.model)
         results = {}
-        for mode in ("plain", "repeat", *(f"tp{s}" for h, s in TP_SPLITS if h == heads)):
-            state, step, transport = train_state(make_model, heads)
+        for mode in ("plain", "repeat", f"tp{TP_MD17}"):
+            model = copy.deepcopy(base)
+            state = create_train_state(model, run2.tx)
+            step = make_train_step(run2.loss_fn, run2.tx, ema_decay=run2.trainer_cfg.ema_decay)
             if mode == "plain":
-                start = _whole_params(state.model)
-            batch = train_batch(TRAIN_BATCH, dev, transport, False, SEED)
+                start = _whole_params(model)
             size = int(mode[2:]) if mode.startswith("tp") else 1
             if size > 1:
                 state = tp.shard_train_state(state, size=size)
-            grads = _tp_grads(state.model, si_loss_fn(transport),
-                              train_batch(GRAD_BATCH, dev, transport, True, SEED + 1))
-            state, loss, counts, secs = _tp_step(state, step, batch, reset_counts, read_counts)
+            grads = _tp_grads(state.model, run2.loss_fn,
+                              {k: v[:GRAD_BATCH] for k, v in batch2.items()})
+            state, loss, counts, secs = _tp_step(state, step, batch2, reset_counts, read_counts)
             params = _whole_params(state.model)
             if mode == "plain":
                 ref, ref_grads = params, grads
             results[mode] = (size, loss, _moved_err(params, start, ref),
                              _tp_grad_errors(grads, ref_grads), counts, secs)
-            del state, step, params, grads
+            del state, step, model, params, grads
             torch.cuda.empty_cache()
+        grad_tols = F32_TRAIN_GRAD_REL_TOL if fp32 else MD17_GRAD_REL_TOL
         _, ref_loss, _, _, ref_counts, ref_secs = results["plain"]
         for mode, (size, loss, (moved, where), gerr, counts, secs) in results.items():
             rel = abs(loss - ref_loss) / abs(ref_loss)
-            want = {k: v if k.startswith("K7") else v * size for k, v in ref_counts.items()}
-            want["K8 tp partial"] = ref_counts["K8"] * size if size > 1 else 0
             cp_async = {k: v for k, v in counts.items() if "cp.async" in k}
-            print(f"tp {split} B={TRAIN_BATCH} {mode} step: loss {loss:.6f} (rel err {rel:.3e}, "
-                  f"tol {TP_LOSS_REL_TOL}); grads at B={GRAD_BATCH} vs unsharded: norm rel err "
-                  f"{gerr[0]:.3e} (tol {GRAD_NORM_REL_TOL['bf16']}), worst tensor {gerr[1]:.3e} "
-                  f"at {gerr[2]} (tol {GRAD_TENSOR_REL_TOL['bf16']}); worst parameter move err "
-                  f"{moved:.3e} at {where or '-'} (tol {TP_MOVED_REL_TOL}); {secs * 1e3:.1f} ms "
-                  f"(first step of its state; unsharded {ref_secs * 1e3:.1f} ms); launches K8 "
-                  f"{counts['K8']} (tp partial {counts['K8 tp partial']}), K2 {counts['K2']}, "
-                  f"K1 {counts['K1']}, K5 {counts['K5']}, K4 {counts['K4 kv']}, K6 "
-                  f"{counts['K6']}, K7 {counts['K7']}, cp.async {cp_async} | {smi}")
-            check(rel <= TP_LOSS_REL_TOL, f"tp {split} {mode}: loss {loss} vs {ref_loss}")
-            check(gerr[0] <= GRAD_NORM_REL_TOL["bf16"] and gerr[1] <= GRAD_TENSOR_REL_TOL["bf16"],
-                  f"tp {split} {mode}: grads vs unsharded {gerr}")
-            check(moved <= TP_MOVED_REL_TOL, f"tp {split} {mode}: {where} moved {moved} off "
-                  f"the unsharded step")
-            check(counts == want, f"tp {split} {mode}: launches {counts} != {want}")
-            check(not any(cp_async.values()), f"tp {split} {mode}: cp.async launches {cp_async}")
-            if (heads, size) == (HEADS, 2):
-                main_counts = counts
-
-    # the MD17 stage-2 DiT (depth 4, hidden 256, 16 x dh 16; its spatial
-    # axis L=192 on K3, its temporal axis T=30 on K9) from phase 10's run
-    run2, batch2 = md17_run
-    base = copy.deepcopy(run2.model)
-    results = {}
-    for mode in ("plain", "repeat", f"tp{TP_MD17}"):
-        model = copy.deepcopy(base)
-        state = create_train_state(model, run2.tx)
-        step = make_train_step(run2.loss_fn, run2.tx, ema_decay=run2.trainer_cfg.ema_decay)
-        if mode == "plain":
-            start = _whole_params(model)
-        size = int(mode[2:]) if mode.startswith("tp") else 1
-        if size > 1:
-            state = tp.shard_train_state(state, size=size)
-        grads = _tp_grads(state.model, run2.loss_fn, {k: v[:GRAD_BATCH] for k, v in batch2.items()})
-        state, loss, counts, secs = _tp_step(state, step, batch2, reset_counts, read_counts)
-        params = _whole_params(state.model)
-        if mode == "plain":
-            ref, ref_grads = params, grads
-        results[mode] = (size, loss, _moved_err(params, start, ref),
-                         _tp_grad_errors(grads, ref_grads), counts, secs)
-        del state, step, model, params, grads
-        torch.cuda.empty_cache()
-    _, ref_loss, _, _, ref_counts, ref_secs = results["plain"]
-    for mode, (size, loss, (moved, where), gerr, counts, secs) in results.items():
-        rel = abs(loss - ref_loss) / abs(ref_loss)
-        cp_async = {k: v for k, v in counts.items() if "cp.async" in k}
-        print(f"tp md17 16x16 B={MD17_BATCH} {mode} step: loss {loss:.6f} (rel err {rel:.3e}, "
-              f"tol {TP_LOSS_REL_TOL}); grads at B={GRAD_BATCH} vs unsharded: norm rel err "
-              f"{gerr[0]:.3e} (tol {MD17_GRAD_REL_TOL[0]}), worst tensor {gerr[1]:.3e} at "
-              f"{gerr[2]} (tol {MD17_GRAD_REL_TOL[1]}); worst parameter move err {moved:.3e} at "
-              f"{where or '-'} (tol {TP_MOVED_REL_TOL}); {secs * 1e3:.1f} ms (unsharded "
-              f"{ref_secs * 1e3:.1f} ms); launches K1 {counts['K1']}, K2 {counts['K2']}, K9 "
-              f"{counts['K9']}, K9 bwd {counts['K9 bwd']}, K4 {counts['K4 kv']}, K7 "
-              f"{counts['K7']}, cp.async {cp_async} | {smi}")
-        check(rel <= TP_LOSS_REL_TOL, f"tp md17 {mode}: loss {loss} vs {ref_loss}")
-        check(gerr[0] <= MD17_GRAD_REL_TOL[0] and gerr[1] <= MD17_GRAD_REL_TOL[1],
-              f"tp md17 {mode}: grads vs unsharded {gerr}")
-        check(moved <= TP_MOVED_REL_TOL, f"tp md17 {mode}: {where} moved {moved}")
-        for key in ("K2", "K9", "K9 bwd"):  # kernels of the DiT blocks alone
-            check(counts[key] == ref_counts[key] * size,
-                  f"tp md17 {mode}: {key} {counts[key]} != {size} x {ref_counts[key]}")
-        check(not any(cp_async.values()), f"tp md17 {mode}: cp.async launches {cp_async}")
-    del base
+            print(f"tp md17 16x16 {name} B={MD17_BATCH} {mode} step: loss {loss:.6f} (rel err "
+                  f"{rel:.3e}, tol {loss_tol}); grads at B={GRAD_BATCH} vs unsharded: norm rel "
+                  f"err {gerr[0]:.3e} (tol {grad_tols[0]}), worst tensor {gerr[1]:.3e} at "
+                  f"{gerr[2]} (tol {grad_tols[1]}); worst parameter move err {moved:.3e} at "
+                  f"{where or '-'} (tol {moved_tol}); {secs * 1e3:.1f} ms (unsharded "
+                  f"{ref_secs * 1e3:.1f} ms); launches K1 {counts['K1']} (fp32 "
+                  f"{counts['K1 fp32']}), K2 {counts['K2']} (fp32 {counts['K2 fp32']}), K9 "
+                  f"{counts['K9']} (fp32 {counts['K9 fp32']}), K9 bwd {counts['K9 bwd']} (fp32 "
+                  f"{counts['K9 bwd fp32']}), K4 {counts['K4 kv']}, K7 {counts['K7']}, "
+                  f"cp.async {cp_async} | {smi}")
+            check(rel <= loss_tol, f"tp md17 {name} {mode}: loss {loss} vs {ref_loss}")
+            check(gerr[0] <= grad_tols[0] and gerr[1] <= grad_tols[1],
+                  f"tp md17 {name} {mode}: grads vs unsharded {gerr}")
+            check(moved <= moved_tol, f"tp md17 {name} {mode}: {where} moved {moved}")
+            # kernels of the DiT blocks alone, and in fp32 each on its fp32 kernel
+            keys = ("K2", "K9", "K9 bwd") + (("K2 fp32", "K9 fp32", "K9 bwd fp32") if fp32
+                                             else ())
+            for key in keys:
+                check(counts[key] == ref_counts[key] * size,
+                      f"tp md17 {name} {mode}: {key} {counts[key]} != {size} x {ref_counts[key]}")
+            check(not fp32 or counts["K9 fp32"] == counts["K9"] > 0,
+                  f"tp md17 fp32 {mode}: a bf16 K9 launch {counts}")
+            check(not any(cp_async.values()), f"tp md17 {name} {mode}: cp.async {cp_async}")
+        del base, run2, batch2
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
     # an Euler-10 solve through the sharded forward, against the unsharded
     euler = Sampler(create_transport(path_type="GVP", prediction="data")).sample_ode(
@@ -5677,17 +5975,56 @@ def tp_phase(dev, smi, make_model, md17_run, reset_counts, read_counts) -> dict:
           f"tp Euler solve launches {counts}: not {evals} K8 partials, K2 and K1")
     del model
     torch.cuda.empty_cache()
+
+    # one forward of a DiT of the NBA stage 2's widths (composites/nba.py:
+    # depth 6, hidden 256, 16 x dh 16, mlp_ratio 2, T = 20, L = 8, B = 1024)
+    # at tp 8, whose ranks (2 heads, Da 32) sit below the Hopper kernel's
+    # head group of 64 and the outer-product kernel's: bf16 on the WMMA
+    # partial, fp32 (TF32 off) on the dot-product partial
+    b, d, heads, l, _ = PN_SHAPES["nba"]
+    g = torch.Generator().manual_seed(SEED + 21)
+    x = torch.randn(b, PN_T, l, 32, generator=g).to(dev)
+    mask = torch.zeros(b, PN_T, l, dtype=torch.long, device=dev)
+    mask[:, :8] = 1  # NBA's cond_idx (0, 8): eight frames condition
+    tvec = torch.rand(b, generator=g).to(dev)
+    for fp32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = (
+            (False, False) if fp32 else saved)
+        model = LatentDiT(depth=PN_DEPTH, in_dim=32, hidden_size=d, num_heads=heads, mlp_ratio=2,
+                          reference_init=False, dtype=torch.float32 if fp32 else torch.bfloat16,
+                          device=dev, generator=torch.Generator().manual_seed(SEED)).eval()
+        with torch.no_grad():
+            want = model(x, tvec, x * mask[..., None], mask)
+            tp.shard_model(model, tp.in_process(TP_NBA))
+            torch.cuda.synchronize()
+            reset_counts()
+            got = model(x, tvec, x * mask[..., None], mask)
+            torch.cuda.synchronize()
+        counts = read_counts()
+        _, rel = errors(got, want)
+        name, tol = ("fp32", TP_F32_FWD_REL_TOL) if fp32 else ("bf16", MODEL_REL_TOL)
+        route = "K8 fp32 dot" if fp32 else "K8 wmma"
+        print(f"tp nba {heads}x{d // heads} {name} forward B={b} T={PN_T} L={l} tp {TP_NBA}: out "
+              f"{list(got.shape)} vs the unsharded forward rel err {rel:.3e} (tol {tol}); "
+              f"launches K8 {counts['K8']} (tp partial {counts['K8 tp partial']}, WMMA "
+              f"{counts['K8 wmma']}, fp32 outer-product {counts['K8 fp32 tiled']}, fp32 "
+              f"dot-product {counts['K8 fp32 dot']}), K9 {counts['K9']}, K2 {counts['K2']}, K7 "
+              f"{counts['K7']} | {smi}")
+        layers = PN_DEPTH * TP_NBA
+        check(bool(torch.isfinite(got).all()) and rel <= tol, f"tp nba {name}: rel err {rel}")
+        check(counts["K8 tp partial"] == counts[route] == counts["K8"] == layers
+              and counts["K9"] == counts["K2"] == layers, f"tp nba {name}: launches {counts}")
+        if fp32:
+            main_counts["K8 fp32 tp partial dot"] = counts["K8 fp32 dot"]
+        del model, want, got
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     return main_counts
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
-              file=sys.stderr)
-        return 1
-    from lam_slide_tpu_torch import native
-    from lam_slide_tpu_torch.models import LatentDiT
-    from lam_slide_tpu_torch.ops import _build
+def launch_counters() -> dict:
+    """name -> (module, counter attribute) of every launch counter the
+    phases read."""
     from lam_slide_tpu_torch.ops import flash_attention as fa
     from lam_slide_tpu_torch.ops import flash_normrope as fnr
     from lam_slide_tpu_torch.ops import fused_adaln as fad
@@ -5696,9 +6033,8 @@ def main() -> int:
     from lam_slide_tpu_torch.ops import short_attention as tsa
     from lam_slide_tpu_torch.ops.ablations import fused_temporal_attention as tft
     from lam_slide_tpu_torch.ops.ablations import short_backward as tsb
-    from lam_slide_tpu_torch.transport import Sampler, create_transport
 
-    counters = {"K1": (fa, "launches"), "K1 bias": (fa, "bias_launches"),
+    return {"K1": (fa, "launches"), "K1 bias": (fa, "bias_launches"),
                 "K1 fp32": (fa, "fp32_launches"), "K2": (fm, "launches"),
                 "K2 fp32": (fm, "fp32_launches"), "K7 fp32": (fad, "fp32_launches"),
                 "K1 fp32 wide": (fa, "fp32_wide_launches"),
@@ -5731,6 +6067,19 @@ def main() -> int:
                 "K6 fp32 wide": (fnr, "bwd_fp32_wide_launches"),
                 "K9 bwd fp32": (tsa, "bwd_fp32_launches"),
                 "K8 tp partial": (fsb, "tp_partial_launches")}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
+              file=sys.stderr)
+        return 1
+    from lam_slide_tpu_torch import native
+    from lam_slide_tpu_torch.models import LatentDiT
+    from lam_slide_tpu_torch.ops import _build
+    from lam_slide_tpu_torch.transport import Sampler, create_transport
+
+    counters = launch_counters()
 
     def reset_counts():
         for mod, attr in counters.values():
@@ -5955,7 +6304,7 @@ def main() -> int:
 
     # 16. fp32 training: both registries' --smoke stage 2 through the CLI,
     # and the full-width fp32 stage-2 steps at all four head splits
-    f32_counts = fp32_train_phase(dev, smi, reset_counts, read_counts)
+    f32_counts, md17_f32_run = fp32_train_phase(dev, smi, reset_counts, read_counts)
     phase_done("fp32_train")
 
     # 17. the pedestrian and NBA workloads through train.cli: stage 1, stage
@@ -5975,10 +6324,11 @@ def main() -> int:
     del pep_state
     phase_done("parallel")
 
-    # 20. tensor parallelism: the 4AA and MD17 stage-2 steps with every
-    # shard of a block on the one card, an Euler solve through the shards
-    tp_counts = tp_phase(dev, smi, make_model, md17_run, reset_counts, read_counts)
-    del md17_run
+    # 20. tensor parallelism: the 4AA and MD17 stage-2 steps in bf16 and
+    # fp32 with every shard of a block on the one card, an Euler solve
+    # through the shards, the NBA-width forward at tp 8
+    tp_counts = tp_phase(dev, smi, make_model, md17_run, md17_f32_run, reset_counts, read_counts)
+    del md17_run, md17_f32_run
     phase_done("tp")
 
     sources = {
@@ -6038,6 +6388,16 @@ def main() -> int:
         "K8 tp partial": ("fused_spatial_block (a tensor-parallel rank's fp32 partial: H/tp "
                           "heads, M/tp MLP columns, no b2)", "fused_spatial_block_sm90.cu",
                           "fused_spatial_block.py:108"),
+        "K8 wmma tp partial": ("fused_spatial_block (a bf16 tensor-parallel rank's fp32 "
+                               "partial below a Hopper head group: the WMMA route)",
+                               "fused_spatial_block.cu", "fused_spatial_block.py:108"),
+        "K8 fp32 tp partial": ("fused_spatial_block (an fp32 tensor-parallel rank's partial: "
+                               "the outer-product kernel)", "fused_spatial_block_f32.cu",
+                               "fused_spatial_block.py:108"),
+        "K8 fp32 tp partial dot": ("fused_spatial_block (an fp32 tensor-parallel rank's partial "
+                                   "below an outer-product instance's head group: the "
+                                   "dot-product kernel)", "fused_spatial_block_f32.cu",
+                                   "fused_spatial_block.py:108"),
     }
     # launches on the main paths: K1/K2/K7/K8 from the 16 x 24 B=8 Euler solve
     # (K1 and K3 one binary, flash_fwd_sm90.cu, whose launches it counts), K5
@@ -6053,7 +6413,10 @@ def main() -> int:
     # fp32 from phase 15's eval (two dopri5 windows of the fp32 DiT); K5 in
     # fp32, its fp32 transform and K1's register-tiled fp32 kernel under it
     # from phase 15's eval at 3 x 128; K8's tensor-parallel partial from
-    # phase 20's 16 x 24 step at tp 2
+    # phase 20's 16 x 24 step at tp 2, its fp32 outer-product partial from
+    # the fp32 16 x 24 step at tp 2, its WMMA partial from the bf16 16 x 24
+    # step at tp 8 and its fp32 dot-product partial from the NBA-width fp32
+    # forward at tp 8
     md17_train = {key: s1_counts[key] + s2_counts[key] for key in s1_counts}
     main_counts = dict(launches[HEADS], K1=launches[HEADS]["K1 sm90"],
                        K3=launches[HEADS]["K1 sm90"], K5=launches[WIDE_HEADS]["K5 sm90"],
@@ -6076,7 +6439,7 @@ def main() -> int:
                           "K4 fp32 dh128": (f32_counts["4AA 3x128"]["K6 fp32 wide"]
                                             + f32_counts["4AA 3x128"]["K4 fp32 wide"]),
                           "K6 fp32": f32_counts["4AA 3x128"]["K6"],
-                          "K8 tp partial": tp_counts["K8 tp partial"]})
+                          **tp_counts})
     idle = [key for key in sources if not main_counts[key] > 0]
     check(not idle, f"kernels launched no time on their main paths: {idle}")
     kernels = [

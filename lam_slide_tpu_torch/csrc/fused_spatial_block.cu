@@ -35,6 +35,18 @@
 //    (PERF.md): every block reads all of w1 and w2 again as fragments, with
 //    no staging and no pipelining, and 8 of 32 lanes idle at dh 24.
 //
+// A tensor-parallel rank (parallel/tp.py) runs the same kernel on its
+// slice: H/tp whole heads over Da attention columns and M/tp MLP columns.
+// This is its route wherever the Hopper kernel has no plan for the rank
+// (Da not a whole number of the instance's head group: 4AA 16 x 24 at tp 8,
+// Da 48 under a group of 96; NBA at tp 8 and the pedestrian DiT at tp 4, Da
+// 32 under 64; the tiny widths at every tp). w1's q, k and v sections and
+// the attention columns of w2 are S columns apart, S = Da rounded up to 16
+// (the WMMA fragments' width; the wrapper pads a rank of the tiny widths,
+// Da 8, with zero rows and columns, which add exact zeros). With `partial`
+// the epilogue writes linear2's fp32 sum, unrounded and without b2 (b2 is
+// not read), the plain partial's value up to the order of its fp32 sums.
+//
 // What bounds it on the H100: 2 * rows * D * (3D + M + D + M) FLOPs against
 // 1.5 KB of x and output per position at the 4AA widths, a compute-bound
 // pair of GEMMs.
@@ -77,15 +89,17 @@ struct Layout {
 struct Params {
   const bf16 *x, *w1, *b1, *w2, *b2;
   const float *qs, *ks, *cos, *sin;
-  bf16* out;
+  void* out;    // bf16 [N, L, D], or fp32 with `partial`
   long long N;  // frames
   int L, D, M, H;
+  int S, A;     // section width of q, k, v (a multiple of 16), attention width (H heads)
+  bool partial;
   long long ld1, ld2;
   float scale;
 };
 
 __global__ void __launch_bounds__(THREADS) spatial_block_kernel(const Params p) {
-  const int D = p.D, M = p.M, L = p.L, W = 3 * D + p.M, dh = D / p.H;
+  const int D = p.D, M = p.M, L = p.L, S = p.S, W = 3 * S + p.M, dh = p.A / p.H;
   const Layout lay(D, W);
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Xs = reinterpret_cast<bf16*>(smem + lay.x_off);
@@ -141,12 +155,12 @@ __global__ void __launch_bounds__(THREADS) spatial_block_kernel(const Params p) 
   for (int u = warp; u < rows * 2 * p.H; u += NWARPS) {
     const int r = u / (2 * p.H), which = (u / p.H) % 2, hh = u % p.H;
     const int pos = r % L;
-    lam_rmsnorm_rope(Ws + r * lay.ldw + which * D + hh * dh, dh, which ? p.ks : p.qs,
+    lam_rmsnorm_rope(Ws + r * lay.ldw + which * S + hh * dh, dh, which ? p.ks : p.qs,
                      p.cos + pos * (dh / 2), p.sin + pos * (dh / 2), EPS);
   }
   // exact GELU of the MLP columns, in place
   for (int idx = threadIdx.x; idx < rows * M; idx += THREADS) {
-    bf16* m = Ws + (idx / M) * lay.ldw + 3 * D + idx % M;
+    bf16* m = Ws + (idx / M) * lay.ldw + 3 * S + idx % M;
     const float xm = __bfloat162float(*m);
     *m = __float2bfloat16(__fmul_rn(__fmul_rn(0.5f, xm),
                                     __fadd_rn(1.0f, erff(__fmul_rn(xm, 0.70710678118654752f)))));
@@ -164,7 +178,7 @@ __global__ void __launch_bounds__(THREADS) spatial_block_kernel(const Params p) 
 #pragma unroll
       for (int j = 0; j < MAXL; ++j) {
         if (j >= L) break;
-        const bf16* kj = fr + j * lay.ldw + D;
+        const bf16* kj = fr + j * lay.ldw + S;
         float s = 0.0f;
         for (int e = lane; e < dh; e += 32)
           s = __fadd_rn(s, lam_round_bf16(__fmul_rn(__bfloat162float(qi[e]),
@@ -190,7 +204,7 @@ __global__ void __launch_bounds__(THREADS) spatial_block_kernel(const Params p) 
 #pragma unroll
         for (int j = 0; j < MAXL; ++j) {
           if (j >= L) break;
-          a = fmaf(lg[j], __bfloat162float(fr[j * lay.ldw + 2 * D + e]), a);
+          a = fmaf(lg[j], __bfloat162float(fr[j * lay.ldw + 2 * S + e]), a);
         }
         qi[e] = __float2bfloat16(a);
       }
@@ -199,14 +213,15 @@ __global__ void __launch_bounds__(THREADS) spatial_block_kernel(const Params p) 
   }
   __syncthreads();
 
-  // linear2: out = bf16(bf16([attn | gelu] @ w2^T) + b2); attn sits in
-  // columns [0, D) and gelu in [3D, 3D + M), so A's column k0 >= D is 2D + k0
+  // linear2: out = bf16(bf16([attn | gelu] @ w2^T) + b2), or its fp32 sum
+  // with `partial`; attn sits in columns [0, S) and gelu in [3S, 3S + M), so
+  // A's column k0 >= S is 2S + k0
   for (int cf = warp; cf < D / 16; cf += NWARPS) {
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
     wmma::fill_fragment(acc[0], 0.0f);
     wmma::fill_fragment(acc[1], 0.0f);
-    for (int k0 = 0; k0 < D + M; k0 += 16) {
-      const int acol = k0 < D ? k0 : 2 * D + k0;
+    for (int k0 = 0; k0 < S + M; k0 += 16) {
+      const int acol = k0 < S ? k0 : 2 * S + k0;
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
       wmma::load_matrix_sync(bw, p.w2 + cf * 16 * p.ld2 + k0, static_cast<unsigned>(p.ld2));
 #pragma unroll
@@ -222,10 +237,12 @@ __global__ void __launch_bounds__(THREADS) spatial_block_kernel(const Params p) 
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
         const int rr = e / 16, cc = e % 16, n = cf * 16 + cc, row = rf * 16 + rr;
-        if (row < rows) {
+        if (row < rows && p.partial) {
+          static_cast<float*>(p.out)[(r0 + row) * D + n] = Cs[rr * LDC + cc];
+        } else if (row < rows) {
           const float val =
               __fadd_rn(lam_round_bf16(Cs[rr * LDC + cc]), __bfloat162float(p.b2[n]));
-          p.out[(r0 + row) * D + n] = __float2bfloat16(val);
+          static_cast<bf16*>(p.out)[(r0 + row) * D + n] = __float2bfloat16(val);
         }
       }
       __syncwarp();
@@ -235,20 +252,25 @@ __global__ void __launch_bounds__(THREADS) spatial_block_kernel(const Params p) 
 
 }  // namespace
 
-// x, out: bf16 [N, L, D] contiguous; w1: bf16 [3D + M, D] rows with row
-// stride ld1 (nn.Linear layout), b1: bf16 [3D + M]; w2: bf16 [D, D + M] rows
-// with row stride ld2, b2: bf16 [D]; qs, ks: fp32 [D / H]; cos, sin: fp32
-// [L, D / H / 2] row-major. 1 <= L <= 8, D and M multiples of 16, D / H
-// even; w1/w2 32-byte aligned with strides that are multiples of 8.
-// Returns cudaGetLastError().
+// x: bf16 [N, L, D] contiguous; w1: bf16 [3S + M, D] rows with row stride
+// ld1 (nn.Linear layout: q, k and v sections of S rows, of which the first
+// A are the H heads' and the rest zero, then M MLP rows), b1: bf16
+// [3S + M]; w2: bf16 [D, S + M] rows with row stride ld2 (the attention
+// columns S apart, zero past A), b2: bf16 [D]; qs, ks: fp32 [A / H]; cos,
+// sin: fp32 [L, A / H / 2] row-major; out: bf16 [N, L, D], or fp32 linear2
+// sums without b2 (b2 unread) with `partial`. 1 <= L <= 8, D, S and M
+// multiples of 16, A <= S, A / H even; w1/w2 32-byte aligned with strides
+// that are multiples of 8. Returns cudaGetLastError().
 extern "C" int lam_spatial_block_wmma(const void* x, const void* w1, const void* b1,
                                       const void* qs, const void* ks, const void* w2,
                                       const void* b2, const void* cos, const void* sin,
                                       void* out, long long N, int L, int D, int M, int H,
-                                      long long ld1, long long ld2, float scale, void* stream) {
-  if (N <= 0 || L < 1 || L > MAXL || D % 16 || M % 16 || H <= 0 || D % H || (D / H) % 2)
+                                      long long ld1, long long ld2, float scale, int S, int A,
+                                      int partial, void* stream) {
+  if (N <= 0 || L < 1 || L > MAXL || D % 16 || M % 16 || S <= 0 || S % 16 || A <= 0 ||
+      A > S || H <= 0 || A % H || (A / H) % 2 || (!partial && b2 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout lay(D, 3 * D + M);
+  const Layout lay(D, 3 * S + M);
   cudaError_t err = cudaFuncSetAttribute(spatial_block_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(lay.bytes));
@@ -257,8 +279,8 @@ extern "C" int lam_spatial_block_wmma(const void* x, const void* w1, const void*
              static_cast<const bf16*>(b1),  static_cast<const bf16*>(w2),
              static_cast<const bf16*>(b2),  static_cast<const float*>(qs),
              static_cast<const float*>(ks), static_cast<const float*>(cos),
-             static_cast<const float*>(sin), static_cast<bf16*>(out),
-             N, L, D, M, H, ld1, ld2, scale};
+             static_cast<const float*>(sin), out,
+             N, L, D, M, H, S, A, partial != 0, ld1, ld2, scale};
   const int fb = ROWS / L;
   const dim3 grid(static_cast<unsigned>((N + fb - 1) / fb));
   spatial_block_kernel<<<grid, THREADS, lay.bytes, static_cast<cudaStream_t>(stream)>>>(prm);

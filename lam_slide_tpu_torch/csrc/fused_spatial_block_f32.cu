@@ -16,11 +16,19 @@
 // reference_spatial_block) computes it in fp32; sums are taken in another
 // order, so results agree to a few fp32 ulps, not bit for bit.
 //
+// A tensor-parallel rank (parallel/tp.py) runs the same block on its slice:
+// H/tp whole heads over Da = D/tp attention columns and M/tp MLP columns
+// (w1 [3 Da + M/tp, D], w2 [D, Da + M/tp]); with `partial` both kernels
+// write linear2's fp32 sum without b2, which the model group adds up before
+// the block's one + b2.
+//
 // Two kernels. The outer-product kernel (namespace tiled, below) takes the
 // widths it has instances of: the 4AA DiT's (D 384 at 16 x 24 and 3 x 128,
 // M 768), the NBA DiT's (D 256 at 16 x 16, M 512) and the pedestrian DiT's
-// (D 128 at 4 x 32, M 256); the dot-product kernel takes the other widths
-// the wrapper's checks accept (the smoke and tiny registries'), as a route.
+// (D 128 at 4 x 32, M 256), and the tensor-parallel ranks whose head group
+// is an instance's (4AA at tp 2, 3, 4, NBA at tp 2, 4); the dot-product
+// kernel takes the other widths the wrapper's checks accept (the smoke and
+// tiny registries', the narrower ranks), as a route.
 // Both sum every output and every mid in the same order, so they agree bit
 // for bit.
 //
@@ -92,6 +100,8 @@ struct Args {
   float* out;
   long long n, w1_s, w2_s;
   int l, d, m, dh, group, frames;  // frames: whole frames a block
+  int da;       // attention width: the q, k and v columns of the heads (D, or a rank's Da)
+  bool partial;  // write linear2's fp32 sum without b2 (b2 unread)
   float scale;
 };
 
@@ -132,12 +142,12 @@ struct Tile {
   int n, k0, base, dst;  // base: the first staging/K column of the tile
 };
 
-// Tile t of the stream: for each head group g, ceil(3 group / 32) w1 tiles
-// (q, k, v of its heads) then ceil(group / 32) w2 tiles; then for each 32
-// MLP columns one w1 tile and one w2 tile.
+// Tile t of the stream: for each head group g of the Da attention columns,
+// ceil(3 group / 32) w1 tiles (q, k, v of its heads) then ceil(group / 32)
+// w2 tiles; then for each 32 MLP columns one w1 tile and one w2 tile.
 __device__ __forceinline__ Tile tile_of(int t, const Args& a) {
   const int n1 = (3 * a.group + BC - 1) / BC, n2 = (a.group + BC - 1) / BC;
-  const int groups = a.d / a.group, attn_tiles = groups * (n1 + n2);
+  const int groups = a.da / a.group, attn_tiles = groups * (n1 + n2);
   Tile tl{};
   if (t < attn_tiles) {
     const int g = t / (n1 + n2), u = t % (n1 + n2);
@@ -158,9 +168,9 @@ __device__ __forceinline__ Tile tile_of(int t, const Args& a) {
   tl.n = min(BC, a.m - m0);
   if (v % 2 == 0) {
     tl.w1 = tl.gelu = true;
-    tl.base = 3 * a.d + m0;
+    tl.base = 3 * a.da + m0;
   } else {
-    tl.k0 = a.d + m0;
+    tl.k0 = a.da + m0;
   }
   return tl;
 }
@@ -170,7 +180,7 @@ __device__ __forceinline__ Tile tile_of(int t, const Args& a) {
 __device__ __forceinline__ long long w1_row(const Tile& tl, int c, const Args& a) {
   if (tl.gelu) return tl.base + c;
   const int col = tl.dst + c, part = col / a.group;
-  return static_cast<long long>(part) * a.d + tl.base + col % a.group;
+  return static_cast<long long>(part) * a.da + tl.base + col % a.group;
 }
 
 template <int NJ>
@@ -212,7 +222,7 @@ __global__ void __launch_bounds__(THREADS) spatial_f32_kernel(const Args a) {
     copy16(&x_s[r * xs + k], a.x + (valid ? row0 + r : 0) * a.d + k, valid);
   }
   const int n1 = (3 * a.group + BC - 1) / BC, n2 = (a.group + BC - 1) / BC;
-  const int tiles = (a.d / a.group) * (n1 + n2) + 2 * ((a.m + BC - 1) / BC);
+  const int tiles = (a.da / a.group) * (n1 + n2) + 2 * ((a.m + BC - 1) / BC);
   load_tile(0, 0);
   commit();
 
@@ -341,7 +351,8 @@ __global__ void __launch_bounds__(THREADS) spatial_f32_kernel(const Args a) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int o = tx + TX * j;
-      if (o < a.d) a.out[(row0 + row) * a.d + o] = __fadd_rn(acc[r][j], a.b2[o]);
+      if (o < a.d)
+        a.out[(row0 + row) * a.d + o] = a.partial ? acc[r][j] : __fadd_rn(acc[r][j], a.b2[o]);
     }
   }
 }
@@ -362,12 +373,16 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // wrapper's f32_plan gives it: the instances below, the 4AA DiT's D 384 at
 // head groups of 96 and 128 columns, the NBA DiT's D 256 at head groups of
 // 64 and the pedestrian DiT's D 128 at head groups of 128, each with M a
-// multiple of D), in the shape of K2-fp32's outer-product kernel (fused_mlp_f32.cu). A
+// multiple of 32 and any attention width Da that is a whole number of head
+// groups), in the shape of K2-fp32's outer-product kernel (fused_mlp_f32.cu). A
 // block of NT threads owns BM rows (BM / L whole frames) and keeps their
 // [BM, D] output in registers, a TM x D / C micro-tile a thread (C column
 // groups); x^T [D][BM + 4] stays in shared memory for the whole block.
 // linear1 runs in passes of P columns: a head group's q, k and v columns
-// (P = 3 x GROUP), then D MLP columns at a time. Per pass:
+// (P = 3 x GROUP), then D MLP columns at a time (a rank's M/tp below D, 192
+// at 4AA tp 4, 256 at 3 x 128 tp 3, is one pass that the wrapper's stream
+// pads to D with zero columns: their mids are formed and never read, so a
+// short pass costs a full pass's GEMM1). Per pass:
 // - GEMM1 over k-slices of KS = 32 rows of the pass's [D][P] block of the
 //   w1 stream (the wrapper's pass-ordered copy of w1^T): per row of the
 //   slice, TM / 4 float4 of x^T and the thread's P / C floats of w1^T
@@ -449,6 +464,8 @@ struct TArgs {
   float* out;
   long long n;     // frames
   int l, m, dh, frames;  // frames: whole frames a block
+  int da;          // attention width (D, or a tensor-parallel rank's Da)
+  bool partial;    // linear2's fp32 sum without b2
   float scale;
 };
 
@@ -490,16 +507,18 @@ __device__ __forceinline__ void gemm1_slice(float (&mid)[TM][TN], const float* x
 }
 
 // mid + b1 (through the exact GELU for an MLP pass) into S^T; `src(c)` is
-// the linear1 column (b1 index) of pass column c
+// the linear1 column (b1 index) of pass column c, for the pass's first
+// `width` columns (the rest, of a short last MLP pass, ran on the stream's
+// zero padding and are never read)
 template <int LDX, int C, int Q, int S, int TM, int TN, class Src>
 __device__ __forceinline__ void gemm1_store(const float (&mid)[TM][TN], float* st,
                                             const float* b1, bool gelu, int rg, int cg,
-                                            Src src) {
+                                            int width, Src src) {
   using CL = Cols<C, Q, S>;
 #pragma unroll
   for (int j = 0; j < CL::N; ++j) {
     const int c = CL::col(cg, j);
-    const float b = b1[src(c)];
+    const float b = c < width ? b1[src(c)] : 0.0f;
     float y[TM];
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -574,7 +593,6 @@ __global__ void __launch_bounds__(I::NT, 1) spatial_f32_tiled_kernel(const TArgs
   constexpr int LDX = I::LDX, STAGE = I::STAGE, C = I::C, TN2 = I::TN2;
   constexpr int PA = I::PA, PM = I::PM, NA = I::NA, NM = I::NM;
   constexpr int TN = NA > NM ? NA : NM;             // mids a thread a row
-  constexpr int G = D / GROUP;                      // head groups
   constexpr int N1 = D / KS;                        // GEMM1 slices a pass
   constexpr int NA2 = GROUP / MS, NM2 = PM / MS;    // GEMM2 slices a pass
   extern __shared__ float4 smem4[];
@@ -587,8 +605,12 @@ __global__ void __launch_bounds__(I::NT, 1) spatial_f32_tiled_kernel(const TArgs
   const long long item0 = static_cast<long long>(blockIdx.x) * a.frames;
   const int rows = static_cast<int>(min(static_cast<long long>(a.frames), a.n - item0)) * a.l;
   const long long row0 = item0 * a.l;
+  // head groups of the Da attention columns; MLP passes of PM columns, the
+  // last `last` wide (a multiple of MS; the w1 stream pads it to PM with
+  // zeros, and only its `last` columns reach GEMM2)
+  const int G = a.da / GROUP, np = (a.m + PM - 1) / PM, last = a.m - (np - 1) * PM;
   const int per_attn = N1 + NA2, per_mlp = N1 + NM2;
-  const int total = G * per_attn + (a.m / PM) * per_mlp;
+  const int total = G * per_attn + (np - 1) * per_mlp + N1 + last / MS;
 
   // slice u: pass u's GEMM1 slices (KS rows of the pass's [D][P] block of
   // the w1 stream), then its GEMM2 slices (w2^T rows k0 + s MS .. + MS),
@@ -605,7 +627,7 @@ __global__ void __launch_bounds__(I::NT, 1) spatial_f32_tiled_kernel(const TArgs
       src = a.w1s + off * D + static_cast<long long>(s) * KS * p;
       bytes = sizeof(float) * KS * p;
     } else {
-      const long long k0 = (attn ? pass * GROUP : D + pass * PM) + (s - N1) * MS;
+      const long long k0 = (attn ? pass * GROUP : a.da + pass * PM) + (s - N1) * MS;
       src = a.w2t + k0 * D;
       bytes = sizeof(float) * MS * D;
     }
@@ -657,14 +679,16 @@ __global__ void __launch_bounds__(I::NT, 1) spatial_f32_tiled_kernel(const TArgs
         gemm1_slice<LDX, C, NM / 4, NM % 4, TM, TN>(mid, xt, w, cg);
       if (s == N1 - 1) {
         if (attn) {
-          gemm1_store<LDX, C, NA / 4, NA % 4, TM, TN>(mid, st, a.b1, false, rg, cg, [&](int c) {
-            return (c / GROUP) * D + pass * GROUP + c % GROUP;
+          gemm1_store<LDX, C, NA / 4, NA % 4, TM, TN>(mid, st, a.b1, false, rg, cg, PA,
+                                                      [&](int c) {
+            return (c / GROUP) * a.da + pass * GROUP + c % GROUP;
           });
           __syncthreads();  // the group's q, k, v are whole
           attend<I>(st, a, rows);
         } else {
           gemm1_store<LDX, C, NM / 4, NM % 4, TM, TN>(
-              mid, st, a.b1, true, rg, cg, [&](int c) { return 3 * D + pass * PM + c; });
+              mid, st, a.b1, true, rg, cg, pass == np - 1 ? last : PM,
+              [&](int c) { return 3 * a.da + pass * PM + c; });
         }
       }
     } else {
@@ -696,19 +720,21 @@ __global__ void __launch_bounds__(I::NT, 1) spatial_f32_tiled_kernel(const TArgs
 #pragma unroll
     for (int q = 0; q < TN2 / 4; ++q) {
       const int o = 4 * (cg + C * q);
-      *reinterpret_cast<float4*>(a.out + (row0 + r) * D + o) =
-          make_float4(__fadd_rn(acc[i][4 * q], a.b2[o]), __fadd_rn(acc[i][4 * q + 1], a.b2[o + 1]),
-                      __fadd_rn(acc[i][4 * q + 2], a.b2[o + 2]),
-                      __fadd_rn(acc[i][4 * q + 3], a.b2[o + 3]));
+      float4 v = make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2],
+                             acc[i][4 * q + 3]);
+      if (!a.partial)
+        v = make_float4(__fadd_rn(v.x, a.b2[o]), __fadd_rn(v.y, a.b2[o + 1]),
+                        __fadd_rn(v.z, a.b2[o + 2]), __fadd_rn(v.w, a.b2[o + 3]));
+      *reinterpret_cast<float4*>(a.out + (row0 + r) * D + o) = v;
     }
   }
 }
 
-// Whether instance I takes width d, MLP width m, head group `group` and
-// `bm` rows a block.
+// Whether instance I takes width d, attention width da, MLP width m, head
+// group `group` and `bm` rows a block.
 template <class I>
-bool takes(int d, int m, int group, int bm) {
-  return d == I::D && m % I::PM == 0 && group == I::GROUP && bm == I::BM;
+bool takes(int d, int da, int m, int group, int bm) {
+  return d == I::D && da % I::GROUP == 0 && m % MS == 0 && group == I::GROUP && bm == I::BM;
 }
 
 template <class I>
@@ -725,12 +751,18 @@ cudaError_t launch(TArgs a, cudaStream_t stream) {
 
 }  // namespace
 
-// x: fp32 [N, L, D] contiguous; w1: fp32 [3D + M, D] (row stride w1_s, unit
-// column stride); b1 [3D + M], q/k scales [D / H], cos/sin [L, dh / 2], w2
-// [D, D + M] (row stride w2_s), b2 [D], all fp32 and contiguous where no
-// stride is given; out fp32 [N, L, D]. x, w1, w2 16-byte aligned, w1_s and
-// w2_s multiples of 4; D and M multiples of 16, an even head dim, `group` a
-// multiple of dh and of 4 that divides D (the wrapper's f32_plan), shared
+// x: fp32 [N, L, D] contiguous; w1: fp32 [3 Da + M, D] (row stride w1_s,
+// unit column stride); b1 [3 Da + M], q/k scales [Da / H], cos/sin
+// [L, dh / 2], w2 [D, Da + M] (row stride w2_s), b2 [D], all fp32 and
+// contiguous where no stride is given; out fp32 [N, L, D]. Da is the
+// attention width of the H heads: D for a whole block, a tensor-parallel
+// rank's H/tp heads' columns for its slice (w1's rows those heads' q, k and
+// v, then its MLP rows; w2's columns their attention columns, then its MLP
+// columns). With `partial` out is linear2's fp32 sum without b2 (b2 is not
+// read: the rank's share, which the model group adds up before the block's
+// one rounding and + b2). x, w1, w2 16-byte aligned, w1_s and w2_s
+// multiples of 4; D and M multiples of 16, an even head dim, `group` a
+// multiple of dh and of 4 that divides Da (the wrapper's f32_plan), shared
 // memory within 227 KB (D up to 438 at head groups of 128 columns). Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
 extern "C" int lam_spatial_block_f32(const void* x, const void* w1, const void* b1,
@@ -738,14 +770,15 @@ extern "C" int lam_spatial_block_f32(const void* x, const void* w1, const void* 
                                      const void* b2, const void* cos, const void* sin,
                                      void* out, long long N, int L, int D, int M, int H,
                                      long long w1_s, long long w2_s, float scale, int group,
-                                     void* stream) {
+                                     int Da, int partial, void* stream) {
   const unsigned long long bits = reinterpret_cast<unsigned long long>(x) |
                                   reinterpret_cast<unsigned long long>(w1) |
                                   reinterpret_cast<unsigned long long>(w2) |
                                   4ull * static_cast<unsigned long long>(w1_s | w2_s);
   if (N <= 0 || L < 1 || L > MAXL || D <= 0 || D % 16 || D > 16 * 32 || M <= 0 || M % 16 ||
-      H <= 0 || D % H || (D / H) % 2 || group <= 0 || group % (D / H) || group % 4 ||
-      D % group || (bits & 15) || smem_bytes(D, group) > 232448)
+      Da <= 0 || Da > D || H <= 0 || Da % H || (Da / H) % 2 || group <= 0 ||
+      group % (Da / H) || group % 4 || Da % group || (bits & 15) ||
+      smem_bytes(D, group) > 232448 || (!partial && b2 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(x),   static_cast<const float*>(w1),
                static_cast<const float*>(b1),  static_cast<const float*>(qs),
@@ -758,9 +791,11 @@ extern "C" int lam_spatial_block_f32(const void* x, const void* w1, const void* 
                L,
                D,
                M,
-               D / H,
+               Da / H,
                group,
                RB / L,
+               Da,
+               partial != 0,
                scale};
   auto st = static_cast<cudaStream_t>(stream);
   const int nj = (D + 15) / 16;
@@ -773,38 +808,43 @@ extern "C" int lam_spatial_block_f32(const void* x, const void* w1, const void* 
 
 // As lam_spatial_block_f32, on the outer-product kernel: w1s the w1 stream,
 // linear1's columns in the kernel's passes (each head group's q, k and v
-// columns, then the MLP columns D at a time), a pass of P columns a
-// contiguous [D][P] block of w1^T, the passes one after another; w2t the
-// contiguous [D + M, D] copy of w2 (w2t[k * D + o]); out contiguous; x, w1s,
-// w2t and out 16-byte aligned. (D, group, bm) those of an instance
-// (tiled::I*: the wrapper's f32_plan), M a multiple of D, an even head dim
-// dividing `group`; cudaErrorInvalidValue for the rest.
+// columns of the Da attention columns, then the MLP columns D at a time, the
+// last pass zero-padded to D where M is not a multiple of D), a pass of P
+// columns a contiguous [D][P] block of w1^T, the passes one after another;
+// w2t the contiguous [Da + M, D] copy of w2 (w2t[k * D + o]); out
+// contiguous; x, w1s, w2t and out 16-byte aligned. (D, group, bm) those of
+// an instance (tiled::I*: the wrapper's f32_plan), Da a multiple of
+// `group`, M a multiple of 32, an even head dim dividing `group`; with
+// `partial` linear2's fp32 sum without b2 (b2 unread); cudaErrorInvalidValue
+// for the rest.
 extern "C" int lam_spatial_block_f32_tiled(const void* x, const void* w1s, const void* b1,
                                            const void* qs, const void* ks, const void* w2t,
                                            const void* b2, const void* cos, const void* sin,
                                            void* out, long long N, int L, int D, int M, int H,
-                                           float scale, int group, int bm, void* stream) {
+                                           float scale, int group, int bm, int Da, int partial,
+                                           void* stream) {
   const unsigned long long bits = reinterpret_cast<unsigned long long>(x) |
                                   reinterpret_cast<unsigned long long>(w1s) |
                                   reinterpret_cast<unsigned long long>(w2t) |
                                   reinterpret_cast<unsigned long long>(out);
-  if (N <= 0 || L < 1 || L > tiled::MAXL || M <= 0 || H <= 0 || D % H || (D / H) % 2 ||
-      group <= 0 || group % (D / H) || (bits & 15))
+  if (N <= 0 || L < 1 || L > tiled::MAXL || M <= 0 || Da <= 0 || Da > D || H <= 0 || Da % H ||
+      (Da / H) % 2 || group <= 0 || group % (Da / H) || (bits & 15) ||
+      (!partial && b2 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const tiled::TArgs a{static_cast<const float*>(x),   static_cast<const float*>(w1s),
                        static_cast<const float*>(b1),  static_cast<const float*>(qs),
                        static_cast<const float*>(ks),  static_cast<const float*>(w2t),
                        static_cast<const float*>(b2),  static_cast<const float*>(cos),
                        static_cast<const float*>(sin), static_cast<float*>(out),
-                       N, L, M, D / H, 0, scale};
+                       N, L, M, Da / H, 0, Da, partial != 0, scale};
   auto st = static_cast<cudaStream_t>(stream);
-  if (tiled::takes<tiled::I384g96>(D, M, group, bm))
+  if (tiled::takes<tiled::I384g96>(D, Da, M, group, bm))
     return static_cast<int>(tiled::launch<tiled::I384g96>(a, st));
-  if (tiled::takes<tiled::I384g128>(D, M, group, bm))
+  if (tiled::takes<tiled::I384g128>(D, Da, M, group, bm))
     return static_cast<int>(tiled::launch<tiled::I384g128>(a, st));
-  if (tiled::takes<tiled::I256>(D, M, group, bm))
+  if (tiled::takes<tiled::I256>(D, Da, M, group, bm))
     return static_cast<int>(tiled::launch<tiled::I256>(a, st));
-  if (tiled::takes<tiled::I128>(D, M, group, bm))
+  if (tiled::takes<tiled::I128>(D, Da, M, group, bm))
     return static_cast<int>(tiled::launch<tiled::I128>(a, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -73,11 +73,7 @@ from lam_slide_tpu_torch.ops.fused_adaln import (
     residual_adaln_modulate,
 )
 from lam_slide_tpu_torch.ops.fused_mlp import fused_mlp, reference_mlp
-from lam_slide_tpu_torch.ops.fused_spatial_block import (
-    TP_F32_TODO,
-    fused_spatial_block,
-    reference_spatial_block,
-)
+from lam_slide_tpu_torch.ops.fused_spatial_block import fused_spatial_block, reference_spatial_block
 from lam_slide_tpu_torch.ops.packed_attention import (
     headmajor_rmsnorm,
     headmajor_rope,
@@ -181,10 +177,12 @@ class ParallelMLPAttention(nn.Module):
         qs, ks = self.norm.query_norm.scale, self.norm.key_norm.scale
         if self.tp is not None:
             # the input and the QK-norm scales enter the shards, which each
-            # give back their part of the grads, summed over the model group
+            # give back their part of the grads, summed over the model group;
+            # each shard's fp32 partial (K8 on its route in bf16 and fp32: the
+            # Hopper kernel, the WMMA kernel below a Hopper head group, the
+            # fp32 outer- or dot-product kernel), then one fp32 sum, one
+            # rounding and + b2, in either dtype
             xd, qs, ks = (self.tp.enter(t) for t in (x.to(dt), qs, ks))
-            if xd.is_cuda and dt == torch.float32:
-                raise NotImplementedError(f"ParallelMLPAttention: {TP_F32_TODO}")
             h = self.num_heads // self.tp.size
             partials = [self._partial(xd, s.linear1.weight, s.linear1.bias, s.linear2.weight,
                                       qs, ks, h, cos, sin, backend) for s in self.shards]

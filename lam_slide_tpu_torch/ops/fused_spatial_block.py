@@ -18,7 +18,8 @@ picks one from the widths alone:
   accumulator lives for the whole tile. x must be 16-byte aligned there;
 - the first port's WMMA kernel (``csrc/fused_spatial_block.cu``,
   ``lam_spatial_block_wmma``) for every other width the checks accept (the
-  tiny test registries' hidden 16 and 32 at dh 4 to 8): the whole
+  tiny test registries' hidden 16 and 32 at dh 4 to 8, and the
+  tensor-parallel ranks below a Hopper head group): the whole
   ``[32 rows, 3D+M]`` linear1 output of a block in shared memory.
 Neither is a fallback for the other: a CUDA tensor launches the plan's
 route or raises. Those two take bf16; an all-fp32 call (the 4AA eval's fp32
@@ -30,18 +31,19 @@ weights streamed through a two-stage ring; ``f32_plan`` picks the
 route from the widths, and where it has none the call raises naming the
 limit:
 - ``lam_spatial_block_f32_tiled``, the outer-product kernel, at the widths
-  it has instances of (``F32_TILED_INSTANCES``) with M a multiple of D: the
+  it has instances of (``F32_TILED_INSTANCES``) with M a multiple of 32: the
   4AA DiT's D 384 at head groups of 96 or 128 columns (16 × 24, 3 × 128;
   32-row blocks, a thread a 4 × 12 block of the output), the NBA DiT's D
   256 (16 × 16; head groups of 64, 64-row blocks, 8 × 8 a thread) and the
   pedestrian DiT's D 128 (4 × 32; head groups of 128, 32-row blocks, 4 × 4
   a thread); 256 threads, x^T resident, linear1 in passes of a head group's
-  q, k and v columns or D MLP columns; the wrapper's pass-ordered w1 stream
-  (``f32_tiled_passes``) and w2^T copy arrive slice by slice by bulk copies
-  into a two-stage ring;
+  q, k and v columns or D MLP columns (a last pass below D zero-padded in
+  the stream); the wrapper's pass-ordered w1 stream (``f32_tiled_passes``)
+  and w2^T copy arrive slice by slice by bulk copies into a two-stage ring;
 - ``lam_spatial_block_f32``, the first fp32 kernel (a thread 2 × 2 mids of a
-  32-column tile), for the other widths (the smoke and tiny registries');
-  the two agree bit for bit.
+  32-column tile), for the other widths (the smoke and tiny registries', the
+  ranks whose head group has no outer-product instance); the two agree bit
+  for bit.
 Under autograd they run inside ``_SpatialBlock`` like the others (the fp32
 stage-2 training of both registries).
 
@@ -52,9 +54,15 @@ whole heads, ``attn_width`` = Da of their q, k and v columns, and Mr MLP
 columns, so ``w1 [3Da+Mr, D]`` and ``w2 [D, Da+Mr]``; with ``partial`` the
 call returns the fp32 sum ``[attn | gelu(mlp)] @ w2^T`` of its slice,
 unrounded and without b2, which the model group adds up before the one
-rounding and ``+ b2`` of the whole block. On the card only the Hopper
-route takes it: bf16, an instance for (D, Da / n_heads), Da a multiple of
-its head group; fp32 tensor parallelism raises (``TP_F32_TODO``).
+rounding and ``+ b2`` of the whole block. Every route takes it, picked as
+for a whole block: in bf16 the Hopper kernel where ``sm90_plan`` has an
+instance for (D, Da / n_heads) and Da is a whole number of its head group
+(4AA, NBA at tp 2 to 4, the pedestrian DiT at tp 2), else the WMMA route
+(4AA 16 × 24 and NBA at tp 8, the pedestrian DiT at tp 4, the tiny widths;
+a Da that is not a multiple of 16 padded with zero rows and columns,
+``_wmma_operands``); in fp32 the outer-product kernel where its instance's
+head group divides Da (4AA at tp 2, 3 and 4, NBA at tp 2 and 4), else the
+dot-product kernel.
 
 Gradients: on CUDA tensors that need one, the kernel runs inside
 ``_SpatialBlock``, whose backward is autograd of ``reference_spatial_block``
@@ -66,8 +74,8 @@ Counters (plain integers, touched only where a kernel launches):
 the WMMA route, ``f32_launches`` those of the fp32 kernels,
 ``f32_tiled_launches`` those of them on the outer-product kernel,
 ``f32_dot_launches`` those on the first fp32 kernel and
-``tp_partial_launches`` the Hopper launches of a tensor-parallel rank's
-partial (``partial`` set).
+``tp_partial_launches`` the launches of a tensor-parallel rank's partial
+(``partial`` set) on every route, the route counters saying which.
 """
 
 import functools
@@ -98,9 +106,6 @@ SM90_ROWS = 64  # rows a tile, of which whole frames are used
 SM90_MAX_STAGES = 6  # stages of each weight ring
 # (D, dh) -> head group width of the instances the Hopper kernel has
 SM90_GROUPS = {(384, 24): 96, (384, 128): 128, (256, 16): 64, (128, 32): 64}
-# what a per-rank fp32 block (tensor parallelism) meets on the card
-TP_F32_TODO = ("fp32 tensor parallelism is not ported: K8-fp32 and K2-fp32 have no instance at "
-               "a rank's widths (M / tp; ROADMAP.md Queue 1, the fp32 tensor-parallelism item)")
 
 
 class Sm90Plan(NamedTuple):
@@ -158,8 +163,9 @@ F32_ROWS = 32  # rows a dot-product block, of which 32 // l * l are whole frames
 F32_MAX_GROUP = 128  # columns of a head group, unless one head is wider
 F32_SLICE = 32  # rows of a weight slice of the outer-product kernel (tiled::KS)
 # The outer-product kernel's instances (namespace tiled, tiled::I*): (D, head
-# group) -> rows a block. Its MLP passes are D columns wide, so it takes M a
-# multiple of D.
+# group) -> rows a block. Its MLP passes are D columns wide (a shorter last
+# one zero-padded in the w1 stream), its GEMM2 slices 32 rows, so it takes M
+# a multiple of 32.
 F32_TILED_INSTANCES = {(384, 96): 32, (384, 128): 32, (256, 64): 64, (128, 128): 32}
 # its head group where it is not f32_group's: the most whole heads within
 # this many columns (at NBA's 16 x 16, four heads)
@@ -207,24 +213,32 @@ def f32_group(d: int, n_heads: int, most: int = F32_MAX_GROUP) -> Optional[int]:
     return max(fits, default=None)
 
 
-def f32_tiled_passes(d: int, m: int, group: int) -> list:
+def f32_tiled_passes(d: int, m: int, group: int, da: int) -> list:
     """The outer-product kernel's linear1 passes: the linear1 columns (w1
-    rows) of each, every head group's q, k and v columns, then the MLP
-    columns d at a time."""
-    passes = [[part * d + g * group + c for part in range(3) for c in range(group)]
-              for g in range(d // group)]
-    return passes + [list(range(3 * d + p, 3 * d + p + d)) for p in range(0, m, d)]
+    rows) of each, every head group's q, k and v columns of the ``da``
+    attention columns (d, or a tensor-parallel rank's Da), then the MLP
+    columns d at a time (the last pass shorter where d does not divide m)."""
+    passes = [[part * da + g * group + c for part in range(3) for c in range(group)]
+              for g in range(da // group)]
+    return passes + [list(range(3 * da + p, 3 * da + min(p + d, m))) for p in range(0, m, d)]
 
 
 @functools.lru_cache(maxsize=16)
 def _w1_stream_index(d: int, m: int, group: int, row_stride: int,
-                     device: torch.device) -> torch.Tensor:
+                     device: torch.device, da: int) -> torch.Tensor:
     """Offsets into w1's memory (rows ``row_stride`` apart) of the
     outer-product kernel's w1 stream: each pass's [D][P] block of w1^T (row
     k holds the pass's P columns at input k), the passes one after another,
-    so a slice of KS rows of a pass is one contiguous run."""
-    blocks = [(torch.tensor(cols)[None, :] * row_stride + torch.arange(d)[:, None]).flatten()
-              for cols in f32_tiled_passes(d, m, group)]
+    so a slice of KS rows of a pass is one contiguous run. A short last MLP
+    pass is padded to D columns by the offset just past w1's memory, where
+    ``_tiled_operands`` puts a zero."""
+    pad = (3 * da + m - 1) * row_stride + d  # one past w1's last element
+    blocks = []
+    for cols in f32_tiled_passes(d, m, group, da):
+        width = max(len(cols), d) if cols[0] >= 3 * da else len(cols)
+        offs = torch.full((d, width), pad, dtype=torch.long)
+        offs[:, :len(cols)] = torch.tensor(cols)[None, :] * row_stride + torch.arange(d)[:, None]
+        blocks.append(offs.flatten())
     return torch.cat(blocks).to(device)
 
 
@@ -233,21 +247,26 @@ def _w1_stream_index(d: int, m: int, group: int, row_stride: int,
 _tiled_weights: dict = {}
 
 
-def _tiled_operands(w1: torch.Tensor, w2: torch.Tensor, d: int, m: int, group: int):
+def _tiled_operands(w1: torch.Tensor, w2: torch.Tensor, d: int, m: int, group: int,
+                    da: int):
     """The outer-product kernel's k-major weights: the pass-ordered w1^T
-    blocks (the w1 stream) and the contiguous ``[D + M, D]`` w2^T, each slice
-    of either a contiguous run. Built once for a pair of weight tensors and
-    kept until either is written in place (its version moves, as an
+    blocks (the w1 stream) and the contiguous ``[Da + M, D]`` w2^T, each
+    slice of either a contiguous run. ``da``: the attention width (d, or a
+    tensor-parallel rank's Da; part of the key, so shards of other
+    widths never share a stream). Built once for a pair of weight tensors
+    and kept until either is written in place (its version moves, as an
     optimizer step moves it) or freed; an eval over fixed weights builds
     them once a block."""
-    key = (w1.data_ptr(), w1._version, w1.stride(0), w2.data_ptr(), w2._version, group)
+    key = (w1.data_ptr(), w1._version, w1.stride(0), w2.data_ptr(), w2._version, group, da, m)
     hit = _tiled_weights.get(id(w1))
     if hit is not None and hit[0]() is w1 and hit[1]() is w2 and hit[2] == key:
         return hit[3], hit[4]
     span = (w1.shape[0] - 1) * w1.stride(0) + d
     with torch.no_grad():
-        w1s = w1.as_strided((span,), (1,)).index_select(
-            0, _w1_stream_index(d, m, group, w1.stride(0), w1.device))
+        flat = w1.as_strided((span,), (1,))
+        if m % d:  # the short last pass's padding reads the zero past w1
+            flat = torch.cat([flat, flat.new_zeros(1)])
+        w1s = flat.index_select(0, _w1_stream_index(d, m, group, w1.stride(0), w1.device, da))
         w2t = w2.t().contiguous()
     wid = id(w1)
     _tiled_weights[wid] = (weakref.ref(w1, lambda _: _tiled_weights.pop(wid, None)),
@@ -263,25 +282,28 @@ def clear_weight_cache() -> None:
     _tiled_weights.clear()
 
 
-def f32_plan(n: int, l: int, d: int, m: int, n_heads: int) -> Optional[F32Plan]:
+def f32_plan(n: int, l: int, d: int, m: int, n_heads: int,
+             attn_width: Optional[int] = None) -> Optional[F32Plan]:
     """The fp32 kernels' geometry for x ``[n, l, d]``, mlp width m and
-    n_heads heads, or None where they have none: D and M multiples of 16, an
-    even head dim with a head group (``f32_group``). The outer-product
-    kernel where it has an instance for D and its head group
-    (``F32_TILED_INSTANCES``; at D 256 the group of at most 64 columns) and
-    M is a multiple of D: the 4AA, NBA and pedestrian DiTs'
+    n_heads heads over ``attn_width`` columns (default d; a tensor-parallel
+    rank's Da), or None where they have none: D and M multiples of 16, an
+    even head dim with a head group of the attention columns
+    (``f32_group``). The outer-product kernel where it has an instance for D
+    and the group (``F32_TILED_INSTANCES``; at D 256 the group of at most 64
+    columns) and M is a multiple of 32: the 4AA, NBA and pedestrian DiTs'
     widths (at the 4AA eval's 4,000 rows, 125 blocks of 32 rows on the
-    H100's 132 SMs, one block an SM); else the dot-product kernel where its
-    shared memory fits SMEM_MAX (D up to 438 at head groups of 128
-    columns)."""
+    H100's 132 SMs, one block an SM) and their ranks at 4AA tp 2, 3 and 4
+    and NBA tp 2 and 4; else the dot-product kernel where its shared memory
+    fits SMEM_MAX (D up to 438 at head groups of 128 columns)."""
+    da = d if attn_width is None else attn_width
     if (n <= 0 or not 1 <= l <= 8 or d % 16 or m <= 0 or m % 16 or n_heads <= 0
-            or d % n_heads or (d // n_heads) % 2 or n * l >= 2 ** 31):
+            or not 0 < da <= d or da % n_heads or (da // n_heads) % 2 or n * l >= 2 ** 31):
         return None
-    group = f32_group(d, n_heads)
+    group = f32_group(da, n_heads)
     if group is None:
         return None
-    tiled = f32_group(d, n_heads, F32_TILED_MAX_GROUP.get(d, F32_MAX_GROUP))
-    if (d, tiled) in F32_TILED_INSTANCES and m % d == 0:
+    tiled = f32_group(da, n_heads, F32_TILED_MAX_GROUP.get(d, F32_MAX_GROUP))
+    if (d, tiled) in F32_TILED_INSTANCES and m % F32_SLICE == 0:
         rows = F32_TILED_INSTANCES[(d, tiled)]
         return F32Plan(tiled, f32_tiled_smem_bytes(d, tiled, rows), "tiled",
                        -(-n // (rows // l)), rows)
@@ -324,8 +346,6 @@ def reference_spatial_block(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 def _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, da, partial) -> None:
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_spatial_block: x must be bfloat16 or float32, got {x.dtype}")
-    if x.dtype == torch.float32 and (partial or da != x.shape[-1]):
-        raise NotImplementedError(f"fused_spatial_block: {TP_F32_TODO}")
     for name, t, dtype in (("x", x, x.dtype), ("w1", w1, x.dtype), ("b1", b1, x.dtype),
                            ("w2", w2, x.dtype), ("b2", b2, x.dtype),
                            ("q_scale", q_scale, torch.float32),
@@ -354,12 +374,13 @@ def _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, da, partial) 
             or cos.shape != (l, dh // 2) or sin.shape != (l, dh // 2)):
         raise ValueError("fused_spatial_block: parameter shapes do not match x and the heads")
     fp32 = x.dtype == torch.float32
-    if fp32 and f32_plan(n, l, d, m, n_heads) is None:
-        group = f32_group(d, n_heads)
+    if fp32 and f32_plan(n, l, d, m, n_heads, da) is None:
+        group = f32_group(da, n_heads)
         smem = None if group is None else f32_smem_bytes(d, group)
         raise ValueError(f"fused_spatial_block: the fp32 kernel takes a head group of whole "
                          f"heads that is a multiple of 4 and shared memory <= {SMEM_MAX} bytes, "
-                         f"got D={d}, {n_heads} heads: head group {group}, {smem} bytes")
+                         f"got D={d}, {n_heads} heads over {da} columns: head group {group}, "
+                         f"{smem} bytes")
     for name, w in (("w1", w1), ("w2", w2)):
         if w.stride(1) != 1 or w.stride(0) % (4 if fp32 else 8) or w.data_ptr() % (16 if fp32
                                                                                     else 32):
@@ -411,53 +432,109 @@ class _SpatialBlock(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+def _wmma_operands(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, da: int, m: int):
+    """The WMMA kernel's weights and its section width S: Da rounded up to
+    16, the width of its fragments. Where Da is not a multiple of 16 (a rank
+    of the tiny widths: Da 8), new copies with each of w1's q, k and v
+    sections (and b1's) padded to S rows and w2's attention columns to S
+    columns, all zeros, which add exact zeros to every sum; else the weights
+    themselves."""
+    s = -(-da // 16) * 16
+    if s == da:
+        return w1, b1, w2, s
+
+    def sections(t):
+        zeros = t.new_zeros((s - da,) + tuple(t.shape[1:]))
+        return torch.cat([p for i in range(3) for p in (t[i * da:(i + 1) * da], zeros)]
+                         + [t[3 * da:]]).contiguous()
+
+    w2p = torch.cat([w2[:, :da], w2.new_zeros(w2.shape[0], s - da), w2[:, da:da + m]], dim=1)
+    return sections(w1), sections(b1), w2p.contiguous(), s
+
+
+def _ptrs(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, out, partial) -> tuple:
+    """The pointers every K8 entry takes first; b2's is 0 (unread) with
+    ``partial``."""
+    return (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),
+            w2.data_ptr(), 0 if partial else b2.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+            out.data_ptr())
+
+
+def _f32_dot(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale, da, partial,
+             group, out, stream) -> None:
+    n, l, d = x.shape
+    _build.launch("lam_spatial_block_f32",
+                  *_ptrs(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, out, partial), n, l, d,
+                  w1.shape[0] - 3 * da, n_heads, w1.stride(0), w2.stride(0), float(scale), group,
+                  da, int(partial), stream)
+
+
+def _launch_f32_dot(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale,
+                    attn_width: Optional[int] = None, partial: bool = False) -> torch.Tensor:
+    """K8-fp32's dot-product kernel on checked fp32 CUDA tensors at its own
+    head group (``f32_group``), whatever route ``f32_plan`` picks: the
+    outer-product route's yardstick (the two sum in one order, so they
+    agree bit for bit). Counts nothing; the main path goes through
+    ``fused_spatial_block``."""
+    n, l, d = x.shape
+    da = d if attn_width is None else attn_width
+    _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, da, partial)
+    if x.dtype != torch.float32 or x.data_ptr() % 16:
+        raise ValueError("_launch_f32_dot: x must be fp32 and 16-byte aligned")
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        _f32_dot(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale, da, partial,
+                 f32_group(da, n_heads), out, torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
 def _launch(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale,
             attn_width: Optional[int] = None, partial: bool = False) -> torch.Tensor:
-    """Launch K8 on CUDA tensors (checked here) on the route of ``sm90_plan``
-    -> ``[N, L, D]``."""
+    """Launch K8 on CUDA tensors (checked here): fp32 on the route of
+    ``f32_plan``, bf16 on the Hopper kernel where ``sm90_plan`` has a plan,
+    else on the WMMA kernel -> ``[N, L, D]``."""
     n, l, d = x.shape
     da = d if attn_width is None else attn_width
     _check(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, da, partial)
     m = w1.shape[0] - 3 * da
     fp32 = x.dtype == torch.float32
     plan = None if fp32 else sm90_plan(n, l, d, m, n_heads, da)
-    if plan is None and (partial or da != d):
-        raise ValueError(f"fused_spatial_block: a tensor-parallel rank's block runs only on the "
-                         f"Hopper route, which has no instance for D={d}, {n_heads} heads over "
-                         f"{da} columns")
     if (plan is not None or fp32) and x.data_ptr() % 16:
         raise ValueError("fused_spatial_block: x must be 16-byte aligned for the Hopper and "
                          "fp32 kernels")
     out = torch.empty(x.shape, dtype=torch.float32 if partial else x.dtype, device=x.device)
-    ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),
-            w2.data_ptr(), 0 if partial else b2.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-            out.data_ptr())
-    dims = (n, l, d, m, n_heads, w1.stride(0), w2.stride(0), float(scale))
+
+    def ptrs(w1, b1, w2):
+        return _ptrs(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, out, partial)
+
     global launches, wmma_launches, f32_launches, f32_tiled_launches, f32_dot_launches
     global tp_partial_launches
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if fp32:
-            f32 = f32_plan(n, l, d, m, n_heads)
+            f32 = f32_plan(n, l, d, m, n_heads, da)
             if f32.route == "tiled":
-                w1s, w2t = _tiled_operands(w1, w2, d, m, f32.group)
-                _build.launch("lam_spatial_block_f32_tiled", x.data_ptr(), w1s.data_ptr(),
-                              b1.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),
-                              w2t.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                              out.data_ptr(), n, l, d, m, n_heads, float(scale), f32.group,
-                              f32.rows, stream)
+                w1s, w2t = _tiled_operands(w1, w2, d, m, f32.group, da)
+                _build.launch("lam_spatial_block_f32_tiled", *ptrs(w1s, b1, w2t), n, l, d, m,
+                              n_heads, float(scale), f32.group, f32.rows, da, int(partial),
+                              stream)
                 f32_tiled_launches += 1
             else:
-                _build.launch("lam_spatial_block_f32", *ptrs, *dims, f32.group, stream)
+                _f32_dot(x, w1, b1, q_scale, k_scale, w2, b2, cos, sin, n_heads, scale, da,
+                         partial, f32.group, out, stream)
                 f32_dot_launches += 1
             f32_launches += 1
         elif plan is None:
-            _build.launch("lam_spatial_block_wmma", *ptrs, *dims, stream)
+            w1p, b1p, w2p, sec = _wmma_operands(w1, b1, w2, da, m)
+            _build.launch("lam_spatial_block_wmma", *ptrs(w1p, b1p, w2p), n, l, d, m, n_heads,
+                          w1p.stride(0), w2p.stride(0), float(scale), sec, da, int(partial),
+                          stream)
             wmma_launches += 1
         else:
             table = torch.empty(GELU_TABLE_ENTRIES, dtype=torch.int16, device=x.device)
-            _build.launch("lam_spatial_block_sm90", *ptrs, table.data_ptr(), *dims, plan.s1,
+            _build.launch("lam_spatial_block_sm90", *ptrs(w1, b1, w2), table.data_ptr(), n, l,
+                          d, m, n_heads, w1.stride(0), w2.stride(0), float(scale), plan.s1,
                           plan.s2, da, int(partial), stream)
-            tp_partial_launches += int(partial)
+        tp_partial_launches += int(partial)
     launches += 1
     return out

@@ -522,10 +522,10 @@ def _k8_f32(gen, dev, stream, smi) -> None:
         def tiled_call(name, group, bm):
             out = outs[name] = torch.empty_like(x)
             if group not in streams:
-                streams[group] = w1.flatten()[fsb._w1_stream_index(d, m, group, d, dev)]
+                streams[group] = w1.flatten()[fsb._w1_stream_index(d, m, group, d, dev, d)]
             args = (x.data_ptr(), streams[group].data_ptr(), b1.data_ptr(), qs.data_ptr(),
                     ks.data_ptr(), w2t.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                    out.data_ptr(), n, l, d, m, heads, dh ** -0.5, group, bm, stream)
+                    out.data_ptr(), n, l, d, m, heads, dh ** -0.5, group, bm, d, 0, stream)
             return _checked(k8[name][0], args)
 
         if d != 384:
@@ -533,7 +533,7 @@ def _k8_f32(gen, dev, stream, smi) -> None:
             calls["dot-product route"] = _checked(k8["kernel"][1], (
                 x.data_ptr(), w1.data_ptr(), b1.data_ptr(), qs.data_ptr(), ks.data_ptr(),
                 w2.data_ptr(), b2.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(), n, l,
-                d, m, heads, d, d + m, dh ** -0.5, fsb.f32_group(d, heads), stream))
+                d, m, heads, d, d + m, dh ** -0.5, fsb.f32_group(d, heads), d, 0, stream))
         for name in k8:
             layout = K8_F32_LAYOUT.get(name, {d: None})
             if d not in layout:

@@ -112,9 +112,9 @@ class _CacheProbe(nn.Module):
     def forward(self, x):
         from lam_slide_tpu_torch.ops import fused_spatial_block as fsb
 
-        w1s, w2t = fsb._tiled_operands(self.w1, self.w2, self.D, self.M, self.GROUP)
+        w1s, w2t = fsb._tiled_operands(self.w1, self.w2, self.D, self.M, self.GROUP, self.D)
         want = fsb._tiled_operands(self.w1.detach().clone(), self.w2.detach().clone(), self.D,
-                                   self.M, self.GROUP)
+                                   self.M, self.GROUP, self.D)
         self.fresh.append(bool(torch.equal(w1s, want[0]) and torch.equal(w2t, want[1])))
         return (x @ self.w1.t()).sum() + (x @ self.w2[:, :self.D]).sum()
 

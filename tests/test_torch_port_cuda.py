@@ -399,70 +399,97 @@ def test_spatial_block_matches_plain(dev, n, l, d, m, heads):
     assert err <= K8_REL_TOL * want.float().abs().max().item()
 
 
-@pytest.mark.parametrize("n,l,d,m,heads,size", [
-    (2000, 2, 384, 768, 16, 2),  # 4AA 16 x 24 at tp 2: Da 192, Mr 384
-    (2000, 2, 384, 768, 16, 4),  # tp 4: Da 96, Mr 192
-    (2000, 2, 384, 768, 3, 3),   # 3 x 128 at tp 3: one head, Da 128, Mr 256
-    (777, 5, 256, 512, 16, 2),   # the NBA DiT's width at tp 2
-    (901, 7, 128, 256, 4, 2),    # the pedestrian DiT's at tp 2
+@pytest.mark.parametrize("n,l,d,m,heads,size,fp32,route", [
+    (2000, 2, 384, 768, 16, 2, False, "sm90"),  # 4AA 16 x 24 at tp 2: Da 192, Mr 384
+    (2000, 2, 384, 768, 16, 4, False, "sm90"),  # tp 4: Da 96, Mr 192
+    (2000, 2, 384, 768, 3, 3, False, "sm90"),   # 3 x 128 at tp 3: one head, Da 128, Mr 256
+    (777, 5, 256, 512, 16, 2, False, "sm90"),   # the NBA DiT's width at tp 2
+    (901, 7, 128, 256, 4, 2, False, "sm90"),    # the pedestrian DiT's at tp 2
+    (2000, 2, 384, 768, 16, 8, False, "wmma"),  # 16 x 24 at tp 8: Da 48 under a group of 96
+    (901, 7, 128, 256, 4, 4, False, "wmma"),    # the pedestrian DiT at tp 4: Da 32 under 64
+    (777, 5, 256, 512, 16, 8, False, "wmma"),   # NBA at tp 8: Da 32 under 64
+    (37, 4, 32, 64, 4, 4, False, "wmma"),       # the tiny width at tp 4: Da 8, padded sections
+    (2000, 2, 384, 768, 16, 2, True, "tiled"),  # fp32: the outer-product kernel, one MLP pass
+    (2000, 2, 384, 768, 16, 4, True, "tiled"),  # Mr 192: a pass padded to D
+    (2000, 2, 384, 768, 3, 3, True, "tiled"),   # Mr 256
+    (777, 5, 256, 512, 16, 4, True, "tiled"),   # NBA tp 4: Mr 128 of a 256 pass
+    (2000, 2, 384, 768, 16, 8, True, "dot"),    # below an instance's head group
+    (901, 7, 128, 256, 4, 4, True, "dot"),
+    (777, 5, 256, 512, 16, 8, True, "dot"),
+    (37, 4, 32, 64, 4, 2, True, "dot"),         # the tiny width at tp 2: Da 16
 ])
-def test_spatial_block_rank_partial_matches_plain(dev, n, l, d, m, heads, size):
-    """K8's per-rank instance (tensor parallelism): each rank's fp32 partial
-    within K8_REL_TOL of its plain version, a second call bit-identical,
-    counted under ``tp_partial_launches``; the ranks' partials summed,
-    rounded and + b2 within K8_REL_TOL of the whole block's kernel."""
+def test_spatial_block_rank_partial_matches_plain(request, dev, n, l, d, m, heads, size, fp32,
+                                                  route):
+    """K8's per-rank instance (tensor parallelism), on every route: each
+    rank's fp32 partial within K8_REL_TOL (bf16) or F32_REL_TOL["K8"] (fp32,
+    TF32 off) of its plain version, a second call bit-identical, counted
+    under ``tp_partial_launches`` and the route's counter (the Hopper kernel
+    where ``sm90_plan`` has a plan, else WMMA; the fp32 routes of
+    ``f32_plan``), an fp32 partial bit-identical to the dot-product route's;
+    the ranks' partials summed, rounded and + b2 within the same limit of
+    the whole block's kernel."""
     from lam_slide_tpu_torch.parallel import tp
 
-    x, w1, b1, qs, ks, w2, b2, cos, sin, _, scale = _spatial_inputs(_gen(11), dev, n, l, d, m,
-                                                                   heads)
+    if fp32:
+        request.getfixturevalue("no_tf32")
+    make = _spatial_inputs_f32 if fp32 else _spatial_inputs
+    x, w1, b1, qs, ks, w2, b2, cos, sin, _, scale = make(_gen(11), dev, n, l, d, m, heads)
+    tol = F32_REL_TOL["K8"] if fp32 else K8_REL_TOL
     kw = {"attn_width": d // size, "partial": True}
+    names = ("tp_partial_launches", "wmma_launches", "f32_tiled_launches", "f32_dot_launches")
+    want_counts = (1, int(route == "wmma"), int(route == "tiled"), int(route == "dot"))
     parts = []
     for r in range(size):
         args = (x, tp.slice_linear1(w1, d, m, size, r), tp.slice_linear1(b1, d, m, size, r), qs,
                 ks, tp.slice_linear2(w2, d, m, size, r), None, cos, sin, heads // size, scale)
-        before = fsb.tp_partial_launches
+        before = [getattr(fsb, name) for name in names]
         got = fsb.fused_spatial_block(*args, **kw)
-        assert fsb.tp_partial_launches == before + 1
+        assert _launched(before, [getattr(fsb, name) for name in names]) == want_counts
         want = fsb.reference_spatial_block(*args, **kw)
         again = fsb.fused_spatial_block(*args, **kw)
         torch.cuda.synchronize()
         assert got.dtype == torch.float32 and got.shape == x.shape
         assert torch.equal(got, again)
+        if fp32:
+            assert torch.equal(got, fsb._launch_f32_dot(*args, **kw))
         err = (got - want).abs().max().item()
-        assert err <= K8_REL_TOL * want.abs().max().item()
+        assert err <= tol * want.abs().max().item()
         parts.append(got)
     whole = fsb.fused_spatial_block(x, w1, b1, qs, ks, w2, b2, cos, sin, heads, scale)
-    summed = (sum(parts[1:], parts[0]).to(torch.bfloat16) + b2).float()
-    assert (summed - whole.float()).abs().max().item() <= K8_REL_TOL * whole.float().abs().max()
+    summed = (sum(parts[1:], parts[0]).to(x.dtype) + b2).float()
+    assert (summed - whole.float()).abs().max().item() <= tol * whole.float().abs().max()
 
 
-def test_sharded_dit_forward_matches_the_whole_one(dev):
+def test_sharded_dit_forward_matches_the_whole_one(dev, no_tf32):
     """A 4AA-width DiT (depth 2) with every block split into two shards in
     this process: the forward within the kernel-vs-plain model limit of the
-    whole model's, K8 launching only its partial instance; an fp32 DiT
-    under tensor parallelism raises on the card."""
+    whole model's, K8 launching only its partial instance; the same in fp32
+    (TF32 off), where the partials run on K8-fp32's outer-product route and
+    the sharded forward is within 1e-5 of the whole one's largest output
+    (only the order of fp32 sums differs)."""
     from lam_slide_tpu_torch.parallel import tp
 
     def make(dtype):
         return LatentDiT(depth=2, in_dim=8, hidden_size=384, num_heads=16, reference_init=False,
                          dtype=dtype, device=dev, generator=_gen(12))
 
-    model = make(torch.bfloat16)
     g = _gen(13)
     x = torch.randn(2, 50, 2, 8, generator=g).to(dev)
     mask = torch.zeros(2, 50, 2, dtype=torch.long, device=dev)
     mask[:, :1] = 1
     t = torch.full((2,), 0.5, device=dev)
-    with torch.no_grad():
-        want = model(x, t, x * mask[..., None], mask)
-        tp.shard_model(model, tp.in_process(2))
-        before = (fsb.launches, fsb.tp_partial_launches)
-        got = model(x, t, x * mask[..., None], mask)
-    assert (fsb.launches - before[0], fsb.tp_partial_launches - before[1]) == (4, 4)
-    assert (got - want).abs().max().item() <= 1e-2 * want.abs().max().item()
-    f32 = tp.shard_model(make(torch.float32), tp.in_process(2))
-    with pytest.raises(NotImplementedError, match="fp32 tensor-parallelism item"):
-        f32(x, t, x, mask)
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        model = make(dtype)
+        with torch.no_grad():
+            want = model(x, t, x * mask[..., None], mask)
+            tp.shard_model(model, tp.in_process(2))
+            before = (fsb.launches, fsb.tp_partial_launches, fsb.f32_tiled_launches)
+            got = model(x, t, x * mask[..., None], mask)
+        launched = _launched(before, (fsb.launches, fsb.tp_partial_launches,
+                                      fsb.f32_tiled_launches))
+        assert launched == (4, 4, 4 if dtype == torch.float32 else 0)
+        assert got.dtype == want.dtype and torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= tol * want.abs().max().item()
 
 
 def test_spatial_block_refuses_a_misaligned_x_on_the_hopper_route(dev):
@@ -1587,28 +1614,11 @@ def test_spatial_block_fp32_tiled_matches_plain_and_the_dot_route(dev, no_tf32, 
     again = fsb.fused_spatial_block(*args)
     assert _launched(counters, (fsb.launches, fsb.f32_launches, fsb.f32_tiled_launches,
                                 fsb.f32_dot_launches)) == (2, 2, 2, 0)
-    x, w1, b1, qs, ks, w2, b2, cos, sin, _, scale = args
-    dot = torch.empty_like(x)
-    _build.launch("lam_spatial_block_f32", *(t.data_ptr() for t in args[:9]), dot.data_ptr(),
-                  n, l, d, m, heads, w1.stride(0), w2.stride(0), scale, plan.group,
-                  torch.cuda.current_stream().cuda_stream)
+    dot = fsb._launch_f32_dot(*args)
     want = fsb.reference_spatial_block(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, again) and torch.equal(got, dot)
     assert _rel_err(got, want) <= F32_REL_TOL["K8"]
-
-
-def _spatial_f32_dot(args):
-    """K8-fp32's dot-product route launched directly on ``args`` (at its own
-    head group, ``f32_group``)."""
-    x, w1, b1, qs, ks, w2, b2, cos, sin, heads, scale = args
-    n, l, d = x.shape
-    m = w1.shape[0] - 3 * d
-    dot = torch.empty_like(x)
-    _build.launch("lam_spatial_block_f32", *(t.data_ptr() for t in args[:9]), dot.data_ptr(),
-                  n, l, d, m, heads, w1.stride(0), w2.stride(0), scale, fsb.f32_group(d, heads),
-                  torch.cuda.current_stream().cuda_stream)
-    return dot
 
 
 @pytest.mark.parametrize("n,l,d,heads", [
@@ -1638,7 +1648,7 @@ def test_spatial_block_fp32_tiled_at_the_pedestrian_and_nba_widths(dev, no_tf32,
     again = fsb.fused_spatial_block(*args)
     assert _launched(counters, (fsb.launches, fsb.f32_launches, fsb.f32_tiled_launches,
                                 fsb.f32_dot_launches)) == (2, 2, 2, 0)
-    dot = _spatial_f32_dot(args)
+    dot = fsb._launch_f32_dot(*args)
     want = fsb.reference_spatial_block(*args)
     torch.cuda.synchronize()
     assert torch.equal(got, again) and torch.equal(got, dot)
@@ -2189,7 +2199,7 @@ def test_spatial_block_at_the_pedestrian_and_nba_widths(dev, no_tf32, workload, 
     tol = K8_REL_TOL if dtype == torch.bfloat16 else F32_REL_TOL["K8"]
     assert _rel_err(got, want) <= tol
     if dtype == torch.float32:
-        assert torch.equal(got, _spatial_f32_dot(args))
+        assert torch.equal(got, fsb._launch_f32_dot(*args))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

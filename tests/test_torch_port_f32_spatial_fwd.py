@@ -176,7 +176,7 @@ def test_k8_f32_w1_stream_at_the_pedestrian_and_nba_widths(workload):
     at a row stride wider than D."""
     d, heads, m, _, _ = PED_NBA[workload]
     group = tsb.f32_plan(100, 2, d, m, heads).group
-    passes = tsb.f32_tiled_passes(d, m, group)
+    passes = tsb.f32_tiled_passes(d, m, group, d)
     assert [len(p) for p in passes] == [3 * group] * (d // group) + [d] * (m // d)
     assert sorted(c for p in passes for c in p) == list(range(3 * d + m))
     for g in range(d // group):
@@ -186,7 +186,7 @@ def test_k8_f32_w1_stream_at_the_pedestrian_and_nba_widths(workload):
     rng = np.random.default_rng(d)
     for stride in (d, d + 4):
         w1 = torch.from_numpy(rng.standard_normal((3 * d + m, stride)).astype(np.float32))
-        index = tsb._w1_stream_index(d, m, group, stride, torch.device("cpu"))
+        index = tsb._w1_stream_index(d, m, group, stride, torch.device("cpu"), d)
         stream = w1.flatten()[index]
         assert stream.shape == ((3 * d + m) * d,)
         off = 0

@@ -359,12 +359,12 @@ def test_fsdp_weight_cache_trap(world):
     d, m, group = 16, 32, 8
     w1 = torch.randn(3 * d + m, d)
     w2 = torch.randn(d, d + m)
-    old = fsb._tiled_operands(w1, w2, d, m, group)[0].clone()
+    old = fsb._tiled_operands(w1, w2, d, m, group, d)[0].clone()
     with torch.no_grad(), torch.autograd._unsafe_preserve_version_counter(w1):
         w1.add_(1.0)  # what FSDP2's all-gather does to the gathered weight
-    assert torch.equal(fsb._tiled_operands(w1, w2, d, m, group)[0], old)  # stale
+    assert torch.equal(fsb._tiled_operands(w1, w2, d, m, group, d)[0], old)  # stale
     fsb.clear_weight_cache()
-    assert torch.equal(fsb._tiled_operands(w1, w2, d, m, group)[0], old + 1.0)
+    assert torch.equal(fsb._tiled_operands(w1, w2, d, m, group, d)[0], old + 1.0)
     for rank in (0, 1):
         fresh = world["ranks"][rank]["cache_trap"]
         assert len(fresh) == 3 and all(fresh)

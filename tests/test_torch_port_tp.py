@@ -31,8 +31,12 @@ x model 2 mesh) spawned by ``parallel.run_ranks`` run
   model and restores into a fresh TP state; a one-rank checkpoint restores
   into a TP state as its slices;
 * TP with FSDP2 raises JAX's message; an fp32 per-rank K8 call on a
-  non-CPU tensor raises naming its ROADMAP item;
-* K8's ``sm90_plan`` at the per-rank widths of every composite.
+  device that is neither the CPU nor CUDA raises, and nothing falls back;
+* K8's routes at the per-rank widths of every composite and of the smoke
+  registries: ``sm90_plan`` (the WMMA route below a Hopper head group) and
+  ``f32_plan`` (the outer-product route at the 4AA splits the card runs),
+  and the outer-product kernel's w1 stream of a rank whose MLP width is
+  below D.
 
 Inputs come from numpy seeds and JAX inits; fp32 on both sides.
 """
@@ -84,6 +88,14 @@ SMEM_MAX = 232448
 COMPOSITE_WIDTHS = [(384, 16), (384, 3), (256, 16), (128, 4)]
 # (hidden, heads, tp) of the 4AA splits this slice runs on the card
 RANK_WIDTHS = [(384, 16, 2), (384, 16, 4), (384, 3, 3)]
+# ... and the ranks below a Hopper head group: 4AA 16 x 24 at tp 8 (Da 48),
+# the pedestrian DiT at tp 4 and NBA at tp 8 (Da 32)
+NARROW_RANKS = [(384, 16, 8), (128, 4, 4), (256, 16, 8)]
+# (hidden, heads, MLP width, tps) of every DiT a rank runs: the composites'
+# and the --smoke registries' hidden 32 (4 heads) and 16 (2 heads), at
+# every tp up to 8 that the layout rule shards
+ALL_RANK_DITS = [(384, 16, 768, (2, 4, 8)), (384, 3, 768, (3,)), (256, 16, 512, (2, 4, 8)),
+                 (128, 4, 256, (2, 4)), (32, 4, 64, (2, 4)), (16, 2, 32, (2,))]
 
 
 def _jb(batch):
@@ -261,7 +273,9 @@ def _rel(got, want):
     return float(np.abs(np.asarray(got) - np.asarray(want)).max() / np.abs(want).max())
 
 
-@pytest.mark.parametrize("d,heads,size", RANK_WIDTHS, ids=["16x24tp2", "16x24tp4", "3x128tp3"])
+@pytest.mark.parametrize("d,heads,size", RANK_WIDTHS + NARROW_RANKS,
+                         ids=["16x24tp2", "16x24tp4", "3x128tp3", "16x24tp8", "ped4x32tp4",
+                              "nba16x16tp8"])
 def test_k8_partials_sum_to_jax(monkeypatch, d, heads, size):
     """The ranks' plain K8 partials, summed, plus b2 against the JAX
     block's composition and its kernel in interpret mode."""
@@ -432,27 +446,46 @@ def test_tp_with_fsdp_raises(world):
 
 
 def test_fp32_rank_block_off_the_cpu_raises():
-    """The per-rank K8 has no fp32 instance: a non-CPU fp32 call raises
-    naming its ROADMAP item, and nothing falls back."""
+    """An fp32 rank's K8 call on a device that is neither the CPU nor CUDA
+    (``meta``) raises ValueError naming the device it wants, and nothing
+    falls back: no counter moves."""
     d, m, heads, size = 384, 768, 16, 2
     f = dict(dtype=torch.float32, device="meta")
     args = (torch.zeros(4, 2, d, **f), torch.zeros(3 * d // size + m // size, d, **f),
             torch.zeros(3 * d // size + m // size, **f), torch.ones(24, **f),
             torch.ones(24, **f), torch.zeros(d, d // size + m // size, **f), None,
             torch.ones(2, 12, **f), torch.ones(2, 12, **f), heads // size, 24 ** -0.5)
-    with pytest.raises(NotImplementedError, match="fp32 tensor-parallelism item"):
+    names = ("launches", "wmma_launches", "f32_launches", "f32_tiled_launches",
+             "f32_dot_launches", "tp_partial_launches")
+    before = [getattr(tsb, name) for name in names]
+    with pytest.raises(ValueError, match="CUDA device"):
         tsb.fused_spatial_block(*args, attn_width=d // size, partial=True)
+    assert [getattr(tsb, name) for name in names] == before
+
+
+def _wmma_smem(d: int, da: int, mr: int) -> int:
+    """Shared memory of the WMMA kernel's block (``Layout`` in
+    csrc/fused_spatial_block.cu) for a rank: the 32-row x tile, the whole
+    linear1 output at sections of S columns, the warps' fp32 scratch."""
+    def align(v):
+        return -(-v // 128) * 128
+    s = -(-da // 16) * 16
+    w_off = align(32 * (d + 8) * 2)
+    c_off = align(w_off + 32 * (3 * s + mr + 8) * 2)
+    return align(c_off + 8 * 16 * 20 * 4)
 
 
 @pytest.mark.parametrize("d,heads", COMPOSITE_WIDTHS)
 def test_sm90_plan_at_rank_widths(d, heads):
-    """K8's Hopper plan at every tp of 2 to 4 that divides the heads and the
+    """K8's Hopper plan at every tp of 2 to 8 that divides the heads and the
     MLP width, wherever a rank's attention width is a whole number of the
     instance's head groups (shared memory within 227 KB); where it is not
-    (the pedestrian DiT at tp 4: 32 columns under a group of 64) there is
-    no plan, and the rank's call raises."""
+    (4AA 16 x 24 at tp 8: 48 columns under a group of 96; the pedestrian
+    DiT at tp 4 and NBA at tp 8: 32 under 64) there is no plan, and the
+    rank's bf16 call takes the WMMA route: its shared memory fits, its
+    sections need no padding."""
     m = 2 * d
-    for size in (2, 3, 4):
+    for size in range(2, 9):
         if heads % size or m % size:
             continue
         da = d // size
@@ -460,9 +493,87 @@ def test_sm90_plan_at_rank_widths(d, heads):
         plan = tsb.sm90_plan(16000 // 2, 2, d, m // size, heads // size, attn_width=da)
         if da % group:
             assert plan is None, (d, heads, size)
+            w1 = torch.zeros(3 * da + m // size, d)
+            w2 = torch.zeros(d, da + m // size)
+            ops = tsb._wmma_operands(w1, w1[:, 0], w2, da, m // size)
+            assert ops[0] is w1 and ops[2] is w2 and ops[3] == da  # Da % 16 == 0
+            assert _wmma_smem(d, da, m // size) <= SMEM_MAX, (d, heads, size)
             continue
         assert plan is not None and plan.smem <= SMEM_MAX, (d, heads, size, plan)
         assert plan == tsb.sm90_plan(8000, 2, d, m, heads)._replace(smem=plan.smem)
+
+
+def test_k8_routes_at_every_rank_width():
+    """Every rank of every DiT a rank runs (``ALL_RANK_DITS``) has a K8
+    route on the card in both dtypes, at L 1, 2 and 8: in fp32 a plan whose
+    shared memory fits, the outer-product kernel at the three 4AA splits of
+    chip_smoke.py's TP_SPLITS (16 x 24 tp 2 and 4, 3 x 128 tp 3) and at NBA
+    tp 2 and 4, the dot-product kernel below an instance's head group; in
+    bf16 the Hopper plan or, where it has none, the WMMA route within its
+    shared memory, the tiny ranks' Da 8 padded to sections of 16 whose
+    added rows and columns are zero and whose kept ones are the weights'."""
+    tiled = {(384, 16, 2), (384, 16, 4), (384, 3, 3), (256, 16, 2), (256, 16, 4)}
+    rng = np.random.default_rng(25)
+    for d, heads, m, sizes in ALL_RANK_DITS:
+        for size in sizes:
+            assert tp.divides(heads, m, size), (d, heads, size)
+            da, mr, h = d // size, m // size, heads // size
+            for l in (1, 2, 8):
+                f32 = tsb.f32_plan(4000, l, d, mr, h, attn_width=da)
+                assert f32 is not None and f32.smem <= SMEM_MAX, (d, heads, size)
+                assert f32.route == ("tiled" if (d, heads, size) in tiled else "dot"), (
+                    d, heads, size, f32)
+                assert da % f32.group == 0 and f32.group % (da // h) == 0
+                if tsb.sm90_plan(4000, l, d, mr, h, attn_width=da) is None:
+                    assert _wmma_smem(d, da, mr) <= SMEM_MAX
+            w1 = torch.from_numpy(rng.standard_normal((3 * da + mr, d)).astype(np.float32))
+            b1 = w1[:, 0].contiguous()
+            w2 = torch.from_numpy(rng.standard_normal((d, da + mr)).astype(np.float32))
+            w1p, b1p, w2p, sec = tsb._wmma_operands(w1, b1, w2, da, mr)
+            assert sec % 16 == 0 and sec - da < 16
+            assert w1p.shape == (3 * sec + mr, d) and w2p.shape == (d, sec + mr)
+            for i in range(3):
+                assert torch.equal(w1p[i * sec:i * sec + da], w1[i * da:(i + 1) * da])
+                assert torch.equal(b1p[i * sec:i * sec + da], b1[i * da:(i + 1) * da])
+                assert not w1p[i * sec + da:(i + 1) * sec].any()
+            assert torch.equal(w1p[3 * sec:], w1[3 * da:])
+            assert torch.equal(w2p[:, :da], w2[:, :da]) and torch.equal(w2p[:, sec:], w2[:, da:])
+            assert not w2p[:, da:sec].any()
+
+
+@pytest.mark.parametrize("d,heads,size", [(384, 16, 4), (384, 3, 3), (256, 16, 4)])
+def test_k8_f32_rank_stream(d, heads, size):
+    """The outer-product kernel's w1 stream of a rank whose MLP width is
+    below D (4AA 16 x 24 tp 4: 192 of 384; 3 x 128 tp 3: 256; NBA tp 4: 128
+    of 256): the rank's head groups' q, k and v passes over its Da columns,
+    then one MLP pass of its M/tp columns padded to D with zeros, each
+    32-row slice of a pass one contiguous run holding w1[cols, k0:k0+32]^T;
+    w2^T ``[Da + M/tp, D]``; the kept operands are keyed on Da, so the same
+    tensors at another Da get a stream of their own."""
+    m = 2 * d
+    da, mr, h = d // size, m // size, heads // size
+    group = tsb.f32_plan(100, 2, d, mr, h, attn_width=da).group
+    passes = tsb.f32_tiled_passes(d, mr, group, da)
+    assert [len(p) for p in passes] == [3 * group] * (da // group) + [mr]
+    assert sorted(c for p in passes for c in p) == list(range(3 * da + mr))
+    rng = np.random.default_rng(d + size)
+    w1 = torch.from_numpy(rng.standard_normal((3 * da + mr, d)).astype(np.float32))
+    w2 = torch.from_numpy(rng.standard_normal((d, da + mr)).astype(np.float32))
+    w1s, w2t = tsb._tiled_operands(w1, w2, d, mr, group, da)
+    assert w1s.numel() == (3 * da + d) * d and torch.equal(w2t, w2.t())
+    off = 0
+    for cols in passes:
+        p = max(len(cols), d) if cols[0] >= 3 * da else len(cols)
+        for k0 in range(0, d, 32):
+            run = w1s[off + k0 * p: off + (k0 + 32) * p].view(32, p)
+            assert torch.equal(run[:, :len(cols)], w1[cols, k0:k0 + 32].t())
+            assert not run[:, len(cols):].any()
+        off += d * p
+    assert off == w1s.numel()
+    assert tsb._tiled_operands(w1, w2, d, mr, group, da)[0] is w1s  # kept
+    other = tsb._tiled_operands(w1, w2, d, mr, group, group // 2)  # another Da
+    assert other[0].numel() != w1s.numel()
+    tsb.clear_weight_cache()
 
 
 def test_val_hook_runs_the_sharded_ema(world):
